@@ -1,0 +1,136 @@
+"""Build and load the port's CUDA kernels.
+
+Every `csrc/*.cu` is compiled by nvcc for Hopper (`sm_90a`) into one
+shared library with a plain C interface, loaded with ctypes. The build
+happens at first use, into `tpusched_torch/_build/` (listed in
+.gitignore), and never when a module is imported: machines without
+nvcc (the CPU test hosts) import every module of the package.
+
+Flags: `--fmad=false` keeps nvcc from contracting `a*b + c` into an FMA,
+so each kernel rounds exactly as its plain PyTorch version does (eager
+torch runs the multiply and the add as two kernels); no fast-math, so
+`/` and `sqrtf` stay IEEE. One nvcc per source, all started together,
+then one link.
+
+Every C entry point returns `cudaGetLastError()` after its launch; the
+wrapper raises if it is not 0 (a refused launch never runs, and a later
+synchronize would not report it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+LIB_PATH = BUILD_DIR / "libtpusched_kernels.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+
+# C signature of every entry point (kernels.h). All pointers and the
+# stream are c_void_p: an untyped Python int would be passed as a
+# 32-bit int and cut.
+SIGNATURES = {
+    "tpusched_atom_sat": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                          _P, _P],
+    "tpusched_tableau_cells": [_I, _I, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _P, _P, _P],
+    "tpusched_finalize_static": [_I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "tpusched_parity_scan": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _I, _U, _P, _P, _P, _P],
+}
+
+_lib: "ctypes.CDLL | None" = None
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "port's CUDA kernels are built from tpusched_torch/csrc at first "
+        "use and need the CUDA toolkit"
+    )
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in CSRC.iterdir())
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into LIB_PATH (skipped when it is newer than
+    every source). Raises with nvcc's output if any step fails."""
+    if not _stale():
+        return LIB_PATH
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = sorted(CSRC.glob("*.cu"))
+    procs = []
+    for src in sources:
+        obj = BUILD_DIR / (src.stem + ".o")
+        cmd = [nvcc, *ARCH, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    objs, errors, notes = [], [], []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        text = out.decode(errors="replace")
+        if proc.returncode != 0:
+            errors.append(f"{src.name}: nvcc exit {proc.returncode}\n{text}")
+        else:
+            notes.append(f"{src.name}:\n{text}")
+        objs.append(str(obj))
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    tmp = LIB_PATH.with_suffix(".so.tmp")
+    link = subprocess.run(
+        [nvcc, *ARCH, "-shared", *objs, "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if link.returncode != 0:
+        raise RuntimeError("kernel link failed:\n"
+                           + link.stdout.decode(errors="replace"))
+    tmp.replace(LIB_PATH)
+    (BUILD_DIR / "ptxas.txt").write_text("\n".join(notes))
+    return LIB_PATH
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.tpusched_error_string.argtypes = [_I]
+        handle.tpusched_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point; raise on a nonzero cudaError_t."""
+    handle = lib()
+    err = getattr(handle, name)(*args)
+    if err != 0:
+        msg = handle.tpusched_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg}) at launch")

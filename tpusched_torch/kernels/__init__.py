@@ -1,0 +1,34 @@
+"""Device programs of the port, one module per JAX counterpart.
+
+Each hand-written CUDA kernel has a wrapper that launches it on a CUDA
+tensor and runs its plain PyTorch version on a CPU tensor (the CPU is
+where the tests run; there is no fallback from CUDA to the plain
+version). Each wrapper counts its launches in a `launches` attribute.
+The helpers below are what the wrappers share: argument checks and the
+current stream for the ctypes call.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def check(kernel: str, device: torch.device, t: torch.Tensor,
+          dtype: torch.dtype, shape: Sequence[int]) -> None:
+    """Raise unless t is a contiguous tensor of this dtype and shape on
+    this device: the kernels index raw row-major memory."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: tensor on {t.device}, want {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: dtype {t.dtype}, want {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: shape {tuple(t.shape)}, want "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: tensor is not contiguous")
+
+
+def stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,709 @@
+"""ClusterSnapshot: the cluster state as dataclasses of tensors.
+
+The port of `tpusched/snapshot.py`. The field tree and every dtype are
+the JAX package's, so a snapshot carries across in either direction
+leaf by leaf: `snapshot_from_numpy` takes any object with this field
+tree and numpy leaves (a JAX `ClusterSnapshot` after `jax.device_get`).
+
+Encoding invariants (relied on by every kernel):
+  * -1 is the universal padding id in any id array.
+  * `valid` masks mark live rows; padded rows never win an argmax.
+  * A nodeSelectorTerm with zero atoms is dropped at build (upstream: an
+    empty term matches no objects); a pod with zero valid required
+    terms has no required node affinity (matches all nodes).
+
+`SnapshotBuilder` interns and pads in the JAX builder's order, so the
+same records give identical arrays. This slice covers resources, QoS,
+labels (numeric ones too), taints and tolerations, cordon, nodeSelector
+and required/preferred node affinity. Topology spread, inter-pod
+(anti-)affinity, gangs and PodDisruptionBudgets raise
+NotImplementedError naming the ROADMAP item that ports them; their
+axes (S, G, GP and the per-pod constraint axes) stay zero-sized.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from tpusched_torch.config import (
+    Buckets,
+    DEFAULT_OBSERVED_AVAIL,
+    DEFAULT_SLO_TARGET,
+    EngineConfig,
+    OPERATORS,
+    RESOURCE_PODS,
+    TAINT_EFFECTS,
+    _next_bucket,
+)
+
+_SPREAD_TODO = "ROADMAP A6 (pairwise constraints) ports it"
+_GANG_TODO = "ROADMAP A7 (gangs) ports it"
+_PDB_TODO = "ROADMAP A8 (preemption and PDB budgets) ports it"
+
+
+# ---------------------------------------------------------------------------
+# Host-side spec structures (the "pod spec" surface a caller fills in).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MatchExpression:
+    """One matchExpressions entry: key op values, with the upstream
+    operators In / NotIn / Exists / DoesNotExist / Gt / Lt."""
+
+    key: str
+    op: str
+    values: tuple[str, ...] = ()
+
+    def __post_init__(self):
+        if self.op not in OPERATORS:
+            raise ValueError(f"bad operator {self.op!r}; want one of {OPERATORS}")
+        if self.op in ("Gt", "Lt") and len(self.values) != 1:
+            raise ValueError(f"{self.op} needs exactly one value")
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeSelectorTerm:
+    expressions: tuple[MatchExpression, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class PreferredTerm:
+    weight: float
+    term: NodeSelectorTerm
+
+
+@dataclasses.dataclass(frozen=True)
+class Toleration:
+    key: str = ""           # "" + Exists tolerates everything
+    operator: str = "Equal"  # Equal | Exists
+    value: str = ""
+    effect: str = ""        # "" matches all effects
+
+
+# ---------------------------------------------------------------------------
+# Device-side dataclasses of tensors.
+# ---------------------------------------------------------------------------
+
+
+class _Tree:
+    """A dataclass of tensors (nested ones too) that moves as a whole."""
+
+    def to(self, device) -> Any:
+        """A copy with every leaf on `device`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+        })
+
+
+@dataclasses.dataclass
+class AtomTable(_Tree):
+    """Distinct match-expression atoms across the snapshot."""
+
+    key: torch.Tensor    # [A] int32  key id (-1 pad)
+    op: torch.Tensor     # [A] int8   OP_* code
+    pairs: torch.Tensor  # [A, VA] int32  (key,value)-pair ids for In/NotIn
+    num: torch.Tensor    # [A] f32    numeric bound for Gt/Lt
+    valid: torch.Tensor  # [A] bool
+
+
+@dataclasses.dataclass
+class SigTable(_Tree):
+    """Topology-spread / inter-pod signatures (empty in this slice)."""
+
+    key: torch.Tensor     # [S] int32
+    atoms: torch.Tensor   # [S, AT] int32
+    ns: torch.Tensor      # [S, NSV] int32
+    ns_all: torch.Tensor  # [S] bool
+    valid: torch.Tensor   # [S] bool
+
+
+@dataclasses.dataclass
+class NodeArrays(_Tree):
+    allocatable: torch.Tensor  # [N, R] f32
+    used: torch.Tensor         # [N, R] f32 (requests of bound pods)
+    label_pairs: torch.Tensor  # [N, LN] int32 (-1 pad)
+    label_keys: torch.Tensor   # [N, LN] int32 (-1 pad)
+    label_nums: torch.Tensor   # [N, LN] f32 (numeric label value or NaN)
+    taint_ids: torch.Tensor    # [N, TN] int32 into taint vocab (-1 pad)
+    domain: torch.Tensor       # [N, TK] int32
+    schedulable: torch.Tensor  # [N] bool: false = cordoned
+    valid: torch.Tensor        # [N] bool
+
+
+@dataclasses.dataclass
+class PodArrays(_Tree):
+    requests: torch.Tensor         # [P, R] f32
+    base_priority: torch.Tensor    # [P] f32
+    slo_target: torch.Tensor       # [P] f32
+    observed_avail: torch.Tensor   # [P] f32
+    tolerated: torch.Tensor        # [P, VT] bool
+    label_pairs: torch.Tensor      # [P, LP] int32
+    label_keys: torch.Tensor       # [P, LP] int32
+    req_term_atoms: torch.Tensor   # [P, T, AT] int32 (-1 pad)
+    req_term_valid: torch.Tensor   # [P, T] bool
+    pref_term_atoms: torch.Tensor  # [P, PT, AT] int32
+    pref_term_valid: torch.Tensor  # [P, PT] bool
+    pref_weight: torch.Tensor      # [P, PT] f32
+    ts_key: torch.Tensor           # [P, C] int32
+    ts_max_skew: torch.Tensor      # [P, C] f32
+    ts_when: torch.Tensor          # [P, C] int8
+    ts_sel_atoms: torch.Tensor     # [P, C, AT] int32
+    ts_sig: torch.Tensor           # [P, C] int32
+    ts_valid: torch.Tensor         # [P, C] bool
+    ia_key: torch.Tensor           # [P, IT] int32
+    ia_sel_atoms: torch.Tensor     # [P, IT, AT] int32
+    ia_sig: torch.Tensor           # [P, IT] int32
+    ia_anti: torch.Tensor          # [P, IT] bool
+    ia_required: torch.Tensor      # [P, IT] bool
+    ia_weight: torch.Tensor        # [P, IT] f32
+    ia_valid: torch.Tensor         # [P, IT] bool
+    group: torch.Tensor            # [P] int32 (-1 = none)
+    namespace: torch.Tensor        # [P] int32
+    tolerates_unsched: torch.Tensor  # [P] bool
+    valid: torch.Tensor            # [P] bool
+
+
+@dataclasses.dataclass
+class RunningPodArrays(_Tree):
+    node_idx: torch.Tensor     # [M] int32 (-1 pad)
+    requests: torch.Tensor     # [M, R] f32
+    priority: torch.Tensor     # [M] f32
+    slack: torch.Tensor        # [M] f32
+    label_pairs: torch.Tensor  # [M, LP] int32
+    label_keys: torch.Tensor   # [M, LP] int32
+    anti_sig: torch.Tensor     # [M, IT] int32
+    namespace: torch.Tensor    # [M] int32
+    pdb_group: torch.Tensor    # [M] int32 (-1 = none)
+    valid: torch.Tensor        # [M] bool
+
+
+@dataclasses.dataclass
+class ClusterSnapshot(_Tree):
+    nodes: NodeArrays
+    pods: PodArrays
+    running: RunningPodArrays
+    atoms: AtomTable
+    sigs: SigTable
+    taint_effect: torch.Tensor      # [VT] int8
+    group_min_member: torch.Tensor  # [G] int32
+    pdb_allowed: torch.Tensor       # [GP] f32
+
+
+@dataclasses.dataclass
+class SnapshotMeta:
+    """Host-side decode tables (index -> name); never on the device."""
+
+    node_names: list[str]
+    pod_names: list[str]
+    n_nodes: int
+    n_pods: int
+    n_running: int
+    buckets: Buckets
+    group_names: list[str]
+    running_names: list[str] | None = None
+
+
+def snapshot_from_numpy(tree: Any, cls: type = ClusterSnapshot) -> Any:
+    """The port's snapshot from any object with the `ClusterSnapshot`
+    field tree and numpy (or array-like) leaves — for instance the JAX
+    package's snapshot after `jax.device_get`. Leaves keep their dtype
+    and shape; CPU tensors come out (`.to(device)` moves them)."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        leaf = getattr(tree, f.name)
+        sub = _NESTED.get(f.name) if cls is ClusterSnapshot else None
+        if sub is not None:
+            kw[f.name] = snapshot_from_numpy(leaf, sub)
+        else:
+            kw[f.name] = torch.from_numpy(np.array(leaf, copy=True))
+    return cls(**kw)
+
+
+_NESTED = {
+    "nodes": NodeArrays, "pods": PodArrays, "running": RunningPodArrays,
+    "atoms": AtomTable, "sigs": SigTable,
+}
+
+
+# ---------------------------------------------------------------------------
+# Builder: interning + padding, in the JAX builder's order.
+# ---------------------------------------------------------------------------
+
+
+def _try_float(s: str) -> float:
+    try:
+        return float(s)
+    except (TypeError, ValueError):
+        return float("nan")
+
+
+class _Interner:
+    """String -> id state of one build. Ids are assigned in first-seen
+    order, the JAX builder's order, so both give the same arrays."""
+
+    def __init__(self):
+        self.key_ids: dict[str, int] = {}
+        self.pair_ids: dict[tuple[str, str], int] = {}
+        self.taint_ids: dict[tuple[str, str, str], int] = {}
+        self.atom_ids: dict[tuple, int] = {}
+        self.atoms: list[tuple[int, int, tuple[int, ...], float]] = []
+        self.ns_ids: dict[str, int] = {}
+
+    def kid(self, k: str) -> int:
+        return self.key_ids.setdefault(k, len(self.key_ids))
+
+    def pid(self, k: str, v: str) -> int:
+        return self.pair_ids.setdefault((k, v), len(self.pair_ids))
+
+    def tid(self, k: str, v: str, effect: str) -> int:
+        if effect not in TAINT_EFFECTS:
+            raise ValueError(f"bad taint effect {effect!r}")
+        return self.taint_ids.setdefault((k, v, effect), len(self.taint_ids))
+
+    def nsid(self, ns: str) -> int:
+        return self.ns_ids.setdefault(ns, len(self.ns_ids))
+
+    def aid(self, expr: MatchExpression) -> int:
+        op = OPERATORS.index(expr.op)
+        k = self.kid(expr.key)
+        if expr.op in ("In", "NotIn"):
+            pids = tuple(sorted(self.pid(expr.key, v) for v in expr.values))
+            num = float("nan")
+        elif expr.op in ("Gt", "Lt"):
+            pids = ()
+            num = float(expr.values[0])
+        else:
+            pids = ()
+            num = float("nan")
+        # NaN never equals itself, so non-numeric atoms dedup on None.
+        sig = (k, op, pids, num if num == num else None)
+        if sig not in self.atom_ids:
+            self.atom_ids[sig] = len(self.atoms)
+            self.atoms.append((k, op, pids, num))
+        return self.atom_ids[sig]
+
+    def compile_pod(self, p: Mapping) -> dict:
+        """Intern the atoms one pending pod references. nodeSelector is
+        ANDed into every required term (or stands alone as one term)."""
+        aid = self.aid
+        sel_atoms = [
+            aid(MatchExpression(k, "In", (v,)))
+            for k, v in sorted(p["node_selector"].items())
+        ]
+        req_terms = []
+        for t in p["required_terms"]:
+            if not t.expressions:
+                continue  # empty term matches no objects -> drop
+            req_terms.append([aid(e) for e in t.expressions] + sel_atoms)
+        if not req_terms and sel_atoms:
+            req_terms = [sel_atoms]
+        pref_terms = [
+            ([aid(e) for e in pt.term.expressions], float(pt.weight))
+            for pt in p["preferred_terms"] if pt.term.expressions
+        ]
+        return dict(req_terms=req_terms, pref_terms=pref_terms)
+
+    def intern_labels(self, labels: Mapping[str, str]) -> None:
+        for k, v in labels.items():
+            self.kid(k)
+            self.pid(k, v)
+
+
+class SnapshotBuilder:
+    """Accumulates node/pod records and emits a padded ClusterSnapshot
+    of CPU tensors. Interning happens in build(), so records may arrive
+    in any order and buckets fit the observed counts."""
+
+    def __init__(self, config: EngineConfig, buckets: Buckets | None = None):
+        self.config = config
+        self.buckets = buckets
+        self._nodes: list[dict] = []
+        self._pods: list[dict] = []
+        self._running: list[dict] = []
+
+    def add_node(
+        self,
+        name: str,
+        allocatable: Mapping[str, float],
+        labels: Mapping[str, str] | None = None,
+        taints: Sequence[tuple[str, str, str]] = (),
+        used: Mapping[str, float] | None = None,
+        unschedulable: bool = False,
+    ) -> None:
+        """unschedulable: node.spec.unschedulable (kubectl cordon)."""
+        alloc = dict(allocatable)
+        alloc.setdefault(RESOURCE_PODS, 110.0)  # upstream kubelet default
+        self._nodes.append(
+            dict(name=name, allocatable=alloc, labels=dict(labels or {}),
+                 taints=list(taints), used=dict(used or {}),
+                 unschedulable=bool(unschedulable))
+        )
+
+    def add_pod(
+        self,
+        name: str,
+        requests: Mapping[str, float],
+        priority: float = 0.0,
+        slo_target: float = DEFAULT_SLO_TARGET,
+        observed_avail: float = DEFAULT_OBSERVED_AVAIL,
+        labels: Mapping[str, str] | None = None,
+        node_selector: Mapping[str, str] | None = None,
+        required_terms: Sequence[NodeSelectorTerm] = (),
+        preferred_terms: Sequence[PreferredTerm] = (),
+        tolerations: Sequence[Toleration] = (),
+        topology_spread: Sequence[Any] = (),
+        pod_affinity: Sequence[Any] = (),
+        pod_group: str | None = None,
+        pod_group_min_member: int = 0,
+        namespace: str = "default",
+    ) -> None:
+        if topology_spread:
+            raise NotImplementedError(
+                f"pod {name!r}: topology spread is not ported yet; "
+                + _SPREAD_TODO)
+        if pod_affinity:
+            raise NotImplementedError(
+                f"pod {name!r}: inter-pod (anti-)affinity is not ported "
+                "yet; " + _SPREAD_TODO)
+        if pod_group is not None:
+            raise NotImplementedError(
+                f"pod {name!r}: pod groups (gangs) are not ported yet; "
+                + _GANG_TODO)
+        req = dict(requests)
+        req.setdefault(RESOURCE_PODS, 1.0)
+        self._pods.append(
+            dict(name=name, requests=req, priority=float(priority),
+                 slo_target=float(slo_target),
+                 observed_avail=float(observed_avail),
+                 labels=dict(labels or {}),
+                 node_selector=dict(node_selector or {}),
+                 required_terms=list(required_terms),
+                 preferred_terms=list(preferred_terms),
+                 tolerations=list(tolerations),
+                 namespace=str(namespace) or "default")
+        )
+
+    def add_running_pod(
+        self,
+        node: str,
+        requests: Mapping[str, float],
+        priority: float = 0.0,
+        slack: float = 0.0,
+        labels: Mapping[str, str] | None = None,
+        count_into_used: bool = True,
+        pod_affinity: Sequence[Any] = (),
+        namespace: str = "default",
+        pdb_group: str | None = None,
+        pdb_disruptions_allowed: int = 0,
+    ) -> None:
+        """Only a running pod's required anti-affinity terms affect
+        scheduling (the symmetric rule); the JAX builder ignores its
+        other terms, and so does this one."""
+        if any(t.anti and t.required for t in pod_affinity):
+            raise NotImplementedError(
+                "running pod with required anti-affinity: symmetric "
+                "anti-affinity is not ported yet; " + _SPREAD_TODO)
+        if pdb_group is not None:
+            raise NotImplementedError(
+                "running pod in a PodDisruptionBudget: budgets are not "
+                "ported yet; " + _PDB_TODO)
+        req = dict(requests)
+        req.setdefault(RESOURCE_PODS, 1.0)
+        self._running.append(
+            dict(node=node, requests=req, priority=float(priority),
+                 slack=float(slack), labels=dict(labels or {}),
+                 count_into_used=count_into_used,
+                 namespace=str(namespace) or "default")
+        )
+
+    def build(self) -> tuple[ClusterSnapshot, SnapshotMeta]:
+        cfg = self.config
+        R = len(cfg.resources)
+        n_nodes, n_pods, n_running = (
+            len(self._nodes), len(self._pods), len(self._running))
+
+        intr = _Interner()
+        pod_compiled = [intr.compile_pod(p) for p in self._pods]
+        for nrec in self._nodes:
+            intr.intern_labels(nrec["labels"])
+            for (k, v, e) in nrec["taints"]:
+                intr.tid(k, v, e)
+        for rrec in self._running:
+            intr.intern_labels(rrec["labels"])
+            intr.nsid(rrec["namespace"])
+        for p in self._pods:
+            intr.intern_labels(p["labels"])
+            intr.nsid(p["namespace"])
+        atoms = intr.atoms
+
+        # Buckets start minimal (size-0 feature axes) and grow only to
+        # observed need, by the JAX builder's rules.
+        bk = self.buckets
+        if bk is None:
+            bk = Buckets.minimal(n_pods, n_nodes, n_running)
+        need = dict(
+            node_labels=max((len(n["labels"]) for n in self._nodes), default=0),
+            pod_labels=max(
+                [len(p["labels"]) for p in self._pods]
+                + [len(r["labels"]) for r in self._running] or [0]
+            ),
+            node_taints=max((len(n["taints"]) for n in self._nodes), default=0),
+            atoms=len(atoms),
+            atom_values=max((len(a[2]) for a in atoms), default=0),
+            terms=max((len(pc["req_terms"]) for pc in pod_compiled), default=0),
+            term_atoms=max(
+                [0]
+                + [len(t) for pc in pod_compiled for t in pc["req_terms"]]
+                + [len(t[0]) for pc in pod_compiled for t in pc["pref_terms"]]
+            ),
+            pref_terms=max((len(pc["pref_terms"]) for pc in pod_compiled),
+                           default=0),
+            taint_vocab=len(intr.taint_ids),
+        )
+        grow = {
+            f: max(getattr(bk, f), _ceil_bucket(v))
+            for f, v in need.items() if v > getattr(bk, f)
+        }
+        if grow:
+            bk = dataclasses.replace(bk, **grow)
+        if n_pods > bk.pods or n_nodes > bk.nodes or n_running > bk.running_pods:
+            bk = dataclasses.replace(
+                bk,
+                pods=max(bk.pods, _ceil_bucket(n_pods)),
+                nodes=max(bk.nodes, _ceil_bucket(n_nodes)),
+                running_pods=max(bk.running_pods, _ceil_bucket(n_running)),
+            )
+
+        t = _tables_np(bk)
+        for i, (k, op, pids, num) in enumerate(atoms):
+            t["atom_key"][i] = k
+            t["atom_op"][i] = op
+            t["atom_pairs"][i, : len(pids)] = pids
+            t["atom_num"][i] = num
+            t["atom_valid"][i] = True
+        for (k, v, e), tid in intr.taint_ids.items():
+            t["taint_effect"][tid] = TAINT_EFFECTS.index(e)
+
+        nodes = _nodes_np(bk, R)
+        node_index = {}
+        for i, nrec in enumerate(self._nodes):
+            node_index[nrec["name"]] = i
+            _fill_node_row(nodes, i, nrec, intr, cfg)
+
+        pods = _pods_np(bk, R)
+        for i, (p, pc) in enumerate(zip(self._pods, pod_compiled)):
+            _fill_pod_row(pods, i, p, pc, intr, cfg)
+
+        run = _running_np(bk, R)
+        for i, rrec in enumerate(self._running):
+            ni = node_index[rrec["node"]]
+            run["node_idx"][i] = ni
+            run["valid"][i] = True
+            for r, rn in enumerate(cfg.resources):
+                run["requests"][i, r] = float(rrec["requests"].get(rn, 0.0))
+            run["priority"][i] = rrec["priority"]
+            run["slack"][i] = rrec["slack"]
+            for j, (k, v) in enumerate(sorted(rrec["labels"].items())):
+                run["label_keys"][i, j] = intr.key_ids[k]
+                run["label_pairs"][i, j] = intr.pair_ids[(k, v)]
+            run["namespace"][i] = intr.ns_ids[rrec["namespace"]]
+            # Counted requests fold into the node's used row in record
+            # order, the JAX builder's summation order.
+            if rrec["count_into_used"]:
+                for r, rn in enumerate(cfg.resources):
+                    nodes["used"][ni, r] += float(
+                        rrec["requests"].get(rn, 0.0))
+
+        snap = ClusterSnapshot(
+            nodes=_dc(NodeArrays, nodes),
+            pods=_dc(PodArrays, pods),
+            running=_dc(RunningPodArrays, run),
+            atoms=AtomTable(key=_t(t["atom_key"]), op=_t(t["atom_op"]),
+                            pairs=_t(t["atom_pairs"]), num=_t(t["atom_num"]),
+                            valid=_t(t["atom_valid"])),
+            # No signature, group or budget is ever filled (the
+            # builder refuses those features); explicit buckets still
+            # size the padding as the JAX builder does.
+            sigs=SigTable(
+                key=_t(np.full(bk.signatures, -1, np.int32)),
+                atoms=_t(np.full((bk.signatures, bk.term_atoms), -1,
+                                 np.int32)),
+                ns=_t(np.full((bk.signatures, bk.sig_namespaces), -1,
+                              np.int32)),
+                ns_all=_t(np.zeros(bk.signatures, bool)),
+                valid=_t(np.zeros(bk.signatures, bool))),
+            taint_effect=_t(t["taint_effect"]),
+            group_min_member=_t(np.zeros(bk.pod_groups, np.int32)),
+            pdb_allowed=_t(np.zeros(bk.pdb_groups, np.float32)),
+        )
+        meta = SnapshotMeta(
+            node_names=[n["name"] for n in self._nodes],
+            pod_names=[p["name"] for p in self._pods],
+            n_nodes=n_nodes, n_pods=n_pods, n_running=n_running,
+            buckets=bk, group_names=[],
+        )
+        return snap, meta
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(a)
+
+
+def _dc(cls: type, arrays: dict) -> Any:
+    return cls(**{k: _t(v) for k, v in arrays.items()})
+
+
+def _ceil_bucket(x: int) -> int:
+    return _next_bucket(max(x, 1))
+
+
+def _tables_np(bk: Buckets) -> dict:
+    return dict(
+        atom_key=np.full(bk.atoms, -1, np.int32),
+        atom_op=np.zeros(bk.atoms, np.int8),
+        atom_pairs=np.full((bk.atoms, bk.atom_values), -1, np.int32),
+        atom_num=np.full(bk.atoms, np.nan, np.float32),
+        atom_valid=np.zeros(bk.atoms, bool),
+        taint_effect=np.zeros(bk.taint_vocab, np.int8),
+    )
+
+
+def _nodes_np(bk: Buckets, R: int) -> dict:
+    N = bk.nodes
+    return dict(
+        allocatable=np.zeros((N, R), np.float32),
+        used=np.zeros((N, R), np.float32),
+        label_pairs=np.full((N, bk.node_labels), -1, np.int32),
+        label_keys=np.full((N, bk.node_labels), -1, np.int32),
+        label_nums=np.full((N, bk.node_labels), np.nan, np.float32),
+        taint_ids=np.full((N, bk.node_taints), -1, np.int32),
+        domain=np.full((N, bk.topo_keys), -1, np.int32),
+        schedulable=np.zeros(N, bool),
+        valid=np.zeros(N, bool),
+    )
+
+
+def _pods_np(bk: Buckets, R: int) -> dict:
+    P, C, IT, AT = (bk.pods, bk.spread_constraints, bk.affinity_terms,
+                    bk.term_atoms)
+    return dict(
+        requests=np.zeros((P, R), np.float32),
+        base_priority=np.zeros(P, np.float32),
+        slo_target=np.zeros(P, np.float32),
+        observed_avail=np.ones(P, np.float32),
+        tolerated=np.zeros((P, bk.taint_vocab), bool),
+        label_pairs=np.full((P, bk.pod_labels), -1, np.int32),
+        label_keys=np.full((P, bk.pod_labels), -1, np.int32),
+        req_term_atoms=np.full((P, bk.terms, AT), -1, np.int32),
+        req_term_valid=np.zeros((P, bk.terms), bool),
+        pref_term_atoms=np.full((P, bk.pref_terms, AT), -1, np.int32),
+        pref_term_valid=np.zeros((P, bk.pref_terms), bool),
+        pref_weight=np.zeros((P, bk.pref_terms), np.float32),
+        ts_key=np.full((P, C), -1, np.int32),
+        ts_max_skew=np.zeros((P, C), np.float32),
+        ts_when=np.zeros((P, C), np.int8),
+        ts_sel_atoms=np.full((P, C, AT), -1, np.int32),
+        ts_sig=np.full((P, C), -1, np.int32),
+        ts_valid=np.zeros((P, C), bool),
+        ia_key=np.full((P, IT), -1, np.int32),
+        ia_sel_atoms=np.full((P, IT, AT), -1, np.int32),
+        ia_sig=np.full((P, IT), -1, np.int32),
+        ia_anti=np.zeros((P, IT), bool),
+        ia_required=np.zeros((P, IT), bool),
+        ia_weight=np.zeros((P, IT), np.float32),
+        ia_valid=np.zeros((P, IT), bool),
+        group=np.full(P, -1, np.int32),
+        namespace=np.full(P, -1, np.int32),
+        tolerates_unsched=np.zeros(P, bool),
+        valid=np.zeros(P, bool),
+    )
+
+
+def _running_np(bk: Buckets, R: int) -> dict:
+    M = bk.running_pods
+    return dict(
+        node_idx=np.full(M, -1, np.int32),
+        requests=np.zeros((M, R), np.float32),
+        priority=np.zeros(M, np.float32),
+        slack=np.zeros(M, np.float32),
+        label_pairs=np.full((M, bk.pod_labels), -1, np.int32),
+        label_keys=np.full((M, bk.pod_labels), -1, np.int32),
+        anti_sig=np.full((M, bk.affinity_terms), -1, np.int32),
+        namespace=np.full(M, -1, np.int32),
+        pdb_group=np.full(M, -1, np.int32),
+        valid=np.zeros(M, bool),
+    )
+
+
+def _fill_node_row(nodes: dict, i: int, nrec: dict, intr: _Interner,
+                   cfg: EngineConfig) -> None:
+    """Row i from one node record. `used` is the record's own usage;
+    counted running pods are folded in by build()."""
+    nodes["valid"][i] = True
+    nodes["schedulable"][i] = not nrec["unschedulable"]
+    for r, rn in enumerate(cfg.resources):
+        nodes["allocatable"][i, r] = float(nrec["allocatable"].get(rn, 0.0))
+        nodes["used"][i, r] = float(nrec["used"].get(rn, 0.0))
+    for j, (k, v) in enumerate(sorted(nrec["labels"].items())):
+        nodes["label_keys"][i, j] = intr.key_ids[k]
+        nodes["label_pairs"][i, j] = intr.pair_ids[(k, v)]
+        nodes["label_nums"][i, j] = _try_float(v)
+    for j, (k, v, e) in enumerate(nrec["taints"]):
+        nodes["taint_ids"][i, j] = intr.taint_ids[(k, v, e)]
+
+
+def _fill_pod_row(pods: dict, i: int, p: dict, pc: dict, intr: _Interner,
+                  cfg: EngineConfig) -> None:
+    pods["valid"][i] = True
+    for r, rn in enumerate(cfg.resources):
+        pods["requests"][i, r] = float(p["requests"].get(rn, 0.0))
+    pods["base_priority"][i] = p["priority"]
+    pods["slo_target"][i] = p["slo_target"]
+    pods["observed_avail"][i] = p["observed_avail"]
+    for j, (k, v) in enumerate(sorted(p["labels"].items())):
+        pods["label_keys"][i, j] = intr.key_ids[k]
+        pods["label_pairs"][i, j] = intr.pair_ids[(k, v)]
+    # Tolerations precompiled against the taint vocab.
+    for (tk, tv, te), t in intr.taint_ids.items():
+        pods["tolerated"][i, t] = any(
+            _tolerates(tol, tk, tv, te) for tol in p["tolerations"]
+        )
+    for t, term in enumerate(pc["req_terms"]):
+        pods["req_term_valid"][i, t] = True
+        pods["req_term_atoms"][i, t, : len(term)] = term
+    for t, (term, w) in enumerate(pc["pref_terms"]):
+        pods["pref_term_valid"][i, t] = True
+        pods["pref_term_atoms"][i, t, : len(term)] = term
+        pods["pref_weight"][i, t] = w
+    pods["namespace"][i] = intr.ns_ids[p["namespace"]]
+    pods["tolerates_unsched"][i] = any(
+        _tolerates(tol, "node.kubernetes.io/unschedulable", "", "NoSchedule")
+        for tol in p["tolerations"]
+    )
+
+
+def _tolerates(tol: Toleration, tk: str, tv: str, te: str) -> bool:
+    """Upstream toleration matching: empty key + Exists tolerates
+    everything; key must match otherwise; Exists ignores value, Equal
+    compares it; empty effect matches all."""
+    if tol.operator not in ("Exists", "Equal"):
+        raise ValueError(f"bad toleration operator {tol.operator!r}")
+    if tol.key == "":
+        if tol.operator != "Exists":
+            return False
+        key_ok = True
+    else:
+        key_ok = tol.key == tk
+    if not key_ok:
+        return False
+    if tol.operator == "Equal" and tol.value != tv:
+        return False
+    if tol.effect and tol.effect != te:
+        return False
+    return True

@@ -1,0 +1,183 @@
+"""Synthetic cluster snapshots: the port of `tpusched/synth.py`.
+
+`make_cluster` draws from the numpy generator in exactly the JAX
+generator's sequence, including the draws that decide features this
+slice refuses, so the same seed gives the same cluster (and, through
+the builders, identical arrays). A refused feature raises only when a
+draw actually turns it on.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from tpusched_torch.config import Buckets, EngineConfig
+from tpusched_torch.snapshot import (
+    ClusterSnapshot,
+    MatchExpression,
+    NodeSelectorTerm,
+    PreferredTerm,
+    SnapshotBuilder,
+    SnapshotMeta,
+    Toleration,
+)
+
+ZONES = ("zone-a", "zone-b", "zone-c", "zone-d")
+NODE_CLASSES = (
+    # (cpu millicores, memory bytes)
+    (4000, 16 << 30),
+    (8000, 32 << 30),
+    (16000, 64 << 30),
+    (32000, 128 << 30),
+)
+_APPS = ("web", "db", "cache", "batch")
+
+
+def _refuse(feature: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"make_cluster drew a {feature}: not ported yet; ROADMAP {item} "
+        "ports it")
+
+
+def make_cluster(
+    rng: np.random.Generator,
+    n_pods: int,
+    n_nodes: int,
+    config: EngineConfig | None = None,
+    buckets: Buckets | None = None,
+    initial_utilization: float = 0.3,
+    n_running_per_node: int = 2,
+    with_qos: bool = True,
+    taint_frac: float = 0.0,
+    toleration_frac: float = 0.0,
+    selector_frac: float = 0.0,
+    affinity_frac: float = 0.0,
+    spread_frac: float = 0.0,
+    interpod_frac: float = 0.0,
+    run_anti_frac: float = 0.0,
+    gang_frac: float = 0.0,
+    gang_size: int = 4,
+    keyless_node_frac: float = 0.0,
+    namespace_count: int = 1,
+    pdb_frac: float = 0.0,
+    cordon_frac: float = 0.0,
+    tight_utilization: bool = False,
+) -> tuple[ClusterSnapshot, SnapshotMeta]:
+    """Random cluster; fractions set what share of pods/nodes carry
+    each constraint type (the JAX generator's parameters)."""
+    config = config or EngineConfig()
+    b = SnapshotBuilder(config, buckets)
+
+    zones = [ZONES[i % len(ZONES)] for i in range(n_nodes)]
+    for i in range(n_nodes):
+        cpu, mem = NODE_CLASSES[rng.integers(len(NODE_CLASSES))]
+        labels = {
+            "topology.kubernetes.io/zone": zones[i],
+            "kubernetes.io/hostname": f"node-{i}",
+            "disktype": "ssd" if rng.random() < 0.5 else "hdd",
+            "tier": str(rng.integers(0, 4)),
+        }
+        if rng.random() < keyless_node_frac:
+            del labels["topology.kubernetes.io/zone"]
+        taints = []
+        if rng.random() < taint_frac:
+            taints.append(("dedicated", "batch", "NoSchedule"))
+        if rng.random() < taint_frac / 2:
+            taints.append(("maintenance", "true", "PreferNoSchedule"))
+        b.add_node(
+            f"node-{i}",
+            allocatable={"cpu": float(cpu), "memory": float(mem)},
+            labels=labels,
+            taints=taints,
+            unschedulable=bool(rng.random() < cordon_frac),
+        )
+
+    # Background running pods: requests draw from the node's remaining
+    # capacity, so the initial state is never overcommitted.
+    for i in range(n_nodes):
+        cap_cpu, cap_mem = b._nodes[i]["allocatable"]["cpu"], \
+            b._nodes[i]["allocatable"]["memory"]
+        rem = [cap_cpu, cap_mem]
+        for _ in range(n_running_per_node):
+            want_cpu = int(cap_cpu * initial_utilization
+                           / max(n_running_per_node, 1))
+            want_mem = int(cap_mem * initial_utilization
+                           / max(n_running_per_node, 1))
+            if tight_utilization:
+                cpu_req, mem_req = float(max(100, want_cpu)), float(
+                    max(1 << 28, want_mem)
+                )
+            else:
+                cpu_req = float(rng.integers(100, max(101, want_cpu + 1)))
+                mem_req = float(
+                    rng.integers(1 << 28, max((1 << 28) + 1, want_mem + 1))
+                )
+            cpu_req = min(cpu_req, max(rem[0] - 100.0, 0.0))
+            mem_req = min(mem_req, max(rem[1] - float(1 << 28), 0.0))
+            if cpu_req <= 0 or mem_req <= 0:
+                continue
+            rem[0] -= cpu_req
+            rem[1] -= mem_req
+            if rng.random() < run_anti_frac:
+                raise _refuse("running pod with required anti-affinity", "A6")
+            if rng.random() < pdb_frac:
+                raise _refuse("PodDisruptionBudget", "A8")
+            b.add_running_pod(
+                node=f"node-{i}",
+                requests={"cpu": cpu_req, "memory": mem_req},
+                priority=float(rng.integers(0, 100)),
+                slack=float(rng.uniform(-0.2, 0.3)),
+                labels={"app": _APPS[int(rng.integers(len(_APPS)))]},
+                namespace=f"ns-{rng.integers(namespace_count)}",
+            )
+
+    for i in range(n_pods):
+        app = _APPS[int(rng.integers(len(_APPS)))]
+        kwargs: dict = {}
+        if rng.random() < toleration_frac:
+            kwargs["tolerations"] = [
+                Toleration("dedicated", "Equal", "batch", "NoSchedule")]
+        if rng.random() < selector_frac:
+            kwargs["node_selector"] = {"disktype": "ssd"}
+        if rng.random() < affinity_frac:
+            kwargs["required_terms"] = [NodeSelectorTerm(
+                (MatchExpression("tier", "In", ("0", "1", "2")),))]
+            kwargs["preferred_terms"] = [PreferredTerm(
+                weight=float(rng.integers(1, 100)),
+                term=NodeSelectorTerm(
+                    (MatchExpression("disktype", "In", ("ssd",)),)),
+            )]
+        if rng.random() < spread_frac:
+            raise _refuse("topology spread constraint", "A6")
+        if rng.random() < interpod_frac:
+            raise _refuse("inter-pod (anti-)affinity term", "A6")
+        if gang_frac > 0 and rng.random() < gang_frac:
+            raise _refuse("pod group (gang)", "A7")
+        slo = float(rng.choice([0.0, 0.9, 0.95, 0.99])) if with_qos else 0.0
+        b.add_pod(
+            f"pod-{i}",
+            requests={
+                "cpu": float(rng.integers(100, 4000)),
+                "memory": float(rng.integers(1 << 28, 8 << 30)),
+            },
+            priority=float(rng.integers(0, 1000)),
+            slo_target=slo,
+            observed_avail=float(rng.uniform(0.5, 1.0)),
+            labels={"app": app},
+            namespace=f"ns-{rng.integers(namespace_count)}",
+            **kwargs,
+        )
+    return b.build()
+
+
+def config1_kind_like(rng: np.random.Generator, **kw):
+    """QoS-weighted LeastRequested: 100 pods x 10 nodes (BASELINE
+    config 1, kind-cluster scale)."""
+    return make_cluster(rng, 100, 10, with_qos=True, **kw)
+
+
+def config2_scale(rng: np.random.Generator, n_pods: int = 10_000,
+                  n_nodes: int = 5_000, **kw):
+    """NodeResourcesFit + BalancedAllocation at 10k x 5k (BASELINE
+    config 2)."""
+    return make_cluster(rng, n_pods, n_nodes, n_running_per_node=1, **kw)
