@@ -28,7 +28,7 @@ def test_port_imports_with_jax_blocked():
         "for m in ('jax', 'jaxlib', 'flax', 'tpusched'):\n"
         "    sys.modules[m] = None\n"
         "import tpusched_torch, tpusched_torch.kernels.assign, "
-        "tpusched_torch.synth\n"
+        "tpusched_torch.engine, tpusched_torch.synth\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpusched'))\n"
@@ -74,8 +74,18 @@ def test_engine_cpu_only_when_asked():
         eng.close()
 
 
+def test_fast_engine_without_cuda_raises(monkeypatch):
+    """Fast mode, like parity, runs on the card unless asked for the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(EngineConfig(mode="fast"))
+    assert Engine(EngineConfig(mode="fast"),
+                  device="cpu").device == torch.device("cpu")
+
+
 @pytest.mark.parametrize("kw,exc", [
-    (dict(mode="fast"), NotImplementedError),
+    (dict(mode="fast", preemption=True), NotImplementedError),
     (dict(mode="bogus"), ValueError),
     (dict(tie_break="random"), NotImplementedError),
     (dict(ring_counts=True), ValueError),

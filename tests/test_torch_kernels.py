@@ -6,9 +6,17 @@ Tolerances: the boolean tables and the cell-local f32 tables are exact
 jnp's row max is exact, but XLA on the CPU may contract
 `w_na*na + w_tt*tt` into a fused multiply-add, which eager torch never
 does (the port matches the numpy oracle's rounding instead). The same
-reason holds for the per-pod dynamic score."""
+reason holds for the per-pod dynamic score and the batched one (K5).
+The per-row top-K and seeded pick (K6) are exact. The desirability
+column mean (K7) is bitwise equal to an f32 sum in ascending row order
+and within rtol 1e-6 of the JAX lines, whose column sum XLA orders
+itself. Usage after commits (K8, a whole `_deal_commit`) is held at
+rtol 1e-6: JAX adds the committed requests with a duplicate-index
+scatter-add of unspecified order."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -166,3 +174,243 @@ def test_pod_cycle_plain_matches_jax(name):
                                       tsnap.nodes.used)
         np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6)
+
+
+# -- the fast-mode and ScoreBatch kernels' plain versions (K5-K8) ------------
+
+
+def _round_inputs(name, used_frac=0.3):
+    """One fast round's inputs on both sides: the snapshot, the static
+    context, and a `used` raised by used_frac of allocatable (so the
+    resource filter cuts)."""
+    jsnap, tsnap = _pair(name)
+    jcfg, tcfg = JConfig(mode="fast"), EngineConfig(mode="fast")
+    jsat, jmem = jax_sat_tables(jsnap)
+    jstatic = jassign.precompute_static(jcfg, jsnap, jsat, jmem)
+    tstatic = tassign.precompute_static(tcfg, tsnap, _sat_tables(tsnap))
+    used = (np.asarray(jsnap.nodes.used)
+            + np.float32(used_frac) * np.asarray(jsnap.nodes.allocatable))
+    used = used.astype(np.float32)
+    return jsnap, tsnap, jstatic, tstatic, used
+
+
+def _t_cycle(tsnap, tstatic, used, **kw):
+    return tassign.cycle_plain(
+        tsnap.nodes.allocatable, torch.from_numpy(used), tsnap.pods.requests,
+        tstatic.mask, tstatic.score, tstatic.w_lr, tstatic.w_ba,
+        tstatic.w_ts, tstatic.rw, **kw)
+
+
+@pytest.mark.parametrize("name", sorted(SNAPSHOTS))
+def test_cycle_plain_matches_batched_cycle(name):
+    """K5's plain version against batched_cycle (full width) and
+    _cycle_nosig on a gathered view: feasibility exact, score to f32
+    (rtol 1e-6: XLA's FMA contraction, ROADMAP C1)."""
+    jsnap, tsnap, jstatic, tstatic, used = _round_inputs(name)
+    st0 = jassign.kpair.pair_state_init(jsnap, jstatic.sig_match)
+    jf, js = jassign.batched_cycle(JConfig(), jsnap, jstatic,
+                                   jnp.asarray(used), st0)
+    tf, ts = _t_cycle(tsnap, tstatic, used)
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6)
+    # A view of every other pod, pending cut to the even ones of it.
+    P = tf.shape[0]
+    sel = np.arange(1, P, 2, dtype=np.int32)
+    pend = np.arange(sel.shape[0]) % 2 == 0
+    p = jsnap.pods
+    vf, vs = jassign._cycle_nosig(
+        jsnap.nodes.allocatable, jnp.asarray(used), p.requests[sel],
+        jstatic.mask[sel], jstatic.score[sel], jstatic.w_lr[sel],
+        jstatic.w_ba[sel], jstatic.w_ts[sel], jstatic.rw)
+    vf = np.asarray(vf) & pend[:, None]
+    gf, gm = _t_cycle(tsnap, tstatic, used, rows=torch.from_numpy(sel),
+                      pending=torch.from_numpy(pend), masked=True)
+    np.testing.assert_array_equal(gf.numpy(), vf)
+    want = np.where(vf, np.asarray(vs), -np.inf)
+    np.testing.assert_allclose(gm.numpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(np.isneginf(gm.numpy()), ~vf)
+
+
+def _tie_heavy(seed=0, rows=24, N=16):
+    """Scores on a coarse grid (many ties), -inf holes, one -inf row."""
+    rng = np.random.default_rng(seed)
+    m = rng.integers(0, 4, size=(rows, N)).astype(np.float32) * 25.0
+    m[rng.random((rows, N)) < 0.3] = -np.inf
+    m[3] = -np.inf
+    return m
+
+
+def _masked(name):
+    """A round's masked score block of a snapshot, or the tie-heavy one."""
+    if name == "tie_heavy":
+        return _tie_heavy()
+    _, tsnap, _, tstatic, used = _round_inputs(name)
+    return _t_cycle(tsnap, tstatic, used, masked=True)[1].numpy()
+
+
+@pytest.mark.parametrize("name", ["tie_heavy"] + sorted(SNAPSHOTS))
+@pytest.mark.parametrize("K", [1, 3, 8])
+def test_row_topk_plain_matches_lax_top_k(name, K):
+    """K6's plain version against lax.top_k and pick_node_batch on the
+    same f32 matrix: exact (values, indices, tie order, seeded pick)."""
+    m = _masked(name)
+    K = min(K, m.shape[1])
+    jv, ji = jax.lax.top_k(jnp.asarray(m), K)
+    ids = np.arange(m.shape[0], dtype=np.int32)[::-1].copy()
+    tv, ti, tp = tassign.row_topk_plain(torch.from_numpy(m), K, True, 77,
+                                        torch.from_numpy(ids))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    jp = jassign.pick_node_batch(JConfig(tie_break="seeded", tie_seed=77),
+                                 jnp.asarray(m), jnp.asarray(ids))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    got = tassign.pick_node_batch(
+        EngineConfig(tie_break="seeded", tie_seed=77), torch.from_numpy(m),
+        torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jp))
+
+
+def _jax_desirability(feasible, masked, allowed):
+    """_deal_commit's desirability lines (tpusched/kernels/assign.py
+    :793-814, cum_width=None), as jnp."""
+    ok = jnp.asarray(feasible) & jnp.asarray(allowed)[:, None]
+    n_allowed = jnp.maximum(jnp.asarray(allowed).sum(), 1)
+    desir = jnp.sum(jnp.where(ok, jnp.asarray(masked), 0.0),
+                    axis=0) / n_allowed
+    return np.asarray(jnp.where(jnp.any(ok, axis=0), desir, -jnp.inf))
+
+
+@pytest.mark.parametrize("name", sorted(SNAPSHOTS))
+def test_desirability_plain(name):
+    """K7's plain version: bitwise equal to an f32 sum in ascending row
+    order (the order the kernel fixes), and to the JAX lines at rtol
+    1e-6 (XLA sums the column in an order of its own)."""
+    _, tsnap, _, tstatic, used = _round_inputs(name)
+    f, m = _t_cycle(tsnap, tstatic, used, masked=True)
+    allowed = f.any(dim=1)
+    got = tassign.desirability_plain(f, m, allowed).numpy()
+    fn, mn, an = f.numpy(), m.numpy(), allowed.numpy()
+    acc = np.zeros(fn.shape[1], np.float32)
+    for p in range(fn.shape[0]):
+        acc = acc + np.where(fn[p] & an[p], mn[p], np.float32(0))
+    ok = (fn & an[:, None]).any(axis=0)
+    want = np.where(ok, acc / np.float32(max(an.sum(), 1)), -np.inf)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    np.testing.assert_allclose(got, _jax_desirability(fn, mn, an), rtol=1e-6)
+
+
+def _candidates(tsnap, f, m, allowed, rank, K):
+    """Round inputs of the first sub-step: each pod's candidate list
+    (the dealt node, then its top-K), through the port's _deal_commit
+    with a prefix_commit that records its first call."""
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return tassign.prefix_commit_plain(*args)
+
+    topv, topi, _ = tassign.row_topk_plain(m, K)
+    ops = dataclasses.replace(tassign.PLAIN, prefix_commit=record)
+    out = tassign._deal_commit(
+        tsnap.nodes.allocatable, tsnap.pods.requests, tsnap.nodes.used, f,
+        m, allowed, rank, topv, topi, ops=ops)
+    return calls, out
+
+
+def _np_substep(perm, cand_s, req, alloc, used, choice, ptr, KC):
+    """The JAX sub-step (tpusched/kernels/assign.py:900-957) in numpy, with
+    exact (float64) request prefixes and ascending-rank `used` adds."""
+    P, N = perm.shape[0], alloc.shape[0]
+    act = cand_s < N
+    req_s = np.where(act[:, None], req[perm], 0.0).astype(np.float64)
+    used = used.copy()
+    choice, ptr = choice.copy(), ptr.copy()
+    i = 0
+    while i < P:
+        j = i
+        while j < P and cand_s[j] == cand_s[i]:
+            j += 1
+        if act[i]:
+            n = cand_s[i]
+            within = np.cumsum(req_s[i:j], axis=0)
+            fits = (used[n].astype(np.float64) + within
+                    <= alloc[n].astype(np.float64)).all(axis=1)
+            ok = np.cumprod(fits).astype(bool)
+            for t in range(i, j):
+                q = perm[t]
+                if ok[t - i]:
+                    choice[q], ptr[q] = n, KC
+                    used[n] = used[n] + req[q]
+                elif not fits[t - i]:
+                    ptr[q] += 1
+        i = j
+    return used, choice, ptr
+
+
+@pytest.mark.parametrize("name", sorted(SNAPSHOTS))
+def test_prefix_commit_plain_first_substep(name):
+    """K8's plain version on the first sub-step of a full-width round:
+    the same commits, pointers and usage as the JAX sub-step's formulas
+    (usage to rtol 1e-6: the f32 adds are the same, in rank order, but
+    the check sums the prefixes exactly)."""
+    _, tsnap, _, tstatic, _ = _round_inputs(name, used_frac=0.0)
+    used0 = tsnap.nodes.used.numpy()
+    f, m = _t_cycle(tsnap, tstatic, used0, masked=True)
+    allowed = f.any(dim=1)
+    order = tassign.pop_order(EngineConfig(), tsnap)
+    P = order.shape[0]
+    rank = torch.zeros(P, dtype=torch.int32)
+    rank[order] = torch.arange(P, dtype=torch.int32)
+    K = tassign._fallback_depth(m.shape[1])
+    calls, _ = _candidates(tsnap, f, m, allowed, rank, K)
+    assert calls, "no sub-step ran"
+    perm, cand_s, req, alloc, used, choice, ptr, KC = calls[0]
+    # The sort: (node, rank) ascending, inactive rows (node N) last.
+    N = alloc.shape[0]
+    key = cand_s.long() * P + rank[perm.long()].long()
+    assert (key[1:] > key[:-1]).all()
+    got = tassign.prefix_commit_plain(*calls[0])
+    want = _np_substep(perm.numpy(), cand_s.numpy(), req.numpy(),
+                       alloc.numpy(), used.numpy(), choice.numpy(),
+                       ptr.numpy(), KC)
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    np.testing.assert_array_equal(got[2].numpy(), want[2])
+    np.testing.assert_allclose(got[0].numpy(), want[0], rtol=1e-6)
+    assert (got[1].numpy() >= 0).any()
+    assert (cand_s.numpy() < N).any()
+
+
+@pytest.mark.parametrize("name", sorted(SNAPSHOTS))
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+def test_deal_commit_plain_matches_jax(name, tie_break):
+    """A whole round's dealing + sub-steps + rescue (K6, K7, K8 plain)
+    against the JAX _deal_commit on the same feasible/masked inputs:
+    the same commits and chosen scores, usage to rtol 1e-6 (JAX's
+    duplicate-index scatter-add and column sum round in orders of their
+    own)."""
+    jsnap, tsnap, _, tstatic, _ = _round_inputs(name, used_frac=0.0)
+    used0 = tsnap.nodes.used.numpy()
+    f, m = _t_cycle(tsnap, tstatic, used0, masked=True)
+    allowed = f.any(dim=1)
+    tcfg = EngineConfig(mode="fast", tie_break=tie_break, tie_seed=3)
+    jcfg = JConfig(mode="fast", tie_break=tie_break, tie_seed=3)
+    order = tassign.pop_order(tcfg, tsnap)
+    P, N = m.shape
+    rank = torch.zeros(P, dtype=torch.int32)
+    rank[order] = torch.arange(P, dtype=torch.int32)
+    K = tassign._fallback_depth(N)
+    ids = torch.arange(P, dtype=torch.int32)
+    topv, topi, pick = tassign.row_topk_plain(m, K, tie_break == "seeded",
+                                              3, ids)
+    used2, choice, chosen = tassign._deal_commit(
+        tsnap.nodes.allocatable, tsnap.pods.requests, tsnap.nodes.used, f, m,
+        allowed, rank, topv, topi, tie_pick=pick, ops=tassign.PLAIN)
+    jm = jnp.asarray(m.numpy())
+    jused2, jchoice, jchosen = jassign._deal_commit(
+        jsnap.nodes.allocatable, jsnap.pods.requests, jsnap.nodes.used,
+        jnp.asarray(f.numpy()), jm, jnp.asarray(allowed.numpy()),
+        jnp.asarray(rank.numpy()), K,
+        tie_pick=jassign.pick_node_batch(jcfg, jm, jnp.asarray(ids.numpy())))
+    np.testing.assert_array_equal(choice.numpy(), np.asarray(jchoice))
+    np.testing.assert_array_equal(chosen.numpy(), np.asarray(jchosen))
+    np.testing.assert_allclose(used2.numpy(), np.asarray(jused2), rtol=1e-6)

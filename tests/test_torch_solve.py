@@ -152,14 +152,16 @@ def test_seeded_tiebreak_fuzz(seed):
                                 dict(gang_frac=1.0)])
 def test_unported_snapshot_raises(kw):
     """A spread, inter-pod or gang snapshot (built by the JAX package and
-    carried across) is refused, not solved without its constraints."""
+    carried across) is refused in both modes, not solved without its
+    constraints."""
     jsnap, _ = jsynth.make_cluster(np.random.default_rng(2), 16, 6, **kw)
-    eng = Engine(EngineConfig(), device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A[67]"):
-            eng.solve(snapshot_from_numpy(jax.device_get(jsnap)))
-    finally:
-        eng.close()
+    for mode in ("parity", "fast"):
+        eng = Engine(EngineConfig(mode=mode), device="cpu")
+        try:
+            with pytest.raises(NotImplementedError, match="ROADMAP A[67]"):
+                eng.solve(snapshot_from_numpy(jax.device_get(jsnap)))
+        finally:
+            eng.close()
 
 
 def test_preemption_raises():

@@ -1,15 +1,17 @@
 """tpusched_torch — the PyTorch / CUDA port of tpusched for one NVIDIA H100.
 
 A package of its own beside the JAX reference (`tpusched/`), which it
-never imports. This slice covers the parity-mode `Engine.solve` on
-snapshots without pairwise signatures, gangs or preemption: label
-matching, the static Filter/Score tableau and the exactly-sequential
-commit, each on a CUDA kernel written for Hopper (tpusched_torch/csrc),
-built with nvcc at first use.
+never imports. It covers, for snapshots without pairwise signatures,
+gangs or preemption, `Engine.solve` in parity mode (the
+exactly-sequential commit) and fast mode (batched commit rounds), and
+ScoreBatch (`Engine.score`, `score_top1`, `score_topk`): label matching,
+the static Filter/Score tableau, the batched Filter/Score pass, the
+per-row ranking, the dealing and the commits, each on a CUDA kernel
+written for Hopper (tpusched_torch/csrc), built with nvcc at first use.
 """
 
 from tpusched_torch.config import Buckets, EngineConfig, PluginWeights
-from tpusched_torch.engine import Engine, SolveResult
+from tpusched_torch.engine import Engine, ScoreBatchResult, SolveResult
 from tpusched_torch.snapshot import (
     ClusterSnapshot,
     SnapshotBuilder,
@@ -22,6 +24,7 @@ __all__ = [
     "Engine",
     "EngineConfig",
     "PluginWeights",
+    "ScoreBatchResult",
     "SnapshotBuilder",
     "SolveResult",
     "snapshot_from_numpy",

@@ -48,6 +48,12 @@ SIGNATURES = {
     "tpusched_finalize_static": [_I, _I, _P, _P, _P, _P, _P, _P, _P],
     "tpusched_parity_scan": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _I, _U, _P, _P, _P, _P],
+    "tpusched_cycle": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _I, _P, _P, _P],
+    "tpusched_row_topk": [_I, _I, _I, _P, _I, _U, _P, _P, _P, _P, _P],
+    "tpusched_desirability": [_I, _I, _P, _P, _P, _P, _P],
+    "tpusched_prefix_commit": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _P],
 }
 
 _lib: "ctypes.CDLL | None" = None

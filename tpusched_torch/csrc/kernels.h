@@ -63,6 +63,43 @@ int tpusched_parity_scan(int P, int N, int R, const int* order,
                          float* used, int* assigned, float* chosen,
                          void* stream);
 
+// K5. The batched Filter + Score over a [rows_n, N] block
+// (tpusched/kernels/assign.py batched_cycle / _cycle_nosig at S = 0).
+// rows (may be NULL) maps output row i to pod row rows[i] of mask,
+// sscore, req and the weights; pending (may be NULL) is per output row.
+// masked_out = 1 writes where(feasible, score, -inf), 0 the raw score.
+int tpusched_cycle(int rows_n, int N, int R, const int* rows,
+                   const bool* pending, const bool* mask,
+                   const float* sscore, const float* alloc,
+                   const float* used, const float* req, const float* w_lr,
+                   const float* w_ba, const float* w_ts, const float* rw,
+                   int masked_out, bool* feasible, float* score,
+                   void* stream);
+
+// K6. Per row of masked [rows, N]: the K best (value, index), larger value
+// first and ties to the lower index (topv/topi [rows, K]); with seeded,
+// pick[row] = the (tie_hash(seed, id) % #maxima)-th maximum in node
+// order, id = row_ids[row] (row_ids may be NULL: id = row).
+int tpusched_row_topk(int rows, int N, int K, const float* masked,
+                      int seeded, unsigned int seed, const int* row_ids,
+                      float* topv, int* topi, int* pick, void* stream);
+
+// K7. desir[n] = sum over rows (ascending) of masked where feasible and
+// allowed, over max(#allowed, 1); -inf where no allowed row is feasible.
+int tpusched_desirability(int rows, int N, const bool* feasible,
+                          const float* masked, const bool* allowed,
+                          float* desir, void* stream);
+
+// K8. One capacity-prefix commit sub-step over the (node, rank)-sorted
+// candidates: perm [P] (sorted row -> pod row), cand_s [P] (sorted nodes,
+// N = inactive). Updates used [N, R], choice [P] and ptr [P] in place.
+// Scratch: buf_f [2P] floats, buf_i [2P] ints, fit [P] bytes.
+int tpusched_prefix_commit(int P, int N, int R, int KC, const int* perm,
+                           const int* cand_s, const float* req,
+                           const float* alloc, float* used, int* choice,
+                           int* ptr, float* buf_f, int* buf_i,
+                           unsigned char* fit, void* stream);
+
 #ifdef __cplusplus
 }
 #endif

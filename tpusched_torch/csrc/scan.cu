@@ -21,27 +21,19 @@
 #include <math.h>
 #include <limits.h>
 
+#include "cell.cuh"
 #include "kernels.h"
 
 namespace {
 
+using tpusched::MAX_R;
+using tpusched::ResW;
+using tpusched::beats;
+using tpusched::tie_hash;
+
 constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_R = 8;
 constexpr int SMEM_LIMIT = 220 * 1024;
-
-__device__ __forceinline__ unsigned tie_hash(unsigned seed, unsigned p) {
-  unsigned x = seed * 2654435761u + p * 2246822519u;
-  x ^= x >> 16;
-  x *= 2246822519u;
-  x ^= x >> 13;
-  return x;
-}
-
-// (v1, i1) beats (v2, i2): larger score, then lower node index.
-__device__ __forceinline__ bool beats(float v1, int i1, float v2, int i2) {
-  return v1 > v2 || (v1 == v2 && i1 < i2);
-}
 
 struct PodCtx {
   float rq[MAX_R];
@@ -50,46 +42,18 @@ struct PodCtx {
   const float* st;
 };
 
-// Feasibility and score of one (pod, node) cell; returns false when the
-// node is infeasible (static mask or resource fit).
+// Feasibility and score of one (pod, node) cell (cell.cuh's arithmetic,
+// plus pod_cycle's `+ w_ia * 0`); returns false when the node is
+// infeasible (static mask or resource fit).
 __device__ __forceinline__ bool cell(const PodCtx& c, int n, int R,
                                      const float* used, const float* alloc,
-                                     const float* rw, const float* sel,
-                                     float wsum, float k, float* out) {
+                                     const ResW& w, float* out) {
   if (!c.mask[n]) return false;
   const float* u = used + (long long)n * R;
   const float* a = alloc + (long long)n * R;
-  for (int r = 0; r < R; ++r)
-    if (!(u[r] + c.rq[r] <= a[r])) return false;
-  // least_requested: sum_r w_r * max((alloc-used-req)*100/alloc, 0) / wsum
-  float lr = 0.0f;
-  for (int r = 0; r < R; ++r) {
-    float free_r = (a[r] - u[r]) - c.rq[r];
-    float pr = a[r] > 0.0f ? free_r * 100.0f / a[r] : 0.0f;
-    pr = pr < 0.0f ? 0.0f : pr;
-    lr = lr + pr * rw[r];
-  }
-  lr = lr / wsum;
-  // balanced_allocation: (1 - stddev of the selected fractions) * 100
-  float frac[MAX_R];
-  float mean = 0.0f;
-  for (int r = 0; r < R; ++r) {
-    float f = a[r] > 0.0f ? (u[r] + c.rq[r]) / a[r] : 1.0f;
-    f = fminf(fmaxf(f, 0.0f), 1.0f);
-    frac[r] = f;
-    mean = mean + f * sel[r];
-  }
-  mean = mean / k;
-  float var = 0.0f;
-  for (int r = 0; r < R; ++r) {
-    float d = frac[r] - mean;
-    var = var + (d * d) * sel[r];
-  }
-  var = var / k;
-  float ba = (1.0f - sqrtf(var)) * 100.0f;
-  float s = c.w_lr * lr + c.w_ba * ba;
-  s = s + c.st[n];
-  s = s + c.w_ts * 100.0f;
+  if (!tpusched::cell_fits(u, a, c.rq, R)) return false;
+  float s = tpusched::cell_score(u, a, c.rq, R, w, c.w_lr, c.w_ba, c.st[n],
+                                 c.w_ts);
   s = s + c.w_ia * 0.0f;
   *out = s;
   return true;
@@ -129,16 +93,8 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
     used = su;
     alloc = sa;
   }
-  float rw[MAX_R], sel[MAX_R];
-  float wsum = 0.0f, k = 0.0f;
-  for (int r = 0; r < R; ++r) {
-    rw[r] = rw_g[r];
-    sel[r] = rw[r] > 0.0f ? 1.0f : 0.0f;
-    wsum = wsum + rw[r];
-    k = k + sel[r];
-  }
-  wsum = fmaxf(wsum, 1e-9f);
-  k = fmaxf(k, 1.0f);
+  ResW rwc;
+  tpusched::load_resw(rwc, rw_g, R);
   const int chunk = (N + THREADS - 1) / THREADS;
   const int lo = min(tid * chunk, N), hi = min(lo + chunk, N);
   __syncthreads();
@@ -159,7 +115,7 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
     int bidx = INT_MAX;
     for (int n = lo; n < hi; ++n) {
       float s;
-      if (cell(c, n, R, used, alloc, rw, sel, wsum, k, &s) &&
+      if (cell(c, n, R, used, alloc, rwc, &s) &&
           (bidx == INT_MAX || s > best)) {
         best = s;
         bidx = n;
@@ -205,7 +161,7 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
       int cnt = 0;
       for (int n = lo; n < hi; ++n) {
         float s;
-        if (cell(c, n, R, used, alloc, rw, sel, wsum, k, &s) && s == mx)
+        if (cell(c, n, R, used, alloc, rwc, &s) && s == mx)
           ++cnt;
       }
       int incl = cnt;
@@ -233,7 +189,7 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
         int want = h - excl;
         for (int n = lo; n < hi; ++n) {
           float s;
-          if (cell(c, n, R, used, alloc, rw, sel, wsum, k, &s) && s == mx) {
+          if (cell(c, n, R, used, alloc, rwc, &s) && s == mx) {
             if (want == 0) {
               s_pick = n;
               break;

@@ -1,17 +1,24 @@
-"""Engine: the solve entry point, the port of `tpusched/engine.py`'s
-parity path.
+"""Engine: the entry points, the port of `tpusched/engine.py` for
+snapshots without pairwise signatures, gangs or preemption.
 
-`Engine.solve` runs on the CUDA device unless the caller asks for the
-CPU (`Engine(cfg, device="cpu")`, which only the tests do): snapshot in,
-one flat f32 result buffer out (the JAX engine's layout, decoded by
-`Engine.unpack`), with the chain
+Everything runs on the CUDA device unless the caller asks for the CPU
+(`Engine(cfg, device="cpu")`, which only the tests do).
+
+`Engine.solve` takes a snapshot and returns one flat f32 result buffer
+(the JAX engine's layout, decoded by `Engine.unpack`), through
 
     _sat_tables (K1) -> precompute_static (K2, K3) -> pop_order (sort)
-    -> parity_scan (K4) -> _pack_solve.
+    -> parity_scan (K4)                      [mode="parity"]
+    -> solve_rounds (K5, K6, K7, K8 a round)  [mode="fast"]
+    -> _pack_solve.
 
-The engine starts no thread: `solve` is synchronous and `close` has
-nothing to release. Fast mode (ROADMAP A4), signatures (A6), gangs (A7)
-and preemption (A8) are refused with NotImplementedError.
+`Engine.score`, `score_top1` and `score_topk` (ScoreBatch) run the same
+static front half, then one [P, N] Filter + Score pass (K5) and, for
+the top-k forms, a per-row ranking (K6).
+
+The engine starts no thread: every entry point is synchronous and
+`close` has nothing to release. Signatures (ROADMAP A6), gangs (A7) and
+preemption (A8) are refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,8 +30,14 @@ import numpy as np
 import torch
 
 from tpusched_torch.config import EngineConfig
-from tpusched_torch.kernels.assign import solve_sequential
-from tpusched_torch.kernels.atoms import atom_sat
+from tpusched_torch.kernels.assign import (
+    KERNELS,
+    Ops,
+    RoundStats,
+    score_batch,
+    solve_rounds,
+    solve_sequential,
+)
 from tpusched_torch.snapshot import ClusterSnapshot
 
 
@@ -40,27 +53,39 @@ class SolveResult:
     rounds: int = 0            # P for parity
     evicted: np.ndarray | None = None  # [M] bool (no preemption: False)
     solve_seconds: float = 0.0
+    # Fast mode: device flags the host read to drive the round loops.
+    host_reads: int = 0
 
 
-def _sat_tables(snap: ClusterSnapshot) -> torch.Tensor:
+@dataclasses.dataclass
+class ScoreBatchResult:
+    feasible: np.ndarray       # [P, N] bool
+    scores: np.ndarray         # [P, N] f32
+    solve_seconds: float = 0.0
+
+
+def _sat_tables(snap: ClusterSnapshot, ops: Ops = KERNELS) -> torch.Tensor:
     """Node atom satisfaction [A, N] (K1, transposed). The JAX function
     also returns the member table over pod labels, which only the
     signature paths read (ROADMAP A6); this slice refuses those, so it
     is not built (the JAX program drops it too when S = 0)."""
-    return atom_sat(
+    return ops.atom_sat(
         snap.atoms, snap.nodes.label_pairs, snap.nodes.label_keys,
         snap.nodes.label_nums,
     ).T.contiguous()
 
 
-def solve_core(cfg: EngineConfig, snap: ClusterSnapshot):
-    """(assigned, chosen, used, order, commit_key, rounds, evicted) of
-    the parity solve; commit_key is the rank in pop order, rounds = P."""
-    if cfg.mode != "parity":
-        raise NotImplementedError(
-            f"mode={cfg.mode!r}: fast mode is not ported yet; ROADMAP A4 "
-            "ports it")
-    a, c, u, o, ev = solve_sequential(cfg, snap, _sat_tables(snap))
+def solve_core(cfg: EngineConfig, snap: ClusterSnapshot, ops: Ops = KERNELS,
+               stats: RoundStats | None = None):
+    """(assigned, chosen, used, order, commit_key, rounds, evicted) in
+    either mode. Parity: commit_key is the rank in pop order, rounds = P.
+    Fast: commit_key is each pod's commit round. stats collects the fast
+    loops' host reads (and spans, when it times)."""
+    if cfg.mode == "fast":
+        return solve_rounds(cfg, snap, _sat_tables(snap, ops), ops=ops,
+                            stats=stats)
+    a, c, u, o, ev = solve_sequential(cfg, snap, _sat_tables(snap, ops),
+                                      ops)
     P = a.shape[0]
     rank = torch.zeros(P, dtype=torch.int32, device=o.device)
     rank[o] = torch.arange(P, dtype=torch.int32, device=o.device)
@@ -80,8 +105,40 @@ def _pack_solve(out) -> torch.Tensor:
     ])
 
 
+def score_core(cfg: EngineConfig, snap: ClusterSnapshot, masked: bool = False,
+               ops: Ops = KERNELS):
+    """ScoreBatch on the device: (feasible [P, N], score [P, N]); with
+    masked, the score is -inf at infeasible cells."""
+    return score_batch(cfg, snap, _sat_tables(snap, ops), masked=masked,
+                       ops=ops)
+
+
+def score_top1_core(cfg: EngineConfig, snap: ClusterSnapshot,
+                    ops: Ops = KERNELS):
+    """Each pod's best feasible node (lowest index among the maxima, -1
+    if none), its score and whether any node is feasible, on the
+    device."""
+    _, masked = score_core(cfg, snap, masked=True, ops=ops)
+    topv, topi, _ = ops.row_topk(masked, 1)
+    any_feasible = topv[:, 0] > float("-inf")
+    best = torch.where(any_feasible, topi[:, 0], -1)
+    return best, topv[:, 0], any_feasible
+
+
+def score_topk_core(cfg: EngineConfig, snap: ClusterSnapshot, kb: int,
+                    ops: Ops = KERNELS):
+    """Each pod's kb best feasible nodes, descending, ties to the lower
+    index: (idx [P, kb] int32, -1 past the feasible ones; val [P, kb]
+    f32, 0 there), on the device."""
+    _, masked = score_core(cfg, snap, masked=True, ops=ops)
+    topv, topi, _ = ops.row_topk(masked, kb)
+    ok = torch.isfinite(topv)
+    zero = torch.zeros((), dtype=topv.dtype, device=topv.device)
+    return torch.where(ok, topi, -1), torch.where(ok, topv, zero)
+
+
 class Engine:
-    """Parity-mode scheduling engine on one CUDA device.
+    """Scheduling engine on one CUDA device, in parity or fast mode.
 
     device: "cuda" (the default) or a CUDA device; "cpu" runs every
     kernel's plain version instead, for tests. Without CUDA the default
@@ -95,9 +152,10 @@ class Engine:
         cfg = self.config
         if cfg.mode not in ("parity", "fast"):
             raise ValueError(f"mode={cfg.mode!r}: want 'parity' or 'fast'")
-        if cfg.mode == "fast":
+        if cfg.mode == "fast" and cfg.preemption:
             raise NotImplementedError(
-                "mode='fast' is not ported yet; ROADMAP A4 ports it")
+                "mode='fast' with preemption (the batched preemption "
+                "auction) is not ported yet; ROADMAP A8 ports it")
         if cfg.ring_counts:
             raise ValueError(
                 "ring_counts=True needs a device mesh, which the port "
@@ -143,10 +201,53 @@ class Engine:
         result buffer, which waits for the device."""
         t0 = time.perf_counter()
         dsnap = self.put(snap)
-        buf = _pack_solve(solve_core(self.config, dsnap))
+        stats = RoundStats()
+        buf = _pack_solve(solve_core(self.config, dsnap, stats=stats))
         out = self.unpack(dsnap, buf.cpu().numpy())
+        out.host_reads = stats.host_reads
         out.solve_seconds = time.perf_counter() - t0
         return out
+
+    def score(self, snap: ClusterSnapshot) -> ScoreBatchResult:
+        """ScoreBatch: [P, N] feasibility + normalized weighted scores
+        against the snapshot's usage, no commits."""
+        t0 = time.perf_counter()
+        feasible, scores = score_core(self.config, self.put(snap))
+        return ScoreBatchResult(feasible=feasible.cpu().numpy(),
+                                scores=scores.cpu().numpy(),
+                                solve_seconds=time.perf_counter() - t0)
+
+    def score_top1(self, snap: ClusterSnapshot):
+        """Each pod's best node (-1 if none is feasible), its score and
+        feasibility: (best [P] int32, score [P] f32, feasible [P] bool,
+        seconds). The [P, N] matrix stays on the device."""
+        t0 = time.perf_counter()
+        best, mx, anyf = score_top1_core(self.config, self.put(snap))
+        return (best.cpu().numpy(), mx.cpu().numpy(), anyf.cpu().numpy(),
+                time.perf_counter() - t0)
+
+    @staticmethod
+    def _k_bucket(k: int, n: int) -> int:
+        """The power of two at or above k, at most n: the device ranks
+        this many columns and the caller keeps the first k, which equal
+        a direct top-k (the ranking is a descending sort)."""
+        kb = 1 << (max(int(k), 1) - 1).bit_length()
+        return min(kb, int(n))
+
+    def score_topk(self, snap: ClusterSnapshot, k: int):
+        """Each pod's best k feasible nodes, descending (ties to the
+        lower index), and their scores: (idx [P, k] int32 with -1 where
+        fewer than k are feasible, scores [P, k] f32 with 0 there,
+        seconds)."""
+        k = int(k)
+        N = snap.nodes.valid.shape[0]
+        if not 1 <= k <= N:
+            raise ValueError(f"top_k={k} out of range for {N} node slots")
+        t0 = time.perf_counter()
+        idx, val = score_topk_core(self.config, self.put(snap),
+                                   self._k_bucket(k, N))
+        return (idx[:, :k].cpu().numpy(), val[:, :k].cpu().numpy(),
+                time.perf_counter() - t0)
 
     def close(self) -> None:
         """Nothing to release: the engine holds no thread or handle."""
