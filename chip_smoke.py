@@ -21,6 +21,14 @@ package, and
      gathered), K6 row_topk (K = 8 seeded, kb = 8, beside torch.topk),
      K7 desirability on K5's output, K8 prefix_commit on the first
      sub-step of the first fast round;
+     Then, on the pairwise cluster (d) (BASELINE config 3 at 10 000 x
+     5 000: topology spread and inter-pod affinity), K9 sig_match, K10
+     pair_counts and K11 pairwise_batch against their plain versions
+     (exact) and K4's pairwise variant timed at full size; K4's
+     pairwise variant against its plain version, exactly (assignment,
+     chosen, used and the final pair state), at config 3's own
+     2 000 x 500 for the (d) and (e) mixes (the plain scan would take
+     tens of seconds at full size);
   4. main-path phases, each with every launch counter zeroed just
      before and read just after, requiring each of its kernels to
      launch:
@@ -30,14 +38,26 @@ package, and
      - fast: the same three requests with mode="fast" (K5-K8);
      - ScoreBatch: `Engine.score`, `score_top1` and `score_topk(k=8)`
        on (b) (K5, K6);
+     - pairwise parity: `Engine.solve` on (d), on (d) with the seeded
+       tie-break, and on (e) = (d) plus running anti-affinity holders,
+       three namespaces (`*` and explicit scopes) and key-less nodes
+       (K1-K3, K9, K10, K4's pairwise variant);
+     - pairwise ScoreBatch: `score_top1` and `score_topk(k=8)` on (d),
+       `score_top1` on (e) (K1-K3, K9-K11, K5, K6);
      after each solve a validity audit (no node over capacity, every
      placed pod's static mask true at its node, no padded pod placed)
-     and equality with the same solve through the plain versions on the
-     same CUDA tensors; each ScoreBatch result equal to its plain
+     and, for (a)-(c), equality with the same solve through the plain
+     versions on the same CUDA tensors; for (d) and (e) a pairwise
+     audit instead: K10's recount of the pair state at the final
+     assignment equals the scan's final state bitwise, no placed holder
+     of a required anti term shares its domain with another matching
+     member, and no placed pod sits in a domain holding a required anti
+     term that matches it; each ScoreBatch result equal to its plain
      version;
   5. prints per-stage time breakdowns of one steady parity and one
-     steady fast solve, a JSON line with every kernel's numbers, and,
-     last, the device JSON line.
+     steady fast solve, and of one steady pairwise parity solve on (d),
+     a JSON line with every kernel's numbers, and, last, the device
+     JSON line.
 
 Any failure raises and the exit code is not 0. Without a CUDA device it
 exits 2 and prints no result.
@@ -67,9 +87,10 @@ from tpusched_torch.engine import (
     solve_core,
 )
 from tpusched_torch.kernels import assign as kassign
+from tpusched_torch.kernels import pairwise as kpair
 from tpusched_torch.kernels.atoms import atom_sat, atom_sat_plain
 from tpusched_torch.qos import effective_weights, pressure_of
-from tpusched_torch.synth import config2_scale
+from tpusched_torch.synth import config2_scale, config3_pairwise
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit): HBM3
 # bandwidth and the f32 rate outside the tensor cores. None of these
@@ -80,6 +101,13 @@ F32_OPS_PER_S = 67e12
 PODS, NODES, SEED = 10_000, 5_000, 42
 CONSTRAINED = dict(taint_frac=0.3, toleration_frac=0.3, selector_frac=0.3,
                    affinity_frac=0.3, cordon_frac=0.05)
+# Cell (d) is the JAX bench's pairwise snapshot (seed 43); (e) adds
+# running anti-affinity holders, namespace scopes and key-less nodes.
+PAIR_SEED = 43
+PAIR_EXTRA = dict(run_anti_frac=0.1, namespace_count=3, keyless_node_frac=0.05)
+# config3_pairwise's own size, where K4's pairwise variant is held
+# against its plain version.
+SMALL_PODS, SMALL_NODES = 2_000, 500
 
 # (name, wrapper, source, the JAX function it replaces)
 KERNELS = (
@@ -99,9 +127,26 @@ KERNELS = (
      "tpusched/kernels/assign.py:793"),
     ("prefix_commit", kassign.prefix_commit, "tpusched_torch/csrc/commit.cu",
      "tpusched/kernels/assign.py:894"),
+    ("sig_match", kpair.sig_match, "tpusched_torch/csrc/pairwise.cu",
+     "tpusched/kernels/pairwise.py:85"),
+    ("pair_counts", kpair.pair_counts, "tpusched_torch/csrc/pairwise.cu",
+     "tpusched/kernels/pairwise.py:145"),
+    ("pairwise_batch", kpair.pairwise_batch,
+     "tpusched_torch/csrc/pairwise.cu", "tpusched/kernels/pairwise.py:342"),
+    ("parity_scan_pair", kassign.parity_scan_pair,
+     "tpusched_torch/csrc/scan.cu", "tpusched/kernels/pairwise.py:504"),
 )
 PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                   "parity_scan")
+PAIR_PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
+                       "sig_match", "pair_counts", "parity_scan_pair")
+PAIR_SCORE_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
+                      "sig_match", "pair_counts", "pairwise_batch", "cycle",
+                      "row_topk")
+# Kernels an entry-point call launches at most once (K1 twice with
+# signatures: node labels, then member labels).
+ONCE = ("tableau_cells", "finalize_static", "parity_scan", "sig_match",
+        "pair_counts", "pairwise_batch", "parity_scan_pair")
 FAST_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
                 "row_topk", "desirability", "prefix_commit")
 SCORE_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
@@ -175,14 +220,13 @@ def plain_result(cfg: EngineConfig, dsnap, stats=None):
     return Engine.unpack(dsnap, buf.cpu().numpy())
 
 
-def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
-    """Validity of one solve result, then equality with the plain solve
-    on the same CUDA tensors."""
-    pstats = kassign.RoundStats()
-    want = plain_result(cfg, dsnap, pstats)
+def audit(name: str, cfg: EngineConfig, dsnap, res,
+          compare_plain: bool = True) -> dict:
+    """Validity of one solve result, then (compare_plain) equality with
+    the plain solve on the same CUDA tensors."""
     plain = kassign.PLAIN
     mask = kassign.precompute_static(
-        cfg, dsnap, _sat_tables(dsnap, plain), plain).mask.cpu().numpy()
+        cfg, dsnap, *_sat_tables(dsnap, plain), ops=plain).mask.cpu().numpy()
     pvalid = dsnap.pods.valid.cpu().numpy()
     alloc = dsnap.nodes.allocatable.cpu().numpy()
     a = res.assignment
@@ -202,6 +246,11 @@ def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
     P = a.shape[0]
     if sorted(res.order.tolist()) != list(range(P)):
         raise AssertionError(f"{name}: order is not a permutation")
+    info = {"placed": int(placed.sum()), "valid_pods": int(pvalid.sum())}
+    if not compare_plain:
+        return info
+    pstats = kassign.RoundStats()
+    want = plain_result(cfg, dsnap, pstats)
     for field in ("assignment", "order", "chosen_score", "commit_key",
                   "final_used", "evicted", "rounds"):
         got, exp = getattr(res, field), getattr(want, field)
@@ -211,11 +260,174 @@ def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
     if cfg.mode == "fast" and res.host_reads != pstats.host_reads:
         raise AssertionError(f"{name}: {res.host_reads} host reads, the "
                              f"plain solve {pstats.host_reads}")
-    return {"placed": int(placed.sum()), "valid_pods": int(pvalid.sum())}
+    return info
+
+
+def pair_setup(cfg: EngineConfig, dsnap, ops=kassign.KERNELS):
+    """(static, order, dom_s, initial pair state) of a parity solve with
+    signatures, as solve_sequential builds them."""
+    static = kassign.precompute_static(cfg, dsnap, *_sat_tables(dsnap, ops),
+                                       ops=ops)
+    order = kassign.pop_order(cfg, dsnap)
+    dom_s = kpair.sig_domains(dsnap)
+    st0 = ops.pair_counts(static.sig_match, dom_s, dsnap.running, dsnap.pods)
+    return static, order, dom_s, st0
+
+
+def pair_audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
+    """The pairwise audit of a parity solve with signatures: the scan's
+    final pair state equals K10's recount at the final assignment
+    (bitwise), and the required anti-affinity terms hold in the final
+    placement both ways (numpy, from the recount)."""
+    static, order, dom_s, st0 = pair_setup(cfg, dsnap)
+    a, _, _, st = kassign.parity_scan_pair(cfg, dsnap, static, order, st0,
+                                           dom_s)
+    if not np.array_equal(a.cpu().numpy(), res.assignment):
+        raise AssertionError(f"{name}: a second scan placed differently")
+    rec = kpair.pair_counts(static.sig_match, dom_s, dsnap.running,
+                            dsnap.pods, assigned=a)
+    for field in ("counts", "anti", "match_tot"):
+        if not torch.equal(getattr(rec, field), getattr(st, field)):
+            raise AssertionError(f"{name}: the scan's final {field} differs "
+                                 "from K10's recount at the assignment")
+    match = static.sig_match.cpu().numpy()
+    dom = dom_s.cpu().numpy()
+    counts, anti = rec.counts.cpu().numpy(), rec.anti.cpu().numpy()
+    pods = dsnap.pods
+    ia_sig = pods.ia_sig.cpu().numpy()
+    holds = kpair.pod_anti_holds(pods).cpu().numpy()
+    M = dsnap.running.valid.shape[0]
+    S = dom.shape[0]
+    asg = res.assignment
+    placed = np.nonzero(asg >= 0)[0]
+    mine = match[:, M + placed]                              # [S, Q]
+    own = np.zeros((S, asg.shape[0]), np.int64)              # own holds
+    holders = 0
+    for t in range(ia_sig.shape[1]):
+        sel = placed[holds[placed, t]]
+        holders += sel.shape[0]
+        np.add.at(own, (ia_sig[sel, t], sel), 1)
+        s = ia_sig[sel, t]
+        d = dom[s, asg[sel]]
+        keyed = d >= 0
+        others = (counts[s, np.maximum(d, 0)]
+                  - match[s, M + sel].astype(np.float32))
+        bad = keyed & (others != 0)
+        if bad.any():
+            raise AssertionError(
+                f"{name}: {int(bad.sum())} placed holders of a required "
+                "anti term share their domain with a matching member")
+    d_all = dom[:, asg[placed]]                              # [S, Q]
+    held = np.take_along_axis(anti, np.maximum(d_all, 0), axis=1)
+    others = held - own[:, placed]
+    bad = mine & (d_all >= 0) & (others != 0)
+    if bad.any():
+        raise AssertionError(
+            f"{name}: {int(bad.any(axis=0).sum())} placed pods sit in a "
+            "domain holding a required anti term that matches them")
+    return {"anti_holders": holders, "signatures": S}
 
 
 def counts() -> dict:
     return {name: fn.launches for name, fn, _, _ in KERNELS}
+
+
+def pair_kernel_phase(cfg: EngineConfig, dsnap, small: dict) -> dict:
+    """K9-K11 against their plain versions on the full-size pairwise
+    cell, with times and bounds; K4's pairwise variant timed there and
+    held exactly against its plain version on the 2 000 x 500 snapshots
+    in `small` (name -> (cfg, device snapshot))."""
+    nodes, pods = dsnap.nodes, dsnap.pods
+    out = {}
+    node_sat_t, member_sat_t = _sat_tables(dsnap)
+    member_ns = kpair.merge_members(dsnap.running.namespace, pods.namespace)
+    # K9
+    args9 = (member_sat_t, dsnap.sigs, member_ns)
+    sm = kpair.sig_match(*args9)
+    err = require_equal("sig_match", [sm], [kpair.sig_match_plain(*args9)])
+    A, X = member_sat_t.shape
+    S, AT = dsnap.sigs.atoms.shape
+    NS = dsnap.sigs.ns.shape[1]
+    b9 = nbytes(member_sat_t, *vars(dsnap.sigs).values(), member_ns, sm)
+    out["sig_match"] = dict(
+        err=err, ms=cuda_ms(lambda: kpair.sig_match(*args9), 20),
+        plain_ms=cuda_ms(lambda: kpair.sig_match_plain(*args9), 5),
+        bound=bound(b9, S * X * (AT + NS + 2)),
+        shape=f"S={S} X={X} A={A} AT={AT} NS={NS}")
+    # K10
+    static = kassign.precompute_static(cfg, dsnap, node_sat_t, member_sat_t)
+    order = kassign.pop_order(cfg, dsnap)
+    dom_s = kpair.sig_domains(dsnap)
+    run = dsnap.running
+    args10 = (static.sig_match, dom_s, run, pods)
+    st = kpair.pair_counts(*args10)
+    want = kpair.pair_counts_plain(*args10)
+    err = require_equal("pair_counts", [st.counts, st.anti, st.match_tot],
+                        [want.counts, want.anti, want.match_tot])
+    J, IT = run.anti_sig.shape[1], pods.ia_sig.shape[1]
+    M, P = run.valid.shape[0], pods.valid.shape[0]
+    N = nodes.valid.shape[0]
+    b10 = nbytes(static.sig_match, dom_s, run.node_idx, run.valid,
+                 run.anti_sig, pods.ia_sig, pods.ia_valid, pods.ia_anti,
+                 pods.ia_required, st.counts, st.anti, st.match_tot)
+    out["pair_counts"] = dict(
+        err=err, ms=cuda_ms(lambda: kpair.pair_counts(*args10), 20),
+        plain_ms=cuda_ms(lambda: kpair.pair_counts_plain(*args10), 5),
+        bound=bound(b10, S * X * 3 + M * J + P * IT),
+        shape=f"S={S} N={N} M={M} P={P} J={J} IT={IT}",
+        counted=float(st.counts.sum().item()))
+    # K11
+    args11 = (dsnap, st, static.aff_ok, static.sig_match, dom_s)
+    got = kpair.pairwise_batch(*args11)
+    err = require_equal("pairwise_batch", got,
+                        kpair.pairwise_batch_plain(*args11))
+    C = pods.ts_sig.shape[1]
+    b11 = nbytes(static.aff_ok, nodes.valid, dom_s, static.sig_match,
+                 pods.ts_sig, pods.ts_valid, pods.ts_when, pods.ts_max_skew,
+                 pods.ia_sig, pods.ia_valid, pods.ia_anti, pods.ia_required,
+                 pods.ia_weight, st.counts, st.anti, st.match_tot, *got)
+    cell_ops = C * 6 + IT * 10 + S * 3 + 14
+    out["pairwise_batch"] = dict(
+        err=err, ms=cuda_ms(lambda: kpair.pairwise_batch(*args11), 10),
+        plain_ms=cuda_ms(lambda: kpair.pairwise_batch_plain(*args11), 3),
+        bound=bound(b11, P * N * cell_ops),
+        shape=f"P={P} N={N} S={S} C={C} IT={IT}",
+        pair_ok=int(got[0].sum().item()))
+    # K4's pairwise variant: full-size time, small-size exactness.
+    R = nodes.allocatable.shape[1]
+    scan = kassign.parity_scan_pair(cfg, dsnap, static, order, st, dom_s)
+    b4 = nbytes(static.mask, static.score, static.aff_ok, nodes.allocatable,
+                nodes.used, pods.requests, static.w_lr, static.w_ba,
+                static.w_ts, static.w_ia, static.rw, dom_s, static.sig_match,
+                st.counts, st.anti, st.match_tot, scan[0], scan[1],
+                scan[2]) + 4 * P
+    ms4 = cuda_ms(lambda: kassign.parity_scan_pair(cfg, dsnap, static, order,
+                                                   st, dom_s), 3)
+    err, plain_ms, notes = 0.0, None, []
+    for name, (scfg, ssnap) in small.items():
+        s_static, s_order, s_dom, s_st0 = pair_setup(scfg, ssnap)
+        sargs = (scfg, ssnap, s_static, s_order, s_st0, s_dom)
+        k = kassign.parity_scan_pair(*sargs)
+        t0 = time.perf_counter()
+        p = kassign.parity_scan_pair_plain(*sargs)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        flat = lambda r: [r[0], r[1], r[2], r[3].counts, r[3].anti,
+                          r[3].match_tot]
+        err = max(err, require_equal(f"parity_scan_pair ({name})", flat(k),
+                                     flat(p)))
+        k_ms = cuda_ms(lambda: kassign.parity_scan_pair(*sargs), 3)
+        if plain_ms is None:
+            plain_ms = p_ms
+        notes.append(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, "
+                     f"placed {int((k[0] >= 0).sum().item())}")
+    out["parity_scan_pair"] = dict(
+        err=err, ms=ms4, plain_ms=plain_ms,
+        bound=bound(b4, P * N * (R * 14 + 12 + cell_ops)),
+        shape=f"P={P} N={N} R={R} S={S} C={C} IT={IT}; plain_ms is the "
+              f"first small case; " + "; ".join(notes),
+        placed=int((scan[0] >= 0).sum().item()))
+    return out
 
 
 def kernel_phase(cfg: EngineConfig, dsnap) -> dict:
@@ -304,7 +516,7 @@ def first_substep_args(cfg: EngineConfig, dsnap):
 
     ops = dataclasses.replace(kassign.KERNELS, prefix_commit=record)
     kassign.solve_rounds(dataclasses.replace(cfg, mode="fast"), dsnap,
-                         _sat_tables(dsnap), ops=ops)
+                         _sat_tables(dsnap)[0], ops=ops)
     return calls[0]
 
 
@@ -393,26 +605,43 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order) -> dict:
 
 
 def stage_breakdown(engine: Engine, snap) -> dict:
-    """Device time of each stage of one solve (CUDA events), plus the
-    host-clock transfers at both ends."""
+    """Device time of each stage of one parity solve (CUDA events), plus
+    the host-clock transfers at both ends. With signatures the member
+    label table (K1) and the signature match (K9) join the static stages
+    and the pair state (K10) precedes the pairwise scan."""
     cfg = engine.config
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dsnap = engine.put(snap)
     torch.cuda.synchronize()
     h2d_ms = (time.perf_counter() - t0) * 1e3
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    pairwise = dsnap.sigs.key.shape[0] > 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
     ev[0].record()
-    node_sat_t = _sat_tables(dsnap)
+    node_sat_t, member_sat_t = _sat_tables(dsnap)
     ev[1].record()
     cells = kassign._tableau_cells(dsnap, dsnap.pods, dsnap.nodes, node_sat_t)
     ev[2].record()
     static = kassign.finalize_static(cfg, dsnap, *cells)
     ev[3].record()
-    order = kassign.pop_order(cfg, dsnap)
+    if pairwise:
+        static.sig_match = kpair.sig_match(
+            member_sat_t, dsnap.sigs, kpair.merge_members(
+                dsnap.running.namespace, dsnap.pods.namespace))
     ev[4].record()
-    a, c, u = kassign.parity_scan(cfg, dsnap, static, order)
+    order = kassign.pop_order(cfg, dsnap)
     ev[5].record()
+    if pairwise:
+        dom_s = kpair.sig_domains(dsnap)
+        st0 = kpair.pair_counts(static.sig_match, dom_s, dsnap.running,
+                                dsnap.pods)
+    ev[6].record()
+    if pairwise:
+        a, c, u, _ = kassign.parity_scan_pair(cfg, dsnap, static, order, st0,
+                                              dom_s)
+    else:
+        a, c, u = kassign.parity_scan(cfg, dsnap, static, order)
+    ev[7].record()
     P = a.shape[0]
     rank = torch.zeros(P, dtype=torch.int32, device=a.device)
     rank[order] = torch.arange(P, dtype=torch.int32, device=a.device)
@@ -420,14 +649,17 @@ def stage_breakdown(engine: Engine, snap) -> dict:
                        torch.full((), P, dtype=torch.int32, device=a.device),
                        torch.zeros(dsnap.running.valid.shape[0],
                                    dtype=torch.bool, device=a.device)))
-    ev[6].record()
+    ev[8].record()
     t1 = time.perf_counter()
     buf.cpu()
     d2h_wait_ms = (time.perf_counter() - t1) * 1e3
     names = ("K1 atom_sat (+transpose)", "K2 tableau_cells",
-             "K3 finalize_static (+QoS weights)", "pop_order sort",
-             "K4 parity_scan", "rank + pack")
-    stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+             "K3 finalize_static (+QoS weights)", "K9 sig_match",
+             "pop_order sort", "sig_domains + K10 pair_counts",
+             "K4 parity_scan_pair" if pairwise else "K4 parity_scan",
+             "rank + pack")
+    stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)
+              if pairwise or not n.startswith(("K9", "sig_domains"))}
     return {"h2d_ms_host": h2d_ms, **stages,
             "d2h_wait_ms_host": d2h_wait_ms}
 
@@ -468,12 +700,14 @@ def fast_breakdown(engine: Engine, snap) -> dict:
 def check_launches(name: str, moved: dict, want: tuple[str, ...],
                    has_atoms: bool, calls: int = 1) -> None:
     """Each kernel of the path launched (K1 only with atoms to match),
-    no other kernel; K1-K4 once per entry-point call."""
+    no other kernel; the set-up kernels once per entry-point call (K1
+    twice with signatures)."""
+    k1_calls = 2 if "sig_match" in want else 1
     for k, n in moved.items():
         need = k in want and (k != "atom_sat" or has_atoms)
-        once = k in ("atom_sat", "tableau_cells", "finalize_static",
-                     "parity_scan")
-        if (need and n < 1) or (not need and n) or (once and n > calls):
+        most = (k1_calls * calls if k == "atom_sat"
+                else calls if k in ONCE else None)
+        if (need and n < 1) or (not need and n) or (most and n > most):
             raise AssertionError(f"{name}: kernel {k} launched {n} times "
                                  f"(launches {moved})")
 
@@ -547,6 +781,48 @@ def score_phase(cfg: EngineConfig, snap, smi: str) -> dict:
     return phase_counts
 
 
+def pair_score_phase(requests, smi: str) -> dict:
+    """Pairwise ScoreBatch through the engine (counters zeroed just
+    before, read just after): (label, cfg, snap, forms) requests, each
+    form "top1" or "topk8"; then each result against its plain version
+    on the same CUDA tensors."""
+    for _, fn, _, _ in KERNELS:
+        fn.launches = 0
+    results = []
+    for label, cfg, snap, forms in requests:
+        eng = Engine(cfg)
+        for form in forms:
+            t0 = time.perf_counter()
+            if form == "top1":
+                got = eng.score_top1(snap)[:3]
+            else:
+                got = eng.score_topk(snap, 8)[:2]
+            results.append((label, cfg, eng.put(snap), form, got,
+                            (time.perf_counter() - t0) * 1e3))
+        eng.close()
+    phase_counts = counts()
+    check_launches("pairwise ScoreBatch", phase_counts, PAIR_SCORE_KERNELS,
+                   True, calls=len(results))
+    plain = kassign.PLAIN
+    for label, cfg, dsnap, form, got, wall in results:
+        if form == "top1":
+            want = score_top1_core(cfg, dsnap, ops=plain)
+        else:
+            want = tuple(t[:, :8] for t in score_topk_core(cfg, dsnap, 8,
+                                                           ops=plain))
+        for g, w in zip(got, want):
+            if not np.array_equal(g, w.cpu().numpy()):
+                raise AssertionError(f"pairwise ScoreBatch {label} {form} "
+                                     "differs from its plain version")
+        extra = (f"{int(got[2].sum())} pods with a feasible node"
+                 if form == "top1" else
+                 f"{int((got[0] >= 0).sum())} feasible (pod, rank) slots")
+        log(f"pairwise ScoreBatch {label} {form}: {wall:.3f} ms wall "
+            f"(first call), {extra}, equal to the plain version; {smi}")
+    log(f"pairwise ScoreBatch launches {phase_counts}")
+    return phase_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port "
@@ -583,6 +859,24 @@ def main() -> int:
         f"M={meta_a.buckets.running_pods} A={meta_a.buckets.atoms}; "
         f"(b) A={meta_b.buckets.atoms} T={meta_b.buckets.terms} "
         f"TN={meta_b.buckets.node_taints} VT={meta_b.buckets.taint_vocab}")
+    t0 = time.perf_counter()
+    snap_d, meta_d = config3_pairwise(np.random.default_rng(PAIR_SEED), PODS,
+                                      NODES)
+    snap_e, meta_e = config3_pairwise(np.random.default_rng(PAIR_SEED), PODS,
+                                      NODES, **PAIR_EXTRA)
+    small_d, _ = config3_pairwise(np.random.default_rng(PAIR_SEED),
+                                  SMALL_PODS, SMALL_NODES)
+    small_e, _ = config3_pairwise(np.random.default_rng(PAIR_SEED),
+                                  SMALL_PODS, SMALL_NODES, **PAIR_EXTRA)
+    log(f"pairwise snapshots built on the host: "
+        f"{time.perf_counter() - t0:.3f} s; (d) P={meta_d.buckets.pods} "
+        f"N={meta_d.buckets.nodes} M={meta_d.buckets.running_pods} "
+        f"S={meta_d.buckets.signatures} C={meta_d.buckets.spread_constraints} "
+        f"IT={meta_d.buckets.affinity_terms} A={meta_d.buckets.atoms}; "
+        f"(e) S={meta_e.buckets.signatures} "
+        f"NSV={meta_e.buckets.sig_namespaces} "
+        f"IT={meta_e.buckets.affinity_terms}; small ones "
+        f"{SMALL_PODS}x{SMALL_NODES}")
 
     cfg_first = EngineConfig(mode="parity")
     cfg_seeded = EngineConfig(mode="parity", tie_break="seeded",
@@ -591,6 +885,10 @@ def main() -> int:
 
     # -- kernel phase --------------------------------------------------------
     kp = kernel_phase(cfg_first, engine.put(snap_b))
+    small = {"d 2000x500": (cfg_first, engine.put(small_d)),
+             "d 2000x500 seeded": (cfg_seeded, engine.put(small_d)),
+             "e 2000x500": (cfg_first, engine.put(small_e))}
+    kp.update(pair_kernel_phase(cfg_first, engine.put(snap_d), small))
     for name, r in kp.items():
         lib = (f", torch.topk {r['library_ms']:.4f} ms"
                if r.get("library_ms") is not None else "")
@@ -629,15 +927,39 @@ def main() -> int:
             f"the plain fast solve; {smi}")
     for k, v in score_phase(cfg_first, snap_b, smi).items():
         launches[k] += v
+    pair_cells = (
+        ("d: config3 10000x5000 pairwise", cfg_first, snap_d),
+        ("d seeded: config3 10000x5000, seeded tie-break", cfg_seeded,
+         snap_d),
+        ("e: d + running anti, 3 namespaces, key-less nodes", cfg_first,
+         snap_e))
+    pair_parity, phase_counts = solve_phase("pairwise parity", pair_cells,
+                                            PAIR_PARITY_KERNELS)
+    for k, v in phase_counts.items():
+        launches[k] += v
+    for name, cfg, snap, res, wall_ms, moved in pair_parity:
+        dsnap = engine.put(snap)
+        info = audit(name, cfg, dsnap, res, compare_plain=False)
+        pinfo = pair_audit(name, cfg, dsnap, res)
+        log(f"pairwise parity solve {name}: {wall_ms:.3f} ms wall, placed "
+            f"{info['placed']}/{info['valid_pods']}, launches {moved}, "
+            f"audit clean, pairwise audit clean (S={pinfo['signatures']}, "
+            f"{pinfo['anti_holders']} placed required-anti holders); {smi}")
+    for k, v in pair_score_phase(
+            (("d", cfg_first, snap_d, ("top1", "topk8")),
+             ("e", cfg_first, snap_e, ("top1",))), smi).items():
+        launches[k] += v
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
 
     # -- steady-state solve time and stage breakdowns -------------------------
-    for mode, breakdown in (("parity", stage_breakdown),
-                            ("fast", fast_breakdown)):
-        for name, cfg, snap in cells[:2]:
+    for mode, breakdown, steady in (("parity", stage_breakdown, cells[:2]),
+                                    ("fast", fast_breakdown, cells[:2]),
+                                    ("parity", stage_breakdown,
+                                     pair_cells[:1])):
+        for name, cfg, snap in steady:
             eng = Engine(dataclasses.replace(cfg, mode=mode))
             walls = []
             for _ in range(5):

@@ -1,7 +1,8 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
 card, at small shapes. Exact: every kernel is built with --fmad=false and
 follows its plain version's order of f32 operations (K7's column sum in
-ascending rows, K8's Hillis-Steele prefix and rank-ordered adds).
+ascending rows, K8's Hillis-Steele prefix and rank-ordered adds; K10's
+atomic adds of 1.0 stay exact integers in any order).
 
 These tests need a CUDA device and nvcc: without a card each one skips.
 The file imports nothing of JAX, so that it runs where the port runs:
@@ -28,6 +29,16 @@ from tpusched_torch.engine import (
     solve_core,
 )
 from tpusched_torch.kernels import assign as ka
+from tpusched_torch.kernels import pairwise as kp
+
+# Pairwise mixes: config 3, and config 3 with running anti-affinity
+# holders, three namespaces and key-less nodes.
+PAIR_MIXES = {
+    "config3": dict(spread_frac=0.5, interpod_frac=0.5),
+    "anti_ns_keyless": dict(spread_frac=0.5, interpod_frac=0.5,
+                            run_anti_frac=0.2, namespace_count=3,
+                            keyless_node_frac=0.1),
+}
 
 
 @pytest.fixture
@@ -55,7 +66,7 @@ def _equal(got, want):
 
 
 def _static(cfg, snap):
-    return ka.precompute_static(cfg, snap, _sat_tables(snap))
+    return ka.precompute_static(cfg, snap, _sat_tables(snap)[0])
 
 
 def test_k1_to_k3_equal_plain(cuda):
@@ -64,7 +75,7 @@ def test_k1_to_k3_equal_plain(cuda):
     args = (snap.atoms, snap.nodes.label_pairs, snap.nodes.label_keys,
             snap.nodes.label_nums)
     _equal([ka.atom_sat(*args)], [ka.atom_sat_plain(*args)])
-    sat = _sat_tables(snap)
+    sat = _sat_tables(snap)[0]
     cells = ka._tableau_cells(snap, snap.pods, snap.nodes, sat)
     _equal(cells, ka._tableau_cells_plain(snap, snap.pods, snap.nodes, sat))
     static = _static(cfg, snap)
@@ -192,3 +203,66 @@ def test_engine_runs_on_the_card(cuda):
         assert (res.assignment >= 0).sum() > 0 and res.host_reads > 0
     finally:
         eng.close()
+
+
+def _pair_snap(cuda, mix, pods=120, nodes=24):
+    snap, _ = tsynth.make_cluster(np.random.default_rng(43), pods, nodes,
+                                  **PAIR_MIXES[mix])
+    return snap.to(cuda)
+
+
+def _pair_setup(cfg, snap):
+    static = ka.precompute_static(cfg, snap, *_sat_tables(snap))
+    dom = kp.sig_domains(snap)
+    return static, dom, kp.pair_counts(static.sig_match, dom, snap.running,
+                                       snap.pods)
+
+
+def _state(st):
+    return [st.counts, st.anti, st.match_tot]
+
+
+@pytest.mark.parametrize("mix", sorted(PAIR_MIXES))
+def test_k9_to_k11_equal_plain(cuda, mix):
+    snap = _pair_snap(cuda, mix)
+    cfg = EngineConfig()
+    _, member_sat_t = _sat_tables(snap)
+    ns = kp.merge_members(snap.running.namespace, snap.pods.namespace)
+    _equal([kp.sig_match(member_sat_t, snap.sigs, ns)],
+           [kp.sig_match_plain(member_sat_t, snap.sigs, ns)])
+    static, dom, st = _pair_setup(cfg, snap)
+    args = (static.sig_match, dom, snap.running, snap.pods)
+    _equal(_state(st), _state(kp.pair_counts_plain(*args)))
+    asg = torch.from_numpy(np.random.default_rng(1).integers(
+        -1, 24, size=snap.pods.valid.shape[0]).astype(np.int32)).to(cuda)
+    _equal(_state(kp.pair_counts(*args, assigned=asg)),
+           _state(kp.pair_counts_plain(*args, assigned=asg)))
+    b = (snap, st, static.aff_ok, static.sig_match, dom)
+    _equal(kp.pairwise_batch(*b), kp.pairwise_batch_plain(*b))
+
+
+@pytest.mark.parametrize("mix", sorted(PAIR_MIXES))
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+def test_k4_pair_equal_plain(cuda, mix, tie_break):
+    snap = _pair_snap(cuda, mix)
+    cfg = EngineConfig(tie_break=tie_break, tie_seed=5)
+    static, dom, st = _pair_setup(cfg, snap)
+    order = ka.pop_order(cfg, snap)
+    got = ka.parity_scan_pair(cfg, snap, static, order, st, dom)
+    want = ka.parity_scan_pair_plain(cfg, snap, static, order, st, dom)
+    _equal(got[:3], want[:3])
+    _equal(_state(got[3]), _state(want[3]))
+    # The final state is K10's recount at the final assignment.
+    _equal(_state(got[3]), _state(kp.pair_counts(
+        static.sig_match, dom, snap.running, snap.pods, assigned=got[0])))
+
+
+@pytest.mark.parametrize("mix", sorted(PAIR_MIXES))
+def test_pairwise_solve_and_score_equal_plain(cuda, mix):
+    snap = _pair_snap(cuda, mix)
+    cfg = EngineConfig()
+    assert torch.equal(_pack_solve(solve_core(cfg, snap)),
+                       _pack_solve(solve_core(cfg, snap, ops=ka.PLAIN)))
+    _equal(score_core(cfg, snap), score_core(cfg, snap, ops=ka.PLAIN))
+    _equal(score_topk_core(cfg, snap, 8),
+           score_topk_core(cfg, snap, 8, ops=ka.PLAIN))

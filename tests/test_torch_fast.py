@@ -180,7 +180,7 @@ def test_tranche_path_valid(seed, tie_break, monkeypatch):
     top = tassign._top_by_rank
     monkeypatch.setattr(tassign, "_top_by_rank",
                         lambda *a: tranches.append(1) or top(*a))
-    tst = tassign.precompute_static(tcfg, tsnap, _sat_tables(tsnap))
+    tst = tassign.precompute_static(tcfg, tsnap, _sat_tables(tsnap)[0])
     torder = tassign.pop_order(tcfg, tsnap)
     trank = torch.zeros(P, dtype=torch.int32)
     trank[torder] = torch.arange(P, dtype=torch.int32)

@@ -28,7 +28,8 @@ def test_port_imports_with_jax_blocked():
         "for m in ('jax', 'jaxlib', 'flax', 'tpusched'):\n"
         "    sys.modules[m] = None\n"
         "import tpusched_torch, tpusched_torch.kernels.assign, "
-        "tpusched_torch.engine, tpusched_torch.synth\n"
+        "tpusched_torch.kernels.pairwise, tpusched_torch.engine, "
+        "tpusched_torch.synth\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpusched'))\n"

@@ -112,7 +112,7 @@ def test_tableau_cells_plain_equals_jax(name):
     jsnap, tsnap = _pair(name)
     jsat, _ = jax_sat_tables(jsnap)
     want = jassign._tableau_cells(jsnap, jsnap.pods, jsnap.nodes, jsat)
-    tsat = _sat_tables(tsnap)
+    tsat = _sat_tables(tsnap)[0]
     got = tassign._tableau_cells(tsnap, tsnap.pods, tsnap.nodes, tsat)
     for field, g, w in zip(("mask", "aff_ok", "na_raw", "tt_count"), got,
                            want):
@@ -127,7 +127,7 @@ def test_finalize_static_plain_matches_jax(name):
     jcfg, tcfg = JConfig(), EngineConfig()
     jsat, jmem = jax_sat_tables(jsnap)
     want = jassign.precompute_static(jcfg, jsnap, jsat, jmem)
-    tsat = _sat_tables(tsnap)
+    tsat = _sat_tables(tsnap)[0]
     got = tassign.precompute_static(tcfg, tsnap, tsat)
     np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
     np.testing.assert_array_equal(got.aff_ok.numpy(), np.asarray(want.aff_ok))
@@ -166,7 +166,7 @@ def test_pod_cycle_plain_matches_jax(name):
     jsat, jmem = jax_sat_tables(jsnap)
     jstatic = jassign.precompute_static(jcfg, jsnap, jsat, jmem)
     jst = jassign.kpair.pair_state_init(jsnap, jstatic.sig_match)
-    tstatic = tassign.precompute_static(tcfg, tsnap, _sat_tables(tsnap))
+    tstatic = tassign.precompute_static(tcfg, tsnap, _sat_tables(tsnap)[0])
     for p in range(int(np.asarray(jsnap.pods.valid).sum())):
         jf, js, _ = jassign.pod_cycle(jcfg, jsnap, jstatic, p,
                                       jsnap.nodes.used, jst)
@@ -187,7 +187,7 @@ def _round_inputs(name, used_frac=0.3):
     jcfg, tcfg = JConfig(mode="fast"), EngineConfig(mode="fast")
     jsat, jmem = jax_sat_tables(jsnap)
     jstatic = jassign.precompute_static(jcfg, jsnap, jsat, jmem)
-    tstatic = tassign.precompute_static(tcfg, tsnap, _sat_tables(tsnap))
+    tstatic = tassign.precompute_static(tcfg, tsnap, _sat_tables(tsnap)[0])
     used = (np.asarray(jsnap.nodes.used)
             + np.float32(used_frac) * np.asarray(jsnap.nodes.allocatable))
     used = used.astype(np.float32)

@@ -174,12 +174,26 @@ def test_score_topk_rejects_bad_k():
         eng.close()
 
 
-def test_score_refuses_signatures():
+def test_score_accepts_signatures():
+    """A spread snapshot, which ScoreBatch refused before the pairwise
+    slice: feasibility equal to the JAX engine's, scores to the
+    oracle's (tests/test_torch_pairwise.py holds more mixes)."""
     jsnap, _ = jsynth.make_cluster(np.random.default_rng(2), 16, 6,
                                    spread_frac=0.6)
+    assert np.asarray(jsnap.sigs.valid).any()
     eng = Engine(EngineConfig(), device="cpu")
+    jeng = JEngine(JConfig())
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            eng.score(snapshot_from_numpy(jsnap))
+        got = eng.score(snapshot_from_numpy(jsnap))
+        want = jeng.score(jsnap)
     finally:
         eng.close()
+        jeng.close()
+    np.testing.assert_array_equal(got.feasible, want.feasible)
+    oracle = Oracle(jsnap, JConfig())
+    used = np.asarray(jsnap.nodes.used)
+    for p in range(int(np.asarray(jsnap.pods.valid).sum())):
+        feasible, score = oracle.feasible_and_score(p, used)
+        np.testing.assert_array_equal(got.feasible[p], feasible)
+        np.testing.assert_array_equal(got.scores[p][feasible],
+                                      score[feasible])

@@ -19,7 +19,6 @@ from tpusched.snapshot import (
     PreferredTerm as JPref,
     SnapshotBuilder as JBuilder,
     Toleration as JTol,
-    TopologySpreadConstraint,
 )
 from tpusched_torch import synth as tsynth
 from tpusched_torch.config import Buckets, EngineConfig
@@ -145,20 +144,14 @@ def test_snapshot_from_numpy_round_trips_jax_snapshot():
     assert_same_arrays(jsnap, tsnap.to("cpu"))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(spread_frac=1.0), dict(interpod_frac=1.0), dict(gang_frac=1.0),
-    dict(run_anti_frac=1.0), dict(pdb_frac=1.0),
-])
+@pytest.mark.parametrize("kw", [dict(gang_frac=1.0), dict(pdb_frac=1.0)])
 def test_generator_refuses_unported_features(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A[678]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A[78]"):
         tsynth.make_cluster(np.random.default_rng(0), 8, 4, **kw)
 
 
 def test_builder_refuses_unported_features():
     b = SnapshotBuilder(EngineConfig())
-    with pytest.raises(NotImplementedError, match="A6"):
-        b.add_pod("p", {"cpu": 1.0}, topology_spread=[
-            TopologySpreadConstraint("zone", 1, "DoNotSchedule")])
     with pytest.raises(NotImplementedError, match="A7"):
         b.add_pod("p", {"cpu": 1.0}, pod_group="g", pod_group_min_member=2)
     with pytest.raises(NotImplementedError, match="A8"):

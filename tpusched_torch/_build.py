@@ -49,11 +49,16 @@ SIGNATURES = {
     "tpusched_parity_scan": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _I, _U, _P, _P, _P, _P],
     "tpusched_cycle": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _I, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "tpusched_row_topk": [_I, _I, _I, _P, _I, _U, _P, _P, _P, _P, _P],
     "tpusched_desirability": [_I, _I, _P, _P, _P, _P, _P],
     "tpusched_prefix_commit": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P],
+    "tpusched_parity_scan_pair": [_I, _I, _I] + [_P] * 10 + [_I, _U]
+                                 + [_I] * 4 + [_P] * 23,
+    "tpusched_sig_match": [_I, _I, _I, _I] + [_P] * 8,
+    "tpusched_pair_counts": [_I] * 6 + [_P] * 14,
+    "tpusched_pairwise_batch": [_I] * 6 + [_P] * 20,
 }
 
 _lib: "ctypes.CDLL | None" = None

@@ -15,6 +15,14 @@
 // the pod's requests and weights in place, not from gathered [C, N]
 // copies. The result is the same either way.
 //
+// With pairwise signatures (S > 0, ScoreBatch) the wrapper passes K11's
+// pair_ok, ts (normalised spread) and ia (normalised inter-pod) [P, N]
+// rows, indexed like mask and static, and the cell is batched_cycle's
+// (assign.py:300-305):
+//   feasible = mask & fit & pair_ok
+//   score    = (((w_lr*LR + w_ba*BA) + static) + w_ts*ts) + w_ia*ia
+// (9 more bytes read per cell).
+//
 // Bound: bytes. A cell reads mask (1 byte) and the static score (4) and
 // writes feasible (1) and the score (4); used/alloc ([N, R]) and the
 // pod's row constants stay in L1/L2. At 10240 x 5120: 0.52 GB, 0.16 ms
@@ -36,7 +44,9 @@ cycle_kernel(int N, int R, const int* __restrict__ rows,
              const float* __restrict__ alloc, const float* __restrict__ used,
              const float* __restrict__ req, const float* __restrict__ w_lr,
              const float* __restrict__ w_ba, const float* __restrict__ w_ts,
-             const float* __restrict__ rw_g, int masked_out,
+             const float* __restrict__ rw_g, const bool* __restrict__ pair_ok,
+             const float* __restrict__ ts, const float* __restrict__ ia,
+             const float* __restrict__ w_ia, int masked_out,
              bool* __restrict__ feasible, float* __restrict__ score) {
   const int i = blockIdx.x;
   const int n = blockIdx.y * THREADS + threadIdx.x;
@@ -50,8 +60,17 @@ cycle_kernel(int N, int R, const int* __restrict__ rows,
   const float* a = alloc + (long long)n * R;
   bool ok = mask[q * N + n] && tpusched::cell_fits(u, a, rq, R);
   if (pending && !pending[i]) ok = false;
-  float s = tpusched::cell_score(u, a, rq, R, w, w_lr[q], w_ba[q],
-                                 sscore[q * N + n], w_ts[q]);
+  float s;
+  if (pair_ok) {
+    if (!pair_ok[q * N + n]) ok = false;
+    s = tpusched::cell_dynamic(u, a, rq, R, w, w_lr[q], w_ba[q]);
+    s = s + sscore[q * N + n];
+    s = s + w_ts[q] * ts[q * N + n];
+    s = s + w_ia[q] * ia[q * N + n];
+  } else {
+    s = tpusched::cell_score(u, a, rq, R, w, w_lr[q], w_ba[q],
+                             sscore[q * N + n], w_ts[q]);
+  }
   const long long o = (long long)i * N + n;
   feasible[o] = ok;
   score[o] = masked_out && !ok ? -INFINITY : s;
@@ -65,12 +84,14 @@ extern "C" int tpusched_cycle(int rows_n, int N, int R, const int* rows,
                               const float* used, const float* req,
                               const float* w_lr, const float* w_ba,
                               const float* w_ts, const float* rw,
+                              const bool* pair_ok, const float* ts,
+                              const float* ia, const float* w_ia,
                               int masked_out, bool* feasible, float* score,
                               void* stream) {
   if (R > tpusched::MAX_R) return (int)cudaErrorInvalidValue;
   dim3 grid(rows_n, (N + THREADS - 1) / THREADS);
   cycle_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       N, R, rows, pending, mask, sscore, alloc, used, req, w_lr, w_ba, w_ts,
-      rw, masked_out, feasible, score);
+      rw, pair_ok, ts, ia, w_ia, masked_out, feasible, score);
   return (int)cudaGetLastError();
 }

@@ -64,17 +64,21 @@ int tpusched_parity_scan(int P, int N, int R, const int* order,
                          void* stream);
 
 // K5. The batched Filter + Score over a [rows_n, N] block
-// (tpusched/kernels/assign.py batched_cycle / _cycle_nosig at S = 0).
-// rows (may be NULL) maps output row i to pod row rows[i] of mask,
-// sscore, req and the weights; pending (may be NULL) is per output row.
-// masked_out = 1 writes where(feasible, score, -inf), 0 the raw score.
+// (tpusched/kernels/assign.py batched_cycle / _cycle_nosig). rows (may be
+// NULL) maps output row i to pod row rows[i] of mask, sscore, req, the
+// weights and the pairwise rows; pending (may be NULL) is per output row.
+// pair_ok, ts, ia ([P, N], K11's outputs) and w_ia are NULL at S = 0,
+// where the spread score is the constant 100 and the inter-pod term is
+// absent. masked_out = 1 writes where(feasible, score, -inf), 0 the raw
+// score.
 int tpusched_cycle(int rows_n, int N, int R, const int* rows,
                    const bool* pending, const bool* mask,
                    const float* sscore, const float* alloc,
                    const float* used, const float* req, const float* w_lr,
                    const float* w_ba, const float* w_ts, const float* rw,
-                   int masked_out, bool* feasible, float* score,
-                   void* stream);
+                   const bool* pair_ok, const float* ts, const float* ia,
+                   const float* w_ia, int masked_out, bool* feasible,
+                   float* score, void* stream);
 
 // K6. Per row of masked [rows, N]: the K best (value, index), larger value
 // first and ties to the lower index (topv/topi [rows, K]); with seeded,
@@ -99,6 +103,59 @@ int tpusched_prefix_commit(int P, int N, int R, int KC, const int* perm,
                            const float* alloc, float* used, int* choice,
                            int* ptr, float* buf_f, int* buf_i,
                            unsigned char* fit, void* stream);
+
+// K4, pairwise variant (tpusched/kernels/assign.py solve_sequential with
+// signatures): the parity scan with pairwise_row and pair_state_add_pod.
+// The pairwise block (S .. ia_weight, then counts, anti, match_tot) is
+// K11's; counts/anti/match_tot hold the initial pair state on entry and
+// the final one on return; pen, raw ([N] floats) and allowed ([N] bytes)
+// are scratch.
+int tpusched_parity_scan_pair(
+    int P, int N, int R, const int* order, const bool* mask,
+    const float* static_score, const float* alloc, const float* requests,
+    const float* w_lr, const float* w_ba, const float* w_ts,
+    const float* w_ia, const float* rw, int seeded, unsigned int seed,
+    int S, int C, int IT, int M, const int* dom, const bool* match,
+    const bool* node_valid, const bool* aff_ok, const int* ts_sig,
+    const bool* ts_valid, const signed char* ts_when,
+    const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
+    const bool* ia_anti, const bool* ia_required, const float* ia_weight,
+    float* counts, float* anti, float* match_tot, float* pen, float* raw,
+    unsigned char* allowed, float* used, int* assigned, float* chosen,
+    void* stream);
+
+// K9. out[s, x] = member x matches signature s (tpusched/kernels/
+// pairwise.py sig_member_match): its selector atoms ([S, AT], -1 pad)
+// all satisfied in member_sat_t [A, X], its namespace in ns [S, NS] or
+// ns_all, and valid[s].
+int tpusched_sig_match(int S, int X, int AT, int NS, const bool* member_sat_t,
+                       const int* atoms, const int* ns, const bool* ns_all,
+                       const bool* valid, const int* member_ns, bool* out,
+                       void* stream);
+
+// K10. The pair state from scratch (pairwise.py pair_state_init, and
+// pair_state_seed when assigned is not NULL): adds into counts [S, N],
+// anti [S, N] and match_tot [S], which must hold zeros on entry.
+int tpusched_pair_counts(int S, int N, int M, int P, int J, int IT,
+                         const bool* match, const int* dom,
+                         const int* run_node, const bool* run_valid,
+                         const int* run_anti_sig, const int* ia_sig,
+                         const bool* ia_valid, const bool* ia_anti,
+                         const bool* ia_required, const int* assigned,
+                         float* counts, float* anti, float* match_tot,
+                         void* stream);
+
+// K11. Every pod's pairwise row against one pair state (pairwise.py
+// pairwise_from_counts, exclude_self_node = NULL, with the two
+// normalisers of score.py): pair_ok [P, N], ts_score and ia_score [P, N].
+int tpusched_pairwise_batch(
+    int P, int N, int S, int C, int IT, int M, const int* dom,
+    const bool* match, const bool* node_valid, const bool* aff_ok,
+    const int* ts_sig, const bool* ts_valid, const signed char* ts_when,
+    const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
+    const bool* ia_anti, const bool* ia_required, const float* ia_weight,
+    const float* counts, const float* anti, const float* match_tot,
+    bool* pair_ok, float* ts_score, float* ia_score, void* stream);
 
 #ifdef __cplusplus
 }

@@ -1,0 +1,203 @@
+// K9 sig_match, K10 pair_counts and K11 pairwise_batch: the pairwise
+// (topology spread + inter-pod affinity) kernels of ScoreBatch and of the
+// parity solve's set-up.
+//
+// K9 replaces tpusched/kernels/pairwise.py:85 sig_member_match (with :71
+// ns_scope_ok and the atoms.gather_term_sat it calls): one thread per
+// (signature s, member x), AND over the selector's atoms (an atom-less
+// selector matches everyone), OR over the namespace list or ns_all, AND
+// sigs.valid. Bound: bytes, [A, M+P] bool in and [S, M+P] bool out.
+//
+// K10 replaces :145 pair_state_init (:110 sig_counts, :127
+// _anti_counts_running) and, given an assignment, :269 pair_state_seed:
+// one thread per member scatters its 0/1 contributions with atomicAdd
+// into counts [S, N], anti [S, N] and match_tot [S], which the wrapper
+// zeroes. Every contribution is 1.0f and every count stays far below 2^24
+// (a cluster has fewer members than that), so each partial sum is an
+// exact integer and the result does not depend on the order of the
+// atomics. Bound: latency of the atomics to a few hot addresses (S is
+// small); the bytes are tiny.
+//
+// K11 replaces :342 pairwise_from_counts (exclude_self_node=None, the
+// ScoreBatch call at tpusched/kernels/assign.py:265 batched_cycle) with
+// :303 symmetric_anti_block and the two normalisers of
+// tpusched/kernels/score.py:118,131: one CTA per pod row. The row's
+// spread minima and maxima and the normalisers' row extents are block
+// reductions in shared memory; the cells are pairwise.cuh's. Outputs:
+// pair_ok [P, N] bool, the normalised spread and inter-pod scores [P, N]
+// f32, which K5 (cycle.cu) then takes in place of its constants 100 and
+// 0. Bound: bytes, 9 written per cell plus aff_ok read (0.52 GB at
+// 10240 x 5120: 0.16 ms at 3.35 TB/s); the counts, domains and the
+// match column stay in L1/L2.
+#include <math.h>
+
+#include "kernels.h"
+#include "pairwise.cuh"
+
+namespace {
+
+using tpusched::PairTerms;
+
+__global__ void sig_match_kernel(int S, int X, int AT, int NS,
+                                 const bool* __restrict__ sat_t,
+                                 const int* __restrict__ atoms,
+                                 const int* __restrict__ ns,
+                                 const bool* __restrict__ ns_all,
+                                 const bool* __restrict__ valid,
+                                 const int* __restrict__ member_ns,
+                                 bool* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)S * X) return;
+  const int s = (int)(i / X), x = (int)(i % X);
+  bool m = valid[s];
+  for (int k = 0; k < AT && m; ++k) {
+    const int a = atoms[s * AT + k];
+    if (a >= 0) m = sat_t[(long long)a * X + x];
+  }
+  if (m && !ns_all[s]) {
+    bool in = false;
+    const int mns = member_ns[x];
+    for (int k = 0; k < NS; ++k) in = in || ns[s * NS + k] == mns;
+    m = in;
+  }
+  out[i] = m;
+}
+
+__global__ void pair_counts_kernel(int S, int N, int M, int P, int J, int IT,
+                                   const bool* __restrict__ match,
+                                   const int* __restrict__ dom,
+                                   const int* __restrict__ run_node,
+                                   const bool* __restrict__ run_valid,
+                                   const int* __restrict__ run_anti_sig,
+                                   const int* __restrict__ ia_sig,
+                                   const bool* __restrict__ ia_valid,
+                                   const bool* __restrict__ ia_anti,
+                                   const bool* __restrict__ ia_required,
+                                   const int* __restrict__ assigned,
+                                   float* counts, float* anti,
+                                   float* match_tot) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int X = M + P;
+  if (x >= X) return;
+  const bool running = x < M;
+  const int node = running ? run_node[x] : (assigned ? assigned[x - M] : -1);
+  const bool live = running ? run_valid[x] : node >= 0;
+  if (!live) return;
+  const long long nc = max(node, 0);
+  for (int s = 0; s < S; ++s) {
+    if (!match[(long long)s * X + x]) continue;
+    atomicAdd(&match_tot[s], 1.0f);
+    const int d = dom[(long long)s * N + nc];
+    if (d >= 0) atomicAdd(&counts[(long long)s * N + d], 1.0f);
+  }
+  if (running) {
+    if (node < 0) return;
+    for (int j = 0; j < J; ++j) {
+      const int s = run_anti_sig[(long long)x * J + j];
+      if (s < 0) continue;
+      const int d = dom[(long long)s * N + nc];
+      if (d >= 0) atomicAdd(&anti[(long long)s * N + d], 1.0f);
+    }
+  } else {
+    const long long p = x - M;
+    for (int t = 0; t < IT; ++t) {
+      const long long pt = p * IT + t;
+      if (!(ia_valid[pt] && ia_anti[pt] && ia_required[pt])) continue;
+      const int s = max(ia_sig[pt], 0);
+      const int d = dom[(long long)s * N + nc];
+      if (d >= 0) atomicAdd(&anti[(long long)s * N + d], 1.0f);
+    }
+  }
+}
+
+constexpr int BATCH_THREADS = 256;
+constexpr int BATCH_WARPS = BATCH_THREADS / 32;
+
+__global__ void __launch_bounds__(BATCH_THREADS)
+pairwise_batch_kernel(PairTerms t, const float* __restrict__ counts,
+                      const float* __restrict__ anti,
+                      const float* __restrict__ match_tot,
+                      bool* __restrict__ pair_ok, float* __restrict__ ts_out,
+                      float* __restrict__ ia_out) {
+  __shared__ float s_lo[BATCH_WARPS], s_hi[BATCH_WARPS];
+  __shared__ float s_cmin[tpusched::MAX_C], s_cmax[tpusched::MAX_C];
+  const int p = blockIdx.x;
+  const int tid = threadIdx.x;
+  const long long row = (long long)p * t.N;
+  tpusched::spread_extents<BATCH_WARPS>(t, counts, p, tid, t.N, BATCH_THREADS,
+                                        s_lo, s_hi, s_cmin, s_cmax);
+  float plo = INFINITY, phi = -INFINITY, rlo = INFINITY, rhi = -INFINITY;
+  for (int n = tid; n < t.N; n += BATCH_THREADS) {
+    float pen, raw;
+    pair_ok[row + n] = tpusched::pair_node(t, counts, anti, match_tot, p, n,
+                                           s_cmin, s_cmax, &pen, &raw);
+    ts_out[row + n] = pen;
+    ia_out[row + n] = raw;
+    if (t.node_valid[n]) {
+      plo = fminf(plo, pen);
+      phi = fmaxf(phi, pen);
+      rlo = fminf(rlo, raw);
+      rhi = fmaxf(rhi, raw);
+    }
+  }
+  tpusched::block_min_max<BATCH_WARPS>(plo, phi, s_lo, s_hi);
+  tpusched::block_min_max<BATCH_WARPS>(rlo, rhi, s_lo, s_hi);
+  // Each thread rereads only the cells it wrote above.
+  for (int n = tid; n < t.N; n += BATCH_THREADS) {
+    ts_out[row + n] = tpusched::inverse_norm(ts_out[row + n], plo, phi);
+    ia_out[row + n] = tpusched::minmax_norm(ia_out[row + n], rlo, rhi);
+  }
+}
+
+}  // namespace
+
+extern "C" int tpusched_sig_match(int S, int X, int AT, int NS,
+                                  const bool* member_sat_t, const int* atoms,
+                                  const int* ns, const bool* ns_all,
+                                  const bool* valid, const int* member_ns,
+                                  bool* out, void* stream) {
+  const long long total = (long long)S * X;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  sig_match_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      S, X, AT, NS, member_sat_t, atoms, ns, ns_all, valid, member_ns, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpusched_pair_counts(int S, int N, int M, int P, int J, int IT,
+                                    const bool* match, const int* dom,
+                                    const int* run_node,
+                                    const bool* run_valid,
+                                    const int* run_anti_sig,
+                                    const int* ia_sig, const bool* ia_valid,
+                                    const bool* ia_anti,
+                                    const bool* ia_required,
+                                    const int* assigned, float* counts,
+                                    float* anti, float* match_tot,
+                                    void* stream) {
+  const int threads = 256;
+  const int blocks = (M + P + threads - 1) / threads;
+  pair_counts_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      S, N, M, P, J, IT, match, dom, run_node, run_valid, run_anti_sig,
+      ia_sig, ia_valid, ia_anti, ia_required, assigned, counts, anti,
+      match_tot);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpusched_pairwise_batch(
+    int P, int N, int S, int C, int IT, int M, const int* dom,
+    const bool* match, const bool* node_valid, const bool* aff_ok,
+    const int* ts_sig, const bool* ts_valid, const signed char* ts_when,
+    const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
+    const bool* ia_anti, const bool* ia_required, const float* ia_weight,
+    const float* counts, const float* anti, const float* match_tot,
+    bool* pair_ok, float* ts_score, float* ia_score, void* stream) {
+  if (C > tpusched::MAX_C) return (int)cudaErrorInvalidValue;
+  PairTerms t{N,      S,          C,        IT,          M + P,   M,
+              dom,    match,      node_valid, aff_ok,    ts_sig,  ts_valid,
+              ts_when, ts_max_skew, ia_sig, ia_valid,    ia_anti, ia_required,
+              ia_weight};
+  pairwise_batch_kernel<<<P, BATCH_THREADS, 0, (cudaStream_t)stream>>>(
+      t, counts, anti, match_tot, pair_ok, ts_score, ia_score);
+  return (int)cudaGetLastError();
+}

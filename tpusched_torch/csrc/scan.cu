@@ -18,11 +18,32 @@
 // of nodes so that "lowest index among the maxima" and the seeded
 // tie rank are chunk-local scans plus one block combine. Spreading one
 // pod's nodes over a thread-block cluster (DSMEM) is a later step.
+//
+// The pairwise variant (PAIR = true, entry point
+// tpusched_parity_scan_pair) is the same scan for snapshots with
+// signatures (topology spread, inter-pod affinity): pod_cycle with
+// tpusched/kernels/pairwise.py:504 pairwise_row and the two normalisers,
+// in assign.py:324-330's association
+//   ((((w_lr*LR + w_ba*BA) + static) + w_ts*inv_norm(pen)) + w_ia*minmax(raw)),
+// then :201 pair_state_add_pod after each commit. Per pod: one block
+// reduction per spread slot (its min count over eligible nodes and max
+// count over nodes with the key), a pass that evaluates pairwise.cuh's
+// cell at every node of the thread's chunk into pen/raw/allowed scratch,
+// two block reductions of the normalisers' extents, then K4's pick
+// and commit, and thread 0 adds the pod to the pair state. `used` and
+// `alloc` already take 123 KB of shared memory at N = 5120, which leaves
+// no room for the [S, N] counts: counts/anti/match_tot and the [N]
+// scratch live in device memory (L1/L2); each thread reads only the
+// scratch cells it wrote, and the barrier that ends every pod makes
+// thread 0's pair-state adds visible to the next pod. These pointers are
+// not __restrict__/read-only, since the kernel writes them. The S = 0
+// instantiation (PAIR = false) does exactly the work it did before.
 #include <math.h>
 #include <limits.h>
 
 #include "cell.cuh"
 #include "kernels.h"
+#include "pairwise.cuh"
 
 namespace {
 
@@ -35,6 +56,17 @@ constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
 constexpr int SMEM_LIMIT = 220 * 1024;
 
+// The pairwise variant's state and per-node scratch (unused at S = 0).
+struct PairScan {
+  tpusched::PairTerms t;
+  float* counts;             // [S, N] in/out
+  float* anti;               // [S, N] in/out
+  float* match_tot;          // [S] in/out
+  float* pen;                // [N] scratch: spread penalty
+  float* raw;                // [N] scratch: inter-pod raw score
+  unsigned char* allowed;    // [N] scratch: static mask & pairwise ok
+};
+
 struct PodCtx {
   float rq[MAX_R];
   float w_lr, w_ba, w_ts, w_ia;
@@ -42,23 +74,46 @@ struct PodCtx {
   const float* st;
 };
 
+// PAIR only: the pod's normaliser extents over valid nodes (spread
+// penalty lo/hi, inter-pod raw lo/hi). Kept out of PodCtx so that the
+// S = 0 instantiation's frame stays as it was.
+struct Norm {
+  float plo, phi, rlo, rhi;
+};
+
 // Feasibility and score of one (pod, node) cell (cell.cuh's arithmetic,
-// plus pod_cycle's `+ w_ia * 0`); returns false when the node is
-// infeasible (static mask or resource fit).
+// plus pod_cycle's `+ w_ia * 0`, or with PAIR the pairwise scores read
+// from the scratch the pod's pairwise pass wrote); returns false when
+// the node is infeasible (static mask, pairwise or resource fit).
+template <bool PAIR>
 __device__ __forceinline__ bool cell(const PodCtx& c, int n, int R,
                                      const float* used, const float* alloc,
-                                     const ResW& w, float* out) {
-  if (!c.mask[n]) return false;
+                                     const ResW& w, const PairScan& ps,
+                                     const Norm& nm, float* out) {
+  if constexpr (PAIR) {
+    if (!ps.allowed[n]) return false;
+  } else {
+    if (!c.mask[n]) return false;
+  }
   const float* u = used + (long long)n * R;
   const float* a = alloc + (long long)n * R;
   if (!tpusched::cell_fits(u, a, c.rq, R)) return false;
-  float s = tpusched::cell_score(u, a, c.rq, R, w, c.w_lr, c.w_ba, c.st[n],
-                                 c.w_ts);
-  s = s + c.w_ia * 0.0f;
+  float s;
+  if constexpr (PAIR) {
+    s = tpusched::cell_dynamic(u, a, c.rq, R, w, c.w_lr, c.w_ba);
+    s = s + c.st[n];
+    s = s + c.w_ts * tpusched::inverse_norm(ps.pen[n], nm.plo, nm.phi);
+    s = s + c.w_ia * tpusched::minmax_norm(ps.raw[n], nm.rlo, nm.rhi);
+  } else {
+    s = tpusched::cell_score(u, a, c.rq, R, w, c.w_lr, c.w_ba, c.st[n],
+                             c.w_ts);
+    s = s + c.w_ia * 0.0f;
+  }
   *out = s;
   return true;
 }
 
+template <bool PAIR>
 __global__ void __launch_bounds__(THREADS)
 parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
                    const bool* __restrict__ mask,
@@ -71,7 +126,7 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
                    const float* __restrict__ w_ia,
                    const float* __restrict__ rw_g, int seeded,
                    unsigned seed, float* used_g, int* __restrict__ assigned,
-                   float* __restrict__ chosen, int use_smem) {
+                   float* __restrict__ chosen, int use_smem, PairScan ps) {
   extern __shared__ float smem[];
   __shared__ float s_val[WARPS];
   __shared__ int s_idx[WARPS];
@@ -79,6 +134,9 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
   __shared__ float s_best;
   __shared__ int s_pick;
   __shared__ int s_total;
+  __shared__ float s_lo[PAIR ? WARPS : 1], s_hi[PAIR ? WARPS : 1];
+  __shared__ float s_cmin[PAIR ? tpusched::MAX_C : 1];
+  __shared__ float s_cmax[PAIR ? tpusched::MAX_C : 1];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float* used = used_g;
@@ -109,13 +167,39 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
     c.w_ia = w_ia[p];
     c.mask = mask + (long long)p * N;
     c.st = static_score + (long long)p * N;
+    Norm nm{};
+    if constexpr (PAIR) {
+      // pairwise_row for pod p against the current pair state.
+      const tpusched::PairTerms& t = ps.t;
+      tpusched::spread_extents<WARPS>(t, ps.counts, p, lo, hi, 1, s_lo, s_hi,
+                                      s_cmin, s_cmax);
+      float plo = INFINITY, phi = -INFINITY, rlo = INFINITY, rhi = -INFINITY;
+      for (int n = lo; n < hi; ++n) {
+        float pen, raw;
+        const bool ok = tpusched::pair_node(t, ps.counts, ps.anti,
+                                            ps.match_tot, p, n, s_cmin,
+                                            s_cmax, &pen, &raw);
+        ps.pen[n] = pen;
+        ps.raw[n] = raw;
+        ps.allowed[n] = ok && c.mask[n];
+        if (t.node_valid[n]) {
+          plo = fminf(plo, pen);
+          phi = fmaxf(phi, pen);
+          rlo = fminf(rlo, raw);
+          rhi = fmaxf(rhi, raw);
+        }
+      }
+      tpusched::block_min_max<WARPS>(plo, phi, s_lo, s_hi);
+      tpusched::block_min_max<WARPS>(rlo, rhi, s_lo, s_hi);
+      nm = Norm{plo, phi, rlo, rhi};
+    }
 
     // Chunk-local best: the first feasible node, then strictly greater.
     float best = -INFINITY;
     int bidx = INT_MAX;
     for (int n = lo; n < hi; ++n) {
       float s;
-      if (cell(c, n, R, used, alloc, rwc, &s) &&
+      if (cell<PAIR>(c, n, R, used, alloc, rwc, ps, nm, &s) &&
           (bidx == INT_MAX || s > best)) {
         best = s;
         bidx = n;
@@ -161,7 +245,7 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
       int cnt = 0;
       for (int n = lo; n < hi; ++n) {
         float s;
-        if (cell(c, n, R, used, alloc, rwc, &s) && s == mx)
+        if (cell<PAIR>(c, n, R, used, alloc, rwc, ps, nm, &s) && s == mx)
           ++cnt;
       }
       int incl = cnt;
@@ -189,7 +273,7 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
         int want = h - excl;
         for (int n = lo; n < hi; ++n) {
           float s;
-          if (cell(c, n, R, used, alloc, rwc, &s) && s == mx) {
+          if (cell<PAIR>(c, n, R, used, alloc, rwc, ps, nm, &s) && s == mx) {
             if (want == 0) {
               s_pick = n;
               break;
@@ -208,6 +292,31 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
           used[(long long)n * R + r] = used[(long long)n * R + r] + c.rq[r];
         assigned[p] = n;
         chosen[p] = mx;
+        if constexpr (PAIR) {
+          // pair_state_add_pod(p, n): selector matches into counts and
+          // match_tot, required anti terms into anti (integer adds).
+          const tpusched::PairTerms& t = ps.t;
+          for (int s = 0; s < t.S; ++s) {
+            if (!t.match[(long long)s * t.X + t.M + p]) continue;
+            ps.match_tot[s] = ps.match_tot[s] + 1.0f;
+            const int d = t.dom[(long long)s * N + n];
+            if (d >= 0) {
+              const long long i = (long long)s * N + d;
+              ps.counts[i] = ps.counts[i] + 1.0f;
+            }
+          }
+          for (int it = 0; it < t.IT; ++it) {
+            const long long pt = (long long)p * t.IT + it;
+            if (!(t.ia_valid[pt] && t.ia_anti[pt] && t.ia_required[pt]))
+              continue;
+            const int s = max(t.ia_sig[pt], 0);
+            const int d = t.dom[(long long)s * N + n];
+            if (d >= 0) {
+              const long long i = (long long)s * N + d;
+              ps.anti[i] = ps.anti[i] + 1.0f;
+            }
+          }
+        }
       } else {
         assigned[p] = -1;
         chosen[p] = -INFINITY;
@@ -219,6 +328,30 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
   if (use_smem) {
     for (int i = tid; i < N * R; i += THREADS) used_g[i] = used[i];
   }
+}
+
+// Shared memory, then the launch of either instantiation.
+template <bool PAIR>
+int launch_scan(int P, int N, int R, const int* order, const bool* mask,
+                const float* static_score, const float* alloc,
+                const float* requests, const float* w_lr, const float* w_ba,
+                const float* w_ts, const float* w_ia, const float* rw,
+                int seeded, unsigned int seed, float* used, int* assigned,
+                float* chosen, const PairScan& ps, void* stream) {
+  if (R > MAX_R) return (int)cudaErrorInvalidValue;
+  long long bytes = 2LL * N * R * (long long)sizeof(float);
+  int use_smem = bytes <= SMEM_LIMIT ? 1 : 0;
+  size_t dyn = use_smem ? (size_t)bytes : 0;
+  if (dyn > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        parity_scan_kernel<PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)dyn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  parity_scan_kernel<PAIR><<<1, THREADS, dyn, (cudaStream_t)stream>>>(
+      P, N, R, order, mask, static_score, alloc, requests, w_lr, w_ba, w_ts,
+      w_ia, rw, seeded, seed, used, assigned, chosen, use_smem, ps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -234,18 +367,31 @@ extern "C" int tpusched_parity_scan(int P, int N, int R, const int* order,
                                     unsigned int seed, float* used,
                                     int* assigned, float* chosen,
                                     void* stream) {
-  if (R > MAX_R) return (int)cudaErrorInvalidValue;
-  long long bytes = 2LL * N * R * (long long)sizeof(float);
-  int use_smem = bytes <= SMEM_LIMIT ? 1 : 0;
-  size_t dyn = use_smem ? (size_t)bytes : 0;
-  if (dyn > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        parity_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dyn);
-    if (e != cudaSuccess) return (int)e;
-  }
-  parity_scan_kernel<<<1, THREADS, dyn, (cudaStream_t)stream>>>(
-      P, N, R, order, mask, static_score, alloc, requests, w_lr, w_ba, w_ts,
-      w_ia, rw, seeded, seed, used, assigned, chosen, use_smem);
-  return (int)cudaGetLastError();
+  PairScan none{};
+  return launch_scan<false>(P, N, R, order, mask, static_score, alloc,
+                            requests, w_lr, w_ba, w_ts, w_ia, rw, seeded,
+                            seed, used, assigned, chosen, none, stream);
+}
+
+extern "C" int tpusched_parity_scan_pair(
+    int P, int N, int R, const int* order, const bool* mask,
+    const float* static_score, const float* alloc, const float* requests,
+    const float* w_lr, const float* w_ba, const float* w_ts,
+    const float* w_ia, const float* rw, int seeded, unsigned int seed,
+    int S, int C, int IT, int M, const int* dom, const bool* match,
+    const bool* node_valid, const bool* aff_ok, const int* ts_sig,
+    const bool* ts_valid, const signed char* ts_when,
+    const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
+    const bool* ia_anti, const bool* ia_required, const float* ia_weight,
+    float* counts, float* anti, float* match_tot, float* pen, float* raw,
+    unsigned char* allowed, float* used, int* assigned, float* chosen,
+    void* stream) {
+  if (C > tpusched::MAX_C) return (int)cudaErrorInvalidValue;
+  PairScan ps{{N, S, C, IT, M + P, M, dom, match, node_valid, aff_ok, ts_sig,
+               ts_valid, ts_when, ts_max_skew, ia_sig, ia_valid, ia_anti,
+               ia_required, ia_weight},
+              counts, anti, match_tot, pen, raw, allowed};
+  return launch_scan<true>(P, N, R, order, mask, static_score, alloc,
+                           requests, w_lr, w_ba, w_ts, w_ia, rw, seeded,
+                           seed, used, assigned, chosen, ps, stream);
 }

@@ -1,5 +1,5 @@
 """Engine: the entry points, the port of `tpusched/engine.py` for
-snapshots without pairwise signatures, gangs or preemption.
+snapshots without gangs or preemption.
 
 Everything runs on the CUDA device unless the caller asks for the CPU
 (`Engine(cfg, device="cpu")`, which only the tests do).
@@ -7,18 +7,24 @@ Everything runs on the CUDA device unless the caller asks for the CPU
 `Engine.solve` takes a snapshot and returns one flat f32 result buffer
 (the JAX engine's layout, decoded by `Engine.unpack`), through
 
-    _sat_tables (K1) -> precompute_static (K2, K3) -> pop_order (sort)
-    -> parity_scan (K4)                      [mode="parity"]
-    -> solve_rounds (K5, K6, K7, K8 a round)  [mode="fast"]
+    _sat_tables (K1) -> precompute_static (K2, K3; K9 with signatures)
+    -> pop_order (sort)
+    -> parity_scan (K4)                        [mode="parity", S = 0]
+    -> pair_counts (K10) -> parity_scan_pair (K4's pairwise variant)
+                                               [mode="parity", S > 0]
+    -> solve_rounds (K5, K6, K7, K8 a round)    [mode="fast", S = 0]
     -> _pack_solve.
 
 `Engine.score`, `score_top1` and `score_topk` (ScoreBatch) run the same
-static front half, then one [P, N] Filter + Score pass (K5) and, for
-the top-k forms, a per-row ranking (K6).
+static front half, then, with signatures, the pair state of the running
+members (K10) and every pod's pairwise row (K11), then one [P, N] Filter
++ Score pass (K5) and, for the top-k forms, a per-row ranking (K6).
 
-The engine starts no thread: every entry point is synchronous and
-`close` has nothing to release. Signatures (ROADMAP A6), gangs (A7) and
-preemption (A8) are refused with NotImplementedError.
+S is the number of pairwise signatures (topology spread, inter-pod
+affinity and anti-affinity terms). The engine starts no thread: every
+entry point is synchronous and `close` has nothing to release. Fast mode
+with signatures (ROADMAP A6b), gangs (A7) and preemption (A8) are
+refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from tpusched_torch.config import EngineConfig
+from tpusched_torch.kernels import pairwise as kpair
 from tpusched_torch.kernels.assign import (
     KERNELS,
     Ops,
@@ -64,15 +71,19 @@ class ScoreBatchResult:
     solve_seconds: float = 0.0
 
 
-def _sat_tables(snap: ClusterSnapshot, ops: Ops = KERNELS) -> torch.Tensor:
-    """Node atom satisfaction [A, N] (K1, transposed). The JAX function
-    also returns the member table over pod labels, which only the
-    signature paths read (ROADMAP A6); this slice refuses those, so it
-    is not built (the JAX program drops it too when S = 0)."""
-    return ops.atom_sat(
+def _sat_tables(snap: ClusterSnapshot, ops: Ops = KERNELS):
+    """(node atom satisfaction [A, N], member atom satisfaction [A, M+P]
+    over running then pending pod labels), both K1, transposed. The
+    member table is only read by the signature paths and is None at
+    S = 0 (the JAX program drops it there too)."""
+    node_sat_t = ops.atom_sat(
         snap.atoms, snap.nodes.label_pairs, snap.nodes.label_keys,
         snap.nodes.label_nums,
     ).T.contiguous()
+    member_sat_t = None
+    if snap.sigs.key.shape[0] > 0:
+        member_sat_t = kpair.member_label_sat_t(snap, ops.atom_sat)
+    return node_sat_t, member_sat_t
 
 
 def solve_core(cfg: EngineConfig, snap: ClusterSnapshot, ops: Ops = KERNELS,
@@ -82,10 +93,10 @@ def solve_core(cfg: EngineConfig, snap: ClusterSnapshot, ops: Ops = KERNELS,
     Fast: commit_key is each pod's commit round. stats collects the fast
     loops' host reads (and spans, when it times)."""
     if cfg.mode == "fast":
-        return solve_rounds(cfg, snap, _sat_tables(snap, ops), ops=ops,
+        return solve_rounds(cfg, snap, _sat_tables(snap, ops)[0], ops=ops,
                             stats=stats)
-    a, c, u, o, ev = solve_sequential(cfg, snap, _sat_tables(snap, ops),
-                                      ops)
+    a, c, u, o, ev = solve_sequential(cfg, snap, *_sat_tables(snap, ops),
+                                      ops=ops)
     P = a.shape[0]
     rank = torch.zeros(P, dtype=torch.int32, device=o.device)
     rank[o] = torch.arange(P, dtype=torch.int32, device=o.device)
@@ -109,7 +120,7 @@ def score_core(cfg: EngineConfig, snap: ClusterSnapshot, masked: bool = False,
                ops: Ops = KERNELS):
     """ScoreBatch on the device: (feasible [P, N], score [P, N]); with
     masked, the score is -inf at infeasible cells."""
-    return score_batch(cfg, snap, _sat_tables(snap, ops), masked=masked,
+    return score_batch(cfg, snap, *_sat_tables(snap, ops), masked=masked,
                        ops=ops)
 
 

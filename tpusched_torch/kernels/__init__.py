@@ -4,8 +4,8 @@ Each hand-written CUDA kernel has a wrapper that launches it on a CUDA
 tensor and runs its plain PyTorch version on a CPU tensor (the CPU is
 where the tests run; there is no fallback from CUDA to the plain
 version). Each wrapper counts its launches in a `launches` attribute.
-The helpers below are what the wrappers share: argument checks and the
-current stream for the ctypes call.
+The helpers below are what the wrappers share: argument checks, the
+current stream and the pointers for the ctypes call.
 """
 
 from __future__ import annotations
@@ -32,3 +32,12 @@ def check(kernel: str, device: torch.device, t: torch.Tensor,
 
 def stream_of(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptrs(args: Sequence) -> tuple:
+    """The C arguments of a launch: each tensor as its data pointer, the
+    rest as they are. A wrapper keeps the tensors themselves until the
+    launch, so that no temporary is freed (and its memory reused) before
+    the kernel is enqueued."""
+    return tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                 for a in args)

@@ -1,20 +1,25 @@
 """The solve paths: the port of `tpusched/kernels/assign.py` for
-snapshots without pairwise signatures, gangs or preemption.
+snapshots without gangs or preemption; pairwise signatures (topology
+spread, inter-pod affinity) in parity mode and ScoreBatch.
 
 The scheduling cycle splits, as in the JAX package, into
   * a STATIC part computed once per snapshot (StaticCtx): the cell-local
     tableau (kernel K2, `_tableau_cells`), then its row-coupled
     normalisation times the per-pod QoS weights (kernel K3, inside
-    `finalize_static`);
-  * a DYNAMIC part that depends on node `used`: resource fit,
-    LeastRequested and BalancedAllocation. Parity mode evaluates it pod
-    by pod in dynamic-priority order in the parity scan (kernel K4,
-    `parity_scan`), which commits each pod before the next one scores.
-    ScoreBatch and fast mode evaluate it for a whole [rows, N] block at
-    once (kernel K5, `cycle`); a fast round then ranks each row (K6,
-    `row_topk`), deals pods onto nodes by a node desirability (K7,
-    `desirability`) and commits capacity prefixes per node in sub-steps
-    (K8, `prefix_commit`).
+    `finalize_static`), and the signature x member match (K9,
+    `kernels/pairwise.sig_match`);
+  * a DYNAMIC part that depends on node `used` and the pair state:
+    resource fit, LeastRequested and BalancedAllocation, and the spread
+    and inter-pod terms. Parity mode evaluates it pod by pod in
+    dynamic-priority order in the parity scan (kernel K4, `parity_scan`;
+    with signatures its pairwise variant `parity_scan_pair`, from the
+    pair state K10 counts), which commits each pod before the next one
+    scores. ScoreBatch and fast mode evaluate it for a whole [rows, N]
+    block at once (kernel K5, `cycle`, fed with signatures by K11's
+    pairwise rows); a fast round then ranks each row (K6, `row_topk`),
+    deals pods onto nodes by a node desirability (K7, `desirability`)
+    and commits capacity prefixes per node in sub-steps (K8,
+    `prefix_commit`). Fast mode with signatures is ROADMAP A6b.
 
 Every kernel wrapper runs its plain version (`*_plain`) on CPU tensors.
 The solve functions take an `Ops` table (default: the kernel wrappers);
@@ -36,8 +41,9 @@ import torch
 
 from tpusched_torch import _build
 from tpusched_torch.config import EngineConfig
-from tpusched_torch.kernels import check, stream_of
+from tpusched_torch.kernels import check, ptrs, stream_of
 from tpusched_torch.kernels import filter as kfilter
+from tpusched_torch.kernels import pairwise as kpair
 from tpusched_torch.kernels import score as kscore
 from tpusched_torch.kernels.atoms import atom_sat, atom_sat_plain
 from tpusched_torch.qos import (
@@ -58,6 +64,7 @@ class StaticCtx:
     mask: torch.Tensor       # [P, N] bool: taints & node affinity & validity
     aff_ok: torch.Tensor     # [P, N] bool: node-affinity component alone
     score: torch.Tensor      # [P, N] f32: w_na*NodeAffinity + w_tt*TaintToleration
+    sig_match: torch.Tensor  # [S, M+P] bool: signature x member match (K9)
     w_lr: torch.Tensor       # [P] f32 per-pod effective plugin weights (QoS)
     w_ba: torch.Tensor       # [P]
     w_ts: torch.Tensor       # [P]
@@ -185,17 +192,23 @@ finalize_score.launches = 0
 
 
 def finalize_static(cfg: EngineConfig, snap: ClusterSnapshot, mask, aff_ok,
-                    na_raw, tt_count, ops: "Ops | None" = None) -> StaticCtx:
+                    na_raw, tt_count, sig_match: torch.Tensor | None = None,
+                    ops: "Ops | None" = None) -> StaticCtx:
     """StaticCtx from the tableau: per-pod QoS plugin weights (plain
-    torch over [P]) and the row-normalised static score (K3)."""
+    torch over [P]) and the row-normalised static score (K3). sig_match
+    None: no signature (an empty [0, M+P] table)."""
     ops = ops or KERNELS
     pods = snap.pods
     w = effective_weights(cfg, pressure_of(pods.slo_target,
                                            pods.observed_avail))
     score = ops.finalize_score(na_raw, tt_count, snap.nodes.valid,
                                w["node_affinity"], w["taint_toleration"])
+    if sig_match is None:
+        sig_match = torch.zeros((0, snap.running.valid.shape[0]
+                                 + pods.valid.shape[0]),
+                                dtype=torch.bool, device=mask.device)
     return StaticCtx(
-        mask=mask, aff_ok=aff_ok, score=score,
+        mask=mask, aff_ok=aff_ok, score=score, sig_match=sig_match,
         w_lr=w["least_requested"], w_ba=w["balanced_allocation"],
         w_ts=w["topology_spread"], w_ia=w["interpod_affinity"],
         rw=torch.tensor(cfg.score_weights_vector(), dtype=torch.float32,
@@ -205,36 +218,51 @@ def finalize_static(cfg: EngineConfig, snap: ClusterSnapshot, mask, aff_ok,
 
 def precompute_static(cfg: EngineConfig, snap: ClusterSnapshot,
                       node_sat_t: torch.Tensor,
+                      member_sat_t: torch.Tensor | None = None,
                       ops: "Ops | None" = None) -> StaticCtx:
+    """StaticCtx (K2, K3, and K9 when the snapshot has signatures;
+    member_sat_t, the [A, M+P] member label table, is then required)."""
     ops = ops or KERNELS
     cells = ops.tableau_cells(snap, snap.pods, snap.nodes, node_sat_t)
-    return finalize_static(cfg, snap, *cells, ops=ops)
+    sm = None
+    if snap.sigs.key.shape[0] > 0:
+        sm = ops.sig_match(member_sat_t, snap.sigs, kpair.merge_members(
+            snap.running.namespace, snap.pods.namespace))
+    return finalize_static(cfg, snap, *cells, sig_match=sm, ops=ops)
 
 
 # -- the per-pod cycle and the parity scan (K4) -----------------------------
 
 
 def pod_cycle(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
-              p: int, used: torch.Tensor):
-    """Single-pod [N] Filter + Score against `used` (the scan body).
-    With no signature, pairwise_row is the identity: zero spread
-    penalty (inverse-normalised to 100) and zero inter-pod raw score
-    (min-max-normalised to 0). Returns (feasible, score)."""
+              p: int, used: torch.Tensor,
+              st: "kpair.PairState | None" = None,
+              dom_s: torch.Tensor | None = None):
+    """Single-pod [N] Filter + Score against `used` and the pair state
+    `st` (the scan body). With no signature (st None), pairwise_row is
+    the identity: zero spread penalty (inverse-normalised to 100) and
+    zero inter-pod raw score (min-max-normalised to 0). Returns
+    (feasible, score)."""
     nodes = snap.nodes
     nvalid = nodes.valid
     req = snap.pods.requests[p]
-    zeros = torch.zeros(nvalid.shape[0], dtype=torch.float32,
-                        device=nvalid.device)
-    feasible = static.mask[p] & kfilter.resource_fit(nodes.allocatable,
-                                                     used, req)
+    allowed = static.mask[p]
+    if st is None:
+        pen = raw = torch.zeros(nvalid.shape[0], dtype=torch.float32,
+                                device=nvalid.device)
+    else:
+        spread_ok, pen, ia_ok, raw = kpair.pairwise_row(
+            snap, st, static.sig_match, dom_s, p, static.aff_ok[p])
+        allowed = allowed & spread_ok & ia_ok
+    feasible = allowed & kfilter.resource_fit(nodes.allocatable, used, req)
     score = (
         static.w_lr[p] * kscore.least_requested(nodes.allocatable, used, req,
                                                 static.rw)
         + static.w_ba[p] * kscore.balanced_allocation(nodes.allocatable,
                                                       used, req, static.rw)
         + static.score[p]
-        + static.w_ts[p] * kscore.inverse_normalize(zeros, nvalid)
-        + static.w_ia[p] * kscore.minmax_normalize(zeros, nvalid)
+        + static.w_ts[p] * kscore.inverse_normalize(pen, nvalid)
+        + static.w_ia[p] * kscore.minmax_normalize(raw, nvalid)
     )
     return feasible, score
 
@@ -270,6 +298,23 @@ def parity_scan_plain(cfg: EngineConfig, snap: ClusterSnapshot,
                       static: StaticCtx, order: torch.Tensor):
     """The sequential commit loop in plain torch: (assigned [P] int32,
     chosen [P] f32, used [N, R] f32)."""
+    return _scan_loop(cfg, snap, static, order)[:3]
+
+
+def parity_scan_pair_plain(cfg: EngineConfig, snap: ClusterSnapshot,
+                           static: StaticCtx, order: torch.Tensor,
+                           st: "kpair.PairState", dom_s: torch.Tensor):
+    """The sequential commit loop with pairwise constraints, in plain
+    torch: (assigned, chosen, used, final PairState)."""
+    return _scan_loop(cfg, snap, static, order, st, dom_s)
+
+
+def _scan_loop(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
+               order: torch.Tensor, st: "kpair.PairState | None" = None,
+               dom_s: torch.Tensor | None = None):
+    """JAX solve_sequential's scan body, pod by pod in `order`; with a
+    pair state, pairwise_row before and pair_state_add_pod after each
+    commit."""
     P = order.shape[0]
     dev = order.device
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
@@ -278,27 +323,28 @@ def parity_scan_plain(cfg: EngineConfig, snap: ClusterSnapshot,
     chosen = torch.full((P,), NEG_INF, dtype=torch.float32, device=dev)
     requests = snap.pods.requests
     for p in order.tolist():
-        feasible, score = pod_cycle(cfg, snap, static, p, used)
+        feasible, score = pod_cycle(cfg, snap, static, p, used, st, dom_s)
         masked = torch.where(feasible, score, neg)
         n = pick_node(cfg, masked, p)
         commit = feasible.any()
         # An unplaced pod adds 0 to used[argmax] = used[0], as in JAX.
         used[n] = used[n] + torch.where(commit, requests[p],
                                         torch.zeros_like(requests[p]))
+        if st is not None:
+            st = kpair.pair_state_add_pod(snap, st, static.sig_match, dom_s,
+                                          p, n, commit)
         assigned[p] = torch.where(commit, n, -1)
         chosen[p] = torch.where(commit, masked[n], neg)
-    return assigned, chosen, used
+    return assigned, chosen, used, st
 
 
-def parity_scan(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
-                order: torch.Tensor):
-    """Kernel K4 on CUDA tensors, the plain version on CPU tensors."""
+def _scan_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
+               static: StaticCtx, order: torch.Tensor) -> tuple:
+    """Check K4's arguments (both variants): (P, N, R, order, the [P, N]
+    and per-pod tensors, seeded, seed)."""
     dev = static.mask.device
-    if dev.type == "cpu":
-        return parity_scan_plain(cfg, snap, static, order)
     P, N = static.mask.shape
     R = snap.nodes.allocatable.shape[1]
-    k = "parity_scan"
     order32 = order.to(torch.int32).contiguous()
     check(k, dev, order32, torch.int32, (P,))
     check(k, dev, static.mask, torch.bool, (P, N))
@@ -311,19 +357,28 @@ def parity_scan(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
     check(k, dev, static.rw, torch.float32, (R,))
     if R > 8:
         raise ValueError(f"{k}: {R} resource axes, the kernel takes <= 8")
+    ins = (order32, static.mask, static.score, snap.nodes.allocatable,
+           snap.pods.requests, static.w_lr, static.w_ba, static.w_ts,
+           static.w_ia, static.rw)
+    return (P, N, R, *ins, int(cfg.tie_break == "seeded"),
+            cfg.tie_seed & 0xFFFFFFFF)
+
+
+def parity_scan(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
+                order: torch.Tensor):
+    """Kernel K4 on CUDA tensors, the plain version on CPU tensors."""
+    dev = static.mask.device
+    if dev.type == "cpu":
+        return parity_scan_plain(cfg, snap, static, order)
+    args = _scan_args("parity_scan", cfg, snap, static, order)
+    P = args[0]
     used = snap.nodes.used.clone()
     assigned = torch.empty((P,), dtype=torch.int32, device=dev)
     chosen = torch.empty((P,), dtype=torch.float32, device=dev)
     if P == 0:
         return assigned, chosen, used
-    ins = (order32, static.mask, static.score, snap.nodes.allocatable,
-           snap.pods.requests, static.w_lr, static.w_ba, static.w_ts,
-           static.w_ia, static.rw)
-    _build.launch("tpusched_parity_scan", P, N, R,
-                  *(t.data_ptr() for t in ins),
-                  int(cfg.tie_break == "seeded"), cfg.tie_seed & 0xFFFFFFFF,
-                  used.data_ptr(), assigned.data_ptr(), chosen.data_ptr(),
-                  stream_of(dev))
+    _build.launch("tpusched_parity_scan", *ptrs(args), used.data_ptr(),
+                  assigned.data_ptr(), chosen.data_ptr(), stream_of(dev))
     parity_scan.launches += 1
     return assigned, chosen, used
 
@@ -331,11 +386,54 @@ def parity_scan(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
 parity_scan.launches = 0
 
 
-def refuse_unported(cfg: EngineConfig, snap: ClusterSnapshot) -> None:
+def parity_scan_pair(cfg: EngineConfig, snap: ClusterSnapshot,
+                     static: StaticCtx, order: torch.Tensor,
+                     st: "kpair.PairState", dom_s: torch.Tensor):
+    """Kernel K4's pairwise variant on CUDA tensors, the plain version
+    on CPU tensors: (assigned, chosen, used, final PairState). `st` (the
+    initial state) is left as it was."""
+    dev = static.mask.device
+    if dev.type == "cpu":
+        return parity_scan_pair_plain(cfg, snap, static, order, st, dom_s)
+    k = "parity_scan_pair"
+    args = _scan_args(k, cfg, snap, static, order)
+    terms = kpair._pair_term_args(k, snap, static.aff_ok, static.sig_match,
+                                  dom_s, st)
+    P, N = args[0], args[1]
+    used = snap.nodes.used.clone()
+    assigned = torch.empty((P,), dtype=torch.int32, device=dev)
+    chosen = torch.empty((P,), dtype=torch.float32, device=dev)
+    out = kpair.PairState(counts=st.counts.clone(), anti=st.anti.clone(),
+                          match_tot=st.match_tot.clone())
+    if P == 0:
+        return assigned, chosen, used, out
+    pen = torch.empty((N,), dtype=torch.float32, device=dev)
+    raw = torch.empty((N,), dtype=torch.float32, device=dev)
+    allowed = torch.empty((N,), dtype=torch.uint8, device=dev)
+    # The pairwise block without the state pointers, then the state the
+    # kernel updates in place (the copies in `out`).
+    _build.launch("tpusched_parity_scan_pair",
+                  *ptrs((*args, *terms[:-3], out.counts, out.anti,
+                         out.match_tot, pen, raw, allowed, used, assigned,
+                         chosen)), stream_of(dev))
+    parity_scan_pair.launches += 1
+    return assigned, chosen, used, out
+
+
+parity_scan_pair.launches = 0
+
+
+def refuse_unported(cfg: EngineConfig, snap: ClusterSnapshot,
+                    signatures: bool = True) -> None:
     """Raise for what the solve paths do not implement yet rather than
-    skip it: the JAX paths' pairwise, gang and preemption steps are
-    identities only when those axes are empty."""
-    _refuse_signatures(snap)
+    skip it: the JAX paths' gang and preemption steps (and, where
+    `signatures` is False, the pairwise steps) are identities only when
+    those axes are empty."""
+    if not signatures and snap.sigs.key.shape[0] > 0:
+        raise NotImplementedError(
+            "snapshot has pairwise signatures (topology spread / "
+            "inter-pod affinity): fast mode does not take them yet; "
+            "ROADMAP A6b ports it (parity mode and ScoreBatch take them)")
     if snap.group_min_member.shape[0] > 0:
         raise NotImplementedError(
             "snapshot has pod groups (gangs): not ported yet; ROADMAP A7 "
@@ -345,23 +443,27 @@ def refuse_unported(cfg: EngineConfig, snap: ClusterSnapshot) -> None:
             "preemption is not ported yet; ROADMAP A8 ports it")
 
 
-def _refuse_signatures(snap: ClusterSnapshot) -> None:
-    if snap.sigs.key.shape[0] > 0:
-        raise NotImplementedError(
-            "snapshot has pairwise signatures (topology spread / "
-            "inter-pod affinity): not ported yet; ROADMAP A6 ports it")
-
-
 def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
-                     node_sat_t: torch.Tensor, ops: "Ops | None" = None):
-    """Exact sequential commit (stock scheduleOne semantics). Returns
-    (assigned, chosen, used, order, evicted)."""
+                     node_sat_t: torch.Tensor,
+                     member_sat_t: torch.Tensor | None = None,
+                     ops: "Ops | None" = None):
+    """Exact sequential commit (stock scheduleOne semantics). With
+    signatures the scan carries the pair state (K10 counts the running
+    members, K4's pairwise variant adds each commit). Returns (assigned,
+    chosen, used, order, evicted)."""
     ops = ops or KERNELS
     refuse_unported(cfg, snap)
-    static = precompute_static(cfg, snap, node_sat_t, ops)
+    static = precompute_static(cfg, snap, node_sat_t, member_sat_t, ops)
     M = snap.running.valid.shape[0]
     order = pop_order(cfg, snap)
-    assigned, chosen, used = ops.parity_scan(cfg, snap, static, order)
+    if snap.sigs.key.shape[0] > 0:
+        dom_s = kpair.sig_domains(snap)
+        st0 = ops.pair_counts(static.sig_match, dom_s, snap.running,
+                              snap.pods)
+        assigned, chosen, used, _ = ops.parity_scan_pair(
+            cfg, snap, static, order, st0, dom_s)
+    else:
+        assigned, chosen, used = ops.parity_scan(cfg, snap, static, order)
     evicted = torch.zeros(M, dtype=torch.bool, device=order.device)
     return assigned, chosen, used, order, evicted
 
@@ -373,15 +475,22 @@ def cycle_plain(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
                 mask: torch.Tensor, sscore: torch.Tensor, w_lr: torch.Tensor,
                 w_ba: torch.Tensor, w_ts: torch.Tensor, rw: torch.Tensor,
                 rows: torch.Tensor | None = None,
-                pending: torch.Tensor | None = None, masked: bool = False):
+                pending: torch.Tensor | None = None, masked: bool = False,
+                pair: tuple | None = None, w_ia: torch.Tensor | None = None):
     """(feasible, score) [rows, N] of `_cycle_nosig`: mask & fit, and
-    ((w_lr*LR + w_ba*BA) + static) + w_ts*100. rows selects pod rows of
-    req, mask, sscore and the weights; pending cuts rows to pending
-    pods; masked=True gives where(feasible, score, -inf)."""
+    ((w_lr*LR + w_ba*BA) + static) + w_ts*100. With pair = K11's
+    (pair_ok, ts, ia) [P, N] rows (signatures), batched_cycle's: mask &
+    fit & pair_ok, and (((w_lr*LR + w_ba*BA) + static) + w_ts*ts) +
+    w_ia*ia. rows selects pod rows of req, mask, sscore, the weights and
+    the pair rows; pending cuts rows to pending pods; masked=True gives
+    where(feasible, score, -inf)."""
     if rows is not None:
         rows = rows.long()
         req, mask, sscore = req[rows], mask[rows], sscore[rows]
         w_lr, w_ba, w_ts = w_lr[rows], w_ba[rows], w_ts[rows]
+        if pair is not None:
+            pair = tuple(t[rows] for t in pair)
+            w_ia = w_ia[rows]
     feasible = mask & kfilter.resource_fit(alloc, used, req)
     if pending is not None:
         feasible = feasible & pending[:, None]
@@ -389,8 +498,13 @@ def cycle_plain(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
         w_lr[:, None] * kscore.least_requested(alloc, used, req, rw)
         + w_ba[:, None] * kscore.balanced_allocation(alloc, used, req, rw)
         + sscore
-        + w_ts[:, None] * 100.0
     )
+    if pair is None:
+        score = score + w_ts[:, None] * 100.0
+    else:
+        pair_ok, ts, ia = pair
+        feasible = feasible & pair_ok
+        score = score + w_ts[:, None] * ts + w_ia[:, None] * ia
     if masked:
         score = torch.where(feasible, score,
                             torch.full((), NEG_INF, dtype=score.dtype,
@@ -402,12 +516,13 @@ def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
           mask: torch.Tensor, sscore: torch.Tensor, w_lr: torch.Tensor,
           w_ba: torch.Tensor, w_ts: torch.Tensor, rw: torch.Tensor,
           rows: torch.Tensor | None = None,
-          pending: torch.Tensor | None = None, masked: bool = False):
+          pending: torch.Tensor | None = None, masked: bool = False,
+          pair: tuple | None = None, w_ia: torch.Tensor | None = None):
     """Kernel K5 on CUDA tensors, the plain version on CPU tensors."""
     dev = mask.device
     if dev.type == "cpu":
         return cycle_plain(alloc, used, req, mask, sscore, w_lr, w_ba, w_ts,
-                           rw, rows, pending, masked)
+                           rw, rows, pending, masked, pair, w_ia)
     P, N = mask.shape
     R = alloc.shape[1]
     k = "cycle"
@@ -425,6 +540,13 @@ def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
         check(k, dev, rows, torch.int32, (n_rows,))
     if pending is not None:
         check(k, dev, pending, torch.bool, (n_rows,))
+    pair_ptrs = (None,) * 4
+    if pair is not None:
+        check(k, dev, pair[0], torch.bool, (P, N))
+        check(k, dev, pair[1], torch.float32, (P, N))
+        check(k, dev, pair[2], torch.float32, (P, N))
+        check(k, dev, w_ia, torch.float32, (P,))
+        pair_ptrs = tuple(t.data_ptr() for t in (*pair, w_ia))
     feasible = torch.empty((n_rows, N), dtype=torch.bool, device=dev)
     score = torch.empty((n_rows, N), dtype=torch.float32, device=dev)
     if n_rows * N == 0:
@@ -435,7 +557,8 @@ def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
         pending.data_ptr() if pending is not None else None,
         *(t.data_ptr() for t in (mask, sscore, alloc, used, req, w_lr, w_ba,
                                  w_ts, rw)),
-        int(masked), feasible.data_ptr(), score.data_ptr(), stream_of(dev))
+        *pair_ptrs, int(masked), feasible.data_ptr(), score.data_ptr(),
+        stream_of(dev))
     cycle.launches += 1
     return feasible, score
 
@@ -645,28 +768,40 @@ prefix_commit.launches = 0
 
 def batched_cycle(cfg: EngineConfig, snap: ClusterSnapshot,
                   static: StaticCtx, used: torch.Tensor,
-                  masked: bool = False, ops: "Ops | None" = None):
-    """Full [P, N] Filter + Score against `used` (K5). With no pairwise
-    signature the spread and inter-pod normalisers are the constants 100
-    and 0, so the score is the oracle's sum without [P, N] pairwise
-    work. masked=True returns where(feasible, score, -inf) as the
-    score."""
+                  masked: bool = False, ops: "Ops | None" = None,
+                  pair_st: "kpair.PairState | None" = None):
+    """Full [P, N] Filter + Score against `used` and the pair state (K5).
+    With no pairwise signature the spread and inter-pod normalisers are
+    the constants 100 and 0, so the score is the oracle's sum without
+    [P, N] pairwise work; with signatures K11 evaluates every pod's
+    pairwise row against `pair_st` first. masked=True returns
+    where(feasible, score, -inf) as the score."""
     ops = ops or KERNELS
-    _refuse_signatures(snap)
     nodes, pods = snap.nodes, snap.pods
+    pair = None
+    if snap.sigs.key.shape[0] > 0:
+        pair = ops.pairwise_batch(snap, pair_st, static.aff_ok,
+                                  static.sig_match, kpair.sig_domains(snap))
     return ops.cycle(nodes.allocatable, used, pods.requests, static.mask,
                      static.score, static.w_lr, static.w_ba, static.w_ts,
-                     static.rw, masked=masked)
+                     static.rw, masked=masked, pair=pair, w_ia=static.w_ia)
 
 
 def score_batch(cfg: EngineConfig, snap: ClusterSnapshot,
-                node_sat_t: torch.Tensor, masked: bool = False,
-                ops: "Ops | None" = None):
+                node_sat_t: torch.Tensor,
+                member_sat_t: torch.Tensor | None = None,
+                masked: bool = False, ops: "Ops | None" = None):
     """One-shot [P, N] feasibility + scores against the snapshot's usage
-    (no commits): the ScoreBatch surface. The JAX function's
-    pair_state_init is the identity at S = 0."""
-    static = precompute_static(cfg, snap, node_sat_t, ops)
-    return batched_cycle(cfg, snap, static, snap.nodes.used, masked, ops)
+    (no commits): the ScoreBatch surface, against the pair state of the
+    running members (K10; none at S = 0)."""
+    ops = ops or KERNELS
+    static = precompute_static(cfg, snap, node_sat_t, member_sat_t, ops)
+    st0 = None
+    if snap.sigs.key.shape[0] > 0:
+        st0 = ops.pair_counts(static.sig_match, kpair.sig_domains(snap),
+                              snap.running, snap.pods)
+    return batched_cycle(cfg, snap, static, snap.nodes.used, masked, ops,
+                         st0)
 
 
 def pick_node_batch(cfg: EngineConfig, masked: torch.Tensor,
@@ -782,15 +917,18 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
     node_order = torch.sort(-desir, stable=True).indices
     remaining = (alloc - used).clamp_min(0.0)
     remaining = torch.where(torch.isfinite(desir)[:, None], remaining, zero)
-    # Inclusive cumulative demand of allowed pods in rank order.
+    # Inclusive cumulative demand of allowed pods in rank order. The f32
+    # prefixes take _scan_plain's fixed Hillis-Steele order, which gives
+    # the same bits on every device (torch.cumsum accumulates f32 in
+    # double on the CPU and runs a parallel scan on CUDA).
     dem = torch.where(allowed[:, None], requests, zero)
     if rank_is_sorted:
-        my_dem = torch.cumsum(dem, dim=0)
+        my_dem = _scan_plain(dem)
     else:
         rm = torch.zeros_like(dem)
         rm[rank.long()] = dem
-        my_dem = torch.cumsum(rm, dim=0)[rank.long()]
-    cum_rem = torch.cumsum(remaining[node_order], dim=0)     # [N, R]
+        my_dem = _scan_plain(rm)[rank.long()]
+    cum_rem = _scan_plain(remaining[node_order])             # [N, R]
     pos = torch.zeros(P, dtype=torch.int64, device=dev)
     for r in range(cum_rem.shape[1]):
         pos = torch.maximum(pos, torch.searchsorted(
@@ -997,9 +1135,9 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     order, round_of, rounds, evicted); round_of is the commit key (pods
     of an earlier round committed strictly earlier)."""
     ops = ops or KERNELS
-    refuse_unported(cfg, snap)
+    refuse_unported(cfg, snap, signatures=False)
     if static is None:
-        static = precompute_static(cfg, snap, node_sat_t, ops)
+        static = precompute_static(cfg, snap, node_sat_t, ops=ops)
     pods, nodes = snap.pods, snap.nodes
     P = pods.valid.shape[0]
     N = nodes.valid.shape[0]
@@ -1039,10 +1177,17 @@ class Ops:
     row_topk: Callable
     desirability: Callable
     prefix_commit: Callable
+    sig_match: Callable
+    pair_counts: Callable
+    pairwise_batch: Callable
+    parity_scan_pair: Callable
 
 
 KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
-              row_topk, desirability, prefix_commit)
+              row_topk, desirability, prefix_commit, kpair.sig_match,
+              kpair.pair_counts, kpair.pairwise_batch, parity_scan_pair)
 PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_plain, cycle_plain, row_topk_plain,
-            desirability_plain, prefix_commit_plain)
+            desirability_plain, prefix_commit_plain, kpair.sig_match_plain,
+            kpair.pair_counts_plain, kpair.pairwise_batch_plain,
+            parity_scan_pair_plain)

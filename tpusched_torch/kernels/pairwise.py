@@ -1,0 +1,505 @@
+"""PodTopologySpread + InterPodAffinity: the port of
+`tpusched/kernels/pairwise.py`.
+
+Pairwise constraints work per SIGNATURE, not per pod: the builder
+interns every distinct (topology key, namespace scope, pod-label
+selector) into the SigTable, and the solve paths keep a PairState of
+three arrays:
+
+    counts[s, d]  = member pods matching signature s in domain d of its
+                    topology key (spread counts, affinity presence)
+    anti[s, d]    = members HOLDING a required anti-affinity term with
+                    signature s in domain d (symmetric anti-affinity)
+    match_tot[s]  = members matching s anywhere, key-less nodes included
+                    (the "no pod matches the selector" special case)
+
+Members are [running | pending]; a pending pod's column counts once it
+commits. Every count is a small integer held in f32 (exact below 2**24).
+
+Kernels (CUDA on CUDA tensors, the `*_plain` version on CPU tensors):
+  K9  `sig_match`       [S, M+P] selector and namespace match (csrc/pairwise.cu)
+  K10 `pair_counts`     the PairState from scratch: running members, plus
+                        pending pods at an assignment when one is given
+  K11 `pairwise_batch`  every pod's [N] spread/inter-pod feasibility and
+                        normalised spread and inter-pod scores against one
+                        state (ScoreBatch)
+The parity scan's per-pod `pairwise_row` and `pair_state_add_pod` run
+inside K4's pairwise variant (`kernels/assign.parity_scan_pair`); their
+plain versions here drive the plain scan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tpusched_torch import _build
+from tpusched_torch.config import DO_NOT_SCHEDULE
+from tpusched_torch.kernels import check, ptrs, stream_of
+from tpusched_torch.kernels import score as kscore
+from tpusched_torch.kernels.atoms import gather_term_sat
+from tpusched_torch.snapshot import (
+    ClusterSnapshot,
+    PodArrays,
+    RunningPodArrays,
+    SigTable,
+    _Tree,
+)
+
+# Spread constraints per pod that K4's pairwise variant and K11 take
+# (their per-constraint minima live in shared memory).
+MAX_C = 16
+
+
+@dataclasses.dataclass
+class PairState(_Tree):
+    counts: torch.Tensor     # [S, N] f32 selector-match counts per domain
+    anti: torch.Tensor       # [S, N] f32 required-anti-term holders per domain
+    match_tot: torch.Tensor  # [S] f32 selector-match counts over all members
+
+
+def merge_members(run_arr: torch.Tensor,
+                  pod_arr: torch.Tensor) -> torch.Tensor:
+    """[M+P, ...]: running rows, then pending rows (one device, no
+    mesh)."""
+    return torch.cat([run_arr, pod_arr])
+
+
+def member_label_sat_t(snap: ClusterSnapshot, sat_fn) -> torch.Tensor:
+    """[A, M+P] atom satisfaction over member pod labels (K1 through
+    `sat_fn`); labels never change during a solve."""
+    lp = merge_members(snap.running.label_pairs, snap.pods.label_pairs)
+    lk = merge_members(snap.running.label_keys, snap.pods.label_keys)
+    return sat_fn(snap.atoms, lp, lk, None).T.contiguous()
+
+
+def ns_scope_ok(sigs_ns: torch.Tensor, sigs_ns_all: torch.Tensor,
+                member_ns: torch.Tensor) -> torch.Tensor:
+    """[S, X] bool: the member's namespace is in each signature's scope
+    (its explicit id list, or all namespaces). Padding ids compare like
+    any other id, as in the JAX function."""
+    S, X = sigs_ns.shape[0], member_ns.shape[0]
+    if sigs_ns.shape[1]:
+        ok = (sigs_ns[:, :, None] == member_ns[None, None, :]).any(dim=1)
+        return ok | sigs_ns_all[:, None]
+    return sigs_ns_all[:, None].expand(S, X)
+
+
+# -- K9: signature x member match ---------------------------------------------
+
+
+def sig_match_plain(member_sat_t: torch.Tensor, sigs: SigTable,
+                    member_ns: torch.Tensor) -> torch.Tensor:
+    """[S, X] bool: member x matches signature s — every selector atom
+    satisfied (a selector without atoms matches everyone), namespace in
+    scope, signature slot live."""
+    if member_sat_t.shape[0]:
+        match = gather_term_sat(member_sat_t, sigs.atoms)
+    else:  # no atoms at all: only atom-less selectors, which match all
+        match = (sigs.atoms < 0).all(dim=1)[:, None].expand(
+            -1, member_ns.shape[0])
+    ns_ok = ns_scope_ok(sigs.ns, sigs.ns_all, member_ns)
+    return match & ns_ok & sigs.valid[:, None]
+
+
+def sig_match(member_sat_t: torch.Tensor, sigs: SigTable,
+              member_ns: torch.Tensor) -> torch.Tensor:
+    """Kernel K9 on CUDA tensors, the plain version on CPU tensors."""
+    dev = member_ns.device
+    if dev.type == "cpu":
+        return sig_match_plain(member_sat_t, sigs, member_ns)
+    A, X = member_sat_t.shape
+    S, AT = sigs.atoms.shape
+    NS = sigs.ns.shape[1]
+    k = "sig_match"
+    check(k, dev, member_sat_t, torch.bool, (A, X))
+    check(k, dev, sigs.atoms, torch.int32, (S, AT))
+    check(k, dev, sigs.ns, torch.int32, (S, NS))
+    check(k, dev, sigs.ns_all, torch.bool, (S,))
+    check(k, dev, sigs.valid, torch.bool, (S,))
+    check(k, dev, member_ns, torch.int32, (X,))
+    out = torch.empty((S, X), dtype=torch.bool, device=dev)
+    if S * X == 0:
+        return out
+    _build.launch("tpusched_sig_match", S, X, AT, NS,
+                  *(t.data_ptr() for t in (member_sat_t, sigs.atoms, sigs.ns,
+                                           sigs.ns_all, sigs.valid,
+                                           member_ns, out)),
+                  stream_of(dev))
+    sig_match.launches += 1
+    return out
+
+
+sig_match.launches = 0
+
+
+def sig_domains(snap: ClusterSnapshot) -> torch.Tensor:
+    """[S, N] int32: node n's domain id under signature s's topology key;
+    -1 where the node lacks the key or the signature slot is padding."""
+    dom = snap.nodes.domain                                  # [N, TK]
+    sigs = snap.sigs
+    S, N = sigs.key.shape[0], dom.shape[0]
+    if dom.shape[1]:
+        dom_s = dom[:, sigs.key.clamp(min=0).long()].T
+    else:
+        dom_s = torch.full((S, N), -1, dtype=torch.int32, device=dom.device)
+    return torch.where(sigs.valid[:, None], dom_s,
+                       torch.full((), -1, dtype=torch.int32,
+                                  device=dom.device)).contiguous()
+
+
+def pod_anti_holds(pods: PodArrays) -> torch.Tensor:
+    """[P, IT] bool: pod holds a live required anti term in slot t."""
+    return pods.ia_valid & pods.ia_anti & pods.ia_required
+
+
+# -- K10: the pair state from scratch ---------------------------------------
+
+
+def pair_counts_plain(sig_match: torch.Tensor, dom_s: torch.Tensor,
+                      running: RunningPodArrays, pods: PodArrays,
+                      assigned: torch.Tensor | None = None) -> PairState:
+    """The PairState of the running members plus, when `assigned` is
+    given, every pending pod p with assigned[p] >= 0 placed there (JAX
+    pair_state_init, and pair_state_seed at that assignment). The
+    scatter-adds add 0/1 in f32, exact in any order."""
+    S, N = dom_s.shape
+    M, P = running.valid.shape[0], pods.valid.shape[0]
+    dev = dom_s.device
+    if assigned is None:
+        assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    node = merge_members(running.node_idx, assigned).long()
+    valid = merge_members(running.valid, assigned >= 0)
+    neg = torch.full((), -1, dtype=torch.int32, device=dev)
+    mdom = torch.where(valid[None, :], dom_s[:, node.clamp(min=0)], neg)
+    contrib = (sig_match & valid[None, :] & (mdom >= 0)).to(torch.float32)
+    rows = torch.arange(S, device=dev)[:, None].expand_as(mdom)
+    counts = torch.zeros((S, N), dtype=torch.float32, device=dev)
+    counts.index_put_((rows, mdom.clamp(min=0).long()), contrib,
+                      accumulate=True)
+    match_tot = (sig_match & valid[None, :]).to(torch.float32).sum(dim=1)
+    anti = torch.zeros((S, N), dtype=torch.float32, device=dev)
+    asig = running.anti_sig                                  # [M, J]
+    if asig.shape[1] and S:
+        rnode = running.node_idx.long()
+        sclip = asig.clamp(min=0).long()
+        dom_m = dom_s[sclip, rnode.clamp(min=0)[:, None]]    # [M, J]
+        ok = ((asig >= 0) & (rnode >= 0)[:, None] & running.valid[:, None]
+              & (dom_m >= 0))
+        anti.index_put_((sclip, dom_m.clamp(min=0).long()),
+                        ok.to(torch.float32), accumulate=True)
+    holds = pod_anti_holds(pods)
+    pnode = assigned.long()
+    for t in range(pods.ia_key.shape[1] if S else 0):
+        s = pods.ia_sig[:, t].clamp(min=0).long()
+        dom_p = dom_s[s, pnode.clamp(min=0)]
+        on = holds[:, t] & (pnode >= 0) & (dom_p >= 0)
+        anti.index_put_((s, dom_p.clamp(min=0).long()),
+                        on.to(torch.float32), accumulate=True)
+    return PairState(counts=counts, anti=anti, match_tot=match_tot)
+
+
+def pair_counts(sig_match: torch.Tensor, dom_s: torch.Tensor,
+                running: RunningPodArrays, pods: PodArrays,
+                assigned: torch.Tensor | None = None) -> PairState:
+    """Kernel K10 on CUDA tensors, the plain version on CPU tensors."""
+    dev = dom_s.device
+    if dev.type == "cpu":
+        return pair_counts_plain(sig_match, dom_s, running, pods, assigned)
+    S, N = dom_s.shape
+    M, P = running.valid.shape[0], pods.valid.shape[0]
+    J, IT = running.anti_sig.shape[1], pods.ia_sig.shape[1]
+    k = "pair_counts"
+    check(k, dev, sig_match, torch.bool, (S, M + P))
+    check(k, dev, dom_s, torch.int32, (S, N))
+    check(k, dev, running.node_idx, torch.int32, (M,))
+    check(k, dev, running.valid, torch.bool, (M,))
+    check(k, dev, running.anti_sig, torch.int32, (M, J))
+    check(k, dev, pods.ia_sig, torch.int32, (P, IT))
+    for t in (pods.ia_valid, pods.ia_anti, pods.ia_required):
+        check(k, dev, t, torch.bool, (P, IT))
+    if assigned is not None:
+        check(k, dev, assigned, torch.int32, (P,))
+    st = PairState(
+        counts=torch.zeros((S, N), dtype=torch.float32, device=dev),
+        anti=torch.zeros((S, N), dtype=torch.float32, device=dev),
+        match_tot=torch.zeros((S,), dtype=torch.float32, device=dev))
+    if S * (M + P) == 0:
+        return st
+    _build.launch(
+        "tpusched_pair_counts", S, N, M, P, J, IT,
+        *(t.data_ptr() for t in (sig_match, dom_s, running.node_idx,
+                                 running.valid, running.anti_sig,
+                                 pods.ia_sig, pods.ia_valid, pods.ia_anti,
+                                 pods.ia_required)),
+        assigned.data_ptr() if assigned is not None else None,
+        st.counts.data_ptr(), st.anti.data_ptr(), st.match_tot.data_ptr(),
+        stream_of(dev))
+    pair_counts.launches += 1
+    return st
+
+
+pair_counts.launches = 0
+
+
+def pair_state_add_pod(snap: ClusterSnapshot, st: PairState,
+                       sig_match: torch.Tensor, dom_s: torch.Tensor, p: int,
+                       n: torch.Tensor, on: torch.Tensor) -> PairState:
+    """Pod p commits to node n (0-dim tensor) when `on` (0-dim bool):
+    its selector matches enter counts and match_tot, its required anti
+    terms enter anti. Returns a new state (the inputs stay as they
+    were). The plain scan's update; K4's pairwise variant does the same
+    in the kernel."""
+    M = snap.running.valid.shape[0]
+    S = dom_s.shape[0]
+    dev = dom_s.device
+    dom_n = dom_s[:, n]                                      # [S]
+    col = sig_match[:, M + p]                                # [S]
+    counts = st.counts.clone()
+    counts.index_put_((torch.arange(S, device=dev), dom_n.clamp(min=0).long()),
+                      (col & (dom_n >= 0) & on).to(torch.float32),
+                      accumulate=True)
+    match_tot = st.match_tot + (col & on).to(torch.float32)
+    anti = st.anti.clone()
+    holds = pod_anti_holds(snap.pods)[p]
+    for t in range(snap.pods.ia_key.shape[1]):
+        s = snap.pods.ia_sig[p, t].clamp(min=0).long()
+        dom_pn = dom_s[s, n]
+        hold = holds[t] & on & (dom_pn >= 0)
+        anti.index_put_((s.view(1), dom_pn.clamp(min=0).long().view(1)),
+                        hold.to(torch.float32).view(1), accumulate=True)
+    return PairState(counts=counts, anti=anti, match_tot=match_tot)
+
+
+# -- constraint evaluation from the state --------------------------------------
+
+
+def _node_counts(st: PairState, dom_s: torch.Tensor):
+    """(counts at each node's domain [S, N], has-key [S, N], max count
+    over nodes with the key [S])."""
+    node_count_sig = torch.gather(st.counts, 1, dom_s.clamp(min=0).long())
+    has_key_sig = dom_s >= 0
+    zero = torch.zeros((), dtype=torch.float32, device=dom_s.device)
+    max_count_sig = torch.where(has_key_sig, node_count_sig, zero).amax(
+        dim=1)
+    return node_count_sig, has_key_sig, max_count_sig
+
+
+def _anti_at(st: PairState, dom_s: torch.Tensor) -> torch.Tensor:
+    """[S, N] int32 holder counts at each node's domain (0 without the
+    key)."""
+    anti_at = torch.gather(st.anti, 1, dom_s.clamp(min=0).long())
+    return torch.where(dom_s >= 0, anti_at,
+                       torch.zeros((), dtype=torch.float32,
+                                   device=dom_s.device)).to(torch.int32)
+
+
+def symmetric_anti_block(snap: ClusterSnapshot, st: PairState,
+                         sig_match: torch.Tensor,
+                         dom_s: torch.Tensor) -> torch.Tensor:
+    """[P, N] bool: node n lies in a domain holding a required
+    anti-affinity term whose selector matches pod p. The [P, S] x [S, N]
+    contraction runs in int32, one signature at a time (integer adds:
+    exact in any order)."""
+    M = snap.running.valid.shape[0]
+    anti_i = _anti_at(st, dom_s)                             # [S, N]
+    matchers = sig_match[:, M:].to(torch.int32)              # [S, P]
+    blocked = torch.zeros((matchers.shape[1], dom_s.shape[1]),
+                          dtype=torch.int32, device=dom_s.device)
+    for s in range(dom_s.shape[0]):
+        blocked = blocked + matchers[s][:, None] * anti_i[s][None, :]
+    return blocked > 0
+
+
+def pairwise_from_counts(snap: ClusterSnapshot, st: PairState,
+                         aff_ok: torch.Tensor, sig_match: torch.Tensor,
+                         dom_s: torch.Tensor):
+    """Batched [P, N] spread and inter-pod evaluation against one state
+    (JAX pairwise_from_counts with exclude_self_node=None). aff_ok: the
+    required node-affinity mask (spread domain discovery honours it).
+    Returns (spread_ok, spread_pen, ia_ok, ia_raw), each [P, N]."""
+    nodes, pods = snap.nodes, snap.pods
+    dev = dom_s.device
+    node_count_sig, has_key_sig, max_count_sig = _node_counts(st, dom_s)
+    P, N = aff_ok.shape
+    M = snap.running.valid.shape[0]
+    pod_idx = torch.arange(P, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    inf = torch.full((), torch.inf, dtype=torch.float32, device=dev)
+
+    spread_ok = torch.ones((P, N), dtype=torch.bool, device=dev)
+    spread_pen = torch.zeros((P, N), dtype=torch.float32, device=dev)
+    for c in range(pods.ts_key.shape[1]):
+        s = pods.ts_sig[:, c].clamp(min=0).long()
+        valid_c = pods.ts_valid[:, c]
+        nc = node_count_sig[s]                               # [P, N]
+        hk = has_key_sig[s]
+        eligible = nodes.valid[None, :] & aff_ok & hk
+        min_c = torch.where(eligible, nc, inf).amin(dim=1)
+        min_c = torch.where(eligible.any(dim=1), min_c, zero)
+        dns = pods.ts_when[:, c] == DO_NOT_SCHEDULE
+        ok_c = hk & (nc + 1.0 - min_c[:, None]
+                     <= pods.ts_max_skew[:, c][:, None])
+        spread_ok &= torch.where((valid_c & dns)[:, None], ok_c, True)
+        mx = torch.where(hk, nc, max_count_sig[s][:, None])
+        spread_pen = spread_pen + torch.where((valid_c & ~dns)[:, None], mx,
+                                              zero)
+
+    ia_ok = torch.ones((P, N), dtype=torch.bool, device=dev)
+    ia_raw = torch.zeros((P, N), dtype=torch.float32, device=dev)
+    for t in range(pods.ia_key.shape[1]):
+        s = pods.ia_sig[:, t].clamp(min=0).long()
+        valid_t = pods.ia_valid[:, t]
+        nc = node_count_sig[s]
+        hk = has_key_sig[s]
+        node_has = hk & (nc > 0)
+        anti = pods.ia_anti[:, t]
+        req = pods.ia_required[:, t]
+        # Required positive affinity: with no matching member anywhere
+        # (match_tot counts key-less nodes too) a pod matching its own
+        # selector may take any node with the key.
+        self_match = sig_match[s, M + pod_idx]
+        all_zero = st.match_tot[s] <= 0
+        pos_ok = node_has | ((all_zero & self_match)[:, None] & hk)
+        ok_t = torch.where(anti[:, None], ~node_has, pos_ok)
+        ia_ok &= torch.where((valid_t & req)[:, None], ok_t, True)
+        w = torch.where(anti, -pods.ia_weight[:, t], pods.ia_weight[:, t])
+        ia_raw = ia_raw + torch.where((valid_t & ~req)[:, None] & node_has,
+                                      w[:, None], zero)
+
+    # Symmetric required anti-affinity: applies to every pod.
+    ia_ok &= ~symmetric_anti_block(snap, st, sig_match, dom_s)
+    return spread_ok, spread_pen, ia_ok, ia_raw
+
+
+def pairwise_row(snap: ClusterSnapshot, st: PairState,
+                 sig_match: torch.Tensor, dom_s: torch.Tensor, p: int,
+                 aff_ok_p: torch.Tensor):
+    """Pod p's [N] row of pairwise_from_counts (the scan checks before
+    it commits, so there is no self-exclusion). Returns (spread_ok,
+    spread_pen, ia_ok, ia_raw)."""
+    nodes, pods = snap.nodes, snap.pods
+    dev = dom_s.device
+    node_count_sig, has_key_sig, max_count_sig = _node_counts(st, dom_s)
+    N = nodes.valid.shape[0]
+    M = snap.running.valid.shape[0]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    inf = torch.full((), torch.inf, dtype=torch.float32, device=dev)
+
+    spread_ok = torch.ones(N, dtype=torch.bool, device=dev)
+    spread_pen = torch.zeros(N, dtype=torch.float32, device=dev)
+    for c in range(pods.ts_key.shape[1]):
+        s = pods.ts_sig[p, c].clamp(min=0).long()
+        valid_c = pods.ts_valid[p, c]
+        nc = node_count_sig[s]
+        hk = has_key_sig[s]
+        eligible = nodes.valid & aff_ok_p & hk
+        min_c = torch.where(eligible, nc, inf).amin()
+        min_c = torch.where(eligible.any(), min_c, zero)
+        dns = pods.ts_when[p, c] == DO_NOT_SCHEDULE
+        ok_c = hk & (nc + 1.0 - min_c <= pods.ts_max_skew[p, c])
+        spread_ok &= torch.where(valid_c & dns, ok_c, True)
+        pen_c = torch.where(hk, nc, max_count_sig[s])
+        spread_pen = spread_pen + torch.where(valid_c & ~dns, pen_c, zero)
+
+    ia_ok = torch.ones(N, dtype=torch.bool, device=dev)
+    ia_raw = torch.zeros(N, dtype=torch.float32, device=dev)
+    for t in range(pods.ia_key.shape[1]):
+        s = pods.ia_sig[p, t].clamp(min=0).long()
+        valid_t = pods.ia_valid[p, t]
+        nc = node_count_sig[s]
+        hk = has_key_sig[s]
+        node_has = hk & (nc > 0)
+        anti = pods.ia_anti[p, t]
+        req = pods.ia_required[p, t]
+        all_zero = st.match_tot[s] <= 0
+        self_match = sig_match[s, M + p]
+        pos_ok = node_has | (all_zero & self_match & hk)
+        ok_t = torch.where(anti, ~node_has, pos_ok)
+        ia_ok &= torch.where(valid_t & req, ok_t, True)
+        w = torch.where(anti, -pods.ia_weight[p, t], pods.ia_weight[p, t])
+        ia_raw = ia_raw + torch.where(valid_t & ~req & node_has, w, zero)
+
+    # Symmetric anti: the [S] match column x [S, N] holder counts, int32.
+    match_vec = sig_match[:, M + p].to(torch.int32)
+    sym = (match_vec[:, None] * _anti_at(st, dom_s)).sum(dim=0) > 0
+    ia_ok &= ~sym
+    return spread_ok, spread_pen, ia_ok, ia_raw
+
+
+# -- K11: pairwise rows of every pod against one state (ScoreBatch) ------------
+
+
+def pairwise_batch_plain(snap: ClusterSnapshot, st: PairState,
+                         aff_ok: torch.Tensor, sig_match: torch.Tensor,
+                         dom_s: torch.Tensor):
+    """(pair_ok, ts_score, ia_score), each [P, N]: spread_ok & ia_ok, the
+    inverse-normalised spread penalty and the min-max-normalised
+    inter-pod raw score (per row, over valid nodes)."""
+    spread_ok, pen, ia_ok, raw = pairwise_from_counts(snap, st, aff_ok,
+                                                      sig_match, dom_s)
+    nvalid = snap.nodes.valid
+    return (spread_ok & ia_ok, kscore.inverse_normalize(pen, nvalid),
+            kscore.minmax_normalize(raw, nvalid))
+
+
+def _pair_term_args(k: str, snap: ClusterSnapshot, aff_ok: torch.Tensor,
+                    sig_match: torch.Tensor, dom_s: torch.Tensor,
+                    st: PairState) -> tuple:
+    """Check the arguments K4's pairwise variant and K11 share
+    (kernels.h: the pairwise block of both entry points, the state's
+    three tensors last)."""
+    dev = dom_s.device
+    pods, nodes = snap.pods, snap.nodes
+    S, N = dom_s.shape
+    P = pods.valid.shape[0]
+    M = snap.running.valid.shape[0]
+    C, IT = pods.ts_sig.shape[1], pods.ia_sig.shape[1]
+    if C > MAX_C:
+        raise ValueError(f"{k}: {C} spread constraints per pod, the kernel "
+                         f"takes <= {MAX_C}")
+    check(k, dev, dom_s, torch.int32, (S, N))
+    check(k, dev, sig_match, torch.bool, (S, M + P))
+    check(k, dev, nodes.valid, torch.bool, (N,))
+    check(k, dev, aff_ok, torch.bool, (P, N))
+    check(k, dev, pods.ts_sig, torch.int32, (P, C))
+    check(k, dev, pods.ts_valid, torch.bool, (P, C))
+    check(k, dev, pods.ts_when, torch.int8, (P, C))
+    check(k, dev, pods.ts_max_skew, torch.float32, (P, C))
+    check(k, dev, pods.ia_sig, torch.int32, (P, IT))
+    for t in (pods.ia_valid, pods.ia_anti, pods.ia_required):
+        check(k, dev, t, torch.bool, (P, IT))
+    check(k, dev, pods.ia_weight, torch.float32, (P, IT))
+    check(k, dev, st.counts, torch.float32, (S, N))
+    check(k, dev, st.anti, torch.float32, (S, N))
+    check(k, dev, st.match_tot, torch.float32, (S,))
+    return (S, C, IT, M, dom_s, sig_match, nodes.valid, aff_ok, pods.ts_sig,
+            pods.ts_valid, pods.ts_when, pods.ts_max_skew, pods.ia_sig,
+            pods.ia_valid, pods.ia_anti, pods.ia_required, pods.ia_weight,
+            st.counts, st.anti, st.match_tot)
+
+
+def pairwise_batch(snap: ClusterSnapshot, st: PairState,
+                   aff_ok: torch.Tensor, sig_match: torch.Tensor,
+                   dom_s: torch.Tensor):
+    """Kernel K11 on CUDA tensors, the plain version on CPU tensors."""
+    dev = dom_s.device
+    if dev.type == "cpu":
+        return pairwise_batch_plain(snap, st, aff_ok, sig_match, dom_s)
+    P, N = aff_ok.shape
+    terms = _pair_term_args("pairwise_batch", snap, aff_ok, sig_match,
+                            dom_s, st)
+    pair_ok = torch.empty((P, N), dtype=torch.bool, device=dev)
+    ts_score = torch.empty((P, N), dtype=torch.float32, device=dev)
+    ia_score = torch.empty((P, N), dtype=torch.float32, device=dev)
+    if P * N == 0:
+        return pair_ok, ts_score, ia_score
+    _build.launch("tpusched_pairwise_batch",
+                  *ptrs((P, N, *terms, pair_ok, ts_score, ia_score)),
+                  stream_of(dev))
+    pairwise_batch.launches += 1
+    return pair_ok, ts_score, ia_score
+
+
+pairwise_batch.launches = 0

@@ -13,12 +13,13 @@ Encoding invariants (relied on by every kernel):
     terms has no required node affinity (matches all nodes).
 
 `SnapshotBuilder` interns and pads in the JAX builder's order, so the
-same records give identical arrays. This slice covers resources, QoS,
-labels (numeric ones too), taints and tolerations, cordon, nodeSelector
-and required/preferred node affinity. Topology spread, inter-pod
-(anti-)affinity, gangs and PodDisruptionBudgets raise
-NotImplementedError naming the ROADMAP item that ports them; their
-axes (S, G, GP and the per-pod constraint axes) stay zero-sized.
+same records give identical arrays. It covers resources, QoS, labels
+(numeric ones too), taints and tolerations, cordon, nodeSelector,
+required/preferred node affinity, topology spread and inter-pod
+(anti-)affinity with namespace scopes, including running pods' required
+anti-affinity (the symmetric rule). Gangs and PodDisruptionBudgets raise
+NotImplementedError naming the ROADMAP item that ports them; their axes
+(G, GP) stay zero-sized.
 """
 
 from __future__ import annotations
@@ -37,10 +38,11 @@ from tpusched_torch.config import (
     OPERATORS,
     RESOURCE_PODS,
     TAINT_EFFECTS,
+    DO_NOT_SCHEDULE,
+    SCHEDULE_ANYWAY,
     _next_bucket,
 )
 
-_SPREAD_TODO = "ROADMAP A6 (pairwise constraints) ports it"
 _GANG_TODO = "ROADMAP A7 (gangs) ports it"
 _PDB_TODO = "ROADMAP A8 (preemption and PDB budgets) ports it"
 
@@ -85,6 +87,35 @@ class Toleration:
     effect: str = ""        # "" matches all effects
 
 
+@dataclasses.dataclass(frozen=True)
+class TopologySpreadConstraint:
+    topology_key: str
+    max_skew: int
+    when_unsatisfiable: str  # DoNotSchedule | ScheduleAnyway
+    # Label selector over pods as match expressions (a matchLabels entry
+    # is an In expression with one value).
+    selector: tuple[MatchExpression, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class PodAffinityTerm:
+    topology_key: str
+    selector: tuple[MatchExpression, ...] = ()
+    anti: bool = False
+    required: bool = True
+    weight: float = 1.0      # only used when required=False
+    # Namespace scope (upstream podAffinityTerm.namespaces): empty = the
+    # owning pod's own namespace; ("*",) = all namespaces.
+    namespaces: tuple[str, ...] = ()
+
+
+def selector_from_labels(
+        labels: Mapping[str, str]) -> tuple[MatchExpression, ...]:
+    """matchLabels -> the equivalent In expressions."""
+    return tuple(MatchExpression(k, "In", (v,))
+                 for k, v in sorted(labels.items()))
+
+
 # ---------------------------------------------------------------------------
 # Device-side dataclasses of tensors.
 # ---------------------------------------------------------------------------
@@ -114,12 +145,13 @@ class AtomTable(_Tree):
 
 @dataclasses.dataclass
 class SigTable(_Tree):
-    """Topology-spread / inter-pod signatures (empty in this slice)."""
+    """Distinct (topology key, namespace scope, pod-label selector)
+    signatures of the spread and inter-pod terms."""
 
-    key: torch.Tensor     # [S] int32
-    atoms: torch.Tensor   # [S, AT] int32
-    ns: torch.Tensor      # [S, NSV] int32
-    ns_all: torch.Tensor  # [S] bool
+    key: torch.Tensor     # [S] int32 topology-key index (-1 pad)
+    atoms: torch.Tensor   # [S, AT] int32 selector atoms (-1 pad)
+    ns: torch.Tensor      # [S, NSV] int32 namespace ids in scope (-1 pad)
+    ns_all: torch.Tensor  # [S] bool: every namespace is in scope
     valid: torch.Tensor   # [S] bool
 
 
@@ -253,7 +285,12 @@ class _Interner:
         self.taint_ids: dict[tuple[str, str, str], int] = {}
         self.atom_ids: dict[tuple, int] = {}
         self.atoms: list[tuple[int, int, tuple[int, ...], float]] = []
+        self.topo_keys: list[str] = []
+        self.domain_ids: list[dict[str, int]] = []  # per key: value -> id
         self.ns_ids: dict[str, int] = {}
+        self.sig_ids: dict[tuple, int] = {}
+        # (key index, ns scope: "*" or a sorted tuple of ns ids, atoms)
+        self.sigs: list[tuple[int, Any, tuple[int, ...]]] = []
 
     def kid(self, k: str) -> int:
         return self.key_ids.setdefault(k, len(self.key_ids))
@@ -265,6 +302,12 @@ class _Interner:
         if effect not in TAINT_EFFECTS:
             raise ValueError(f"bad taint effect {effect!r}")
         return self.taint_ids.setdefault((k, v, effect), len(self.taint_ids))
+
+    def topo_idx(self, k: str) -> int:
+        if k not in self.topo_keys:
+            self.topo_keys.append(k)
+            self.domain_ids.append({})
+        return self.topo_keys.index(k)
 
     def nsid(self, ns: str) -> int:
         return self.ns_ids.setdefault(ns, len(self.ns_ids))
@@ -288,9 +331,27 @@ class _Interner:
             self.atoms.append((k, op, pids, num))
         return self.atom_ids[sig]
 
+    def sid(self, key_idx: int, atoms_list: list[int], ns_scope) -> int:
+        sig = (key_idx, ns_scope, tuple(sorted(atoms_list)))
+        if sig not in self.sig_ids:
+            self.sig_ids[sig] = len(self.sigs)
+            self.sigs.append(sig)
+        return self.sig_ids[sig]
+
+    def ns_scope_of(self, namespaces: Sequence[str], own_ns: str):
+        """An affinity term's namespace list resolved against the owning
+        pod's namespace (empty = own namespace). Names are interned in
+        sorted order, so ids do not depend on set iteration."""
+        if not namespaces:
+            return (self.nsid(own_ns),)
+        if "*" in namespaces:
+            return "*"
+        return tuple(sorted(self.nsid(x) for x in sorted(set(namespaces))))
+
     def compile_pod(self, p: Mapping) -> dict:
-        """Intern the atoms one pending pod references. nodeSelector is
-        ANDed into every required term (or stands alone as one term)."""
+        """Intern everything one pending pod references, in the JAX
+        builder's order. nodeSelector is ANDed into every required term
+        (or stands alone as one term)."""
         aid = self.aid
         sel_atoms = [
             aid(MatchExpression(k, "In", (v,)))
@@ -307,7 +368,46 @@ class _Interner:
             ([aid(e) for e in pt.term.expressions], float(pt.weight))
             for pt in p["preferred_terms"] if pt.term.expressions
         ]
-        return dict(req_terms=req_terms, pref_terms=pref_terms)
+        own_ns = p["namespace"]
+        ts = [
+            dict(key=self.topo_idx(c.topology_key),
+                 max_skew=float(c.max_skew),
+                 when=DO_NOT_SCHEDULE
+                 if c.when_unsatisfiable == "DoNotSchedule"
+                 else SCHEDULE_ANYWAY,
+                 atoms=[aid(e) for e in c.selector])
+            for c in p["topology_spread"]
+        ]
+        for c in ts:
+            # Spread counts only pods in the incoming pod's namespace.
+            c["sig"] = self.sid(c["key"], c["atoms"], (self.nsid(own_ns),))
+        ia = [
+            dict(key=self.topo_idx(t.topology_key),
+                 atoms=[aid(e) for e in t.selector],
+                 anti=t.anti, required=t.required, weight=float(t.weight),
+                 ns=self.ns_scope_of(t.namespaces, own_ns))
+            for t in p["pod_affinity"]
+        ]
+        for t in ia:
+            t["sig"] = self.sid(t["key"], t["atoms"], t["ns"])
+        return dict(req_terms=req_terms, pref_terms=pref_terms, ts=ts, ia=ia)
+
+    def compile_running_anti(self, rrec: Mapping) -> tuple[list[int], int]:
+        """A running pod's required anti-affinity terms (the symmetric
+        rule), interned into the pending terms' signature table: (sig
+        ids, widest selector atom count)."""
+        sigs_of_pod: list[int] = []
+        atom_max = 0
+        for t in rrec["pod_affinity"]:
+            if not (t.anti and t.required):
+                continue
+            alist = [self.aid(e) for e in t.selector]
+            atom_max = max(atom_max, len(alist))
+            sigs_of_pod.append(self.sid(
+                self.topo_idx(t.topology_key), alist,
+                self.ns_scope_of(t.namespaces, rrec["namespace"]),
+            ))
+        return sigs_of_pod, atom_max
 
     def intern_labels(self, labels: Mapping[str, str]) -> None:
         for k, v in labels.items():
@@ -357,20 +457,12 @@ class SnapshotBuilder:
         required_terms: Sequence[NodeSelectorTerm] = (),
         preferred_terms: Sequence[PreferredTerm] = (),
         tolerations: Sequence[Toleration] = (),
-        topology_spread: Sequence[Any] = (),
-        pod_affinity: Sequence[Any] = (),
+        topology_spread: Sequence[TopologySpreadConstraint] = (),
+        pod_affinity: Sequence[PodAffinityTerm] = (),
         pod_group: str | None = None,
         pod_group_min_member: int = 0,
         namespace: str = "default",
     ) -> None:
-        if topology_spread:
-            raise NotImplementedError(
-                f"pod {name!r}: topology spread is not ported yet; "
-                + _SPREAD_TODO)
-        if pod_affinity:
-            raise NotImplementedError(
-                f"pod {name!r}: inter-pod (anti-)affinity is not ported "
-                "yet; " + _SPREAD_TODO)
         if pod_group is not None:
             raise NotImplementedError(
                 f"pod {name!r}: pod groups (gangs) are not ported yet; "
@@ -386,6 +478,8 @@ class SnapshotBuilder:
                  required_terms=list(required_terms),
                  preferred_terms=list(preferred_terms),
                  tolerations=list(tolerations),
+                 topology_spread=list(topology_spread),
+                 pod_affinity=list(pod_affinity),
                  namespace=str(namespace) or "default")
         )
 
@@ -397,18 +491,14 @@ class SnapshotBuilder:
         slack: float = 0.0,
         labels: Mapping[str, str] | None = None,
         count_into_used: bool = True,
-        pod_affinity: Sequence[Any] = (),
+        pod_affinity: Sequence[PodAffinityTerm] = (),
         namespace: str = "default",
         pdb_group: str | None = None,
         pdb_disruptions_allowed: int = 0,
     ) -> None:
         """Only a running pod's required anti-affinity terms affect
-        scheduling (the symmetric rule); the JAX builder ignores its
-        other terms, and so does this one."""
-        if any(t.anti and t.required for t in pod_affinity):
-            raise NotImplementedError(
-                "running pod with required anti-affinity: symmetric "
-                "anti-affinity is not ported yet; " + _SPREAD_TODO)
+        scheduling (the symmetric rule); its other terms are accepted
+        and ignored, as in the JAX builder."""
         if pdb_group is not None:
             raise NotImplementedError(
                 "running pod in a PodDisruptionBudget: budgets are not "
@@ -419,6 +509,7 @@ class SnapshotBuilder:
             dict(node=node, requests=req, priority=float(priority),
                  slack=float(slack), labels=dict(labels or {}),
                  count_into_used=count_into_used,
+                 pod_affinity=list(pod_affinity),
                  namespace=str(namespace) or "default")
         )
 
@@ -430,6 +521,12 @@ class SnapshotBuilder:
 
         intr = _Interner()
         pod_compiled = [intr.compile_pod(p) for p in self._pods]
+        run_anti: list[list[int]] = []
+        run_anti_atom_max = 0
+        for rrec in self._running:
+            sigs_of_pod, am = intr.compile_running_anti(rrec)
+            run_anti_atom_max = max(run_anti_atom_max, am)
+            run_anti.append(sigs_of_pod)
         for nrec in self._nodes:
             intr.intern_labels(nrec["labels"])
             for (k, v, e) in nrec["taints"]:
@@ -440,7 +537,7 @@ class SnapshotBuilder:
         for p in self._pods:
             intr.intern_labels(p["labels"])
             intr.nsid(p["namespace"])
-        atoms = intr.atoms
+        atoms, sigs = intr.atoms, intr.sigs
 
         # Buckets start minimal (size-0 feature axes) and grow only to
         # observed need, by the JAX builder's rules.
@@ -458,13 +555,26 @@ class SnapshotBuilder:
             atom_values=max((len(a[2]) for a in atoms), default=0),
             terms=max((len(pc["req_terms"]) for pc in pod_compiled), default=0),
             term_atoms=max(
-                [0]
+                [run_anti_atom_max]
                 + [len(t) for pc in pod_compiled for t in pc["req_terms"]]
                 + [len(t[0]) for pc in pod_compiled for t in pc["pref_terms"]]
+                + [len(c["atoms"]) for pc in pod_compiled for c in pc["ts"]]
+                + [len(t["atoms"]) for pc in pod_compiled for t in pc["ia"]]
             ),
             pref_terms=max((len(pc["pref_terms"]) for pc in pod_compiled),
                            default=0),
+            topo_keys=len(intr.topo_keys),
+            spread_constraints=max((len(pc["ts"]) for pc in pod_compiled),
+                                   default=0),
+            affinity_terms=max(
+                [len(pc["ia"]) for pc in pod_compiled]
+                + [len(a) for a in run_anti] or [0]
+            ),
             taint_vocab=len(intr.taint_ids),
+            signatures=len(sigs),
+            sig_namespaces=max(
+                (len(ns) for _, ns, _ in sigs if ns != "*"), default=0
+            ),
         )
         grow = {
             f: max(getattr(bk, f), _ceil_bucket(v))
@@ -489,6 +599,14 @@ class SnapshotBuilder:
             t["atom_valid"][i] = True
         for (k, v, e), tid in intr.taint_ids.items():
             t["taint_effect"][tid] = TAINT_EFFECTS.index(e)
+        for i, (k, ns_scope, alist) in enumerate(sigs):
+            t["sig_key"][i] = k
+            t["sig_atoms"][i, : len(alist)] = alist
+            if ns_scope == "*":
+                t["sig_ns_all"][i] = True
+            else:
+                t["sig_ns"][i, : len(ns_scope)] = ns_scope
+            t["sig_valid"][i] = True
 
         nodes = _nodes_np(bk, R)
         node_index = {}
@@ -512,6 +630,7 @@ class SnapshotBuilder:
             for j, (k, v) in enumerate(sorted(rrec["labels"].items())):
                 run["label_keys"][i, j] = intr.key_ids[k]
                 run["label_pairs"][i, j] = intr.pair_ids[(k, v)]
+            run["anti_sig"][i, : len(run_anti[i])] = run_anti[i]
             run["namespace"][i] = intr.ns_ids[rrec["namespace"]]
             # Counted requests fold into the node's used row in record
             # order, the JAX builder's summation order.
@@ -527,17 +646,12 @@ class SnapshotBuilder:
             atoms=AtomTable(key=_t(t["atom_key"]), op=_t(t["atom_op"]),
                             pairs=_t(t["atom_pairs"]), num=_t(t["atom_num"]),
                             valid=_t(t["atom_valid"])),
-            # No signature, group or budget is ever filled (the
-            # builder refuses those features); explicit buckets still
-            # size the padding as the JAX builder does.
-            sigs=SigTable(
-                key=_t(np.full(bk.signatures, -1, np.int32)),
-                atoms=_t(np.full((bk.signatures, bk.term_atoms), -1,
-                                 np.int32)),
-                ns=_t(np.full((bk.signatures, bk.sig_namespaces), -1,
-                              np.int32)),
-                ns_all=_t(np.zeros(bk.signatures, bool)),
-                valid=_t(np.zeros(bk.signatures, bool))),
+            sigs=SigTable(key=_t(t["sig_key"]), atoms=_t(t["sig_atoms"]),
+                          ns=_t(t["sig_ns"]), ns_all=_t(t["sig_ns_all"]),
+                          valid=_t(t["sig_valid"])),
+            # No group or budget is ever filled (the builder refuses
+            # those features); explicit buckets still size the padding
+            # as the JAX builder does.
             taint_effect=_t(t["taint_effect"]),
             group_min_member=_t(np.zeros(bk.pod_groups, np.int32)),
             pdb_allowed=_t(np.zeros(bk.pdb_groups, np.float32)),
@@ -570,6 +684,11 @@ def _tables_np(bk: Buckets) -> dict:
         atom_pairs=np.full((bk.atoms, bk.atom_values), -1, np.int32),
         atom_num=np.full(bk.atoms, np.nan, np.float32),
         atom_valid=np.zeros(bk.atoms, bool),
+        sig_key=np.full(bk.signatures, -1, np.int32),
+        sig_atoms=np.full((bk.signatures, bk.term_atoms), -1, np.int32),
+        sig_ns=np.full((bk.signatures, bk.sig_namespaces), -1, np.int32),
+        sig_ns_all=np.zeros(bk.signatures, bool),
+        sig_valid=np.zeros(bk.signatures, bool),
         taint_effect=np.zeros(bk.taint_vocab, np.int8),
     )
 
@@ -656,6 +775,12 @@ def _fill_node_row(nodes: dict, i: int, nrec: dict, intr: _Interner,
         nodes["label_nums"][i, j] = _try_float(v)
     for j, (k, v, e) in enumerate(nrec["taints"]):
         nodes["taint_ids"][i, j] = intr.taint_ids[(k, v, e)]
+    # Domain ids per topology key, in node order (-1: the node lacks
+    # the key).
+    for ti, tk in enumerate(intr.topo_keys):
+        if tk in nrec["labels"]:
+            nodes["domain"][i, ti] = intr.domain_ids[ti].setdefault(
+                nrec["labels"][tk], len(intr.domain_ids[ti]))
 
 
 def _fill_pod_row(pods: dict, i: int, p: dict, pc: dict, intr: _Interner,
@@ -681,6 +806,21 @@ def _fill_pod_row(pods: dict, i: int, p: dict, pc: dict, intr: _Interner,
         pods["pref_term_valid"][i, t] = True
         pods["pref_term_atoms"][i, t, : len(term)] = term
         pods["pref_weight"][i, t] = w
+    for c, con in enumerate(pc["ts"]):
+        pods["ts_valid"][i, c] = True
+        pods["ts_key"][i, c] = con["key"]
+        pods["ts_max_skew"][i, c] = con["max_skew"]
+        pods["ts_when"][i, c] = con["when"]
+        pods["ts_sel_atoms"][i, c, : len(con["atoms"])] = con["atoms"]
+        pods["ts_sig"][i, c] = con["sig"]
+    for t, term in enumerate(pc["ia"]):
+        pods["ia_valid"][i, t] = True
+        pods["ia_key"][i, t] = term["key"]
+        pods["ia_sel_atoms"][i, t, : len(term["atoms"])] = term["atoms"]
+        pods["ia_sig"][i, t] = term["sig"]
+        pods["ia_anti"][i, t] = term["anti"]
+        pods["ia_required"][i, t] = term["required"]
+        pods["ia_weight"][i, t] = term["weight"]
     pods["namespace"][i] = intr.ns_ids[p["namespace"]]
     pods["tolerates_unsched"][i] = any(
         _tolerates(tol, "node.kubernetes.io/unschedulable", "", "NoSchedule")

@@ -1,10 +1,10 @@
 """Synthetic cluster snapshots: the port of `tpusched/synth.py`.
 
 `make_cluster` draws from the numpy generator in exactly the JAX
-generator's sequence, including the draws that decide features this
-slice refuses, so the same seed gives the same cluster (and, through
-the builders, identical arrays). A refused feature raises only when a
-draw actually turns it on.
+generator's sequence, including the draws that decide features the port
+refuses (gangs, PodDisruptionBudgets), so the same seed gives the same
+cluster (and, through the builders, identical arrays). A refused feature
+raises only when a draw actually turns it on.
 """
 
 from __future__ import annotations
@@ -16,10 +16,12 @@ from tpusched_torch.snapshot import (
     ClusterSnapshot,
     MatchExpression,
     NodeSelectorTerm,
+    PodAffinityTerm,
     PreferredTerm,
     SnapshotBuilder,
     SnapshotMeta,
     Toleration,
+    TopologySpreadConstraint,
 )
 
 ZONES = ("zone-a", "zone-b", "zone-c", "zone-d")
@@ -31,6 +33,7 @@ NODE_CLASSES = (
     (32000, 128 << 30),
 )
 _APPS = ("web", "db", "cache", "batch")
+_ZONE_KEY = "topology.kubernetes.io/zone"
 
 
 def _refuse(feature: str, item: str) -> NotImplementedError:
@@ -72,13 +75,15 @@ def make_cluster(
     for i in range(n_nodes):
         cpu, mem = NODE_CLASSES[rng.integers(len(NODE_CLASSES))]
         labels = {
-            "topology.kubernetes.io/zone": zones[i],
+            _ZONE_KEY: zones[i],
             "kubernetes.io/hostname": f"node-{i}",
             "disktype": "ssd" if rng.random() < 0.5 else "hdd",
             "tier": str(rng.integers(0, 4)),
         }
         if rng.random() < keyless_node_frac:
-            del labels["topology.kubernetes.io/zone"]
+            # A node without the topology key: spread DoNotSchedule
+            # filters it; affinity's match-anywhere still counts it.
+            del labels[_ZONE_KEY]
         taints = []
         if rng.random() < taint_frac:
             taints.append(("dedicated", "batch", "NoSchedule"))
@@ -118,8 +123,18 @@ def make_cluster(
                 continue
             rem[0] -= cpu_req
             rem[1] -= mem_req
+            run_kwargs: dict = {}
             if rng.random() < run_anti_frac:
-                raise _refuse("running pod with required anti-affinity", "A6")
+                # A running pod whose required anti-affinity repels a
+                # whole app from its zone (symmetric anti-affinity).
+                run_kwargs["pod_affinity"] = [PodAffinityTerm(
+                    topology_key=_ZONE_KEY,
+                    selector=(MatchExpression(
+                        "app", "In", (_APPS[int(rng.integers(len(_APPS)))],)
+                    ),),
+                    anti=True,
+                    required=True,
+                )]
             if rng.random() < pdb_frac:
                 raise _refuse("PodDisruptionBudget", "A8")
             b.add_running_pod(
@@ -129,6 +144,7 @@ def make_cluster(
                 slack=float(rng.uniform(-0.2, 0.3)),
                 labels={"app": _APPS[int(rng.integers(len(_APPS)))]},
                 namespace=f"ns-{rng.integers(namespace_count)}",
+                **run_kwargs,
             )
 
     for i in range(n_pods):
@@ -148,9 +164,41 @@ def make_cluster(
                     (MatchExpression("disktype", "In", ("ssd",)),)),
             )]
         if rng.random() < spread_frac:
-            raise _refuse("topology spread constraint", "A6")
+            kwargs["topology_spread"] = [TopologySpreadConstraint(
+                topology_key=_ZONE_KEY,
+                max_skew=2,
+                when_unsatisfiable=(
+                    "DoNotSchedule" if rng.random() < 0.5
+                    else "ScheduleAnyway"),
+                selector=(MatchExpression("app", "In", (app,)),),
+            )]
         if rng.random() < interpod_frac:
-            raise _refuse("inter-pod (anti-)affinity term", "A6")
+            anti = rng.random() < 0.5
+            # Namespace scope: mostly the pod's own namespace, sometimes
+            # an explicit list of 1-3 namespaces or all of them ("*").
+            ns_roll = rng.random()
+            if namespace_count > 1 and ns_roll < 0.2:
+                term_ns = ("*",)
+            elif namespace_count > 1 and ns_roll < 0.5:
+                term_ns = tuple(
+                    f"ns-{k}" for k in rng.choice(
+                        namespace_count,
+                        size=int(rng.integers(
+                            1, min(namespace_count, 3) + 1)),
+                        replace=False,
+                    )
+                )
+            else:
+                term_ns = ()
+            kwargs["pod_affinity"] = [PodAffinityTerm(
+                topology_key=_ZONE_KEY,
+                selector=(MatchExpression(
+                    "app", "In", ("db" if not anti else app,)),),
+                anti=anti,
+                required=bool(rng.random() < 0.3),
+                weight=float(rng.integers(1, 100)),
+                namespaces=term_ns,
+            )]
         if gang_frac > 0 and rng.random() < gang_frac:
             raise _refuse("pod group (gang)", "A7")
         slo = float(rng.choice([0.0, 0.9, 0.95, 0.99])) if with_qos else 0.0
@@ -181,3 +229,12 @@ def config2_scale(rng: np.random.Generator, n_pods: int = 10_000,
     """NodeResourcesFit + BalancedAllocation at 10k x 5k (BASELINE
     config 2)."""
     return make_cluster(rng, n_pods, n_nodes, n_running_per_node=1, **kw)
+
+
+def config3_pairwise(rng: np.random.Generator, n_pods: int = 2_000,
+                     n_nodes: int = 500, **kw):
+    """PodTopologySpread + InterPodAffinity (BASELINE config 3): half the
+    pods carry a zone spread constraint, half an inter-pod term."""
+    kw.setdefault("spread_frac", 0.5)
+    kw.setdefault("interpod_frac", 0.5)
+    return make_cluster(rng, n_pods, n_nodes, **kw)
