@@ -23,19 +23,18 @@ package, and
      sub-step of the first fast round;
      Then, on the pairwise cluster (d) (BASELINE config 3 at 10 000 x
      5 000: topology spread and inter-pod affinity), K9 sig_match, K10
-     pair_counts and K11 pairwise_batch against their plain versions
-     (exact) and K4's pairwise variant timed at full size; K4's
-     pairwise variant against its plain version, exactly (assignment,
-     chosen, used and the final pair state), at config 3's own
-     2 000 x 500 for the (d) and (e) mixes (the plain scan would take
-     tens of seconds at full size);
+     pair_counts, K11 pairwise_batch and K4's pairwise variant against
+     their plain versions, exactly (the scan: assignment, chosen, used
+     and the final pair state);
   4. main-path phases, each with every launch counter zeroed just
      before and read just after, requiring each of its kernels to
      launch:
      - parity: `Engine.solve` at 10 000 pods x 5 000 nodes on (a) the
        headline config-2 cluster, (b) the same size with constraints,
        (c) the headline with the seeded tie-break (K1-K4);
-     - fast: the same three requests with mode="fast" (K5-K8);
+     - fast: the same three requests with mode="fast" (K5-K8), and
+       (b) once more with the plain versions on the host's CPU, which
+       must place as many pods as the card;
      - ScoreBatch: `Engine.score`, `score_top1` and `score_topk(k=8)`
        on (b) (K5, K6);
      - pairwise parity: `Engine.solve` on (d), on (d) with the seeded
@@ -46,18 +45,18 @@ package, and
        `score_top1` on (e) (K1-K3, K9-K11, K5, K6);
      after each solve a validity audit (no node over capacity, every
      placed pod's static mask true at its node, no padded pod placed)
-     and, for (a)-(c), equality with the same solve through the plain
-     versions on the same CUDA tensors; for (d) and (e) a pairwise
-     audit instead: K10's recount of the pair state at the final
-     assignment equals the scan's final state bitwise, no placed holder
-     of a required anti term shares its domain with another matching
-     member, and no placed pod sits in a domain holding a required anti
-     term that matches it; each ScoreBatch result equal to its plain
-     version;
+     and equality with the same solve through the plain versions on
+     the same CUDA tensors; for (d) and (e) also a pairwise audit: the
+     plain scan's final pair state equals K10's recount at the final
+     assignment bitwise, no placed holder of a required anti term
+     shares its domain with another matching member, and no placed pod
+     sits in a domain holding a required anti term that matches it;
+     each ScoreBatch result equal to its plain version;
   5. prints per-stage time breakdowns of one steady parity and one
-     steady fast solve, and of one steady pairwise parity solve on (d),
-     a JSON line with every kernel's numbers, and, last, the device
-     JSON line.
+     steady fast solve (with the host-clock cost of the dealing
+     prefixes in three forms), and of one steady pairwise parity solve
+     on (d), a JSON line with every kernel's numbers, and, last, the
+     device JSON line.
 
 Any failure raises and the exit code is not 0. Without a CUDA device it
 exits 2 and prints no result.
@@ -105,9 +104,6 @@ CONSTRAINED = dict(taint_frac=0.3, toleration_frac=0.3, selector_frac=0.3,
 # running anti-affinity holders, namespace scopes and key-less nodes.
 PAIR_SEED = 43
 PAIR_EXTRA = dict(run_anti_frac=0.1, namespace_count=3, keyless_node_frac=0.05)
-# config3_pairwise's own size, where K4's pairwise variant is held
-# against its plain version.
-SMALL_PODS, SMALL_NODES = 2_000, 500
 
 # (name, wrapper, source, the JAX function it replaces)
 KERNELS = (
@@ -172,6 +168,19 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def host_clock_ms(fn, reps: int) -> float:
+    """Host-clock ms per call of fn() over `reps` back-to-back calls
+    (synchronised at both ends), after one warm-up call: what a
+    launch-bound loop pays for it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """Largest |a - b| over positions where both are finite (0 for bool
     and int outputs that agree); infinities must sit at the same
@@ -213,17 +222,17 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def plain_result(cfg: EngineConfig, dsnap, stats=None):
+def plain_result(cfg: EngineConfig, dsnap, ops=kassign.PLAIN, stats=None):
     """The whole solve (either mode) through the plain versions only, on
     the snapshot's device: no kernel launches."""
-    buf = _pack_solve(solve_core(cfg, dsnap, ops=kassign.PLAIN, stats=stats))
+    buf = _pack_solve(solve_core(cfg, dsnap, ops=ops, stats=stats))
     return Engine.unpack(dsnap, buf.cpu().numpy())
 
 
-def audit(name: str, cfg: EngineConfig, dsnap, res,
-          compare_plain: bool = True) -> dict:
-    """Validity of one solve result, then (compare_plain) equality with
-    the plain solve on the same CUDA tensors."""
+def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
+    """Validity of one solve result, then equality with the plain solve
+    on the same CUDA tensors; with signatures also the pairwise audit of
+    the plain scan's final pair state, and the plain scan's time."""
     plain = kassign.PLAIN
     mask = kassign.precompute_static(
         cfg, dsnap, *_sat_tables(dsnap, plain), ops=plain).mask.cpu().numpy()
@@ -247,10 +256,18 @@ def audit(name: str, cfg: EngineConfig, dsnap, res,
     if sorted(res.order.tolist()) != list(range(P)):
         raise AssertionError(f"{name}: order is not a permutation")
     info = {"placed": int(placed.sum()), "valid_pods": int(pvalid.sum())}
-    if not compare_plain:
-        return info
     pstats = kassign.RoundStats()
-    want = plain_result(cfg, dsnap, pstats)
+    scans = []
+
+    def record(*args):
+        t0 = time.perf_counter()
+        out = kassign.parity_scan_pair_plain(*args)
+        torch.cuda.synchronize()
+        scans.append((args, out[3], (time.perf_counter() - t0) * 1e3))
+        return out
+
+    want = plain_result(cfg, dsnap, dataclasses.replace(
+        plain, parity_scan_pair=record), pstats)
     for field in ("assignment", "order", "chosen_score", "commit_key",
                   "final_used", "evicted", "rounds"):
         got, exp = getattr(res, field), getattr(want, field)
@@ -260,34 +277,24 @@ def audit(name: str, cfg: EngineConfig, dsnap, res,
     if cfg.mode == "fast" and res.host_reads != pstats.host_reads:
         raise AssertionError(f"{name}: {res.host_reads} host reads, the "
                              f"plain solve {pstats.host_reads}")
+    if scans:
+        info.update(pair_audit(name, dsnap, res, *scans[0]))
     return info
 
 
-def pair_setup(cfg: EngineConfig, dsnap, ops=kassign.KERNELS):
-    """(static, order, dom_s, initial pair state) of a parity solve with
-    signatures, as solve_sequential builds them."""
-    static = kassign.precompute_static(cfg, dsnap, *_sat_tables(dsnap, ops),
-                                       ops=ops)
-    order = kassign.pop_order(cfg, dsnap)
-    dom_s = kpair.sig_domains(dsnap)
-    st0 = ops.pair_counts(static.sig_match, dom_s, dsnap.running, dsnap.pods)
-    return static, order, dom_s, st0
-
-
-def pair_audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
-    """The pairwise audit of a parity solve with signatures: the scan's
-    final pair state equals K10's recount at the final assignment
-    (bitwise), and the required anti-affinity terms hold in the final
-    placement both ways (numpy, from the recount)."""
-    static, order, dom_s, st0 = pair_setup(cfg, dsnap)
-    a, _, _, st = kassign.parity_scan_pair(cfg, dsnap, static, order, st0,
-                                           dom_s)
-    if not np.array_equal(a.cpu().numpy(), res.assignment):
-        raise AssertionError(f"{name}: a second scan placed differently")
+def pair_audit(name: str, dsnap, res, args, final, plain_ms: float) -> dict:
+    """The pairwise audit of a parity solve with signatures, from the
+    plain scan of the same solve (`args`, its final pair state `final`,
+    already equal in assignment to `res`): the final state equals K10's
+    recount at the assignment (bitwise), and the required anti-affinity
+    terms hold in the final placement both ways (numpy, from the
+    recount)."""
+    static, dom_s = args[2], args[5]
+    asg_t = torch.from_numpy(res.assignment).to(dom_s.device)
     rec = kpair.pair_counts(static.sig_match, dom_s, dsnap.running,
-                            dsnap.pods, assigned=a)
+                            dsnap.pods, assigned=asg_t)
     for field in ("counts", "anti", "match_tot"):
-        if not torch.equal(getattr(rec, field), getattr(st, field)):
+        if not torch.equal(getattr(rec, field), getattr(final, field)):
             raise AssertionError(f"{name}: the scan's final {field} differs "
                                  "from K10's recount at the assignment")
     match = static.sig_match.cpu().numpy()
@@ -325,18 +332,17 @@ def pair_audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
         raise AssertionError(
             f"{name}: {int(bad.any(axis=0).sum())} placed pods sit in a "
             "domain holding a required anti term that matches them")
-    return {"anti_holders": holders, "signatures": S}
+    return {"anti_holders": holders, "signatures": S,
+            "plain_scan_ms": plain_ms}
 
 
 def counts() -> dict:
     return {name: fn.launches for name, fn, _, _ in KERNELS}
 
 
-def pair_kernel_phase(cfg: EngineConfig, dsnap, small: dict) -> dict:
-    """K9-K11 against their plain versions on the full-size pairwise
-    cell, with times and bounds; K4's pairwise variant timed there and
-    held exactly against its plain version on the 2 000 x 500 snapshots
-    in `small` (name -> (cfg, device snapshot))."""
+def pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
+    """K9-K11 and K4's pairwise variant against their plain versions on
+    the full-size pairwise cell, with times and bounds."""
     nodes, pods = dsnap.nodes, dsnap.pods
     out = {}
     node_sat_t, member_sat_t = _sat_tables(dsnap)
@@ -393,39 +399,27 @@ def pair_kernel_phase(cfg: EngineConfig, dsnap, small: dict) -> dict:
         bound=bound(b11, P * N * cell_ops),
         shape=f"P={P} N={N} S={S} C={C} IT={IT}",
         pair_ok=int(got[0].sum().item()))
-    # K4's pairwise variant: full-size time, small-size exactness.
+    # K4's pairwise variant, exact in all four outputs (the final pair
+    # state included); the plain scan is timed once (tens of seconds).
     R = nodes.allocatable.shape[1]
-    scan = kassign.parity_scan_pair(cfg, dsnap, static, order, st, dom_s)
+    args4 = (cfg, dsnap, static, order, st, dom_s)
+    scan = kassign.parity_scan_pair(*args4)
+    t0 = time.perf_counter()
+    want = kassign.parity_scan_pair_plain(*args4)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    flat = lambda r: [r[0], r[1], r[2], r[3].counts, r[3].anti,
+                      r[3].match_tot]
+    err = require_equal("parity_scan_pair", flat(scan), flat(want))
     b4 = nbytes(static.mask, static.score, static.aff_ok, nodes.allocatable,
                 nodes.used, pods.requests, static.w_lr, static.w_ba,
                 static.w_ts, static.w_ia, static.rw, dom_s, static.sig_match,
-                st.counts, st.anti, st.match_tot, scan[0], scan[1],
-                scan[2]) + 4 * P
-    ms4 = cuda_ms(lambda: kassign.parity_scan_pair(cfg, dsnap, static, order,
-                                                   st, dom_s), 3)
-    err, plain_ms, notes = 0.0, None, []
-    for name, (scfg, ssnap) in small.items():
-        s_static, s_order, s_dom, s_st0 = pair_setup(scfg, ssnap)
-        sargs = (scfg, ssnap, s_static, s_order, s_st0, s_dom)
-        k = kassign.parity_scan_pair(*sargs)
-        t0 = time.perf_counter()
-        p = kassign.parity_scan_pair_plain(*sargs)
-        torch.cuda.synchronize()
-        p_ms = (time.perf_counter() - t0) * 1e3
-        flat = lambda r: [r[0], r[1], r[2], r[3].counts, r[3].anti,
-                          r[3].match_tot]
-        err = max(err, require_equal(f"parity_scan_pair ({name})", flat(k),
-                                     flat(p)))
-        k_ms = cuda_ms(lambda: kassign.parity_scan_pair(*sargs), 3)
-        if plain_ms is None:
-            plain_ms = p_ms
-        notes.append(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, "
-                     f"placed {int((k[0] >= 0).sum().item())}")
+                st.counts, st.anti, st.match_tot, *flat(scan)) + 4 * P
     out["parity_scan_pair"] = dict(
-        err=err, ms=ms4, plain_ms=plain_ms,
+        err=err, ms=cuda_ms(lambda: kassign.parity_scan_pair(*args4), 3),
+        plain_ms=plain_ms,
         bound=bound(b4, P * N * (R * 14 + 12 + cell_ops)),
-        shape=f"P={P} N={N} R={R} S={S} C={C} IT={IT}; plain_ms is the "
-              f"first small case; " + "; ".join(notes),
+        shape=f"P={P} N={N} R={R} S={S} C={C} IT={IT}",
         placed=int((scan[0] >= 0).sum().item()))
     return out
 
@@ -686,6 +680,20 @@ def fast_breakdown(engine: Engine, snap) -> dict:
     host_ms = (time.perf_counter() - t1) * 1e3
     spans = stats.ms()
     n = stats.counts()
+    # The dealing prefixes, once per K7 call, in three forms on the
+    # snapshot's [P, R] requests and [N, R] capacity: the one fixed scan
+    # the solve runs, the same order as two scans, and two torch.cumsum
+    # calls (f32 bits that depend on the device; timing only).
+    dem, rem = dsnap.pods.requests, dsnap.nodes.allocatable
+    forms = {
+        "one _deal_prefixes scan": lambda: kassign._deal_prefixes(dem, rem),
+        "two _scan_plain": lambda: (kassign._scan_plain(dem),
+                                    kassign._scan_plain(rem)),
+        "two torch.cumsum": lambda: (torch.cumsum(dem, 0),
+                                     torch.cumsum(rem, 0)),
+    }
+    prefix = {f"dealing prefixes per call, {k} (host clock)":
+              host_clock_ms(f, 20) for k, f in forms.items()}
     total = ev[0].elapsed_time(ev[1])
     loops = sum(spans.get(k, 0.0) for k in ("round 1", "tranches",
                                              "direct rounds"))
@@ -694,7 +702,8 @@ def fast_breakdown(engine: Engine, snap) -> dict:
             **{f"{k} (x{n[k]})": v for k, v in spans.items()},
             "pack": ev[1].elapsed_time(ev[2]),
             "solve_core + pack + D2H (host clock)": host_ms,
-            "host_reads": stats.host_reads, "rounds": int(out[5].item())}
+            "host_reads": stats.host_reads, "rounds": int(out[5].item()),
+            **prefix}
 
 
 def check_launches(name: str, moved: dict, want: tuple[str, ...],
@@ -864,10 +873,6 @@ def main() -> int:
                                       NODES)
     snap_e, meta_e = config3_pairwise(np.random.default_rng(PAIR_SEED), PODS,
                                       NODES, **PAIR_EXTRA)
-    small_d, _ = config3_pairwise(np.random.default_rng(PAIR_SEED),
-                                  SMALL_PODS, SMALL_NODES)
-    small_e, _ = config3_pairwise(np.random.default_rng(PAIR_SEED),
-                                  SMALL_PODS, SMALL_NODES, **PAIR_EXTRA)
     log(f"pairwise snapshots built on the host: "
         f"{time.perf_counter() - t0:.3f} s; (d) P={meta_d.buckets.pods} "
         f"N={meta_d.buckets.nodes} M={meta_d.buckets.running_pods} "
@@ -875,8 +880,7 @@ def main() -> int:
         f"IT={meta_d.buckets.affinity_terms} A={meta_d.buckets.atoms}; "
         f"(e) S={meta_e.buckets.signatures} "
         f"NSV={meta_e.buckets.sig_namespaces} "
-        f"IT={meta_e.buckets.affinity_terms}; small ones "
-        f"{SMALL_PODS}x{SMALL_NODES}")
+        f"IT={meta_e.buckets.affinity_terms}")
 
     cfg_first = EngineConfig(mode="parity")
     cfg_seeded = EngineConfig(mode="parity", tie_break="seeded",
@@ -885,10 +889,7 @@ def main() -> int:
 
     # -- kernel phase --------------------------------------------------------
     kp = kernel_phase(cfg_first, engine.put(snap_b))
-    small = {"d 2000x500": (cfg_first, engine.put(small_d)),
-             "d 2000x500 seeded": (cfg_seeded, engine.put(small_d)),
-             "e 2000x500": (cfg_first, engine.put(small_e))}
-    kp.update(pair_kernel_phase(cfg_first, engine.put(snap_d), small))
+    kp.update(pair_kernel_phase(cfg_first, engine.put(snap_d)))
     for name, r in kp.items():
         lib = (f", torch.topk {r['library_ms']:.4f} ms"
                if r.get("library_ms") is not None else "")
@@ -925,6 +926,23 @@ def main() -> int:
             f"{parity_placed[name]}), rounds {res.rounds}, host reads "
             f"{res.host_reads}, launches {moved}, audit clean, equal to "
             f"the plain fast solve; {smi}")
+    # The plain fast solve on the host's CPU places on (b) what the card
+    # placed (its f32 prefix sums have one order on every device).
+    _, cfg_b, _, res_b, _, _ = fast[1]
+    t0 = time.perf_counter()
+    cpu_eng = Engine(cfg_b, device="cpu")
+    res_cpu = cpu_eng.solve(snap_b)
+    cpu_eng.close()
+    n_card = int((res_b.assignment >= 0).sum())
+    n_cpu = int((res_cpu.assignment >= 0).sum())
+    if n_cpu != n_card:
+        raise AssertionError(f"fast (b): {n_cpu} placed on the CPU, "
+                             f"{n_card} on the card")
+    log(f"fast solve (b) on the host CPU (plain versions): placed {n_cpu}, "
+        f"as on the card; {int((res_cpu.assignment != res_b.assignment).sum())}"
+        f" assignments differ from the card's; rounds {res_cpu.rounds}, "
+        f"host reads {res_cpu.host_reads}; "
+        f"{(time.perf_counter() - t0):.3f} s host clock")
     for k, v in score_phase(cfg_first, snap_b, smi).items():
         launches[k] += v
     pair_cells = (
@@ -938,13 +956,13 @@ def main() -> int:
     for k, v in phase_counts.items():
         launches[k] += v
     for name, cfg, snap, res, wall_ms, moved in pair_parity:
-        dsnap = engine.put(snap)
-        info = audit(name, cfg, dsnap, res, compare_plain=False)
-        pinfo = pair_audit(name, cfg, dsnap, res)
+        info = audit(name, cfg, engine.put(snap), res)
         log(f"pairwise parity solve {name}: {wall_ms:.3f} ms wall, placed "
             f"{info['placed']}/{info['valid_pods']}, launches {moved}, "
-            f"audit clean, pairwise audit clean (S={pinfo['signatures']}, "
-            f"{pinfo['anti_holders']} placed required-anti holders); {smi}")
+            f"audit clean, equal to the plain solve (plain scan "
+            f"{info['plain_scan_ms']:.1f} ms), pairwise audit clean "
+            f"(S={info['signatures']}, {info['anti_holders']} placed "
+            f"required-anti holders); {smi}")
     for k, v in pair_score_phase(
             (("d", cfg_first, snap_d, ("top1", "topk8")),
              ("e", cfg_first, snap_e, ("top1",))), smi).items():

@@ -28,6 +28,7 @@ from tpusched.kernels import assign as jassign
 from tpusched.oracle import Oracle, validate_assignment
 from tpusched.snapshot import SnapshotBuilder as JBuilder
 from tpusched_torch import Engine, EngineConfig
+from tpusched_torch import synth as tsynth
 from tpusched_torch.engine import _sat_tables
 from tpusched_torch.kernels import assign as tassign
 from tpusched_torch.snapshot import snapshot_from_numpy
@@ -248,3 +249,49 @@ def test_fast_agreement_with_jax():
                               int(tres.assignment[i]))
     assert same == total, (f"agreement {same}/{total}; first difference "
                            f"(seed, tie_break, pod, jax, port): {first_diff}")
+
+
+@pytest.mark.parametrize("n_dem,n_rem", [(37, 23), (23, 37)])
+def test_dealing_prefixes_fixed_order(n_dem, n_rem):
+    """The dealing's f32 prefix sums (demand and remaining capacity) take
+    _scan_plain's Hillis-Steele order bit for bit, so they do not depend
+    on the device's cumsum: on values whose sum depends on the order
+    (runs of 1.0 after 1e8, whose f32 spacing is 8), a double-accumulated
+    cumsum (torch's CPU f32 cumsum) gives other bits."""
+
+    def mix(n):
+        x = torch.ones((n, 3), dtype=torch.float32)
+        x[::9] = 1e8
+        x[:, 1] = x[:, 1].flip(0)
+        x[:, 2] = torch.roll(x[:, 2], 4)
+        return x
+
+    dem, rem = mix(n_dem), mix(n_rem)
+    my_dem, cum_rem = tassign._deal_prefixes(dem, rem)
+    assert torch.equal(my_dem, tassign._scan_plain(dem))
+    assert torch.equal(cum_rem, tassign._scan_plain(rem))
+    assert not torch.equal(my_dem, torch.cumsum(dem.double(), 0).float())
+    assert not torch.equal(cum_rem, torch.cumsum(rem.double(), 0).float())
+
+
+def test_fast_solve_deals_with_fixed_order_prefixes(monkeypatch):
+    """Every dealing round of a fast solve (round 1 and the tranches)
+    takes its prefixes from _deal_prefixes, equal to _scan_plain."""
+    calls = []
+    deal = tassign._deal_prefixes
+
+    def record(dem, rem):
+        out = deal(dem, rem)
+        assert torch.equal(out[0], tassign._scan_plain(dem))
+        assert torch.equal(out[1], tassign._scan_plain(rem))
+        calls.append(dem.shape[0])
+        return out
+
+    monkeypatch.setattr(tassign, "_deal_prefixes", record)
+    monkeypatch.setattr(tassign, "_RESIDUAL_CAP", 16)
+    tsnap, _ = tsynth.make_cluster(np.random.default_rng(3), 60, 6,
+                                   initial_utilization=0.6)
+    eng = Engine(EngineConfig(mode="fast"), device="cpu")
+    res = eng.solve(tsnap)
+    eng.close()
+    assert len(calls) >= res.rounds >= 2

@@ -887,6 +887,23 @@ def _top_by_rank(pend: torch.Tensor, order: torch.Tensor, C: int):
     return buf, n_pend
 
 
+def _deal_prefixes(dem: torch.Tensor, rem: torch.Tensor):
+    """Inclusive prefix sums along dim 0 of the dealing's demand [P, R]
+    and remaining capacity [N, R], in _scan_plain's fixed Hillis-Steele
+    order, which gives the same bits on every device (torch.cumsum
+    accumulates f32 in double on the CPU and runs a parallel scan on
+    CUDA). Both run as the columns of one scan: a row's sum only reads
+    rows above it, so the zero rows that pad the shorter one change
+    nothing, and the scan's launches are paid once."""
+    P, R = dem.shape
+    L = max(P, rem.shape[0])
+    both = dem.new_zeros((L, 2 * R))
+    both[:P, :R] = dem
+    both[:rem.shape[0], R:] = rem
+    both = _scan_plain(both)
+    return both[:P, :R], both[:rem.shape[0], R:]
+
+
 def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
                  topv, topi, tie_pick=None, rank_is_sorted: bool = False,
                  ops: "Ops | None" = None,
@@ -917,18 +934,15 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
     node_order = torch.sort(-desir, stable=True).indices
     remaining = (alloc - used).clamp_min(0.0)
     remaining = torch.where(torch.isfinite(desir)[:, None], remaining, zero)
-    # Inclusive cumulative demand of allowed pods in rank order. The f32
-    # prefixes take _scan_plain's fixed Hillis-Steele order, which gives
-    # the same bits on every device (torch.cumsum accumulates f32 in
-    # double on the CPU and runs a parallel scan on CUDA).
+    # Inclusive cumulative demand of allowed pods in rank order.
     dem = torch.where(allowed[:, None], requests, zero)
     if rank_is_sorted:
-        my_dem = _scan_plain(dem)
+        my_dem, cum_rem = _deal_prefixes(dem, remaining[node_order])
     else:
         rm = torch.zeros_like(dem)
         rm[rank.long()] = dem
-        my_dem = _scan_plain(rm)[rank.long()]
-    cum_rem = _scan_plain(remaining[node_order])             # [N, R]
+        my_dem, cum_rem = _deal_prefixes(rm, remaining[node_order])
+        my_dem = my_dem[rank.long()]
     pos = torch.zeros(P, dtype=torch.int64, device=dev)
     for r in range(cum_rem.shape[1]):
         pos = torch.maximum(pos, torch.searchsorted(
