@@ -25,7 +25,11 @@ package, and
      5 000: topology spread and inter-pod affinity), K9 sig_match, K10
      pair_counts, K11 pairwise_batch and K4's pairwise variant against
      their plain versions, exactly (the scan: assignment, chosen, used
-     and the final pair state);
+     and the final pair state); and, on the arguments of their first
+     call in a fast solve of (d), K12 waterfill, K13 (excess_min,
+     excess_survive), K14 ia_ok_at_choice, K10's pair_commit, K8's
+     node_add, K7 in fixed point, K11 with ia_ok and K5 with the
+     relaxed output;
   4. main-path phases, each with every launch counter zeroed just
      before and read just after, requiring each of its kernels to
      launch:
@@ -43,6 +47,13 @@ package, and
        (K1-K3, K9, K10, K4's pairwise variant);
      - pairwise ScoreBatch: `score_top1` and `score_topk(k=8)` on (d),
        `score_top1` on (e) (K1-K3, K9-K11, K5, K6);
+     - fast pairwise: `Engine.solve` in fast mode on (d), (d) with the
+       seeded tie-break and (e) (K1-K3, K9, K10 and its commit entry
+       point, K11, K5, K6, K7 in fixed point, K8 and its node_add,
+       K12-K14), then (d) with compact_cap=0 (full-width rounds only),
+       which must equal the compacted solve, and (d) once more with the
+       plain versions on the host's CPU, which must place as many pods
+       as the card;
      after each solve a validity audit (no node over capacity, every
      placed pod's static mask true at its node, no padded pod placed)
      and equality with the same solve through the plain versions on
@@ -50,13 +61,17 @@ package, and
      plain scan's final pair state equals K10's recount at the final
      assignment bitwise, no placed holder of a required anti term
      shares its domain with another matching member, and no placed pod
-     sits in a domain holding a required anti term that matches it;
-     each ScoreBatch result equal to its plain version;
+     sits in a domain holding a required anti term that matches it; for
+     the fast pairwise solves the same audit of the plain solve's final
+     pair state and, in numpy, the commit-key audit: every placed pod's
+     DoNotSchedule skew and required inter-pod terms hold against K10's
+     recount of the pods committed at its key or before, itself left
+     out; each ScoreBatch result equal to its plain version;
   5. prints per-stage time breakdowns of one steady parity and one
      steady fast solve (with the host-clock cost of the dealing
-     prefixes in three forms), and of one steady pairwise parity solve
-     on (d), a JSON line with every kernel's numbers, and, last, the
-     device JSON line.
+     prefixes in three forms), of one steady pairwise parity solve and
+     one steady fast pairwise solve on (d), a JSON line with every
+     kernel's numbers, and, last, the device JSON line.
 
 Any failure raises and the exit code is not 0. Without a CUDA device it
 exits 2 and prints no result.
@@ -105,32 +120,53 @@ CONSTRAINED = dict(taint_frac=0.3, toleration_frac=0.3, selector_frac=0.3,
 PAIR_SEED = 43
 PAIR_EXTRA = dict(run_anti_frac=0.1, namespace_count=3, keyless_node_frac=0.05)
 
-# (name, wrapper, source, the JAX function it replaces)
+# (name, wrapper, its launch counter, source, the JAX function it
+# replaces). A variant of a kernel (K5's relaxed output, K7's fixed point,
+# K11's ia_ok) has a row of its own, counted by its own counter on the
+# wrapper; the wrapper's `launches` counts every launch.
 KERNELS = (
-    ("atom_sat", atom_sat, "tpusched_torch/csrc/atoms.cu",
+    ("atom_sat", atom_sat, "launches", "tpusched_torch/csrc/atoms.cu",
      "tpusched/kernels/atoms.py:29"),
-    ("tableau_cells", kassign._tableau_cells,
+    ("tableau_cells", kassign._tableau_cells, "launches",
      "tpusched_torch/csrc/tableau.cu", "tpusched/kernels/assign.py:110"),
-    ("finalize_static", kassign.finalize_score,
+    ("finalize_static", kassign.finalize_score, "launches",
      "tpusched_torch/csrc/finalize.cu", "tpusched/kernels/assign.py:233"),
-    ("parity_scan", kassign.parity_scan, "tpusched_torch/csrc/scan.cu",
-     "tpusched/kernels/assign.py:426"),
-    ("cycle", kassign.cycle, "tpusched_torch/csrc/cycle.cu",
+    ("parity_scan", kassign.parity_scan, "launches",
+     "tpusched_torch/csrc/scan.cu", "tpusched/kernels/assign.py:426"),
+    ("cycle", kassign.cycle, "launches", "tpusched_torch/csrc/cycle.cu",
      "tpusched/kernels/assign.py:265"),
-    ("row_topk", kassign.row_topk, "tpusched_torch/csrc/topk.cu",
+    ("row_topk", kassign.row_topk, "launches", "tpusched_torch/csrc/topk.cu",
      "tpusched/kernels/assign.py:854"),
-    ("desirability", kassign.desirability, "tpusched_torch/csrc/deal.cu",
-     "tpusched/kernels/assign.py:793"),
-    ("prefix_commit", kassign.prefix_commit, "tpusched_torch/csrc/commit.cu",
-     "tpusched/kernels/assign.py:894"),
-    ("sig_match", kpair.sig_match, "tpusched_torch/csrc/pairwise.cu",
-     "tpusched/kernels/pairwise.py:85"),
-    ("pair_counts", kpair.pair_counts, "tpusched_torch/csrc/pairwise.cu",
-     "tpusched/kernels/pairwise.py:145"),
-    ("pairwise_batch", kpair.pairwise_batch,
+    ("desirability", kassign.desirability, "launches",
+     "tpusched_torch/csrc/deal.cu", "tpusched/kernels/assign.py:793"),
+    ("prefix_commit", kassign.prefix_commit, "launches",
+     "tpusched_torch/csrc/commit.cu", "tpusched/kernels/assign.py:894"),
+    ("sig_match", kpair.sig_match, "launches",
+     "tpusched_torch/csrc/pairwise.cu", "tpusched/kernels/pairwise.py:85"),
+    ("pair_counts", kpair.pair_counts, "launches",
+     "tpusched_torch/csrc/pairwise.cu", "tpusched/kernels/pairwise.py:145"),
+    ("pairwise_batch", kpair.pairwise_batch, "launches",
      "tpusched_torch/csrc/pairwise.cu", "tpusched/kernels/pairwise.py:342"),
-    ("parity_scan_pair", kassign.parity_scan_pair,
+    ("parity_scan_pair", kassign.parity_scan_pair, "launches",
      "tpusched_torch/csrc/scan.cu", "tpusched/kernels/pairwise.py:504"),
+    ("waterfill", kassign.waterfill, "launches",
+     "tpusched_torch/csrc/waterfill.cu", "tpusched/kernels/assign.py:563"),
+    ("excess_min", kassign.excess_min, "launches",
+     "tpusched_torch/csrc/excess.cu", "tpusched/kernels/assign.py:1093"),
+    ("excess_survive", kassign.excess_survive, "launches",
+     "tpusched_torch/csrc/excess.cu", "tpusched/kernels/assign.py:1147"),
+    ("ia_ok_at_choice", kpair.ia_ok_at_choice, "launches",
+     "tpusched_torch/csrc/pairwise.cu", "tpusched/kernels/pairwise.py:434"),
+    ("pair_commit", kpair.pair_commit, "launches",
+     "tpusched_torch/csrc/pairwise.cu", "tpusched/kernels/pairwise.py:174"),
+    ("node_add", kassign.node_add, "launches",
+     "tpusched_torch/csrc/commit.cu", "tpusched/kernels/assign.py:701"),
+    ("desirability_fixed", kassign.desirability, "fixed_launches",
+     "tpusched_torch/csrc/deal.cu", "tpusched/kernels/assign.py:799"),
+    ("pairwise_batch_ia_ok", kpair.pairwise_batch, "ia_ok_launches",
+     "tpusched_torch/csrc/pairwise.cu", "tpusched/kernels/assign.py:297"),
+    ("cycle_relaxed", kassign.cycle, "relaxed_launches",
+     "tpusched_torch/csrc/cycle.cu", "tpusched/kernels/assign.py:306"),
 )
 PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                   "parity_scan")
@@ -145,6 +181,12 @@ ONCE = ("tableau_cells", "finalize_static", "parity_scan", "sig_match",
         "pair_counts", "pairwise_batch", "parity_scan_pair")
 FAST_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
                 "row_topk", "desirability", "prefix_commit")
+FAST_PAIR_KERNELS = FAST_KERNELS + (
+    "sig_match", "pair_counts", "pairwise_batch", "waterfill", "excess_min",
+    "excess_survive", "ia_ok_at_choice", "pair_commit", "node_add",
+    "desirability_fixed", "pairwise_batch_ia_ok", "cycle_relaxed")
+FAST_PAIR_ONCE = ("tableau_cells", "finalize_static", "sig_match",
+                  "pair_counts")
 SCORE_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
                  "row_topk")
 
@@ -231,11 +273,14 @@ def plain_result(cfg: EngineConfig, dsnap, ops=kassign.PLAIN, stats=None):
 
 def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
     """Validity of one solve result, then equality with the plain solve
-    on the same CUDA tensors; with signatures also the pairwise audit of
-    the plain scan's final pair state, and the plain scan's time."""
+    on the same CUDA tensors (host reads too, in fast mode); with
+    signatures also the pairwise audit of the plain solve's final pair
+    state (parity: the plain scan's, with its time; fast: the last
+    state the rounds' commits and reverts left)."""
     plain = kassign.PLAIN
-    mask = kassign.precompute_static(
-        cfg, dsnap, *_sat_tables(dsnap, plain), ops=plain).mask.cpu().numpy()
+    static = kassign.precompute_static(cfg, dsnap, *_sat_tables(dsnap, plain),
+                                       ops=plain)
+    mask = static.mask.cpu().numpy()
     pvalid = dsnap.pods.valid.cpu().numpy()
     alloc = dsnap.nodes.allocatable.cpu().numpy()
     a = res.assignment
@@ -257,7 +302,7 @@ def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
         raise AssertionError(f"{name}: order is not a permutation")
     info = {"placed": int(placed.sum()), "valid_pods": int(pvalid.sum())}
     pstats = kassign.RoundStats()
-    scans = []
+    scans, states = [], []
 
     def record(*args):
         t0 = time.perf_counter()
@@ -266,8 +311,15 @@ def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
         scans.append((args, out[3], (time.perf_counter() - t0) * 1e3))
         return out
 
+    def last_state(*args):
+        out = kpair.pair_commit_plain(*args)
+        states[:] = [out]
+        return out
+
+    t0 = time.perf_counter()
     want = plain_result(cfg, dsnap, dataclasses.replace(
-        plain, parity_scan_pair=record), pstats)
+        plain, parity_scan_pair=record, pair_commit=last_state), pstats)
+    info["plain_solve_ms"] = (time.perf_counter() - t0) * 1e3
     for field in ("assignment", "order", "chosen_score", "commit_key",
                   "final_used", "evicted", "rounds"):
         got, exp = getattr(res, field), getattr(want, field)
@@ -277,27 +329,32 @@ def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
     if cfg.mode == "fast" and res.host_reads != pstats.host_reads:
         raise AssertionError(f"{name}: {res.host_reads} host reads, the "
                              f"plain solve {pstats.host_reads}")
+    dom_s = kpair.sig_domains(dsnap)
     if scans:
-        info.update(pair_audit(name, dsnap, res, *scans[0]))
+        info.update(pair_audit(name, dsnap, res, static.sig_match, dom_s,
+                               scans[0][1]))
+        info["plain_scan_ms"] = scans[0][2]
+    if states:
+        info.update(pair_audit(name, dsnap, res, static.sig_match, dom_s,
+                               states[0]))
+        info.update(commit_key_audit(name, dsnap, res, static, dom_s))
     return info
 
 
-def pair_audit(name: str, dsnap, res, args, final, plain_ms: float) -> dict:
-    """The pairwise audit of a parity solve with signatures, from the
-    plain scan of the same solve (`args`, its final pair state `final`,
-    already equal in assignment to `res`): the final state equals K10's
-    recount at the assignment (bitwise), and the required anti-affinity
-    terms hold in the final placement both ways (numpy, from the
-    recount)."""
-    static, dom_s = args[2], args[5]
+def pair_audit(name: str, dsnap, res, sig_match, dom_s, final) -> dict:
+    """The pairwise audit of a solve with signatures from the final pair
+    state of its plain solve (already equal in assignment to `res`):
+    that state equals K10's recount at the assignment (bitwise), and
+    the required anti-affinity terms hold in the final placement both
+    ways (numpy, from the recount)."""
     asg_t = torch.from_numpy(res.assignment).to(dom_s.device)
-    rec = kpair.pair_counts(static.sig_match, dom_s, dsnap.running,
-                            dsnap.pods, assigned=asg_t)
+    rec = kpair.pair_counts(sig_match, dom_s, dsnap.running, dsnap.pods,
+                            assigned=asg_t)
     for field in ("counts", "anti", "match_tot"):
         if not torch.equal(getattr(rec, field), getattr(final, field)):
-            raise AssertionError(f"{name}: the scan's final {field} differs "
+            raise AssertionError(f"{name}: the solve's final {field} differs "
                                  "from K10's recount at the assignment")
-    match = static.sig_match.cpu().numpy()
+    match = sig_match.cpu().numpy()
     dom = dom_s.cpu().numpy()
     counts, anti = rec.counts.cpu().numpy(), rec.anti.cpu().numpy()
     pods = dsnap.pods
@@ -332,12 +389,89 @@ def pair_audit(name: str, dsnap, res, args, final, plain_ms: float) -> dict:
         raise AssertionError(
             f"{name}: {int(bad.any(axis=0).sum())} placed pods sit in a "
             "domain holding a required anti term that matches them")
-    return {"anti_holders": holders, "signatures": S,
-            "plain_scan_ms": plain_ms}
+    return {"anti_holders": holders, "signatures": S}
+
+
+def commit_key_audit(name: str, dsnap, res, static, dom_s) -> dict:
+    """The fast mode's pairwise contract (the JAX package's
+    validate_assignment with the commit key, in numpy): every placed
+    pod's DoNotSchedule spread skew, required inter-pod terms and the
+    symmetric anti-affinity of the members hold against K10's recount
+    of the pods whose commit key is at most its own, the pod itself
+    left out."""
+    pods, nodes = dsnap.pods, dsnap.nodes
+    M = dsnap.running.valid.shape[0]
+    asg, key = res.assignment, res.commit_key
+    match = static.sig_match.cpu().numpy()
+    dom = dom_s.cpu().numpy()
+    aff_ok = static.aff_ok.cpu().numpy()
+    nvalid = nodes.valid.cpu().numpy()
+    ts_sig, ts_valid, ts_when, ts_skew = (
+        t.cpu().numpy() for t in (pods.ts_sig, pods.ts_valid, pods.ts_when,
+                                  pods.ts_max_skew))
+    ia_sig, ia_valid, ia_anti, ia_req = (
+        t.cpu().numpy() for t in (pods.ia_sig, pods.ia_valid, pods.ia_anti,
+                                  pods.ia_required))
+    holds = kpair.pod_anti_holds(pods).cpu().numpy()
+    S = dom.shape[0]
+    checked = 0
+    for k in np.unique(key[asg >= 0]):
+        upto = np.where((asg >= 0) & (key <= k), asg, -1).astype(np.int32)
+        st = kpair.pair_counts(static.sig_match, dom_s, dsnap.running, pods,
+                               assigned=torch.from_numpy(upto).to(
+                                   dom_s.device))
+        counts, anti = st.counts.cpu().numpy(), st.anti.cpu().numpy()
+        mtot = st.match_tot.cpu().numpy()
+        ps = np.nonzero((asg >= 0) & (key == k))[0]
+        ns = asg[ps]
+        bad = np.zeros(ps.shape[0], bool)
+        for c in range(ts_sig.shape[1]):
+            s = np.maximum(ts_sig[ps, c], 0)
+            dp = dom[s]                                      # [Q, N]
+            d = dp[np.arange(ps.shape[0]), ns]
+            self_in = match[s, M + ps] & (d >= 0)
+            excl = (np.take_along_axis(counts[s], np.maximum(dp, 0), axis=1)
+                    - (self_in[:, None] & (dp == d[:, None])))
+            elig = nvalid[None, :] & aff_ok[ps] & (dp >= 0)
+            lo = np.where(elig, excl, np.inf).min(axis=1)
+            lo = np.where(np.isfinite(lo), lo, 0.0)
+            nc = excl[np.arange(ps.shape[0]), ns]
+            ok = (d >= 0) & (nc + 1.0 - lo <= ts_skew[ps, c])
+            bad |= ts_valid[ps, c] & (ts_when[ps, c] == 0) & ~ok
+        own = np.zeros(ps.shape[0], np.int64)
+        for t in range(ia_sig.shape[1]):
+            s = np.maximum(ia_sig[ps, t], 0)
+            d = dom[s, ns]
+            self_m = match[s, M + ps]
+            hk = d >= 0
+            nc = counts[s, np.maximum(d, 0)] - (self_m & hk)
+            node_has = hk & (nc > 0)
+            all_zero = mtot[s] - self_m <= 0
+            ok = np.where(ia_anti[ps, t], ~node_has,
+                          node_has | (all_zero & self_m & hk))
+            bad |= ia_valid[ps, t] & ia_req[ps, t] & ~ok
+            own += holds[ps, t] & self_m & hk
+        d_all = dom[:, ns]                                   # [S, Q]
+        held = np.where(d_all >= 0, np.take_along_axis(
+            anti, np.maximum(d_all, 0), axis=1), 0.0).astype(np.int64)
+        bad |= (match[:, M + ps] * held).sum(axis=0) - own > 0
+        if bad.any():
+            raise AssertionError(
+                f"{name}: {int(bad.sum())} pods committed at key {k} violate "
+                "a spread or required inter-pod term against the pods "
+                "committed up to their key")
+        checked += ps.shape[0]
+    return {"commit_key_checked": checked, "keys": int(np.unique(
+        key[asg >= 0]).shape[0]), "signatures": S}
 
 
 def counts() -> dict:
-    return {name: fn.launches for name, fn, _, _ in KERNELS}
+    return {name: getattr(fn, attr) for name, fn, attr, _, _ in KERNELS}
+
+
+def zero_counts() -> None:
+    for _, fn, attr, _, _ in KERNELS:
+        setattr(fn, attr, 0)
 
 
 def pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
@@ -480,7 +614,11 @@ def kernel_phase(cfg: EngineConfig, dsnap) -> dict:
     static = kassign.finalize_static(cfg, dsnap, *cells_k)
     order = kassign.pop_order(cfg, dsnap)
     scan_k = kassign.parity_scan(cfg, dsnap, static, order)
+    # The plain scan is timed once, on the call compared (~17 s).
+    t0 = time.perf_counter()
     scan_p = kassign.parity_scan_plain(cfg, dsnap, static, order)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     err = require_equal("parity_scan", scan_k, scan_p)
     R = nodes.allocatable.shape[1]
     b4 = nbytes(static.mask, static.score, nodes.allocatable, nodes.used,
@@ -490,8 +628,7 @@ def kernel_phase(cfg: EngineConfig, dsnap) -> dict:
     out["parity_scan"] = dict(
         err=err, ms=cuda_ms(
             lambda: kassign.parity_scan(cfg, dsnap, static, order), 5),
-        plain_ms=cuda_ms(
-            lambda: kassign.parity_scan_plain(cfg, dsnap, static, order), 2),
+        plain_ms=plain_ms,
         bound=bound(b4, ops4), shape=f"P={P} N={N} R={R}",
         placed=int((scan_k[0] >= 0).sum().item()))
     out.update(fast_kernel_phase(cfg, dsnap, static, order))
@@ -567,6 +704,7 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order) -> dict:
     out["row_topk"] = dict(
         err=err, ms=cuda_ms(lambda: kassign.row_topk(*args6), 10),
         plain_ms=cuda_ms(lambda: kassign.row_topk_plain(*args6), 3),
+        library="torch.topk",
         library_ms=cuda_ms(lambda: torch.topk(masked, K, dim=1), 10),
         bound=bound(b6, P * N), shape=f"P={P} N={N} K={K} seeded")
     # K7 on K5's output.
@@ -595,6 +733,136 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order) -> dict:
         bound=bound(b8, ops8),
         shape=f"P={perm.shape[0]} R={R} active={active} "
               f"committed={committed}")
+    return out
+
+
+def first_pair_round_calls(cfg: EngineConfig, dsnap) -> dict:
+    """The arguments of the first call of each fast pairwise kernel entry
+    point in a fast solve of `dsnap` (its first round; node_add's first
+    call that reverts anything), by kernels-line name."""
+    calls = {}
+
+    def rec(name, fn, want=lambda a, kw: True):
+        def wrapped(*a, **kw):
+            if name not in calls and want(a, kw):
+                calls[name] = (fn, a, kw)
+            return fn(*a, **kw)
+        return wrapped
+
+    k = kassign.KERNELS
+    ops = dataclasses.replace(
+        k, waterfill=rec("waterfill", k.waterfill),
+        excess_min=rec("excess_min", k.excess_min),
+        excess_survive=rec("excess_survive", k.excess_survive),
+        ia_ok_at_choice=rec("ia_ok_at_choice", k.ia_ok_at_choice),
+        pair_commit=rec("pair_commit", k.pair_commit),
+        node_add=rec("node_add", k.node_add,
+                     lambda a, kw: bool(a[2].any())),
+        desirability=rec("desirability_fixed", k.desirability,
+                         lambda a, kw: kw.get("fixed", False)),
+        pairwise_batch=rec("pairwise_batch_ia_ok", k.pairwise_batch,
+                           lambda a, kw: kw.get("with_ia_ok", False)),
+        cycle=rec("cycle_relaxed", k.cycle,
+                  lambda a, kw: kw.get("ia_ok") is not None))
+    kassign.solve_rounds(dataclasses.replace(cfg, mode="fast"), dsnap,
+                         *_sat_tables(dsnap), ops=ops)
+    return calls
+
+
+# Each fast pairwise entry point's plain version, by kernels-line name.
+PLAIN_OF = {
+    "waterfill": kassign.waterfill_plain,
+    "excess_min": kassign.excess_min_plain,
+    "excess_survive": kassign.excess_survive_plain,
+    "ia_ok_at_choice": kpair.ia_ok_at_choice_plain,
+    "pair_commit": kpair.pair_commit_plain,
+    "node_add": kassign.node_add_plain,
+    "desirability_fixed": kassign.desirability_plain,
+    "pairwise_batch_ia_ok": kpair.pairwise_batch_plain,
+    "cycle_relaxed": kassign.cycle_plain,
+}
+
+
+def _flat(out) -> list:
+    if isinstance(out, kpair.PairState):
+        return [out.counts, out.anti, out.match_tot]
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def fast_pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
+    """K12-K14 and the fast pairwise entry points of K5, K7, K8, K10 and
+    K11 against their plain versions, on the arguments of their first
+    call in a fast solve of the full-size pairwise cell, with times and
+    bounds (bytes each input read once, each output written once; where
+    a kernel gathers, only the entries it needs)."""
+    calls = first_pair_round_calls(cfg, dsnap)
+    out = {}
+    P, N = dsnap.pods.valid.shape[0], dsnap.nodes.valid.shape[0]
+    S = dsnap.sigs.key.shape[0]
+    R = dsnap.nodes.allocatable.shape[1]
+    IT = dsnap.pods.ia_sig.shape[1]
+    for name, plain in PLAIN_OF.items():
+        fn, a, kw = calls[name]
+        got = _flat(fn(*a, **kw))
+        want = _flat(plain(*a, **kw))
+        err = require_equal(name, got, want)
+        r = dict(err=err, ms=cuda_ms(lambda: fn(*a, **kw), 10),
+                 plain_ms=cuda_ms(lambda: plain(*a, **kw), 3))
+        if name == "waterfill":
+            fill, ord_dom, dom_s, s_p, q, relaxed, cap, score, member, K1 = a
+            b = nbytes(fill, ord_dom, dom_s, s_p, q, relaxed, cap, member,
+                       *got) + 4 * P * K1
+            r.update(bound=bound(b, 3 * P * N), shape=(
+                f"P={P} N={N} S={S} K+1={K1}, {int(got[2].sum())} members "
+                "dealt"))
+        elif name == "excess_min":
+            dom_s, counts, nvalid, aff_ok, s_c = a
+            r.update(bound=bound(nbytes(*a, *got), 3 * P * N),
+                     shape=f"P={P} N={N} S={S}")
+        elif name == "excess_survive":
+            r.update(bound=bound(nbytes(*a, *got), 4 * P),
+                     shape=f"P={P}, {int(a[2].sum())} members, "
+                           f"{int(got[0].sum())} bad")
+        elif name == "ia_ok_at_choice":
+            # Gathers: the member table's pod columns, the ia terms, and
+            # counts/anti/dom at each pod's chosen node per signature.
+            b = S * P + nbytes(*(getattr(a[0].pods, f) for f in (
+                "ia_sig", "ia_valid", "ia_anti", "ia_required"))) \
+                + 3 * 4 * S * P + nbytes(a[4], a[5], *got)
+            r.update(bound=bound(b, (S + 10 * IT) * P),
+                     shape=f"P={P} S={S} IT={IT}")
+        elif name == "pair_commit":
+            b = S * P + nbytes(a[4], a[5]) + 7 * P * IT + 2 * 4 * S * P
+            r.update(bound=bound(b, (S + IT) * P),
+                     shape=f"P={P} S={S}, {int(a[5].sum())} committed")
+        elif name == "node_add":
+            used, node, mask, req, rank, sign = a
+            b = nbytes(node, mask, req, rank, used) + nbytes(*got)
+            r.update(bound=bound(b, P * R), library="index_add_",
+                     library_ms=cuda_ms(lambda: used.clone().index_add_(
+                         0, node.clamp(min=0).long(),
+                         torch.where(mask[:, None], req * sign, 0.0)), 10),
+                     shape=f"P={P} N={N} R={R}, {int(mask.sum())} reverted")
+        elif name == "desirability_fixed":
+            r.update(bound=bound(nbytes(*a, *got), 4 * P * N),
+                     shape=f"P={P} N={N}")
+        elif name == "pairwise_batch_ia_ok":
+            snap_v, st, aff_ok, sig_match, dom_s = a
+            pods = snap_v.pods
+            C = pods.ts_sig.shape[1]
+            b = nbytes(aff_ok, snap_v.nodes.valid, dom_s, sig_match,
+                       pods.ts_sig, pods.ts_valid, pods.ts_when,
+                       pods.ts_max_skew, pods.ia_sig, pods.ia_valid,
+                       pods.ia_anti, pods.ia_required, pods.ia_weight,
+                       st.counts, st.anti, st.match_tot, *got)
+            r.update(bound=bound(b, P * N * (C * 6 + IT * 10 + S * 3 + 14)),
+                     shape=f"P={P} N={N} S={S} C={C} IT={IT}")
+        elif name == "cycle_relaxed":
+            b = nbytes(*a[:9], *kw["pair"], kw["w_ia"], kw["ia_ok"],
+                       kw["pending"], *got)
+            r.update(bound=bound(b, P * N * (R * 14 + 16)),
+                     shape=f"P={P} N={N} R={R}")
+        out[name] = r
     return out
 
 
@@ -695,8 +963,9 @@ def fast_breakdown(engine: Engine, snap) -> dict:
     prefix = {f"dealing prefixes per call, {k} (host clock)":
               host_clock_ms(f, 20) for k, f in forms.items()}
     total = ev[0].elapsed_time(ev[1])
-    loops = sum(spans.get(k, 0.0) for k in ("round 1", "tranches",
-                                             "direct rounds"))
+    loops = sum(spans.get(k, 0.0) for k in (
+        "round 1", "tranches", "direct rounds", "full-width rounds",
+        "compacted rounds"))
     return {"h2d_ms_host": h2d_ms, "solve_core (device)": total,
             "K1-K3 + pop_order (rest of solve_core)": total - loops,
             **{f"{k} (x{n[k]})": v for k, v in spans.items()},
@@ -707,25 +976,26 @@ def fast_breakdown(engine: Engine, snap) -> dict:
 
 
 def check_launches(name: str, moved: dict, want: tuple[str, ...],
-                   has_atoms: bool, calls: int = 1) -> None:
+                   has_atoms: bool, calls: int = 1,
+                   once: tuple[str, ...] = ONCE) -> None:
     """Each kernel of the path launched (K1 only with atoms to match),
-    no other kernel; the set-up kernels once per entry-point call (K1
-    twice with signatures)."""
+    no other kernel; the set-up kernels (`once`) once per entry-point
+    call (K1 twice with signatures)."""
     k1_calls = 2 if "sig_match" in want else 1
     for k, n in moved.items():
         need = k in want and (k != "atom_sat" or has_atoms)
         most = (k1_calls * calls if k == "atom_sat"
-                else calls if k in ONCE else None)
+                else calls if k in once else None)
         if (need and n < 1) or (not need and n) or (most and n > most):
             raise AssertionError(f"{name}: kernel {k} launched {n} times "
                                  f"(launches {moved})")
 
 
-def solve_phase(label: str, requests, want: tuple[str, ...]) -> tuple:
+def solve_phase(label: str, requests, want: tuple[str, ...],
+                once: tuple[str, ...] = ONCE) -> tuple:
     """Drive one main path: every counter zeroed just before, read just
     after; each request must launch each kernel of the path."""
-    for _, fn, _, _ in KERNELS:
-        fn.launches = 0
+    zero_counts()
     results = []
     for name, cfg, snap in requests:
         eng = Engine(cfg)
@@ -741,15 +1011,14 @@ def solve_phase(label: str, requests, want: tuple[str, ...]) -> tuple:
     phase_counts = counts()
     for name, cfg, snap, res, wall_ms, moved in results:
         check_launches(f"{label} {name}", moved, want,
-                       snap.atoms.key.shape[0] > 0)
+                       snap.atoms.key.shape[0] > 0, once=once)
     return results, phase_counts
 
 
 def score_phase(cfg: EngineConfig, snap, smi: str) -> dict:
     """ScoreBatch through the engine (counters zeroed just before, read
     just after), then each result against its plain version."""
-    for _, fn, _, _ in KERNELS:
-        fn.launches = 0
+    zero_counts()
     eng = Engine(cfg)
     walls = {}
     t0 = time.perf_counter()
@@ -795,8 +1064,7 @@ def pair_score_phase(requests, smi: str) -> dict:
     before, read just after): (label, cfg, snap, forms) requests, each
     form "top1" or "topk8"; then each result against its plain version
     on the same CUDA tensors."""
-    for _, fn, _, _ in KERNELS:
-        fn.launches = 0
+    zero_counts()
     results = []
     for label, cfg, snap, forms in requests:
         eng = Engine(cfg)
@@ -890,8 +1158,9 @@ def main() -> int:
     # -- kernel phase --------------------------------------------------------
     kp = kernel_phase(cfg_first, engine.put(snap_b))
     kp.update(pair_kernel_phase(cfg_first, engine.put(snap_d)))
+    kp.update(fast_pair_kernel_phase(cfg_first, engine.put(snap_d)))
     for name, r in kp.items():
-        lib = (f", torch.topk {r['library_ms']:.4f} ms"
+        lib = (f", {r['library']} {r['library_ms']:.4f} ms"
                if r.get("library_ms") is not None else "")
         log(f"kernel {name} [{r['shape']}]: exact match, kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, bound "
@@ -903,7 +1172,7 @@ def main() -> int:
               cfg_first, snap_b),
              ("c: config2 10000x5000 qos, seeded tie-break", cfg_seeded,
               snap_a))
-    launches = {name: 0 for name, _, _, _ in KERNELS}
+    launches = {name: 0 for name, _, _, _, _ in KERNELS}
     parity, phase_counts = solve_phase("parity", cells, PARITY_KERNELS)
     for k, v in phase_counts.items():
         launches[k] += v
@@ -967,6 +1236,59 @@ def main() -> int:
             (("d", cfg_first, snap_d, ("top1", "topk8")),
              ("e", cfg_first, snap_e, ("top1",))), smi).items():
         launches[k] += v
+    fast_pair_cells = tuple((f"fast {name}", dataclasses.replace(
+        cfg, mode="fast"), snap) for name, cfg, snap in pair_cells)
+    fast_pair, phase_counts = solve_phase(
+        "fast pairwise", fast_pair_cells, FAST_PAIR_KERNELS,
+        once=FAST_PAIR_ONCE)
+    for k, v in phase_counts.items():
+        launches[k] += v
+    for name, cfg, snap, res, wall_ms, moved in fast_pair:
+        info = audit(name, cfg, engine.put(snap), res)
+        log(f"fast pairwise solve {name}: {wall_ms:.3f} ms wall, placed "
+            f"{info['placed']}/{info['valid_pods']}, rounds {res.rounds}, "
+            f"host reads {res.host_reads}, launches {moved}, audit clean, "
+            f"equal to the plain fast solve ({info['plain_solve_ms']:.1f} "
+            f"ms), pairwise audit clean (S={info['signatures']}, "
+            f"{info['anti_holders']} placed required-anti holders), "
+            f"commit-key audit clean ({info['commit_key_checked']} pods "
+            f"over {info['keys']} keys); {smi}")
+    # Compacted rounds (compact_cap -1: [1024, N] views once the pending
+    # frontier fits) equal full-width rounds (compact_cap 0) on (d).
+    _, cfg_d, snap_fd, res_d, _, _ = fast_pair[0]
+    eng_full = Engine(dataclasses.replace(cfg_d, compact_cap=0))
+    t0 = time.perf_counter()
+    res_full = eng_full.solve(snap_fd)
+    full_ms = (time.perf_counter() - t0) * 1e3
+    eng_full.close()
+    for field in ("assignment", "chosen_score", "commit_key", "final_used",
+                  "rounds"):
+        if not np.array_equal(getattr(res_d, field), getattr(res_full,
+                                                             field)):
+            raise AssertionError(f"fast (d): compacted rounds differ from "
+                                 f"full-width rounds in {field}")
+    log(f"fast (d) compaction twin: compact_cap=-1 equals compact_cap=0 in "
+        f"assignment, chosen_score, commit_key, final_used and rounds "
+        f"({res_d.rounds}); host reads {res_d.host_reads} vs "
+        f"{res_full.host_reads}, full-width solve {full_ms:.3f} ms wall; "
+        f"{smi}")
+    # The plain fast solve of (d) on the host's CPU places what the card
+    # placed.
+    t0 = time.perf_counter()
+    cpu_eng = Engine(cfg_d, device="cpu")
+    res_cpu = cpu_eng.solve(snap_fd)
+    cpu_eng.close()
+    n_card = int((res_d.assignment >= 0).sum())
+    n_cpu = int((res_cpu.assignment >= 0).sum())
+    if n_cpu != n_card:
+        raise AssertionError(f"fast (d): {n_cpu} placed on the CPU, "
+                             f"{n_card} on the card")
+    log(f"fast solve (d) on the host CPU (plain versions): placed {n_cpu}, "
+        f"as on the card; "
+        f"{int((res_cpu.assignment != res_d.assignment).sum())} assignments"
+        f" differ from the card's; rounds {res_cpu.rounds}, host reads "
+        f"{res_cpu.host_reads}; {(time.perf_counter() - t0):.3f} s host "
+        "clock")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} never launched on the "
@@ -976,7 +1298,9 @@ def main() -> int:
     for mode, breakdown, steady in (("parity", stage_breakdown, cells[:2]),
                                     ("fast", fast_breakdown, cells[:2]),
                                     ("parity", stage_breakdown,
-                                     pair_cells[:1])):
+                                     pair_cells[:1]),
+                                    ("fast", fast_breakdown,
+                                     fast_pair_cells[:1])):
         for name, cfg, snap in steady:
             eng = Engine(dataclasses.replace(cfg, mode=mode))
             walls = []
@@ -994,7 +1318,7 @@ def main() -> int:
                     for k, v in bd.items()) + f"; {smi}")
 
     kernels = []
-    for name, fn, source, replaces in KERNELS:
+    for name, _, _, source, replaces in KERNELS:
         r = kp[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

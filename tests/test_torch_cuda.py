@@ -2,7 +2,8 @@
 card, at small shapes. Exact: every kernel is built with --fmad=false and
 follows its plain version's order of f32 operations (K7's column sum in
 ascending rows, K8's Hillis-Steele prefix and rank-ordered adds; K10's
-atomic adds of 1.0 stay exact integers in any order).
+atomic adds of +-1.0 stay exact integers in any order; K12-K14 count,
+compare and take minima).
 
 These tests need a CUDA device and nvcc: without a card each one skips.
 The file imports nothing of JAX, so that it runs where the port runs:
@@ -266,3 +267,76 @@ def test_pairwise_solve_and_score_equal_plain(cuda, mix):
     _equal(score_core(cfg, snap), score_core(cfg, snap, ops=ka.PLAIN))
     _equal(score_topk_core(cfg, snap, 8),
            score_topk_core(cfg, snap, 8, ops=ka.PLAIN))
+
+
+def _round_inputs(cfg, snap, cuda):
+    """A fast pairwise round's inputs: the state with a third of the pods
+    committed at random nodes, every valid pod pending."""
+    static, dom, st = _pair_setup(cfg, snap)
+    rng = np.random.default_rng(2)
+    P = snap.pods.valid.shape[0]
+    choice = torch.from_numpy(rng.integers(0, 24, size=P).astype(
+        np.int32)).to(cuda)
+    kept = (torch.from_numpy(rng.random(P) < 0.6).to(cuda)
+            & snap.pods.valid)
+    st = kp.pair_commit_plain(snap, st, static.sig_match, dom, choice, kept)
+    order = ka.pop_order(cfg, snap)
+    rank = torch.zeros(P, dtype=torch.int32, device=cuda)
+    rank[order] = torch.arange(P, dtype=torch.int32, device=cuda)
+    return static, dom, st, choice, kept, rank
+
+
+@pytest.mark.parametrize("mix", sorted(PAIR_MIXES))
+def test_k12_to_k14_and_entry_points_equal_plain(cuda, mix):
+    """K12-K14 and the fast pairwise entry points of K5, K7, K8, K10 and
+    K11 against their plain versions."""
+    snap = _pair_snap(cuda, mix)
+    cfg = EngineConfig(mode="fast")
+    static, dom, st, choice, kept, rank = _round_inputs(cfg, snap, cuda)
+    used = snap.nodes.used
+    pend = snap.pods.valid
+    kw = dict(pair_st=st, pending=pend, return_relaxed=True)
+    got = ka.batched_cycle(cfg, snap, static, used, ops=ka.KERNELS, **kw)
+    want = ka.batched_cycle(cfg, snap, static, used, ops=ka.PLAIN, **kw)
+    _equal(got, want)
+    feasible, score, relaxed = got
+    masked = torch.where(feasible, score, float("-inf"))
+    allowed = feasible.any(dim=1)
+    _equal([ka.desirability(feasible, masked, allowed, fixed=True)],
+           [ka.desirability_plain(feasible, masked, allowed, fixed=True)])
+    K = ka._fallback_depth(snap.nodes.valid.shape[0])
+    wf = (snap, st, used, relaxed, score, relaxed.any(dim=1), rank, K, dom)
+    deal = ka._spread_waterfill_deal(*wf, ka.KERNELS)
+    _equal(deal, ka._spread_waterfill_deal(*wf, ka.PLAIN))
+    assert deal[2].any()
+    for sign in (1.0, -1.0):
+        a = (snap, st, static.sig_match, dom, choice, kept, sign)
+        _equal(_state(kp.pair_commit(*a)), _state(kp.pair_commit_plain(*a)))
+        n = (used, choice, kept, snap.pods.requests, rank, sign)
+        _equal([ka.node_add(*n)], [ka.node_add_plain(*n)])
+    esn = torch.where(kept, choice, -1)
+    ia = (snap, st, static.sig_match, dom, choice, esn)
+    _equal([kp.ia_ok_at_choice(*ia)], [kp.ia_ok_at_choice_plain(*ia)])
+    ex = (snap, static.aff_ok, rank, choice, kept, st, dom)
+    _equal([ka._spread_excess_mask(*ex, ka.KERNELS)],
+           [ka._spread_excess_mask(*ex, ka.PLAIN)])
+
+
+@pytest.mark.parametrize("mix", sorted(PAIR_MIXES))
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+def test_fast_pairwise_solve_equal_plain(cuda, mix, tie_break):
+    """A fast solve with signatures equals its plain-version solve (host
+    reads included), and compacted rounds equal full-width ones."""
+    snap = _pair_snap(cuda, mix)
+    outs = []
+    for cap, ops in ((-1, ka.KERNELS), (-1, ka.PLAIN), (8, ka.KERNELS),
+                     (0, ka.KERNELS)):
+        cfg = EngineConfig(mode="fast", tie_break=tie_break, tie_seed=5,
+                           compact_cap=cap)
+        stats = ka.RoundStats()
+        outs.append((_pack_solve(solve_core(cfg, snap, ops=ops,
+                                            stats=stats)),
+                     stats.host_reads))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert outs[0][1] == outs[1][1]
+    assert torch.equal(outs[2][0], outs[3][0])

@@ -39,6 +39,7 @@ from tpusched.snapshot import (
 from tpusched_torch.config import EngineConfig
 from tpusched_torch.engine import _sat_tables
 from tpusched_torch.kernels import assign as tassign
+from tpusched_torch.kernels import score as kscore
 from tpusched_torch.kernels.atoms import atom_sat, atom_sat_plain
 from tpusched_torch.qos import tie_hash
 from tpusched_torch.snapshot import snapshot_from_numpy
@@ -414,3 +415,38 @@ def test_deal_commit_plain_matches_jax(name, tie_break):
     np.testing.assert_array_equal(choice.numpy(), np.asarray(jchoice))
     np.testing.assert_array_equal(chosen.numpy(), np.asarray(jchosen))
     np.testing.assert_allclose(used2.numpy(), np.asarray(jused2), rtol=1e-6)
+
+
+def test_balanced_allocation_root_correctly_rounded():
+    """The plain balanced-allocation score takes the correctly rounded
+    f32 square root (numpy's, CUDA sqrtf's), bitwise equal to the
+    oracle's op order (tpusched/oracle.py score_balanced), on 393 216
+    random cells: PyTorch's f32 sqrt on AVX-512 CPUs is 1 ulp off on
+    some of them."""
+    rng = np.random.default_rng(5)
+    P, N, R = 256, 512, 3
+    alloc = rng.uniform(1.0, 64.0, (N, R)).astype(np.float32)
+    alloc[rng.random((N, R)) < 0.05] = 0.0
+    used = (alloc * rng.uniform(0.0, 0.9, (N, R))).astype(np.float32)
+    req = rng.uniform(0.0, 8.0, (P, R)).astype(np.float32)
+    rw = np.array([1.0, 1.0, 0.0], np.float32)
+    got = kscore.balanced_allocation(*(torch.from_numpy(x) for x in (
+        alloc, used, req, rw))).numpy()
+    sel = (rw > 0).astype(np.float32)
+    k = np.float32(max(sel.sum(), 1.0))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        frac = np.where(alloc > 0, (used[None] + req[:, None]) / alloc,
+                        np.float32(1.0))
+    frac = np.clip(frac, 0.0, 1.0).astype(np.float32)
+    acc = np.zeros((P, N), np.float32)
+    for r in range(R):
+        acc = acc + frac[..., r] * sel[r]
+    mean = acc[..., None] / k
+    d = frac - mean
+    var = np.zeros((P, N), np.float32)
+    for r in range(R):
+        var = var + (d[..., r] * d[..., r]) * sel[r]
+    var = var / k
+    want = ((np.float32(1.0) - np.sqrt(var)) * np.float32(100.0)).astype(
+        np.float32)
+    np.testing.assert_array_equal(got, want)

@@ -37,7 +37,7 @@ from tpusched.engine import _sat_tables as jax_sat_tables
 from tpusched.kernels import assign as jassign
 from tpusched.kernels import pairwise as jpair
 from tpusched.kernels import score as jscore
-from tpusched.oracle import Oracle
+from tpusched.oracle import Oracle, validate_assignment
 from tpusched_torch import Engine, EngineConfig
 from tpusched_torch import snapshot as tsnapshot
 from tpusched_torch import synth as tsynth
@@ -572,20 +572,29 @@ def test_score_batch_matches_jax_and_oracle(name):
     np.testing.assert_array_equal(best, np.where(ok[:, 0], ranked[:, 0], -1))
 
 
-# -- what stays refused ------------------------------------------------------------
+# -- fast mode ----------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("name", ["config3", "running_anti"])
 def test_fast_mode_refuses_signatures(name):
-    """Fast mode with signatures is ROADMAP A6b: refused, not solved
-    without its constraints."""
-    _, tsnap = both_snaps(name)
+    """Fast mode takes signatures now (it refused them before the fast
+    rounds with signatures were ported): the solve is valid under the
+    oracle's commit-key audit and places as many pods as the JAX fast
+    engine, less 2 (tests/test_torch_fastsig_solve.py holds more
+    snapshots to this)."""
+    jsnap, tsnap = both_snaps(name)
     eng = Engine(EngineConfig(mode="fast"), device="cpu")
+    jeng = JEngine(JConfig(mode="fast"))
     try:
-        with pytest.raises(NotImplementedError, match="A6b"):
-            eng.solve(tsnap)
+        res = eng.solve(tsnap)
+        jres = jeng.solve(jsnap)
     finally:
         eng.close()
+        jeng.close()
+    assert validate_assignment(jsnap, JConfig(mode="fast"), res.assignment,
+                               commit_key=res.commit_key) == []
+    assert (res.assignment >= 0).sum() >= (jres.assignment >= 0).sum() - 2
+    assert res.rounds > 0 and res.host_reads > 0
 
 
 def test_jax_snapshot_carries_across():

@@ -148,13 +148,13 @@ def test_seeded_tiebreak_fuzz(seed):
 
 
 @pytest.mark.parametrize("kw,modes,item", [
-    (dict(spread_frac=0.6), ("fast",), "ROADMAP A6b"),
-    (dict(interpod_frac=0.6), ("fast",), "ROADMAP A6b"),
+    (dict(spread_frac=0.6, gang_frac=1.0), ("fast",), "ROADMAP A7"),
+    (dict(interpod_frac=0.6, gang_frac=1.0), ("fast",), "ROADMAP A7"),
     (dict(gang_frac=1.0), ("parity", "fast"), "ROADMAP A7")])
 def test_unported_snapshot_raises(kw, modes, item):
-    """A spread or inter-pod snapshot in fast mode, or a gang snapshot in
-    either mode (built by the JAX package and carried across), is
-    refused, not solved without its constraints."""
+    """A gang snapshot in either mode, with spread or inter-pod terms in
+    fast mode too (built by the JAX package and carried across), is
+    refused, not solved without its gangs."""
     jsnap, _ = jsynth.make_cluster(np.random.default_rng(2), 16, 6, **kw)
     for mode in modes:
         eng = Engine(EngineConfig(mode=mode), device="cpu")

@@ -49,16 +49,22 @@ SIGNATURES = {
     "tpusched_parity_scan": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _I, _U, _P, _P, _P, _P],
     "tpusched_cycle": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _I, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "tpusched_row_topk": [_I, _I, _I, _P, _I, _U, _P, _P, _P, _P, _P],
-    "tpusched_desirability": [_I, _I, _P, _P, _P, _P, _P],
+    "tpusched_desirability": [_I, _I, _P, _P, _P, _I, _P, _P, _P],
     "tpusched_prefix_commit": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P],
     "tpusched_parity_scan_pair": [_I, _I, _I] + [_P] * 10 + [_I, _U]
                                  + [_I] * 4 + [_P] * 23,
     "tpusched_sig_match": [_I, _I, _I, _I] + [_P] * 8,
     "tpusched_pair_counts": [_I] * 6 + [_P] * 14,
-    "tpusched_pairwise_batch": [_I] * 6 + [_P] * 20,
+    "tpusched_pairwise_batch": [_I] * 6 + [_P] * 21,
+    "tpusched_node_add": [_I, _I, _I, _P, _P, _P, _I, _P, _P],
+    "tpusched_pair_commit": [_I] * 5 + [_P] * 8 + [_I] + [_P] * 4,
+    "tpusched_ia_at_choice": [_I] * 5 + [_P] * 13,
+    "tpusched_waterfill": [_I, _I, _I] + [_P] * 13,
+    "tpusched_excess_min": [_I, _I] + [_P] * 7,
+    "tpusched_excess_survive": [_I] + [_P] * 7,
 }
 
 _lib: "ctypes.CDLL | None" = None

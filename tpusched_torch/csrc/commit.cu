@@ -22,6 +22,16 @@
 //    duplicate-index f32 scatter-add whose order is unspecified (an
 //    atomic add on CUDA, whose rounding changes run to run).
 //
+// The node_add entry point replaces assign.py:701 _node_add (the
+// validator's reverts, sign = -1, in the rounds with signatures): the
+// caller sorts the masked rows by (node, rank), masked-out rows last with
+// node N; one thread per node segment adds its rows' sign * requests into
+// used, one row at a time in ascending rank, as the sub-step commits them.
+// JAX adds each segment's total (a prefix sum) at once, a different
+// association (so `used` agrees with JAX's to rounding, not bitwise); the
+// order here depends only on the rows' ranks, so a compacted view adds
+// exactly what the full width adds. Bound: bytes, [P, R] read once.
+//
 // Bound: latency. The work is O(P log P) adds over [P] x R (P = 10240 at
 // the headline), far below a microsecond of bandwidth; what costs is the
 // dependent chain of log2(P) scan steps per resource, each a block
@@ -107,7 +117,35 @@ prefix_commit_kernel(int P, int N, int R, int KC, const int* __restrict__ perm,
   }
 }
 
+__global__ void node_add_kernel(int P, int N, int R,
+                                const int* __restrict__ perm,
+                                const int* __restrict__ node_s,
+                                const float* __restrict__ req, float sign,
+                                float* __restrict__ used) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= P) return;
+  const int n = node_s[i];
+  if (n >= N || (i > 0 && node_s[i - 1] == n)) return;
+  for (int r = 0; r < R; ++r) {
+    const long long o = (long long)n * R + r;
+    float u = used[o];
+    for (int j = i; j < P && node_s[j] == n; ++j)
+      u = u + sign * req[(long long)perm[j] * R + r];
+    used[o] = u;
+  }
+}
+
 }  // namespace
+
+extern "C" int tpusched_node_add(int P, int N, int R, const int* perm,
+                                 const int* node_s, const float* req,
+                                 int sign, float* used, void* stream) {
+  const int threads = 256;
+  node_add_kernel<<<(P + threads - 1) / threads, threads, 0,
+                    (cudaStream_t)stream>>>(P, N, R, perm, node_s, req,
+                                            (float)sign, used);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int tpusched_prefix_commit(int P, int N, int R, int KC,
                                       const int* perm, const int* cand_s,

@@ -23,6 +23,12 @@
 //   score    = (((w_lr*LR + w_ba*BA) + static) + w_ts*ts) + w_ia*ia
 // (9 more bytes read per cell).
 //
+// The fast rounds with signatures also ask for the spread-relaxed
+// feasibility (assign.py:306-307, `base_feasible & ia_ok`, cut to pending
+// rows like `feasible`): with K11's ia_ok [P, N] given, the kernel writes
+// relaxed = mask & fit & ia_ok (& pending) beside feasible (2 more bytes
+// a cell).
+//
 // Bound: bytes. A cell reads mask (1 byte) and the static score (4) and
 // writes feasible (1) and the score (4); used/alloc ([N, R]) and the
 // pod's row constants stay in L1/L2. At 10240 x 5120: 0.52 GB, 0.16 ms
@@ -47,7 +53,8 @@ cycle_kernel(int N, int R, const int* __restrict__ rows,
              const float* __restrict__ rw_g, const bool* __restrict__ pair_ok,
              const float* __restrict__ ts, const float* __restrict__ ia,
              const float* __restrict__ w_ia, int masked_out,
-             bool* __restrict__ feasible, float* __restrict__ score) {
+             bool* __restrict__ feasible, float* __restrict__ score,
+             const bool* __restrict__ ia_ok, bool* __restrict__ relaxed) {
   const int i = blockIdx.x;
   const int n = blockIdx.y * THREADS + threadIdx.x;
   if (n >= N) return;
@@ -60,6 +67,8 @@ cycle_kernel(int N, int R, const int* __restrict__ rows,
   const float* a = alloc + (long long)n * R;
   bool ok = mask[q * N + n] && tpusched::cell_fits(u, a, rq, R);
   if (pending && !pending[i]) ok = false;
+  const long long o = (long long)i * N + n;
+  if (relaxed) relaxed[o] = ok && ia_ok[q * N + n];
   float s;
   if (pair_ok) {
     if (!pair_ok[q * N + n]) ok = false;
@@ -71,7 +80,6 @@ cycle_kernel(int N, int R, const int* __restrict__ rows,
     s = tpusched::cell_score(u, a, rq, R, w, w_lr[q], w_ba[q],
                              sscore[q * N + n], w_ts[q]);
   }
-  const long long o = (long long)i * N + n;
   feasible[o] = ok;
   score[o] = masked_out && !ok ? -INFINITY : s;
 }
@@ -87,11 +95,13 @@ extern "C" int tpusched_cycle(int rows_n, int N, int R, const int* rows,
                               const bool* pair_ok, const float* ts,
                               const float* ia, const float* w_ia,
                               int masked_out, bool* feasible, float* score,
+                              const bool* ia_ok, bool* relaxed,
                               void* stream) {
   if (R > tpusched::MAX_R) return (int)cudaErrorInvalidValue;
   dim3 grid(rows_n, (N + THREADS - 1) / THREADS);
   cycle_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       N, R, rows, pending, mask, sscore, alloc, used, req, w_lr, w_ba, w_ts,
-      rw, pair_ok, ts, ia, w_ia, masked_out, feasible, score);
+      rw, pair_ok, ts, ia, w_ia, masked_out, feasible, score, ia_ok,
+      relaxed);
   return (int)cudaGetLastError();
 }

@@ -70,7 +70,8 @@ int tpusched_parity_scan(int P, int N, int R, const int* order,
 // pair_ok, ts, ia ([P, N], K11's outputs) and w_ia are NULL at S = 0,
 // where the spread score is the constant 100 and the inter-pod term is
 // absent. masked_out = 1 writes where(feasible, score, -inf), 0 the raw
-// score.
+// score. ia_ok ([P, N], K11's) and relaxed ([rows_n, N]) are NULL unless
+// the spread-relaxed feasibility mask & fit & ia_ok (& pending) is wanted.
 int tpusched_cycle(int rows_n, int N, int R, const int* rows,
                    const bool* pending, const bool* mask,
                    const float* sscore, const float* alloc,
@@ -78,7 +79,8 @@ int tpusched_cycle(int rows_n, int N, int R, const int* rows,
                    const float* w_ba, const float* w_ts, const float* rw,
                    const bool* pair_ok, const float* ts, const float* ia,
                    const float* w_ia, int masked_out, bool* feasible,
-                   float* score, void* stream);
+                   float* score, const bool* ia_ok, bool* relaxed,
+                   void* stream);
 
 // K6. Per row of masked [rows, N]: the K best (value, index), larger value
 // first and ties to the lower index (topv/topi [rows, K]); with seeded,
@@ -90,9 +92,12 @@ int tpusched_row_topk(int rows, int N, int K, const float* masked,
 
 // K7. desir[n] = sum over rows (ascending) of masked where feasible and
 // allowed, over max(#allowed, 1); -inf where no allowed row is feasible.
+// fixed = 1: the sum is of int32 round(masked * 16) clipped to +-32767,
+// over 16 * max(#allowed, 1) (assign.py:799-812, width-invariant), in
+// row chunks that add into work ([2N + 1] int32, zero on entry).
 int tpusched_desirability(int rows, int N, const bool* feasible,
                           const float* masked, const bool* allowed,
-                          float* desir, void* stream);
+                          int fixed, int* work, float* desir, void* stream);
 
 // K8. One capacity-prefix commit sub-step over the (node, rank)-sorted
 // candidates: perm [P] (sorted row -> pod row), cand_s [P] (sorted nodes,
@@ -103,6 +108,14 @@ int tpusched_prefix_commit(int P, int N, int R, int KC, const int* perm,
                            const float* alloc, float* used, int* choice,
                            int* ptr, float* buf_f, int* buf_i,
                            unsigned char* fit, void* stream);
+
+// K8's node_add (tpusched/kernels/assign.py _node_add): rows sorted by
+// (node, rank), perm [P] (sorted row -> pod row), node_s [P] (sorted
+// nodes, N = masked out); used[n] += sign * req[perm[j]] for each row of
+// node n, one at a time in sorted order. sign is +1 or -1.
+int tpusched_node_add(int P, int N, int R, const int* perm,
+                      const int* node_s, const float* req, int sign,
+                      float* used, void* stream);
 
 // K4, pairwise variant (tpusched/kernels/assign.py solve_sequential with
 // signatures): the parity scan with pairwise_row and pair_state_add_pod.
@@ -155,7 +168,57 @@ int tpusched_pairwise_batch(
     const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
     const bool* ia_anti, const bool* ia_required, const float* ia_weight,
     const float* counts, const float* anti, const float* match_tot,
-    bool* pair_ok, float* ts_score, float* ia_score, void* stream);
+    bool* pair_ok, float* ts_score, float* ia_score, bool* ia_ok,
+    void* stream);
+
+// K10's commit entry point (pairwise.py pair_state_commit): pods p < P
+// with commit[p] add sign (+1 or -1) at choice[p] into counts, anti and
+// match_tot, in place. match [S, M + P] is the view's member table.
+int tpusched_pair_commit(int S, int N, int M, int P, int IT,
+                         const bool* match, const int* dom,
+                         const int* ia_sig, const bool* ia_valid,
+                         const bool* ia_anti, const bool* ia_required,
+                         const int* choice, const bool* commit, int sign,
+                         float* counts, float* anti, float* match_tot,
+                         void* stream);
+
+// K14. ok[p] = the required inter-pod and symmetric anti-affinity verdict
+// of pod p at node choice[p] (clipped to 0), its own contribution left
+// out where esn[p] >= 0 (pairwise.py ia_ok_at_choice).
+int tpusched_ia_at_choice(int P, int N, int S, int IT, int M, const int* dom,
+                          const bool* match, const int* ia_sig,
+                          const bool* ia_valid, const bool* ia_anti,
+                          const bool* ia_required, const float* counts,
+                          const float* anti, const float* match_tot,
+                          const int* choice, const int* esn, bool* ok,
+                          void* stream);
+
+// K12. The water-fill dealer's per-pod part (assign.py
+// _spread_waterfill_deal from its fill table on): fill [S, N] f32,
+// ord_dom and dom [S, N], s_p [P], q [P] f32, relaxed [P, N], cap_order
+// [N], score [P, N], member [P]; writes cand and val [P, K1] (K1 <= 32)
+// and ok [P].
+int tpusched_waterfill(int P, int N, int K1, const float* fill,
+                       const int* ord_dom, const int* dom, const int* s_p,
+                       const float* q, const bool* relaxed,
+                       const int* cap_order, const float* score,
+                       const bool* member, int* cand, float* val, bool* ok,
+                       void* stream);
+
+// K13 (assign.py _spread_excess_mask), first entry point: min_end[p] =
+// min of counts[s_c[p], dom[s_c[p], n]] over valid nodes n with
+// aff_ok[p, n] and the key, 0 if none.
+int tpusched_excess_min(int P, int N, const int* dom, const float* counts,
+                        const bool* node_valid, const bool* aff_ok,
+                        const int* s_c, float* min_end, void* stream);
+
+// K13, second entry point: rows sorted by (group gid_s, rank), perm [P]
+// sorted row -> pod row; per group of members the running count q and
+// running min of T; bad[p] = member & !(b_fixed + q <= min), false for
+// non-members (whose group is the last).
+int tpusched_excess_survive(int P, const int* gid_s, const int* perm,
+                            const bool* member, const float* T,
+                            const float* b_fixed, bool* bad, void* stream);
 
 #ifdef __cplusplus
 }

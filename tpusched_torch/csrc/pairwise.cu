@@ -28,7 +28,26 @@
 // f32, which K5 (cycle.cu) then takes in place of its constants 100 and
 // 0. Bound: bytes, 9 written per cell plus aff_ok read (0.52 GB at
 // 10240 x 5120: 0.16 ms at 3.35 TB/s); the counts, domains and the
-// match column stay in L1/L2.
+// match column stay in L1/L2. The fast rounds also ask for ia_ok alone
+// ([P, N] bool, the inter-pod and symmetric verdict without the spread
+// filter; tpusched/kernels/assign.py:306-307), which K5 turns into the
+// spread-relaxed feasibility: 1 byte more written per cell.
+//
+// K10's commit entry point (pair_commit) replaces :174 pair_state_commit:
+// one thread per pod row of the (possibly compacted) view; a committed pod
+// adds sign = +1 or -1 at each signature it matches (match_tot, and counts
+// at its node's domain) and at each required anti term it holds (anti).
+// Exact like K10: every add is +-1.0f on an integer below 2^24. Bound: the
+// atomics' latency; bytes [S, P] bool.
+//
+// K14 ia_at_choice replaces :434 ia_ok_at_choice: one thread per pod row,
+// the required inter-pod terms at the chosen node with the pod's own
+// contribution left out where it sits on esn[p], then the symmetric
+// anti-affinity column at that node as an int32 sum over signatures of
+// match * (int)anti, less the pod's own held terms. It equals
+// pairwise_from_counts(exclude_self_node = esn)'s ia_ok at the chosen
+// column (the plain versions are held to that on the CPU). Bound: bytes,
+// O(S * P) gathers (~0.2 MB at 10240 pods, S = 4).
 #include <math.h>
 
 #include "kernels.h"
@@ -118,7 +137,7 @@ pairwise_batch_kernel(PairTerms t, const float* __restrict__ counts,
                       const float* __restrict__ anti,
                       const float* __restrict__ match_tot,
                       bool* __restrict__ pair_ok, float* __restrict__ ts_out,
-                      float* __restrict__ ia_out) {
+                      float* __restrict__ ia_out, bool* __restrict__ ia_ok) {
   __shared__ float s_lo[BATCH_WARPS], s_hi[BATCH_WARPS];
   __shared__ float s_cmin[tpusched::MAX_C], s_cmax[tpusched::MAX_C];
   const int p = blockIdx.x;
@@ -130,7 +149,8 @@ pairwise_batch_kernel(PairTerms t, const float* __restrict__ counts,
   for (int n = tid; n < t.N; n += BATCH_THREADS) {
     float pen, raw;
     pair_ok[row + n] = tpusched::pair_node(t, counts, anti, match_tot, p, n,
-                                           s_cmin, s_cmax, &pen, &raw);
+                                           s_cmin, s_cmax, &pen, &raw,
+                                           ia_ok ? ia_ok + row + n : nullptr);
     ts_out[row + n] = pen;
     ia_out[row + n] = raw;
     if (t.node_valid[n]) {
@@ -147,6 +167,84 @@ pairwise_batch_kernel(PairTerms t, const float* __restrict__ counts,
     ts_out[row + n] = tpusched::inverse_norm(ts_out[row + n], plo, phi);
     ia_out[row + n] = tpusched::minmax_norm(ia_out[row + n], rlo, rhi);
   }
+}
+
+__global__ void pair_commit_kernel(int S, int N, int M, int P, int IT,
+                                   const bool* __restrict__ match,
+                                   const int* __restrict__ dom,
+                                   const int* __restrict__ ia_sig,
+                                   const bool* __restrict__ ia_valid,
+                                   const bool* __restrict__ ia_anti,
+                                   const bool* __restrict__ ia_required,
+                                   const int* __restrict__ choice,
+                                   const bool* __restrict__ commit,
+                                   float sign, float* counts, float* anti,
+                                   float* match_tot) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P || !commit[p]) return;
+  const long long X = M + P;
+  const long long nc = max(choice[p], 0);
+  for (int s = 0; s < S; ++s) {
+    if (!match[s * X + M + p]) continue;
+    atomicAdd(&match_tot[s], sign);
+    const int d = dom[s * (long long)N + nc];
+    if (d >= 0) atomicAdd(&counts[s * (long long)N + d], sign);
+  }
+  for (int t = 0; t < IT; ++t) {
+    const long long pt = (long long)p * IT + t;
+    if (!(ia_valid[pt] && ia_anti[pt] && ia_required[pt])) continue;
+    const int s = max(ia_sig[pt], 0);
+    const int d = dom[s * (long long)N + nc];
+    if (d >= 0) atomicAdd(&anti[s * (long long)N + d], sign);
+  }
+}
+
+__global__ void ia_at_choice_kernel(int P, int N, int S, int IT, int M,
+                                    const int* __restrict__ dom,
+                                    const bool* __restrict__ match,
+                                    const int* __restrict__ ia_sig,
+                                    const bool* __restrict__ ia_valid,
+                                    const bool* __restrict__ ia_anti,
+                                    const bool* __restrict__ ia_required,
+                                    const float* __restrict__ counts,
+                                    const float* __restrict__ anti,
+                                    const float* __restrict__ match_tot,
+                                    const int* __restrict__ choice,
+                                    const int* __restrict__ esn,
+                                    bool* __restrict__ ok_out) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const long long X = M + P;
+  const long long ch = max(choice[p], 0);
+  const int e = esn[p];
+  const long long ec = max(e, 0);
+  bool ok = true;
+  int own = 0;  // the pod's own held anti terms in its chosen domain
+  for (int t = 0; t < IT; ++t) {
+    const long long pt = (long long)p * IT + t;
+    const int s = max(ia_sig[pt], 0);
+    const int d = dom[s * (long long)N + ch];
+    const bool self = match[s * X + M + p];
+    const bool committed = self && e >= 0;
+    const int own_dom = dom[s * (long long)N + ec];
+    const bool active = committed && own_dom >= 0 && d == own_dom;
+    const float nc = counts[s * (long long)N + max(d, 0)]
+                     - (active ? 1.0f : 0.0f);
+    const bool hk = d >= 0;
+    const bool node_has = hk && nc > 0.0f;
+    const bool all_zero = match_tot[s] - (committed ? 1.0f : 0.0f) <= 0.0f;
+    const bool pos_ok = node_has || (all_zero && self && hk);
+    const bool ok_t = ia_anti[pt] ? !node_has : pos_ok;
+    if (ia_valid[pt] && ia_required[pt]) ok = ok && ok_t;
+    if (ia_valid[pt] && ia_anti[pt] && ia_required[pt] && active) own += 1;
+  }
+  int blocked = 0;
+  for (int s = 0; s < S; ++s) {
+    if (!match[s * X + M + p]) continue;
+    const int d = dom[s * (long long)N + ch];
+    if (d >= 0) blocked += (int)anti[s * (long long)N + d];
+  }
+  ok_out[p] = ok && !(blocked - own > 0);
 }
 
 }  // namespace
@@ -191,13 +289,47 @@ extern "C" int tpusched_pairwise_batch(
     const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
     const bool* ia_anti, const bool* ia_required, const float* ia_weight,
     const float* counts, const float* anti, const float* match_tot,
-    bool* pair_ok, float* ts_score, float* ia_score, void* stream) {
+    bool* pair_ok, float* ts_score, float* ia_score, bool* ia_ok,
+    void* stream) {
   if (C > tpusched::MAX_C) return (int)cudaErrorInvalidValue;
   PairTerms t{N,      S,          C,        IT,          M + P,   M,
               dom,    match,      node_valid, aff_ok,    ts_sig,  ts_valid,
               ts_when, ts_max_skew, ia_sig, ia_valid,    ia_anti, ia_required,
               ia_weight};
   pairwise_batch_kernel<<<P, BATCH_THREADS, 0, (cudaStream_t)stream>>>(
-      t, counts, anti, match_tot, pair_ok, ts_score, ia_score);
+      t, counts, anti, match_tot, pair_ok, ts_score, ia_score, ia_ok);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpusched_pair_commit(int S, int N, int M, int P, int IT,
+                                    const bool* match, const int* dom,
+                                    const int* ia_sig, const bool* ia_valid,
+                                    const bool* ia_anti,
+                                    const bool* ia_required,
+                                    const int* choice, const bool* commit,
+                                    int sign, float* counts, float* anti,
+                                    float* match_tot, void* stream) {
+  const int threads = 256;
+  pair_commit_kernel<<<(P + threads - 1) / threads, threads, 0,
+                       (cudaStream_t)stream>>>(
+      S, N, M, P, IT, match, dom, ia_sig, ia_valid, ia_anti, ia_required,
+      choice, commit, (float)sign, counts, anti, match_tot);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpusched_ia_at_choice(int P, int N, int S, int IT, int M,
+                                     const int* dom, const bool* match,
+                                     const int* ia_sig, const bool* ia_valid,
+                                     const bool* ia_anti,
+                                     const bool* ia_required,
+                                     const float* counts, const float* anti,
+                                     const float* match_tot,
+                                     const int* choice, const int* esn,
+                                     bool* ok, void* stream) {
+  const int threads = 256;
+  ia_at_choice_kernel<<<(P + threads - 1) / threads, threads, 0,
+                        (cudaStream_t)stream>>>(
+      P, N, S, IT, M, dom, match, ia_sig, ia_valid, ia_anti, ia_required,
+      counts, anti, match_tot, choice, esn, ok);
   return (int)cudaGetLastError();
 }

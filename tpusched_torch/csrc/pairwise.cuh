@@ -71,18 +71,21 @@ __device__ __forceinline__ float min_or_0(float lo) {
 }
 
 // pairwise_row at node n for pod p against (counts, anti, match_tot):
-// returns spread_ok & ia_ok & !symmetric_block, and writes the spread
-// penalty and the inter-pod raw score. cmin/cmax: each spread slot's
-// reduced (lo, hi); only valid slots' entries are read.
+// returns spread_ok & ia_ok (ia_ok includes !symmetric_block), and writes
+// the spread penalty and the inter-pod raw score, and ia_ok alone where
+// ia_ok_out is not NULL. cmin/cmax: each spread slot's reduced (lo, hi);
+// only valid slots' entries are read.
 __device__ __forceinline__ bool pair_node(const PairTerms& t,
                                           const float* counts,
                                           const float* anti,
                                           const float* match_tot, int p,
                                           int n, const float* cmin,
                                           const float* cmax, float* pen_out,
-                                          float* raw_out) {
+                                          float* raw_out,
+                                          bool* ia_ok_out = nullptr) {
   const long long N = t.N;
-  bool ok = true;
+  bool ok = true;   // spread_ok
+  bool ia = true;   // ia_ok
   float pen = 0.0f;
   for (int c = 0; c < t.C; ++c) {
     const long long pc = (long long)p * t.C + c;
@@ -111,7 +114,7 @@ __device__ __forceinline__ bool pair_node(const PairTerms& t,
       const bool all_zero = match_tot[s] <= 0.0f;
       const bool self = t.match[(long long)s * t.X + t.M + p];
       const bool pos_ok = node_has || (all_zero && self && hk);
-      ok = ok && (anti_t ? !node_has : pos_ok);
+      ia = ia && (anti_t ? !node_has : pos_ok);
     }
     const float w = anti_t ? -t.ia_weight[pt] : t.ia_weight[pt];
     raw = raw + ((valid && !req && node_has) ? w : 0.0f);
@@ -124,7 +127,9 @@ __device__ __forceinline__ bool pair_node(const PairTerms& t,
   }
   *pen_out = pen;
   *raw_out = raw;
-  return ok && blocked <= 0;
+  ia = ia && blocked <= 0;
+  if (ia_ok_out) *ia_ok_out = ia;
+  return ok && ia;
 }
 
 // score.inverse_normalize: lower penalty -> higher score, all equal -> 100.

@@ -13,6 +13,9 @@ Everything runs on the CUDA device unless the caller asks for the CPU
     -> pair_counts (K10) -> parity_scan_pair (K4's pairwise variant)
                                                [mode="parity", S > 0]
     -> solve_rounds (K5, K6, K7, K8 a round)    [mode="fast", S = 0]
+    -> pair_counts (K10) -> solve_rounds (K11, K5, K12, K6, K7, K8 and
+       K10's commit a round; K14, K13, K8's node_add and K10's commit a
+       validation pass)                        [mode="fast", S > 0]
     -> _pack_solve.
 
 `Engine.score`, `score_top1` and `score_topk` (ScoreBatch) run the same
@@ -22,9 +25,8 @@ members (K10) and every pod's pairwise row (K11), then one [P, N] Filter
 
 S is the number of pairwise signatures (topology spread, inter-pod
 affinity and anti-affinity terms). The engine starts no thread: every
-entry point is synchronous and `close` has nothing to release. Fast mode
-with signatures (ROADMAP A6b), gangs (A7) and preemption (A8) are
-refused with NotImplementedError.
+entry point is synchronous and `close` has nothing to release. Gangs
+(ROADMAP A7) and preemption (A8) are refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ def solve_core(cfg: EngineConfig, snap: ClusterSnapshot, ops: Ops = KERNELS,
     Fast: commit_key is each pod's commit round. stats collects the fast
     loops' host reads (and spans, when it times)."""
     if cfg.mode == "fast":
-        return solve_rounds(cfg, snap, _sat_tables(snap, ops)[0], ops=ops,
+        return solve_rounds(cfg, snap, *_sat_tables(snap, ops), ops=ops,
                             stats=stats)
     a, c, u, o, ev = solve_sequential(cfg, snap, *_sat_tables(snap, ops),
                                       ops=ops)

@@ -1,6 +1,6 @@
 """The solve paths: the port of `tpusched/kernels/assign.py` for
-snapshots without gangs or preemption; pairwise signatures (topology
-spread, inter-pod affinity) in parity mode and ScoreBatch.
+snapshots without gangs or preemption, pairwise signatures (topology
+spread, inter-pod affinity) included.
 
 The scheduling cycle splits, as in the JAX package, into
   * a STATIC part computed once per snapshot (StaticCtx): the cell-local
@@ -19,7 +19,14 @@ The scheduling cycle splits, as in the JAX package, into
     pairwise rows); a fast round then ranks each row (K6, `row_topk`),
     deals pods onto nodes by a node desirability (K7, `desirability`)
     and commits capacity prefixes per node in sub-steps (K8,
-    `prefix_commit`). Fast mode with signatures is ROADMAP A6b.
+    `prefix_commit`). With signatures a round also water-fills spread
+    members across their domains (K12, `waterfill`), adds its commits
+    to the pair state (K10's `pair_commit`) and validates them against
+    the end-of-round state until nothing more reverts: the inter-pod
+    verdict at each chosen node (K14, `kernels/pairwise.ia_ok_at_choice`),
+    the spread excess per (signature, domain) (K13, `excess_min` and
+    `excess_survive`), the reverts out of `used` (K8's `node_add`) and
+    the pair state.
 
 Every kernel wrapper runs its plain version (`*_plain`) on CPU tensors.
 The solve functions take an `Ops` table (default: the kernel wrappers);
@@ -27,8 +34,9 @@ The solve functions take an `Ops` table (default: the kernel wrappers);
 solve on CUDA tensors without a kernel, to compare.
 
 The JAX fast rounds are `lax.while_loop`s on the device. Here they are
-Python loops that read one device flag per round, per commit sub-step
-and per tranche; `RoundStats` counts those reads.
+Python loops that read one device flag per round, per commit sub-step,
+per tranche, per validation pass and per hand-off from full-width to
+compacted rounds; `RoundStats` counts those reads.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from typing import Callable
 import torch
 
 from tpusched_torch import _build
-from tpusched_torch.config import EngineConfig
+from tpusched_torch.config import DO_NOT_SCHEDULE, EngineConfig
 from tpusched_torch.kernels import check, ptrs, stream_of
 from tpusched_torch.kernels import filter as kfilter
 from tpusched_torch.kernels import pairwise as kpair
@@ -423,17 +431,10 @@ def parity_scan_pair(cfg: EngineConfig, snap: ClusterSnapshot,
 parity_scan_pair.launches = 0
 
 
-def refuse_unported(cfg: EngineConfig, snap: ClusterSnapshot,
-                    signatures: bool = True) -> None:
+def refuse_unported(cfg: EngineConfig, snap: ClusterSnapshot) -> None:
     """Raise for what the solve paths do not implement yet rather than
-    skip it: the JAX paths' gang and preemption steps (and, where
-    `signatures` is False, the pairwise steps) are identities only when
-    those axes are empty."""
-    if not signatures and snap.sigs.key.shape[0] > 0:
-        raise NotImplementedError(
-            "snapshot has pairwise signatures (topology spread / "
-            "inter-pod affinity): fast mode does not take them yet; "
-            "ROADMAP A6b ports it (parity mode and ScoreBatch take them)")
+    skip it: the JAX paths' gang and preemption steps are identities
+    only when those axes are empty."""
     if snap.group_min_member.shape[0] > 0:
         raise NotImplementedError(
             "snapshot has pod groups (gangs): not ported yet; ROADMAP A7 "
@@ -476,14 +477,17 @@ def cycle_plain(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
                 w_ba: torch.Tensor, w_ts: torch.Tensor, rw: torch.Tensor,
                 rows: torch.Tensor | None = None,
                 pending: torch.Tensor | None = None, masked: bool = False,
-                pair: tuple | None = None, w_ia: torch.Tensor | None = None):
+                pair: tuple | None = None, w_ia: torch.Tensor | None = None,
+                ia_ok: torch.Tensor | None = None):
     """(feasible, score) [rows, N] of `_cycle_nosig`: mask & fit, and
     ((w_lr*LR + w_ba*BA) + static) + w_ts*100. With pair = K11's
     (pair_ok, ts, ia) [P, N] rows (signatures), batched_cycle's: mask &
     fit & pair_ok, and (((w_lr*LR + w_ba*BA) + static) + w_ts*ts) +
     w_ia*ia. rows selects pod rows of req, mask, sscore, the weights and
     the pair rows; pending cuts rows to pending pods; masked=True gives
-    where(feasible, score, -inf)."""
+    where(feasible, score, -inf). With ia_ok (K11's, [P, N]) a third
+    output: the spread-relaxed feasibility mask & fit & ia_ok, cut to
+    pending rows (batched_cycle's return_relaxed)."""
     if rows is not None:
         rows = rows.long()
         req, mask, sscore = req[rows], mask[rows], sscore[rows]
@@ -491,9 +495,12 @@ def cycle_plain(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
         if pair is not None:
             pair = tuple(t[rows] for t in pair)
             w_ia = w_ia[rows]
+        if ia_ok is not None:
+            ia_ok = ia_ok[rows]
     feasible = mask & kfilter.resource_fit(alloc, used, req)
     if pending is not None:
         feasible = feasible & pending[:, None]
+    relaxed = None if ia_ok is None else feasible & ia_ok
     score = (
         w_lr[:, None] * kscore.least_requested(alloc, used, req, rw)
         + w_ba[:, None] * kscore.balanced_allocation(alloc, used, req, rw)
@@ -509,7 +516,8 @@ def cycle_plain(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
         score = torch.where(feasible, score,
                             torch.full((), NEG_INF, dtype=score.dtype,
                                        device=score.device))
-    return feasible, score
+    return (feasible, score) if relaxed is None else (feasible, score,
+                                                      relaxed)
 
 
 def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
@@ -517,12 +525,13 @@ def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
           w_ba: torch.Tensor, w_ts: torch.Tensor, rw: torch.Tensor,
           rows: torch.Tensor | None = None,
           pending: torch.Tensor | None = None, masked: bool = False,
-          pair: tuple | None = None, w_ia: torch.Tensor | None = None):
+          pair: tuple | None = None, w_ia: torch.Tensor | None = None,
+          ia_ok: torch.Tensor | None = None):
     """Kernel K5 on CUDA tensors, the plain version on CPU tensors."""
     dev = mask.device
     if dev.type == "cpu":
         return cycle_plain(alloc, used, req, mask, sscore, w_lr, w_ba, w_ts,
-                           rw, rows, pending, masked, pair, w_ia)
+                           rw, rows, pending, masked, pair, w_ia, ia_ok)
     P, N = mask.shape
     R = alloc.shape[1]
     k = "cycle"
@@ -547,10 +556,16 @@ def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
         check(k, dev, pair[2], torch.float32, (P, N))
         check(k, dev, w_ia, torch.float32, (P,))
         pair_ptrs = tuple(t.data_ptr() for t in (*pair, w_ia))
+    relaxed = None
+    if ia_ok is not None:
+        check(k, dev, ia_ok, torch.bool, (P, N))
+        relaxed = torch.empty((n_rows, N), dtype=torch.bool, device=dev)
     feasible = torch.empty((n_rows, N), dtype=torch.bool, device=dev)
     score = torch.empty((n_rows, N), dtype=torch.float32, device=dev)
+    out = (feasible, score) if relaxed is None else (feasible, score,
+                                                     relaxed)
     if n_rows * N == 0:
-        return feasible, score
+        return out
     _build.launch(
         "tpusched_cycle", n_rows, N, R,
         rows.data_ptr() if rows is not None else None,
@@ -558,12 +573,15 @@ def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
         *(t.data_ptr() for t in (mask, sscore, alloc, used, req, w_lr, w_ba,
                                  w_ts, rw)),
         *pair_ptrs, int(masked), feasible.data_ptr(), score.data_ptr(),
-        stream_of(dev))
+        *ptrs((ia_ok, relaxed)), stream_of(dev))
     cycle.launches += 1
-    return feasible, score
+    if relaxed is not None:
+        cycle.relaxed_launches += 1
+    return out
 
 
 cycle.launches = 0
+cycle.relaxed_launches = 0   # of them, with the relaxed output
 
 
 # -- K6: per-row top-K and the seeded tie pick ------------------------------
@@ -627,29 +645,41 @@ row_topk.launches = 0
 
 
 def desirability_plain(feasible: torch.Tensor, masked: torch.Tensor,
-                       allowed: torch.Tensor) -> torch.Tensor:
+                       allowed: torch.Tensor,
+                       fixed: bool = False) -> torch.Tensor:
     """[N]: the column mean over allowed rows of where(feasible, masked,
     0), -inf where no allowed row is feasible. The column sum adds the
-    rows one at a time in ascending order, as the kernel does."""
+    rows one at a time in ascending order, as the kernel does. fixed
+    (the signature path): the sum is of int32 round(x * 16) clipped to
+    +-32767, over 16 * #allowed, the same at any row order or view
+    width."""
     ok = feasible & allowed[:, None]
     contrib = torch.where(ok, masked, torch.zeros((), dtype=masked.dtype,
                                                   device=masked.device))
-    acc = torch.zeros(masked.shape[1], dtype=masked.dtype,
-                      device=masked.device)
-    for p in range(masked.shape[0]):
-        acc = acc + contrib[p]
     n_allowed = allowed.sum().clamp_min(1).to(masked.dtype)
-    return torch.where(ok.any(dim=0), acc / n_allowed,
+    if fixed:
+        # torch.round rounds half to even, as jnp.round and CUDA's rintf
+        # (not roundf).
+        iq = torch.round(contrib * 16.0).clamp(-32767.0, 32767.0).to(
+            torch.int32)
+        mean = iq.sum(dim=0).to(masked.dtype) / (16.0 * n_allowed)
+    else:
+        acc = torch.zeros(masked.shape[1], dtype=masked.dtype,
+                          device=masked.device)
+        for p in range(masked.shape[0]):
+            acc = acc + contrib[p]
+        mean = acc / n_allowed
+    return torch.where(ok.any(dim=0), mean,
                        torch.full((), NEG_INF, dtype=masked.dtype,
                                   device=masked.device))
 
 
 def desirability(feasible: torch.Tensor, masked: torch.Tensor,
-                 allowed: torch.Tensor) -> torch.Tensor:
+                 allowed: torch.Tensor, fixed: bool = False) -> torch.Tensor:
     """Kernel K7 on CUDA tensors, the plain version on CPU tensors."""
     dev = masked.device
     if dev.type == "cpu":
-        return desirability_plain(feasible, masked, allowed)
+        return desirability_plain(feasible, masked, allowed, fixed)
     rows, N = masked.shape
     k = "desirability"
     check(k, dev, feasible, torch.bool, (rows, N))
@@ -658,14 +688,20 @@ def desirability(feasible: torch.Tensor, masked: torch.Tensor,
     desir = torch.empty((N,), dtype=torch.float32, device=dev)
     if N == 0:
         return desir
+    # The fixed-point path's int32 partial sums (zeroed; unused in f32).
+    work = torch.zeros((2 * N + 1,) if fixed else (1,), dtype=torch.int32,
+                       device=dev)
     _build.launch("tpusched_desirability", rows, N, feasible.data_ptr(),
-                  masked.data_ptr(), allowed.data_ptr(), desir.data_ptr(),
-                  stream_of(dev))
+                  masked.data_ptr(), allowed.data_ptr(), int(fixed),
+                  work.data_ptr(), desir.data_ptr(), stream_of(dev))
     desirability.launches += 1
+    if fixed:
+        desirability.fixed_launches += 1
     return desir
 
 
 desirability.launches = 0
+desirability.fixed_launches = 0   # of them, in fixed point
 
 
 # -- K8: one capacity-prefix commit sub-step --------------------------------
@@ -679,6 +715,23 @@ def _scan_plain(x: torch.Tensor) -> torch.Tensor:
         x = torch.cat([x[:d], x[d:] + x[:-d]])
         d <<= 1
     return x
+
+
+def _segment_start(keys_s: torch.Tensor) -> torch.Tensor:
+    """[P] int64: for each row of the sorted keys, the index of the first
+    row of its run of equal keys."""
+    P = keys_s.shape[0]
+    idx = torch.arange(P, device=keys_s.device)
+    boundary = torch.ones(P, dtype=torch.bool, device=keys_s.device)
+    boundary[1:] = keys_s[1:] != keys_s[:-1]
+    return torch.cummax(torch.where(boundary, idx, 0), dim=0).values
+
+
+def _segment_count(flag_s: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """[P] int32: the inclusive count of flag_s within each row's run
+    (seg from _segment_start); integer sums, exact in any order."""
+    cum = torch.cumsum(flag_s.to(torch.int32), dim=0)
+    return cum - torch.where(seg > 0, cum[(seg - 1).clamp(min=0)], 0)
 
 
 def prefix_commit_plain(perm: torch.Tensor, cand_s: torch.Tensor,
@@ -698,9 +751,7 @@ def prefix_commit_plain(perm: torch.Tensor, cand_s: torch.Tensor,
                         torch.zeros((), dtype=requests.dtype, device=dev))
     cum = _scan_plain(req_s)
     idx = torch.arange(P, device=dev)
-    boundary = torch.ones(P, dtype=torch.bool, device=dev)
-    boundary[1:] = cand_s[1:] != cand_s[:-1]
-    seg = torch.cummax(torch.where(boundary, idx, 0), dim=0).values
+    seg = _segment_start(cand_s)
     offset = torch.where((seg > 0)[:, None], cum[(seg - 1).clamp(min=0)],
                          torch.zeros((), dtype=cum.dtype, device=dev))
     within = cum - offset
@@ -763,28 +814,108 @@ def prefix_commit(perm: torch.Tensor, cand_s: torch.Tensor,
 prefix_commit.launches = 0
 
 
+def _by_node_rank(node: torch.Tensor, mask: torch.Tensor, rank: torch.Tensor,
+                  N: int):
+    """The masked rows sorted by (node, rank), masked-out rows last with
+    node N (a library sort on one int64 key, as the sub-steps sort):
+    (perm [P] int32 sorted row -> pod row, sorted nodes [P] int32)."""
+    node_m = torch.where(mask, node.clamp(0, N - 1),
+                         torch.full((), N, dtype=node.dtype,
+                                    device=node.device))
+    perm = torch.sort((node_m.long() << 32) + rank.long(), stable=True).indices
+    return perm.to(torch.int32), node_m[perm].to(torch.int32).contiguous()
+
+
+def node_add_plain(used: torch.Tensor, node: torch.Tensor,
+                   mask: torch.Tensor, requests: torch.Tensor,
+                   rank: torch.Tensor, sign: float = 1.0) -> torch.Tensor:
+    """JAX `_node_add`: used[node[p]] += sign * requests[p] for the masked
+    rows, per node one row at a time in ascending rank (the sub-steps'
+    order; JAX adds each node's segment total, a different association).
+    The order depends on ranks alone, so a compacted view adds what the
+    full width adds."""
+    N = used.shape[0]
+    perm, node_s = _by_node_rank(node, mask, rank, N)
+    act = node_s < N
+    node_s64 = node_s.clamp(max=N - 1).long()
+    pos = torch.arange(perm.shape[0], device=perm.device) - _segment_start(
+        node_s)
+    req_s = requests[perm.long()] * sign
+    used = used.clone()
+    j = 0
+    while True:
+        sel = act & (pos == j)
+        if not bool(sel.any()):
+            break
+        used[node_s64[sel]] = used[node_s64[sel]] + req_s[sel]
+        j += 1
+    return used
+
+
+def node_add(used: torch.Tensor, node: torch.Tensor, mask: torch.Tensor,
+             requests: torch.Tensor, rank: torch.Tensor,
+             sign: float = 1.0) -> torch.Tensor:
+    """K8's node_add entry point on CUDA tensors (the adds, after the
+    library sort), the plain version on CPU tensors."""
+    dev = used.device
+    if dev.type == "cpu":
+        return node_add_plain(used, node, mask, requests, rank, sign)
+    P = node.shape[0]
+    N, R = used.shape
+    k = "node_add"
+    if sign not in (1.0, -1.0):
+        raise ValueError(f"{k}: sign {sign}, want +1 or -1")
+    check(k, dev, requests, torch.float32, (P, R))
+    check(k, dev, used, torch.float32, (N, R))
+    used = used.clone()
+    if P == 0:
+        return used
+    perm, node_s = _by_node_rank(node, mask, rank, N)
+    _build.launch("tpusched_node_add", P, N, R,
+                  *ptrs((perm, node_s, requests)), int(sign),
+                  used.data_ptr(), stream_of(dev))
+    node_add.launches += 1
+    return used
+
+
+node_add.launches = 0
+
+
 # -- ScoreBatch ---------------------------------------------------------------
 
 
 def batched_cycle(cfg: EngineConfig, snap: ClusterSnapshot,
                   static: StaticCtx, used: torch.Tensor,
                   masked: bool = False, ops: "Ops | None" = None,
-                  pair_st: "kpair.PairState | None" = None):
+                  pair_st: "kpair.PairState | None" = None,
+                  pending: torch.Tensor | None = None,
+                  return_relaxed: bool = False):
     """Full [P, N] Filter + Score against `used` and the pair state (K5).
     With no pairwise signature the spread and inter-pod normalisers are
     the constants 100 and 0, so the score is the oracle's sum without
     [P, N] pairwise work; with signatures K11 evaluates every pod's
     pairwise row against `pair_st` first. masked=True returns
-    where(feasible, score, -inf) as the score."""
+    where(feasible, score, -inf) as the score; pending cuts rows to
+    pending pods. return_relaxed (signatures; the fast rounds) adds the
+    SPREAD-RELAXED feasibility, every predicate but the DoNotSchedule
+    skew filter (K11's ia_ok into K5), which the water-fill dealer
+    targets."""
     ops = ops or KERNELS
     nodes, pods = snap.nodes, snap.pods
-    pair = None
+    pair = ia_ok = None
     if snap.sigs.key.shape[0] > 0:
         pair = ops.pairwise_batch(snap, pair_st, static.aff_ok,
-                                  static.sig_match, kpair.sig_domains(snap))
-    return ops.cycle(nodes.allocatable, used, pods.requests, static.mask,
-                     static.score, static.w_lr, static.w_ba, static.w_ts,
-                     static.rw, masked=masked, pair=pair, w_ia=static.w_ia)
+                                  static.sig_match, kpair.sig_domains(snap),
+                                  with_ia_ok=return_relaxed)
+        if return_relaxed:
+            pair, ia_ok = pair[:3], pair[3]
+    out = ops.cycle(nodes.allocatable, used, pods.requests, static.mask,
+                    static.score, static.w_lr, static.w_ba, static.w_ts,
+                    static.rw, pending=pending, masked=masked, pair=pair,
+                    w_ia=static.w_ia, ia_ok=ia_ok)
+    if return_relaxed and ia_ok is None:   # S = 0: nothing to relax
+        return out[0], out[1], out[0]
+    return out
 
 
 def score_batch(cfg: EngineConfig, snap: ClusterSnapshot,
@@ -821,9 +952,10 @@ def pick_node_batch(cfg: EngineConfig, masked: torch.Tensor,
 
 class RoundStats:
     """What the host did during one fast solve: the device flags the
-    round loops read (`host_reads`: one per round, per commit sub-step
-    and per tranche), and, with `timing` (CUDA only), CUDA-event spans by
-    stage name, read back by `ms()`."""
+    round loops read (`host_reads`: one per round, per commit sub-step,
+    per tranche, per validation pass and per full-width/compacted
+    hand-off), and, with `timing` (CUDA only), CUDA-event spans by stage
+    name, read back by `ms()`."""
 
     def __init__(self, timing: bool = False):
         self.host_reads = 0
@@ -904,15 +1036,23 @@ def _deal_prefixes(dem: torch.Tensor, rem: torch.Tensor):
     return both[:P, :R], both[:rem.shape[0], R:]
 
 
+def _desc_order(x: torch.Tensor) -> torch.Tensor:
+    """Indices of x by descending value, ties in index order (JAX's
+    stable argsort of -x). Adding 0.0 turns -0.0 into +0.0 first: JAX's
+    sort compares the two zeros equal, CUDA's radix sort of floats would
+    put -0.0 first."""
+    return torch.sort(-x + 0.0, stable=True).indices
+
+
 def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
                  topv, topi, tie_pick=None, rank_is_sorted: bool = False,
                  ops: "Ops | None" = None,
-                 stats: RoundStats | None = None):
+                 stats: RoundStats | None = None, override=None,
+                 score_full=None, cum_width: int | None = None):
     """One round's dealing + capacity-prefix conflict resolution +
-    rescue (JAX `_deal_commit` with cum_width=None and no dealt
-    override), over any pod-axis width. topv/topi: each row's top-K of
-    `masked` (K6, ties to the lower index). Returns (used2, choice,
-    chosen_val); choice[p] = committed node or -1.
+    rescue (JAX `_deal_commit`), over any pod-axis width. topv/topi:
+    each row's top-K of `masked` (K6, ties to the lower index). Returns
+    (used2, choice, chosen_val); choice[p] = committed node or -1.
 
     Dealing: the q-th allowed pod by rank targets the node where the
     cumulative remaining capacity (nodes by descending desirability, K7)
@@ -922,7 +1062,22 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
     longest rank-ordered prefix that fits. If nothing committed while an
     allowed pod is still feasible somewhere, the best-ranked such pod is
     committed at its own top choice (the rescue), so every round places
-    a pod until nothing pending is placeable."""
+    a pod until nothing pending is placeable.
+
+    The signature path passes override = K12's (cand, val, ok): a spread
+    member's whole candidate list becomes its in-domain rotation; its
+    relaxed placements are -inf in `masked`, so chosen_val comes from
+    score_full. It also passes cum_width = P, the frontier-compaction
+    contract: a compacted [F, N] call must give the full-width call's
+    bits. So every f32 reduction over the pod axis is width-invariant:
+    the desirability is K7's int32 fixed-point sum (K7's f32 sum adds
+    rows in row order, and a view's rows are other rows than the full
+    width's), and the demand prefix runs over a [cum_width, R] array
+    with each pod's demand at its GLOBAL rank (zeros elsewhere), not
+    over the view's rows (the S = 0 tranches' rank_is_sorted shortcut).
+    K8 needs nothing: its Hillis-Steele prefix over the front-packed
+    active rows gives row i a sum of rows <= i only, and its `used` adds
+    go in rank order."""
     ops = ops or KERNELS
     stats = stats or RoundStats()
     P = requests.shape[0]
@@ -930,16 +1085,20 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
     dev = requests.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     with stats.span("K7 desirability"):
-        desir = ops.desirability(feasible, masked, allowed)
-    node_order = torch.sort(-desir, stable=True).indices
+        if cum_width is None:
+            desir = ops.desirability(feasible, masked, allowed)
+        else:
+            desir = ops.desirability(feasible, masked, allowed, fixed=True)
+    node_order = _desc_order(desir)
     remaining = (alloc - used).clamp_min(0.0)
     remaining = torch.where(torch.isfinite(desir)[:, None], remaining, zero)
     # Inclusive cumulative demand of allowed pods in rank order.
     dem = torch.where(allowed[:, None], requests, zero)
-    if rank_is_sorted:
+    if rank_is_sorted and cum_width is None:
         my_dem, cum_rem = _deal_prefixes(dem, remaining[node_order])
     else:
-        rm = torch.zeros_like(dem)
+        rm = dem.new_zeros((P if cum_width is None else cum_width,
+                            dem.shape[1]))
         rm[rank.long()] = dem
         my_dem, cum_rem = _deal_prefixes(rm, remaining[node_order])
         my_dem = my_dem[rank.long()]
@@ -965,6 +1124,10 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
                                   topi[:, 0])[:, None], topi], dim=1)
     topv = torch.cat([torch.where(use_dealt, dealt_score,
                                   topv[:, 0])[:, None], topv], dim=1)
+    if override is not None:
+        cand, val, ok = override
+        topi = torch.where(ok[:, None], cand, topi)
+        topv = torch.where(ok[:, None], val, topv)
     KC = topi.shape[1]  # dealt candidate + K fallbacks
 
     used_j = used
@@ -988,20 +1151,23 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
                     perm.to(torch.int32), cand_m[perm].contiguous(),
                     requests, alloc, used_j, choice, ptr, KC)
 
-    # Rescue. In the no-signature round `allowed` is any(feasible, 1),
-    # the JAX code's `allowed & want`.
+    # Rescue: the best-ranked allowed pod that is still feasible
+    # somewhere. Without signatures `allowed` is any(feasible, 1), the
+    # JAX code's `allowed & want`; with them it also holds water-fill
+    # members that only the relaxed rows admit.
     commit = choice >= 0
-    can_rescue = ~commit.any() & allowed.any()
+    want = allowed if cum_width is None else allowed & feasible.any(dim=1)
+    can_rescue = ~commit.any() & want.any()
     BIG = torch.iinfo(torch.int32).max
-    p_star = torch.argmin(torch.where(allowed, rank,
-                                      torch.full_like(rank, BIG)))
+    p_star = torch.argmin(torch.where(want, rank, torch.full_like(rank, BIG)))
     n_star = (tie_pick if tie_pick is not None else first_best)[p_star].long()
     used_j = used_j.clone()
     used_j[n_star] = used_j[n_star] + torch.where(can_rescue,
                                                   requests[p_star], zero)
     choice[p_star] = torch.where(can_rescue, n_star.to(torch.int32),
                                  choice[p_star])
-    chosen_val = masked.gather(1, choice.clamp(0, N - 1).long()[:, None])[:, 0]
+    chosen_val = (masked if score_full is None else score_full).gather(
+        1, choice.clamp(0, N - 1).long()[:, None])[:, 0]
     return used_j, choice, chosen_val
 
 
@@ -1133,6 +1299,543 @@ def _solve_rounds_nosig(cfg: EngineConfig, snap: ClusterSnapshot,
     return used, assigned, chosen, round_of, r
 
 
+# -- fast mode with signatures: water-fill, validation, frontier ----------
+
+
+def _waterfill_tables(snap: ClusterSnapshot, pair_st: "kpair.PairState",
+                      dom_s: torch.Tensor, allowed: torch.Tensor,
+                      rank: torch.Tensor):
+    """The water-fill dealer's tables over [P] and [S, N] (JAX
+    `_spread_waterfill_deal` up to its fill table), plain torch:
+    (s_p [P] int32 each pod's first DoNotSchedule slot's signature, q
+    [P] f32 its 0-based rank position among this round's members of
+    s_p, member [P] bool, fill [S, N] f32, ord_dom [S, N] int32)."""
+    pods = snap.pods
+    S, N = dom_s.shape
+    P = rank.shape[0]
+    dev = dom_s.device
+    dns = pods.ts_valid & (pods.ts_when == DO_NOT_SCHEDULE)
+    first_c = torch.argmax(dns.to(torch.int32), dim=1)      # first DNS slot
+    s_p = pods.ts_sig.gather(1, first_c[:, None])[:, 0].clamp(min=0)
+    member = allowed & dns.any(dim=1)
+    gid = torch.where(member, s_p, S)
+    perm = torch.sort((gid.long() << 32) + rank.long()).indices
+    q = torch.zeros(P, dtype=torch.float32, device=dev)
+    q[perm] = (_segment_count(member[perm], _segment_start(gid[perm]))
+               - 1).to(torch.float32)
+    # Per-signature fill levels over the domain counts, domains by
+    # ascending count; 1e9 stands in for a domain no node has.
+    exist = torch.zeros((S, N), dtype=torch.bool, device=dev)
+    rows = torch.arange(S, device=dev)[:, None].expand(S, N)
+    keyed = dom_s >= 0
+    exist[rows[keyed], dom_s[keyed].long()] = True
+    cnt = torch.where(exist, pair_st.counts,
+                      torch.full((), 1e9, dtype=torch.float32, device=dev))
+    ord_dom = torch.sort(cnt, dim=1, stable=True).indices
+    csort = torch.gather(cnt, 1, ord_dom)
+    # The exclusive prefix of csort, summed exactly in f64 (integers
+    # below 2**53) and rounded once: its entries over real domains are
+    # the exact small integers JAX's f32 cumsum gives too, and the ones
+    # past a sentinel stay near 1e9, far above any q, so the count of
+    # fill <= q does not depend on how a device would round an f32 sum.
+    pre = torch.cumsum(csort.to(torch.float64), dim=1)
+    presum = torch.cat([torch.zeros((S, 1), dtype=torch.float64, device=dev),
+                        pre[:, :-1]], dim=1).to(torch.float32)
+    js = torch.arange(N, dtype=torch.float32, device=dev)[None, :]
+    fill = js * csort - presum
+    return (s_p.to(torch.int32), q, member, fill.contiguous(),
+            ord_dom.to(torch.int32).contiguous())
+
+
+def _cap_order(alloc: torch.Tensor, used: torch.Tensor) -> torch.Tensor:
+    """[N] int32 nodes by descending mean free fraction of allocatable
+    (the water-fill rotation order). The mean adds the R axes in order
+    and divides by a device tensor (CUDA divides by a Python scalar as a
+    multiply by its reciprocal)."""
+    one = torch.full((), 1e-9, dtype=torch.float32, device=alloc.device)
+    frac = torch.where(alloc > 0, (alloc - used) / torch.maximum(alloc, one),
+                       torch.zeros((), dtype=torch.float32,
+                                   device=alloc.device))
+    total = frac[:, 0]
+    for r in range(1, frac.shape[1]):
+        total = total + frac[:, r]
+    free = total / torch.full((), float(frac.shape[1]), dtype=torch.float32,
+                              device=alloc.device)
+    return _desc_order(free).to(torch.int32)
+
+
+def waterfill_plain(fill: torch.Tensor, ord_dom: torch.Tensor,
+                    dom_s: torch.Tensor, s_p: torch.Tensor, q: torch.Tensor,
+                    relaxed: torch.Tensor, cap_order: torch.Tensor,
+                    score: torch.Tensor, member: torch.Tensor, K1: int):
+    """The water-fill dealer's per-pod [P, N] part (JAX
+    `_spread_waterfill_deal` from its fill table on): each member's
+    domain by the fill level its q reaches, then its K1 rotation
+    candidates among the domain's relaxed-feasible nodes in cap_order.
+    Returns (cand [P, K1] int32, val [P, K1] f32, ok [P] bool)."""
+    P, N = relaxed.shape
+    dev = relaxed.device
+    s64 = s_p.long()
+    fill_p = fill[s64]                                       # [P, N]
+    j_p = ((fill_p <= q[:, None]).sum(dim=1) - 1).clamp(0, N - 1)
+    # .to(int32) truncates toward zero, as the JAX code's astype(int32).
+    r_i = (q - fill_p.gather(1, j_p[:, None])[:, 0]).to(torch.int32)
+    m = (j_p + 1).to(torch.int32)
+    m_p = torch.div(r_i, m, rounding_mode="floor")           # jnp's //
+    slot = r_i - m_p * m                                     # jnp.mod
+    dchoice = ord_dom[s64, slot.long()]
+    sel = relaxed & (dom_s[s64] == dchoice[:, None])
+    csum = torch.cumsum(sel[:, cap_order.long()].to(torch.int32), dim=1)
+    n_feas = csum[:, -1]
+    x = (m_p.to(torch.float32)[:, None]
+         + torch.arange(K1, dtype=torch.float32, device=dev)[None, :])
+    y = n_feas.to(torch.float32).clamp_min(1.0)[:, None]
+    rem = torch.fmod(x, y)                                   # jnp.mod (f32)
+    rem = torch.where((rem != 0) & ((rem < 0) != (y < 0)), rem + y, rem)
+    targets = (rem + 1.0).to(torch.int32)
+    j_node = torch.stack([(csum < targets[:, k:k + 1]).sum(dim=1)
+                          for k in range(K1)], dim=1)
+    cand = cap_order[j_node.clamp(0, N - 1)]
+    c64 = cand.long()
+    val = torch.where(sel.gather(1, c64), score.gather(1, c64),
+                      torch.full((), NEG_INF, dtype=torch.float32,
+                                 device=dev))
+    return cand.to(torch.int32), val, member & (n_feas > 0)
+
+
+def waterfill(fill: torch.Tensor, ord_dom: torch.Tensor, dom_s: torch.Tensor,
+              s_p: torch.Tensor, q: torch.Tensor, relaxed: torch.Tensor,
+              cap_order: torch.Tensor, score: torch.Tensor,
+              member: torch.Tensor, K1: int):
+    """Kernel K12 on CUDA tensors, the plain version on CPU tensors."""
+    dev = relaxed.device
+    if dev.type == "cpu":
+        return waterfill_plain(fill, ord_dom, dom_s, s_p, q, relaxed,
+                               cap_order, score, member, K1)
+    P, N = relaxed.shape
+    S = fill.shape[0]
+    k = "waterfill"
+    if not 1 <= K1 <= 32:
+        raise ValueError(f"{k}: {K1} candidates a pod, the kernel takes "
+                         "1..32")
+    check(k, dev, fill, torch.float32, (S, N))
+    check(k, dev, ord_dom, torch.int32, (S, N))
+    check(k, dev, dom_s, torch.int32, (S, N))
+    check(k, dev, s_p, torch.int32, (P,))
+    check(k, dev, q, torch.float32, (P,))
+    check(k, dev, cap_order, torch.int32, (N,))
+    check(k, dev, score, torch.float32, (P, N))
+    check(k, dev, member, torch.bool, (P,))
+    cand = torch.empty((P, K1), dtype=torch.int32, device=dev)
+    val = torch.empty((P, K1), dtype=torch.float32, device=dev)
+    ok = torch.empty((P,), dtype=torch.bool, device=dev)
+    if P * N == 0:
+        return cand, val, ok
+    _build.launch("tpusched_waterfill", P, N, K1,
+                  *ptrs((fill, ord_dom, dom_s, s_p, q, relaxed, cap_order,
+                         score, member, cand, val, ok)), stream_of(dev))
+    waterfill.launches += 1
+    return cand, val, ok
+
+
+waterfill.launches = 0
+
+
+def _spread_waterfill_deal(snap: ClusterSnapshot, pair_st, used, relaxed,
+                           score, allowed, rank, K: int,
+                           dom_s: torch.Tensor, ops: "Ops"):
+    """Domain-balanced dealing for DoNotSchedule spread members (JAX
+    `_spread_waterfill_deal`): each signature's members, in rank order,
+    are water-filled across its domains so the per-domain levels stay
+    flattest, and each member gets K+1 candidate nodes INSIDE its domain
+    (successive free-capacity rotation positions, so a capacity miss
+    spills to the domain's next node, not to a wrong domain that the
+    validator would revert). `relaxed` (every predicate but the skew
+    filter) lets a member target a domain that is over the bound
+    against round-start counts but legal against end-of-round counts,
+    which the validator checks. Returns K12's (cand [P, K+1], val, ok);
+    ok False leaves the pod to the capacity dealer."""
+    pods = snap.pods
+    S = dom_s.shape[0]
+    P = rank.shape[0]
+    if pods.ts_valid.shape[1] == 0 or S == 0:
+        dev = rank.device
+        return (torch.zeros((P, K + 1), dtype=torch.int32, device=dev),
+                torch.full((P, K + 1), NEG_INF, dtype=torch.float32,
+                           device=dev),
+                torch.zeros(P, dtype=torch.bool, device=dev))
+    s_p, q, member, fill, ord_dom = _waterfill_tables(snap, pair_st, dom_s,
+                                                      allowed, rank)
+    cap_order = _cap_order(snap.nodes.allocatable, used)
+    return ops.waterfill(fill, ord_dom, dom_s, s_p, q, relaxed, cap_order,
+                         score, member, K + 1)
+
+
+def excess_min_plain(dom_s: torch.Tensor, counts: torch.Tensor,
+                     node_valid: torch.Tensor, aff_ok: torch.Tensor,
+                     s_c: torch.Tensor) -> torch.Tensor:
+    """[P] f32: min over valid nodes with aff_ok and the key of the
+    end-state count at the node's domain under signature s_c[p]; 0
+    where there is none."""
+    s = s_c.long()
+    node_cnt = torch.gather(counts, 1, dom_s.clamp(min=0).long())[s]
+    eligible = node_valid[None, :] & aff_ok & (dom_s[s] >= 0)
+    lo = torch.where(eligible, node_cnt,
+                     torch.full((), torch.inf, dtype=torch.float32,
+                                device=counts.device)).amin(dim=1)
+    return torch.where(torch.isfinite(lo), lo, torch.zeros_like(lo))
+
+
+def excess_min(dom_s: torch.Tensor, counts: torch.Tensor,
+               node_valid: torch.Tensor, aff_ok: torch.Tensor,
+               s_c: torch.Tensor) -> torch.Tensor:
+    """Kernel K13's [P, N] pass on CUDA tensors, the plain version on CPU
+    tensors."""
+    dev = counts.device
+    if dev.type == "cpu":
+        return excess_min_plain(dom_s, counts, node_valid, aff_ok, s_c)
+    P, N = aff_ok.shape
+    S = dom_s.shape[0]
+    k = "excess_min"
+    check(k, dev, dom_s, torch.int32, (S, N))
+    check(k, dev, counts, torch.float32, (S, N))
+    check(k, dev, node_valid, torch.bool, (N,))
+    check(k, dev, aff_ok, torch.bool, (P, N))
+    check(k, dev, s_c, torch.int32, (P,))
+    out = torch.empty((P,), dtype=torch.float32, device=dev)
+    if P * N == 0:
+        return out.fill_(0.0)
+    _build.launch("tpusched_excess_min", P, N,
+                  *ptrs((dom_s, counts, node_valid, aff_ok, s_c, out)),
+                  stream_of(dev))
+    excess_min.launches += 1
+    return out
+
+
+excess_min.launches = 0
+
+
+def excess_survive_plain(gid_s: torch.Tensor, perm: torch.Tensor,
+                         member: torch.Tensor, T: torch.Tensor,
+                         b_fixed: torch.Tensor) -> torch.Tensor:
+    """[P] bool (pod rows) from the rows sorted by (group, rank): per
+    group the 1-based member count q and the running min of the
+    members' allowances T (a segmented Hillis-Steele min scan: min is
+    exact, so any order gives these bits); a member is bad unless
+    b_fixed + q <= that min."""
+    P = perm.shape[0]
+    dev = perm.device
+    p = perm.long()
+    mem_s = member[p]
+    idx = torch.arange(P, device=dev)
+    seg = _segment_start(gid_s)
+    q = _segment_count(mem_s, seg).to(torch.float32)
+    inf = torch.full((), torch.inf, dtype=torch.float32, device=dev)
+    pm = torch.where(mem_s, T[p], inf)
+    d = 1
+    while d < P:
+        prev = torch.cat([inf.expand(d), pm[:-d]])
+        pm = torch.where(idx - d >= seg, torch.minimum(pm, prev), pm)
+        d <<= 1
+    bad = torch.zeros(P, dtype=torch.bool, device=dev)
+    bad[p] = mem_s & ~(b_fixed[p] + q <= pm)
+    return bad
+
+
+def excess_survive(gid_s: torch.Tensor, perm: torch.Tensor,
+                   member: torch.Tensor, T: torch.Tensor,
+                   b_fixed: torch.Tensor) -> torch.Tensor:
+    """Kernel K13's group walk on CUDA tensors, the plain version on CPU
+    tensors."""
+    dev = perm.device
+    if dev.type == "cpu":
+        return excess_survive_plain(gid_s, perm, member, T, b_fixed)
+    P = perm.shape[0]
+    k = "excess_survive"
+    check(k, dev, gid_s, torch.int32, (P,))
+    check(k, dev, perm, torch.int32, (P,))
+    check(k, dev, member, torch.bool, (P,))
+    check(k, dev, T, torch.float32, (P,))
+    check(k, dev, b_fixed, torch.float32, (P,))
+    bad = torch.empty((P,), dtype=torch.bool, device=dev)
+    if P == 0:
+        return bad
+    _build.launch("tpusched_excess_survive", P,
+                  *ptrs((gid_s, perm, member, T, b_fixed, bad)),
+                  stream_of(dev))
+    excess_survive.launches += 1
+    return bad
+
+
+excess_survive.launches = 0
+
+
+def _spread_excess_mask(snap: ClusterSnapshot, aff_ok: torch.Tensor,
+                        rank: torch.Tensor, choice: torch.Tensor,
+                        kept: torch.Tensor, st: "kpair.PairState",
+                        dom_s: torch.Tensor, ops: "Ops") -> torch.Tensor:
+    """[P] bool: kept members to revert so every kept DoNotSchedule
+    spread constraint holds against st's (end-of-round) counts (JAX
+    `_spread_excess_mask`): per (signature, domain) group of kept
+    members, the highest-priority prefix whose size respects every
+    prefix member's allowance T = (min end-state count over its
+    eligible domains) + maxSkew survives. Every cross-pod reduction is
+    an integer count or a min, so a view's verdict is row for row the
+    full width's."""
+    pods, nodes = snap.pods, snap.nodes
+    P = pods.valid.shape[0]
+    S, N = dom_s.shape
+    dev = dom_s.device
+    dns = pods.ts_valid & (pods.ts_when == DO_NOT_SCHEDULE)
+    ch = choice.clamp(0, N - 1).long()
+    bad = torch.zeros(P, dtype=torch.bool, device=dev)
+    for c in range(pods.ts_key.shape[1]):
+        s_c = pods.ts_sig[:, c].clamp(min=0)
+        d_c = dom_s[s_c.long(), ch]
+        member = kept & dns[:, c] & (choice >= 0) & (d_c >= 0)
+        min_end = ops.excess_min(dom_s, st.counts, nodes.valid, aff_ok,
+                                 s_c.contiguous())
+        T = min_end + pods.ts_max_skew[:, c]
+        d0 = d_c.clamp(min=0)
+        cnt_total = st.counts[s_c.long(), d0.long()]
+        gid = torch.where(member, s_c * N + d0, S * N)
+        g_tab = torch.zeros(S * N + 1, dtype=torch.float32, device=dev)
+        g_tab.index_add_(0, gid.long(), member.to(torch.float32))
+        b_fixed = cnt_total - g_tab[gid.long()]  # members' non-revertable rest
+        perm = torch.sort((gid.long() << 32) + rank.long()).indices
+        bad = bad | ops.excess_survive(gid[perm].to(torch.int32).contiguous(),
+                                       perm.to(torch.int32), member,
+                                       T.contiguous(), b_fixed)
+    return bad
+
+
+def _sig_involvement(snap: ClusterSnapshot, static: StaticCtx,
+                     st0: "kpair.PairState"):
+    """(invol [P, S] bool, has_pair [P] bool), plain torch (JAX
+    `_sig_involvement`). has_pair: pods whose pairwise validation can
+    fail, i.e. with spread or inter-pod terms of their own, or matched
+    by a live required anti term (of a running holder in a keyed domain,
+    or of any pending holder). invol: the signatures a pod's checks read
+    or its commit writes; pods with disjoint involvement cannot affect
+    each other's validation."""
+    pods = snap.pods
+    P = pods.valid.shape[0]
+    M = snap.running.valid.shape[0]
+    S = static.sig_match.shape[0]
+    dev = pods.valid.device
+    has_pair = pods.ts_valid.any(dim=1) | pods.ia_valid.any(dim=1)
+    anti_possible = st0.anti.sum(dim=1) > 0
+    holds = kpair.pod_anti_holds(pods) & pods.valid[:, None]
+    for t in range(pods.ia_key.shape[1]):
+        s_t = pods.ia_sig[:, t].clamp(min=0).long()
+        hit = torch.zeros(S, dtype=torch.int32, device=dev)
+        hit.index_add_(0, s_t, holds[:, t].to(torch.int32))
+        anti_possible = anti_possible | (hit > 0)
+    members = static.sig_match[:, M:]                        # [S, P]
+    has_pair = has_pair | (members & anti_possible[:, None]).any(dim=0)
+    invol = (members.T & pods.valid[:, None]).contiguous()
+    ar = torch.arange(P, device=dev)
+    for sig, valid in ((pods.ts_sig, pods.ts_valid),
+                       (pods.ia_sig, pods.ia_valid)):
+        for c in range(sig.shape[1]):
+            s_c = sig[:, c].clamp(min=0).long()
+            invol[ar, s_c] = invol[ar, s_c] | valid[:, c]
+    return invol, has_pair
+
+
+def _compact_cap(cfg: EngineConfig, P: int) -> int:
+    """The frontier-compaction width of the signature rounds: 0 = off
+    (full-width rounds only, the reference the compacted rounds equal),
+    cfg.compact_cap -1 = _RESIDUAL_CAP unless P is not larger than it,
+    else the explicit cap (the tests use a small one to run compacted
+    rounds on small clusters)."""
+    cap = _RESIDUAL_CAP if cfg.compact_cap < 0 else cfg.compact_cap
+    if cap <= 0 or (cfg.compact_cap < 0 and P <= cap):
+        return 0
+    return min(cap, P)
+
+
+def _pods_view(snap: ClusterSnapshot, static: StaticCtx, sel: torch.Tensor):
+    """The compacted pod-axis view (gathers): the selected pods' rows of
+    every pod array and of StaticCtx, and sig_match's running columns
+    then the selected pods' member columns. Nodes, running pods,
+    signatures and all [S, N] / [N, R] state stay full width."""
+    M = snap.running.valid.shape[0]
+    pods = snap.pods
+    pods_v = dataclasses.replace(pods, **{
+        f.name: getattr(pods, f.name)[sel] for f in dataclasses.fields(pods)})
+    sig_v = torch.cat([static.sig_match[:, :M],
+                       static.sig_match[:, M + sel]], dim=1)
+    static_v = StaticCtx(
+        mask=static.mask[sel], aff_ok=static.aff_ok[sel],
+        score=static.score[sel], sig_match=sig_v, w_lr=static.w_lr[sel],
+        w_ba=static.w_ba[sel], w_ts=static.w_ts[sel], w_ia=static.w_ia[sel],
+        rw=static.rw)
+    return dataclasses.replace(snap, pods=pods_v), static_v
+
+
+def _min_rank_first(mask: torch.Tensor, rank: torch.Tensor,
+                    invol: torch.Tensor) -> torch.Tensor:
+    """[P] bool: rank[p] is the least rank among the `mask` pods in every
+    signature p is involved in."""
+    BIG = torch.iinfo(torch.int32).max
+    r = torch.where(mask, rank, BIG)
+    lo = torch.where(invol, r[:, None], BIG).amin(dim=0)     # [S]
+    return torch.where(invol, rank[:, None] == lo[None, :], True).all(dim=1)
+
+
+def _round_sig(cfg: EngineConfig, snap_v: ClusterSnapshot,
+               static_v: StaticCtx, invol_v, hp_v, rank_v, pod_ids,
+               pending_v, cons_v, used, pair_st, K: int, width: int,
+               dom_s: torch.Tensor, ops: "Ops", stats: RoundStats):
+    """One commit round over a (possibly compacted) pod-axis view (JAX
+    `_solve_rounds_sig`'s round_math): score (K11, K5), gate the
+    conservative pods, water-fill (K12) and deal (K6, K7, K8), add the
+    commits to the pair state (K10), then validate against the
+    end-of-round state until a pass reverts nothing (K14, K13, the
+    reverts through K8's node_add and K10). Returns (used, state, kept,
+    choice, chosen_val, fb_mask)."""
+    BIG = torch.iinfo(torch.int32).max
+    req_v = snap_v.pods.requests
+    sig_v = static_v.sig_match
+    with stats.span("K11 + K5 cycle"):
+        feasible, score, relaxed = batched_cycle(
+            cfg, snap_v, static_v, used, ops=ops, pair_st=pair_st,
+            pending=pending_v, return_relaxed=True)
+    masked = torch.where(feasible, score,
+                         torch.full((), NEG_INF, dtype=torch.float32,
+                                    device=score.device))
+    want = feasible.any(dim=1)
+    # Conservative pods commit only when first among the wanting pods in
+    # every signature they touch.
+    gate = ~cons_v | _min_rank_first(want & cons_v, rank_v, invol_v)
+    allowed = want & gate
+    with stats.span("K12 waterfill"):
+        sp = _spread_waterfill_deal(snap_v, pair_st, used, relaxed, score,
+                                    relaxed.any(dim=1) & gate, rank_v, K,
+                                    dom_s, ops)
+    with stats.span("K6 row_topk"):
+        topv, topi, pick = ops.row_topk(masked, K, cfg.tie_break == "seeded",
+                                        cfg.tie_seed, pod_ids)
+    used2, choice, chosen_val = _deal_commit(
+        snap_v.nodes.allocatable, req_v, used, feasible, masked,
+        allowed | sp[2], rank_v, topv, topi, tie_pick=pick, ops=ops,
+        stats=stats, override=sp, score_full=score, cum_width=width)
+    commit = choice >= 0
+    st_v = ops.pair_commit(snap_v, pair_st, sig_v, dom_s, choice, commit, 1.0)
+
+    # Validate the committed pairwise pods against end-of-round counts
+    # and revert violators, to a fixpoint (a revert can take away the
+    # match another pod's positive affinity needed; each pass reverts at
+    # least one pod). Inter-pod violators revert in rank order: the
+    # violator first in all its signatures is protected while others
+    # remain (same-round commits usually caused its violation). Spread
+    # violators revert only the excess per (signature, domain).
+    used_v, kept = used2, commit
+    flag = (commit & hp_v).any()
+    while stats.read(flag):
+        with stats.span("validation passes"):
+            with stats.span("K14 ia_at_choice"):
+                ia_ok_at = ops.ia_ok_at_choice(
+                    snap_v, st_v, sig_v, dom_s, choice,
+                    torch.where(kept, choice, -1))
+            ia_bad_all = kept & hp_v & ~ia_ok_at
+            protected = ia_bad_all & _min_rank_first(ia_bad_all, rank_v,
+                                                     invol_v)
+            ia_bad = ia_bad_all & ~protected
+            with stats.span("K13 spread_excess"):
+                sp_bad = _spread_excess_mask(
+                    snap_v, static_v.aff_ok, rank_v, choice, kept, st_v,
+                    dom_s, ops) & ~ia_bad_all
+            stuck = ~(ia_bad | sp_bad).any() & ia_bad_all.any()
+            new_viol = ia_bad | sp_bad | (ia_bad_all & stuck)
+            used_v = ops.node_add(used_v, choice, new_viol, req_v, rank_v,
+                                  -1.0)
+            st_v = ops.pair_commit(snap_v, st_v, sig_v, dom_s, choice,
+                                   new_viol, -1.0)
+            kept = kept & ~new_viol
+            flag = new_viol.any()
+    # Backstop: if every commit of the round reverted, the first reverted
+    # pod by rank turns conservative, so the gated path makes progress.
+    viol = commit & ~kept
+    first = rank_v == torch.where(viol, rank_v, BIG).amin()
+    fb_mask = viol & first & ~kept.any() & viol.any()
+    return used_v, st_v, kept, choice, chosen_val, fb_mask
+
+
+def _solve_rounds_sig(cfg: EngineConfig, snap: ClusterSnapshot,
+                      static: StaticCtx, rank: torch.Tensor,
+                      order: torch.Tensor, st0: "kpair.PairState",
+                      max_rounds: int, K: int, cap: int, ops: "Ops",
+                      stats: RoundStats):
+    """The fast rounds with signatures (S > 0; JAX `_solve_rounds_sig`):
+    full-width [P, N] rounds while more than `cap` pods are pending,
+    then rounds over the whole pending frontier gathered into a [cap, N]
+    view (the top `cap` pods by rank, a superset of what is pending).
+    cap == 0: full-width rounds only.
+
+    Compacted rounds equal full-width ones (compact_cap = 0) bit for
+    bit in assignment, chosen score and commit key: the view holds
+    every pod that can commit, gate or validate; sorts key on global
+    ranks; and every cross-pod reduction is an integer count, a min, or
+    a width-invariant f32 order (`_deal_commit`'s cum_width, K8's
+    prefix and rank-ordered adds, node_add). Returns (used, assigned,
+    final pair state, chosen, round_of, rounds)."""
+    pods, nodes = snap.pods, snap.nodes
+    P = pods.valid.shape[0]
+    dev = pods.valid.device
+    dom_s = kpair.sig_domains(snap)
+    invol, has_pair = _sig_involvement(snap, static, st0)
+    ids = torch.arange(P, dtype=torch.int32, device=dev)
+    used, st = nodes.used, st0
+    assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    chosen = torch.full((P,), NEG_INF, dtype=torch.float32, device=dev)
+    round_of = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    cons = torch.zeros(P, dtype=torch.bool, device=dev)
+    progress = None      # the loops' initial True
+    r = 0
+
+    def step(snap_v, static_v, sel, pending_v):
+        nonlocal used, st, assigned, chosen, round_of, cons, progress
+        rows = slice(None) if sel is None else sel
+        used, st, kept, choice, cval, fb = _round_sig(
+            cfg, snap_v, static_v, invol[rows], has_pair[rows], rank[rows],
+            ids[rows], pending_v, cons[rows], used, st, K, P, dom_s, ops,
+            stats)
+        new_cons = fb & ~cons[rows]
+        upd = ((assigned, torch.where(kept, choice, assigned[rows])),
+               (chosen, torch.where(kept, cval, chosen[rows])),
+               (round_of, torch.where(kept, r, round_of[rows])),
+               (cons, cons[rows] | fb))
+        assigned, chosen, round_of, cons = (
+            v if sel is None else full.index_put((sel,), v)
+            for full, v in upd)
+        all_done = ((assigned >= 0) | ~pods.valid).all()
+        progress = (kept.any() | new_cons.any()) & ~all_done
+
+    while r < max_rounds:
+        flag = progress
+        if cap:
+            # Hand off to the compacted rounds once the whole pending
+            # frontier fits one view (never before: the view must hold
+            # every pending pod).
+            over = ((assigned == -1) & pods.valid).sum() > cap
+            flag = over if flag is None else flag & over
+        if flag is not None and not stats.read(flag):
+            break
+        with stats.span("full-width rounds"):
+            step(snap, static, None, assigned == -1)
+        r += 1
+    if cap:
+        while r < max_rounds and (progress is None or stats.read(progress)):
+            with stats.span("compacted rounds"):
+                pend = (assigned == -1) & pods.valid
+                sel = _top_by_rank(pend, order, cap)[0].long()
+                step(*_pods_view(snap, static, sel), sel, pend[sel])
+            r += 1
+    return used, assigned, st, chosen, round_of, r
+
+
 def gang_rollback(snap: ClusterSnapshot, used, assigned, chosen):
     """The all-or-nothing gang gate (JAX `gang_rollback`): the identity
     at G = 0, the only case ported (ROADMAP A7; `refuse_unported` turns
@@ -1143,15 +1846,20 @@ def gang_rollback(snap: ClusterSnapshot, used, assigned, chosen):
 
 def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                  node_sat_t: torch.Tensor | None,
+                 member_sat_t: torch.Tensor | None = None,
                  static: StaticCtx | None = None, ops: "Ops | None" = None,
                  stats: RoundStats | None = None):
     """Fast mode: batched commit rounds. Returns (assigned, chosen, used,
     order, round_of, rounds, evicted); round_of is the commit key (pods
-    of an earlier round committed strictly earlier)."""
+    of an earlier round committed strictly earlier; with signatures a
+    round's kept commits were validated against its end-of-round
+    state). member_sat_t: the [A, M+P] member label table, needed with
+    signatures."""
     ops = ops or KERNELS
-    refuse_unported(cfg, snap, signatures=False)
+    refuse_unported(cfg, snap)
     if static is None:
-        static = precompute_static(cfg, snap, node_sat_t, ops=ops)
+        static = precompute_static(cfg, snap, node_sat_t, member_sat_t,
+                                   ops=ops)
     pods, nodes = snap.pods, snap.nodes
     P = pods.valid.shape[0]
     N = nodes.valid.shape[0]
@@ -1161,9 +1869,17 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     rank[order] = torch.arange(P, dtype=torch.int32, device=dev)
     # Worst case one pod commits per round; cfg.max_rounds > 0 caps it.
     max_rounds = cfg.max_rounds if cfg.max_rounds > 0 else 2 * P + 8
-    used, assigned, chosen, round_of, rounds = _solve_rounds_nosig(
-        cfg, snap, static, rank, order, max_rounds, _fallback_depth(N),
-        ops=ops, stats=stats)
+    K = _fallback_depth(N)
+    if snap.sigs.key.shape[0] == 0:
+        used, assigned, chosen, round_of, rounds = _solve_rounds_nosig(
+            cfg, snap, static, rank, order, max_rounds, K, ops=ops,
+            stats=stats)
+    else:
+        st0 = ops.pair_counts(static.sig_match, kpair.sig_domains(snap),
+                              snap.running, pods)
+        used, assigned, _, chosen, round_of, rounds = _solve_rounds_sig(
+            cfg, snap, static, rank, order, st0, max_rounds, K,
+            _compact_cap(cfg, P), ops, stats or RoundStats())
     evicted = torch.zeros(snap.running.valid.shape[0], dtype=torch.bool,
                           device=dev)
     used, assigned, chosen, rolled = gang_rollback(snap, used, assigned,
@@ -1195,13 +1911,23 @@ class Ops:
     pair_counts: Callable
     pairwise_batch: Callable
     parity_scan_pair: Callable
+    node_add: Callable
+    pair_commit: Callable
+    ia_ok_at_choice: Callable
+    waterfill: Callable
+    excess_min: Callable
+    excess_survive: Callable
 
 
 KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
               row_topk, desirability, prefix_commit, kpair.sig_match,
-              kpair.pair_counts, kpair.pairwise_batch, parity_scan_pair)
+              kpair.pair_counts, kpair.pairwise_batch, parity_scan_pair,
+              node_add, kpair.pair_commit, kpair.ia_ok_at_choice, waterfill,
+              excess_min, excess_survive)
 PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_plain, cycle_plain, row_topk_plain,
             desirability_plain, prefix_commit_plain, kpair.sig_match_plain,
             kpair.pair_counts_plain, kpair.pairwise_batch_plain,
-            parity_scan_pair_plain)
+            parity_scan_pair_plain, node_add_plain, kpair.pair_commit_plain,
+            kpair.ia_ok_at_choice_plain, waterfill_plain, excess_min_plain,
+            excess_survive_plain)

@@ -22,7 +22,15 @@ Kernels (CUDA on CUDA tensors, the `*_plain` version on CPU tensors):
                         pending pods at an assignment when one is given
   K11 `pairwise_batch`  every pod's [N] spread/inter-pod feasibility and
                         normalised spread and inter-pod scores against one
-                        state (ScoreBatch)
+                        state (ScoreBatch and the fast rounds; with
+                        `with_ia_ok` also the inter-pod verdict alone, the
+                        fast rounds' spread-relaxed feasibility)
+  K10 `pair_commit`     add (sign +1) or take back (sign -1) committed
+                        pods' contributions: the fast rounds' commits and
+                        the validator's reverts
+  K14 `ia_ok_at_choice` each pod's required inter-pod and symmetric
+                        anti-affinity verdict at its chosen node, its own
+                        contribution excluded (the fast validator)
 The parity scan's per-pod `pairwise_row` and `pair_state_add_pod` run
 inside K4's pairwise variant (`kernels/assign.parity_scan_pair`); their
 plain versions here drive the plain scan.
@@ -295,13 +303,33 @@ def _anti_at(st: PairState, dom_s: torch.Tensor) -> torch.Tensor:
                                    device=dom_s.device)).to(torch.int32)
 
 
+def _self_adj(snap: ClusterSnapshot, sig_match: torch.Tensor,
+              dom_s: torch.Tensor, s: torch.Tensor, esn: torch.Tensor,
+              pod_idx: torch.Tensor):
+    """What each pod's own contribution adds when it is taken to sit on
+    esn[p] (-1: nowhere), for checking a pod after its commit as
+    upstream checks it before: (adj [P, N] f32, the per-node count of
+    the pod's own domain under signature s[p]; active [P] f32, whether
+    it counts in a domain; committed [P] f32, whether it counts in
+    match_tot, which ignores domains)."""
+    M = snap.running.valid.shape[0]
+    own_dom = dom_s[s, esn.clamp(min=0).long()]              # [P]
+    self_match = sig_match[s, M + pod_idx]                   # [P]
+    committed = self_match & (esn >= 0)
+    active = committed & (own_dom >= 0)
+    adj = (active[:, None] & (dom_s[s] == own_dom[:, None])).to(torch.float32)
+    return adj, active.to(torch.float32), committed.to(torch.float32)
+
+
 def symmetric_anti_block(snap: ClusterSnapshot, st: PairState,
-                         sig_match: torch.Tensor,
-                         dom_s: torch.Tensor) -> torch.Tensor:
+                         sig_match: torch.Tensor, dom_s: torch.Tensor,
+                         exclude_self_node: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """[P, N] bool: node n lies in a domain holding a required
     anti-affinity term whose selector matches pod p. The [P, S] x [S, N]
     contraction runs in int32, one signature at a time (integer adds:
-    exact in any order)."""
+    exact in any order). exclude_self_node: a pod's own anti terms do
+    not count against it where it is taken to sit."""
     M = snap.running.valid.shape[0]
     anti_i = _anti_at(st, dom_s)                             # [S, N]
     matchers = sig_match[:, M:].to(torch.int32)              # [S, P]
@@ -309,16 +337,32 @@ def symmetric_anti_block(snap: ClusterSnapshot, st: PairState,
                           dtype=torch.int32, device=dom_s.device)
     for s in range(dom_s.shape[0]):
         blocked = blocked + matchers[s][:, None] * anti_i[s][None, :]
+    if exclude_self_node is not None:
+        pods = snap.pods
+        esn = exclude_self_node
+        pod_idx = torch.arange(esn.shape[0], device=esn.device)
+        holds = pod_anti_holds(pods)
+        for t in range(pods.ia_key.shape[1]):
+            s = pods.ia_sig[:, t].clamp(min=0).long()
+            own_dom = dom_s[s, esn.clamp(min=0).long()]
+            active = (holds[:, t] & sig_match[s, M + pod_idx] & (esn >= 0)
+                      & (own_dom >= 0))
+            sub = active[:, None] & (dom_s[s] == own_dom[:, None])
+            blocked = blocked - sub.to(torch.int32)
     return blocked > 0
 
 
 def pairwise_from_counts(snap: ClusterSnapshot, st: PairState,
                          aff_ok: torch.Tensor, sig_match: torch.Tensor,
-                         dom_s: torch.Tensor):
+                         dom_s: torch.Tensor,
+                         exclude_self_node: torch.Tensor | None = None):
     """Batched [P, N] spread and inter-pod evaluation against one state
-    (JAX pairwise_from_counts with exclude_self_node=None). aff_ok: the
-    required node-affinity mask (spread domain discovery honours it).
-    Returns (spread_ok, spread_pen, ia_ok, ia_raw), each [P, N]."""
+    (JAX pairwise_from_counts). aff_ok: the required node-affinity mask
+    (spread domain discovery honours it). exclude_self_node: optional
+    [P] int32 node each pod is taken to sit on (-1: none), whose own
+    contribution the checks then leave out; no solve path passes it,
+    it is the reference `ia_ok_at_choice` (K14) is held to. Returns
+    (spread_ok, spread_pen, ia_ok, ia_raw), each [P, N]."""
     nodes, pods = snap.nodes, snap.pods
     dev = dom_s.device
     node_count_sig, has_key_sig, max_count_sig = _node_counts(st, dom_s)
@@ -327,6 +371,7 @@ def pairwise_from_counts(snap: ClusterSnapshot, st: PairState,
     pod_idx = torch.arange(P, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     inf = torch.full((), torch.inf, dtype=torch.float32, device=dev)
+    esn = exclude_self_node
 
     spread_ok = torch.ones((P, N), dtype=torch.bool, device=dev)
     spread_pen = torch.zeros((P, N), dtype=torch.float32, device=dev)
@@ -334,6 +379,8 @@ def pairwise_from_counts(snap: ClusterSnapshot, st: PairState,
         s = pods.ts_sig[:, c].clamp(min=0).long()
         valid_c = pods.ts_valid[:, c]
         nc = node_count_sig[s]                               # [P, N]
+        if esn is not None:
+            nc = nc - _self_adj(snap, sig_match, dom_s, s, esn, pod_idx)[0]
         hk = has_key_sig[s]
         eligible = nodes.valid[None, :] & aff_ok & hk
         min_c = torch.where(eligible, nc, inf).amin(dim=1)
@@ -352,6 +399,12 @@ def pairwise_from_counts(snap: ClusterSnapshot, st: PairState,
         s = pods.ia_sig[:, t].clamp(min=0).long()
         valid_t = pods.ia_valid[:, t]
         nc = node_count_sig[s]
+        match_tot = st.match_tot[s]
+        if esn is not None:
+            adj, _, active_tot = _self_adj(snap, sig_match, dom_s, s, esn,
+                                           pod_idx)
+            nc = nc - adj
+            match_tot = match_tot - active_tot
         hk = has_key_sig[s]
         node_has = hk & (nc > 0)
         anti = pods.ia_anti[:, t]
@@ -360,7 +413,7 @@ def pairwise_from_counts(snap: ClusterSnapshot, st: PairState,
         # (match_tot counts key-less nodes too) a pod matching its own
         # selector may take any node with the key.
         self_match = sig_match[s, M + pod_idx]
-        all_zero = st.match_tot[s] <= 0
+        all_zero = match_tot <= 0
         pos_ok = node_has | ((all_zero & self_match)[:, None] & hk)
         ok_t = torch.where(anti[:, None], ~node_has, pos_ok)
         ia_ok &= torch.where((valid_t & req)[:, None], ok_t, True)
@@ -369,7 +422,7 @@ def pairwise_from_counts(snap: ClusterSnapshot, st: PairState,
                                       w[:, None], zero)
 
     # Symmetric required anti-affinity: applies to every pod.
-    ia_ok &= ~symmetric_anti_block(snap, st, sig_match, dom_s)
+    ia_ok &= ~symmetric_anti_block(snap, st, sig_match, dom_s, esn)
     return spread_ok, spread_pen, ia_ok, ia_raw
 
 
@@ -433,15 +486,17 @@ def pairwise_row(snap: ClusterSnapshot, st: PairState,
 
 def pairwise_batch_plain(snap: ClusterSnapshot, st: PairState,
                          aff_ok: torch.Tensor, sig_match: torch.Tensor,
-                         dom_s: torch.Tensor):
+                         dom_s: torch.Tensor, with_ia_ok: bool = False):
     """(pair_ok, ts_score, ia_score), each [P, N]: spread_ok & ia_ok, the
     inverse-normalised spread penalty and the min-max-normalised
-    inter-pod raw score (per row, over valid nodes)."""
+    inter-pod raw score (per row, over valid nodes); with_ia_ok appends
+    ia_ok alone (inter-pod and symmetric anti-affinity, no spread)."""
     spread_ok, pen, ia_ok, raw = pairwise_from_counts(snap, st, aff_ok,
                                                       sig_match, dom_s)
     nvalid = snap.nodes.valid
-    return (spread_ok & ia_ok, kscore.inverse_normalize(pen, nvalid),
-            kscore.minmax_normalize(raw, nvalid))
+    out = (spread_ok & ia_ok, kscore.inverse_normalize(pen, nvalid),
+           kscore.minmax_normalize(raw, nvalid))
+    return out + (ia_ok,) if with_ia_ok else out
 
 
 def _pair_term_args(k: str, snap: ClusterSnapshot, aff_ok: torch.Tensor,
@@ -467,39 +522,215 @@ def _pair_term_args(k: str, snap: ClusterSnapshot, aff_ok: torch.Tensor,
     check(k, dev, pods.ts_valid, torch.bool, (P, C))
     check(k, dev, pods.ts_when, torch.int8, (P, C))
     check(k, dev, pods.ts_max_skew, torch.float32, (P, C))
-    check(k, dev, pods.ia_sig, torch.int32, (P, IT))
-    for t in (pods.ia_valid, pods.ia_anti, pods.ia_required):
-        check(k, dev, t, torch.bool, (P, IT))
+    _check_ia_terms(k, dev, pods, P, IT)
     check(k, dev, pods.ia_weight, torch.float32, (P, IT))
-    check(k, dev, st.counts, torch.float32, (S, N))
-    check(k, dev, st.anti, torch.float32, (S, N))
-    check(k, dev, st.match_tot, torch.float32, (S,))
+    _check_state(k, dev, st, S, N)
     return (S, C, IT, M, dom_s, sig_match, nodes.valid, aff_ok, pods.ts_sig,
             pods.ts_valid, pods.ts_when, pods.ts_max_skew, pods.ia_sig,
             pods.ia_valid, pods.ia_anti, pods.ia_required, pods.ia_weight,
             st.counts, st.anti, st.match_tot)
 
 
+def _check_ia_terms(k: str, dev, pods: PodArrays, P: int, IT: int) -> None:
+    check(k, dev, pods.ia_sig, torch.int32, (P, IT))
+    for t in (pods.ia_valid, pods.ia_anti, pods.ia_required):
+        check(k, dev, t, torch.bool, (P, IT))
+
+
+def _check_state(k: str, dev, st: PairState, S: int, N: int) -> None:
+    check(k, dev, st.counts, torch.float32, (S, N))
+    check(k, dev, st.anti, torch.float32, (S, N))
+    check(k, dev, st.match_tot, torch.float32, (S,))
+
+
 def pairwise_batch(snap: ClusterSnapshot, st: PairState,
                    aff_ok: torch.Tensor, sig_match: torch.Tensor,
-                   dom_s: torch.Tensor):
+                   dom_s: torch.Tensor, with_ia_ok: bool = False):
     """Kernel K11 on CUDA tensors, the plain version on CPU tensors."""
     dev = dom_s.device
     if dev.type == "cpu":
-        return pairwise_batch_plain(snap, st, aff_ok, sig_match, dom_s)
+        return pairwise_batch_plain(snap, st, aff_ok, sig_match, dom_s,
+                                    with_ia_ok)
     P, N = aff_ok.shape
     terms = _pair_term_args("pairwise_batch", snap, aff_ok, sig_match,
                             dom_s, st)
     pair_ok = torch.empty((P, N), dtype=torch.bool, device=dev)
     ts_score = torch.empty((P, N), dtype=torch.float32, device=dev)
     ia_score = torch.empty((P, N), dtype=torch.float32, device=dev)
+    ia_ok = (torch.empty((P, N), dtype=torch.bool, device=dev)
+             if with_ia_ok else None)
+    out = (pair_ok, ts_score, ia_score) + ((ia_ok,) if with_ia_ok else ())
     if P * N == 0:
-        return pair_ok, ts_score, ia_score
+        return out
     _build.launch("tpusched_pairwise_batch",
-                  *ptrs((P, N, *terms, pair_ok, ts_score, ia_score)),
+                  *ptrs((P, N, *terms, pair_ok, ts_score, ia_score, ia_ok)),
                   stream_of(dev))
     pairwise_batch.launches += 1
-    return pair_ok, ts_score, ia_score
+    if with_ia_ok:
+        pairwise_batch.ia_ok_launches += 1
+    return out
 
 
 pairwise_batch.launches = 0
+pairwise_batch.ia_ok_launches = 0   # of them, with ia_ok out
+
+
+# -- K10 + commit: committed pods in and out of the state ---------------------
+
+
+def pair_commit_plain(snap: ClusterSnapshot, st: PairState,
+                      sig_match: torch.Tensor, dom_s: torch.Tensor,
+                      choice: torch.Tensor, commit_mask: torch.Tensor,
+                      sign: float = 1.0) -> PairState:
+    """JAX pair_state_commit: add (sign +1) or take back (sign -1) the
+    contributions of the pending pods committed to choice[p] where
+    commit_mask[p]; the pods are the rows of `snap.pods` (a compacted
+    view's too) and sig_match's member columns past the running ones.
+    Returns a new state. Every added value is 0 or +-1 and every count
+    an integer below 2**24, so the sums are exact in any order."""
+    M = snap.running.valid.shape[0]
+    S = dom_s.shape[0]
+    dev = dom_s.device
+    ch = choice.clamp(min=0).long()
+    pod_dom = dom_s[:, ch]                                   # [S, P]
+    on = sig_match[:, M:] & commit_mask[None, :]
+    rows = torch.arange(S, device=dev)[:, None].expand_as(pod_dom)
+    counts = st.counts.clone()
+    counts.index_put_((rows, pod_dom.clamp(min=0).long()),
+                      (on & (pod_dom >= 0)).to(torch.float32) * sign,
+                      accumulate=True)
+    match_tot = st.match_tot + on.to(torch.float32).sum(dim=1) * sign
+    anti = st.anti.clone()
+    holds = pod_anti_holds(snap.pods)
+    for t in range(snap.pods.ia_key.shape[1]):
+        s = snap.pods.ia_sig[:, t].clamp(min=0).long()
+        dom_p = dom_s[s, ch]
+        hold = holds[:, t] & commit_mask & (dom_p >= 0)
+        anti.index_put_((s, dom_p.clamp(min=0).long()),
+                        hold.to(torch.float32) * sign, accumulate=True)
+    return PairState(counts=counts, anti=anti, match_tot=match_tot)
+
+
+def pair_commit(snap: ClusterSnapshot, st: PairState,
+                sig_match: torch.Tensor, dom_s: torch.Tensor,
+                choice: torch.Tensor, commit_mask: torch.Tensor,
+                sign: float = 1.0) -> PairState:
+    """K10's commit entry point on CUDA tensors (into a copy of the
+    state), the plain version on CPU tensors."""
+    dev = dom_s.device
+    if dev.type == "cpu":
+        return pair_commit_plain(snap, st, sig_match, dom_s, choice,
+                                 commit_mask, sign)
+    pods = snap.pods
+    S, N = dom_s.shape
+    P = pods.valid.shape[0]
+    M = snap.running.valid.shape[0]
+    IT = pods.ia_sig.shape[1]
+    k = "pair_commit"
+    if sign not in (1.0, -1.0):
+        raise ValueError(f"{k}: sign {sign}, want +1 or -1")
+    check(k, dev, dom_s, torch.int32, (S, N))
+    check(k, dev, sig_match, torch.bool, (S, M + P))
+    _check_ia_terms(k, dev, pods, P, IT)
+    check(k, dev, choice, torch.int32, (P,))
+    check(k, dev, commit_mask, torch.bool, (P,))
+    _check_state(k, dev, st, S, N)
+    out = PairState(counts=st.counts.clone(), anti=st.anti.clone(),
+                    match_tot=st.match_tot.clone())
+    if S * P == 0:
+        return out
+    _build.launch("tpusched_pair_commit",
+                  *ptrs((S, N, M, P, IT, sig_match, dom_s, pods.ia_sig,
+                         pods.ia_valid, pods.ia_anti, pods.ia_required,
+                         choice, commit_mask, int(sign), out.counts,
+                         out.anti, out.match_tot)), stream_of(dev))
+    pair_commit.launches += 1
+    return out
+
+
+pair_commit.launches = 0
+
+
+# -- K14: the inter-pod verdict at each pod's chosen node ----------------------
+
+
+def ia_ok_at_choice_plain(snap: ClusterSnapshot, st: PairState,
+                          sig_match: torch.Tensor, dom_s: torch.Tensor,
+                          choice: torch.Tensor,
+                          esn: torch.Tensor) -> torch.Tensor:
+    """[P] bool: `pairwise_from_counts(..., exclude_self_node=esn)`'s
+    ia_ok at column choice[p], from O(S * P) gathers (JAX
+    ia_ok_at_choice). Rows with choice < 0 are evaluated at node 0 and
+    left to the caller to mask."""
+    pods = snap.pods
+    M = snap.running.valid.shape[0]
+    P = pods.valid.shape[0]
+    dev = dom_s.device
+    pod_idx = torch.arange(P, device=dev)
+    ch = choice.clamp(min=0).long()
+    esn_c = esn.clamp(min=0).long()
+    holds = pod_anti_holds(pods)
+    ok = torch.ones(P, dtype=torch.bool, device=dev)
+    own = []
+    for t in range(pods.ia_key.shape[1]):
+        s = pods.ia_sig[:, t].clamp(min=0).long()
+        d = dom_s[s, ch]
+        self_match = sig_match[s, M + pod_idx]
+        committed = self_match & (esn >= 0)
+        own_dom = dom_s[s, esn_c]
+        # _self_adj at n = choice: the pod's own contribution counts
+        # only where the node's domain is its own node's domain.
+        active = committed & (own_dom >= 0) & (d == own_dom)
+        nc = st.counts[s, d.clamp(min=0).long()] - active.to(torch.float32)
+        hk = d >= 0
+        node_has = hk & (nc > 0)
+        all_zero = (st.match_tot[s] - committed.to(torch.float32)) <= 0
+        pos_ok = node_has | (all_zero & self_match & hk)
+        ok_t = torch.where(pods.ia_anti[:, t], ~node_has, pos_ok)
+        ok &= torch.where(pods.ia_valid[:, t] & pods.ia_required[:, t], ok_t,
+                          True)
+        own.append(holds[:, t] & active)
+    # The symmetric-anti column at the chosen node, in int32.
+    d_all = dom_s[:, ch]                                     # [S, P]
+    anti_at = torch.gather(st.anti, 1, d_all.clamp(min=0).long())
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    anti_i = torch.where(d_all >= 0, anti_at, zero).to(torch.int32)
+    blocked = (sig_match[:, M:].to(torch.int32) * anti_i).sum(dim=0)
+    for a in own:
+        blocked = blocked - a.to(torch.int32)
+    return ok & ~(blocked > 0)
+
+
+def ia_ok_at_choice(snap: ClusterSnapshot, st: PairState,
+                    sig_match: torch.Tensor, dom_s: torch.Tensor,
+                    choice: torch.Tensor, esn: torch.Tensor) -> torch.Tensor:
+    """Kernel K14 on CUDA tensors, the plain version on CPU tensors."""
+    dev = dom_s.device
+    if dev.type == "cpu":
+        return ia_ok_at_choice_plain(snap, st, sig_match, dom_s, choice,
+                                     esn)
+    pods = snap.pods
+    S, N = dom_s.shape
+    P = pods.valid.shape[0]
+    M = snap.running.valid.shape[0]
+    IT = pods.ia_sig.shape[1]
+    k = "ia_ok_at_choice"
+    check(k, dev, dom_s, torch.int32, (S, N))
+    check(k, dev, sig_match, torch.bool, (S, M + P))
+    _check_ia_terms(k, dev, pods, P, IT)
+    _check_state(k, dev, st, S, N)
+    check(k, dev, choice, torch.int32, (P,))
+    check(k, dev, esn, torch.int32, (P,))
+    ok = torch.empty((P,), dtype=torch.bool, device=dev)
+    if P == 0:
+        return ok
+    _build.launch("tpusched_ia_at_choice",
+                  *ptrs((P, N, S, IT, M, dom_s, sig_match, pods.ia_sig,
+                         pods.ia_valid, pods.ia_anti, pods.ia_required,
+                         st.counts, st.anti, st.match_tot, choice, esn, ok)),
+                  stream_of(dev))
+    ia_ok_at_choice.launches += 1
+    return ok
+
+
+ia_ok_at_choice.launches = 0

@@ -61,7 +61,10 @@ def balanced_allocation(alloc: torch.Tensor, used: torch.Tensor,
     mean = _sum_last(frac * sel)[..., None] / k
     d = frac - mean
     var = _sum_last((d * d) * sel) / k
-    return (1.0 - torch.sqrt(var)) * MAX_NODE_SCORE
+    # The square root in f64, rounded once to f32: the correctly rounded
+    # f32 root, as CUDA's sqrtf and numpy give. PyTorch's f32 sqrt on
+    # AVX-512 CPUs is not always correctly rounded.
+    return (1.0 - torch.sqrt(var.double()).to(var.dtype)) * MAX_NODE_SCORE
 
 
 def node_affinity_raw(node_sat_t: torch.Tensor,
