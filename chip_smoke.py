@@ -67,6 +67,26 @@ package, and
      DoNotSchedule skew and required inter-pod terms hold against K10's
      recount of the pods committed at its key or before, itself left
      out; each ScoreBatch result equal to its plain version;
+     - gangs (BASELINE config 4, 2 500 groups of 4): `Engine.solve` in
+       parity and fast mode on (f) 5 000 nodes and (g) 1 000 nodes (the
+       gang gate's K8 node_add besides each path's kernels), each with
+       the audit, equality with its plain solve and a gang audit (no
+       group placed in part; the plain solve's rolled-back pods
+       unplaced; (g) must roll back a group);
+     - preemption (BASELINE config 5 at 10 000 x 5 000, 90 % tight, a
+       third of the running pods under PodDisruptionBudgets): parity
+       `Engine.solve` with preemption=True on (h) (K1-K3, K4's
+       preemption variant, which runs K15's victim search inside the
+       scan), the audit, equality with its plain solve (evictions
+       included) and a preemption audit (final usage = usage - evicted
+       victims + placed pods, in f64; victims only from nodes a
+       preempted pod took; no gang member preempts; at least one
+       eviction); then K4's preemption variant against that plain scan,
+       K15 against its plain version at the scan's state at (h)'s first
+       8 preemptors (with the violation counts K15 leaves in its scratch
+       equal to the plain tableau's; at least one PDB violation among
+       them), and K4's pairwise preemption variant on (h) with spread
+       and inter-pod terms, all exact;
   5. prints per-stage time breakdowns of one steady parity and one
      steady fast solve (with the host-clock cost of the dealing
      prefixes in three forms), of one steady pairwise parity solve and
@@ -102,9 +122,15 @@ from tpusched_torch.engine import (
 )
 from tpusched_torch.kernels import assign as kassign
 from tpusched_torch.kernels import pairwise as kpair
+from tpusched_torch.kernels import preempt as kpre
 from tpusched_torch.kernels.atoms import atom_sat, atom_sat_plain
-from tpusched_torch.qos import effective_weights, pressure_of
-from tpusched_torch.synth import config2_scale, config3_pairwise
+from tpusched_torch.qos import effective_priority, effective_weights, pressure_of
+from tpusched_torch.synth import (
+    config2_scale,
+    config3_pairwise,
+    config4_gangs,
+    config5_preemption,
+)
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit): HBM3
 # bandwidth and the f32 rate outside the tensor cores. None of these
@@ -119,6 +145,15 @@ CONSTRAINED = dict(taint_frac=0.3, toleration_frac=0.3, selector_frac=0.3,
 # running anti-affinity holders, namespace scopes and key-less nodes.
 PAIR_SEED = 43
 PAIR_EXTRA = dict(run_anti_frac=0.1, namespace_count=3, keyless_node_frac=0.05)
+# Cells (f) and (g) are BASELINE config 4, 2 500 gangs of 4 (seed 44) on
+# the JAX bench's 5 000 nodes and on the generator's own 1 000; (h) is
+# config 5 at 10 000 x 5 000 (seed 45), the JAX bench's preemption
+# snapshot, solved with preemption=True. (h) with spread and inter-pod
+# terms drives K4's pairwise preemption variant in the kernel phase.
+GANG_SEED, PRE_SEED = 44, 45
+GANGS = dict(n_groups=2500, gang_size=4)
+PRE_PAIR = dict(spread_frac=0.3, interpod_frac=0.3)
+K15_STATES = 8   # (h)'s first preemptors, in pop order
 
 # (name, wrapper, its launch counter, source, the JAX function it
 # replaces). A variant of a kernel (K5's relaxed output, K7's fixed point,
@@ -167,7 +202,22 @@ KERNELS = (
      "tpusched_torch/csrc/pairwise.cu", "tpusched/kernels/assign.py:297"),
     ("cycle_relaxed", kassign.cycle, "relaxed_launches",
      "tpusched_torch/csrc/cycle.cu", "tpusched/kernels/assign.py:306"),
+    ("preempt_step", kpre.preempt_step, "launches",
+     "tpusched_torch/csrc/preempt.cu", "tpusched/kernels/preempt.py:317"),
+    ("parity_scan_preempt", kassign.parity_scan_preempt, "launches",
+     "tpusched_torch/csrc/scan.cu", "tpusched/kernels/assign.py:408"),
+    ("parity_scan_pair_preempt", kassign.parity_scan_pair_preempt,
+     "launches", "tpusched_torch/csrc/scan.cu",
+     "tpusched/kernels/pairwise.py:240"),
 )
+# Kernels whose counters the main path leaves at 0, and why; each is
+# held against its plain version at full size in the kernel phase.
+OFF_PATH = {
+    "preempt_step": "K15's standalone entry point; the main path runs K15 "
+                    "as a device function inside parity_scan_preempt",
+    "parity_scan_pair_preempt": "no cell has both signatures and "
+                                "preemption",
+}
 PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                   "parity_scan")
 PAIR_PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
@@ -178,7 +228,8 @@ PAIR_SCORE_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
 # Kernels an entry-point call launches at most once (K1 twice with
 # signatures: node labels, then member labels).
 ONCE = ("tableau_cells", "finalize_static", "parity_scan", "sig_match",
-        "pair_counts", "pairwise_batch", "parity_scan_pair")
+        "pair_counts", "pairwise_batch", "parity_scan_pair",
+        "parity_scan_preempt", "parity_scan_pair_preempt")
 FAST_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
                 "row_topk", "desirability", "prefix_commit")
 FAST_PAIR_KERNELS = FAST_KERNELS + (
@@ -189,6 +240,11 @@ FAST_PAIR_ONCE = ("tableau_cells", "finalize_static", "sig_match",
                   "pair_counts")
 SCORE_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
                  "row_topk")
+# The gang gate reverts through K8's node_add.
+GANG_PARITY_KERNELS = PARITY_KERNELS + ("node_add",)
+GANG_FAST_KERNELS = FAST_KERNELS + ("node_add",)
+PREEMPT_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
+                   "parity_scan_preempt")
 
 
 def log(msg: str) -> None:
@@ -295,14 +351,15 @@ def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
     if not mask[np.nonzero(placed)[0], a[placed]].all():
         raise AssertionError(f"{name}: a pod was placed where its static "
                              "mask is false")
-    if not np.isfinite(res.chosen_score[placed]).all():
+    # A preempted placement carries chosen = -inf (no rescore).
+    if not cfg.preemption and not np.isfinite(res.chosen_score[placed]).all():
         raise AssertionError(f"{name}: a placed pod has no finite score")
     P = a.shape[0]
     if sorted(res.order.tolist()) != list(range(P)):
         raise AssertionError(f"{name}: order is not a permutation")
     info = {"placed": int(placed.sum()), "valid_pods": int(pvalid.sum())}
     pstats = kassign.RoundStats()
-    scans, states = [], []
+    scans, states, pre_scans = [], [], []
 
     def record(*args):
         t0 = time.perf_counter()
@@ -316,9 +373,17 @@ def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
         states[:] = [out]
         return out
 
+    def record_pre(*args):
+        t0 = time.perf_counter()
+        out = kassign.parity_scan_preempt_plain(*args)
+        torch.cuda.synchronize()
+        pre_scans.append((args, out, (time.perf_counter() - t0) * 1e3))
+        return out
+
     t0 = time.perf_counter()
     want = plain_result(cfg, dsnap, dataclasses.replace(
-        plain, parity_scan_pair=record, pair_commit=last_state), pstats)
+        plain, parity_scan_pair=record, pair_commit=last_state,
+        parity_scan_preempt=record_pre), pstats)
     info["plain_solve_ms"] = (time.perf_counter() - t0) * 1e3
     for field in ("assignment", "order", "chosen_score", "commit_key",
                   "final_used", "evicted", "rounds"):
@@ -338,7 +403,64 @@ def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
         info.update(pair_audit(name, dsnap, res, static.sig_match, dom_s,
                                states[0]))
         info.update(commit_key_audit(name, dsnap, res, static, dom_s))
+    if pre_scans:
+        info["plain_preempt_scan"] = pre_scans[0]
     return info
+
+
+def gang_audit(name: str, dsnap, res, rolled: np.ndarray) -> dict:
+    """Every pod group has no placed member or at least min_member; the
+    pods the plain solve's gang gate rolled back are unplaced."""
+    group = dsnap.pods.group.cpu().numpy()
+    gmin = dsnap.group_min_member.cpu().numpy()
+    placed = res.assignment >= 0
+    cnt = np.bincount(group[placed & (group >= 0)], minlength=gmin.shape[0])
+    partial = (cnt > 0) & (cnt < gmin)
+    if partial.any():
+        raise AssertionError(f"{name}: {int(partial.sum())} pod groups are "
+                             "placed in part")
+    if placed[rolled].any():
+        raise AssertionError(f"{name}: a rolled-back pod is placed")
+    return {"groups": int((gmin > 0).sum()),
+            "groups_placed": int((cnt > 0).sum()),
+            "rolled_pods": int(rolled.sum()),
+            "rolled_groups": int(np.unique(group[rolled]).shape[0])}
+
+
+def preempt_audit(name: str, dsnap, res) -> dict:
+    """final_used equals the snapshot's usage less the evicted victims'
+    requests plus the placed pods' (recomputed in f64, rtol 1e-6 of each
+    node's capacity); evicted victims are valid running pods on nodes
+    where a preempted pod landed; no preempted pod (placed with chosen =
+    -inf) belongs to a gang."""
+    run, pods, nodes = dsnap.running, dsnap.pods, dsnap.nodes
+    a, ev = res.assignment, res.evicted
+    placed = a >= 0
+    rnode = run.node_idx.cpu().numpy()
+    if not (run.valid.cpu().numpy()[ev].all() and (rnode[ev] >= 0).all()):
+        raise AssertionError(f"{name}: an evicted victim is not a running "
+                             "pod on a node")
+    want = nodes.used.cpu().numpy().astype(np.float64)
+    np.subtract.at(want, rnode[ev], run.requests.cpu().numpy()[ev])
+    np.add.at(want, a[placed], pods.requests.cpu().numpy()[placed])
+    alloc = nodes.allocatable.cpu().numpy().astype(np.float64)
+    off = np.abs(res.final_used - want) > 1e-6 * np.maximum(alloc, 1.0)
+    if off.any():
+        raise AssertionError(f"{name}: final_used differs from the usage "
+                             f"less evictions plus placements at "
+                             f"{int(off.sum())} entries")
+    preempted = placed & ~np.isfinite(res.chosen_score)
+    group = pods.group.cpu().numpy()
+    if (group[preempted] >= 0).any():
+        raise AssertionError(f"{name}: a gang member was placed by "
+                             "preemption")
+    if not set(rnode[ev].tolist()) <= set(a[preempted].tolist()):
+        raise AssertionError(f"{name}: a victim was evicted from a node no "
+                             "preempted pod took")
+    pvalid = pods.valid.cpu().numpy()
+    return {"evicted": int(ev.sum()), "preempted": int(preempted.sum()),
+            "searches": int(preempted.sum()
+                            + (pvalid & (group < 0) & ~placed).sum())}
 
 
 def pair_audit(name: str, dsnap, res, sig_match, dom_s, final) -> dict:
@@ -1100,6 +1222,195 @@ def pair_score_phase(requests, smi: str) -> dict:
     return phase_counts
 
 
+def with_recorded(fn, module, attr: str, keep: int | None = None):
+    """Run fn() with module.attr wrapped to record its calls' arguments
+    (cloned tensors) and outputs, the first `keep` of them (all when
+    None); returns (fn's result, [(args, out)])."""
+    orig = getattr(module, attr)
+    calls = []
+
+    def rec(*args, **kw):
+        out = orig(*args, **kw)
+        if keep is None or len(calls) < keep:
+            calls.append((tuple(a.clone() if isinstance(a, torch.Tensor)
+                                else a for a in args), out))
+        return out
+
+    setattr(module, attr, rec)
+    try:
+        return fn(), calls
+    finally:
+        setattr(module, attr, orig)
+
+
+def gang_phase(cells, label: str, want: tuple[str, ...], smi: str) -> dict:
+    """Gang cells through the engine (counters zeroed just before, read
+    just after), then the audit, equality with the plain solve and the
+    gang audit on the plain solve's rolled-back set."""
+    results, phase_counts = solve_phase(label, cells, want)
+    for name, cfg, snap, res, wall_ms, moved in results:
+        dsnap = Engine(cfg).put(snap)
+        info, calls = with_recorded(lambda: audit(name, cfg, dsnap, res),
+                                    kassign, "gang_rollback")
+        info.update(gang_audit(name, dsnap, res, calls[0][1][4].cpu().numpy()))
+        log(f"{label} solve {name}: {wall_ms:.3f} ms wall, placed "
+            f"{info['placed']}/{info['valid_pods']}, launches {moved}, audit "
+            f"clean, equal to the plain solve ({info['plain_solve_ms']:.1f} "
+            f"ms); gang audit clean: {info['groups_placed']} of "
+            f"{info['groups']} groups placed, {info['rolled_groups']} groups "
+            f"({info['rolled_pods']} pods) rolled back; {smi}")
+        if name.startswith("g") and info["rolled_groups"] < 1:
+            raise AssertionError(f"{label} {name}: no group rolled back")
+    return phase_counts
+
+
+def preempt_kernel_phase(cfg: EngineConfig, dsnap, plain_scan,
+                         steps) -> dict:
+    """K4's preemption variant against the (h) audit's plain scan (run
+    once), and K15 against its plain version on the scan's state at (h)'s
+    first preemptors (the plain scan's first preempt_step_plain calls),
+    exactly, with the violation counts K15 leaves in its scratch equal to
+    the plain tableau's; times and bounds."""
+    out = {}
+    nodes, pods = dsnap.nodes, dsnap.pods
+    args4, want4, plain_ms = plain_scan
+    got4 = kassign.parity_scan_preempt(*args4)
+    err = require_equal("parity_scan_preempt", got4, want4)
+    _, _, static, order, pctx = args4
+    P, N = static.mask.shape
+    M, R = pctx.req_s.shape
+    vic_bytes = nbytes(pctx.perm, pctx.node_s, pctx.seg_start, pctx.cost_s,
+                       pctx.vprio_s, pctx.req_s, pctx.pdb_s)
+    placed = got4[0] >= 0
+    searches = int((placed & torch.isinf(got4[1])).sum()
+                   + (pods.valid & (pods.group < 0) & ~placed).sum())
+    b4 = nbytes(static.mask, static.score, nodes.allocatable, nodes.used,
+                pods.requests, static.w_lr, static.w_ba, static.w_ts,
+                static.w_ia, static.rw, *got4) + 4 * P + vic_bytes
+    scan_ms = cuda_ms(lambda: kassign.parity_scan_preempt(*args4), 3)
+    no_pre_ms = cuda_ms(lambda: kassign.parity_scan(cfg, dsnap, static,
+                                                    order), 3)
+    out["parity_scan_preempt"] = dict(
+        err=err, ms=scan_ms, plain_ms=plain_ms,
+        bound=bound(b4, P * N * (R * 14 + 12) + searches * M * (3 * R + 12)),
+        shape=f"P={P} N={N} R={R} M={M}, {searches} K15 searches, "
+              f"{int(got4[3].sum())} evicted; K4 without preemption on the "
+              f"same inputs {no_pre_ms:.3f} ms, so "
+              f"{(scan_ms - no_pre_ms) * 1e3 / max(searches, 1):.2f} us a "
+              "search inside the scan")
+    errs, viols = 0.0, 0
+    for a, _ in steps:
+        scratch = kpre.victim_scratch(M, R, nodes.valid.device)
+        got = kpre.preempt_step(*a, scratch=scratch)
+        errs = max(errs, require_equal("preempt_step", got,
+                                       kpre.preempt_step_plain(*a)))
+        c, snap_a, ctx, prio, req, allowed, used, evicted = a
+        elig, _, wviol, _, viol = kpre.tableau_plain(
+            c, snap_a, ctx, prio, req, used, evicted,
+            kpre.pdb_remaining(snap_a, evicted))
+        require_equal("preempt_step tableau",
+                      [kpre.deinterleave(scratch[0], M),
+                       kpre.deinterleave(scratch[2], M)],
+                      [elig.to(torch.uint8), wviol])
+        viols += int(viol.sum())
+    if viols < 1:
+        raise AssertionError("K15: no victim is a PDB violation at (h)'s "
+                             "first preemptors")
+    b15 = vic_bytes + M + nbytes(nodes.valid, nodes.used, nodes.allocatable) \
+        + N + M
+    k = len(steps)
+    out["preempt_step"] = dict(
+        err=errs,
+        ms=cuda_ms(lambda: [kpre.preempt_step(*a) for a, _ in steps], 5) / k,
+        plain_ms=cuda_ms(lambda: [kpre.preempt_step_plain(*a)
+                                  for a, _ in steps], 2) / k,
+        bound=bound(b15, M * (3 * R + 12)),
+        shape=f"M={M} N={N} R={R} GP={dsnap.pdb_allowed.shape[0]}, {k} "
+              f"preemptor states, {viols} PDB-violating victims in their "
+              f"tableaus, {sum(int(o[1]) for _, o in steps)} found a prefix")
+    return out
+
+
+def pair_preempt_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
+    """K4's pairwise preemption variant against its plain version (timed
+    once) on (h) with spread and inter-pod terms, exactly in all five
+    outputs; the final pair state also equals K10's recount at the
+    assignment less the evicted members."""
+    nodes, pods = dsnap.nodes, dsnap.pods
+    static = kassign.precompute_static(cfg, dsnap, *_sat_tables(dsnap))
+    dom_s = kpair.sig_domains(dsnap)
+    st = kpair.pair_counts(static.sig_match, dom_s, dsnap.running, pods)
+    order = kassign.pop_order(cfg, dsnap)
+    pctx = kpre.precompute(cfg, dsnap)
+    args = (cfg, dsnap, static, order, st, dom_s, pctx)
+    got = kassign.parity_scan_pair_preempt(*args)
+    t0 = time.perf_counter()
+    want = kassign.parity_scan_pair_preempt_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    flat = lambda r: [r[0], r[1], r[2], *_flat(r[3]), r[4]]
+    err = require_equal("parity_scan_pair_preempt", flat(got), flat(want))
+    rec = kpair.pair_counts(static.sig_match, dom_s, dsnap.running, pods,
+                            assigned=got[0])
+    left = kpair.pair_state_evict(dsnap, rec, static.sig_match, dom_s, got[4])
+    require_equal("parity_scan_pair_preempt state", _flat(got[3]),
+                  _flat(left))
+    P, N = static.mask.shape
+    M, R = pctx.req_s.shape
+    S, C = dom_s.shape[0], pods.ts_sig.shape[1]
+    IT = pods.ia_sig.shape[1]
+    b = nbytes(static.mask, static.score, static.aff_ok, nodes.allocatable,
+               nodes.used, pods.requests, static.w_lr, static.w_ba,
+               static.w_ts, static.w_ia, static.rw, dom_s, static.sig_match,
+               st.counts, st.anti, st.match_tot, pctx.perm, pctx.node_s,
+               pctx.seg_start, pctx.cost_s, pctx.vprio_s, pctx.req_s,
+               pctx.pdb_s, *flat(got)) + 4 * P
+    return {"parity_scan_pair_preempt": dict(
+        err=err, ms=cuda_ms(lambda: kassign.parity_scan_pair_preempt(*args),
+                            3),
+        plain_ms=plain_ms,
+        bound=bound(b, P * N * (R * 14 + 12 + C * 6 + IT * 10 + S * 3 + 14)),
+        shape=f"P={P} N={N} R={R} M={M} S={S} C={C} IT={IT}, placed "
+              f"{int((got[0] >= 0).sum())}, evicted {int(got[4].sum())}")}
+
+
+def preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
+    """Cell (h) through the engine with preemption (counters zeroed just
+    before, read just after), the audit, equality with the plain solve
+    (run once, its scan recorded with the states at its first
+    preemptors) and the preemption audit; then the kernel phase of K4's
+    preemption variants and K15. Returns (the phase's launch counts, the
+    kernel rows)."""
+    cfg = EngineConfig(mode="parity", preemption=True)
+    pre, phase_counts = solve_phase(
+        "preemption parity",
+        (("h: config5 10000x5000 at 90% tight, 30% of running pods under "
+          "PDBs, preemption on", cfg, snap_h),), PREEMPT_KERNELS)
+    name, _, _, res, wall_ms, moved = pre[0]
+    eng = Engine(cfg)
+    dsnap = eng.put(snap_h)
+    info, steps = with_recorded(lambda: audit(name, cfg, dsnap, res), kpre,
+                                "preempt_step_plain", keep=K15_STATES)
+    info.update(preempt_audit(name, dsnap, res))
+    if info["evicted"] < 1:
+        raise AssertionError(f"{name}: no victim evicted")
+    log(f"preemption parity solve {name}: {wall_ms:.3f} ms wall, placed "
+        f"{info['placed']}/{info['valid_pods']}, {info['preempted']} by "
+        f"preemption, {info['searches']} K15 searches in the scan, "
+        f"{info['evicted']} victims evicted, launches {moved}, audit clean, "
+        f"equal to the plain solve in assignment, chosen, used and evicted "
+        f"(plain scan {info['plain_preempt_scan'][2]:.1f} ms), preemption "
+        f"audit clean; {smi}")
+    kp = preempt_kernel_phase(cfg, dsnap, info["plain_preempt_scan"], steps)
+    kp.update(pair_preempt_kernel_phase(cfg, eng.put(snap_hp)))
+    eng.close()
+    for kname, r in kp.items():
+        log(f"kernel {kname} [{r['shape']}]: exact match, kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); {smi}")
+    return phase_counts, kp
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port "
@@ -1289,8 +1600,45 @@ def main() -> int:
         f" differ from the card's; rounds {res_cpu.rounds}, host reads "
         f"{res_cpu.host_reads}; {(time.perf_counter() - t0):.3f} s host "
         "clock")
+
+    # -- gangs (config 4) and preemption (config 5) ----------------------------
+    t0 = time.perf_counter()
+    snap_f, meta_f = config4_gangs(np.random.default_rng(GANG_SEED),
+                                   n_nodes=NODES, **GANGS)
+    snap_g, meta_g = config4_gangs(np.random.default_rng(GANG_SEED), **GANGS)
+    snap_h, meta_h = config5_preemption(np.random.default_rng(PRE_SEED), PODS,
+                                        NODES)
+    snap_hp, meta_hp = config5_preemption(np.random.default_rng(PRE_SEED),
+                                          PODS, NODES, **PRE_PAIR)
+    log(f"gang and preemption snapshots built on the host: "
+        f"{time.perf_counter() - t0:.3f} s; (f) P={meta_f.buckets.pods} "
+        f"N={meta_f.buckets.nodes} G={meta_f.buckets.pod_groups}; (g) "
+        f"N={meta_g.buckets.nodes}; (h) M={meta_h.buckets.running_pods} "
+        f"GP={meta_h.buckets.pdb_groups}, {meta_h.n_running} running pods; "
+        f"(h) with spread and inter-pod terms S={meta_hp.buckets.signatures}")
+    gang_cells = (("f: config4 2500 gangs of 4 on 5000 nodes", cfg_first,
+                   snap_f),
+                  ("g: config4 2500 gangs of 4 on 1000 nodes", cfg_first,
+                   snap_g))
+    for k, v in gang_phase(gang_cells, "gang parity", GANG_PARITY_KERNELS,
+                           smi).items():
+        launches[k] += v
+    fast_gang_cells = tuple((name.replace(":", " fast:", 1),
+                             dataclasses.replace(cfg, mode="fast"), snap)
+                            for name, cfg, snap in gang_cells)
+    for k, v in gang_phase(fast_gang_cells, "gang fast", GANG_FAST_KERNELS,
+                           smi).items():
+        launches[k] += v
+    phase_counts, kp_pre = preempt_phase(snap_h, snap_hp, smi)
+    for k, v in phase_counts.items():
+        launches[k] += v
+    kp.update(kp_pre)
+
     for name, n in launches.items():
-        if n == 0:
+        if name in OFF_PATH:
+            log(f"kernel {name}: {n} launches on the main path "
+                f"({OFF_PATH[name]})")
+        elif n == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
 

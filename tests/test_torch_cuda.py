@@ -3,7 +3,8 @@ card, at small shapes. Exact: every kernel is built with --fmad=false and
 follows its plain version's order of f32 operations (K7's column sum in
 ascending rows, K8's Hillis-Steele prefix and rank-ordered adds; K10's
 atomic adds of +-1.0 stay exact integers in any order; K12-K14 count,
-compare and take minima).
+compare and take minima; K15's victim prefix sums follow its plain
+version's chunked Hillis-Steele order).
 
 These tests need a CUDA device and nvcc: without a card each one skips.
 The file imports nothing of JAX, so that it runs where the port runs:
@@ -31,6 +32,8 @@ from tpusched_torch.engine import (
 )
 from tpusched_torch.kernels import assign as ka
 from tpusched_torch.kernels import pairwise as kp
+from tpusched_torch.kernels import preempt as kpre
+from tpusched_torch.snapshot import SnapshotBuilder
 
 # Pairwise mixes: config 3, and config 3 with running anti-affinity
 # holders, three namespaces and key-less nodes.
@@ -340,3 +343,138 @@ def test_fast_pairwise_solve_equal_plain(cuda, mix, tie_break):
     assert torch.equal(outs[0][0], outs[1][0])
     assert outs[0][1] == outs[1][1]
     assert torch.equal(outs[2][0], outs[3][0])
+
+
+# -- gangs and preemption ---------------------------------------------------
+
+
+def _victim_case(case):
+    """Victim tables for K15: ties (identical victims on identical
+    nodes), all-inf (no victim is eligible), exhausted budgets (every
+    victim under a budget with nothing left) and one huge segment (one
+    node holding more victims than the CTA has threads, so that its
+    segment spans many threads' chunks). (snapshot, preemptor priority,
+    requests [cpu, memory, pods])."""
+    b = SnapshotBuilder(EngineConfig(preemption=True))
+    mem = 64 << 30
+    if case == "huge_segment":
+        b.add_node("big", {"cpu": 3000 * 10, "memory": mem, "pods": 5000})
+        for i in range(3000):
+            b.add_running_pod("big", {"cpu": 10, "memory": 1 << 20},
+                              priority=i % 7, slack=(i % 13) / 40.0,
+                              pdb_group=f"b{i % 3}" if i % 4 == 0 else None,
+                              pdb_disruptions_allowed=i % 3)
+        return b.build()[0], 500.0, [400.0, 1 << 28, 1.0]
+    for n in range(6):
+        b.add_node(f"n{n}", {"cpu": 4000, "memory": mem})
+        for j in range(4):
+            kw = {}
+            if case == "exhausted_budgets":
+                kw = dict(pdb_group=f"g{(n + j) % 3}",
+                          pdb_disruptions_allowed=0)
+            prio, slack = ((10.0, 0.1) if case == "ties"
+                           else (10.0 + j, 0.05 * j))
+            b.add_running_pod(f"n{n}", {"cpu": 1000, "memory": 1 << 30},
+                              priority=prio, slack=slack, **kw)
+    p_prio = 1.0 if case == "all_inf" else 500.0
+    return b.build()[0], p_prio, [2500.0, float(1 << 30), 1.0]
+
+
+@pytest.mark.parametrize("case", ["ties", "all_inf", "exhausted_budgets",
+                                  "huge_segment"])
+def test_k15_equal_plain(cuda, case):
+    snap, p_prio, req = _victim_case(case)
+    snap = snap.to(cuda)
+    cfg = EngineConfig(preemption=True)
+    ctx = kpre.precompute(cfg, snap)
+    M = ctx.perm.shape[0]
+    N = snap.nodes.valid.shape[0]
+    rng = np.random.default_rng(0)
+    req_t = torch.tensor(req, dtype=torch.float32, device=cuda)
+    prio = torch.tensor(p_prio, dtype=torch.float32, device=cuda)
+    found = 0
+    for trial in range(6):
+        ev = torch.from_numpy(rng.random(M) < 0.15 * (trial % 3)).to(cuda)
+        ev &= snap.running.valid
+        allowed = torch.from_numpy(rng.random(N) < 0.9).to(cuda)
+        allowed[0] = True
+        used = snap.nodes.used * torch.from_numpy(rng.uniform(
+            0.9, 1.0, size=(N, 1)).astype(np.float32)).to(cuda)
+        a = (cfg, snap, ctx, prio, req_t, allowed, used, ev)
+        got, want = kpre.preempt_step(*a), kpre.preempt_step_plain(*a)
+        _equal(got, want)
+        found += bool(got[1])
+    assert found == 0 if case == "all_inf" else found > 0
+
+
+def _preempt_snap(cuda, pair, seed=45):
+    kw = dict(spread_frac=0.4, interpod_frac=0.4, run_anti_frac=0.2) \
+        if pair else {}
+    snap, _ = tsynth.config5_preemption(np.random.default_rng(seed), 96, 16,
+                                        **kw)
+    return snap.to(cuda)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+def test_k4_preempt_equal_plain(cuda, pair, tie_break):
+    """K4's preemption variants against their plain versions: assignment,
+    chosen, used, evictions (and the final pair state with signatures,
+    which is K10's recount at the assignment less the evicted pods)."""
+    snap = _preempt_snap(cuda, pair)
+    cfg = EngineConfig(preemption=True, tie_break=tie_break, tie_seed=3)
+    ctx = kpre.precompute(cfg, snap)
+    order = ka.pop_order(cfg, snap)
+    if not pair:
+        static = _static(cfg, snap)
+        got = ka.parity_scan_preempt(cfg, snap, static, order, ctx)
+        want = ka.parity_scan_preempt_plain(cfg, snap, static, order, ctx)
+        _equal(got, want)
+        assert got[3].any()
+        return
+    static, dom, st = _pair_setup(cfg, snap)
+    assert dom.shape[0] > 0
+    got = ka.parity_scan_pair_preempt(cfg, snap, static, order, st, dom, ctx)
+    want = ka.parity_scan_pair_preempt_plain(cfg, snap, static, order, st,
+                                             dom, ctx)
+    _equal(got[:3], want[:3])
+    _equal(_state(got[3]), _state(want[3]))
+    _equal([got[4]], [want[4]])
+    assert got[4].any()
+    rec = kp.pair_counts(static.sig_match, dom, snap.running, snap.pods,
+                         assigned=got[0])
+    left = kp.pair_state_evict(snap, rec, static.sig_match, dom, got[4])
+    _equal(_state(got[3]), _state(left))
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+@pytest.mark.parametrize("pair", [False, True])
+def test_gang_solve_equal_plain(cuda, mode, pair):
+    """Gang snapshots through the four solve paths (K4 and its pairwise
+    variant, fast rounds with and without signatures) with the gang gate
+    (K8's node_add and K10's pair_commit, sign -1) equal their plain
+    solves, and no group is left partial."""
+    kw = dict(spread_frac=0.4, interpod_frac=0.4) if pair else {}
+    snap, _ = tsynth.config4_gangs(np.random.default_rng(44), n_groups=24,
+                                   gang_size=4, n_nodes=10, **kw)
+    snap = snap.to(cuda)
+    cfg = EngineConfig(mode=mode)
+    got = _pack_solve(solve_core(cfg, snap))
+    want = _pack_solve(solve_core(cfg, snap, ops=ka.PLAIN))
+    assert torch.equal(got, want)
+    res = Engine.unpack(snap, got.cpu().numpy())
+    group = snap.pods.group.cpu().numpy()
+    gmin = snap.group_min_member.cpu().numpy()
+    for g in range(gmin.shape[0]):
+        n = int(((group == g) & (res.assignment >= 0)).sum())
+        assert n == 0 or n >= gmin[g]
+    assert ((group >= 0) & (res.assignment < 0)).any()
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_preempt_solve_equal_plain(cuda, pair):
+    snap = _preempt_snap(cuda, pair, seed=7)
+    cfg = EngineConfig(preemption=True)
+    got = _pack_solve(solve_core(cfg, snap))
+    want = _pack_solve(solve_core(cfg, snap, ops=ka.PLAIN))
+    assert torch.equal(got, want)

@@ -28,7 +28,8 @@ def test_port_imports_with_jax_blocked():
         "for m in ('jax', 'jaxlib', 'flax', 'tpusched'):\n"
         "    sys.modules[m] = None\n"
         "import tpusched_torch, tpusched_torch.kernels.assign, "
-        "tpusched_torch.kernels.pairwise, tpusched_torch.engine, "
+        "tpusched_torch.kernels.pairwise, tpusched_torch.kernels.preempt, "
+        "tpusched_torch.engine, "
         "tpusched_torch.synth\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None "
@@ -92,5 +93,7 @@ def test_fast_engine_without_cuda_raises(monkeypatch):
     (dict(ring_counts=True), ValueError),
 ])
 def test_engine_refuses_unported_modes(kw, exc):
-    with pytest.raises(exc):
+    """Fast mode with preemption (the batched auction) names the ROADMAP
+    item that ports it."""
+    with pytest.raises(exc, match="A8b" if kw.get("preemption") else None):
         Engine(EngineConfig(**kw), device="cpu")

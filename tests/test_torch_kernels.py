@@ -39,6 +39,7 @@ from tpusched.snapshot import (
 from tpusched_torch.config import EngineConfig
 from tpusched_torch.engine import _sat_tables
 from tpusched_torch.kernels import assign as tassign
+from tpusched_torch.kernels import preempt as kpre
 from tpusched_torch.kernels import score as kscore
 from tpusched_torch.kernels.atoms import atom_sat, atom_sat_plain
 from tpusched_torch.qos import tie_hash
@@ -161,7 +162,8 @@ def test_pop_order_equals_jax(name):
 @pytest.mark.parametrize("name", sorted(SNAPSHOTS))
 def test_pod_cycle_plain_matches_jax(name):
     """The scan body (K4's plain version) for every pod against the
-    snapshot's initial usage: feasibility exact, score to f32."""
+    snapshot's initial usage: feasibility and the allowed row (what the
+    preemption branch searches over) exact, score to f32."""
     jsnap, tsnap = _pair(name)
     jcfg, tcfg = JConfig(), EngineConfig()
     jsat, jmem = jax_sat_tables(jsnap)
@@ -169,11 +171,12 @@ def test_pod_cycle_plain_matches_jax(name):
     jst = jassign.kpair.pair_state_init(jsnap, jstatic.sig_match)
     tstatic = tassign.precompute_static(tcfg, tsnap, _sat_tables(tsnap)[0])
     for p in range(int(np.asarray(jsnap.pods.valid).sum())):
-        jf, js, _ = jassign.pod_cycle(jcfg, jsnap, jstatic, p,
-                                      jsnap.nodes.used, jst)
-        tf, ts = tassign.pod_cycle(tcfg, tsnap, tstatic, p,
-                                      tsnap.nodes.used)
+        jf, js, ja = jassign.pod_cycle(jcfg, jsnap, jstatic, p,
+                                       jsnap.nodes.used, jst)
+        tf, ts, ta = tassign.pod_cycle(tcfg, tsnap, tstatic, p,
+                                       tsnap.nodes.used)
         np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6)
 
 
@@ -450,3 +453,66 @@ def test_balanced_allocation_root_correctly_rounded():
     want = ((np.float32(1.0) - np.sqrt(var)) * np.float32(100.0)).astype(
         np.float32)
     np.testing.assert_array_equal(got, want)
+
+
+def test_segment_prefix_fixed_order():
+    """K15's segment sums, pinned: 1024 chunks summed in row order from
+    0.0 (again from 0.0 at a segment start), the chunk tails through a
+    segmented Hillis-Steele scan, then the carry added to the rows before
+    each chunk's first segment start; written out here row by row, on
+    values whose f32 sums depend on the order and segments that span
+    chunks. It is not the JAX association (a prefix over all rows minus
+    its value at the segment's start), whose cancellation the segments
+    avoid: here its largest error against the f64 sums is over ten times
+    the segment sums'."""
+    r = np.random.default_rng(0)
+    M = 2 * kpre.THREADS + 5
+    x = (r.uniform(0, 1, (M, 2)) * 10.0 ** r.integers(6, 10, (M, 1)))
+    x = torch.from_numpy(x.astype(np.float32))
+    lengths = r.integers(1, 9, M)
+    lengths[100] = 500                      # a segment over many chunks
+    start = np.zeros(M, bool)
+    start[np.cumsum(np.concatenate([[0], lengths]))[:-1]
+          [np.cumsum(np.concatenate([[0], lengths]))[:-1] < M]] = True
+    got = kpre.segment_prefix(x, torch.from_numpy(start))
+    T, c = kpre.THREADS, 3                  # c = ceil(M / 1024)
+    rows = torch.cat([x, torch.zeros(T * c - M, 2)])
+    flags = np.concatenate([start, np.ones(T * c - M, bool)])
+    loc = torch.empty_like(rows)
+    tail = torch.empty(T, 2)
+    has = np.zeros(T, bool)
+    for t in range(T):
+        acc = torch.zeros(2)
+        for k in range(c):
+            i = t * c + k
+            if flags[i]:
+                acc = torch.zeros(2)
+                has[t] = True
+            acc = acc + rows[i]
+            loc[i] = acc
+        tail[t] = acc
+    d = 1
+    while d < T:
+        new, hnew = tail.clone(), has.copy()
+        for t in range(d, T):
+            if not has[t]:
+                new[t] = tail[t - d] + tail[t]
+            hnew[t] = has[t - d] or has[t]
+        tail, has, d = new, hnew, d * 2
+    want = loc.clone()
+    for t in range(1, T):
+        for k in range(c):
+            if flags[t * c:t * c + k + 1].any():
+                break
+            want[t * c + k] = tail[t - 1] + loc[t * c + k]
+    assert torch.equal(got, want[:M])
+    seg = np.maximum.accumulate(np.where(start, np.arange(M), 0))
+    exact = np.zeros((M, 2))
+    for i in range(M):
+        exact[i] = x[seg[i]:i + 1].double().sum(0).numpy()
+    cum = np.cumsum(x.numpy(), axis=0, dtype=np.float32)
+    jax_like = cum - np.where((seg > 0)[:, None], cum[np.maximum(seg - 1, 0)],
+                              0)
+    err_seg = np.abs(got.numpy() - exact).max()
+    err_jax = np.abs(jax_like - exact).max()
+    assert err_seg * 10 < err_jax

@@ -146,16 +146,43 @@ def test_snapshot_from_numpy_round_trips_jax_snapshot():
 
 @pytest.mark.parametrize("kw", [dict(gang_frac=1.0), dict(pdb_frac=1.0)])
 def test_generator_refuses_unported_features(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A[78]"):
-        tsynth.make_cluster(np.random.default_rng(0), 8, 4, **kw)
+    """The gang and budget draws, refused until ROADMAP A7 and A8a were
+    ported, now build: the same seed gives the JAX generator's arrays,
+    with the G or GP axis filled."""
+    jsnap, jmeta = jsynth.make_cluster(np.random.default_rng(0), 8, 4, **kw)
+    tsnap, tmeta = tsynth.make_cluster(np.random.default_rng(0), 8, 4, **kw)
+    assert_same_arrays(jsnap, tsnap)
+    assert tmeta.group_names == jmeta.group_names
+    filled = (tsnap.group_min_member if "gang_frac" in kw
+              else tsnap.pdb_allowed)
+    assert filled.shape[0] > 0
 
 
 def test_builder_refuses_unported_features():
-    b = SnapshotBuilder(EngineConfig())
-    with pytest.raises(NotImplementedError, match="A7"):
-        b.add_pod("p", {"cpu": 1.0}, pod_group="g", pod_group_min_member=2)
-    with pytest.raises(NotImplementedError, match="A8"):
-        b.add_running_pod("n", {"cpu": 1.0}, pdb_group="budget")
+    """Gang and budget records, refused until ROADMAP A7 and A8a, now
+    give the JAX builder's arrays: groups in sorted name order at their
+    largest min_member, budgets keyed by (namespace, name) at their
+    largest allowance."""
+    def build(b):
+        for n in ("n0", "n1"):
+            b.add_node(n, {"cpu": 4000.0, "memory": float(8 << 30)})
+        b.add_pod("p0", {"cpu": 1.0}, pod_group="g", pod_group_min_member=2)
+        b.add_pod("p1", {"cpu": 1.0}, pod_group="a", pod_group_min_member=1)
+        b.add_pod("p2", {"cpu": 1.0}, pod_group="g", pod_group_min_member=3)
+        b.add_running_pod("n0", {"cpu": 1.0}, pdb_group="budget",
+                          pdb_disruptions_allowed=1)
+        b.add_running_pod("n1", {"cpu": 1.0}, pdb_group="budget",
+                          pdb_disruptions_allowed=2, namespace="other")
+        b.add_running_pod("n1", {"cpu": 1.0}, pdb_group="budget")
+        return b.build()
+
+    jsnap, jmeta = build(JBuilder(JConfig()))
+    tsnap, tmeta = build(SnapshotBuilder(EngineConfig()))
+    assert_same_arrays(jsnap, tsnap)
+    assert tmeta.group_names == jmeta.group_names == ["a", "g"]
+    assert tsnap.group_min_member.tolist() == [1, 3]
+    assert tsnap.running.pdb_group[:3].tolist() == [0, 1, 0]
+    assert tsnap.pdb_allowed.tolist() == [1.0, 2.0]
 
 
 CONFIG_DICTS = [

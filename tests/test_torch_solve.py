@@ -152,24 +152,61 @@ def test_seeded_tiebreak_fuzz(seed):
     (dict(interpod_frac=0.6, gang_frac=1.0), ("fast",), "ROADMAP A7"),
     (dict(gang_frac=1.0), ("parity", "fast"), "ROADMAP A7")])
 def test_unported_snapshot_raises(kw, modes, item):
-    """A gang snapshot in either mode, with spread or inter-pod terms in
-    fast mode too (built by the JAX package and carried across), is
-    refused, not solved without its gangs."""
+    """The gang snapshots that were refused until ROADMAP A7 (`item`) was
+    ported: built by the JAX package and carried across, each now solves
+    in each mode with its gangs. Parity equals the JAX engine and the
+    oracle; fast passes the fast contract (validity under the commit key,
+    no partial group, placed count at least JAX fast's less 2)."""
+    from tpusched.oracle import validate_assignment
+
     jsnap, _ = jsynth.make_cluster(np.random.default_rng(2), 16, 6, **kw)
+    assert np.asarray(jsnap.group_min_member).shape[0] > 0, item
     for mode in modes:
-        eng = Engine(EngineConfig(mode=mode), device="cpu")
+        jcfg, tcfg = JConfig(mode=mode), EngineConfig(mode=mode)
+        jeng = JEngine(jcfg)
+        eng = Engine(tcfg, device="cpu")
         try:
-            with pytest.raises(NotImplementedError, match=item):
-                eng.solve(snapshot_from_numpy(jax.device_get(jsnap)))
+            tres = eng.solve(snapshot_from_numpy(jax.device_get(jsnap)))
+            jres = jeng.solve(jsnap)
         finally:
             eng.close()
+            jeng.close()
+        group = np.asarray(jsnap.pods.group)
+        gmin = np.asarray(jsnap.group_min_member)
+        for g in range(gmin.shape[0]):
+            n = int(((group == g) & (tres.assignment >= 0)).sum())
+            assert n == 0 or n >= gmin[g]
+        if mode == "parity":
+            assert_parity(tres, jres, Oracle(jsnap, jcfg).solve())
+        else:
+            assert validate_assignment(jsnap, jcfg, tres.assignment,
+                                       commit_key=tres.commit_key) == []
+            assert ((tres.assignment >= 0).sum()
+                    >= (jres.assignment >= 0).sum() - 2)
 
 
 def test_preemption_raises():
-    tsnap, _ = tsynth.make_cluster(np.random.default_rng(0), 8, 4)
+    """Parity preemption, refused until ROADMAP A8a was ported, now
+    solves: on the same generator's cluster filled to 90 % it evicts
+    what the JAX engine and the oracle evict."""
+    tsnap, _ = tsynth.make_cluster(np.random.default_rng(0), 8, 4,
+                                   initial_utilization=0.9,
+                                   n_running_per_node=4)
+    jsnap, _ = jsynth.make_cluster(np.random.default_rng(0), 8, 4,
+                                   initial_utilization=0.9,
+                                   n_running_per_node=4)
+    jcfg = JConfig(preemption=True)
     eng = Engine(EngineConfig(preemption=True), device="cpu")
+    jeng = JEngine(jcfg)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            eng.solve(tsnap)
+        tres = eng.solve(tsnap)
+        jres = jeng.solve(jsnap)
     finally:
         eng.close()
+        jeng.close()
+    ores = Oracle(jsnap, jcfg).solve()
+    for ref in (jres, ores):
+        np.testing.assert_array_equal(tres.assignment, ref.assignment)
+        np.testing.assert_array_equal(tres.evicted, ref.evicted)
+        np.testing.assert_allclose(tres.final_used, ref.final_used,
+                                   rtol=1e-5)

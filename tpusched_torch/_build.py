@@ -35,6 +35,11 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_F = ctypes.c_float
+# K4's preemption block: M, GP, J, the victim table, the margin, the per-pod,
+# per-node and running-pod arrays, the budget and eviction state, K15's
+# scratch.
+_PREEMPT = [_I, _I, _I] + [_P] * 7 + [_F] + [_P] * 11
 
 # C signature of every entry point (kernels.h). All pointers and the
 # stream are c_void_p: an untyped Python int would be passed as a
@@ -65,6 +70,12 @@ SIGNATURES = {
     "tpusched_waterfill": [_I, _I, _I] + [_P] * 13,
     "tpusched_excess_min": [_I, _I] + [_P] * 7,
     "tpusched_excess_survive": [_I] + [_P] * 7,
+    "tpusched_preempt_step": [_I] * 4 + [_P] * 7 + [_F] + [_P] * 15,
+    "tpusched_parity_scan_preempt": [_I, _I, _I] + [_P] * 10 + [_I, _U]
+                                    + _PREEMPT + [_P] * 4,
+    "tpusched_parity_scan_pair_preempt": [_I, _I, _I] + [_P] * 10
+                                         + [_I, _U] + [_I] * 4 + [_P] * 19
+                                         + _PREEMPT + [_P] * 4,
 }
 
 _lib: "ctypes.CDLL | None" = None

@@ -225,11 +225,12 @@ class EngineConfig:
     qos: QoSConfig = dataclasses.field(default_factory=QoSConfig)
     # "parity" = exactly-sequential commit, one pod after another in
     # dynamic-priority order (stock semantics). "fast" = round-based
-    # batched commit; not ported yet (ROADMAP A4).
+    # batched commit.
     mode: str = "parity"
-    # Fast-mode round cap (JAX engine only until A4 lands).
+    # Fast-mode round cap (0: the automatic bound, 2 * P + 8).
     max_rounds: int = 0
-    # PostFilter preemption; not ported yet (ROADMAP A8).
+    # PostFilter preemption: parity mode runs it inside the scan; fast
+    # mode's batched auction is not ported yet (ROADMAP A8b).
     preemption: bool = False
     # Tie-break among equal-score maxima: "first" = lowest node index;
     # "seeded" = the qos.tie_hash(tie_seed, pod) pick among the maxima,

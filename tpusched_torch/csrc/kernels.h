@@ -220,6 +220,66 @@ int tpusched_excess_survive(int P, const int* gid_s, const int* perm,
                             const bool* member, const float* T,
                             const float* b_fixed, bool* bad, void* stream);
 
+// K15 (tpusched/kernels/preempt.py preempt_step): one preemptor's victim
+// search over the (node, cost)-sorted victim table (perm .. pdb_s, in
+// preempt.cuh's thread-interleaved layout padded to Mp = 1024 *
+// ceil(M / 1024): [Mp] each, req_s [R, Mp]); p_prio and p_req point to
+// the pod's priority and [R] requests, allowed and node_valid are [N],
+// used and alloc [N, R], evicted [M], remaining [GP] each budget's
+// disruptions left. Scratch (the same layout): elig [Mp] bytes, cum
+// [(R + 1) * Mp] floats, cum_viol [Mp] ints. Writes
+// best[0] (node, 0 if none) and best[1] (can); evict_m [M] and freed [R]
+// must hold zeros on entry.
+int tpusched_preempt_step(
+    int N, int R, int M, int GP, const int* perm, const int* node_s,
+    const int* seg_start, const float* cost_s, const float* vprio_s,
+    const float* req_s, const int* pdb_s, float margin, const float* p_prio,
+    const float* p_req, const bool* allowed, const bool* node_valid,
+    const float* used, const float* alloc, const bool* evicted,
+    const float* remaining, unsigned char* elig, float* cum, int* cum_viol,
+    int* best, bool* evict_m, float* freed, void* stream);
+
+// K4's preemption variants (solve_sequential with cfg.preemption): the
+// parity scan (and its pairwise variant) with K15's search for each valid
+// pod outside a gang (group < 0) that fits nowhere. The block M .. cum_viol
+// is K15's table and scratch, each pod's effective priority, validity and
+// gang, node validity, the running pods' nodes and [M, J] required anti
+// signatures; remaining [GP] holds the budgets' disruptions allowed on
+// entry and what is left on return; evicted [M] (zeros on entry) the
+// evictions.
+int tpusched_parity_scan_preempt(
+    int P, int N, int R, const int* order, const bool* mask,
+    const float* static_score, const float* alloc, const float* requests,
+    const float* w_lr, const float* w_ba, const float* w_ts,
+    const float* w_ia, const float* rw, int seeded, unsigned int seed, int M,
+    int GP, int J, const int* perm, const int* node_s, const int* seg_start,
+    const float* cost_s, const float* vprio_s, const float* req_s,
+    const int* pdb_s, float margin, const float* prio, const bool* pod_valid,
+    const int* group, const bool* node_valid, const int* run_node,
+    const int* run_anti_sig, float* remaining, unsigned char* evicted,
+    unsigned char* elig, float* cum, int* cum_viol, float* used,
+    int* assigned, float* chosen, void* stream);
+
+int tpusched_parity_scan_pair_preempt(
+    int P, int N, int R, const int* order, const bool* mask,
+    const float* static_score, const float* alloc, const float* requests,
+    const float* w_lr, const float* w_ba, const float* w_ts,
+    const float* w_ia, const float* rw, int seeded, unsigned int seed,
+    int S, int C, int IT, int M, const int* dom, const bool* match,
+    const bool* node_valid, const bool* aff_ok, const int* ts_sig,
+    const bool* ts_valid, const signed char* ts_when,
+    const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
+    const bool* ia_anti, const bool* ia_required, const float* ia_weight,
+    float* counts, float* anti, float* match_tot, float* pen, float* raw,
+    unsigned char* allowed, int M2, int GP, int J, const int* perm,
+    const int* node_s, const int* seg_start, const float* cost_s,
+    const float* vprio_s, const float* req_s, const int* pdb_s,
+    float margin, const float* prio, const bool* pod_valid, const int* group,
+    const bool* node_valid2, const int* run_node, const int* run_anti_sig,
+    float* remaining, unsigned char* evicted, unsigned char* elig,
+    float* cum, int* cum_viol, float* used, int* assigned, float* chosen,
+    void* stream);
+
 #ifdef __cplusplus
 }
 #endif

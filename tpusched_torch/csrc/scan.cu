@@ -38,12 +38,32 @@
 // thread 0's pair-state adds visible to the next pod. These pointers are
 // not __restrict__/read-only, since the kernel writes them. The S = 0
 // instantiation (PAIR = false) does exactly the work it did before.
+//
+// The preemption variants (PREEMPT = true, entry points
+// tpusched_parity_scan_preempt and tpusched_parity_scan_pair_preempt)
+// add assign.py:408 _preempt_branch, the PostFilter of :448-487: a valid
+// pod outside a gang that fits nowhere runs K15's victim search
+// (preempt.cuh) against its allowed row before any eviction (the static
+// mask, with PAIR and the pairwise verdicts), with `used` as it stands.
+// If a prefix fits, thread 0 evicts its victims (evicted[m] = 1, the
+// budget's remaining disruptions - 1, with PAIR pairwise.py:240
+// pair_state_evict), subtracts their requests' segment sum (the value
+// the fit was tested with) from used[n] in one step and adds the pod's
+// (JAX's `used - freed`, then `.at[n].add`), adds
+// the pod to the pair state, and places it with chosen = -inf (no
+// rescore). The victim table, its scratch and the budget counts live in
+// device memory; K15's scan buffers take 41 KB of static shared memory
+// beside `used`/`alloc`. Without preemption the instantiations are
+// unchanged.
 #include <math.h>
 #include <limits.h>
+
+#include <type_traits>
 
 #include "cell.cuh"
 #include "kernels.h"
 #include "pairwise.cuh"
+#include "preempt.cuh"
 
 namespace {
 
@@ -55,6 +75,7 @@ using tpusched::tie_hash;
 constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
 constexpr int SMEM_LIMIT = 220 * 1024;
+static_assert(THREADS == tpusched::PRE_THREADS, "K15 runs in K4's CTA");
 
 // The pairwise variant's state and per-node scratch (unused at S = 0).
 struct PairScan {
@@ -66,6 +87,23 @@ struct PairScan {
   float* raw;                // [N] scratch: inter-pod raw score
   unsigned char* allowed;    // [N] scratch: static mask & pairwise ok
 };
+
+// The preemption variants' victim table and per-pod arrays (unused
+// without PREEMPT).
+struct PreemptScan {
+  tpusched::Victims v;
+  const float* prio;         // [P] pending pods' effective priority
+  const bool* pod_valid;     // [P]
+  const int* group;          // [P] gang (-1: none)
+  const bool* node_valid;    // [N]
+  const int* run_node;       // [M] running pod's node
+  const int* run_anti_sig;   // [M, J] its required anti terms (-1 pad)
+  int J;
+  float* remaining;          // [GP] in/out: budgets' disruptions left
+  unsigned char* evicted;    // [M] out (zeros on entry)
+};
+
+struct NoSmem {};
 
 struct PodCtx {
   float rq[MAX_R];
@@ -113,7 +151,62 @@ __device__ __forceinline__ bool cell(const PodCtx& c, int n, int R,
   return true;
 }
 
-template <bool PAIR>
+// pair_state_add_pod(p, n): selector matches into counts and match_tot,
+// required anti terms into anti (integer adds). Thread 0.
+__device__ __forceinline__ void pair_add_pod(const PairScan& ps, int p,
+                                             int n) {
+  const tpusched::PairTerms& t = ps.t;
+  const long long N = t.N;
+  for (int s = 0; s < t.S; ++s) {
+    if (!t.match[(long long)s * t.X + t.M + p]) continue;
+    ps.match_tot[s] = ps.match_tot[s] + 1.0f;
+    const int d = t.dom[s * N + n];
+    if (d >= 0) {
+      const long long i = s * N + d;
+      ps.counts[i] = ps.counts[i] + 1.0f;
+    }
+  }
+  for (int it = 0; it < t.IT; ++it) {
+    const long long pt = (long long)p * t.IT + it;
+    if (!(t.ia_valid[pt] && t.ia_anti[pt] && t.ia_required[pt])) continue;
+    const int s = max(t.ia_sig[pt], 0);
+    const int d = t.dom[s * N + n];
+    if (d >= 0) {
+      const long long i = s * N + d;
+      ps.anti[i] = ps.anti[i] + 1.0f;
+    }
+  }
+}
+
+// pair_state_evict for running member m: its selector matches leave
+// match_tot and (on a keyed node) counts, its required anti terms leave
+// anti (integer adds). Thread 0.
+__device__ __forceinline__ void pair_evict(const PairScan& ps,
+                                           const PreemptScan& pre, int m) {
+  const tpusched::PairTerms& t = ps.t;
+  const long long N = t.N;
+  const int node = pre.run_node[m];
+  for (int s = 0; s < t.S; ++s) {
+    if (!t.match[(long long)s * t.X + m]) continue;
+    ps.match_tot[s] = ps.match_tot[s] - 1.0f;
+    const int d = node >= 0 ? t.dom[s * N + node] : -1;
+    if (d >= 0) {
+      const long long i = s * N + d;
+      ps.counts[i] = ps.counts[i] - 1.0f;
+    }
+  }
+  for (int j = 0; j < pre.J; ++j) {
+    const int s = pre.run_anti_sig[(long long)m * pre.J + j];
+    if (s < 0 || node < 0) continue;
+    const int d = t.dom[s * N + node];
+    if (d >= 0) {
+      const long long i = s * N + d;
+      ps.anti[i] = ps.anti[i] - 1.0f;
+    }
+  }
+}
+
+template <bool PAIR, bool PREEMPT>
 __global__ void __launch_bounds__(THREADS)
 parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
                    const bool* __restrict__ mask,
@@ -126,8 +219,10 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
                    const float* __restrict__ w_ia,
                    const float* __restrict__ rw_g, int seeded,
                    unsigned seed, float* used_g, int* __restrict__ assigned,
-                   float* __restrict__ chosen, int use_smem, PairScan ps) {
+                   float* __restrict__ chosen, int use_smem, PairScan ps,
+                   PreemptScan pre) {
   extern __shared__ float smem[];
+  __shared__ std::conditional_t<PREEMPT, tpusched::PreemptSmem, NoSmem> s_pre;
   __shared__ float s_val[WARPS];
   __shared__ int s_idx[WARPS];
   __shared__ int s_cnt[WARPS];
@@ -285,38 +380,47 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
       __syncthreads();
     }
 
-    if (tid == 0) {
+    bool preempt = false;
+    if constexpr (PREEMPT) {
+      // Uniform across the block: found and the pod's fields.
+      preempt = !found && pre.pod_valid[p] && pre.group[p] < 0;
+    }
+    if constexpr (PREEMPT) {
+      if (preempt) {
+        const unsigned char* allowed_row =
+            PAIR ? ps.allowed : (const unsigned char*)c.mask;
+        const int bp = tpusched::preempt_search(
+            pre.v, s_pre, pre.prio[p], c.rq, allowed_row, pre.node_valid,
+            used, alloc, pre.evicted, pre.remaining);
+        if (tid == 0) {
+          if (bp >= 0) {
+            float freed[MAX_R];
+            const int n = tpusched::preempt_take(
+                pre.v, bp, freed, [&](int m, int g) {
+                  pre.evicted[m] = 1;
+                  if (g >= 0) pre.remaining[g] = pre.remaining[g] - 1.0f;
+                  if constexpr (PAIR) pair_evict(ps, pre, m);
+                });
+            float* u = used + (long long)n * R;
+            for (int r = 0; r < R; ++r) u[r] = u[r] - freed[r];
+            for (int r = 0; r < R; ++r) u[r] = u[r] + c.rq[r];
+            if constexpr (PAIR) pair_add_pod(ps, p, n);
+            assigned[p] = n;
+          } else {
+            assigned[p] = -1;
+          }
+          chosen[p] = -INFINITY;
+        }
+      }
+    }
+    if (tid == 0 && !preempt) {
       if (found) {
         const int n = s_pick;
         for (int r = 0; r < R; ++r)
           used[(long long)n * R + r] = used[(long long)n * R + r] + c.rq[r];
         assigned[p] = n;
         chosen[p] = mx;
-        if constexpr (PAIR) {
-          // pair_state_add_pod(p, n): selector matches into counts and
-          // match_tot, required anti terms into anti (integer adds).
-          const tpusched::PairTerms& t = ps.t;
-          for (int s = 0; s < t.S; ++s) {
-            if (!t.match[(long long)s * t.X + t.M + p]) continue;
-            ps.match_tot[s] = ps.match_tot[s] + 1.0f;
-            const int d = t.dom[(long long)s * N + n];
-            if (d >= 0) {
-              const long long i = (long long)s * N + d;
-              ps.counts[i] = ps.counts[i] + 1.0f;
-            }
-          }
-          for (int it = 0; it < t.IT; ++it) {
-            const long long pt = (long long)p * t.IT + it;
-            if (!(t.ia_valid[pt] && t.ia_anti[pt] && t.ia_required[pt]))
-              continue;
-            const int s = max(t.ia_sig[pt], 0);
-            const int d = t.dom[(long long)s * N + n];
-            if (d >= 0) {
-              const long long i = (long long)s * N + d;
-              ps.anti[i] = ps.anti[i] + 1.0f;
-            }
-          }
-        }
+        if constexpr (PAIR) pair_add_pod(ps, p, n);
       } else {
         assigned[p] = -1;
         chosen[p] = -INFINITY;
@@ -330,28 +434,52 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
   }
 }
 
-// Shared memory, then the launch of either instantiation.
-template <bool PAIR>
+// Shared memory, then the launch of one instantiation. `used`/`alloc` go
+// to dynamic shared memory when they fit beside the kernel's static
+// shared memory (K15's buffers with PREEMPT).
+template <bool PAIR, bool PREEMPT>
 int launch_scan(int P, int N, int R, const int* order, const bool* mask,
                 const float* static_score, const float* alloc,
                 const float* requests, const float* w_lr, const float* w_ba,
                 const float* w_ts, const float* w_ia, const float* rw,
                 int seeded, unsigned int seed, float* used, int* assigned,
-                float* chosen, const PairScan& ps, void* stream) {
+                float* chosen, const PairScan& ps, const PreemptScan& pre,
+                void* stream) {
   if (R > MAX_R) return (int)cudaErrorInvalidValue;
+  auto kernel = parity_scan_kernel<PAIR, PREEMPT>;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return (int)e;
   long long bytes = 2LL * N * R * (long long)sizeof(float);
-  int use_smem = bytes <= SMEM_LIMIT ? 1 : 0;
+  int use_smem = bytes + (long long)fa.sharedSizeBytes <= SMEM_LIMIT ? 1 : 0;
   size_t dyn = use_smem ? (size_t)bytes : 0;
   if (dyn > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        parity_scan_kernel<PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dyn);
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
   }
-  parity_scan_kernel<PAIR><<<1, THREADS, dyn, (cudaStream_t)stream>>>(
+  kernel<<<1, THREADS, dyn, (cudaStream_t)stream>>>(
       P, N, R, order, mask, static_score, alloc, requests, w_lr, w_ba, w_ts,
-      w_ia, rw, seeded, seed, used, assigned, chosen, use_smem, ps);
+      w_ia, rw, seeded, seed, used, assigned, chosen, use_smem, ps, pre);
   return (int)cudaGetLastError();
+}
+
+// The preemption block of both preemption entry points.
+PreemptScan make_preempt(int N, int R, int M, int GP, int J,
+                         const int* perm,
+                         const int* node_s, const int* seg_start,
+                         const float* cost_s, const float* vprio_s,
+                         const float* req_s, const int* pdb_s, float margin,
+                         const float* prio, const bool* pod_valid,
+                         const int* group, const bool* node_valid,
+                         const int* run_node, const int* run_anti_sig,
+                         float* remaining, unsigned char* evicted,
+                         unsigned char* elig, float* cum, int* cum_viol) {
+  const int chunk = (M + tpusched::PRE_THREADS - 1) / tpusched::PRE_THREADS;
+  return PreemptScan{{M, N, R, GP, chunk, perm, node_s, seg_start, cost_s,
+                      vprio_s, req_s, pdb_s, margin, elig, cum, cum_viol},
+                     prio, pod_valid, group, node_valid, run_node,
+                     run_anti_sig, J, remaining, evicted};
 }
 
 }  // namespace
@@ -368,9 +496,11 @@ extern "C" int tpusched_parity_scan(int P, int N, int R, const int* order,
                                     int* assigned, float* chosen,
                                     void* stream) {
   PairScan none{};
-  return launch_scan<false>(P, N, R, order, mask, static_score, alloc,
-                            requests, w_lr, w_ba, w_ts, w_ia, rw, seeded,
-                            seed, used, assigned, chosen, none, stream);
+  PreemptScan no_pre{};
+  return launch_scan<false, false>(P, N, R, order, mask, static_score, alloc,
+                                   requests, w_lr, w_ba, w_ts, w_ia, rw,
+                                   seeded, seed, used, assigned, chosen, none,
+                                   no_pre, stream);
 }
 
 extern "C" int tpusched_parity_scan_pair(
@@ -391,7 +521,66 @@ extern "C" int tpusched_parity_scan_pair(
                ts_valid, ts_when, ts_max_skew, ia_sig, ia_valid, ia_anti,
                ia_required, ia_weight},
               counts, anti, match_tot, pen, raw, allowed};
-  return launch_scan<true>(P, N, R, order, mask, static_score, alloc,
-                           requests, w_lr, w_ba, w_ts, w_ia, rw, seeded,
-                           seed, used, assigned, chosen, ps, stream);
+  PreemptScan no_pre{};
+  return launch_scan<true, false>(P, N, R, order, mask, static_score, alloc,
+                                  requests, w_lr, w_ba, w_ts, w_ia, rw, seeded,
+                                  seed, used, assigned, chosen, ps, no_pre,
+                                  stream);
+}
+
+extern "C" int tpusched_parity_scan_preempt(
+    int P, int N, int R, const int* order, const bool* mask,
+    const float* static_score, const float* alloc, const float* requests,
+    const float* w_lr, const float* w_ba, const float* w_ts,
+    const float* w_ia, const float* rw, int seeded, unsigned int seed, int M,
+    int GP, int J, const int* perm, const int* node_s, const int* seg_start,
+    const float* cost_s, const float* vprio_s, const float* req_s,
+    const int* pdb_s, float margin, const float* prio, const bool* pod_valid,
+    const int* group, const bool* node_valid, const int* run_node,
+    const int* run_anti_sig, float* remaining, unsigned char* evicted,
+    unsigned char* elig, float* cum, int* cum_viol, float* used,
+    int* assigned, float* chosen, void* stream) {
+  PairScan none{};
+  PreemptScan pre = make_preempt(
+      N, R, M, GP, J, perm, node_s, seg_start, cost_s, vprio_s, req_s, pdb_s,
+      margin, prio, pod_valid, group, node_valid, run_node, run_anti_sig,
+      remaining, evicted, elig, cum, cum_viol);
+  return launch_scan<false, true>(P, N, R, order, mask, static_score, alloc,
+                                  requests, w_lr, w_ba, w_ts, w_ia, rw,
+                                  seeded, seed, used, assigned, chosen, none,
+                                  pre, stream);
+}
+
+extern "C" int tpusched_parity_scan_pair_preempt(
+    int P, int N, int R, const int* order, const bool* mask,
+    const float* static_score, const float* alloc, const float* requests,
+    const float* w_lr, const float* w_ba, const float* w_ts,
+    const float* w_ia, const float* rw, int seeded, unsigned int seed,
+    int S, int C, int IT, int M, const int* dom, const bool* match,
+    const bool* node_valid, const bool* aff_ok, const int* ts_sig,
+    const bool* ts_valid, const signed char* ts_when,
+    const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
+    const bool* ia_anti, const bool* ia_required, const float* ia_weight,
+    float* counts, float* anti, float* match_tot, float* pen, float* raw,
+    unsigned char* allowed, int M2, int GP, int J, const int* perm,
+    const int* node_s, const int* seg_start, const float* cost_s,
+    const float* vprio_s, const float* req_s, const int* pdb_s,
+    float margin, const float* prio, const bool* pod_valid, const int* group,
+    const bool* node_valid2, const int* run_node, const int* run_anti_sig,
+    float* remaining, unsigned char* evicted, unsigned char* elig,
+    float* cum, int* cum_viol, float* used, int* assigned, float* chosen,
+    void* stream) {
+  if (C > tpusched::MAX_C || M2 != M) return (int)cudaErrorInvalidValue;
+  PairScan ps{{N, S, C, IT, M + P, M, dom, match, node_valid, aff_ok, ts_sig,
+               ts_valid, ts_when, ts_max_skew, ia_sig, ia_valid, ia_anti,
+               ia_required, ia_weight},
+              counts, anti, match_tot, pen, raw, allowed};
+  PreemptScan pre = make_preempt(
+      N, R, M, GP, J, perm, node_s, seg_start, cost_s, vprio_s, req_s, pdb_s,
+      margin, prio, pod_valid, group, node_valid2, run_node, run_anti_sig,
+      remaining, evicted, elig, cum, cum_viol);
+  return launch_scan<true, true>(P, N, R, order, mask, static_score, alloc,
+                                 requests, w_lr, w_ba, w_ts, w_ia, rw, seeded,
+                                 seed, used, assigned, chosen, ps, pre,
+                                 stream);
 }

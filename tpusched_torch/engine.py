@@ -1,5 +1,4 @@
-"""Engine: the entry points, the port of `tpusched/engine.py` for
-snapshots without gangs or preemption.
+"""Engine: the entry points, the port of `tpusched/engine.py`.
 
 Everything runs on the CUDA device unless the caller asks for the CPU
 (`Engine(cfg, device="cpu")`, which only the tests do).
@@ -12,11 +11,17 @@ Everything runs on the CUDA device unless the caller asks for the CPU
     -> parity_scan (K4)                        [mode="parity", S = 0]
     -> pair_counts (K10) -> parity_scan_pair (K4's pairwise variant)
                                                [mode="parity", S > 0]
+       with preemption=True and running pods, after the victim sort
+       (kernels/preempt.precompute), the same scans' preemption
+       variants parity_scan_preempt / parity_scan_pair_preempt, which
+       run K15's victim search for each pod that fits nowhere
     -> solve_rounds (K5, K6, K7, K8 a round)    [mode="fast", S = 0]
     -> pair_counts (K10) -> solve_rounds (K11, K5, K12, K6, K7, K8 and
        K10's commit a round; K14, K13, K8's node_add and K10's commit a
        validation pass)                        [mode="fast", S > 0]
-    -> _pack_solve.
+    -> gang_rollback (the gang gate, both modes: quorum counts, then
+       K8's node_add and K10's pair_commit with sign -1)
+    -> _pack_solve (the evicted running pods in its [M] section).
 
 `Engine.score`, `score_top1` and `score_topk` (ScoreBatch) run the same
 static front half, then, with signatures, the pair state of the running
@@ -25,8 +30,9 @@ members (K10) and every pod's pairwise row (K11), then one [P, N] Filter
 
 S is the number of pairwise signatures (topology spread, inter-pod
 affinity and anti-affinity terms). The engine starts no thread: every
-entry point is synchronous and `close` has nothing to release. Gangs
-(ROADMAP A7) and preemption (A8) are refused with NotImplementedError.
+entry point is synchronous and `close` has nothing to release. Fast
+mode with preemption (the batched auction, ROADMAP A8b) is refused with
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -168,7 +174,7 @@ class Engine:
         if cfg.mode == "fast" and cfg.preemption:
             raise NotImplementedError(
                 "mode='fast' with preemption (the batched preemption "
-                "auction) is not ported yet; ROADMAP A8 ports it")
+                "auction) is not ported yet; ROADMAP A8b ports it")
         if cfg.ring_counts:
             raise ValueError(
                 "ring_counts=True needs a device mesh, which the port "

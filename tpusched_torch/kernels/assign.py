@@ -1,6 +1,6 @@
-"""The solve paths: the port of `tpusched/kernels/assign.py` for
-snapshots without gangs or preemption, pairwise signatures (topology
-spread, inter-pod affinity) included.
+"""The solve paths: the port of `tpusched/kernels/assign.py`, with
+pairwise signatures (topology spread, inter-pod affinity), gangs in
+both modes and PostFilter preemption in parity mode.
 
 The scheduling cycle splits, as in the JAX package, into
   * a STATIC part computed once per snapshot (StaticCtx): the cell-local
@@ -27,6 +27,13 @@ The scheduling cycle splits, as in the JAX package, into
     the spread excess per (signature, domain) (K13, `excess_min` and
     `excess_survive`), the reverts out of `used` (K8's `node_add`) and
     the pair state.
+  * With `cfg.preemption` and running pods, parity mode's scan runs its
+    preemption variant (`parity_scan_preempt`, `parity_scan_pair_preempt`):
+    a pod that fits nowhere searches the (node, cost)-sorted victims for
+    the cheapest prefix to evict (K15, `kernels/preempt`), inside K4.
+  * Both modes end with the gang gate (`gang_rollback`): a pod group
+    short of its min_member unwinds through K8's `node_add` and K10's
+    `pair_commit` with sign -1.
 
 Every kernel wrapper runs its plain version (`*_plain`) on CPU tensors.
 The solve functions take an `Ops` table (default: the kernel wrappers);
@@ -52,6 +59,7 @@ from tpusched_torch.config import DO_NOT_SCHEDULE, EngineConfig
 from tpusched_torch.kernels import check, ptrs, stream_of
 from tpusched_torch.kernels import filter as kfilter
 from tpusched_torch.kernels import pairwise as kpair
+from tpusched_torch.kernels import preempt as kpre
 from tpusched_torch.kernels import score as kscore
 from tpusched_torch.kernels.atoms import atom_sat, atom_sat_plain
 from tpusched_torch.qos import (
@@ -250,7 +258,9 @@ def pod_cycle(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
     `st` (the scan body). With no signature (st None), pairwise_row is
     the identity: zero spread penalty (inverse-normalised to 100) and
     zero inter-pod raw score (min-max-normalised to 0). Returns
-    (feasible, score)."""
+    (feasible, score, allowed), allowed being the static and pairwise
+    feasibility without the resource fit (what preemption may repair
+    is the fit alone)."""
     nodes = snap.nodes
     nvalid = nodes.valid
     req = snap.pods.requests[p]
@@ -272,7 +282,7 @@ def pod_cycle(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
         + static.w_ts[p] * kscore.inverse_normalize(pen, nvalid)
         + static.w_ia[p] * kscore.minmax_normalize(raw, nvalid)
     )
-    return feasible, score
+    return feasible, score, allowed
 
 
 def pick_node(cfg: EngineConfig, masked: torch.Tensor,
@@ -314,24 +324,55 @@ def parity_scan_pair_plain(cfg: EngineConfig, snap: ClusterSnapshot,
                            st: "kpair.PairState", dom_s: torch.Tensor):
     """The sequential commit loop with pairwise constraints, in plain
     torch: (assigned, chosen, used, final PairState)."""
-    return _scan_loop(cfg, snap, static, order, st, dom_s)
+    return _scan_loop(cfg, snap, static, order, st, dom_s)[:4]
+
+
+def parity_scan_preempt_plain(cfg: EngineConfig, snap: ClusterSnapshot,
+                              static: StaticCtx, order: torch.Tensor,
+                              pctx: "kpre.PreemptCtx"):
+    """The sequential commit loop with preemption, in plain torch:
+    (assigned, chosen, used, evicted [M] bool)."""
+    a, c, u, _, ev = _scan_loop(cfg, snap, static, order, pctx=pctx)
+    return a, c, u, ev
+
+
+def parity_scan_pair_preempt_plain(cfg: EngineConfig, snap: ClusterSnapshot,
+                                   static: StaticCtx, order: torch.Tensor,
+                                   st: "kpair.PairState",
+                                   dom_s: torch.Tensor,
+                                   pctx: "kpre.PreemptCtx"):
+    """The sequential commit loop with pairwise constraints and
+    preemption, in plain torch: (assigned, chosen, used, final
+    PairState, evicted)."""
+    return _scan_loop(cfg, snap, static, order, st, dom_s, pctx)
 
 
 def _scan_loop(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
                order: torch.Tensor, st: "kpair.PairState | None" = None,
-               dom_s: torch.Tensor | None = None):
+               dom_s: torch.Tensor | None = None,
+               pctx: "kpre.PreemptCtx | None" = None):
     """JAX solve_sequential's scan body, pod by pod in `order`; with a
     pair state, pairwise_row before and pair_state_add_pod after each
-    commit."""
+    commit; with a victim table (pctx), the PostFilter branch
+    (`_preempt_branch`) for every valid pod outside a gang that fits
+    nowhere. Returns (assigned, chosen, used, st, evicted)."""
     P = order.shape[0]
     dev = order.device
+    pods = snap.pods
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
     used = snap.nodes.used.clone()
     assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
     chosen = torch.full((P,), NEG_INF, dtype=torch.float32, device=dev)
-    requests = snap.pods.requests
+    evicted = torch.zeros(snap.running.valid.shape[0], dtype=torch.bool,
+                          device=dev)
+    requests = pods.requests
+    if pctx is not None:
+        prio = effective_priority(cfg, pods.base_priority, pods.slo_target,
+                                  pods.observed_avail)
+        may_preempt = (pods.valid & (pods.group < 0)).tolist()
     for p in order.tolist():
-        feasible, score = pod_cycle(cfg, snap, static, p, used, st, dom_s)
+        feasible, score, allowed = pod_cycle(cfg, snap, static, p, used, st,
+                                             dom_s)
         masked = torch.where(feasible, score, neg)
         n = pick_node(cfg, masked, p)
         commit = feasible.any()
@@ -343,7 +384,25 @@ def _scan_loop(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
                                           p, n, commit)
         assigned[p] = torch.where(commit, n, -1)
         chosen[p] = torch.where(commit, masked[n], neg)
-    return assigned, chosen, used, st
+        if pctx is None or not may_preempt[p] or bool(commit):
+            continue
+        # Preempted placements keep chosen = -inf (no rescore). JAX's
+        # branch with can = false changes nothing: it subtracts a zero
+        # freed row and adds zero requests.
+        best_n, can, evict_m, freed = kpre.preempt_step_plain(
+            cfg, snap, pctx, prio[p], requests[p], allowed, used, evicted)
+        if not bool(can):
+            continue
+        used[best_n] = used[best_n] - freed
+        used[best_n] = used[best_n] + requests[p]
+        if st is not None:
+            st = kpair.pair_state_evict(snap, st, static.sig_match, dom_s,
+                                        evict_m)
+            st = kpair.pair_state_add_pod(snap, st, static.sig_match, dom_s,
+                                          p, best_n, can)
+        evicted = evicted | evict_m
+        assigned[p] = best_n
+    return assigned, chosen, used, st, evicted
 
 
 def _scan_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
@@ -431,17 +490,101 @@ def parity_scan_pair(cfg: EngineConfig, snap: ClusterSnapshot,
 parity_scan_pair.launches = 0
 
 
-def refuse_unported(cfg: EngineConfig, snap: ClusterSnapshot) -> None:
-    """Raise for what the solve paths do not implement yet rather than
-    skip it: the JAX paths' gang and preemption steps are identities
-    only when those axes are empty."""
-    if snap.group_min_member.shape[0] > 0:
-        raise NotImplementedError(
-            "snapshot has pod groups (gangs): not ported yet; ROADMAP A7 "
-            "ports it")
-    if cfg.preemption:
-        raise NotImplementedError(
-            "preemption is not ported yet; ROADMAP A8 ports it")
+def _preempt_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
+                  static: StaticCtx, pctx: "kpre.PreemptCtx") -> tuple:
+    """K4's preemption block: the victim table (K15's), each pod's
+    effective priority, validity and gang, node validity, the running
+    pods' nodes and required anti terms, then the device state the scan
+    updates (the budgets' remaining disruptions, evicted [M] bytes) and
+    K15's scratch."""
+    dev = static.mask.device
+    pods, run = snap.pods, snap.running
+    vic = kpre._victim_args(k, cfg, snap, pctx)
+    M, R = pctx.req_s.shape
+    P, N = static.mask.shape
+    J = run.anti_sig.shape[1]
+    GP = snap.pdb_allowed.shape[0]
+    prio = effective_priority(cfg, pods.base_priority, pods.slo_target,
+                              pods.observed_avail).contiguous()
+    check(k, dev, prio, torch.float32, (P,))
+    check(k, dev, pods.valid, torch.bool, (P,))
+    check(k, dev, pods.group, torch.int32, (P,))
+    check(k, dev, snap.nodes.valid, torch.bool, (N,))
+    check(k, dev, run.node_idx, torch.int32, (M,))
+    check(k, dev, run.anti_sig, torch.int32, (M, J))
+    check(k, dev, snap.pdb_allowed, torch.float32, (GP,))
+    remaining = snap.pdb_allowed.clone()
+    evicted = torch.zeros(M, dtype=torch.uint8, device=dev)
+    return (*vic[:2], J, *vic[2:], prio, pods.valid, pods.group,
+            snap.nodes.valid,
+            run.node_idx, run.anti_sig, remaining, evicted,
+            *kpre.victim_scratch(M, R, dev))
+
+
+def parity_scan_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
+                        static: StaticCtx, order: torch.Tensor,
+                        pctx: "kpre.PreemptCtx"):
+    """K4's preemption variant on CUDA tensors (K15's victim search
+    inside the scan), the plain version on CPU tensors: (assigned,
+    chosen, used, evicted)."""
+    dev = static.mask.device
+    if dev.type == "cpu":
+        return parity_scan_preempt_plain(cfg, snap, static, order, pctx)
+    k = "parity_scan_preempt"
+    args = _scan_args(k, cfg, snap, static, order)
+    pre = _preempt_args(k, cfg, snap, static, pctx)
+    P = args[0]
+    used = snap.nodes.used.clone()
+    assigned = torch.empty((P,), dtype=torch.int32, device=dev)
+    chosen = torch.empty((P,), dtype=torch.float32, device=dev)
+    evicted = pre[-4]
+    if P:
+        _build.launch("tpusched_parity_scan_preempt",
+                      *ptrs((*args, *pre, used, assigned, chosen)),
+                      stream_of(dev))
+        parity_scan_preempt.launches += 1
+    return assigned, chosen, used, evicted.bool()
+
+
+parity_scan_preempt.launches = 0
+
+
+def parity_scan_pair_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
+                             static: StaticCtx, order: torch.Tensor,
+                             st: "kpair.PairState", dom_s: torch.Tensor,
+                             pctx: "kpre.PreemptCtx"):
+    """K4's pairwise and preemption variant on CUDA tensors, the plain
+    version on CPU tensors: (assigned, chosen, used, final PairState,
+    evicted). `st` is left as it was."""
+    dev = static.mask.device
+    if dev.type == "cpu":
+        return parity_scan_pair_preempt_plain(cfg, snap, static, order, st,
+                                              dom_s, pctx)
+    k = "parity_scan_pair_preempt"
+    args = _scan_args(k, cfg, snap, static, order)
+    terms = kpair._pair_term_args(k, snap, static.aff_ok, static.sig_match,
+                                  dom_s, st)
+    pre = _preempt_args(k, cfg, snap, static, pctx)
+    P, N = args[0], args[1]
+    used = snap.nodes.used.clone()
+    assigned = torch.empty((P,), dtype=torch.int32, device=dev)
+    chosen = torch.empty((P,), dtype=torch.float32, device=dev)
+    out = kpair.PairState(counts=st.counts.clone(), anti=st.anti.clone(),
+                          match_tot=st.match_tot.clone())
+    evicted = pre[-4]
+    if P:
+        pen = torch.empty((N,), dtype=torch.float32, device=dev)
+        raw = torch.empty((N,), dtype=torch.float32, device=dev)
+        allowed = torch.empty((N,), dtype=torch.uint8, device=dev)
+        _build.launch("tpusched_parity_scan_pair_preempt",
+                      *ptrs((*args, *terms[:-3], out.counts, out.anti,
+                             out.match_tot, pen, raw, allowed, *pre, used,
+                             assigned, chosen)), stream_of(dev))
+        parity_scan_pair_preempt.launches += 1
+    return assigned, chosen, used, out, evicted.bool()
+
+
+parity_scan_pair_preempt.launches = 0
 
 
 def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
@@ -450,22 +593,35 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
                      ops: "Ops | None" = None):
     """Exact sequential commit (stock scheduleOne semantics). With
     signatures the scan carries the pair state (K10 counts the running
-    members, K4's pairwise variant adds each commit). Returns (assigned,
-    chosen, used, order, evicted)."""
+    members, K4's pairwise variant adds each commit). With preemption
+    and running pods, the scan runs the PostFilter victim search (K15)
+    for each pod that fits nowhere; then the gang gate. Returns
+    (assigned, chosen, used, order, evicted)."""
     ops = ops or KERNELS
-    refuse_unported(cfg, snap)
     static = precompute_static(cfg, snap, node_sat_t, member_sat_t, ops)
     M = snap.running.valid.shape[0]
     order = pop_order(cfg, snap)
+    pctx = kpre.precompute(cfg, snap) if cfg.preemption and M else None
+    evicted = torch.zeros(M, dtype=torch.bool, device=order.device)
+    st = dom_s = None
     if snap.sigs.key.shape[0] > 0:
         dom_s = kpair.sig_domains(snap)
         st0 = ops.pair_counts(static.sig_match, dom_s, snap.running,
                               snap.pods)
-        assigned, chosen, used, _ = ops.parity_scan_pair(
-            cfg, snap, static, order, st0, dom_s)
-    else:
+        if pctx is None:
+            assigned, chosen, used, st = ops.parity_scan_pair(
+                cfg, snap, static, order, st0, dom_s)
+        else:
+            assigned, chosen, used, st, evicted = (
+                ops.parity_scan_pair_preempt(cfg, snap, static, order, st0,
+                                             dom_s, pctx))
+    elif pctx is None:
         assigned, chosen, used = ops.parity_scan(cfg, snap, static, order)
-    evicted = torch.zeros(M, dtype=torch.bool, device=order.device)
+    else:
+        assigned, chosen, used, evicted = ops.parity_scan_preempt(
+            cfg, snap, static, order, pctx)
+    used, assigned, chosen, _, _ = gang_rollback(
+        snap, used, assigned, chosen, st, static.sig_match, dom_s, ops)
     return assigned, chosen, used, order, evicted
 
 
@@ -1836,12 +1992,41 @@ def _solve_rounds_sig(cfg: EngineConfig, snap: ClusterSnapshot,
     return used, assigned, st, chosen, round_of, r
 
 
-def gang_rollback(snap: ClusterSnapshot, used, assigned, chosen):
-    """The all-or-nothing gang gate (JAX `gang_rollback`): the identity
-    at G = 0, the only case ported (ROADMAP A7; `refuse_unported` turns
-    gangs away first). Returns (used, assigned, chosen, rolled)."""
-    rolled = torch.zeros_like(assigned, dtype=torch.bool)
-    return used, assigned, chosen, rolled
+def gang_rollback(snap: ClusterSnapshot, used: torch.Tensor,
+                  assigned: torch.Tensor, chosen: torch.Tensor,
+                  pair_st: "kpair.PairState | None" = None,
+                  sig_match: torch.Tensor | None = None,
+                  dom_s: torch.Tensor | None = None,
+                  ops: "Ops | None" = None):
+    """The all-or-nothing gang gate (JAX `gang_rollback`): a pod group
+    with fewer placed members than its min_member rolls back entirely
+    (min_member is a floor: members above it stay). The rolled pods'
+    requests leave `used` through K8's node_add with sign -1, per node in
+    ascending pod index (the oracle's unwind order); with a pair state
+    their contributions leave it through K10's pair_commit with sign -1.
+    Returns (used, assigned, chosen, pair_st, rolled)."""
+    ops = ops or KERNELS
+    pods = snap.pods
+    P = assigned.shape[0]
+    G = snap.group_min_member.shape[0]
+    dev = assigned.device
+    if G == 0:
+        return (used, assigned, chosen, pair_st,
+                torch.zeros(P, dtype=torch.bool, device=dev))
+    g = pods.group
+    placed = (assigned >= 0) & pods.valid & (g >= 0)
+    gclip = g.clamp(min=0).long()
+    cnt = torch.zeros(G, dtype=torch.int32, device=dev)
+    cnt.index_add_(0, gclip, placed.to(torch.int32))
+    roll = placed & (cnt < snap.group_min_member)[gclip]
+    rank = torch.arange(P, dtype=torch.int32, device=dev)
+    used = ops.node_add(used, assigned, roll, pods.requests, rank, -1.0)
+    if pair_st is not None and snap.sigs.key.shape[0] > 0:
+        pair_st = ops.pair_commit(snap, pair_st, sig_match, dom_s, assigned,
+                                  roll, -1.0)
+    assigned = torch.where(roll, -1, assigned)
+    chosen = torch.where(roll, NEG_INF, chosen)
+    return used, assigned, chosen, pair_st, roll
 
 
 def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
@@ -1856,7 +2041,10 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     state). member_sat_t: the [A, M+P] member label table, needed with
     signatures."""
     ops = ops or KERNELS
-    refuse_unported(cfg, snap)
+    if cfg.preemption and snap.running.valid.shape[0] > 0:
+        raise NotImplementedError(
+            "fast mode with preemption (the batched preemption auction) is "
+            "not ported yet; ROADMAP A8b ports it")
     if static is None:
         static = precompute_static(cfg, snap, node_sat_t, member_sat_t,
                                    ops=ops)
@@ -1870,20 +2058,21 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     # Worst case one pod commits per round; cfg.max_rounds > 0 caps it.
     max_rounds = cfg.max_rounds if cfg.max_rounds > 0 else 2 * P + 8
     K = _fallback_depth(N)
+    st = dom_s = None
     if snap.sigs.key.shape[0] == 0:
         used, assigned, chosen, round_of, rounds = _solve_rounds_nosig(
             cfg, snap, static, rank, order, max_rounds, K, ops=ops,
             stats=stats)
     else:
-        st0 = ops.pair_counts(static.sig_match, kpair.sig_domains(snap),
-                              snap.running, pods)
-        used, assigned, _, chosen, round_of, rounds = _solve_rounds_sig(
+        dom_s = kpair.sig_domains(snap)
+        st0 = ops.pair_counts(static.sig_match, dom_s, snap.running, pods)
+        used, assigned, st, chosen, round_of, rounds = _solve_rounds_sig(
             cfg, snap, static, rank, order, st0, max_rounds, K,
             _compact_cap(cfg, P), ops, stats or RoundStats())
     evicted = torch.zeros(snap.running.valid.shape[0], dtype=torch.bool,
                           device=dev)
-    used, assigned, chosen, rolled = gang_rollback(snap, used, assigned,
-                                                   chosen)
+    used, assigned, chosen, _, rolled = gang_rollback(
+        snap, used, assigned, chosen, st, static.sig_match, dom_s, ops)
     round_of = torch.where(rolled, -1, round_of)
     rounds = torch.full((), rounds, dtype=torch.int32, device=dev)
     return assigned, chosen, used, order, round_of, rounds, evicted
@@ -1917,17 +2106,21 @@ class Ops:
     waterfill: Callable
     excess_min: Callable
     excess_survive: Callable
+    parity_scan_preempt: Callable
+    parity_scan_pair_preempt: Callable
 
 
 KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
               row_topk, desirability, prefix_commit, kpair.sig_match,
               kpair.pair_counts, kpair.pairwise_batch, parity_scan_pair,
               node_add, kpair.pair_commit, kpair.ia_ok_at_choice, waterfill,
-              excess_min, excess_survive)
+              excess_min, excess_survive, parity_scan_preempt,
+              parity_scan_pair_preempt)
 PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_plain, cycle_plain, row_topk_plain,
             desirability_plain, prefix_commit_plain, kpair.sig_match_plain,
             kpair.pair_counts_plain, kpair.pairwise_batch_plain,
             parity_scan_pair_plain, node_add_plain, kpair.pair_commit_plain,
             kpair.ia_ok_at_choice_plain, waterfill_plain, excess_min_plain,
-            excess_survive_plain)
+            excess_survive_plain, parity_scan_preempt_plain,
+            parity_scan_pair_preempt_plain)

@@ -280,6 +280,39 @@ def pair_state_add_pod(snap: ClusterSnapshot, st: PairState,
     return PairState(counts=counts, anti=anti, match_tot=match_tot)
 
 
+def pair_state_evict(snap: ClusterSnapshot, st: PairState,
+                     sig_match: torch.Tensor, dom_s: torch.Tensor,
+                     evict_m: torch.Tensor) -> PairState:
+    """Evicted running members leave the state (JAX pair_state_evict):
+    their selector matches leave counts and match_tot, their required
+    anti terms leave anti. Returns a new state; every add is -1 or 0 on
+    an integer count, exact in any order. K4's preemption variant does
+    the same for each victim it evicts."""
+    run = snap.running
+    M = run.valid.shape[0]
+    S = dom_s.shape[0]
+    dev = dom_s.device
+    node = run.node_idx.long()
+    mdom = dom_s[:, node.clamp(min=0)]                       # [S, M]
+    hit = sig_match[:, :M] & evict_m[None, :]
+    ok = hit & (mdom >= 0) & (node >= 0)[None, :]
+    rows = torch.arange(S, device=dev)[:, None].expand_as(mdom)
+    counts = st.counts.clone()
+    counts.index_put_((rows, mdom.clamp(min=0).long()),
+                      -ok.to(torch.float32), accumulate=True)
+    match_tot = st.match_tot - hit.to(torch.float32).sum(dim=1)
+    anti = st.anti.clone()
+    asig = run.anti_sig                                      # [M, J]
+    if asig.shape[1] and S:
+        sclip = asig.clamp(min=0).long()
+        dom_mj = dom_s[sclip, node.clamp(min=0)[:, None]]    # [M, J]
+        okj = ((asig >= 0) & evict_m[:, None] & (node >= 0)[:, None]
+               & (dom_mj >= 0))
+        anti.index_put_((sclip, dom_mj.clamp(min=0).long()),
+                        -okj.to(torch.float32), accumulate=True)
+    return PairState(counts=counts, anti=anti, match_tot=match_tot)
+
+
 # -- constraint evaluation from the state --------------------------------------
 
 

@@ -5,7 +5,8 @@
 
 Pressure also reweights the score plugins per pod (urgency reweight):
 a pod far below its SLO interpolates toward an all-least-requested
-profile. Everything here is elementwise over [P] and stays plain torch;
+profile. Everything here is elementwise over [P] (over [M] for the
+preemption victims) and stays plain torch;
 the op order is the JAX package's, so every value is the same f32 on
 the CPU (eager torch contracts no multiply-add into an FMA).
 """
@@ -89,3 +90,20 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     lo = (x * (c & 0xFFFF)) & _MASK32
     hi = ((x * (c >> 16)) & 0xFFFF) << 16
     return (lo + hi) & _MASK32
+
+
+def victim_effective_priority(cfg: EngineConfig, priority: Any,
+                              slack: Any) -> Any:
+    """A running pod below its SLO (negative slack) gets the boost a
+    pending pod would: pressure = clip(-slack, 0, 1). Two roundings (the
+    product, then the sum), as the oracle computes it."""
+    pressure = (-slack).clip(0.0, 1.0)
+    return priority + cfg.qos.qos_gain * pressure
+
+
+def evict_cost_raw(cfg: EngineConfig, priority: Any, slack: Any) -> Any:
+    """Eviction cost before the per-snapshot positive shift: the victim's
+    effective priority less evict_slack_weight times how far above its
+    SLO it runs (victims with QoS to spare are cheap)."""
+    return (victim_effective_priority(cfg, priority, slack)
+            - cfg.qos.evict_slack_weight * slack.clip(0.0, 1.0))

@@ -17,9 +17,9 @@ same records give identical arrays. It covers resources, QoS, labels
 (numeric ones too), taints and tolerations, cordon, nodeSelector,
 required/preferred node affinity, topology spread and inter-pod
 (anti-)affinity with namespace scopes, including running pods' required
-anti-affinity (the symmetric rule). Gangs and PodDisruptionBudgets raise
-NotImplementedError naming the ROADMAP item that ports them; their axes
-(G, GP) stay zero-sized.
+anti-affinity (the symmetric rule), pod groups (gangs, numbered in
+sorted name order) and PodDisruptionBudgets of running pods (keyed by
+(namespace, name), numbered in sorted key order).
 """
 
 from __future__ import annotations
@@ -42,10 +42,6 @@ from tpusched_torch.config import (
     SCHEDULE_ANYWAY,
     _next_bucket,
 )
-
-_GANG_TODO = "ROADMAP A7 (gangs) ports it"
-_PDB_TODO = "ROADMAP A8 (preemption and PDB budgets) ports it"
-
 
 # ---------------------------------------------------------------------------
 # Host-side spec structures (the "pod spec" surface a caller fills in).
@@ -426,6 +422,9 @@ class SnapshotBuilder:
         self._nodes: list[dict] = []
         self._pods: list[dict] = []
         self._running: list[dict] = []
+        self._groups: dict[str, int] = {}  # name -> min_member
+        # (namespace, name) -> disruptions allowed
+        self._pdbs: dict[tuple[str, str], int] = {}
 
     def add_node(
         self,
@@ -463,12 +462,13 @@ class SnapshotBuilder:
         pod_group_min_member: int = 0,
         namespace: str = "default",
     ) -> None:
-        if pod_group is not None:
-            raise NotImplementedError(
-                f"pod {name!r}: pod groups (gangs) are not ported yet; "
-                + _GANG_TODO)
+        """pod_group names the pod's gang; its min_member is the largest
+        pod_group_min_member given for it."""
         req = dict(requests)
         req.setdefault(RESOURCE_PODS, 1.0)
+        if pod_group is not None:
+            prev = self._groups.get(pod_group, 0)
+            self._groups[pod_group] = max(prev, int(pod_group_min_member))
         self._pods.append(
             dict(name=name, requests=req, priority=float(priority),
                  slo_target=float(slo_target),
@@ -480,6 +480,7 @@ class SnapshotBuilder:
                  tolerations=list(tolerations),
                  topology_spread=list(topology_spread),
                  pod_affinity=list(pod_affinity),
+                 pod_group=pod_group,
                  namespace=str(namespace) or "default")
         )
 
@@ -498,19 +499,26 @@ class SnapshotBuilder:
     ) -> None:
         """Only a running pod's required anti-affinity terms affect
         scheduling (the symmetric rule); its other terms are accepted
-        and ignored, as in the JAX builder."""
-        if pdb_group is not None:
-            raise NotImplementedError(
-                "running pod in a PodDisruptionBudget: budgets are not "
-                "ported yet; " + _PDB_TODO)
+        and ignored, as in the JAX builder. pdb_group names the
+        PodDisruptionBudget covering the pod; budgets are namespaced, so
+        the budget is (namespace, pdb_group), and its remaining
+        disruptions are the largest pdb_disruptions_allowed given for
+        it."""
         req = dict(requests)
         req.setdefault(RESOURCE_PODS, 1.0)
+        ns = str(namespace) or "default"
+        if pdb_group is not None:
+            key = (ns, pdb_group)
+            prev = self._pdbs.get(key, 0)
+            self._pdbs[key] = max(prev, int(pdb_disruptions_allowed))
         self._running.append(
             dict(node=node, requests=req, priority=float(priority),
                  slack=float(slack), labels=dict(labels or {}),
                  count_into_used=count_into_used,
                  pod_affinity=list(pod_affinity),
-                 namespace=str(namespace) or "default")
+                 namespace=ns,
+                 pdb_group=(ns, pdb_group) if pdb_group is not None
+                 else None)
         )
 
     def build(self) -> tuple[ClusterSnapshot, SnapshotMeta]:
@@ -570,11 +578,13 @@ class SnapshotBuilder:
                 [len(pc["ia"]) for pc in pod_compiled]
                 + [len(a) for a in run_anti] or [0]
             ),
+            pod_groups=len(self._groups),
             taint_vocab=len(intr.taint_ids),
             signatures=len(sigs),
             sig_namespaces=max(
                 (len(ns) for _, ns, _ in sigs if ns != "*"), default=0
             ),
+            pdb_groups=len(self._pdbs),
         )
         grow = {
             f: max(getattr(bk, f), _ceil_bucket(v))
@@ -614,9 +624,22 @@ class SnapshotBuilder:
             node_index[nrec["name"]] = i
             _fill_node_row(nodes, i, nrec, intr, cfg)
 
+        # Gangs and budgets are numbered in sorted name order.
+        group_list = sorted(self._groups)
+        group_idx = {g: i for i, g in enumerate(group_list)}
+        group_min = np.zeros(bk.pod_groups, np.int32)
+        for g, gname in enumerate(group_list):
+            group_min[g] = self._groups[gname]
+        pdb_idx = {g: i for i, g in enumerate(sorted(self._pdbs))}
+        pdb_allowed = np.zeros(bk.pdb_groups, np.float32)
+        for key, g in pdb_idx.items():
+            pdb_allowed[g] = float(self._pdbs[key])
+
         pods = _pods_np(bk, R)
         for i, (p, pc) in enumerate(zip(self._pods, pod_compiled)):
             _fill_pod_row(pods, i, p, pc, intr, cfg)
+            if p["pod_group"] is not None:
+                pods["group"][i] = group_idx[p["pod_group"]]
 
         run = _running_np(bk, R)
         for i, rrec in enumerate(self._running):
@@ -632,6 +655,8 @@ class SnapshotBuilder:
                 run["label_pairs"][i, j] = intr.pair_ids[(k, v)]
             run["anti_sig"][i, : len(run_anti[i])] = run_anti[i]
             run["namespace"][i] = intr.ns_ids[rrec["namespace"]]
+            if rrec["pdb_group"] is not None:
+                run["pdb_group"][i] = pdb_idx[rrec["pdb_group"]]
             # Counted requests fold into the node's used row in record
             # order, the JAX builder's summation order.
             if rrec["count_into_used"]:
@@ -649,18 +674,15 @@ class SnapshotBuilder:
             sigs=SigTable(key=_t(t["sig_key"]), atoms=_t(t["sig_atoms"]),
                           ns=_t(t["sig_ns"]), ns_all=_t(t["sig_ns_all"]),
                           valid=_t(t["sig_valid"])),
-            # No group or budget is ever filled (the builder refuses
-            # those features); explicit buckets still size the padding
-            # as the JAX builder does.
             taint_effect=_t(t["taint_effect"]),
-            group_min_member=_t(np.zeros(bk.pod_groups, np.int32)),
-            pdb_allowed=_t(np.zeros(bk.pdb_groups, np.float32)),
+            group_min_member=_t(group_min),
+            pdb_allowed=_t(pdb_allowed),
         )
         meta = SnapshotMeta(
             node_names=[n["name"] for n in self._nodes],
             pod_names=[p["name"] for p in self._pods],
             n_nodes=n_nodes, n_pods=n_pods, n_running=n_running,
-            buckets=bk, group_names=[],
+            buckets=bk, group_names=group_list,
         )
         return snap, meta
 

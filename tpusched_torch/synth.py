@@ -1,10 +1,9 @@
 """Synthetic cluster snapshots: the port of `tpusched/synth.py`.
 
 `make_cluster` draws from the numpy generator in exactly the JAX
-generator's sequence, including the draws that decide features the port
-refuses (gangs, PodDisruptionBudgets), so the same seed gives the same
-cluster (and, through the builders, identical arrays). A refused feature
-raises only when a draw actually turns it on.
+generator's sequence, so the same seed gives the same cluster (and,
+through the builders, identical arrays). The presets are BASELINE
+configs 1-5.
 """
 
 from __future__ import annotations
@@ -34,12 +33,6 @@ NODE_CLASSES = (
 )
 _APPS = ("web", "db", "cache", "batch")
 _ZONE_KEY = "topology.kubernetes.io/zone"
-
-
-def _refuse(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"make_cluster drew a {feature}: not ported yet; ROADMAP {item} "
-        "ports it")
 
 
 def make_cluster(
@@ -136,7 +129,11 @@ def make_cluster(
                     required=True,
                 )]
             if rng.random() < pdb_frac:
-                raise _refuse("PodDisruptionBudget", "A8")
+                # A budget per (app-ish) group of running pods, with 0-2
+                # remaining disruptions.
+                g = int(rng.integers(8))
+                run_kwargs["pdb_group"] = f"pdb-{g}"
+                run_kwargs["pdb_disruptions_allowed"] = int(rng.integers(0, 3))
             b.add_running_pod(
                 node=f"node-{i}",
                 requests={"cpu": cpu_req, "memory": mem_req},
@@ -200,7 +197,8 @@ def make_cluster(
                 namespaces=term_ns,
             )]
         if gang_frac > 0 and rng.random() < gang_frac:
-            raise _refuse("pod group (gang)", "A7")
+            kwargs["pod_group"] = f"gang-{i // gang_size}"
+            kwargs["pod_group_min_member"] = gang_size
         slo = float(rng.choice([0.0, 0.9, 0.95, 0.99])) if with_qos else 0.0
         b.add_pod(
             f"pod-{i}",
@@ -237,4 +235,24 @@ def config3_pairwise(rng: np.random.Generator, n_pods: int = 2_000,
     pods carry a zone spread constraint, half an inter-pod term."""
     kw.setdefault("spread_frac", 0.5)
     kw.setdefault("interpod_frac", 0.5)
+    return make_cluster(rng, n_pods, n_nodes, **kw)
+
+
+def config4_gangs(rng: np.random.Generator, n_groups: int = 1_000,
+                  gang_size: int = 4, n_nodes: int = 1_000, **kw):
+    """Gang bin-pack (BASELINE config 4): n_groups pod groups of
+    gang_size members, each all-or-nothing at min_member = gang_size."""
+    return make_cluster(rng, n_groups * gang_size, n_nodes, gang_frac=1.0,
+                        gang_size=gang_size, **kw)
+
+
+def config5_preemption(rng: np.random.Generator, n_pods: int = 1_000,
+                       n_nodes: int = 200, **kw):
+    """Preemption pressure (BASELINE config 5): nodes filled to 90 % by
+    eight running pods each, sized at the target, a third of them under
+    a PodDisruptionBudget, so most pending pods need victims."""
+    kw.setdefault("initial_utilization", 0.9)
+    kw.setdefault("n_running_per_node", 8)
+    kw.setdefault("pdb_frac", 0.3)
+    kw.setdefault("tight_utilization", True)
     return make_cluster(rng, n_pods, n_nodes, **kw)
