@@ -87,6 +87,23 @@ package, and
        equal to the plain tableau's; at least one PDB violation among
        them), and K4's pairwise preemption variant on (h) with spread
        and inter-pod terms, all exact;
+     - fast preemption: `Engine.solve` with mode="fast",
+       preemption=True on (h) and on (h) with spread and inter-pod
+       terms (the main rounds' kernels, then the auction rounds: K17's
+       auction_ok, K16 auction_tables, K17 auction_rank, K6 at K = 256,
+       K18 auction_claim, K8's node_add; with signatures also K11, K10,
+       K14 and K13 in the rounds' validation), each once and then 5
+       steady solves (median) with a stage breakdown, the audit,
+       equality with its plain solve (evictions and host reads
+       included), the commit-key audit in both eviction arms (every
+       eviction applied, none; a pairwise violation counts only in
+       both), the preemption audit (with signatures the victims of each
+       round on nodes its kept eviction bids claimed, and the victims
+       a reverted preemptor stranded counted) and at least one
+       eviction; then the auction kernels against their plain versions
+       on the arguments of each cell's first auction round, exactly,
+       timed with CUDA events and the profiler's kernel time, K6 at
+       K = 256 beside torch.topk;
   5. prints per-stage time breakdowns of one steady parity and one
      steady fast solve (with the host-clock cost of the dealing
      prefixes in three forms), of one steady pairwise parity solve and
@@ -209,13 +226,23 @@ KERNELS = (
     ("parity_scan_pair_preempt", kassign.parity_scan_pair_preempt,
      "launches", "tpusched_torch/csrc/scan.cu",
      "tpusched/kernels/pairwise.py:240"),
+    ("auction_tables", kpre.auction_tables, "launches",
+     "tpusched_torch/csrc/auction.cu", "tpusched/kernels/preempt.py:488"),
+    ("auction_ok", kpre.auction_ok, "launches",
+     "tpusched_torch/csrc/auction.cu", "tpusched/kernels/preempt.py:443"),
+    ("auction_rank", kpre.auction_rank, "launches",
+     "tpusched_torch/csrc/auction.cu", "tpusched/kernels/preempt.py:511"),
+    ("row_topk_k256", kassign.row_topk, "wide_launches",
+     "tpusched_torch/csrc/topk.cu", "tpusched/kernels/preempt.py:563"),
+    ("auction_claim", kpre.auction_claim, "launches",
+     "tpusched_torch/csrc/auction.cu", "tpusched/kernels/preempt.py:588"),
 )
 # Kernels whose counters the main path leaves at 0, and why; each is
 # held against its plain version at full size in the kernel phase.
 OFF_PATH = {
     "preempt_step": "K15's standalone entry point; the main path runs K15 "
                     "as a device function inside parity_scan_preempt",
-    "parity_scan_pair_preempt": "no cell has both signatures and "
+    "parity_scan_pair_preempt": "no parity cell has both signatures and "
                                 "preemption",
 }
 PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
@@ -245,6 +272,12 @@ GANG_PARITY_KERNELS = PARITY_KERNELS + ("node_add",)
 GANG_FAST_KERNELS = FAST_KERNELS + ("node_add",)
 PREEMPT_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                    "parity_scan_preempt")
+# Fast mode with preemption: the main rounds, then the auction rounds
+# (K16-K18, K6 at K = 256, the plain commits' node_add).
+AUCTION_KERNELS = ("node_add", "auction_tables", "auction_ok",
+                   "auction_rank", "row_topk_k256", "auction_claim")
+FAST_PREEMPT_KERNELS = FAST_KERNELS + AUCTION_KERNELS
+FAST_PREEMPT_PAIR_KERNELS = FAST_PAIR_KERNELS + AUCTION_KERNELS[1:]
 
 
 def log(msg: str) -> None:
@@ -327,12 +360,14 @@ def plain_result(cfg: EngineConfig, dsnap, ops=kassign.PLAIN, stats=None):
     return Engine.unpack(dsnap, buf.cpu().numpy())
 
 
-def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
+def audit(name: str, cfg: EngineConfig, dsnap, res, hook=None) -> dict:
     """Validity of one solve result, then equality with the plain solve
     on the same CUDA tensors (host reads too, in fast mode); with
     signatures also the pairwise audit of the plain solve's final pair
     state (parity: the plain scan's, with its time; fast: the last
-    state the rounds' commits and reverts left)."""
+    state the rounds' commits and reverts left) and the commit-key
+    audit (with preemption, in both eviction arms). hook(ops) may wrap
+    the plain solve's ops table to record calls."""
     plain = kassign.PLAIN
     static = kassign.precompute_static(cfg, dsnap, *_sat_tables(dsnap, plain),
                                        ops=plain)
@@ -380,10 +415,11 @@ def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
         pre_scans.append((args, out, (time.perf_counter() - t0) * 1e3))
         return out
 
-    t0 = time.perf_counter()
-    want = plain_result(cfg, dsnap, dataclasses.replace(
+    ops = dataclasses.replace(
         plain, parity_scan_pair=record, pair_commit=last_state,
-        parity_scan_preempt=record_pre), pstats)
+        parity_scan_preempt=record_pre)
+    t0 = time.perf_counter()
+    want = plain_result(cfg, dsnap, hook(ops) if hook else ops, pstats)
     info["plain_solve_ms"] = (time.perf_counter() - t0) * 1e3
     for field in ("assignment", "order", "chosen_score", "commit_key",
                   "final_used", "evicted", "rounds"):
@@ -402,7 +438,10 @@ def audit(name: str, cfg: EngineConfig, dsnap, res) -> dict:
     if states:
         info.update(pair_audit(name, dsnap, res, static.sig_match, dom_s,
                                states[0]))
-        info.update(commit_key_audit(name, dsnap, res, static, dom_s))
+    fast_pre = cfg.mode == "fast" and cfg.preemption
+    if states or fast_pre:
+        info.update(commit_key_audit(name, dsnap, res, static, dom_s,
+                                     res.evicted if fast_pre else None))
     if pre_scans:
         info["plain_preempt_scan"] = pre_scans[0]
     return info
@@ -427,12 +466,18 @@ def gang_audit(name: str, dsnap, res, rolled: np.ndarray) -> dict:
             "rolled_groups": int(np.unique(group[rolled]).shape[0])}
 
 
-def preempt_audit(name: str, dsnap, res) -> dict:
+def preempt_audit(name: str, dsnap, res, rounds=None) -> dict:
     """final_used equals the snapshot's usage less the evicted victims'
     requests plus the placed pods' (recomputed in f64, rtol 1e-6 of each
     node's capacity); evicted victims are valid running pods on nodes
     where a preempted pod landed; no preempted pod (placed with chosen =
-    -inf) belongs to a gang."""
+    -inf) belongs to a gang. rounds (fast preemption with signatures,
+    where the end-of-round validation may revert a preemptor and leave
+    its victims evicted): [(evicted before, kept eviction bids, their
+    claimed nodes, evicted after)] of each auction round of the plain
+    solve; the victims of a round must sit on nodes that round's kept
+    eviction bids claimed, in place of the landing clause, whose misses
+    are counted as stranded victims."""
     run, pods, nodes = dsnap.running, dsnap.pods, dsnap.nodes
     a, ev = res.assignment, res.evicted
     placed = a >= 0
@@ -454,11 +499,27 @@ def preempt_audit(name: str, dsnap, res) -> dict:
     if (group[preempted] >= 0).any():
         raise AssertionError(f"{name}: a gang member was placed by "
                              "preemption")
-    if not set(rnode[ev].tolist()) <= set(a[preempted].tolist()):
+    landed = np.isin(rnode, a[preempted])
+    stranded = int((ev & ~landed).sum())
+    if rounds is None and stranded:
         raise AssertionError(f"{name}: a victim was evicted from a node no "
                              "preempted pod took")
+    if rounds is not None:
+        union = np.zeros_like(ev)
+        for before, keep, target, after in rounds:
+            new = (after & ~before).cpu().numpy()
+            claimed = target[keep].cpu().numpy()
+            if not np.isin(rnode[new], claimed).all():
+                raise AssertionError(f"{name}: a victim was evicted from a "
+                                     "node no kept eviction bid of its round "
+                                     "claimed")
+            union |= new
+        if not np.array_equal(union, ev):
+            raise AssertionError(f"{name}: the rounds' evictions are not "
+                                 "the solve's")
     pvalid = pods.valid.cpu().numpy()
     return {"evicted": int(ev.sum()), "preempted": int(preempted.sum()),
+            "stranded": stranded,
             "searches": int(preempted.sum()
                             + (pvalid & (group < 0) & ~placed).sum())}
 
@@ -514,16 +575,34 @@ def pair_audit(name: str, dsnap, res, sig_match, dom_s, final) -> dict:
     return {"anti_holders": holders, "signatures": S}
 
 
-def commit_key_audit(name: str, dsnap, res, static, dom_s) -> dict:
-    """The fast mode's pairwise contract (the JAX package's
-    validate_assignment with the commit key, in numpy): every placed
-    pod's DoNotSchedule spread skew, required inter-pod terms and the
-    symmetric anti-affinity of the members hold against K10's recount
-    of the pods whose commit key is at most its own, the pod itself
-    left out."""
+def commit_key_audit(name: str, dsnap, res, static, dom_s,
+                     evicted: np.ndarray | None = None) -> dict:
+    """The fast mode's contract (the JAX package's validate_assignment
+    with the commit key, in numpy): every placed pod's DoNotSchedule
+    spread skew, required inter-pod terms and the symmetric anti-affinity
+    of the members hold against K10's recount of the pods whose commit
+    key is at most its own, the pod itself left out. With `evicted` (fast
+    preemption) the capacity holds with every eviction applied, and, as
+    validate_assignment does without the evictions' timing, a pairwise
+    violation counts only if it holds in both arms: the evicted running
+    members counted, and left out."""
     pods, nodes = dsnap.pods, dsnap.nodes
     M = dsnap.running.valid.shape[0]
     asg, key = res.assignment, res.commit_key
+    S = dom_s.shape[0]
+    info = {"signatures": S}
+    if evicted is not None:
+        run = dsnap.running
+        use = nodes.used.cpu().numpy().astype(np.float64)
+        np.subtract.at(use, run.node_idx.cpu().numpy()[evicted],
+                       run.requests.cpu().numpy()[evicted])
+        np.add.at(use, asg[asg >= 0], pods.requests.cpu().numpy()[asg >= 0])
+        over = (use > nodes.allocatable.cpu().numpy() + 1e-3).any(axis=1)
+        if (over & nodes.valid.cpu().numpy()).any():
+            raise AssertionError(f"{name}: {int(over.sum())} nodes over "
+                                 "capacity with the evictions applied")
+    if S == 0:
+        return info
     match = static.sig_match.cpu().numpy()
     dom = dom_s.cpu().numpy()
     aff_ok = static.aff_ok.cpu().numpy()
@@ -535,16 +614,12 @@ def commit_key_audit(name: str, dsnap, res, static, dom_s) -> dict:
         t.cpu().numpy() for t in (pods.ia_sig, pods.ia_valid, pods.ia_anti,
                                   pods.ia_required))
     holds = kpair.pod_anti_holds(pods).cpu().numpy()
-    S = dom.shape[0]
-    checked = 0
-    for k in np.unique(key[asg >= 0]):
-        upto = np.where((asg >= 0) & (key <= k), asg, -1).astype(np.int32)
-        st = kpair.pair_counts(static.sig_match, dom_s, dsnap.running, pods,
-                               assigned=torch.from_numpy(upto).to(
-                                   dom_s.device))
+    ev_t = (torch.from_numpy(evicted).to(dom_s.device)
+            if evicted is not None and evicted.any() else None)
+
+    def violations(st, ps) -> np.ndarray:
         counts, anti = st.counts.cpu().numpy(), st.anti.cpu().numpy()
         mtot = st.match_tot.cpu().numpy()
-        ps = np.nonzero((asg >= 0) & (key == k))[0]
         ns = asg[ps]
         bad = np.zeros(ps.shape[0], bool)
         for c in range(ts_sig.shape[1]):
@@ -576,15 +651,32 @@ def commit_key_audit(name: str, dsnap, res, static, dom_s) -> dict:
         d_all = dom[:, ns]                                   # [S, Q]
         held = np.where(d_all >= 0, np.take_along_axis(
             anti, np.maximum(d_all, 0), axis=1), 0.0).astype(np.int64)
-        bad |= (match[:, M + ps] * held).sum(axis=0) - own > 0
+        return bad | ((match[:, M + ps] * held).sum(axis=0) - own > 0)
+
+    checked = one_arm = 0
+    for k in np.unique(key[asg >= 0]):
+        upto = np.where((asg >= 0) & (key <= k), asg, -1).astype(np.int32)
+        st = kpair.pair_counts(static.sig_match, dom_s, dsnap.running, pods,
+                               assigned=torch.from_numpy(upto).to(
+                                   dom_s.device))
+        ps = np.nonzero((asg >= 0) & (key == k))[0]
+        bad = violations(st, ps)
+        if ev_t is not None:
+            bad_ev = violations(kpair.pair_state_evict(
+                dsnap, st, static.sig_match, dom_s, ev_t), ps)
+            one_arm += int((bad ^ bad_ev).sum())
+            bad = bad & bad_ev
         if bad.any():
             raise AssertionError(
                 f"{name}: {int(bad.sum())} pods committed at key {k} violate "
                 "a spread or required inter-pod term against the pods "
                 "committed up to their key")
         checked += ps.shape[0]
-    return {"commit_key_checked": checked, "keys": int(np.unique(
-        key[asg >= 0]).shape[0]), "signatures": S}
+    info.update(commit_key_checked=checked, keys=int(np.unique(
+        key[asg >= 0]).shape[0]))
+    if ev_t is not None:
+        info["one_arm_only"] = one_arm
+    return info
 
 
 def counts() -> dict:
@@ -1087,13 +1179,16 @@ def fast_breakdown(engine: Engine, snap) -> dict:
     total = ev[0].elapsed_time(ev[1])
     loops = sum(spans.get(k, 0.0) for k in (
         "round 1", "tranches", "direct rounds", "full-width rounds",
-        "compacted rounds"))
+        "compacted rounds", "preemption rounds"))
     return {"h2d_ms_host": h2d_ms, "solve_core (device)": total,
             "K1-K3 + pop_order (rest of solve_core)": total - loops,
             **{f"{k} (x{n[k]})": v for k, v in spans.items()},
             "pack": ev[1].elapsed_time(ev[2]),
             "solve_core + pack + D2H (host clock)": host_ms,
             "host_reads": stats.host_reads, "rounds": int(out[5].item()),
+            **({"preemption rounds": stats.preempt_rounds,
+                "preemption host reads": stats.preempt_reads}
+               if cfg.preemption else {}),
             **prefix}
 
 
@@ -1411,6 +1506,224 @@ def preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
     return phase_counts, kp
 
 
+def profiler_ms(fn, kernel: str, reps: int = 5) -> float | None:
+    """The device time of the CUDA kernels whose name holds `kernel`,
+    per fn() call, from a torch.profiler trace of `reps` calls (after a
+    warm-up); None when the trace holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, seen = 0.0, False
+    for e in prof.key_averages():
+        if kernel in e.key:
+            seen = True
+            total += getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0))
+    return total / 1e3 / reps if seen and total > 0 else None
+
+
+def first_auction_calls(cfg: EngineConfig, dsnap) -> dict:
+    """The arguments of the first call of each auction kernel (K16, K17's
+    two entry points, K6 at K = 256, K18) in a fast preemption solve of
+    `dsnap`: its first auction round, by kernels-line name."""
+    calls = {}
+
+    def rec(name, fn, want=lambda a: True):
+        def wrapped(*a):
+            if name not in calls and want(a):
+                calls[name] = (fn, tuple(x.clone() if isinstance(
+                    x, torch.Tensor) else x for x in a))
+            return fn(*a)
+        return wrapped
+
+    k = kassign.KERNELS
+    ops = dataclasses.replace(
+        k, auction_ok=rec("auction_ok", k.auction_ok),
+        auction_tables=rec("auction_tables", k.auction_tables),
+        auction_rank=rec("auction_rank", k.auction_rank),
+        row_topk=rec("row_topk_k256", k.row_topk, lambda a: a[1] > 16),
+        auction_claim=rec("auction_claim", k.auction_claim))
+    solve_core(cfg, dsnap, ops=ops)
+    return calls
+
+
+AUCTION_PLAIN = {
+    "auction_tables": kpre.auction_tables_plain,
+    "auction_ok": kpre.auction_ok_plain,
+    "auction_rank": kpre.auction_rank_plain,
+    "row_topk_k256": kassign.row_topk_plain,
+    "auction_claim": kpre.auction_claim_plain,
+}
+# The CUDA kernel of each auction row, for the profiler's kernel times.
+AUCTION_CUDA_NAME = {
+    "auction_tables": "auction_tables_kernel",
+    "auction_ok": "auction_ok_kernel",
+    "auction_rank": "auction_rank_kernel",
+    "row_topk_k256": "row_topk_kernel",
+    "auction_claim": "auction_claim_kernel",
+}
+
+
+def auction_kernel_phase(dsnap, calls: dict) -> dict:
+    """K16, K17 (both entry points), K6 at K = 256 and K18 against their
+    plain versions on the arguments of their first call (exact), with
+    CUDA-event and profiler times and bounds (bytes each input read once,
+    each output written once; the tables K17 and K18 gather, only the
+    rows they read)."""
+    out = {}
+    for name, plain in AUCTION_PLAIN.items():
+        fn, a = calls[name]
+        got = _flat(fn(*a))
+        err = require_equal(name, got, _flat(plain(*a)))
+        r = dict(err=err, ms=cuda_ms(lambda: fn(*a), 20),
+                 prof_ms=profiler_ms(lambda: fn(*a), AUCTION_CUDA_NAME[name]),
+                 plain_ms=cuda_ms(lambda: plain(*a), 3))
+        if name == "auction_tables":
+            ctx, ev, thr, rem, _ = a
+            L = thr.shape[0]
+            N, V, R = ctx.vreq.shape
+            # Every lane reads the same victim rows: the table once.
+            b = nbytes(ctx.vreq, ctx.vcost, ctx.vprio, ctx.vpdb, ctx.vvalid,
+                       ctx.vidx) + N * V + nbytes(thr, rem, *got)
+            r.update(bound=bound(b, L * N * V * (2 * R + V + 8)),
+                     shape=f"L={L} N={N} V={V} R={R}")
+        elif name == "auction_ok":
+            mask, rows, pair_ok, pre, nvalid = a
+            C, N = got[0].shape
+            b = C * N * (2 if pair_ok is not None else 1) + nbytes(
+                pre, nvalid, *got) + (4 * C if rows is not None else 0)
+            r.update(bound=bound(b, 4 * C * N),
+                     shape=f"C={C} N={N}, {int(got[1].sum())} active")
+        elif name == "auction_rank":
+            cum_req, cum_cost, cum_viol, lane, ok, used, alloc, p_req = a
+            L, N, V, R = cum_req.shape
+            C = lane.shape[0]
+            b = nbytes(*a, *got)
+            steps = max(1, V.bit_length())
+            r.update(bound=bound(b, C * N * (2 * R * (steps + 3) + 8)),
+                     shape=f"C={C} N={N} L={L} V={V} R={R}, "
+                           f"{int(torch.isfinite(got[0]).sum())} bids")
+        elif name == "row_topk_k256":
+            masked, K = a[0], a[1]
+            C, N = masked.shape
+            r.update(bound=bound(nbytes(masked, *got[:2]), C * N),
+                     library="torch.topk",
+                     library_ms=cuda_ms(lambda: torch.topk(masked, K, dim=1),
+                                        20),
+                     shape=f"C={C} N={N} K={K}")
+        elif name == "auction_claim":
+            topv, topi, can_plain, n_plain, rank, ctx = a[:6]
+            p_prio, p_req, could = a[7], a[8], a[11]
+            iters = kpre.CLAIM_ITERS
+            C, K = topi.shape
+            N, V, R = ctx.vreq.shape
+            row = ctx.vreq[0].numel() * 4 + V * (4 + 4 + 1 + 4 + 1)
+            b = nbytes(topv, topi, can_plain, n_plain, rank, p_prio, p_req,
+                       could, *got) + C * (row + 2 * R * 4)
+            r.update(bound=bound(b, iters * C * K * 3 + C * V * (R + 4)),
+                     shape=f"C={C} K={K} N={N} V={V} iters={iters}, "
+                           f"{int(got[1].sum())} claimed, "
+                           f"{int(got[2].sum())} to evict")
+        out[name] = r
+    return out
+
+
+def fast_preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
+    """Fast mode with preemption on (h) and on (h) with spread and
+    inter-pod terms, each through the engine (counters zeroed just before,
+    read just after), then 5 steady solves (median), the audit with
+    equality to the plain solve (host reads too) and the commit-key audit
+    in both eviction arms, the preemption audit, a stage breakdown; then
+    the auction kernels against their plain versions on the arguments of
+    each cell's first auction round. Returns (the phases' launch counts,
+    the kernel rows of (h))."""
+    cfg = EngineConfig(mode="fast", preemption=True)
+    cells = (
+        ("h fast: config5 10000x5000, preemption on", snap_h,
+         FAST_PREEMPT_KERNELS, ONCE),
+        ("h fast + spread/inter-pod terms", snap_hp,
+         FAST_PREEMPT_PAIR_KERNELS, FAST_PAIR_ONCE))
+    launches, rows = {}, {}
+    for name, snap, want, once in cells:
+        pair = snap.sigs.key.shape[0] > 0
+        results, phase_counts = solve_phase(
+            "fast preemption", ((name, cfg, snap),), want, once=once)
+        for k, v in phase_counts.items():
+            launches[k] = launches.get(k, 0) + v
+        _, _, _, res, wall_ms, moved = results[0]
+        eng = Engine(cfg)
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.solve(snap)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        bd = fast_breakdown(eng, snap)
+        dsnap = eng.put(snap)
+        eng.close()
+        claims = []
+
+        def hook(ops):
+            def rec(*a):
+                out = ops.auction_claim(*a)
+                claims.append(out[0].clone())
+                return out
+            return dataclasses.replace(ops, auction_claim=rec)
+
+        info, evs = with_recorded(
+            lambda: audit(name, cfg, dsnap, res, hook=hook), kassign,
+            "_evict_round")
+        per_round = [(a[0], a[2], t, out) for (a, out), t in zip(evs, claims)]
+        info.update(preempt_audit(name, dsnap, res,
+                                  per_round if pair else None))
+        if info["evicted"] < 1:
+            raise AssertionError(f"{name}: no victim evicted")
+        extra = (f", pairwise audit clean (S={info['signatures']}, "
+                 f"{info['anti_holders']} placed required-anti holders), "
+                 f"commit-key audit clean in both eviction arms "
+                 f"({info['commit_key_checked']} pods over {info['keys']} "
+                 f"keys; {info['one_arm_only']} checks fail in one arm "
+                 f"only), {info['stranded']} stranded victims (their "
+                 "preemptor reverted by the round's validation)"
+                 if pair else ", capacity holds with the evictions applied")
+        log(f"fast preemption solve {name}: {wall_ms:.3f} ms wall (first "
+            f"request), steady median of 5 {statistics.median(walls):.3f} "
+            f"ms; placed {info['placed']}/{info['valid_pods']}, "
+            f"{info['preempted']} by preemption, {info['evicted']} victims "
+            f"evicted; rounds {res.rounds} of which preemption "
+            f"{bd['preemption rounds']}, host reads {res.host_reads} of "
+            f"which preemption {bd['preemption host reads']}; launches "
+            f"{moved}; audit clean, equal to the plain solve in assignment, "
+            f"order, chosen, commit key, used, evicted, rounds and host "
+            f"reads (plain solve {info['plain_solve_ms']:.1f} ms); "
+            f"preemption audit clean{extra}; {smi}")
+        log(f"steady fast preemption solve {name}: stages (ms): " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in bd.items()) + f"; {smi}")
+        kp = auction_kernel_phase(dsnap, first_auction_calls(cfg, dsnap))
+        for kname, r in kp.items():
+            lib = (f", {r['library']} {r['library_ms']:.4f} ms"
+                   if r.get("library_ms") is not None else "")
+            prof = ("not measured" if r["prof_ms"] is None
+                    else f"{r['prof_ms']:.4f} ms")
+            log(f"kernel {kname} on {name.split(':')[0]}'s first auction "
+                f"round [{r['shape']}]: exact match, kernel {r['ms']:.4f} ms "
+                f"(CUDA events; profiler kernel time {prof}), plain "
+                f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound'][0]:.4f} ms "
+                f"({r['bound'][1]}); {smi}")
+        if not rows:
+            rows = kp
+        else:
+            for kname, r in kp.items():
+                rows[kname]["err"] = max(rows[kname]["err"], r["err"])
+    return launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port "
@@ -1633,6 +1946,10 @@ def main() -> int:
     for k, v in phase_counts.items():
         launches[k] += v
     kp.update(kp_pre)
+    phase_counts, kp_auction = fast_preempt_phase(snap_h, snap_hp, smi)
+    for k, v in phase_counts.items():
+        launches[k] += v
+    kp.update(kp_auction)
 
     for name, n in launches.items():
         if name in OFF_PATH:

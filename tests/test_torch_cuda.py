@@ -478,3 +478,110 @@ def test_preempt_solve_equal_plain(cuda, pair):
     got = _pack_solve(solve_core(cfg, snap))
     want = _pack_solve(solve_core(cfg, snap, ops=ka.PLAIN))
     assert torch.equal(got, want)
+
+
+# -- the fast preemption auction: K16-K18 and K6 at K = 256 -------------------
+
+
+def _auction_args(cuda, P, N, seed=45, C=None, pair=False):
+    """A config-5 snapshot on the card, its node-major victim table and a
+    random mid-solve auction state: (cfg, snap, ctx, evicted, used,
+    bidders' rows, priorities, requests, plain claimants, their nodes,
+    ranks)."""
+    kw = dict(spread_frac=0.3, interpod_frac=0.3) if pair else {}
+    snap, _ = tsynth.config5_preemption(np.random.default_rng(seed), P, N,
+                                        **kw)
+    snap = snap.to(cuda)
+    cfg = EngineConfig(mode="fast", preemption=True)
+    ctx = kpre.precompute_nv(cfg, snap, ka._PREEMPT_VICTIM_CAP)
+    M = snap.running.valid.shape[0]
+    Pb, Nb = snap.pods.valid.shape[0], snap.nodes.valid.shape[0]
+    C = C or min(Pb, ka._PREEMPT_BATCH)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ev = (torch.rand(M, generator=g) < 0.1).to(cuda) & snap.running.valid
+    used = snap.nodes.used * (0.95 + 0.1 * torch.rand(Nb, 1, generator=g)).to(
+        cuda)
+    rows = torch.randperm(Pb, generator=g)[:C].to(torch.int32).to(cuda)
+    prio = ka.effective_priority(cfg, snap.pods.base_priority,
+                                 snap.pods.slo_target,
+                                 snap.pods.observed_avail)[rows.long()]
+    req = snap.pods.requests[rows.long()].contiguous()
+    can_plain = (torch.rand(C, generator=g) < 0.1).to(cuda)
+    n_plain = torch.randint(0, Nb, (C,), generator=g).to(torch.int32).to(cuda)
+    rank = torch.randperm(C, generator=g).to(torch.int32).to(cuda)
+    return cfg, snap, ctx, ev, used, rows, prio, req, can_plain, n_plain, rank
+
+
+@pytest.mark.parametrize("size", ["small", "full"])
+def test_k16_to_k18_equal_plain(cuda, size):
+    """Each auction kernel against its plain version on the same CUDA
+    tensors, exactly, on the arguments the auction gives it: K17's
+    auction_ok, K16 on the thresholds of the active bidders, K17's
+    ranking, K6 at K = 256 on the bids, K18 on K6's candidates; at a small
+    size and at config 5's 10 000 x 5 000 (C = 1 024 bidders)."""
+    P, N = (96, 16) if size == "small" else (10000, 5000)
+    (cfg, snap, ctx, ev, used, rows, prio, req, can_plain, n_plain,
+     rank) = _auction_args(cuda, P, N)
+    C = rows.shape[0]
+    Nb = snap.nodes.valid.shape[0]
+    pre = ~can_plain
+    mask = ka.precompute_static(cfg, snap, _sat_tables(snap)[0]).mask
+    got_ok = kpre.auction_ok(mask, rows, None, pre, snap.nodes.valid)
+    want_ok = kpre.auction_ok_plain(mask, rows, None, pre, snap.nodes.valid)
+    _equal(got_ok, want_ok)
+    pair_ok = torch.rand(C, Nb, device=cuda) < 0.8
+    _equal(kpre.auction_ok(mask[rows.long()].contiguous(), None, pair_ok,
+                           pre, snap.nodes.valid),
+           kpre.auction_ok_plain(mask[rows.long()], None, pair_ok, pre,
+                                 snap.nodes.valid))
+    ok, any_ok = got_ok
+    thr = kpre.prio_thresholds(prio, any_ok & pre)
+    lanes = torch.cat([thr, torch.full((1,), float("inf"), device=cuda)])
+    rem = kpre.pdb_remaining(snap, ev).contiguous()
+    tabs = kpre.auction_tables(ctx, ev, lanes, rem, 0.0)
+    _equal(tabs, kpre.auction_tables_plain(ctx, ev, lanes, rem, 0.0))
+    lane = kpre.bucket_of(thr, prio)
+    args = (*tabs, lane, ok, used, snap.nodes.allocatable, req)
+    bid, could = kpre.auction_rank(*args)
+    _equal((bid, could), kpre.auction_rank_plain(*args))
+    assert torch.isfinite(bid).any()
+    K = min(256, Nb)
+    topv, topi, _ = ka.row_topk(bid, K)
+    _equal((topv, topi), ka.row_topk_plain(bid, K)[:2])
+    cargs = (topv, topi, can_plain, n_plain, rank, ctx, ev, prio, req,
+             used, snap.nodes.allocatable, could, 0.0,
+             snap.pdb_allowed.shape[0])
+    got = kpre.auction_claim(*cargs)
+    _equal(got, kpre.auction_claim_plain(*cargs))
+    assert got[2].any()
+
+
+@pytest.mark.parametrize("N", [300, 5120])
+def test_k6_k256_equal_plain(cuda, N):
+    """K6 at the auction's K = 256 on a bid-like block (negated costs
+    with ties, -inf where no bid) against its plain version, exactly."""
+    g = torch.Generator(device="cpu").manual_seed(N)
+    m = -torch.randint(1, 50, (64, N), generator=g).to(torch.float32)
+    m[torch.rand(64, N, generator=g) < 0.5] = float("-inf")
+    m[:2] = float("-inf")
+    m = m.to(cuda)
+    _equal(ka.row_topk(m, 256)[:2], ka.row_topk_plain(m, 256)[:2])
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+def test_fast_preempt_solve_equal_plain(cuda, pair, tie_break):
+    """A fast solve with preemption (the auction rounds; with signatures
+    the pairwise-involved claimants and the validation fixpoint) equals
+    its plain solve on the same CUDA tensors, evictions and host reads
+    included, and evicts."""
+    snap = _preempt_snap(cuda, pair, seed=9)
+    cfg = EngineConfig(mode="fast", preemption=True, tie_break=tie_break,
+                       tie_seed=5)
+    s1, s2 = ka.RoundStats(), ka.RoundStats()
+    got = _pack_solve(solve_core(cfg, snap, stats=s1))
+    want = _pack_solve(solve_core(cfg, snap, ops=ka.PLAIN, stats=s2))
+    assert torch.equal(got, want)
+    assert s1.host_reads == s2.host_reads
+    res = Engine.unpack(snap, got.cpu().numpy())
+    assert res.evicted.any()

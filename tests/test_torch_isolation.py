@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -87,13 +88,26 @@ def test_fast_engine_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(mode="fast", preemption=True), NotImplementedError),
     (dict(mode="bogus"), ValueError),
     (dict(tie_break="random"), NotImplementedError),
     (dict(ring_counts=True), ValueError),
 ])
 def test_engine_refuses_unported_modes(kw, exc):
-    """Fast mode with preemption (the batched auction) names the ROADMAP
-    item that ports it."""
-    with pytest.raises(exc, match="A8b" if kw.get("preemption") else None):
+    with pytest.raises(exc):
         Engine(EngineConfig(**kw), device="cpu")
+
+
+def test_engine_runs_fast_preemption():
+    """Fast mode with preemption (the batched auction) is ported: the
+    engine takes the config and solves a config-5 snapshot on the CPU,
+    with every placed pod within capacity after its evictions."""
+    from tpusched_torch.synth import config5_preemption
+
+    snap, _ = config5_preemption(np.random.default_rng(0), 24, 6)
+    res = Engine(EngineConfig(mode="fast", preemption=True),
+                 device="cpu").solve(snap)
+    alloc = snap.nodes.allocatable.numpy()
+    placed = res.assignment >= 0
+    assert placed.any() and res.evicted.any()
+    assert (res.final_used <= alloc + 1e-3).all()
+    assert (~np.isfinite(res.chosen_score[placed])).any()

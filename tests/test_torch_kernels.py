@@ -516,3 +516,139 @@ def test_segment_prefix_fixed_order():
     err_seg = np.abs(got.numpy() - exact).max()
     err_jax = np.abs(jax_like - exact).max()
     assert err_seg * 10 < err_jax
+
+
+# -- the fast preemption auction (K16, K17, K6 at K = 256) -------------------
+
+
+def _auction_inputs(seed: int, C: int = 24):
+    """A config-5 snapshot (JAX-built), its node-major victim table in
+    both packages, and a random auction state: evicted victims, usage,
+    lane thresholds with ties at victim priorities, bidders' lanes,
+    allowed nodes and requests."""
+    from tpusched.kernels import preempt as jpre
+
+    jsnap, _ = jsynth.config5_preemption(np.random.default_rng(seed), 40, 12,
+                                         pdb_frac=0.6)
+    tsnap = snapshot_from_numpy(jax.device_get(jsnap))
+    jctx = jpre.precompute_nv(JConfig(), jsnap, 16)
+    tctx = kpre.precompute_nv(EngineConfig(), tsnap, 16)
+    r = np.random.default_rng(seed)
+    M = tsnap.running.valid.shape[0]
+    N = tsnap.nodes.valid.shape[0]
+    ev = (r.random(M) < 0.2) & np.asarray(jsnap.running.valid)
+    vp = np.asarray(jctx.vprio)
+    thr = np.array([vp[np.isfinite(vp)].min(), float(np.median(
+        vp[np.isfinite(vp)])), np.inf], np.float32)
+    used = (np.asarray(jsnap.nodes.used)
+            * r.uniform(0.9, 1.05, (N, 1))).astype(np.float32)
+    reqs = np.asarray(jsnap.pods.requests)
+    req = reqs[r.integers(0, reqs.shape[0], C)]
+    ok = r.random((C, N)) < 0.7
+    lane = r.integers(0, 2, C).astype(np.int32)
+    return jsnap, tsnap, jctx, tctx, ev, thr, used, req, ok, lane
+
+
+def _jax_lane_tables(jsnap, jctx, ev, thr_b):
+    """preempt_auction's node_rank tables (tpusched/kernels/preempt.py
+    :491-506), as jnp."""
+    M = ev.shape[0]
+    V = jctx.vvalid.shape[1]
+    ev_nv = jnp.asarray(ev)[jnp.clip(jctx.vidx, 0, M - 1)] & jctx.vvalid
+    elig = jctx.vvalid & ~ev_nv & (jctx.vprio + 0.0 < thr_b)
+    cum_req = jnp.cumsum(jnp.where(elig[..., None], jctx.vreq, 0.0), axis=1)
+    cum_cost = jnp.cumsum(jnp.where(elig, jctx.vcost, 0.0), axis=1)
+    run_pdb = jsnap.running.pdb_group
+    consumed = jnp.zeros(jsnap.pdb_allowed.shape[0], jnp.float32).at[
+        jnp.clip(run_pdb, 0, None)].add(
+        (jnp.asarray(ev) & (run_pdb >= 0) & jsnap.running.valid).astype(
+            jnp.float32))
+    remaining = jsnap.pdb_allowed - consumed
+    has = jctx.vpdb >= 0
+    tri = jnp.arange(V)[:, None] >= jnp.arange(V)[None, :]
+    same = ((jctx.vpdb[:, :, None] == jctx.vpdb[:, None, :])
+            & has[:, :, None] & tri[None]).astype(jnp.float32)
+    wcnt = jnp.einsum("nvw,nw->nv", same, (elig & has).astype(jnp.float32))
+    viol = elig & has & (wcnt > remaining[jnp.clip(jctx.vpdb, 0, None)])
+    cum_viol = jnp.cumsum(viol.astype(jnp.float32), axis=1)
+    return cum_req, cum_cost, cum_viol, remaining
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_auction_tables_and_rank_plain_match_jax(seed):
+    """K16's plain lane tables against preempt_auction's jnp lines
+    (requests and cost at 1 ulp: XLA orders its V-long cumsum itself;
+    the violation counts exact), and K17's plain ranking against the
+    jnp ranking of the same tables (first-feasible position, fallback
+    lane, fewest violations, bids) exactly."""
+    jsnap, tsnap, jctx, tctx, ev, thr, used, req, ok, lane = \
+        _auction_inputs(seed)
+    jt = [_jax_lane_tables(jsnap, jctx, ev, t) for t in thr]
+    remaining = torch.from_numpy(np.asarray(jt[0][3]))
+    cum_req, cum_cost, cum_viol = kpre.auction_tables_plain(
+        tctx, torch.from_numpy(ev), torch.from_numpy(thr), remaining, 0.0)
+    for l in range(3):
+        np.testing.assert_array_max_ulp(cum_req[l].numpy(),
+                                        np.asarray(jt[l][0]), maxulp=1)
+        np.testing.assert_array_max_ulp(cum_cost[l].numpy(),
+                                        np.asarray(jt[l][1]), maxulp=1)
+        np.testing.assert_array_equal(cum_viol[l].numpy(),
+                                      np.asarray(jt[l][2]).astype(np.int32))
+    assert int(cum_viol[-1, :, -1].sum()) > 0
+    bid, could = kpre.auction_rank_plain(
+        cum_req, cum_cost, cum_viol, torch.from_numpy(lane),
+        torch.from_numpy(ok), torch.from_numpy(used),
+        tsnap.nodes.allocatable, torch.from_numpy(req))
+    # The jnp ranking (:486, :510-562) on the port's tables.
+    tabs = [(jnp.asarray(cum_req[l].numpy()), jnp.asarray(cum_cost[l].numpy()),
+             jnp.asarray(cum_viol[l].numpy().astype(np.float32)))
+            for l in range(3)]
+    need = (jnp.asarray(used)[None] + jnp.asarray(req)[:, None, :]
+            - jsnap.nodes.allocatable[None])
+    C, N = ok.shape
+    V = cum_req.shape[2]
+
+    def rank_j(cr, cc, cv):
+        pos = jnp.zeros((C, N), jnp.int32)
+        for r in range(need.shape[2]):
+            pos = jnp.maximum(pos, jnp.sum(
+                (cr[None, :, :, r] < need[:, :, None, r]).astype(jnp.int32),
+                axis=2))
+        feas = jnp.all(need <= cr[None, :, V - 1, :], axis=-1)
+        posc = jnp.clip(pos, 0, V - 1)
+        return (feas, cc[jnp.arange(N)[None, :], posc],
+                cv[jnp.arange(N)[None, :], posc])
+
+    lanes = [rank_j(*t) for t in tabs]
+    pick = lambda i: jnp.take_along_axis(jnp.stack(
+        [lanes[0][i], lanes[1][i]]), jnp.asarray(lane)[None, :, None],
+        axis=0)[0]
+    okj = jnp.asarray(ok)
+    feas_o, cost_o, viol_o = lanes[2]
+    use_fb = (~jnp.any(okj & pick(0), axis=1)
+              & jnp.any(okj & feas_o, axis=1))[:, None]
+    feas = jnp.where(use_fb, feas_o, pick(0))
+    cost = jnp.where(use_fb, cost_o, pick(1))
+    viol = jnp.where(use_fb, viol_o, pick(2))
+    vt = jnp.where(okj & feas, viol, jnp.inf)
+    total = jnp.where(okj & feas & (vt == jnp.min(vt, axis=1,
+                                                  keepdims=True)),
+                      cost, jnp.inf)
+    np.testing.assert_array_equal(bid.numpy(), np.asarray(-total))
+    np.testing.assert_array_equal(could.numpy(),
+                                  np.asarray(jnp.any(okj & feas_o, axis=1)))
+    assert np.isfinite(bid.numpy()).any()
+
+
+def test_row_topk_plain_k256_matches_lax_top_k():
+    """K6's plain version at the auction's K = 256 on a bid-like block
+    (negated costs with many ties, -inf where a node is not a bid)
+    against lax.top_k(-total, 256): exact, ties to the lower index."""
+    r = np.random.default_rng(0)
+    m = -r.integers(1, 40, size=(48, 700)).astype(np.float32)
+    m[r.random(m.shape) < 0.5] = -np.inf
+    m[:3] = -np.inf
+    jv, ji = jax.lax.top_k(jnp.asarray(m), 256)
+    tv, ti, _ = tassign.row_topk_plain(torch.from_numpy(m), 256)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))

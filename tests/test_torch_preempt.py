@@ -24,10 +24,11 @@ from tpusched import Engine as JEngine
 from tpusched import synth as jsynth
 from tpusched.config import EngineConfig as JConfig
 from tpusched.kernels import preempt as jpre
-from tpusched.oracle import Oracle
+from tpusched.oracle import Oracle, validate_assignment
 from tpusched.snapshot import SnapshotBuilder as JBuilder
 from tpusched_torch import Engine, EngineConfig
 from tpusched_torch import synth as tsynth
+from tpusched_torch.engine import _sat_tables as tsat
 from tpusched_torch.kernels import preempt as tpre
 from tpusched_torch.snapshot import snapshot_from_numpy
 from test_torch_snapshot import assert_same_arrays
@@ -383,14 +384,19 @@ def test_pair_state_evict_equals_jax():
     assert float(tst.anti.sum()) > float(tout.anti.sum())
 
 
-def test_fast_preemption_still_refused():
-    """The fast auction is the next slice: the engine and a direct
-    solve_rounds call both refuse it."""
+def test_fast_preemption_runs():
+    """The fast auction is ported: the engine and a direct solve_rounds
+    call both run fast mode with preemption and return a valid result."""
     from tpusched_torch.kernels import assign as tassign
 
-    with pytest.raises(NotImplementedError, match="A8b"):
-        Engine(EngineConfig(mode="fast", preemption=True), device="cpu")
-    tsnap, _ = tsynth.config5_preemption(np.random.default_rng(0), 8, 4)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        tassign.solve_rounds(EngineConfig(mode="fast", preemption=True),
-                             tsnap, None)
+    cfg = EngineConfig(mode="fast", preemption=True)
+    jsnap, _ = jsynth.config5_preemption(np.random.default_rng(0), 8, 4)
+    tsnap = snapshot_from_numpy(jax.device_get(jsnap))
+    res = Engine(cfg, device="cpu").solve(tsnap)
+    assert validate_assignment(jsnap, JConfig(mode="fast", preemption=True),
+                               res.assignment, commit_key=res.commit_key,
+                               evicted=res.evicted) == []
+    assert (res.assignment >= 0).any()
+    out = tassign.solve_rounds(cfg, tsnap, *tsat(tsnap))
+    np.testing.assert_array_equal(out[0].numpy(), res.assignment)
+    np.testing.assert_array_equal(out[6].numpy(), res.evicted)

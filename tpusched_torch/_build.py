@@ -76,6 +76,10 @@ SIGNATURES = {
     "tpusched_parity_scan_pair_preempt": [_I, _I, _I] + [_P] * 10
                                          + [_I, _U] + [_I] * 4 + [_P] * 19
                                          + _PREEMPT + [_P] * 4,
+    "tpusched_auction_tables": [_I] * 6 + [_P] * 9 + [_F] + [_P] * 4,
+    "tpusched_auction_ok": [_I, _I] + [_P] * 8,
+    "tpusched_auction_rank": [_I] * 5 + [_P] * 11,
+    "tpusched_auction_claim": [_I] * 8 + [_P] * 16 + [_F] + [_P] * 8,
 }
 
 _lib: "ctypes.CDLL | None" = None

@@ -229,8 +229,8 @@ class EngineConfig:
     mode: str = "parity"
     # Fast-mode round cap (0: the automatic bound, 2 * P + 8).
     max_rounds: int = 0
-    # PostFilter preemption: parity mode runs it inside the scan; fast
-    # mode's batched auction is not ported yet (ROADMAP A8b).
+    # PostFilter preemption: parity mode runs it inside the scan, fast
+    # mode as batched auction rounds after its main rounds.
     preemption: bool = False
     # Tie-break among equal-score maxima: "first" = lowest node index;
     # "seeded" = the qos.tie_hash(tie_seed, pod) pick among the maxima,

@@ -280,6 +280,56 @@ int tpusched_parity_scan_pair_preempt(
     float* cum, int* cum_viol, float* used, int* assigned, float* chosen,
     void* stream);
 
+// K16. The fast preemption auction's lane tables (tpusched/kernels/
+// preempt.py:488-545): per lane l and node n, the V-long inclusive
+// prefixes (from 0.0, left to right) of the requests and cost of the
+// victims eligible at thr[l], and of their PDB violations.
+int tpusched_auction_tables(int L, int N, int V, int R, int M, int GP,
+                            const float* vreq, const float* vcost,
+                            const float* vprio, const int* vpdb,
+                            const bool* vvalid, const int* vidx,
+                            const bool* evicted, const float* thr,
+                            const float* remaining, float margin,
+                            float* cum_req, float* cum_cost, int* cum_viol,
+                            void* stream);
+
+// K17's auction_ok entry point: ok[c, n] = mask[rows ? rows[c] : c, n] &
+// node_valid[n] & pre_active[c] & (pair_ok ? pair_ok[c, n] : true), and
+// any_ok[c] = any over n. rows and pair_ok may be NULL.
+int tpusched_auction_ok(int C, int N, const bool* mask, const int* rows,
+                        const bool* pair_ok, const bool* pre_active,
+                        const bool* node_valid, bool* ok, bool* any_ok,
+                        void* stream);
+
+// K17. The auction's [C, N] ranking (preempt.py:486-562): bid = -cost of
+// the first prefix freeing each bidder's demand on each allowed node, over
+// the nodes with the fewest violations, in the bidder's lane (or the
+// optimistic lane L - 1 as its fallback); -inf elsewhere. could[c]: some
+// allowed node is feasible in the optimistic lane.
+int tpusched_auction_rank(int L, int N, int V, int R, int C,
+                          const float* cum_req, const float* cum_cost,
+                          const int* cum_viol, const int* lane,
+                          const bool* ok, const float* used,
+                          const float* alloc, const float* p_req, float* bid,
+                          bool* could, void* stream);
+
+// K18. The auction's claim iterations and exact [C, V] validation
+// (preempt.py:564-679), one CTA; C <= 1024, 5 * N bytes of shared
+// memory. topv_t, topi_t: the candidate lists transposed, [K, C]. usage
+// must arrive zeroed.
+int tpusched_auction_claim(int C, int K, int N, int V, int R, int M, int GP,
+                           int iters, const float* topv_t, const int* topi_t,
+                           const bool* can_plain, const int* n_plain,
+                           const int* rank, const float* vreq,
+                           const float* vprio, const int* vpdb,
+                           const bool* vvalid, const int* vidx,
+                           const bool* evicted, const float* p_prio,
+                           const float* p_req, const float* used,
+                           const float* alloc, const bool* could,
+                           float margin, int* target, bool* claimed,
+                           bool* takes, int* vidx_t, float* freed,
+                           int* usage, bool* could_bid, void* stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -19,6 +19,12 @@ Everything runs on the CUDA device unless the caller asks for the CPU
     -> pair_counts (K10) -> solve_rounds (K11, K5, K12, K6, K7, K8 and
        K10's commit a round; K14, K13, K8's node_add and K10's commit a
        validation pass)                        [mode="fast", S > 0]
+       with preemption=True and running pods, after the main rounds, the
+       preemption drain's auction rounds (the node-major victim table
+       kernels/preempt.precompute_nv, then each round K5 and K6 on the
+       bidders' rows, K11 first with signatures, the auction's K17, K16,
+       K17, K6 and K18, the plain commits through K7, K8 and node_add,
+       and with signatures the validation through K10, K14 and K13)
     -> gang_rollback (the gang gate, both modes: quorum counts, then
        K8's node_add and K10's pair_commit with sign -1)
     -> _pack_solve (the evicted running pods in its [M] section).
@@ -30,9 +36,7 @@ members (K10) and every pod's pairwise row (K11), then one [P, N] Filter
 
 S is the number of pairwise signatures (topology spread, inter-pod
 affinity and anti-affinity terms). The engine starts no thread: every
-entry point is synchronous and `close` has nothing to release. Fast
-mode with preemption (the batched auction, ROADMAP A8b) is refused with
-NotImplementedError.
+entry point is synchronous and `close` has nothing to release.
 """
 
 from __future__ import annotations
@@ -171,10 +175,6 @@ class Engine:
         cfg = self.config
         if cfg.mode not in ("parity", "fast"):
             raise ValueError(f"mode={cfg.mode!r}: want 'parity' or 'fast'")
-        if cfg.mode == "fast" and cfg.preemption:
-            raise NotImplementedError(
-                "mode='fast' with preemption (the batched preemption "
-                "auction) is not ported yet; ROADMAP A8b ports it")
         if cfg.ring_counts:
             raise ValueError(
                 "ring_counts=True needs a device mesh, which the port "

@@ -1,6 +1,6 @@
 """The solve paths: the port of `tpusched/kernels/assign.py`, with
-pairwise signatures (topology spread, inter-pod affinity), gangs in
-both modes and PostFilter preemption in parity mode.
+pairwise signatures (topology spread, inter-pod affinity), gangs and
+PostFilter preemption in both modes.
 
 The scheduling cycle splits, as in the JAX package, into
   * a STATIC part computed once per snapshot (StaticCtx): the cell-local
@@ -31,6 +31,10 @@ The scheduling cycle splits, as in the JAX package, into
     preemption variant (`parity_scan_preempt`, `parity_scan_pair_preempt`):
     a pod that fits nowhere searches the (node, cost)-sorted victims for
     the cheapest prefix to evict (K15, `kernels/preempt`), inside K4.
+    Fast mode drains the pods its rounds left with batched auction
+    rounds (`_preempt_rounds`): the best-ranked pending pods bid at once
+    for victim prefixes on the node-major victim table (K16-K18 and K6,
+    `kernels/preempt.preempt_auction`), one claimant a node.
   * Both modes end with the gang gate (`gang_rollback`): a pod group
     short of its min_member unwinds through K8's `node_add` and K10's
     `pair_commit` with sign -1.
@@ -41,9 +45,10 @@ The solve functions take an `Ops` table (default: the kernel wrappers);
 solve on CUDA tensors without a kernel, to compare.
 
 The JAX fast rounds are `lax.while_loop`s on the device. Here they are
-Python loops that read one device flag per round, per commit sub-step,
-per tranche, per validation pass and per hand-off from full-width to
-compacted rounds; `RoundStats` counts those reads.
+Python loops that read one device flag per round (preemption rounds
+included), per commit sub-step, per tranche, per validation pass and
+per hand-off from full-width to compacted rounds; `RoundStats` counts
+those reads.
 """
 
 from __future__ import annotations
@@ -791,10 +796,13 @@ def row_topk(masked: torch.Tensor, K: int, seeded: bool = False,
         topv.data_ptr(), topi.data_ptr(),
         pick.data_ptr() if pick is not None else None, stream_of(dev))
     row_topk.launches += 1
+    if K > 16:
+        row_topk.wide_launches += 1
     return topv, topi, pick
 
 
 row_topk.launches = 0
+row_topk.wide_launches = 0   # of them, with K > 16 (the auction's 256)
 
 
 # -- K7: node desirability --------------------------------------------------
@@ -1115,6 +1123,10 @@ class RoundStats:
 
     def __init__(self, timing: bool = False):
         self.host_reads = 0
+        # Of them, the preemption rounds' (fast mode with preemption),
+        # and those rounds' count.
+        self.preempt_reads = 0
+        self.preempt_rounds = 0
         self._spans: dict[str, list] | None = {} if timing else None
 
     def read(self, flag: torch.Tensor) -> bool:
@@ -1922,6 +1934,7 @@ def _round_sig(cfg: EngineConfig, snap_v: ClusterSnapshot,
 def _solve_rounds_sig(cfg: EngineConfig, snap: ClusterSnapshot,
                       static: StaticCtx, rank: torch.Tensor,
                       order: torch.Tensor, st0: "kpair.PairState",
+                      invol: torch.Tensor, has_pair: torch.Tensor,
                       max_rounds: int, K: int, cap: int, ops: "Ops",
                       stats: RoundStats):
     """The fast rounds with signatures (S > 0; JAX `_solve_rounds_sig`):
@@ -1941,7 +1954,6 @@ def _solve_rounds_sig(cfg: EngineConfig, snap: ClusterSnapshot,
     P = pods.valid.shape[0]
     dev = pods.valid.device
     dom_s = kpair.sig_domains(snap)
-    invol, has_pair = _sig_involvement(snap, static, st0)
     ids = torch.arange(P, dtype=torch.int32, device=dev)
     used, st = nodes.used, st0
     assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
@@ -2029,6 +2041,281 @@ def gang_rollback(snap: ClusterSnapshot, used: torch.Tensor,
     return used, assigned, chosen, pair_st, roll
 
 
+# The fast mode's preemption drain (JAX `_preempt_rounds`): each round the
+# _PREEMPT_BATCH best-ranked unplaced pods bid at once, after (S = 0) a
+# plain dealing round over the _PREEMPT_DRAIN best-ranked pending pods;
+# at most _PREEMPT_MAX_ROUNDS rounds; a fast-mode preemptor evicts at most
+# _PREEMPT_VICTIM_CAP victims on one node (the node-major table's V).
+_PREEMPT_BATCH = 1024
+_PREEMPT_DRAIN = 1024
+_PREEMPT_MAX_ROUNDS = 128
+_PREEMPT_VICTIM_CAP = 16
+
+
+def _evict_round(evicted: torch.Tensor, vidx_t: torch.Tensor,
+                 keep_evict: torch.Tensor) -> torch.Tensor:
+    """evicted | the kept eviction bids' victim prefixes (vidx_t holds M
+    at the slots that are not victims; a sentinel slot M takes those and
+    the bids not kept, so no mask is read back to the host)."""
+    M = evicted.shape[0]
+    hit = torch.zeros(M + 1, dtype=torch.bool, device=evicted.device)
+    hit[torch.where(keep_evict[:, None], vidx_t, M).long()] = True
+    return evicted | hit[:M]
+
+
+def _bidder_rows(cfg: EngineConfig, snap: ClusterSnapshot,
+                 static: StaticCtx, sel: torch.Tensor, used: torch.Tensor,
+                 st: "kpair.PairState | None", dom_s: torch.Tensor | None,
+                 ops: "Ops"):
+    """The plain evaluation of the pods `sel` against `used` and the
+    pair state (JAX's `vmap(pod_cycle)` and `pick_node` over them): K5
+    on their rows, with signatures on the gathered pod view after K11's
+    pairwise rows; K6's top-1 (or seeded pick) as the scored node.
+    Returns (feasible [C, N], masked [C, N], n_plain [C] int32, its
+    masked score [C], pair_ok [C, N] or None at S = 0, (snap_v,
+    static_v) or None at S = 0)."""
+    nodes = snap.nodes
+    s32 = sel.to(torch.int32)
+    if snap.sigs.key.shape[0] == 0:
+        feas, score = ops.cycle(
+            nodes.allocatable, used, snap.pods.requests, static.mask,
+            static.score, static.w_lr, static.w_ba, static.w_ts, static.rw,
+            rows=s32)
+        pair_ok = view = None
+    else:
+        snap_v, static_v = _pods_view(snap, static, sel.long())
+        pair = ops.pairwise_batch(snap_v, st, static_v.aff_ok,
+                                  static_v.sig_match, dom_s)
+        feas, score = ops.cycle(
+            nodes.allocatable, used, snap_v.pods.requests, static_v.mask,
+            static_v.score, static_v.w_lr, static_v.w_ba, static_v.w_ts,
+            static_v.rw, pair=pair, w_ia=static_v.w_ia)
+        pair_ok, view = pair[0], (snap_v, static_v)
+    masked = torch.where(feas, score, torch.full((), NEG_INF,
+                                                 dtype=torch.float32,
+                                                 device=score.device))
+    topv, topi, pick = ops.row_topk(masked, 1, cfg.tie_break == "seeded",
+                                    cfg.tie_seed, s32)
+    n_plain = pick if pick is not None else topi[:, 0]
+    sc = masked.gather(1, n_plain.long()[:, None])[:, 0]
+    return feas, masked, n_plain, sc, pair_ok, view
+
+
+def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
+                    static: StaticCtx, rank: torch.Tensor,
+                    order: torch.Tensor, base_rounds: int,
+                    used: torch.Tensor, assigned: torch.Tensor,
+                    st: "kpair.PairState | None", round_of: torch.Tensor,
+                    chosen: torch.Tensor, has_pair: torch.Tensor,
+                    dom_s: torch.Tensor | None, ops: "Ops",
+                    stats: RoundStats):
+    """Fast-mode PostFilter as batched auction rounds (JAX
+    `_preempt_rounds`), a host loop that reads one progress flag a round.
+    A round:
+      1. (S = 0) a plain dealing round (K5, K6, K7, K8) over the
+         _PREEMPT_DRAIN best-ranked pending pods places what fits;
+      2. the C best-ranked pending pods not yet tried are evaluated
+         against round-start state (K5 on their rows; with signatures
+         K11's pairwise rows first) and picked as `pick_node` would (K6);
+         pods that fit nowhere and are not gang members bid in the
+         auction (`kernels/preempt.preempt_auction`: K16-K18 and K6),
+         with the pairwise-involved plain pods as single-candidate
+         claimants;
+      3. a rank-ordered budget gate over the claims (integer counts);
+      4. the kept bids' victims are evicted; the plain pods without
+         pairwise involvement commit by a dealing round (K7, K8) on the
+         nodes no keep claimed;
+      5. with signatures the round's keeps are validated against the
+         end-of-round pair state until nothing more reverts (K10, K14,
+         K13); a reverted preemptor's victims stay evicted;
+      6. `used` gains the claim-exclusive eviction and placement deltas
+         (one real term a node, so `index_add_` is exact) and the plain
+         commits through K8's node_add, in rank order.
+    Every keep of round r shares the commit key base_rounds + r. A pod
+    gets one bid until some keep changes the state. Returns (used,
+    assigned, st, evicted, round_of, chosen, rounds)."""
+    pods, nodes = snap.pods, snap.nodes
+    P = pods.valid.shape[0]
+    N = nodes.valid.shape[0]
+    M = snap.running.valid.shape[0]
+    dev = pods.valid.device
+    C = min(P, _PREEMPT_BATCH)
+    S = snap.sigs.key.shape[0]
+    GP = snap.pdb_allowed.shape[0]
+    K = _fallback_depth(N)
+    seeded = cfg.tie_break == "seeded"
+    alloc = nodes.allocatable
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    with stats.span("preempt victim table"):
+        pctx = kpre.precompute_nv(cfg, snap, _PREEMPT_VICTIM_CAP)
+    prio = effective_priority(cfg, pods.base_priority, pods.slo_target,
+                              pods.observed_avail)
+    evicted = torch.zeros(M, dtype=torch.bool, device=dev)
+    tried = torch.zeros(P, dtype=torch.bool, device=dev)
+    compact_pv = S > 0 and _compact_cap(cfg, P) > 0
+    r = 0
+    progress = None
+    while r < _PREEMPT_MAX_ROUNDS and (progress is None
+                                       or stats.read(progress)):
+        key = base_rounds + r
+        drained = torch.zeros((), dtype=torch.bool, device=dev)
+        if S == 0:
+            with stats.span("preempt drain"):
+                pend0 = (assigned < 0) & pods.valid
+                dsel = _top_by_rank(pend0, order, min(_PREEMPT_DRAIN, P))[0]
+                d64, d32 = dsel.long(), dsel.to(torch.int32)
+                feas_d, masked_d = ops.cycle(
+                    alloc, used, pods.requests, static.mask, static.score,
+                    static.w_lr, static.w_ba, static.w_ts, static.rw,
+                    rows=d32, pending=pend0[d64], masked=True)
+                topv, topi, pick = ops.row_topk(masked_d, K, seeded,
+                                                cfg.tie_seed, d32)
+                used, choice_d, chosen_d = _deal_commit(
+                    alloc, pods.requests[d64], used, feas_d, masked_d,
+                    topv[:, 0] > NEG_INF, rank[d64], topv, topi,
+                    tie_pick=pick, rank_is_sorted=True, ops=ops,
+                    stats=stats)
+                hit_d = choice_d >= 0
+                assigned = assigned.index_put((d64,), torch.where(
+                    hit_d, choice_d, assigned[d64]))
+                chosen = chosen.index_put((d64,), torch.where(
+                    hit_d, chosen_d, chosen[d64]))
+                round_of = round_of.index_put((d64,), torch.where(
+                    hit_d, key, round_of[d64]))
+                drained = hit_d.any()
+        pend = (assigned < 0) & pods.valid & ~tried
+        sel = _top_by_rank(pend, order, C)[0]
+        s64, s32 = sel.long(), sel.to(torch.int32)
+        real = pend[s64]
+        req_sel = pods.requests[s64]
+        rank_sel = rank[s64]
+        with stats.span("preempt plain evaluation"):
+            (feas_pl, masked_pl, n_plain, sc_plain, pair_ok,
+             view) = _bidder_rows(cfg, snap, static, sel, used, st, dom_s,
+                                  ops)
+            can_plain = (sc_plain > NEG_INF) & real
+            if S == 0:
+                mask_rows, rows = static.mask, s32
+            else:
+                snap_v, static_v = view
+                mask_rows, rows = static_v.mask, None
+        hp_sel = has_pair[s64]
+        plain_excl = can_plain & hp_sel
+        plain_cap = can_plain & ~hp_sel
+        # Gang members never preempt.
+        pre_active = real & ~can_plain & (pods.group[s64] < 0)
+        with stats.span("preempt auction"):
+            (target, claimed, takes_evict, vidx_t, freed_req, usage,
+             could_bid) = kpre.preempt_auction(
+                cfg, snap, pctx, prio[s64], req_sel, mask_rows, used,
+                evicted, plain_excl, n_plain, rank=rank_sel, ops=ops,
+                rows=rows, pair_ok=pair_ok, pre_active=pre_active)
+        could_bid = could_bid | plain_cap
+        with stats.span("preempt budget gate"):
+            keep = claimed
+            if GP:
+                # The claims as a rank-ordered prefix (sel is in rank
+                # order) while each touched budget's claimed-cumulative
+                # use stays inside what it has left; a bid whose own use
+                # overdraws (a declared violation) keeps regardless.
+                rem = kpre.pdb_remaining(snap, evicted)[None, :] + 1e-6
+                use_cl = torch.where(claimed[:, None], usage, 0)
+                cum = torch.cumsum(use_cl, dim=0).to(torch.float32)
+                use_f = usage.to(torch.float32)
+                fits_budget = torch.where(usage > 0, cum <= rem,
+                                          True).all(dim=1)
+                alone = (use_f > rem).any(dim=1)
+                keep = claimed & (fits_budget | alone)
+            keep_evict = keep & takes_evict
+            evicted2 = _evict_round(evicted, vidx_t, keep_evict)
+        tgt_c = target.clamp(0, N - 1).long()
+        with stats.span("preempt plain commit"):
+            taken = torch.zeros(N + 1, dtype=torch.bool, device=dev)
+            taken[torch.where(keep, tgt_c, N)] = True
+            taken = taken[:N]
+            feas_c = feas_pl & plain_cap[:, None] & ~taken[None, :]
+            masked_c = torch.where(feas_c, masked_pl, neg)
+            topv, topi, pick = ops.row_topk(masked_c, K, seeded,
+                                            cfg.tie_seed, s32)
+            _, choice_pl, chosen_pl = _deal_commit(
+                alloc, req_sel, used, feas_c, masked_c,
+                plain_cap & (topv[:, 0] > NEG_INF), rank_sel, topv, topi,
+                tie_pick=pick, rank_is_sorted=True, ops=ops, stats=stats)
+        keep_pl = choice_pl >= 0
+        keep_all = keep | keep_pl
+        target_all = torch.where(keep_pl, choice_pl, target)
+        if S:
+            with stats.span("preempt pairwise fixpoint"):
+                # The pair state stays eviction-free through these rounds
+                # (JAX's choice: every check then equals the audit's
+                # no-eviction arm). Keeps revert to pending until the
+                # end-of-round state validates them all; their victims
+                # stay evicted.
+                if compact_pv:
+                    snap_pv, static_pv = snap_v, static_v
+                    choice_pv = torch.where(keep_all, target_all, -1)
+                    keep_pv, hp_pv, rank_pv = keep_all, hp_sel, rank_sel
+                else:
+                    snap_pv, static_pv = snap, static
+                    choice_pv = torch.full(
+                        (P,), -1, dtype=torch.int32, device=dev).index_put(
+                        (s64,), torch.where(keep_all, target_all, -1))
+                    keep_pv = torch.zeros(
+                        P, dtype=torch.bool, device=dev).index_put(
+                        (s64,), keep_all)
+                    hp_pv, rank_pv = has_pair, rank
+                sig_pv = static_pv.sig_match
+                st = ops.pair_commit(snap_pv, st, sig_pv, dom_s, choice_pv,
+                                     keep_pv, 1.0)
+                kept = keep_pv
+                flag = (keep_pv & hp_pv).any()
+                while stats.read(flag):
+                    ia_ok = ops.ia_ok_at_choice(
+                        snap_pv, st, sig_pv, dom_s, choice_pv,
+                        torch.where(kept, choice_pv, -1))
+                    bad = kept & hp_pv & ~ia_ok
+                    bad = bad | (kept & _spread_excess_mask(
+                        snap_pv, static_pv.aff_ok, rank_pv, choice_pv, kept,
+                        st, dom_s, ops))
+                    st = ops.pair_commit(snap_pv, st, sig_pv, dom_s,
+                                         choice_pv, bad, -1.0)
+                    kept = kept & ~bad
+                    flag = bad.any()
+                valid = kept if compact_pv else kept[s64]
+                keep = keep & valid
+                keep_pl = keep_pl & valid
+                keep_all = keep | keep_pl
+        with stats.span("preempt used"):
+            # One claimant a node: every row that does not keep adds an
+            # exact 0.0, so the adds are exact in any order.
+            used = used.index_add(0, tgt_c, torch.where(
+                keep_evict[:, None], -freed_req, zero))
+            used = used.index_add(0, tgt_c, torch.where(keep[:, None],
+                                                        req_sel, zero))
+            used = ops.node_add(used, choice_pl, keep_pl, req_sel, rank_sel)
+        assigned = assigned.index_put((s64,), torch.where(
+            keep_all, target_all, assigned[s64]))
+        # Preempted placements carry no score (as in parity mode).
+        chosen = chosen.index_put((s64,), torch.where(
+            keep_pl, chosen_pl, torch.where(
+                keep & can_plain, sc_plain,
+                torch.where(keep, neg, chosen[s64]))))
+        round_of = round_of.index_put((s64,), torch.where(
+            keep_all, key, round_of[s64]))
+        evicted = evicted2
+        # A kept pod is placed, a pod with no placement and no prefix
+        # anywhere is spent until the state changes, a deferred one bids
+        # again; any keep or drain placement clears the spent marks.
+        newly = real & (keep_all | ~could_bid)
+        reset = keep_all.any() | drained
+        tried = torch.where(reset, False,
+                            tried.index_put((s64,), tried[s64] | newly))
+        progress = reset | newly.any()
+        r += 1
+    return used, assigned, st, evicted, round_of, chosen, r
+
+
 def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                  node_sat_t: torch.Tensor | None,
                  member_sat_t: torch.Tensor | None = None,
@@ -2041,16 +2328,14 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     state). member_sat_t: the [A, M+P] member label table, needed with
     signatures."""
     ops = ops or KERNELS
-    if cfg.preemption and snap.running.valid.shape[0] > 0:
-        raise NotImplementedError(
-            "fast mode with preemption (the batched preemption auction) is "
-            "not ported yet; ROADMAP A8b ports it")
+    stats = stats or RoundStats()
     if static is None:
         static = precompute_static(cfg, snap, node_sat_t, member_sat_t,
                                    ops=ops)
     pods, nodes = snap.pods, snap.nodes
     P = pods.valid.shape[0]
     N = nodes.valid.shape[0]
+    M = snap.running.valid.shape[0]
     dev = pods.valid.device
     order = pop_order(cfg, snap)
     rank = torch.zeros(P, dtype=torch.int32, device=dev)
@@ -2059,6 +2344,7 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     max_rounds = cfg.max_rounds if cfg.max_rounds > 0 else 2 * P + 8
     K = _fallback_depth(N)
     st = dom_s = None
+    has_pair = torch.zeros(P, dtype=torch.bool, device=dev)
     if snap.sigs.key.shape[0] == 0:
         used, assigned, chosen, round_of, rounds = _solve_rounds_nosig(
             cfg, snap, static, rank, order, max_rounds, K, ops=ops,
@@ -2066,11 +2352,21 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     else:
         dom_s = kpair.sig_domains(snap)
         st0 = ops.pair_counts(static.sig_match, dom_s, snap.running, pods)
+        invol, has_pair = _sig_involvement(snap, static, st0)
         used, assigned, st, chosen, round_of, rounds = _solve_rounds_sig(
-            cfg, snap, static, rank, order, st0, max_rounds, K,
-            _compact_cap(cfg, P), ops, stats or RoundStats())
-    evicted = torch.zeros(snap.running.valid.shape[0], dtype=torch.bool,
-                          device=dev)
+            cfg, snap, static, rank, order, st0, invol, has_pair,
+            max_rounds, K, _compact_cap(cfg, P), ops, stats)
+    evicted = torch.zeros(M, dtype=torch.bool, device=dev)
+    if cfg.preemption and M > 0:
+        reads0 = stats.host_reads
+        with stats.span("preemption rounds"):
+            used, assigned, st, evicted, round_of, chosen, pre_r = (
+                _preempt_rounds(cfg, snap, static, rank, order, rounds, used,
+                                assigned, st, round_of, chosen, has_pair,
+                                dom_s, ops, stats))
+        stats.preempt_reads = stats.host_reads - reads0
+        stats.preempt_rounds = pre_r
+        rounds += pre_r
     used, assigned, chosen, _, rolled = gang_rollback(
         snap, used, assigned, chosen, st, static.sig_match, dom_s, ops)
     round_of = torch.where(rolled, -1, round_of)
@@ -2108,6 +2404,10 @@ class Ops:
     excess_survive: Callable
     parity_scan_preempt: Callable
     parity_scan_pair_preempt: Callable
+    auction_ok: Callable
+    auction_tables: Callable
+    auction_rank: Callable
+    auction_claim: Callable
 
 
 KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
@@ -2115,7 +2415,8 @@ KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
               kpair.pair_counts, kpair.pairwise_batch, parity_scan_pair,
               node_add, kpair.pair_commit, kpair.ia_ok_at_choice, waterfill,
               excess_min, excess_survive, parity_scan_preempt,
-              parity_scan_pair_preempt)
+              parity_scan_pair_preempt, kpre.auction_ok, kpre.auction_tables,
+              kpre.auction_rank, kpre.auction_claim)
 PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_plain, cycle_plain, row_topk_plain,
             desirability_plain, prefix_commit_plain, kpair.sig_match_plain,
@@ -2123,4 +2424,6 @@ PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_pair_plain, node_add_plain, kpair.pair_commit_plain,
             kpair.ia_ok_at_choice_plain, waterfill_plain, excess_min_plain,
             excess_survive_plain, parity_scan_preempt_plain,
-            parity_scan_pair_preempt_plain)
+            parity_scan_pair_preempt_plain, kpre.auction_ok_plain,
+            kpre.auction_tables_plain, kpre.auction_rank_plain,
+            kpre.auction_claim_plain)

@@ -30,6 +30,26 @@ The capacity freed on the chosen node is the chosen victim's segment
 sum, the value its fit was tested with, subtracted in one step as JAX
 subtracts its `freed` row. Violation and budget counts are integers,
 exact in any order.
+
+The fast mode's half is the batched preemption auction
+(`preempt_auction`, JAX's of the same name) over the node-major victim
+table (`precompute_nv`: each node's first V victims by cost, [N, V]).
+Three kernels carry it, each with a plain twin:
+  * K16 `auction_tables`: per priority lane (quantile buckets of the
+    active bidders' priorities, and the optimistic lane at +inf) and per
+    node, the V-long prefixes of the eligible victims' requests, cost and
+    PDB violations;
+  * K17 `auction_rank` (after its entry point `auction_ok`, each
+    bidder's allowed nodes): per (bidder, node) the first prefix that
+    frees the bidder's demand, the bidder's lane or the optimistic one,
+    and the lexicographic (violations, cost) row ranking as bids; K6
+    (`assign.row_topk`) then keeps each bidder's 256 best nodes;
+  * K18 `auction_claim`: the claim iterations that deal bidders distinct
+    nodes (integer work in one CTA), then the exact [C, V] validation of
+    each claim on its node.
+Every V-long f32 prefix is summed from 0.0 left to right (JAX leaves
+the order of its cumsums to XLA), and the capacity a kept prefix frees
+is that prefix's own sum, the value its fit was tested with.
 """
 
 from __future__ import annotations
@@ -61,9 +81,11 @@ class PreemptCtx:
     pdb_s: torch.Tensor      # [M] int32 budget of the victim (-1: none)
 
 
-def precompute(cfg: EngineConfig, snap: ClusterSnapshot) -> PreemptCtx:
-    """JAX `precompute`, on the snapshot's device. Its `lexsort((cost,
-    node))` is two stable library sorts, by cost and then by node."""
+def _victim_order(cfg: EngineConfig, snap: ClusterSnapshot):
+    """The running pods in (node, cost) order, JAX's `lexsort((cost,
+    node))` as two stable library sorts, by cost and then by node:
+    (cost [M] shifted positive, vprio [M], perm [M] int64, node_s [M]
+    int32 with N for no node, seg_start [M] int64)."""
     run = snap.running
     M = run.valid.shape[0]
     N = snap.nodes.valid.shape[0]
@@ -86,6 +108,13 @@ def precompute(cfg: EngineConfig, snap: ClusterSnapshot) -> PreemptCtx:
     boundary = torch.ones(M, dtype=torch.bool, device=dev)
     boundary[1:] = node_s[1:] != node_s[:-1]
     seg_start = torch.cummax(torch.where(boundary, idx, 0), dim=0).values
+    return cost, vprio, perm, node_s, seg_start
+
+
+def precompute(cfg: EngineConfig, snap: ClusterSnapshot) -> PreemptCtx:
+    """JAX `precompute`, on the snapshot's device."""
+    run = snap.running
+    cost, vprio, perm, node_s, seg_start = _victim_order(cfg, snap)
     return PreemptCtx(
         perm=perm.to(torch.int32), node_s=node_s.contiguous(),
         seg_start=seg_start.to(torch.int32), cost_s=cost[perm],
@@ -321,3 +350,545 @@ def preempt_step(cfg: EngineConfig, snap: ClusterSnapshot, ctx: PreemptCtx,
 
 
 preempt_step.launches = 0
+
+
+# -- the fast mode's batched auction ----------------------------------------
+
+# Priority-quantile buckets of the active bidders (JAX `_PRIO_BUCKETS`):
+# each bucket's lane masks the victims eligible at the bucket's lower
+# bound, a subset of every member bidder's own eligible set; one more
+# lane, the optimistic one, admits every victim (threshold +inf).
+PRIO_BUCKETS = 2
+CLAIM_ITERS = 6  # the claim iterations of a round (JAX's default)
+
+
+@dataclasses.dataclass
+class PreemptCtxNV:
+    """The node-major victim table of the fast auction: per node its
+    first V victims in ascending cost (the (node, cost) order of
+    `precompute`), padded. A prefix that needs more than V evictions on
+    one node is out of the fast mode's reach (JAX's documented cap)."""
+
+    vreq: torch.Tensor    # [N, V, R] f32 victim requests
+    vcost: torch.Tensor   # [N, V] f32 eviction cost, shifted positive
+    vprio: torch.Tensor   # [N, V] f32 victim effective priority (+inf pad)
+    vpdb: torch.Tensor    # [N, V] int32 budget (-1: none or pad)
+    vvalid: torch.Tensor  # [N, V] bool
+    vidx: torch.Tensor    # [N, V] int32 running-pod index (M: pad)
+
+
+def precompute_nv(cfg: EngineConfig, snap: ClusterSnapshot,
+                  cap: int) -> PreemptCtxNV:
+    """JAX `precompute_nv`: the victims in `precompute`'s order, each at
+    (its node, its position in the node's segment) of an [N + 1, V]
+    table by a plain indexed scatter; victims past V and running pods on
+    no node go to the sentinel row N, which is dropped."""
+    run = snap.running
+    M = run.valid.shape[0]
+    N = snap.nodes.valid.shape[0]
+    dev = run.valid.device
+    V = max(1, min(cap, M))
+    cost, vprio, perm, node_s, seg_start = _victim_order(cfg, snap)
+    pos = torch.arange(M, device=dev) - seg_start
+    ok = (node_s < N) & (pos < V)
+    tn = torch.where(ok, node_s.long(), N)
+    tv = torch.where(ok, pos, 0)
+
+    def scat(vals: torch.Tensor, fill) -> torch.Tensor:
+        out = torch.full((N + 1, V, *vals.shape[1:]), fill, dtype=vals.dtype,
+                         device=dev)
+        keep = ok.reshape((M,) + (1,) * (vals.dim() - 1))
+        out[tn, tv] = torch.where(keep, vals, torch.full((), fill,
+                                                         dtype=vals.dtype,
+                                                         device=dev))
+        return out[:N].contiguous()
+
+    vvalid = torch.zeros((N + 1, V), dtype=torch.bool, device=dev)
+    vvalid[tn, tv] = ok
+    return PreemptCtxNV(
+        vreq=scat(run.requests[perm], 0.0), vcost=scat(cost[perm], 0.0),
+        vprio=scat(vprio[perm], float("inf")),
+        vpdb=scat(run.pdb_group[perm], -1), vvalid=vvalid[:N].contiguous(),
+        vidx=scat(perm.to(torch.int32), M))
+
+
+def vprefix(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sum along `dim` from 0.0, left to right: the one
+    order of every V-long f32 prefix of the auction, on every device
+    (never an f32 `torch.cumsum`)."""
+    acc = torch.zeros_like(x.select(dim, 0))
+    out = []
+    for v in range(x.shape[dim]):
+        acc = acc + x.select(dim, v)
+        out.append(acc)
+    return torch.stack(out, dim=dim)
+
+
+def _base_elig(ctx: PreemptCtxNV, evicted: torch.Tensor) -> torch.Tensor:
+    """[N, V]: real victims not evicted yet."""
+    M = evicted.shape[0]
+    ev = evicted[ctx.vidx.clamp(0, M - 1).long()] & ctx.vvalid
+    return ctx.vvalid & ~ev
+
+
+def _tableau_nv(cfg: EngineConfig, snap: ClusterSnapshot, ctx: PreemptCtxNV,
+                p_prio: torch.Tensor, p_req: torch.Tensor,
+                used: torch.Tensor, evicted: torch.Tensor):
+    """All C bidders' exact victim-prefix tableaus on the node-major
+    table, [C, N, V] (JAX `_tableau_nv`, which no product path calls):
+    (elig, wcost, wviol, fits, node_viol [C, N], node_cost [C, N]), the
+    lexicographic (violations, cost) minimum over each node's fitting
+    prefixes. Plain torch, the tests' reference for the auction's exact
+    validation."""
+    nodes = snap.nodes
+    base = _base_elig(ctx, evicted)
+    elig = base[None] & (ctx.vprio[None] + cfg.qos.preemption_margin
+                         < p_prio[:, None, None])
+    zero = torch.zeros((), dtype=torch.float32, device=base.device)
+    wreq = vprefix(torch.where(elig[..., None], ctx.vreq[None], zero), 2)
+    fits = elig & ((used[None, :, None, :] - wreq) + p_req[:, None, None, :]
+                   <= nodes.allocatable[None, :, None, :]).all(dim=-1)
+    wcost = vprefix(torch.where(elig, ctx.vcost[None], zero), 2)
+    viol = _violations(elig, ctx.vpdb, pdb_remaining(snap, evicted))
+    wviol = torch.cumsum(viol.to(torch.int32), dim=2)
+    inf = torch.full((), float("inf"), dtype=torch.float32,
+                     device=base.device)
+    wv = wviol.to(torch.float32)
+    node_viol = torch.where(fits, wv, inf).amin(dim=2)
+    fits_v = fits & (wv == node_viol[..., None])
+    node_cost = torch.where(fits_v, wcost, inf).amin(dim=2)
+    return elig, wcost, wviol, fits, node_viol, node_cost
+
+
+def _violations(elig: torch.Tensor, vpdb: torch.Tensor,
+                remaining: torch.Tensor) -> torch.Tensor:
+    """[..., N, V] bool: an eligible victim under a budget whose count of
+    eligible same-budget victims at or before it in its node exceeds the
+    budget's remaining disruptions (JAX's triangular [V, V] contraction,
+    here an integer count)."""
+    if remaining.shape[0] == 0:
+        return torch.zeros_like(elig)
+    V = vpdb.shape[1]
+    has = vpdb >= 0
+    tri = torch.ones((V, V), dtype=torch.bool, device=vpdb.device).tril()
+    same = (vpdb[:, :, None] == vpdb[:, None, :]) & has[:, :, None] & tri
+    eligp = elig & has
+    wcnt = (same & eligp[..., None, :]).sum(dim=-1)
+    rem = remaining[vpdb.clamp(min=0).long()]
+    return eligp & (wcnt.to(torch.float32) > rem)
+
+
+def prio_thresholds(p_prio: torch.Tensor, active: torch.Tensor,
+                    buckets: int = PRIO_BUCKETS) -> torch.Tensor:
+    """[buckets] f32: `jnp.nanquantile(where(active, p_prio, nan),
+    linspace(0, 1, buckets, endpoint=False))` in the installed JAX's
+    linear-interpolation formula, with explicit f32 operations (the same
+    code on every device; `torch.nanquantile` interpolates with `lerp`,
+    which rounds differently on CUDA). NaN where no bidder is active."""
+    dev = p_prio.device
+    nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
+    vals = torch.sort(torch.where(active, p_prio, nan)).values   # NaN last
+    n = active.sum().to(torch.float32)
+    q = torch.tensor([b / buckets for b in range(buckets)],
+                     dtype=torch.float32, device=dev) * (n - 1.0)
+    low, high = torch.floor(q), torch.ceil(q)
+    hw = q - low
+    lw = 1.0 - hw
+    top = n - 1.0
+    low = torch.maximum(torch.zeros_like(low), torch.minimum(low, top))
+    high = torch.maximum(torch.zeros_like(high), torch.minimum(high, top))
+    return vals[low.long()] * lw + vals[high.long()] * hw
+
+
+def bucket_of(thr: torch.Tensor, p_prio: torch.Tensor) -> torch.Tensor:
+    """[C] int32: each bidder's bucket, the largest b with thr[b] <=
+    p_prio (a NaN threshold compares false: bucket 0)."""
+    b = (thr[None, :] <= p_prio[:, None]).sum(dim=1) - 1
+    return b.clamp(0, thr.shape[0] - 1).to(torch.int32)
+
+
+# -- K16: the bidder-independent lane tables ----------------------------------
+
+
+def auction_tables_plain(ctx: PreemptCtxNV, evicted: torch.Tensor,
+                         thr: torch.Tensor, remaining: torch.Tensor,
+                         margin: float):
+    """Per lane l (threshold thr[l]) and node: the victims eligible at
+    that threshold (not evicted, vprio + margin < thr[l]) and their
+    V-long prefixes (cum_req [L, N, V, R] f32, cum_cost [L, N, V] f32,
+    cum_viol [L, N, V] int32), JAX `preempt_auction`'s node_rank
+    tables."""
+    base = _base_elig(ctx, evicted)
+    elig = base[None] & (ctx.vprio[None] + margin < thr[:, None, None])
+    zero = torch.zeros((), dtype=torch.float32, device=base.device)
+    cum_req = vprefix(torch.where(elig[..., None], ctx.vreq[None], zero), 2)
+    cum_cost = vprefix(torch.where(elig, ctx.vcost[None], zero), 2)
+    viol = _violations(elig, ctx.vpdb, remaining)
+    cum_viol = torch.cumsum(viol.to(torch.int32), dim=2).to(torch.int32)
+    return cum_req, cum_cost, cum_viol
+
+
+def _check_ctx(k: str, dev, ctx: PreemptCtxNV, N: int, R: int) -> int:
+    V = ctx.vvalid.shape[1]
+    check(k, dev, ctx.vreq, torch.float32, (N, V, R))
+    check(k, dev, ctx.vcost, torch.float32, (N, V))
+    check(k, dev, ctx.vprio, torch.float32, (N, V))
+    check(k, dev, ctx.vpdb, torch.int32, (N, V))
+    check(k, dev, ctx.vvalid, torch.bool, (N, V))
+    check(k, dev, ctx.vidx, torch.int32, (N, V))
+    if V > 32 or R > 8:
+        raise ValueError(f"{k}: V={V}, R={R}; the kernel takes V <= 32, "
+                         "R <= 8")
+    return V
+
+
+def auction_tables(ctx: PreemptCtxNV, evicted: torch.Tensor,
+                   thr: torch.Tensor, remaining: torch.Tensor,
+                   margin: float):
+    """Kernel K16 on CUDA tensors, the plain version on CPU tensors."""
+    dev = ctx.vreq.device
+    if dev.type == "cpu":
+        return auction_tables_plain(ctx, evicted, thr, remaining, margin)
+    k = "auction_tables"
+    N, V, R = ctx.vreq.shape
+    _check_ctx(k, dev, ctx, N, R)
+    L = thr.shape[0]
+    M = evicted.shape[0]
+    GP = remaining.shape[0]
+    check(k, dev, evicted, torch.bool, (M,))
+    check(k, dev, thr, torch.float32, (L,))
+    check(k, dev, remaining, torch.float32, (GP,))
+    cum_req = torch.empty((L, N, V, R), dtype=torch.float32, device=dev)
+    cum_cost = torch.empty((L, N, V), dtype=torch.float32, device=dev)
+    cum_viol = torch.empty((L, N, V), dtype=torch.int32, device=dev)
+    if L * N == 0:
+        return cum_req, cum_cost, cum_viol
+    _build.launch("tpusched_auction_tables", L, N, V, R, M, GP, *ptrs((
+        ctx.vreq, ctx.vcost, ctx.vprio, ctx.vpdb, ctx.vvalid, ctx.vidx,
+        evicted, thr, remaining)), float(margin),
+        *ptrs((cum_req, cum_cost, cum_viol)), stream_of(dev))
+    auction_tables.launches += 1
+    return cum_req, cum_cost, cum_viol
+
+
+auction_tables.launches = 0
+
+
+# -- K17: the [C, N] node ranking -------------------------------------------
+
+
+def auction_ok_plain(mask: torch.Tensor, rows: torch.Tensor | None,
+                     pair_ok: torch.Tensor | None, pre_active: torch.Tensor,
+                     node_valid: torch.Tensor):
+    """(ok [C, N] bool, active_any [C] bool): the nodes each bidder may
+    preempt on, its static mask row (rows[c] of `mask`, or row c) and
+    pairwise verdict (when given) on a valid node, for active bidders
+    only; and whether any is left."""
+    if rows is not None:
+        mask = mask[rows.long()]
+    ok = mask & node_valid[None, :] & pre_active[:, None]
+    if pair_ok is not None:
+        ok = ok & pair_ok
+    return ok, ok.any(dim=1)
+
+
+def auction_ok(mask: torch.Tensor, rows: torch.Tensor | None,
+               pair_ok: torch.Tensor | None, pre_active: torch.Tensor,
+               node_valid: torch.Tensor):
+    """K17's auction_ok entry point on CUDA tensors, the plain version on
+    CPU tensors."""
+    dev = mask.device
+    if dev.type == "cpu":
+        return auction_ok_plain(mask, rows, pair_ok, pre_active, node_valid)
+    k = "auction_ok"
+    Pm, N = mask.shape
+    C = pre_active.shape[0]
+    check(k, dev, mask, torch.bool, (Pm, N))
+    if rows is not None:
+        check(k, dev, rows, torch.int32, (C,))
+    elif Pm != C:
+        raise ValueError(f"{k}: {Pm} mask rows for {C} bidders")
+    if pair_ok is not None:
+        check(k, dev, pair_ok, torch.bool, (C, N))
+    check(k, dev, pre_active, torch.bool, (C,))
+    check(k, dev, node_valid, torch.bool, (N,))
+    ok = torch.empty((C, N), dtype=torch.bool, device=dev)
+    any_ok = torch.empty((C,), dtype=torch.bool, device=dev)
+    if C * N == 0:
+        return ok, any_ok.fill_(False)
+    _build.launch("tpusched_auction_ok", C, N, *ptrs((
+        mask, rows, pair_ok, pre_active, node_valid, ok, any_ok)),
+        stream_of(dev))
+    auction_ok.launches += 1
+    return ok, any_ok
+
+
+auction_ok.launches = 0
+
+
+def auction_rank_plain(cum_req: torch.Tensor, cum_cost: torch.Tensor,
+                       cum_viol: torch.Tensor, lane: torch.Tensor,
+                       ok: torch.Tensor, used: torch.Tensor,
+                       alloc: torch.Tensor, p_req: torch.Tensor):
+    """(bid [C, N] f32, could [C] bool). Per (bidder c, node n): the demand
+    need = (used[n] + p_req[c]) - alloc[n]; in a lane, the first prefix
+    position that frees it (pos: the most, over resources, of the prefix
+    entries below the need), whether the whole table frees it (feas), and
+    the prefix's cost and violations at pos. The bidder's bucket lane
+    ranks, unless no allowed node is feasible there but one is in the
+    optimistic lane (the last), which then ranks instead. Over the
+    feasible allowed nodes with the fewest violations, bid = -cost, else
+    -inf. could: some allowed node is feasible in the optimistic lane."""
+    L, N, V, R = cum_req.shape
+    C = lane.shape[0]
+    need = (used[None] + p_req[:, None, :]) - alloc[None]          # [C, N, R]
+
+    def rank_in(l: int):
+        pos = torch.zeros((C, N), dtype=torch.int64, device=ok.device)
+        for r in range(R):
+            pos = torch.maximum(pos, (cum_req[l, None, :, :, r]
+                                      < need[:, :, None, r]).sum(dim=2))
+        feas = (need <= cum_req[l, None, :, V - 1, :]).all(dim=-1)
+        posc = pos.clamp(0, V - 1)[..., None]
+        return (feas,
+                cum_cost[l][None].expand(C, N, V).gather(2, posc)[..., 0],
+                cum_viol[l][None].expand(C, N, V).gather(2, posc)[..., 0])
+
+    lanes = [rank_in(l) for l in range(L)]
+    pick = lane.long()[None, :, None].expand(1, C, N)
+    feas_b, cost_b, viol_b = (torch.stack([t[i] for t in lanes]).gather(
+        0, pick)[0] for i in range(3))
+    feas_o, cost_o, viol_o = lanes[L - 1]
+    could = (ok & feas_o).any(dim=1)
+    use_fb = (~(ok & feas_b).any(dim=1) & could)[:, None]
+    feas = torch.where(use_fb, feas_o, feas_b)
+    cost = torch.where(use_fb, cost_o, cost_b)
+    viol = torch.where(use_fb, viol_o, viol_b)
+    big = torch.iinfo(torch.int32).max
+    vt = torch.where(ok & feas, viol, big)
+    min_viol = vt.amin(dim=1, keepdim=True)
+    bid = torch.where(ok & feas & (vt == min_viol), -cost,
+                      torch.full((), float("-inf"), dtype=torch.float32,
+                                 device=ok.device))
+    return bid, could
+
+
+def auction_rank(cum_req: torch.Tensor, cum_cost: torch.Tensor,
+                 cum_viol: torch.Tensor, lane: torch.Tensor,
+                 ok: torch.Tensor, used: torch.Tensor, alloc: torch.Tensor,
+                 p_req: torch.Tensor):
+    """Kernel K17 on CUDA tensors, the plain version on CPU tensors."""
+    dev = ok.device
+    if dev.type == "cpu":
+        return auction_rank_plain(cum_req, cum_cost, cum_viol, lane, ok,
+                                  used, alloc, p_req)
+    k = "auction_rank"
+    L, N, V, R = cum_req.shape
+    C = lane.shape[0]
+    check(k, dev, cum_req, torch.float32, (L, N, V, R))
+    check(k, dev, cum_cost, torch.float32, (L, N, V))
+    check(k, dev, cum_viol, torch.int32, (L, N, V))
+    check(k, dev, lane, torch.int32, (C,))
+    check(k, dev, ok, torch.bool, (C, N))
+    check(k, dev, used, torch.float32, (N, R))
+    check(k, dev, alloc, torch.float32, (N, R))
+    check(k, dev, p_req, torch.float32, (C, R))
+    if V > 32 or R > 8:
+        raise ValueError(f"{k}: V={V}, R={R}; the kernel takes V <= 32, "
+                         "R <= 8")
+    bid = torch.empty((C, N), dtype=torch.float32, device=dev)
+    could = torch.empty((C,), dtype=torch.bool, device=dev)
+    if C * N == 0:
+        return bid, could.fill_(False)
+    _build.launch("tpusched_auction_rank", L, N, V, R, C, *ptrs((
+        cum_req, cum_cost, cum_viol, lane, ok, used, alloc, p_req, bid,
+        could)), stream_of(dev))
+    auction_rank.launches += 1
+    return bid, could
+
+
+auction_rank.launches = 0
+
+
+# -- K18: the claim iterations and the exact validation ----------------------
+
+
+def auction_claim_plain(topv: torch.Tensor, topi: torch.Tensor,
+                        can_plain: torch.Tensor, n_plain: torch.Tensor,
+                        rank: torch.Tensor, ctx: PreemptCtxNV,
+                        evicted: torch.Tensor,
+                        p_prio: torch.Tensor, p_req: torch.Tensor,
+                        used: torch.Tensor, alloc: torch.Tensor,
+                        could: torch.Tensor, margin: float, GP: int):
+    """JAX `preempt_auction` from its candidates on (`:564-679`).
+
+    Candidates: each bidder's top-K nodes by bid (topv/topi, from K6;
+    finite ones only), a plain bidder (can_plain) its scored node n_plain
+    alone. CLAIM_ITERS iterations deal the still-unclaimed bidders
+    distinct untaken candidates: the one with active-rank a bids its (a
+    mod #available + 1)-th available candidate, and per node the lowest
+    `rank` wins. Then per bidder, on its claimed node: the true-priority
+    eligibility, the V-long prefix of the eligible requests from 0.0, the
+    first prefix after which the bidder fits (the lexicographic minimum,
+    since all three prefixes only grow). A preemption claim that fits
+    nowhere is released. Returns (target [C] int32, -1 unclaimed;
+    claimed, takes_evict [C] bool; vidx_t [C, V] int32, the kept
+    prefix's running pods, M elsewhere; freed_req [C, R] f32, that
+    prefix's sum, the value its fit was tested with; usage [C, GP]
+    int32, its evictions per budget; could_bid [C] bool)."""
+    C, K = topi.shape
+    N, V = ctx.vvalid.shape
+    M = evicted.shape[0]
+    dev = topi.device
+    big = torch.iinfo(torch.int32).max
+    first = (torch.arange(K, device=dev) == 0)[None, :]
+    cand = torch.where(can_plain[:, None],
+                       torch.where(first, n_plain[:, None], 0), topi)
+    fin = torch.where(can_plain[:, None], first, torch.isfinite(topv))
+    cand_c = cand.clamp(0, N - 1).long()
+    taken = torch.zeros(N, dtype=torch.bool, device=dev)
+    target = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    claimed = torch.zeros(C, dtype=torch.bool, device=dev)
+    for _ in range(CLAIM_ITERS):
+        avail = fin & ~taken[cand_c] & ~claimed[:, None]
+        csum = torch.cumsum(avail.to(torch.int32), dim=1)
+        navail = csum[:, -1]
+        has = ~claimed & (navail > 0)
+        r_active = torch.cumsum(has.to(torch.int32), dim=0) - 1
+        tgt = torch.remainder(r_active, navail.clamp_min(1)) + 1
+        j = (csum < tgt[:, None]).sum(dim=1).clamp(0, K - 1)
+        want = cand.gather(1, j[:, None])[:, 0]
+        want_c = want.clamp(0, N - 1).long()
+        key = torch.where(has, rank, big)
+        best = torch.full((N,), big, dtype=torch.int32, device=dev)
+        best = best.scatter_reduce(0, want_c, key, "amin")
+        winner = has & (best[want_c] == rank)
+        target = torch.where(winner, want.to(torch.int32), target)
+        claimed = claimed | winner
+        taken[want_c[winner]] = True
+    t = target.clamp(0, N - 1).long()
+    vv = ctx.vvalid[t]                                       # [C, V]
+    vi = ctx.vidx[t]
+    ev = evicted[vi.clamp(0, M - 1).long()] & vv
+    elig = vv & ~ev & (ctx.vprio[t] + margin < p_prio[:, None])
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    wreq = vprefix(torch.where(elig[..., None], ctx.vreq[t], zero), 1)
+    fits = elig & ((used[t][:, None, :] - wreq) + p_req[:, None, :]
+                   <= alloc[t][:, None, :]).all(dim=-1)
+    feas = fits.any(dim=1)
+    released = claimed & ~can_plain & ~feas
+    claimed = claimed & (can_plain | feas)
+    target = torch.where(claimed, target, -1)
+    takes = claimed & ~can_plain
+    best_pos = torch.argmax(fits.to(torch.int32), dim=1)     # first fit
+    sel = (takes[:, None] & elig
+           & (torch.arange(V, device=dev)[None, :] <= best_pos[:, None]))
+    vidx_t = torch.where(sel, vi, M).to(torch.int32)
+    freed = torch.where(takes[:, None],
+                        wreq.gather(1, best_pos[:, None, None].expand(
+                            C, 1, wreq.shape[2]))[:, 0], zero)
+    usage = torch.zeros((C, GP), dtype=torch.int32, device=dev)
+    if GP:
+        vp = ctx.vpdb[t]
+        hit = sel & (vp >= 0)
+        usage.scatter_add_(1, vp.clamp(min=0).long(), hit.to(torch.int32))
+    could_bid = can_plain | (could & ~released)
+    return target, claimed, takes, vidx_t, freed, usage, could_bid
+
+
+def auction_claim(topv: torch.Tensor, topi: torch.Tensor,
+                  can_plain: torch.Tensor, n_plain: torch.Tensor,
+                  rank: torch.Tensor, ctx: PreemptCtxNV,
+                  evicted: torch.Tensor, p_prio: torch.Tensor,
+                  p_req: torch.Tensor, used: torch.Tensor,
+                  alloc: torch.Tensor, could: torch.Tensor, margin: float,
+                  GP: int):
+    """Kernel K18 on CUDA tensors (one CTA of 1024 threads; the claim
+    state [N] in shared memory; the candidate lists transposed to
+    [K, C]; the entry point refuses more than 1024 bidders or more nodes
+    than its shared memory holds), the plain version on CPU tensors."""
+    dev = topi.device
+    if dev.type == "cpu":
+        return auction_claim_plain(topv, topi, can_plain, n_plain, rank,
+                                   ctx, evicted, p_prio, p_req, used, alloc,
+                                   could, margin, GP)
+    k = "auction_claim"
+    C, K = topi.shape
+    N, V, R = ctx.vreq.shape
+    M = evicted.shape[0]
+    _check_ctx(k, dev, ctx, N, R)
+    check(k, dev, topv, torch.float32, (C, K))
+    check(k, dev, topi, torch.int32, (C, K))
+    for t in (can_plain, could):
+        check(k, dev, t, torch.bool, (C,))
+    for t in (n_plain, rank):
+        check(k, dev, t, torch.int32, (C,))
+    check(k, dev, evicted, torch.bool, (M,))
+    check(k, dev, p_prio, torch.float32, (C,))
+    check(k, dev, p_req, torch.float32, (C, R))
+    check(k, dev, used, torch.float32, (N, R))
+    check(k, dev, alloc, torch.float32, (N, R))
+    target = torch.empty((C,), dtype=torch.int32, device=dev)
+    claimed = torch.empty((C,), dtype=torch.bool, device=dev)
+    takes = torch.empty((C,), dtype=torch.bool, device=dev)
+    vidx_t = torch.empty((C, V), dtype=torch.int32, device=dev)
+    freed = torch.empty((C, R), dtype=torch.float32, device=dev)
+    usage = torch.zeros((C, GP), dtype=torch.int32, device=dev)
+    could_bid = torch.empty((C,), dtype=torch.bool, device=dev)
+    out = (target, claimed, takes, vidx_t, freed, usage, could_bid)
+    if C == 0:
+        return out
+    # The kernel walks each bidder's list with a thread a bidder: [K, C]
+    # puts a warp's candidates side by side.
+    topv_t, topi_t = topv.t().contiguous(), topi.t().contiguous()
+    _build.launch("tpusched_auction_claim", C, K, N, V, R, M, GP,
+                  CLAIM_ITERS, *ptrs((
+                      topv_t, topi_t, can_plain, n_plain, rank, ctx.vreq,
+                      ctx.vprio, ctx.vpdb, ctx.vvalid, ctx.vidx, evicted,
+                      p_prio, p_req, used, alloc, could)), float(margin),
+                  *ptrs(out), stream_of(dev))
+    auction_claim.launches += 1
+    return out
+
+
+auction_claim.launches = 0
+
+
+def preempt_auction(cfg: EngineConfig, snap: ClusterSnapshot,
+                    ctx: PreemptCtxNV, p_prio: torch.Tensor,
+                    p_req: torch.Tensor, allowed: torch.Tensor,
+                    used: torch.Tensor, evicted: torch.Tensor,
+                    can_plain: torch.Tensor, n_plain: torch.Tensor,
+                    rank: torch.Tensor, pre_active: torch.Tensor,
+                    k_cand: int = 256, ops=None,
+                    rows: torch.Tensor | None = None,
+                    pair_ok: torch.Tensor | None = None):
+    """Batched bidding of C preemptors (JAX `preempt_auction`): K17's
+    allowed nodes, the priority thresholds of the active bidders, K16's
+    lane tables, K17's bids, K6's top k_cand of each row (ties to the
+    lower node), K18's claims and validation. allowed: the bidders'
+    static masks ([C, N], or the rows `rows` of a wider mask), with
+    pair_ok [C, N] their pairwise verdicts; rank [C] the bidders' claim
+    precedence; pre_active [C] the bidders that may preempt (JAX's
+    callers clear the others' allowed rows). Returns K18's (target, claimed, takes_evict, vidx_t,
+    freed_req, usage, could_bid)."""
+    if ops is None:
+        from tpusched_torch.kernels.assign import KERNELS as ops
+    N = snap.nodes.valid.shape[0]
+    dev = p_prio.device
+    margin = float(cfg.qos.preemption_margin)
+    ok, any_ok = ops.auction_ok(allowed, rows, pair_ok, pre_active,
+                                snap.nodes.valid)
+    thr = prio_thresholds(p_prio, any_ok & ~can_plain)
+    lanes = torch.cat([thr, torch.full((1,), float("inf"),
+                                       dtype=torch.float32, device=dev)])
+    remaining = pdb_remaining(snap, evicted).contiguous()
+    tables = ops.auction_tables(ctx, evicted, lanes, remaining, margin)
+    bid, could = ops.auction_rank(*tables, bucket_of(thr, p_prio), ok, used,
+                                  snap.nodes.allocatable, p_req)
+    topv, topi, _ = ops.row_topk(bid, min(k_cand, N))
+    return ops.auction_claim(topv, topi, can_plain, n_plain.to(torch.int32),
+                             rank.to(torch.int32), ctx,
+                             evicted, p_prio, p_req, used,
+                             snap.nodes.allocatable, could, margin,
+                             snap.pdb_allowed.shape[0])
