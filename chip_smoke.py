@@ -104,6 +104,24 @@ package, and
        on the arguments of each cell's first auction round, exactly,
        timed with CUDA events and the profiler's kernel time, K6 at
        K = 256 beside torch.topk;
+     - async forms: `solve_async`, `score_async` and
+       `score_topk_async(k=8)` once each on (b), each equal to its
+       synchronous form;
+     - the warm lineage (w) (the JAX bench's bench_warm: config 2 at
+       10 000 x 5 000, seed 46, loaded as records into a DeviceSnapshot
+       on the card, fast mode): a cold solve, the cold rung of
+       `solve_warm` (the tableau's build), nine value-churn cycles at
+       each of 0.1 %, 1 % and 10 % of the pods, each a warm solve and a
+       cold solve of the same lineage state in turns (each warm result
+       equal to the cold one in assignment, chosen_score and evicted,
+       the first also to the plain-version solve), ten warm_churn_stream cycles (row reorders, completions,
+       cordon toggles), each warm == cold, five incremental cycles at
+       1 % (audit tail zero, the validity audit, carried and frontier
+       counts, placed beside the cold solve's), one parity warm cycle
+       equal to its cold solve; per-cycle walls and their p50, host
+       reads, the bytes each apply and solve sent against the full
+       upload; then K19 and K20 against their plain versions on the
+       first incremental cycle's inputs;
   5. prints per-stage time breakdowns of one steady parity and one
      steady fast solve (with the host-clock cost of the dealing
      prefixes in three forms), of one steady pairwise parity solve and
@@ -128,6 +146,7 @@ import torch
 
 from tpusched_torch import _build
 from tpusched_torch.config import EngineConfig
+from tpusched_torch.device_state import DeviceSnapshot
 from tpusched_torch.engine import (
     Engine,
     _pack_solve,
@@ -147,6 +166,8 @@ from tpusched_torch.synth import (
     config3_pairwise,
     config4_gangs,
     config5_preemption,
+    make_cluster,
+    warm_churn_stream,
 )
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit): HBM3
@@ -171,6 +192,15 @@ GANG_SEED, PRE_SEED = 44, 45
 GANGS = dict(n_groups=2500, gang_size=4)
 PRE_PAIR = dict(spread_frac=0.3, interpod_frac=0.3)
 K15_STATES = 8   # (h)'s first preemptors, in pop order
+# Cell (w) is the JAX bench's warm lineage (bench.py:1292 bench_warm):
+# config 2 at 10 000 x 5 000 with one running pod a node and QoS, seed
+# 46, loaded as records into a DeviceSnapshot on the card. Value churn
+# redraws observed availability of a share of the pods a cycle.
+WARM_SEED = 46
+WARM_FRACS = (0.001, 0.01, 0.1)
+WARM_CYCLES = 9        # warm cycles a churn level
+WARM_STREAM = 10       # warm_churn_stream cycles
+WARM_INC = 5           # incremental cycles at 1 %
 
 # (name, wrapper, its launch counter, source, the JAX function it
 # replaces). A variant of a kernel (K5's relaxed output, K7's fixed point,
@@ -236,6 +266,12 @@ KERNELS = (
      "tpusched_torch/csrc/topk.cu", "tpusched/kernels/preempt.py:563"),
     ("auction_claim", kpre.auction_claim, "launches",
      "tpusched_torch/csrc/auction.cu", "tpusched/kernels/preempt.py:588"),
+    ("capacity_prefix_keep", kassign.capacity_prefix_keep, "launches",
+     "tpusched_torch/csrc/incremental.cu",
+     "tpusched/kernels/assign.py:2227"),
+    ("frontier_closure", kassign.frontier_closure, "launches",
+     "tpusched_torch/csrc/incremental.cu",
+     "tpusched/kernels/assign.py:2328"),
 )
 # Kernels whose counters the main path leaves at 0, and why; each is
 # held against its plain version at full size in the kernel phase.
@@ -278,6 +314,11 @@ AUCTION_KERNELS = ("node_add", "auction_tables", "auction_ok",
                    "auction_rank", "row_topk_k256", "auction_claim")
 FAST_PREEMPT_KERNELS = FAST_KERNELS + AUCTION_KERNELS
 FAST_PREEMPT_PAIR_KERNELS = FAST_PAIR_KERNELS + AUCTION_KERNELS[1:]
+# The warm lineage (w): the fast solves and the tableau's K1-K3 (K1 idle
+# without atoms), the incremental solves' K20, K19 and carried commit
+# (node_add), and one parity warm cycle (K4).
+WARM_KERNELS = FAST_KERNELS + ("node_add", "capacity_prefix_keep",
+                               "frontier_closure", "parity_scan")
 
 
 def log(msg: str) -> None:
@@ -360,18 +401,11 @@ def plain_result(cfg: EngineConfig, dsnap, ops=kassign.PLAIN, stats=None):
     return Engine.unpack(dsnap, buf.cpu().numpy())
 
 
-def audit(name: str, cfg: EngineConfig, dsnap, res, hook=None) -> dict:
-    """Validity of one solve result, then equality with the plain solve
-    on the same CUDA tensors (host reads too, in fast mode); with
-    signatures also the pairwise audit of the plain solve's final pair
-    state (parity: the plain scan's, with its time; fast: the last
-    state the rounds' commits and reverts left) and the commit-key
-    audit (with preemption, in both eviction arms). hook(ops) may wrap
-    the plain solve's ops table to record calls."""
-    plain = kassign.PLAIN
-    static = kassign.precompute_static(cfg, dsnap, *_sat_tables(dsnap, plain),
-                                       ops=plain)
-    mask = static.mask.cpu().numpy()
+def validity(name: str, cfg: EngineConfig, dsnap, res,
+             mask: np.ndarray) -> dict:
+    """No padded pod placed, no node over capacity, every placed pod's
+    static mask true at its node, a finite score for every placed pod
+    (without preemption), the order a permutation."""
     pvalid = dsnap.pods.valid.cpu().numpy()
     alloc = dsnap.nodes.allocatable.cpu().numpy()
     a = res.assignment
@@ -392,7 +426,21 @@ def audit(name: str, cfg: EngineConfig, dsnap, res, hook=None) -> dict:
     P = a.shape[0]
     if sorted(res.order.tolist()) != list(range(P)):
         raise AssertionError(f"{name}: order is not a permutation")
-    info = {"placed": int(placed.sum()), "valid_pods": int(pvalid.sum())}
+    return {"placed": int(placed.sum()), "valid_pods": int(pvalid.sum())}
+
+
+def audit(name: str, cfg: EngineConfig, dsnap, res, hook=None) -> dict:
+    """Validity of one solve result, then equality with the plain solve
+    on the same CUDA tensors (host reads too, in fast mode); with
+    signatures also the pairwise audit of the plain solve's final pair
+    state (parity: the plain scan's, with its time; fast: the last
+    state the rounds' commits and reverts left) and the commit-key
+    audit (with preemption, in both eviction arms). hook(ops) may wrap
+    the plain solve's ops table to record calls."""
+    plain = kassign.PLAIN
+    static = kassign.precompute_static(cfg, dsnap, *_sat_tables(dsnap, plain),
+                                       ops=plain)
+    info = validity(name, cfg, dsnap, res, static.mask.cpu().numpy())
     pstats = kassign.RoundStats()
     scans, states, pre_scans = [], [], []
 
@@ -825,7 +873,8 @@ def kernel_phase(cfg: EngineConfig, dsnap) -> dict:
         plain_ms=cuda_ms(lambda: kassign.finalize_score_plain(*args3), 5),
         bound=bound(b3, P * N * 12), shape=f"P={P} N={N}")
     # K4
-    static = kassign.finalize_static(cfg, dsnap, *cells_k)
+    static = kassign.finalize_static(
+        cfg, dsnap, kassign.WarmTableau(node_sat_t, None, None, *cells_k))
     order = kassign.pop_order(cfg, dsnap)
     scan_k = kassign.parity_scan(cfg, dsnap, static, order)
     # The plain scan is timed once, on the call compared (~17 s).
@@ -1098,7 +1147,9 @@ def stage_breakdown(engine: Engine, snap) -> dict:
     ev[1].record()
     cells = kassign._tableau_cells(dsnap, dsnap.pods, dsnap.nodes, node_sat_t)
     ev[2].record()
-    static = kassign.finalize_static(cfg, dsnap, *cells)
+    static = kassign.finalize_static(
+        cfg, dsnap, kassign.WarmTableau(node_sat_t, member_sat_t, None,
+                                        *cells))
     ev[3].record()
     if pairwise:
         static.sig_match = kpair.sig_match(
@@ -1724,6 +1775,268 @@ def fast_preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
     return launches, rows
 
 
+def timed(fn):
+    """(fn(), host-clock ms), synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def same_result(name: str, got, want,
+                fields=("assignment", "chosen_score", "evicted")) -> None:
+    for f in fields:
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{name}: {f} differs")
+
+
+def value_churn(ds, pods_r: list, rng, k: int):
+    """bench_warm's value churn: k pods' observed availability redrawn,
+    one apply."""
+    picks = rng.choice(len(pods_r), size=k, replace=False)
+    ups = []
+    for i in picks:
+        rec = pods_r[int(i)]
+        rec["observed_avail"] = float(rng.uniform(0.3, 1.0))
+        ups.append(rec)
+    return ds.apply(upsert_pods=ups)
+
+
+def warm_phase(smi: str) -> tuple[dict, dict]:
+    """The warm lineage (w) through the engine's warm entry points, every
+    counter zeroed just before and read just after: a cold solve, the
+    cold rung (the tableau's build), value churn at 0.1 / 1 / 10 % of the
+    pods (each warm result equal to a cold solve of the same state, the
+    first also to the plain-version solve), warm_churn_stream cycles
+    (reorders, completions, cordon toggles), incremental cycles at 1 %
+    (audit tail zero, validity, carried and frontier counts), one parity
+    warm cycle. Then K19 and K20 against their plain versions on the
+    first incremental cycle's inputs. Returns (the launch counts, the
+    kernel rows)."""
+    cfg = EngineConfig(mode="fast")
+    t_phase = t0 = time.perf_counter()
+    nodes_r, pods_r, running_r = (list(x) for x in make_cluster(
+        np.random.default_rng(WARM_SEED), PODS, NODES, n_running_per_node=1,
+        with_qos=True, as_records=True))
+    t_rec = time.perf_counter() - t0
+    ds = DeviceSnapshot(cfg)
+    st, load_ms = timed(lambda: ds.full_load(nodes_r, pods_r, running_r))
+    bk = ds.meta.buckets
+    full = ds.full_bytes
+    log(f"warm lineage (w): records {t_rec:.3f} s, full_load {load_ms:.1f} "
+        f"ms host clock, buckets P={bk.pods} N={bk.nodes} "
+        f"M={bk.running_pods}, full upload {full} bytes; {smi}")
+    eng = Engine(cfg)
+    zero_counts()
+    cold0, cold_ms = timed(lambda: eng.solve(ds.snap))
+    first, first_ms = timed(lambda: eng.solve_warm(ds))
+    same_result("w cold rung vs cold solve", first, cold0)
+    tab_bytes = sum(nbytes(t) for t in ds.warm_state.tableau.leaves()
+                    if t is not None)
+    log(f"warm (w): cold solve {cold_ms:.3f} ms, cold rung (tableau build) "
+        f"{first_ms:.3f} ms, equal; tableau {tab_bytes} bytes on the "
+        f"device; host reads {first.host_reads}; {smi}")
+    P = len(pods_r)
+    plain_checked = False
+    for frac in WARM_FRACS:
+        k = max(1, int(round(frac * P)))
+        rng = np.random.default_rng(int(frac * 1e6) + 17)
+        walls, colds, reads, sent, solve_sent, books = [], [], [], [], [], []
+        for cyc in range(WARM_CYCLES):
+            stats = value_churn(ds, pods_r, rng, k)
+            # The lineage's host bookkeeping alone (warm_delta is pure):
+            # name maps over every row, the pressure compare.
+            _, book_ms = timed(ds.warm_delta)
+            # Each pair runs in turns: warm first on even cycles, cold
+            # first on odd ones.
+            if cyc % 2:
+                cold, cms = timed(lambda: eng.solve(ds.snap))
+            res, ms = timed(lambda: eng.solve_warm(ds))
+            if not cyc % 2:
+                cold, cms = timed(lambda: eng.solve(ds.snap))
+            same_result(f"w warm {frac:g} cycle {cyc} vs cold", res, cold)
+            if not plain_checked:
+                plain = plain_result(cfg, ds.snap)
+                same_result("w warm vs the plain-version solve", res, plain)
+                plain_checked = True
+            walls.append(ms)
+            colds.append(cms)
+            reads.append(res.host_reads)
+            sent.append(stats.h2d_bytes)
+            solve_sent.append(res.h2d_bytes)
+            books.append(book_ms)
+        log(f"warm (w) value churn {frac:g} ({k} pods a cycle, dirty rows "
+            f"{ds.last_warm_rows}): warm walls {[round(w, 3) for w in walls]}"
+            f" ms, p50 {statistics.median(walls):.3f}; cold walls "
+            f"{[round(w, 3) for w in colds]} ms, p50 {statistics.median(colds):.3f}; each "
+            f"warm equal to its cold solve, warm under cold in "
+            f"{sum(w < c for w, c in zip(walls, colds))} of {len(walls)} "
+            f"pairs; warm_delta (host) "
+            f"{[round(b, 3) for b in books]} ms; host reads {reads}; apply "
+            f"h2d {sent} bytes, solve h2d {solve_sent} bytes, full upload "
+            f"{full}; {smi}")
+    if ds.warm_solves != len(WARM_FRACS) * WARM_CYCLES or ds.cold_solves != 1:
+        raise AssertionError(f"w: {ds.cold_solves} cold rungs "
+                             f"({ds.warm_cold_reasons})")
+    rng = np.random.default_rng(WARM_SEED + 1)
+    walls, colds, kinds = [], [], []
+    for cyc, delta in enumerate(warm_churn_stream(
+            rng, nodes_r, pods_r, running_r, WARM_STREAM, churn_frac=0.01,
+            structural_every=5)):
+        stats = ds.apply(**delta)
+        res, ms = timed(lambda: eng.solve_warm(ds))
+        cold, cms = timed(lambda: eng.solve(ds.snap))
+        same_result(f"w stream cycle {cyc} vs cold", res, cold)
+        walls.append(ms)
+        colds.append(cms)
+        kinds.append("reorder" if stats.reordered else stats.path)
+    if ds.cold_solves != 1:
+        raise AssertionError(f"w stream: a cold rung ({ds.warm_cold_reasons})")
+    log(f"warm (w) churn stream ({WARM_STREAM} cycles: {kinds}): warm walls "
+        f"{[round(w, 3) for w in walls]} ms, p50 {statistics.median(walls):.3f}; cold p50 "
+        f"{statistics.median(colds):.3f}; each equal to its cold solve; {smi}")
+    recorded = {}
+    kernels = kassign.KERNELS
+
+    def record(name):
+        fn = getattr(kernels, name)
+
+        def wrapped(*args):
+            out = fn(*args)
+            if name not in recorded:
+                recorded[name] = tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)
+            return out
+
+        return wrapped
+
+    kassign.KERNELS = dataclasses.replace(
+        kernels, capacity_prefix_keep=record("capacity_prefix_keep"),
+        frontier_closure=record("frontier_closure"))
+    rng = np.random.default_rng(10029)
+    k = max(1, int(round(0.01 * P)))
+    walls, colds, rows = [], [], []
+    try:
+        for cyc in range(WARM_INC):
+            value_churn(ds, pods_r, rng, k)
+            res, ms = timed(lambda: eng.solve_warm(ds, incremental=True))
+            info = res.inc_info
+            if info is None or info["audit_violations"]:
+                raise AssertionError(f"w incremental cycle {cyc}: {info}")
+            v = validity(f"w incremental cycle {cyc}", cfg, ds.snap, res,
+                         ds.warm_state.tableau.mask.cpu().numpy())
+            cold, cms = timed(lambda: eng.solve(ds.snap))
+            walls.append(ms)
+            colds.append(cms)
+            rows.append((info["carried"], info["frontier"], v["placed"],
+                         int((cold.assignment >= 0).sum()), res.host_reads,
+                         cold.host_reads))
+    finally:
+        kassign.KERNELS = kernels
+    if ds.incremental_solves != WARM_INC:
+        raise AssertionError(f"w: {ds.incremental_solves} incremental solves")
+    log(f"warm (w) incremental 1 % ({k} pods a cycle): walls "
+        f"{[round(w, 3) for w in walls]} ms, p50 {statistics.median(walls):.3f}; cold "
+        f"p50 {statistics.median(colds):.3f}; audit tails zero, validity audit clean; "
+        f"(carried, frontier, placed, cold placed, host reads, cold host "
+        f"reads) {rows}; {smi}")
+    eng_p = Engine(EngineConfig(mode="parity"))
+    eng_p.solve_warm(ds)
+    if ds.warm_cold_reasons[-1] != "engine_mismatch":
+        raise AssertionError(f"w parity: {ds.warm_cold_reasons}")
+    value_churn(ds, pods_r, rng, k)
+    res, ms = timed(lambda: eng_p.solve_warm(ds))
+    cold, cms = timed(lambda: eng_p.solve(ds.snap))
+    same_result("w parity warm vs cold", res, cold,
+                ("assignment", "chosen_score", "evicted", "order"))
+    log(f"warm (w) parity: warm {ms:.3f} ms, cold {cms:.3f} ms, equal in "
+        f"assignment, chosen, evicted, order; {smi}")
+    phase_counts = counts()
+    for kname, n in phase_counts.items():
+        need = kname in WARM_KERNELS and (
+            kname != "atom_sat" or ds.snap.atoms.key.shape[0] > 0)
+        if (need and n < 1) or (not need and n):
+            raise AssertionError(f"w: kernel {kname} launched {n} times "
+                                 f"(launches {phase_counts})")
+    log(f"warm (w) launches {phase_counts}; the phase so far "
+        f"{time.perf_counter() - t_phase:.1f} s host clock")
+
+    out = {}
+    args = recorded["capacity_prefix_keep"]
+    got = kassign.capacity_prefix_keep(*args)
+    err = require_equal("capacity_prefix_keep", [got],
+                        [kassign.capacity_prefix_keep_plain(*args)])
+    alloc, used, req, node, rank, active = args
+    Pk, R = req.shape
+    out["capacity_prefix_keep"] = dict(
+        err=err, ms=cuda_ms(lambda: kassign.capacity_prefix_keep(*args), 20),
+        plain_ms=cuda_ms(lambda: kassign.capacity_prefix_keep_plain(*args),
+                         3),
+        prof_ms=profiler_ms(lambda: kassign.capacity_prefix_keep(*args),
+                            "capacity_prefix_keep_kernel"),
+        bound=bound(nbytes(alloc, used, req, node, rank, active, got),
+                    2 * R * int(active.sum())),
+        shape=f"P={Pk} N={alloc.shape[0]} R={R}, "
+              f"{int(active.sum())} active, {int(got.sum())} kept")
+    args = recorded["frontier_closure"]
+    got = kassign.frontier_closure(*args)
+    err = require_equal("frontier_closure", got,
+                        kassign.frontier_closure_plain(*args))
+    invol, fr0, valid, carry, dnode, mask = args
+    S = 0 if invol is None else invol.shape[1]
+    moved = nbytes(fr0, valid, carry, *got) + int((carry >= 0).sum()) + (
+        0 if invol is None else nbytes(invol)) + (
+        0 if dnode is None else nbytes(dnode))
+    out["frontier_closure"] = dict(
+        err=err, ms=cuda_ms(lambda: kassign.frontier_closure(*args), 20),
+        plain_ms=cuda_ms(lambda: kassign.frontier_closure_plain(*args), 5),
+        prof_ms=profiler_ms(lambda: kassign.frontier_closure(*args),
+                            "frontier_"),
+        bound=bound(moved, fr0.shape[0] * (2 * S + 6)),
+        shape=f"P={fr0.shape[0]} N={mask.shape[1]} S={S}, dirty nodes "
+              f"{'none' if dnode is None else int(dnode.sum())}, frontier "
+              f"{int(got[2])}")
+    for kname, r in out.items():
+        prof = ("not measured" if r["prof_ms"] is None
+                else f"{r['prof_ms']:.4f} ms")
+        log(f"kernel {kname} on (w)'s first incremental cycle "
+            f"[{r['shape']}]: exact match, kernel {r['ms']:.4f} ms (CUDA "
+            f"events around its wrapper; profiler kernel time {prof}), "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+            f"({r['bound'][1]}); {smi}")
+    eng.close()
+    eng_p.close()
+    return phase_counts, out
+
+
+def async_phase(snap, smi: str) -> None:
+    """solve_async, score_async and score_topk_async once each on (b),
+    each equal to its synchronous form."""
+    eng = Engine(EngineConfig(mode="fast"))
+    walls = {}
+    (got, want), walls["solve_async"] = timed(
+        lambda: (eng.solve_async(snap).result(timeout=300.0),
+                 eng.solve(snap)))
+    same_result("solve_async", got, want,
+                ("assignment", "chosen_score", "order", "commit_key",
+                 "final_used", "evicted", "rounds", "host_reads"))
+    (got, want), walls["score_async"] = timed(
+        lambda: (eng.score_async(snap).result(), eng.score(snap)))
+    same_result("score_async", got, want, ("feasible", "scores"))
+    (got, want), walls["score_topk_async"] = timed(
+        lambda: (eng.score_topk_async(snap, 8).result(),
+                 eng.score_topk(snap, 8)))
+    if not (np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1])):
+        raise AssertionError("score_topk_async differs from score_topk")
+    eng.close()
+    log("async forms on (b): solve_async, score_async, score_topk_async(8) "
+        "equal to their synchronous forms; host clock of each pair (ms) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()) + f"; {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port "
@@ -1950,6 +2263,13 @@ def main() -> int:
     for k, v in phase_counts.items():
         launches[k] += v
     kp.update(kp_auction)
+
+    # -- the warm lineage (w) and the async forms ------------------------------
+    async_phase(snap_b, smi)
+    phase_counts, kp_warm = warm_phase(smi)
+    for k, v in phase_counts.items():
+        launches[k] += v
+    kp.update(kp_warm)
 
     for name, n in launches.items():
         if name in OFF_PATH:

@@ -585,3 +585,115 @@ def test_fast_preempt_solve_equal_plain(cuda, pair, tie_break):
     assert s1.host_reads == s2.host_reads
     res = Engine.unpack(snap, got.cpu().numpy())
     assert res.evicted.any()
+
+
+@pytest.mark.parametrize("P,N", [(300, 40), (10240, 5120)])
+def test_k19_equal_plain(cuda, P, N):
+    """K19 (the carried capacity prefix) against its plain version on
+    config-5-like magnitudes, exactly: both sum each node's rows from
+    0.0 in rank order."""
+    g = np.random.default_rng(P)
+    alloc = np.stack([g.choice([4000.0, 8000.0, 16000.0], N),
+                      g.choice([16.0, 64.0, 128.0], N) * float(1 << 30),
+                      np.full(N, 110.0)], axis=1).astype(np.float32)
+    used = np.floor(alloc * g.uniform(0.5, 0.9, (N, 3))).astype(np.float32)
+    req = np.stack([g.integers(100, 4000, P), g.integers(1 << 28, 8 << 30, P),
+                    np.ones(P)], axis=1).astype(np.float32)
+    node = g.integers(-1, N, P).astype(np.int32)
+    rank = g.permutation(P).astype(np.int32)
+    active = (node >= 0) & (g.random(P) < 0.9)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (alloc, used, req, node, rank, active)]
+    got = ka.capacity_prefix_keep(*args)
+    _equal((got,), (ka.capacity_prefix_keep_plain(*args),))
+    assert got.any() and (args[5] & ~got).any()
+
+
+@pytest.mark.parametrize("S,dirty", [(0, False), (4, True), (32, True)])
+def test_k20_equal_plain(cuda, S, dirty):
+    """K20 (the frontier closure and static revalidation) against its
+    plain version, exactly."""
+    g = np.random.default_rng(S)
+    P, N = 2000, 300
+    invol = (g.random((P, S)) < 0.02) if S else None
+    valid = g.random(P) < 0.9
+    carry = np.where(valid, g.integers(-1, N, P), -1).astype(np.int32)
+    arrs = (invol, g.random(P) < 0.02, valid, carry,
+            (g.random(N) < 0.05) if dirty else None, g.random((P, N)) < 0.8)
+    args = [None if a is None else torch.from_numpy(a).to(cuda)
+            for a in arrs]
+    got = ka.frontier_closure(*args)
+    _equal(got, ka.frontier_closure_plain(*args))
+    assert got[0].any() and got[1].any()
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_warm_and_incremental_on_the_card(cuda, pair):
+    """A lineage on the card: each warm solve equals a cold solve
+    bitwise, the incremental solve keeps a zero audit, and both equal
+    the same solves through the plain versions on the same tensors."""
+    from tpusched_torch.device_state import DeviceSnapshot
+
+    kw = dict(spread_frac=0.4, interpod_frac=0.4) if pair else {}
+    nodes, pods, running = tsynth.make_cluster(
+        np.random.default_rng(3), 200, 40, as_records=True, **kw)
+    nodes, pods, running = list(nodes), list(pods), list(running)
+    eng = Engine(EngineConfig(mode="fast"))
+    ds = DeviceSnapshot(eng.config)
+    ds.full_load(nodes, pods, running)
+    assert ds.snap.pods.valid.is_cuda
+    eng.solve_warm(ds)
+    rng = np.random.default_rng(4)
+    for cyc, delta in enumerate(tsynth.warm_churn_stream(
+            rng, nodes, pods, running, 4, churn_frac=0.05,
+            structural_every=2)):
+        ds.apply(**delta)
+        res = eng.solve_warm(ds, incremental=cyc % 2 == 1)
+        if cyc % 2:
+            assert res.inc_info["audit_violations"] == 0, res.inc_info
+        else:
+            cold = eng.solve(ds.snap)
+            np.testing.assert_array_equal(res.assignment, cold.assignment)
+            np.testing.assert_array_equal(res.chosen_score,
+                                          cold.chosen_score)
+        assert res.h2d_bytes < ds.full_bytes
+    assert ds.warm_solves == 2 and ds.incremental_solves == 2
+    tab = ds.warm_state.tableau  # tpl: disable=TPL011(read right after its refresh)
+    P = ds.snap.pods.valid.shape[0]
+    carry = torch.full((P,), -1, dtype=torch.int32, device=cuda)
+    carry[:P // 2] = torch.arange(P // 2, device=cuda,
+                                  dtype=torch.int32) % 40
+    chosen = torch.zeros(P, device=cuda)
+    fr = torch.zeros(P, dtype=torch.bool, device=cuda)
+    fr[::7] = True
+    dn = torch.zeros(ds.snap.nodes.valid.shape[0], dtype=torch.bool,
+                     device=cuda)
+    dn[3] = True
+    outs = [ka.solve_incremental(eng.config, ds.snap, tab, carry, chosen, fr,
+                                 dn, 64, ops=ops)
+            for ops in (ka.KERNELS, ka.PLAIN)]
+    for got, want in zip(*outs):
+        assert torch.equal(torch.as_tensor(got), torch.as_tensor(want))
+    eng.close()
+
+
+def test_async_forms_on_the_card(cuda):
+    """solve_async, score_async and score_topk_async equal their
+    synchronous forms on the card; result() waits on the copy's event."""
+    snap = _snap(cuda)
+    for mode in ("parity", "fast"):
+        eng = Engine(EngineConfig(mode=mode))
+        a = eng.solve_async(snap).result(timeout=60.0)
+        b = eng.solve(snap)
+        for f in ("assignment", "chosen_score", "order", "commit_key",
+                  "final_used", "evicted", "rounds"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        if mode == "parity":
+            eng.close()
+    s1, s2 = eng.score_async(snap).result(), eng.score(snap)
+    np.testing.assert_array_equal(s1.scores, s2.scores)
+    np.testing.assert_array_equal(s1.feasible, s2.feasible)
+    t1, t2 = eng.score_topk_async(snap, 4).result(), eng.score_topk(snap, 4)
+    np.testing.assert_array_equal(t1[0], t2[0])
+    np.testing.assert_array_equal(t1[1], t2[1])
+    eng.close()

@@ -31,7 +31,7 @@ def test_port_imports_with_jax_blocked():
         "import tpusched_torch, tpusched_torch.kernels.assign, "
         "tpusched_torch.kernels.pairwise, tpusched_torch.kernels.preempt, "
         "tpusched_torch.engine, "
-        "tpusched_torch.synth\n"
+        "tpusched_torch.synth, tpusched_torch.device_state\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpusched'))\n"
@@ -111,3 +111,31 @@ def test_engine_runs_fast_preemption():
     assert placed.any() and res.evicted.any()
     assert (res.final_used <= alloc + 1e-3).all()
     assert (~np.isfinite(res.chosen_score[placed])).any()
+
+
+def test_warm_entry_points_run_on_the_cpu_only_when_asked(monkeypatch):
+    """A lineage, like the engine, lives on the card unless asked for
+    the CPU; asked, a CPU lineage warm-solves on a CPU engine without a
+    transfer, and a foreign (numpy-backed) snapshot is read whole."""
+    from tpusched_torch.device_state import DeviceSnapshot
+    from tpusched_torch.synth import make_cluster
+
+    nodes, pods, running = make_cluster(np.random.default_rng(0), 12, 4,
+                                        as_records=True)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DeviceSnapshot(EngineConfig(mode="fast"))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Engine(EngineConfig(mode="fast"))
+    ds = DeviceSnapshot(EngineConfig(mode="fast"), device="cpu")
+    ds.full_load(nodes, pods, running)
+    eng = Engine(EngineConfig(mode="fast"), device="cpu")
+    res = eng.solve_warm(ds)
+    assert ds.snap.pods.valid.device == torch.device("cpu")
+    assert ds.cold_solves == 1 and res.h2d_bytes == 0
+    pods[0]["observed_avail"] = 0.3
+    ds.apply(upsert_pods=[pods[0]])
+    res = eng.solve_warm(ds)
+    eng.close()
+    assert ds.warm_solves == 1 and 0 < res.h2d_bytes < ds.full_bytes

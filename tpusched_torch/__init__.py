@@ -1,13 +1,14 @@
 """tpusched_torch — the PyTorch / CUDA port of tpusched for one NVIDIA H100.
 
 A package of its own beside the JAX reference (`tpusched/`), which it
-never imports. It covers, for snapshots without pairwise signatures,
-gangs or preemption, `Engine.solve` in parity mode (the
-exactly-sequential commit) and fast mode (batched commit rounds), and
-ScoreBatch (`Engine.score`, `score_top1`, `score_topk`): label matching,
-the static Filter/Score tableau, the batched Filter/Score pass, the
-per-row ranking, the dealing and the commits, each on a CUDA kernel
-written for Hopper (tpusched_torch/csrc), built with nvcc at first use.
+never imports. It covers `Engine.solve` in parity mode (the
+exactly-sequential commit) and fast mode (batched commit rounds), with
+pairwise constraints, gangs and preemption; ScoreBatch (`Engine.score`,
+`score_top1`, `score_topk`); their async forms; and warm lineages
+(`device_state.DeviceSnapshot` with `Engine.solve_warm`, bitwise or
+incremental). Every device program runs on a CUDA kernel written for
+Hopper (tpusched_torch/csrc), built with nvcc at first use, or on plain
+torch where the JAX program is a row gather, scatter or sort.
 """
 
 from tpusched_torch.config import Buckets, EngineConfig, PluginWeights

@@ -80,6 +80,8 @@ SIGNATURES = {
     "tpusched_auction_ok": [_I, _I] + [_P] * 8,
     "tpusched_auction_rank": [_I] * 5 + [_P] * 11,
     "tpusched_auction_claim": [_I] * 8 + [_P] * 16 + [_F] + [_P] * 8,
+    "tpusched_capacity_prefix_keep": [_I] * 3 + [_P] * 7,
+    "tpusched_frontier_closure": [_I] * 3 + [_P] * 11,
 }
 
 _lib: "ctypes.CDLL | None" = None

@@ -330,6 +330,26 @@ int tpusched_auction_claim(int C, int K, int N, int V, int R, int M, int GP,
                            bool* takes, int* vidx_t, float* freed,
                            int* usage, bool* could_bid, void* stream);
 
+// K19 (assign.py _capacity_prefix_keep). After the caller's sort of the
+// rows by (node, rank) (perm: sorted row -> pod row, node_s: sorted nodes,
+// N for inactive rows): keep[p] = p lies in its node's longest rank-ordered
+// prefix whose summed requests fit alloc - used. keep must arrive false.
+// R <= 16.
+int tpusched_capacity_prefix_keep(int P, int N, int R, const int* perm,
+                                  const int* node_s, const float* requests,
+                                  const float* alloc, const float* used,
+                                  bool* keep, void* stream);
+
+// K20 (assign.py solve_incremental's frontier closure and static
+// revalidation). invol [P, S] (NULL when S = 0), dirty_node [N] or NULL;
+// carry -1 where a pod carries nothing. hot [max(S, 1)] and count must
+// arrive zeroed. Two launches: the hot signatures, then the pods.
+int tpusched_frontier_closure(int P, int N, int S, const bool* invol,
+                              const bool* fr0, const bool* valid,
+                              const int* carry, const bool* dirty_node,
+                              const bool* mask, int* hot, bool* fr,
+                              bool* carried, int* count, void* stream);
+
 #ifdef __cplusplus
 }
 #endif

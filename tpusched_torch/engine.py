@@ -35,29 +35,55 @@ members (K10) and every pod's pairwise row (K11), then one [P, N] Filter
 + Score pass (K5) and, for the top-k forms, a per-row ranking (K6).
 
 S is the number of pairwise signatures (topology spread, inter-pod
-affinity and anti-affinity terms). The engine starts no thread: every
-entry point is synchronous and `close` has nothing to release.
+affinity and anti-affinity terms).
+
+The async forms (`solve_async`, `score_async`, `score_topk_async`)
+enqueue the work and a copy of the result into pinned host memory
+behind a CUDA event, and return a `PendingFetch` whose `result()` waits
+on that event: the engine starts no thread, and `close` has nothing to
+release. (Fast mode reads device flags while it dispatches, so its
+dispatch returns when its last round has been decided.)
+
+The warm entry points (`solve_warm_async`, `solve_warm`) solve a
+device-resident lineage (`device_state.DeviceSnapshot`, or any object
+with its interface, such as the JAX package's): the cold rung builds
+the lineage's tableau (`kernels/assign.build_tableau`), the warm rung
+refreshes its dirty rows and columns (`refresh_tableau`: K1, K2 and K9
+on views) and solves bitwise as a cold solve would, and the incremental
+rung seeds the fast rounds with the previous cycle's placements
+(`solve_incremental`: K20's frontier closure, K19's capacity prefix,
+then the rounds over the frontier).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import time
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from tpusched_torch.config import EngineConfig
+from tpusched_torch.device_state import _pad_pow2
 from tpusched_torch.kernels import pairwise as kpair
 from tpusched_torch.kernels.assign import (
+    INC_AUDIT_LEN,
     KERNELS,
     Ops,
     RoundStats,
+    StaticCtx,
+    WarmTableau,
+    build_tableau,
+    finalize_static,
+    refresh_tableau,
     score_batch,
+    solve_incremental,
     solve_rounds,
     solve_sequential,
 )
-from tpusched_torch.snapshot import ClusterSnapshot
+from tpusched_torch.snapshot import ClusterSnapshot, snapshot_from_numpy
 
 
 @dataclasses.dataclass
@@ -74,6 +100,14 @@ class SolveResult:
     solve_seconds: float = 0.0
     # Fast mode: device flags the host read to drive the round loops.
     host_reads: int = 0
+    # Incremental warm solves: the audit tail (cap_violations,
+    # static_violations, pair_violations, audit_violations = their sum,
+    # which the validity contract holds at 0; carried; frontier).
+    inc_info: dict | None = None
+    # Bytes the call moved host -> device: the whole snapshot for a
+    # cold solve or a lineage not resident on the engine's device, the
+    # index lists and carry for a resident warm lineage.
+    h2d_bytes: int = 0
 
 
 @dataclasses.dataclass
@@ -99,16 +133,20 @@ def _sat_tables(snap: ClusterSnapshot, ops: Ops = KERNELS):
 
 
 def solve_core(cfg: EngineConfig, snap: ClusterSnapshot, ops: Ops = KERNELS,
-               stats: RoundStats | None = None):
+               stats: RoundStats | None = None,
+               static: StaticCtx | None = None):
     """(assigned, chosen, used, order, commit_key, rounds, evicted) in
     either mode. Parity: commit_key is the rank in pop order, rounds = P.
     Fast: commit_key is each pod's commit round. stats collects the fast
-    loops' host reads (and spans, when it times)."""
+    loops' host reads (and spans, when it times). static: a StaticCtx
+    already made from a tableau (the warm path); the label tables and
+    the tableau are then not computed."""
+    tables = (None, None) if static is not None else _sat_tables(snap, ops)
     if cfg.mode == "fast":
-        return solve_rounds(cfg, snap, *_sat_tables(snap, ops), ops=ops,
+        return solve_rounds(cfg, snap, *tables, static=static, ops=ops,
                             stats=stats)
-    a, c, u, o, ev = solve_sequential(cfg, snap, *_sat_tables(snap, ops),
-                                      ops=ops)
+    a, c, u, o, ev = solve_sequential(cfg, snap, *tables, ops=ops,
+                                      static=static)
     P = a.shape[0]
     rank = torch.zeros(P, dtype=torch.int32, device=o.device)
     rank[o] = torch.arange(P, dtype=torch.int32, device=o.device)
@@ -160,6 +198,65 @@ def score_topk_core(cfg: EngineConfig, snap: ClusterSnapshot, kb: int,
     return torch.where(ok, topi, -1), torch.where(ok, topv, zero)
 
 
+def _pin(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of a CUDA tensor, enqueued on the current
+    stream (the copy lands when the stream reaches it)."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+class PendingFetch:
+    """A dispatched result on its way to the host (JAX `PendingFetch`).
+    On a CUDA device the result buffers are copied into pinned host
+    memory behind a CUDA event; `result()` waits on that event and
+    decodes. On the CPU the result is there at dispatch."""
+
+    def __init__(self, bufs, unpack: Callable[[list, float], Any],
+                 t0: float):
+        self._unpack = unpack
+        self._t0 = t0
+        self._event = None
+        if bufs and bufs[0].device.type == "cuda":
+            self._bufs = [_pin(b) for b in bufs]
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._bufs = list(bufs)
+
+    def result(self, timeout: float | None = None):
+        """Wait for the copy and decode. `timeout` (seconds) raises
+        concurrent.futures.TimeoutError if the copy has not landed in
+        time (the work goes on; a later call may still succeed)."""
+        ev = self._event
+        if ev is not None:
+            if timeout is None:
+                ev.synchronize()
+            else:
+                deadline = time.perf_counter() + timeout
+                while not ev.query():
+                    if time.perf_counter() >= deadline:
+                        raise concurrent.futures.TimeoutError(
+                            f"device result not ready after {timeout} s")
+                    time.sleep(min(1e-4, max(0.0, deadline
+                                             - time.perf_counter())))
+        return self._unpack([b.numpy() for b in self._bufs],
+                            time.perf_counter() - self._t0)
+
+
+@dataclasses.dataclass
+class WarmState:
+    """The carried state of one warm lineage (JAX `WarmState`): its
+    device-resident tableau and the facts that decide whether it may be
+    trusted next cycle. Held by the lineage (`commit_warm`), read only by
+    `Engine.solve_warm_async`."""
+
+    tableau: WarmTableau
+    lineage: Any       # the lineage's warm_lineage token at build time
+    shapes: tuple      # snapshot leaf shapes the tableau was built at
+    engine: Any        # the Engine that built it
+
+
 class Engine:
     """Scheduling engine on one CUDA device, in parity or fast mode.
 
@@ -191,6 +288,8 @@ class Engine:
         self.device = torch.device(device)
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"device={device!r}: want 'cuda' or 'cpu'")
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
 
     @staticmethod
     def unpack(snap: ClusterSnapshot, buf) -> SolveResult:
@@ -210,33 +309,74 @@ class Engine:
             rounds=int(buf[-1]),
         )
 
-    def put(self, snap: ClusterSnapshot) -> ClusterSnapshot:
-        """Host -> device transfer of every leaf."""
-        return snap.to(self.device)
+    def _resident(self, snap) -> bool:
+        """snap is the port's snapshot with its leaves on this device."""
+        return (isinstance(snap, ClusterSnapshot)
+                and snap.pods.valid.device == self.device)
 
-    def solve(self, snap: ClusterSnapshot) -> SolveResult:
+    def put(self, snap) -> ClusterSnapshot:
+        """Host -> device transfer of every leaf. A snapshot of another
+        package (any object with the ClusterSnapshot field tree and
+        array leaves, such as the JAX package's) is read through numpy
+        first."""
+        return self._put(snap)[0]
+
+    def _put(self, snap) -> tuple[ClusterSnapshot, int]:
+        """put(snap) and the bytes it moved host -> device (0 for a
+        snapshot already on this device)."""
+        if self._resident(snap):
+            return snap, 0
+        if not isinstance(snap, ClusterSnapshot):
+            snap = snapshot_from_numpy(snap)
+        dsnap = snap.to(self.device)
+        return dsnap, dsnap.nbytes
+
+    def solve(self, snap) -> SolveResult:
         """Assign every pending pod (or -1). The time covers the
-        transfer in, the solve and the one device -> host read of the
+        transfer in, the solve and the device -> host read of the
         result buffer, which waits for the device."""
+        return self.solve_async(snap).result()
+
+    def solve_async(self, snap) -> PendingFetch:
+        """Dispatch the solve; `.result()` waits for the one flat result
+        buffer and decodes it (a SolveResult)."""
         t0 = time.perf_counter()
-        dsnap = self.put(snap)
+        dsnap, moved = self._put(snap)
         stats = RoundStats()
         buf = _pack_solve(solve_core(self.config, dsnap, stats=stats))
-        out = self.unpack(dsnap, buf.cpu().numpy())
-        out.host_reads = stats.host_reads
-        out.solve_seconds = time.perf_counter() - t0
-        return out
 
-    def score(self, snap: ClusterSnapshot) -> ScoreBatchResult:
+        def unpack(raw, seconds):
+            out = self.unpack(dsnap, raw[0])
+            out.host_reads = stats.host_reads
+            out.h2d_bytes = moved
+            out.solve_seconds = seconds
+            return out
+
+        return PendingFetch([buf], unpack, t0)
+
+    def solve_explained_async(self, snap, k: int = 3):
+        """Decision provenance is not ported yet (ROADMAP A11)."""
+        raise NotImplementedError(
+            "solve_explained_async: decision provenance is not ported to "
+            "tpusched_torch yet (ROADMAP A11)")
+
+    def score(self, snap) -> ScoreBatchResult:
         """ScoreBatch: [P, N] feasibility + normalized weighted scores
         against the snapshot's usage, no commits."""
+        return self.score_async(snap).result()
+
+    def score_async(self, snap) -> PendingFetch:
+        """Async form of score(): `.result()` is a ScoreBatchResult."""
         t0 = time.perf_counter()
         feasible, scores = score_core(self.config, self.put(snap))
-        return ScoreBatchResult(feasible=feasible.cpu().numpy(),
-                                scores=scores.cpu().numpy(),
-                                solve_seconds=time.perf_counter() - t0)
 
-    def score_top1(self, snap: ClusterSnapshot):
+        def unpack(raw, seconds):
+            return ScoreBatchResult(feasible=raw[0], scores=raw[1],
+                                    solve_seconds=seconds)
+
+        return PendingFetch([feasible, scores], unpack, t0)
+
+    def score_top1(self, snap):
         """Each pod's best node (-1 if none is feasible), its score and
         feasibility: (best [P] int32, score [P] f32, feasible [P] bool,
         seconds). The [P, N] matrix stays on the device."""
@@ -253,10 +393,15 @@ class Engine:
         kb = 1 << (max(int(k), 1) - 1).bit_length()
         return min(kb, int(n))
 
-    def score_topk(self, snap: ClusterSnapshot, k: int):
+    def score_topk(self, snap, k: int):
         """Each pod's best k feasible nodes, descending (ties to the
         lower index), and their scores: (idx [P, k] int32 with -1 where
         fewer than k are feasible, scores [P, k] f32 with 0 there,
+        seconds)."""
+        return self.score_topk_async(snap, k).result()
+
+    def score_topk_async(self, snap, k: int) -> PendingFetch:
+        """Async form of score_topk: `.result()` -> (idx, val,
         seconds)."""
         k = int(k)
         N = snap.nodes.valid.shape[0]
@@ -265,8 +410,185 @@ class Engine:
         t0 = time.perf_counter()
         idx, val = score_topk_core(self.config, self.put(snap),
                                    self._k_bucket(k, N))
-        return (idx[:, :k].cpu().numpy(), val[:, :k].cpu().numpy(),
-                time.perf_counter() - t0)
+
+        def unpack(raw, seconds):
+            return raw[0][:, :k], raw[1][:, :k], seconds
+
+        return PendingFetch([idx, val], unpack, t0)
+
+    # -- warm lineages ------------------------------------------------------
+
+    @staticmethod
+    def _pad_idx(idx) -> "np.ndarray | None":
+        """A dirty index list padded to a power of two (the repeated
+        first index carries identical content); None when empty."""
+        return _pad_pow2(list(idx)) if idx else None
+
+    @staticmethod
+    def _shape_key(snap: ClusterSnapshot) -> tuple:
+        return tuple(tuple(t.shape) for t in snap.leaves())
+
+    @staticmethod
+    def _frontier_bucket(est: int, P: int) -> int:
+        """The frontier-compaction width for an estimated frontier of
+        `est` pods: a power of two with 2x headroom, at least 64; 0 (full
+        width) once it would reach the pod axis."""
+        want = max(64, 2 * max(est, 1))
+        cap = 1 << (want - 1).bit_length()
+        return 0 if cap >= P else cap
+
+    def unpack_incremental(self, snap: ClusterSnapshot, buf):
+        """Decode the incremental solve's buffer: the solve layout, then
+        the INC_AUDIT_LEN audit tail. Returns (SolveResult, info)."""
+        buf = np.asarray(buf)
+        res = Engine.unpack(snap, buf[:-INC_AUDIT_LEN])
+        audit = buf[-INC_AUDIT_LEN:]
+        info = dict(
+            cap_violations=int(audit[0]),
+            static_violations=int(audit[1]),
+            pair_violations=int(audit[2]),
+            audit_violations=int(audit[0] + audit[1] + audit[2]),
+            carried=int(audit[3]),
+            frontier=int(audit[4]),
+        )
+        return res, info
+
+    def _tableau_cold(self, dsnap: ClusterSnapshot) -> WarmTableau:
+        node_sat_t, member_sat_t = _sat_tables(dsnap)
+        if member_sat_t is None:
+            # The lineage carries the member table at S = 0 too, so a
+            # later refresh has it (the JAX tableau always holds it).
+            member_sat_t = kpair.member_label_sat_t(dsnap, KERNELS.atom_sat)
+        return build_tableau(self.config, dsnap, node_sat_t, member_sat_t)
+
+    def solve_warm_async(self, device, incremental: bool = False,
+                         ) -> PendingFetch:
+        """Solve a device-resident lineage (JAX `solve_warm_async`).
+        `device` is a DeviceSnapshot (this package's, or any object with
+        its interface). Its accumulated dirty state (`warm_delta()`)
+        picks the rung:
+
+          * cold: anything the row model cannot express (a rebuild,
+            vocabulary growth, no tableau, a tableau of another lineage,
+            engine or shape) builds the tableau from scratch and solves
+            as `solve` does;
+          * warm: the carried tableau is reordered and refreshed on its
+            dirty rows and columns, then the solve runs from it, bitwise
+            equal to a cold solve;
+          * incremental (incremental=True, with a carry from the last
+            warm result): `solve_incremental` over the frontier, held to
+            the validity contract (SolveResult.inc_info).
+
+        The new tableau is committed to the lineage at dispatch
+        (`commit_warm`); the result becomes the lineage's carry at join
+        (`commit_carry`). A lineage whose leaves are not tensors on this
+        engine's device is read through numpy and sent whole, every
+        cycle; SolveResult.h2d_bytes counts it."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        dsnap, moved = self._put(device.snap)
+        delta = device.warm_delta()
+        warm = device.warm_state
+        shapes = self._shape_key(dsnap)
+        reason = None
+        if delta.needs_cold:
+            reason = delta.reason or "needs_cold"
+        elif warm is None:
+            reason = "no_tableau"
+        elif warm.lineage is not device.warm_lineage:
+            reason = "lineage_mismatch"
+        elif warm.engine is not self:
+            reason = "engine_mismatch"
+        elif warm.shapes != shapes:
+            reason = "shape_change"
+        carry = device.carry_arrays() if incremental else None
+        stats = RoundStats()
+        dev = self.device
+
+        def idx(a):
+            nonlocal moved
+            if a is None:
+                return None
+            a = np.asarray(a, np.int32)
+            moved += a.nbytes
+            return torch.from_numpy(a).to(dev).long()
+
+        inc_run = False
+        if reason is not None:
+            tab = self._tableau_cold(dsnap)
+            out = solve_core(cfg, dsnap, stats=stats,
+                             static=finalize_static(cfg, dsnap, tab))
+            buf = _pack_solve(out)
+            path, rows = "cold", (0, 0, 0)
+        else:
+            rows = (len(delta.dirty_pods or ()),
+                    len(delta.dirty_nodes or ()),
+                    len(delta.dirty_members or ()))
+            tab = refresh_tableau(
+                cfg, dsnap, warm.tableau,
+                dirty_pods=idx(self._pad_idx(delta.dirty_pods)),
+                dirty_nodes=idx(self._pad_idx(delta.dirty_nodes)),
+                dirty_members=idx(self._pad_idx(delta.dirty_members)),
+                pod_perm=idx(delta.pod_perm), node_perm=idx(delta.node_perm),
+                member_perm=idx(delta.member_perm))
+            if incremental and carry is not None:
+                carry_arr, chosen_arr = carry
+                P = dsnap.pods.valid.shape[0]
+                frontier = np.zeros(P, bool)
+                if delta.dirty_pods:
+                    frontier[np.asarray(delta.dirty_pods, np.int32)] = True
+                dnode = None
+                if delta.dirty_nodes:
+                    dnode = np.zeros(dsnap.nodes.valid.shape[0], bool)
+                    dnode[np.asarray(delta.dirty_nodes, np.int32)] = True
+                    moved += dnode.nbytes
+                # The estimate counts real rows only (padding reads as
+                # carry -1 and would push it over a power of two).
+                n_real = len(device.meta.pod_names)
+                est = (int(frontier[:n_real].sum())
+                       + int((np.asarray(carry_arr)[:n_real] < 0).sum()))
+                moved += frontier.nbytes + 8 * P
+                out = solve_incremental(
+                    cfg, dsnap, tab,
+                    torch.from_numpy(np.asarray(carry_arr, np.int32)).to(dev),
+                    torch.from_numpy(np.asarray(chosen_arr,
+                                                np.float32)).to(dev),
+                    torch.from_numpy(frontier).to(dev),
+                    None if dnode is None else torch.from_numpy(dnode).to(dev),
+                    self._frontier_bucket(est, P), stats=stats)
+                buf = torch.cat([_pack_solve(out[:7]), out[7]])
+                path, inc_run = "incremental", True
+            else:
+                out = solve_core(cfg, dsnap, stats=stats,
+                                 static=finalize_static(cfg, dsnap, tab))
+                buf = _pack_solve(out)
+                path = "warm"
+        device.commit_warm(
+            WarmState(tableau=tab, lineage=device.warm_lineage,
+                      shapes=shapes, engine=self),
+            path=path, reason=reason or "", rows=rows)
+        # The carry maps by name: capture the name orders of the snapshot
+        # this dispatch solves.
+        pod_names = list(device.meta.pod_names)
+        node_names = list(device.meta.node_names)
+
+        def unpack(raw, seconds):
+            if inc_run:
+                res, res.inc_info = self.unpack_incremental(dsnap, raw[0])
+            else:
+                res = self.unpack(dsnap, raw[0])
+            res.host_reads = stats.host_reads
+            res.h2d_bytes = moved
+            res.solve_seconds = seconds
+            device.commit_carry(pod_names, node_names, res.assignment,
+                                np.asarray(res.chosen_score))
+            return res
+
+        return PendingFetch([buf], unpack, t0)
+
+    def solve_warm(self, device, incremental: bool = False) -> SolveResult:
+        """Blocking form of solve_warm_async."""
+        return self.solve_warm_async(device, incremental=incremental).result()
 
     def close(self) -> None:
         """Nothing to release: the engine holds no thread or handle."""

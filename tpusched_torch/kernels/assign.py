@@ -38,6 +38,13 @@ The scheduling cycle splits, as in the JAX package, into
   * Both modes end with the gang gate (`gang_rollback`): a pod group
     short of its min_member unwinds through K8's `node_add` and K10's
     `pair_commit` with sign -1.
+  * A warm lineage keeps the static part's cell-local tables
+    (`WarmTableau`) between cycles and refreshes only its dirty rows and
+    columns (`refresh_tableau`: K1, K2 and K9 on views). The incremental
+    solve (`solve_incremental`) seeds the fast rounds with the last
+    cycle's placements: the frontier closes over signatures and dirty
+    nodes (K20), the carried pods that still fit their node stay (K19),
+    and only the frontier goes through the rounds.
 
 Every kernel wrapper runs its plain version (`*_plain`) on CPU tensors.
 The solve functions take an `Ops` table (default: the kernel wrappers);
@@ -212,28 +219,141 @@ def finalize_score(na_raw: torch.Tensor, tt_count: torch.Tensor,
 finalize_score.launches = 0
 
 
-def finalize_static(cfg: EngineConfig, snap: ClusterSnapshot, mask, aff_ok,
-                    na_raw, tt_count, sig_match: torch.Tensor | None = None,
-                    ops: "Ops | None" = None) -> StaticCtx:
-    """StaticCtx from the tableau: per-pod QoS plugin weights (plain
-    torch over [P]) and the row-normalised static score (K3). sig_match
-    None: no signature (an empty [0, M+P] table)."""
+# -- the warm tableau: K1, K2 and K9 on the whole snapshot or on views -------
+
+
+@dataclasses.dataclass
+class WarmTableau:
+    """The cell-local static tables of one snapshot (JAX `WarmTableau`):
+    cell (p, n) depends only on pod p's row, node n's row and the atom
+    and signature tables, so a delta cycle recomputes exactly its dirty
+    pod rows, node columns and member columns (`refresh_tableau`) and
+    gets what a full build gives. Everything coupled across rows (QoS
+    weights, the score normalisation, pop order, pair counts) is left to
+    `finalize_static` and the solve, every solve. A warm lineage carries
+    it on the device between cycles (engine.WarmState); the cold path
+    builds one and drops it (member_sat_t None without signatures)."""
+
+    node_sat_t: torch.Tensor           # [A, N] bool (K1, node labels)
+    member_sat_t: torch.Tensor | None  # [A, M+P] bool (K1, member labels)
+    sig_match: torch.Tensor | None     # [S, M+P] bool (K9)
+    mask: torch.Tensor                 # [P, N] bool static feasibility
+    aff_ok: torch.Tensor               # [P, N] bool node-affinity part
+    na_raw: torch.Tensor               # [P, N] f32 preferred-affinity sums
+    tt_count: torch.Tensor             # [P, N] f32 PreferNoSchedule counts
+
+    def leaves(self) -> list:
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+
+def _member_ns(snap: ClusterSnapshot) -> torch.Tensor:
+    return kpair.merge_members(snap.running.namespace, snap.pods.namespace)
+
+
+def build_tableau(cfg: EngineConfig, snap: ClusterSnapshot,
+                  node_sat_t: torch.Tensor,
+                  member_sat_t: torch.Tensor | None = None,
+                  ops: "Ops | None" = None) -> WarmTableau:
+    """The full tableau from the snapshot's label tables (K2; K9 with
+    signatures, which needs member_sat_t). Without signatures sig_match
+    is an empty [0, M+P] table."""
+    ops = ops or KERNELS
+    cells = ops.tableau_cells(snap, snap.pods, snap.nodes, node_sat_t)
+    if snap.sigs.key.shape[0] > 0:
+        sm = ops.sig_match(member_sat_t, snap.sigs, _member_ns(snap))
+    else:
+        sm = torch.zeros((0, snap.running.valid.shape[0]
+                          + snap.pods.valid.shape[0]),
+                         dtype=torch.bool, device=node_sat_t.device)
+    return WarmTableau(node_sat_t, member_sat_t, sm, *cells)
+
+
+def refresh_tableau(cfg: EngineConfig, snap: ClusterSnapshot,
+                    tab: WarmTableau, dirty_pods=None, dirty_nodes=None,
+                    dirty_members=None, pod_perm=None, node_perm=None,
+                    member_perm=None, ops: "Ops | None" = None) -> WarmTableau:
+    """O(churn) tableau upkeep (JAX `refresh_tableau`): the reorder
+    gathers (the permutations DeviceSnapshot applied to the snapshot's
+    rows), then the dirty node label rows (K1), the dirty member
+    columns (K1, then K9), the dirty pod rows against every node (K2 on
+    the gathered pods) and every pod against the dirty node columns (K2
+    on the gathered nodes), in JAX's order: the pod-row and node-column
+    cells read the refreshed node label rows, and a (dirty pod, dirty
+    node) cell is written twice with the same value. Index arrays are
+    int64 device tensors and may repeat an index (pow2 padding): the
+    repeated writes carry identical content. The tensors of `tab` are
+    updated in place where no reorder made new ones; the lineage holds
+    the only reference. Vocabulary growth is not expressible here
+    (DeviceSnapshot.warm_delta sends it down the cold path)."""
+    ops = ops or KERNELS
+    nst, mst, sm = tab.node_sat_t, tab.member_sat_t, tab.sig_match
+    mask, aff_ok = tab.mask, tab.aff_ok
+    na_raw, ttc = tab.na_raw, tab.tt_count
+    if node_perm is not None:
+        nst = nst.index_select(1, node_perm)
+        mask, aff_ok, na_raw, ttc = (t.index_select(1, node_perm)
+                                     for t in (mask, aff_ok, na_raw, ttc))
+    if pod_perm is not None:
+        mask, aff_ok, na_raw, ttc = (t.index_select(0, pod_perm)
+                                     for t in (mask, aff_ok, na_raw, ttc))
+    if member_perm is not None:
+        mst = mst.index_select(1, member_perm)
+        sm = sm.index_select(1, member_perm)
+    if dirty_nodes is not None:
+        nv = permute_rows(snap.nodes, dirty_nodes)
+        sat_rows = ops.atom_sat(snap.atoms, nv.label_pairs, nv.label_keys,
+                                nv.label_nums)                   # [D, A]
+        nst.index_copy_(1, dirty_nodes, sat_rows.T)
+    if dirty_members is not None:
+        lp = kpair.merge_members(snap.running.label_pairs,
+                                 snap.pods.label_pairs)
+        lk = kpair.merge_members(snap.running.label_keys,
+                                 snap.pods.label_keys)
+        sat_cols = ops.atom_sat(snap.atoms,
+                                lp.index_select(0, dirty_members),
+                                lk.index_select(0, dirty_members),
+                                None).T.contiguous()             # [A, D]
+        mst.index_copy_(1, dirty_members, sat_cols)
+        if sm.shape[0] > 0:
+            sm.index_copy_(1, dirty_members, ops.sig_match(
+                sat_cols, snap.sigs,
+                _member_ns(snap).index_select(0, dirty_members)))
+    if dirty_pods is not None:
+        cells = ops.tableau_cells(snap, permute_rows(snap.pods, dirty_pods),
+                                  snap.nodes, nst)
+        for t, c in zip((mask, aff_ok, na_raw, ttc), cells):
+            t.index_copy_(0, dirty_pods, c)
+    if dirty_nodes is not None:
+        cells = ops.tableau_cells(snap, snap.pods,
+                                  permute_rows(snap.nodes, dirty_nodes),
+                                  nst.index_select(1, dirty_nodes))
+        for t, c in zip((mask, aff_ok, na_raw, ttc), cells):
+            t.index_copy_(1, dirty_nodes, c)
+    return WarmTableau(nst, mst, sm, mask, aff_ok, na_raw, ttc)
+
+
+def finalize_static(cfg: EngineConfig, snap: ClusterSnapshot,
+                    tab: WarmTableau, ops: "Ops | None" = None) -> StaticCtx:
+    """StaticCtx from a (fresh or carried) tableau: per-pod QoS plugin
+    weights from the current snapshot (plain torch over [P]) and the
+    row-normalised static score (K3), every solve, warm or cold."""
     ops = ops or KERNELS
     pods = snap.pods
     w = effective_weights(cfg, pressure_of(pods.slo_target,
                                            pods.observed_avail))
-    score = ops.finalize_score(na_raw, tt_count, snap.nodes.valid,
+    score = ops.finalize_score(tab.na_raw, tab.tt_count, snap.nodes.valid,
                                w["node_affinity"], w["taint_toleration"])
+    sig_match = tab.sig_match
     if sig_match is None:
         sig_match = torch.zeros((0, snap.running.valid.shape[0]
                                  + pods.valid.shape[0]),
-                                dtype=torch.bool, device=mask.device)
+                                dtype=torch.bool, device=tab.mask.device)
     return StaticCtx(
-        mask=mask, aff_ok=aff_ok, score=score, sig_match=sig_match,
+        mask=tab.mask, aff_ok=tab.aff_ok, score=score, sig_match=sig_match,
         w_lr=w["least_requested"], w_ba=w["balanced_allocation"],
         w_ts=w["topology_spread"], w_ia=w["interpod_affinity"],
         rw=torch.tensor(cfg.score_weights_vector(), dtype=torch.float32,
-                        device=mask.device),
+                        device=tab.mask.device),
     )
 
 
@@ -243,13 +363,35 @@ def precompute_static(cfg: EngineConfig, snap: ClusterSnapshot,
                       ops: "Ops | None" = None) -> StaticCtx:
     """StaticCtx (K2, K3, and K9 when the snapshot has signatures;
     member_sat_t, the [A, M+P] member label table, is then required)."""
-    ops = ops or KERNELS
-    cells = ops.tableau_cells(snap, snap.pods, snap.nodes, node_sat_t)
-    sm = None
-    if snap.sigs.key.shape[0] > 0:
-        sm = ops.sig_match(member_sat_t, snap.sigs, kpair.merge_members(
-            snap.running.namespace, snap.pods.namespace))
-    return finalize_static(cfg, snap, *cells, sig_match=sm, ops=ops)
+    return finalize_static(
+        cfg, snap, build_tableau(cfg, snap, node_sat_t, member_sat_t, ops),
+        ops)
+
+
+# -- row scatters and gathers of DeviceSnapshot's deltas -------------------
+# Plain torch indexing (north star rule): index_copy / index_select over
+# every leaf of a row group (NodeArrays, PodArrays, ... or a bare tensor).
+# A scatter index may repeat (pow2 padding); the repeated rows carry the
+# same content, so the order of the writes does not matter.
+
+
+def scatter_rows(tree, idx: torch.Tensor, rows):
+    """A copy of `tree` with leaf[idx[j]] = rows.leaf[j] for every leaf."""
+    if isinstance(tree, torch.Tensor):
+        return tree.index_copy(0, idx.long(), rows)
+    return dataclasses.replace(tree, **{
+        f.name: scatter_rows(getattr(tree, f.name), idx,
+                             getattr(rows, f.name))
+        for f in dataclasses.fields(tree)})
+
+
+def permute_rows(tree, perm: torch.Tensor):
+    """A copy of `tree` with every leaf's rows gathered: leaf[perm]."""
+    if isinstance(tree, torch.Tensor):
+        return tree.index_select(0, perm.long())
+    return dataclasses.replace(tree, **{
+        f.name: permute_rows(getattr(tree, f.name), perm)
+        for f in dataclasses.fields(tree)})
 
 
 # -- the per-pod cycle and the parity scan (K4) -----------------------------
@@ -593,17 +735,20 @@ parity_scan_pair_preempt.launches = 0
 
 
 def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
-                     node_sat_t: torch.Tensor,
+                     node_sat_t: torch.Tensor | None,
                      member_sat_t: torch.Tensor | None = None,
-                     ops: "Ops | None" = None):
+                     ops: "Ops | None" = None,
+                     static: StaticCtx | None = None):
     """Exact sequential commit (stock scheduleOne semantics). With
     signatures the scan carries the pair state (K10 counts the running
     members, K4's pairwise variant adds each commit). With preemption
     and running pods, the scan runs the PostFilter victim search (K15)
-    for each pod that fits nowhere; then the gang gate. Returns
+    for each pod that fits nowhere; then the gang gate. static: a
+    StaticCtx already made (the warm path's, from its tableau). Returns
     (assigned, chosen, used, order, evicted)."""
     ops = ops or KERNELS
-    static = precompute_static(cfg, snap, node_sat_t, member_sat_t, ops)
+    if static is None:
+        static = precompute_static(cfg, snap, node_sat_t, member_sat_t, ops)
     M = snap.running.valid.shape[0]
     order = pop_order(cfg, snap)
     pctx = kpre.precompute(cfg, snap) if cfg.preemption and M else None
@@ -1398,7 +1543,8 @@ def _solve_rounds_nosig(cfg: EngineConfig, snap: ClusterSnapshot,
                         static: StaticCtx, rank: torch.Tensor,
                         order: torch.Tensor, max_rounds: int, K: int,
                         cap: int | None = None, ops: "Ops | None" = None,
-                        stats: RoundStats | None = None):
+                        stats: RoundStats | None = None, init=None,
+                        skip_full: bool = False):
     """Fast-mode rounds with NO pairwise signatures. Returns (used,
     assigned, chosen, round_of, rounds).
 
@@ -1407,7 +1553,13 @@ def _solve_rounds_nosig(cfg: EngineConfig, snap: ClusterSnapshot,
     pending pods run [C, N] views for up to tranche_cap rounds; a view
     pod left unplaced with no feasible node against the tranche-final
     state is spent (capacity only shrinks here, so for good). cap:
-    explicit tranche width C."""
+    explicit tranche width C.
+
+    init: a seeded ((used, assigned, chosen, round_of), r), the
+    incremental path's carried placements already committed, rounds
+    counted from r; skip_full skips the full-width round 1 (a small
+    frontier places more cheaply through the tranches). Without init
+    the rounds start from the snapshot at r = 0."""
     ops = ops or KERNELS
     stats = stats or RoundStats()
     pods, nodes = snap.pods, snap.nodes
@@ -1419,16 +1571,21 @@ def _solve_rounds_nosig(cfg: EngineConfig, snap: ClusterSnapshot,
     st = (nodes.used, torch.full((P,), -1, dtype=torch.int32, device=dev),
           torch.full((P,), NEG_INF, dtype=torch.float32, device=dev),
           torch.full((P,), -1, dtype=torch.int32, device=dev))
+    r = 0
+    if init is not None:
+        st, r = init
     if P <= (2 * C if cap is None else C):
         with stats.span("direct rounds"):
             (used, asg, chosen, rnd), r = _run_rounds(
-                cfg, snap, static, full, K, st, 0, max_rounds, ops, stats)
+                cfg, snap, static, full, K, st, r, max_rounds, ops, stats)
         return used, asg, chosen, rnd, r
 
-    with stats.span("round 1"):
-        st, progress = _round_nosig(cfg, snap, static, full, K, st, 0, ops,
-                                    stats)
-    r = 1
+    progress = None      # the tranche loop's initial True
+    if not skip_full:
+        with stats.span("round 1"):
+            st, progress = _round_nosig(cfg, snap, static, full, K, st, r,
+                                        ops, stats)
+        r += 1
     tranche_cap = min(4, max_rounds) if cfg.max_rounds > 0 else 4
     used, assigned, chosen, round_of = st
     spent = torch.zeros(P, dtype=torch.bool, device=dev)
@@ -1436,7 +1593,8 @@ def _solve_rounds_nosig(cfg: EngineConfig, snap: ClusterSnapshot,
     with stats.span("tranches"):
         while t < P:
             pend = (assigned == -1) & pods.valid & ~spent
-            if not stats.read(progress & pend.any()):
+            flag = pend.any() if progress is None else progress & pend.any()
+            if not stats.read(flag):
                 break
             sel, _ = _top_by_rank(pend, order, C)
             sel64 = sel.long()
@@ -1830,8 +1988,7 @@ def _pods_view(snap: ClusterSnapshot, static: StaticCtx, sel: torch.Tensor):
     signatures and all [S, N] / [N, R] state stay full width."""
     M = snap.running.valid.shape[0]
     pods = snap.pods
-    pods_v = dataclasses.replace(pods, **{
-        f.name: getattr(pods, f.name)[sel] for f in dataclasses.fields(pods)})
+    pods_v = permute_rows(pods, sel)
     sig_v = torch.cat([static.sig_match[:, :M],
                        static.sig_match[:, M + sel]], dim=1)
     static_v = StaticCtx(
@@ -1936,7 +2093,7 @@ def _solve_rounds_sig(cfg: EngineConfig, snap: ClusterSnapshot,
                       order: torch.Tensor, st0: "kpair.PairState",
                       invol: torch.Tensor, has_pair: torch.Tensor,
                       max_rounds: int, K: int, cap: int, ops: "Ops",
-                      stats: RoundStats):
+                      stats: RoundStats, init=None):
     """The fast rounds with signatures (S > 0; JAX `_solve_rounds_sig`):
     full-width [P, N] rounds while more than `cap` pods are pending,
     then rounds over the whole pending frontier gathered into a [cap, N]
@@ -1948,8 +2105,12 @@ def _solve_rounds_sig(cfg: EngineConfig, snap: ClusterSnapshot,
     every pod that can commit, gate or validate; sorts key on global
     ranks; and every cross-pod reduction is an integer count, a min, or
     a width-invariant f32 order (`_deal_commit`'s cum_width, K8's
-    prefix and rank-ordered adds, node_add). Returns (used, assigned,
-    final pair state, chosen, round_of, rounds)."""
+    prefix and rank-ordered adds, node_add). init: a seeded (used,
+    assigned, pair state, conservative, chosen, round_of, r), the
+    incremental path's carried placements committed into `used` and
+    the pair state, rounds counted from r; without it the rounds start
+    from the snapshot at r = 0. Returns (used, assigned, final pair
+    state, chosen, round_of, rounds)."""
     pods, nodes = snap.pods, snap.nodes
     P = pods.valid.shape[0]
     dev = pods.valid.device
@@ -1962,6 +2123,8 @@ def _solve_rounds_sig(cfg: EngineConfig, snap: ClusterSnapshot,
     cons = torch.zeros(P, dtype=torch.bool, device=dev)
     progress = None      # the loops' initial True
     r = 0
+    if init is not None:
+        used, assigned, st, cons, chosen, round_of, r = init
 
     def step(snap_v, static_v, sel, pending_v):
         nonlocal used, st, assigned, chosen, round_of, cons, progress
@@ -2374,6 +2537,284 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     return assigned, chosen, used, order, round_of, rounds, evicted
 
 
+# -- the incremental warm path: K19, K20 and the frontier rounds -----------
+
+
+def capacity_prefix_keep_plain(alloc: torch.Tensor, used: torch.Tensor,
+                               requests: torch.Tensor, node: torch.Tensor,
+                               rank: torch.Tensor,
+                               active: torch.Tensor) -> torch.Tensor:
+    """[P] bool (JAX `_capacity_prefix_keep`): per node, the longest
+    rank-ordered prefix of the active rows whose summed requests fit
+    alloc - used, for every resource. Each node's sum runs from 0.0
+    over its own rows in rank order, one add a row, not JAX's global
+    cumsum less the segment's offset (at config-5 magnitudes that
+    difference cancels ~1e7 bytes a term, ROADMAP C5); the first misfit
+    ends the node's prefix, as JAX's cummax of the last misfit does."""
+    P = node.shape[0]
+    N = alloc.shape[0]
+    perm, node_s = _by_node_rank(node, active, rank, N)
+    act = node_s < N
+    seg = _segment_start(node_s)
+    idx = torch.arange(P, device=node.device)
+    pos = idx - seg
+    req_s = torch.where(act[:, None], requests[perm.long()],
+                        torch.zeros((), dtype=requests.dtype,
+                                    device=requests.device))
+    run = torch.zeros_like(req_s)
+    j = 0
+    while True:
+        rows = torch.nonzero(act & (pos == j))[:, 0]
+        if rows.numel() == 0:
+            break
+        prev = run[rows - 1] if j else torch.zeros_like(req_s[rows])
+        run[rows] = prev + req_s[rows]
+        j += 1
+    cn = node_s.clamp(max=N - 1).long()
+    fits = (used[cn] + run <= alloc[cn]).all(dim=-1) & act
+    bad = act & ~fits
+    last_bad = torch.cummax(torch.where(bad, idx, -1), dim=0).values
+    keep = torch.zeros(P, dtype=torch.bool, device=node.device)
+    keep[perm.long()] = fits & (last_bad < seg)
+    return keep
+
+
+def capacity_prefix_keep(alloc: torch.Tensor, used: torch.Tensor,
+                         requests: torch.Tensor, node: torch.Tensor,
+                         rank: torch.Tensor,
+                         active: torch.Tensor) -> torch.Tensor:
+    """Kernel K19 on CUDA tensors (after the library sort by (node,
+    rank), one thread walks each node's rows), the plain version on CPU
+    tensors."""
+    dev = node.device
+    if dev.type == "cpu":
+        return capacity_prefix_keep_plain(alloc, used, requests, node, rank,
+                                          active)
+    P = node.shape[0]
+    N, R = alloc.shape
+    k = "capacity_prefix_keep"
+    if R > 16:
+        raise ValueError(f"{k}: {R} resources, the kernel holds at most 16")
+    check(k, dev, alloc, torch.float32, (N, R))
+    check(k, dev, used, torch.float32, (N, R))
+    check(k, dev, requests, torch.float32, (P, R))
+    keep = torch.zeros(P, dtype=torch.bool, device=dev)
+    if P == 0:
+        return keep
+    perm, node_s = _by_node_rank(node, active, rank, N)
+    _build.launch("tpusched_capacity_prefix_keep", P, N, R,
+                  *ptrs((perm, node_s, requests, alloc, used, keep)),
+                  stream_of(dev))
+    capacity_prefix_keep.launches += 1
+    return keep
+
+
+capacity_prefix_keep.launches = 0
+
+
+def frontier_closure_plain(invol: torch.Tensor | None, fr0: torch.Tensor,
+                           valid: torch.Tensor, carry: torch.Tensor,
+                           dirty_node: torch.Tensor | None,
+                           mask: torch.Tensor):
+    """JAX `solve_incremental`'s frontier closure and first revalidation
+    pass: the signatures a dirty pod is involved in go hot, every pod
+    involved in a hot one joins the frontier, and so does every carried
+    pod on a dirty node; the rest of the carried pods stay carried if
+    their static mask still holds at the carried node. carry is -1
+    where a pod carries nothing (invalid rows included). Returns
+    (frontier [P] bool, carried [P] bool, the frontier count: pods
+    without a carry or in the closure, before the revalidation)."""
+    P = fr0.shape[0]
+    fr = fr0 & valid
+    if invol is not None and invol.shape[1] > 0:
+        hot = (invol & fr[:, None]).any(dim=0)                   # [S]
+        fr = fr | (invol & hot[None, :]).any(dim=1)
+    has = carry >= 0
+    cc = carry.clamp(min=0).long()
+    if dirty_node is not None:
+        fr = fr | (has & dirty_node[cc])
+    count = ((valid & ~has) | fr).sum().to(torch.int32)
+    carried = valid & has & ~fr & mask[torch.arange(P, device=fr.device), cc]
+    return fr, carried, count
+
+
+def frontier_closure(invol: torch.Tensor | None, fr0: torch.Tensor,
+                     valid: torch.Tensor, carry: torch.Tensor,
+                     dirty_node: torch.Tensor | None, mask: torch.Tensor):
+    """Kernel K20 on CUDA tensors (two launches: the hot signatures,
+    then the per-pod pass), the plain version on CPU tensors."""
+    dev = fr0.device
+    if dev.type == "cpu":
+        return frontier_closure_plain(invol, fr0, valid, carry, dirty_node,
+                                      mask)
+    P, N = mask.shape
+    S = 0 if invol is None else invol.shape[1]
+    k = "frontier_closure"
+    for t in (fr0, valid):
+        check(k, dev, t, torch.bool, (P,))
+    check(k, dev, carry, torch.int32, (P,))
+    check(k, dev, mask, torch.bool, (P, N))
+    if invol is not None:
+        check(k, dev, invol, torch.bool, (P, S))
+    if dirty_node is not None:
+        check(k, dev, dirty_node, torch.bool, (N,))
+    fr = torch.empty(P, dtype=torch.bool, device=dev)
+    carried = torch.empty(P, dtype=torch.bool, device=dev)
+    hot = torch.zeros(max(S, 1), dtype=torch.int32, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    if P == 0:
+        return fr, carried, count
+    _build.launch("tpusched_frontier_closure", P, N, S,
+                  *ptrs((invol, fr0, valid, carry, dirty_node, mask, hot, fr,
+                         carried, count)), stream_of(dev))
+    frontier_closure.launches += 1
+    return fr, carried, count
+
+
+frontier_closure.launches = 0
+
+
+# Layout of the incremental solve's audit tail (appended to the packed
+# solve buffer): [capacity violations, carried static violations,
+# carried pairwise violations, carried count, frontier count].
+INC_AUDIT_LEN = 5
+
+
+def solve_incremental(cfg: EngineConfig, snap: ClusterSnapshot,
+                      tab: WarmTableau, carry: torch.Tensor,
+                      carry_chosen: torch.Tensor, frontier0: torch.Tensor,
+                      dirty_node: torch.Tensor | None, cap: int,
+                      ops: "Ops | None" = None,
+                      stats: RoundStats | None = None):
+    """Fast rounds seeded with the previous cycle's placements (JAX
+    `solve_incremental`): only the frontier is solved.
+
+      1. The frontier (frontier0, the lineage's dirty pods) closes over
+         the signatures its pods are involved in and over the carried
+         pods on dirty nodes; a carried pod whose static mask fails at
+         its node spills (K20).
+      2. Per node, the longest rank-ordered prefix of carried pods that
+         fits current capacity stays; the rest spill (K19).
+      3. The survivors are committed (K8's node_add, K10's pair_commit)
+         and, with signatures, revalidated to a fixpoint (K14 and K13;
+         spills leave through node_add and pair_commit with sign -1).
+      4. The frontier is placed by the fast rounds from that state at
+         r = 1 (carried commit key 0), frontier-compacted at width `cap`
+         (0: full width); then preemption rounds and the gang gate.
+
+    Not bitwise equal to a cold solve: held to the validity contract,
+    which the audit tail re-checks (capacity over alloc, carried pods
+    off their static mask, carried pods in pairwise violation).
+    carry [P] int32 carried node (-1 none), carry_chosen [P] f32 their
+    scores, frontier0 [P] bool, dirty_node [N] bool or None. Returns
+    (assigned, chosen, used, order, round_of, rounds, evicted,
+    audit [INC_AUDIT_LEN] f32)."""
+    ops = ops or KERNELS
+    stats = stats or RoundStats()
+    static = finalize_static(cfg, snap, tab, ops)
+    pods, nodes = snap.pods, snap.nodes
+    P = pods.valid.shape[0]
+    N = nodes.valid.shape[0]
+    M = snap.running.valid.shape[0]
+    S = snap.sigs.key.shape[0]
+    dev = pods.valid.device
+    order = pop_order(cfg, snap)
+    rank = torch.zeros(P, dtype=torch.int32, device=dev)
+    rank[order] = torch.arange(P, dtype=torch.int32, device=dev)
+    max_rounds = cfg.max_rounds if cfg.max_rounds > 0 else 2 * P + 8
+    K = _fallback_depth(N)
+    st = dom_s = invol = None
+    has_pair = torch.zeros(P, dtype=torch.bool, device=dev)
+    if S:
+        dom_s = kpair.sig_domains(snap)
+        st0 = ops.pair_counts(static.sig_match, dom_s, snap.running, pods)
+        invol, has_pair = _sig_involvement(snap, static, st0)
+    carry = torch.where(pods.valid, carry, -1).contiguous()
+    with stats.span("K20 frontier_closure"):
+        _, carried, frontier_n = ops.frontier_closure(
+            invol, frontier0, pods.valid, carry, dirty_node, tab.mask)
+    with stats.span("K19 capacity_prefix_keep"):
+        carried = ops.capacity_prefix_keep(nodes.allocatable, nodes.used,
+                                           pods.requests, carry, rank,
+                                           carried)
+    used = ops.node_add(nodes.used, carry, carried, pods.requests, rank)
+    if S:
+        st = ops.pair_commit(snap, st0, static.sig_match, dom_s, carry,
+                             carried, 1.0)
+        # A spill can take away the match another carried pod's
+        # positive affinity needs: revalidate until nothing spills.
+        flag = (carried & has_pair).any()
+        while stats.read(flag):
+            with stats.span("carried revalidation"):
+                ia = ops.ia_ok_at_choice(snap, st, static.sig_match, dom_s,
+                                         carry,
+                                         torch.where(carried, carry, -1))
+                bad = (carried & has_pair & ~ia) | (
+                    carried & _spread_excess_mask(
+                        snap, tab.aff_ok, rank, carry, carried, st, dom_s,
+                        ops))
+                st = ops.pair_commit(snap, st, static.sig_match, dom_s,
+                                     carry, bad, -1.0)
+                used = ops.node_add(used, carry, bad, pods.requests, rank,
+                                    -1.0)
+                carried = carried & ~bad
+                flag = bad.any()
+    assigned = torch.where(carried, carry, -1)
+    chosen = torch.where(carried, carry_chosen,
+                         torch.full((), NEG_INF, dtype=torch.float32,
+                                    device=dev))
+    round_of = torch.where(carried, 0, -1).to(torch.int32)
+    carried_n = carried.sum().to(torch.float32)
+    if S == 0:
+        used, assigned, chosen, round_of, rounds = _solve_rounds_nosig(
+            cfg, snap, static, rank, order, max_rounds, K,
+            cap=cap if cap > 0 else None, ops=ops, stats=stats,
+            init=((used, assigned, chosen, round_of), 1), skip_full=True)
+    else:
+        init = (used, assigned, st, torch.zeros(P, dtype=torch.bool,
+                                                device=dev),
+                chosen, round_of, 1)
+        used, assigned, st, chosen, round_of, rounds = _solve_rounds_sig(
+            cfg, snap, static, rank, order, st0, invol, has_pair,
+            max_rounds, K, cap, ops, stats, init=init)
+    evicted = torch.zeros(M, dtype=torch.bool, device=dev)
+    if cfg.preemption and M > 0:
+        with stats.span("preemption rounds"):
+            used, assigned, st, evicted, round_of, chosen, pre_r = (
+                _preempt_rounds(cfg, snap, static, rank, order, rounds, used,
+                                assigned, st, round_of, chosen, has_pair,
+                                dom_s, ops, stats))
+        rounds += pre_r
+    used, assigned, chosen, st, rolled = gang_rollback(
+        snap, used, assigned, chosen, st, static.sig_match, dom_s, ops)
+    round_of = torch.where(rolled, -1, round_of)
+
+    # The audit. A relative tolerance: requests run from millicores to
+    # bytes.
+    alloc = nodes.allocatable
+    tol = torch.clamp_min(alloc.abs() * 1e-5, 1e-4)
+    cap_bad = (used > alloc + tol) & (used > nodes.used + tol)
+    final = carried & (assigned == carry) & (assigned >= 0)
+    ar = torch.arange(P, device=dev)
+    s_viol = (final & ~tab.mask[ar, assigned.clamp(min=0).long()]).sum()
+    p_viol = torch.zeros((), dtype=torch.int64, device=dev)
+    if S:
+        st_car = ops.pair_commit(
+            snap, ops.pair_counts(static.sig_match, dom_s, snap.running,
+                                  pods),
+            static.sig_match, dom_s, carry, final, 1.0)
+        ia_f = ops.ia_ok_at_choice(snap, st_car, static.sig_match, dom_s,
+                                   carry, torch.where(final, carry, -1))
+        sp_f = _spread_excess_mask(snap, tab.aff_ok, rank, carry, final,
+                                   st_car, dom_s, ops)
+        p_viol = (final & has_pair & ~ia_f).sum() + sp_f.sum()
+    audit = torch.stack([cap_bad.sum(), s_viol, p_viol]).to(torch.float32)
+    audit = torch.cat([audit, carried_n[None],
+                       frontier_n.to(torch.float32)[None]])
+    rounds = torch.full((), rounds, dtype=torch.int32, device=dev)
+    return (assigned, chosen, used, order, round_of, rounds, evicted, audit)
+
+
 # -- the kernel table -------------------------------------------------------
 
 
@@ -2408,6 +2849,8 @@ class Ops:
     auction_tables: Callable
     auction_rank: Callable
     auction_claim: Callable
+    capacity_prefix_keep: Callable
+    frontier_closure: Callable
 
 
 KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
@@ -2416,7 +2859,8 @@ KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
               node_add, kpair.pair_commit, kpair.ia_ok_at_choice, waterfill,
               excess_min, excess_survive, parity_scan_preempt,
               parity_scan_pair_preempt, kpre.auction_ok, kpre.auction_tables,
-              kpre.auction_rank, kpre.auction_claim)
+              kpre.auction_rank, kpre.auction_claim, capacity_prefix_keep,
+              frontier_closure)
 PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_plain, cycle_plain, row_topk_plain,
             desirability_plain, prefix_commit_plain, kpair.sig_match_plain,
@@ -2426,4 +2870,5 @@ PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             excess_survive_plain, parity_scan_preempt_plain,
             parity_scan_pair_preempt_plain, kpre.auction_ok_plain,
             kpre.auction_tables_plain, kpre.auction_rank_plain,
-            kpre.auction_claim_plain)
+            kpre.auction_claim_plain, capacity_prefix_keep_plain,
+            frontier_closure_plain)

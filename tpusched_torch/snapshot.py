@@ -120,12 +120,26 @@ def selector_from_labels(
 class _Tree:
     """A dataclass of tensors (nested ones too) that moves as a whole."""
 
-    def to(self, device) -> Any:
-        """A copy with every leaf on `device`."""
+    def to(self, device, copy: bool = False) -> Any:
+        """A copy with every leaf on `device` (leaves already there are
+        shared unless `copy`)."""
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
+            f.name: getattr(self, f.name).to(device, copy=copy)
             for f in dataclasses.fields(self)
         })
+
+    def leaves(self) -> list:
+        """Every tensor leaf, in field order (nested trees flattened)."""
+        out = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out.extend(v.leaves() if isinstance(v, _Tree) else [v])
+        return out
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of every leaf (as a tensor's `nbytes`)."""
+        return sum(t.nbytes for t in self.leaves())
 
 
 @dataclasses.dataclass
@@ -522,6 +536,14 @@ class SnapshotBuilder:
         )
 
     def build(self) -> tuple[ClusterSnapshot, SnapshotMeta]:
+        snap, meta, _ = self.build_state()
+        return snap, meta
+
+    def build_state(self) -> "tuple[ClusterSnapshot, SnapshotMeta, BuiltState]":
+        """build() plus the host state (interner, numpy mirrors, index
+        maps) that DeviceSnapshot needs to apply O(churn) deltas to the
+        arrays this call made. The snapshot's CPU tensors share memory
+        with the mirrors."""
         cfg = self.config
         R = len(cfg.resources)
         n_nodes, n_pods, n_running = (
@@ -601,22 +623,12 @@ class SnapshotBuilder:
             )
 
         t = _tables_np(bk)
-        for i, (k, op, pids, num) in enumerate(atoms):
-            t["atom_key"][i] = k
-            t["atom_op"][i] = op
-            t["atom_pairs"][i, : len(pids)] = pids
-            t["atom_num"][i] = num
-            t["atom_valid"][i] = True
+        for i, atom in enumerate(atoms):
+            _fill_atom_row(t, i, atom)
         for (k, v, e), tid in intr.taint_ids.items():
             t["taint_effect"][tid] = TAINT_EFFECTS.index(e)
-        for i, (k, ns_scope, alist) in enumerate(sigs):
-            t["sig_key"][i] = k
-            t["sig_atoms"][i, : len(alist)] = alist
-            if ns_scope == "*":
-                t["sig_ns_all"][i] = True
-            else:
-                t["sig_ns"][i, : len(ns_scope)] = ns_scope
-            t["sig_valid"][i] = True
+        for i, sig in enumerate(sigs):
+            _fill_sig_row(t, i, sig)
 
         nodes = _nodes_np(bk, R)
         node_index = {}
@@ -627,64 +639,60 @@ class SnapshotBuilder:
         # Gangs and budgets are numbered in sorted name order.
         group_list = sorted(self._groups)
         group_idx = {g: i for i, g in enumerate(group_list)}
-        group_min = np.zeros(bk.pod_groups, np.int32)
         for g, gname in enumerate(group_list):
-            group_min[g] = self._groups[gname]
+            t["group_min"][g] = self._groups[gname]
         pdb_idx = {g: i for i, g in enumerate(sorted(self._pdbs))}
-        pdb_allowed = np.zeros(bk.pdb_groups, np.float32)
         for key, g in pdb_idx.items():
-            pdb_allowed[g] = float(self._pdbs[key])
+            t["pdb_allowed"][g] = float(self._pdbs[key])
 
         pods = _pods_np(bk, R)
         for i, (p, pc) in enumerate(zip(self._pods, pod_compiled)):
-            _fill_pod_row(pods, i, p, pc, intr, cfg)
-            if p["pod_group"] is not None:
-                pods["group"][i] = group_idx[p["pod_group"]]
+            _fill_pod_row(pods, i, p, pc, intr, cfg, group_idx)
 
         run = _running_np(bk, R)
         for i, rrec in enumerate(self._running):
-            ni = node_index[rrec["node"]]
-            run["node_idx"][i] = ni
-            run["valid"][i] = True
-            for r, rn in enumerate(cfg.resources):
-                run["requests"][i, r] = float(rrec["requests"].get(rn, 0.0))
-            run["priority"][i] = rrec["priority"]
-            run["slack"][i] = rrec["slack"]
-            for j, (k, v) in enumerate(sorted(rrec["labels"].items())):
-                run["label_keys"][i, j] = intr.key_ids[k]
-                run["label_pairs"][i, j] = intr.pair_ids[(k, v)]
-            run["anti_sig"][i, : len(run_anti[i])] = run_anti[i]
-            run["namespace"][i] = intr.ns_ids[rrec["namespace"]]
-            if rrec["pdb_group"] is not None:
-                run["pdb_group"][i] = pdb_idx[rrec["pdb_group"]]
+            _fill_running_row(run, i, rrec, run_anti[i], intr, cfg,
+                              node_index, pdb_idx)
             # Counted requests fold into the node's used row in record
-            # order, the JAX builder's summation order.
+            # order, the JAX builder's summation order (DeviceSnapshot
+            # re-sums a touched node's members in the same order).
             if rrec["count_into_used"]:
+                ni = node_index[rrec["node"]]
                 for r, rn in enumerate(cfg.resources):
                     nodes["used"][ni, r] += float(
                         rrec["requests"].get(rn, 0.0))
 
-        snap = ClusterSnapshot(
-            nodes=_dc(NodeArrays, nodes),
-            pods=_dc(PodArrays, pods),
-            running=_dc(RunningPodArrays, run),
-            atoms=AtomTable(key=_t(t["atom_key"]), op=_t(t["atom_op"]),
-                            pairs=_t(t["atom_pairs"]), num=_t(t["atom_num"]),
-                            valid=_t(t["atom_valid"])),
-            sigs=SigTable(key=_t(t["sig_key"]), atoms=_t(t["sig_atoms"]),
-                          ns=_t(t["sig_ns"]), ns_all=_t(t["sig_ns_all"]),
-                          valid=_t(t["sig_valid"])),
-            taint_effect=_t(t["taint_effect"]),
-            group_min_member=_t(group_min),
-            pdb_allowed=_t(pdb_allowed),
-        )
+        snap = _snapshot_from_arrays(nodes, pods, run, t)
         meta = SnapshotMeta(
             node_names=[n["name"] for n in self._nodes],
             pod_names=[p["name"] for p in self._pods],
             n_nodes=n_nodes, n_pods=n_pods, n_running=n_running,
             buckets=bk, group_names=group_list,
         )
-        return snap, meta
+        state = BuiltState(
+            interner=intr, nodes_np=nodes, pods_np=pods, run_np=run,
+            tables=t, buckets=bk, node_index=node_index,
+            group_idx=group_idx, pdb_idx=pdb_idx,
+        )
+        return snap, meta, state
+
+
+@dataclasses.dataclass
+class BuiltState:
+    """The host state of one build, kept by DeviceSnapshot to re-encode
+    churned rows in place: the interner, the numpy mirrors (dicts of
+    arrays by field name; `tables` holds the atom, signature, taint,
+    group and budget tables) and the index maps."""
+
+    interner: _Interner
+    nodes_np: dict
+    pods_np: dict
+    run_np: dict
+    tables: dict
+    buckets: Buckets
+    node_index: dict
+    group_idx: dict
+    pdb_idx: dict
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -712,6 +720,8 @@ def _tables_np(bk: Buckets) -> dict:
         sig_ns_all=np.zeros(bk.signatures, bool),
         sig_valid=np.zeros(bk.signatures, bool),
         taint_effect=np.zeros(bk.taint_vocab, np.int8),
+        group_min=np.zeros(bk.pod_groups, np.int32),
+        pdb_allowed=np.zeros(bk.pdb_groups, np.float32),
     )
 
 
@@ -782,23 +792,56 @@ def _running_np(bk: Buckets, R: int) -> dict:
     )
 
 
+# Row fills, shared by build and DeviceSnapshot's O(churn) re-encodes:
+# each fill resets its row to padding first, so re-encoding a row in
+# place gives what a fresh build gives.
+
+
+def _fill_atom_row(t: dict, i: int, atom) -> None:
+    k, op, pids, num = atom
+    t["atom_key"][i] = k
+    t["atom_op"][i] = op
+    t["atom_pairs"][i] = -1
+    t["atom_pairs"][i, : len(pids)] = pids
+    t["atom_num"][i] = num
+    t["atom_valid"][i] = True
+
+
+def _fill_sig_row(t: dict, i: int, sig) -> None:
+    k, ns_scope, alist = sig
+    t["sig_key"][i] = k
+    t["sig_atoms"][i] = -1
+    t["sig_atoms"][i, : len(alist)] = alist
+    t["sig_ns"][i] = -1
+    t["sig_ns_all"][i] = ns_scope == "*"
+    if ns_scope != "*":
+        t["sig_ns"][i, : len(ns_scope)] = ns_scope
+    t["sig_valid"][i] = True
+
+
 def _fill_node_row(nodes: dict, i: int, nrec: dict, intr: _Interner,
                    cfg: EngineConfig) -> None:
     """Row i from one node record. `used` is the record's own usage;
-    counted running pods are folded in by build()."""
+    counted running pods are folded in by the caller, which owns the
+    summation order."""
     nodes["valid"][i] = True
     nodes["schedulable"][i] = not nrec["unschedulable"]
     for r, rn in enumerate(cfg.resources):
         nodes["allocatable"][i, r] = float(nrec["allocatable"].get(rn, 0.0))
         nodes["used"][i, r] = float(nrec["used"].get(rn, 0.0))
+    nodes["label_pairs"][i] = -1
+    nodes["label_keys"][i] = -1
+    nodes["label_nums"][i] = np.nan
     for j, (k, v) in enumerate(sorted(nrec["labels"].items())):
         nodes["label_keys"][i, j] = intr.key_ids[k]
         nodes["label_pairs"][i, j] = intr.pair_ids[(k, v)]
         nodes["label_nums"][i, j] = _try_float(v)
+    nodes["taint_ids"][i] = -1
     for j, (k, v, e) in enumerate(nrec["taints"]):
         nodes["taint_ids"][i, j] = intr.taint_ids[(k, v, e)]
     # Domain ids per topology key, in node order (-1: the node lacks
     # the key).
+    nodes["domain"][i] = -1
     for ti, tk in enumerate(intr.topo_keys):
         if tk in nrec["labels"]:
             nodes["domain"][i, ti] = intr.domain_ids[ti].setdefault(
@@ -806,7 +849,8 @@ def _fill_node_row(nodes: dict, i: int, nrec: dict, intr: _Interner,
 
 
 def _fill_pod_row(pods: dict, i: int, p: dict, pc: dict, intr: _Interner,
-                  cfg: EngineConfig) -> None:
+                  cfg: EngineConfig, group_idx: dict) -> None:
+    _pad_pod_row(pods, i)
     pods["valid"][i] = True
     for r, rn in enumerate(cfg.resources):
         pods["requests"][i, r] = float(p["requests"].get(rn, 0.0))
@@ -843,10 +887,85 @@ def _fill_pod_row(pods: dict, i: int, p: dict, pc: dict, intr: _Interner,
         pods["ia_anti"][i, t] = term["anti"]
         pods["ia_required"][i, t] = term["required"]
         pods["ia_weight"][i, t] = term["weight"]
+    if p["pod_group"] is not None:
+        pods["group"][i] = group_idx[p["pod_group"]]
     pods["namespace"][i] = intr.ns_ids[p["namespace"]]
     pods["tolerates_unsched"][i] = any(
         _tolerates(tol, "node.kubernetes.io/unschedulable", "", "NoSchedule")
         for tol in p["tolerations"]
+    )
+
+
+def _fill_running_row(run: dict, i: int, rrec: dict, anti_sigs: list,
+                      intr: _Interner, cfg: EngineConfig, node_index: dict,
+                      pdb_idx: dict) -> None:
+    _pad_running_row(run, i)
+    run["node_idx"][i] = node_index[rrec["node"]]
+    run["valid"][i] = True
+    for r, rn in enumerate(cfg.resources):
+        run["requests"][i, r] = float(rrec["requests"].get(rn, 0.0))
+    run["priority"][i] = rrec["priority"]
+    run["slack"][i] = rrec["slack"]
+    for j, (k, v) in enumerate(sorted(rrec["labels"].items())):
+        run["label_keys"][i, j] = intr.key_ids[k]
+        run["label_pairs"][i, j] = intr.pair_ids[(k, v)]
+    run["anti_sig"][i, : len(anti_sigs)] = anti_sigs
+    run["namespace"][i] = intr.ns_ids[rrec["namespace"]]
+    if rrec["pdb_group"] is not None:
+        run["pdb_group"][i] = pdb_idx[rrec["pdb_group"]]
+
+
+# Padding rows: the values _nodes_np / _pods_np / _running_np allocate.
+_NODE_PAD = dict(allocatable=0.0, used=0.0, label_pairs=-1, label_keys=-1,
+                 label_nums=np.nan, taint_ids=-1, domain=-1,
+                 schedulable=False, valid=False)
+_POD_PAD = dict(requests=0.0, base_priority=0.0, slo_target=0.0,
+                observed_avail=1.0, tolerated=False, label_pairs=-1,
+                label_keys=-1, req_term_atoms=-1, req_term_valid=False,
+                pref_term_atoms=-1, pref_term_valid=False, pref_weight=0.0,
+                ts_key=-1, ts_max_skew=0.0, ts_when=0, ts_sel_atoms=-1,
+                ts_sig=-1, ts_valid=False, ia_key=-1, ia_sel_atoms=-1,
+                ia_sig=-1, ia_anti=False, ia_required=False, ia_weight=0.0,
+                ia_valid=False, group=-1, namespace=-1,
+                tolerates_unsched=False, valid=False)
+_RUN_PAD = dict(node_idx=-1, requests=0.0, priority=0.0, slack=0.0,
+                label_pairs=-1, label_keys=-1, anti_sig=-1, namespace=-1,
+                pdb_group=-1, valid=False)
+
+
+def _pad_node_row(nodes: dict, i: int) -> None:
+    for f, v in _NODE_PAD.items():
+        nodes[f][i] = v
+
+
+def _pad_pod_row(pods: dict, i: int) -> None:
+    for f, v in _POD_PAD.items():
+        pods[f][i] = v
+
+
+def _pad_running_row(run: dict, i: int) -> None:
+    for f, v in _RUN_PAD.items():
+        run[f][i] = v
+
+
+def _snapshot_from_arrays(nodes: dict, pods: dict, run: dict,
+                          t: dict) -> ClusterSnapshot:
+    """The snapshot of CPU tensors over the host mirrors. The tensors
+    SHARE memory with the numpy arrays (no copy): a transfer to the
+    device copies, after which the mirrors stay the mutable host side."""
+    return ClusterSnapshot(
+        nodes=_dc(NodeArrays, nodes),
+        pods=_dc(PodArrays, pods),
+        running=_dc(RunningPodArrays, run),
+        atoms=AtomTable(key=_t(t["atom_key"]), op=_t(t["atom_op"]),
+                        pairs=_t(t["atom_pairs"]), num=_t(t["atom_num"]),
+                        valid=_t(t["atom_valid"])),
+        sigs=SigTable(key=_t(t["sig_key"]), atoms=_t(t["sig_atoms"]),
+                      ns=_t(t["sig_ns"]), ns_all=_t(t["sig_ns_all"]),
+                      valid=_t(t["sig_valid"])),
+        taint_effect=_t(t["taint_effect"]),
+        group_min_member=_t(t["group_min"]),
+        pdb_allowed=_t(t["pdb_allowed"]),
     )
 
 

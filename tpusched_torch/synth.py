@@ -57,10 +57,16 @@ def make_cluster(
     namespace_count: int = 1,
     pdb_frac: float = 0.0,
     cordon_frac: float = 0.0,
+    as_records: bool = False,
     tight_utilization: bool = False,
-) -> tuple[ClusterSnapshot, SnapshotMeta]:
+):
     """Random cluster; fractions set what share of pods/nodes carry
-    each constraint type (the JAX generator's parameters)."""
+    each constraint type (the JAX generator's parameters). Returns
+    (snapshot, meta), or with as_records=True the builder-style record
+    lists (nodes, pods, running) that DeviceSnapshot.full_load takes,
+    in the JAX generator's record dialect: a gang member carries its
+    group's min_member, running pods are named run-<i> and carry their
+    budget's bare name and aggregated allowance."""
     config = config or EngineConfig()
     b = SnapshotBuilder(config, buckets)
 
@@ -213,7 +219,80 @@ def make_cluster(
             namespace=f"ns-{rng.integers(namespace_count)}",
             **kwargs,
         )
+    if as_records:
+        pod_recs = []
+        for p in b._pods:
+            q = dict(p)
+            if q.get("pod_group"):
+                q["pod_group_min_member"] = b._groups[q["pod_group"]]
+            pod_recs.append(q)
+        run_recs = []
+        for i, r in enumerate(b._running):
+            q = dict(r)
+            q["name"] = f"run-{i}"
+            if q.get("pdb_group"):
+                q["pdb_disruptions_allowed"] = b._pdbs[q["pdb_group"]]
+                q["pdb_group"] = q["pdb_group"][1]
+            run_recs.append(q)
+        return b._nodes, pod_recs, run_recs
     return b.build()
+
+
+def warm_churn_stream(rng: np.random.Generator, nodes: list, pods: list,
+                      running: list, cycles: int, churn_frac: float = 0.05,
+                      structural_every: int = 5):
+    """Seeded delta cycles for warm lineages (the JAX package's
+    `divergence.warm_churn_stream`, the same draws): mutates the record
+    lists in place and yields DeviceSnapshot.apply kwargs. Each cycle
+    redraws observed availability (and now and then priority) of
+    ~churn_frac of the pending pods and one node's cpu allocatable;
+    every structural_every-th cycle also adds a pod and removes one (a
+    row reorder), removes a running pod (a completion) and toggles a
+    node's cordon."""
+    seq = 0
+    for cyc in range(cycles):
+        n_churn = max(1, int(round(churn_frac * len(pods))))
+        picks = rng.choice(len(pods), size=min(n_churn, len(pods)),
+                           replace=False)
+        up_pods = []
+        for i in picks:
+            rec = pods[int(i)]
+            rec["observed_avail"] = float(rng.uniform(0.3, 1.0))
+            if rng.random() < 0.3:
+                rec["priority"] = float(rng.integers(0, 1000))
+            up_pods.append(rec)
+        ni = int(rng.integers(len(nodes)))
+        nrec = nodes[ni]
+        alloc = dict(nrec.get("allocatable", {}))
+        if "cpu" in alloc:
+            alloc["cpu"] = float(max(1000.0, alloc["cpu"]
+                                     * float(rng.uniform(0.9, 1.1))))
+        nrec["allocatable"] = alloc
+        delta = dict(upsert_pods=up_pods, upsert_nodes=[nrec])
+        if structural_every and cyc % structural_every == structural_every - 1:
+            seq += 1
+            newp = dict(
+                name=f"warm-audit-{seq:04d}",
+                requests={"cpu": float(rng.integers(100, 800))},
+                priority=float(rng.integers(0, 1000)),
+                observed_avail=float(rng.uniform(0.5, 1.0)),
+                labels={"app": "web"},
+            )
+            pods.append(newp)
+            gone = pods.pop(int(rng.integers(len(pods) - 1)))
+            delta["upsert_pods"] = [
+                r for r in delta["upsert_pods"] if r["name"] != gone["name"]
+            ] + [newp]
+            delta["remove_pods"] = [gone["name"]]
+            if running:
+                done = running.pop(int(rng.integers(len(running))))
+                delta["remove_running"] = [done["name"]]
+            cn = int(rng.integers(len(nodes)))
+            crec = nodes[cn]
+            crec["unschedulable"] = not crec.get("unschedulable", False)
+            if crec["name"] != nrec["name"]:
+                delta["upsert_nodes"] = delta["upsert_nodes"] + [crec]
+        yield delta
 
 
 def config1_kind_like(rng: np.random.Generator, **kw):
