@@ -1550,10 +1550,13 @@ def _solve_rounds_nosig(cfg: EngineConfig, snap: ClusterSnapshot,
 
     P <= 2C (or <= cap): full-width rounds to fixpoint. Larger: one
     full-width round 1, then tranches: the C best-ranked still-unspent
-    pending pods run [C, N] views for up to tranche_cap rounds; a view
-    pod left unplaced with no feasible node against the tranche-final
-    state is spent (capacity only shrinks here, so for good). cap:
-    explicit tranche width C.
+    pending pods run [C, N] views for up to tranche_cap rounds (4; 2
+    with preemption); a view pod left unplaced with no feasible node
+    against the tranche-final state is spent (capacity only shrinks
+    here, so for good). With cfg.preemption there is no round 1 (as in
+    JAX: the cluster is near capacity, round 1 places little, and the
+    preemption drain re-examines every straggler). cap: explicit
+    tranche width C.
 
     init: a seeded ((used, assigned, chosen, round_of), r), the
     incremental path's carried placements already committed, rounds
@@ -1581,12 +1584,14 @@ def _solve_rounds_nosig(cfg: EngineConfig, snap: ClusterSnapshot,
         return used, asg, chosen, rnd, r
 
     progress = None      # the tranche loop's initial True
-    if not skip_full:
+    if not (skip_full or cfg.preemption):
         with stats.span("round 1"):
             st, progress = _round_nosig(cfg, snap, static, full, K, st, r,
                                         ops, stats)
         r += 1
-    tranche_cap = min(4, max_rounds) if cfg.max_rounds > 0 else 4
+    base_cap = 2 if cfg.preemption else 4
+    tranche_cap = (min(base_cap, max_rounds) if cfg.max_rounds > 0
+                   else base_cap)
     used, assigned, chosen, round_of = st
     spent = torch.zeros(P, dtype=torch.bool, device=dev)
     t = 0
