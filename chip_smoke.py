@@ -122,6 +122,25 @@ package, and
        reads, the bytes each apply and solve sent against the full
        upload; then K19 and K20 against their plain versions on the
        first incremental cycle's inputs;
+     - the device queue (q) (the ingest bench's bounded table, 16 384
+       slots at 90 %, priorities U(10, 100), SLOs U(0.5, 0.999)): twenty
+       windows of 1 024 through `DeviceQueue.window` (K21), 10 % of the
+       rows churned before each (removals, parks, updates, arrivals),
+       each window equal to the numpy oracle `rank_reference` over the
+       queue's mirror; the window wall's p50; then K21 against its plain
+       version (window and full order) and rank_full against
+       rank_reference at full Q, bit for bit, beside torch.sort;
+     - decision provenance (x): `Engine.solve_explained(k=3)` on (h) in
+       fast and parity mode with preemption and on (d) in fast mode
+       (K22's two entry points, K6 at kb = 4, K4's explain outputs in
+       parity mode), each equal to the unexplained solve (host reads
+       included), every victim's evictor on its node, the auction table's
+       evictions summing to the evicted count (fast; all zero in
+       parity), the probe's tallies partitioning the valid nodes of every
+       real pod; the walls of the explained solve, the probe and the
+       unexplained solve; K22's entry points against their plain
+       versions on (h) and (d) and K4's explain outputs against the
+       plain scan at 2 000 x 1 000, exactly;
   5. prints per-stage time breakdowns of one steady parity and one
      steady fast solve (with the host-clock cost of the dealing
      prefixes in three forms), of one steady pairwise parity solve and
@@ -147,18 +166,22 @@ import torch
 from tpusched_torch import _build
 from tpusched_torch.config import EngineConfig
 from tpusched_torch.device_state import DeviceSnapshot
+from tpusched_torch.device_state import DeviceQueue
 from tpusched_torch.engine import (
     Engine,
     _pack_solve,
     _sat_tables,
+    probe_core,
     score_core,
     score_top1_core,
     score_topk_core,
     solve_core,
 )
 from tpusched_torch.kernels import assign as kassign
+from tpusched_torch.kernels import explain as kex
 from tpusched_torch.kernels import pairwise as kpair
 from tpusched_torch.kernels import preempt as kpre
+from tpusched_torch.kernels import queue as kq
 from tpusched_torch.kernels.atoms import atom_sat, atom_sat_plain
 from tpusched_torch.qos import effective_priority, effective_weights, pressure_of
 from tpusched_torch.synth import (
@@ -201,6 +224,20 @@ WARM_FRACS = (0.001, 0.01, 0.1)
 WARM_CYCLES = 9        # warm cycles a churn level
 WARM_STREAM = 10       # warm_churn_stream cycles
 WARM_INC = 5           # incremental cycles at 1 %
+# Cell (q) is the ingest bench's bounded device queue (bench.py:2036,
+# qcap 16 384) at 90 % fill, priorities U(10, 100) and SLOs U(0.5,
+# 0.999) (bench.py:2041-2042), windows of HostScheduler's default batch
+# (host.py:301, 1 024), 10 % of the rows churned between windows.
+QUEUE_CAP = 16384
+QUEUE_FILL = 0.9
+QUEUE_W = 1024
+QUEUE_WINDOWS = 20
+QUEUE_CHURN = 0.1
+# Cell (x): the explained solve and probe at k = 3 (kb = 4) on (h) in
+# both modes and on (d) in fast mode; K4's explain outputs against the
+# plain scan at bench.py:428-430's 2 000 x 1 000.
+EXPLAIN_K = 3
+K4X_SIZE = (2000, 1000)
 
 # (name, wrapper, its launch counter, source, the JAX function it
 # replaces). A variant of a kernel (K5's relaxed output, K7's fixed point,
@@ -272,6 +309,15 @@ KERNELS = (
     ("frontier_closure", kassign.frontier_closure, "launches",
      "tpusched_torch/csrc/incremental.cu",
      "tpusched/kernels/assign.py:2328"),
+    ("queue_rank", kq.queue_rank, "launches", "tpusched_torch/csrc/queue.cu",
+     "tpusched/kernels/queue.py:106"),
+    ("explain_cells", kex.explain_cells, "launches",
+     "tpusched_torch/csrc/explain.cu", "tpusched/kernels/explain.py:94"),
+    ("explain_terms", kex.explain_terms, "launches",
+     "tpusched_torch/csrc/explain.cu", "tpusched/kernels/explain.py:181"),
+    ("parity_scan_preempt_explain", kassign.parity_scan_preempt,
+     "explain_launches", "tpusched_torch/csrc/scan.cu",
+     "tpusched/kernels/assign.py:485"),
 )
 # Kernels whose counters the main path leaves at 0, and why; each is
 # held against its plain version at full size in the kernel phase.
@@ -2037,6 +2083,303 @@ def async_phase(snap, smi: str) -> None:
         + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()) + f"; {smi}")
 
 
+def queue_expected(dq, now: float, w: int):
+    """The numpy oracle's window over the queue's own mirror."""
+    order, _, ne, dep = kq.rank_reference(dq._host, now - dq._epoch,
+                                          dq.qos_gain)
+    return [dq._names[int(s)] for s in order[:min(w, ne)]], ne, dep
+
+
+def queue_phase(smi: str) -> tuple[dict, dict]:
+    """Cell (q): the bounded device queue at the ingest bench's size,
+    filled to 90 %, then QUEUE_WINDOWS windows (counters zeroed just
+    before, read just after), each after 10 % of the rows churned
+    (removals, arrivals, parks, updates) and each equal to the numpy
+    oracle over the queue's mirror; then K21 against its plain version
+    and rank_reference at full Q, bit for bit, with times and bound.
+    Returns (the phase's launch counts, the K21 row)."""
+    rng = np.random.default_rng(47)
+    dq = DeviceQueue(capacity=QUEUE_CAP, bound=QUEUE_CAP)
+    now = 3600.0
+    serial = 0
+
+    def arrive(k: int) -> None:
+        nonlocal serial
+        for _ in range(k):
+            sub = now - float(rng.uniform(0.0, 600.0))
+            if not dq.upsert(f"pod-{serial}",
+                             base_priority=float(rng.uniform(10.0, 100.0)),
+                             slo_target=float(rng.uniform(0.5, 0.999)),
+                             submitted=sub,
+                             run_seconds=float(rng.uniform(0.0, now - sub)),
+                             tenant=int(rng.integers(0, 4))):
+                raise AssertionError("queue (q): the bounded queue shed "
+                                     "below its bound")
+            serial += 1
+
+    arrive(int(QUEUE_CAP * QUEUE_FILL))
+    dq.window(now, QUEUE_W)          # the first flush uploads the table
+    churn = int(QUEUE_CAP * QUEUE_FILL * QUEUE_CHURN)
+    zero_counts()
+    walls = []
+    for _ in range(QUEUE_WINDOWS):
+        now += 1.0
+        names = dq.names()
+        pick = rng.choice(len(names), size=churn, replace=False)
+        q4 = churn // 4
+        dq.remove([names[int(i)] for i in pick[:q4]])
+        for i in pick[q4:2 * q4]:
+            dq.park(names[int(i)], until=now + float(rng.uniform(0, 30)))
+        for i in pick[2 * q4:3 * q4]:
+            dq.upsert(names[int(i)],
+                      base_priority=float(rng.uniform(10.0, 100.0)),
+                      slo_target=float(rng.uniform(0.5, 0.999)),
+                      submitted=now - 600.0,
+                      run_seconds=float(rng.uniform(0.0, 600.0)))
+        arrive(churn - 3 * q4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dq.window(now, QUEUE_W)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        want = queue_expected(dq, now, QUEUE_W)
+        if got != want:
+            raise AssertionError("queue (q): a window differs from the "
+                                 "numpy oracle's")
+    phase_counts = counts()
+    if phase_counts["queue_rank"] != QUEUE_WINDOWS:
+        raise AssertionError(f"queue (q): K21 launched "
+                             f"{phase_counts['queue_rank']} times in "
+                             f"{QUEUE_WINDOWS} windows")
+    dev, rel, gain = dq._dev, dq._rebase(now), dq.qos_gain
+    Q = dq.capacity
+    kb = kq.k_bucket(QUEUE_W, Q)
+    err = require_equal("queue_rank (window)",
+                        kq.window_select(dev, rel, gain, kb),
+                        kq.queue_rank_plain(dev, rel, gain, kb))
+    full = kq.rank_full(dev, rel, gain)
+    err = max(err, require_equal("queue_rank (full)", full,
+                                 kq.queue_rank_plain(dev, rel, gain)))
+    order, prio, ne, dep = kq.rank_reference(dq._host, rel, gain)
+    if not (np.array_equal(full[0].cpu().numpy(), order)
+            and np.array_equal(full[1].cpu().numpy().view(np.uint32),
+                               prio.view(np.uint32))
+            and (int(full[2]), int(full[3])) == (ne, dep)):
+        raise AssertionError("queue (q): rank_full differs from "
+                             "rank_reference at full Q")
+    win = lambda: kq.window_select(dev, rel, gain, kb)   # noqa: E731
+    key = torch.randint(0, 2**62, (Q,), dtype=torch.int64,
+                        device=dev.valid.device)
+    b = nbytes(*(dev[i] for i in (0, 1, 2, 3, 4, 5, 7))) + 8 * kb + 8
+    ops = Q * 12 + Q * max(1, (Q - 1).bit_length()) * 4
+    row = dict(err=err, ms=cuda_ms(win, 20),
+               prof_ms=profiler_ms(win, "queue_"),
+               plain_ms=cuda_ms(lambda: kq.queue_rank_plain(dev, rel, gain,
+                                                            kb), 5),
+               library="torch.sort (stable, one int64 key of Q)",
+               library_ms=cuda_ms(lambda: torch.sort(key, stable=True), 20),
+               bound=bound(b, ops),
+               shape=f"Q={Q} kb={kb}, {ne} eligible of {dep}")
+    prof = ("not measured" if row["prof_ms"] is None
+            else f"{row['prof_ms']:.4f} ms")
+    log(f"queue (q): {QUEUE_WINDOWS} windows of {QUEUE_W} over a {Q}-slot "
+        f"bounded table at {dep} rows, {churn} rows churned a window "
+        f"({dq.scatters} scatters, {dq.scatter_rows_total} rows shipped), "
+        f"every window equal to rank_reference; window wall (flush + K21 + "
+        f"read-back) p50 {statistics.median(walls):.4f} ms, max "
+        f"{max(walls):.4f} ms; rank_full == rank_reference at full Q bit "
+        f"for bit; {smi}")
+    log(f"kernel queue_rank [{row['shape']}]: exact match, kernel "
+        f"{row['ms']:.4f} ms (CUDA events; profiler kernel time {prof}), "
+        f"plain {row['plain_ms']:.4f} ms, {row['library']} "
+        f"{row['library_ms']:.4f} ms, bound {row['bound'][0]:.6f} ms "
+        f"({row['bound'][1]}); {smi}")
+    return phase_counts, {"queue_rank": row}
+
+
+def explain_kernel_rows(cfg: EngineConfig, dsnap, kb: int) -> dict:
+    """K22's two entry points against their plain versions on one cell
+    (exact), with CUDA-event and profiler times and bounds; K6 at kb on
+    the masked totals beside torch.topk (logged)."""
+    node_sat_t, member_sat_t = _sat_tables(dsnap)
+    tab = kassign.build_tableau(cfg, dsnap, node_sat_t, member_sat_t)
+    q = kex.probe_inputs(cfg, dsnap, tab, kpair.pair_counts)
+    got = kex.explain_cells(q)
+    err = require_equal("explain_cells", got[:3],
+                        kex.explain_cells_plain(q)[:3])
+    P, N = q.aff_ok.shape
+    R = dsnap.nodes.allocatable.shape[1]
+    topv, topi, _ = kassign.row_topk(got[2], kb)
+    terms = kex.explain_terms(q, got[3], topv, topi)
+    err_t = require_equal("explain_terms", [terms],
+                          [kex.explain_terms_plain(q, None, topv, topi)])
+    cell_ops = R * 14 + 60
+    rows = {
+        "explain_cells": dict(
+            err=err, ms=cuda_ms(lambda: kex.explain_cells(q), 5),
+            prof_ms=profiler_ms(lambda: kex.explain_cells(q),
+                                "explain_cells_kernel"),
+            plain_ms=cuda_ms(lambda: kex.explain_cells_plain(q), 2),
+            bound=bound(nbytes(q.aff_ok, q.na_raw, q.tt_count, *got[:3]),
+                        P * N * cell_ops),
+            shape=f"P={P} N={N} R={R} S={dsnap.sigs.key.shape[0]}"),
+        "explain_terms": dict(
+            err=err_t,
+            ms=cuda_ms(lambda: kex.explain_terms(q, got[3], topv, topi), 20),
+            prof_ms=profiler_ms(lambda: kex.explain_terms(q, got[3], topv,
+                                                          topi),
+                                "explain_terms_kernel"),
+            plain_ms=cuda_ms(lambda: kex.explain_terms_plain(q, None, topv,
+                                                             topi), 2),
+            bound=bound(nbytes(*(t for t in (topv, topi, got[3], terms)
+                                 if t is not None))
+                        + P * kb * (1 + 4 + 4), P * kb * cell_ops),
+            shape=f"P={P} kb={kb} S={dsnap.sigs.key.shape[0]}"),
+    }
+    k6 = cuda_ms(lambda: kassign.row_topk(got[2], kb), 20)
+    lib = cuda_ms(lambda: torch.topk(got[2], kb, dim=1), 20)
+    b6 = bound(nbytes(got[2], topv, topi), P * N)
+    rows["explain_cells"]["k6"] = (k6, lib, b6)
+    return rows
+
+
+def k4_explain_row() -> dict:
+    """K4's preemption variant with its explain outputs against the plain
+    scan (explain outputs too), exactly, at K4X_SIZE; times and bound."""
+    P0, N0 = K4X_SIZE
+    snap, _ = config5_preemption(np.random.default_rng(PRE_SEED), P0, N0)
+    cfg = EngineConfig(mode="parity", preemption=True)
+    eng = Engine(cfg)
+    dsnap = eng.put(snap)
+    eng.close()
+    static = kassign.precompute_static(cfg, dsnap, _sat_tables(dsnap)[0])
+    order = kassign.pop_order(cfg, dsnap)
+    pctx = kpre.precompute(cfg, dsnap)
+    args = (cfg, dsnap, static, order, pctx)
+    got = kassign.parity_scan_preempt(*args, explain=True)
+    (want, plain_ms) = timed(
+        lambda: kassign.parity_scan_preempt_plain(*args, explain=True))
+    err = require_equal("parity_scan_preempt (explain)", got, want)
+    require_equal("parity_scan_preempt (explain off)", got[:4],
+                  kassign.parity_scan_preempt(*args))
+    ev = got[3]
+    if not (ev.any() and torch.equal(got[4] >= 0, ev)):
+        raise AssertionError("K4 explain: evictors do not cover the "
+                             "evictions")
+    nodes, pods = dsnap.nodes, dsnap.pods
+    P, N = static.mask.shape
+    M, R = pctx.req_s.shape
+    placed = got[0] >= 0
+    searches = int((placed & torch.isinf(got[1])).sum()
+                   + (pods.valid & (pods.group < 0) & ~placed).sum())
+    b = nbytes(static.mask, static.score, nodes.allocatable, nodes.used,
+               pods.requests, static.w_lr, static.w_ba, static.w_ts,
+               static.w_ia, static.rw, *got) + 4 * P + nbytes(
+        pctx.perm, pctx.node_s, pctx.seg_start, pctx.cost_s, pctx.vprio_s,
+        pctx.req_s, pctx.pdb_s)
+    ms = cuda_ms(lambda: kassign.parity_scan_preempt(*args, explain=True), 3)
+    off_ms = cuda_ms(lambda: kassign.parity_scan_preempt(*args), 3)
+    return dict(err=err, ms=ms, plain_ms=plain_ms,
+                bound=bound(b, P * N * (R * 14 + 12)
+                            + searches * M * (3 * R + 12)),
+                shape=f"P={P} N={N} M={M}, {searches} K15 searches, "
+                      f"{int(ev.sum())} evicted; without the explain "
+                      f"outputs {off_ms:.3f} ms")
+
+
+def explain_phase(snap_h, snap_d, smi: str) -> tuple[dict, dict]:
+    """Cell (x): `Engine.solve_explained(k=3)` on (h) fast and parity
+    with preemption and on (d) fast (counters zeroed just before, read
+    just after), each equal to the unexplained solve (host reads too),
+    its evictors on their victims' nodes, its auction table's evictions
+    summing to the evicted count (fast) or all zero (parity), its probe's
+    tallies partitioning the valid nodes of every real pod; the walls of
+    the explained solve, the probe alone and the unexplained solve; then
+    K22's entry points against their plain versions on (h) and (d), and
+    K4's explain outputs against the plain scan at 2 000 x 1 000.
+    Returns (the phase's launch counts, the kernel rows)."""
+    cells = (("h fast", EngineConfig(mode="fast", preemption=True), snap_h),
+             ("h parity", EngineConfig(mode="parity", preemption=True),
+              snap_h),
+             ("d fast", EngineConfig(mode="fast"), snap_d))
+    col = kassign.EXPLAIN_AUCTION_STATS.index("evictions")
+    zero_counts()
+    runs = []
+    for name, cfg, snap in cells:
+        eng = Engine(cfg)
+        dsnap = eng.put(snap)
+        (res, exd, probe), ex_ms = timed(
+            lambda: eng.solve_explained(dsnap, k=EXPLAIN_K))
+        runs.append((name, cfg, eng, dsnap, res, exd, probe, ex_ms))
+    phase_counts = counts()
+    for k in ("explain_cells", "explain_terms", "row_topk",
+              "parity_scan_preempt_explain"):
+        if phase_counts[k] < 1:
+            raise AssertionError(f"explain (x): kernel {k} never launched")
+    kb = Engine._k_bucket(EXPLAIN_K, NODES)
+    rows = {}
+    for name, cfg, eng, dsnap, res, exd, probe, ex_ms in runs:
+        plain, un_ms = timed(lambda: eng.solve(dsnap))
+        _, probe_ms = timed(lambda: probe_core(cfg, dsnap, kb))
+        for f in ("assignment", "evicted", "commit_key", "order",
+                  "chosen_score", "final_used", "rounds", "host_reads"):
+            if not np.array_equal(getattr(res, f), getattr(plain, f)):
+                raise AssertionError(f"explain (x) {name}: the explained "
+                                     f"solve differs in {f}")
+        node_idx = dsnap.running.node_idx.cpu().numpy()
+        ev = res.evicted
+        if ((exd.evictor >= 0) != ev).any() or not np.array_equal(
+                res.assignment[exd.evictor[ev]], node_idx[ev]):
+            raise AssertionError(f"explain (x) {name}: an evictor does not "
+                                 "sit on its victim's node")
+        if cfg.mode == "parity" and exd.auction_stats.any():
+            raise AssertionError(f"explain (x) {name}: parity auction "
+                                 "table not zero")
+        if cfg.mode == "fast" and exd.auction_stats[:, col].sum() != ev.sum():
+            raise AssertionError(f"explain (x) {name}: the auction table's "
+                                 "evictions do not sum to the evicted")
+        valid = dsnap.pods.valid.cpu().numpy()
+        n_nodes = int(dsnap.nodes.valid.sum())
+        part = probe.feasible_nodes + probe.filter_counts.sum(1)
+        if not (part[valid] == n_nodes).all():
+            raise AssertionError(f"explain (x) {name}: the probe's tallies "
+                                 "do not partition the valid nodes")
+        eng.close()
+        log(f"explain (x) {name}: solve_explained(k={EXPLAIN_K}) "
+            f"{ex_ms:.3f} ms wall, the probe alone {probe_ms:.3f} ms, the "
+            f"unexplained solve {un_ms:.3f} ms; equal to it in assignment, "
+            f"evicted, commit key, order, chosen, used, rounds "
+            f"({res.rounds}) and host reads ({res.host_reads}); "
+            f"{int(ev.sum())} victims, each evictor on its victim's node; "
+            f"auction rows {int((exd.auction_stats.any(1)).sum())}; "
+            f"partition holds for {int(valid.sum())} pods over {n_nodes} "
+            f"nodes; {smi}")
+        if name != "h parity":
+            got = explain_kernel_rows(cfg, dsnap, kb)
+            for kname, r in got.items():
+                prof = ("not measured" if r["prof_ms"] is None
+                        else f"{r['prof_ms']:.4f} ms")
+                log(f"kernel {kname} on {name} [{r['shape']}]: exact match, "
+                    f"kernel {r['ms']:.4f} ms (CUDA events; profiler kernel "
+                    f"time {prof}), plain {r['plain_ms']:.4f} ms, bound "
+                    f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); {smi}")
+            k6, lib, b6 = got["explain_cells"].pop("k6")
+            log(f"kernel row_topk at kb={kb} on {name}'s masked totals: "
+                f"{k6:.4f} ms, torch.topk {lib:.4f} ms, bound "
+                f"{b6[0]:.4f} ms ({b6[1]}); {smi}")
+            for kname, r in got.items():
+                if kname in rows:
+                    rows[kname]["err"] = max(rows[kname]["err"], r["err"])
+                else:
+                    rows[kname] = r
+    r = k4_explain_row()
+    log(f"kernel parity_scan_preempt_explain [{r['shape']}]: exact match "
+        f"with the plain scan, kernel {r['ms']:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]}); {smi}")
+    rows["parity_scan_preempt_explain"] = r
+    return phase_counts, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port "
@@ -2270,6 +2613,14 @@ def main() -> int:
     for k, v in phase_counts.items():
         launches[k] += v
     kp.update(kp_warm)
+
+    # -- the device queue (q) and decision provenance (x) -------------------
+    for phase in (lambda: queue_phase(smi),
+                  lambda: explain_phase(snap_h, snap_d, smi)):
+        phase_counts, rows = phase()
+        for k, v in phase_counts.items():
+            launches[k] += v
+        kp.update(rows)
 
     for name, n in launches.items():
         if name in OFF_PATH:

@@ -3,7 +3,10 @@
 the synchronous form in both modes, `result(timeout=...)` returns when
 the result is there and raises concurrent.futures.TimeoutError when it
 is not, the JAX package's own snapshot is accepted as it is, and the
-explained form (decision provenance, ROADMAP A11) refuses legibly."""
+explained form (decision provenance, ROADMAP A11) answers through two
+PendingFetch results, the solve's equal to the unexplained one. (Before
+A11 was ported the explained form refused with NotImplementedError; the
+test keeps its name.)"""
 
 from __future__ import annotations
 
@@ -122,10 +125,16 @@ def test_result_timeout(engines):
 
 
 def test_explained_form_refuses_legibly(engines):
-    _, snap = _snaps("plain")
+    jsnap, snap = _snaps("plain")
     for eng in engines.values():
-        with pytest.raises(NotImplementedError, match="A11"):
-            eng.solve_explained_async(snap, 3)
+        p_solve, p_probe = eng.solve_explained_async(snap, 3)
+        assert isinstance(p_solve, PendingFetch)
+        assert isinstance(p_probe, PendingFetch)
+        res, exd = p_solve.result(timeout=60.0)
+        _same(res, eng.solve(jsnap))
+        assert exd.evictor.shape == res.evicted.shape
+        assert p_probe.result().topk_idx.shape == (
+            snap.pods.valid.shape[0], 3)
 
 
 def test_close_is_idempotent():

@@ -4,7 +4,9 @@ follows its plain version's order of f32 operations (K7's column sum in
 ascending rows, K8's Hillis-Steele prefix and rank-ordered adds; K10's
 atomic adds of +-1.0 stay exact integers in any order; K12-K14 count,
 compare and take minima; K15's victim prefix sums follow its plain
-version's chunked Hillis-Steele order).
+version's chunked Hillis-Steele order; K21's priority rounds its f64
+multiply-add once, as the plain version and the numpy oracle do; K22
+sums the six terms left to right, as its plain version does).
 
 These tests need a CUDA device and nvcc: without a card each one skips.
 The file imports nothing of JAX, so that it runs where the port runs:
@@ -31,8 +33,10 @@ from tpusched_torch.engine import (
     solve_core,
 )
 from tpusched_torch.kernels import assign as ka
+from tpusched_torch.kernels import explain as kex
 from tpusched_torch.kernels import pairwise as kp
 from tpusched_torch.kernels import preempt as kpre
+from tpusched_torch.kernels import queue as kq
 from tpusched_torch.snapshot import SnapshotBuilder
 
 # Pairwise mixes: config 3, and config 3 with running anti-affinity
@@ -697,3 +701,156 @@ def test_async_forms_on_the_card(cuda):
     np.testing.assert_array_equal(t1[0], t2[0])
     np.testing.assert_array_equal(t1[1], t2[1])
     eng.close()
+
+
+# -- the device queue (K21) ---------------------------------------------------
+
+
+def _queue_table(rng, q, fill=0.9, now=60.0):
+    """A random pending table with priority ties (integer bases, shared
+    SLO buckets), parked, never-observed and empty slots, unique arrival
+    stamps (some above 2**31)."""
+    t = kq.empty_table(q)
+    n = int(q * fill)
+    slots = rng.choice(q, size=n, replace=False)
+    t.valid[slots] = True
+    t.base_priority[slots] = rng.integers(0, 6, n).astype(np.float32)
+    t.slo_target[slots] = rng.choice(np.float32([0.0, 0.9, 0.99]), size=n)
+    t.submitted[slots] = rng.uniform(0.0, now, n).astype(np.float32)
+    t.submitted[slots[:3]] = np.float32(now)
+    t.run_seconds[slots] = rng.uniform(0.0, 30.0, n).astype(np.float32)
+    parked = slots[rng.random(n) < 0.25]
+    t.parked_until[parked] = rng.uniform(0.0, 2 * now,
+                                         parked.size).astype(np.float32)
+    t.seq[slots] = (rng.permutation(n) + (2**31 - n // 2)).astype(np.uint32)
+    return t
+
+
+@pytest.mark.parametrize("q", [5, 64, 1000, 16384])
+def test_k21_equal_plain_and_reference(cuda, q):
+    """K21 against its plain version and the numpy oracle, bit for bit:
+    the full order, every priority's bits, both counts; the window at
+    kb = 1024 (or Q) is the order's prefix with its priorities."""
+    t = _queue_table(np.random.default_rng(q), q)
+    dt = kq.to_device(t, cuda)
+    got = kq.rank_full(dt, 60.0, 1000.0)
+    want = kq.queue_rank_plain(dt, 60.0, 1000.0)
+    _equal(got, want)
+    order, prio, ne, dep = kq.rank_reference(t, 60.0, 1000.0)
+    assert np.array_equal(got[0].cpu().numpy(), order)
+    assert np.array_equal(got[1].cpu().numpy().view(np.uint32),
+                          prio.view(np.uint32))
+    assert (int(got[2]), int(got[3])) == (ne, dep)
+    kb = min(1024, q)
+    win = kq.window_select(dt, 60.0, 1000.0, kb)
+    _equal(win, kq.queue_rank_plain(dt, 60.0, 1000.0, kb))
+    assert torch.equal(win[0], got[0][:kb])
+
+
+def test_device_queue_on_the_card(cuda):
+    """The queue's windows on the card equal the oracle over its mirror
+    under churn, growth included."""
+    from tpusched_torch.device_state import DeviceQueue
+
+    rng = np.random.default_rng(5)
+    dq = DeviceQueue(capacity=16)
+    assert dq.device.type == "cuda"
+    t = 0.0
+    for _ in range(6):
+        t += 5.0
+        for _ in range(12):
+            dq.upsert(f"p{int(rng.integers(0, 48)):02d}",
+                      base_priority=float(rng.integers(0, 6)),
+                      slo_target=float(rng.choice([0.0, 0.9])),
+                      submitted=t - float(rng.uniform(0, 9)),
+                      run_seconds=float(rng.uniform(0, 4)))
+        dq.remove([f"p{int(rng.integers(0, 48)):02d}" for _ in range(3)])
+        names, ne, dep = dq.window(t, 8)
+        order, _, ne_h, dep_h = kq.rank_reference(dq._host, t - dq._epoch,
+                                                  dq.qos_gain)
+        assert (ne, dep) == (ne_h, dep_h)
+        assert names == [dq._names[int(s)] for s in order[:min(8, ne_h)]]
+
+
+# -- decision provenance (K22, K4's explain outputs) --------------------------
+
+
+@pytest.mark.parametrize("case", ["config5", "config3"])
+def test_k22_equal_plain(cuda, case):
+    """K22's two entry points against their plain versions, exactly:
+    tallies, feasible counts, the masked totals, and the six terms at K6's
+    chosen cells; the whole probe buffer equal through both tables."""
+    from tpusched_torch.engine import probe_core
+
+    gen = tsynth.config5_preemption if case == "config5" else \
+        tsynth.config3_pairwise
+    snap, _ = gen(np.random.default_rng(45), 160, 40)
+    snap = snap.to(cuda)
+    cfg = EngineConfig(preemption=case == "config5")
+    node_sat_t, member_sat_t = _sat_tables(snap)
+    tab = ka.build_tableau(cfg, snap, node_sat_t, member_sat_t)
+    q = kex.probe_inputs(cfg, snap, tab, kp.pair_counts)
+    got = kex.explain_cells(q)
+    want = kex.explain_cells_plain(q)
+    _equal(got[:3], want[:3])
+    assert (got[1] > 0).any() and (got[0] > 0).any()
+    topv, topi, _ = ka.row_topk(got[2], 4)
+    _equal([kex.explain_terms(q, got[3], topv, topi)],
+           [kex.explain_terms_plain(q, None, topv, topi)])
+    assert torch.equal(probe_core(cfg, snap, 4),
+                       probe_core(cfg, snap, 4, ka.PLAIN))
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_k4_explain_outputs_equal_plain(cuda, pair):
+    """K4's preemption variants with the explain outputs against the
+    plain scans (evictor, evict_pos and every other output), and the
+    same scan without them unchanged."""
+    if pair:
+        snap = _preempt_snap(cuda, True)
+    else:
+        snap, _ = tsynth.config5_preemption(np.random.default_rng(45), 2000,
+                                            1000)
+        snap = snap.to(cuda)
+    cfg = EngineConfig(preemption=True)
+    ctx = kpre.precompute(cfg, snap)
+    order = ka.pop_order(cfg, snap)
+    if not pair:
+        static = _static(cfg, snap)
+        got = ka.parity_scan_preempt(cfg, snap, static, order, ctx,
+                                     explain=True)
+        want = ka.parity_scan_preempt_plain(cfg, snap, static, order, ctx,
+                                            explain=True)
+        _equal(got, want)
+        _equal(got[:4], ka.parity_scan_preempt(cfg, snap, static, order,
+                                               ctx))
+        assert torch.equal(got[4] >= 0, got[3])
+        return
+    static, dom, st = _pair_setup(cfg, snap)
+    got = ka.parity_scan_pair_preempt(cfg, snap, static, order, st, dom, ctx,
+                                      explain=True)
+    want = ka.parity_scan_pair_preempt_plain(cfg, snap, static, order, st,
+                                             dom, ctx, explain=True)
+    _equal(got[:3] + got[4:], want[:3] + want[4:])
+    assert torch.equal(got[5] >= 0, got[4]) and got[4].any()
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_explained_solve_on_the_card(cuda, mode):
+    """The explained solve on the card equals its plain-version twin and
+    the unexplained solve, host reads included."""
+    snap = _preempt_snap(cuda, False, seed=9)
+    cfg = EngineConfig(mode=mode, preemption=True)
+    s1, s2, s3 = ka.RoundStats(), ka.RoundStats(), ka.RoundStats()
+    got = _pack_solve(solve_core(cfg, snap, stats=s1, explain=True))
+    want = _pack_solve(solve_core(cfg, snap, ops=ka.PLAIN, stats=s2,
+                                  explain=True))
+    assert torch.equal(got, want)
+    plain = _pack_solve(solve_core(cfg, snap, stats=s3))
+    assert torch.equal(got[:plain.shape[0]], plain)
+    assert s1.host_reads == s2.host_reads == s3.host_reads
+    eng = Engine(cfg)
+    res, exd, probe = eng.solve_explained(snap, k=3)
+    eng.close()
+    assert res.evicted.any() and (exd.evictor[res.evicted] >= 0).all()
+    assert probe.topk_idx.shape[1] == 3

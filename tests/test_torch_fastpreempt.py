@@ -56,6 +56,7 @@ from tpusched_torch.kernels import assign as tassign
 from tpusched_torch.kernels import pairwise as tpair
 from tpusched_torch.kernels import preempt as tpre
 from tpusched_torch.snapshot import snapshot_from_numpy
+from test_torch_c6 import _main_rounds
 from test_torch_preempt import HAND
 
 FAST = dict(mode="fast", preemption=True)
@@ -390,9 +391,11 @@ def counts(P: int, N: int, seed: int = 45, split: bool = False,
            **kw) -> dict:
     """Placed and evicted counts of the port's fast preemption solve and
     the JAX fast engine's on config5_preemption(rng(seed), P, N). With
-    split, also each side's preemption rounds: its rounds less those of
-    the same solve without preemption (the main rounds do not read
-    cfg.preemption in either package)."""
+    split, also each side's preemption rounds: its rounds less its main
+    rounds, those of the same solve without preemption, or without
+    signatures at a pod bucket over 2 048 the main rounds under
+    preemption's tranche rule (ROADMAP C6: no full-width round 1,
+    tranches of 2 rounds)."""
     jsnap, _ = jsynth.config5_preemption(np.random.default_rng(seed), P, N,
                                          **kw)
     tsnap = snapshot_from_numpy(jax.device_get(jsnap))
@@ -409,8 +412,12 @@ def counts(P: int, N: int, seed: int = 45, split: bool = False,
     tres, jres = res[0]
     extra = {}
     if split:
-        extra = {"port_preempt_rounds": tres.rounds - res[1][0].rounds,
-                 "jax_preempt_rounds": jres.rounds - res[1][1].rounds}
+        main = (res[1][0].rounds, res[1][1].rounds)
+        if tsnap.sigs.key.shape[0] == 0:
+            got, want, _ = _main_rounds(P, N, seed, **FAST)
+            main = (int(got[4]), int(want[4]))
+        extra = {"port_preempt_rounds": tres.rounds - main[0],
+                 "jax_preempt_rounds": jres.rounds - main[1]}
     return {**extra, "port_placed": int((tres.assignment >= 0).sum()),
             "jax_placed": int((jres.assignment >= 0).sum()),
             "port_evicted": int(tres.evicted.sum()),
@@ -448,9 +455,11 @@ def drain_on_port_state(P: int, N: int, seed: int = 45, **kw) -> dict:
     JAX fast engine's on config5_preemption(rng(seed), P, N, **kw). The
     main rounds alone (preemption off) on both engines, as (number of
     pods that differ, first pod, port's value, JAX's) per field, and the
-    first round after which they differ (max_rounds cut); then
+    first round after which they differ (max_rounds cut); without
+    signatures also the main rounds under preemption's tranche rule
+    (`_solve_rounds_nosig` with preemption on); then
     the preemption rounds of both packages from the SAME state, the
-    port's main-round result: which of their outputs are bitwise equal
+    port's main-round result (with preemption's rule where it applies): which of their outputs are bitwise equal
     (chosen: the largest ulp distance); where their assignments differ,
     a preemption round after which they first differ (bisected over
     both packages' round caps), with the first differing pod, the
@@ -462,6 +471,7 @@ def drain_on_port_state(P: int, N: int, seed: int = 45, **kw) -> dict:
     jsnap = jax.device_put(jsnap)
     tsnap = snapshot_from_numpy(jax.device_get(jsnap))
     out = {}
+    S = tsnap.sigs.key.shape[0]
     t = Engine(EngineConfig(mode="fast"), device="cpu").solve(tsnap)
     j = JEngine(JConfig(mode="fast")).solve(jsnap)
     out["main rounds placed (port, jax)"] = (int((t.assignment >= 0).sum()),
@@ -486,8 +496,22 @@ def drain_on_port_state(P: int, N: int, seed: int = 45, **kw) -> dict:
             used_diff = float(np.abs(tr.final_used.astype(np.float64)
                                      - jr.final_used).max())
     tcfg, jcfg = EngineConfig(**FAST), JConfig(**FAST)
-    asg, chosen, used, order, round_of, rounds, _ = tassign.solve_rounds(
-        EngineConfig(mode="fast"), tsnap, *tsat(tsnap))
+    if S == 0:
+        # With preemption the main rounds follow the tranche rule (C6):
+        # compare them so, and start both drains from the port's.
+        got, want, _ = _main_rounds(P, N, seed, **FAST)
+        used, asg, chosen, round_of, rounds = got
+        out["main rounds with preemption (port, jax)"] = (int(got[4]),
+                                                          int(want[4]))
+        for f, i in (("assignment", 1), ("commit_key", 3)):
+            out[f"main rounds with preemption {f} diff"] = _first_diff(
+                got[i].numpy(), np.asarray(want[i]))
+        out["main rounds with preemption used max abs diff"] = float(np.abs(
+            used.numpy().astype(np.float64) - np.asarray(want[0])).max())
+        order = tassign.pop_order(tcfg, tsnap)
+    else:
+        asg, chosen, used, order, round_of, rounds, _ = tassign.solve_rounds(
+            EngineConfig(mode="fast"), tsnap, *tsat(tsnap))
     static = tassign.precompute_static(tcfg, tsnap, *tsat(tsnap))
     rank = torch.zeros_like(asg)
     rank[order] = torch.arange(asg.shape[0], dtype=torch.int32)

@@ -30,7 +30,8 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[m] = None\n"
         "import tpusched_torch, tpusched_torch.kernels.assign, "
         "tpusched_torch.kernels.pairwise, tpusched_torch.kernels.preempt, "
-        "tpusched_torch.engine, "
+        "tpusched_torch.engine, tpusched_torch.kernels.queue, "
+        "tpusched_torch.kernels.explain, "
         "tpusched_torch.synth, tpusched_torch.device_state\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None "
@@ -66,6 +67,17 @@ def test_engine_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(EngineConfig())
+
+
+def test_device_queue_without_cuda_raises(monkeypatch):
+    """The pending queue, like the engine, lives on the card unless asked
+    for the CPU."""
+    from tpusched_torch import DeviceQueue
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceQueue(capacity=8)
+    assert DeviceQueue(capacity=8, device="cpu").capacity == 8
 
 
 def test_engine_cpu_only_when_asked():

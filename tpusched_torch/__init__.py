@@ -6,13 +6,22 @@ exactly-sequential commit) and fast mode (batched commit rounds), with
 pairwise constraints, gangs and preemption; ScoreBatch (`Engine.score`,
 `score_top1`, `score_topk`); their async forms; and warm lineages
 (`device_state.DeviceSnapshot` with `Engine.solve_warm`, bitwise or
-incremental). Every device program runs on a CUDA kernel written for
+incremental); the device pending queue (`DeviceQueue`); and decision
+provenance (`Engine.solve_explained`: `ExplainData`, `ScoreExplain`).
+Every device program runs on a CUDA kernel written for
 Hopper (tpusched_torch/csrc), built with nvcc at first use, or on plain
 torch where the JAX program is a row gather, scatter or sort.
 """
 
 from tpusched_torch.config import Buckets, EngineConfig, PluginWeights
-from tpusched_torch.engine import Engine, ScoreBatchResult, SolveResult
+from tpusched_torch.device_state import DeviceQueue
+from tpusched_torch.engine import (
+    Engine,
+    ExplainData,
+    ScoreBatchResult,
+    SolveResult,
+)
+from tpusched_torch.kernels.explain import ScoreExplain
 from tpusched_torch.snapshot import (
     ClusterSnapshot,
     SnapshotBuilder,
@@ -22,10 +31,13 @@ from tpusched_torch.snapshot import (
 __all__ = [
     "Buckets",
     "ClusterSnapshot",
+    "DeviceQueue",
     "Engine",
     "EngineConfig",
+    "ExplainData",
     "PluginWeights",
     "ScoreBatchResult",
+    "ScoreExplain",
     "SnapshotBuilder",
     "SolveResult",
     "snapshot_from_numpy",

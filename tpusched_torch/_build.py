@@ -72,16 +72,21 @@ SIGNATURES = {
     "tpusched_excess_survive": [_I] + [_P] * 7,
     "tpusched_preempt_step": [_I] * 4 + [_P] * 7 + [_F] + [_P] * 15,
     "tpusched_parity_scan_preempt": [_I, _I, _I] + [_P] * 10 + [_I, _U]
-                                    + _PREEMPT + [_P] * 4,
+                                    + _PREEMPT + [_P] * 6,
     "tpusched_parity_scan_pair_preempt": [_I, _I, _I] + [_P] * 10
                                          + [_I, _U] + [_I] * 4 + [_P] * 19
-                                         + _PREEMPT + [_P] * 4,
+                                         + _PREEMPT + [_P] * 6,
     "tpusched_auction_tables": [_I] * 6 + [_P] * 9 + [_F] + [_P] * 4,
     "tpusched_auction_ok": [_I, _I] + [_P] * 8,
     "tpusched_auction_rank": [_I] * 5 + [_P] * 11,
     "tpusched_auction_claim": [_I] * 8 + [_P] * 16 + [_F] + [_P] * 8,
     "tpusched_capacity_prefix_keep": [_I] * 3 + [_P] * 7,
     "tpusched_frontier_closure": [_I] * 3 + [_P] * 11,
+    "tpusched_explain_cells": [_I] * 6 + [_P] * 16 + [_I] * 3 + [_P] * 25,
+    "tpusched_explain_terms": [_I] * 6 + [_P] * 16 + [_I] * 3 + [_P] * 21
+                              + [_I] + [_P] * 4,
+    "tpusched_queue_rank": [_I] * 3 + [_P] * 7 + [_F, ctypes.c_double]
+                           + [_P] * 7,
 }
 
 _lib: "ctypes.CDLL | None" = None

@@ -42,13 +42,11 @@ __device__ __forceinline__ bool cell_fits(const float* u, const float* a,
   return true;
 }
 
-// w_lr * LeastRequested + w_ba * BalancedAllocation, defined for every
-// cell, feasible or not.
-__device__ __forceinline__ float cell_dynamic(const float* u, const float* a,
-                                              const float* rq, int R,
-                                              const ResW& w, float w_lr,
-                                              float w_ba) {
-  // least_requested: sum_r w_r * max((alloc-used-req)*100/alloc, 0) / wsum
+// score.least_requested of one cell:
+// sum_r w_r * max((alloc-used-req)*100/alloc, 0) / wsum.
+__device__ __forceinline__ float cell_lr(const float* u, const float* a,
+                                         const float* rq, int R,
+                                         const ResW& w) {
   float lr = 0.0f;
   for (int r = 0; r < R; ++r) {
     float free_r = (a[r] - u[r]) - rq[r];
@@ -56,8 +54,14 @@ __device__ __forceinline__ float cell_dynamic(const float* u, const float* a,
     pr = pr < 0.0f ? 0.0f : pr;
     lr = lr + pr * w.rw[r];
   }
-  lr = lr / w.wsum;
-  // balanced_allocation: (1 - stddev of the selected fractions) * 100
+  return lr / w.wsum;
+}
+
+// score.balanced_allocation of one cell: (1 - stddev of the selected
+// fractions) * 100.
+__device__ __forceinline__ float cell_ba(const float* u, const float* a,
+                                         const float* rq, int R,
+                                         const ResW& w) {
   float frac[MAX_R];
   float mean = 0.0f;
   for (int r = 0; r < R; ++r) {
@@ -73,8 +77,16 @@ __device__ __forceinline__ float cell_dynamic(const float* u, const float* a,
     var = var + (d * d) * w.sel[r];
   }
   var = var / w.k;
-  float ba = (1.0f - sqrtf(var)) * 100.0f;
-  return w_lr * lr + w_ba * ba;
+  return (1.0f - sqrtf(var)) * 100.0f;
+}
+
+// w_lr * LeastRequested + w_ba * BalancedAllocation, defined for every
+// cell, feasible or not.
+__device__ __forceinline__ float cell_dynamic(const float* u, const float* a,
+                                              const float* rq, int R,
+                                              const ResW& w, float w_lr,
+                                              float w_ba) {
+  return w_lr * cell_lr(u, a, rq, R, w) + w_ba * cell_ba(u, a, rq, R, w);
 }
 
 // The no-signature cell score in batched_cycle's association:

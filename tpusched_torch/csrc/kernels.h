@@ -246,7 +246,9 @@ int tpusched_preempt_step(
 // gang, node validity, the running pods' nodes and [M, J] required anti
 // signatures; remaining [GP] holds the budgets' disruptions allowed on
 // entry and what is left on return; evicted [M] (zeros on entry) the
-// evictions.
+// evictions. evictor and evict_pos [M] (may be NULL; else -1 on entry)
+// receive, for each evicted victim, the evicting pod and its pop-order
+// step.
 int tpusched_parity_scan_preempt(
     int P, int N, int R, const int* order, const bool* mask,
     const float* static_score, const float* alloc, const float* requests,
@@ -258,7 +260,8 @@ int tpusched_parity_scan_preempt(
     const int* group, const bool* node_valid, const int* run_node,
     const int* run_anti_sig, float* remaining, unsigned char* evicted,
     unsigned char* elig, float* cum, int* cum_viol, float* used,
-    int* assigned, float* chosen, void* stream);
+    int* assigned, float* chosen, int* evictor, int* evict_pos,
+    void* stream);
 
 int tpusched_parity_scan_pair_preempt(
     int P, int N, int R, const int* order, const bool* mask,
@@ -278,7 +281,7 @@ int tpusched_parity_scan_pair_preempt(
     const bool* node_valid2, const int* run_node, const int* run_anti_sig,
     float* remaining, unsigned char* evicted, unsigned char* elig,
     float* cum, int* cum_viol, float* used, int* assigned, float* chosen,
-    void* stream);
+    int* evictor, int* evict_pos, void* stream);
 
 // K16. The fast preemption auction's lane tables (tpusched/kernels/
 // preempt.py:488-545): per lane l and node n, the V-long inclusive
@@ -349,6 +352,64 @@ int tpusched_frontier_closure(int P, int N, int S, const bool* invol,
                               const int* carry, const bool* dirty_node,
                               const bool* mask, int* hot, bool* fr,
                               bool* carried, int* count, void* stream);
+
+// K22 (kernels/explain.py explain_probe's [P, N] pass). The pairwise
+// block is tpusched_pairwise_batch's (S = 0 and NULL pointers without
+// signatures), then the probe's arrays: alloc, used [N, R], requests
+// [P, R], rw [R], pod and node validity, schedulable [N],
+// tolerates_unsched [P], taint_ids [N, TN], taint_effect [VT], tolerated
+// [P, VT], the tableau's aff_ok, na_raw and tt_count [P, N], and the six
+// effective weights [P] in SCORE_TERMS order. explain_cells writes
+// tallies [P, 6] and feasible [P] (int counts), masked [P, N] (the term
+// sum, -inf where infeasible) and norms [P, 6 + 2C] (the row
+// normalisers); explain_terms the six terms at topi [P, kb] into terms
+// [P, kb, 6], zero where topv is -inf. R <= 8.
+int tpusched_explain_cells(
+    int P, int N, int S, int C, int IT, int M, const int* dom,
+    const bool* match, const bool* node_valid, const bool* aff_ok,
+    const int* ts_sig, const bool* ts_valid, const signed char* ts_when,
+    const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
+    const bool* ia_anti, const bool* ia_required, const float* ia_weight,
+    const float* counts, const float* anti, const float* match_tot, int R,
+    int TN, int VT, const float* alloc, const float* used, const float* req,
+    const float* rw, const bool* pod_valid, const bool* node_valid2,
+    const bool* schedulable, const bool* tolerates_unsched,
+    const int* taint_ids, const signed char* taint_effect,
+    const bool* tolerated, const bool* aff_ok2, const float* na_raw,
+    const float* tt_count, const float* w_lr, const float* w_ba,
+    const float* w_na, const float* w_tt, const float* w_ts,
+    const float* w_ia, int* tallies, int* feasible, float* masked,
+    float* norms, void* stream);
+
+int tpusched_explain_terms(
+    int P, int N, int S, int C, int IT, int M, const int* dom,
+    const bool* match, const bool* node_valid, const bool* aff_ok,
+    const int* ts_sig, const bool* ts_valid, const signed char* ts_when,
+    const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
+    const bool* ia_anti, const bool* ia_required, const float* ia_weight,
+    const float* counts, const float* anti, const float* match_tot, int R,
+    int TN, int VT, const float* alloc, const float* used, const float* req,
+    const float* rw, const bool* pod_valid, const bool* node_valid2,
+    const bool* schedulable, const bool* tolerates_unsched,
+    const int* taint_ids, const signed char* taint_effect,
+    const bool* tolerated, const bool* aff_ok2, const float* na_raw,
+    const float* tt_count, const float* w_lr, const float* w_ba,
+    const float* w_na, const float* w_tt, const float* w_ts,
+    const float* w_ia, const float* norms, int kb, const int* topi,
+    const float* topv, float* terms, void* stream);
+
+// K21 (kernels/queue.py _rank, rank_full, window_select). Ranks the [Q]
+// pending table under (eligible first, priority desc, seq asc): prio [Q]
+// gets every slot's effective priority, idx [n_out] the first n_out slots
+// of the order, prio_out [n_out] (may be NULL) their priorities, counts
+// [2] (zeroed by the caller) the eligible and valid slots. seq holds u32
+// bits. keys_a and keys_b are [Qp] 16-byte scratch, Qp = next pow2(Q).
+int tpusched_queue_rank(int Q, int Qp, int n_out, const bool* valid,
+                        const float* base, const float* slo,
+                        const float* submitted, const float* run,
+                        const float* parked, const int* seq, float now,
+                        double gain, float* prio, void* keys_a, void* keys_b,
+                        int* counts, int* idx, float* prio_out, void* stream);
 
 #ifdef __cplusplus
 }

@@ -72,9 +72,10 @@ __device__ __forceinline__ float min_or_0(float lo) {
 
 // pairwise_row at node n for pod p against (counts, anti, match_tot):
 // returns spread_ok & ia_ok (ia_ok includes !symmetric_block), and writes
-// the spread penalty and the inter-pod raw score, and ia_ok alone where
-// ia_ok_out is not NULL. cmin/cmax: each spread slot's reduced (lo, hi);
-// only valid slots' entries are read.
+// the spread penalty and the inter-pod raw score, ia_ok alone where
+// ia_ok_out is not NULL and spread_ok alone where spread_ok_out is not
+// NULL. cmin/cmax: each spread slot's reduced (lo, hi); only valid
+// slots' entries are read.
 __device__ __forceinline__ bool pair_node(const PairTerms& t,
                                           const float* counts,
                                           const float* anti,
@@ -82,7 +83,8 @@ __device__ __forceinline__ bool pair_node(const PairTerms& t,
                                           int n, const float* cmin,
                                           const float* cmax, float* pen_out,
                                           float* raw_out,
-                                          bool* ia_ok_out = nullptr) {
+                                          bool* ia_ok_out = nullptr,
+                                          bool* spread_ok_out = nullptr) {
   const long long N = t.N;
   bool ok = true;   // spread_ok
   bool ia = true;   // ia_ok
@@ -129,6 +131,7 @@ __device__ __forceinline__ bool pair_node(const PairTerms& t,
   *raw_out = raw;
   ia = ia && blocked <= 0;
   if (ia_ok_out) *ia_ok_out = ia;
+  if (spread_ok_out) *spread_ok_out = ok;
   return ok && ia;
 }
 

@@ -54,7 +54,10 @@
 // rescore). The victim table, its scratch and the budget counts live in
 // device memory; K15's scan buffers take 41 KB of static shared memory
 // beside `used`/`alloc`. Without preemption the instantiations are
-// unchanged.
+// unchanged. With the optional outputs evictor / evict_pos (the explained
+// solve's provenance, assign.py:468-471), thread 0 also writes, for each
+// victim it evicts, the pod's index and its step in pop order; the CTA
+// is the only writer, so no atomics. NULL leaves the kernel as it was.
 #include <math.h>
 #include <limits.h>
 
@@ -101,6 +104,8 @@ struct PreemptScan {
   int J;
   float* remaining;          // [GP] in/out: budgets' disruptions left
   unsigned char* evicted;    // [M] out (zeros on entry)
+  int* evictor;              // [M] out or NULL: the evicting pod
+  int* evict_pos;            // [M] out or NULL: its pop-order step
 };
 
 struct NoSmem {};
@@ -398,6 +403,10 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
             const int n = tpusched::preempt_take(
                 pre.v, bp, freed, [&](int m, int g) {
                   pre.evicted[m] = 1;
+                  if (pre.evictor) {
+                    pre.evictor[m] = p;
+                    pre.evict_pos[m] = i;
+                  }
                   if (g >= 0) pre.remaining[g] = pre.remaining[g] - 1.0f;
                   if constexpr (PAIR) pair_evict(ps, pre, m);
                 });
@@ -453,7 +462,9 @@ int launch_scan(int P, int N, int R, const int* order, const bool* mask,
   long long bytes = 2LL * N * R * (long long)sizeof(float);
   int use_smem = bytes + (long long)fa.sharedSizeBytes <= SMEM_LIMIT ? 1 : 0;
   size_t dyn = use_smem ? (size_t)bytes : 0;
-  if (dyn > 48 * 1024) {
+  // Static and dynamic shared memory together above 48 KB need the
+  // opt-in (K15's 41 KB of static buffers leave ~7 KB by default).
+  if (dyn > 0 && dyn + fa.sharedSizeBytes > 48 * 1024) {
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
@@ -474,12 +485,14 @@ PreemptScan make_preempt(int N, int R, int M, int GP, int J,
                          const int* group, const bool* node_valid,
                          const int* run_node, const int* run_anti_sig,
                          float* remaining, unsigned char* evicted,
-                         unsigned char* elig, float* cum, int* cum_viol) {
+                         unsigned char* elig, float* cum, int* cum_viol,
+                         int* evictor, int* evict_pos) {
   const int chunk = (M + tpusched::PRE_THREADS - 1) / tpusched::PRE_THREADS;
   return PreemptScan{{M, N, R, GP, chunk, perm, node_s, seg_start, cost_s,
                       vprio_s, req_s, pdb_s, margin, elig, cum, cum_viol},
                      prio, pod_valid, group, node_valid, run_node,
-                     run_anti_sig, J, remaining, evicted};
+                     run_anti_sig, J, remaining, evicted, evictor,
+                     evict_pos};
 }
 
 }  // namespace
@@ -539,12 +552,13 @@ extern "C" int tpusched_parity_scan_preempt(
     const int* group, const bool* node_valid, const int* run_node,
     const int* run_anti_sig, float* remaining, unsigned char* evicted,
     unsigned char* elig, float* cum, int* cum_viol, float* used,
-    int* assigned, float* chosen, void* stream) {
+    int* assigned, float* chosen, int* evictor, int* evict_pos,
+    void* stream) {
   PairScan none{};
   PreemptScan pre = make_preempt(
       N, R, M, GP, J, perm, node_s, seg_start, cost_s, vprio_s, req_s, pdb_s,
       margin, prio, pod_valid, group, node_valid, run_node, run_anti_sig,
-      remaining, evicted, elig, cum, cum_viol);
+      remaining, evicted, elig, cum, cum_viol, evictor, evict_pos);
   return launch_scan<false, true>(P, N, R, order, mask, static_score, alloc,
                                   requests, w_lr, w_ba, w_ts, w_ia, rw,
                                   seeded, seed, used, assigned, chosen, none,
@@ -569,7 +583,7 @@ extern "C" int tpusched_parity_scan_pair_preempt(
     const bool* node_valid2, const int* run_node, const int* run_anti_sig,
     float* remaining, unsigned char* evicted, unsigned char* elig,
     float* cum, int* cum_viol, float* used, int* assigned, float* chosen,
-    void* stream) {
+    int* evictor, int* evict_pos, void* stream) {
   if (C > tpusched::MAX_C || M2 != M) return (int)cudaErrorInvalidValue;
   PairScan ps{{N, S, C, IT, M + P, M, dom, match, node_valid, aff_ok, ts_sig,
                ts_valid, ts_when, ts_max_skew, ia_sig, ia_valid, ia_anti,
@@ -578,7 +592,7 @@ extern "C" int tpusched_parity_scan_pair_preempt(
   PreemptScan pre = make_preempt(
       N, R, M, GP, J, perm, node_s, seg_start, cost_s, vprio_s, req_s, pdb_s,
       margin, prio, pod_valid, group, node_valid2, run_node, run_anti_sig,
-      remaining, evicted, elig, cum, cum_viol);
+      remaining, evicted, elig, cum, cum_viol, evictor, evict_pos);
   return launch_scan<true, true>(P, N, R, order, mask, static_score, alloc,
                                  requests, w_lr, w_ba, w_ts, w_ia, rw, seeded,
                                  seed, used, assigned, chosen, ps, pre,

@@ -33,14 +33,19 @@ JAX package's DeviceSnapshot fed the same records):
 The lineage also carries the warm solve's state: the tableau handle
 (`warm_state`, an engine.WarmState), the dirty rows since it was built
 (`warm_delta`) and the last warm result's placements (`carry_arrays`),
-which `Engine.solve_warm_async` reads and commits. The JAX package's
-device pending queue and mesh layout are not ported here (ROADMAP A10,
-A14).
+which `Engine.solve_warm_async` reads and commits.
+
+`DeviceQueue` is the persistent pending table the JAX host builds with
+`device_queue=True`: a numpy mirror on the host, its twin on the device,
+dirty rows shipped in one scatter a cycle and the solve window ranked by
+kernel K21 (`kernels/queue.py`). The JAX package's mesh layout is not
+ported here (ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import logging
 import traceback
 from typing import Iterable, Mapping
@@ -49,6 +54,7 @@ import numpy as np
 import torch
 
 from tpusched_torch.config import Buckets, EngineConfig
+from tpusched_torch.kernels import queue as kqueue
 from tpusched_torch.kernels.assign import permute_rows, scatter_rows
 from tpusched_torch.qos import pressure_of
 from tpusched_torch.snapshot import (
@@ -112,6 +118,21 @@ def _pad_pow2(idx: list[int]) -> np.ndarray:
     return out
 
 
+def _require_device(device, what: str) -> torch.device:
+    """The device a resident structure lives on: CUDA by default (raises
+    without it), the CPU only when asked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"no CUDA device: the {what} lives on the GPU; pass "
+                "device='cpu' explicitly to keep it on the CPU")
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class DeviceSnapshot:
     """One snapshot lineage resident on the device.
 
@@ -128,15 +149,7 @@ class DeviceSnapshot:
                  device: "str | torch.device | None" = None):
         self.config = config or EngineConfig()
         self._floor_buckets = buckets
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "no CUDA device: the lineage lives on the GPU; pass "
-                    "device='cpu' explicitly to keep it on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = _require_device(device, "lineage")
         # Raw record kwargs by name (the rebuild's source of truth) and
         # the normalized forms the row fills read.
         self._nodes: dict[str, dict] = {}
@@ -860,3 +873,195 @@ class DeviceSnapshot:
             perm[i] = old_pos.get(nm, i)
         pads = list(range(len(new_order), len(old_order)))
         return perm, pads
+
+
+# ---------------------------------------------------------------------------
+# The device-resident pending queue
+# ---------------------------------------------------------------------------
+
+
+class DeviceQueue:
+    """The persistent [Q] pending table (JAX `DeviceQueue`): a numpy
+    mirror on the host and its twin on the device.
+
+    Every mutation (upsert / remove / park) touches only the mirror and
+    marks the slot dirty; `window()` ships the dirty rows in one
+    pow2-padded scatter (`_pad_pow2`, `scatter_rows`) and ranks the whole
+    table on the device (K21, `kernels/queue.window_select`), so a
+    cycle's device traffic is O(mutations) and its read-back O(window).
+
+    Times are rebased against the first submission (the epoch), so wall
+    clocks survive the f32 table. `bound` caps admission: an upsert of a
+    NEW name into a full bounded queue returns False (the caller sheds);
+    an unbounded queue doubles its capacity, which drops the device twin
+    for one full upload.
+
+    device: "cuda" by default (raises without CUDA), or "cpu" when
+    asked. Not thread-safe: the ingest gate serialises access under its
+    lock; the host drives it from the cycle loop."""
+
+    def __init__(self, capacity: int = 1024, bound: int | None = None,
+                 qos_gain: float = 1000.0,
+                 device: "str | torch.device | None" = None):
+        self.device = _require_device(device, "queue")
+        cap = 1 << max(int(capacity) - 1, 0).bit_length()
+        self.bound = int(bound) if bound else None
+        self.qos_gain = float(qos_gain)
+        self._host = kqueue.empty_table(cap)
+        self._dev: kqueue.QueueTable | None = None   # None = stale
+        self._slot: dict[str, int] = {}      # name -> slot
+        self._names: list[str | None] = [None] * cap
+        self._free: list[int] = list(range(cap))   # min-heap
+        heapq.heapify(self._free)
+        self._dirty: set[int] = set()
+        self._epoch: float | None = None
+        self._seq = 0
+        self.scatters = 0
+        self.scatter_rows_total = 0
+        self.windows = 0
+
+    # -- inspection -----------------------------------------------------------
+
+    @property
+    def capacity(self) -> int:
+        return len(self._names)
+
+    @property
+    def depth(self) -> int:
+        return len(self._slot)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._slot
+
+    def names(self) -> list[str]:
+        return list(self._slot)
+
+    def _rebase(self, t: float) -> np.float32:
+        if self._epoch is None:
+            self._epoch = float(t)
+        return np.float32(t - self._epoch)
+
+    # -- mutation (the host mirror only) --------------------------------------
+
+    def upsert(self, name: str, *, base_priority: float = 0.0,
+               slo_target: float = 0.0, submitted: float = 0.0,
+               run_seconds: float = 0.0, parked_until: float = 0.0,
+               tenant: int = 0, seq: int | None = None) -> bool:
+        """Insert or update one pending row. False (nothing changed) when
+        the queue is bounded and full and `name` is new."""
+        slot = self._slot.get(name)
+        if slot is None:
+            if self.bound is not None and len(self._slot) >= self.bound:
+                return False
+            if not self._free:
+                self._grow()
+            slot = heapq.heappop(self._free)
+            self._slot[name] = slot
+            self._names[slot] = name
+        if seq is None:
+            seq = self._seq
+        self._seq = max(self._seq, int(seq)) + 1
+        h = self._host
+        h.valid[slot] = True
+        h.base_priority[slot] = np.float32(base_priority)
+        h.slo_target[slot] = np.float32(slo_target)
+        h.submitted[slot] = self._rebase(submitted)
+        h.run_seconds[slot] = np.float32(run_seconds)
+        h.parked_until[slot] = (self._rebase(parked_until) if parked_until
+                                else np.float32(0.0))
+        h.tenant[slot] = np.int32(tenant)
+        h.seq[slot] = np.uint32(seq)
+        self._dirty.add(slot)
+        return True
+
+    def remove(self, names) -> int:
+        """Invalidate slots; unknown names are ignored."""
+        n = 0
+        for name in names:
+            slot = self._slot.pop(name, None)
+            if slot is None:
+                continue
+            self._host.valid[slot] = False
+            self._names[slot] = None
+            heapq.heappush(self._free, slot)
+            self._dirty.add(slot)
+            n += 1
+        return n
+
+    def park(self, name: str, until: float) -> bool:
+        """Ineligible until `until` (same clock as upsert and window); the
+        row keeps its place and its priority keeps decaying."""
+        slot = self._slot.get(name)
+        if slot is None:
+            return False
+        self._host.parked_until[slot] = self._rebase(until)
+        self._dirty.add(slot)
+        return True
+
+    # -- device sync and window -----------------------------------------------
+
+    def _grow(self) -> None:
+        old = self._host
+        old_cap = len(self._names)
+        new_cap = old_cap * 2
+        self._host = kqueue.empty_table(new_cap)
+        for f, arr in zip(self._host._fields, self._host):
+            arr[:old_cap] = getattr(old, f)
+        self._names.extend([None] * old_cap)
+        for s in range(old_cap, new_cap):
+            heapq.heappush(self._free, s)
+        self._dev = None            # full upload on the next flush
+
+    def _flush(self) -> None:
+        """Ship the dirty mirror rows to the device twin: one pow2-padded
+        scatter (or the whole table after growth)."""
+        if self._dev is None:
+            self._dev = kqueue.to_device(self._host, self.device)
+            self._dirty.clear()
+            return
+        if not self._dirty:
+            return
+        rows = sorted(self._dirty)
+        idx = _pad_pow2(rows)
+        data = kqueue.to_device(
+            kqueue.QueueTable(*[np.ascontiguousarray(a[idx])
+                                for a in self._host]), self.device)
+        idx_t = torch.from_numpy(idx).to(self.device)
+        self._dev = kqueue.QueueTable(*[
+            scatter_rows(d, idx_t, r) for d, r in zip(self._dev, data)])
+        self.scatters += 1
+        self.scatter_rows_total += len(rows)
+        self._dirty.clear()
+
+    def window(self, now: float, w: int):
+        """The top-`w` solve window ranked on the device: flush the dirty
+        rows, rank (K21), read back the pow2 window's slots and the
+        counts, map slots to names. Returns (names in pop order,
+        n_eligible, depth) with len(names) == min(w, n_eligible)."""
+        self._flush()
+        if self._epoch is None:
+            return [], 0, 0
+        cap = self.capacity
+        kb = kqueue.k_bucket(min(max(int(w), 1), cap), cap)
+        win, _prio, n_elig, depth = kqueue.window_select(
+            self._dev, self._rebase(now), self.qos_gain, kb)
+        self.windows += 1
+        got = torch.cat([win, n_elig[None], depth[None]]).cpu().numpy()
+        n_elig, depth = int(got[-2]), int(got[-1])
+        take = min(int(w), n_elig, kb)
+        names = []
+        for s in got[:take]:
+            nm = self._names[int(s)]
+            if nm is not None:
+                names.append(nm)
+        return names, n_elig, depth
+
+    def stats(self) -> dict:
+        return {
+            "depth": self.depth,
+            "capacity": self.capacity,
+            "bound": self.bound,
+            "scatters": self.scatters,
+            "scatter_rows_total": self.scatter_rows_total,
+            "windows": self.windows,
+        }

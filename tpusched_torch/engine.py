@@ -44,6 +44,15 @@ on that event: the engine starts no thread, and `close` has nothing to
 release. (Fast mode reads device flags while it dispatches, so its
 dispatch returns when its last round has been decided.)
 
+The explained entry points (`solve_explained_async`, `solve_explained`)
+run the solve with JAX's provenance outputs (the gang gate's rollbacks,
+each victim's evicting pod and commit round: K4's explain outputs in
+parity mode, a scatter-max over each auction round's kept bids in fast
+mode, with the per-round auction table) and, beside it, the probe
+(`kernels/explain.explain_probe`: K1, K2, with signatures K9 and K10,
+then K22's tallies and masked totals, K6's top k and K22's terms at the
+chosen cells). The placements equal the unexplained solve's.
+
 The warm entry points (`solve_warm_async`, `solve_warm`) solve a
 device-resident lineage (`device_state.DeviceSnapshot`, or any object
 with its interface, such as the JAX package's): the cold rung builds
@@ -67,10 +76,13 @@ import torch
 
 from tpusched_torch.config import EngineConfig
 from tpusched_torch.device_state import _pad_pow2
+from tpusched_torch.kernels import explain as kexplain
 from tpusched_torch.kernels import pairwise as kpair
 from tpusched_torch.kernels.assign import (
+    EXPLAIN_AUCTION_STATS,
     INC_AUDIT_LEN,
     KERNELS,
+    _PREEMPT_MAX_ROUNDS,
     Ops,
     RoundStats,
     StaticCtx,
@@ -111,6 +123,21 @@ class SolveResult:
 
 
 @dataclasses.dataclass
+class ExplainData:
+    """The explained solve's provenance (JAX `ExplainData`): which gang
+    placements rolled back, and for every evicted running pod which pod
+    evicted it and in which commit round (parity: the evicting pod's
+    pop-order step). auction_stats has one row per fast-mode preemption
+    round (kernels/assign.EXPLAIN_AUCTION_STATS columns), zero rows
+    included."""
+
+    rolled: np.ndarray         # [P] bool: reverted by the gang gate
+    evictor: np.ndarray        # [M] int32 preemptor pod index (-1)
+    evict_round: np.ndarray    # [M] int32 commit-round key (-1)
+    auction_stats: np.ndarray  # [rounds cap, N_STATS] f32
+
+
+@dataclasses.dataclass
 class ScoreBatchResult:
     feasible: np.ndarray       # [P, N] bool
     scores: np.ndarray         # [P, N] f32
@@ -134,36 +161,54 @@ def _sat_tables(snap: ClusterSnapshot, ops: Ops = KERNELS):
 
 def solve_core(cfg: EngineConfig, snap: ClusterSnapshot, ops: Ops = KERNELS,
                stats: RoundStats | None = None,
-               static: StaticCtx | None = None):
+               static: StaticCtx | None = None, explain: bool = False):
     """(assigned, chosen, used, order, commit_key, rounds, evicted) in
     either mode. Parity: commit_key is the rank in pop order, rounds = P.
     Fast: commit_key is each pod's commit round. stats collects the fast
     loops' host reads (and spans, when it times). static: a StaticCtx
     already made from a tableau (the warm path); the label tables and
-    the tableau are then not computed."""
+    the tableau are then not computed. explain=True appends the
+    provenance tuple (rolled, evictor, evict_round, auction_stats) of
+    solve_sequential / solve_rounds; the rest is the same."""
     tables = (None, None) if static is not None else _sat_tables(snap, ops)
     if cfg.mode == "fast":
         return solve_rounds(cfg, snap, *tables, static=static, ops=ops,
-                            stats=stats)
-    a, c, u, o, ev = solve_sequential(cfg, snap, *tables, ops=ops,
-                                      static=static)
+                            stats=stats, explain=explain)
+    a, c, u, o, ev, *extras = solve_sequential(cfg, snap, *tables, ops=ops,
+                                               static=static,
+                                               explain=explain)
     P = a.shape[0]
     rank = torch.zeros(P, dtype=torch.int32, device=o.device)
     rank[o] = torch.arange(P, dtype=torch.int32, device=o.device)
     rounds = torch.full((), P, dtype=torch.int32, device=o.device)
-    return a, c, u, o, rank, rounds, ev
+    return (a, c, u, o, rank, rounds, ev, *extras)
 
 
 def _pack_solve(out) -> torch.Tensor:
     """Flatten a solve_core output into the ONE f32 result buffer
-    (layout authority: Engine.unpack). Indices are exact in f32."""
-    assigned, chosen, used, order, commit_key, rounds, ev = out
-    return torch.cat([
+    (layout authority: Engine.unpack; with the provenance tuple,
+    Engine.unpack_explained). Indices are exact in f32."""
+    assigned, chosen, used, order, commit_key, rounds, ev, *extras = out
+    parts = [
         assigned.to(torch.float32), chosen,
         order.to(torch.float32), commit_key.to(torch.float32),
         used.reshape(-1), ev.to(torch.float32),
         rounds.to(torch.float32)[None],
-    ])
+    ]
+    for rolled, evictor, evict_round, astats in extras:
+        parts += [rolled.to(torch.float32), evictor.to(torch.float32),
+                  evict_round.to(torch.float32), astats.reshape(-1)]
+    return torch.cat(parts)
+
+
+def probe_core(cfg: EngineConfig, snap: ClusterSnapshot, kb: int,
+               ops: Ops = KERNELS) -> torch.Tensor:
+    """The provenance probe's flat buffer (kernels/explain.explain_probe)
+    at top-kb: K1's label tables, K2's tableau (K9 with signatures),
+    then the probe."""
+    node_sat_t, member_sat_t = _sat_tables(snap, ops)
+    tab = build_tableau(cfg, snap, node_sat_t, member_sat_t, ops)
+    return kexplain.explain_probe(cfg, snap, tab, kb, ops)
 
 
 def score_core(cfg: EngineConfig, snap: ClusterSnapshot, masked: bool = False,
@@ -354,11 +399,74 @@ class Engine:
 
         return PendingFetch([buf], unpack, t0)
 
+    # -- decision provenance ------------------------------------------------
+
+    @staticmethod
+    def unpack_explained(snap: ClusterSnapshot, buf):
+        """Decode the explained solve's buffer: the solve layout
+        (Engine.unpack), then the provenance. Returns (SolveResult,
+        ExplainData)."""
+        buf = np.asarray(buf)
+        P = snap.pods.valid.shape[0]
+        N, R = snap.nodes.used.shape
+        M = snap.running.valid.shape[0]
+        std = 4 * P + N * R + M + 1
+        res = Engine.unpack(snap, buf[:std])
+        off = std
+        rolled = buf[off:off + P] > 0
+        off += P
+        evictor = buf[off:off + M].astype(np.int32)
+        off += M
+        evict_round = buf[off:off + M].astype(np.int32)
+        off += M
+        astats = buf[off:].reshape(_PREEMPT_MAX_ROUNDS,
+                                   len(EXPLAIN_AUCTION_STATS))
+        return res, ExplainData(rolled=rolled, evictor=evictor,
+                                evict_round=evict_round,
+                                auction_stats=astats)
+
     def solve_explained_async(self, snap, k: int = 3):
-        """Decision provenance is not ported yet (ROADMAP A11)."""
-        raise NotImplementedError(
-            "solve_explained_async: decision provenance is not ported to "
-            "tpusched_torch yet (ROADMAP A11)")
+        """Dispatch the explained solve and the provenance probe: returns
+        (pending_solve, pending_probe), the first joining to
+        (SolveResult, ExplainData), the second to a ScoreExplain with
+        top-k columns (k clipped to [1, N]). The probe ranks the power of
+        two at or above k and keeps the first k, which equal a direct
+        top-k. The placements, order, commit keys, rounds and host reads
+        equal solve()'s."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        dsnap, moved = self._put(snap)
+        stats = RoundStats()
+        buf = _pack_solve(solve_core(cfg, dsnap, stats=stats, explain=True))
+        N = max(int(dsnap.nodes.valid.shape[0]), 1)
+        kk = min(max(int(k), 1), N)
+        kb = self._k_bucket(kk, N)
+        probe = probe_core(cfg, dsnap, kb)
+
+        def unpack_solve(raw, seconds):
+            res, exd = self.unpack_explained(dsnap, raw[0])
+            res.host_reads = stats.host_reads
+            res.h2d_bytes = moved
+            res.solve_seconds = seconds
+            return res, exd
+
+        def unpack_probe(raw, _seconds):
+            se = kexplain.unpack_probe(dsnap, raw[0], kb)
+            if kb == kk:
+                return se
+            return dataclasses.replace(
+                se, k=kk, topk_idx=se.topk_idx[:, :kk],
+                topk_score=se.topk_score[:, :kk],
+                topk_terms=se.topk_terms[:, :kk, :])
+
+        return (PendingFetch([buf], unpack_solve, t0),
+                PendingFetch([probe], unpack_probe, t0))
+
+    def solve_explained(self, snap, k: int = 3):
+        """Blocking form: (SolveResult, ExplainData, ScoreExplain)."""
+        p_solve, p_probe = self.solve_explained_async(snap, k)
+        res, exd = p_solve.result()
+        return res, exd, p_probe.result()
 
     def score(self, snap) -> ScoreBatchResult:
         """ScoreBatch: [P, N] feasibility + normalized weighted scores

@@ -69,6 +69,7 @@ import torch
 from tpusched_torch import _build
 from tpusched_torch.config import DO_NOT_SCHEDULE, EngineConfig
 from tpusched_torch.kernels import check, ptrs, stream_of
+from tpusched_torch.kernels import explain as kexplain
 from tpusched_torch.kernels import filter as kfilter
 from tpusched_torch.kernels import pairwise as kpair
 from tpusched_torch.kernels import preempt as kpre
@@ -476,22 +477,27 @@ def parity_scan_pair_plain(cfg: EngineConfig, snap: ClusterSnapshot,
 
 def parity_scan_preempt_plain(cfg: EngineConfig, snap: ClusterSnapshot,
                               static: StaticCtx, order: torch.Tensor,
-                              pctx: "kpre.PreemptCtx"):
+                              pctx: "kpre.PreemptCtx", explain: bool = False):
     """The sequential commit loop with preemption, in plain torch:
-    (assigned, chosen, used, evicted [M] bool)."""
-    a, c, u, _, ev = _scan_loop(cfg, snap, static, order, pctx=pctx)
-    return a, c, u, ev
+    (assigned, chosen, used, evicted [M] bool); with explain, then each
+    victim's evicting pod and that pod's pop-order step (evictor,
+    evict_pos [M] int32, -1 where not evicted)."""
+    a, c, u, _, ev, evictor, pos = _scan_loop(cfg, snap, static, order,
+                                              pctx=pctx)
+    return (a, c, u, ev) + ((evictor, pos) if explain else ())
 
 
 def parity_scan_pair_preempt_plain(cfg: EngineConfig, snap: ClusterSnapshot,
                                    static: StaticCtx, order: torch.Tensor,
                                    st: "kpair.PairState",
                                    dom_s: torch.Tensor,
-                                   pctx: "kpre.PreemptCtx"):
+                                   pctx: "kpre.PreemptCtx",
+                                   explain: bool = False):
     """The sequential commit loop with pairwise constraints and
     preemption, in plain torch: (assigned, chosen, used, final
-    PairState, evicted)."""
-    return _scan_loop(cfg, snap, static, order, st, dom_s, pctx)
+    PairState, evicted), with explain then (evictor, evict_pos)."""
+    out = _scan_loop(cfg, snap, static, order, st, dom_s, pctx)
+    return out if explain else out[:5]
 
 
 def _scan_loop(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
@@ -502,22 +508,26 @@ def _scan_loop(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
     pair state, pairwise_row before and pair_state_add_pod after each
     commit; with a victim table (pctx), the PostFilter branch
     (`_preempt_branch`) for every valid pod outside a gang that fits
-    nowhere. Returns (assigned, chosen, used, st, evicted)."""
+    nowhere. Returns (assigned, chosen, used, st, evicted, evictor,
+    evict_pos): each victim's evicting pod and that pod's step in pop
+    order (-1 where not evicted)."""
     P = order.shape[0]
+    M = snap.running.valid.shape[0]
     dev = order.device
     pods = snap.pods
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
     used = snap.nodes.used.clone()
     assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
     chosen = torch.full((P,), NEG_INF, dtype=torch.float32, device=dev)
-    evicted = torch.zeros(snap.running.valid.shape[0], dtype=torch.bool,
-                          device=dev)
+    evicted = torch.zeros(M, dtype=torch.bool, device=dev)
+    evictor = torch.full((M,), -1, dtype=torch.int32, device=dev)
+    evict_pos = torch.full((M,), -1, dtype=torch.int32, device=dev)
     requests = pods.requests
     if pctx is not None:
         prio = effective_priority(cfg, pods.base_priority, pods.slo_target,
                                   pods.observed_avail)
         may_preempt = (pods.valid & (pods.group < 0)).tolist()
-    for p in order.tolist():
+    for i, p in enumerate(order.tolist()):
         feasible, score, allowed = pod_cycle(cfg, snap, static, p, used, st,
                                              dom_s)
         masked = torch.where(feasible, score, neg)
@@ -548,8 +558,10 @@ def _scan_loop(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
             st = kpair.pair_state_add_pod(snap, st, static.sig_match, dom_s,
                                           p, best_n, can)
         evicted = evicted | evict_m
+        evictor[evict_m] = p
+        evict_pos[evict_m] = i
         assigned[p] = best_n
-    return assigned, chosen, used, st, evicted
+    return assigned, chosen, used, st, evicted, evictor, evict_pos
 
 
 def _scan_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
@@ -668,15 +680,26 @@ def _preempt_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
             *kpre.victim_scratch(M, R, dev))
 
 
+def _explain_out(explain: bool, M: int, dev) -> tuple:
+    """K4's optional explain outputs (evictor, evict_pos), -1 filled, or
+    (None, None)."""
+    if not explain:
+        return None, None
+    return (torch.full((M,), -1, dtype=torch.int32, device=dev),
+            torch.full((M,), -1, dtype=torch.int32, device=dev))
+
+
 def parity_scan_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
                         static: StaticCtx, order: torch.Tensor,
-                        pctx: "kpre.PreemptCtx"):
+                        pctx: "kpre.PreemptCtx", explain: bool = False):
     """K4's preemption variant on CUDA tensors (K15's victim search
     inside the scan), the plain version on CPU tensors: (assigned,
-    chosen, used, evicted)."""
+    chosen, used, evicted); with explain then (evictor, evict_pos), K4's
+    optional outputs."""
     dev = static.mask.device
     if dev.type == "cpu":
-        return parity_scan_preempt_plain(cfg, snap, static, order, pctx)
+        return parity_scan_preempt_plain(cfg, snap, static, order, pctx,
+                                         explain)
     k = "parity_scan_preempt"
     args = _scan_args(k, cfg, snap, static, order)
     pre = _preempt_args(k, cfg, snap, static, pctx)
@@ -685,28 +708,32 @@ def parity_scan_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
     assigned = torch.empty((P,), dtype=torch.int32, device=dev)
     chosen = torch.empty((P,), dtype=torch.float32, device=dev)
     evicted = pre[-4]
+    ex = _explain_out(explain, evicted.shape[0], dev)
     if P:
         _build.launch("tpusched_parity_scan_preempt",
-                      *ptrs((*args, *pre, used, assigned, chosen)),
+                      *ptrs((*args, *pre, used, assigned, chosen, *ex)),
                       stream_of(dev))
         parity_scan_preempt.launches += 1
-    return assigned, chosen, used, evicted.bool()
+        parity_scan_preempt.explain_launches += explain
+    return (assigned, chosen, used, evicted.bool()) + (ex if explain else ())
 
 
 parity_scan_preempt.launches = 0
+parity_scan_preempt.explain_launches = 0   # of them, with the explain outputs
 
 
 def parity_scan_pair_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
                              static: StaticCtx, order: torch.Tensor,
                              st: "kpair.PairState", dom_s: torch.Tensor,
-                             pctx: "kpre.PreemptCtx"):
+                             pctx: "kpre.PreemptCtx", explain: bool = False):
     """K4's pairwise and preemption variant on CUDA tensors, the plain
     version on CPU tensors: (assigned, chosen, used, final PairState,
-    evicted). `st` is left as it was."""
+    evicted), with explain then (evictor, evict_pos). `st` is left as it
+    was."""
     dev = static.mask.device
     if dev.type == "cpu":
         return parity_scan_pair_preempt_plain(cfg, snap, static, order, st,
-                                              dom_s, pctx)
+                                              dom_s, pctx, explain)
     k = "parity_scan_pair_preempt"
     args = _scan_args(k, cfg, snap, static, order)
     terms = kpair._pair_term_args(k, snap, static.aff_ok, static.sig_match,
@@ -719,6 +746,7 @@ def parity_scan_pair_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
     out = kpair.PairState(counts=st.counts.clone(), anti=st.anti.clone(),
                           match_tot=st.match_tot.clone())
     evicted = pre[-4]
+    ex = _explain_out(explain, evicted.shape[0], dev)
     if P:
         pen = torch.empty((N,), dtype=torch.float32, device=dev)
         raw = torch.empty((N,), dtype=torch.float32, device=dev)
@@ -726,33 +754,48 @@ def parity_scan_pair_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
         _build.launch("tpusched_parity_scan_pair_preempt",
                       *ptrs((*args, *terms[:-3], out.counts, out.anti,
                              out.match_tot, pen, raw, allowed, *pre, used,
-                             assigned, chosen)), stream_of(dev))
+                             assigned, chosen, *ex)), stream_of(dev))
         parity_scan_pair_preempt.launches += 1
-    return assigned, chosen, used, out, evicted.bool()
+        parity_scan_pair_preempt.explain_launches += explain
+    return (assigned, chosen, used, out, evicted.bool()) + (
+        ex if explain else ())
 
 
 parity_scan_pair_preempt.launches = 0
+parity_scan_pair_preempt.explain_launches = 0
 
 
 def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
                      node_sat_t: torch.Tensor | None,
                      member_sat_t: torch.Tensor | None = None,
                      ops: "Ops | None" = None,
-                     static: StaticCtx | None = None):
+                     static: StaticCtx | None = None,
+                     explain: bool = False):
     """Exact sequential commit (stock scheduleOne semantics). With
     signatures the scan carries the pair state (K10 counts the running
     members, K4's pairwise variant adds each commit). With preemption
     and running pods, the scan runs the PostFilter victim search (K15)
     for each pod that fits nowhere; then the gang gate. static: a
     StaticCtx already made (the warm path's, from its tableau). Returns
-    (assigned, chosen, used, order, evicted)."""
+    (assigned, chosen, used, order, evicted); explain=True appends
+    (rolled [P], evictor [M], evict_round [M], auction table), JAX's
+    provenance: the gang gate's rollbacks, each victim's evicting pod
+    and its pop-order step (K4's explain outputs; -1 where not evicted,
+    and everywhere without preemption), and an all-zero
+    [_PREEMPT_MAX_ROUNDS, EXPLAIN_AUCTION_STATS] table (parity mode has
+    no auction). The placements are the same either way."""
     ops = ops or KERNELS
     if static is None:
         static = precompute_static(cfg, snap, node_sat_t, member_sat_t, ops)
     M = snap.running.valid.shape[0]
     order = pop_order(cfg, snap)
+    dev = order.device
     pctx = kpre.precompute(cfg, snap) if cfg.preemption and M else None
-    evicted = torch.zeros(M, dtype=torch.bool, device=order.device)
+    evicted = torch.zeros(M, dtype=torch.bool, device=dev)
+    ex = (torch.full((M,), -1, dtype=torch.int32, device=dev),) * 2
+    # K4's explain outputs only when asked: the unexplained call is the
+    # one it always was.
+    kw = {"explain": True} if explain else {}
     st = dom_s = None
     if snap.sigs.key.shape[0] > 0:
         dom_s = kpair.sig_domains(snap)
@@ -762,16 +805,22 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
             assigned, chosen, used, st = ops.parity_scan_pair(
                 cfg, snap, static, order, st0, dom_s)
         else:
-            assigned, chosen, used, st, evicted = (
+            assigned, chosen, used, st, evicted, *more = (
                 ops.parity_scan_pair_preempt(cfg, snap, static, order, st0,
-                                             dom_s, pctx))
+                                             dom_s, pctx, **kw))
+            ex = tuple(more) or ex
     elif pctx is None:
         assigned, chosen, used = ops.parity_scan(cfg, snap, static, order)
     else:
-        assigned, chosen, used, evicted = ops.parity_scan_preempt(
-            cfg, snap, static, order, pctx)
-    used, assigned, chosen, _, _ = gang_rollback(
+        assigned, chosen, used, evicted, *more = ops.parity_scan_preempt(
+            cfg, snap, static, order, pctx, **kw)
+        ex = tuple(more) or ex
+    used, assigned, chosen, _, rolled = gang_rollback(
         snap, used, assigned, chosen, st, static.sig_match, dom_s, ops)
+    if explain:
+        astats = torch.zeros((_PREEMPT_MAX_ROUNDS, len(EXPLAIN_AUCTION_STATS)),
+                             dtype=torch.float32, device=dev)
+        return assigned, chosen, used, order, evicted, (rolled, *ex, astats)
     return assigned, chosen, used, order, evicted
 
 
@@ -2219,6 +2268,22 @@ _PREEMPT_DRAIN = 1024
 _PREEMPT_MAX_ROUNDS = 128
 _PREEMPT_VICTIM_CAP = 16
 
+# The explained fast solve's per-round auction provenance: one row per
+# preemption round in a [_PREEMPT_MAX_ROUNDS, len(...)] f32 table. The
+# column order is the layout tpusched/explain.py reads.
+EXPLAIN_AUCTION_STATS = (
+    "considered",      # pods examined this round
+    "plain_feasible",  # of those, feasible without any eviction
+    "bids",            # entered the victim auction
+    "claimed",         # auction claims surviving exact validation
+    "kept_evict",      # eviction bids kept past the PDB budget gate
+    "kept_plain",      # plain placements kept (claim scan + capacity)
+    "drained",         # plain-drain placements (S == 0 pre-pass)
+    "evictions",       # victims newly evicted this round
+    "pdb_spent",       # PDB budget consumed by kept eviction bids
+    "no_bid",          # pods retired spent (no placement or prefix)
+)
+
 
 def _evict_round(evicted: torch.Tensor, vidx_t: torch.Tensor,
                  keep_evict: torch.Tensor) -> torch.Tensor:
@@ -2276,7 +2341,7 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                     st: "kpair.PairState | None", round_of: torch.Tensor,
                     chosen: torch.Tensor, has_pair: torch.Tensor,
                     dom_s: torch.Tensor | None, ops: "Ops",
-                    stats: RoundStats):
+                    stats: RoundStats, explain: bool = False):
     """Fast-mode PostFilter as batched auction rounds (JAX
     `_preempt_rounds`), a host loop that reads one progress flag a round.
     A round:
@@ -2301,7 +2366,13 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
          commits through K8's node_add, in rank order.
     Every keep of round r shares the commit key base_rounds + r. A pod
     gets one bid until some keep changes the state. Returns (used,
-    assigned, st, evicted, round_of, chosen, rounds)."""
+    assigned, st, evicted, round_of, chosen, rounds); explain=True
+    appends (evictor [M], evict_round [M], the [_PREEMPT_MAX_ROUNDS,
+    EXPLAIN_AUCTION_STATS] table), accumulated on the device with no
+    host read: each round's kept eviction bids (before the pairwise
+    validation, like the evictions) name their victims' evicting pod
+    and commit key by a scatter-max over a -1 start (a victim is
+    evicted once), and the round's counts fill its row."""
     pods, nodes = snap.pods, snap.nodes
     P = pods.valid.shape[0]
     N = nodes.valid.shape[0]
@@ -2322,12 +2393,19 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     evicted = torch.zeros(M, dtype=torch.bool, device=dev)
     tried = torch.zeros(P, dtype=torch.bool, device=dev)
     compact_pv = S > 0 and _compact_cap(cfg, P) > 0
+    if explain:
+        evictor = torch.full((M,), -1, dtype=torch.int32, device=dev)
+        evict_rd = torch.full((M,), -1, dtype=torch.int32, device=dev)
+        astats = torch.zeros((_PREEMPT_MAX_ROUNDS,
+                              len(EXPLAIN_AUCTION_STATS)),
+                             dtype=torch.float32, device=dev)
     r = 0
     progress = None
     while r < _PREEMPT_MAX_ROUNDS and (progress is None
                                        or stats.read(progress)):
         key = base_rounds + r
         drained = torch.zeros((), dtype=torch.bool, device=dev)
+        drained_n = torch.zeros((), dtype=torch.int64, device=dev)
         if S == 0:
             with stats.span("preempt drain"):
                 pend0 = (assigned < 0) & pods.valid
@@ -2352,6 +2430,7 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                 round_of = round_of.index_put((d64,), torch.where(
                     hit_d, key, round_of[d64]))
                 drained = hit_d.any()
+                drained_n = hit_d.sum()
         pend = (assigned < 0) & pods.valid & ~tried
         sel = _top_by_rank(pend, order, C)[0]
         s64, s32 = sel.long(), sel.to(torch.int32)
@@ -2471,6 +2550,30 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                 torch.where(keep, neg, chosen[s64]))))
         round_of = round_of.index_put((s64,), torch.where(
             keep_all, key, round_of[s64]))
+        if explain:
+            with stats.span("preempt explain"):
+                # Victim attribution: keep_evict is the evictions' own
+                # mask (pre-validation), the sentinel slot M takes the
+                # rest.
+                vmask = keep_evict[:, None] & (vidx_t < M)
+                vslot = torch.where(vmask, vidx_t, M).long().reshape(-1)
+                for acc, val in ((evictor, s32[:, None]), (evict_rd, key)):
+                    src = torch.where(vmask, val, -1).to(torch.int32)
+                    hit = torch.full((M + 1,), -1, dtype=torch.int32,
+                                     device=dev).scatter_reduce(
+                        0, vslot, src.reshape(-1), "amax")
+                    torch.maximum(acc, hit[:M], out=acc)
+                ev_round = _evict_round(torch.zeros_like(evicted), vidx_t,
+                                        keep_evict)
+                spent = (torch.where(keep_evict[:, None], usage, 0).sum()
+                         if GP else torch.zeros((), dtype=torch.int64,
+                                                device=dev))
+                astats[r] = torch.stack([
+                    real.sum(), (real & can_plain).sum(), pre_active.sum(),
+                    claimed.sum(), keep_evict.sum(),
+                    (keep_all & ~takes_evict).sum(), drained_n,
+                    ev_round.sum(), spent, (real & ~could_bid).sum(),
+                ]).to(torch.float32)
         evicted = evicted2
         # A kept pod is placed, a pod with no placement and no prefix
         # anywhere is spent until the state changes, a deferred one bids
@@ -2481,20 +2584,23 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                             tried.index_put((s64,), tried[s64] | newly))
         progress = reset | newly.any()
         r += 1
-    return used, assigned, st, evicted, round_of, chosen, r
+    out = (used, assigned, st, evicted, round_of, chosen, r)
+    return out + ((evictor, evict_rd, astats),) if explain else out
 
 
 def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                  node_sat_t: torch.Tensor | None,
                  member_sat_t: torch.Tensor | None = None,
                  static: StaticCtx | None = None, ops: "Ops | None" = None,
-                 stats: RoundStats | None = None):
+                 stats: RoundStats | None = None, explain: bool = False):
     """Fast mode: batched commit rounds. Returns (assigned, chosen, used,
     order, round_of, rounds, evicted); round_of is the commit key (pods
     of an earlier round committed strictly earlier; with signatures a
     round's kept commits were validated against its end-of-round
     state). member_sat_t: the [A, M+P] member label table, needed with
-    signatures."""
+    signatures. explain=True appends JAX's provenance tuple (rolled [P],
+    evictor [M], evict_round [M], the auction table; see
+    _preempt_rounds), with the same placements and host reads."""
     ops = ops or KERNELS
     stats = stats or RoundStats()
     if static is None:
@@ -2525,13 +2631,15 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
             cfg, snap, static, rank, order, st0, invol, has_pair,
             max_rounds, K, _compact_cap(cfg, P), ops, stats)
     evicted = torch.zeros(M, dtype=torch.bool, device=dev)
+    ex = None
     if cfg.preemption and M > 0:
         reads0 = stats.host_reads
         with stats.span("preemption rounds"):
-            used, assigned, st, evicted, round_of, chosen, pre_r = (
+            used, assigned, st, evicted, round_of, chosen, pre_r, *more = (
                 _preempt_rounds(cfg, snap, static, rank, order, rounds, used,
                                 assigned, st, round_of, chosen, has_pair,
-                                dom_s, ops, stats))
+                                dom_s, ops, stats, explain))
+        ex = more[0] if explain else None
         stats.preempt_reads = stats.host_reads - reads0
         stats.preempt_rounds = pre_r
         rounds += pre_r
@@ -2539,7 +2647,15 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
         snap, used, assigned, chosen, st, static.sig_match, dom_s, ops)
     round_of = torch.where(rolled, -1, round_of)
     rounds = torch.full((), rounds, dtype=torch.int32, device=dev)
-    return assigned, chosen, used, order, round_of, rounds, evicted
+    out = (assigned, chosen, used, order, round_of, rounds, evicted)
+    if not explain:
+        return out
+    if ex is None:
+        ex = (torch.full((M,), -1, dtype=torch.int32, device=dev),
+              torch.full((M,), -1, dtype=torch.int32, device=dev),
+              torch.zeros((_PREEMPT_MAX_ROUNDS, len(EXPLAIN_AUCTION_STATS)),
+                          dtype=torch.float32, device=dev))
+    return out + ((rolled, *ex),)
 
 
 # -- the incremental warm path: K19, K20 and the frontier rounds -----------
@@ -2856,6 +2972,8 @@ class Ops:
     auction_claim: Callable
     capacity_prefix_keep: Callable
     frontier_closure: Callable
+    explain_cells: Callable
+    explain_terms: Callable
 
 
 KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
@@ -2865,7 +2983,8 @@ KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
               excess_min, excess_survive, parity_scan_preempt,
               parity_scan_pair_preempt, kpre.auction_ok, kpre.auction_tables,
               kpre.auction_rank, kpre.auction_claim, capacity_prefix_keep,
-              frontier_closure)
+              frontier_closure, kexplain.explain_cells,
+              kexplain.explain_terms)
 PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_plain, cycle_plain, row_topk_plain,
             desirability_plain, prefix_commit_plain, kpair.sig_match_plain,
@@ -2876,4 +2995,5 @@ PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_pair_preempt_plain, kpre.auction_ok_plain,
             kpre.auction_tables_plain, kpre.auction_rank_plain,
             kpre.auction_claim_plain, capacity_prefix_keep_plain,
-            frontier_closure_plain)
+            frontier_closure_plain, kexplain.explain_cells_plain,
+            kexplain.explain_terms_plain)

@@ -13,11 +13,17 @@ the CPU (eager torch contracts no multiply-add into an FMA).
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
-from tpusched_torch.config import EngineConfig
+from tpusched_torch.config import DEFAULT_OBSERVED_AVAIL, EngineConfig
+
+# Ages below this are "never observed": no 0/0 at the submission
+# instant, and the pod keeps its default availability until time has
+# passed.
+MIN_OBSERVED_AGE_S = 1e-9
 
 _PLUGINS = (
     "least_requested",
@@ -42,6 +48,46 @@ def effective_priority(cfg: EngineConfig, base_priority: Any,
                        slo_target: Any, observed_avail: Any) -> Any:
     return base_priority + cfg.qos.qos_gain * pressure_of(slo_target,
                                                           observed_avail)
+
+
+def _clamp01(v: float, default: float) -> float:
+    """v clipped to [0, 1]; a non-finite v gives `default`."""
+    v = float(v)
+    if not math.isfinite(v):
+        return float(default)
+    return min(max(v, 0.0), 1.0)
+
+
+def observed_availability(submitted: float, run_seconds: float,
+                          bound_at: "float | None", now: float,
+                          default: float = DEFAULT_OBSERVED_AVAIL) -> float:
+    """Availability of one pod at `now`: banked run time plus the current
+    run (since bound_at; None while pending) over its age. A pod younger
+    than MIN_OBSERVED_AGE_S returns `default`."""
+    age = now - submitted
+    if age < MIN_OBSERVED_AGE_S:
+        return float(default)
+    run = float(run_seconds)
+    if bound_at is not None:
+        run += max(now - bound_at, 0.0)
+    return _clamp01(run / age, default)
+
+
+def priority_terms(cfg: EngineConfig, base_priority: Any, slo_target: Any,
+                   observed_avail: Any) -> dict[str, Any]:
+    """The dynamic priority's terms: base + qos_boost == effective,
+    computed as effective_priority computes it (same op order)."""
+    p = pressure_of(slo_target, observed_avail)
+    return {
+        "base": base_priority,
+        "pressure": p,
+        "qos_boost": cfg.qos.qos_gain * p,
+        "effective": base_priority + cfg.qos.qos_gain * p,
+    }
+
+
+def slack_of(slo_target: Any, observed_avail: Any) -> Any:
+    return observed_avail - slo_target
 
 
 def base_weights(cfg: EngineConfig) -> dict[str, float]:
