@@ -103,7 +103,8 @@ package, and
        eviction; then the auction kernels against their plain versions
        on the arguments of each cell's first auction round, exactly,
        timed with CUDA events and the profiler's kernel time, K6 at
-       K = 256 beside torch.topk;
+       K = 256 beside torch.topk; then fast (h) under JAX's main-round
+       rule with preemption against the port's former rule, in turns;
      - async forms: `solve_async`, `score_async` and
        `score_topk_async(k=8)` once each on (b), each equal to its
        synchronous form;
@@ -1821,6 +1822,47 @@ def fast_preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
     return launches, rows
 
 
+def tranche_rule_twin(snap_h, smi: str) -> None:
+    """Fast (h) under JAX's main-round rule with preemption (no
+    full-width round 1, tranches of 2 rounds; ROADMAP C6) against the
+    rule the port had before it followed JAX's (round 1, tranches of 4),
+    in turns (former, JAX's, JAX's, former), three solves a turn after a
+    warm-up of each: the walls' medians, rounds, host reads, placed and
+    evicted. Measurement only: the former rule runs by handing the main
+    rounds a config with preemption off."""
+    cfg = EngineConfig(mode="fast", preemption=True)
+    eng = Engine(cfg)
+    dsnap = eng.put(snap_h)
+    jax_rule = kassign._solve_rounds_nosig
+
+    def former(cfg_, *a, **kw):
+        return jax_rule(dataclasses.replace(cfg_, preemption=False), *a,
+                        **kw)
+
+    runs = {"former": [], "JAX's": []}
+    try:
+        for rule in ("former", "JAX's", "JAX's", "former"):
+            kassign._solve_rounds_nosig = (former if rule == "former"
+                                           else jax_rule)
+            if not runs[rule]:
+                eng.solve(dsnap)
+            for _ in range(3):
+                res, ms = timed(lambda: eng.solve(dsnap))
+                runs[rule].append((ms, res.rounds, res.host_reads,
+                                   int((res.assignment >= 0).sum()),
+                                   int(res.evicted.sum())))
+    finally:
+        kassign._solve_rounds_nosig = jax_rule
+        eng.close()
+    log("fast (h) main-round rule twin (in turns former, JAX's, JAX's, "
+        "former; 6 solves each): " + "; ".join(
+            f"{rule} rule median {statistics.median(r[0] for r in v):.3f} "
+            f"ms (min {min(r[0] for r in v):.3f}, max "
+            f"{max(r[0] for r in v):.3f}), rounds {v[0][1]}, host reads "
+            f"{v[0][2]}, placed {v[0][3]}, evicted {v[0][4]}"
+            for rule, v in runs.items()) + f"; {smi}")
+
+
 def timed(fn):
     """(fn(), host-clock ms), synchronised at both ends."""
     torch.cuda.synchronize()
@@ -2606,6 +2648,7 @@ def main() -> int:
     for k, v in phase_counts.items():
         launches[k] += v
     kp.update(kp_auction)
+    tranche_rule_twin(snap_h, smi)
 
     # -- the warm lineage (w) and the async forms ------------------------------
     async_phase(snap_b, smi)

@@ -46,6 +46,35 @@ def test_sortable_u32_is_monotone_and_equals_jax():
     np.testing.assert_array_equal(t.numpy(), u.astype(np.int64))
 
 
+def test_qos_helpers_equal_jax():
+    """The QoS helpers the queue and the probe read (tpusched/qos.py:32-89):
+    the never-observed grace, availability, the priority's terms and
+    slack, on the same values as JAX's."""
+    from tpusched import qos as jqos
+    from tpusched.config import EngineConfig as JConfig
+    from tpusched_torch import EngineConfig
+    from tpusched_torch import qos as tqos
+
+    assert tqos.MIN_OBSERVED_AGE_S == jqos.MIN_OBSERVED_AGE_S
+    for args in ((0.0, 5.0, None, 10.0), (0.0, 5.0, 8.0, 10.0),
+                 (3.0, 0.0, None, 3.0 + 1e-12), (0.0, 50.0, None, 10.0),
+                 (0.0, float("nan"), None, 10.0)):
+        assert (tqos.observed_availability(*args)
+                == jqos.observed_availability(*args))
+    rng = np.random.default_rng(3)
+    base = rng.uniform(0, 100, 64).astype(np.float32)
+    slo = rng.uniform(0, 1, 64).astype(np.float32)
+    avail = rng.uniform(0, 1, 64).astype(np.float32)
+    want = jqos.priority_terms(JConfig(), base, slo, avail)
+    got = tqos.priority_terms(EngineConfig(), *(torch.from_numpy(x) for x in
+                                                (base, slo, avail)))
+    for k in ("pressure", "qos_boost", "effective"):
+        np.testing.assert_array_equal(got[k].numpy(), want[k])
+    np.testing.assert_array_equal(
+        tqos.slack_of(torch.from_numpy(slo), torch.from_numpy(avail)).numpy(),
+        jqos.slack_of(slo, avail))
+
+
 def test_k_bucket_equals_jax():
     for k, n in ((1, 1024), (3, 1024), (256, 1024), (257, 1024),
                  (5000, 1024), (7, 6)):

@@ -95,6 +95,7 @@ from tpusched_torch.kernels.assign import (
     solve_rounds,
     solve_sequential,
 )
+from tpusched_torch.kernels.queue import k_bucket
 from tpusched_torch.snapshot import ClusterSnapshot, snapshot_from_numpy
 
 
@@ -493,13 +494,11 @@ class Engine:
         return (best.cpu().numpy(), mx.cpu().numpy(), anyf.cpu().numpy(),
                 time.perf_counter() - t0)
 
-    @staticmethod
-    def _k_bucket(k: int, n: int) -> int:
-        """The power of two at or above k, at most n: the device ranks
-        this many columns and the caller keeps the first k, which equal
-        a direct top-k (the ranking is a descending sort)."""
-        kb = 1 << (max(int(k), 1) - 1).bit_length()
-        return min(kb, int(n))
+    # The power of two at or above k, at most n: the device ranks this
+    # many columns and the caller keeps the first k, which equal a direct
+    # top-k (the ranking is a descending sort). The queue's window shares
+    # the bucket.
+    _k_bucket = staticmethod(k_bucket)
 
     def score_topk(self, snap, k: int):
         """Each pod's best k feasible nodes, descending (ties to the

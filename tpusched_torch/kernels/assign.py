@@ -792,10 +792,10 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
     dev = order.device
     pctx = kpre.precompute(cfg, snap) if cfg.preemption and M else None
     evicted = torch.zeros(M, dtype=torch.bool, device=dev)
-    ex = (torch.full((M,), -1, dtype=torch.int32, device=dev),) * 2
     # K4's explain outputs only when asked: the unexplained call is the
     # one it always was.
     kw = {"explain": True} if explain else {}
+    more = ()
     st = dom_s = None
     if snap.sigs.key.shape[0] > 0:
         dom_s = kpair.sig_domains(snap)
@@ -808,20 +808,21 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
             assigned, chosen, used, st, evicted, *more = (
                 ops.parity_scan_pair_preempt(cfg, snap, static, order, st0,
                                              dom_s, pctx, **kw))
-            ex = tuple(more) or ex
     elif pctx is None:
         assigned, chosen, used = ops.parity_scan(cfg, snap, static, order)
     else:
         assigned, chosen, used, evicted, *more = ops.parity_scan_preempt(
             cfg, snap, static, order, pctx, **kw)
-        ex = tuple(more) or ex
     used, assigned, chosen, _, rolled = gang_rollback(
         snap, used, assigned, chosen, st, static.sig_match, dom_s, ops)
-    if explain:
-        astats = torch.zeros((_PREEMPT_MAX_ROUNDS, len(EXPLAIN_AUCTION_STATS)),
-                             dtype=torch.float32, device=dev)
-        return assigned, chosen, used, order, evicted, (rolled, *ex, astats)
-    return assigned, chosen, used, order, evicted
+    if not explain:
+        return assigned, chosen, used, order, evicted
+    if not more:
+        more = [torch.full((M,), -1, dtype=torch.int32, device=dev)
+                for _ in range(2)]
+    astats = torch.zeros((_PREEMPT_MAX_ROUNDS, len(EXPLAIN_AUCTION_STATS)),
+                         dtype=torch.float32, device=dev)
+    return assigned, chosen, used, order, evicted, (rolled, *more, astats)
 
 
 # -- K5: the batched Filter + Score pass ------------------------------------
