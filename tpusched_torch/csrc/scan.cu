@@ -55,9 +55,10 @@
 // device memory; K15's scan buffers take 41 KB of static shared memory
 // beside `used`/`alloc`. Without preemption the instantiations are
 // unchanged. With the optional outputs evictor / evict_pos (the explained
-// solve's provenance, assign.py:468-471), thread 0 also writes, for each
-// victim it evicts, the pod's index and its step in pop order; the CTA
-// is the only writer, so no atomics. NULL leaves the kernel as it was.
+// solve's provenance, tpusched/kernels/assign.py:484-487), thread 0 also
+// writes, for each victim it evicts, the pod's index and its step in pop
+// order; the CTA is the only writer, so no atomics. NULL leaves the
+// kernel as it was.
 #include <math.h>
 #include <limits.h>
 
