@@ -2406,7 +2406,7 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                                        or stats.read(progress)):
         key = base_rounds + r
         drained = torch.zeros((), dtype=torch.bool, device=dev)
-        drained_n = torch.zeros((), dtype=torch.int64, device=dev)
+        drained_n = 0          # the drain's placements (explain only)
         if S == 0:
             with stats.span("preempt drain"):
                 pend0 = (assigned < 0) & pods.valid
@@ -2431,7 +2431,8 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                 round_of = round_of.index_put((d64,), torch.where(
                     hit_d, key, round_of[d64]))
                 drained = hit_d.any()
-                drained_n = hit_d.sum()
+                if explain:
+                    drained_n = hit_d.sum()
         pend = (assigned < 0) & pods.valid & ~tried
         sel = _top_by_rank(pend, order, C)[0]
         s64, s32 = sel.long(), sel.to(torch.int32)
@@ -2572,7 +2573,8 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                 astats[r] = torch.stack([
                     real.sum(), (real & can_plain).sum(), pre_active.sum(),
                     claimed.sum(), keep_evict.sum(),
-                    (keep_all & ~takes_evict).sum(), drained_n,
+                    (keep_all & ~takes_evict).sum(),
+                    torch.as_tensor(drained_n, device=dev),
                     ev_round.sum(), spent, (real & ~could_bid).sum(),
                 ]).to(torch.float32)
         evicted = evicted2
