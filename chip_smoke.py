@@ -82,7 +82,7 @@ package, and
        victims + placed pods, in f64; victims only from nodes a
        preempted pod took; no gang member preempts; at least one
        eviction); then K4's preemption variant against that plain scan,
-       K15 against its plain version at the scan's state at (h)'s first
+       with and without its explain outputs (evictor, evict_pos), K15 against its plain version at the scan's state at (h)'s first
        8 preemptors (with the violation counts K15 leaves in its scratch
        equal to the plain tableau's; at least one PDB violation among
        them), and K4's pairwise preemption variant on (h) with spread
@@ -103,8 +103,7 @@ package, and
        eviction; then the auction kernels against their plain versions
        on the arguments of each cell's first auction round, exactly,
        timed with CUDA events and the profiler's kernel time, K6 at
-       K = 256 beside torch.topk; then fast (h) under JAX's main-round
-       rule with preemption against the port's former rule, in turns;
+       K = 256 beside torch.topk;
      - async forms: `solve_async`, `score_async` and
        `score_topk_async(k=8)` once each on (b), each equal to its
        synchronous form;
@@ -140,8 +139,7 @@ package, and
        parity), the probe's tallies partitioning the valid nodes of every
        real pod; the walls of the explained solve, the probe and the
        unexplained solve; K22's entry points against their plain
-       versions on (h) and (d) and K4's explain outputs against the
-       plain scan at 2 000 x 1 000, exactly;
+       versions on (h) and (d), exactly;
   5. prints per-stage time breakdowns of one steady parity and one
      steady fast solve (with the host-clock cost of the dealing
      prefixes in three forms), of one steady pairwise parity solve and
@@ -235,10 +233,8 @@ QUEUE_W = 1024
 QUEUE_WINDOWS = 20
 QUEUE_CHURN = 0.1
 # Cell (x): the explained solve and probe at k = 3 (kb = 4) on (h) in
-# both modes and on (d) in fast mode; K4's explain outputs against the
-# plain scan at bench.py:428-430's 2 000 x 1 000.
+# both modes and on (d) in fast mode.
 EXPLAIN_K = 3
-K4X_SIZE = (2000, 1000)
 
 # (name, wrapper, its launch counter, source, the JAX function it
 # replaces). A variant of a kernel (K5's relaxed output, K7's fixed point,
@@ -503,12 +499,14 @@ def audit(name: str, cfg: EngineConfig, dsnap, res, hook=None) -> dict:
         states[:] = [out]
         return out
 
-    def record_pre(*args):
+    def record_pre(*args, explain=False):
+        # The plain scan finds each victim's evictor either way: keep
+        # them, so that K4's explain outputs are held at this size too.
         t0 = time.perf_counter()
-        out = kassign.parity_scan_preempt_plain(*args)
+        out = kassign.parity_scan_preempt_plain(*args, explain=True)
         torch.cuda.synchronize()
         pre_scans.append((args, out, (time.perf_counter() - t0) * 1e3))
-        return out
+        return out if explain else out[:4]
 
     ops = dataclasses.replace(
         plain, parity_scan_pair=record, pair_commit=last_state,
@@ -1460,15 +1458,21 @@ def gang_phase(cells, label: str, want: tuple[str, ...], smi: str) -> dict:
 def preempt_kernel_phase(cfg: EngineConfig, dsnap, plain_scan,
                          steps) -> dict:
     """K4's preemption variant against the (h) audit's plain scan (run
-    once), and K15 against its plain version on the scan's state at (h)'s
-    first preemptors (the plain scan's first preempt_step_plain calls),
+    once), without and with its explain outputs (evictor, evict_pos),
+    and K15 against its plain version on the scan's state at (h)'s first
+    preemptors (the plain scan's first preempt_step_plain calls),
     exactly, with the violation counts K15 leaves in its scratch equal to
     the plain tableau's; times and bounds."""
     out = {}
     nodes, pods = dsnap.nodes, dsnap.pods
-    args4, want4, plain_ms = plain_scan
+    args4, want6, plain_ms = plain_scan
     got4 = kassign.parity_scan_preempt(*args4)
-    err = require_equal("parity_scan_preempt", got4, want4)
+    err = require_equal("parity_scan_preempt", got4, want6[:4])
+    got6 = kassign.parity_scan_preempt(*args4, explain=True)
+    err_x = require_equal("parity_scan_preempt (explain)", got6, want6)
+    if not (got6[3].any() and torch.equal(got6[4] >= 0, got6[3])):
+        raise AssertionError("K4 explain: the evictors do not cover the "
+                             "evictions")
     _, _, static, order, pctx = args4
     P, N = static.mask.shape
     M, R = pctx.req_s.shape
@@ -1480,17 +1484,26 @@ def preempt_kernel_phase(cfg: EngineConfig, dsnap, plain_scan,
     b4 = nbytes(static.mask, static.score, nodes.allocatable, nodes.used,
                 pods.requests, static.w_lr, static.w_ba, static.w_ts,
                 static.w_ia, static.rw, *got4) + 4 * P + vic_bytes
+    ops4 = P * N * (R * 14 + 12) + searches * M * (3 * R + 12)
     scan_ms = cuda_ms(lambda: kassign.parity_scan_preempt(*args4), 3)
     no_pre_ms = cuda_ms(lambda: kassign.parity_scan(cfg, dsnap, static,
                                                     order), 3)
+    shape = (f"P={P} N={N} R={R} M={M}, {searches} K15 searches, "
+             f"{int(got4[3].sum())} evicted")
     out["parity_scan_preempt"] = dict(
-        err=err, ms=scan_ms, plain_ms=plain_ms,
-        bound=bound(b4, P * N * (R * 14 + 12) + searches * M * (3 * R + 12)),
-        shape=f"P={P} N={N} R={R} M={M}, {searches} K15 searches, "
-              f"{int(got4[3].sum())} evicted; K4 without preemption on the "
-              f"same inputs {no_pre_ms:.3f} ms, so "
+        err=err, ms=scan_ms, plain_ms=plain_ms, bound=bound(b4, ops4),
+        shape=f"{shape}; K4 without preemption on the same inputs "
+              f"{no_pre_ms:.3f} ms, so "
               f"{(scan_ms - no_pre_ms) * 1e3 / max(searches, 1):.2f} us a "
               "search inside the scan")
+    # The plain scan computes the evictors in every call, so one plain
+    # time serves both rows.
+    out["parity_scan_preempt_explain"] = dict(
+        err=err_x, plain_ms=plain_ms,
+        ms=cuda_ms(lambda: kassign.parity_scan_preempt(*args4, explain=True),
+                   3),
+        bound=bound(b4 + nbytes(*got6[4:]), ops4),
+        shape=f"{shape}; without the explain outputs {scan_ms:.3f} ms")
     errs, viols = 0.0, 0
     for a, _ in steps:
         scratch = kpre.victim_scratch(M, R, nodes.valid.device)
@@ -1820,47 +1833,6 @@ def fast_preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
             for kname, r in kp.items():
                 rows[kname]["err"] = max(rows[kname]["err"], r["err"])
     return launches, rows
-
-
-def tranche_rule_twin(snap_h, smi: str) -> None:
-    """Fast (h) under JAX's main-round rule with preemption (no
-    full-width round 1, tranches of 2 rounds; ROADMAP C6) against the
-    rule the port had before it followed JAX's (round 1, tranches of 4),
-    in turns (former, JAX's, JAX's, former), three solves a turn after a
-    warm-up of each: the walls' medians, rounds, host reads, placed and
-    evicted. Measurement only: the former rule runs by handing the main
-    rounds a config with preemption off."""
-    cfg = EngineConfig(mode="fast", preemption=True)
-    eng = Engine(cfg)
-    dsnap = eng.put(snap_h)
-    jax_rule = kassign._solve_rounds_nosig
-
-    def former(cfg_, *a, **kw):
-        return jax_rule(dataclasses.replace(cfg_, preemption=False), *a,
-                        **kw)
-
-    runs = {"former": [], "JAX's": []}
-    try:
-        for rule in ("former", "JAX's", "JAX's", "former"):
-            kassign._solve_rounds_nosig = (former if rule == "former"
-                                           else jax_rule)
-            if not runs[rule]:
-                eng.solve(dsnap)
-            for _ in range(3):
-                res, ms = timed(lambda: eng.solve(dsnap))
-                runs[rule].append((ms, res.rounds, res.host_reads,
-                                   int((res.assignment >= 0).sum()),
-                                   int(res.evicted.sum())))
-    finally:
-        kassign._solve_rounds_nosig = jax_rule
-        eng.close()
-    log("fast (h) main-round rule twin (in turns former, JAX's, JAX's, "
-        "former; 6 solves each): " + "; ".join(
-            f"{rule} rule median {statistics.median(r[0] for r in v):.3f} "
-            f"ms (min {min(r[0] for r in v):.3f}, max "
-            f"{max(r[0] for r in v):.3f}), rounds {v[0][1]}, host reads "
-            f"{v[0][2]}, placed {v[0][3]}, evicted {v[0][4]}"
-            for rule, v in runs.items()) + f"; {smi}")
 
 
 def timed(fn):
@@ -2284,50 +2256,6 @@ def explain_kernel_rows(cfg: EngineConfig, dsnap, kb: int) -> dict:
     return rows
 
 
-def k4_explain_row() -> dict:
-    """K4's preemption variant with its explain outputs against the plain
-    scan (explain outputs too), exactly, at K4X_SIZE; times and bound."""
-    P0, N0 = K4X_SIZE
-    snap, _ = config5_preemption(np.random.default_rng(PRE_SEED), P0, N0)
-    cfg = EngineConfig(mode="parity", preemption=True)
-    eng = Engine(cfg)
-    dsnap = eng.put(snap)
-    eng.close()
-    static = kassign.precompute_static(cfg, dsnap, _sat_tables(dsnap)[0])
-    order = kassign.pop_order(cfg, dsnap)
-    pctx = kpre.precompute(cfg, dsnap)
-    args = (cfg, dsnap, static, order, pctx)
-    got = kassign.parity_scan_preempt(*args, explain=True)
-    (want, plain_ms) = timed(
-        lambda: kassign.parity_scan_preempt_plain(*args, explain=True))
-    err = require_equal("parity_scan_preempt (explain)", got, want)
-    require_equal("parity_scan_preempt (explain off)", got[:4],
-                  kassign.parity_scan_preempt(*args))
-    ev = got[3]
-    if not (ev.any() and torch.equal(got[4] >= 0, ev)):
-        raise AssertionError("K4 explain: evictors do not cover the "
-                             "evictions")
-    nodes, pods = dsnap.nodes, dsnap.pods
-    P, N = static.mask.shape
-    M, R = pctx.req_s.shape
-    placed = got[0] >= 0
-    searches = int((placed & torch.isinf(got[1])).sum()
-                   + (pods.valid & (pods.group < 0) & ~placed).sum())
-    b = nbytes(static.mask, static.score, nodes.allocatable, nodes.used,
-               pods.requests, static.w_lr, static.w_ba, static.w_ts,
-               static.w_ia, static.rw, *got) + 4 * P + nbytes(
-        pctx.perm, pctx.node_s, pctx.seg_start, pctx.cost_s, pctx.vprio_s,
-        pctx.req_s, pctx.pdb_s)
-    ms = cuda_ms(lambda: kassign.parity_scan_preempt(*args, explain=True), 3)
-    off_ms = cuda_ms(lambda: kassign.parity_scan_preempt(*args), 3)
-    return dict(err=err, ms=ms, plain_ms=plain_ms,
-                bound=bound(b, P * N * (R * 14 + 12)
-                            + searches * M * (3 * R + 12)),
-                shape=f"P={P} N={N} M={M}, {searches} K15 searches, "
-                      f"{int(ev.sum())} evicted; without the explain "
-                      f"outputs {off_ms:.3f} ms")
-
-
 def explain_phase(snap_h, snap_d, smi: str) -> tuple[dict, dict]:
     """Cell (x): `Engine.solve_explained(k=3)` on (h) fast and parity
     with preemption and on (d) fast (counters zeroed just before, read
@@ -2336,9 +2264,9 @@ def explain_phase(snap_h, snap_d, smi: str) -> tuple[dict, dict]:
     summing to the evicted count (fast) or all zero (parity), its probe's
     tallies partitioning the valid nodes of every real pod; the walls of
     the explained solve, the probe alone and the unexplained solve; then
-    K22's entry points against their plain versions on (h) and (d), and
-    K4's explain outputs against the plain scan at 2 000 x 1 000.
-    Returns (the phase's launch counts, the kernel rows)."""
+    K22's entry points against their plain versions on (h) and (d) (K4's
+    explain outputs are held in the preemption phase, against the (h)
+    audit's plain scan). Returns (the phase's launch counts, the kernel rows)."""
     cells = (("h fast", EngineConfig(mode="fast", preemption=True), snap_h),
              ("h parity", EngineConfig(mode="parity", preemption=True),
               snap_h),
@@ -2413,12 +2341,6 @@ def explain_phase(snap_h, snap_d, smi: str) -> tuple[dict, dict]:
                     rows[kname]["err"] = max(rows[kname]["err"], r["err"])
                 else:
                     rows[kname] = r
-    r = k4_explain_row()
-    log(f"kernel parity_scan_preempt_explain [{r['shape']}]: exact match "
-        f"with the plain scan, kernel {r['ms']:.3f} ms, plain "
-        f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
-        f"({r['bound'][1]}); {smi}")
-    rows["parity_scan_preempt_explain"] = r
     return phase_counts, rows
 
 
@@ -2648,7 +2570,6 @@ def main() -> int:
     for k, v in phase_counts.items():
         launches[k] += v
     kp.update(kp_auction)
-    tranche_rule_twin(snap_h, smi)
 
     # -- the warm lineage (w) and the async forms ------------------------------
     async_phase(snap_b, smi)

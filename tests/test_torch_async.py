@@ -125,6 +125,7 @@ def test_result_timeout(engines):
 
 
 def test_explained_form_refuses_legibly(engines):
+    """The explained form answers; its solve equals the unexplained one."""
     jsnap, snap = _snaps("plain")
     for eng in engines.values():
         p_solve, p_probe = eng.solve_explained_async(snap, 3)

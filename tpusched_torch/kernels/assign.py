@@ -792,9 +792,6 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
     dev = order.device
     pctx = kpre.precompute(cfg, snap) if cfg.preemption and M else None
     evicted = torch.zeros(M, dtype=torch.bool, device=dev)
-    # K4's explain outputs only when asked: the unexplained call is the
-    # one it always was.
-    kw = {"explain": True} if explain else {}
     more = ()
     st = dom_s = None
     if snap.sigs.key.shape[0] > 0:
@@ -807,12 +804,12 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
         else:
             assigned, chosen, used, st, evicted, *more = (
                 ops.parity_scan_pair_preempt(cfg, snap, static, order, st0,
-                                             dom_s, pctx, **kw))
+                                             dom_s, pctx, explain=explain))
     elif pctx is None:
         assigned, chosen, used = ops.parity_scan(cfg, snap, static, order)
     else:
         assigned, chosen, used, evicted, *more = ops.parity_scan_preempt(
-            cfg, snap, static, order, pctx, **kw)
+            cfg, snap, static, order, pctx, explain=explain)
     used, assigned, chosen, _, rolled = gang_rollback(
         snap, used, assigned, chosen, st, static.sig_match, dom_s, ops)
     if not explain:
