@@ -140,10 +140,25 @@ package, and
        real pod; the walls of the explained solve, the probe and the
        unexplained solve; K22's entry points against their plain
        versions on (h) and (d), exactly;
+     - the tenant batch (t) (eight config-2 clusters of 3 000 - 50 b
+       pods on 1 500 nodes with (b)'s constraints, under one bucket
+       floor without signatures): `tenants.solve_many` in parity and
+       fast mode and seeded parity, each launching K1-K3 and K4 (or
+       K5-K8, K23, K24) once for all tenants per call, its first wall
+       and the median of 5 against the eight solo solves on the card,
+       host reads against their sum, each tenant equal to its solo
+       solve in all six outputs and valid, the batch equal to its
+       plain-version twin (parity and fast, host reads too); K4 over
+       the tenant axis against one tenant's K4; K23 and K24 on their
+       first call's arguments against their plain versions, beside
+       torch.cumsum with searchsorted and with a scatter;
+     - every fast cell of PR8_FAST keeps PR 8's placed count and host
+       reads;
   5. prints per-stage time breakdowns of one steady parity and one
-     steady fast solve (with the host-clock cost of the dealing
-     prefixes in three forms), of one steady pairwise parity solve and
-     one steady fast pairwise solve on (d), a JSON line with every
+     steady fast solve (with the host-clock cost of the dealing in
+     three forms: K23, its plain version, torch.cumsum + searchsorted),
+     of one steady pairwise parity solve and one steady fast pairwise
+     solve on (d), a JSON line with every
      kernel's numbers, and, last, the device JSON line.
 
 Any failure raises and the exit code is not 0. Without a CUDA device it
@@ -163,7 +178,7 @@ import numpy as np
 import torch
 
 from tpusched_torch import _build
-from tpusched_torch.config import EngineConfig
+from tpusched_torch.config import Buckets, EngineConfig
 from tpusched_torch.device_state import DeviceSnapshot
 from tpusched_torch.device_state import DeviceQueue
 from tpusched_torch.engine import (
@@ -183,6 +198,7 @@ from tpusched_torch.kernels import preempt as kpre
 from tpusched_torch.kernels import queue as kq
 from tpusched_torch.kernels.atoms import atom_sat, atom_sat_plain
 from tpusched_torch.qos import effective_priority, effective_weights, pressure_of
+from tpusched_torch.tenants import solve_many, stack_snapshots
 from tpusched_torch.synth import (
     config2_scale,
     config3_pairwise,
@@ -235,6 +251,20 @@ QUEUE_CHURN = 0.1
 # Cell (x): the explained solve and probe at k = 3 (kb = 4) on (h) in
 # both modes and on (d) in fast mode.
 EXPLAIN_K = 3
+# Cell (t): a sidecar serving eight mid-size clusters (tpusched/tenants.py
+# :8-11). Tenant b is config2_scale(rng(60 + b), 3000 - 50 b pods, 1500
+# nodes) with QoS and cell (b)'s constraint mix, all under one Buckets
+# floor without signatures (P = 3 072, N = 1 536), solved by
+# tenants.solve_many in both modes and once with the seeded tie-break.
+TENANTS = 8
+TENANT_SEED = 60
+TENANT_PODS, TENANT_STEP, TENANT_NODES = 3000, 50, 1500
+# PR 8's fast placed counts and host reads, which the dealing and the
+# tranche pick as kernels (K23, K24, same bits as the torch code they
+# replace) must keep.
+PR8_FAST = {"a": (10000, 26), "b": (9942, 64), "c": (10000, 26),
+            "fast d": (9231, 46), "fast d seeded": (9231, 46),
+            "h fast": (9995, 514)}
 
 # (name, wrapper, its launch counter, source, the JAX function it
 # replaces). A variant of a kernel (K5's relaxed output, K7's fixed point,
@@ -315,6 +345,10 @@ KERNELS = (
     ("parity_scan_preempt_explain", kassign.parity_scan_preempt,
      "explain_launches", "tpusched_torch/csrc/scan.cu",
      "tpusched/kernels/assign.py:485"),
+    ("deal", kassign.deal, "launches", "tpusched_torch/csrc/dealing.cu",
+     "tpusched/kernels/assign.py:815"),
+    ("top_by_rank", kassign.top_by_rank, "launches",
+     "tpusched_torch/csrc/tranche.cu", "tpusched/kernels/assign.py:996"),
 )
 # Kernels whose counters the main path leaves at 0, and why; each is
 # held against its plain version at full size in the kernel phase.
@@ -337,13 +371,19 @@ ONCE = ("tableau_cells", "finalize_static", "parity_scan", "sig_match",
         "pair_counts", "pairwise_batch", "parity_scan_pair",
         "parity_scan_preempt", "parity_scan_pair_preempt")
 FAST_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
-                "row_topk", "desirability", "prefix_commit")
+                "row_topk", "desirability", "prefix_commit", "deal",
+                "top_by_rank")
 FAST_PAIR_KERNELS = FAST_KERNELS + (
     "sig_match", "pair_counts", "pairwise_batch", "waterfill", "excess_min",
     "excess_survive", "ia_ok_at_choice", "pair_commit", "node_add",
     "desirability_fixed", "pairwise_batch_ia_ok", "cycle_relaxed")
 FAST_PAIR_ONCE = ("tableau_cells", "finalize_static", "sig_match",
                   "pair_counts")
+# Kernels a request may leave idle though its path has them: K24 picks a
+# tranche (or a compacted view) only while pods are still pending once
+# the full-width rounds end (fast (e) never compacts). Each must still
+# launch on the main path as a whole, and (t)'s fast batch requires it.
+OPTIONAL = ("top_by_rank",)
 SCORE_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
                  "row_topk")
 # The gang gate reverts through K8's node_add.
@@ -1039,7 +1079,7 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order) -> dict:
         err=err, ms=cuda_ms(lambda: kassign.prefix_commit(*args8), 10),
         plain_ms=cuda_ms(lambda: kassign.prefix_commit_plain(*args8), 3),
         bound=bound(b8, ops8),
-        shape=f"P={perm.shape[0]} R={R} active={active} "
+        shape=f"P={perm.shape[-1]} R={R} active={active} "
               f"committed={committed}")
     return out
 
@@ -1258,19 +1298,19 @@ def fast_breakdown(engine: Engine, snap) -> dict:
     host_ms = (time.perf_counter() - t1) * 1e3
     spans = stats.ms()
     n = stats.counts()
-    # The dealing prefixes, once per K7 call, in three forms on the
-    # snapshot's [P, R] requests and [N, R] capacity: the one fixed scan
-    # the solve runs, the same order as two scans, and two torch.cumsum
-    # calls (f32 bits that depend on the device; timing only).
+    # The dealing, once per K7 call, in three forms on the snapshot's
+    # [P, R] requests and [N, R] capacity: K23, which the solve runs, its
+    # plain version (the torch code it replaced) and torch.cumsum with
+    # torch.searchsorted (f32 bits that depend on the device; timing
+    # only).
     dem, rem = dsnap.pods.requests, dsnap.nodes.allocatable
     forms = {
-        "one _deal_prefixes scan": lambda: kassign._deal_prefixes(dem, rem),
-        "two _scan_plain": lambda: (kassign._scan_plain(dem),
-                                    kassign._scan_plain(rem)),
-        "two torch.cumsum": lambda: (torch.cumsum(dem, 0),
-                                     torch.cumsum(rem, 0)),
+        "K23 deal": lambda: kassign.deal(dem, rem),
+        "plain deal (Hillis-Steele + searchsorted)":
+            lambda: kassign.deal_plain(dem, rem),
+        "torch.cumsum + searchsorted": lambda: deal_library(dem, rem),
     }
-    prefix = {f"dealing prefixes per call, {k} (host clock)":
+    prefix = {f"dealing per call, {k} (host clock)":
               host_clock_ms(f, 20) for k, f in forms.items()}
     total = ev[0].elapsed_time(ev[1])
     loops = sum(spans.get(k, 0.0) for k in (
@@ -1290,18 +1330,32 @@ def fast_breakdown(engine: Engine, snap) -> dict:
 
 def check_launches(name: str, moved: dict, want: tuple[str, ...],
                    has_atoms: bool, calls: int = 1,
-                   once: tuple[str, ...] = ONCE) -> None:
-    """Each kernel of the path launched (K1 only with atoms to match),
-    no other kernel; the set-up kernels (`once`) once per entry-point
-    call (K1 twice with signatures)."""
+                   once: tuple[str, ...] = ONCE,
+                   optional: tuple[str, ...] = OPTIONAL) -> None:
+    """Each kernel of the path launched (K1 only with atoms to match;
+    the `optional` ones may stay idle), no other kernel; the set-up
+    kernels (`once`) once per entry-point call (K1 twice with
+    signatures)."""
     k1_calls = 2 if "sig_match" in want else 1
     for k, n in moved.items():
         need = k in want and (k != "atom_sat" or has_atoms)
         most = (k1_calls * calls if k == "atom_sat"
                 else calls if k in once else None)
-        if (need and n < 1) or (not need and n) or (most and n > most):
+        if ((need and n < 1 and k not in optional) or (not need and n)
+                or (most and n > most)):
             raise AssertionError(f"{name}: kernel {k} launched {n} times "
                                  f"(launches {moved})")
+
+
+def keep_pr8(name: str, res) -> None:
+    """A fast cell of PR8_FAST places as many pods with as many host
+    reads as in PR 8: the dealing and the tranche pick moved into
+    kernels without changing a bit."""
+    if name in PR8_FAST:
+        got = (int((res.assignment >= 0).sum()), res.host_reads)
+        if got != PR8_FAST[name]:
+            raise AssertionError(f"fast {name}: placed and host reads {got}, "
+                                 f"PR 8 {PR8_FAST[name]}")
 
 
 def solve_phase(label: str, requests, want: tuple[str, ...],
@@ -1767,6 +1821,7 @@ def fast_preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
         for k, v in phase_counts.items():
             launches[k] = launches.get(k, 0) + v
         _, _, _, res, wall_ms, moved = results[0]
+        keep_pr8(name.split(":")[0], res)
         eng = Engine(cfg)
         walls = []
         for _ in range(5):
@@ -2344,6 +2399,224 @@ def explain_phase(snap_h, snap_d, smi: str) -> tuple[dict, dict]:
     return phase_counts, rows
 
 
+def deal_library(dem, rem, gather=None):
+    """K23's function in library calls, a yardstick only: torch.cumsum of
+    the columns (a parallel scan on CUDA, another order of f32 adds) and
+    R torch.searchsorted calls over the tenant rows."""
+    cd = torch.cumsum(dem, dim=-2)
+    if gather is not None:
+        cd = cd.gather(-2, gather[..., None].expand(*gather.shape,
+                                                    dem.shape[-1]))
+    cr = torch.cumsum(rem, dim=-2)
+    pos = torch.zeros(cd.shape[:-1], dtype=torch.int64, device=dem.device)
+    for r in range(dem.shape[-1]):
+        pos = torch.maximum(pos, torch.searchsorted(
+            cr[..., r].contiguous(), cd[..., r].contiguous()))
+    return pos
+
+
+def top_by_rank_library(pend, order, C):
+    """K24's function in library calls, a yardstick only: torch.cumsum of
+    the int flags in pop order, then one scatter of the slots."""
+    pend_rm = pend.gather(-1, order)
+    cpend = torch.cumsum(pend_rm.to(torch.int32), dim=-1)
+    cnon = torch.cumsum((~pend_rm).to(torch.int32), dim=-1)
+    n_pend = cpend[..., -1:]
+    slot = torch.where(pend_rm, cpend - 1, n_pend + cnon - 1).long()
+    P = order.shape[-1]
+    buf = torch.zeros(order.shape[:-1] + (P + 1,), dtype=order.dtype,
+                      device=order.device)
+    buf.scatter_(-1, torch.where(slot < C, slot, P), order)
+    return buf[..., :C], n_pend[..., 0]
+
+
+def tenant_cells() -> list:
+    """Cell (t)'s tenants (snapshot, meta), drawn twice: on their own
+    buckets, then under the elementwise max of those without
+    signatures, so that they stack."""
+    def draw(b, **kw):
+        return config2_scale(np.random.default_rng(TENANT_SEED + b),
+                             TENANT_PODS - TENANT_STEP * b, TENANT_NODES,
+                             with_qos=True, **CONSTRAINED, **kw)
+
+    floor = {}
+    for b in range(TENANTS):
+        for f, v in dataclasses.asdict(draw(b)[1].buckets).items():
+            floor[f] = max(floor.get(f, 0), v)
+    floor["signatures"] = 0
+    return [draw(b, buckets=Buckets(**floor)) for b in range(TENANTS)]
+
+
+def batch_wall(cfg, dstack, ops=kassign.KERNELS, stats=None):
+    """(solve_many's six outputs read back to the host, host-clock ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [t.cpu() for t in solve_many(cfg, dstack, ops=ops, stats=stats)]
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def tenant_kernel_rows(cfg, dstack) -> dict:
+    """K23 and K24 against their plain versions and their library
+    yardsticks, on the arguments of their first call in the fast batch
+    (round 1's dealing over the tenant rows at their ranks, the first
+    tranche's pick)."""
+    calls = {}
+
+    def recorder(name, fn):
+        def rec(*args):
+            calls.setdefault(name, args)
+            return fn(*args)
+        return rec
+
+    ops = dataclasses.replace(
+        kassign.KERNELS, deal=recorder("deal", kassign.deal),
+        top_by_rank=recorder("top_by_rank", kassign.top_by_rank))
+    solve_many(cfg, dstack, ops=ops)
+    rows = {}
+    dem, rem, gather = calls["deal"]
+    got = kassign.deal(dem, rem, gather)
+    err = require_equal("deal", [got], [kassign.deal_plain(dem, rem, gather)])
+    B, L, R = dem.shape
+    N, P = rem.shape[1], gather.shape[1]
+    steps = lambda n: max(1, (n - 1).bit_length())  # noqa: E731
+    rows["deal"] = dict(
+        err=err, ms=cuda_ms(lambda: kassign.deal(dem, rem, gather), 20),
+        prof_ms=profiler_ms(lambda: kassign.deal(dem, rem, gather),
+                            "deal_s"),
+        plain_ms=cuda_ms(lambda: kassign.deal_plain(dem, rem, gather), 3),
+        library="torch.cumsum + searchsorted",
+        library_ms=cuda_ms(lambda: deal_library(dem, rem, gather), 20),
+        bound=bound(nbytes(dem, rem, gather, got),
+                    B * R * (L * steps(L) + N * steps(N) + P * steps(N))),
+        shape=f"B={B} L={L} N={N} R={R} P={P}, rank gather",
+        placed_at=int((got < N).sum().item()))
+    pend, order, C = calls["top_by_rank"]
+    got = kassign.top_by_rank(pend, order, C)
+    err = require_equal("top_by_rank", got,
+                        kassign.top_by_rank_plain(pend, order, C))
+    B, P = pend.shape
+    rows["top_by_rank"] = dict(
+        err=err, ms=cuda_ms(lambda: kassign.top_by_rank(pend, order, C), 20),
+        prof_ms=profiler_ms(lambda: kassign.top_by_rank(pend, order, C),
+                            "top_by_rank_kernel"),
+        plain_ms=cuda_ms(lambda: kassign.top_by_rank_plain(pend, order, C),
+                         3),
+        library="torch.cumsum + scatter",
+        library_ms=cuda_ms(lambda: top_by_rank_library(pend, order, C), 20),
+        bound=bound(nbytes(pend, order, *got), B * P * 3),
+        shape=f"B={B} P={P} C={C}, {int(got[1].sum().item())} pending")
+    return rows
+
+
+def tenant_phase(smi: str) -> tuple[dict, dict]:
+    """Cell (t): `solve_many` over eight tenants in parity and fast mode
+    and once seeded in parity mode (counters zeroed just before, read
+    just after: every kernel of the path launched, the static kernels
+    and K4 once for all tenants); the first wall and the median of 5
+    against the sum of the eight solo walls on the card, host reads
+    against the solo sum; each tenant equal to its solo solve on the card
+    in all six outputs, with the validity audit; the batch equal to its
+    plain-version twin on the card (host reads too; the plain batches
+    run once, not for the seeded run); K4 over the tenant axis against
+    one tenant's K4; then K23 and K24 against their plain versions.
+    Returns (the phase's launch counts, the K23 and K24 rows)."""
+    t0 = time.perf_counter()
+    built = tenant_cells()
+    snaps = [s for s, _ in built]
+    dstack = stack_snapshots(snaps).to("cuda")
+    B, P = dstack.pods.valid.shape
+    N = dstack.nodes.valid.shape[1]
+    bk = built[0][1].buckets
+    log(f"tenant snapshots (t) built and stacked on the host, then put on "
+        f"the card: {time.perf_counter() - t0:.3f} s; B={B} P={P} N={N} "
+        f"M={bk.running_pods} A={bk.atoms} S={bk.signatures}; "
+        f"{sum(m.n_pods for _, m in built)} pods on "
+        f"{sum(m.n_nodes for _, m in built)} nodes")
+    cells = (("t parity", EngineConfig(mode="parity"), PARITY_KERNELS),
+             ("t fast", EngineConfig(mode="fast"), FAST_KERNELS),
+             ("t parity seeded", EngineConfig(
+                 mode="parity", tie_break="seeded", tie_seed=SEED),
+              PARITY_KERNELS))
+    launches = {}
+    for name, cfg, want in cells:
+        zero_counts()
+        stats = kassign.RoundStats()
+        out, first_ms = batch_wall(cfg, dstack, stats=stats)
+        moved = counts()
+        check_launches(name, moved, want, dstack.atoms.key.shape[-1] > 0,
+                       optional=())
+        for k, v in moved.items():
+            launches[k] = launches.get(k, 0) + v
+        walls = [batch_wall(cfg, dstack)[1] for _ in range(5)]
+        static = kassign.precompute_static(cfg, dstack,
+                                           _sat_tables(dstack)[0])
+        mask = static.mask.cpu().numpy()
+        eng = Engine(cfg)
+        solo_ms, solo_reads, placed = [], 0, 0
+        for b, snap in enumerate(snaps):
+            ds = eng.put(snap)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = eng.solve(ds)
+            solo_ms.append((time.perf_counter() - t1) * 1e3)
+            solo_reads += res.host_reads
+            a, c, u, o, rounds, ev = (t[b].numpy() for t in out)
+            for field, got in (("assignment", a), ("chosen_score", c),
+                               ("final_used", u), ("order", o),
+                               ("evicted", ev)):
+                if not np.array_equal(got, getattr(res, field)):
+                    raise AssertionError(f"{name} tenant {b}: {field} "
+                                         "differs from its solo solve")
+            if int(rounds) != res.rounds:
+                raise AssertionError(f"{name} tenant {b}: {int(rounds)} "
+                                     f"rounds, solo {res.rounds}")
+            placed += validity(f"{name} tenant {b}", cfg, ds, res,
+                               mask[b])["placed"]
+        eng.close()
+        plain = "the plain batch not run (seeded)"
+        if name != "t parity seeded":
+            pstats = kassign.RoundStats()
+            want_out, plain_ms = batch_wall(cfg, dstack, kassign.PLAIN,
+                                            pstats)
+            for g, w in zip(out, want_out):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{name}: the batch differs from "
+                                         "its plain-version twin")
+            if pstats.host_reads != stats.host_reads:
+                raise AssertionError(f"{name}: {stats.host_reads} host "
+                                     f"reads, the plain batch "
+                                     f"{pstats.host_reads}")
+            plain = f"equal to the plain batch ({plain_ms:.1f} ms)"
+        log(f"tenant batch {name}: solve_many over {B} tenants {first_ms:.3f}"
+            f" ms first call, median of 5 {statistics.median(walls):.3f} ms "
+            f"wall; the {B} solo solves on the card {sum(solo_ms):.3f} ms "
+            f"together (each {', '.join(f'{m:.2f}' for m in solo_ms)}); "
+            f"host reads {stats.host_reads}, solo sum {solo_reads}; rounds "
+            f"{out[4].tolist()}; placed {placed}; launches {moved}; every "
+            f"tenant equal to its solo solve in all six outputs, validity "
+            f"clean, {plain}; {smi}")
+    cfg = cells[0][1]
+    static = kassign.precompute_static(cfg, dstack, _sat_tables(dstack)[0])
+    order = kassign.pop_order(cfg, dstack)
+    k4_batch = cuda_ms(lambda: kassign.parity_scan(cfg, dstack, static,
+                                                   order), 3)
+    snap0, static0 = dstack.tenant(0), static.tenant(0)
+    k4_solo = cuda_ms(lambda: kassign.parity_scan(cfg, snap0, static0,
+                                                  order[0]), 3)
+    log(f"K4 over the tenant axis: {B} CTAs {k4_batch:.3f} ms, one tenant "
+        f"{k4_solo:.3f} ms (x{B} = {B * k4_solo:.3f} ms); {smi}")
+    rows = tenant_kernel_rows(cells[1][1], dstack)
+    for kname, r in rows.items():
+        prof = ("not measured" if r["prof_ms"] is None
+                else f"{r['prof_ms']:.4f} ms")
+        log(f"kernel {kname} on (t)'s fast batch [{r['shape']}]: exact "
+            f"match, kernel {r['ms']:.4f} ms (CUDA events; profiler kernel "
+            f"time {prof}), plain {r['plain_ms']:.4f} ms, "
+            f"{r['library']} {r['library_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}); {smi}")
+    return launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port "
@@ -2434,6 +2707,7 @@ def main() -> int:
         launches[k] += v
     for name, cfg, snap, res, wall_ms, moved in fast:
         info = audit(f"fast {name}", cfg, engine.put(snap), res)
+        keep_pr8(name.split(":")[0], res)
         log(f"fast solve {name}: {wall_ms:.3f} ms wall, placed "
             f"{info['placed']}/{info['valid_pods']} (parity placed "
             f"{parity_placed[name]}), rounds {res.rounds}, host reads "
@@ -2489,6 +2763,7 @@ def main() -> int:
         launches[k] += v
     for name, cfg, snap, res, wall_ms, moved in fast_pair:
         info = audit(name, cfg, engine.put(snap), res)
+        keep_pr8(name.split(":")[0], res)
         log(f"fast pairwise solve {name}: {wall_ms:.3f} ms wall, placed "
             f"{info['placed']}/{info['valid_pods']}, rounds {res.rounds}, "
             f"host reads {res.host_reads}, launches {moved}, audit clean, "
@@ -2580,7 +2855,8 @@ def main() -> int:
 
     # -- the device queue (q) and decision provenance (x) -------------------
     for phase in (lambda: queue_phase(smi),
-                  lambda: explain_phase(snap_h, snap_d, smi)):
+                  lambda: explain_phase(snap_h, snap_d, smi),
+                  lambda: tenant_phase(smi)):
         phase_counts, rows = phase()
         for k, v in phase_counts.items():
             launches[k] += v

@@ -6,7 +6,11 @@ atomic adds of +-1.0 stay exact integers in any order; K12-K14 count,
 compare and take minima; K15's victim prefix sums follow its plain
 version's chunked Hillis-Steele order; K21's priority rounds its f64
 multiply-add once, as the plain version and the numpy oracle do; K22
-sums the six terms left to right, as its plain version does).
+sums the six terms left to right, as its plain version does; K23's
+prefixes take _scan_plain's Hillis-Steele order and its searches
+torch.searchsorted's bisection; K24's counts are integers). The tenant
+axis of K1-K8 and the batch (`solve_many`) are held the same way, and
+each tenant against its solo solve.
 
 These tests need a CUDA device and nvcc: without a card each one skips.
 The file imports nothing of JAX, so that it runs where the port runs:
@@ -19,12 +23,15 @@ tests.) `chip_smoke.py` makes the same comparisons at full size.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from tpusched_torch import Engine, EngineConfig
+from tpusched_torch import Engine, EngineConfig, solve_many, stack_snapshots
 from tpusched_torch import synth as tsynth
+from tpusched_torch.config import Buckets
 from tpusched_torch.engine import (
     _pack_solve,
     _sat_tables,
@@ -854,3 +861,140 @@ def test_explained_solve_on_the_card(cuda, mode):
     eng.close()
     assert res.evicted.any() and (exd.evictor[res.evicted] >= 0).all()
     assert probe.topk_idx.shape[1] == 3
+
+
+# -- the tenant axis (tenants.solve_many) ---------------------------------
+
+
+def _tenant_batch(cuda, B=3):
+    """B contended tenants of different sizes under one bucket floor
+    without signatures: (their snapshots, the stack on the card)."""
+    kw = dict(taint_frac=0.3, toleration_frac=0.3, selector_frac=0.3,
+              affinity_frac=0.3, cordon_frac=0.1, initial_utilization=0.5)
+
+    def draw(b, **x):
+        return tsynth.make_cluster(np.random.default_rng(30 + b), 40 + 8 * b,
+                                   12 + 2 * b, **kw, **x)
+
+    floor = {}
+    for b in range(B):
+        for f, v in dataclasses.asdict(draw(b)[1].buckets).items():
+            floor[f] = max(floor.get(f, 0), v)
+    floor["signatures"] = 0
+    snaps = [draw(b, buckets=Buckets(**floor))[0] for b in range(B)]
+    return snaps, stack_snapshots(snaps).to(cuda)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_k23_k24_equal_plain(cuda, B):
+    """K23 (with and without the rank gather) and K24 against their
+    plain versions at one and three tenants, and in the solo shapes: the
+    dealing on demand and capacity with ties, zero rows, -0.0 and +inf."""
+    rng = np.random.default_rng(B)
+    L, N, R = 300, 77, 3
+    dem = rng.integers(0, 5, (B, L, R)).astype(np.float32) * 0.37
+    dem[:, 5] = -0.0
+    rem = rng.integers(0, 9, (B, N, R)).astype(np.float32) * 0.37
+    rem[:, 3:9] = 0.0
+    rem[:, -1, 1] = np.inf
+    gather = np.stack([rng.permutation(L) for _ in range(B)])
+    dem, rem, gather = (torch.from_numpy(a).to(cuda)
+                        for a in (dem, rem, gather))
+    for g in (None, gather):
+        _equal([ka.deal(dem, rem, g)], [ka.deal_plain(dem, rem, g)])
+    _equal([ka.deal(dem[0], rem[0], gather[0])],
+           [ka.deal_plain(dem[0], rem[0], gather[0])])
+    P = 300
+    pend = torch.from_numpy(rng.random((B, P)) < 0.3).to(cuda)
+    order = torch.from_numpy(np.stack([rng.permutation(P)
+                                       for _ in range(B)])).to(cuda)
+    for C in (1, 64, P):
+        _equal(ka.top_by_rank(pend, order, C),
+               ka.top_by_rank_plain(pend, order, C))
+    _equal(ka.top_by_rank(pend[0], order[0], 64),
+           ka.top_by_rank_plain(pend[0], order[0], 64))
+
+
+def test_k1_to_k8_tenant_axis_equal_plain(cuda):
+    """K1-K8 over three tenants in one launch each against their plain
+    versions, which go tenant by tenant."""
+    _, snap = _tenant_batch(cuda)
+    cfg = EngineConfig(mode="fast")
+    args = (snap.atoms, snap.nodes.label_pairs, snap.nodes.label_keys,
+            snap.nodes.label_nums)
+    _equal([ka.atom_sat(*args)], [ka.atom_sat_plain(*args)])
+    sat = _sat_tables(snap)[0]
+    cells = ka._tableau_cells(snap, snap.pods, snap.nodes, sat)
+    _equal(cells, ka._tableau_cells_plain(snap, snap.pods, snap.nodes, sat))
+    static = _static(cfg, snap)
+    w = (cells[2], cells[3], snap.nodes.valid, static.w_lr, static.w_ba)
+    _equal([ka.finalize_score(*w)], [ka.finalize_score_plain(*w)])
+    for tie_break in ("first", "seeded"):
+        c4 = EngineConfig(tie_break=tie_break, tie_seed=5)
+        order = ka.pop_order(c4, snap)
+        _equal(ka.parity_scan(c4, snap, static, order),
+               ka.parity_scan_plain(c4, snap, static, order))
+    used = snap.nodes.used + 0.3 * snap.nodes.allocatable
+    c_args = (snap.nodes.allocatable, used, snap.pods.requests, static.mask,
+              static.score, static.w_lr, static.w_ba, static.w_ts, static.rw)
+    _equal(ka.cycle(*c_args), ka.cycle_plain(*c_args))
+    B, P = snap.pods.valid.shape
+    rows = torch.stack([torch.randperm(P, device=cuda)[:16]
+                        for _ in range(B)]).to(torch.int32)
+    pend = torch.rand((B, 16), device=cuda) < 0.7
+    _equal(ka.cycle(*c_args, rows=rows, pending=pend, masked=True),
+           ka.cycle_plain(*c_args, rows=rows, pending=pend, masked=True))
+    f, m = ka.cycle_plain(*c_args, pending=snap.pods.valid, masked=True)
+    ids = torch.arange(P, dtype=torch.int32, device=cuda).expand(B, P)
+    _equal(ka.row_topk(m, 8, True, 5, ids),
+           ka.row_topk_plain(m, 8, True, 5, ids))
+    allowed = f.any(dim=-1)
+    for fixed in (False, True):
+        _equal([ka.desirability(f, m, allowed, fixed)],
+               [ka.desirability_plain(f, m, allowed, fixed)])
+    calls = []
+
+    def record(*a):
+        calls.append(a)
+        return ka.prefix_commit(*a)
+
+    solve_many(cfg, snap, ops=dataclasses.replace(ka.KERNELS,
+                                                  prefix_commit=record))
+    assert calls and calls[0][0].shape[0] == B
+    for a in calls[:3]:
+        _equal(ka.prefix_commit(*a), ka.prefix_commit_plain(*a))
+
+
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_solve_many_on_the_card(cuda, mode, tie_break):
+    """The batch on the card equals its plain-version twin (host reads
+    included) and, tenant by tenant, the solo solve on the card; with a
+    tranche cap of 16 the batched rounds equal their plain twin too."""
+    snaps, stacked = _tenant_batch(cuda)
+    cfg = EngineConfig(mode=mode, tie_break=tie_break, tie_seed=7)
+    s1, s2 = ka.RoundStats(), ka.RoundStats()
+    got = solve_many(cfg, stacked, stats=s1)
+    _equal(got, solve_many(cfg, stacked, ops=ka.PLAIN, stats=s2))
+    assert s1.host_reads == s2.host_reads
+    eng = Engine(cfg)
+    for b, snap in enumerate(snaps):
+        res = eng.solve(snap)
+        a, c, u, o, rounds, ev = (t[b].cpu().numpy() for t in got)
+        np.testing.assert_array_equal(a, res.assignment)
+        np.testing.assert_array_equal(c, res.chosen_score)
+        np.testing.assert_array_equal(u, res.final_used)
+        np.testing.assert_array_equal(o, res.order)
+        np.testing.assert_array_equal(ev, res.evicted)
+        assert int(rounds) == res.rounds
+    eng.close()
+    if mode == "parity":
+        return
+    static = _static(cfg, stacked)
+    order = ka.pop_order(cfg, stacked)
+    rank = ka._rank_of(order)
+    B, P, N = static.mask.shape
+    runs = [ka._solve_rounds_nosig(cfg, stacked, static, rank, order,
+                                   2 * P + 8, ka._fallback_depth(N), cap=16,
+                                   ops=ops) for ops in (ka.KERNELS, ka.PLAIN)]
+    _equal(runs[0], runs[1])

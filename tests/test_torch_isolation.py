@@ -32,7 +32,8 @@ def test_port_imports_with_jax_blocked():
         "tpusched_torch.kernels.pairwise, tpusched_torch.kernels.preempt, "
         "tpusched_torch.engine, tpusched_torch.kernels.queue, "
         "tpusched_torch.kernels.explain, "
-        "tpusched_torch.synth, tpusched_torch.device_state\n"
+        "tpusched_torch.synth, tpusched_torch.device_state, "
+        "tpusched_torch.tenants\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpusched'))\n"
@@ -67,6 +68,21 @@ def test_engine_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(EngineConfig())
+
+
+def test_solve_many_without_cuda_raises(monkeypatch):
+    """The tenant batch, like the engine, runs on the card unless asked
+    for the CPU."""
+    from tpusched_torch import solve_many, stack_snapshots
+    from tpusched_torch.synth import make_cluster
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stacked = stack_snapshots([make_cluster(np.random.default_rng(0), 8,
+                                            4)[0]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve_many(EngineConfig(), stacked)
+    assert solve_many(EngineConfig(), stacked, device="cpu")[0].shape == (
+        1, stacked.pods.valid.shape[1])
 
 
 def test_device_queue_without_cuda_raises(monkeypatch):

@@ -1,0 +1,387 @@
+"""The multi-tenant batch of the port (`tpusched_torch.tenants`) on the
+CPU, where every kernel wrapper runs its plain version.
+
+`solve_many` over stacked snapshots is held to
+  * the port's own solo `Engine.solve` of each tenant, bit for bit in all
+    six outputs, in both modes and both tie-breaks (the batch's
+    contract);
+  * the JAX package's `solve_many` on the same snapshots: in parity mode
+    assignment, order, used, evicted and rounds exactly and chosen
+    within the JAX package's parity tolerance (rtol 1e-4, atol 1e-3:
+    XLA contracts the score's multiply-adds on the CPU, ROADMAP C1); in
+    fast mode, after the port's solo solve of each tenant is shown equal
+    to JAX's, assignment and rounds exactly and used within rtol 1e-6
+    (the commit adds' order, ROADMAP C6);
+and the tranche loop, uneven tenants (one with no valid pod, one with
+no placeable pod, tenants that finish at different rounds), the
+refusals, stacking, `zipf_weights` and the moved plain versions of the
+dealing (K23) and the tranche pick (K24).
+
+Tenants are built under one explicit `Buckets` floor with
+signatures=0: the signature bucket, not the count of real signatures,
+decides the path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tpusched import Engine as JEngine
+from tpusched import synth as jsynth
+from tpusched import tenants as jtenants
+from tpusched.config import Buckets as JBuckets
+from tpusched.config import EngineConfig as JConfig
+from tpusched.engine import _sat_tables as jax_sat_tables
+from tpusched.kernels import assign as jassign
+from tpusched_torch import Engine, EngineConfig, solve_many, stack_snapshots
+from tpusched_torch import synth as tsynth
+from tpusched_torch import tenants as ttenants
+from tpusched_torch.config import Buckets
+from tpusched_torch.engine import _sat_tables
+from tpusched_torch.kernels import assign as tassign
+from tpusched_torch.snapshot import snapshot_from_numpy
+
+MIX = dict(taint_frac=0.3, toleration_frac=0.3, affinity_frac=0.3,
+           selector_frac=0.3, cordon_frac=0.1)
+# Tenant b: 20 + 4b pods on 10 + 2b nodes, seeds 700 + b.
+SIZES = [(20, 10), (24, 12), (28, 14), (30, 16)]
+
+
+def _floor(metas, cls=Buckets):
+    """The elementwise max of the tenants' own buckets, without
+    signatures: one floor every tenant fits."""
+    fl = {}
+    for m in metas:
+        for f, v in dataclasses.asdict(m.buckets).items():
+            fl[f] = max(fl.get(f, 0), v)
+    fl["signatures"] = 0
+    return cls(**fl)
+
+
+def _port_tenants(n=3, seed=700, **kw):
+    kw = dict(MIX, **kw)
+    draw = lambda b, **x: tsynth.make_cluster(  # noqa: E731
+        np.random.default_rng(seed + b), *SIZES[b], **kw, **x)
+    floor = _floor([draw(b)[1] for b in range(n)])
+    return [draw(b, buckets=floor)[0] for b in range(n)]
+
+
+def _jax_tenants(n=3, seed=700):
+    draw = lambda b, **x: jsynth.make_cluster(  # noqa: E731
+        np.random.default_rng(seed + b), *SIZES[b], **MIX, **x)
+    floor = _floor([draw(b)[1] for b in range(n)], JBuckets)
+    return [jax.device_put(draw(b, buckets=floor)[0]) for b in range(n)]
+
+
+def _np(out):
+    return [t.numpy() for t in out]
+
+
+def _solo_equal(cfg, snaps, out):
+    """Every tenant of solve_many's output is the port's solo solve of
+    its snapshot, bit for bit; returns the solo results."""
+    a, c, u, o, rounds, ev = _np(out)
+    eng = Engine(cfg, device="cpu")
+    solos = []
+    for b, snap in enumerate(snaps):
+        res = eng.solve(snap)
+        np.testing.assert_array_equal(a[b], res.assignment, f"tenant {b}")
+        np.testing.assert_array_equal(c[b], res.chosen_score, f"tenant {b}")
+        np.testing.assert_array_equal(u[b], res.final_used, f"tenant {b}")
+        np.testing.assert_array_equal(o[b], res.order, f"tenant {b}")
+        np.testing.assert_array_equal(ev[b], res.evicted, f"tenant {b}")
+        assert int(rounds[b]) == res.rounds, (b, int(rounds[b]), res.rounds)
+        solos.append(res)
+    eng.close()
+    return solos
+
+
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_batch_equals_solo_solves(mode, tie_break):
+    """Four tenants of different sizes under one floor: each is its solo
+    solve, bit for bit; a fast batch reads one flag a loop step for all
+    tenants, so it reads no more than the solo solves together."""
+    cfg = EngineConfig(mode=mode, tie_break=tie_break, tie_seed=11)
+    snaps = _port_tenants(4)
+    stats = tassign.RoundStats()
+    out = solve_many(cfg, stack_snapshots(snaps), device="cpu", stats=stats)
+    solos = _solo_equal(cfg, snaps, out)
+    assert stats.host_reads <= sum(r.host_reads for r in solos)
+    if mode == "fast":
+        assert stats.host_reads >= max(r.host_reads for r in solos)
+
+
+def _jax_batch(jcfg, jsnaps):
+    stacked = jtenants.stack_snapshots(jsnaps)
+    return [np.asarray(x) for x in jtenants.solve_many_jit(jcfg)(stacked)]
+
+
+def test_parity_batch_matches_jax():
+    jcfg = JConfig(mode="parity")
+    jsnaps = _jax_tenants(3)
+    ja, jc, ju, jo, jr, jev = _jax_batch(jcfg, jsnaps)
+    cfg = EngineConfig(mode="parity")
+    out = solve_many(cfg, stack_snapshots([jax.device_get(s)
+                                           for s in jsnaps]), device="cpu")
+    a, c, u, o, rounds, ev = _np(out)
+    np.testing.assert_array_equal(a, ja)
+    np.testing.assert_array_equal(o, jo)
+    np.testing.assert_array_equal(u, ju)
+    np.testing.assert_array_equal(ev, jev)
+    np.testing.assert_array_equal(rounds, jr)
+    np.testing.assert_allclose(np.nan_to_num(c, neginf=-1.0),
+                               np.nan_to_num(jc, neginf=-1.0),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_fast_batch_matches_jax():
+    jcfg = JConfig(mode="fast")
+    jsnaps = _jax_tenants(3)
+    jeng = JEngine(jcfg)
+    teng = Engine(EngineConfig(mode="fast"), device="cpu")
+    try:
+        for b, js in enumerate(jsnaps):
+            jres = jeng.solve(js)
+            tres = teng.solve(snapshot_from_numpy(jax.device_get(js)))
+            np.testing.assert_array_equal(tres.assignment, jres.assignment,
+                                          f"solo tenant {b}")
+    finally:
+        jeng.close()
+        teng.close()
+    ja, _, ju, _, jr, _ = _jax_batch(jcfg, jsnaps)
+    out = solve_many(EngineConfig(mode="fast"),
+                     stack_snapshots([jax.device_get(s) for s in jsnaps]),
+                     device="cpu")
+    a, _, u, _, rounds, _ = _np(out)
+    np.testing.assert_array_equal(a, ja)
+    np.testing.assert_array_equal(rounds, jr)
+    np.testing.assert_allclose(u, ju, rtol=1e-6)
+
+
+def _rounds_inputs(cfg, snap):
+    static = tassign.precompute_static(cfg, snap, _sat_tables(snap)[0])
+    order = tassign.pop_order(cfg, snap)
+    return static, order, tassign._rank_of(order)
+
+
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+def test_tranches_batch_equals_solo_and_jax(tie_break):
+    """P > cap: round 1, then tranches of 8 pods (K24's pick) with their
+    spent marking, over three tenants at once. Each tenant equals its
+    solo rounds bit for bit, and JAX's `_solve_rounds_nosig(cap=8)` in
+    assignment and rounds."""
+    cfg = EngineConfig(mode="fast", tie_break=tie_break, tie_seed=3)
+    jcfg = JConfig(mode="fast", tie_break=tie_break, tie_seed=3)
+    jsnaps = _jax_tenants(3)
+    snaps = [snapshot_from_numpy(jax.device_get(s)) for s in jsnaps]
+    stacked = stack_snapshots(snaps)
+    P = snaps[0].pods.valid.shape[0]
+    N = snaps[0].nodes.valid.shape[0]
+    K = tassign._fallback_depth(N)
+    static, order, rank = _rounds_inputs(cfg, stacked)
+    used, asg, chosen, rnd, rounds = tassign._solve_rounds_nosig(
+        cfg, stacked, static, rank, order, 2 * P + 8, K, cap=8)
+    for b, (snap, js) in enumerate(zip(snaps, jsnaps)):
+        s_static, s_order, s_rank = _rounds_inputs(cfg, snap)
+        solo = tassign._solve_rounds_nosig(cfg, snap, s_static, s_rank,
+                                           s_order, 2 * P + 8, K, cap=8)
+        for got, want in zip((used[b], asg[b], chosen[b], rnd[b]), solo):
+            assert torch.equal(got, want), f"tenant {b}"
+        assert int(rounds[b]) == solo[4]
+        jst = jassign.precompute_static(jcfg, js, *jax_sat_tables(js))
+        jorder = jassign.pop_order(jcfg, js)
+        jrank = jax.numpy.zeros(P, jax.numpy.int32).at[jorder].set(
+            jax.numpy.arange(P, dtype=jax.numpy.int32))
+        _, jasg, _, _, jrounds = jassign._solve_rounds_nosig(
+            jcfg, js, jst, jrank, jorder, 2 * P + 8, K, cap=8)
+        np.testing.assert_array_equal(asg[b].numpy(), np.asarray(jasg),
+                                      f"tenant {b} against JAX")
+        assert int(rounds[b]) == int(jrounds)
+
+
+def _uneven():
+    """Tenants that end at different rounds: two contended ones (half
+    full at the start), one with no valid pod and one whose pods fit
+    nowhere (no allocatable)."""
+    base = _port_tenants(4, initial_utilization=0.5)
+    none = dataclasses.replace(base[1], pods=dataclasses.replace(
+        base[1].pods, valid=torch.zeros_like(base[1].pods.valid)))
+    full = dataclasses.replace(base[2], nodes=dataclasses.replace(
+        base[2].nodes, allocatable=torch.zeros_like(
+            base[2].nodes.allocatable)))
+    return [base[0], none, full, base[3]]
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_uneven_tenants_keep_their_state(mode):
+    """A tenant with no valid pod and one with no placeable pod finish at
+    once; the others run on. Every tenant is still its solo solve in all
+    six outputs, its round counter included, so a finished tenant's
+    state did not move while the loop ran for the others."""
+    cfg = EngineConfig(mode=mode)
+    snaps = _uneven()
+    out = solve_many(cfg, stack_snapshots(snaps), device="cpu")
+    solos = _solo_equal(cfg, snaps, out)
+    assert (out[0][1] == -1).all() and (out[0][2] == -1).all()
+    if mode == "fast":
+        rounds = [r.rounds for r in solos]
+        assert rounds[1] == rounds[2] == 1 and max(rounds) > 1, rounds
+
+
+def test_uneven_tranches_freeze_finished_tenants():
+    """The tranche loop with a cap of 4: tenants whose loop ends early
+    keep their assignment, spent marks and round counter while the
+    others take more tranches (each equals its solo rounds)."""
+    cfg = EngineConfig(mode="fast")
+    snaps = _uneven()
+    stacked = stack_snapshots(snaps)
+    P = snaps[0].pods.valid.shape[0]
+    K = tassign._fallback_depth(snaps[0].nodes.valid.shape[0])
+    static, order, rank = _rounds_inputs(cfg, stacked)
+    stats = tassign.RoundStats()
+    out = tassign._solve_rounds_nosig(cfg, stacked, static, rank, order,
+                                      2 * P + 8, K, cap=4, stats=stats)
+    solo_reads = 0
+    for b, snap in enumerate(snaps):
+        s_static, s_order, s_rank = _rounds_inputs(cfg, snap)
+        s_stats = tassign.RoundStats()
+        solo = tassign._solve_rounds_nosig(cfg, snap, s_static, s_rank,
+                                           s_order, 2 * P + 8, K, cap=4,
+                                           stats=s_stats)
+        solo_reads = max(solo_reads, s_stats.host_reads)
+        for got, want in zip(out[:4], solo[:4]):
+            assert torch.equal(got[b], want), f"tenant {b}"
+        assert int(out[4][b]) == solo[4]
+    assert len(set(out[4].tolist())) > 2, out[4]
+    assert stats.host_reads >= solo_reads
+
+
+@pytest.mark.parametrize("what", ["signatures", "gangs", "preemption",
+                                  "ring_counts"])
+def test_refusals(what):
+    cfg = EngineConfig()
+    snaps = _port_tenants(2)
+    if what == "signatures":
+        snaps = [tsynth.make_cluster(np.random.default_rng(b), 12, 6,
+                                     spread_frac=0.5)[0] for b in range(2)]
+        match = "A12b"
+    elif what == "gangs":
+        snaps = [tsynth.make_cluster(np.random.default_rng(b), 12, 6,
+                                     gang_frac=1.0)[0] for b in range(2)]
+        match = "A12b"
+    elif what == "preemption":
+        cfg = EngineConfig(preemption=True)
+        match = "A12b"
+    else:
+        cfg = EngineConfig(ring_counts=True)
+        match = "A14"
+    with pytest.raises(NotImplementedError, match=match):
+        solve_many(cfg, stack_snapshots(snaps), device="cpu")
+
+
+def test_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stacked = stack_snapshots(_port_tenants(2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve_many(EngineConfig(), stacked)
+    out = ttenants.solve_many_jit(EngineConfig())(stacked, device="cpu")
+    assert out[0].shape[0] == 2
+
+
+def test_mismatched_buckets_rejected():
+    rng = np.random.default_rng(0)
+    s1, _ = tsynth.make_cluster(rng, 8, 4)
+    s2, _ = tsynth.make_cluster(rng, 40, 4)
+    with pytest.raises(ValueError, match="bucket shapes differ"):
+        stack_snapshots([s1, s2])
+    with pytest.raises(ValueError, match="no snapshots"):
+        stack_snapshots([])
+
+
+@pytest.mark.parametrize("n,skew", [(1, 1.0), (5, 0.0), (8, 1.2),
+                                    (3, -1.0)])
+def test_zipf_weights_match_jax(n, skew):
+    np.testing.assert_array_equal(ttenants.zipf_weights(n, skew),
+                                  jtenants.zipf_weights(n, skew))
+
+
+def test_zipf_weights_refuse_zero_tenants():
+    with pytest.raises(ValueError, match="must be >= 1"):
+        ttenants.zipf_weights(0, 1.0)
+
+
+def _deal_inputs(seed, L=37, N=23, R=3):
+    """Integer-valued demand and capacity (exact sums in any order) with
+    ties, zero rows, -0.0 and +inf: the dealing's edge cases."""
+    rng = np.random.default_rng(seed)
+    dem = rng.integers(0, 4, (L, R)).astype(np.float32)
+    rem = rng.integers(0, 6, (N, R)).astype(np.float32)
+    dem[5] = 0.0
+    dem[6] = -0.0
+    rem[3:7] = 0.0
+    rem[8, 1] = -0.0
+    rem[-1, 2] = np.inf
+    return torch.from_numpy(dem), torch.from_numpy(rem)
+
+
+def _deal_reference(dem, rem, gather=None):
+    """numpy: f64 cumsums (exact here) and searchsorted(side='left')."""
+    cd = np.cumsum(dem.numpy().astype(np.float64), axis=0)
+    cr = np.cumsum(rem.numpy().astype(np.float64), axis=0)
+    if gather is not None:
+        cd = cd[gather.numpy()]
+    pos = np.zeros(cd.shape[0], np.int64)
+    for r in range(cd.shape[1]):
+        pos = np.maximum(pos, np.searchsorted(cr[:, r], cd[:, r], "left"))
+    return pos
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_deal_plain_is_the_moved_dealing(seed):
+    """K23's plain version is `_deal_prefixes` (the fixed Hillis-Steele
+    order) and torch.searchsorted, with or without a rank gather, and a
+    batch gives each tenant's positions."""
+    dem, rem = _deal_inputs(seed)
+    pos = tassign.deal_plain(dem, rem)
+    np.testing.assert_array_equal(pos.numpy(), _deal_reference(dem, rem))
+    my_dem, cum_rem = tassign._deal_prefixes(dem, rem)
+    want = torch.zeros(dem.shape[0], dtype=torch.int64)
+    for r in range(dem.shape[1]):
+        want = torch.maximum(want, torch.searchsorted(
+            cum_rem[:, r].contiguous(), my_dem[:, r].contiguous()))
+    assert torch.equal(pos, want)
+    gather = torch.from_numpy(
+        np.random.default_rng(seed).permutation(dem.shape[0]))
+    np.testing.assert_array_equal(tassign.deal_plain(dem, rem, gather).numpy(),
+                                  _deal_reference(dem, rem, gather))
+    dem2, rem2 = _deal_inputs(seed + 10)
+    batch = tassign.deal_plain(torch.stack([dem, dem2]),
+                               torch.stack([rem, rem2]))
+    assert torch.equal(batch[0], pos)
+    assert torch.equal(batch[1], tassign.deal_plain(dem2, rem2))
+
+
+@pytest.mark.parametrize("C", [1, 5, 16])
+def test_top_by_rank_plain_is_the_moved_pick(C):
+    """K24's plain version is `_top_by_rank`, tenant by tenant, and picks
+    the C lowest-rank pending pods then the others by rank."""
+    rng = np.random.default_rng(C)
+    P, B = 16, 3
+    pend = torch.from_numpy(rng.random((B, P)) < 0.4)
+    order = torch.stack([torch.from_numpy(rng.permutation(P))
+                         for _ in range(B)])
+    buf, n_pend = tassign.top_by_rank_plain(pend, order, C)
+    for b in range(B):
+        want = tassign._top_by_rank(pend[b], order[b], C)
+        assert torch.equal(buf[b], want[0]) and int(n_pend[b]) == int(want[1])
+        pm = pend[b][order[b]].numpy()
+        ref = np.concatenate([order[b].numpy()[pm], order[b].numpy()[~pm]])
+        np.testing.assert_array_equal(buf[b].numpy(), ref[:C])
+    solo = tassign.top_by_rank_plain(pend[0], order[0], C)
+    assert torch.equal(solo[0], buf[0])

@@ -7,7 +7,8 @@ pairwise constraints, gangs and preemption; ScoreBatch (`Engine.score`,
 `score_top1`, `score_topk`); their async forms; and warm lineages
 (`device_state.DeviceSnapshot` with `Engine.solve_warm`, bitwise or
 incremental); the device pending queue (`DeviceQueue`); and decision
-provenance (`Engine.solve_explained`: `ExplainData`, `ScoreExplain`).
+provenance (`Engine.solve_explained`: `ExplainData`, `ScoreExplain`);
+and the multi-tenant batch (`stack_snapshots`, `solve_many`).
 Every device program runs on a CUDA kernel written for
 Hopper (tpusched_torch/csrc), built with nvcc at first use, or on plain
 torch where the JAX program is a row gather, scatter or sort.
@@ -27,6 +28,7 @@ from tpusched_torch.snapshot import (
     SnapshotBuilder,
     snapshot_from_numpy,
 )
+from tpusched_torch.tenants import solve_many, stack_snapshots
 
 __all__ = [
     "Buckets",
@@ -41,4 +43,6 @@ __all__ = [
     "SnapshotBuilder",
     "SolveResult",
     "snapshot_from_numpy",
+    "solve_many",
+    "stack_snapshots",
 ]

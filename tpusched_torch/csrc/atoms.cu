@@ -10,6 +10,11 @@
 // consecutive atoms of one label set, so a warp reads one label row
 // (broadcast) and writes a contiguous run of the output. At the headline
 // (X = 5120 nodes, L = 4, A <= 8) the kernel is launch-latency bound.
+//
+// Tenant axis (tpusched/tenants.py:75 solve_many): B independent label
+// and atom tables, [B, X, L] and [B, A(, V)], give out [B, X, A] in one
+// launch; the flattened cell index carries the tenant. A solo call is
+// B = 1.
 #include <math.h>
 
 #include "kernels.h"
@@ -32,11 +37,21 @@ __global__ void atom_sat_kernel(const int* __restrict__ label_pairs,
                                 const int* __restrict__ atom_pairs,
                                 const float* __restrict__ atom_num,
                                 const bool* __restrict__ atom_valid,
-                                int A, int V, bool* __restrict__ out) {
+                                int B, int A, int V, bool* __restrict__ out) {
   long long cell = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= (long long)X * A) return;
-  int x = (int)(cell / A);
+  if (cell >= (long long)B * X * A) return;
+  // Tenant b's label rows and atom table; x indexes its label sets.
+  const long long b = cell / ((long long)X * A);
+  int x = (int)(cell / A % X);
   int a = (int)(cell % A);
+  label_pairs += b * X * L;
+  label_keys += b * X * L;
+  if (label_nums != nullptr) label_nums += b * X * L;
+  atom_key += b * A;
+  atom_op += b * A;
+  atom_pairs += b * A * V;
+  atom_num += b * A;
+  atom_valid += b * A;
   int key = atom_key[a];
   bool any_pair = false, exists = false, has_num = false;
   float val = 0.0f;
@@ -79,17 +94,17 @@ extern "C" const char* tpusched_error_string(int err) {
 }
 
 extern "C" int tpusched_atom_sat(const int* label_pairs, const int* label_keys,
-                                 const float* label_nums, int X, int L,
+                                 const float* label_nums, int B, int X, int L,
                                  const int* atom_key,
                                  const signed char* atom_op,
                                  const int* atom_pairs, const float* atom_num,
                                  const bool* atom_valid, int A, int V,
                                  bool* out, void* stream) {
-  long long cells = (long long)X * A;
+  long long cells = (long long)B * X * A;
   int threads = 256;
   unsigned blocks = (unsigned)((cells + threads - 1) / threads);
   atom_sat_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       label_pairs, label_keys, label_nums, X, L, atom_key, atom_op,
-      atom_pairs, atom_num, atom_valid, A, V, out);
+      atom_pairs, atom_num, atom_valid, B, A, V, out);
   return (int)cudaGetLastError();
 }

@@ -37,6 +37,12 @@
 // dependent chain of log2(P) scan steps per resource, each a block
 // barrier. One CTA does it all, with its scratch in global memory (L1
 // serves it), so P is not bounded by shared memory.
+//
+// Tenant axis (tpusched/tenants.py:75 solve_many, prefix_commit only):
+// gridDim.x = B, and CTA b runs tenant b's sub-step on its own rows
+// ([B, P] perm with the tenant's own pod indices, sorted nodes, choice
+// and ptr, [B, P, R] requests, [B, N, R] allocatable and usage, its own
+// scratch). node_add keeps its solo form.
 #include <limits.h>
 
 #include "kernels.h"
@@ -53,6 +59,21 @@ prefix_commit_kernel(int P, int N, int R, int KC, const int* __restrict__ perm,
                      int* choice, int* ptr, float* buf_a, float* buf_b,
                      int* seg, int* first_bad, unsigned char* fit) {
   const int tid = threadIdx.x;
+  {  // CTA b runs tenant b's sub-step.
+    const long long b = blockIdx.x;
+    perm += b * P;
+    cand_s += b * P;
+    req += b * P * R;
+    alloc += b * N * R;
+    used += b * N * R;
+    choice += b * P;
+    ptr += b * P;
+    buf_a += b * 2 * P;
+    buf_b += b * 2 * P;
+    seg += b * 2 * P;
+    first_bad += b * 2 * P;
+    fit += b * P;
+  }
   for (int i = tid; i < P; i += THREADS) {
     const int c = cand_s[i];
     int lo = 0, hi = i;  // first row of node c (cand_s is sorted)
@@ -147,13 +168,13 @@ extern "C" int tpusched_node_add(int P, int N, int R, const int* perm,
   return (int)cudaGetLastError();
 }
 
-extern "C" int tpusched_prefix_commit(int P, int N, int R, int KC,
+extern "C" int tpusched_prefix_commit(int B, int P, int N, int R, int KC,
                                       const int* perm, const int* cand_s,
                                       const float* req, const float* alloc,
                                       float* used, int* choice, int* ptr,
                                       float* buf_f, int* buf_i,
                                       unsigned char* fit, void* stream) {
-  prefix_commit_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
+  prefix_commit_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
       P, N, R, KC, perm, cand_s, req, alloc, used, choice, ptr, buf_f,
       buf_f + P, buf_i, buf_i + P, fit);
   return (int)cudaGetLastError();

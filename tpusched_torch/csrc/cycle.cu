@@ -34,6 +34,13 @@
 // pod's row constants stay in L1/L2. At 10240 x 5120: 0.52 GB, 0.16 ms
 // at 3.35 TB/s. One thread per cell; blockIdx.x is the row and y tiles
 // the nodes, so a warp reads and writes 32 consecutive cells.
+//
+// Tenant axis (tpusched/tenants.py:75 solve_many): B tenants' output rows
+// stack to B * rows_n rows; output row i belongs to tenant i / rows_n,
+// and `rows` holds that tenant's own pod indices. Its cells read the
+// tenant's [B, P, N] mask and static rows, [B, P] weights, [B, P, R]
+// requests and [B, N, R] allocatable and usage (rw is shared). A solo
+// call is B = 1.
 #include <math.h>
 
 #include "cell.cuh"
@@ -44,7 +51,7 @@ namespace {
 constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
-cycle_kernel(int N, int R, const int* __restrict__ rows,
+cycle_kernel(int rows_n, int P, int N, int R, const int* __restrict__ rows,
              const bool* __restrict__ pending, const bool* __restrict__ mask,
              const float* __restrict__ sscore,
              const float* __restrict__ alloc, const float* __restrict__ used,
@@ -58,7 +65,11 @@ cycle_kernel(int N, int R, const int* __restrict__ rows,
   const int i = blockIdx.x;
   const int n = blockIdx.y * THREADS + threadIdx.x;
   if (n >= N) return;
-  const long long q = rows ? rows[i] : i;
+  // Tenant b's pod row q: every [B, P, ...] input is indexed at b * P + q.
+  const long long b = i / rows_n;
+  const long long q = b * P + (rows ? rows[i] : i % rows_n);
+  used += b * N * R;
+  alloc += b * N * R;
   tpusched::ResW w;
   tpusched::load_resw(w, rw_g, R);
   float rq[tpusched::MAX_R];
@@ -86,7 +97,8 @@ cycle_kernel(int N, int R, const int* __restrict__ rows,
 
 }  // namespace
 
-extern "C" int tpusched_cycle(int rows_n, int N, int R, const int* rows,
+extern "C" int tpusched_cycle(int B, int rows_n, int P, int N, int R,
+                              const int* rows,
                               const bool* pending, const bool* mask,
                               const float* sscore, const float* alloc,
                               const float* used, const float* req,
@@ -98,9 +110,9 @@ extern "C" int tpusched_cycle(int rows_n, int N, int R, const int* rows,
                               const bool* ia_ok, bool* relaxed,
                               void* stream) {
   if (R > tpusched::MAX_R) return (int)cudaErrorInvalidValue;
-  dim3 grid(rows_n, (N + THREADS - 1) / THREADS);
+  dim3 grid(B * rows_n, (N + THREADS - 1) / THREADS);
   cycle_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      N, R, rows, pending, mask, sscore, alloc, used, req, w_lr, w_ba, w_ts,
+      rows_n, P, N, R, rows, pending, mask, sscore, alloc, used, req, w_lr, w_ba, w_ts,
       rw, pair_ok, ts, ia, w_ia, masked_out, feasible, score, ia_ok,
       relaxed);
   return (int)cudaGetLastError();

@@ -27,6 +27,11 @@
 // sum's fixed order is parallelism: only N threads, each walking all rows,
 // so the loop is unrolled to keep several rows' loads in flight. The
 // fixed-point sum has CHUNKS times the threads.
+//
+// Tenant axis (tpusched/tenants.py:75 solve_many): the last grid
+// dimension is the tenant; tenant b's columns sum its own rows of
+// [B, rows, N] into desir [B, N] (its own [2N + 1] workspace in fixed
+// point). A solo call is B = 1.
 #include <math.h>
 
 #include "kernels.h"
@@ -42,6 +47,11 @@ desirability_kernel(int rows, int N, const bool* __restrict__ feasible,
                     float* __restrict__ desir) {
   const int n = blockIdx.x * THREADS + threadIdx.x;
   if (n >= N) return;
+  const long long b = blockIdx.y;
+  feasible += b * rows * N;
+  masked += b * rows * N;
+  allowed += b * rows;
+  desir += b * N;
   float acc = 0.0f;
   bool any = false;
   int n_allowed = 0;
@@ -70,6 +80,11 @@ desirability_fixed_partial(int rows, int N, const bool* __restrict__ feasible,
                            const float* __restrict__ masked,
                            const bool* __restrict__ allowed,
                            int* __restrict__ work) {
+  const long long b = blockIdx.z;
+  feasible += b * rows * N;
+  masked += b * rows * N;
+  allowed += b * rows;
+  work += b * (2LL * N + 1);
   const int n = blockIdx.x * THREADS + threadIdx.x;
   const int per = (rows + gridDim.y - 1) / gridDim.y;
   const int p0 = blockIdx.y * per;
@@ -99,28 +114,32 @@ desirability_fixed_final(int N, const int* __restrict__ work,
                          float* __restrict__ desir) {
   const int n = blockIdx.x * THREADS + threadIdx.x;
   if (n >= N) return;
+  work += blockIdx.y * (2LL * N + 1);
+  desir += blockIdx.y * (long long)N;
   const float den = 16.0f * (float)max(work[2 * N], 1);
   desir[n] = work[N + n] ? (float)work[n] / den : -INFINITY;
 }
 
 }  // namespace
 
-extern "C" int tpusched_desirability(int rows, int N, const bool* feasible,
+extern "C" int tpusched_desirability(int B, int rows, int N,
+                                     const bool* feasible,
                                      const float* masked, const bool* allowed,
                                      int fixed, int* work, float* desir,
                                      void* stream) {
   const int blocks = (N + THREADS - 1) / THREADS;
   cudaStream_t st = (cudaStream_t)stream;
   if (!fixed) {
-    desirability_kernel<<<blocks, THREADS, 0, st>>>(rows, N, feasible, masked,
-                                                    allowed, desir);
+    desirability_kernel<<<dim3(blocks, B), THREADS, 0, st>>>(
+        rows, N, feasible, masked, allowed, desir);
     return (int)cudaGetLastError();
   }
   if (rows > 0) {
-    const dim3 grid(blocks, min(CHUNKS, rows));
+    const dim3 grid(blocks, min(CHUNKS, rows), B);
     desirability_fixed_partial<<<grid, THREADS, 0, st>>>(
         rows, N, feasible, masked, allowed, work);
   }
-  desirability_fixed_final<<<blocks, THREADS, 0, st>>>(N, work, desir);
+  desirability_fixed_final<<<dim3(blocks, B), THREADS, 0, st>>>(N, work,
+                                                               desir);
   return (int)cudaGetLastError();
 }

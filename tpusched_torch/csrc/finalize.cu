@@ -10,6 +10,10 @@
 // One block per pod row: the block reads the row once for the two maxima
 // (max is exact in any order, so a tree reduction matches jnp.max), then
 // again for the epilogue, which the 50 MB L2 mostly serves.
+//
+// Tenant axis (tpusched/tenants.py:75 solve_many): B tenants' [B, P, N]
+// rows flatten to B * P rows; row i normalises over its own tenant's
+// node validity, node_valid[i / P]. A solo call is B = 1.
 #include <math.h>
 
 #include "kernels.h"
@@ -37,13 +41,14 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-finalize_kernel(int N, const float* __restrict__ na_raw,
+finalize_kernel(int P, int N, const float* __restrict__ na_raw,
                 const float* __restrict__ tt_count,
                 const bool* __restrict__ node_valid,
                 const float* __restrict__ w_na,
                 const float* __restrict__ w_tt, float* __restrict__ score) {
   __shared__ float scratch[THREADS >> 5];
   int p = blockIdx.x;
+  node_valid += (long long)(p / P) * N;
   const float* raw = na_raw + (long long)p * N;
   const float* cnt = tt_count + (long long)p * N;
   float mx_na = -INFINITY, mx_tt = -INFINITY;
@@ -66,12 +71,13 @@ finalize_kernel(int N, const float* __restrict__ na_raw,
 
 }  // namespace
 
-extern "C" int tpusched_finalize_static(int P, int N, const float* na_raw,
+extern "C" int tpusched_finalize_static(int B, int P, int N,
+                                        const float* na_raw,
                                         const float* tt_count,
                                         const bool* node_valid,
                                         const float* w_na, const float* w_tt,
                                         float* score, void* stream) {
-  finalize_kernel<<<P, THREADS, 0, (cudaStream_t)stream>>>(
-      N, na_raw, tt_count, node_valid, w_na, w_tt, score);
+  finalize_kernel<<<B * P, THREADS, 0, (cudaStream_t)stream>>>(
+      P, N, na_raw, tt_count, node_valid, w_na, w_tt, score);
   return (int)cudaGetLastError();
 }

@@ -13,10 +13,15 @@ extern "C" {
 
 const char* tpusched_error_string(int err);
 
+// Tenant axis: the entry points that take B first run B independent
+// tenants in one launch (tpusched/tenants.py solve_many); every array of
+// their comment gains a leading [B] axis (rw, the shared resource weights,
+// excepted), and a solo call passes B = 1.
+
 // K1. out[x, a] = does label set x satisfy atom a (tpusched/kernels/atoms.py
 // atom_sat). label_nums may be NULL (no Gt/Lt evaluation).
 int tpusched_atom_sat(const int* label_pairs, const int* label_keys,
-                      const float* label_nums, int X, int L,
+                      const float* label_nums, int B, int X, int L,
                       const int* atom_key, const signed char* atom_op,
                       const int* atom_pairs, const float* atom_num,
                       const bool* atom_valid, int A, int V,
@@ -25,7 +30,7 @@ int tpusched_atom_sat(const int* label_pairs, const int* label_keys,
 // K2. The cell-local [P, N] tableau (tpusched/kernels/assign.py
 // _tableau_cells): static mask, node-affinity mask, raw preferred-affinity
 // weight sums and intolerable PreferNoSchedule taint counts.
-int tpusched_tableau_cells(int P, int N, int A, int T, int AT, int PT,
+int tpusched_tableau_cells(int B, int P, int N, int A, int T, int AT, int PT,
                            int TN, int VT,
                            const bool* node_sat_t,
                            const int* req_term_atoms,
@@ -46,7 +51,7 @@ int tpusched_tableau_cells(int P, int N, int A, int T, int AT, int PT,
 // K3. static score[p, n] = w_na[p] * default_normalize(na_raw)[p, n]
 //                        + w_tt[p] * taint_toleration_from_count(tt)[p, n]
 // (tpusched/kernels/assign.py finalize_static).
-int tpusched_finalize_static(int P, int N, const float* na_raw,
+int tpusched_finalize_static(int B, int P, int N, const float* na_raw,
                              const float* tt_count, const bool* node_valid,
                              const float* w_na, const float* w_tt,
                              float* score, void* stream);
@@ -54,7 +59,7 @@ int tpusched_finalize_static(int P, int N, const float* na_raw,
 // K4. The parity scan (tpusched/kernels/assign.py solve_sequential with
 // no signatures, gangs or preemption). used holds the initial [N, R]
 // usage on entry and the final one on return.
-int tpusched_parity_scan(int P, int N, int R, const int* order,
+int tpusched_parity_scan(int B, int P, int N, int R, const int* order,
                          const bool* mask, const float* static_score,
                          const float* alloc, const float* requests,
                          const float* w_lr, const float* w_ba,
@@ -72,7 +77,8 @@ int tpusched_parity_scan(int P, int N, int R, const int* order,
 // absent. masked_out = 1 writes where(feasible, score, -inf), 0 the raw
 // score. ia_ok ([P, N], K11's) and relaxed ([rows_n, N]) are NULL unless
 // the spread-relaxed feasibility mask & fit & ia_ok (& pending) is wanted.
-int tpusched_cycle(int rows_n, int N, int R, const int* rows,
+// P is the source pod rows per tenant; rows holds [B, rows_n] pod indices.
+int tpusched_cycle(int B, int rows_n, int P, int N, int R, const int* rows,
                    const bool* pending, const bool* mask,
                    const float* sscore, const float* alloc,
                    const float* used, const float* req, const float* w_lr,
@@ -95,7 +101,7 @@ int tpusched_row_topk(int rows, int N, int K, const float* masked,
 // fixed = 1: the sum is of int32 round(masked * 16) clipped to +-32767,
 // over 16 * max(#allowed, 1) (assign.py:799-812, width-invariant), in
 // row chunks that add into work ([2N + 1] int32, zero on entry).
-int tpusched_desirability(int rows, int N, const bool* feasible,
+int tpusched_desirability(int B, int rows, int N, const bool* feasible,
                           const float* masked, const bool* allowed,
                           int fixed, int* work, float* desir, void* stream);
 
@@ -103,11 +109,30 @@ int tpusched_desirability(int rows, int N, const bool* feasible,
 // candidates: perm [P] (sorted row -> pod row), cand_s [P] (sorted nodes,
 // N = inactive). Updates used [N, R], choice [P] and ptr [P] in place.
 // Scratch: buf_f [2P] floats, buf_i [2P] ints, fit [P] bytes.
-int tpusched_prefix_commit(int P, int N, int R, int KC, const int* perm,
+int tpusched_prefix_commit(int B, int P, int N, int R, int KC,
+                           const int* perm,
                            const int* cand_s, const float* req,
                            const float* alloc, float* used, int* choice,
                            int* ptr, float* buf_f, int* buf_i,
                            unsigned char* fit, void* stream);
+
+// K23 (tpusched/kernels/assign.py _deal_commit's dealing). Inclusive
+// prefixes of the demand dem [L, R] and the capacity rem [N, R] (nodes
+// by descending desirability) into cum_dem [R, L] and cum_rem [R, N]
+// (scratch, transposed), in _scan_plain's Hillis-Steele order; then
+// pos[p] = max over r of the left searchsorted of cum_dem[r, g] in
+// cum_rem[r, :], g = gather[p] (gather [P] may be NULL: g = p, L = P).
+int tpusched_deal(int B, int P, int L, int N, int R, const float* dem,
+                  const float* rem, const long long* gather, float* cum_dem,
+                  float* cum_rem, long long* pos, void* stream);
+
+// K24 (tpusched/kernels/assign.py _top_by_rank). Over the pods in pop
+// order (order [P] int64), buf [C] gets the C lowest-rank pods with
+// pend set, by rank, then the others by rank; n_pend [1] the count of
+// pend. C <= P.
+int tpusched_top_by_rank(int B, int P, int C, const bool* pend,
+                         const long long* order, long long* buf,
+                         long long* n_pend, void* stream);
 
 // K8's node_add (tpusched/kernels/assign.py _node_add): rows sorted by
 // (node, rank), perm [P] (sorted row -> pod row), node_s [P] (sorted

@@ -1,4 +1,4 @@
-// K4: the parity scan, one persistent CTA.
+// K4: the parity scan, one persistent CTA a tenant.
 //
 // Replaces tpusched/kernels/assign.py:426 solve_sequential (its lax.scan
 // over pods with pod_cycle :311 and pick_node :365, filter.resource_fit,
@@ -59,6 +59,15 @@
 // writes, for each victim it evicts, the pod's index and its step in pop
 // order; the CTA is the only writer, so no atomics. NULL leaves the
 // kernel as it was.
+//
+// Tenant axis (tpusched/tenants.py:75 solve_many, entry point
+// tpusched_parity_scan): gridDim.x = B, and CTA b scans tenant b alone
+// ([B, P] order, weights and outputs, [B, P, N] mask and static score,
+// [B, N, R] allocatable and usage, [B, P, R] requests; rw is shared),
+// with its own `used`/`alloc` in its own shared memory. The seeded tie
+// hash takes the tenant's own pod index. The B scans are independent, so
+// B tenants take about one tenant's time while B <= 132 SMs. The
+// variants are launched with B = 1.
 #include <math.h>
 #include <limits.h>
 
@@ -240,6 +249,21 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
   __shared__ float s_cmax[PAIR ? tpusched::MAX_C : 1];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  {  // CTA b scans tenant b.
+    const long long b = blockIdx.x;
+    order += b * P;
+    mask += b * P * N;
+    static_score += b * P * N;
+    alloc_g += b * N * R;
+    requests += b * P * R;
+    w_lr += b * P;
+    w_ba += b * P;
+    w_ts += b * P;
+    w_ia += b * P;
+    used_g += b * N * R;
+    assigned += b * P;
+    chosen += b * P;
+  }
   float* used = used_g;
   const float* alloc = alloc_g;
   if (use_smem) {
@@ -448,8 +472,8 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
 // to dynamic shared memory when they fit beside the kernel's static
 // shared memory (K15's buffers with PREEMPT).
 template <bool PAIR, bool PREEMPT>
-int launch_scan(int P, int N, int R, const int* order, const bool* mask,
-                const float* static_score, const float* alloc,
+int launch_scan(int B, int P, int N, int R, const int* order,
+                const bool* mask, const float* static_score, const float* alloc,
                 const float* requests, const float* w_lr, const float* w_ba,
                 const float* w_ts, const float* w_ia, const float* rw,
                 int seeded, unsigned int seed, float* used, int* assigned,
@@ -470,7 +494,7 @@ int launch_scan(int P, int N, int R, const int* order, const bool* mask,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<1, THREADS, dyn, (cudaStream_t)stream>>>(
+  kernel<<<B, THREADS, dyn, (cudaStream_t)stream>>>(
       P, N, R, order, mask, static_score, alloc, requests, w_lr, w_ba, w_ts,
       w_ia, rw, seeded, seed, used, assigned, chosen, use_smem, ps, pre);
   return (int)cudaGetLastError();
@@ -498,7 +522,8 @@ PreemptScan make_preempt(int N, int R, int M, int GP, int J,
 
 }  // namespace
 
-extern "C" int tpusched_parity_scan(int P, int N, int R, const int* order,
+extern "C" int tpusched_parity_scan(int B, int P, int N, int R,
+                                    const int* order,
                                     const bool* mask,
                                     const float* static_score,
                                     const float* alloc,
@@ -511,10 +536,10 @@ extern "C" int tpusched_parity_scan(int P, int N, int R, const int* order,
                                     void* stream) {
   PairScan none{};
   PreemptScan no_pre{};
-  return launch_scan<false, false>(P, N, R, order, mask, static_score, alloc,
-                                   requests, w_lr, w_ba, w_ts, w_ia, rw,
-                                   seeded, seed, used, assigned, chosen, none,
-                                   no_pre, stream);
+  return launch_scan<false, false>(B, P, N, R, order, mask, static_score,
+                                   alloc, requests, w_lr, w_ba, w_ts, w_ia,
+                                   rw, seeded, seed, used, assigned, chosen,
+                                   none, no_pre, stream);
 }
 
 extern "C" int tpusched_parity_scan_pair(
@@ -536,10 +561,10 @@ extern "C" int tpusched_parity_scan_pair(
                ia_required, ia_weight},
               counts, anti, match_tot, pen, raw, allowed};
   PreemptScan no_pre{};
-  return launch_scan<true, false>(P, N, R, order, mask, static_score, alloc,
-                                  requests, w_lr, w_ba, w_ts, w_ia, rw, seeded,
-                                  seed, used, assigned, chosen, ps, no_pre,
-                                  stream);
+  return launch_scan<true, false>(1, P, N, R, order, mask, static_score,
+                                  alloc, requests, w_lr, w_ba, w_ts, w_ia, rw,
+                                  seeded, seed, used, assigned, chosen, ps,
+                                  no_pre, stream);
 }
 
 extern "C" int tpusched_parity_scan_preempt(
@@ -560,8 +585,8 @@ extern "C" int tpusched_parity_scan_preempt(
       N, R, M, GP, J, perm, node_s, seg_start, cost_s, vprio_s, req_s, pdb_s,
       margin, prio, pod_valid, group, node_valid, run_node, run_anti_sig,
       remaining, evicted, elig, cum, cum_viol, evictor, evict_pos);
-  return launch_scan<false, true>(P, N, R, order, mask, static_score, alloc,
-                                  requests, w_lr, w_ba, w_ts, w_ia, rw,
+  return launch_scan<false, true>(1, P, N, R, order, mask, static_score,
+                                  alloc, requests, w_lr, w_ba, w_ts, w_ia, rw,
                                   seeded, seed, used, assigned, chosen, none,
                                   pre, stream);
 }
@@ -594,8 +619,8 @@ extern "C" int tpusched_parity_scan_pair_preempt(
       N, R, M, GP, J, perm, node_s, seg_start, cost_s, vprio_s, req_s, pdb_s,
       margin, prio, pod_valid, group, node_valid2, run_node, run_anti_sig,
       remaining, evicted, elig, cum, cum_viol, evictor, evict_pos);
-  return launch_scan<true, true>(P, N, R, order, mask, static_score, alloc,
-                                 requests, w_lr, w_ba, w_ts, w_ia, rw, seeded,
-                                 seed, used, assigned, chosen, ps, pre,
+  return launch_scan<true, true>(1, P, N, R, order, mask, static_score,
+                                 alloc, requests, w_lr, w_ba, w_ts, w_ia, rw,
+                                 seeded, seed, used, assigned, chosen, ps, pre,
                                  stream);
 }

@@ -14,6 +14,11 @@
 // consecutive cells of one row (coalesced) and reads one pod's term,
 // toleration and weight rows as broadcasts. node_sat_t is [A, N], so its
 // reads are coalesced along n too.
+//
+// Tenant axis (tpusched/tenants.py:75 solve_many): blockIdx.z is the
+// tenant. A cell reads only its own tenant's pod, node, label and taint
+// rows ([B, P, ...], [B, N, ...], [B, A, N], [B, VT]) and writes
+// [B, P, N]. A solo call is B = 1.
 #include "kernels.h"
 
 namespace {
@@ -34,8 +39,8 @@ __device__ __forceinline__ bool term_sat(const bool* __restrict__ sat_t,
   return ok;
 }
 
-__global__ void tableau_kernel(int P, int N, int T, int AT, int PT, int TN,
-                               int VT,
+__global__ void tableau_kernel(int P, int N, int A, int T, int AT, int PT,
+                               int TN, int VT,
                                const bool* __restrict__ node_sat_t,
                                const int* __restrict__ req_term_atoms,
                                const bool* __restrict__ req_term_valid,
@@ -55,6 +60,24 @@ __global__ void tableau_kernel(int P, int N, int T, int AT, int PT, int TN,
                                float* __restrict__ tt_count) {
   int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
+  const long long b = blockIdx.z;
+  node_sat_t += b * A * N;
+  req_term_atoms += b * P * T * AT;
+  req_term_valid += b * P * T;
+  pref_term_atoms += b * P * PT * AT;
+  pref_term_valid += b * P * PT;
+  pref_weight += b * P * PT;
+  taint_ids += b * N * TN;
+  taint_effect += b * VT;
+  tolerated += b * P * VT;
+  node_schedulable += b * N;
+  node_valid += b * N;
+  tolerates_unsched += b * P;
+  pod_valid += b * P;
+  mask += b * P * N;
+  aff_ok_out += b * P * N;
+  na_raw += b * P * N;
+  tt_count += b * P * N;
   for (int p = blockIdx.y; p < P; p += gridDim.y) {
     long long cell = (long long)p * N + n;
 
@@ -106,7 +129,7 @@ __global__ void tableau_kernel(int P, int N, int T, int AT, int PT, int TN,
 }  // namespace
 
 extern "C" int tpusched_tableau_cells(
-    int P, int N, int A, int T, int AT, int PT, int TN, int VT,
+    int B, int P, int N, int A, int T, int AT, int PT, int TN, int VT,
     const bool* node_sat_t, const int* req_term_atoms,
     const bool* req_term_valid, const int* pref_term_atoms,
     const bool* pref_term_valid, const float* pref_weight,
@@ -115,12 +138,11 @@ extern "C" int tpusched_tableau_cells(
     const bool* node_valid, const bool* tolerates_unsched,
     const bool* pod_valid, bool* mask, bool* aff_ok, float* na_raw,
     float* tt_count, void* stream) {
-  (void)A;  // atom ids index node_sat_t rows; A only sizes the table
   int threads = 256;
   // Pods beyond the 65535 grid.y limit loop inside the kernel.
-  dim3 grid((N + threads - 1) / threads, P < 65535 ? P : 65535);
+  dim3 grid((N + threads - 1) / threads, P < 65535 ? P : 65535, B);
   tableau_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      P, N, T, AT, PT, TN, VT, node_sat_t, req_term_atoms, req_term_valid,
+      P, N, A, T, AT, PT, TN, VT, node_sat_t, req_term_atoms, req_term_valid,
       pref_term_atoms, pref_term_valid, pref_weight, taint_ids, taint_effect,
       tolerated, node_schedulable, node_valid, tolerates_unsched, pod_valid,
       mask, aff_ok, na_raw, tt_count);

@@ -87,6 +87,7 @@ from tpusched_torch.kernels.assign import (
     RoundStats,
     StaticCtx,
     WarmTableau,
+    _rank_of,
     build_tableau,
     finalize_static,
     refresh_tableau,
@@ -149,13 +150,14 @@ def _sat_tables(snap: ClusterSnapshot, ops: Ops = KERNELS):
     """(node atom satisfaction [A, N], member atom satisfaction [A, M+P]
     over running then pending pod labels), both K1, transposed. The
     member table is only read by the signature paths and is None at
-    S = 0 (the JAX program drops it there too)."""
+    S = 0 (the JAX program drops it there too). A tenant batch gives
+    [B, A, N]."""
     node_sat_t = ops.atom_sat(
         snap.atoms, snap.nodes.label_pairs, snap.nodes.label_keys,
         snap.nodes.label_nums,
-    ).T.contiguous()
+    ).transpose(-2, -1).contiguous()
     member_sat_t = None
-    if snap.sigs.key.shape[0] > 0:
+    if snap.sigs.key.shape[-1] > 0:
         member_sat_t = kpair.member_label_sat_t(snap, ops.atom_sat)
     return node_sat_t, member_sat_t
 
@@ -170,7 +172,9 @@ def solve_core(cfg: EngineConfig, snap: ClusterSnapshot, ops: Ops = KERNELS,
     already made from a tableau (the warm path); the label tables and
     the tableau are then not computed. explain=True appends the
     provenance tuple (rolled, evictor, evict_round, auction_stats) of
-    solve_sequential / solve_rounds; the rest is the same."""
+    solve_sequential / solve_rounds; the rest is the same. A tenant batch
+    (tenants.solve_many: a leading [B] axis on every leaf, configs 1-2)
+    gives every output that axis, rounds [B]."""
     tables = (None, None) if static is not None else _sat_tables(snap, ops)
     if cfg.mode == "fast":
         return solve_rounds(cfg, snap, *tables, static=static, ops=ops,
@@ -178,10 +182,9 @@ def solve_core(cfg: EngineConfig, snap: ClusterSnapshot, ops: Ops = KERNELS,
     a, c, u, o, ev, *extras = solve_sequential(cfg, snap, *tables, ops=ops,
                                                static=static,
                                                explain=explain)
-    P = a.shape[0]
-    rank = torch.zeros(P, dtype=torch.int32, device=o.device)
-    rank[o] = torch.arange(P, dtype=torch.int32, device=o.device)
-    rounds = torch.full((), P, dtype=torch.int32, device=o.device)
+    rank = _rank_of(o)
+    rounds = torch.full(o.shape[:-1], o.shape[-1], dtype=torch.int32,
+                        device=o.device)
     return (a, c, u, o, rank, rounds, ev, *extras)
 
 

@@ -5,12 +5,18 @@ tensor and runs its plain PyTorch version on a CPU tensor (the CPU is
 where the tests run; there is no fallback from CUDA to the plain
 version). Each wrapper counts its launches in a `launches` attribute.
 The helpers below are what the wrappers share: argument checks, the
-current stream and the pointers for the ctypes call.
+current stream and the pointers for the ctypes call, and the tenant loop
+of the plain versions.
+
+The kernels of the multi-tenant batch (tpusched_torch/tenants.py) take
+a leading tenant axis [B, ...] on every per-snapshot tensor; a wrapper
+given the solo shapes launches the same kernel with B = 1.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Callable, Sequence
 
 import torch
 
@@ -41,3 +47,40 @@ def ptrs(args: Sequence) -> tuple:
     the kernel is enqueued."""
     return tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a
                  for a in args)
+
+
+def _tenant_of(arg, b: int):
+    if isinstance(arg, torch.Tensor):
+        return arg[b]
+    if isinstance(arg, tuple):
+        return tuple(_tenant_of(a, b) for a in arg)
+    if hasattr(arg, "tenant"):
+        return arg.tenant(b)
+    return arg
+
+
+def stack_tenants(outs: list):
+    """Stack per-tenant values on a new leading tenant axis: tensors,
+    and tuples or dataclasses of them (None stays None)."""
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: stack_tenants([getattr(o, f.name) for o in outs])
+            for f in dataclasses.fields(first)})
+    return type(first)(stack_tenants([o[i] for o in outs])
+                       for i in range(len(first)))
+
+
+def per_tenant(fn: Callable, B: int, *args, shared: Sequence[int] = ()):
+    """fn once for each of B tenants, its outputs (tensors, or tuples of
+    tensors and None) stacked on a new leading tenant axis. Call b gets
+    the b-th tenant of each argument: a tensor's b-th slice, a tree's
+    `tenant(b)`, each element of a tuple so; the positions in `shared`,
+    None and plain values pass as they are. The plain versions take a
+    batch this way (they are the reference, not the main path)."""
+    return stack_tenants([fn(*(a if i in shared else _tenant_of(a, b)
+                        for i, a in enumerate(args))) for b in range(B)])

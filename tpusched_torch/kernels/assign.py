@@ -68,7 +68,7 @@ import torch
 
 from tpusched_torch import _build
 from tpusched_torch.config import DO_NOT_SCHEDULE, EngineConfig
-from tpusched_torch.kernels import check, ptrs, stream_of
+from tpusched_torch.kernels import check, per_tenant, ptrs, stream_of
 from tpusched_torch.kernels import explain as kexplain
 from tpusched_torch.kernels import filter as kfilter
 from tpusched_torch.kernels import pairwise as kpair
@@ -100,6 +100,20 @@ class StaticCtx:
     w_ia: torch.Tensor       # [P]
     rw: torch.Tensor         # [R] resource score weights
 
+    # A tenant batch (tenants.solve_many) carries a leading [B] axis on
+    # every field but rw, which the config fixes for all tenants.
+
+    def tenant(self, b: int) -> "StaticCtx":
+        return self._map(lambda t: t[b])
+
+    def as_batch(self) -> "StaticCtx":
+        return self._map(lambda t: t.unsqueeze(0))
+
+    def _map(self, fn) -> "StaticCtx":
+        return dataclasses.replace(self, **{
+            f.name: fn(getattr(self, f.name))
+            for f in dataclasses.fields(self) if f.name != "rw"})
+
 
 # -- K2: the cell-local tableau ---------------------------------------------
 
@@ -107,7 +121,10 @@ class StaticCtx:
 def _tableau_cells_plain(snap: ClusterSnapshot, pods_v: PodArrays,
                          nodes_v: NodeArrays, node_sat_v: torch.Tensor):
     """(mask, aff_ok, na_raw, tt_count), each [P, N], in the JAX op
-    sequence."""
+    sequence; [B, P, N] for a tenant batch, tenant by tenant."""
+    if node_sat_v.dim() == 3:
+        return per_tenant(_tableau_cells_plain, node_sat_v.shape[0], snap,
+                          pods_v, nodes_v, node_sat_v)
     aff_ok = kfilter.node_affinity_mask(
         node_sat_v, pods_v.req_term_atoms, pods_v.req_term_valid
     )
@@ -140,30 +157,31 @@ def _tableau_cells(snap: ClusterSnapshot, pods_v: PodArrays,
     dev = node_sat_v.device
     if dev.type == "cpu":
         return _tableau_cells_plain(snap, pods_v, nodes_v, node_sat_v)
-    A, N = node_sat_v.shape
-    P, T, AT = pods_v.req_term_atoms.shape
-    PT = pods_v.pref_term_atoms.shape[1]
-    TN = nodes_v.taint_ids.shape[1]
-    VT = snap.taint_effect.shape[0]
+    lead = node_sat_v.shape[:-2]           # () or (B,): the tenant axis
+    A, N = node_sat_v.shape[-2:]
+    P, T, AT = pods_v.req_term_atoms.shape[-3:]
+    PT = pods_v.pref_term_atoms.shape[-2]
+    TN = nodes_v.taint_ids.shape[-1]
+    VT = snap.taint_effect.shape[-1]
     k = "tableau_cells"
-    check(k, dev, node_sat_v, torch.bool, (A, N))
-    check(k, dev, pods_v.req_term_atoms, torch.int32, (P, T, AT))
-    check(k, dev, pods_v.req_term_valid, torch.bool, (P, T))
-    check(k, dev, pods_v.pref_term_atoms, torch.int32, (P, PT, AT))
-    check(k, dev, pods_v.pref_term_valid, torch.bool, (P, PT))
-    check(k, dev, pods_v.pref_weight, torch.float32, (P, PT))
-    check(k, dev, nodes_v.taint_ids, torch.int32, (N, TN))
-    check(k, dev, snap.taint_effect, torch.int8, (VT,))
-    check(k, dev, pods_v.tolerated, torch.bool, (P, VT))
-    check(k, dev, nodes_v.schedulable, torch.bool, (N,))
-    check(k, dev, nodes_v.valid, torch.bool, (N,))
-    check(k, dev, pods_v.tolerates_unsched, torch.bool, (P,))
-    check(k, dev, pods_v.valid, torch.bool, (P,))
-    mask = torch.empty((P, N), dtype=torch.bool, device=dev)
-    aff_ok = torch.empty((P, N), dtype=torch.bool, device=dev)
-    na_raw = torch.empty((P, N), dtype=torch.float32, device=dev)
-    tt_count = torch.empty((P, N), dtype=torch.float32, device=dev)
-    if P * N == 0:
+    check(k, dev, node_sat_v, torch.bool, (*lead, A, N))
+    check(k, dev, pods_v.req_term_atoms, torch.int32, (*lead, P, T, AT))
+    check(k, dev, pods_v.req_term_valid, torch.bool, (*lead, P, T))
+    check(k, dev, pods_v.pref_term_atoms, torch.int32, (*lead, P, PT, AT))
+    check(k, dev, pods_v.pref_term_valid, torch.bool, (*lead, P, PT))
+    check(k, dev, pods_v.pref_weight, torch.float32, (*lead, P, PT))
+    check(k, dev, nodes_v.taint_ids, torch.int32, (*lead, N, TN))
+    check(k, dev, snap.taint_effect, torch.int8, (*lead, VT))
+    check(k, dev, pods_v.tolerated, torch.bool, (*lead, P, VT))
+    check(k, dev, nodes_v.schedulable, torch.bool, (*lead, N))
+    check(k, dev, nodes_v.valid, torch.bool, (*lead, N))
+    check(k, dev, pods_v.tolerates_unsched, torch.bool, (*lead, P))
+    check(k, dev, pods_v.valid, torch.bool, (*lead, P))
+    mask = torch.empty((*lead, P, N), dtype=torch.bool, device=dev)
+    aff_ok = torch.empty((*lead, P, N), dtype=torch.bool, device=dev)
+    na_raw = torch.empty((*lead, P, N), dtype=torch.float32, device=dev)
+    tt_count = torch.empty((*lead, P, N), dtype=torch.float32, device=dev)
+    if mask.numel() == 0:
         return mask, aff_ok, na_raw, tt_count
     args = (node_sat_v, pods_v.req_term_atoms, pods_v.req_term_valid,
             pods_v.pref_term_atoms, pods_v.pref_term_valid,
@@ -171,7 +189,8 @@ def _tableau_cells(snap: ClusterSnapshot, pods_v: PodArrays,
             pods_v.tolerated, nodes_v.schedulable, nodes_v.valid,
             pods_v.tolerates_unsched, pods_v.valid,
             mask, aff_ok, na_raw, tt_count)
-    _build.launch("tpusched_tableau_cells", P, N, A, T, AT, PT, TN, VT,
+    _build.launch("tpusched_tableau_cells", lead[0] if lead else 1, P, N,
+                  A, T, AT, PT, TN, VT,
                   *(t.data_ptr() for t in args), stream_of(dev))
     _tableau_cells.launches += 1
     return mask, aff_ok, na_raw, tt_count
@@ -186,7 +205,11 @@ _tableau_cells.launches = 0
 def finalize_score_plain(na_raw: torch.Tensor, tt_count: torch.Tensor,
                          node_valid: torch.Tensor, w_na: torch.Tensor,
                          w_tt: torch.Tensor) -> torch.Tensor:
-    """[P, N] f32 w_na*default_normalize(na_raw) + w_tt*tt_score."""
+    """[P, N] f32 w_na*default_normalize(na_raw) + w_tt*tt_score; a
+    tenant batch tenant by tenant."""
+    if na_raw.dim() == 3:
+        return per_tenant(finalize_score_plain, na_raw.shape[0], na_raw,
+                          tt_count, node_valid, w_na, w_tt)
     na = kscore.default_normalize(na_raw, node_valid)
     tt = kscore.taint_toleration_from_count(tt_count, node_valid)
     return w_na[:, None] * na + w_tt[:, None] * tt
@@ -199,17 +222,18 @@ def finalize_score(na_raw: torch.Tensor, tt_count: torch.Tensor,
     dev = na_raw.device
     if dev.type == "cpu":
         return finalize_score_plain(na_raw, tt_count, node_valid, w_na, w_tt)
-    P, N = na_raw.shape
+    lead = na_raw.shape[:-2]               # () or (B,): the tenant axis
+    P, N = na_raw.shape[-2:]
     k = "finalize_static"
-    check(k, dev, na_raw, torch.float32, (P, N))
-    check(k, dev, tt_count, torch.float32, (P, N))
-    check(k, dev, node_valid, torch.bool, (N,))
-    check(k, dev, w_na, torch.float32, (P,))
-    check(k, dev, w_tt, torch.float32, (P,))
-    score = torch.empty((P, N), dtype=torch.float32, device=dev)
-    if P * N == 0:
+    check(k, dev, na_raw, torch.float32, (*lead, P, N))
+    check(k, dev, tt_count, torch.float32, (*lead, P, N))
+    check(k, dev, node_valid, torch.bool, (*lead, N))
+    check(k, dev, w_na, torch.float32, (*lead, P))
+    check(k, dev, w_tt, torch.float32, (*lead, P))
+    score = torch.empty((*lead, P, N), dtype=torch.float32, device=dev)
+    if score.numel() == 0:
         return score
-    _build.launch("tpusched_finalize_static", P, N,
+    _build.launch("tpusched_finalize_static", lead[0] if lead else 1, P, N,
                   *(t.data_ptr() for t in (na_raw, tt_count, node_valid,
                                            w_na, w_tt, score)),
                   stream_of(dev))
@@ -260,11 +284,12 @@ def build_tableau(cfg: EngineConfig, snap: ClusterSnapshot,
     is an empty [0, M+P] table."""
     ops = ops or KERNELS
     cells = ops.tableau_cells(snap, snap.pods, snap.nodes, node_sat_t)
-    if snap.sigs.key.shape[0] > 0:
+    if snap.sigs.key.shape[-1] > 0:
         sm = ops.sig_match(member_sat_t, snap.sigs, _member_ns(snap))
     else:
-        sm = torch.zeros((0, snap.running.valid.shape[0]
-                          + snap.pods.valid.shape[0]),
+        sm = torch.zeros((*node_sat_t.shape[:-2], 0,
+                          snap.running.valid.shape[-1]
+                          + snap.pods.valid.shape[-1]),
                          dtype=torch.bool, device=node_sat_t.device)
     return WarmTableau(node_sat_t, member_sat_t, sm, *cells)
 
@@ -450,20 +475,32 @@ def pick_node(cfg: EngineConfig, masked: torch.Tensor,
 def pop_order(cfg: EngineConfig, snap: ClusterSnapshot) -> torch.Tensor:
     """Queue order: stable descending sort by dynamic QoS priority;
     invalid pods sink to the end. A library sort, as jnp.argsort is on
-    the JAX side."""
+    the JAX side. A tenant batch sorts each tenant's row."""
     pods = snap.pods
     prio = effective_priority(cfg, pods.base_priority, pods.slo_target,
                               pods.observed_avail)
     key = torch.where(pods.valid, prio,
                       torch.full((), NEG_INF, dtype=prio.dtype,
                                  device=prio.device))
-    return torch.sort(-key, stable=True).indices
+    return torch.sort(-key, dim=-1, stable=True).indices
+
+
+def _rank_of(order: torch.Tensor) -> torch.Tensor:
+    """Each pod's position in the pop order (int32, per tenant)."""
+    P = order.shape[-1]
+    return torch.zeros(order.shape, dtype=torch.int32,
+                       device=order.device).scatter_(
+        -1, order, torch.arange(P, dtype=torch.int32,
+                                device=order.device).expand(order.shape))
 
 
 def parity_scan_plain(cfg: EngineConfig, snap: ClusterSnapshot,
                       static: StaticCtx, order: torch.Tensor):
     """The sequential commit loop in plain torch: (assigned [P] int32,
-    chosen [P] f32, used [N, R] f32)."""
+    chosen [P] f32, used [N, R] f32); a tenant batch tenant by tenant."""
+    if order.dim() == 2:
+        return per_tenant(parity_scan_plain, order.shape[0], cfg, snap,
+                          static, order)
     return _scan_loop(cfg, snap, static, order)[:3]
 
 
@@ -566,20 +603,22 @@ def _scan_loop(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
 
 def _scan_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
                static: StaticCtx, order: torch.Tensor) -> tuple:
-    """Check K4's arguments (both variants): (P, N, R, order, the [P, N]
-    and per-pod tensors, seeded, seed)."""
+    """Check K4's arguments (all variants; a tenant axis only without
+    signatures or preemption): (P, N, R, order, the [P, N] and per-pod
+    tensors, seeded, seed)."""
     dev = static.mask.device
-    P, N = static.mask.shape
-    R = snap.nodes.allocatable.shape[1]
+    lead = static.mask.shape[:-2]          # () or (B,): the tenant axis
+    P, N = static.mask.shape[-2:]
+    R = snap.nodes.allocatable.shape[-1]
     order32 = order.to(torch.int32).contiguous()
-    check(k, dev, order32, torch.int32, (P,))
-    check(k, dev, static.mask, torch.bool, (P, N))
-    check(k, dev, static.score, torch.float32, (P, N))
-    check(k, dev, snap.nodes.allocatable, torch.float32, (N, R))
-    check(k, dev, snap.nodes.used, torch.float32, (N, R))
-    check(k, dev, snap.pods.requests, torch.float32, (P, R))
+    check(k, dev, order32, torch.int32, (*lead, P))
+    check(k, dev, static.mask, torch.bool, (*lead, P, N))
+    check(k, dev, static.score, torch.float32, (*lead, P, N))
+    check(k, dev, snap.nodes.allocatable, torch.float32, (*lead, N, R))
+    check(k, dev, snap.nodes.used, torch.float32, (*lead, N, R))
+    check(k, dev, snap.pods.requests, torch.float32, (*lead, P, R))
     for w in (static.w_lr, static.w_ba, static.w_ts, static.w_ia):
-        check(k, dev, w, torch.float32, (P,))
+        check(k, dev, w, torch.float32, (*lead, P))
     check(k, dev, static.rw, torch.float32, (R,))
     if R > 8:
         raise ValueError(f"{k}: {R} resource axes, the kernel takes <= 8")
@@ -597,13 +636,13 @@ def parity_scan(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
     if dev.type == "cpu":
         return parity_scan_plain(cfg, snap, static, order)
     args = _scan_args("parity_scan", cfg, snap, static, order)
-    P = args[0]
     used = snap.nodes.used.clone()
-    assigned = torch.empty((P,), dtype=torch.int32, device=dev)
-    chosen = torch.empty((P,), dtype=torch.float32, device=dev)
-    if P == 0:
+    assigned = torch.empty(order.shape, dtype=torch.int32, device=dev)
+    chosen = torch.empty(order.shape, dtype=torch.float32, device=dev)
+    if assigned.numel() == 0:
         return assigned, chosen, used
-    _build.launch("tpusched_parity_scan", *ptrs(args), used.data_ptr(),
+    B = order.shape[0] if order.dim() == 2 else 1
+    _build.launch("tpusched_parity_scan", B, *ptrs(args), used.data_ptr(),
                   assigned.data_ptr(), chosen.data_ptr(), stream_of(dev))
     parity_scan.launches += 1
     return assigned, chosen, used
@@ -783,18 +822,21 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
     and its pop-order step (K4's explain outputs; -1 where not evicted,
     and everywhere without preemption), and an all-zero
     [_PREEMPT_MAX_ROUNDS, EXPLAIN_AUCTION_STATS] table (parity mode has
-    no auction). The placements are the same either way."""
+    no auction). The placements are the same either way. A tenant batch
+    (a leading [B] axis, without signatures, gangs or preemption) scans
+    every tenant in one K4 launch."""
     ops = ops or KERNELS
     if static is None:
         static = precompute_static(cfg, snap, node_sat_t, member_sat_t, ops)
-    M = snap.running.valid.shape[0]
+    M = snap.running.valid.shape[-1]
     order = pop_order(cfg, snap)
     dev = order.device
     pctx = kpre.precompute(cfg, snap) if cfg.preemption and M else None
-    evicted = torch.zeros(M, dtype=torch.bool, device=dev)
+    evicted = torch.zeros(snap.running.valid.shape, dtype=torch.bool,
+                          device=dev)
     more = ()
     st = dom_s = None
-    if snap.sigs.key.shape[0] > 0:
+    if snap.sigs.key.shape[-1] > 0:
         dom_s = kpair.sig_domains(snap)
         st0 = ops.pair_counts(static.sig_match, dom_s, snap.running,
                               snap.pods)
@@ -840,7 +882,12 @@ def cycle_plain(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
     the pair rows; pending cuts rows to pending pods; masked=True gives
     where(feasible, score, -inf). With ia_ok (K11's, [P, N]) a third
     output: the spread-relaxed feasibility mask & fit & ia_ok, cut to
-    pending rows (batched_cycle's return_relaxed)."""
+    pending rows (batched_cycle's return_relaxed). A tenant batch (a
+    leading [B] axis on all but rw) goes tenant by tenant."""
+    if mask.dim() == 3:
+        return per_tenant(cycle_plain, mask.shape[0], alloc, used, req, mask,
+                          sscore, w_lr, w_ba, w_ts, rw, rows, pending,
+                          masked, pair, w_ia, ia_ok, shared=(8,))
     if rows is not None:
         rows = rows.long()
         req, mask, sscore = req[rows], mask[rows], sscore[rows]
@@ -885,42 +932,44 @@ def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
     if dev.type == "cpu":
         return cycle_plain(alloc, used, req, mask, sscore, w_lr, w_ba, w_ts,
                            rw, rows, pending, masked, pair, w_ia, ia_ok)
-    P, N = mask.shape
-    R = alloc.shape[1]
+    lead = mask.shape[:-2]                 # () or (B,): the tenant axis
+    P, N = mask.shape[-2:]
+    R = alloc.shape[-1]
     k = "cycle"
-    check(k, dev, alloc, torch.float32, (N, R))
-    check(k, dev, used, torch.float32, (N, R))
-    check(k, dev, req, torch.float32, (P, R))
-    check(k, dev, sscore, torch.float32, (P, N))
+    check(k, dev, alloc, torch.float32, (*lead, N, R))
+    check(k, dev, used, torch.float32, (*lead, N, R))
+    check(k, dev, req, torch.float32, (*lead, P, R))
+    check(k, dev, sscore, torch.float32, (*lead, P, N))
     for w in (w_lr, w_ba, w_ts):
-        check(k, dev, w, torch.float32, (P,))
+        check(k, dev, w, torch.float32, (*lead, P))
     check(k, dev, rw, torch.float32, (R,))
     if R > 8:
         raise ValueError(f"{k}: {R} resource axes, the kernel takes <= 8")
-    n_rows = P if rows is None else rows.shape[0]
+    n_rows = P if rows is None else rows.shape[-1]
     if rows is not None:
-        check(k, dev, rows, torch.int32, (n_rows,))
+        check(k, dev, rows, torch.int32, (*lead, n_rows))
     if pending is not None:
-        check(k, dev, pending, torch.bool, (n_rows,))
+        check(k, dev, pending, torch.bool, (*lead, n_rows))
     pair_ptrs = (None,) * 4
     if pair is not None:
-        check(k, dev, pair[0], torch.bool, (P, N))
-        check(k, dev, pair[1], torch.float32, (P, N))
-        check(k, dev, pair[2], torch.float32, (P, N))
-        check(k, dev, w_ia, torch.float32, (P,))
+        check(k, dev, pair[0], torch.bool, (*lead, P, N))
+        check(k, dev, pair[1], torch.float32, (*lead, P, N))
+        check(k, dev, pair[2], torch.float32, (*lead, P, N))
+        check(k, dev, w_ia, torch.float32, (*lead, P))
         pair_ptrs = tuple(t.data_ptr() for t in (*pair, w_ia))
     relaxed = None
     if ia_ok is not None:
-        check(k, dev, ia_ok, torch.bool, (P, N))
-        relaxed = torch.empty((n_rows, N), dtype=torch.bool, device=dev)
-    feasible = torch.empty((n_rows, N), dtype=torch.bool, device=dev)
-    score = torch.empty((n_rows, N), dtype=torch.float32, device=dev)
+        check(k, dev, ia_ok, torch.bool, (*lead, P, N))
+        relaxed = torch.empty((*lead, n_rows, N), dtype=torch.bool,
+                              device=dev)
+    feasible = torch.empty((*lead, n_rows, N), dtype=torch.bool, device=dev)
+    score = torch.empty((*lead, n_rows, N), dtype=torch.float32, device=dev)
     out = (feasible, score) if relaxed is None else (feasible, score,
                                                      relaxed)
-    if n_rows * N == 0:
+    if feasible.numel() == 0:
         return out
     _build.launch(
-        "tpusched_cycle", n_rows, N, R,
+        "tpusched_cycle", lead[0] if lead else 1, n_rows, P, N, R,
         rows.data_ptr() if rows is not None else None,
         pending.data_ptr() if pending is not None else None,
         *(t.data_ptr() for t in (mask, sscore, alloc, used, req, w_lr, w_ba,
@@ -946,7 +995,10 @@ def row_topk_plain(masked: torch.Tensor, K: int, seeded: bool = False,
     None): the K best entries of each row, larger first and ties to the
     lower index (a stable descending sort; `torch.topk` leaves the tie
     order unspecified), and with `seeded` pick_node_batch's pick, the
-    (tie_hash(seed, id) % #maxima)-th maximum in node order."""
+    (tie_hash(seed, id) % #maxima)-th maximum in node order. A tenant
+    batch [B, V, N] is ranked as its B * V rows."""
+    if masked.dim() == 3:
+        return _tenant_rows(row_topk_plain, masked, K, seeded, seed, row_ids)
     vals, idx = torch.sort(masked, dim=1, descending=True, stable=True)
     topv = vals[:, :K].contiguous()
     topi = idx[:, :K].to(torch.int32).contiguous()
@@ -968,6 +1020,8 @@ def row_topk(masked: torch.Tensor, K: int, seeded: bool = False,
     dev = masked.device
     if dev.type == "cpu":
         return row_topk_plain(masked, K, seeded, seed, row_ids)
+    if masked.dim() == 3:
+        return _tenant_rows(row_topk, masked, K, seeded, seed, row_ids)
     rows, N = masked.shape
     k = "row_topk"
     check(k, dev, masked, torch.float32, (rows, N))
@@ -997,6 +1051,21 @@ row_topk.launches = 0
 row_topk.wide_launches = 0   # of them, with K > 16 (the auction's 256)
 
 
+def _tenant_rows(fn, masked: torch.Tensor, K: int, seeded: bool, seed: int,
+                 row_ids: torch.Tensor | None):
+    """K6 (or its plain version) over a tenant batch [B, V, N]: its rows
+    flatten to B * V rows, each keyed by its tenant's own pod id (the row
+    index within the tenant when row_ids is None)."""
+    B, V, N = masked.shape
+    if row_ids is None:
+        row_ids = torch.arange(V, dtype=torch.int32,
+                               device=masked.device).expand(B, V)
+    out = fn(masked.reshape(B * V, N), K, seeded, seed,
+             row_ids.reshape(B * V).contiguous())
+    return tuple(None if t is None else t.reshape(B, V, *t.shape[1:])
+                 for t in out)
+
+
 # -- K7: node desirability --------------------------------------------------
 
 
@@ -1008,7 +1077,10 @@ def desirability_plain(feasible: torch.Tensor, masked: torch.Tensor,
     rows one at a time in ascending order, as the kernel does. fixed
     (the signature path): the sum is of int32 round(x * 16) clipped to
     +-32767, over 16 * #allowed, the same at any row order or view
-    width."""
+    width. A tenant batch [B, rows, N] gives [B, N], tenant by tenant."""
+    if masked.dim() == 3:
+        return per_tenant(desirability_plain, masked.shape[0], feasible,
+                          masked, allowed, fixed)
     ok = feasible & allowed[:, None]
     contrib = torch.where(ok, masked, torch.zeros((), dtype=masked.dtype,
                                                   device=masked.device))
@@ -1036,18 +1108,19 @@ def desirability(feasible: torch.Tensor, masked: torch.Tensor,
     dev = masked.device
     if dev.type == "cpu":
         return desirability_plain(feasible, masked, allowed, fixed)
-    rows, N = masked.shape
+    lead = masked.shape[:-2]               # () or (B,): the tenant axis
+    rows, N = masked.shape[-2:]
     k = "desirability"
-    check(k, dev, feasible, torch.bool, (rows, N))
-    check(k, dev, masked, torch.float32, (rows, N))
-    check(k, dev, allowed, torch.bool, (rows,))
-    desir = torch.empty((N,), dtype=torch.float32, device=dev)
-    if N == 0:
+    check(k, dev, feasible, torch.bool, (*lead, rows, N))
+    check(k, dev, masked, torch.float32, (*lead, rows, N))
+    check(k, dev, allowed, torch.bool, (*lead, rows))
+    desir = torch.empty((*lead, N), dtype=torch.float32, device=dev)
+    if desir.numel() == 0:
         return desir
     # The fixed-point path's int32 partial sums (zeroed; unused in f32).
-    work = torch.zeros((2 * N + 1,) if fixed else (1,), dtype=torch.int32,
-                       device=dev)
-    _build.launch("tpusched_desirability", rows, N, feasible.data_ptr(),
+    work = torch.zeros((*lead, 2 * N + 1) if fixed else (1,),
+                       dtype=torch.int32, device=dev)
+    _build.launch("tpusched_desirability", lead[0] if lead else 1, rows, N, feasible.data_ptr(),
                   masked.data_ptr(), allowed.data_ptr(), int(fixed),
                   work.data_ptr(), desir.data_ptr(), stream_of(dev))
     desirability.launches += 1
@@ -1097,7 +1170,12 @@ def prefix_commit_plain(perm: torch.Tensor, cand_s: torch.Tensor,
     """One `_deal_commit` sub-step over the (node, rank)-sorted
     candidates (perm: sorted row -> pod row; cand_s: sorted nodes, N for
     inactive rows). Returns the new (used, choice, ptr). `used` gains
-    each node's commits one at a time in ascending rank."""
+    each node's commits one at a time in ascending rank. A tenant batch
+    (a leading [B] axis, perm holding each tenant's own pod indices) goes
+    tenant by tenant."""
+    if perm.dim() == 2:
+        return per_tenant(prefix_commit_plain, perm.shape[0], perm, cand_s,
+                          requests, alloc, used, choice, ptr, KC)
     P = perm.shape[0]
     N = alloc.shape[0]
     dev = perm.device
@@ -1142,24 +1220,25 @@ def prefix_commit(perm: torch.Tensor, cand_s: torch.Tensor,
     if dev.type == "cpu":
         return prefix_commit_plain(perm, cand_s, requests, alloc, used,
                                    choice, ptr, KC)
-    P = perm.shape[0]
-    N, R = alloc.shape
+    lead = perm.shape[:-1]                 # () or (B,): the tenant axis
+    P = perm.shape[-1]
+    N, R = alloc.shape[-2:]
     k = "prefix_commit"
-    check(k, dev, perm, torch.int32, (P,))
-    check(k, dev, cand_s, torch.int32, (P,))
-    check(k, dev, requests, torch.float32, (P, R))
-    check(k, dev, alloc, torch.float32, (N, R))
-    check(k, dev, used, torch.float32, (N, R))
-    check(k, dev, choice, torch.int32, (P,))
-    check(k, dev, ptr, torch.int32, (P,))
+    check(k, dev, perm, torch.int32, (*lead, P))
+    check(k, dev, cand_s, torch.int32, (*lead, P))
+    check(k, dev, requests, torch.float32, (*lead, P, R))
+    check(k, dev, alloc, torch.float32, (*lead, N, R))
+    check(k, dev, used, torch.float32, (*lead, N, R))
+    check(k, dev, choice, torch.int32, (*lead, P))
+    check(k, dev, ptr, torch.int32, (*lead, P))
     used, choice, ptr = used.clone(), choice.clone(), ptr.clone()
-    if P == 0:
+    if perm.numel() == 0:
         return used, choice, ptr
-    buf_f = torch.empty((2 * P,), dtype=torch.float32, device=dev)
-    buf_i = torch.empty((2 * P,), dtype=torch.int32, device=dev)
-    fit = torch.empty((P,), dtype=torch.uint8, device=dev)
+    buf_f = torch.empty((*lead, 2 * P), dtype=torch.float32, device=dev)
+    buf_i = torch.empty((*lead, 2 * P), dtype=torch.int32, device=dev)
+    fit = torch.empty((*lead, P), dtype=torch.uint8, device=dev)
     _build.launch(
-        "tpusched_prefix_commit", P, N, R, KC,
+        "tpusched_prefix_commit", lead[0] if lead else 1, P, N, R, KC,
         *(t.data_ptr() for t in (perm, cand_s, requests, alloc, used, choice,
                                  ptr, buf_f, buf_i, fit)),
         stream_of(dev))
@@ -1379,6 +1458,37 @@ def _top_by_rank(pend: torch.Tensor, order: torch.Tensor, C: int):
     return buf, n_pend
 
 
+def top_by_rank_plain(pend: torch.Tensor, order: torch.Tensor, C: int):
+    """K24's plain version: `_top_by_rank`, tenant by tenant for a batch
+    ([B, P] pend and order give [B, C] slots and [B] counts)."""
+    if pend.dim() == 2:
+        return per_tenant(_top_by_rank, pend.shape[0], pend, order, C)
+    return _top_by_rank(pend, order, C)
+
+
+def top_by_rank(pend: torch.Tensor, order: torch.Tensor, C: int):
+    """Kernel K24 on CUDA tensors, the plain version on CPU tensors."""
+    dev = pend.device
+    if dev.type == "cpu":
+        return top_by_rank_plain(pend, order, C)
+    lead = pend.shape[:-1]                 # () or (B,): the tenant axis
+    P = pend.shape[-1]
+    k = "top_by_rank"
+    if not 1 <= C <= P:
+        raise ValueError(f"{k}: C={C} outside 1..{P}")
+    check(k, dev, pend, torch.bool, (*lead, P))
+    check(k, dev, order, torch.int64, (*lead, P))
+    buf = torch.empty((*lead, C), dtype=torch.int64, device=dev)
+    n_pend = torch.empty(lead, dtype=torch.int64, device=dev)
+    _build.launch("tpusched_top_by_rank", lead[0] if lead else 1, P, C,
+                  *ptrs((pend, order, buf, n_pend)), stream_of(dev))
+    top_by_rank.launches += 1
+    return buf, n_pend
+
+
+top_by_rank.launches = 0
+
+
 def _deal_prefixes(dem: torch.Tensor, rem: torch.Tensor):
     """Inclusive prefix sums along dim 0 of the dealing's demand [P, R]
     and remaining capacity [N, R], in _scan_plain's fixed Hillis-Steele
@@ -1396,12 +1506,72 @@ def _deal_prefixes(dem: torch.Tensor, rem: torch.Tensor):
     return both[:P, :R], both[:rem.shape[0], R:]
 
 
+def deal_plain(dem: torch.Tensor, rem: torch.Tensor,
+               gather: torch.Tensor | None = None) -> torch.Tensor:
+    """K23's plain version: each pod's dealt position, [P] int64 (JAX
+    `_deal_commit`'s dealing). The inclusive prefixes of the demand dem
+    [L, R] and of the remaining capacity rem [N, R] (nodes by descending
+    desirability) come from `_deal_prefixes`; with my_dem the demand
+    prefix at row gather[p] (rows scattered by rank; gather None: row
+    p), the position is the largest over r of the left searchsorted of
+    my_dem[p, r] in the capacity prefix's column r. A tenant batch goes
+    tenant by tenant."""
+    if rem.dim() == 3:
+        return per_tenant(deal_plain, rem.shape[0], dem, rem, gather)
+    my_dem, cum_rem = _deal_prefixes(dem, rem)
+    if gather is not None:
+        my_dem = my_dem[gather]
+    pos = torch.zeros(my_dem.shape[0], dtype=torch.int64, device=dem.device)
+    for r in range(cum_rem.shape[1]):
+        pos = torch.maximum(pos, torch.searchsorted(
+            cum_rem[:, r].contiguous(), my_dem[:, r].contiguous()))
+    return pos
+
+
+# The scan's double buffer of 2 * max(L, N) floats must fit a block's
+# shared memory (227 KB on Hopper).
+_DEAL_SMEM = 232448
+
+
+def deal(dem: torch.Tensor, rem: torch.Tensor,
+         gather: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel K23 on CUDA tensors, the plain version on CPU tensors."""
+    dev = rem.device
+    if dev.type == "cpu":
+        return deal_plain(dem, rem, gather)
+    lead = rem.shape[:-2]                  # () or (B,): the tenant axis
+    L, R = dem.shape[-2:]
+    N = rem.shape[-2]
+    P = L if gather is None else gather.shape[-1]
+    k = "deal"
+    check(k, dev, dem, torch.float32, (*lead, L, R))
+    check(k, dev, rem, torch.float32, (*lead, N, R))
+    if gather is not None:
+        check(k, dev, gather, torch.int64, (*lead, P))
+    if 8 * max(L, N) > _DEAL_SMEM:
+        raise ValueError(f"{k}: {max(L, N)} rows, the scan takes at most "
+                         f"{_DEAL_SMEM // 8}")
+    pos = torch.empty((*lead, P), dtype=torch.int64, device=dev)
+    if pos.numel() == 0:
+        return pos
+    cum_dem = torch.empty((*lead, R, L), dtype=torch.float32, device=dev)
+    cum_rem = torch.empty((*lead, R, N), dtype=torch.float32, device=dev)
+    _build.launch("tpusched_deal", lead[0] if lead else 1, P, L, N, R,
+                  *ptrs((dem, rem, gather, cum_dem, cum_rem, pos)),
+                  stream_of(dev))
+    deal.launches += 1
+    return pos
+
+
+deal.launches = 0
+
+
 def _desc_order(x: torch.Tensor) -> torch.Tensor:
-    """Indices of x by descending value, ties in index order (JAX's
-    stable argsort of -x). Adding 0.0 turns -0.0 into +0.0 first: JAX's
-    sort compares the two zeros equal, CUDA's radix sort of floats would
-    put -0.0 first."""
-    return torch.sort(-x + 0.0, stable=True).indices
+    """Indices of x by descending value along its last axis, ties in
+    index order (JAX's stable argsort of -x). Adding 0.0 turns -0.0 into
+    +0.0 first: JAX's sort compares the two zeros equal, CUDA's radix sort
+    of floats would put -0.0 first."""
+    return torch.sort(-x + 0.0, dim=-1, stable=True).indices
 
 
 def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
@@ -1414,15 +1584,15 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
     each row's top-K of `masked` (K6, ties to the lower index). Returns
     (used2, choice, chosen_val); choice[p] = committed node or -1.
 
-    Dealing: the q-th allowed pod by rank targets the node where the
-    cumulative remaining capacity (nodes by descending desirability, K7)
-    first covers the cumulative demand of pods 0..q, for every resource.
-    The dealt node (when feasible) leads each pod's candidate list, then
-    its own top-K; K + 1 capacity sub-steps (K8) commit, per node, the
-    longest rank-ordered prefix that fits. If nothing committed while an
-    allowed pod is still feasible somewhere, the best-ranked such pod is
-    committed at its own top choice (the rescue), so every round places
-    a pod until nothing pending is placeable.
+    Dealing (K23): the q-th allowed pod by rank targets the node where
+    the cumulative remaining capacity (nodes by descending desirability,
+    K7) first covers the cumulative demand of pods 0..q, for every
+    resource. The dealt node (when feasible) leads each pod's candidate
+    list, then its own top-K; K + 1 capacity sub-steps (K8) commit, per
+    node, the longest rank-ordered prefix that fits. If nothing committed
+    while an allowed pod is still feasible somewhere, the best-ranked
+    such pod is committed at its own top choice (the rescue), so every
+    round places a pod until nothing pending is placeable.
 
     The signature path passes override = K12's (cand, val, ok): a spread
     member's whole candidate list becomes its in-domain rotation; its
@@ -1437,12 +1607,22 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
     over the view's rows (the S = 0 tranches' rank_is_sorted shortcut).
     K8 needs nothing: its Hillis-Steele prefix over the front-packed
     active rows gives row i a sum of rows <= i only, and its `used` adds
-    go in rank order."""
+    go in rank order.
+
+    A tenant batch (tenants.solve_many) carries a leading [B] axis on
+    every tensor: each kernel launches once for all tenants, the
+    sub-steps run while any tenant has an active candidate (one host
+    read a sub-step), and the rescue is per tenant; a tenant with no
+    allowed pod keeps its `used` bit for bit."""
     ops = ops or KERNELS
     stats = stats or RoundStats()
-    P = requests.shape[0]
-    N = alloc.shape[0]
+    lead = rank.shape[:-1]                 # () or (B,): the tenant axis
+    P = rank.shape[-1]
+    N, R = alloc.shape[-2:]
     dev = requests.device
+    # Index of each tenant's row x[b, i[b]] (x[i] without a tenant axis).
+    at = ((lambda i: (torch.arange(lead[0], device=dev), i)) if lead
+          else (lambda i: (i,)))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     with stats.span("K7 desirability"):
         if cum_width is None:
@@ -1451,64 +1631,63 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
             desir = ops.desirability(feasible, masked, allowed, fixed=True)
     node_order = _desc_order(desir)
     remaining = (alloc - used).clamp_min(0.0)
-    remaining = torch.where(torch.isfinite(desir)[:, None], remaining, zero)
+    remaining = torch.where(torch.isfinite(desir)[..., None], remaining, zero)
+    rem_s = remaining.gather(-2, node_order[..., None].expand(*lead, N, R))
     # Inclusive cumulative demand of allowed pods in rank order.
-    dem = torch.where(allowed[:, None], requests, zero)
-    if rank_is_sorted and cum_width is None:
-        my_dem, cum_rem = _deal_prefixes(dem, remaining[node_order])
-    else:
-        rm = dem.new_zeros((P if cum_width is None else cum_width,
-                            dem.shape[1]))
-        rm[rank.long()] = dem
-        my_dem, cum_rem = _deal_prefixes(rm, remaining[node_order])
-        my_dem = my_dem[rank.long()]
-    pos = torch.zeros(P, dtype=torch.int64, device=dev)
-    for r in range(cum_rem.shape[1]):
-        pos = torch.maximum(pos, torch.searchsorted(
-            cum_rem[:, r].contiguous(), my_dem[:, r].contiguous()))
-    dealt = node_order[pos.clamp(0, N - 1)]
-    dealt_ok = feasible.gather(1, dealt[:, None])[:, 0]
-    first_best = topi[:, 0]      # lowest-index maximum (jnp.argmax)
+    dem = torch.where(allowed[..., None], requests, zero)
+    with stats.span("K23 deal"):
+        if rank_is_sorted and cum_width is None:
+            pos = ops.deal(dem, rem_s)
+        else:
+            rank64 = rank.long()
+            rm = dem.new_zeros((*lead, P if cum_width is None else cum_width,
+                                R))
+            rm.scatter_(-2, rank64[..., None].expand(*lead, P, R), dem)
+            pos = ops.deal(rm, rem_s, rank64)
+    dealt = node_order.gather(-1, pos.clamp(0, N - 1))
+    dealt_ok = feasible.gather(-1, dealt[..., None])[..., 0]
+    first_best = topi[..., 0]    # lowest-index maximum (jnp.argmax)
     if tie_pick is not None:
         # The seeded pick leads the pod's own list (same max score).
-        tp_val = masked.gather(1, tie_pick.long()[:, None])[:, 0]
-        topi = torch.cat([tie_pick[:, None], topi[:, 1:]], dim=1)
-        topv = torch.cat([tp_val[:, None], topv[:, 1:]], dim=1)
-    dealt_score = masked.gather(1, dealt[:, None])[:, 0]
+        tp_val = masked.gather(-1, tie_pick.long()[..., None])[..., 0]
+        topi = torch.cat([tie_pick[..., None], topi[..., 1:]], dim=-1)
+        topv = torch.cat([tp_val[..., None], topv[..., 1:]], dim=-1)
+    dealt_score = masked.gather(-1, dealt[..., None])[..., 0]
     use_dealt = dealt_ok
     if tie_pick is not None:
         # A dealt node that merely ties the pod's max yields to the hash
         # pick; a strictly lower-scored one keeps its slot.
-        use_dealt = dealt_ok & (dealt_score < topv[:, 0])
+        use_dealt = dealt_ok & (dealt_score < topv[..., 0])
     topi = torch.cat([torch.where(use_dealt, dealt.to(torch.int32),
-                                  topi[:, 0])[:, None], topi], dim=1)
+                                  topi[..., 0])[..., None], topi], dim=-1)
     topv = torch.cat([torch.where(use_dealt, dealt_score,
-                                  topv[:, 0])[:, None], topv], dim=1)
+                                  topv[..., 0])[..., None], topv], dim=-1)
     if override is not None:
         cand, val, ok = override
-        topi = torch.where(ok[:, None], cand, topi)
-        topv = torch.where(ok[:, None], val, topv)
-    KC = topi.shape[1]  # dealt candidate + K fallbacks
+        topi = torch.where(ok[..., None], cand, topi)
+        topv = torch.where(ok[..., None], val, topv)
+    KC = topi.shape[-1]  # dealt candidate + K fallbacks
 
     used_j = used
-    choice = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    ptr = torch.zeros(P, dtype=torch.int32, device=dev)
+    choice = torch.full((*lead, P), -1, dtype=torch.int32, device=dev)
+    ptr = torch.zeros((*lead, P), dtype=torch.int32, device=dev)
     rank64 = rank.long()
     while True:
         with stats.span("sub-steps"):
-            ptr_c = ptr.clamp(0, KC - 1).long()[:, None]
-            cand = topi.gather(1, ptr_c)[:, 0]
-            cand_ok = topv.gather(1, ptr_c)[:, 0] > NEG_INF
+            ptr_c = ptr.clamp(0, KC - 1).long()[..., None]
+            cand = topi.gather(-1, ptr_c)[..., 0]
+            cand_ok = topv.gather(-1, ptr_c)[..., 0] > NEG_INF
             active = allowed & (choice < 0) & (ptr < KC) & cand_ok
             if not stats.read(active.any()):
                 break
-            # Sort by (candidate node, rank); inactive rows go last.
+            # Sort each tenant's rows by (candidate node, rank); inactive
+            # rows go last.
             cand_m = torch.where(active, cand, N)
-            perm = torch.sort((cand_m.long() << 32) + rank64,
+            perm = torch.sort((cand_m.long() << 32) + rank64, dim=-1,
                               stable=True).indices
             with stats.span("K8 prefix_commit"):
                 used_j, choice, ptr = ops.prefix_commit(
-                    perm.to(torch.int32), cand_m[perm].contiguous(),
+                    perm.to(torch.int32), cand_m.gather(-1, perm).contiguous(),
                     requests, alloc, used_j, choice, ptr, KC)
 
     # Rescue: the best-ranked allowed pod that is still feasible
@@ -1516,43 +1695,50 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
     # JAX code's `allowed & want`; with them it also holds water-fill
     # members that only the relaxed rows admit.
     commit = choice >= 0
-    want = allowed if cum_width is None else allowed & feasible.any(dim=1)
-    can_rescue = ~commit.any() & want.any()
+    want = allowed if cum_width is None else allowed & feasible.any(dim=-1)
+    can_rescue = ~commit.any(dim=-1) & want.any(dim=-1)
     BIG = torch.iinfo(torch.int32).max
-    p_star = torch.argmin(torch.where(want, rank, torch.full_like(rank, BIG)))
-    n_star = (tie_pick if tie_pick is not None else first_best)[p_star].long()
+    p_star = torch.argmin(torch.where(want, rank, torch.full_like(rank, BIG)),
+                          dim=-1)
+    n_star = (tie_pick if tie_pick is not None else first_best)[
+        at(p_star)].long()
     used_j = used_j.clone()
-    used_j[n_star] = used_j[n_star] + torch.where(can_rescue,
-                                                  requests[p_star], zero)
-    choice[p_star] = torch.where(can_rescue, n_star.to(torch.int32),
-                                 choice[p_star])
+    used_j[at(n_star)] = torch.where(
+        can_rescue[..., None], used_j[at(n_star)] + requests[at(p_star)],
+        used_j[at(n_star)])
+    choice[at(p_star)] = torch.where(can_rescue, n_star.to(torch.int32),
+                                     choice[at(p_star)])
     chosen_val = (masked if score_full is None else score_full).gather(
-        1, choice.clamp(0, N - 1).long()[:, None])[:, 0]
+        -1, choice.clamp(0, N - 1).long()[..., None])[..., 0]
     return used_j, choice, chosen_val
 
 
 @dataclasses.dataclass
 class _View:
-    """The pod rows one commit loop runs over: all P pods (rows None) or
-    a tranche (rows = the pod indices, ascending by rank)."""
+    """The pod rows one commit loop runs over, per tenant [B, V]: all P
+    pods (rows None) or a tranche (rows = the pod indices, ascending by
+    rank)."""
 
     rows: torch.Tensor | None
-    req: torch.Tensor          # [V, R] the rows' requests
-    valid: torch.Tensor        # [V] bool
-    rank: torch.Tensor         # [V] int32 global rank
-    pod_ids: torch.Tensor      # [V] int32 original pod index
+    req: torch.Tensor          # [B, V, R] the rows' requests
+    valid: torch.Tensor        # [B, V] bool
+    rank: torch.Tensor         # [B, V] int32 global rank
+    pod_ids: torch.Tensor      # [B, V] int32 original pod index
     rank_is_sorted: bool
 
 
 def _round_nosig(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
-                 view: _View, K: int, st, r: int, ops: "Ops",
-                 stats: RoundStats):
-    """One commit round over a view (`_make_round_nosig`'s body):
-    returns the new (used, assigned, chosen, round_of) and the device
-    flag `any commit and not all done`."""
+                 view: _View, K: int, st, r: torch.Tensor,
+                 live: torch.Tensor, ops: "Ops", stats: RoundStats):
+    """One commit round over a view (`_make_round_nosig`'s body) for the
+    live tenants (live [B] bool; r [B] int32 their round numbers):
+    returns the new (used, assigned, chosen, round_of) and the [B] flag
+    `any commit and not all done`. A tenant that is not live has no
+    pending row, so nothing commits or rescues there and its state stays
+    as it was, bit for bit."""
     used, asg, chosen, rnd = st
     nodes = snap.nodes
-    pending = (asg == -1) & view.valid
+    pending = (asg == -1) & view.valid & live[:, None]
     with stats.span("K5 cycle"):
         feasible, masked = ops.cycle(
             nodes.allocatable, used, snap.pods.requests, static.mask,
@@ -1561,7 +1747,7 @@ def _round_nosig(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
     with stats.span("K6 row_topk"):
         topv, topi, pick = ops.row_topk(masked, K, cfg.tie_break == "seeded",
                                         cfg.tie_seed, view.pod_ids)
-    allowed = topv[:, 0] > NEG_INF     # any(feasible, 1): scores are finite
+    allowed = topv[..., 0] > NEG_INF   # any(feasible, 1): scores are finite
     used2, choice, chosen_val = _deal_commit(
         nodes.allocatable, view.req, used, feasible, masked, allowed,
         view.rank, topv, topi, tie_pick=pick,
@@ -1569,21 +1755,26 @@ def _round_nosig(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
     commit = choice >= 0
     asg2 = torch.where(commit, choice, asg)
     chosen2 = torch.where(commit, chosen_val, chosen)
-    rnd2 = torch.where(commit, r, rnd)
-    all_done = ((asg2 >= 0) | ~view.valid).all()
-    return (used2, asg2, chosen2, rnd2), commit.any() & ~all_done
+    rnd2 = torch.where(commit, r[:, None], rnd)
+    all_done = ((asg2 >= 0) | ~view.valid).all(dim=-1)
+    return (used2, asg2, chosen2, rnd2), commit.any(dim=-1) & ~all_done
 
 
-def _run_rounds(cfg, snap, static, view, K, st, r: int, limit: int,
-                ops: "Ops", stats: RoundStats, progress=None):
-    """Rounds while the last one made progress and r < limit (the JAX
-    while_loop; progress None stands for the initial True). Returns
-    (state, r)."""
-    while r < limit and (progress is None or stats.read(progress)):
-        st, progress = _round_nosig(cfg, snap, static, view, K, st, r, ops,
-                                    stats)
-        r += 1
-    return st, r
+def _run_rounds(cfg, snap, static, view, K, st, r: torch.Tensor, steps: int,
+                live: torch.Tensor, ops: "Ops", stats: RoundStats):
+    """Rounds for each live tenant while its last round made progress, at
+    most `steps` of them: the JAX while_loop, vmapped, so a step runs
+    while any tenant's predicate holds (one host read a step; none
+    before the first) and the others keep their state. r [B] gains the
+    rounds each tenant ran. Returns (state, r, steps run)."""
+    n = 0
+    while n < steps and (n == 0 or stats.read(live.any())):
+        st, progress = _round_nosig(cfg, snap, static, view, K, st, r, live,
+                                    ops, stats)
+        r = r + live.to(torch.int32)
+        live = live & progress
+        n += 1
+    return st, r, n
 
 
 def _solve_rounds_nosig(cfg: EngineConfig, snap: ClusterSnapshot,
@@ -1597,8 +1788,8 @@ def _solve_rounds_nosig(cfg: EngineConfig, snap: ClusterSnapshot,
 
     P <= 2C (or <= cap): full-width rounds to fixpoint. Larger: one
     full-width round 1, then tranches: the C best-ranked still-unspent
-    pending pods run [C, N] views for up to tranche_cap rounds (4; 2
-    with preemption); a view pod left unplaced with no feasible node
+    pending pods (K24) run [C, N] views for up to tranche_cap rounds (4;
+    2 with preemption); a view pod left unplaced with no feasible node
     against the tranche-final state is spent (capacity only shrinks
     here, so for good). With cfg.preemption there is no round 1 (as in
     JAX: the cluster is near capacity, round 1 places little, and the
@@ -1609,72 +1800,104 @@ def _solve_rounds_nosig(cfg: EngineConfig, snap: ClusterSnapshot,
     incremental path's carried placements already committed, rounds
     counted from r; skip_full skips the full-width round 1 (a small
     frontier places more cheaply through the tranches). Without init
-    the rounds start from the snapshot at r = 0."""
+    the rounds start from the snapshot at r = 0.
+
+    A tenant batch (a batched snapshot and StaticCtx, [B, P] rank and
+    order) runs every tenant's loops at once, as jax.vmap runs JAX's
+    nested while_loops: a loop step runs while any tenant's predicate
+    holds, with one host read a step for all of them, and a tenant whose
+    predicate is false keeps its state, its spent pods and its own round
+    counter; rounds is then that [B] int32 counter. The solo shapes run
+    as a batch of one, rounds an int."""
+    if rank.dim() == 1:
+        if init is not None:
+            init = (tuple(t.unsqueeze(0) for t in init[0]), init[1])
+        out = _rounds_nosig(cfg, snap.as_batch(), static.as_batch(),
+                            rank[None], order[None], max_rounds, K, cap,
+                            ops, stats, init, skip_full)
+        return (*(t[0] for t in out[:4]), out[5])
+    return _rounds_nosig(cfg, snap, static, rank, order, max_rounds, K, cap,
+                         ops, stats, init, skip_full)[:5]
+
+
+def _rounds_nosig(cfg, snap, static, rank, order, max_rounds, K, cap, ops,
+                  stats, init, skip_full):
+    """_solve_rounds_nosig over a tenant batch: (used, assigned, chosen,
+    round_of, rounds [B], the steps the host ran), the last equal to
+    every tenant's rounds when B = 1."""
     ops = ops or KERNELS
     stats = stats or RoundStats()
     pods, nodes = snap.pods, snap.nodes
-    P = pods.valid.shape[0]
-    dev = pods.valid.device
+    B, P = rank.shape
+    dev = rank.device
     C = _RESIDUAL_CAP if cap is None else max(1, min(cap, P))
-    ids = torch.arange(P, dtype=torch.int32, device=dev)
+    ids = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
     full = _View(None, pods.requests, pods.valid, rank, ids, False)
-    st = (nodes.used, torch.full((P,), -1, dtype=torch.int32, device=dev),
-          torch.full((P,), NEG_INF, dtype=torch.float32, device=dev),
-          torch.full((P,), -1, dtype=torch.int32, device=dev))
-    r = 0
+    st = (nodes.used, torch.full((B, P), -1, dtype=torch.int32, device=dev),
+          torch.full((B, P), NEG_INF, dtype=torch.float32, device=dev),
+          torch.full((B, P), -1, dtype=torch.int32, device=dev))
+    steps = 0
     if init is not None:
-        st, r = init
+        st, steps = init
+    r = torch.full((B,), steps, dtype=torch.int32, device=dev)
+    live = torch.ones(B, dtype=torch.bool, device=dev)
     if P <= (2 * C if cap is None else C):
         with stats.span("direct rounds"):
-            (used, asg, chosen, rnd), r = _run_rounds(
-                cfg, snap, static, full, K, st, r, max_rounds, ops, stats)
-        return used, asg, chosen, rnd, r
+            st, r, n = _run_rounds(cfg, snap, static, full, K, st, r,
+                                   max_rounds - steps, live, ops, stats)
+        return (*st, r, steps + n)
 
-    progress = None      # the tranche loop's initial True
+    progress = live      # the tranche loop's initial True
     if not (skip_full or cfg.preemption):
         with stats.span("round 1"):
             st, progress = _round_nosig(cfg, snap, static, full, K, st, r,
-                                        ops, stats)
-        r += 1
+                                        live, ops, stats)
+        r = r + 1
+        steps += 1
     base_cap = 2 if cfg.preemption else 4
     tranche_cap = (min(base_cap, max_rounds) if cfg.max_rounds > 0
                    else base_cap)
     used, assigned, chosen, round_of = st
-    spent = torch.zeros(P, dtype=torch.bool, device=dev)
+    spent = torch.zeros((B, P), dtype=torch.bool, device=dev)
+    bi = torch.arange(B, device=dev)[:, None]
     t = 0
     with stats.span("tranches"):
         while t < P:
             pend = (assigned == -1) & pods.valid & ~spent
-            flag = pend.any() if progress is None else progress & pend.any()
-            if not stats.read(flag):
+            # The tenants this tranche runs; the rest keep their state.
+            tact = progress & pend.any(dim=-1)
+            if not stats.read(tact.any()):
                 break
-            sel, _ = _top_by_rank(pend, order, C)
-            sel64 = sel.long()
-            real = pend[sel64]
-            view = _View(sel.to(torch.int32), pods.requests[sel64], real,
-                         rank[sel64], sel.to(torch.int32), True)
-            st_c = (used, torch.full((C,), -1, dtype=torch.int32, device=dev),
-                    torch.full((C,), NEG_INF, dtype=torch.float32,
+            sel = ops.top_by_rank(pend, order, C)[0]
+            real = pend[bi, sel]
+            sel32 = sel.to(torch.int32)
+            view = _View(sel32, pods.requests[bi, sel], real, rank[bi, sel],
+                         sel32, True)
+            st_c = (used,
+                    torch.full((B, C), -1, dtype=torch.int32, device=dev),
+                    torch.full((B, C), NEG_INF, dtype=torch.float32,
                                device=dev),
-                    torch.full((C,), -1, dtype=torch.int32, device=dev))
-            (used, asg_c, chosen_c, rnd_c), r = _run_rounds(
-                cfg, snap, static, view, K, st_c, r,
-                min(2**30, r + tranche_cap), ops, stats)
+                    torch.full((B, C), -1, dtype=torch.int32, device=dev))
+            (used, asg_c, chosen_c, rnd_c), r, n = _run_rounds(
+                cfg, snap, static, view, K, st_c, r, tranche_cap, tact, ops,
+                stats)
+            steps += n
             hit = asg_c >= 0
-            assigned[sel64] = torch.where(hit, asg_c, assigned[sel64])
-            chosen[sel64] = torch.where(hit, chosen_c, chosen[sel64])
-            round_of[sel64] = torch.where(hit, rnd_c, round_of[sel64])
+            assigned[bi, sel] = torch.where(hit, asg_c, assigned[bi, sel])
+            chosen[bi, sel] = torch.where(hit, chosen_c, chosen[bi, sel])
+            round_of[bi, sel] = torch.where(hit, rnd_c, round_of[bi, sel])
             # Spent: unplaced with no feasible node left (permanent).
             with stats.span("K5 cycle"):
                 feas_left, _ = ops.cycle(
                     nodes.allocatable, used, pods.requests, static.mask,
                     static.score, static.w_lr, static.w_ba, static.w_ts,
                     static.rw, rows=view.rows, masked=True)
-            no_node = ~feas_left.any(dim=1)
-            spent[sel64] = spent[sel64] | (real & ~hit & no_node)
+            no_node = ~feas_left.any(dim=-1)
+            spent[bi, sel] = spent[bi, sel] | (real & ~hit & no_node
+                                               & tact[:, None])
             t += 1
-            progress = real.any()
-    return used, assigned, chosen, round_of, r
+            progress = tact & real.any(dim=-1)
+    return used, assigned, chosen, round_of, r, steps
 
 
 # -- fast mode with signatures: water-fill, validation, frontier ----------
@@ -2213,7 +2436,7 @@ def _solve_rounds_sig(cfg: EngineConfig, snap: ClusterSnapshot,
         while r < max_rounds and (progress is None or stats.read(progress)):
             with stats.span("compacted rounds"):
                 pend = (assigned == -1) & pods.valid
-                sel = _top_by_rank(pend, order, cap)[0].long()
+                sel = ops.top_by_rank(pend, order, cap)[0]
                 step(*_pods_view(snap, static, sel), sel, pend[sel])
             r += 1
     return used, assigned, st, chosen, round_of, r
@@ -2234,12 +2457,14 @@ def gang_rollback(snap: ClusterSnapshot, used: torch.Tensor,
     Returns (used, assigned, chosen, pair_st, rolled)."""
     ops = ops or KERNELS
     pods = snap.pods
-    P = assigned.shape[0]
-    G = snap.group_min_member.shape[0]
+    P = assigned.shape[-1]
+    G = snap.group_min_member.shape[-1]
     dev = assigned.device
-    if G == 0:
+    # A tenant batch has no gang member (tenants.solve_many refuses
+    # them), so the gate rolls nothing back there.
+    if G == 0 or assigned.dim() > 1:
         return (used, assigned, chosen, pair_st,
-                torch.zeros(P, dtype=torch.bool, device=dev))
+                torch.zeros(assigned.shape, dtype=torch.bool, device=dev))
     g = pods.group
     placed = (assigned >= 0) & pods.valid & (g >= 0)
     gclip = g.clamp(min=0).long()
@@ -2407,7 +2632,8 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
         if S == 0:
             with stats.span("preempt drain"):
                 pend0 = (assigned < 0) & pods.valid
-                dsel = _top_by_rank(pend0, order, min(_PREEMPT_DRAIN, P))[0]
+                dsel = ops.top_by_rank(pend0, order,
+                                       min(_PREEMPT_DRAIN, P))[0]
                 d64, d32 = dsel.long(), dsel.to(torch.int32)
                 feas_d, masked_d = ops.cycle(
                     alloc, used, pods.requests, static.mask, static.score,
@@ -2431,7 +2657,7 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                 if explain:
                     drained_n = hit_d.sum()
         pend = (assigned < 0) & pods.valid & ~tried
-        sel = _top_by_rank(pend, order, C)[0]
+        sel = ops.top_by_rank(pend, order, C)[0]
         s64, s32 = sel.long(), sel.to(torch.int32)
         real = pend[s64]
         req_sel = pods.requests[s64]
@@ -2600,26 +2826,29 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     state). member_sat_t: the [A, M+P] member label table, needed with
     signatures. explain=True appends JAX's provenance tuple (rolled [P],
     evictor [M], evict_round [M], the auction table; see
-    _preempt_rounds), with the same placements and host reads."""
+    _preempt_rounds), with the same placements and host reads.
+
+    A tenant batch (a leading [B] axis; tenants.solve_many, which refuses
+    signatures, gangs and preemption) runs the S = 0 rounds of every
+    tenant at once; rounds is then [B]."""
     ops = ops or KERNELS
     stats = stats or RoundStats()
     if static is None:
         static = precompute_static(cfg, snap, node_sat_t, member_sat_t,
                                    ops=ops)
     pods, nodes = snap.pods, snap.nodes
-    P = pods.valid.shape[0]
-    N = nodes.valid.shape[0]
-    M = snap.running.valid.shape[0]
+    P = pods.valid.shape[-1]
+    N = nodes.valid.shape[-1]
+    M = snap.running.valid.shape[-1]
     dev = pods.valid.device
     order = pop_order(cfg, snap)
-    rank = torch.zeros(P, dtype=torch.int32, device=dev)
-    rank[order] = torch.arange(P, dtype=torch.int32, device=dev)
+    rank = _rank_of(order)
     # Worst case one pod commits per round; cfg.max_rounds > 0 caps it.
     max_rounds = cfg.max_rounds if cfg.max_rounds > 0 else 2 * P + 8
     K = _fallback_depth(N)
     st = dom_s = None
     has_pair = torch.zeros(P, dtype=torch.bool, device=dev)
-    if snap.sigs.key.shape[0] == 0:
+    if snap.sigs.key.shape[-1] == 0:
         used, assigned, chosen, round_of, rounds = _solve_rounds_nosig(
             cfg, snap, static, rank, order, max_rounds, K, ops=ops,
             stats=stats)
@@ -2630,7 +2859,8 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
         used, assigned, st, chosen, round_of, rounds = _solve_rounds_sig(
             cfg, snap, static, rank, order, st0, invol, has_pair,
             max_rounds, K, _compact_cap(cfg, P), ops, stats)
-    evicted = torch.zeros(M, dtype=torch.bool, device=dev)
+    evicted = torch.zeros(snap.running.valid.shape, dtype=torch.bool,
+                          device=dev)
     ex = None
     if cfg.preemption and M > 0:
         reads0 = stats.host_reads
@@ -2646,7 +2876,8 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     used, assigned, chosen, _, rolled = gang_rollback(
         snap, used, assigned, chosen, st, static.sig_match, dom_s, ops)
     round_of = torch.where(rolled, -1, round_of)
-    rounds = torch.full((), rounds, dtype=torch.int32, device=dev)
+    if not isinstance(rounds, torch.Tensor):
+        rounds = torch.full((), rounds, dtype=torch.int32, device=dev)
     out = (assigned, chosen, used, order, round_of, rounds, evicted)
     if not explain:
         return out
@@ -2974,6 +3205,8 @@ class Ops:
     frontier_closure: Callable
     explain_cells: Callable
     explain_terms: Callable
+    deal: Callable
+    top_by_rank: Callable
 
 
 KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
@@ -2984,7 +3217,7 @@ KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
               parity_scan_pair_preempt, kpre.auction_ok, kpre.auction_tables,
               kpre.auction_rank, kpre.auction_claim, capacity_prefix_keep,
               frontier_closure, kexplain.explain_cells,
-              kexplain.explain_terms)
+              kexplain.explain_terms, deal, top_by_rank)
 PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_plain, cycle_plain, row_topk_plain,
             desirability_plain, prefix_commit_plain, kpair.sig_match_plain,
@@ -2996,4 +3229,4 @@ PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             kpre.auction_tables_plain, kpre.auction_rank_plain,
             kpre.auction_claim_plain, capacity_prefix_keep_plain,
             frontier_closure_plain, kexplain.explain_cells_plain,
-            kexplain.explain_terms_plain)
+            kexplain.explain_terms_plain, deal_plain, top_by_rank_plain)

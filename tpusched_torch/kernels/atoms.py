@@ -4,7 +4,9 @@
 
 `atom_sat` is kernel K1 (csrc/atoms.cu) on a CUDA tensor and its plain
 version, `atom_sat_plain`, on a CPU tensor. The term gathers stay plain
-torch here; the tableau kernel (K2) evaluates them per cell itself.
+torch here; the tableau kernel (K2) evaluates them per cell itself. With
+a leading tenant axis ([B, X, L] labels, [B, A, ...] atom tables) both
+give [B, X, A].
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from tpusched_torch.config import (
     OP_LT,
     OP_NOT_IN,
 )
-from tpusched_torch.kernels import check, stream_of
+from tpusched_torch.kernels import check, per_tenant, stream_of
 from tpusched_torch.snapshot import AtomTable
 
 
@@ -29,7 +31,11 @@ def atom_sat_plain(atoms: AtomTable, label_pairs: torch.Tensor,
                    label_nums: torch.Tensor | None = None) -> torch.Tensor:
     """[X, A] bool for label arrays of shape [X, L]: the JAX function's
     broadcast [X, L, A, V] compare-reduce. label_nums None skips the
-    Gt/Lt branch (pod label sets never face it)."""
+    Gt/Lt branch (pod label sets never face it). A tenant batch goes
+    tenant by tenant."""
+    if label_pairs.dim() == 3:
+        return per_tenant(atom_sat_plain, label_pairs.shape[0], atoms,
+                          label_pairs, label_keys, label_nums)
     lp = label_pairs[:, :, None]                     # [X, L, 1]
     lk = label_keys[:, :, None]                      # [X, L, 1]
     pair_hit = lp[:, :, :, None] == atoms.pairs[None, None, :, :]  # [X,L,A,V]
@@ -65,25 +71,26 @@ def atom_sat(atoms: AtomTable, label_pairs: torch.Tensor,
     """Kernel K1 on CUDA tensors, the plain version on CPU tensors."""
     if label_pairs.device.type == "cpu":
         return atom_sat_plain(atoms, label_pairs, label_keys, label_nums)
-    X, L = label_pairs.shape
-    A, V = atoms.pairs.shape
+    lead = label_pairs.shape[:-2]          # () or (B,): the tenant axis
+    X, L = label_pairs.shape[-2:]
+    A, V = atoms.pairs.shape[-2:]
     dev = label_pairs.device
-    check("atom_sat", dev, label_pairs, torch.int32, (X, L))
-    check("atom_sat", dev, label_keys, torch.int32, (X, L))
+    check("atom_sat", dev, label_pairs, torch.int32, (*lead, X, L))
+    check("atom_sat", dev, label_keys, torch.int32, (*lead, X, L))
     if label_nums is not None:
-        check("atom_sat", dev, label_nums, torch.float32, (X, L))
-    check("atom_sat", dev, atoms.key, torch.int32, (A,))
-    check("atom_sat", dev, atoms.op, torch.int8, (A,))
-    check("atom_sat", dev, atoms.pairs, torch.int32, (A, V))
-    check("atom_sat", dev, atoms.num, torch.float32, (A,))
-    check("atom_sat", dev, atoms.valid, torch.bool, (A,))
-    out = torch.empty((X, A), dtype=torch.bool, device=dev)
+        check("atom_sat", dev, label_nums, torch.float32, (*lead, X, L))
+    check("atom_sat", dev, atoms.key, torch.int32, (*lead, A))
+    check("atom_sat", dev, atoms.op, torch.int8, (*lead, A))
+    check("atom_sat", dev, atoms.pairs, torch.int32, (*lead, A, V))
+    check("atom_sat", dev, atoms.num, torch.float32, (*lead, A))
+    check("atom_sat", dev, atoms.valid, torch.bool, (*lead, A))
+    out = torch.empty((*lead, X, A), dtype=torch.bool, device=dev)
     if out.numel() == 0:
         return out  # no atoms (or no label sets): nothing to launch
     nums = label_nums.data_ptr() if label_nums is not None else None
     _build.launch(
         "tpusched_atom_sat", label_pairs.data_ptr(), label_keys.data_ptr(),
-        nums, X, L, atoms.key.data_ptr(), atoms.op.data_ptr(),
+        nums, lead[0] if lead else 1, X, L, atoms.key.data_ptr(), atoms.op.data_ptr(),
         atoms.pairs.data_ptr(), atoms.num.data_ptr(),
         atoms.valid.data_ptr(), A, V, out.data_ptr(), stream_of(dev))
     atom_sat.launches += 1

@@ -141,6 +141,22 @@ class _Tree:
         """Bytes of every leaf (as a tensor's `nbytes`)."""
         return sum(t.nbytes for t in self.leaves())
 
+    def tenant(self, b: int) -> Any:
+        """Tenant b of a tree whose leaves carry a leading tenant axis
+        (tenants.stack_snapshots): every leaf's b-th slice."""
+        return self._map(lambda t: t[b])
+
+    def as_batch(self) -> Any:
+        """The tree as a batch of one tenant (a leading axis of 1)."""
+        return self._map(lambda t: t.unsqueeze(0))
+
+    def _map(self, fn) -> Any:
+        return dataclasses.replace(self, **{
+            f.name: (getattr(self, f.name)._map(fn)
+                     if isinstance(getattr(self, f.name), _Tree)
+                     else fn(getattr(self, f.name)))
+            for f in dataclasses.fields(self)})
+
 
 @dataclasses.dataclass
 class AtomTable(_Tree):

@@ -1,0 +1,121 @@
+"""Multi-tenant batched solving: the port of `tpusched/tenants.py`.
+
+A sidecar serving many clusters (or many isolated tenants of one
+control plane) holds B snapshots with no cross-tenant interaction,
+which is a batch axis:
+
+  * stack_snapshots: B bucket-aligned snapshots -> one ClusterSnapshot
+    whose leaves carry a leading tenant axis;
+  * solve_many: the solve over that axis, as the JAX package's
+    jax.vmap of solve_core. Every kernel of the path launches once for
+    all B tenants (K4 with one CTA a tenant, K8 likewise, the others
+    over the flattened tenant rows), and a fast-mode loop step reads one
+    device flag for all of them; a tenant whose loop has ended keeps its
+    state while the others go on.
+
+Every tenant's result equals the solo `Engine.solve` of its snapshot bit
+for bit. The batch covers configs 1-2 (no pairwise signatures, gangs or
+preemption) in both modes; the rest is ROADMAP A12b, the mesh A14.
+
+Alignment requirement: all tenants share identical bucket shapes; build
+them with one explicit `Buckets` floor, with signatures=0 (S is the
+bucket, not the count of real signatures).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from tpusched_torch.config import EngineConfig
+from tpusched_torch.engine import solve_core
+from tpusched_torch.kernels import stack_tenants
+from tpusched_torch.kernels.assign import KERNELS, Ops, RoundStats
+from tpusched_torch.snapshot import ClusterSnapshot, snapshot_from_numpy
+
+
+def zipf_weights(n: int, skew: float) -> np.ndarray:
+    """Normalized Zipf weights over n tenants: w_r ∝ 1 / rank^skew
+    (skew <= 0 is uniform), the JAX package's tenant-skew definition."""
+    if n < 1:
+        raise ValueError(f"zipf_weights: n={n} must be >= 1")
+    w = 1.0 / np.power(np.arange(1, n + 1, dtype=np.float64),
+                       max(float(skew), 0.0))
+    return w / w.sum()
+
+
+def stack_snapshots(snaps: list) -> ClusterSnapshot:
+    """Stack bucket-aligned snapshots (the port's, or any object with the
+    ClusterSnapshot field tree and numpy leaves, such as the JAX
+    package's) along a new leading tenant axis, on the host. Raises if
+    any leaf shapes disagree (different buckets)."""
+    if not snaps:
+        raise ValueError("no snapshots to stack")
+    trees = [s.to("cpu") if isinstance(s, ClusterSnapshot)
+             else snapshot_from_numpy(s) for s in snaps]
+    first = trees[0].leaves()
+    for i, t in enumerate(trees[1:], 1):
+        for a, b in zip(first, t.leaves()):
+            if a.shape != b.shape:
+                raise ValueError(
+                    f"tenant {i} bucket shapes differ: {tuple(b.shape)} vs "
+                    f"{tuple(a.shape)} — build all tenants with one "
+                    "explicit Buckets floor")
+    return stack_tenants(trees)
+
+
+def _refuse(cfg: EngineConfig, stacked: ClusterSnapshot) -> None:
+    """What the tenant batch does not run yet, by name."""
+    if cfg.mode not in ("parity", "fast"):
+        raise ValueError(f"mode={cfg.mode!r}: want 'parity' or 'fast'")
+    if cfg.tie_break not in ("first", "seeded"):
+        raise NotImplementedError(
+            f"tie_break={cfg.tie_break!r}: want 'first' or 'seeded'")
+    if cfg.ring_counts:
+        raise NotImplementedError(
+            "solve_many: ring_counts=True needs a device mesh (ROADMAP A14)")
+    if cfg.preemption:
+        raise NotImplementedError(
+            "solve_many: preemption under the tenant axis is ROADMAP A12b")
+    if stacked.sigs.key.shape[-1] > 0:
+        raise NotImplementedError(
+            f"solve_many: a bucket of {stacked.sigs.key.shape[-1]} pairwise "
+            "signatures; the tenant axis covers S = 0 (build the tenants "
+            "with signatures=0); pairwise terms are ROADMAP A12b")
+    if bool((stacked.pods.group >= 0).any()):
+        raise NotImplementedError(
+            "solve_many: gangs under the tenant axis are ROADMAP A12b")
+
+
+def solve_many(cfg: EngineConfig, stacked, device=None,
+               ops: Ops = KERNELS, stats: RoundStats | None = None):
+    """Solve B independent tenants at once: per tenant (assignment [B, P]
+    int32, chosen [B, P] f32, used [B, N, R] f32, order [B, P] int64,
+    rounds [B] int32, evicted [B, M] bool), tensors on the device.
+
+    stacked: stack_snapshots' result (or any tree of that shape). device:
+    "cuda" (the default; raises without CUDA) or "cpu", which runs every
+    kernel's plain version (the tests). ops: the kernel table (PLAIN runs
+    the whole batch without a kernel, to compare). stats: collects the
+    fast loops' host reads, one a loop step for all tenants."""
+    _refuse(cfg, stacked)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: solve_many runs on the GPU; pass "
+                "device='cpu' explicitly to run the plain versions")
+        device = "cuda"
+    if not isinstance(stacked, ClusterSnapshot):
+        stacked = snapshot_from_numpy(stacked)
+    snap = stacked.to(device)
+    a, c, u, o, _, rounds, ev = solve_core(cfg, snap, ops=ops, stats=stats)
+    return a, c, u, o, rounds, ev
+
+
+def solve_many_jit(cfg: EngineConfig):
+    """solve_many closed over the config, the JAX package's entry name.
+    Nothing compiles per config here (the kernels are built once), so
+    there is nothing to memoize."""
+    return functools.partial(solve_many, cfg)
