@@ -152,6 +152,21 @@ package, and
        the tenant axis against one tenant's K4; K23 and K24 on their
        first call's arguments against their plain versions, beside
        torch.cumsum with searchsorted and with a scatter;
+     - the tenant batch with signatures (tp) (eight config-3 clusters of
+       3 000 - 50 b pods on 1 500 nodes under one floor with their
+       signatures): parity (first and seeded) and fast with the default
+       compact_cap, each tenant equal to its solo solve on the card in
+       all six outputs and valid, a reduced batch (four tenants of 600 x
+       300) equal to its plain-version twin, host reads too; K4's
+       pairwise variant with 8 CTAs against one tenant's; the entry
+       points that gained the tenant axis (K9, K10, K4's pairwise
+       variant, K11 with ia_ok, K12, K13's two, K14, K10's pair_commit,
+       K8's node_add) on their first call's arguments against their
+       plain versions, with CUDA-event and profiler times;
+     - the tenant batch with gangs (tg) (eight config-4 clusters of
+       750 - 12 b groups of 4 on 1 500 - 180 b nodes): both modes, the
+       same checks, each tenant's gang audit and rolled-back groups (the
+       first tenant none, the last some);
      - every fast cell of PR8_FAST keeps PR 8's placed count and host
        reads;
   5. prints per-stage time breakdowns of one steady parity and one
@@ -259,6 +274,21 @@ EXPLAIN_K = 3
 TENANTS = 8
 TENANT_SEED = 60
 TENANT_PODS, TENANT_STEP, TENANT_NODES = 3000, 50, 1500
+# Cell (tp): the same sidecar serving eight config-3 clusters. Tenant b is
+# config3_pairwise(rng(70 + b), 3000 - 50 b pods, 1500 nodes), all under
+# one Buckets floor with their signatures (P = 3 072, N = 2 048), solved
+# in parity mode (first and seeded) and in fast mode with the default
+# compact_cap (each tenant hands off to [1 024, N] views at its own
+# round). Cell (tg): eight config-4 clusters, tenant b
+# config4_gangs(rng(80 + b), n_groups=750 - 12 b, gang_size=4,
+# n_nodes=1500 - 180 b): the first six keep every group, like (f), the
+# last two roll groups back, like (g) (at 1500 - 125 b nodes no tenant
+# rolls back). Both modes. Each phase's plain twin is a reduced batch,
+# four tenants of 600 pods on 300 nodes (the plain pairwise scan at
+# full size would take minutes).
+PAIR_TENANT_SEED, GANG_TENANT_SEED = 70, 80
+GANG_GROUPS, GANG_GROUP_STEP, GANG_NODE_STEP = 750, 12, 180
+REDUCED_TENANTS, REDUCED_PODS, REDUCED_NODES = 4, 600, 300
 # PR 8's fast placed counts and host reads, which the dealing and the
 # tranche pick as kernels (K23, K24, same bits as the torch code they
 # replace) must keep.
@@ -536,7 +566,8 @@ def audit(name: str, cfg: EngineConfig, dsnap, res, hook=None) -> dict:
 
     def last_state(*args):
         out = kpair.pair_commit_plain(*args)
-        states[:] = [out]
+        # The solo rounds run as a batch of one: its state is [1, S, N].
+        states[:] = [out.tenant(0) if out.counts.dim() == 3 else out]
         return out
 
     def record_pre(*args, explain=False):
@@ -1137,6 +1168,18 @@ def _flat(out) -> list:
     return list(out) if isinstance(out, tuple) else [out]
 
 
+def index_add_library(used, node, mask, req, sign):
+    """node_add's function as one `index_add_` (unordered adds), a
+    yardstick only; a batch's tenants as one flat [B * N, R] table (the
+    solo fast rounds run as a batch of one)."""
+    N, R = used.shape[-2:]
+    base = torch.arange(node.numel() // node.shape[-1],
+                        device=node.device)[:, None] * N
+    flat = (base + node.reshape(-1, node.shape[-1]).clamp(min=0)).reshape(-1)
+    add = torch.where(mask[..., None], req * sign, 0.0).reshape(-1, R)
+    return used.reshape(-1, R).clone().index_add_(0, flat.long(), add)
+
+
 def fast_pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
     """K12-K14 and the fast pairwise entry points of K5, K7, K8, K10 and
     K11 against their plain versions, on the arguments of their first
@@ -1187,9 +1230,8 @@ def fast_pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
             used, node, mask, req, rank, sign = a
             b = nbytes(node, mask, req, rank, used) + nbytes(*got)
             r.update(bound=bound(b, P * R), library="index_add_",
-                     library_ms=cuda_ms(lambda: used.clone().index_add_(
-                         0, node.clamp(min=0).long(),
-                         torch.where(mask[:, None], req * sign, 0.0)), 10),
+                     library_ms=cuda_ms(lambda: index_add_library(
+                         used, node, mask, req, sign), 10),
                      shape=f"P={P} N={N} R={R}, {int(mask.sum())} reverted")
         elif name == "desirability_fixed":
             r.update(bound=bound(nbytes(*a, *got), 4 * P * N),
@@ -1197,7 +1239,7 @@ def fast_pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
         elif name == "pairwise_batch_ia_ok":
             snap_v, st, aff_ok, sig_match, dom_s = a
             pods = snap_v.pods
-            C = pods.ts_sig.shape[1]
+            C = pods.ts_sig.shape[-1]
             b = nbytes(aff_ok, snap_v.nodes.valid, dom_s, sig_match,
                        pods.ts_sig, pods.ts_valid, pods.ts_when,
                        pods.ts_max_skew, pods.ia_sig, pods.ia_valid,
@@ -1674,22 +1716,28 @@ def preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
 def profiler_ms(fn, kernel: str, reps: int = 5) -> float | None:
     """The device time of the CUDA kernels whose name holds `kernel`,
     per fn() call, from a torch.profiler trace of `reps` calls (after a
-    warm-up); None when the trace holds no such kernel."""
+    warm-up); None when the trace holds no such kernel. A trace of a
+    few microsecond-long kernels can come back without their events, so
+    a miss is traced once more, with host activity and 4 x the calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, seen = 0.0, False
-    for e in prof.key_averages():
-        if kernel in e.key:
-            seen = True
-            total += getattr(e, "device_time_total",
-                             getattr(e, "cuda_time_total", 0.0))
-    return total / 1e3 / reps if seen and total > 0 else None
+    for acts, n in (([ProfilerActivity.CUDA], reps),
+                    ([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     4 * reps)):
+        with profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            if kernel in e.key:
+                total += getattr(e, "device_time_total",
+                                 getattr(e, "cuda_time_total", 0.0))
+        if total > 0:
+            return total / 1e3 / n
+    return None
 
 
 def first_auction_calls(cfg: EngineConfig, dsnap) -> dict:
@@ -2430,21 +2478,43 @@ def top_by_rank_library(pend, order, C):
     return buf[..., :C], n_pend[..., 0]
 
 
-def tenant_cells() -> list:
-    """Cell (t)'s tenants (snapshot, meta), drawn twice: on their own
-    buckets, then under the elementwise max of those without
-    signatures, so that they stack."""
-    def draw(b, **kw):
-        return config2_scale(np.random.default_rng(TENANT_SEED + b),
-                             TENANT_PODS - TENANT_STEP * b, TENANT_NODES,
-                             with_qos=True, **CONSTRAINED, **kw)
-
+def floored(draw, n: int, **fixed) -> list:
+    """n tenants (snapshot, meta), drawn twice: on their own buckets,
+    then under the elementwise max of those (with the `fixed` fields), so
+    that they stack. draw(b, **kw) draws tenant b."""
     floor = {}
-    for b in range(TENANTS):
+    for b in range(n):
         for f, v in dataclasses.asdict(draw(b)[1].buckets).items():
             floor[f] = max(floor.get(f, 0), v)
-    floor["signatures"] = 0
-    return [draw(b, buckets=Buckets(**floor)) for b in range(TENANTS)]
+    floor.update(fixed)
+    return [draw(b, buckets=Buckets(**floor)) for b in range(n)]
+
+
+def tenant_cells() -> list:
+    """Cell (t)'s tenants (snapshot, meta) under one floor without
+    signatures."""
+    return floored(lambda b, **kw: config2_scale(
+        np.random.default_rng(TENANT_SEED + b), TENANT_PODS - TENANT_STEP * b,
+        TENANT_NODES, with_qos=True, **CONSTRAINED, **kw), TENANTS,
+        signatures=0)
+
+
+def pair_tenant_cells(n: int, pods: int, step: int, nodes: int) -> list:
+    """Cell (tp)'s tenants: config3_pairwise(rng(70 + b), pods - step b,
+    nodes) under one floor with their signatures."""
+    return floored(lambda b, **kw: config3_pairwise(
+        np.random.default_rng(PAIR_TENANT_SEED + b), pods - step * b, nodes,
+        **kw), n)
+
+
+def gang_tenant_cells(n: int, groups: int, group_step: int, nodes: int,
+                      node_step: int) -> list:
+    """Cell (tg)'s tenants: config4_gangs(rng(80 + b), groups -
+    group_step b groups of 4, nodes - node_step b nodes)."""
+    return floored(lambda b, **kw: config4_gangs(
+        np.random.default_rng(GANG_TENANT_SEED + b),
+        n_groups=groups - group_step * b, gang_size=4,
+        n_nodes=nodes - node_step * b, **kw), n)
 
 
 def batch_wall(cfg, dstack, ops=kassign.KERNELS, stats=None):
@@ -2453,6 +2523,96 @@ def batch_wall(cfg, dstack, ops=kassign.KERNELS, stats=None):
     t0 = time.perf_counter()
     out = [t.cpu() for t in solve_many(cfg, dstack, ops=ops, stats=stats)]
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def plain_twin(name: str, cfg, dstack, out=None, stats=None) -> float:
+    """The batch on `dstack` equals its plain-version twin on the card,
+    host reads too (out/stats: the kernels' batch already run there);
+    returns the plain batch's host-clock ms."""
+    if out is None:
+        stats = kassign.RoundStats()
+        out = batch_wall(cfg, dstack, stats=stats)[0]
+    pstats = kassign.RoundStats()
+    want, plain_ms = batch_wall(cfg, dstack, kassign.PLAIN, pstats)
+    for g, w in zip(out, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: the batch differs from its "
+                                 "plain-version twin")
+    if pstats.host_reads != stats.host_reads:
+        raise AssertionError(f"{name}: {stats.host_reads} host reads, the "
+                             f"plain batch {pstats.host_reads}")
+    return plain_ms
+
+
+def batch_cells(cells, snaps, dstack, smi: str, reduced=None,
+                hook=None) -> dict:
+    """Each cell (name, cfg, the path's kernels, once, optional, twin):
+    `solve_many` on the stacked tenants with every counter zeroed just
+    before and read just after (each kernel of the path launched); the
+    first wall and the median of 5 against the sum of the solo walls on
+    the card, host reads against the solo sum; each tenant equal to its
+    solo solve in all six outputs, with the validity audit (and hook(name,
+    cfg, b, dsnap, res), whose strings join the log line); with `twin`,
+    the batch equal to its plain-version twin, host reads too: the full
+    batch itself, or the `reduced` stack when one is given. Returns the
+    cells' launch counts."""
+    launches = {}
+    B = dstack.pods.valid.shape[0]
+    for name, cfg, want, once, optional, twin in cells:
+        zero_counts()
+        stats = kassign.RoundStats()
+        out, first_ms = batch_wall(cfg, dstack, stats=stats)
+        moved = counts()
+        check_launches(name, moved, want, dstack.atoms.key.shape[-1] > 0,
+                       once=once, optional=optional)
+        for k, v in moved.items():
+            launches[k] = launches.get(k, 0) + v
+        walls = [batch_wall(cfg, dstack)[1] for _ in range(5)]
+        static = kassign.precompute_static(cfg, dstack, *_sat_tables(dstack))
+        mask = static.mask.cpu().numpy()
+        eng = Engine(cfg)
+        solo_ms, solo_reads, placed, notes = [], 0, 0, []
+        for b, snap in enumerate(snaps):
+            ds = eng.put(snap)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = eng.solve(ds)
+            solo_ms.append((time.perf_counter() - t1) * 1e3)
+            solo_reads += res.host_reads
+            a, c, u, o, rounds, ev = (t[b].numpy() for t in out)
+            for field, got in (("assignment", a), ("chosen_score", c),
+                               ("final_used", u), ("order", o),
+                               ("evicted", ev)):
+                if not np.array_equal(got, getattr(res, field)):
+                    raise AssertionError(f"{name} tenant {b}: {field} "
+                                         "differs from its solo solve")
+            if int(rounds) != res.rounds:
+                raise AssertionError(f"{name} tenant {b}: {int(rounds)} "
+                                     f"rounds, solo {res.rounds}")
+            placed += validity(f"{name} tenant {b}", cfg, ds, res,
+                               mask[b])["placed"]
+            if hook is not None:
+                notes.append(hook(name, cfg, b, ds, res))
+        eng.close()
+        plain = "the plain batch not run (seeded)"
+        if twin and reduced is None:
+            plain_ms = plain_twin(name, cfg, dstack, out, stats)
+            plain = f"equal to the plain batch ({plain_ms:.1f} ms)"
+        elif twin:
+            plain_ms = plain_twin(f"{name} reduced", cfg, reduced)
+            plain = (f"the reduced batch ({reduced.pods.valid.shape[0]} "
+                     f"tenants) equal to its plain twin, host reads too "
+                     f"({plain_ms:.1f} ms)")
+        hooked = f"; {'; '.join(notes)}" if notes else ""
+        log(f"tenant batch {name}: solve_many over {B} tenants {first_ms:.3f}"
+            f" ms first call, median of 5 {statistics.median(walls):.3f} ms "
+            f"wall; the {B} solo solves on the card {sum(solo_ms):.3f} ms "
+            f"together (each {', '.join(f'{m:.2f}' for m in solo_ms)}); "
+            f"host reads {stats.host_reads}, solo sum {solo_reads}; rounds "
+            f"{out[4].tolist()}; placed {placed}; launches {moved}; every "
+            f"tenant equal to its solo solve in all six outputs, validity "
+            f"clean, {plain}{hooked}; {smi}")
+    return launches
 
 
 def tenant_kernel_rows(cfg, dstack) -> dict:
@@ -2508,18 +2668,25 @@ def tenant_kernel_rows(cfg, dstack) -> dict:
     return rows
 
 
+def log_rows(rows: dict, where: str, smi: str) -> None:
+    for kname, r in rows.items():
+        prof = ("not measured" if r["prof_ms"] is None
+                else f"{r['prof_ms']:.4f} ms")
+        lib = (f"{r['library']} {r['library_ms']:.4f} ms, "
+               if r.get("library_ms") is not None else "")
+        log(f"kernel {kname} on {where} [{r['shape']}]: exact match, kernel "
+            f"{r['ms']:.4f} ms (CUDA events; profiler kernel time {prof}), "
+            f"plain {r['plain_ms']:.4f} ms, {lib}bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}); {smi}")
+
+
 def tenant_phase(smi: str) -> tuple[dict, dict]:
     """Cell (t): `solve_many` over eight tenants in parity and fast mode
-    and once seeded in parity mode (counters zeroed just before, read
-    just after: every kernel of the path launched, the static kernels
-    and K4 once for all tenants); the first wall and the median of 5
-    against the sum of the eight solo walls on the card, host reads
-    against the solo sum; each tenant equal to its solo solve on the card
-    in all six outputs, with the validity audit; the batch equal to its
-    plain-version twin on the card (host reads too; the plain batches
-    run once, not for the seeded run); K4 over the tenant axis against
-    one tenant's K4; then K23 and K24 against their plain versions.
-    Returns (the phase's launch counts, the K23 and K24 rows)."""
+    and once seeded in parity mode (`batch_cells`: the static kernels and
+    K4 once for all tenants; the plain batches run on the full stack,
+    not for the seeded run); K4 over the tenant axis against one
+    tenant's K4; then K23 and K24 against their plain versions. Returns
+    (the phase's launch counts, the K23 and K24 rows)."""
     t0 = time.perf_counter()
     built = tenant_cells()
     snaps = [s for s, _ in built]
@@ -2532,89 +2699,265 @@ def tenant_phase(smi: str) -> tuple[dict, dict]:
         f"M={bk.running_pods} A={bk.atoms} S={bk.signatures}; "
         f"{sum(m.n_pods for _, m in built)} pods on "
         f"{sum(m.n_nodes for _, m in built)} nodes")
-    cells = (("t parity", EngineConfig(mode="parity"), PARITY_KERNELS),
-             ("t fast", EngineConfig(mode="fast"), FAST_KERNELS),
+    cfg_p, cfg_f = EngineConfig(mode="parity"), EngineConfig(mode="fast")
+    cells = (("t parity", cfg_p, PARITY_KERNELS, ONCE, (), True),
+             ("t fast", cfg_f, FAST_KERNELS, ONCE, (), True),
              ("t parity seeded", EngineConfig(
                  mode="parity", tie_break="seeded", tie_seed=SEED),
-              PARITY_KERNELS))
-    launches = {}
-    for name, cfg, want in cells:
-        zero_counts()
-        stats = kassign.RoundStats()
-        out, first_ms = batch_wall(cfg, dstack, stats=stats)
-        moved = counts()
-        check_launches(name, moved, want, dstack.atoms.key.shape[-1] > 0,
-                       optional=())
-        for k, v in moved.items():
-            launches[k] = launches.get(k, 0) + v
-        walls = [batch_wall(cfg, dstack)[1] for _ in range(5)]
-        static = kassign.precompute_static(cfg, dstack,
-                                           _sat_tables(dstack)[0])
-        mask = static.mask.cpu().numpy()
-        eng = Engine(cfg)
-        solo_ms, solo_reads, placed = [], 0, 0
-        for b, snap in enumerate(snaps):
-            ds = eng.put(snap)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            res = eng.solve(ds)
-            solo_ms.append((time.perf_counter() - t1) * 1e3)
-            solo_reads += res.host_reads
-            a, c, u, o, rounds, ev = (t[b].numpy() for t in out)
-            for field, got in (("assignment", a), ("chosen_score", c),
-                               ("final_used", u), ("order", o),
-                               ("evicted", ev)):
-                if not np.array_equal(got, getattr(res, field)):
-                    raise AssertionError(f"{name} tenant {b}: {field} "
-                                         "differs from its solo solve")
-            if int(rounds) != res.rounds:
-                raise AssertionError(f"{name} tenant {b}: {int(rounds)} "
-                                     f"rounds, solo {res.rounds}")
-            placed += validity(f"{name} tenant {b}", cfg, ds, res,
-                               mask[b])["placed"]
-        eng.close()
-        plain = "the plain batch not run (seeded)"
-        if name != "t parity seeded":
-            pstats = kassign.RoundStats()
-            want_out, plain_ms = batch_wall(cfg, dstack, kassign.PLAIN,
-                                            pstats)
-            for g, w in zip(out, want_out):
-                if not torch.equal(g, w):
-                    raise AssertionError(f"{name}: the batch differs from "
-                                         "its plain-version twin")
-            if pstats.host_reads != stats.host_reads:
-                raise AssertionError(f"{name}: {stats.host_reads} host "
-                                     f"reads, the plain batch "
-                                     f"{pstats.host_reads}")
-            plain = f"equal to the plain batch ({plain_ms:.1f} ms)"
-        log(f"tenant batch {name}: solve_many over {B} tenants {first_ms:.3f}"
-            f" ms first call, median of 5 {statistics.median(walls):.3f} ms "
-            f"wall; the {B} solo solves on the card {sum(solo_ms):.3f} ms "
-            f"together (each {', '.join(f'{m:.2f}' for m in solo_ms)}); "
-            f"host reads {stats.host_reads}, solo sum {solo_reads}; rounds "
-            f"{out[4].tolist()}; placed {placed}; launches {moved}; every "
-            f"tenant equal to its solo solve in all six outputs, validity "
-            f"clean, {plain}; {smi}")
-    cfg = cells[0][1]
-    static = kassign.precompute_static(cfg, dstack, _sat_tables(dstack)[0])
-    order = kassign.pop_order(cfg, dstack)
-    k4_batch = cuda_ms(lambda: kassign.parity_scan(cfg, dstack, static,
+              PARITY_KERNELS, ONCE, (), False))
+    launches = batch_cells(cells, snaps, dstack, smi)
+    static = kassign.precompute_static(cfg_p, dstack, _sat_tables(dstack)[0])
+    order = kassign.pop_order(cfg_p, dstack)
+    k4_batch = cuda_ms(lambda: kassign.parity_scan(cfg_p, dstack, static,
                                                    order), 3)
     snap0, static0 = dstack.tenant(0), static.tenant(0)
-    k4_solo = cuda_ms(lambda: kassign.parity_scan(cfg, snap0, static0,
+    k4_solo = cuda_ms(lambda: kassign.parity_scan(cfg_p, snap0, static0,
                                                   order[0]), 3)
     log(f"K4 over the tenant axis: {B} CTAs {k4_batch:.3f} ms, one tenant "
         f"{k4_solo:.3f} ms (x{B} = {B * k4_solo:.3f} ms); {smi}")
-    rows = tenant_kernel_rows(cells[1][1], dstack)
-    for kname, r in rows.items():
-        prof = ("not measured" if r["prof_ms"] is None
-                else f"{r['prof_ms']:.4f} ms")
-        log(f"kernel {kname} on (t)'s fast batch [{r['shape']}]: exact "
-            f"match, kernel {r['ms']:.4f} ms (CUDA events; profiler kernel "
-            f"time {prof}), plain {r['plain_ms']:.4f} ms, "
-            f"{r['library']} {r['library_ms']:.4f} ms, bound "
-            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}); {smi}")
+    rows = tenant_kernel_rows(cfg_f, dstack)
+    log_rows(rows, "(t)'s fast batch", smi)
     return launches, rows
+
+
+# The CUDA kernel of each entry point that gained the tenant axis with
+# signatures and gangs, for the profiler's kernel times.
+TENANT_CUDA_NAME = {
+    "sig_match": "sig_match_kernel", "pair_counts": "pair_counts_kernel",
+    "parity_scan_pair": "parity_scan_kernel",
+    "pairwise_batch_ia_ok": "pairwise_batch_kernel",
+    "waterfill": "waterfill_kernel", "excess_min": "excess_min_kernel",
+    "excess_survive": "excess_survive_kernel",
+    "ia_ok_at_choice": "ia_at_choice_kernel",
+    "pair_commit": "pair_commit_kernel", "node_add": "node_add_kernel",
+}
+
+
+def first_batch_calls(cfg, dstack, names: dict) -> dict:
+    """The arguments of the first call of each entry point in `names`
+    (kernels-line name -> (Ops field, want(args, kw))) in solve_many on
+    `dstack`."""
+    calls = {}
+
+    def rec(name, field, want):
+        fn = getattr(kassign.KERNELS, field)
+
+        def wrapped(*a, **kw):
+            if name not in calls and want(a, kw):
+                calls[name] = (fn, a, kw)
+            return fn(*a, **kw)
+        return wrapped
+
+    solve_many(cfg, dstack, ops=dataclasses.replace(kassign.KERNELS, **{
+        field: rec(name, field, want)
+        for name, (field, want) in names.items()}))
+    return calls
+
+
+def tenant_pair_kernel_rows(dstack, reduced, smi: str) -> dict:
+    """The entry points that gained the tenant axis, each on the
+    arguments of its first call in (tp)'s batches (K9, K10 and K4's
+    pairwise variant in the parity batch, the rest in the fast batch;
+    node_add's first call that reverts anything): against its plain
+    version (K4's on the reduced batch's first call: the plain pairwise
+    scan of eight full tenants takes minutes), CUDA-event and profiler
+    times and bounds (bytes each input read once, each output written
+    once; where a kernel gathers, only the entries it needs). Also K4's
+    pairwise variant with 8 CTAs against one tenant's."""
+    every = lambda a, kw: True  # noqa: E731
+    parity = {"sig_match": ("sig_match", every),
+              "pair_counts": ("pair_counts", every),
+              "parity_scan_pair": ("parity_scan_pair", every)}
+    fast = {"pairwise_batch_ia_ok": (
+                "pairwise_batch", lambda a, kw: kw.get("with_ia_ok", False)),
+            "waterfill": ("waterfill", every),
+            "excess_min": ("excess_min", every),
+            "excess_survive": ("excess_survive", every),
+            "ia_ok_at_choice": ("ia_ok_at_choice", every),
+            "pair_commit": ("pair_commit", every),
+            "node_add": ("node_add", lambda a, kw: bool(a[2].any()))}
+    plain_of = dict(PLAIN_OF, sig_match=kpair.sig_match_plain,
+                    pair_counts=kpair.pair_counts_plain,
+                    parity_scan_pair=kassign.parity_scan_pair_plain)
+    cfg_p, cfg_f = EngineConfig(mode="parity"), EngineConfig(mode="fast")
+    calls = first_batch_calls(cfg_p, dstack, parity)
+    calls.update(first_batch_calls(cfg_f, dstack, fast))
+    small = first_batch_calls(cfg_p, reduced, {
+        "parity_scan_pair": parity["parity_scan_pair"]})
+    B, P = dstack.pods.valid.shape
+    N = dstack.nodes.valid.shape[1]
+    S = dstack.sigs.key.shape[1]
+    R = dstack.nodes.allocatable.shape[2]
+    IT = dstack.pods.ia_sig.shape[2]
+    C = dstack.pods.ts_sig.shape[2]
+    M = dstack.running.valid.shape[1]
+    out = {}
+    for name in (*parity, *fast):
+        fn, a, kw = calls[name]
+        plain = plain_of[name]
+        scan = name == "parity_scan_pair"
+        cmp = small[name] if scan else calls[name]
+        got = [t for o in _flat(cmp[0](*cmp[1], **cmp[2])) for t in _flat(o)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(*cmp[1], **cmp[2])
+        end.record()
+        end.synchronize()
+        want = [t for o in _flat(want) for t in _flat(o)]
+        err = require_equal(f"{name} over the tenant axis", got, want)
+        # The plain scan runs once (seconds); the others their median.
+        r = dict(err=err, ms=cuda_ms(lambda: fn(*a, **kw), 3 if scan else 10),
+                 prof_ms=profiler_ms(lambda: fn(*a, **kw),
+                                     TENANT_CUDA_NAME[name], 2 if scan else 5),
+                 plain_ms=(start.elapsed_time(end) if scan else cuda_ms(
+                     lambda: plain(*cmp[1], **cmp[2]), 3)))
+        res = [t for o in _flat(fn(*a, **kw)) for t in _flat(o)]
+        if name == "sig_match":
+            r.update(bound=bound(nbytes(*a[:1], a[2], *res),
+                                 B * S * (M + P) * 8),
+                     shape=f"B={B} S={S} M+P={M + P}")
+        elif name == "pair_counts":
+            r.update(bound=bound(nbytes(a[0], a[1], *res), B * S * (M + P)),
+                     shape=f"B={B} S={S} N={N} M+P={M + P}")
+        elif name == "parity_scan_pair":
+            static = a[2]
+            b = nbytes(static.mask, static.score, static.aff_ok, *res)
+            r.update(bound=bound(b, B * P * N * (C * 6 + IT * 10 + 30)),
+                     shape=f"B={B} P={P} N={N} S={S}; plain on the reduced "
+                           f"batch B={small[name][1][3].shape[0]} "
+                           f"P={small[name][1][3].shape[1]}")
+        elif name == "pairwise_batch_ia_ok":
+            snap_v, st, aff_ok, sig_match, dom_s = a
+            Pv = aff_ok.shape[1]
+            b = nbytes(aff_ok, sig_match, dom_s, st.counts, st.anti, *res)
+            r.update(bound=bound(b, B * Pv * N * (C * 6 + IT * 10 + S * 3
+                                                  + 14)),
+                     shape=f"B={B} P={Pv} N={N} S={S} C={C} IT={IT}")
+        elif name == "waterfill":
+            fill, ord_dom, dom_s, s_p, q, relaxed, cap, score, member, K1 = a
+            Pv = relaxed.shape[1]
+            b = nbytes(fill, ord_dom, dom_s, s_p, q, relaxed, cap, member,
+                       *res) + 4 * B * Pv * K1
+            r.update(bound=bound(b, 3 * B * Pv * N), shape=(
+                f"B={B} P={Pv} N={N} S={S} K+1={K1}, "
+                f"{int(res[2].sum())} members dealt"))
+        elif name == "excess_min":
+            Pv = a[3].shape[1]
+            r.update(bound=bound(nbytes(*a, *res), 3 * B * Pv * N),
+                     shape=f"B={B} P={Pv} N={N} S={S}")
+        elif name == "excess_survive":
+            Pv = a[1].shape[1]
+            r.update(bound=bound(nbytes(*a, *res), 4 * B * Pv),
+                     shape=f"B={B} P={Pv}, {int(a[2].sum())} members, "
+                           f"{int(res[0].sum())} bad")
+        elif name == "ia_ok_at_choice":
+            Pv = a[4].shape[1]
+            b = (B * S * Pv + nbytes(*(getattr(a[0].pods, f) for f in (
+                "ia_sig", "ia_valid", "ia_anti", "ia_required")))
+                 + 3 * 4 * B * S * Pv + nbytes(a[4], a[5], *res))
+            r.update(bound=bound(b, B * (S + 10 * IT) * Pv),
+                     shape=f"B={B} P={Pv} S={S} IT={IT}")
+        elif name == "pair_commit":
+            Pv = a[4].shape[1]
+            b = (B * S * Pv + nbytes(a[4], a[5]) + 7 * B * Pv * IT
+                 + 2 * 4 * B * S * Pv)
+            r.update(bound=bound(b, B * (S + IT) * Pv),
+                     shape=f"B={B} P={Pv} S={S}, {int(a[5].sum())} "
+                           "committed")
+        elif name == "node_add":
+            used, node, mask, req, rank, sign = a
+            Pv = node.shape[1]
+            b = nbytes(node, mask, req, rank, used) + nbytes(*res)
+            r.update(bound=bound(b, B * Pv * R),
+                     shape=f"B={B} P={Pv} N={N} R={R}, {int(mask.sum())} "
+                           "reverted")
+        out[name] = r
+    fn, a, kw = calls["parity_scan_pair"]
+    cfg, snap, static, order, st, dom_s = a
+    k4_solo = cuda_ms(lambda: fn(cfg, snap.tenant(0), static.tenant(0),
+                                 order[0], st.tenant(0), dom_s[0]), 3)
+    log(f"K4's pairwise variant over the tenant axis: {B} CTAs "
+        f"{out['parity_scan_pair']['ms']:.3f} ms, one tenant {k4_solo:.3f} "
+        f"ms (x{B} = {B * k4_solo:.3f} ms); {smi}")
+    return out
+
+
+def pair_tenant_phase(smi: str) -> tuple[dict, dict]:
+    """Cell (tp): `solve_many` over eight config-3 tenants in parity mode
+    (first and seeded) and fast mode (`batch_cells`; the plain twin on
+    the reduced batch), then the tenant-axis entry points' rows. Returns
+    (the phase's launch counts, the rows)."""
+    t0 = time.perf_counter()
+    built = pair_tenant_cells(TENANTS, TENANT_PODS, TENANT_STEP,
+                              TENANT_NODES)
+    snaps = [s for s, _ in built]
+    dstack = stack_snapshots(snaps).to("cuda")
+    reduced = stack_snapshots([s for s, _ in pair_tenant_cells(
+        REDUCED_TENANTS, REDUCED_PODS, 0, REDUCED_NODES)]).to("cuda")
+    B, P = dstack.pods.valid.shape
+    N = dstack.nodes.valid.shape[1]
+    bk = built[0][1].buckets
+    log(f"tenant snapshots (tp) built, stacked and put on the card: "
+        f"{time.perf_counter() - t0:.3f} s; B={B} P={P} N={N} "
+        f"M={bk.running_pods} A={bk.atoms} S={bk.signatures} "
+        f"C={bk.spread_constraints} IT={bk.affinity_terms}; "
+        f"{sum(m.n_pods for _, m in built)} pods on "
+        f"{sum(m.n_nodes for _, m in built)} nodes; the reduced batch "
+        f"B={reduced.pods.valid.shape[0]} P={reduced.pods.valid.shape[1]} "
+        f"N={reduced.nodes.valid.shape[1]}")
+    cells = (("tp parity", EngineConfig(mode="parity"), PAIR_PARITY_KERNELS,
+              ONCE, (), True),
+             ("tp parity seeded", EngineConfig(
+                 mode="parity", tie_break="seeded", tie_seed=SEED),
+              PAIR_PARITY_KERNELS, ONCE, (), False),
+             ("tp fast", EngineConfig(mode="fast"), FAST_PAIR_KERNELS,
+              FAST_PAIR_ONCE, (), True))
+    launches = batch_cells(cells, snaps, dstack, smi, reduced=reduced)
+    rows = tenant_pair_kernel_rows(dstack, reduced, smi)
+    log_rows(rows, "(tp)'s batches", smi)
+    return launches, rows
+
+
+def gang_hook(name: str, cfg, b: int, dsnap, res) -> str:
+    """Tenant b's gang audit (no group placed in part; the pods its solo
+    gang gate rolled back unplaced) and its rolled-back groups."""
+    rolled = solve_core(cfg, dsnap, explain=True)[-1][0].cpu().numpy()
+    info = gang_audit(f"{name} tenant {b}", dsnap, res, rolled)
+    last = b == TENANTS - 1
+    if (b == 0 and info["rolled_groups"]) or (last
+                                              and not info["rolled_groups"]):
+        raise AssertionError(f"{name} tenant {b}: {info['rolled_groups']} "
+                             "groups rolled back")
+    return (f"tenant {b}: {info['groups_placed']} of {info['groups']} "
+            f"groups placed, {info['rolled_groups']} rolled back")
+
+
+def gang_tenant_phase(smi: str) -> dict:
+    """Cell (tg): `solve_many` over eight config-4 tenants in both modes
+    (`batch_cells` with each tenant's gang audit and rolled-back groups;
+    the plain twin on the reduced batch). Returns the phase's launch
+    counts."""
+    t0 = time.perf_counter()
+    built = gang_tenant_cells(TENANTS, GANG_GROUPS, GANG_GROUP_STEP,
+                              TENANT_NODES, GANG_NODE_STEP)
+    snaps = [s for s, _ in built]
+    dstack = stack_snapshots(snaps).to("cuda")
+    reduced = stack_snapshots([s for s, _ in gang_tenant_cells(
+        REDUCED_TENANTS, REDUCED_PODS // 4, 0, REDUCED_NODES, 0)]).to("cuda")
+    B, P = dstack.pods.valid.shape
+    N = dstack.nodes.valid.shape[1]
+    log(f"tenant snapshots (tg) built, stacked and put on the card: "
+        f"{time.perf_counter() - t0:.3f} s; B={B} P={P} N={N} "
+        f"G={built[0][1].buckets.pod_groups}; "
+        f"{sum(m.n_pods for _, m in built)} pods on "
+        f"{sum(m.n_nodes for _, m in built)} nodes")
+    cells = (("tg parity", EngineConfig(mode="parity"), GANG_PARITY_KERNELS,
+              ONCE, (), True),
+             ("tg fast", EngineConfig(mode="fast"), GANG_FAST_KERNELS, ONCE,
+              OPTIONAL, True))
+    return batch_cells(cells, snaps, dstack, smi, reduced=reduced,
+                       hook=gang_hook)
 
 
 def main() -> int:
@@ -2853,14 +3196,23 @@ def main() -> int:
         launches[k] += v
     kp.update(kp_warm)
 
-    # -- the device queue (q) and decision provenance (x) -------------------
+    # -- the device queue (q), decision provenance (x), the tenant batches
+    # (t), (tp) and (tg) ---------------------------------------------------
+    # A row of a kernel already measured above keeps its numbers; the
+    # phase's comparison joins its max_abs_err.
     for phase in (lambda: queue_phase(smi),
                   lambda: explain_phase(snap_h, snap_d, smi),
-                  lambda: tenant_phase(smi)):
+                  lambda: tenant_phase(smi),
+                  lambda: pair_tenant_phase(smi),
+                  lambda: (gang_tenant_phase(smi), {})):
         phase_counts, rows = phase()
         for k, v in phase_counts.items():
             launches[k] += v
-        kp.update(rows)
+        for k, r in rows.items():
+            if k in kp:
+                kp[k]["err"] = max(kp[k]["err"], r["err"])
+            else:
+                kp[k] = r
 
     for name, n in launches.items():
         if name in OFF_PATH:

@@ -998,3 +998,131 @@ def test_solve_many_on_the_card(cuda, mode, tie_break):
                                    2 * P + 8, ka._fallback_depth(N), cap=16,
                                    ops=ops) for ops in (ka.KERNELS, ka.PLAIN)]
     _equal(runs[0], runs[1])
+
+
+# -- the tenant axis with signatures and gangs (configs 3-4) ----------------
+
+
+def _floored(draw, B):
+    """B tenants drawn under the elementwise max of their own buckets
+    (signatures included): their snapshots and the stack on the card."""
+    floor = {}
+    for b in range(B):
+        for f, v in dataclasses.asdict(draw(b)[1].buckets).items():
+            floor[f] = max(floor.get(f, 0), v)
+    snaps = [draw(b, buckets=Buckets(**floor))[0] for b in range(B)]
+    return snaps, stack_snapshots(snaps)
+
+
+def _pair_tenants(cuda, B=3):
+    """B config-3 tenants of different sizes, with running anti-affinity
+    holders, namespace scopes and key-less nodes."""
+    snaps, stacked = _floored(lambda b, **x: tsynth.make_cluster(
+        np.random.default_rng(50 + b), 100 + 10 * b, 20 + 2 * b,
+        **PAIR_MIXES["anti_ns_keyless"], **x), B)
+    return snaps, stacked.to(cuda)
+
+
+def _gang_tenants(cuda, pair: bool, B=3):
+    """B config-4 tenants, the later ones tight enough to roll back."""
+    kw = PAIR_MIXES["config3"] if pair else {}
+    snaps, stacked = _floored(lambda b, **x: tsynth.config4_gangs(
+        np.random.default_rng(60 + b), n_groups=12 + 2 * b, gang_size=4,
+        n_nodes=24 - 8 * b, **kw, **x), B)
+    return snaps, stacked.to(cuda)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_pairwise_tenant_axis_equal_plain(cuda, B):
+    """K4's pairwise variant, K9-K14, K10's pair_commit and K8's node_add
+    over B tenants in one launch each, against their plain versions
+    (tenant by tenant), on a fast round's inputs: the pair state with
+    part of each tenant's pods committed at random nodes."""
+    _, snap = _pair_tenants(cuda, B)
+    cfg = EngineConfig(mode="fast")
+    member_sat_t = _sat_tables(snap)[1]
+    ns = kp.member_ns(snap)
+    assert member_sat_t.shape[0] == B
+    _equal([kp.sig_match(member_sat_t, snap.sigs, ns)],
+           [kp.sig_match_plain(member_sat_t, snap.sigs, ns)])
+    static, dom, st = _pair_setup(cfg, snap)
+    args = (static.sig_match, dom, snap.running, snap.pods)
+    _equal(_state(st), _state(kp.pair_counts_plain(*args)))
+    _, P = snap.pods.valid.shape
+    N = snap.nodes.valid.shape[1]
+    rng = np.random.default_rng(B)
+    choice = torch.from_numpy(rng.integers(0, N, size=(B, P)).astype(
+        np.int32)).to(cuda)
+    kept = (torch.from_numpy(rng.random((B, P)) < 0.6).to(cuda)
+            & snap.pods.valid)
+    _equal(_state(kp.pair_counts(*args, assigned=choice)),
+           _state(kp.pair_counts_plain(*args, assigned=choice)))
+    for tie_break in ("first", "seeded"):
+        c4 = EngineConfig(tie_break=tie_break, tie_seed=5)
+        order = ka.pop_order(c4, snap)
+        got = ka.parity_scan_pair(c4, snap, static, order, st, dom)
+        want = ka.parity_scan_pair_plain(c4, snap, static, order, st, dom)
+        _equal(got[:3], want[:3])
+        _equal(_state(got[3]), _state(want[3]))
+    st = kp.pair_commit_plain(snap, st, static.sig_match, dom, choice, kept)
+    for with_ia_ok in (False, True):
+        b = (snap, st, static.aff_ok, static.sig_match, dom, with_ia_ok)
+        _equal(kp.pairwise_batch(*b), kp.pairwise_batch_plain(*b))
+    rank = ka._rank_of(ka.pop_order(cfg, snap))
+    feasible, score, relaxed = ka.batched_cycle(
+        cfg, snap, static, snap.nodes.used, ops=ka.PLAIN, pair_st=st,
+        pending=snap.pods.valid, return_relaxed=True)
+    K = ka._fallback_depth(N)
+    wf = (snap, st, snap.nodes.used, relaxed, score, relaxed.any(dim=-1),
+          rank, K, dom)
+    deal = ka._spread_waterfill_deal(*wf, ka.KERNELS)
+    _equal(deal, ka._spread_waterfill_deal(*wf, ka.PLAIN))
+    assert deal[2].any()
+    for sign in (1.0, -1.0):
+        a = (snap, st, static.sig_match, dom, choice, kept, sign)
+        _equal(_state(kp.pair_commit(*a)), _state(kp.pair_commit_plain(*a)))
+        n = (snap.nodes.used, choice, kept, snap.pods.requests, rank, sign)
+        _equal([ka.node_add(*n)], [ka.node_add_plain(*n)])
+    esn = torch.where(kept, choice, -1)
+    ia = (snap, st, static.sig_match, dom, choice, esn)
+    _equal([kp.ia_ok_at_choice(*ia)], [kp.ia_ok_at_choice_plain(*ia)])
+    ex = (snap, static.aff_ok, rank, choice, kept, st, dom)
+    bad = ka._spread_excess_mask(*ex, ka.KERNELS)
+    _equal([bad], [ka._spread_excess_mask(*ex, ka.PLAIN)])
+    # Each tenant's slice of the batch is the kernels' solo call on it.
+    for t in range(B):
+        one = snap.tenant(t)
+        _equal([bad[t]], [ka._spread_excess_mask(
+            one, static.aff_ok[t], rank[t], choice[t], kept[t],
+            st.tenant(t), dom[t], ka.KERNELS)])
+
+
+@pytest.mark.parametrize("kind", ["pairwise", "gangs", "pairwise_gangs"])
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_solve_many_signatures_gangs_on_the_card(cuda, mode, kind):
+    """The batch with signatures and gangs on the card equals its
+    plain-version twin (host reads included) and, tenant by tenant, the
+    solo solve on the card; fast mode once more at compact_cap 16, where
+    tenants hand off to compacted rounds."""
+    if kind == "pairwise":
+        snaps, stacked = _pair_tenants(cuda)
+    else:
+        snaps, stacked = _gang_tenants(cuda, kind == "pairwise_gangs")
+    caps = (-1, 16) if mode == "fast" else (-1,)
+    for cap in caps:
+        cfg = EngineConfig(mode=mode, compact_cap=cap)
+        s1, s2 = ka.RoundStats(), ka.RoundStats()
+        got = solve_many(cfg, stacked, stats=s1)
+        _equal(got, solve_many(cfg, stacked, ops=ka.PLAIN, stats=s2))
+        assert s1.host_reads == s2.host_reads
+        eng = Engine(cfg)
+        for b, snap in enumerate(snaps):
+            res = eng.solve(snap)
+            a, c, u, o, rounds, ev = (t[b].cpu().numpy() for t in got)
+            np.testing.assert_array_equal(a, res.assignment)
+            np.testing.assert_array_equal(c, res.chosen_score)
+            np.testing.assert_array_equal(u, res.final_used)
+            np.testing.assert_array_equal(o, res.order)
+            np.testing.assert_array_equal(ev, res.evicted)
+            assert int(rounds) == res.rounds
+        eng.close()

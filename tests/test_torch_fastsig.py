@@ -345,7 +345,7 @@ def test_compacted_rounds_run_on_views(monkeypatch):
     real = tassign.PLAIN.waterfill
 
     def record(fill, ord_dom, dom_s, s_p, *rest):
-        widths.append(s_p.shape[0])
+        widths.append(s_p.shape[-1])
         return real(fill, ord_dom, dom_s, s_p, *rest)
 
     ops = dataclasses.replace(tassign.PLAIN, waterfill=record)

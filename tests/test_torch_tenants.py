@@ -17,9 +17,23 @@ no placeable pod, tenants that finish at different rounds), the
 refusals, stacking, `zipf_weights` and the moved plain versions of the
 dealing (K23) and the tranche pick (K24).
 
-Tenants are built under one explicit `Buckets` floor with
-signatures=0: the signature bucket, not the count of real signatures,
-decides the path.
+With pairwise signatures and gangs (configs 3-4) the batch is held to
+  * each tenant's solo solve, bit for bit in all six outputs, in both
+    modes and both tie-breaks, for spread / inter-pod tenants, gang
+    tenants (one rolling groups back, one rolling none) and gang tenants
+    with spread and inter-pod terms;
+  * the JAX package's `solve_many` on its own tenant shape
+    (tests/test_tenants.py: three make_cluster tenants with spread and
+    inter-pod terms under a 16-signature floor): parity assignment,
+    order, used and evicted exactly, chosen at rtol 1e-4 / atol 1e-3;
+    fast assignment and rounds exactly, used at rtol 1e-6;
+  * JAX's signature rounds at compact_cap = 4 with tenants that hand
+    off to the compacted rounds at different rounds, the batch reading
+    one flag vector a loop step.
+
+Tenants are built under one explicit `Buckets` floor; the signature
+bucket, not the count of real signatures, decides the path (the
+configs 1-2 cases set signatures=0).
 """
 
 from __future__ import annotations
@@ -52,14 +66,14 @@ MIX = dict(taint_frac=0.3, toleration_frac=0.3, affinity_frac=0.3,
 SIZES = [(20, 10), (24, 12), (28, 14), (30, 16)]
 
 
-def _floor(metas, cls=Buckets):
-    """The elementwise max of the tenants' own buckets, without
-    signatures: one floor every tenant fits."""
+def _floor(metas, cls=Buckets, **fixed):
+    """The elementwise max of the tenants' own buckets (with the `fixed`
+    fields): one floor every tenant fits."""
     fl = {}
     for m in metas:
         for f, v in dataclasses.asdict(m.buckets).items():
             fl[f] = max(fl.get(f, 0), v)
-    fl["signatures"] = 0
+    fl.update(fixed)
     return cls(**fl)
 
 
@@ -67,14 +81,14 @@ def _port_tenants(n=3, seed=700, **kw):
     kw = dict(MIX, **kw)
     draw = lambda b, **x: tsynth.make_cluster(  # noqa: E731
         np.random.default_rng(seed + b), *SIZES[b], **kw, **x)
-    floor = _floor([draw(b)[1] for b in range(n)])
+    floor = _floor([draw(b)[1] for b in range(n)], signatures=0)
     return [draw(b, buckets=floor)[0] for b in range(n)]
 
 
 def _jax_tenants(n=3, seed=700):
     draw = lambda b, **x: jsynth.make_cluster(  # noqa: E731
         np.random.default_rng(seed + b), *SIZES[b], **MIX, **x)
-    floor = _floor([draw(b)[1] for b in range(n)], JBuckets)
+    floor = _floor([draw(b)[1] for b in range(n)], JBuckets, signatures=0)
     return [jax.device_put(draw(b, buckets=floor)[0]) for b in range(n)]
 
 
@@ -262,20 +276,11 @@ def test_uneven_tranches_freeze_finished_tenants():
     assert stats.host_reads >= solo_reads
 
 
-@pytest.mark.parametrize("what", ["signatures", "gangs", "preemption",
-                                  "ring_counts"])
+@pytest.mark.parametrize("what", ["preemption", "ring_counts"])
 def test_refusals(what):
     cfg = EngineConfig()
     snaps = _port_tenants(2)
-    if what == "signatures":
-        snaps = [tsynth.make_cluster(np.random.default_rng(b), 12, 6,
-                                     spread_frac=0.5)[0] for b in range(2)]
-        match = "A12b"
-    elif what == "gangs":
-        snaps = [tsynth.make_cluster(np.random.default_rng(b), 12, 6,
-                                     gang_frac=1.0)[0] for b in range(2)]
-        match = "A12b"
-    elif what == "preemption":
+    if what == "preemption":
         cfg = EngineConfig(preemption=True)
         match = "A12b"
     else:
@@ -283,6 +288,192 @@ def test_refusals(what):
         match = "A14"
     with pytest.raises(NotImplementedError, match=match):
         solve_many(cfg, stack_snapshots(snaps), device="cpu")
+
+
+# -- pairwise signatures and gangs (configs 3-4) ------------------------------
+
+# JAX's own tenant shape (tests/test_tenants.py:19-36).
+JBK = dict(atoms=16, signatures=16, taint_vocab=8, topo_keys=4,
+           node_labels=8, pod_labels=4, sig_namespaces=2, term_atoms=4)
+
+
+def _jax_shape_tenants():
+    bk = JBuckets.fit(64, 16, 64, **JBK)
+    return [jsynth.make_cluster(
+        np.random.default_rng(8800 + b), 20 + b * 5, 10, buckets=bk,
+        spread_frac=0.3, interpod_frac=0.3, taint_frac=0.2,
+        toleration_frac=0.3)[0] for b in range(3)]
+
+
+def _floored(draw, n, cls=Buckets):
+    """n tenants drawn twice: on their own buckets, then under the
+    elementwise max of those (signatures included)."""
+    floor = _floor([draw(b)[1] for b in range(n)], cls)
+    return [draw(b, buckets=floor)[0] for b in range(n)]
+
+
+def _pair_tenants():
+    """Spread and inter-pod tenants of uneven size, some with running
+    anti-affinity holders and namespace scopes."""
+    return _floored(lambda b, **x: tsynth.make_cluster(
+        np.random.default_rng(900 + b), 20 + 5 * b, 10, spread_frac=0.3,
+        interpod_frac=0.3, taint_frac=0.2, toleration_frac=0.3,
+        run_anti_frac=0.2 * (b % 2), namespace_count=1 + b, **x), 3)
+
+
+# (groups, gang size, nodes) a tenant: the first keeps every group, the
+# others are tight enough to roll groups back.
+GANG_SIZES = [(6, 3, 12), (8, 4, 5), (7, 3, 3)]
+
+
+def _gang_tenants(pairwise=False):
+    kw = dict(spread_frac=0.3, interpod_frac=0.3) if pairwise else {}
+    return _floored(lambda b, **x: tsynth.config4_gangs(
+        np.random.default_rng(820 + b), n_groups=GANG_SIZES[b][0],
+        gang_size=GANG_SIZES[b][1], n_nodes=GANG_SIZES[b][2], **kw, **x), 3)
+
+
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_pairwise_batch_equals_solo_solves(mode, tie_break):
+    """Three spread / inter-pod tenants under one 16-wide signature floor
+    (K4's pairwise variant, K9-K14 and the signature rounds over the
+    tenant axis): each is its solo solve, bit for bit in all six
+    outputs; a fast batch reads no fewer flags than the longest solo
+    solve and fewer than the solo solves together."""
+    cfg = EngineConfig(mode=mode, tie_break=tie_break, tie_seed=5)
+    snaps = _pair_tenants()
+    assert snaps[0].sigs.key.shape[0] > 0
+    stats = tassign.RoundStats()
+    out = solve_many(cfg, stack_snapshots(snaps), device="cpu", stats=stats)
+    solos = _solo_equal(cfg, snaps, out)
+    assert all((r.assignment >= 0).any() for r in solos)
+    if mode == "fast":
+        reads = [r.host_reads for r in solos]
+        assert max(reads) <= stats.host_reads < sum(reads), (
+            stats.host_reads, reads)
+
+
+def _rolled(cfg, snap):
+    return int(tassign.solve_rounds(cfg, snap, *_sat_tables(snap),
+                                    explain=True)[-1][0].sum()
+               if cfg.mode == "fast" else tassign.solve_sequential(
+                   cfg, snap, *_sat_tables(snap), explain=True)[-1][0].sum())
+
+
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_gang_batch_equals_solo_solves(mode, tie_break):
+    """Three config-4 tenants whose group ids overlap (each tenant counts
+    its own quorums): the first rolls no group back, the others roll
+    some back. Each tenant is its solo solve in all six outputs."""
+    cfg = EngineConfig(mode=mode, tie_break=tie_break, tie_seed=5)
+    snaps = _gang_tenants()
+    out = solve_many(cfg, stack_snapshots(snaps), device="cpu")
+    _solo_equal(cfg, snaps, out)
+    rolled = [_rolled(cfg, s) for s in snaps]
+    assert rolled[0] == 0 and rolled[1] > 0 and rolled[2] > 0, rolled
+    assert all((out[0][b] >= 0).any() for b in range(3))
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_pairwise_gang_batch_equals_solo_solves(mode):
+    """Gang tenants with spread and inter-pod terms: the gate reverts the
+    rolled pods out of each tenant's pair state (K10's pair_commit with
+    sign -1) as well as out of `used`."""
+    cfg = EngineConfig(mode=mode)
+    snaps = _gang_tenants(pairwise=True)
+    assert snaps[0].sigs.key.shape[0] > 0
+    out = solve_many(cfg, stack_snapshots(snaps), device="cpu")
+    _solo_equal(cfg, snaps, out)
+    assert sum(_rolled(cfg, s) for s in snaps) > 0
+
+
+def test_jax_tenant_shape_parity_matches_jax():
+    """JAX's own tenant test shape in parity mode: assignment, order,
+    used and evicted exactly, chosen within ROADMAP C1's tolerance."""
+    jsnaps = _jax_shape_tenants()
+    ja, jc, ju, jo, jr, jev = _jax_batch(JConfig(mode="parity"), jsnaps)
+    out = solve_many(EngineConfig(mode="parity"), stack_snapshots(
+        [jax.device_get(s) for s in jsnaps]), device="cpu")
+    a, c, u, o, rounds, ev = _np(out)
+    np.testing.assert_array_equal(a, ja)
+    np.testing.assert_array_equal(o, jo)
+    np.testing.assert_array_equal(ev, jev)
+    np.testing.assert_array_equal(rounds, jr)
+    np.testing.assert_allclose(u, ju, rtol=1e-5)
+    np.testing.assert_allclose(np.nan_to_num(c, neginf=-1.0),
+                               np.nan_to_num(jc, neginf=-1.0),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_jax_tenant_shape_fast_matches_jax():
+    """JAX's own tenant test shape in fast mode: assignment and rounds
+    exactly, used within rtol 1e-6 (the commit adds' order, ROADMAP
+    C6)."""
+    jsnaps = _jax_shape_tenants()
+    ja, _, ju, _, jr, _ = _jax_batch(JConfig(mode="fast"), jsnaps)
+    out = solve_many(EngineConfig(mode="fast"), stack_snapshots(
+        [jax.device_get(s) for s in jsnaps]), device="cpu")
+    a, _, u, _, rounds, _ = _np(out)
+    np.testing.assert_array_equal(a, ja)
+    np.testing.assert_array_equal(rounds, jr)
+    np.testing.assert_allclose(u, ju, rtol=1e-6)
+
+
+# Tenants of 20, 40 and 60 pods on 10, 10 and 14 nodes (seeds 109 + b)
+# with spread and inter-pod terms: at compact_cap = 4 the first hands off
+# after one full-width round, the last after four, the middle never.
+HANDOFF = [(20, 10), (40, 10), (60, 14)]
+
+
+def _handoff_tenants():
+    return _floored(lambda b, **x: jsynth.make_cluster(
+        np.random.default_rng(109 + b), *HANDOFF[b], spread_frac=0.5,
+        interpod_frac=0.5, taint_frac=0.2, toleration_frac=0.3, **x), 3,
+        JBuckets)
+
+
+def test_signature_batch_hands_off_at_different_rounds():
+    """compact_cap = 4: each tenant runs full-width rounds until at most
+    4 of its pods are pending, then [4, N] views, which wait until the
+    full-width loop has ended for every tenant. Two tenants hand off at
+    different rounds (counted per tenant from the K5 calls' pending
+    rows); the batch equals each tenant's solo rounds bit for bit and
+    JAX's fast solve at the same cap (its `_solve_rounds_sig` with
+    cap = 4) in assignment and rounds, and reads no fewer flags than the
+    longest solo solve and fewer than all of them together."""
+    cfg = EngineConfig(mode="fast", compact_cap=4)
+    jsnaps = _handoff_tenants()
+    snaps = [snapshot_from_numpy(jax.device_get(s)) for s in jsnaps]
+    P = snaps[0].pods.valid.shape[0]
+    full, compact = np.zeros(3, int), np.zeros(3, int)
+
+    def cycle(*args, **kw):
+        width = args[3].shape[-2]
+        live = kw["pending"].any(dim=-1).numpy()
+        (full if width == P else compact)[:] += live
+        return tassign.cycle_plain(*args, **kw)
+
+    ops = dataclasses.replace(tassign.PLAIN, cycle=cycle)
+    stats = tassign.RoundStats()
+    out = solve_many(cfg, stack_snapshots(snaps), device="cpu", ops=ops,
+                     stats=stats)
+    handed = full[compact > 0]
+    assert len(set(handed.tolist())) > 1, (full, compact)
+    solos = _solo_equal(cfg, snaps, out)
+    reads = [r.host_reads for r in solos]
+    assert max(reads) <= stats.host_reads < sum(reads), (stats.host_reads,
+                                                         reads)
+    jeng = JEngine(JConfig(mode="fast", compact_cap=4))
+    try:
+        for b, js in enumerate(jsnaps):
+            jres = jeng.solve(js)
+            np.testing.assert_array_equal(out[0][b].numpy(), jres.assignment,
+                                          f"tenant {b} against JAX")
+            assert int(out[4][b]) == jres.rounds
+    finally:
+        jeng.close()
 
 
 def test_without_cuda_raises(monkeypatch):

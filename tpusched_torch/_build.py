@@ -57,19 +57,19 @@ SIGNATURES = {
     "tpusched_row_topk": [_I, _I, _I, _P, _I, _U, _P, _P, _P, _P, _P],
     "tpusched_desirability": [_I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "tpusched_prefix_commit": [_I] * 5 + [_P] * 11,
-    "tpusched_parity_scan_pair": [_I, _I, _I] + [_P] * 10 + [_I, _U]
+    "tpusched_parity_scan_pair": [_I, _I, _I, _I] + [_P] * 10 + [_I, _U]
                                  + [_I] * 4 + [_P] * 23,
-    "tpusched_sig_match": [_I, _I, _I, _I] + [_P] * 8,
-    "tpusched_pair_counts": [_I] * 6 + [_P] * 14,
-    "tpusched_pairwise_batch": [_I] * 6 + [_P] * 21,
+    "tpusched_sig_match": [_I] * 6 + [_P] * 8,
+    "tpusched_pair_counts": [_I] * 7 + [_P] * 14,
+    "tpusched_pairwise_batch": [_I] * 7 + [_P] * 21,
     "tpusched_deal": [_I] * 5 + [_P] * 7,
     "tpusched_top_by_rank": [_I] * 3 + [_P] * 5,
-    "tpusched_node_add": [_I, _I, _I, _P, _P, _P, _I, _P, _P],
-    "tpusched_pair_commit": [_I] * 5 + [_P] * 8 + [_I] + [_P] * 4,
-    "tpusched_ia_at_choice": [_I] * 5 + [_P] * 13,
-    "tpusched_waterfill": [_I, _I, _I] + [_P] * 13,
-    "tpusched_excess_min": [_I, _I] + [_P] * 7,
-    "tpusched_excess_survive": [_I] + [_P] * 7,
+    "tpusched_node_add": [_I] * 4 + [_P, _P, _P, _I, _P, _P],
+    "tpusched_pair_commit": [_I] * 6 + [_P] * 8 + [_I] + [_P] * 4,
+    "tpusched_ia_at_choice": [_I] * 6 + [_P] * 13,
+    "tpusched_waterfill": [_I] * 5 + [_P] * 13,
+    "tpusched_excess_min": [_I] * 4 + [_P] * 7,
+    "tpusched_excess_survive": [_I, _I] + [_P] * 7,
     "tpusched_preempt_step": [_I] * 4 + [_P] * 7 + [_F] + [_P] * 15,
     "tpusched_parity_scan_preempt": [_I, _I, _I] + [_P] * 10 + [_I, _U]
                                     + _PREEMPT + [_P] * 6,

@@ -30,7 +30,11 @@
 // JAX adds each segment's total (a prefix sum) at once, a different
 // association (so `used` agrees with JAX's to rounding, not bitwise); the
 // order here depends only on the rows' ranks, so a compacted view adds
-// exactly what the full width adds. Bound: bytes, [P, R] read once.
+// exactly what the full width adds. Bound: bytes, [P, R] read once. A
+// tenant batch (tpusched/tenants.py:75 solve_many) sorts each tenant's
+// rows on their own ([B, P] perm and node_s, [B, P, R] requests, [B, N, R]
+// used); blockIdx.y is the tenant, so each node's adds stay in its
+// tenant's rows, in the same rank order as a solo call.
 //
 // Bound: latency. The work is O(P log P) adds over [P] x R (P = 10240 at
 // the headline), far below a microsecond of bandwidth; what costs is the
@@ -145,6 +149,13 @@ __global__ void node_add_kernel(int P, int N, int R,
                                 float* __restrict__ used) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= P) return;
+  {  // blockIdx.y: the tenant.
+    const long long b = blockIdx.y;
+    perm += b * P;
+    node_s += b * P;
+    req += b * P * R;
+    used += b * N * R;
+  }
   const int n = node_s[i];
   if (n >= N || (i > 0 && node_s[i - 1] == n)) return;
   for (int r = 0; r < R; ++r) {
@@ -158,11 +169,11 @@ __global__ void node_add_kernel(int P, int N, int R,
 
 }  // namespace
 
-extern "C" int tpusched_node_add(int P, int N, int R, const int* perm,
+extern "C" int tpusched_node_add(int B, int P, int N, int R, const int* perm,
                                  const int* node_s, const float* req,
                                  int sign, float* used, void* stream) {
   const int threads = 256;
-  node_add_kernel<<<(P + threads - 1) / threads, threads, 0,
+  node_add_kernel<<<dim3((P + threads - 1) / threads, B), threads, 0,
                     (cudaStream_t)stream>>>(P, N, R, perm, node_s, req,
                                             (float)sign, used);
   return (int)cudaGetLastError();

@@ -21,6 +21,11 @@
 // version's log-step segmented scan gives the same bits. The non-member
 // group is not walked (its rows are never bad). Bound: the walk's length,
 // the largest group (O(P) bytes in all).
+//
+// Tenant axis (tpusched/tenants.py:75 solve_many): both entry points take
+// B first and every array gains a leading [B] axis; blockIdx.y is the
+// tenant. The caller sorts each tenant's rows on their own, so a group's
+// segment never runs into the next tenant's rows.
 #include <math.h>
 
 #include "kernels.h"
@@ -31,13 +36,22 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
 __global__ void __launch_bounds__(THREADS)
-excess_min_kernel(int N, const int* __restrict__ dom,
+excess_min_kernel(int P, int S, int N, const int* __restrict__ dom,
                   const float* __restrict__ counts,
                   const bool* __restrict__ node_valid,
                   const bool* __restrict__ aff_ok,
                   const int* __restrict__ s_c, float* __restrict__ min_end) {
   __shared__ float scratch[WARPS];
   const int p = blockIdx.x;
+  {  // blockIdx.y: the tenant.
+    const long long b = blockIdx.y, SN = (long long)S * N;
+    dom += b * SN;
+    counts += b * SN;
+    node_valid += b * N;
+    aff_ok += b * P * N;
+    s_c += b * P;
+    min_end += b * P;
+  }
   const long long s = s_c[p];
   const int* drow = dom + s * N;
   const bool* arow = aff_ok + (long long)p * N;
@@ -64,6 +78,15 @@ __global__ void excess_survive_kernel(int P, const int* __restrict__ gid_s,
                                       bool* __restrict__ bad) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= P) return;
+  {  // blockIdx.y: the tenant.
+    const long long b = blockIdx.y;
+    gid_s += b * P;
+    perm += b * P;
+    member += b * P;
+    T += b * P;
+    b_fixed += b * P;
+    bad += b * P;
+  }
   const int p0 = perm[i];
   if (!member[p0]) {
     bad[p0] = false;
@@ -83,21 +106,21 @@ __global__ void excess_survive_kernel(int P, const int* __restrict__ gid_s,
 
 }  // namespace
 
-extern "C" int tpusched_excess_min(int P, int N, const int* dom,
+extern "C" int tpusched_excess_min(int B, int P, int S, int N, const int* dom,
                                    const float* counts,
                                    const bool* node_valid, const bool* aff_ok,
                                    const int* s_c, float* min_end,
                                    void* stream) {
-  excess_min_kernel<<<P, THREADS, 0, (cudaStream_t)stream>>>(
-      N, dom, counts, node_valid, aff_ok, s_c, min_end);
+  excess_min_kernel<<<dim3(P, B), THREADS, 0, (cudaStream_t)stream>>>(
+      P, S, N, dom, counts, node_valid, aff_ok, s_c, min_end);
   return (int)cudaGetLastError();
 }
 
-extern "C" int tpusched_excess_survive(int P, const int* gid_s,
+extern "C" int tpusched_excess_survive(int B, int P, const int* gid_s,
                                        const int* perm, const bool* member,
                                        const float* T, const float* b_fixed,
                                        bool* bad, void* stream) {
-  excess_survive_kernel<<<(P + THREADS - 1) / THREADS, THREADS, 0,
+  excess_survive_kernel<<<dim3((P + THREADS - 1) / THREADS, B), THREADS, 0,
                           (cudaStream_t)stream>>>(P, gid_s, perm, member, T,
                                                   b_fixed, bad);
   return (int)cudaGetLastError();

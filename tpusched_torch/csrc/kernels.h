@@ -138,7 +138,7 @@ int tpusched_top_by_rank(int B, int P, int C, const bool* pend,
 // (node, rank), perm [P] (sorted row -> pod row), node_s [P] (sorted
 // nodes, N = masked out); used[n] += sign * req[perm[j]] for each row of
 // node n, one at a time in sorted order. sign is +1 or -1.
-int tpusched_node_add(int P, int N, int R, const int* perm,
+int tpusched_node_add(int B, int P, int N, int R, const int* perm,
                       const int* node_s, const float* req, int sign,
                       float* used, void* stream);
 
@@ -149,7 +149,7 @@ int tpusched_node_add(int P, int N, int R, const int* perm,
 // the final one on return; pen, raw ([N] floats) and allowed ([N] bytes)
 // are scratch.
 int tpusched_parity_scan_pair(
-    int P, int N, int R, const int* order, const bool* mask,
+    int B, int P, int N, int R, const int* order, const bool* mask,
     const float* static_score, const float* alloc, const float* requests,
     const float* w_lr, const float* w_ba, const float* w_ts,
     const float* w_ia, const float* rw, int seeded, unsigned int seed,
@@ -166,15 +166,15 @@ int tpusched_parity_scan_pair(
 // pairwise.py sig_member_match): its selector atoms ([S, AT], -1 pad)
 // all satisfied in member_sat_t [A, X], its namespace in ns [S, NS] or
 // ns_all, and valid[s].
-int tpusched_sig_match(int S, int X, int AT, int NS, const bool* member_sat_t,
-                       const int* atoms, const int* ns, const bool* ns_all,
+int tpusched_sig_match(int B, int A, int S, int X, int AT, int NS,
+                       const bool* member_sat_t, const int* atoms, const int* ns, const bool* ns_all,
                        const bool* valid, const int* member_ns, bool* out,
                        void* stream);
 
 // K10. The pair state from scratch (pairwise.py pair_state_init, and
 // pair_state_seed when assigned is not NULL): adds into counts [S, N],
 // anti [S, N] and match_tot [S], which must hold zeros on entry.
-int tpusched_pair_counts(int S, int N, int M, int P, int J, int IT,
+int tpusched_pair_counts(int B, int S, int N, int M, int P, int J, int IT,
                          const bool* match, const int* dom,
                          const int* run_node, const bool* run_valid,
                          const int* run_anti_sig, const int* ia_sig,
@@ -187,7 +187,7 @@ int tpusched_pair_counts(int S, int N, int M, int P, int J, int IT,
 // pairwise_from_counts, exclude_self_node = NULL, with the two
 // normalisers of score.py): pair_ok [P, N], ts_score and ia_score [P, N].
 int tpusched_pairwise_batch(
-    int P, int N, int S, int C, int IT, int M, const int* dom,
+    int B, int P, int N, int S, int C, int IT, int M, const int* dom,
     const bool* match, const bool* node_valid, const bool* aff_ok,
     const int* ts_sig, const bool* ts_valid, const signed char* ts_when,
     const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
@@ -199,7 +199,7 @@ int tpusched_pairwise_batch(
 // K10's commit entry point (pairwise.py pair_state_commit): pods p < P
 // with commit[p] add sign (+1 or -1) at choice[p] into counts, anti and
 // match_tot, in place. match [S, M + P] is the view's member table.
-int tpusched_pair_commit(int S, int N, int M, int P, int IT,
+int tpusched_pair_commit(int B, int S, int N, int M, int P, int IT,
                          const bool* match, const int* dom,
                          const int* ia_sig, const bool* ia_valid,
                          const bool* ia_anti, const bool* ia_required,
@@ -210,7 +210,8 @@ int tpusched_pair_commit(int S, int N, int M, int P, int IT,
 // K14. ok[p] = the required inter-pod and symmetric anti-affinity verdict
 // of pod p at node choice[p] (clipped to 0), its own contribution left
 // out where esn[p] >= 0 (pairwise.py ia_ok_at_choice).
-int tpusched_ia_at_choice(int P, int N, int S, int IT, int M, const int* dom,
+int tpusched_ia_at_choice(int B, int P, int N, int S, int IT, int M,
+                          const int* dom,
                           const bool* match, const int* ia_sig,
                           const bool* ia_valid, const bool* ia_anti,
                           const bool* ia_required, const float* counts,
@@ -223,7 +224,7 @@ int tpusched_ia_at_choice(int P, int N, int S, int IT, int M, const int* dom,
 // ord_dom and dom [S, N], s_p [P], q [P] f32, relaxed [P, N], cap_order
 // [N], score [P, N], member [P]; writes cand and val [P, K1] (K1 <= 32)
 // and ok [P].
-int tpusched_waterfill(int P, int N, int K1, const float* fill,
+int tpusched_waterfill(int B, int P, int S, int N, int K1, const float* fill,
                        const int* ord_dom, const int* dom, const int* s_p,
                        const float* q, const bool* relaxed,
                        const int* cap_order, const float* score,
@@ -233,7 +234,8 @@ int tpusched_waterfill(int P, int N, int K1, const float* fill,
 // K13 (assign.py _spread_excess_mask), first entry point: min_end[p] =
 // min of counts[s_c[p], dom[s_c[p], n]] over valid nodes n with
 // aff_ok[p, n] and the key, 0 if none.
-int tpusched_excess_min(int P, int N, const int* dom, const float* counts,
+int tpusched_excess_min(int B, int P, int S, int N, const int* dom,
+                        const float* counts,
                         const bool* node_valid, const bool* aff_ok,
                         const int* s_c, float* min_end, void* stream);
 
@@ -241,7 +243,7 @@ int tpusched_excess_min(int P, int N, const int* dom, const float* counts,
 // sorted row -> pod row; per group of members the running count q and
 // running min of T; bad[p] = member & !(b_fixed + q <= min), false for
 // non-members (whose group is the last).
-int tpusched_excess_survive(int P, const int* gid_s, const int* perm,
+int tpusched_excess_survive(int B, int P, const int* gid_s, const int* perm,
                             const bool* member, const float* T,
                             const float* b_fixed, bool* bad, void* stream);
 

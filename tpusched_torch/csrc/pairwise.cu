@@ -48,6 +48,15 @@
 // pairwise_from_counts(exclude_self_node = esn)'s ia_ok at the chosen
 // column (the plain versions are held to that on the CPU). Bound: bytes,
 // O(S * P) gathers (~0.2 MB at 10240 pods, S = 4).
+//
+// Tenant axis (tpusched/tenants.py:75 solve_many, whose jax.vmap gives
+// each of these functions a leading [B] axis): every entry point takes B
+// first and every array gains a leading [B] axis. K9 runs one thread per
+// (tenant, signature, member); K10, K10's commit and K14 take the tenant
+// from blockIdx.y, K11 runs one CTA per (pod row, tenant). Each tenant's
+// atomics land in its own [S, N] and [S] slices, so nothing is added
+// across tenants and every count stays the exact integer it was. A solo
+// call passes B = 1.
 #include <math.h>
 
 #include "kernels.h"
@@ -57,7 +66,7 @@ namespace {
 
 using tpusched::PairTerms;
 
-__global__ void sig_match_kernel(int S, int X, int AT, int NS,
+__global__ void sig_match_kernel(int B, int A, int S, int X, int AT, int NS,
                                  const bool* __restrict__ sat_t,
                                  const int* __restrict__ atoms,
                                  const int* __restrict__ ns,
@@ -66,8 +75,16 @@ __global__ void sig_match_kernel(int S, int X, int AT, int NS,
                                  const int* __restrict__ member_ns,
                                  bool* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)S * X) return;
-  const int s = (int)(i / X), x = (int)(i % X);
+  const long long SX = (long long)S * X;
+  if (i >= B * SX) return;
+  const long long b = i / SX;
+  const int s = (int)((i % SX) / X), x = (int)(i % X);
+  sat_t += b * A * X;
+  atoms += b * S * AT;
+  ns += b * S * NS;
+  ns_all += b * S;
+  valid += b * S;
+  member_ns += b * X;
   bool m = valid[s];
   for (int k = 0; k < AT && m; ++k) {
     const int a = atoms[s * AT + k];
@@ -98,6 +115,22 @@ __global__ void pair_counts_kernel(int S, int N, int M, int P, int J, int IT,
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int X = M + P;
   if (x >= X) return;
+  {  // blockIdx.y: the tenant.
+    const long long b = blockIdx.y;
+    match += b * S * X;
+    dom += b * S * N;
+    run_node += b * M;
+    run_valid += b * M;
+    run_anti_sig += b * M * J;
+    ia_sig += b * P * IT;
+    ia_valid += b * P * IT;
+    ia_anti += b * P * IT;
+    ia_required += b * P * IT;
+    if (assigned) assigned += b * P;
+    counts += b * S * N;
+    anti += b * S * N;
+    match_tot += b * S;
+  }
   const bool running = x < M;
   const int node = running ? run_node[x] : (assigned ? assigned[x - M] : -1);
   const bool live = running ? run_valid[x] : node >= 0;
@@ -133,7 +166,7 @@ constexpr int BATCH_THREADS = 256;
 constexpr int BATCH_WARPS = BATCH_THREADS / 32;
 
 __global__ void __launch_bounds__(BATCH_THREADS)
-pairwise_batch_kernel(PairTerms t, const float* __restrict__ counts,
+pairwise_batch_kernel(PairTerms t, int P, const float* __restrict__ counts,
                       const float* __restrict__ anti,
                       const float* __restrict__ match_tot,
                       bool* __restrict__ pair_ok, float* __restrict__ ts_out,
@@ -142,7 +175,12 @@ pairwise_batch_kernel(PairTerms t, const float* __restrict__ counts,
   __shared__ float s_cmin[tpusched::MAX_C], s_cmax[tpusched::MAX_C];
   const int p = blockIdx.x;
   const int tid = threadIdx.x;
-  const long long row = (long long)p * t.N;
+  const long long b = blockIdx.y;  // the tenant
+  t = tpusched::tenant_terms(t, b);
+  counts += b * t.S * t.N;
+  anti += b * t.S * t.N;
+  match_tot += b * t.S;
+  const long long row = (b * P + p) * t.N;
   tpusched::spread_extents<BATCH_WARPS>(t, counts, p, tid, t.N, BATCH_THREADS,
                                         s_lo, s_hi, s_cmin, s_cmax);
   float plo = INFINITY, phi = -INFINITY, rlo = INFINITY, rhi = -INFINITY;
@@ -181,8 +219,22 @@ __global__ void pair_commit_kernel(int S, int N, int M, int P, int IT,
                                    float sign, float* counts, float* anti,
                                    float* match_tot) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P || !commit[p]) return;
   const long long X = M + P;
+  {  // blockIdx.y: the tenant.
+    const long long b = blockIdx.y;
+    match += b * S * X;
+    dom += b * S * N;
+    ia_sig += b * P * IT;
+    ia_valid += b * P * IT;
+    ia_anti += b * P * IT;
+    ia_required += b * P * IT;
+    choice += b * P;
+    commit += b * P;
+    counts += b * S * N;
+    anti += b * S * N;
+    match_tot += b * S;
+  }
+  if (p >= P || !commit[p]) return;
   const long long nc = max(choice[p], 0);
   for (int s = 0; s < S; ++s) {
     if (!match[s * X + M + p]) continue;
@@ -215,6 +267,21 @@ __global__ void ia_at_choice_kernel(int P, int N, int S, int IT, int M,
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
   const long long X = M + P;
+  {  // blockIdx.y: the tenant.
+    const long long b = blockIdx.y;
+    dom += b * S * N;
+    match += b * S * X;
+    ia_sig += b * P * IT;
+    ia_valid += b * P * IT;
+    ia_anti += b * P * IT;
+    ia_required += b * P * IT;
+    counts += b * S * N;
+    anti += b * S * N;
+    match_tot += b * S;
+    choice += b * P;
+    esn += b * P;
+    ok_out += b * P;
+  }
   const long long ch = max(choice[p], 0);
   const int e = esn[p];
   const long long ec = max(e, 0);
@@ -249,20 +316,22 @@ __global__ void ia_at_choice_kernel(int P, int N, int S, int IT, int M,
 
 }  // namespace
 
-extern "C" int tpusched_sig_match(int S, int X, int AT, int NS,
+extern "C" int tpusched_sig_match(int B, int A, int S, int X, int AT, int NS,
                                   const bool* member_sat_t, const int* atoms,
                                   const int* ns, const bool* ns_all,
                                   const bool* valid, const int* member_ns,
                                   bool* out, void* stream) {
-  const long long total = (long long)S * X;
+  const long long total = (long long)B * S * X;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   sig_match_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      S, X, AT, NS, member_sat_t, atoms, ns, ns_all, valid, member_ns, out);
+      B, A, S, X, AT, NS, member_sat_t, atoms, ns, ns_all, valid, member_ns,
+      out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int tpusched_pair_counts(int S, int N, int M, int P, int J, int IT,
+extern "C" int tpusched_pair_counts(int B, int S, int N, int M, int P, int J,
+                                    int IT,
                                     const bool* match, const int* dom,
                                     const int* run_node,
                                     const bool* run_valid,
@@ -274,7 +343,7 @@ extern "C" int tpusched_pair_counts(int S, int N, int M, int P, int J, int IT,
                                     float* anti, float* match_tot,
                                     void* stream) {
   const int threads = 256;
-  const int blocks = (M + P + threads - 1) / threads;
+  const dim3 blocks((M + P + threads - 1) / threads, B);
   pair_counts_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       S, N, M, P, J, IT, match, dom, run_node, run_valid, run_anti_sig,
       ia_sig, ia_valid, ia_anti, ia_required, assigned, counts, anti,
@@ -283,7 +352,7 @@ extern "C" int tpusched_pair_counts(int S, int N, int M, int P, int J, int IT,
 }
 
 extern "C" int tpusched_pairwise_batch(
-    int P, int N, int S, int C, int IT, int M, const int* dom,
+    int B, int P, int N, int S, int C, int IT, int M, const int* dom,
     const bool* match, const bool* node_valid, const bool* aff_ok,
     const int* ts_sig, const bool* ts_valid, const signed char* ts_when,
     const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
@@ -296,12 +365,13 @@ extern "C" int tpusched_pairwise_batch(
               dom,    match,      node_valid, aff_ok,    ts_sig,  ts_valid,
               ts_when, ts_max_skew, ia_sig, ia_valid,    ia_anti, ia_required,
               ia_weight};
-  pairwise_batch_kernel<<<P, BATCH_THREADS, 0, (cudaStream_t)stream>>>(
-      t, counts, anti, match_tot, pair_ok, ts_score, ia_score, ia_ok);
+  pairwise_batch_kernel<<<dim3(P, B), BATCH_THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      t, P, counts, anti, match_tot, pair_ok, ts_score, ia_score, ia_ok);
   return (int)cudaGetLastError();
 }
 
-extern "C" int tpusched_pair_commit(int S, int N, int M, int P, int IT,
+extern "C" int tpusched_pair_commit(int B, int S, int N, int M, int P, int IT,
                                     const bool* match, const int* dom,
                                     const int* ia_sig, const bool* ia_valid,
                                     const bool* ia_anti,
@@ -310,14 +380,15 @@ extern "C" int tpusched_pair_commit(int S, int N, int M, int P, int IT,
                                     int sign, float* counts, float* anti,
                                     float* match_tot, void* stream) {
   const int threads = 256;
-  pair_commit_kernel<<<(P + threads - 1) / threads, threads, 0,
+  pair_commit_kernel<<<dim3((P + threads - 1) / threads, B), threads, 0,
                        (cudaStream_t)stream>>>(
       S, N, M, P, IT, match, dom, ia_sig, ia_valid, ia_anti, ia_required,
       choice, commit, (float)sign, counts, anti, match_tot);
   return (int)cudaGetLastError();
 }
 
-extern "C" int tpusched_ia_at_choice(int P, int N, int S, int IT, int M,
+extern "C" int tpusched_ia_at_choice(int B, int P, int N, int S, int IT,
+                                     int M,
                                      const int* dom, const bool* match,
                                      const int* ia_sig, const bool* ia_valid,
                                      const bool* ia_anti,
@@ -327,7 +398,7 @@ extern "C" int tpusched_ia_at_choice(int P, int N, int S, int IT, int M,
                                      const int* choice, const int* esn,
                                      bool* ok, void* stream) {
   const int threads = 256;
-  ia_at_choice_kernel<<<(P + threads - 1) / threads, threads, 0,
+  ia_at_choice_kernel<<<dim3((P + threads - 1) / threads, B), threads, 0,
                         (cudaStream_t)stream>>>(
       P, N, S, IT, M, dom, match, ia_sig, ia_valid, ia_anti, ia_required,
       counts, anti, match_tot, choice, esn, ok);

@@ -50,6 +50,27 @@ struct PairTerms {
   const float* ia_weight;       // [P, IT]
 };
 
+// Tenant b's slice of a batch's terms (every array gains a leading [B]
+// axis; the pod count is X - M).
+__device__ __forceinline__ PairTerms tenant_terms(PairTerms t, long long b) {
+  if (b == 0) return t;
+  const long long P = t.X - t.M, N = t.N, S = t.S;
+  t.dom += b * S * N;
+  t.match += b * S * t.X;
+  t.node_valid += b * N;
+  t.aff_ok += b * P * N;
+  t.ts_sig += b * P * t.C;
+  t.ts_valid += b * P * t.C;
+  t.ts_when += b * P * t.C;
+  t.ts_max_skew += b * P * t.C;
+  t.ia_sig += b * P * t.IT;
+  t.ia_valid += b * P * t.IT;
+  t.ia_anti += b * P * t.IT;
+  t.ia_required += b * P * t.IT;
+  t.ia_weight += b * P * t.IT;
+  return t;
+}
+
 // Node n's share of spread constraint (p, signature s)'s two reductions:
 // lo = min count over eligible nodes (valid, node affinity, key),
 // hi = max count over nodes with the key (JAX max_count_sig; nodes

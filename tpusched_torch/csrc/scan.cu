@@ -60,14 +60,18 @@
 // order; the CTA is the only writer, so no atomics. NULL leaves the
 // kernel as it was.
 //
-// Tenant axis (tpusched/tenants.py:75 solve_many, entry point
-// tpusched_parity_scan): gridDim.x = B, and CTA b scans tenant b alone
-// ([B, P] order, weights and outputs, [B, P, N] mask and static score,
-// [B, N, R] allocatable and usage, [B, P, R] requests; rw is shared),
-// with its own `used`/`alloc` in its own shared memory. The seeded tie
-// hash takes the tenant's own pod index. The B scans are independent, so
-// B tenants take about one tenant's time while B <= 132 SMs. The
-// variants are launched with B = 1.
+// Tenant axis (tpusched/tenants.py:75 solve_many, entry points
+// tpusched_parity_scan and tpusched_parity_scan_pair): gridDim.x = B, and
+// CTA b scans tenant b alone ([B, P] order, weights and outputs, [B, P, N]
+// mask and static score, [B, N, R] allocatable and usage, [B, P, R]
+// requests; rw is shared), with its own `used`/`alloc` in its own shared
+// memory. The seeded tie hash takes the tenant's own pod index. With PAIR
+// every array of the pairwise block gains the leading [B] axis too, the
+// pair state [B, S, N] / [B, S] and the [B, N] scratch included, so CTA b
+// reads and updates only its tenant's state (the TENANTS instantiation,
+// launched for B > 1). The B scans are independent, so B tenants take
+// about one tenant's time while B <= 132 SMs. The preemption variants are
+// launched with B = 1.
 #include <math.h>
 #include <limits.h>
 
@@ -221,7 +225,7 @@ __device__ __forceinline__ void pair_evict(const PairScan& ps,
   }
 }
 
-template <bool PAIR, bool PREEMPT>
+template <bool PAIR, bool PREEMPT, bool TENANTS = false>
 __global__ void __launch_bounds__(THREADS)
 parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
                    const bool* __restrict__ mask,
@@ -263,6 +267,16 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
     used_g += b * N * R;
     assigned += b * P;
     chosen += b * P;
+    if constexpr (PAIR && TENANTS) {
+      ps.t = tpusched::tenant_terms(ps.t, b);
+      const long long SN = (long long)ps.t.S * N;
+      ps.counts += b * SN;
+      ps.anti += b * SN;
+      ps.match_tot += b * ps.t.S;
+      ps.pen += b * N;
+      ps.raw += b * N;
+      ps.allowed += b * N;
+    }
   }
   float* used = used_g;
   const float* alloc = alloc_g;
@@ -471,16 +485,15 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
 // Shared memory, then the launch of one instantiation. `used`/`alloc` go
 // to dynamic shared memory when they fit beside the kernel's static
 // shared memory (K15's buffers with PREEMPT).
-template <bool PAIR, bool PREEMPT>
-int launch_scan(int B, int P, int N, int R, const int* order,
-                const bool* mask, const float* static_score, const float* alloc,
-                const float* requests, const float* w_lr, const float* w_ba,
-                const float* w_ts, const float* w_ia, const float* rw,
-                int seeded, unsigned int seed, float* used, int* assigned,
-                float* chosen, const PairScan& ps, const PreemptScan& pre,
-                void* stream) {
-  if (R > MAX_R) return (int)cudaErrorInvalidValue;
-  auto kernel = parity_scan_kernel<PAIR, PREEMPT>;
+template <typename Kernel>
+int launch_kernel(Kernel kernel, int B, int P, int N, int R,
+                  const int* order, const bool* mask,
+                  const float* static_score, const float* alloc,
+                  const float* requests, const float* w_lr, const float* w_ba,
+                  const float* w_ts, const float* w_ia, const float* rw,
+                  int seeded, unsigned int seed, float* used, int* assigned,
+                  float* chosen, const PairScan& ps, const PreemptScan& pre,
+                  void* stream) {
   cudaFuncAttributes fa;
   cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
@@ -498,6 +511,32 @@ int launch_scan(int B, int P, int N, int R, const int* order,
       P, N, R, order, mask, static_score, alloc, requests, w_lr, w_ba, w_ts,
       w_ia, rw, seeded, seed, used, assigned, chosen, use_smem, ps, pre);
   return (int)cudaGetLastError();
+}
+
+// The pairwise variant over B > 1 tenants offsets its pairwise block in
+// the kernel (TENANTS): a copy of the block that costs registers (the
+// CTA's 1 024 threads hold 64 each), so B = 1 keeps the instantiation
+// without it.
+template <bool PAIR, bool PREEMPT>
+int launch_scan(int B, int P, int N, int R, const int* order,
+                const bool* mask, const float* static_score, const float* alloc,
+                const float* requests, const float* w_lr, const float* w_ba,
+                const float* w_ts, const float* w_ia, const float* rw,
+                int seeded, unsigned int seed, float* used, int* assigned,
+                float* chosen, const PairScan& ps, const PreemptScan& pre,
+                void* stream) {
+  if (R > MAX_R) return (int)cudaErrorInvalidValue;
+  if constexpr (PAIR && !PREEMPT) {
+    if (B > 1)
+      return launch_kernel(parity_scan_kernel<true, false, true>, B, P, N, R,
+                           order, mask, static_score, alloc, requests, w_lr,
+                           w_ba, w_ts, w_ia, rw, seeded, seed, used, assigned,
+                           chosen, ps, pre, stream);
+  }
+  return launch_kernel(parity_scan_kernel<PAIR, PREEMPT>, B, P, N, R, order,
+                       mask, static_score, alloc, requests, w_lr, w_ba, w_ts,
+                       w_ia, rw, seeded, seed, used, assigned, chosen, ps, pre,
+                       stream);
 }
 
 // The preemption block of both preemption entry points.
@@ -543,7 +582,7 @@ extern "C" int tpusched_parity_scan(int B, int P, int N, int R,
 }
 
 extern "C" int tpusched_parity_scan_pair(
-    int P, int N, int R, const int* order, const bool* mask,
+    int B, int P, int N, int R, const int* order, const bool* mask,
     const float* static_score, const float* alloc, const float* requests,
     const float* w_lr, const float* w_ba, const float* w_ts,
     const float* w_ia, const float* rw, int seeded, unsigned int seed,
@@ -561,7 +600,7 @@ extern "C" int tpusched_parity_scan_pair(
                ia_required, ia_weight},
               counts, anti, match_tot, pen, raw, allowed};
   PreemptScan no_pre{};
-  return launch_scan<true, false>(1, P, N, R, order, mask, static_score,
+  return launch_scan<true, false>(B, P, N, R, order, mask, static_score,
                                   alloc, requests, w_lr, w_ba, w_ts, w_ia, rw,
                                   seeded, seed, used, assigned, chosen, ps,
                                   no_pre, stream);

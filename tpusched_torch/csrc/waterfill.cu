@@ -28,6 +28,10 @@
 // Bound: bytes. relaxed [P, N] bool read once (52 MB at 10240 x 5120,
 // 0.016 ms at 3.35 TB/s); the pass over cap_order reads it again through
 // L1/L2, and fill/dom rows (S of them) and cap_order stay in L2.
+//
+// Tenant axis (tpusched/tenants.py:75 solve_many): every array gains a
+// leading [B] axis and CTA (p, b) = (blockIdx.x, blockIdx.y) deals pod p
+// of tenant b from its tenant's tables.
 #include <math.h>
 
 #include "kernels.h"
@@ -75,7 +79,7 @@ __device__ __forceinline__ int floor_div(int a, int m) {  // m > 0
 }
 
 __global__ void __launch_bounds__(THREADS)
-waterfill_kernel(int N, int K1, const float* __restrict__ fill,
+waterfill_kernel(int P, int S, int N, int K1, const float* __restrict__ fill,
                  const int* __restrict__ ord_dom, const int* __restrict__ dom,
                  const int* __restrict__ s_p, const float* __restrict__ q,
                  const bool* __restrict__ relaxed,
@@ -87,6 +91,21 @@ waterfill_kernel(int N, int K1, const float* __restrict__ fill,
   __shared__ int s_t[MAX_K1], s_pos[MAX_K1];
   const int p = blockIdx.x;
   const int tid = threadIdx.x;
+  {  // blockIdx.y: the tenant.
+    const long long b = blockIdx.y, SN = (long long)S * N;
+    fill += b * SN;
+    ord_dom += b * SN;
+    dom += b * SN;
+    s_p += b * P;
+    q += b * P;
+    relaxed += b * P * N;
+    cap_order += b * N;
+    score += b * P * N;
+    member += b * P;
+    cand += b * P * K1;
+    val += b * P * K1;
+    ok += b * P;
+  }
   const long long s = s_p[p];
   const float qp = q[p];
   const float* frow = fill + s * N;
@@ -149,7 +168,8 @@ waterfill_kernel(int N, int K1, const float* __restrict__ fill,
 
 }  // namespace
 
-extern "C" int tpusched_waterfill(int P, int N, int K1, const float* fill,
+extern "C" int tpusched_waterfill(int B, int P, int S, int N, int K1,
+                                  const float* fill,
                                   const int* ord_dom, const int* dom,
                                   const int* s_p, const float* q,
                                   const bool* relaxed, const int* cap_order,
@@ -157,8 +177,8 @@ extern "C" int tpusched_waterfill(int P, int N, int K1, const float* fill,
                                   int* cand, float* val, bool* ok,
                                   void* stream) {
   if (K1 > MAX_K1) return (int)cudaErrorInvalidValue;
-  waterfill_kernel<<<P, THREADS, 0, (cudaStream_t)stream>>>(
-      N, K1, fill, ord_dom, dom, s_p, q, relaxed, cap_order, score, member,
+  waterfill_kernel<<<dim3(P, B), THREADS, 0, (cudaStream_t)stream>>>(
+      P, S, N, K1, fill, ord_dom, dom, s_p, q, relaxed, cap_order, score, member,
       cand, val, ok);
   return (int)cudaGetLastError();
 }

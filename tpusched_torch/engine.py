@@ -151,7 +151,7 @@ def _sat_tables(snap: ClusterSnapshot, ops: Ops = KERNELS):
     over running then pending pod labels), both K1, transposed. The
     member table is only read by the signature paths and is None at
     S = 0 (the JAX program drops it there too). A tenant batch gives
-    [B, A, N]."""
+    [B, A, N] and [B, A, M+P]."""
     node_sat_t = ops.atom_sat(
         snap.atoms, snap.nodes.label_pairs, snap.nodes.label_keys,
         snap.nodes.label_nums,
@@ -173,8 +173,9 @@ def solve_core(cfg: EngineConfig, snap: ClusterSnapshot, ops: Ops = KERNELS,
     the tableau are then not computed. explain=True appends the
     provenance tuple (rolled, evictor, evict_round, auction_stats) of
     solve_sequential / solve_rounds; the rest is the same. A tenant batch
-    (tenants.solve_many: a leading [B] axis on every leaf, configs 1-2)
-    gives every output that axis, rounds [B]."""
+    (tenants.solve_many: a leading [B] axis on every leaf; signatures and
+    gangs included, preemption not) gives every output that axis, rounds
+    [B]."""
     tables = (None, None) if static is not None else _sat_tables(snap, ops)
     if cfg.mode == "fast":
         return solve_rounds(cfg, snap, *tables, static=static, ops=ops,

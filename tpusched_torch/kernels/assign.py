@@ -64,6 +64,7 @@ import contextlib
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from tpusched_torch import _build
@@ -271,10 +272,6 @@ class WarmTableau:
         return [getattr(self, f.name) for f in dataclasses.fields(self)]
 
 
-def _member_ns(snap: ClusterSnapshot) -> torch.Tensor:
-    return kpair.merge_members(snap.running.namespace, snap.pods.namespace)
-
-
 def build_tableau(cfg: EngineConfig, snap: ClusterSnapshot,
                   node_sat_t: torch.Tensor,
                   member_sat_t: torch.Tensor | None = None,
@@ -285,7 +282,7 @@ def build_tableau(cfg: EngineConfig, snap: ClusterSnapshot,
     ops = ops or KERNELS
     cells = ops.tableau_cells(snap, snap.pods, snap.nodes, node_sat_t)
     if snap.sigs.key.shape[-1] > 0:
-        sm = ops.sig_match(member_sat_t, snap.sigs, _member_ns(snap))
+        sm = ops.sig_match(member_sat_t, snap.sigs, kpair.member_ns(snap))
     else:
         sm = torch.zeros((*node_sat_t.shape[:-2], 0,
                           snap.running.valid.shape[-1]
@@ -343,7 +340,7 @@ def refresh_tableau(cfg: EngineConfig, snap: ClusterSnapshot,
         if sm.shape[0] > 0:
             sm.index_copy_(1, dirty_members, ops.sig_match(
                 sat_cols, snap.sigs,
-                _member_ns(snap).index_select(0, dirty_members)))
+                kpair.member_ns(snap).index_select(0, dirty_members)))
     if dirty_pods is not None:
         cells = ops.tableau_cells(snap, permute_rows(snap.pods, dirty_pods),
                                   snap.nodes, nst)
@@ -508,7 +505,11 @@ def parity_scan_pair_plain(cfg: EngineConfig, snap: ClusterSnapshot,
                            static: StaticCtx, order: torch.Tensor,
                            st: "kpair.PairState", dom_s: torch.Tensor):
     """The sequential commit loop with pairwise constraints, in plain
-    torch: (assigned, chosen, used, final PairState)."""
+    torch: (assigned, chosen, used, final PairState); a tenant batch
+    tenant by tenant."""
+    if order.dim() == 2:
+        return per_tenant(parity_scan_pair_plain, order.shape[0], cfg, snap,
+                          static, order, st, dom_s)
     return _scan_loop(cfg, snap, static, order, st, dom_s)[:4]
 
 
@@ -604,8 +605,8 @@ def _scan_loop(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
 def _scan_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
                static: StaticCtx, order: torch.Tensor) -> tuple:
     """Check K4's arguments (all variants; a tenant axis only without
-    signatures or preemption): (P, N, R, order, the [P, N] and per-pod
-    tensors, seeded, seed)."""
+    preemption): (P, N, R, order, the [P, N] and per-pod tensors, seeded,
+    seed)."""
     dev = static.mask.device
     lead = static.mask.shape[:-2]          # () or (B,): the tenant axis
     P, N = static.mask.shape[-2:]
@@ -664,20 +665,20 @@ def parity_scan_pair(cfg: EngineConfig, snap: ClusterSnapshot,
     args = _scan_args(k, cfg, snap, static, order)
     terms = kpair._pair_term_args(k, snap, static.aff_ok, static.sig_match,
                                   dom_s, st)
-    P, N = args[0], args[1]
+    lead = order.shape[:-1]                # () or (B,): the tenant axis
+    N = args[1]
     used = snap.nodes.used.clone()
-    assigned = torch.empty((P,), dtype=torch.int32, device=dev)
-    chosen = torch.empty((P,), dtype=torch.float32, device=dev)
-    out = kpair.PairState(counts=st.counts.clone(), anti=st.anti.clone(),
-                          match_tot=st.match_tot.clone())
-    if P == 0:
+    assigned = torch.empty(order.shape, dtype=torch.int32, device=dev)
+    chosen = torch.empty(order.shape, dtype=torch.float32, device=dev)
+    out = kpair.copy_state(st)
+    if assigned.numel() == 0:
         return assigned, chosen, used, out
-    pen = torch.empty((N,), dtype=torch.float32, device=dev)
-    raw = torch.empty((N,), dtype=torch.float32, device=dev)
-    allowed = torch.empty((N,), dtype=torch.uint8, device=dev)
+    pen = torch.empty((*lead, N), dtype=torch.float32, device=dev)
+    raw = torch.empty((*lead, N), dtype=torch.float32, device=dev)
+    allowed = torch.empty((*lead, N), dtype=torch.uint8, device=dev)
     # The pairwise block without the state pointers, then the state the
     # kernel updates in place (the copies in `out`).
-    _build.launch("tpusched_parity_scan_pair",
+    _build.launch("tpusched_parity_scan_pair", lead[0] if lead else 1,
                   *ptrs((*args, *terms[:-3], out.counts, out.anti,
                          out.match_tot, pen, raw, allowed, used, assigned,
                          chosen)), stream_of(dev))
@@ -782,8 +783,7 @@ def parity_scan_pair_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
     used = snap.nodes.used.clone()
     assigned = torch.empty((P,), dtype=torch.int32, device=dev)
     chosen = torch.empty((P,), dtype=torch.float32, device=dev)
-    out = kpair.PairState(counts=st.counts.clone(), anti=st.anti.clone(),
-                          match_tot=st.match_tot.clone())
+    out = kpair.copy_state(st)
     evicted = pre[-4]
     ex = _explain_out(explain, evicted.shape[0], dev)
     if P:
@@ -823,8 +823,9 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
     and everywhere without preemption), and an all-zero
     [_PREEMPT_MAX_ROUNDS, EXPLAIN_AUCTION_STATS] table (parity mode has
     no auction). The placements are the same either way. A tenant batch
-    (a leading [B] axis, without signatures, gangs or preemption) scans
-    every tenant in one K4 launch."""
+    (a leading [B] axis, without preemption) scans every tenant in one K4
+    launch (its pairwise variant with signatures) and gates every
+    tenant's gangs at once."""
     ops = ops or KERNELS
     if static is None:
         static = precompute_static(cfg, snap, node_sat_t, member_sat_t, ops)
@@ -1148,19 +1149,23 @@ def _scan_plain(x: torch.Tensor) -> torch.Tensor:
 
 def _segment_start(keys_s: torch.Tensor) -> torch.Tensor:
     """[P] int64: for each row of the sorted keys, the index of the first
-    row of its run of equal keys."""
-    P = keys_s.shape[0]
+    row of its run of equal keys (along the last axis: each tenant's rows
+    of a [B, P] batch on their own)."""
+    P = keys_s.shape[-1]
     idx = torch.arange(P, device=keys_s.device)
-    boundary = torch.ones(P, dtype=torch.bool, device=keys_s.device)
-    boundary[1:] = keys_s[1:] != keys_s[:-1]
-    return torch.cummax(torch.where(boundary, idx, 0), dim=0).values
+    boundary = torch.ones(keys_s.shape, dtype=torch.bool,
+                          device=keys_s.device)
+    boundary[..., 1:] = keys_s[..., 1:] != keys_s[..., :-1]
+    return torch.cummax(torch.where(boundary, idx, 0), dim=-1).values
 
 
 def _segment_count(flag_s: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     """[P] int32: the inclusive count of flag_s within each row's run
-    (seg from _segment_start); integer sums, exact in any order."""
-    cum = torch.cumsum(flag_s.to(torch.int32), dim=0)
-    return cum - torch.where(seg > 0, cum[(seg - 1).clamp(min=0)], 0)
+    (seg from _segment_start; per tenant along the last axis); integer
+    sums, exact in any order."""
+    cum = torch.cumsum(flag_s.to(torch.int32), dim=-1)
+    return cum - torch.where(seg > 0, cum.gather(-1, (seg - 1).clamp(min=0)),
+                             0)
 
 
 def prefix_commit_plain(perm: torch.Tensor, cand_s: torch.Tensor,
@@ -1253,12 +1258,15 @@ def _by_node_rank(node: torch.Tensor, mask: torch.Tensor, rank: torch.Tensor,
                   N: int):
     """The masked rows sorted by (node, rank), masked-out rows last with
     node N (a library sort on one int64 key, as the sub-steps sort):
-    (perm [P] int32 sorted row -> pod row, sorted nodes [P] int32)."""
+    (perm [P] int32 sorted row -> pod row, sorted nodes [P] int32). A
+    tenant batch [B, P] sorts each tenant's rows on their own."""
     node_m = torch.where(mask, node.clamp(0, N - 1),
                          torch.full((), N, dtype=node.dtype,
                                     device=node.device))
-    perm = torch.sort((node_m.long() << 32) + rank.long(), stable=True).indices
-    return perm.to(torch.int32), node_m[perm].to(torch.int32).contiguous()
+    perm = torch.sort((node_m.long() << 32) + rank.long(), dim=-1,
+                      stable=True).indices
+    return (perm.to(torch.int32),
+            node_m.gather(-1, perm).to(torch.int32).contiguous())
 
 
 def node_add_plain(used: torch.Tensor, node: torch.Tensor,
@@ -1268,7 +1276,10 @@ def node_add_plain(used: torch.Tensor, node: torch.Tensor,
     rows, per node one row at a time in ascending rank (the sub-steps'
     order; JAX adds each node's segment total, a different association).
     The order depends on ranks alone, so a compacted view adds what the
-    full width adds."""
+    full width adds. A tenant batch goes tenant by tenant."""
+    if used.dim() == 3:
+        return per_tenant(node_add_plain, used.shape[0], used, node, mask,
+                          requests, rank, sign)
     N = used.shape[0]
     perm, node_s = _by_node_rank(node, mask, rank, N)
     act = node_s < N
@@ -1295,18 +1306,19 @@ def node_add(used: torch.Tensor, node: torch.Tensor, mask: torch.Tensor,
     dev = used.device
     if dev.type == "cpu":
         return node_add_plain(used, node, mask, requests, rank, sign)
-    P = node.shape[0]
-    N, R = used.shape
+    lead = used.shape[:-2]                 # () or (B,): the tenant axis
+    P = node.shape[-1]
+    N, R = used.shape[-2:]
     k = "node_add"
     if sign not in (1.0, -1.0):
         raise ValueError(f"{k}: sign {sign}, want +1 or -1")
-    check(k, dev, requests, torch.float32, (P, R))
-    check(k, dev, used, torch.float32, (N, R))
+    check(k, dev, requests, torch.float32, (*lead, P, R))
+    check(k, dev, used, torch.float32, (*lead, N, R))
     used = used.clone()
-    if P == 0:
+    if node.numel() == 0:
         return used
     perm, node_s = _by_node_rank(node, mask, rank, N)
-    _build.launch("tpusched_node_add", P, N, R,
+    _build.launch("tpusched_node_add", lead[0] if lead else 1, P, N, R,
                   *ptrs((perm, node_s, requests)), int(sign),
                   used.data_ptr(), stream_of(dev))
     node_add.launches += 1
@@ -1334,11 +1346,11 @@ def batched_cycle(cfg: EngineConfig, snap: ClusterSnapshot,
     pending pods. return_relaxed (signatures; the fast rounds) adds the
     SPREAD-RELAXED feasibility, every predicate but the DoNotSchedule
     skew filter (K11's ia_ok into K5), which the water-fill dealer
-    targets."""
+    targets. A tenant batch runs K11 and K5 once for all tenants."""
     ops = ops or KERNELS
     nodes, pods = snap.nodes, snap.pods
     pair = ia_ok = None
-    if snap.sigs.key.shape[0] > 0:
+    if snap.sigs.key.shape[-1] > 0:
         pair = ops.pairwise_batch(snap, pair_st, static.aff_ok,
                                   static.sig_match, kpair.sig_domains(snap),
                                   with_ia_ok=return_relaxed)
@@ -1363,7 +1375,7 @@ def score_batch(cfg: EngineConfig, snap: ClusterSnapshot,
     ops = ops or KERNELS
     static = precompute_static(cfg, snap, node_sat_t, member_sat_t, ops)
     st0 = None
-    if snap.sigs.key.shape[0] > 0:
+    if snap.sigs.key.shape[-1] > 0:
         st0 = ops.pair_counts(static.sig_match, kpair.sig_domains(snap),
                               snap.running, snap.pods)
     return batched_cycle(cfg, snap, static, snap.nodes.used, masked, ops,
@@ -1403,6 +1415,11 @@ class RoundStats:
     def read(self, flag: torch.Tensor) -> bool:
         self.host_reads += 1
         return bool(flag)
+
+    def read_each(self, flags: torch.Tensor) -> np.ndarray:
+        """A tenant batch's [B] flags in one read."""
+        self.host_reads += 1
+        return flags.cpu().numpy()
 
     @contextlib.contextmanager
     def span(self, name: str):
@@ -1910,39 +1927,42 @@ def _waterfill_tables(snap: ClusterSnapshot, pair_st: "kpair.PairState",
     `_spread_waterfill_deal` up to its fill table), plain torch:
     (s_p [P] int32 each pod's first DoNotSchedule slot's signature, q
     [P] f32 its 0-based rank position among this round's members of
-    s_p, member [P] bool, fill [S, N] f32, ord_dom [S, N] int32)."""
+    s_p, member [P] bool, fill [S, N] f32, ord_dom [S, N] int32). A
+    tenant batch gives each its leading [B] axis; every sort, count and
+    prefix runs along the last axis, within a tenant."""
     pods = snap.pods
-    S, N = dom_s.shape
-    P = rank.shape[0]
+    lead = rank.shape[:-1]
+    S, N = dom_s.shape[-2:]
     dev = dom_s.device
     dns = pods.ts_valid & (pods.ts_when == DO_NOT_SCHEDULE)
-    first_c = torch.argmax(dns.to(torch.int32), dim=1)      # first DNS slot
-    s_p = pods.ts_sig.gather(1, first_c[:, None])[:, 0].clamp(min=0)
-    member = allowed & dns.any(dim=1)
+    first_c = torch.argmax(dns.to(torch.int32), dim=-1)     # first DNS slot
+    s_p = pods.ts_sig.gather(-1, first_c[..., None])[..., 0].clamp(min=0)
+    member = allowed & dns.any(dim=-1)
     gid = torch.where(member, s_p, S)
-    perm = torch.sort((gid.long() << 32) + rank.long()).indices
-    q = torch.zeros(P, dtype=torch.float32, device=dev)
-    q[perm] = (_segment_count(member[perm], _segment_start(gid[perm]))
-               - 1).to(torch.float32)
+    perm = torch.sort((gid.long() << 32) + rank.long(), dim=-1).indices
+    q = torch.zeros(rank.shape, dtype=torch.float32, device=dev)
+    q.scatter_(-1, perm, (_segment_count(
+        member.gather(-1, perm), _segment_start(gid.gather(-1, perm)))
+        - 1).to(torch.float32))
     # Per-signature fill levels over the domain counts, domains by
     # ascending count; 1e9 stands in for a domain no node has.
-    exist = torch.zeros((S, N), dtype=torch.bool, device=dev)
-    rows = torch.arange(S, device=dev)[:, None].expand(S, N)
-    keyed = dom_s >= 0
-    exist[rows[keyed], dom_s[keyed].long()] = True
-    cnt = torch.where(exist, pair_st.counts,
+    keyed = torch.zeros((*lead, S, N), dtype=torch.int32, device=dev)
+    keyed.scatter_add_(-1, dom_s.clamp(min=0).long(),
+                       (dom_s >= 0).to(torch.int32))
+    cnt = torch.where(keyed > 0, pair_st.counts,
                       torch.full((), 1e9, dtype=torch.float32, device=dev))
-    ord_dom = torch.sort(cnt, dim=1, stable=True).indices
-    csort = torch.gather(cnt, 1, ord_dom)
+    ord_dom = torch.sort(cnt, dim=-1, stable=True).indices
+    csort = torch.gather(cnt, -1, ord_dom)
     # The exclusive prefix of csort, summed exactly in f64 (integers
     # below 2**53) and rounded once: its entries over real domains are
     # the exact small integers JAX's f32 cumsum gives too, and the ones
     # past a sentinel stay near 1e9, far above any q, so the count of
     # fill <= q does not depend on how a device would round an f32 sum.
-    pre = torch.cumsum(csort.to(torch.float64), dim=1)
-    presum = torch.cat([torch.zeros((S, 1), dtype=torch.float64, device=dev),
-                        pre[:, :-1]], dim=1).to(torch.float32)
-    js = torch.arange(N, dtype=torch.float32, device=dev)[None, :]
+    pre = torch.cumsum(csort.to(torch.float64), dim=-1)
+    presum = torch.cat([torch.zeros((*lead, S, 1), dtype=torch.float64,
+                                    device=dev), pre[..., :-1]],
+                       dim=-1).to(torch.float32)
+    js = torch.arange(N, dtype=torch.float32, device=dev)
     fill = js * csort - presum
     return (s_p.to(torch.int32), q, member, fill.contiguous(),
             ord_dom.to(torch.int32).contiguous())
@@ -1950,17 +1970,17 @@ def _waterfill_tables(snap: ClusterSnapshot, pair_st: "kpair.PairState",
 
 def _cap_order(alloc: torch.Tensor, used: torch.Tensor) -> torch.Tensor:
     """[N] int32 nodes by descending mean free fraction of allocatable
-    (the water-fill rotation order). The mean adds the R axes in order
-    and divides by a device tensor (CUDA divides by a Python scalar as a
-    multiply by its reciprocal)."""
+    (the water-fill rotation order; [B, N] per tenant). The mean adds the
+    R axes in order and divides by a device tensor (CUDA divides by a
+    Python scalar as a multiply by its reciprocal)."""
     one = torch.full((), 1e-9, dtype=torch.float32, device=alloc.device)
     frac = torch.where(alloc > 0, (alloc - used) / torch.maximum(alloc, one),
                        torch.zeros((), dtype=torch.float32,
                                    device=alloc.device))
-    total = frac[:, 0]
-    for r in range(1, frac.shape[1]):
-        total = total + frac[:, r]
-    free = total / torch.full((), float(frac.shape[1]), dtype=torch.float32,
+    total = frac[..., 0]
+    for r in range(1, frac.shape[-1]):
+        total = total + frac[..., r]
+    free = total / torch.full((), float(frac.shape[-1]), dtype=torch.float32,
                               device=alloc.device)
     return _desc_order(free).to(torch.int32)
 
@@ -1973,7 +1993,12 @@ def waterfill_plain(fill: torch.Tensor, ord_dom: torch.Tensor,
     `_spread_waterfill_deal` from its fill table on): each member's
     domain by the fill level its q reaches, then its K1 rotation
     candidates among the domain's relaxed-feasible nodes in cap_order.
-    Returns (cand [P, K1] int32, val [P, K1] f32, ok [P] bool)."""
+    Returns (cand [P, K1] int32, val [P, K1] f32, ok [P] bool). A tenant
+    batch goes tenant by tenant."""
+    if relaxed.dim() == 3:
+        return per_tenant(waterfill_plain, relaxed.shape[0], fill, ord_dom,
+                          dom_s, s_p, q, relaxed, cap_order, score, member,
+                          K1)
     P, N = relaxed.shape
     dev = relaxed.device
     s64 = s_p.long()
@@ -2013,26 +2038,27 @@ def waterfill(fill: torch.Tensor, ord_dom: torch.Tensor, dom_s: torch.Tensor,
     if dev.type == "cpu":
         return waterfill_plain(fill, ord_dom, dom_s, s_p, q, relaxed,
                                cap_order, score, member, K1)
-    P, N = relaxed.shape
-    S = fill.shape[0]
+    lead = relaxed.shape[:-2]              # () or (B,): the tenant axis
+    P, N = relaxed.shape[-2:]
+    S = fill.shape[-2]
     k = "waterfill"
     if not 1 <= K1 <= 32:
         raise ValueError(f"{k}: {K1} candidates a pod, the kernel takes "
                          "1..32")
-    check(k, dev, fill, torch.float32, (S, N))
-    check(k, dev, ord_dom, torch.int32, (S, N))
-    check(k, dev, dom_s, torch.int32, (S, N))
-    check(k, dev, s_p, torch.int32, (P,))
-    check(k, dev, q, torch.float32, (P,))
-    check(k, dev, cap_order, torch.int32, (N,))
-    check(k, dev, score, torch.float32, (P, N))
-    check(k, dev, member, torch.bool, (P,))
-    cand = torch.empty((P, K1), dtype=torch.int32, device=dev)
-    val = torch.empty((P, K1), dtype=torch.float32, device=dev)
-    ok = torch.empty((P,), dtype=torch.bool, device=dev)
-    if P * N == 0:
+    check(k, dev, fill, torch.float32, (*lead, S, N))
+    check(k, dev, ord_dom, torch.int32, (*lead, S, N))
+    check(k, dev, dom_s, torch.int32, (*lead, S, N))
+    check(k, dev, s_p, torch.int32, (*lead, P))
+    check(k, dev, q, torch.float32, (*lead, P))
+    check(k, dev, cap_order, torch.int32, (*lead, N))
+    check(k, dev, score, torch.float32, (*lead, P, N))
+    check(k, dev, member, torch.bool, (*lead, P))
+    cand = torch.empty((*lead, P, K1), dtype=torch.int32, device=dev)
+    val = torch.empty((*lead, P, K1), dtype=torch.float32, device=dev)
+    ok = torch.empty((*lead, P), dtype=torch.bool, device=dev)
+    if relaxed.numel() == 0:
         return cand, val, ok
-    _build.launch("tpusched_waterfill", P, N, K1,
+    _build.launch("tpusched_waterfill", lead[0] if lead else 1, P, S, N, K1,
                   *ptrs((fill, ord_dom, dom_s, s_p, q, relaxed, cap_order,
                          score, member, cand, val, ok)), stream_of(dev))
     waterfill.launches += 1
@@ -2055,16 +2081,17 @@ def _spread_waterfill_deal(snap: ClusterSnapshot, pair_st, used, relaxed,
     filter) lets a member target a domain that is over the bound
     against round-start counts but legal against end-of-round counts,
     which the validator checks. Returns K12's (cand [P, K+1], val, ok);
-    ok False leaves the pod to the capacity dealer."""
+    ok False leaves the pod to the capacity dealer. A tenant batch deals
+    every tenant in one K12 launch."""
     pods = snap.pods
-    S = dom_s.shape[0]
-    P = rank.shape[0]
-    if pods.ts_valid.shape[1] == 0 or S == 0:
+    S = dom_s.shape[-2]
+    if pods.ts_valid.shape[-1] == 0 or S == 0:
         dev = rank.device
-        return (torch.zeros((P, K + 1), dtype=torch.int32, device=dev),
-                torch.full((P, K + 1), NEG_INF, dtype=torch.float32,
-                           device=dev),
-                torch.zeros(P, dtype=torch.bool, device=dev))
+        return (torch.zeros((*rank.shape, K + 1), dtype=torch.int32,
+                            device=dev),
+                torch.full((*rank.shape, K + 1), NEG_INF,
+                           dtype=torch.float32, device=dev),
+                torch.zeros(rank.shape, dtype=torch.bool, device=dev))
     s_p, q, member, fill, ord_dom = _waterfill_tables(snap, pair_st, dom_s,
                                                       allowed, rank)
     cap_order = _cap_order(snap.nodes.allocatable, used)
@@ -2077,7 +2104,10 @@ def excess_min_plain(dom_s: torch.Tensor, counts: torch.Tensor,
                      s_c: torch.Tensor) -> torch.Tensor:
     """[P] f32: min over valid nodes with aff_ok and the key of the
     end-state count at the node's domain under signature s_c[p]; 0
-    where there is none."""
+    where there is none. A tenant batch goes tenant by tenant."""
+    if counts.dim() == 3:
+        return per_tenant(excess_min_plain, counts.shape[0], dom_s, counts,
+                          node_valid, aff_ok, s_c)
     s = s_c.long()
     node_cnt = torch.gather(counts, 1, dom_s.clamp(min=0).long())[s]
     eligible = node_valid[None, :] & aff_ok & (dom_s[s] >= 0)
@@ -2095,18 +2125,19 @@ def excess_min(dom_s: torch.Tensor, counts: torch.Tensor,
     dev = counts.device
     if dev.type == "cpu":
         return excess_min_plain(dom_s, counts, node_valid, aff_ok, s_c)
-    P, N = aff_ok.shape
-    S = dom_s.shape[0]
+    lead = aff_ok.shape[:-2]               # () or (B,): the tenant axis
+    P, N = aff_ok.shape[-2:]
+    S = dom_s.shape[-2]
     k = "excess_min"
-    check(k, dev, dom_s, torch.int32, (S, N))
-    check(k, dev, counts, torch.float32, (S, N))
-    check(k, dev, node_valid, torch.bool, (N,))
-    check(k, dev, aff_ok, torch.bool, (P, N))
-    check(k, dev, s_c, torch.int32, (P,))
-    out = torch.empty((P,), dtype=torch.float32, device=dev)
-    if P * N == 0:
+    check(k, dev, dom_s, torch.int32, (*lead, S, N))
+    check(k, dev, counts, torch.float32, (*lead, S, N))
+    check(k, dev, node_valid, torch.bool, (*lead, N))
+    check(k, dev, aff_ok, torch.bool, (*lead, P, N))
+    check(k, dev, s_c, torch.int32, (*lead, P))
+    out = torch.empty((*lead, P), dtype=torch.float32, device=dev)
+    if aff_ok.numel() == 0:
         return out.fill_(0.0)
-    _build.launch("tpusched_excess_min", P, N,
+    _build.launch("tpusched_excess_min", lead[0] if lead else 1, P, S, N,
                   *ptrs((dom_s, counts, node_valid, aff_ok, s_c, out)),
                   stream_of(dev))
     excess_min.launches += 1
@@ -2123,7 +2154,10 @@ def excess_survive_plain(gid_s: torch.Tensor, perm: torch.Tensor,
     group the 1-based member count q and the running min of the
     members' allowances T (a segmented Hillis-Steele min scan: min is
     exact, so any order gives these bits); a member is bad unless
-    b_fixed + q <= that min."""
+    b_fixed + q <= that min. A tenant batch goes tenant by tenant."""
+    if perm.dim() == 2:
+        return per_tenant(excess_survive_plain, perm.shape[0], gid_s, perm,
+                          member, T, b_fixed)
     P = perm.shape[0]
     dev = perm.device
     p = perm.long()
@@ -2151,17 +2185,18 @@ def excess_survive(gid_s: torch.Tensor, perm: torch.Tensor,
     dev = perm.device
     if dev.type == "cpu":
         return excess_survive_plain(gid_s, perm, member, T, b_fixed)
-    P = perm.shape[0]
+    rows = perm.shape                      # (P,) or (B, P)
     k = "excess_survive"
-    check(k, dev, gid_s, torch.int32, (P,))
-    check(k, dev, perm, torch.int32, (P,))
-    check(k, dev, member, torch.bool, (P,))
-    check(k, dev, T, torch.float32, (P,))
-    check(k, dev, b_fixed, torch.float32, (P,))
-    bad = torch.empty((P,), dtype=torch.bool, device=dev)
-    if P == 0:
+    check(k, dev, gid_s, torch.int32, rows)
+    check(k, dev, perm, torch.int32, rows)
+    check(k, dev, member, torch.bool, rows)
+    check(k, dev, T, torch.float32, rows)
+    check(k, dev, b_fixed, torch.float32, rows)
+    bad = torch.empty(rows, dtype=torch.bool, device=dev)
+    if bad.numel() == 0:
         return bad
-    _build.launch("tpusched_excess_survive", P,
+    _build.launch("tpusched_excess_survive",
+                  rows[0] if len(rows) == 2 else 1, rows[-1],
                   *ptrs((gid_s, perm, member, T, b_fixed, bad)),
                   stream_of(dev))
     excess_survive.launches += 1
@@ -2182,31 +2217,36 @@ def _spread_excess_mask(snap: ClusterSnapshot, aff_ok: torch.Tensor,
     prefix member's allowance T = (min end-state count over its
     eligible domains) + maxSkew survives. Every cross-pod reduction is
     an integer count or a min, so a view's verdict is row for row the
-    full width's."""
+    full width's. A tenant batch ([B, P] rows) groups, sorts and counts
+    within each tenant; K13 launches once for all of them."""
     pods, nodes = snap.pods, snap.nodes
-    P = pods.valid.shape[0]
-    S, N = dom_s.shape
+    lead = rank.shape[:-1]
+    S, N = dom_s.shape[-2:]
     dev = dom_s.device
     dns = pods.ts_valid & (pods.ts_when == DO_NOT_SCHEDULE)
     ch = choice.clamp(0, N - 1).long()
-    bad = torch.zeros(P, dtype=torch.bool, device=dev)
-    for c in range(pods.ts_key.shape[1]):
-        s_c = pods.ts_sig[:, c].clamp(min=0)
-        d_c = dom_s[s_c.long(), ch]
-        member = kept & dns[:, c] & (choice >= 0) & (d_c >= 0)
+    dom_f = dom_s.flatten(-2)                                # [.., S * N]
+    cnt_f = st.counts.flatten(-2)
+    bad = torch.zeros(rank.shape, dtype=torch.bool, device=dev)
+    for c in range(pods.ts_key.shape[-1]):
+        s_c = pods.ts_sig[..., c].clamp(min=0)
+        d_c = dom_f.gather(-1, s_c.long() * N + ch)
+        member = kept & dns[..., c] & (choice >= 0) & (d_c >= 0)
         min_end = ops.excess_min(dom_s, st.counts, nodes.valid, aff_ok,
                                  s_c.contiguous())
-        T = min_end + pods.ts_max_skew[:, c]
-        d0 = d_c.clamp(min=0)
-        cnt_total = st.counts[s_c.long(), d0.long()]
-        gid = torch.where(member, s_c * N + d0, S * N)
-        g_tab = torch.zeros(S * N + 1, dtype=torch.float32, device=dev)
-        g_tab.index_add_(0, gid.long(), member.to(torch.float32))
-        b_fixed = cnt_total - g_tab[gid.long()]  # members' non-revertable rest
-        perm = torch.sort((gid.long() << 32) + rank.long()).indices
-        bad = bad | ops.excess_survive(gid[perm].to(torch.int32).contiguous(),
-                                       perm.to(torch.int32), member,
-                                       T.contiguous(), b_fixed)
+        T = min_end + pods.ts_max_skew[..., c]
+        cell = s_c * N + d_c.clamp(min=0)
+        cnt_total = cnt_f.gather(-1, cell.long())
+        gid = torch.where(member, cell, S * N)
+        g_tab = torch.zeros((*lead, S * N + 1), dtype=torch.float32,
+                            device=dev)
+        g_tab.scatter_add_(-1, gid.long(), member.to(torch.float32))
+        # The members' non-revertable rest.
+        b_fixed = cnt_total - g_tab.gather(-1, gid.long())
+        perm = torch.sort((gid.long() << 32) + rank.long(), dim=-1).indices
+        bad = bad | ops.excess_survive(
+            gid.gather(-1, perm).to(torch.int32).contiguous(),
+            perm.to(torch.int32), member, T.contiguous(), b_fixed)
     return bad
 
 
@@ -2218,29 +2258,29 @@ def _sig_involvement(snap: ClusterSnapshot, static: StaticCtx,
     by a live required anti term (of a running holder in a keyed domain,
     or of any pending holder). invol: the signatures a pod's checks read
     or its commit writes; pods with disjoint involvement cannot affect
-    each other's validation."""
+    each other's validation. A tenant batch gives [B, P, S] and [B, P],
+    every count within a tenant."""
     pods = snap.pods
-    P = pods.valid.shape[0]
-    M = snap.running.valid.shape[0]
-    S = static.sig_match.shape[0]
+    M = snap.running.valid.shape[-1]
+    S = static.sig_match.shape[-2]
     dev = pods.valid.device
-    has_pair = pods.ts_valid.any(dim=1) | pods.ia_valid.any(dim=1)
-    anti_possible = st0.anti.sum(dim=1) > 0
-    holds = kpair.pod_anti_holds(pods) & pods.valid[:, None]
-    for t in range(pods.ia_key.shape[1]):
-        s_t = pods.ia_sig[:, t].clamp(min=0).long()
-        hit = torch.zeros(S, dtype=torch.int32, device=dev)
-        hit.index_add_(0, s_t, holds[:, t].to(torch.int32))
+    has_pair = pods.ts_valid.any(dim=-1) | pods.ia_valid.any(dim=-1)
+    anti_possible = st0.anti.sum(dim=-1) > 0                 # [.., S]
+    holds = kpair.pod_anti_holds(pods) & pods.valid[..., None]
+    for t in range(pods.ia_key.shape[-1]):
+        hit = torch.zeros(anti_possible.shape, dtype=torch.int32, device=dev)
+        hit.scatter_add_(-1, pods.ia_sig[..., t].clamp(min=0).long(),
+                         holds[..., t].to(torch.int32))
         anti_possible = anti_possible | (hit > 0)
-    members = static.sig_match[:, M:]                        # [S, P]
-    has_pair = has_pair | (members & anti_possible[:, None]).any(dim=0)
-    invol = (members.T & pods.valid[:, None]).contiguous()
-    ar = torch.arange(P, device=dev)
+    members = static.sig_match[..., M:]                      # [.., S, P]
+    has_pair = has_pair | (members & anti_possible[..., None]).any(dim=-2)
+    invol = (members.transpose(-2, -1) & pods.valid[..., None]).contiguous()
     for sig, valid in ((pods.ts_sig, pods.ts_valid),
                        (pods.ia_sig, pods.ia_valid)):
-        for c in range(sig.shape[1]):
-            s_c = sig[:, c].clamp(min=0).long()
-            invol[ar, s_c] = invol[ar, s_c] | valid[:, c]
+        for c in range(sig.shape[-1]):
+            s_c = sig[..., c, None].clamp(min=0).long()
+            invol.scatter_(-1, s_c, invol.gather(-1, s_c)
+                           | valid[..., c, None])
     return invol, has_pair
 
 
@@ -2256,32 +2296,43 @@ def _compact_cap(cfg: EngineConfig, P: int) -> int:
     return min(cap, P)
 
 
+def _rows(t: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """The pod-axis rows sel of t: t[sel], or per tenant t[b, sel[b]] for
+    a [B, C] sel (t [B, P, ...])."""
+    if sel.dim() == 1:
+        return t.index_select(0, sel)
+    return t[torch.arange(sel.shape[0], device=sel.device)[:, None], sel]
+
+
 def _pods_view(snap: ClusterSnapshot, static: StaticCtx, sel: torch.Tensor):
     """The compacted pod-axis view (gathers): the selected pods' rows of
     every pod array and of StaticCtx, and sig_match's running columns
     then the selected pods' member columns. Nodes, running pods,
-    signatures and all [S, N] / [N, R] state stay full width."""
-    M = snap.running.valid.shape[0]
-    pods = snap.pods
-    pods_v = permute_rows(pods, sel)
-    sig_v = torch.cat([static.sig_match[:, :M],
-                       static.sig_match[:, M + sel]], dim=1)
+    signatures and all [S, N] / [N, R] state stay full width. A tenant
+    batch gathers each tenant's own rows ([B, C] sel)."""
+    M = snap.running.valid.shape[-1]
+    sm = static.sig_match
+    cols = sel.unsqueeze(-2).expand(*sm.shape[:-1], sel.shape[-1])
+    sig_v = torch.cat([sm[..., :M], sm[..., M:].gather(-1, cols)], dim=-1)
     static_v = StaticCtx(
-        mask=static.mask[sel], aff_ok=static.aff_ok[sel],
-        score=static.score[sel], sig_match=sig_v, w_lr=static.w_lr[sel],
-        w_ba=static.w_ba[sel], w_ts=static.w_ts[sel], w_ia=static.w_ia[sel],
+        mask=_rows(static.mask, sel), aff_ok=_rows(static.aff_ok, sel),
+        score=_rows(static.score, sel), sig_match=sig_v,
+        w_lr=_rows(static.w_lr, sel), w_ba=_rows(static.w_ba, sel),
+        w_ts=_rows(static.w_ts, sel), w_ia=_rows(static.w_ia, sel),
         rw=static.rw)
+    pods_v = snap.pods._map(lambda t: _rows(t, sel))
     return dataclasses.replace(snap, pods=pods_v), static_v
 
 
 def _min_rank_first(mask: torch.Tensor, rank: torch.Tensor,
                     invol: torch.Tensor) -> torch.Tensor:
     """[P] bool: rank[p] is the least rank among the `mask` pods in every
-    signature p is involved in."""
+    signature p is involved in (per tenant for [B, P] rows)."""
     BIG = torch.iinfo(torch.int32).max
     r = torch.where(mask, rank, BIG)
-    lo = torch.where(invol, r[:, None], BIG).amin(dim=0)     # [S]
-    return torch.where(invol, rank[:, None] == lo[None, :], True).all(dim=1)
+    lo = torch.where(invol, r[..., None], BIG).amin(dim=-2)  # [.., S]
+    return torch.where(invol, rank[..., None] == lo[..., None, :],
+                       True).all(dim=-1)
 
 
 def _round_sig(cfg: EngineConfig, snap_v: ClusterSnapshot,
@@ -2289,12 +2340,16 @@ def _round_sig(cfg: EngineConfig, snap_v: ClusterSnapshot,
                pending_v, cons_v, used, pair_st, K: int, width: int,
                dom_s: torch.Tensor, ops: "Ops", stats: RoundStats):
     """One commit round over a (possibly compacted) pod-axis view (JAX
-    `_solve_rounds_sig`'s round_math): score (K11, K5), gate the
-    conservative pods, water-fill (K12) and deal (K6, K7, K8), add the
-    commits to the pair state (K10), then validate against the
-    end-of-round state until a pass reverts nothing (K14, K13, the
-    reverts through K8's node_add and K10). Returns (used, state, kept,
-    choice, chosen_val, fb_mask)."""
+    `_solve_rounds_sig`'s round_math), for a tenant batch ([B, V] rows):
+    score (K11, K5), gate the conservative pods, water-fill (K12) and
+    deal (K6, K7, K8), add the commits to the pair state (K10), then
+    validate against the end-of-round state until a pass reverts nothing
+    (K14, K13, the reverts through K8's node_add and K10). Each tenant
+    runs its own validation fixpoint, the vmapped while_loop: a pass runs
+    while any tenant's last pass reverted (one host read a pass), and a
+    tenant whose fixpoint has ended reverts nothing more. A tenant with
+    no pending row commits nothing and keeps its state bit for bit.
+    Returns (used, state, kept, choice, chosen_val, fb_mask)."""
     BIG = torch.iinfo(torch.int32).max
     req_v = snap_v.pods.requests
     sig_v = static_v.sig_match
@@ -2305,14 +2360,14 @@ def _round_sig(cfg: EngineConfig, snap_v: ClusterSnapshot,
     masked = torch.where(feasible, score,
                          torch.full((), NEG_INF, dtype=torch.float32,
                                     device=score.device))
-    want = feasible.any(dim=1)
+    want = feasible.any(dim=-1)
     # Conservative pods commit only when first among the wanting pods in
     # every signature they touch.
     gate = ~cons_v | _min_rank_first(want & cons_v, rank_v, invol_v)
     allowed = want & gate
     with stats.span("K12 waterfill"):
         sp = _spread_waterfill_deal(snap_v, pair_st, used, relaxed, score,
-                                    relaxed.any(dim=1) & gate, rank_v, K,
+                                    relaxed.any(dim=-1) & gate, rank_v, K,
                                     dom_s, ops)
     with stats.span("K6 row_topk"):
         topv, topi, pick = ops.row_topk(masked, K, cfg.tie_break == "seeded",
@@ -2332,34 +2387,39 @@ def _round_sig(cfg: EngineConfig, snap_v: ClusterSnapshot,
     # remain (same-round commits usually caused its violation). Spread
     # violators revert only the excess per (signature, domain).
     used_v, kept = used2, commit
-    flag = (commit & hp_v).any()
-    while stats.read(flag):
+    flag = (commit & hp_v).any(dim=-1)       # [B]: the tenants still going
+    while stats.read(flag.any()):
         with stats.span("validation passes"):
+            going = flag[:, None]
             with stats.span("K14 ia_at_choice"):
                 ia_ok_at = ops.ia_ok_at_choice(
                     snap_v, st_v, sig_v, dom_s, choice,
                     torch.where(kept, choice, -1))
-            ia_bad_all = kept & hp_v & ~ia_ok_at
+            ia_bad_all = kept & hp_v & ~ia_ok_at & going
             protected = ia_bad_all & _min_rank_first(ia_bad_all, rank_v,
                                                      invol_v)
             ia_bad = ia_bad_all & ~protected
             with stats.span("K13 spread_excess"):
                 sp_bad = _spread_excess_mask(
                     snap_v, static_v.aff_ok, rank_v, choice, kept, st_v,
-                    dom_s, ops) & ~ia_bad_all
-            stuck = ~(ia_bad | sp_bad).any() & ia_bad_all.any()
+                    dom_s, ops) & ~ia_bad_all & going
+            stuck = (~(ia_bad | sp_bad).any(dim=-1, keepdim=True)
+                     & ia_bad_all.any(dim=-1, keepdim=True))
             new_viol = ia_bad | sp_bad | (ia_bad_all & stuck)
             used_v = ops.node_add(used_v, choice, new_viol, req_v, rank_v,
                                   -1.0)
             st_v = ops.pair_commit(snap_v, st_v, sig_v, dom_s, choice,
                                    new_viol, -1.0)
             kept = kept & ~new_viol
-            flag = new_viol.any()
-    # Backstop: if every commit of the round reverted, the first reverted
-    # pod by rank turns conservative, so the gated path makes progress.
+            flag = new_viol.any(dim=-1)
+    # Backstop: if every commit of a tenant's round reverted, its first
+    # reverted pod by rank turns conservative, so the gated path makes
+    # progress.
     viol = commit & ~kept
-    first = rank_v == torch.where(viol, rank_v, BIG).amin()
-    fb_mask = viol & first & ~kept.any() & viol.any()
+    first = rank_v == torch.where(viol, rank_v, BIG).amin(dim=-1,
+                                                          keepdim=True)
+    fb_mask = (viol & first & ~kept.any(dim=-1, keepdim=True)
+               & viol.any(dim=-1, keepdim=True))
     return used_v, st_v, kept, choice, chosen_val, fb_mask
 
 
@@ -2385,61 +2445,124 @@ def _solve_rounds_sig(cfg: EngineConfig, snap: ClusterSnapshot,
     incremental path's carried placements committed into `used` and
     the pair state, rounds counted from r; without it the rounds start
     from the snapshot at r = 0. Returns (used, assigned, final pair
-    state, chosen, round_of, rounds)."""
-    pods, nodes = snap.pods, snap.nodes
-    P = pods.valid.shape[0]
-    dev = pods.valid.device
-    dom_s = kpair.sig_domains(snap)
-    ids = torch.arange(P, dtype=torch.int32, device=dev)
-    used, st = nodes.used, st0
-    assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    chosen = torch.full((P,), NEG_INF, dtype=torch.float32, device=dev)
-    round_of = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    cons = torch.zeros(P, dtype=torch.bool, device=dev)
-    progress = None      # the loops' initial True
-    r = 0
+    state, chosen, round_of, rounds).
+
+    A tenant batch (a batched snapshot, StaticCtx and pair state, [B, P]
+    rank and order) runs every tenant's loops at once under jax.vmap's
+    loop rule (`_rounds_sig`); rounds is then a [B] int32 tensor. The
+    solo shapes run as a batch of one, rounds an int."""
+    if rank.dim() == 2:
+        return _rounds_sig(cfg, snap, static, rank, order, st0, invol,
+                           has_pair, max_rounds, K, cap, ops, stats,
+                           init)[:6]
     if init is not None:
         used, assigned, st, cons, chosen, round_of, r = init
+        init = (used[None], assigned[None], st.as_batch(), cons[None],
+                chosen[None], round_of[None], r)
+    used, assigned, st, chosen, round_of, _, r = _rounds_sig(
+        cfg, snap.as_batch(), static.as_batch(), rank[None], order[None],
+        st0.as_batch(), invol[None], has_pair[None], max_rounds, K, cap, ops,
+        stats, init)
+    return (used[0], assigned[0], st.tenant(0), chosen[0], round_of[0],
+            int(r[0]))
 
-    def step(snap_v, static_v, sel, pending_v):
+
+def _rounds_sig(cfg, snap, static, rank, order, st0, invol, has_pair,
+                max_rounds, K, cap, ops, stats, init):
+    """_solve_rounds_sig over a tenant batch, JAX's two vmapped
+    while_loops: the full-width loop runs while any tenant's condition
+    holds (its last round progressed, its round counter is below
+    max_rounds and, with cap, more than cap of its pods are pending),
+    then the compacted loop while any tenant's holds (progress, rounds
+    left). Each step reads every tenant's condition in one host read
+    (none when the host knows it: before the first round, or when the
+    round counters alone decide), a tenant whose condition is false
+    keeps its state and its round counter, and a tenant that hands off
+    to the compacted rounds waits there until the full-width loop has
+    ended for all. Returns (used, assigned, pair state, chosen, round_of,
+    rounds [B] int32 on the device, rounds on the host)."""
+    ops = ops or KERNELS
+    stats = stats or RoundStats()
+    pods = snap.pods
+    B, P = rank.shape
+    dev = rank.device
+    dom_s = kpair.sig_domains(snap)
+    ids = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
+    used, st = snap.nodes.used, st0
+    assigned = torch.full((B, P), -1, dtype=torch.int32, device=dev)
+    chosen = torch.full((B, P), NEG_INF, dtype=torch.float32, device=dev)
+    round_of = torch.full((B, P), -1, dtype=torch.int32, device=dev)
+    cons = torch.zeros((B, P), dtype=torch.bool, device=dev)
+    r0 = 0
+    if init is not None:
+        used, assigned, st, cons, chosen, round_of, r0 = init
+    # Each tenant's round counter, on the host and on the device, and its
+    # progress flag (the loops' initial True); `known`: no round has run,
+    # so every flag is still True and the host needs no read to know it.
+    r_h = np.full(B, r0, dtype=np.int64)
+    r_d = torch.full((B,), r0, dtype=torch.int32, device=dev)
+    progress = torch.ones(B, dtype=torch.bool, device=dev)
+    known = True
+
+    def step(snap_v, static_v, sel, pending_v, live):
         nonlocal used, st, assigned, chosen, round_of, cons, progress
-        rows = slice(None) if sel is None else sel
+        rows = (lambda t: t) if sel is None else (lambda t: _rows(t, sel))
         used, st, kept, choice, cval, fb = _round_sig(
-            cfg, snap_v, static_v, invol[rows], has_pair[rows], rank[rows],
-            ids[rows], pending_v, cons[rows], used, st, K, P, dom_s, ops,
+            cfg, snap_v, static_v, rows(invol), rows(has_pair), rows(rank),
+            rows(ids), pending_v, rows(cons), used, st, K, P, dom_s, ops,
             stats)
-        new_cons = fb & ~cons[rows]
-        upd = ((assigned, torch.where(kept, choice, assigned[rows])),
-               (chosen, torch.where(kept, cval, chosen[rows])),
-               (round_of, torch.where(kept, r, round_of[rows])),
-               (cons, cons[rows] | fb))
+        new_cons = fb & ~rows(cons)
+        upd = ((assigned, torch.where(kept, choice, rows(assigned))),
+               (chosen, torch.where(kept, cval, rows(chosen))),
+               (round_of, torch.where(kept, r_d[:, None], rows(round_of))),
+               (cons, rows(cons) | fb))
         assigned, chosen, round_of, cons = (
-            v if sel is None else full.index_put((sel,), v)
+            v if sel is None else full.index_put(
+                (torch.arange(B, device=dev)[:, None], sel), v)
             for full, v in upd)
-        all_done = ((assigned >= 0) | ~pods.valid).all()
-        progress = (kept.any() | new_cons.any()) & ~all_done
+        all_done = ((assigned >= 0) | ~pods.valid).all(dim=-1)
+        moved = (kept.any(dim=-1) | new_cons.any(dim=-1)) & ~all_done
+        progress = torch.where(live, moved, progress)
 
-    while r < max_rounds:
-        flag = progress
-        if cap:
-            # Hand off to the compacted rounds once the whole pending
-            # frontier fits one view (never before: the view must hold
-            # every pending pod).
-            over = ((assigned == -1) & pods.valid).sum() > cap
-            flag = over if flag is None else flag & over
-        if flag is not None and not stats.read(flag):
-            break
+    def advance(live_h, live_d):
+        nonlocal r_h, r_d, known
+        known = False
+        r_h = r_h + live_h
+        r_d = r_d + live_d.to(torch.int32)
+        return live_h & (r_h < max_rounds), live_d & (r_d < max_rounds)
+
+    live_h, live_d = r_h < max_rounds, r_d < max_rounds
+    while live_h.any():
+        if cap or not known:
+            flag = progress & live_d
+            if cap:
+                # Hand off to the compacted rounds once the whole pending
+                # frontier fits one view (never before: the view must hold
+                # every pending pod).
+                flag = flag & (((assigned == -1) & pods.valid).sum(dim=-1)
+                               > cap)
+            live_h, live_d = stats.read_each(flag), flag
+            if not live_h.any():
+                break
         with stats.span("full-width rounds"):
-            step(snap, static, None, assigned == -1)
-        r += 1
+            step(snap, static, None, (assigned == -1) & live_d[:, None],
+                 live_d)
+        live_h, live_d = advance(live_h, live_d)
     if cap:
-        while r < max_rounds and (progress is None or stats.read(progress)):
+        live_h, live_d = r_h < max_rounds, r_d < max_rounds
+        while live_h.any():
+            if not known:
+                flag = progress & live_d
+                live_h, live_d = stats.read_each(flag), flag
+                if not live_h.any():
+                    break
             with stats.span("compacted rounds"):
-                pend = (assigned == -1) & pods.valid
+                pend = (assigned == -1) & pods.valid & live_d[:, None]
                 sel = ops.top_by_rank(pend, order, cap)[0]
-                step(*_pods_view(snap, static, sel), sel, pend[sel])
-            r += 1
-    return used, assigned, st, chosen, round_of, r
+                step(*_pods_view(snap, static, sel), sel,
+                     pend.gather(-1, sel), live_d)
+            live_h, live_d = advance(live_h, live_d)
+    return used, assigned, st, chosen, round_of, r_d, r_h
 
 
 def gang_rollback(snap: ClusterSnapshot, used: torch.Tensor,
@@ -2454,26 +2577,29 @@ def gang_rollback(snap: ClusterSnapshot, used: torch.Tensor,
     requests leave `used` through K8's node_add with sign -1, per node in
     ascending pod index (the oracle's unwind order); with a pair state
     their contributions leave it through K10's pair_commit with sign -1.
-    Returns (used, assigned, chosen, pair_st, rolled)."""
+    A tenant batch counts each tenant's quorums in its own [G] row (group
+    ids are local to a tenant) and reverts every tenant in one node_add
+    and one pair_commit launch. Returns (used, assigned, chosen,
+    pair_st, rolled)."""
     ops = ops or KERNELS
     pods = snap.pods
     P = assigned.shape[-1]
     G = snap.group_min_member.shape[-1]
     dev = assigned.device
-    # A tenant batch has no gang member (tenants.solve_many refuses
-    # them), so the gate rolls nothing back there.
-    if G == 0 or assigned.dim() > 1:
+    if G == 0:
         return (used, assigned, chosen, pair_st,
                 torch.zeros(assigned.shape, dtype=torch.bool, device=dev))
     g = pods.group
     placed = (assigned >= 0) & pods.valid & (g >= 0)
     gclip = g.clamp(min=0).long()
-    cnt = torch.zeros(G, dtype=torch.int32, device=dev)
-    cnt.index_add_(0, gclip, placed.to(torch.int32))
-    roll = placed & (cnt < snap.group_min_member)[gclip]
-    rank = torch.arange(P, dtype=torch.int32, device=dev)
+    cnt = torch.zeros((*assigned.shape[:-1], G), dtype=torch.int32,
+                      device=dev)
+    cnt.scatter_add_(-1, gclip, placed.to(torch.int32))
+    roll = placed & (cnt < snap.group_min_member).gather(-1, gclip)
+    rank = torch.arange(P, dtype=torch.int32, device=dev).expand(
+        assigned.shape)
     used = ops.node_add(used, assigned, roll, pods.requests, rank, -1.0)
-    if pair_st is not None and snap.sigs.key.shape[0] > 0:
+    if pair_st is not None and snap.sigs.key.shape[-1] > 0:
         pair_st = ops.pair_commit(snap, pair_st, sig_match, dom_s, assigned,
                                   roll, -1.0)
     assigned = torch.where(roll, -1, assigned)
@@ -2829,8 +2955,8 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     _preempt_rounds), with the same placements and host reads.
 
     A tenant batch (a leading [B] axis; tenants.solve_many, which refuses
-    signatures, gangs and preemption) runs the S = 0 rounds of every
-    tenant at once; rounds is then [B]."""
+    preemption) runs the rounds of every tenant at once, with or without
+    signatures, then gates every tenant's gangs; rounds is then [B]."""
     ops = ops or KERNELS
     stats = stats or RoundStats()
     if static is None:
@@ -2847,7 +2973,7 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     max_rounds = cfg.max_rounds if cfg.max_rounds > 0 else 2 * P + 8
     K = _fallback_depth(N)
     st = dom_s = None
-    has_pair = torch.zeros(P, dtype=torch.bool, device=dev)
+    has_pair = torch.zeros(pods.valid.shape, dtype=torch.bool, device=dev)
     if snap.sigs.key.shape[-1] == 0:
         used, assigned, chosen, round_of, rounds = _solve_rounds_nosig(
             cfg, snap, static, rank, order, max_rounds, K, ops=ops,

@@ -34,6 +34,12 @@ Kernels (CUDA on CUDA tensors, the `*_plain` version on CPU tensors):
 The parity scan's per-pod `pairwise_row` and `pair_state_add_pod` run
 inside K4's pairwise variant (`kernels/assign.parity_scan_pair`); their
 plain versions here drive the plain scan.
+
+A tenant batch (tenants.solve_many) carries a leading [B] axis on every
+table here: the member tables [B, S, M+P], the domains and the
+PairState [B, S, N] (match_tot [B, S]). Each kernel then launches once
+for all tenants, each CTA or thread on its own tenant's rows; each plain
+version goes tenant by tenant (`kernels.per_tenant`).
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ import torch
 
 from tpusched_torch import _build
 from tpusched_torch.config import DO_NOT_SCHEDULE
-from tpusched_torch.kernels import check, ptrs, stream_of
+from tpusched_torch.kernels import check, per_tenant, ptrs, stream_of
 from tpusched_torch.kernels import score as kscore
 from tpusched_torch.kernels.atoms import gather_term_sat
 from tpusched_torch.snapshot import (
@@ -67,19 +73,27 @@ class PairState(_Tree):
     match_tot: torch.Tensor  # [S] f32 selector-match counts over all members
 
 
-def merge_members(run_arr: torch.Tensor,
-                  pod_arr: torch.Tensor) -> torch.Tensor:
+def merge_members(run_arr: torch.Tensor, pod_arr: torch.Tensor,
+                  lead: int = 0) -> torch.Tensor:
     """[M+P, ...]: running rows, then pending rows (one device, no
-    mesh)."""
-    return torch.cat([run_arr, pod_arr])
+    mesh); [B, M+P, ...] for a tenant batch (lead=1)."""
+    return torch.cat([run_arr, pod_arr], dim=lead)
+
+
+def member_ns(snap: ClusterSnapshot) -> torch.Tensor:
+    """[M+P] int32 (per tenant [B, M+P]): each member's namespace."""
+    return merge_members(snap.running.namespace, snap.pods.namespace,
+                         snap.pods.valid.dim() - 1)
 
 
 def member_label_sat_t(snap: ClusterSnapshot, sat_fn) -> torch.Tensor:
     """[A, M+P] atom satisfaction over member pod labels (K1 through
-    `sat_fn`); labels never change during a solve."""
-    lp = merge_members(snap.running.label_pairs, snap.pods.label_pairs)
-    lk = merge_members(snap.running.label_keys, snap.pods.label_keys)
-    return sat_fn(snap.atoms, lp, lk, None).T.contiguous()
+    `sat_fn`; [B, A, M+P] for a tenant batch); labels never change
+    during a solve."""
+    lead = snap.pods.valid.dim() - 1
+    lp = merge_members(snap.running.label_pairs, snap.pods.label_pairs, lead)
+    lk = merge_members(snap.running.label_keys, snap.pods.label_keys, lead)
+    return sat_fn(snap.atoms, lp, lk, None).transpose(-2, -1).contiguous()
 
 
 def ns_scope_ok(sigs_ns: torch.Tensor, sigs_ns_all: torch.Tensor,
@@ -101,7 +115,10 @@ def sig_match_plain(member_sat_t: torch.Tensor, sigs: SigTable,
                     member_ns: torch.Tensor) -> torch.Tensor:
     """[S, X] bool: member x matches signature s — every selector atom
     satisfied (a selector without atoms matches everyone), namespace in
-    scope, signature slot live."""
+    scope, signature slot live. A tenant batch goes tenant by tenant."""
+    if member_ns.dim() == 2:
+        return per_tenant(sig_match_plain, member_ns.shape[0], member_sat_t,
+                          sigs, member_ns)
     if member_sat_t.shape[0]:
         match = gather_term_sat(member_sat_t, sigs.atoms)
     else:  # no atoms at all: only atom-less selectors, which match all
@@ -117,20 +134,22 @@ def sig_match(member_sat_t: torch.Tensor, sigs: SigTable,
     dev = member_ns.device
     if dev.type == "cpu":
         return sig_match_plain(member_sat_t, sigs, member_ns)
-    A, X = member_sat_t.shape
-    S, AT = sigs.atoms.shape
-    NS = sigs.ns.shape[1]
+    lead = member_ns.shape[:-1]            # () or (B,): the tenant axis
+    A, X = member_sat_t.shape[-2:]
+    S, AT = sigs.atoms.shape[-2:]
+    NS = sigs.ns.shape[-1]
     k = "sig_match"
-    check(k, dev, member_sat_t, torch.bool, (A, X))
-    check(k, dev, sigs.atoms, torch.int32, (S, AT))
-    check(k, dev, sigs.ns, torch.int32, (S, NS))
-    check(k, dev, sigs.ns_all, torch.bool, (S,))
-    check(k, dev, sigs.valid, torch.bool, (S,))
-    check(k, dev, member_ns, torch.int32, (X,))
-    out = torch.empty((S, X), dtype=torch.bool, device=dev)
-    if S * X == 0:
+    check(k, dev, member_sat_t, torch.bool, (*lead, A, X))
+    check(k, dev, sigs.atoms, torch.int32, (*lead, S, AT))
+    check(k, dev, sigs.ns, torch.int32, (*lead, S, NS))
+    check(k, dev, sigs.ns_all, torch.bool, (*lead, S))
+    check(k, dev, sigs.valid, torch.bool, (*lead, S))
+    check(k, dev, member_ns, torch.int32, (*lead, X))
+    out = torch.empty((*lead, S, X), dtype=torch.bool, device=dev)
+    if out.numel() == 0:
         return out
-    _build.launch("tpusched_sig_match", S, X, AT, NS,
+    _build.launch("tpusched_sig_match", lead[0] if lead else 1, A, S, X,
+                  AT, NS,
                   *(t.data_ptr() for t in (member_sat_t, sigs.atoms, sigs.ns,
                                            sigs.ns_all, sigs.valid,
                                            member_ns, out)),
@@ -144,15 +163,19 @@ sig_match.launches = 0
 
 def sig_domains(snap: ClusterSnapshot) -> torch.Tensor:
     """[S, N] int32: node n's domain id under signature s's topology key;
-    -1 where the node lacks the key or the signature slot is padding."""
-    dom = snap.nodes.domain                                  # [N, TK]
+    -1 where the node lacks the key or the signature slot is padding. A
+    tenant batch gives [B, S, N]."""
+    dom = snap.nodes.domain                                  # [.., N, TK]
     sigs = snap.sigs
-    S, N = sigs.key.shape[0], dom.shape[0]
-    if dom.shape[1]:
-        dom_s = dom[:, sigs.key.clamp(min=0).long()].T
+    lead = sigs.key.shape[:-1]
+    S, N = sigs.key.shape[-1], dom.shape[-2]
+    if dom.shape[-1]:
+        key = sigs.key.clamp(min=0).long()[..., None, :].expand(*lead, N, S)
+        dom_s = dom.gather(-1, key).transpose(-2, -1)
     else:
-        dom_s = torch.full((S, N), -1, dtype=torch.int32, device=dom.device)
-    return torch.where(sigs.valid[:, None], dom_s,
+        dom_s = torch.full((*lead, S, N), -1, dtype=torch.int32,
+                           device=dom.device)
+    return torch.where(sigs.valid[..., None], dom_s,
                        torch.full((), -1, dtype=torch.int32,
                                   device=dom.device)).contiguous()
 
@@ -171,7 +194,11 @@ def pair_counts_plain(sig_match: torch.Tensor, dom_s: torch.Tensor,
     """The PairState of the running members plus, when `assigned` is
     given, every pending pod p with assigned[p] >= 0 placed there (JAX
     pair_state_init, and pair_state_seed at that assignment). The
-    scatter-adds add 0/1 in f32, exact in any order."""
+    scatter-adds add 0/1 in f32, exact in any order. A tenant batch goes
+    tenant by tenant."""
+    if dom_s.dim() == 3:
+        return per_tenant(pair_counts_plain, dom_s.shape[0], sig_match,
+                          dom_s, running, pods, assigned)
     S, N = dom_s.shape
     M, P = running.valid.shape[0], pods.valid.shape[0]
     dev = dom_s.device
@@ -215,28 +242,24 @@ def pair_counts(sig_match: torch.Tensor, dom_s: torch.Tensor,
     dev = dom_s.device
     if dev.type == "cpu":
         return pair_counts_plain(sig_match, dom_s, running, pods, assigned)
-    S, N = dom_s.shape
-    M, P = running.valid.shape[0], pods.valid.shape[0]
-    J, IT = running.anti_sig.shape[1], pods.ia_sig.shape[1]
+    lead = dom_s.shape[:-2]                # () or (B,): the tenant axis
+    S, N = dom_s.shape[-2:]
+    M, P = running.valid.shape[-1], pods.valid.shape[-1]
+    J, IT = running.anti_sig.shape[-1], pods.ia_sig.shape[-1]
     k = "pair_counts"
-    check(k, dev, sig_match, torch.bool, (S, M + P))
-    check(k, dev, dom_s, torch.int32, (S, N))
-    check(k, dev, running.node_idx, torch.int32, (M,))
-    check(k, dev, running.valid, torch.bool, (M,))
-    check(k, dev, running.anti_sig, torch.int32, (M, J))
-    check(k, dev, pods.ia_sig, torch.int32, (P, IT))
-    for t in (pods.ia_valid, pods.ia_anti, pods.ia_required):
-        check(k, dev, t, torch.bool, (P, IT))
+    check(k, dev, sig_match, torch.bool, (*lead, S, M + P))
+    check(k, dev, dom_s, torch.int32, (*lead, S, N))
+    check(k, dev, running.node_idx, torch.int32, (*lead, M))
+    check(k, dev, running.valid, torch.bool, (*lead, M))
+    check(k, dev, running.anti_sig, torch.int32, (*lead, M, J))
+    _check_ia_terms(k, dev, pods, (*lead, P), IT)
     if assigned is not None:
-        check(k, dev, assigned, torch.int32, (P,))
-    st = PairState(
-        counts=torch.zeros((S, N), dtype=torch.float32, device=dev),
-        anti=torch.zeros((S, N), dtype=torch.float32, device=dev),
-        match_tot=torch.zeros((S,), dtype=torch.float32, device=dev))
-    if S * (M + P) == 0:
+        check(k, dev, assigned, torch.int32, (*lead, P))
+    st = _zero_state(lead, S, N, dev)
+    if S * (M + P) == 0 or dom_s.numel() == 0:
         return st
     _build.launch(
-        "tpusched_pair_counts", S, N, M, P, J, IT,
+        "tpusched_pair_counts", lead[0] if lead else 1, S, N, M, P, J, IT,
         *(t.data_ptr() for t in (sig_match, dom_s, running.node_idx,
                                  running.valid, running.anti_sig,
                                  pods.ia_sig, pods.ia_valid, pods.ia_anti,
@@ -523,7 +546,11 @@ def pairwise_batch_plain(snap: ClusterSnapshot, st: PairState,
     """(pair_ok, ts_score, ia_score), each [P, N]: spread_ok & ia_ok, the
     inverse-normalised spread penalty and the min-max-normalised
     inter-pod raw score (per row, over valid nodes); with_ia_ok appends
-    ia_ok alone (inter-pod and symmetric anti-affinity, no spread)."""
+    ia_ok alone (inter-pod and symmetric anti-affinity, no spread). A
+    tenant batch goes tenant by tenant."""
+    if dom_s.dim() == 3:
+        return per_tenant(pairwise_batch_plain, dom_s.shape[0], snap, st,
+                          aff_ok, sig_match, dom_s, with_ia_ok)
     spread_ok, pen, ia_ok, raw = pairwise_from_counts(snap, st, aff_ok,
                                                       sig_match, dom_s)
     nvalid = snap.nodes.valid
@@ -537,43 +564,59 @@ def _pair_term_args(k: str, snap: ClusterSnapshot, aff_ok: torch.Tensor,
                     st: PairState) -> tuple:
     """Check the arguments K4's pairwise variant and K11 share
     (kernels.h: the pairwise block of both entry points, the state's
-    three tensors last)."""
+    three tensors last); a tenant batch has a leading [B] on each."""
     dev = dom_s.device
     pods, nodes = snap.pods, snap.nodes
-    S, N = dom_s.shape
-    P = pods.valid.shape[0]
-    M = snap.running.valid.shape[0]
-    C, IT = pods.ts_sig.shape[1], pods.ia_sig.shape[1]
+    lead = dom_s.shape[:-2]                # () or (B,): the tenant axis
+    S, N = dom_s.shape[-2:]
+    P = pods.valid.shape[-1]
+    M = snap.running.valid.shape[-1]
+    C, IT = pods.ts_sig.shape[-1], pods.ia_sig.shape[-1]
     if C > MAX_C:
         raise ValueError(f"{k}: {C} spread constraints per pod, the kernel "
                          f"takes <= {MAX_C}")
-    check(k, dev, dom_s, torch.int32, (S, N))
-    check(k, dev, sig_match, torch.bool, (S, M + P))
-    check(k, dev, nodes.valid, torch.bool, (N,))
-    check(k, dev, aff_ok, torch.bool, (P, N))
-    check(k, dev, pods.ts_sig, torch.int32, (P, C))
-    check(k, dev, pods.ts_valid, torch.bool, (P, C))
-    check(k, dev, pods.ts_when, torch.int8, (P, C))
-    check(k, dev, pods.ts_max_skew, torch.float32, (P, C))
-    _check_ia_terms(k, dev, pods, P, IT)
-    check(k, dev, pods.ia_weight, torch.float32, (P, IT))
-    _check_state(k, dev, st, S, N)
+    check(k, dev, dom_s, torch.int32, (*lead, S, N))
+    check(k, dev, sig_match, torch.bool, (*lead, S, M + P))
+    check(k, dev, nodes.valid, torch.bool, (*lead, N))
+    check(k, dev, aff_ok, torch.bool, (*lead, P, N))
+    check(k, dev, pods.ts_sig, torch.int32, (*lead, P, C))
+    check(k, dev, pods.ts_valid, torch.bool, (*lead, P, C))
+    check(k, dev, pods.ts_when, torch.int8, (*lead, P, C))
+    check(k, dev, pods.ts_max_skew, torch.float32, (*lead, P, C))
+    _check_ia_terms(k, dev, pods, (*lead, P), IT)
+    check(k, dev, pods.ia_weight, torch.float32, (*lead, P, IT))
+    _check_state(k, dev, st, (*lead, S), N)
     return (S, C, IT, M, dom_s, sig_match, nodes.valid, aff_ok, pods.ts_sig,
             pods.ts_valid, pods.ts_when, pods.ts_max_skew, pods.ia_sig,
             pods.ia_valid, pods.ia_anti, pods.ia_required, pods.ia_weight,
             st.counts, st.anti, st.match_tot)
 
 
-def _check_ia_terms(k: str, dev, pods: PodArrays, P: int, IT: int) -> None:
-    check(k, dev, pods.ia_sig, torch.int32, (P, IT))
+def _check_ia_terms(k: str, dev, pods: PodArrays, rows: tuple,
+                    IT: int) -> None:
+    """rows: the pod axis with its tenant axis, (P,) or (B, P)."""
+    check(k, dev, pods.ia_sig, torch.int32, (*rows, IT))
     for t in (pods.ia_valid, pods.ia_anti, pods.ia_required):
-        check(k, dev, t, torch.bool, (P, IT))
+        check(k, dev, t, torch.bool, (*rows, IT))
 
 
-def _check_state(k: str, dev, st: PairState, S: int, N: int) -> None:
-    check(k, dev, st.counts, torch.float32, (S, N))
-    check(k, dev, st.anti, torch.float32, (S, N))
-    check(k, dev, st.match_tot, torch.float32, (S,))
+def _check_state(k: str, dev, st: PairState, sigs: tuple, N: int) -> None:
+    """sigs: the signature axis with its tenant axis, (S,) or (B, S)."""
+    check(k, dev, st.counts, torch.float32, (*sigs, N))
+    check(k, dev, st.anti, torch.float32, (*sigs, N))
+    check(k, dev, st.match_tot, torch.float32, sigs)
+
+
+def _zero_state(lead: tuple, S: int, N: int, dev) -> PairState:
+    return PairState(
+        counts=torch.zeros((*lead, S, N), dtype=torch.float32, device=dev),
+        anti=torch.zeros((*lead, S, N), dtype=torch.float32, device=dev),
+        match_tot=torch.zeros((*lead, S), dtype=torch.float32, device=dev))
+
+
+def copy_state(st: PairState) -> PairState:
+    return PairState(counts=st.counts.clone(), anti=st.anti.clone(),
+                     match_tot=st.match_tot.clone())
 
 
 def pairwise_batch(snap: ClusterSnapshot, st: PairState,
@@ -584,20 +627,22 @@ def pairwise_batch(snap: ClusterSnapshot, st: PairState,
     if dev.type == "cpu":
         return pairwise_batch_plain(snap, st, aff_ok, sig_match, dom_s,
                                     with_ia_ok)
-    P, N = aff_ok.shape
+    shape = aff_ok.shape                   # (P, N) or (B, P, N)
+    B = shape[0] if len(shape) == 3 else 1
+    P, N = shape[-2:]
     terms = _pair_term_args("pairwise_batch", snap, aff_ok, sig_match,
                             dom_s, st)
-    pair_ok = torch.empty((P, N), dtype=torch.bool, device=dev)
-    ts_score = torch.empty((P, N), dtype=torch.float32, device=dev)
-    ia_score = torch.empty((P, N), dtype=torch.float32, device=dev)
-    ia_ok = (torch.empty((P, N), dtype=torch.bool, device=dev)
+    pair_ok = torch.empty(shape, dtype=torch.bool, device=dev)
+    ts_score = torch.empty(shape, dtype=torch.float32, device=dev)
+    ia_score = torch.empty(shape, dtype=torch.float32, device=dev)
+    ia_ok = (torch.empty(shape, dtype=torch.bool, device=dev)
              if with_ia_ok else None)
     out = (pair_ok, ts_score, ia_score) + ((ia_ok,) if with_ia_ok else ())
-    if P * N == 0:
+    if pair_ok.numel() == 0:
         return out
     _build.launch("tpusched_pairwise_batch",
-                  *ptrs((P, N, *terms, pair_ok, ts_score, ia_score, ia_ok)),
-                  stream_of(dev))
+                  *ptrs((B, P, N, *terms, pair_ok, ts_score, ia_score,
+                         ia_ok)), stream_of(dev))
     pairwise_batch.launches += 1
     if with_ia_ok:
         pairwise_batch.ia_ok_launches += 1
@@ -620,7 +665,11 @@ def pair_commit_plain(snap: ClusterSnapshot, st: PairState,
     commit_mask[p]; the pods are the rows of `snap.pods` (a compacted
     view's too) and sig_match's member columns past the running ones.
     Returns a new state. Every added value is 0 or +-1 and every count
-    an integer below 2**24, so the sums are exact in any order."""
+    an integer below 2**24, so the sums are exact in any order. A tenant
+    batch goes tenant by tenant."""
+    if dom_s.dim() == 3:
+        return per_tenant(pair_commit_plain, dom_s.shape[0], snap, st,
+                          sig_match, dom_s, choice, commit_mask, sign)
     M = snap.running.valid.shape[0]
     S = dom_s.shape[0]
     dev = dom_s.device
@@ -655,28 +704,29 @@ def pair_commit(snap: ClusterSnapshot, st: PairState,
         return pair_commit_plain(snap, st, sig_match, dom_s, choice,
                                  commit_mask, sign)
     pods = snap.pods
-    S, N = dom_s.shape
-    P = pods.valid.shape[0]
-    M = snap.running.valid.shape[0]
-    IT = pods.ia_sig.shape[1]
+    lead = dom_s.shape[:-2]                # () or (B,): the tenant axis
+    S, N = dom_s.shape[-2:]
+    P = pods.valid.shape[-1]
+    M = snap.running.valid.shape[-1]
+    IT = pods.ia_sig.shape[-1]
     k = "pair_commit"
     if sign not in (1.0, -1.0):
         raise ValueError(f"{k}: sign {sign}, want +1 or -1")
-    check(k, dev, dom_s, torch.int32, (S, N))
-    check(k, dev, sig_match, torch.bool, (S, M + P))
-    _check_ia_terms(k, dev, pods, P, IT)
-    check(k, dev, choice, torch.int32, (P,))
-    check(k, dev, commit_mask, torch.bool, (P,))
-    _check_state(k, dev, st, S, N)
-    out = PairState(counts=st.counts.clone(), anti=st.anti.clone(),
-                    match_tot=st.match_tot.clone())
-    if S * P == 0:
+    check(k, dev, dom_s, torch.int32, (*lead, S, N))
+    check(k, dev, sig_match, torch.bool, (*lead, S, M + P))
+    _check_ia_terms(k, dev, pods, (*lead, P), IT)
+    check(k, dev, choice, torch.int32, (*lead, P))
+    check(k, dev, commit_mask, torch.bool, (*lead, P))
+    _check_state(k, dev, st, (*lead, S), N)
+    out = copy_state(st)
+    if S * P == 0 or dom_s.numel() == 0:
         return out
     _build.launch("tpusched_pair_commit",
-                  *ptrs((S, N, M, P, IT, sig_match, dom_s, pods.ia_sig,
-                         pods.ia_valid, pods.ia_anti, pods.ia_required,
-                         choice, commit_mask, int(sign), out.counts,
-                         out.anti, out.match_tot)), stream_of(dev))
+                  *ptrs((lead[0] if lead else 1, S, N, M, P, IT, sig_match,
+                         dom_s, pods.ia_sig, pods.ia_valid, pods.ia_anti,
+                         pods.ia_required, choice, commit_mask, int(sign),
+                         out.counts, out.anti, out.match_tot)),
+                  stream_of(dev))
     pair_commit.launches += 1
     return out
 
@@ -694,7 +744,10 @@ def ia_ok_at_choice_plain(snap: ClusterSnapshot, st: PairState,
     """[P] bool: `pairwise_from_counts(..., exclude_self_node=esn)`'s
     ia_ok at column choice[p], from O(S * P) gathers (JAX
     ia_ok_at_choice). Rows with choice < 0 are evaluated at node 0 and
-    left to the caller to mask."""
+    left to the caller to mask. A tenant batch goes tenant by tenant."""
+    if dom_s.dim() == 3:
+        return per_tenant(ia_ok_at_choice_plain, dom_s.shape[0], snap, st,
+                          sig_match, dom_s, choice, esn)
     pods = snap.pods
     M = snap.running.valid.shape[0]
     P = pods.valid.shape[0]
@@ -743,22 +796,23 @@ def ia_ok_at_choice(snap: ClusterSnapshot, st: PairState,
         return ia_ok_at_choice_plain(snap, st, sig_match, dom_s, choice,
                                      esn)
     pods = snap.pods
-    S, N = dom_s.shape
-    P = pods.valid.shape[0]
-    M = snap.running.valid.shape[0]
-    IT = pods.ia_sig.shape[1]
+    lead = dom_s.shape[:-2]                # () or (B,): the tenant axis
+    S, N = dom_s.shape[-2:]
+    P = pods.valid.shape[-1]
+    M = snap.running.valid.shape[-1]
+    IT = pods.ia_sig.shape[-1]
     k = "ia_ok_at_choice"
-    check(k, dev, dom_s, torch.int32, (S, N))
-    check(k, dev, sig_match, torch.bool, (S, M + P))
-    _check_ia_terms(k, dev, pods, P, IT)
-    _check_state(k, dev, st, S, N)
-    check(k, dev, choice, torch.int32, (P,))
-    check(k, dev, esn, torch.int32, (P,))
-    ok = torch.empty((P,), dtype=torch.bool, device=dev)
-    if P == 0:
+    check(k, dev, dom_s, torch.int32, (*lead, S, N))
+    check(k, dev, sig_match, torch.bool, (*lead, S, M + P))
+    _check_ia_terms(k, dev, pods, (*lead, P), IT)
+    _check_state(k, dev, st, (*lead, S), N)
+    check(k, dev, choice, torch.int32, (*lead, P))
+    check(k, dev, esn, torch.int32, (*lead, P))
+    ok = torch.empty((*lead, P), dtype=torch.bool, device=dev)
+    if ok.numel() == 0:
         return ok
     _build.launch("tpusched_ia_at_choice",
-                  *ptrs((P, N, S, IT, M, dom_s, sig_match, pods.ia_sig,
+                  *ptrs((lead[0] if lead else 1, P, N, S, IT, M, dom_s, sig_match, pods.ia_sig,
                          pods.ia_valid, pods.ia_anti, pods.ia_required,
                          st.counts, st.anti, st.match_tot, choice, esn, ok)),
                   stream_of(dev))

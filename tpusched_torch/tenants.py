@@ -14,12 +14,16 @@ which is a batch axis:
     state while the others go on.
 
 Every tenant's result equals the solo `Engine.solve` of its snapshot bit
-for bit. The batch covers configs 1-2 (no pairwise signatures, gangs or
-preemption) in both modes; the rest is ROADMAP A12b, the mesh A14.
+for bit. The batch covers configs 1-4 in both modes: pairwise signatures
+(topology spread, inter-pod affinity; K4's pairwise variant, K9-K14 and
+the signature rounds, each tenant handing off to compacted rounds at its
+own frontier) and gangs (each tenant's own quorums). Preemption under
+the tenant axis is ROADMAP A12b, ring_counts the mesh's A14.
 
 Alignment requirement: all tenants share identical bucket shapes; build
-them with one explicit `Buckets` floor, with signatures=0 (S is the
-bucket, not the count of real signatures).
+them with one explicit `Buckets` floor (S is the bucket, not the count
+of real signatures: a floor with S > 0 sends every tenant down the
+signature path).
 """
 
 from __future__ import annotations
@@ -79,14 +83,6 @@ def _refuse(cfg: EngineConfig, stacked: ClusterSnapshot) -> None:
     if cfg.preemption:
         raise NotImplementedError(
             "solve_many: preemption under the tenant axis is ROADMAP A12b")
-    if stacked.sigs.key.shape[-1] > 0:
-        raise NotImplementedError(
-            f"solve_many: a bucket of {stacked.sigs.key.shape[-1]} pairwise "
-            "signatures; the tenant axis covers S = 0 (build the tenants "
-            "with signatures=0); pairwise terms are ROADMAP A12b")
-    if bool((stacked.pods.group >= 0).any()):
-        raise NotImplementedError(
-            "solve_many: gangs under the tenant axis are ROADMAP A12b")
 
 
 def solve_many(cfg: EngineConfig, stacked, device=None,
