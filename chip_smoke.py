@@ -167,6 +167,23 @@ package, and
        750 - 12 b groups of 4 on 1 500 - 180 b nodes): both modes, the
        same checks, each tenant's gang audit and rolled-back groups (the
        first tenant none, the last some);
+     - the tenant batches with preemption (th) (eight config-5
+       clusters of 3 000 - 50 b pods on 1 500 nodes under one floor
+       without signatures) and (thp) (the same with spread and inter-pod
+       terms, under one floor with their signatures): parity (first and
+       seeded) and fast, each launching K4's preemption variant (its
+       pairwise one in (thp)) once with one CTA a tenant, or K16, K17,
+       K6 at K = 256 and K18 once a round for all tenants; each tenant
+       equal to its solo solve in all six outputs, valid, and through
+       the preemption audit (usage less victims plus placements in f64;
+       fast: the commit-key audit in both eviction arms, with signatures
+       the victims of each round on nodes its kept bids claimed); a
+       reduced batch (four tenants of 600 x 300) equal to its plain
+       twin, host reads too; K4's preemption variants with 8 CTAs
+       against one tenant's; K16, K17's two entry points, K6 at K = 256
+       and K18 over the tenant axis on (th)'s first auction round
+       against their plain versions, with CUDA-event and profiler
+       times;
      - every fast cell of PR8_FAST keeps PR 8's placed count and host
        reads;
   5. prints per-stage time breakdowns of one steady parity and one
@@ -287,6 +304,15 @@ TENANT_PODS, TENANT_STEP, TENANT_NODES = 3000, 50, 1500
 # four tenants of 600 pods on 300 nodes (the plain pairwise scan at
 # full size would take minutes).
 PAIR_TENANT_SEED, GANG_TENANT_SEED = 70, 80
+# Cells (th) and (thp): the same sidecar serving eight config-5 clusters
+# (BASELINE config 5's shape at (t)'s size). Tenant b is
+# config5_preemption(rng(90 + b), 3000 - 50 b pods, 1500 nodes): nodes
+# 90 % full of eight running pods each, a third under budgets (P = 3 072,
+# N = 2 048, M = 12 288, GP = 8 under the floor); (thp) adds spread and
+# inter-pod terms (seeds 100 + b) under a floor with their signatures.
+# Both modes, parity also seeded; the plain twins on four tenants of 600
+# x 300 (P = 1 024, N = 512, M = 3 072).
+PRE_TENANT_SEED, PRE_PAIR_TENANT_SEED = 90, 100
 GANG_GROUPS, GANG_GROUP_STEP, GANG_NODE_STEP = 750, 12, 180
 REDUCED_TENANTS, REDUCED_PODS, REDUCED_NODES = 4, 600, 300
 # PR 8's fast placed counts and host reads, which the dealing and the
@@ -383,10 +409,9 @@ KERNELS = (
 # Kernels whose counters the main path leaves at 0, and why; each is
 # held against its plain version at full size in the kernel phase.
 OFF_PATH = {
-    "preempt_step": "K15's standalone entry point; the main path runs K15 "
-                    "as a device function inside parity_scan_preempt",
-    "parity_scan_pair_preempt": "no parity cell has both signatures and "
-                                "preemption",
+    "preempt_step": "K15's standalone entry point, solo; the main path runs "
+                    "K15 as a device function inside K4's preemption "
+                    "variants",
 }
 PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                   "parity_scan")
@@ -421,6 +446,9 @@ GANG_PARITY_KERNELS = PARITY_KERNELS + ("node_add",)
 GANG_FAST_KERNELS = FAST_KERNELS + ("node_add",)
 PREEMPT_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                    "parity_scan_preempt")
+PAIR_PREEMPT_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
+                        "sig_match", "pair_counts",
+                        "parity_scan_pair_preempt")
 # Fast mode with preemption: the main rounds, then the auction rounds
 # (K16-K18, K6 at K = 256, the plain commits' node_add).
 AUCTION_KERNELS = ("node_add", "auction_tables", "auction_ok",
@@ -671,7 +699,8 @@ def preempt_audit(name: str, dsnap, res, rounds=None) -> dict:
     if rounds is not None:
         union = np.zeros_like(ev)
         for before, keep, target, after in rounds:
-            new = (after & ~before).cpu().numpy()
+            # The solo rounds run as a batch of one: [1, M] marks.
+            new = (after & ~before).cpu().numpy().reshape(-1)
             claimed = target[keep].cpu().numpy()
             if not np.isin(rnode[new], claimed).all():
                 raise AssertionError(f"{name}: a victim was evicted from a "
@@ -1787,7 +1816,8 @@ def auction_kernel_phase(dsnap, calls: dict) -> dict:
     plain versions on the arguments of their first call (exact), with
     CUDA-event and profiler times and bounds (bytes each input read once,
     each output written once; the tables K17 and K18 gather, only the
-    rows they read)."""
+    rows they read). A tenant batch's calls carry a leading [B] axis; the
+    bounds then count all B tenants' work."""
     out = {}
     for name, plain in AUCTION_PLAIN.items():
         fn, a = calls[name]
@@ -1798,48 +1828,55 @@ def auction_kernel_phase(dsnap, calls: dict) -> dict:
                  plain_ms=cuda_ms(lambda: plain(*a), 3))
         if name == "auction_tables":
             ctx, ev, thr, rem, _ = a
-            L = thr.shape[0]
-            N, V, R = ctx.vreq.shape
+            L = thr.shape[-1]
+            N, V, R = ctx.vreq.shape[-3:]
+            B = ev.numel() // ev.shape[-1]
             # Every lane reads the same victim rows: the table once.
             b = nbytes(ctx.vreq, ctx.vcost, ctx.vprio, ctx.vpdb, ctx.vvalid,
-                       ctx.vidx) + N * V + nbytes(thr, rem, *got)
-            r.update(bound=bound(b, L * N * V * (2 * R + V + 8)),
-                     shape=f"L={L} N={N} V={V} R={R}")
+                       ctx.vidx) + B * N * V + nbytes(thr, rem, *got)
+            r.update(bound=bound(b, B * L * N * V * (2 * R + V + 8)),
+                     shape=f"B={B} L={L} N={N} V={V} R={R}")
         elif name == "auction_ok":
             mask, rows, pair_ok, pre, nvalid = a
-            C, N = got[0].shape
-            b = C * N * (2 if pair_ok is not None else 1) + nbytes(
-                pre, nvalid, *got) + (4 * C if rows is not None else 0)
-            r.update(bound=bound(b, 4 * C * N),
-                     shape=f"C={C} N={N}, {int(got[1].sum())} active")
+            C, N = got[0].shape[-2:]
+            B = pre.numel() // C
+            b = B * C * N * (2 if pair_ok is not None else 1) + nbytes(
+                pre, nvalid, *got) + (4 * B * C if rows is not None else 0)
+            r.update(bound=bound(b, 4 * B * C * N),
+                     shape=f"B={B} C={C} N={N}, {int(got[1].sum())} active")
         elif name == "auction_rank":
             cum_req, cum_cost, cum_viol, lane, ok, used, alloc, p_req = a
-            L, N, V, R = cum_req.shape
-            C = lane.shape[0]
+            L, N, V, R = cum_req.shape[-4:]
+            C = lane.shape[-1]
+            B = lane.numel() // C
             b = nbytes(*a, *got)
             steps = max(1, V.bit_length())
-            r.update(bound=bound(b, C * N * (2 * R * (steps + 3) + 8)),
-                     shape=f"C={C} N={N} L={L} V={V} R={R}, "
+            r.update(bound=bound(b, B * C * N * (2 * R * (steps + 3) + 8)),
+                     shape=f"B={B} C={C} N={N} L={L} V={V} R={R}, "
                            f"{int(torch.isfinite(got[0]).sum())} bids")
         elif name == "row_topk_k256":
             masked, K = a[0], a[1]
-            C, N = masked.shape
-            r.update(bound=bound(nbytes(masked, *got[:2]), C * N),
+            N = masked.shape[-1]
+            rows = masked.numel() // N
+            r.update(bound=bound(nbytes(masked, *got[:2]), rows * N),
                      library="torch.topk",
-                     library_ms=cuda_ms(lambda: torch.topk(masked, K, dim=1),
+                     library_ms=cuda_ms(lambda: torch.topk(masked, K, dim=-1),
                                         20),
-                     shape=f"C={C} N={N} K={K}")
+                     shape=f"{rows} rows, N={N} K={K}")
         elif name == "auction_claim":
             topv, topi, can_plain, n_plain, rank, ctx = a[:6]
             p_prio, p_req, could = a[7], a[8], a[11]
             iters = kpre.CLAIM_ITERS
-            C, K = topi.shape
-            N, V, R = ctx.vreq.shape
-            row = ctx.vreq[0].numel() * 4 + V * (4 + 4 + 1 + 4 + 1)
+            C, K = topi.shape[-2:]
+            N, V, R = ctx.vreq.shape[-3:]
+            B = can_plain.numel() // C
+            row = ctx.vreq[..., 0, :, :].numel() // B * 4 + V * (
+                4 + 4 + 1 + 4 + 1)
             b = nbytes(topv, topi, can_plain, n_plain, rank, p_prio, p_req,
-                       could, *got) + C * (row + 2 * R * 4)
-            r.update(bound=bound(b, iters * C * K * 3 + C * V * (R + 4)),
-                     shape=f"C={C} K={K} N={N} V={V} iters={iters}, "
+                       could, *got) + B * C * (row + 2 * R * 4)
+            r.update(bound=bound(b, B * (iters * C * K * 3
+                                         + C * V * (R + 4))),
+                     shape=f"B={B} C={C} K={K} N={N} V={V} iters={iters}, "
                            f"{int(got[1].sum())} claimed, "
                            f"{int(got[2].sum())} to evict")
         out[name] = r
@@ -2960,6 +2997,126 @@ def gang_tenant_phase(smi: str) -> dict:
                        hook=gang_hook)
 
 
+def pre_tenant_cells(n: int, pods: int, step: int, nodes: int, seed: int,
+                     **kw) -> list:
+    """Cell (th)'s (or, with PRE_PAIR, (thp)'s) tenants:
+    config5_preemption(rng(seed + b), pods - step b, nodes) under one
+    floor."""
+    return floored(lambda b, **x: config5_preemption(
+        np.random.default_rng(seed + b), pods - step * b, nodes, **kw, **x),
+        n)
+
+
+def preempt_hook(name: str, cfg, b: int, dsnap, res) -> str:
+    """Tenant b's preemption audit: its usage less its victims plus its
+    placements in f64, victims only where its preempted pods landed (fast
+    with signatures: on nodes its round's kept eviction bids claimed, from
+    the per-round marks and claims of its solo solve, run again); in fast
+    mode also the commit-key audit in both eviction arms. At least one
+    eviction a tenant."""
+    tag = f"{name} tenant {b}"
+    pair = dsnap.sigs.key.shape[-1] > 0
+    fast = cfg.mode == "fast"
+    rounds = None
+    if fast and pair:
+        claims = []
+
+        def rec(*a):
+            out = kpre.auction_claim(*a)
+            claims.append(out[0].clone())
+            return out
+
+        ops = dataclasses.replace(kassign.KERNELS, auction_claim=rec)
+        _, evs = with_recorded(lambda: solve_core(cfg, dsnap, ops=ops),
+                               kassign, "_evict_round")
+        rounds = [(a[0], a[2], t, out) for (a, out), t in zip(evs, claims)]
+    info = preempt_audit(tag, dsnap, res, rounds)
+    if info["evicted"] < 1:
+        raise AssertionError(f"{tag}: no victim evicted")
+    note = (f"tenant {b}: {info['evicted']} evicted, {info['preempted']} "
+            "placed by preemption")
+    if fast:
+        static = kassign.precompute_static(cfg, dsnap, *_sat_tables(dsnap))
+        ck = commit_key_audit(tag, dsnap, res, static,
+                              kpair.sig_domains(dsnap), res.evicted)
+        if pair:
+            note += (f", commit keys clean in both eviction arms "
+                     f"({ck['commit_key_checked']} pods over {ck['keys']} "
+                     f"keys, {ck.get('one_arm_only', 0)} one-arm checks), "
+                     f"{info['stranded']} stranded victims")
+    return note
+
+
+def pre_tenant_phase(smi: str, pair: bool) -> tuple[dict, dict]:
+    """Cell (th), or with pair (thp): `solve_many` with preemption over
+    eight config-5 tenants in parity mode (first and seeded) and fast
+    mode (`batch_cells` with `preempt_hook`; the plain twin on the
+    reduced batch); K4's preemption variant (its pairwise one in (thp))
+    with 8 CTAs against one tenant's; in (th) the auction kernels over
+    the tenant axis on its first auction round against their plain
+    versions. Returns (the phase's launch counts, the kernel rows)."""
+    label = "thp" if pair else "th"
+    seed = PRE_PAIR_TENANT_SEED if pair else PRE_TENANT_SEED
+    kw = PRE_PAIR if pair else {}
+    t0 = time.perf_counter()
+    built = pre_tenant_cells(TENANTS, TENANT_PODS, TENANT_STEP, TENANT_NODES,
+                             seed, **kw)
+    snaps = [s for s, _ in built]
+    dstack = stack_snapshots(snaps).to("cuda")
+    reduced = stack_snapshots([s for s, _ in pre_tenant_cells(
+        REDUCED_TENANTS, REDUCED_PODS, 0, REDUCED_NODES, seed,
+        **kw)]).to("cuda")
+    B, P = dstack.pods.valid.shape
+    N = dstack.nodes.valid.shape[1]
+    bk = built[0][1].buckets
+    log(f"tenant snapshots ({label}) built, stacked and put on the card: "
+        f"{time.perf_counter() - t0:.3f} s; B={B} P={P} N={N} "
+        f"M={bk.running_pods} GP={bk.pdb_groups} S={bk.signatures}; "
+        f"{sum(m.n_pods for _, m in built)} pods and "
+        f"{sum(m.n_running for _, m in built)} running pods on "
+        f"{sum(m.n_nodes for _, m in built)} nodes; the reduced batch "
+        f"B={reduced.pods.valid.shape[0]} P={reduced.pods.valid.shape[1]} "
+        f"N={reduced.nodes.valid.shape[1]} "
+        f"M={reduced.running.valid.shape[1]}")
+    cfg_p = EngineConfig(mode="parity", preemption=True)
+    cfg_f = EngineConfig(mode="fast", preemption=True)
+    parity_k = PAIR_PREEMPT_KERNELS if pair else PREEMPT_KERNELS
+    cells = ((f"{label} parity", cfg_p, parity_k, ONCE, (), True),
+             (f"{label} parity seeded", dataclasses.replace(
+                 cfg_p, tie_break="seeded", tie_seed=SEED), parity_k, ONCE,
+              (), False),
+             (f"{label} fast", cfg_f,
+              FAST_PREEMPT_PAIR_KERNELS if pair else FAST_PREEMPT_KERNELS,
+              FAST_PAIR_ONCE if pair else ONCE, OPTIONAL, True))
+    launches = batch_cells(cells, snaps, dstack, smi, reduced=reduced,
+                           hook=preempt_hook)
+    static = kassign.precompute_static(cfg_p, dstack, *_sat_tables(dstack))
+    order = kassign.pop_order(cfg_p, dstack)
+    pctx = kpre.precompute(cfg_p, dstack)
+    if pair:
+        dom_s = kpair.sig_domains(dstack)
+        st = kpair.pair_counts(static.sig_match, dom_s, dstack.running,
+                               dstack.pods)
+        fn, args = kassign.parity_scan_pair_preempt, (
+            cfg_p, dstack, static, order, st, dom_s, pctx)
+    else:
+        fn, args = kassign.parity_scan_preempt, (cfg_p, dstack, static,
+                                                 order, pctx)
+    one = tuple(a.tenant(0) if hasattr(a, "tenant") else
+                a[0] if isinstance(a, torch.Tensor) else a for a in args)
+    k4_batch = cuda_ms(lambda: fn(*args), 3)
+    k4_solo = cuda_ms(lambda: fn(*one), 3)
+    log(f"K4's {'pairwise ' if pair else ''}preemption variant over the "
+        f"tenant axis ({label}): {B} CTAs {k4_batch:.3f} ms, one tenant "
+        f"{k4_solo:.3f} ms (x{B} = {B * k4_solo:.3f} ms); {smi}")
+    rows = {}
+    if not pair:
+        rows = auction_kernel_phase(dstack, first_auction_calls(cfg_f,
+                                                                dstack))
+        log_rows(rows, "(th)'s first auction round", smi)
+    return launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port "
@@ -3197,14 +3354,16 @@ def main() -> int:
     kp.update(kp_warm)
 
     # -- the device queue (q), decision provenance (x), the tenant batches
-    # (t), (tp) and (tg) ---------------------------------------------------
+    # (t), (tp), (tg), (th) and (thp) --------------------------------------
     # A row of a kernel already measured above keeps its numbers; the
     # phase's comparison joins its max_abs_err.
     for phase in (lambda: queue_phase(smi),
                   lambda: explain_phase(snap_h, snap_d, smi),
                   lambda: tenant_phase(smi),
                   lambda: pair_tenant_phase(smi),
-                  lambda: (gang_tenant_phase(smi), {})):
+                  lambda: (gang_tenant_phase(smi), {}),
+                  lambda: pre_tenant_phase(smi, False),
+                  lambda: pre_tenant_phase(smi, True)):
         phase_counts, rows = phase()
         for k, v in phase_counts.items():
             launches[k] += v

@@ -9,8 +9,9 @@ multiply-add once, as the plain version and the numpy oracle do; K22
 sums the six terms left to right, as its plain version does; K23's
 prefixes take _scan_plain's Hillis-Steele order and its searches
 torch.searchsorted's bisection; K24's counts are integers). The tenant
-axis of K1-K8 and the batch (`solve_many`) are held the same way, and
-each tenant against its solo solve.
+axis of K1-K18 (K4's pairwise and preemption variants included) and the
+batch (`solve_many`, with signatures, gangs and preemption) are held the
+same way, and each tenant against its solo kernel call and solve.
 
 These tests need a CUDA device and nvcc: without a card each one skips.
 The file imports nothing of JAX, so that it runs where the port runs:
@@ -1126,3 +1127,112 @@ def test_solve_many_signatures_gangs_on_the_card(cuda, mode, kind):
             np.testing.assert_array_equal(ev, res.evicted)
             assert int(rounds) == res.rounds
         eng.close()
+
+
+# -- the tenant axis with preemption (config 5) -------------------------------
+
+
+def _pre_tenants(cuda, pair: bool, B=3):
+    """B config-5 tenants of different sizes (with spread and inter-pod
+    terms when pair) under one floor."""
+    kw = dict(spread_frac=0.4, interpod_frac=0.4, run_anti_frac=0.2) \
+        if pair else {}
+    snaps, stacked = _floored(lambda b, **x: tsynth.config5_preemption(
+        np.random.default_rng(45 + b), 96 - 8 * b, 16 - 2 * b, **kw, **x), B)
+    return snaps, stacked.to(cuda)
+
+
+def _first_auction(cfg, snap):
+    """The arguments of the first call of K17's two entry points, K16 and
+    K18 in a fast solve (K6 ranks the rows K17 wrote)."""
+    calls = {}
+
+    def rec(name):
+        fn = getattr(ka.KERNELS, name)
+
+        def wrapped(*a):
+            calls.setdefault(name, tuple(x.clone() if isinstance(
+                x, torch.Tensor) else x for x in a))
+            return fn(*a)
+        return wrapped
+
+    names = ("auction_ok", "auction_tables", "auction_rank", "auction_claim")
+    ops = dataclasses.replace(ka.KERNELS, **{n: rec(n) for n in names})
+    solve_core(cfg, snap, ops=ops)
+    return calls
+
+
+def _tenant_of(x, t):
+    if isinstance(x, torch.Tensor):
+        return x[t]
+    return x.tenant(t) if hasattr(x, "tenant") else x
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_preempt_tenant_axis_equal_plain(cuda, B):
+    """K4's two preemption variants (K15 inside), K16, K17's two entry
+    points and K18 over B tenants in one launch each, against their plain
+    versions (tenant by tenant), on the arguments the batch gives them;
+    each tenant's slice equals the solo kernel call on that tenant."""
+    for pair in (False, True):
+        snaps, snap = _pre_tenants(cuda, pair, B)
+        cfg = EngineConfig(preemption=True)
+        ctx = kpre.precompute(cfg, snap)
+        order = ka.pop_order(cfg, snap)
+        if pair:
+            static, dom, st = _pair_setup(cfg, snap)
+            args = (cfg, snap, static, order, st, dom, ctx)
+            fn, plain = ka.parity_scan_pair_preempt, \
+                ka.parity_scan_pair_preempt_plain
+            flat = lambda r: [*r[:3], *_state(r[3]), r[4]]  # noqa: E731
+        else:
+            static = _static(cfg, snap)
+            args = (cfg, snap, static, order, ctx)
+            fn, plain = ka.parity_scan_preempt, ka.parity_scan_preempt_plain
+            flat = list
+        got = flat(fn(*args))
+        _equal(got, flat(plain(*args)))
+        assert got[-1].any(dim=-1).all()
+        for t in range(B):
+            one = flat(fn(*(_tenant_of(a, t) for a in args)))
+            _equal([g[t] for g in got], one)
+        fcfg = EngineConfig(mode="fast", preemption=True)
+        calls = _first_auction(fcfg, snap)
+        plains = {"auction_ok": kpre.auction_ok_plain,
+                  "auction_tables": kpre.auction_tables_plain,
+                  "auction_rank": kpre.auction_rank_plain,
+                  "auction_claim": kpre.auction_claim_plain}
+        for name, a in calls.items():
+            fn = getattr(kpre, name)
+            got = fn(*a)
+            _equal(got, plains[name](*a))
+            for t in range(B):
+                _equal([g[t] for g in got],
+                       fn(*(_tenant_of(x, t) for x in a)))
+        assert calls["auction_claim"][0].shape[0] == B
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_solve_many_preemption_on_the_card(cuda, mode, pair):
+    """The batch with preemption (S = 0, and with signatures) on the card
+    equals its plain-version twin, host reads included, and each tenant
+    its solo solve on the card; every tenant evicts."""
+    snaps, stacked = _pre_tenants(cuda, pair)
+    cfg = EngineConfig(mode=mode, preemption=True)
+    s1, s2 = ka.RoundStats(), ka.RoundStats()
+    got = solve_many(cfg, stacked, stats=s1)
+    _equal(got, solve_many(cfg, stacked, ops=ka.PLAIN, stats=s2))
+    assert s1.host_reads == s2.host_reads
+    assert got[5].any(dim=-1).all()
+    eng = Engine(cfg)
+    for b, snap in enumerate(snaps):
+        res = eng.solve(snap)
+        a, c, u, o, rounds, ev = (t[b].cpu().numpy() for t in got)
+        np.testing.assert_array_equal(a, res.assignment)
+        np.testing.assert_array_equal(c, res.chosen_score)
+        np.testing.assert_array_equal(u, res.final_used)
+        np.testing.assert_array_equal(o, res.order)
+        np.testing.assert_array_equal(ev, res.evicted)
+        assert int(rounds) == res.rounds
+    eng.close()

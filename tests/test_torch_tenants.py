@@ -14,8 +14,8 @@ CPU, where every kernel wrapper runs its plain version.
     (the commit adds' order, ROADMAP C6);
 and the tranche loop, uneven tenants (one with no valid pod, one with
 no placeable pod, tenants that finish at different rounds), the
-refusals, stacking, `zipf_weights` and the moved plain versions of the
-dealing (K23) and the tranche pick (K24).
+ring_counts refusal, stacking, `zipf_weights` and the moved plain
+versions of the dealing (K23) and the tranche pick (K24).
 
 With pairwise signatures and gangs (configs 3-4) the batch is held to
   * each tenant's solo solve, bit for bit in all six outputs, in both
@@ -30,6 +30,20 @@ With pairwise signatures and gangs (configs 3-4) the batch is held to
   * JAX's signature rounds at compact_cap = 4 with tenants that hand
     off to the compacted rounds at different rounds, the batch reading
     one flag vector a loop step.
+
+With preemption and PodDisruptionBudgets (config 5) the batch is held to
+  * each tenant's solo solve, bit for bit in all six outputs, in both
+    modes (and both tie-breaks without signatures), with and without
+    signatures, with gangs (whose members never preempt), and for
+    uneven tenants (no valid running pod, spent budgets, a tenant with
+    nothing to preempt; per-tenant round caps);
+  * the JAX package's `solve_many` on the two probed shapes: parity
+    assignment, order, evicted and rounds exactly, chosen at rtol 1e-4
+    / atol 1e-3 (ROADMAP C1), used at rtol 1e-5; fast, after each solo
+    solve is shown equal to JAX's, assignment, evicted and rounds
+    exactly and used at rtol 1e-6 (ROADMAP C6);
+and the batched victim tables, thresholds and budget gate equal their
+solo calls tenant by tenant.
 
 Tenants are built under one explicit `Buckets` floor; the signature
 bucket, not the count of real signatures, decides the path (the
@@ -58,6 +72,7 @@ from tpusched_torch import tenants as ttenants
 from tpusched_torch.config import Buckets
 from tpusched_torch.engine import _sat_tables
 from tpusched_torch.kernels import assign as tassign
+from tpusched_torch.kernels import preempt as tpre
 from tpusched_torch.snapshot import snapshot_from_numpy
 
 MIX = dict(taint_frac=0.3, toleration_frac=0.3, affinity_frac=0.3,
@@ -276,18 +291,12 @@ def test_uneven_tranches_freeze_finished_tenants():
     assert stats.host_reads >= solo_reads
 
 
-@pytest.mark.parametrize("what", ["preemption", "ring_counts"])
+@pytest.mark.parametrize("what", ["ring_counts"])
 def test_refusals(what):
-    cfg = EngineConfig()
     snaps = _port_tenants(2)
-    if what == "preemption":
-        cfg = EngineConfig(preemption=True)
-        match = "A12b"
-    else:
-        cfg = EngineConfig(ring_counts=True)
-        match = "A14"
-    with pytest.raises(NotImplementedError, match=match):
-        solve_many(cfg, stack_snapshots(snaps), device="cpu")
+    with pytest.raises(NotImplementedError, match="A14"):
+        solve_many(EngineConfig(**{what: True}), stack_snapshots(snaps),
+                   device="cpu")
 
 
 # -- pairwise signatures and gangs (configs 3-4) ------------------------------
@@ -576,3 +585,268 @@ def test_top_by_rank_plain_is_the_moved_pick(C):
         np.testing.assert_array_equal(buf[b].numpy(), ref[:C])
     solo = tassign.top_by_rank_plain(pend[0], order[0], C)
     assert torch.equal(solo[0], buf[0])
+
+
+# -- preemption with PodDisruptionBudgets (config 5) --------------------------
+
+
+def _pre_tenants(n=3, seed=900, **kw):
+    """Config-5 tenants of 40 + 8 b pods on 12 nodes (seeds seed + b)
+    under their elementwise-max floor: nodes 90 % full of running pods, a
+    third of them under budgets."""
+    return _floored(lambda b, **x: tsynth.config5_preemption(
+        np.random.default_rng(seed + b), 40 + 8 * b, 12, **kw, **x), n)
+
+
+def _jax_pre_tenants(pairwise):
+    """The two shapes probed against JAX's solve_many: the pairwise
+    config-5 tenants (seeds 900 + b, S = 4, M = 128 floor), or ROADMAP
+    A1's tight tenants without signatures (seeds 500 + b under
+    Buckets(pods=64, nodes=16, running_pods=256))."""
+    if pairwise:
+        return _floored(lambda b, **x: jsynth.config5_preemption(
+            np.random.default_rng(900 + b), 40 + 8 * b, 12, spread_frac=0.3,
+            interpod_frac=0.3, **x), 3, JBuckets)
+    bk = JBuckets(pods=64, nodes=16, running_pods=256)
+    return [jsynth.make_cluster(
+        np.random.default_rng(500 + b), 40 + 8 * b, 12,
+        initial_utilization=0.9, n_running_per_node=8, pdb_frac=0.3,
+        tight_utilization=True, buckets=bk)[0] for b in range(3)]
+
+
+def _fast_reads(stats, solos):
+    reads = [r.host_reads for r in solos]
+    assert max(reads) <= stats.host_reads < sum(reads), (stats.host_reads,
+                                                         reads)
+
+
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_preempt_batch_equals_solo_solves(mode, tie_break):
+    """Three config-5 tenants (K4's preemption variant with one CTA a
+    tenant; the fast auction rounds with K16-K18 over the tenant axis):
+    each is its solo solve, bit for bit in all six outputs, and each
+    evicts; a fast batch reads no fewer flags than the longest solo
+    solve and fewer than the solo solves together."""
+    cfg = EngineConfig(mode=mode, tie_break=tie_break, tie_seed=7,
+                       preemption=True)
+    snaps = _pre_tenants()
+    stats = tassign.RoundStats()
+    out = solve_many(cfg, stack_snapshots(snaps), device="cpu", stats=stats)
+    solos = _solo_equal(cfg, snaps, out)
+    assert all(r.evicted.any() for r in solos)
+    if mode == "fast":
+        _fast_reads(stats, solos)
+        assert len(stats.preempt_rounds) == 3
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_pairwise_preempt_batch_equals_solo_solves(mode):
+    """The pairwise config-5 tenants (S = 4 floor): K4's pairwise
+    preemption variant with one CTA a tenant; the fast rounds' pairwise
+    fixpoint per tenant. Each tenant is its solo solve."""
+    cfg = EngineConfig(mode=mode, preemption=True)
+    snaps = _pre_tenants(spread_frac=0.3, interpod_frac=0.3)
+    assert snaps[0].sigs.key.shape[0] > 0
+    stats = tassign.RoundStats()
+    out = solve_many(cfg, stack_snapshots(snaps), device="cpu", stats=stats)
+    solos = _solo_equal(cfg, snaps, out)
+    assert all(r.evicted.any() for r in solos)
+    if mode == "fast":
+        _fast_reads(stats, solos)
+
+
+def _pre_matches_jax(mode, pairwise):
+    jcfg = JConfig(mode=mode, preemption=True)
+    cfg = EngineConfig(mode=mode, preemption=True)
+    jsnaps = _jax_pre_tenants(pairwise)
+    snaps = [jax.device_get(s) for s in jsnaps]
+    if mode == "fast":
+        jeng = JEngine(jcfg)
+        teng = Engine(cfg, device="cpu")
+        try:
+            for b, (js, s) in enumerate(zip(jsnaps, snaps)):
+                np.testing.assert_array_equal(
+                    teng.solve(snapshot_from_numpy(s)).assignment,
+                    jeng.solve(js).assignment, f"solo tenant {b}")
+        finally:
+            jeng.close()
+            teng.close()
+    ja, jc, ju, jo, jr, jev = _jax_batch(jcfg, jsnaps)
+    a, c, u, o, rounds, ev = _np(solve_many(cfg, stack_snapshots(snaps),
+                                            device="cpu"))
+    np.testing.assert_array_equal(a, ja)
+    np.testing.assert_array_equal(ev, jev)
+    np.testing.assert_array_equal(rounds, jr)
+    assert ev.any(axis=1).all()
+    if mode == "parity":
+        np.testing.assert_array_equal(o, jo)
+        np.testing.assert_allclose(u, ju, rtol=1e-5)
+        np.testing.assert_allclose(np.nan_to_num(c, neginf=-1.0),
+                                   np.nan_to_num(jc, neginf=-1.0),
+                                   rtol=1e-4, atol=1e-3)
+    else:
+        np.testing.assert_allclose(u, ju, rtol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_preempt_batch_matches_jax(mode):
+    """ROADMAP A1's tight config-5 tenants without signatures against
+    JAX's solve_many_jit (placed 38 / 47 / 56 in parity)."""
+    _pre_matches_jax(mode, pairwise=False)
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_pairwise_preempt_batch_matches_jax(mode):
+    """The pairwise config-5 tenants against JAX's solve_many_jit."""
+    _pre_matches_jax(mode, pairwise=True)
+
+
+def _uneven_pre():
+    """Four config-5 tenants: a contended one; one with no valid running
+    pod (in the M > 0 bucket); one whose budgets are all spent; one with
+    room for every pod (its preemption loop ends at once)."""
+    base = _pre_tenants(4, seed=930)
+    norun = dataclasses.replace(base[1], running=dataclasses.replace(
+        base[1].running, valid=torch.zeros_like(base[1].running.valid)))
+    spent = dataclasses.replace(
+        base[2], pdb_allowed=torch.zeros_like(base[2].pdb_allowed))
+    nodes = base[3].nodes
+    roomy = dataclasses.replace(base[3], nodes=dataclasses.replace(
+        nodes, allocatable=nodes.allocatable * 8.0))
+    assert base[2].pdb_allowed.sum() > 0
+    return [base[0], norun, spent, roomy]
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_preempt_uneven_tenants(mode, monkeypatch):
+    """Uneven config-5 tenants: each is its solo solve in all six
+    outputs (a tenant's spent budgets never gate another's bids, a
+    tenant without victims evicts nothing). In fast mode their auction
+    loops end at different rounds; with the round cap at 2 (in this test
+    only) the contended tenant hits it while the roomy one has ended
+    after one round, and each still equals its solo solve under that
+    cap: a finished tenant's state did not move after its last round."""
+    cfg = EngineConfig(mode=mode, preemption=True)
+    snaps = _uneven_pre()
+    stats = tassign.RoundStats()
+    out = solve_many(cfg, stack_snapshots(snaps), device="cpu", stats=stats)
+    solos = _solo_equal(cfg, snaps, out)
+    assert not solos[1].evicted.any() and solos[0].evicted.any()
+    assert solos[2].evicted.any()
+    if mode == "parity":
+        return
+    rounds = stats.preempt_rounds
+    assert rounds[3] == 1 and len(set(rounds)) > 2, rounds
+    monkeypatch.setattr(tassign, "_PREEMPT_MAX_ROUNDS", 2)
+    stats = tassign.RoundStats()
+    out = solve_many(cfg, stack_snapshots(snaps), device="cpu", stats=stats)
+    assert stats.preempt_rounds[0] == 2 and stats.preempt_rounds[3] == 1
+    capped = _solo_equal(cfg, snaps, out)
+    assert (capped[0].assignment >= 0).sum() < (
+        solos[0].assignment >= 0).sum()
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_gang_preempt_batch_equals_solo_solves(mode):
+    """Config-5 tenants with gangs of 3 (half the pods): gang members
+    never preempt (no gang member is placed with chosen = -inf), groups
+    that cannot place all their members roll back per tenant, and each
+    tenant is its solo solve in all six outputs."""
+    cfg = EngineConfig(mode=mode, preemption=True)
+    snaps = _pre_tenants(seed=960, gang_frac=0.5, gang_size=3)
+    out = solve_many(cfg, stack_snapshots(snaps), device="cpu")
+    solos = _solo_equal(cfg, snaps, out)
+    for snap, res in zip(snaps, solos):
+        preempted = (res.assignment >= 0) & ~np.isfinite(res.chosen_score)
+        assert not (snap.pods.group.numpy()[preempted] >= 0).any()
+    assert any(r.evicted.any() for r in solos)
+    assert sum(_rolled(cfg, s) for s in snaps) > 0
+
+
+def _batch_and_solos(snaps):
+    stacked = stack_snapshots(snaps)
+    return stacked, [stacked.tenant(b) for b in range(len(snaps))]
+
+
+def test_precompute_over_tenants_equals_solo():
+    """The victim order (parity) and the node-major victim table (fast)
+    of a batch are each tenant's own, bit for bit; so are the budgets
+    left after an eviction mask and K15's interleaved layout."""
+    cfg = EngineConfig(preemption=True)
+    stacked, solos = _batch_and_solos(_uneven_pre())
+    ctx = tpre.precompute(cfg, stacked)
+    nv = tpre.precompute_nv(cfg, stacked, tassign._PREEMPT_VICTIM_CAP)
+    rng = np.random.default_rng(3)
+    ev = torch.from_numpy(rng.random(stacked.running.valid.shape) < 0.3)
+    rem = tpre.pdb_remaining(stacked, ev)
+    for b, snap in enumerate(solos):
+        for got, want in ((ctx.tenant(b), tpre.precompute(cfg, snap)),
+                          (nv.tenant(b), tpre.precompute_nv(
+                              cfg, snap, tassign._PREEMPT_VICTIM_CAP))):
+            for g, w in zip(got.leaves(), want.leaves()):
+                assert torch.equal(g, w), f"tenant {b}"
+        assert torch.equal(rem[b], tpre.pdb_remaining(snap, ev[b]))
+        for x, fill in ((ctx.req_s, 0.0), (ctx.perm, 0)):
+            assert torch.equal(tpre.interleave(x, fill, 1)[b],
+                               tpre.interleave(x[b], fill))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_prio_thresholds_over_tenants_equal_solo(seed):
+    """Each tenant's thresholds are the quantiles of its own active
+    bidders (NaN for a tenant with none), and its buckets follow them."""
+    rng = np.random.default_rng(seed)
+    B, C = 4, 37
+    prio = torch.from_numpy(rng.normal(50, 20, (B, C)).astype(np.float32))
+    prio[:, :5] = prio[:, 5:10]                       # ties
+    active = torch.from_numpy(rng.random((B, C)) < 0.5)
+    active[1] = False
+    active[2, 1:] = False
+    thr = tpre.prio_thresholds(prio, active)
+    lane = tpre.bucket_of(thr, prio)
+    assert torch.isnan(thr[1]).all()
+    for b in range(B):
+        want = tpre.prio_thresholds(prio[b], active[b])
+        np.testing.assert_array_equal(thr[b].numpy(), want.numpy())
+        assert torch.equal(lane[b], tpre.bucket_of(want, prio[b]))
+
+
+@pytest.mark.parametrize("pairwise", [False, True])
+def test_auction_round_over_tenants_equals_solo(pairwise, monkeypatch):
+    """The first auction round of a fast batch: preempt_auction (K17's
+    two entry points, K16, K6 at K = 256 and K18 over the tenant axis),
+    the budget gate and the eviction marks on its claims each give every
+    tenant its solo call's outputs, bit for bit."""
+    kw = dict(spread_frac=0.3, interpod_frac=0.3) if pairwise else {}
+    stacked, solos = _batch_and_solos(_pre_tenants(**kw))
+    calls = []
+    real = tpre.preempt_auction
+
+    def auction(*a, **k):
+        out = real(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    monkeypatch.setattr(tpre, "preempt_auction", auction)
+    solve_many(EngineConfig(mode="fast", preemption=True), stacked,
+               device="cpu")
+    a, k, out = calls[0]
+    claimed, usage = out[1], out[5]
+    assert claimed.any(dim=-1).all() and usage.any()
+    rng = np.random.default_rng(5)
+    evicted = torch.from_numpy(rng.random(stacked.running.valid.shape) < 0.2)
+    keep = tassign._budget_gate(stacked, evicted, claimed, usage)
+    marks = tassign._evict_round(evicted, out[3], keep & out[2])
+    for b, snap in enumerate(solos):
+        pick = lambda x: (x.tenant(b) if hasattr(x, "tenant") else  # noqa
+                          x[b] if isinstance(x, torch.Tensor) else x)
+        want = real(*(pick(x) for x in a),
+                    **{n: pick(v) for n, v in k.items()})
+        for g, w in zip(out, want):
+            assert torch.equal(g[b], w), f"tenant {b}"
+        solo_keep = tassign._budget_gate(snap, evicted[b], claimed[b],
+                                         usage[b])
+        assert torch.equal(keep[b], solo_keep), f"tenant {b}"
+        assert torch.equal(marks[b], tassign._evict_round(
+            evicted[b], out[3][b], solo_keep & out[2][b]))

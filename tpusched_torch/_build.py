@@ -71,15 +71,15 @@ SIGNATURES = {
     "tpusched_excess_min": [_I] * 4 + [_P] * 7,
     "tpusched_excess_survive": [_I, _I] + [_P] * 7,
     "tpusched_preempt_step": [_I] * 4 + [_P] * 7 + [_F] + [_P] * 15,
-    "tpusched_parity_scan_preempt": [_I, _I, _I] + [_P] * 10 + [_I, _U]
+    "tpusched_parity_scan_preempt": [_I] * 4 + [_P] * 10 + [_I, _U]
                                     + _PREEMPT + [_P] * 6,
-    "tpusched_parity_scan_pair_preempt": [_I, _I, _I] + [_P] * 10
+    "tpusched_parity_scan_pair_preempt": [_I] * 4 + [_P] * 10
                                          + [_I, _U] + [_I] * 4 + [_P] * 19
                                          + _PREEMPT + [_P] * 6,
-    "tpusched_auction_tables": [_I] * 6 + [_P] * 9 + [_F] + [_P] * 4,
-    "tpusched_auction_ok": [_I, _I] + [_P] * 8,
-    "tpusched_auction_rank": [_I] * 5 + [_P] * 11,
-    "tpusched_auction_claim": [_I] * 8 + [_P] * 16 + [_F] + [_P] * 8,
+    "tpusched_auction_tables": [_I] * 7 + [_P] * 9 + [_F] + [_P] * 4,
+    "tpusched_auction_ok": [_I] * 4 + [_P] * 8,
+    "tpusched_auction_rank": [_I] * 6 + [_P] * 11,
+    "tpusched_auction_claim": [_I] * 9 + [_P] * 16 + [_F] + [_P] * 8,
     "tpusched_capacity_prefix_keep": [_I] * 3 + [_P] * 7,
     "tpusched_frontier_closure": [_I] * 3 + [_P] * 11,
     "tpusched_explain_cells": [_I] * 6 + [_P] * 16 + [_I] * 3 + [_P] * 25,

@@ -45,6 +45,16 @@
 // sum (the freed capacity, the value the fit was tested with) and its
 // evictions per budget. Bound: latency (iters block barriers and the
 // [C, K] candidate walks).
+//
+// Tenant axis (tpusched/tenants.py:75 solve_many, JAX's vmap of
+// _preempt_rounds): each entry point takes B first and every array gains
+// a leading [B] axis. K16 runs B * L * N threads, tenant b's cells
+// reading its own victim table, evictions, lanes and budgets; K17 runs
+// B * C rows, row b * C + c reading tenant b's mask rows (rows index its
+// own [Pm, N]), lane tables, usage and capacity; K18 runs one CTA a
+// tenant (grid B, 5 * N bytes of shared memory each, C <= 1024 a
+// tenant), offsetting every array to its tenant in the TENANTS
+// instantiation, launched for B > 1 (B = 1 keeps the solo one).
 #include <limits.h>
 #include <math.h>
 
@@ -59,7 +69,7 @@ constexpr int CLAIM_SMEM_LIMIT = 200 * 1024;
 constexpr int MAXR = 8;
 
 __global__ void __launch_bounds__(ROW_THREADS)
-auction_tables_kernel(int L, int N, int V, int R, int M, int GP,
+auction_tables_kernel(int B, int L, int N, int V, int R, int M, int GP,
                       const float* __restrict__ vreq,
                       const float* __restrict__ vcost,
                       const float* __restrict__ vprio,
@@ -73,10 +83,16 @@ auction_tables_kernel(int L, int N, int V, int R, int M, int GP,
                       float* __restrict__ cum_cost,
                       int* __restrict__ cum_viol) {
   const long long i = (long long)blockIdx.x * ROW_THREADS + threadIdx.x;
-  if (i >= (long long)L * N) return;
-  const int l = (int)(i / N), n = (int)(i % N);
-  const float th = thr[l];
-  const long long row = (long long)n * V;
+  const long long LN = (long long)L * N;
+  if (i >= B * LN) return;
+  // Tenant b's cell (l, n): its victim table's node rows, evictions,
+  // lanes and budgets.
+  const long long b = i / LN;
+  const int l = (int)((i % LN) / N), n = (int)(i % N);
+  evicted += b * M;
+  remaining += b * GP;
+  const float th = thr[b * L + l];
+  const long long row = (b * N + n) * V;
   unsigned elig = 0u;
   for (int v = 0; v < V; ++v) {
     const bool vv = vvalid[row + v];
@@ -88,7 +104,7 @@ auction_tables_kernel(int L, int N, int V, int R, int M, int GP,
   for (int r = 0; r < R; ++r) acc[r] = 0.0f;
   float cost = 0.0f;
   int viol = 0;
-  const long long out = ((long long)l * N + n) * V;
+  const long long out = ((b * L + l) * N + n) * V;
   for (int v = 0; v < V; ++v) {
     const bool el = (elig >> v) & 1u;
     for (int r = 0; r < R; ++r) {
@@ -109,16 +125,19 @@ auction_tables_kernel(int L, int N, int V, int R, int M, int GP,
 }
 
 __global__ void __launch_bounds__(ROW_THREADS)
-auction_ok_kernel(int N, const bool* __restrict__ mask,
+auction_ok_kernel(int C, int N, int Pm, const bool* __restrict__ mask,
                   const int* __restrict__ rows,
                   const bool* __restrict__ pair_ok,
                   const bool* __restrict__ pre_active,
                   const bool* __restrict__ node_valid, bool* __restrict__ ok,
                   bool* __restrict__ any_ok) {
-  const int c = blockIdx.x;
-  const long long src = (long long)(rows ? rows[c] : c) * N;
-  const long long dst = (long long)c * N;
-  const bool act = pre_active[c];
+  // Row c of tenant b: its own mask rows and nodes.
+  const long long b = blockIdx.x / C;
+  const int c = blockIdx.x % C;
+  node_valid += b * N;
+  const long long src = (b * Pm + (rows ? rows[blockIdx.x] : c)) * N;
+  const long long dst = (long long)blockIdx.x * N;
+  const bool act = pre_active[blockIdx.x];
   bool any = false;
   for (int n = threadIdx.x; n < N; n += ROW_THREADS) {
     const bool o = act && mask[src + n] && node_valid[n] &&
@@ -127,7 +146,7 @@ auction_ok_kernel(int N, const bool* __restrict__ mask,
     any |= o;
   }
   any = __syncthreads_or(any);
-  if (threadIdx.x == 0) any_ok[c] = any;
+  if (threadIdx.x == 0) any_ok[blockIdx.x] = any;
 }
 
 struct Lane {
@@ -163,7 +182,7 @@ __device__ __forceinline__ Lane lane_eval(int l, int n, int N, int V, int R,
 }
 
 __global__ void __launch_bounds__(ROW_THREADS)
-auction_rank_kernel(int L, int N, int V, int R,
+auction_rank_kernel(int C, int L, int N, int V, int R,
                     const float* __restrict__ cum_req,
                     const float* __restrict__ cum_cost,
                     const int* __restrict__ cum_viol,
@@ -173,7 +192,16 @@ auction_rank_kernel(int L, int N, int V, int R,
                     const float* __restrict__ p_req, float* __restrict__ bid,
                     bool* __restrict__ could) {
   __shared__ int s_min[ROW_WARPS];
+  // Row c (blockIdx.x = b * C + c) of tenant b: its lane tables, usage
+  // and capacity.
   const int c = blockIdx.x;
+  const long long b = c / C;
+  const long long lnv = (long long)L * N * V;
+  cum_req += b * lnv * R;
+  cum_cost += b * lnv;
+  cum_viol += b * lnv;
+  used += b * N * R;
+  alloc += b * N * R;
   const long long row = (long long)c * N;
   const int lb = lane[c], lo_lane = L - 1;
   float req[MAXR];
@@ -247,6 +275,7 @@ __device__ __forceinline__ int block_scan(int x, int* s_warp) {
   return out;
 }
 
+template <bool TENANTS>
 __global__ void __launch_bounds__(CLAIM_THREADS)
 auction_claim_kernel(int C, int K, int N, int V, int R, int M, int GP,
                      int iters, const float* __restrict__ topv_t,
@@ -272,6 +301,33 @@ auction_claim_kernel(int C, int K, int N, int V, int R, int M, int GP,
   extern __shared__ int s_best[];  // [N] int, then taken [N] bytes
   unsigned char* taken = reinterpret_cast<unsigned char*>(s_best + N);
   __shared__ int s_warp[32];
+  if constexpr (TENANTS) {  // CTA b claims for tenant b.
+    const long long b = blockIdx.x;
+    const long long nv = (long long)N * V;
+    topv_t += b * K * C;
+    topi_t += b * K * C;
+    can_plain += b * C;
+    n_plain += b * C;
+    rank += b * C;
+    vreq += b * nv * R;
+    vprio += b * nv;
+    vpdb += b * nv;
+    vvalid += b * nv;
+    vidx += b * nv;
+    evicted += b * M;
+    p_prio += b * C;
+    p_req += b * C * R;
+    used += b * N * R;
+    alloc += b * N * R;
+    could += b * C;
+    target_out += b * C;
+    claimed_out += b * C;
+    takes_out += b * C;
+    vidx_t += b * C * V;
+    freed += b * C * R;
+    usage += b * C * GP;
+    could_bid += b * C;
+  }
   const int c = threadIdx.x;
   const bool live = c < C;
   for (int n = threadIdx.x; n < N; n += CLAIM_THREADS) taken[n] = 0;
@@ -383,46 +439,47 @@ auction_claim_kernel(int C, int K, int N, int V, int R, int M, int GP,
 }  // namespace
 
 extern "C" int tpusched_auction_tables(
-    int L, int N, int V, int R, int M, int GP, const float* vreq,
+    int B, int L, int N, int V, int R, int M, int GP, const float* vreq,
     const float* vcost, const float* vprio, const int* vpdb,
     const bool* vvalid, const int* vidx, const bool* evicted,
     const float* thr, const float* remaining, float margin, float* cum_req,
     float* cum_cost, int* cum_viol, void* stream) {
   if (V > 32 || R > MAXR) return (int)cudaErrorInvalidValue;
-  const long long cells = (long long)L * N;
+  const long long cells = (long long)B * L * N;
   const int blocks = (int)((cells + ROW_THREADS - 1) / ROW_THREADS);
   auction_tables_kernel<<<blocks, ROW_THREADS, 0, (cudaStream_t)stream>>>(
-      L, N, V, R, M, GP, vreq, vcost, vprio, vpdb, vvalid, vidx, evicted, thr,
-      remaining, margin, cum_req, cum_cost, cum_viol);
+      B, L, N, V, R, M, GP, vreq, vcost, vprio, vpdb, vvalid, vidx, evicted,
+      thr, remaining, margin, cum_req, cum_cost, cum_viol);
   return (int)cudaGetLastError();
 }
 
-extern "C" int tpusched_auction_ok(int C, int N, const bool* mask,
-                                   const int* rows, const bool* pair_ok,
+extern "C" int tpusched_auction_ok(int B, int C, int N, int Pm,
+                                   const bool* mask, const int* rows,
+                                   const bool* pair_ok,
                                    const bool* pre_active,
                                    const bool* node_valid, bool* ok,
                                    bool* any_ok, void* stream) {
-  auction_ok_kernel<<<C, ROW_THREADS, 0, (cudaStream_t)stream>>>(
-      N, mask, rows, pair_ok, pre_active, node_valid, ok, any_ok);
+  auction_ok_kernel<<<B * C, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+      C, N, Pm, mask, rows, pair_ok, pre_active, node_valid, ok, any_ok);
   return (int)cudaGetLastError();
 }
 
-extern "C" int tpusched_auction_rank(int L, int N, int V, int R, int C,
-                                     const float* cum_req,
+extern "C" int tpusched_auction_rank(int B, int L, int N, int V, int R,
+                                     int C, const float* cum_req,
                                      const float* cum_cost,
                                      const int* cum_viol, const int* lane,
                                      const bool* ok, const float* used,
                                      const float* alloc, const float* p_req,
                                      float* bid, bool* could, void* stream) {
   if (V > 32 || R > MAXR) return (int)cudaErrorInvalidValue;
-  auction_rank_kernel<<<C, ROW_THREADS, 0, (cudaStream_t)stream>>>(
-      L, N, V, R, cum_req, cum_cost, cum_viol, lane, ok, used, alloc, p_req,
-      bid, could);
+  auction_rank_kernel<<<B * C, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+      C, L, N, V, R, cum_req, cum_cost, cum_viol, lane, ok, used, alloc,
+      p_req, bid, could);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tpusched_auction_claim(
-    int C, int K, int N, int V, int R, int M, int GP, int iters,
+    int B, int C, int K, int N, int V, int R, int M, int GP, int iters,
     const float* topv_t, const int* topi_t, const bool* can_plain,
     const int* n_plain, const int* rank, const float* vreq,
     const float* vprio, const int* vpdb, const bool* vvalid, const int* vidx,
@@ -434,17 +491,17 @@ extern "C" int tpusched_auction_claim(
     return (int)cudaErrorInvalidValue;
   const long long smem = (long long)N * (sizeof(int) + 1);
   if (smem > CLAIM_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kernel = B > 1 ? auction_claim_kernel<true>
+                      : auction_claim_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        auction_claim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  auction_claim_kernel<<<1, CLAIM_THREADS, (size_t)smem,
-                         (cudaStream_t)stream>>>(
+  kernel<<<B, CLAIM_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
       C, K, N, V, R, M, GP, iters, topv_t, topi_t, can_plain, n_plain, rank,
-      vreq,
-      vprio, vpdb, vvalid, vidx, evicted, p_prio, p_req, used, alloc, could,
-      margin, target, claimed, takes, vidx_t, freed, usage, could_bid);
+      vreq, vprio, vpdb, vvalid, vidx, evicted, p_prio, p_req, used, alloc,
+      could, margin, target, claimed, takes, vidx_t, freed, usage,
+      could_bid);
   return (int)cudaGetLastError();
 }

@@ -275,9 +275,11 @@ int tpusched_preempt_step(
 // entry and what is left on return; evicted [M] (zeros on entry) the
 // evictions. evictor and evict_pos [M] (may be NULL; else -1 on entry)
 // receive, for each evicted victim, the evicting pod and its pop-order
-// step.
+// step. With the tenant axis the victim table and K15's scratch are
+// [B, Mp] ([B, R, Mp], [B, (R + 1) * Mp]: each tenant its own layout),
+// and evictor / evict_pos must be NULL when B > 1.
 int tpusched_parity_scan_preempt(
-    int P, int N, int R, const int* order, const bool* mask,
+    int B, int P, int N, int R, const int* order, const bool* mask,
     const float* static_score, const float* alloc, const float* requests,
     const float* w_lr, const float* w_ba, const float* w_ts,
     const float* w_ia, const float* rw, int seeded, unsigned int seed, int M,
@@ -291,7 +293,7 @@ int tpusched_parity_scan_preempt(
     void* stream);
 
 int tpusched_parity_scan_pair_preempt(
-    int P, int N, int R, const int* order, const bool* mask,
+    int B, int P, int N, int R, const int* order, const bool* mask,
     const float* static_score, const float* alloc, const float* requests,
     const float* w_lr, const float* w_ba, const float* w_ts,
     const float* w_ia, const float* rw, int seeded, unsigned int seed,
@@ -314,7 +316,7 @@ int tpusched_parity_scan_pair_preempt(
 // preempt.py:488-545): per lane l and node n, the V-long inclusive
 // prefixes (from 0.0, left to right) of the requests and cost of the
 // victims eligible at thr[l], and of their PDB violations.
-int tpusched_auction_tables(int L, int N, int V, int R, int M, int GP,
+int tpusched_auction_tables(int B, int L, int N, int V, int R, int M, int GP,
                             const float* vreq, const float* vcost,
                             const float* vprio, const int* vpdb,
                             const bool* vvalid, const int* vidx,
@@ -325,8 +327,10 @@ int tpusched_auction_tables(int L, int N, int V, int R, int M, int GP,
 
 // K17's auction_ok entry point: ok[c, n] = mask[rows ? rows[c] : c, n] &
 // node_valid[n] & pre_active[c] & (pair_ok ? pair_ok[c, n] : true), and
-// any_ok[c] = any over n. rows and pair_ok may be NULL.
-int tpusched_auction_ok(int C, int N, const bool* mask, const int* rows,
+// any_ok[c] = any over n. rows and pair_ok may be NULL; mask is [Pm, N]
+// (Pm = C without rows).
+int tpusched_auction_ok(int B, int C, int N, int Pm, const bool* mask,
+                        const int* rows,
                         const bool* pair_ok, const bool* pre_active,
                         const bool* node_valid, bool* ok, bool* any_ok,
                         void* stream);
@@ -336,7 +340,7 @@ int tpusched_auction_ok(int C, int N, const bool* mask, const int* rows,
 // the nodes with the fewest violations, in the bidder's lane (or the
 // optimistic lane L - 1 as its fallback); -inf elsewhere. could[c]: some
 // allowed node is feasible in the optimistic lane.
-int tpusched_auction_rank(int L, int N, int V, int R, int C,
+int tpusched_auction_rank(int B, int L, int N, int V, int R, int C,
                           const float* cum_req, const float* cum_cost,
                           const int* cum_viol, const int* lane,
                           const bool* ok, const float* used,
@@ -344,10 +348,10 @@ int tpusched_auction_rank(int L, int N, int V, int R, int C,
                           bool* could, void* stream);
 
 // K18. The auction's claim iterations and exact [C, V] validation
-// (preempt.py:564-679), one CTA; C <= 1024, 5 * N bytes of shared
-// memory. topv_t, topi_t: the candidate lists transposed, [K, C]. usage
-// must arrive zeroed.
-int tpusched_auction_claim(int C, int K, int N, int V, int R, int M, int GP,
+// (preempt.py:564-679), one CTA a tenant; C <= 1024, 5 * N bytes of
+// shared memory. topv_t, topi_t: the candidate lists transposed, [K, C].
+// usage must arrive zeroed.
+int tpusched_auction_claim(int B, int C, int K, int N, int V, int R, int M, int GP,
                            int iters, const float* topv_t, const int* topi_t,
                            const bool* can_plain, const int* n_plain,
                            const int* rank, const float* vreq,

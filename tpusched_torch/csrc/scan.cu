@@ -70,8 +70,17 @@
 // pair state [B, S, N] / [B, S] and the [B, N] scratch included, so CTA b
 // reads and updates only its tenant's state (the TENANTS instantiation,
 // launched for B > 1). The B scans are independent, so B tenants take
-// about one tenant's time while B <= 132 SMs. The preemption variants are
-// launched with B = 1.
+// about one tenant's time while B <= 132 SMs. The preemption variants
+// (entry points tpusched_parity_scan_preempt and
+// tpusched_parity_scan_pair_preempt, PR 11) take the axis the same way:
+// with PREEMPT the TENANTS instantiation also offsets the preemption
+// block to tenant b (tenant_pre): its victim table and K15's scratch at
+// a stride of Mp = 1024 * ceil(M / 1024) ([B, Mp] each, [B, R, Mp] and
+// [B, (R + 1) * Mp]), its pods' priority, validity and gang, its nodes'
+// validity, its running pods' nodes and anti terms, its budgets and its
+// evictions, so that K15's search and every segment sum stay inside the
+// tenant's own victims. The explain outputs stay solo (NULL for B > 1).
+// B = 1 launches the instantiations without TENANTS, as before.
 #include <math.h>
 #include <limits.h>
 
@@ -123,6 +132,34 @@ struct PreemptScan {
 };
 
 struct NoSmem {};
+
+// Tenant b's preemption block (PREEMPT with TENANTS).
+__device__ __forceinline__ PreemptScan tenant_pre(PreemptScan pre,
+                                                  long long b, int P,
+                                                  int N) {
+  tpusched::Victims& v = pre.v;
+  const long long Mp = (long long)v.chunk * tpusched::PRE_THREADS;
+  const long long M = v.M;
+  v.perm += b * Mp;
+  v.node_s += b * Mp;
+  v.seg_start += b * Mp;
+  v.cost_s += b * Mp;
+  v.vprio_s += b * Mp;
+  v.req_s += b * v.R * Mp;
+  v.pdb_s += b * Mp;
+  v.elig += b * Mp;
+  v.cum += b * (v.R + 1) * Mp;
+  v.cum_viol += b * Mp;
+  pre.prio += b * P;
+  pre.pod_valid += b * P;
+  pre.group += b * P;
+  pre.node_valid += b * N;
+  pre.run_node += b * M;
+  pre.run_anti_sig += b * M * pre.J;
+  pre.remaining += b * v.GP;
+  pre.evicted += b * M;
+  return pre;
+}
 
 struct PodCtx {
   float rq[MAX_R];
@@ -277,6 +314,7 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
       ps.raw += b * N;
       ps.allowed += b * N;
     }
+    if constexpr (PREEMPT && TENANTS) pre = tenant_pre(pre, b, P, N);
   }
   float* used = used_g;
   const float* alloc = alloc_g;
@@ -513,10 +551,10 @@ int launch_kernel(Kernel kernel, int B, int P, int N, int R,
   return (int)cudaGetLastError();
 }
 
-// The pairwise variant over B > 1 tenants offsets its pairwise block in
-// the kernel (TENANTS): a copy of the block that costs registers (the
-// CTA's 1 024 threads hold 64 each), so B = 1 keeps the instantiation
-// without it.
+// The pairwise and preemption variants over B > 1 tenants offset their
+// pairwise and preemption blocks in the kernel (TENANTS): a copy of the
+// blocks that costs registers (the CTA's 1 024 threads hold 64 each), so
+// B = 1 keeps the instantiations without it.
 template <bool PAIR, bool PREEMPT>
 int launch_scan(int B, int P, int N, int R, const int* order,
                 const bool* mask, const float* static_score, const float* alloc,
@@ -526,12 +564,12 @@ int launch_scan(int B, int P, int N, int R, const int* order,
                 float* chosen, const PairScan& ps, const PreemptScan& pre,
                 void* stream) {
   if (R > MAX_R) return (int)cudaErrorInvalidValue;
-  if constexpr (PAIR && !PREEMPT) {
+  if constexpr (PAIR || PREEMPT) {
     if (B > 1)
-      return launch_kernel(parity_scan_kernel<true, false, true>, B, P, N, R,
-                           order, mask, static_score, alloc, requests, w_lr,
-                           w_ba, w_ts, w_ia, rw, seeded, seed, used, assigned,
-                           chosen, ps, pre, stream);
+      return launch_kernel(parity_scan_kernel<PAIR, PREEMPT, true>, B, P, N,
+                           R, order, mask, static_score, alloc, requests,
+                           w_lr, w_ba, w_ts, w_ia, rw, seeded, seed, used,
+                           assigned, chosen, ps, pre, stream);
   }
   return launch_kernel(parity_scan_kernel<PAIR, PREEMPT>, B, P, N, R, order,
                        mask, static_score, alloc, requests, w_lr, w_ba, w_ts,
@@ -607,7 +645,7 @@ extern "C" int tpusched_parity_scan_pair(
 }
 
 extern "C" int tpusched_parity_scan_preempt(
-    int P, int N, int R, const int* order, const bool* mask,
+    int B, int P, int N, int R, const int* order, const bool* mask,
     const float* static_score, const float* alloc, const float* requests,
     const float* w_lr, const float* w_ba, const float* w_ts,
     const float* w_ia, const float* rw, int seeded, unsigned int seed, int M,
@@ -619,19 +657,20 @@ extern "C" int tpusched_parity_scan_preempt(
     unsigned char* elig, float* cum, int* cum_viol, float* used,
     int* assigned, float* chosen, int* evictor, int* evict_pos,
     void* stream) {
+  if (B > 1 && evictor) return (int)cudaErrorInvalidValue;
   PairScan none{};
   PreemptScan pre = make_preempt(
       N, R, M, GP, J, perm, node_s, seg_start, cost_s, vprio_s, req_s, pdb_s,
       margin, prio, pod_valid, group, node_valid, run_node, run_anti_sig,
       remaining, evicted, elig, cum, cum_viol, evictor, evict_pos);
-  return launch_scan<false, true>(1, P, N, R, order, mask, static_score,
+  return launch_scan<false, true>(B, P, N, R, order, mask, static_score,
                                   alloc, requests, w_lr, w_ba, w_ts, w_ia, rw,
                                   seeded, seed, used, assigned, chosen, none,
                                   pre, stream);
 }
 
 extern "C" int tpusched_parity_scan_pair_preempt(
-    int P, int N, int R, const int* order, const bool* mask,
+    int B, int P, int N, int R, const int* order, const bool* mask,
     const float* static_score, const float* alloc, const float* requests,
     const float* w_lr, const float* w_ba, const float* w_ts,
     const float* w_ia, const float* rw, int seeded, unsigned int seed,
@@ -649,7 +688,8 @@ extern "C" int tpusched_parity_scan_pair_preempt(
     float* remaining, unsigned char* evicted, unsigned char* elig,
     float* cum, int* cum_viol, float* used, int* assigned, float* chosen,
     int* evictor, int* evict_pos, void* stream) {
-  if (C > tpusched::MAX_C || M2 != M) return (int)cudaErrorInvalidValue;
+  if (C > tpusched::MAX_C || M2 != M || (B > 1 && evictor))
+    return (int)cudaErrorInvalidValue;
   PairScan ps{{N, S, C, IT, M + P, M, dom, match, node_valid, aff_ok, ts_sig,
                ts_valid, ts_when, ts_max_skew, ia_sig, ia_valid, ia_anti,
                ia_required, ia_weight},
@@ -658,7 +698,7 @@ extern "C" int tpusched_parity_scan_pair_preempt(
       N, R, M, GP, J, perm, node_s, seg_start, cost_s, vprio_s, req_s, pdb_s,
       margin, prio, pod_valid, group, node_valid2, run_node, run_anti_sig,
       remaining, evicted, elig, cum, cum_viol, evictor, evict_pos);
-  return launch_scan<true, true>(1, P, N, R, order, mask, static_score,
+  return launch_scan<true, true>(B, P, N, R, order, mask, static_score,
                                  alloc, requests, w_lr, w_ba, w_ts, w_ia, rw,
                                  seeded, seed, used, assigned, chosen, ps, pre,
                                  stream);

@@ -173,8 +173,8 @@ def solve_core(cfg: EngineConfig, snap: ClusterSnapshot, ops: Ops = KERNELS,
     the tableau are then not computed. explain=True appends the
     provenance tuple (rolled, evictor, evict_round, auction_stats) of
     solve_sequential / solve_rounds; the rest is the same. A tenant batch
-    (tenants.solve_many: a leading [B] axis on every leaf; signatures and
-    gangs included, preemption not) gives every output that axis, rounds
+    (tenants.solve_many: a leading [B] axis on every leaf; signatures,
+    gangs and preemption included) gives every output that axis, rounds
     [B]."""
     tables = (None, None) if static is not None else _sat_tables(snap, ops)
     if cfg.mode == "fast":

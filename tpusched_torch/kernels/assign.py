@@ -519,7 +519,11 @@ def parity_scan_preempt_plain(cfg: EngineConfig, snap: ClusterSnapshot,
     """The sequential commit loop with preemption, in plain torch:
     (assigned, chosen, used, evicted [M] bool); with explain, then each
     victim's evicting pod and that pod's pop-order step (evictor,
-    evict_pos [M] int32, -1 where not evicted)."""
+    evict_pos [M] int32, -1 where not evicted); a tenant batch tenant by
+    tenant."""
+    if order.dim() == 2:
+        return per_tenant(parity_scan_preempt_plain, order.shape[0], cfg,
+                          snap, static, order, pctx, explain)
     a, c, u, _, ev, evictor, pos = _scan_loop(cfg, snap, static, order,
                                               pctx=pctx)
     return (a, c, u, ev) + ((evictor, pos) if explain else ())
@@ -533,7 +537,11 @@ def parity_scan_pair_preempt_plain(cfg: EngineConfig, snap: ClusterSnapshot,
                                    explain: bool = False):
     """The sequential commit loop with pairwise constraints and
     preemption, in plain torch: (assigned, chosen, used, final
-    PairState, evicted), with explain then (evictor, evict_pos)."""
+    PairState, evicted), with explain then (evictor, evict_pos); a
+    tenant batch tenant by tenant."""
+    if order.dim() == 2:
+        return per_tenant(parity_scan_pair_preempt_plain, order.shape[0],
+                          cfg, snap, static, order, st, dom_s, pctx, explain)
     out = _scan_loop(cfg, snap, static, order, st, dom_s, pctx)
     return out if explain else out[:5]
 
@@ -604,8 +612,8 @@ def _scan_loop(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
 
 def _scan_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
                static: StaticCtx, order: torch.Tensor) -> tuple:
-    """Check K4's arguments (all variants; a tenant axis only without
-    preemption): (P, N, R, order, the [P, N] and per-pod tensors, seeded,
+    """Check K4's arguments (all variants, with or without a tenant
+    axis): (P, N, R, order, the [P, N] and per-pod tensors, seeded,
     seed)."""
     dev = static.mask.device
     lead = static.mask.shape[:-2]          # () or (B,): the tenant axis
@@ -695,36 +703,39 @@ def _preempt_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
     effective priority, validity and gang, node validity, the running
     pods' nodes and required anti terms, then the device state the scan
     updates (the budgets' remaining disruptions, evicted [M] bytes) and
-    K15's scratch."""
+    K15's scratch; with a tenant axis every part per tenant."""
     dev = static.mask.device
     pods, run = snap.pods, snap.running
+    lead = static.mask.shape[:-2]          # () or (B,): the tenant axis
     vic = kpre._victim_args(k, cfg, snap, pctx)
-    M, R = pctx.req_s.shape
-    P, N = static.mask.shape
-    J = run.anti_sig.shape[1]
-    GP = snap.pdb_allowed.shape[0]
+    M, R = pctx.req_s.shape[-2:]
+    P, N = static.mask.shape[-2:]
+    J = run.anti_sig.shape[-1]
+    GP = snap.pdb_allowed.shape[-1]
     prio = effective_priority(cfg, pods.base_priority, pods.slo_target,
                               pods.observed_avail).contiguous()
-    check(k, dev, prio, torch.float32, (P,))
-    check(k, dev, pods.valid, torch.bool, (P,))
-    check(k, dev, pods.group, torch.int32, (P,))
-    check(k, dev, snap.nodes.valid, torch.bool, (N,))
-    check(k, dev, run.node_idx, torch.int32, (M,))
-    check(k, dev, run.anti_sig, torch.int32, (M, J))
-    check(k, dev, snap.pdb_allowed, torch.float32, (GP,))
+    check(k, dev, prio, torch.float32, (*lead, P))
+    check(k, dev, pods.valid, torch.bool, (*lead, P))
+    check(k, dev, pods.group, torch.int32, (*lead, P))
+    check(k, dev, snap.nodes.valid, torch.bool, (*lead, N))
+    check(k, dev, run.node_idx, torch.int32, (*lead, M))
+    check(k, dev, run.anti_sig, torch.int32, (*lead, M, J))
+    check(k, dev, snap.pdb_allowed, torch.float32, (*lead, GP))
     remaining = snap.pdb_allowed.clone()
-    evicted = torch.zeros(M, dtype=torch.uint8, device=dev)
+    evicted = torch.zeros((*lead, M), dtype=torch.uint8, device=dev)
     return (*vic[:2], J, *vic[2:], prio, pods.valid, pods.group,
             snap.nodes.valid,
             run.node_idx, run.anti_sig, remaining, evicted,
-            *kpre.victim_scratch(M, R, dev))
+            *kpre.victim_scratch(M, R, dev, lead[0] if lead else 1))
 
 
-def _explain_out(explain: bool, M: int, dev) -> tuple:
+def _explain_out(explain: bool, lead: tuple, M: int, dev) -> tuple:
     """K4's optional explain outputs (evictor, evict_pos), -1 filled, or
-    (None, None)."""
+    (None, None). They are solo: a tenant batch has no provenance."""
     if not explain:
         return None, None
+    if lead:
+        raise ValueError("K4's explain outputs take one tenant, not a batch")
     return (torch.full((M,), -1, dtype=torch.int32, device=dev),
             torch.full((M,), -1, dtype=torch.int32, device=dev))
 
@@ -733,24 +744,24 @@ def parity_scan_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
                         static: StaticCtx, order: torch.Tensor,
                         pctx: "kpre.PreemptCtx", explain: bool = False):
     """K4's preemption variant on CUDA tensors (K15's victim search
-    inside the scan), the plain version on CPU tensors: (assigned,
-    chosen, used, evicted); with explain then (evictor, evict_pos), K4's
-    optional outputs."""
+    inside the scan; one CTA a tenant for a batch), the plain version on
+    CPU tensors: (assigned, chosen, used, evicted); with explain (solo
+    only) then (evictor, evict_pos), K4's optional outputs."""
     dev = static.mask.device
     if dev.type == "cpu":
         return parity_scan_preempt_plain(cfg, snap, static, order, pctx,
                                          explain)
     k = "parity_scan_preempt"
+    lead = order.shape[:-1]                # () or (B,): the tenant axis
     args = _scan_args(k, cfg, snap, static, order)
     pre = _preempt_args(k, cfg, snap, static, pctx)
-    P = args[0]
     used = snap.nodes.used.clone()
-    assigned = torch.empty((P,), dtype=torch.int32, device=dev)
-    chosen = torch.empty((P,), dtype=torch.float32, device=dev)
+    assigned = torch.empty(order.shape, dtype=torch.int32, device=dev)
+    chosen = torch.empty(order.shape, dtype=torch.float32, device=dev)
     evicted = pre[-4]
-    ex = _explain_out(explain, evicted.shape[0], dev)
-    if P:
-        _build.launch("tpusched_parity_scan_preempt",
+    ex = _explain_out(explain, lead, evicted.shape[-1], dev)
+    if assigned.numel():
+        _build.launch("tpusched_parity_scan_preempt", lead[0] if lead else 1,
                       *ptrs((*args, *pre, used, assigned, chosen, *ex)),
                       stream_of(dev))
         parity_scan_preempt.launches += 1
@@ -766,31 +777,33 @@ def parity_scan_pair_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
                              static: StaticCtx, order: torch.Tensor,
                              st: "kpair.PairState", dom_s: torch.Tensor,
                              pctx: "kpre.PreemptCtx", explain: bool = False):
-    """K4's pairwise and preemption variant on CUDA tensors, the plain
-    version on CPU tensors: (assigned, chosen, used, final PairState,
-    evicted), with explain then (evictor, evict_pos). `st` is left as it
-    was."""
+    """K4's pairwise and preemption variant on CUDA tensors (one CTA a
+    tenant for a batch), the plain version on CPU tensors: (assigned,
+    chosen, used, final PairState, evicted), with explain (solo only)
+    then (evictor, evict_pos). `st` is left as it was."""
     dev = static.mask.device
     if dev.type == "cpu":
         return parity_scan_pair_preempt_plain(cfg, snap, static, order, st,
                                               dom_s, pctx, explain)
     k = "parity_scan_pair_preempt"
+    lead = order.shape[:-1]                # () or (B,): the tenant axis
     args = _scan_args(k, cfg, snap, static, order)
     terms = kpair._pair_term_args(k, snap, static.aff_ok, static.sig_match,
                                   dom_s, st)
     pre = _preempt_args(k, cfg, snap, static, pctx)
-    P, N = args[0], args[1]
+    N = args[1]
     used = snap.nodes.used.clone()
-    assigned = torch.empty((P,), dtype=torch.int32, device=dev)
-    chosen = torch.empty((P,), dtype=torch.float32, device=dev)
+    assigned = torch.empty(order.shape, dtype=torch.int32, device=dev)
+    chosen = torch.empty(order.shape, dtype=torch.float32, device=dev)
     out = kpair.copy_state(st)
     evicted = pre[-4]
-    ex = _explain_out(explain, evicted.shape[0], dev)
-    if P:
-        pen = torch.empty((N,), dtype=torch.float32, device=dev)
-        raw = torch.empty((N,), dtype=torch.float32, device=dev)
-        allowed = torch.empty((N,), dtype=torch.uint8, device=dev)
+    ex = _explain_out(explain, lead, evicted.shape[-1], dev)
+    if assigned.numel():
+        pen = torch.empty((*lead, N), dtype=torch.float32, device=dev)
+        raw = torch.empty((*lead, N), dtype=torch.float32, device=dev)
+        allowed = torch.empty((*lead, N), dtype=torch.uint8, device=dev)
         _build.launch("tpusched_parity_scan_pair_preempt",
+                      lead[0] if lead else 1,
                       *ptrs((*args, *terms[:-3], out.counts, out.anti,
                              out.match_tot, pen, raw, allowed, *pre, used,
                              assigned, chosen, *ex)), stream_of(dev))
@@ -823,9 +836,10 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
     and everywhere without preemption), and an all-zero
     [_PREEMPT_MAX_ROUNDS, EXPLAIN_AUCTION_STATS] table (parity mode has
     no auction). The placements are the same either way. A tenant batch
-    (a leading [B] axis, without preemption) scans every tenant in one K4
-    launch (its pairwise variant with signatures) and gates every
-    tenant's gangs at once."""
+    (a leading [B] axis) scans every tenant in one K4 launch (its
+    pairwise variant with signatures, its preemption variants with each
+    tenant's own victim table) and gates every tenant's gangs at
+    once."""
     ops = ops or KERNELS
     if static is None:
         static = precompute_static(cfg, snap, node_sat_t, member_sat_t, ops)
@@ -2638,11 +2652,19 @@ def _evict_round(evicted: torch.Tensor, vidx_t: torch.Tensor,
                  keep_evict: torch.Tensor) -> torch.Tensor:
     """evicted | the kept eviction bids' victim prefixes (vidx_t holds M
     at the slots that are not victims; a sentinel slot M takes those and
-    the bids not kept, so no mask is read back to the host)."""
-    M = evicted.shape[0]
-    hit = torch.zeros(M + 1, dtype=torch.bool, device=evicted.device)
-    hit[torch.where(keep_evict[:, None], vidx_t, M).long()] = True
-    return evicted | hit[:M]
+    the bids not kept, so no mask is read back to the host). A tenant
+    batch ([B, M] evicted, [B, C, V] vidx_t) writes tenant b's victims
+    at the flat slots b * (M + 1) + v."""
+    M = evicted.shape[-1]
+    slot = torch.where(keep_evict[..., None], vidx_t, M).long()
+    if evicted.dim() == 2:
+        B = evicted.shape[0]
+        slot = slot + (M + 1) * torch.arange(B, device=slot.device)[:, None,
+                                                                    None]
+    hit = torch.zeros(evicted.numel() + evicted.numel() // max(M, 1),
+                      dtype=torch.bool, device=evicted.device)
+    hit[slot] = True
+    return evicted | hit.reshape(*evicted.shape[:-1], M + 1)[..., :M]
 
 
 def _bidder_rows(cfg: EngineConfig, snap: ClusterSnapshot,
@@ -2655,10 +2677,11 @@ def _bidder_rows(cfg: EngineConfig, snap: ClusterSnapshot,
     pairwise rows; K6's top-1 (or seeded pick) as the scored node.
     Returns (feasible [C, N], masked [C, N], n_plain [C] int32, its
     masked score [C], pair_ok [C, N] or None at S = 0, (snap_v,
-    static_v) or None at S = 0)."""
+    static_v) or None at S = 0); a tenant batch ([B, C] sel) each
+    tenant's rows, [B, C, ...]."""
     nodes = snap.nodes
     s32 = sel.to(torch.int32)
-    if snap.sigs.key.shape[0] == 0:
+    if snap.sigs.key.shape[-1] == 0:
         feas, score = ops.cycle(
             nodes.allocatable, used, snap.pods.requests, static.mask,
             static.score, static.w_lr, static.w_ba, static.w_ts, static.rw,
@@ -2678,14 +2701,49 @@ def _bidder_rows(cfg: EngineConfig, snap: ClusterSnapshot,
                                                  device=score.device))
     topv, topi, pick = ops.row_topk(masked, 1, cfg.tie_break == "seeded",
                                     cfg.tie_seed, s32)
-    n_plain = pick if pick is not None else topi[:, 0]
-    sc = masked.gather(1, n_plain.long()[:, None])[:, 0]
+    n_plain = pick if pick is not None else topi[..., 0]
+    sc = masked.gather(-1, n_plain.long()[..., None])[..., 0]
     return feas, masked, n_plain, sc, pair_ok, view
+
+
+def _select_tenants(live: torch.Tensor, new, old):
+    """Each tenant's new state where live[b], its old one elsewhere
+    (tensors with a leading [B] axis, or trees of them; None stays
+    None): jax.vmap's while_loop keeps a finished tenant's carry."""
+    if new is None:
+        return None
+    if isinstance(new, torch.Tensor):
+        return torch.where(live.reshape(-1, *(1,) * (new.dim() - 1)), new,
+                           old)
+    if isinstance(new, tuple):
+        return tuple(_select_tenants(live, n, o) for n, o in zip(new, old))
+    return dataclasses.replace(new, **{
+        f.name: _select_tenants(live, getattr(new, f.name),
+                                getattr(old, f.name))
+        for f in dataclasses.fields(new)})
+
+
+def _budget_gate(snap: ClusterSnapshot, evicted: torch.Tensor,
+                 claimed: torch.Tensor, usage: torch.Tensor) -> torch.Tensor:
+    """The claims kept under the PodDisruptionBudgets, [C] bool ([B, C]
+    for a tenant batch, each tenant against its own budgets): the claims
+    as a rank-ordered prefix (the bidders are in rank order) while each
+    touched budget's claimed-cumulative use (int counts) stays inside
+    what it has left, + 1e-6; a bid whose own use overdraws (a declared
+    violation) keeps regardless."""
+    if snap.pdb_allowed.shape[-1] == 0:
+        return claimed
+    rem = kpre.pdb_remaining(snap, evicted)[..., None, :] + 1e-6
+    use_cl = torch.where(claimed[..., None], usage, 0)
+    cum = torch.cumsum(use_cl, dim=-2).to(torch.float32)
+    fits_budget = torch.where(usage > 0, cum <= rem, True).all(dim=-1)
+    alone = (usage.to(torch.float32) > rem).any(dim=-1)
+    return claimed & (fits_budget | alone)
 
 
 def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                     static: StaticCtx, rank: torch.Tensor,
-                    order: torch.Tensor, base_rounds: int,
+                    order: torch.Tensor, base_rounds,
                     used: torch.Tensor, assigned: torch.Tensor,
                     st: "kpair.PairState | None", round_of: torch.Tensor,
                     chosen: torch.Tensor, has_pair: torch.Tensor,
@@ -2721,73 +2779,133 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     host read: each round's kept eviction bids (before the pairwise
     validation, like the evictions) name their victims' evicting pod
     and commit key by a scatter-max over a -1 start (a victim is
-    evicted once), and the round's counts fill its row."""
+    evicted once), and the round's counts fill its row.
+
+    A tenant batch (a leading [B] axis on the snapshot, StaticCtx, state
+    and rank; base_rounds [B] int32) runs every tenant's rounds at once
+    (`_preempt_rounds_many`) and returns rounds as a [B] int32 tensor;
+    the solo shapes run as a batch of one, rounds an int."""
+    if rank.dim() == 2:
+        out = _preempt_rounds_many(cfg, snap, static, rank, order,
+                                   base_rounds, used, assigned, st,
+                                   round_of, chosen, has_pair, dom_s, ops,
+                                   stats, explain)
+        return out[:7] + out[8:]
+    dev = rank.device
+    out = _preempt_rounds_many(
+        cfg, snap.as_batch(), static.as_batch(), rank[None], order[None],
+        torch.full((1,), base_rounds, dtype=torch.int32, device=dev),
+        used[None], assigned[None], st and st.as_batch(), round_of[None],
+        chosen[None], has_pair[None], None if dom_s is None else dom_s[None],
+        ops, stats, explain)
+    used, assigned, st, evicted, round_of, chosen, _, r_h = out[:8]
+    res = (used[0], assigned[0], st and st.tenant(0), evicted[0],
+           round_of[0], chosen[0], int(r_h[0]))
+    return res + ((tuple(t[0] for t in out[8]),) if explain else ())
+
+
+def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
+                         assigned, st, round_of, chosen, has_pair, dom_s,
+                         ops, stats, explain):
+    """_preempt_rounds over a tenant batch, under jax.vmap's loop rule:
+    a round runs while any tenant's progress flag holds and its round
+    counter is below _PREEMPT_MAX_ROUNDS (one `RoundStats.read_each` of
+    the [B] flags a round, none before the first), each tenant's keeps
+    take its own key base_rounds[b] + r[b], and a tenant whose loop has
+    ended keeps its state bit for bit: it has no pending row (nothing
+    drains, bids, commits or is tried there), and when any tenant has
+    ended the round's state is selected per tenant besides. Budgets,
+    the budget gate's prefix, `tried` and the pairwise fixpoint (one
+    read a pass for all tenants, a tenant that reverted nothing reverts
+    nothing more) are per tenant; the claim-exclusive adds and the
+    eviction marks write flat per-tenant slots (b * N + n, b * (M + 1)
+    + v). Returns (used, assigned, st, evicted, round_of, chosen, rounds
+    [B] int32 on the device, rounds on the host), then the explain
+    tuple with a leading [B] axis."""
     pods, nodes = snap.pods, snap.nodes
-    P = pods.valid.shape[0]
-    N = nodes.valid.shape[0]
-    M = snap.running.valid.shape[0]
-    dev = pods.valid.device
+    B, P = rank.shape
+    N = nodes.valid.shape[-1]
+    M = snap.running.valid.shape[-1]
+    R = nodes.allocatable.shape[-1]
+    dev = rank.device
     C = min(P, _PREEMPT_BATCH)
-    S = snap.sigs.key.shape[0]
-    GP = snap.pdb_allowed.shape[0]
+    S = snap.sigs.key.shape[-1]
+    GP = snap.pdb_allowed.shape[-1]
     K = _fallback_depth(N)
     seeded = cfg.tie_break == "seeded"
     alloc = nodes.allocatable
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    bi = torch.arange(B, device=dev)[:, None]
     with stats.span("preempt victim table"):
         pctx = kpre.precompute_nv(cfg, snap, _PREEMPT_VICTIM_CAP)
     prio = effective_priority(cfg, pods.base_priority, pods.slo_target,
                               pods.observed_avail)
-    evicted = torch.zeros(M, dtype=torch.bool, device=dev)
-    tried = torch.zeros(P, dtype=torch.bool, device=dev)
+    evicted = torch.zeros((B, M), dtype=torch.bool, device=dev)
+    tried = torch.zeros((B, P), dtype=torch.bool, device=dev)
     compact_pv = S > 0 and _compact_cap(cfg, P) > 0
+    ex = ()
     if explain:
-        evictor = torch.full((M,), -1, dtype=torch.int32, device=dev)
-        evict_rd = torch.full((M,), -1, dtype=torch.int32, device=dev)
-        astats = torch.zeros((_PREEMPT_MAX_ROUNDS,
-                              len(EXPLAIN_AUCTION_STATS)),
-                             dtype=torch.float32, device=dev)
-    r = 0
-    progress = None
-    while r < _PREEMPT_MAX_ROUNDS and (progress is None
-                                       or stats.read(progress)):
-        key = base_rounds + r
-        drained = torch.zeros((), dtype=torch.bool, device=dev)
-        drained_n = 0          # the drain's placements (explain only)
+        ex = (torch.full((B, M), -1, dtype=torch.int32, device=dev),
+              torch.full((B, M), -1, dtype=torch.int32, device=dev),
+              torch.zeros((B, _PREEMPT_MAX_ROUNDS,
+                           len(EXPLAIN_AUCTION_STATS)),
+                          dtype=torch.float32, device=dev))
+    # Each tenant's round counter on the host and on the device, and its
+    # loop flag; no read before the first round (every flag is True).
+    r_h = np.zeros(B, dtype=np.int64)
+    r_d = torch.zeros(B, dtype=torch.int32, device=dev)
+    live_h = np.ones(B, dtype=bool)
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    progress = live
+    known = True
+    while (live_h & (r_h < _PREEMPT_MAX_ROUNDS)).any():
+        if not known:
+            live = progress & (r_d < _PREEMPT_MAX_ROUNDS)
+            live_h = stats.read_each(live)
+            if not live_h.any():
+                break
+        known = False
+        old = (used, assigned, st, evicted, round_of, chosen, tried, ex)
+        lv = live[:, None]
+        key = (base_rounds + r_d)[:, None]
+        drained = torch.zeros(B, dtype=torch.bool, device=dev)
+        drained_n = torch.zeros(B, dtype=torch.int64, device=dev)
         if S == 0:
             with stats.span("preempt drain"):
-                pend0 = (assigned < 0) & pods.valid
+                pend0 = (assigned < 0) & pods.valid & lv
                 dsel = ops.top_by_rank(pend0, order,
                                        min(_PREEMPT_DRAIN, P))[0]
-                d64, d32 = dsel.long(), dsel.to(torch.int32)
+                d32 = dsel.to(torch.int32)
                 feas_d, masked_d = ops.cycle(
                     alloc, used, pods.requests, static.mask, static.score,
                     static.w_lr, static.w_ba, static.w_ts, static.rw,
-                    rows=d32, pending=pend0[d64], masked=True)
+                    rows=d32, pending=pend0[bi, dsel], masked=True)
                 topv, topi, pick = ops.row_topk(masked_d, K, seeded,
                                                 cfg.tie_seed, d32)
                 used, choice_d, chosen_d = _deal_commit(
-                    alloc, pods.requests[d64], used, feas_d, masked_d,
-                    topv[:, 0] > NEG_INF, rank[d64], topv, topi,
+                    alloc, pods.requests[bi, dsel], used, feas_d, masked_d,
+                    topv[..., 0] > NEG_INF, rank[bi, dsel], topv, topi,
                     tie_pick=pick, rank_is_sorted=True, ops=ops,
                     stats=stats)
                 hit_d = choice_d >= 0
-                assigned = assigned.index_put((d64,), torch.where(
-                    hit_d, choice_d, assigned[d64]))
-                chosen = chosen.index_put((d64,), torch.where(
-                    hit_d, chosen_d, chosen[d64]))
-                round_of = round_of.index_put((d64,), torch.where(
-                    hit_d, key, round_of[d64]))
-                drained = hit_d.any()
+                at_d = (bi, dsel)
+                assigned = assigned.index_put(at_d, torch.where(
+                    hit_d, choice_d, assigned[at_d]))
+                chosen = chosen.index_put(at_d, torch.where(
+                    hit_d, chosen_d, chosen[at_d]))
+                round_of = round_of.index_put(at_d, torch.where(
+                    hit_d, key, round_of[at_d]))
+                drained = hit_d.any(dim=-1)
                 if explain:
-                    drained_n = hit_d.sum()
-        pend = (assigned < 0) & pods.valid & ~tried
+                    drained_n = hit_d.sum(dim=-1)
+        pend = (assigned < 0) & pods.valid & ~tried & lv
         sel = ops.top_by_rank(pend, order, C)[0]
-        s64, s32 = sel.long(), sel.to(torch.int32)
-        real = pend[s64]
-        req_sel = pods.requests[s64]
-        rank_sel = rank[s64]
+        at = (bi, sel)
+        s32 = sel.to(torch.int32)
+        real = pend[at]
+        req_sel = pods.requests[at]
+        rank_sel = rank[at]
         with stats.span("preempt plain evaluation"):
             (feas_pl, masked_pl, n_plain, sc_plain, pair_ok,
              view) = _bidder_rows(cfg, snap, static, sel, used, st, dom_s,
@@ -2798,47 +2916,34 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
             else:
                 snap_v, static_v = view
                 mask_rows, rows = static_v.mask, None
-        hp_sel = has_pair[s64]
+        hp_sel = has_pair[at]
         plain_excl = can_plain & hp_sel
         plain_cap = can_plain & ~hp_sel
         # Gang members never preempt.
-        pre_active = real & ~can_plain & (pods.group[s64] < 0)
+        pre_active = real & ~can_plain & (pods.group[at] < 0)
         with stats.span("preempt auction"):
             (target, claimed, takes_evict, vidx_t, freed_req, usage,
              could_bid) = kpre.preempt_auction(
-                cfg, snap, pctx, prio[s64], req_sel, mask_rows, used,
+                cfg, snap, pctx, prio[at], req_sel, mask_rows, used,
                 evicted, plain_excl, n_plain, rank=rank_sel, ops=ops,
                 rows=rows, pair_ok=pair_ok, pre_active=pre_active)
         could_bid = could_bid | plain_cap
         with stats.span("preempt budget gate"):
-            keep = claimed
-            if GP:
-                # The claims as a rank-ordered prefix (sel is in rank
-                # order) while each touched budget's claimed-cumulative
-                # use stays inside what it has left; a bid whose own use
-                # overdraws (a declared violation) keeps regardless.
-                rem = kpre.pdb_remaining(snap, evicted)[None, :] + 1e-6
-                use_cl = torch.where(claimed[:, None], usage, 0)
-                cum = torch.cumsum(use_cl, dim=0).to(torch.float32)
-                use_f = usage.to(torch.float32)
-                fits_budget = torch.where(usage > 0, cum <= rem,
-                                          True).all(dim=1)
-                alone = (use_f > rem).any(dim=1)
-                keep = claimed & (fits_budget | alone)
+            keep = _budget_gate(snap, evicted, claimed, usage)
             keep_evict = keep & takes_evict
             evicted2 = _evict_round(evicted, vidx_t, keep_evict)
         tgt_c = target.clamp(0, N - 1).long()
         with stats.span("preempt plain commit"):
-            taken = torch.zeros(N + 1, dtype=torch.bool, device=dev)
-            taken[torch.where(keep, tgt_c, N)] = True
-            taken = taken[:N]
-            feas_c = feas_pl & plain_cap[:, None] & ~taken[None, :]
+            taken = torch.zeros((B, N + 1), dtype=torch.bool, device=dev)
+            taken[bi, torch.where(keep, tgt_c, N)] = True
+            taken = taken[:, :N]
+            feas_c = feas_pl & plain_cap[..., None] & ~taken[:, None, :]
             masked_c = torch.where(feas_c, masked_pl, neg)
             topv, topi, pick = ops.row_topk(masked_c, K, seeded,
                                             cfg.tie_seed, s32)
             _, choice_pl, chosen_pl = _deal_commit(
                 alloc, req_sel, used, feas_c, masked_c,
-                plain_cap & (topv[:, 0] > NEG_INF), rank_sel, topv, topi,
+                plain_cap & (topv[..., 0] > NEG_INF), rank_sel, topv, topi,
                 tie_pick=pick, rank_is_sorted=True, ops=ops, stats=stats)
         keep_pl = choice_pl >= 0
         keep_all = keep | keep_pl
@@ -2849,7 +2954,7 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                 # (JAX's choice: every check then equals the audit's
                 # no-eviction arm). Keeps revert to pending until the
                 # end-of-round state validates them all; their victims
-                # stay evicted.
+                # stay evicted. Each tenant runs its own fixpoint.
                 if compact_pv:
                     snap_pv, static_pv = snap_v, static_v
                     choice_pv = torch.where(keep_all, target_all, -1)
@@ -2857,18 +2962,19 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                 else:
                     snap_pv, static_pv = snap, static
                     choice_pv = torch.full(
-                        (P,), -1, dtype=torch.int32, device=dev).index_put(
-                        (s64,), torch.where(keep_all, target_all, -1))
+                        (B, P), -1, dtype=torch.int32,
+                        device=dev).index_put(at, torch.where(
+                            keep_all, target_all, -1))
                     keep_pv = torch.zeros(
-                        P, dtype=torch.bool, device=dev).index_put(
-                        (s64,), keep_all)
+                        (B, P), dtype=torch.bool, device=dev).index_put(
+                        at, keep_all)
                     hp_pv, rank_pv = has_pair, rank
                 sig_pv = static_pv.sig_match
                 st = ops.pair_commit(snap_pv, st, sig_pv, dom_s, choice_pv,
                                      keep_pv, 1.0)
                 kept = keep_pv
-                flag = (keep_pv & hp_pv).any()
-                while stats.read(flag):
+                flag = (keep_pv & hp_pv).any(dim=-1)
+                while stats.read(flag.any()):
                     ia_ok = ops.ia_ok_at_choice(
                         snap_pv, st, sig_pv, dom_s, choice_pv,
                         torch.where(kept, choice_pv, -1))
@@ -2876,68 +2982,91 @@ def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                     bad = bad | (kept & _spread_excess_mask(
                         snap_pv, static_pv.aff_ok, rank_pv, choice_pv, kept,
                         st, dom_s, ops))
+                    bad = bad & flag[:, None]
                     st = ops.pair_commit(snap_pv, st, sig_pv, dom_s,
                                          choice_pv, bad, -1.0)
                     kept = kept & ~bad
-                    flag = bad.any()
-                valid = kept if compact_pv else kept[s64]
+                    flag = bad.any(dim=-1)
+                valid = kept if compact_pv else kept[at]
                 keep = keep & valid
                 keep_pl = keep_pl & valid
                 keep_all = keep | keep_pl
         with stats.span("preempt used"):
-            # One claimant a node: every row that does not keep adds an
-            # exact 0.0, so the adds are exact in any order.
-            used = used.index_add(0, tgt_c, torch.where(
-                keep_evict[:, None], -freed_req, zero))
-            used = used.index_add(0, tgt_c, torch.where(keep[:, None],
-                                                        req_sel, zero))
-            used = ops.node_add(used, choice_pl, keep_pl, req_sel, rank_sel)
-        assigned = assigned.index_put((s64,), torch.where(
-            keep_all, target_all, assigned[s64]))
+            # One claimant a node of a tenant: every row that does not
+            # keep adds an exact 0.0, so the adds are exact in any order.
+            slot = (bi * N + tgt_c).reshape(-1)
+            flat = used.reshape(B * N, R)
+            for add in (torch.where(keep_evict[..., None], -freed_req, zero),
+                        torch.where(keep[..., None], req_sel, zero)):
+                flat = flat.index_add(0, slot, add.reshape(-1, R))
+            used = ops.node_add(flat.reshape(B, N, R), choice_pl, keep_pl,
+                                req_sel, rank_sel)
+        assigned = assigned.index_put(at, torch.where(
+            keep_all, target_all, assigned[at]))
         # Preempted placements carry no score (as in parity mode).
-        chosen = chosen.index_put((s64,), torch.where(
+        chosen = chosen.index_put(at, torch.where(
             keep_pl, chosen_pl, torch.where(
                 keep & can_plain, sc_plain,
-                torch.where(keep, neg, chosen[s64]))))
-        round_of = round_of.index_put((s64,), torch.where(
-            keep_all, key, round_of[s64]))
+                torch.where(keep, neg, chosen[at]))))
+        round_of = round_of.index_put(at, torch.where(
+            keep_all, key, round_of[at]))
         if explain:
             with stats.span("preempt explain"):
-                # Victim attribution: keep_evict is the evictions' own
-                # mask (pre-validation), the sentinel slot M takes the
-                # rest.
-                vmask = keep_evict[:, None] & (vidx_t < M)
-                vslot = torch.where(vmask, vidx_t, M).long().reshape(-1)
-                for acc, val in ((evictor, s32[:, None]), (evict_rd, key)):
-                    src = torch.where(vmask, val, -1).to(torch.int32)
-                    hit = torch.full((M + 1,), -1, dtype=torch.int32,
-                                     device=dev).scatter_reduce(
-                        0, vslot, src.reshape(-1), "amax")
-                    torch.maximum(acc, hit[:M], out=acc)
-                ev_round = _evict_round(torch.zeros_like(evicted), vidx_t,
-                                        keep_evict)
-                spent = (torch.where(keep_evict[:, None], usage, 0).sum()
-                         if GP else torch.zeros((), dtype=torch.int64,
-                                                device=dev))
-                astats[r] = torch.stack([
-                    real.sum(), (real & can_plain).sum(), pre_active.sum(),
-                    claimed.sum(), keep_evict.sum(),
-                    (keep_all & ~takes_evict).sum(),
-                    torch.as_tensor(drained_n, device=dev),
-                    ev_round.sum(), spent, (real & ~could_bid).sum(),
-                ]).to(torch.float32)
+                ex = _explain_round(ex, bi, r_d, key, s32, vidx_t,
+                                    keep_evict, usage, GP, evicted, (
+                                        real, real & can_plain, pre_active,
+                                        claimed, keep_evict,
+                                        keep_all & ~takes_evict),
+                                    drained_n, real & ~could_bid)
         evicted = evicted2
         # A kept pod is placed, a pod with no placement and no prefix
         # anywhere is spent until the state changes, a deferred one bids
-        # again; any keep or drain placement clears the spent marks.
+        # again; any keep or drain placement clears the tenant's spent
+        # marks.
         newly = real & (keep_all | ~could_bid)
-        reset = keep_all.any() | drained
-        tried = torch.where(reset, False,
-                            tried.index_put((s64,), tried[s64] | newly))
-        progress = reset | newly.any()
-        r += 1
-    out = (used, assigned, st, evicted, round_of, chosen, r)
-    return out + ((evictor, evict_rd, astats),) if explain else out
+        reset = keep_all.any(dim=-1) | drained
+        tried = torch.where(reset[:, None], False,
+                            tried.index_put(at, tried[at] | newly))
+        progress = reset | newly.any(dim=-1)
+        if not live_h.all():
+            (used, assigned, st, evicted, round_of, chosen, tried,
+             ex) = _select_tenants(live, (used, assigned, st, evicted,
+                                          round_of, chosen, tried, ex), old)
+        r_h = r_h + live_h
+        r_d = r_d + live.to(torch.int32)
+    stats.preempt_rounds = int(r_h[0]) if B == 1 else r_h.tolist()
+    out = (used, assigned, st, evicted, round_of, chosen, r_d, r_h)
+    return out + ((ex,) if explain else ())
+
+
+def _explain_round(ex, bi, r_d, key, s32, vidx_t, keep_evict, usage, GP,
+                   evicted, counted, drained_n, no_bid):
+    """The explained solve's provenance after one round, tenant-batched
+    and out of place: keep_evict is the evictions' own mask
+    (pre-validation), a scatter-max over a -1 start names each victim's
+    evicting pod and commit key (the sentinel slot M takes the rest),
+    and the round's counts fill its row of the auction table."""
+    evictor, evict_rd, astats = ex
+    B, M = evicted.shape
+    vmask = keep_evict[..., None] & (vidx_t < M)
+    vslot = (torch.where(vmask, vidx_t, M).long()
+             + (M + 1) * bi[..., None]).reshape(-1)
+    acc = []
+    for prev, val in ((evictor, s32[..., None]), (evict_rd, key[..., None])):
+        src = torch.where(vmask, val, -1).to(torch.int32)
+        hit = torch.full((B * (M + 1),), -1, dtype=torch.int32,
+                         device=prev.device).scatter_reduce(
+            0, vslot, src.reshape(-1), "amax").reshape(B, M + 1)
+        acc.append(torch.maximum(prev, hit[:, :M]))
+    ev_round = _evict_round(torch.zeros_like(evicted), vidx_t, keep_evict)
+    spent = (torch.where(keep_evict[..., None], usage, 0).sum(dim=(-2, -1))
+             if GP else torch.zeros(B, dtype=torch.int64, device=bi.device))
+    row = torch.stack([*(m.sum(-1) for m in counted), drained_n,
+                       ev_round.sum(-1), spent, no_bid.sum(-1)],
+                      dim=-1).to(torch.float32)
+    astats = astats.index_put(
+        (bi[:, 0], r_d.long().clamp(max=astats.shape[1] - 1)), row)
+    return acc[0], acc[1], astats
 
 
 def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
@@ -2954,9 +3083,9 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
     evictor [M], evict_round [M], the auction table; see
     _preempt_rounds), with the same placements and host reads.
 
-    A tenant batch (a leading [B] axis; tenants.solve_many, which refuses
-    preemption) runs the rounds of every tenant at once, with or without
-    signatures, then gates every tenant's gangs; rounds is then [B]."""
+    A tenant batch (a leading [B] axis; tenants.solve_many) runs the
+    rounds of every tenant at once, with or without signatures and
+    preemption, then gates every tenant's gangs; rounds is then [B]."""
     ops = ops or KERNELS
     stats = stats or RoundStats()
     if static is None:
@@ -2997,8 +3126,7 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                                 dom_s, ops, stats, explain))
         ex = more[0] if explain else None
         stats.preempt_reads = stats.host_reads - reads0
-        stats.preempt_rounds = pre_r
-        rounds += pre_r
+        rounds = rounds + pre_r
     used, assigned, chosen, _, rolled = gang_rollback(
         snap, used, assigned, chosen, st, static.sig_match, dom_s, ops)
     round_of = torch.where(rolled, -1, round_of)

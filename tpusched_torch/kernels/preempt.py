@@ -50,6 +50,14 @@ Three kernels carry it, each with a plain twin:
 Every V-long f32 prefix is summed from 0.0 left to right (JAX leaves
 the order of its cumsums to XLA), and the capacity a kept prefix frees
 is that prefix's own sum, the value its fit was tested with.
+
+Tenant axis (tenants.solve_many, JAX's vmap of the same functions):
+every function here but K15's standalone `preempt_step` also takes a
+leading [B] axis on the snapshot and the state. Each tenant sorts its
+own victims and gets its own thread-interleaved [Mp] layout, budgets
+and K15 scratch; the auction's thresholds are each tenant's own
+quantiles; K16 and K17 launch once over the B tenants' lanes and rows,
+K18 with one CTA a tenant. The plain versions go tenant by tenant.
 """
 
 from __future__ import annotations
@@ -60,17 +68,18 @@ import torch
 
 from tpusched_torch import _build
 from tpusched_torch.config import EngineConfig
-from tpusched_torch.kernels import check, ptrs, stream_of
+from tpusched_torch.kernels import check, per_tenant, ptrs, stream_of
 from tpusched_torch.qos import evict_cost_raw, victim_effective_priority
-from tpusched_torch.snapshot import ClusterSnapshot
+from tpusched_torch.snapshot import ClusterSnapshot, _Tree
 
 THREADS = 1024  # K15's CTA: the prefix sums chunk the victims over it
 
 
 @dataclasses.dataclass
-class PreemptCtx:
+class PreemptCtx(_Tree):
     """Snapshot-static victim order and costs (the running pods sorted
-    by (node, cost), invalid ones last in a sentinel segment N)."""
+    by (node, cost), invalid ones last in a sentinel segment N); a tenant
+    batch gives every field a leading [B] axis."""
 
     perm: torch.Tensor       # [M] int32 sorted position -> running pod
     node_s: torch.Tensor     # [M] int32 node of the sorted victim (N: none)
@@ -85,15 +94,17 @@ def _victim_order(cfg: EngineConfig, snap: ClusterSnapshot):
     """The running pods in (node, cost) order, JAX's `lexsort((cost,
     node))` as two stable library sorts, by cost and then by node:
     (cost [M] shifted positive, vprio [M], perm [M] int64, node_s [M]
-    int32 with N for no node, seg_start [M] int64)."""
+    int32 with N for no node, seg_start [M] int64); a tenant batch sorts
+    each tenant's [M] row on its own ([B, M] each)."""
     run = snap.running
-    M = run.valid.shape[0]
-    N = snap.nodes.valid.shape[0]
+    M = run.valid.shape[-1]
+    N = snap.nodes.valid.shape[-1]
     dev = run.valid.device
     vprio = victim_effective_priority(cfg, run.priority, run.slack)
     raw = evict_cost_raw(cfg, run.priority, run.slack)
     inf = torch.full((), float("inf"), dtype=torch.float32, device=dev)
-    mn = torch.where(run.valid, raw, inf).amin() if M else inf
+    mn = (torch.where(run.valid, raw, inf).amin(dim=-1, keepdim=True) if M
+          else inf)
     mn = torch.where(torch.isfinite(mn), mn, torch.zeros_like(mn))
     # Shifted positive (+1 a victim): prefix costs strictly increase,
     # which also prefers fewer victims.
@@ -101,38 +112,44 @@ def _victim_order(cfg: EngineConfig, snap: ClusterSnapshot):
     node_m = torch.where(run.valid & (run.node_idx >= 0), run.node_idx,
                          torch.full((), N, dtype=torch.int32, device=dev))
     # + 0.0 makes -0.0 sort with +0.0 (a CUDA radix sort orders them).
-    by_cost = torch.sort(cost + 0.0, stable=True).indices
-    perm = by_cost[torch.sort(node_m[by_cost], stable=True).indices]
-    node_s = node_m[perm]
+    by_cost = torch.sort(cost + 0.0, dim=-1, stable=True).indices
+    perm = by_cost.gather(-1, torch.sort(node_m.gather(-1, by_cost), dim=-1,
+                                         stable=True).indices)
+    node_s = node_m.gather(-1, perm)
     idx = torch.arange(M, device=dev)
-    boundary = torch.ones(M, dtype=torch.bool, device=dev)
-    boundary[1:] = node_s[1:] != node_s[:-1]
-    seg_start = torch.cummax(torch.where(boundary, idx, 0), dim=0).values
+    boundary = torch.ones(node_s.shape, dtype=torch.bool, device=dev)
+    boundary[..., 1:] = node_s[..., 1:] != node_s[..., :-1]
+    seg_start = torch.cummax(torch.where(boundary, idx, 0), dim=-1).values
     return cost, vprio, perm, node_s, seg_start
 
 
 def precompute(cfg: EngineConfig, snap: ClusterSnapshot) -> PreemptCtx:
-    """JAX `precompute`, on the snapshot's device."""
+    """JAX `precompute`, on the snapshot's device (per tenant for a
+    batch)."""
     run = snap.running
     cost, vprio, perm, node_s, seg_start = _victim_order(cfg, snap)
+    R = run.requests.shape[-1]
     return PreemptCtx(
         perm=perm.to(torch.int32), node_s=node_s.contiguous(),
-        seg_start=seg_start.to(torch.int32), cost_s=cost[perm],
-        vprio_s=vprio[perm], req_s=run.requests[perm].contiguous(),
-        pdb_s=run.pdb_group[perm].contiguous())
+        seg_start=seg_start.to(torch.int32), cost_s=cost.gather(-1, perm),
+        vprio_s=vprio.gather(-1, perm),
+        req_s=run.requests.gather(
+            -2, perm[..., None].expand(*perm.shape, R)).contiguous(),
+        pdb_s=run.pdb_group.gather(-1, perm).contiguous())
 
 
 def pdb_remaining(snap: ClusterSnapshot, evicted: torch.Tensor) -> torch.Tensor:
-    """[GP] f32: each budget's disruptions allowed less the evictions
-    made so far (0/1 adds, exact in any order)."""
+    """[GP] f32 ([B, GP] for a tenant batch): each budget's disruptions
+    allowed less the evictions made so far (0/1 adds, exact in any
+    order)."""
     run = snap.running
     pdb = run.pdb_group
-    gp = snap.pdb_allowed.shape[0]
-    consumed = torch.zeros(gp, dtype=torch.float32, device=pdb.device)
-    if gp:
+    consumed = torch.zeros(snap.pdb_allowed.shape, dtype=torch.float32,
+                           device=pdb.device)
+    if snap.pdb_allowed.shape[-1]:
         hit = evicted & (pdb >= 0) & run.valid
-        consumed.index_add_(0, pdb.clamp(min=0).long(),
-                            hit.to(torch.float32))
+        consumed.scatter_add_(-1, pdb.clamp(min=0).long(),
+                              hit.to(torch.float32))
     return snap.pdb_allowed - consumed
 
 
@@ -258,20 +275,23 @@ def _padded(M: int) -> tuple[int, int]:
     return c, c * THREADS
 
 
-def interleave(x: torch.Tensor, fill) -> torch.Tensor:
+def interleave(x: torch.Tensor, fill, lead: int = 0) -> torch.Tensor:
     """K15's thread-interleaved layout of a sorted victim array: [M] ->
     [Mp], [M, R] -> [R, Mp], victim i at (i % chunk) * 1024 + i // chunk,
     so that the j-th victims of the threads' contiguous chunks sit side by
-    side (coalesced loads); padding holds `fill`."""
-    M = x.shape[0]
+    side (coalesced loads); padding holds `fill`. lead = 1: a tenant
+    batch, each tenant's row laid out on its own ([B, M] -> [B, Mp],
+    [B, M, R] -> [B, R, Mp])."""
+    M = x.shape[lead]
     c, Mp = _padded(M)
-    pad = torch.full((Mp - M, *x.shape[1:]), fill, dtype=x.dtype,
+    pre, post = x.shape[:lead], x.shape[lead + 1:]
+    pad = torch.full((*pre, Mp - M, *post), fill, dtype=x.dtype,
                      device=x.device)
-    xs = torch.cat([x, pad]).reshape(THREADS, c, *x.shape[1:])
-    xs = xs.transpose(0, 1)                                  # [c, T, ...]
-    if x.dim() == 2:
-        return xs.permute(2, 0, 1).reshape(x.shape[1], Mp).contiguous()
-    return xs.reshape(Mp).contiguous()
+    xs = torch.cat([x, pad], dim=lead).reshape(*pre, THREADS, c, *post)
+    xs = xs.transpose(lead, lead + 1)                        # [.., c, T, ...]
+    if post:
+        return xs.movedim(-1, lead).reshape(*pre, post[0], Mp).contiguous()
+    return xs.reshape(*pre, Mp).contiguous()
 
 
 def deinterleave(x: torch.Tensor, M: int) -> torch.Tensor:
@@ -282,32 +302,34 @@ def deinterleave(x: torch.Tensor, M: int) -> torch.Tensor:
 
 def _victim_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
                  ctx: PreemptCtx) -> tuple:
-    """Check the victim table and put it in K15's layout: (M, GP, its
-    tensors, the margin)."""
+    """Check the victim table and put it in K15's layout, each tenant's
+    rows on their own for a batch: (M, GP, its tensors, the margin)."""
     dev = ctx.perm.device
-    M, R = ctx.req_s.shape
-    N = snap.nodes.valid.shape[0]
+    lead = ctx.perm.shape[:-1]             # () or (B,): the tenant axis
+    M, R = ctx.req_s.shape[-2:]
+    N = snap.nodes.valid.shape[-1]
     for t in (ctx.perm, ctx.node_s, ctx.seg_start, ctx.pdb_s):
-        check(k, dev, t, torch.int32, (M,))
+        check(k, dev, t, torch.int32, (*lead, M))
     for t in (ctx.cost_s, ctx.vprio_s):
-        check(k, dev, t, torch.float32, (M,))
-    check(k, dev, ctx.req_s, torch.float32, (M, R))
-    return (M, snap.pdb_allowed.shape[0], interleave(ctx.perm, 0),
-            interleave(ctx.node_s, N),
-            interleave(ctx.seg_start, 0), interleave(ctx.cost_s, 0.0),
-            interleave(ctx.vprio_s, 0.0), interleave(ctx.req_s, 0.0),
-            interleave(ctx.pdb_s, -1), float(cfg.qos.preemption_margin))
+        check(k, dev, t, torch.float32, (*lead, M))
+    check(k, dev, ctx.req_s, torch.float32, (*lead, M, R))
+    n = len(lead)
+    return (M, snap.pdb_allowed.shape[-1], interleave(ctx.perm, 0, n),
+            interleave(ctx.node_s, N, n),
+            interleave(ctx.seg_start, 0, n), interleave(ctx.cost_s, 0.0, n),
+            interleave(ctx.vprio_s, 0.0, n), interleave(ctx.req_s, 0.0, n),
+            interleave(ctx.pdb_s, -1, n), float(cfg.qos.preemption_margin))
 
 
-def victim_scratch(M: int, R: int, dev: torch.device) -> tuple:
+def victim_scratch(M: int, R: int, dev: torch.device, B: int = 1) -> tuple:
     """K15's device scratch, in its layout (`deinterleave` reads it in
     sorted order): eligibility [Mp] bytes, the [R + 1, Mp] f32 segment
     sums (requests, then cost) and the [Mp] int32 segment sums of the
-    violation flags."""
+    violation flags; B tenants' blocks one after the other."""
     Mp = _padded(M)[1]
-    return (torch.empty(Mp, dtype=torch.uint8, device=dev),
-            torch.empty((R + 1) * Mp, dtype=torch.float32, device=dev),
-            torch.empty(Mp, dtype=torch.int32, device=dev))
+    return (torch.empty(B * Mp, dtype=torch.uint8, device=dev),
+            torch.empty(B * (R + 1) * Mp, dtype=torch.float32, device=dev),
+            torch.empty(B * Mp, dtype=torch.int32, device=dev))
 
 
 def preempt_step(cfg: EngineConfig, snap: ClusterSnapshot, ctx: PreemptCtx,
@@ -363,11 +385,12 @@ CLAIM_ITERS = 6  # the claim iterations of a round (JAX's default)
 
 
 @dataclasses.dataclass
-class PreemptCtxNV:
+class PreemptCtxNV(_Tree):
     """The node-major victim table of the fast auction: per node its
     first V victims in ascending cost (the (node, cost) order of
     `precompute`), padded. A prefix that needs more than V evictions on
-    one node is out of the fast mode's reach (JAX's documented cap)."""
+    one node is out of the fast mode's reach (JAX's documented cap). A
+    tenant batch gives every field a leading [B] axis."""
 
     vreq: torch.Tensor    # [N, V, R] f32 victim requests
     vcost: torch.Tensor   # [N, V] f32 eviction cost, shifted positive
@@ -382,33 +405,45 @@ def precompute_nv(cfg: EngineConfig, snap: ClusterSnapshot,
     """JAX `precompute_nv`: the victims in `precompute`'s order, each at
     (its node, its position in the node's segment) of an [N + 1, V]
     table by a plain indexed scatter; victims past V and running pods on
-    no node go to the sentinel row N, which is dropped."""
+    no node go to the sentinel row N, which is dropped. A tenant batch
+    gives each tenant its own [N, V] table from its own order."""
     run = snap.running
-    M = run.valid.shape[0]
-    N = snap.nodes.valid.shape[0]
+    M = run.valid.shape[-1]
+    N = snap.nodes.valid.shape[-1]
+    lead = run.valid.shape[:-1]            # () or (B,): the tenant axis
     dev = run.valid.device
     V = max(1, min(cap, M))
     cost, vprio, perm, node_s, seg_start = _victim_order(cfg, snap)
     pos = torch.arange(M, device=dev) - seg_start
     ok = (node_s < N) & (pos < V)
-    tn = torch.where(ok, node_s.long(), N)
-    tv = torch.where(ok, pos, 0)
+    at = (torch.where(ok, node_s.long(), N), torch.where(ok, pos, 0))
+    if lead:
+        at = (torch.arange(lead[0], device=dev)[:, None].expand(ok.shape),
+              *at)
 
     def scat(vals: torch.Tensor, fill) -> torch.Tensor:
-        out = torch.full((N + 1, V, *vals.shape[1:]), fill, dtype=vals.dtype,
-                         device=dev)
-        keep = ok.reshape((M,) + (1,) * (vals.dim() - 1))
-        out[tn, tv] = torch.where(keep, vals, torch.full((), fill,
-                                                         dtype=vals.dtype,
-                                                         device=dev))
-        return out[:N].contiguous()
+        out = torch.full((*lead, N + 1, V, *vals.shape[ok.dim():]), fill,
+                         dtype=vals.dtype, device=dev)
+        keep = ok.reshape(ok.shape + (1,) * (vals.dim() - ok.dim()))
+        out[at] = torch.where(keep, vals, torch.full((), fill,
+                                                     dtype=vals.dtype,
+                                                     device=dev))
+        return out.narrow(len(lead), 0, N).contiguous()
 
-    vvalid = torch.zeros((N + 1, V), dtype=torch.bool, device=dev)
-    vvalid[tn, tv] = ok
+    def by(x: torch.Tensor) -> torch.Tensor:
+        """x in the victim order (x [.., M] or [.., M, R])."""
+        if x.dim() == perm.dim():
+            return x.gather(-1, perm)
+        return x.gather(-2, perm[..., None].expand(*perm.shape,
+                                                   x.shape[-1]))
+
+    vvalid = torch.zeros((*lead, N + 1, V), dtype=torch.bool, device=dev)
+    vvalid[at] = ok
     return PreemptCtxNV(
-        vreq=scat(run.requests[perm], 0.0), vcost=scat(cost[perm], 0.0),
-        vprio=scat(vprio[perm], float("inf")),
-        vpdb=scat(run.pdb_group[perm], -1), vvalid=vvalid[:N].contiguous(),
+        vreq=scat(by(run.requests), 0.0), vcost=scat(by(cost), 0.0),
+        vprio=scat(by(vprio), float("inf")),
+        vpdb=scat(by(run.pdb_group), -1),
+        vvalid=vvalid.narrow(len(lead), 0, N).contiguous(),
         vidx=scat(perm.to(torch.int32), M))
 
 
@@ -484,11 +519,14 @@ def prio_thresholds(p_prio: torch.Tensor, active: torch.Tensor,
     linspace(0, 1, buckets, endpoint=False))` in the installed JAX's
     linear-interpolation formula, with explicit f32 operations (the same
     code on every device; `torch.nanquantile` interpolates with `lerp`,
-    which rounds differently on CUDA). NaN where no bidder is active."""
+    which rounds differently on CUDA). NaN where no bidder is active. A
+    tenant batch ([B, C]) gives each tenant the quantiles of its own
+    active bidders, [B, buckets]."""
     dev = p_prio.device
     nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
-    vals = torch.sort(torch.where(active, p_prio, nan)).values   # NaN last
-    n = active.sum().to(torch.float32)
+    vals = torch.sort(torch.where(active, p_prio, nan),
+                      dim=-1).values                         # NaN last
+    n = active.sum(dim=-1, keepdim=True).to(torch.float32)
     q = torch.tensor([b / buckets for b in range(buckets)],
                      dtype=torch.float32, device=dev) * (n - 1.0)
     low, high = torch.floor(q), torch.ceil(q)
@@ -497,14 +535,15 @@ def prio_thresholds(p_prio: torch.Tensor, active: torch.Tensor,
     top = n - 1.0
     low = torch.maximum(torch.zeros_like(low), torch.minimum(low, top))
     high = torch.maximum(torch.zeros_like(high), torch.minimum(high, top))
-    return vals[low.long()] * lw + vals[high.long()] * hw
+    return (vals.gather(-1, low.long()) * lw
+            + vals.gather(-1, high.long()) * hw)
 
 
 def bucket_of(thr: torch.Tensor, p_prio: torch.Tensor) -> torch.Tensor:
-    """[C] int32: each bidder's bucket, the largest b with thr[b] <=
-    p_prio (a NaN threshold compares false: bucket 0)."""
-    b = (thr[None, :] <= p_prio[:, None]).sum(dim=1) - 1
-    return b.clamp(0, thr.shape[0] - 1).to(torch.int32)
+    """[C] int32 ([B, C] for a batch): each bidder's bucket, the largest
+    b with thr[b] <= p_prio (a NaN threshold compares false: bucket 0)."""
+    b = (thr[..., None, :] <= p_prio[..., :, None]).sum(dim=-1) - 1
+    return b.clamp(0, thr.shape[-1] - 1).to(torch.int32)
 
 
 # -- K16: the bidder-independent lane tables ----------------------------------
@@ -517,7 +556,10 @@ def auction_tables_plain(ctx: PreemptCtxNV, evicted: torch.Tensor,
     that threshold (not evicted, vprio + margin < thr[l]) and their
     V-long prefixes (cum_req [L, N, V, R] f32, cum_cost [L, N, V] f32,
     cum_viol [L, N, V] int32), JAX `preempt_auction`'s node_rank
-    tables."""
+    tables; a tenant batch tenant by tenant ([B, L, N, V, ...])."""
+    if evicted.dim() == 2:
+        return per_tenant(auction_tables_plain, evicted.shape[0], ctx,
+                          evicted, thr, remaining, margin)
     base = _base_elig(ctx, evicted)
     elig = base[None] & (ctx.vprio[None] + margin < thr[:, None, None])
     zero = torch.zeros((), dtype=torch.float32, device=base.device)
@@ -529,13 +571,14 @@ def auction_tables_plain(ctx: PreemptCtxNV, evicted: torch.Tensor,
 
 
 def _check_ctx(k: str, dev, ctx: PreemptCtxNV, N: int, R: int) -> int:
-    V = ctx.vvalid.shape[1]
-    check(k, dev, ctx.vreq, torch.float32, (N, V, R))
-    check(k, dev, ctx.vcost, torch.float32, (N, V))
-    check(k, dev, ctx.vprio, torch.float32, (N, V))
-    check(k, dev, ctx.vpdb, torch.int32, (N, V))
-    check(k, dev, ctx.vvalid, torch.bool, (N, V))
-    check(k, dev, ctx.vidx, torch.int32, (N, V))
+    lead = ctx.vvalid.shape[:-2]           # () or (B,): the tenant axis
+    V = ctx.vvalid.shape[-1]
+    check(k, dev, ctx.vreq, torch.float32, (*lead, N, V, R))
+    check(k, dev, ctx.vcost, torch.float32, (*lead, N, V))
+    check(k, dev, ctx.vprio, torch.float32, (*lead, N, V))
+    check(k, dev, ctx.vpdb, torch.int32, (*lead, N, V))
+    check(k, dev, ctx.vvalid, torch.bool, (*lead, N, V))
+    check(k, dev, ctx.vidx, torch.int32, (*lead, N, V))
     if V > 32 or R > 8:
         raise ValueError(f"{k}: V={V}, R={R}; the kernel takes V <= 32, "
                          "R <= 8")
@@ -545,28 +588,32 @@ def _check_ctx(k: str, dev, ctx: PreemptCtxNV, N: int, R: int) -> int:
 def auction_tables(ctx: PreemptCtxNV, evicted: torch.Tensor,
                    thr: torch.Tensor, remaining: torch.Tensor,
                    margin: float):
-    """Kernel K16 on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel K16 on CUDA tensors (one launch for a tenant batch), the
+    plain version on CPU tensors."""
     dev = ctx.vreq.device
     if dev.type == "cpu":
         return auction_tables_plain(ctx, evicted, thr, remaining, margin)
     k = "auction_tables"
-    N, V, R = ctx.vreq.shape
+    lead = evicted.shape[:-1]              # () or (B,): the tenant axis
+    N, V, R = ctx.vreq.shape[-3:]
     _check_ctx(k, dev, ctx, N, R)
-    L = thr.shape[0]
-    M = evicted.shape[0]
-    GP = remaining.shape[0]
-    check(k, dev, evicted, torch.bool, (M,))
-    check(k, dev, thr, torch.float32, (L,))
-    check(k, dev, remaining, torch.float32, (GP,))
-    cum_req = torch.empty((L, N, V, R), dtype=torch.float32, device=dev)
-    cum_cost = torch.empty((L, N, V), dtype=torch.float32, device=dev)
-    cum_viol = torch.empty((L, N, V), dtype=torch.int32, device=dev)
-    if L * N == 0:
+    L = thr.shape[-1]
+    M = evicted.shape[-1]
+    GP = remaining.shape[-1]
+    check(k, dev, evicted, torch.bool, (*lead, M))
+    check(k, dev, thr, torch.float32, (*lead, L))
+    check(k, dev, remaining, torch.float32, (*lead, GP))
+    cum_req = torch.empty((*lead, L, N, V, R), dtype=torch.float32,
+                          device=dev)
+    cum_cost = torch.empty((*lead, L, N, V), dtype=torch.float32, device=dev)
+    cum_viol = torch.empty((*lead, L, N, V), dtype=torch.int32, device=dev)
+    if cum_cost.numel() == 0:
         return cum_req, cum_cost, cum_viol
-    _build.launch("tpusched_auction_tables", L, N, V, R, M, GP, *ptrs((
-        ctx.vreq, ctx.vcost, ctx.vprio, ctx.vpdb, ctx.vvalid, ctx.vidx,
-        evicted, thr, remaining)), float(margin),
-        *ptrs((cum_req, cum_cost, cum_viol)), stream_of(dev))
+    _build.launch("tpusched_auction_tables", lead[0] if lead else 1, L, N, V,
+                  R, M, GP, *ptrs((
+                      ctx.vreq, ctx.vcost, ctx.vprio, ctx.vpdb, ctx.vvalid,
+                      ctx.vidx, evicted, thr, remaining)), float(margin),
+                  *ptrs((cum_req, cum_cost, cum_viol)), stream_of(dev))
     auction_tables.launches += 1
     return cum_req, cum_cost, cum_viol
 
@@ -583,7 +630,11 @@ def auction_ok_plain(mask: torch.Tensor, rows: torch.Tensor | None,
     """(ok [C, N] bool, active_any [C] bool): the nodes each bidder may
     preempt on, its static mask row (rows[c] of `mask`, or row c) and
     pairwise verdict (when given) on a valid node, for active bidders
-    only; and whether any is left."""
+    only; and whether any is left. A tenant batch tenant by tenant
+    ([B, C, N], rows index the tenant's own mask rows)."""
+    if pre_active.dim() == 2:
+        return per_tenant(auction_ok_plain, pre_active.shape[0], mask, rows,
+                          pair_ok, pre_active, node_valid)
     if rows is not None:
         mask = mask[rows.long()]
     ok = mask & node_valid[None, :] & pre_active[:, None]
@@ -595,30 +646,31 @@ def auction_ok_plain(mask: torch.Tensor, rows: torch.Tensor | None,
 def auction_ok(mask: torch.Tensor, rows: torch.Tensor | None,
                pair_ok: torch.Tensor | None, pre_active: torch.Tensor,
                node_valid: torch.Tensor):
-    """K17's auction_ok entry point on CUDA tensors, the plain version on
-    CPU tensors."""
+    """K17's auction_ok entry point on CUDA tensors (one launch for a
+    tenant batch), the plain version on CPU tensors."""
     dev = mask.device
     if dev.type == "cpu":
         return auction_ok_plain(mask, rows, pair_ok, pre_active, node_valid)
     k = "auction_ok"
-    Pm, N = mask.shape
-    C = pre_active.shape[0]
-    check(k, dev, mask, torch.bool, (Pm, N))
+    lead = pre_active.shape[:-1]           # () or (B,): the tenant axis
+    Pm, N = mask.shape[-2:]
+    C = pre_active.shape[-1]
+    check(k, dev, mask, torch.bool, (*lead, Pm, N))
     if rows is not None:
-        check(k, dev, rows, torch.int32, (C,))
+        check(k, dev, rows, torch.int32, (*lead, C))
     elif Pm != C:
         raise ValueError(f"{k}: {Pm} mask rows for {C} bidders")
     if pair_ok is not None:
-        check(k, dev, pair_ok, torch.bool, (C, N))
-    check(k, dev, pre_active, torch.bool, (C,))
-    check(k, dev, node_valid, torch.bool, (N,))
-    ok = torch.empty((C, N), dtype=torch.bool, device=dev)
-    any_ok = torch.empty((C,), dtype=torch.bool, device=dev)
-    if C * N == 0:
+        check(k, dev, pair_ok, torch.bool, (*lead, C, N))
+    check(k, dev, pre_active, torch.bool, (*lead, C))
+    check(k, dev, node_valid, torch.bool, (*lead, N))
+    ok = torch.empty((*lead, C, N), dtype=torch.bool, device=dev)
+    any_ok = torch.empty((*lead, C), dtype=torch.bool, device=dev)
+    if ok.numel() == 0:
         return ok, any_ok.fill_(False)
-    _build.launch("tpusched_auction_ok", C, N, *ptrs((
-        mask, rows, pair_ok, pre_active, node_valid, ok, any_ok)),
-        stream_of(dev))
+    _build.launch("tpusched_auction_ok", lead[0] if lead else 1, C, N, Pm,
+                  *ptrs((mask, rows, pair_ok, pre_active, node_valid, ok,
+                         any_ok)), stream_of(dev))
     auction_ok.launches += 1
     return ok, any_ok
 
@@ -638,7 +690,11 @@ def auction_rank_plain(cum_req: torch.Tensor, cum_cost: torch.Tensor,
     ranks, unless no allowed node is feasible there but one is in the
     optimistic lane (the last), which then ranks instead. Over the
     feasible allowed nodes with the fewest violations, bid = -cost, else
-    -inf. could: some allowed node is feasible in the optimistic lane."""
+    -inf. could: some allowed node is feasible in the optimistic lane.
+    A tenant batch tenant by tenant ([B, C, N] bids)."""
+    if lane.dim() == 2:
+        return per_tenant(auction_rank_plain, lane.shape[0], cum_req,
+                          cum_cost, cum_viol, lane, ok, used, alloc, p_req)
     L, N, V, R = cum_req.shape
     C = lane.shape[0]
     need = (used[None] + p_req[:, None, :]) - alloc[None]          # [C, N, R]
@@ -677,32 +733,34 @@ def auction_rank(cum_req: torch.Tensor, cum_cost: torch.Tensor,
                  cum_viol: torch.Tensor, lane: torch.Tensor,
                  ok: torch.Tensor, used: torch.Tensor, alloc: torch.Tensor,
                  p_req: torch.Tensor):
-    """Kernel K17 on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel K17 on CUDA tensors (one launch for a tenant batch), the
+    plain version on CPU tensors."""
     dev = ok.device
     if dev.type == "cpu":
         return auction_rank_plain(cum_req, cum_cost, cum_viol, lane, ok,
                                   used, alloc, p_req)
     k = "auction_rank"
-    L, N, V, R = cum_req.shape
-    C = lane.shape[0]
-    check(k, dev, cum_req, torch.float32, (L, N, V, R))
-    check(k, dev, cum_cost, torch.float32, (L, N, V))
-    check(k, dev, cum_viol, torch.int32, (L, N, V))
-    check(k, dev, lane, torch.int32, (C,))
-    check(k, dev, ok, torch.bool, (C, N))
-    check(k, dev, used, torch.float32, (N, R))
-    check(k, dev, alloc, torch.float32, (N, R))
-    check(k, dev, p_req, torch.float32, (C, R))
+    lead = lane.shape[:-1]                 # () or (B,): the tenant axis
+    L, N, V, R = cum_req.shape[-4:]
+    C = lane.shape[-1]
+    check(k, dev, cum_req, torch.float32, (*lead, L, N, V, R))
+    check(k, dev, cum_cost, torch.float32, (*lead, L, N, V))
+    check(k, dev, cum_viol, torch.int32, (*lead, L, N, V))
+    check(k, dev, lane, torch.int32, (*lead, C))
+    check(k, dev, ok, torch.bool, (*lead, C, N))
+    check(k, dev, used, torch.float32, (*lead, N, R))
+    check(k, dev, alloc, torch.float32, (*lead, N, R))
+    check(k, dev, p_req, torch.float32, (*lead, C, R))
     if V > 32 or R > 8:
         raise ValueError(f"{k}: V={V}, R={R}; the kernel takes V <= 32, "
                          "R <= 8")
-    bid = torch.empty((C, N), dtype=torch.float32, device=dev)
-    could = torch.empty((C,), dtype=torch.bool, device=dev)
-    if C * N == 0:
+    bid = torch.empty((*lead, C, N), dtype=torch.float32, device=dev)
+    could = torch.empty((*lead, C), dtype=torch.bool, device=dev)
+    if bid.numel() == 0:
         return bid, could.fill_(False)
-    _build.launch("tpusched_auction_rank", L, N, V, R, C, *ptrs((
-        cum_req, cum_cost, cum_viol, lane, ok, used, alloc, p_req, bid,
-        could)), stream_of(dev))
+    _build.launch("tpusched_auction_rank", lead[0] if lead else 1, L, N, V,
+                  R, C, *ptrs((cum_req, cum_cost, cum_viol, lane, ok, used,
+                               alloc, p_req, bid, could)), stream_of(dev))
     auction_rank.launches += 1
     return bid, could
 
@@ -735,7 +793,13 @@ def auction_claim_plain(topv: torch.Tensor, topi: torch.Tensor,
     claimed, takes_evict [C] bool; vidx_t [C, V] int32, the kept
     prefix's running pods, M elsewhere; freed_req [C, R] f32, that
     prefix's sum, the value its fit was tested with; usage [C, GP]
-    int32, its evictions per budget; could_bid [C] bool)."""
+    int32, its evictions per budget; could_bid [C] bool). A tenant batch
+    tenant by tenant (a leading [B] axis on every argument but margin
+    and GP)."""
+    if topi.dim() == 3:
+        return per_tenant(auction_claim_plain, topi.shape[0], topv, topi,
+                          can_plain, n_plain, rank, ctx, evicted, p_prio,
+                          p_req, used, alloc, could, margin, GP)
     C, K = topi.shape
     N, V = ctx.vvalid.shape
     M = evicted.shape[0]
@@ -803,46 +867,49 @@ def auction_claim(topv: torch.Tensor, topi: torch.Tensor,
                   p_req: torch.Tensor, used: torch.Tensor,
                   alloc: torch.Tensor, could: torch.Tensor, margin: float,
                   GP: int):
-    """Kernel K18 on CUDA tensors (one CTA of 1024 threads; the claim
-    state [N] in shared memory; the candidate lists transposed to
-    [K, C]; the entry point refuses more than 1024 bidders or more nodes
-    than its shared memory holds), the plain version on CPU tensors."""
+    """Kernel K18 on CUDA tensors (one CTA of 1024 threads a tenant; the
+    claim state [N] in shared memory; the candidate lists transposed to
+    [K, C]; the entry point refuses more than 1024 bidders a tenant or
+    more nodes than its shared memory holds), the plain version on CPU
+    tensors."""
     dev = topi.device
     if dev.type == "cpu":
         return auction_claim_plain(topv, topi, can_plain, n_plain, rank,
                                    ctx, evicted, p_prio, p_req, used, alloc,
                                    could, margin, GP)
     k = "auction_claim"
-    C, K = topi.shape
-    N, V, R = ctx.vreq.shape
-    M = evicted.shape[0]
+    lead = topi.shape[:-2]                 # () or (B,): the tenant axis
+    C, K = topi.shape[-2:]
+    N, V, R = ctx.vreq.shape[-3:]
+    M = evicted.shape[-1]
     _check_ctx(k, dev, ctx, N, R)
-    check(k, dev, topv, torch.float32, (C, K))
-    check(k, dev, topi, torch.int32, (C, K))
+    check(k, dev, topv, torch.float32, (*lead, C, K))
+    check(k, dev, topi, torch.int32, (*lead, C, K))
     for t in (can_plain, could):
-        check(k, dev, t, torch.bool, (C,))
+        check(k, dev, t, torch.bool, (*lead, C))
     for t in (n_plain, rank):
-        check(k, dev, t, torch.int32, (C,))
-    check(k, dev, evicted, torch.bool, (M,))
-    check(k, dev, p_prio, torch.float32, (C,))
-    check(k, dev, p_req, torch.float32, (C, R))
-    check(k, dev, used, torch.float32, (N, R))
-    check(k, dev, alloc, torch.float32, (N, R))
-    target = torch.empty((C,), dtype=torch.int32, device=dev)
-    claimed = torch.empty((C,), dtype=torch.bool, device=dev)
-    takes = torch.empty((C,), dtype=torch.bool, device=dev)
-    vidx_t = torch.empty((C, V), dtype=torch.int32, device=dev)
-    freed = torch.empty((C, R), dtype=torch.float32, device=dev)
-    usage = torch.zeros((C, GP), dtype=torch.int32, device=dev)
-    could_bid = torch.empty((C,), dtype=torch.bool, device=dev)
+        check(k, dev, t, torch.int32, (*lead, C))
+    check(k, dev, evicted, torch.bool, (*lead, M))
+    check(k, dev, p_prio, torch.float32, (*lead, C))
+    check(k, dev, p_req, torch.float32, (*lead, C, R))
+    check(k, dev, used, torch.float32, (*lead, N, R))
+    check(k, dev, alloc, torch.float32, (*lead, N, R))
+    target = torch.empty((*lead, C), dtype=torch.int32, device=dev)
+    claimed = torch.empty((*lead, C), dtype=torch.bool, device=dev)
+    takes = torch.empty((*lead, C), dtype=torch.bool, device=dev)
+    vidx_t = torch.empty((*lead, C, V), dtype=torch.int32, device=dev)
+    freed = torch.empty((*lead, C, R), dtype=torch.float32, device=dev)
+    usage = torch.zeros((*lead, C, GP), dtype=torch.int32, device=dev)
+    could_bid = torch.empty((*lead, C), dtype=torch.bool, device=dev)
     out = (target, claimed, takes, vidx_t, freed, usage, could_bid)
-    if C == 0:
+    if target.numel() == 0:
         return out
     # The kernel walks each bidder's list with a thread a bidder: [K, C]
     # puts a warp's candidates side by side.
-    topv_t, topi_t = topv.t().contiguous(), topi.t().contiguous()
-    _build.launch("tpusched_auction_claim", C, K, N, V, R, M, GP,
-                  CLAIM_ITERS, *ptrs((
+    topv_t = topv.transpose(-2, -1).contiguous()
+    topi_t = topi.transpose(-2, -1).contiguous()
+    _build.launch("tpusched_auction_claim", lead[0] if lead else 1, C, K, N,
+                  V, R, M, GP, CLAIM_ITERS, *ptrs((
                       topv_t, topi_t, can_plain, n_plain, rank, ctx.vreq,
                       ctx.vprio, ctx.vpdb, ctx.vvalid, ctx.vidx, evicted,
                       p_prio, p_req, used, alloc, could)), float(margin),
@@ -870,18 +937,22 @@ def preempt_auction(cfg: EngineConfig, snap: ClusterSnapshot,
     static masks ([C, N], or the rows `rows` of a wider mask), with
     pair_ok [C, N] their pairwise verdicts; rank [C] the bidders' claim
     precedence; pre_active [C] the bidders that may preempt (JAX's
-    callers clear the others' allowed rows). Returns K18's (target, claimed, takes_evict, vidx_t,
-    freed_req, usage, could_bid)."""
+    callers clear the others' allowed rows). A tenant batch carries a
+    leading [B] axis on the snapshot, the table, the state and every
+    bidder array (each tenant's bidders bid on its own cluster), and
+    each kernel launches once for all tenants. Returns K18's (target,
+    claimed, takes_evict, vidx_t, freed_req, usage, could_bid)."""
     if ops is None:
         from tpusched_torch.kernels.assign import KERNELS as ops
-    N = snap.nodes.valid.shape[0]
+    N = snap.nodes.valid.shape[-1]
     dev = p_prio.device
     margin = float(cfg.qos.preemption_margin)
     ok, any_ok = ops.auction_ok(allowed, rows, pair_ok, pre_active,
                                 snap.nodes.valid)
     thr = prio_thresholds(p_prio, any_ok & ~can_plain)
-    lanes = torch.cat([thr, torch.full((1,), float("inf"),
-                                       dtype=torch.float32, device=dev)])
+    lanes = torch.cat([thr, torch.full((*thr.shape[:-1], 1), float("inf"),
+                                       dtype=torch.float32, device=dev)],
+                      dim=-1)
     remaining = pdb_remaining(snap, evicted).contiguous()
     tables = ops.auction_tables(ctx, evicted, lanes, remaining, margin)
     bid, could = ops.auction_rank(*tables, bucket_of(thr, p_prio), ok, used,
@@ -891,4 +962,4 @@ def preempt_auction(cfg: EngineConfig, snap: ClusterSnapshot,
                              rank.to(torch.int32), ctx,
                              evicted, p_prio, p_req, used,
                              snap.nodes.allocatable, could, margin,
-                             snap.pdb_allowed.shape[0])
+                             snap.pdb_allowed.shape[-1])

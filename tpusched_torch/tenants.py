@@ -14,11 +14,14 @@ which is a batch axis:
     state while the others go on.
 
 Every tenant's result equals the solo `Engine.solve` of its snapshot bit
-for bit. The batch covers configs 1-4 in both modes: pairwise signatures
+for bit. The batch covers configs 1-5 in both modes: pairwise signatures
 (topology spread, inter-pod affinity; K4's pairwise variant, K9-K14 and
 the signature rounds, each tenant handing off to compacted rounds at its
-own frontier) and gangs (each tenant's own quorums). Preemption under
-the tenant axis is ROADMAP A12b, ring_counts the mesh's A14.
+own frontier), gangs (each tenant's own quorums) and preemption with
+PodDisruptionBudgets (K4's preemption variants with K15 inside, one CTA
+a tenant over its own victim table; the fast auction rounds with K16-K18
+over the tenant axis, each tenant's own thresholds, budgets, round
+counter and commit keys). ring_counts needs the mesh (ROADMAP A14).
 
 Alignment requirement: all tenants share identical bucket shapes; build
 them with one explicit `Buckets` floor (S is the bucket, not the count
@@ -80,9 +83,6 @@ def _refuse(cfg: EngineConfig, stacked: ClusterSnapshot) -> None:
     if cfg.ring_counts:
         raise NotImplementedError(
             "solve_many: ring_counts=True needs a device mesh (ROADMAP A14)")
-    if cfg.preemption:
-        raise NotImplementedError(
-            "solve_many: preemption under the tenant axis is ROADMAP A12b")
 
 
 def solve_many(cfg: EngineConfig, stacked, device=None,
@@ -95,7 +95,9 @@ def solve_many(cfg: EngineConfig, stacked, device=None,
     "cuda" (the default; raises without CUDA) or "cpu", which runs every
     kernel's plain version (the tests). ops: the kernel table (PLAIN runs
     the whole batch without a kernel, to compare). stats: collects the
-    fast loops' host reads, one a loop step for all tenants."""
+    fast loops' host reads, one a loop step for all tenants (with
+    preemption, stats.preempt_rounds lists each tenant's auction
+    rounds)."""
     _refuse(cfg, stacked)
     if device is None:
         if not torch.cuda.is_available():
