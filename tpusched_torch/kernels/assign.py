@@ -2706,23 +2706,6 @@ def _bidder_rows(cfg: EngineConfig, snap: ClusterSnapshot,
     return feas, masked, n_plain, sc, pair_ok, view
 
 
-def _select_tenants(live: torch.Tensor, new, old):
-    """Each tenant's new state where live[b], its old one elsewhere
-    (tensors with a leading [B] axis, or trees of them; None stays
-    None): jax.vmap's while_loop keeps a finished tenant's carry."""
-    if new is None:
-        return None
-    if isinstance(new, torch.Tensor):
-        return torch.where(live.reshape(-1, *(1,) * (new.dim() - 1)), new,
-                           old)
-    if isinstance(new, tuple):
-        return tuple(_select_tenants(live, n, o) for n, o in zip(new, old))
-    return dataclasses.replace(new, **{
-        f.name: _select_tenants(live, getattr(new, f.name),
-                                getattr(old, f.name))
-        for f in dataclasses.fields(new)})
-
-
 def _budget_gate(snap: ClusterSnapshot, evicted: torch.Tensor,
                  claimed: torch.Tensor, usage: torch.Tensor) -> torch.Tensor:
     """The claims kept under the PodDisruptionBudgets, [C] bool ([B, C]
@@ -2812,14 +2795,14 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
     counter is below _PREEMPT_MAX_ROUNDS (one `RoundStats.read_each` of
     the [B] flags a round, none before the first), each tenant's keeps
     take its own key base_rounds[b] + r[b], and a tenant whose loop has
-    ended keeps its state bit for bit: it has no pending row (nothing
-    drains, bids, commits or is tried there), and when any tenant has
-    ended the round's state is selected per tenant besides. Budgets,
-    the budget gate's prefix, `tried` and the pairwise fixpoint (one
-    read a pass for all tenants, a tenant that reverted nothing reverts
-    nothing more) are per tenant; the claim-exclusive adds and the
-    eviction marks write flat per-tenant slots (b * N + n, b * (M + 1)
-    + v). Returns (used, assigned, st, evicted, round_of, chosen, rounds
+    ended keeps its state bit for bit: it has no pending row, so nothing
+    drains, bids, claims, commits, reverts or is tried there (its rows
+    add exact zeros to `used`, as the solo rounds' unclaimed rows do).
+    Budgets, the budget gate's prefix, `tried` and the pairwise fixpoint
+    (one read a pass for all tenants, a tenant that reverted nothing
+    reverts nothing more) are per tenant; the claim-exclusive adds and
+    the eviction marks write flat per-tenant slots (b * N + n, b * (M +
+    1) + v). Returns (used, assigned, st, evicted, round_of, chosen, rounds
     [B] int32 on the device, rounds on the host), then the explain
     tuple with a leading [B] axis."""
     pods, nodes = snap.pods, snap.nodes
@@ -2866,7 +2849,6 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
             if not live_h.any():
                 break
         known = False
-        old = (used, assigned, st, evicted, round_of, chosen, tried, ex)
         lv = live[:, None]
         key = (base_rounds + r_d)[:, None]
         drained = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -3012,7 +2994,7 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
             keep_all, key, round_of[at]))
         if explain:
             with stats.span("preempt explain"):
-                ex = _explain_round(ex, bi, r_d, key, s32, vidx_t,
+                ex = _explain_round(ex, bi, live, r_d, key, s32, vidx_t,
                                     keep_evict, usage, GP, evicted, (
                                         real, real & can_plain, pre_active,
                                         claimed, keep_evict,
@@ -3028,10 +3010,6 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
         tried = torch.where(reset[:, None], False,
                             tried.index_put(at, tried[at] | newly))
         progress = reset | newly.any(dim=-1)
-        if not live_h.all():
-            (used, assigned, st, evicted, round_of, chosen, tried,
-             ex) = _select_tenants(live, (used, assigned, st, evicted,
-                                          round_of, chosen, tried, ex), old)
         r_h = r_h + live_h
         r_d = r_d + live.to(torch.int32)
     stats.preempt_rounds = int(r_h[0]) if B == 1 else r_h.tolist()
@@ -3039,13 +3017,14 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
     return out + ((ex,) if explain else ())
 
 
-def _explain_round(ex, bi, r_d, key, s32, vidx_t, keep_evict, usage, GP,
-                   evicted, counted, drained_n, no_bid):
+def _explain_round(ex, bi, live, r_d, key, s32, vidx_t, keep_evict, usage,
+                   GP, evicted, counted, drained_n, no_bid):
     """The explained solve's provenance after one round, tenant-batched
     and out of place: keep_evict is the evictions' own mask
     (pre-validation), a scatter-max over a -1 start names each victim's
     evicting pod and commit key (the sentinel slot M takes the rest),
-    and the round's counts fill its row of the auction table."""
+    and the round's counts fill its row of each live tenant's auction
+    table."""
     evictor, evict_rd, astats = ex
     B, M = evicted.shape
     vmask = keep_evict[..., None] & (vidx_t < M)
@@ -3064,8 +3043,9 @@ def _explain_round(ex, bi, r_d, key, s32, vidx_t, keep_evict, usage, GP,
     row = torch.stack([*(m.sum(-1) for m in counted), drained_n,
                        ev_round.sum(-1), spent, no_bid.sum(-1)],
                       dim=-1).to(torch.float32)
-    astats = astats.index_put(
-        (bi[:, 0], r_d.long().clamp(max=astats.shape[1] - 1)), row)
+    at = (bi[:, 0], r_d.long().clamp(max=astats.shape[1] - 1))
+    astats = astats.index_put(at, torch.where(live[:, None], row,
+                                              astats[at]))
     return acc[0], acc[1], astats
 
 
