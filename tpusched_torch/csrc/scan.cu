@@ -72,7 +72,7 @@
 // launched for B > 1). The B scans are independent, so B tenants take
 // about one tenant's time while B <= 132 SMs. The preemption variants
 // (entry points tpusched_parity_scan_preempt and
-// tpusched_parity_scan_pair_preempt, PR 11) take the axis the same way:
+// tpusched_parity_scan_pair_preempt) take the axis the same way:
 // with PREEMPT the TENANTS instantiation also offsets the preemption
 // block to tenant b (tenant_pre): its victim table and K15's scratch at
 // a stride of Mp = 1024 * ceil(M / 1024) ([B, Mp] each, [B, R, Mp] and
@@ -80,7 +80,7 @@
 // validity, its running pods' nodes and anti terms, its budgets and its
 // evictions, so that K15's search and every segment sum stay inside the
 // tenant's own victims. The explain outputs stay solo (NULL for B > 1).
-// B = 1 launches the instantiations without TENANTS, as before.
+// B = 1 launches the instantiations without TENANTS.
 #include <math.h>
 #include <limits.h>
 
