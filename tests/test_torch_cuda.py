@@ -1132,11 +1132,11 @@ def test_solve_many_signatures_gangs_on_the_card(cuda, mode, kind):
 # -- the tenant axis with preemption (config 5) -------------------------------
 
 
-def _pre_tenants(cuda, pair: bool, B=3):
+def _pre_tenants(cuda, pair: bool, B=3, **kw):
     """B config-5 tenants of different sizes (with spread and inter-pod
-    terms when pair) under one floor."""
-    kw = dict(spread_frac=0.4, interpod_frac=0.4, run_anti_frac=0.2) \
-        if pair else {}
+    terms when pair; `kw` to the generator) under one floor."""
+    if pair:
+        kw.update(spread_frac=0.4, interpod_frac=0.4, run_anti_frac=0.2)
     snaps, stacked = _floored(lambda b, **x: tsynth.config5_preemption(
         np.random.default_rng(45 + b), 96 - 8 * b, 16 - 2 * b, **kw, **x), B)
     return snaps, stacked.to(cuda)
@@ -1212,14 +1212,19 @@ def test_preempt_tenant_axis_equal_plain(cuda, B):
         assert calls["auction_claim"][0].shape[0] == B
 
 
-@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("kind", ["plain", "pairwise", "gangs_seeded"])
 @pytest.mark.parametrize("mode", ["parity", "fast"])
-def test_solve_many_preemption_on_the_card(cuda, mode, pair):
-    """The batch with preemption (S = 0, and with signatures) on the card
-    equals its plain-version twin, host reads included, and each tenant
-    its solo solve on the card; every tenant evicts."""
-    snaps, stacked = _pre_tenants(cuda, pair)
-    cfg = EngineConfig(mode=mode, preemption=True)
+def test_solve_many_preemption_on_the_card(cuda, mode, kind):
+    """The batch with preemption (S = 0; with signatures; with gangs of 3
+    under the seeded tie-break) on the card equals its plain-version
+    twin, host reads included, and each tenant its solo solve on the
+    card; every tenant evicts."""
+    gangs = kind == "gangs_seeded"
+    snaps, stacked = _pre_tenants(
+        cuda, kind == "pairwise",
+        **(dict(gang_frac=0.5, gang_size=3) if gangs else {}))
+    cfg = EngineConfig(mode=mode, preemption=True,
+                       tie_break="seeded" if gangs else "first", tie_seed=5)
     s1, s2 = ka.RoundStats(), ka.RoundStats()
     got = solve_many(cfg, stacked, stats=s1)
     _equal(got, solve_many(cfg, stacked, ops=ka.PLAIN, stats=s2))

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: `tpusched_torch` and `chip_smoke.py`
-import neither JAX nor anything of the JAX package, and the engine
-never falls back to the CPU on its own."""
+"""The PyTorch port stands alone: `tpusched_torch`, `chip_smoke.py` and
+`solve_walls.py` import neither JAX nor anything of the JAX package, and
+the engine never falls back to the CPU on its own."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from tpusched_torch import Engine, EngineConfig
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "tpusched_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "solve_walls.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpusched")
 
 
