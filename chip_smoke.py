@@ -85,8 +85,8 @@ package, and
        with and without its explain outputs (evictor, evict_pos), K15 against its plain version at the scan's state at (h)'s first
        8 preemptors (with the violation counts K15 leaves in its scratch
        equal to the plain tableau's; at least one PDB violation among
-       them), and K4's pairwise preemption variant on a 3 000 x 1 500
-       cut of (h) with spread and inter-pod terms, all exact;
+       them), and K4's pairwise preemption variant on (h) with spread
+       and inter-pod terms, all exact;
      - fast preemption: `Engine.solve` with mode="fast",
        preemption=True on (h) and on (h) with spread and inter-pod
        terms (the main rounds' kernels, then the auction rounds: K17's
@@ -147,9 +147,8 @@ package, and
        K5-K8, K23, K24) once for all tenants per call, its first wall
        and the median of 5 against the eight solo solves on the card,
        host reads against their sum, each tenant equal to its solo
-       solve in all six outputs and valid, a reduced batch (four tenants
-       of 600 x 300) equal to its plain-version twin (parity and fast,
-       host reads too); K4 over
+       solve in all six outputs and valid, the batch equal to its
+       plain-version twin (parity and fast, host reads too); K4 over
        the tenant axis against one tenant's K4; K23 and K24 on their
        first call's arguments against their plain versions, beside
        torch.cumsum with searchsorted and with a scatter;
@@ -263,12 +262,6 @@ GANG_SEED, PRE_SEED = 44, 45
 GANGS = dict(n_groups=2500, gang_size=4)
 PRE_PAIR = dict(spread_frac=0.3, interpod_frac=0.3)
 K15_STATES = 8   # (h)'s first preemptors, in pop order
-# The kernel phase of K4's pairwise preemption variant runs on (h) with
-# spread and inter-pod terms cut to a tenant's size, 3 000 pods on 1 500
-# nodes: its plain scan at (h)'s full size takes over 90 s of the
-# script's limit, and the variant runs at full width on the main path in
-# (thp), whose reduced batch is held against its plain twin.
-PRE_PAIR_KERNEL_PODS, PRE_PAIR_KERNEL_NODES = 3000, 1500
 # Cell (w) is the JAX bench's warm lineage (bench.py:1292 bench_warm):
 # config 2 at 10 000 x 5 000 with one running pod a node and QoS, seed
 # 46, loaded as records into a DeviceSnapshot on the card. Value churn
@@ -294,9 +287,7 @@ EXPLAIN_K = 3
 # :8-11). Tenant b is config2_scale(rng(60 + b), 3000 - 50 b pods, 1500
 # nodes) with QoS and cell (b)'s constraint mix, all under one Buckets
 # floor without signatures (P = 3 072, N = 1 536), solved by
-# tenants.solve_many in both modes and once with the seeded tie-break;
-# its plain twin is a reduced batch, as below (the full plain parity
-# batch takes ~50 s).
+# tenants.solve_many in both modes and once with the seeded tie-break.
 TENANTS = 8
 TENANT_SEED = 60
 TENANT_PODS, TENANT_STEP, TENANT_NODES = 3000, 50, 1500
@@ -1680,8 +1671,7 @@ def preempt_kernel_phase(cfg: EngineConfig, dsnap, plain_scan,
 
 def pair_preempt_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
     """K4's pairwise preemption variant against its plain version (timed
-    once) on (h) with spread and inter-pod terms at 3 000 x 1 500 pods
-    (PRE_PAIR_KERNEL_*), exactly in all five
+    once) on (h) with spread and inter-pod terms, exactly in all five
     outputs; the final pair state also equals K10's recount at the
     assignment less the evicted members."""
     nodes, pods = dsnap.nodes, dsnap.pods
@@ -1722,7 +1712,7 @@ def pair_preempt_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
               f"{int((got[0] >= 0).sum())}, evicted {int(got[4].sum())}")}
 
 
-def preempt_phase(snap_h, smi: str) -> tuple[dict, dict]:
+def preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
     """Cell (h) through the engine with preemption (counters zeroed just
     before, read just after), the audit, equality with the plain solve
     (run once, its scan recorded with the states at its first
@@ -1750,10 +1740,7 @@ def preempt_phase(snap_h, smi: str) -> tuple[dict, dict]:
         f"(plain scan {info['plain_preempt_scan'][2]:.1f} ms), preemption "
         f"audit clean; {smi}")
     kp = preempt_kernel_phase(cfg, dsnap, info["plain_preempt_scan"], steps)
-    snap_k, _ = config5_preemption(np.random.default_rng(PRE_SEED),
-                                   PRE_PAIR_KERNEL_PODS,
-                                   PRE_PAIR_KERNEL_NODES, **PRE_PAIR)
-    kp.update(pair_preempt_kernel_phase(cfg, eng.put(snap_k)))
+    kp.update(pair_preempt_kernel_phase(cfg, eng.put(snap_hp)))
     eng.close()
     for kname, r in kp.items():
         log(f"kernel {kname} [{r['shape']}]: exact match, kernel "
@@ -2547,13 +2534,13 @@ def floored(draw, n: int, **fixed) -> list:
     return [draw(b, buckets=Buckets(**floor)) for b in range(n)]
 
 
-def tenant_cells(n: int = TENANTS, pods: int = TENANT_PODS,
-                 step: int = TENANT_STEP, nodes: int = TENANT_NODES) -> list:
+def tenant_cells() -> list:
     """Cell (t)'s tenants (snapshot, meta) under one floor without
-    signatures: config2_scale(rng(60 + b), pods - step b, nodes)."""
+    signatures."""
     return floored(lambda b, **kw: config2_scale(
-        np.random.default_rng(TENANT_SEED + b), pods - step * b, nodes,
-        with_qos=True, **CONSTRAINED, **kw), n, signatures=0)
+        np.random.default_rng(TENANT_SEED + b), TENANT_PODS - TENANT_STEP * b,
+        TENANT_NODES, with_qos=True, **CONSTRAINED, **kw), TENANTS,
+        signatures=0)
 
 
 def pair_tenant_cells(n: int, pods: int, step: int, nodes: int) -> list:
@@ -2740,16 +2727,14 @@ def log_rows(rows: dict, where: str, smi: str) -> None:
 def tenant_phase(smi: str) -> tuple[dict, dict]:
     """Cell (t): `solve_many` over eight tenants in parity and fast mode
     and once seeded in parity mode (`batch_cells`: the static kernels and
-    K4 once for all tenants; the plain twins on the reduced batch, not
-    for the seeded run); K4 over the tenant axis against one tenant's
-    K4; then K23 and K24 against their plain versions. Returns (the
+    K4 once for all tenants; the plain batches run on the full stack,
+    not for the seeded run); K4 over the tenant axis against one
+    tenant's K4; then K23 and K24 against their plain versions. Returns (the
     phase's launch counts, the K23 and K24 rows)."""
     t0 = time.perf_counter()
     built = tenant_cells()
     snaps = [s for s, _ in built]
     dstack = stack_snapshots(snaps).to("cuda")
-    reduced = stack_snapshots([s for s, _ in tenant_cells(
-        REDUCED_TENANTS, REDUCED_PODS, 0, REDUCED_NODES)]).to("cuda")
     B, P = dstack.pods.valid.shape
     N = dstack.nodes.valid.shape[1]
     bk = built[0][1].buckets
@@ -2764,7 +2749,7 @@ def tenant_phase(smi: str) -> tuple[dict, dict]:
              ("t parity seeded", EngineConfig(
                  mode="parity", tie_break="seeded", tie_seed=SEED),
               PARITY_KERNELS, ONCE, (), False))
-    launches = batch_cells(cells, snaps, dstack, smi, reduced=reduced)
+    launches = batch_cells(cells, snaps, dstack, smi)
     static = kassign.precompute_static(cfg_p, dstack, _sat_tables(dstack)[0])
     order = kassign.pop_order(cfg_p, dstack)
     k4_batch = cuda_ms(lambda: kassign.parity_scan(cfg_p, dstack, static,
@@ -3366,7 +3351,7 @@ def main() -> int:
     for k, v in gang_phase(fast_gang_cells, "gang fast", GANG_FAST_KERNELS,
                            smi).items():
         launches[k] += v
-    phase_counts, kp_pre = preempt_phase(snap_h, smi)
+    phase_counts, kp_pre = preempt_phase(snap_h, snap_hp, smi)
     for k, v in phase_counts.items():
         launches[k] += v
     kp.update(kp_pre)

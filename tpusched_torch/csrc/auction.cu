@@ -53,8 +53,7 @@
 // B * C rows, row b * C + c reading tenant b's mask rows (rows index its
 // own [Pm, N]), lane tables, usage and capacity; K18 runs one CTA a
 // tenant (grid B, 5 * N bytes of shared memory each, C <= 1024 a
-// tenant), offsetting every array to its tenant in the TENANTS
-// instantiation, launched for B > 1 (B = 1 keeps the solo one).
+// tenant), offsetting every array to its tenant (b = 0 for one cluster).
 #include <limits.h>
 #include <math.h>
 
@@ -275,7 +274,6 @@ __device__ __forceinline__ int block_scan(int x, int* s_warp) {
   return out;
 }
 
-template <bool TENANTS>
 __global__ void __launch_bounds__(CLAIM_THREADS)
 auction_claim_kernel(int C, int K, int N, int V, int R, int M, int GP,
                      int iters, const float* __restrict__ topv_t,
@@ -301,7 +299,7 @@ auction_claim_kernel(int C, int K, int N, int V, int R, int M, int GP,
   extern __shared__ int s_best[];  // [N] int, then taken [N] bytes
   unsigned char* taken = reinterpret_cast<unsigned char*>(s_best + N);
   __shared__ int s_warp[32];
-  if constexpr (TENANTS) {  // CTA b claims for tenant b.
+  {  // CTA b claims for tenant b: every array offset to it.
     const long long b = blockIdx.x;
     const long long nv = (long long)N * V;
     topv_t += b * K * C;
@@ -491,14 +489,14 @@ extern "C" int tpusched_auction_claim(
     return (int)cudaErrorInvalidValue;
   const long long smem = (long long)N * (sizeof(int) + 1);
   if (smem > CLAIM_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto kernel = B > 1 ? auction_claim_kernel<true>
-                      : auction_claim_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        auction_claim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<B, CLAIM_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+  auction_claim_kernel<<<B, CLAIM_THREADS, (size_t)smem,
+                         (cudaStream_t)stream>>>(
       C, K, N, V, R, M, GP, iters, topv_t, topi_t, can_plain, n_plain, rank,
       vreq, vprio, vpdb, vvalid, vidx, evicted, p_prio, p_req, used, alloc,
       could, margin, target, claimed, takes, vidx_t, freed, usage,

@@ -2653,18 +2653,14 @@ def _evict_round(evicted: torch.Tensor, vidx_t: torch.Tensor,
     """evicted | the kept eviction bids' victim prefixes (vidx_t holds M
     at the slots that are not victims; a sentinel slot M takes those and
     the bids not kept, so no mask is read back to the host). A tenant
-    batch ([B, M] evicted, [B, C, V] vidx_t) writes tenant b's victims
-    at the flat slots b * (M + 1) + v."""
+    batch ([B, M] evicted, [B, C, V] vidx_t) marks each tenant's own
+    row."""
     M = evicted.shape[-1]
     slot = torch.where(keep_evict[..., None], vidx_t, M).long()
-    if evicted.dim() == 2:
-        B = evicted.shape[0]
-        slot = slot + (M + 1) * torch.arange(B, device=slot.device)[:, None,
-                                                                    None]
-    hit = torch.zeros(evicted.numel() + evicted.numel() // max(M, 1),
-                      dtype=torch.bool, device=evicted.device)
-    hit[slot] = True
-    return evicted | hit.reshape(*evicted.shape[:-1], M + 1)[..., :M]
+    hit = torch.zeros((*evicted.shape[:-1], M + 1), dtype=torch.bool,
+                      device=evicted.device)
+    hit.scatter_(-1, slot.flatten(-2), True)
+    return evicted | hit[..., :M]
 
 
 def _bidder_rows(cfg: EngineConfig, snap: ClusterSnapshot,
@@ -2722,6 +2718,14 @@ def _budget_gate(snap: ClusterSnapshot, evicted: torch.Tensor,
     fits_budget = torch.where(usage > 0, cum <= rem, True).all(dim=-1)
     alone = (usage.to(torch.float32) > rem).any(dim=-1)
     return claimed & (fits_budget | alone)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x ([B, P] or [B, P, R]) at each tenant's pod positions idx [B, C]
+    (int64), by one gather."""
+    if x.dim() > idx.dim():
+        idx = idx[..., None].expand(*idx.shape, x.shape[-1])
+    return x.gather(1, idx)
 
 
 def _preempt_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
@@ -2801,10 +2805,10 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
     Budgets, the budget gate's prefix, `tried` and the pairwise fixpoint
     (one read a pass for all tenants, a tenant that reverted nothing
     reverts nothing more) are per tenant; the claim-exclusive adds and
-    the eviction marks write flat per-tenant slots (b * N + n, b * (M +
-    1) + v). Returns (used, assigned, st, evicted, round_of, chosen, rounds
-    [B] int32 on the device, rounds on the host), then the explain
-    tuple with a leading [B] axis."""
+    the eviction marks scatter into each tenant's own row. Returns
+    (used, assigned, st, evicted, round_of, chosen, rounds [B] int32 on
+    the device, rounds on the host), then the explain tuple with a
+    leading [B] axis."""
     pods, nodes = snap.pods, snap.nodes
     B, P = rank.shape
     N = nodes.valid.shape[-1]
@@ -2819,7 +2823,9 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
     alloc = nodes.allocatable
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
-    bi = torch.arange(B, device=dev)[:, None]
+    # Per-tenant reads and writes at the selected pods go through one
+    # gather (`_take`) or scatter along the pod axis: each tenant's
+    # slots are distinct pods, so a scatter is exact.
     with stats.span("preempt victim table"):
         pctx = kpre.precompute_nv(cfg, snap, _PREEMPT_VICTIM_CAP)
     prio = effective_priority(cfg, pods.base_priority, pods.slo_target,
@@ -2851,8 +2857,7 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
         known = False
         lv = live[:, None]
         key = (base_rounds + r_d)[:, None]
-        drained = torch.zeros(B, dtype=torch.bool, device=dev)
-        drained_n = torch.zeros(B, dtype=torch.int64, device=dev)
+        drained = drained_n = None      # the drain's placements (S = 0)
         if S == 0:
             with stats.span("preempt drain"):
                 pend0 = (assigned < 0) & pods.valid & lv
@@ -2862,32 +2867,30 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
                 feas_d, masked_d = ops.cycle(
                     alloc, used, pods.requests, static.mask, static.score,
                     static.w_lr, static.w_ba, static.w_ts, static.rw,
-                    rows=d32, pending=pend0[bi, dsel], masked=True)
+                    rows=d32, pending=_take(pend0, dsel), masked=True)
                 topv, topi, pick = ops.row_topk(masked_d, K, seeded,
                                                 cfg.tie_seed, d32)
                 used, choice_d, chosen_d = _deal_commit(
-                    alloc, pods.requests[bi, dsel], used, feas_d, masked_d,
-                    topv[..., 0] > NEG_INF, rank[bi, dsel], topv, topi,
-                    tie_pick=pick, rank_is_sorted=True, ops=ops,
+                    alloc, _take(pods.requests, dsel), used, feas_d,
+                    masked_d, topv[..., 0] > NEG_INF, _take(rank, dsel),
+                    topv, topi, tie_pick=pick, rank_is_sorted=True, ops=ops,
                     stats=stats)
                 hit_d = choice_d >= 0
-                at_d = (bi, dsel)
-                assigned = assigned.index_put(at_d, torch.where(
-                    hit_d, choice_d, assigned[at_d]))
-                chosen = chosen.index_put(at_d, torch.where(
-                    hit_d, chosen_d, chosen[at_d]))
-                round_of = round_of.index_put(at_d, torch.where(
-                    hit_d, key, round_of[at_d]))
+                assigned = assigned.scatter(1, dsel, torch.where(
+                    hit_d, choice_d, _take(assigned, dsel)))
+                chosen = chosen.scatter(1, dsel, torch.where(
+                    hit_d, chosen_d, _take(chosen, dsel)))
+                round_of = round_of.scatter(1, dsel, torch.where(
+                    hit_d, key, _take(round_of, dsel)))
                 drained = hit_d.any(dim=-1)
                 if explain:
                     drained_n = hit_d.sum(dim=-1)
         pend = (assigned < 0) & pods.valid & ~tried & lv
         sel = ops.top_by_rank(pend, order, C)[0]
-        at = (bi, sel)
         s32 = sel.to(torch.int32)
-        real = pend[at]
-        req_sel = pods.requests[at]
-        rank_sel = rank[at]
+        real = _take(pend, sel)
+        req_sel = _take(pods.requests, sel)
+        rank_sel = _take(rank, sel)
         with stats.span("preempt plain evaluation"):
             (feas_pl, masked_pl, n_plain, sc_plain, pair_ok,
              view) = _bidder_rows(cfg, snap, static, sel, used, st, dom_s,
@@ -2898,16 +2901,16 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
             else:
                 snap_v, static_v = view
                 mask_rows, rows = static_v.mask, None
-        hp_sel = has_pair[at]
+        hp_sel = _take(has_pair, sel)
         plain_excl = can_plain & hp_sel
         plain_cap = can_plain & ~hp_sel
         # Gang members never preempt.
-        pre_active = real & ~can_plain & (pods.group[at] < 0)
+        pre_active = real & ~can_plain & (_take(pods.group, sel) < 0)
         with stats.span("preempt auction"):
             (target, claimed, takes_evict, vidx_t, freed_req, usage,
              could_bid) = kpre.preempt_auction(
-                cfg, snap, pctx, prio[at], req_sel, mask_rows, used,
-                evicted, plain_excl, n_plain, rank=rank_sel, ops=ops,
+                cfg, snap, pctx, _take(prio, sel), req_sel, mask_rows,
+                used, evicted, plain_excl, n_plain, rank=rank_sel, ops=ops,
                 rows=rows, pair_ok=pair_ok, pre_active=pre_active)
         could_bid = could_bid | plain_cap
         with stats.span("preempt budget gate"):
@@ -2917,8 +2920,8 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
         tgt_c = target.clamp(0, N - 1).long()
         with stats.span("preempt plain commit"):
             taken = torch.zeros((B, N + 1), dtype=torch.bool, device=dev)
-            taken[bi, torch.where(keep, tgt_c, N)] = True
-            taken = taken[:, :N]
+            taken = taken.scatter_(1, torch.where(keep, tgt_c, N),
+                                   True)[:, :N]
             feas_c = feas_pl & plain_cap[..., None] & ~taken[:, None, :]
             masked_c = torch.where(feas_c, masked_pl, neg)
             topv, topi, pick = ops.row_topk(masked_c, K, seeded,
@@ -2944,12 +2947,11 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
                 else:
                     snap_pv, static_pv = snap, static
                     choice_pv = torch.full(
-                        (B, P), -1, dtype=torch.int32,
-                        device=dev).index_put(at, torch.where(
-                            keep_all, target_all, -1))
+                        (B, P), -1, dtype=torch.int32, device=dev).scatter(
+                        1, sel, torch.where(keep_all, target_all, -1))
                     keep_pv = torch.zeros(
-                        (B, P), dtype=torch.bool, device=dev).index_put(
-                        at, keep_all)
+                        (B, P), dtype=torch.bool, device=dev).scatter(
+                        1, sel, keep_all)
                     hp_pv, rank_pv = has_pair, rank
                 sig_pv = static_pv.sig_match
                 st = ops.pair_commit(snap_pv, st, sig_pv, dom_s, choice_pv,
@@ -2969,32 +2971,30 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
                                          choice_pv, bad, -1.0)
                     kept = kept & ~bad
                     flag = bad.any(dim=-1)
-                valid = kept if compact_pv else kept[at]
+                valid = kept if compact_pv else _take(kept, sel)
                 keep = keep & valid
                 keep_pl = keep_pl & valid
                 keep_all = keep | keep_pl
         with stats.span("preempt used"):
             # One claimant a node of a tenant: every row that does not
             # keep adds an exact 0.0, so the adds are exact in any order.
-            slot = (bi * N + tgt_c).reshape(-1)
-            flat = used.reshape(B * N, R)
+            at_n = tgt_c[..., None].expand(B, C, R)
             for add in (torch.where(keep_evict[..., None], -freed_req, zero),
                         torch.where(keep[..., None], req_sel, zero)):
-                flat = flat.index_add(0, slot, add.reshape(-1, R))
-            used = ops.node_add(flat.reshape(B, N, R), choice_pl, keep_pl,
-                                req_sel, rank_sel)
-        assigned = assigned.index_put(at, torch.where(
-            keep_all, target_all, assigned[at]))
+                used = used.scatter_add(1, at_n, add)
+            used = ops.node_add(used, choice_pl, keep_pl, req_sel, rank_sel)
+        assigned = assigned.scatter(1, sel, torch.where(
+            keep_all, target_all, _take(assigned, sel)))
         # Preempted placements carry no score (as in parity mode).
-        chosen = chosen.index_put(at, torch.where(
+        chosen = chosen.scatter(1, sel, torch.where(
             keep_pl, chosen_pl, torch.where(
                 keep & can_plain, sc_plain,
-                torch.where(keep, neg, chosen[at]))))
-        round_of = round_of.index_put(at, torch.where(
-            keep_all, key, round_of[at]))
+                torch.where(keep, neg, _take(chosen, sel)))))
+        round_of = round_of.scatter(1, sel, torch.where(
+            keep_all, key, _take(round_of, sel)))
         if explain:
             with stats.span("preempt explain"):
-                ex = _explain_round(ex, bi, live, r_d, key, s32, vidx_t,
+                ex = _explain_round(ex, live, r_d, key, s32, vidx_t,
                                     keep_evict, usage, GP, evicted, (
                                         real, real & can_plain, pre_active,
                                         claimed, keep_evict,
@@ -3006,9 +3006,11 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
         # again; any keep or drain placement clears the tenant's spent
         # marks.
         newly = real & (keep_all | ~could_bid)
-        reset = keep_all.any(dim=-1) | drained
-        tried = torch.where(reset[:, None], False,
-                            tried.index_put(at, tried[at] | newly))
+        reset = keep_all.any(dim=-1)
+        if drained is not None:
+            reset = reset | drained
+        tried = torch.where(reset[:, None], False, tried.scatter(
+            1, sel, _take(tried, sel) | newly))
         progress = reset | newly.any(dim=-1)
         r_h = r_h + live_h
         r_d = r_d + live.to(torch.int32)
@@ -3017,7 +3019,7 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
     return out + ((ex,) if explain else ())
 
 
-def _explain_round(ex, bi, live, r_d, key, s32, vidx_t, keep_evict, usage,
+def _explain_round(ex, live, r_d, key, s32, vidx_t, keep_evict, usage,
                    GP, evicted, counted, drained_n, no_bid):
     """The explained solve's provenance after one round, tenant-batched
     and out of place: keep_evict is the evictions' own mask
@@ -3027,23 +3029,25 @@ def _explain_round(ex, bi, live, r_d, key, s32, vidx_t, keep_evict, usage,
     table."""
     evictor, evict_rd, astats = ex
     B, M = evicted.shape
+    dev = evicted.device
     vmask = keep_evict[..., None] & (vidx_t < M)
-    vslot = (torch.where(vmask, vidx_t, M).long()
-             + (M + 1) * bi[..., None]).reshape(-1)
+    vslot = torch.where(vmask, vidx_t, M).long().flatten(-2)
     acc = []
     for prev, val in ((evictor, s32[..., None]), (evict_rd, key[..., None])):
-        src = torch.where(vmask, val, -1).to(torch.int32)
-        hit = torch.full((B * (M + 1),), -1, dtype=torch.int32,
-                         device=prev.device).scatter_reduce(
-            0, vslot, src.reshape(-1), "amax").reshape(B, M + 1)
+        src = torch.where(vmask, val, -1).to(torch.int32).flatten(-2)
+        hit = torch.full((B, M + 1), -1, dtype=torch.int32,
+                         device=dev).scatter_reduce(-1, vslot, src, "amax")
         acc.append(torch.maximum(prev, hit[:, :M]))
     ev_round = _evict_round(torch.zeros_like(evicted), vidx_t, keep_evict)
     spent = (torch.where(keep_evict[..., None], usage, 0).sum(dim=(-2, -1))
-             if GP else torch.zeros(B, dtype=torch.int64, device=bi.device))
+             if GP else torch.zeros(B, dtype=torch.int64, device=dev))
+    if drained_n is None:
+        drained_n = torch.zeros(B, dtype=torch.int64, device=dev)
     row = torch.stack([*(m.sum(-1) for m in counted), drained_n,
                        ev_round.sum(-1), spent, no_bid.sum(-1)],
                       dim=-1).to(torch.float32)
-    at = (bi[:, 0], r_d.long().clamp(max=astats.shape[1] - 1))
+    at = (torch.arange(B, device=dev),
+          r_d.long().clamp(max=astats.shape[1] - 1))
     astats = astats.index_put(at, torch.where(live[:, None], row,
                                               astats[at]))
     return acc[0], acc[1], astats
