@@ -18,7 +18,9 @@ package, and
      both with CUDA events (median of several runs): K1 atom_sat,
      K2 tableau_cells, K3 finalize_static, K4 parity_scan; K5 cycle at
      full width and on a 1024-row index view (equal to the same view
-     gathered), K6 row_topk (K = 8 seeded, kb = 8, beside torch.topk),
+     gathered), K6 row_topk (K = 8 seeded, kb = 8, beside torch.topk;
+     then its two paths, the K-pass kernel and the radix select, at
+     K = 4, 8, 16 and 256 without the seeded pick, each exact and timed),
      K7 desirability on K5's output, K8 prefix_commit on the first
      sub-step of the first fast round;
      Then, on the pairwise cluster (d) (BASELINE config 3 at 10 000 x
@@ -82,11 +84,12 @@ package, and
        victims + placed pods, in f64; victims only from nodes a
        preempted pod took; no gang member preempts; at least one
        eviction); then K4's preemption variant against that plain scan,
-       with and without its explain outputs (evictor, evict_pos), K15 against its plain version at the scan's state at (h)'s first
-       8 preemptors (with the violation counts K15 leaves in its scratch
-       equal to the plain tableau's; at least one PDB violation among
-       them), and K4's pairwise preemption variant on (h) with spread
-       and inter-pod terms, all exact;
+       with and without its explain outputs (evictor, evict_pos), K15
+       against its plain version at the scan's state at (h)'s first 8
+       preemptors (and the chosen prefix's freed row and victims equal
+       to those read off the plain tableau; at least one PDB violation
+       among the tableaus), and K4's pairwise preemption variant on (h)
+       with spread and inter-pod terms, all exact;
      - fast preemption: `Engine.solve` with mode="fast",
        preemption=True on (h) and on (h) with spread and inter-pod
        terms (the main rounds' kernels, then the auction rounds: K17's
@@ -103,7 +106,9 @@ package, and
        eviction; then the auction kernels against their plain versions
        on the arguments of each cell's first auction round, exactly,
        timed with CUDA events and the profiler's kernel time, K6 at
-       K = 256 beside torch.topk;
+       K = 256 (the radix path) beside torch.topk and the K-pass kernel,
+       and on tie rows (all -inf, all equal, -0.0 with +0.0, wide ties at
+       the K-th, N not a multiple of 256) at K = 256 and K = N;
      - async forms: `solve_async`, `score_async` and
        `score_topk_async(k=8)` once each on (b), each equal to its
        synchronous form;
@@ -325,7 +330,9 @@ PR8_FAST = {"a": (10000, 26), "b": (9942, 64), "c": (10000, 26),
 # (name, wrapper, its launch counter, source, the JAX function it
 # replaces). A variant of a kernel (K5's relaxed output, K7's fixed point,
 # K11's ia_ok) has a row of its own, counted by its own counter on the
-# wrapper; the wrapper's `launches` counts every launch.
+# wrapper; the wrapper's `launches` counts every launch. K6's two kernels
+# have a counter each: `launches` the K-pass kernel's, `radix_launches`
+# the radix select's.
 KERNELS = (
     ("atom_sat", atom_sat, "launches", "tpusched_torch/csrc/atoms.cu",
      "tpusched/kernels/atoms.py:29"),
@@ -382,7 +389,7 @@ KERNELS = (
      "tpusched_torch/csrc/auction.cu", "tpusched/kernels/preempt.py:443"),
     ("auction_rank", kpre.auction_rank, "launches",
      "tpusched_torch/csrc/auction.cu", "tpusched/kernels/preempt.py:511"),
-    ("row_topk_k256", kassign.row_topk, "wide_launches",
+    ("row_topk_radix", kassign.row_topk, "radix_launches",
      "tpusched_torch/csrc/topk.cu", "tpusched/kernels/preempt.py:563"),
     ("auction_claim", kpre.auction_claim, "launches",
      "tpusched_torch/csrc/auction.cu", "tpusched/kernels/preempt.py:588"),
@@ -419,15 +426,22 @@ PAIR_PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                        "sig_match", "pair_counts", "parity_scan_pair")
 PAIR_SCORE_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                       "sig_match", "pair_counts", "pairwise_batch", "cycle",
-                      "row_topk")
+                      "row_topk", "row_topk_radix")
 # Kernels an entry-point call launches at most once (K1 twice with
 # signatures: node labels, then member labels).
 ONCE = ("tableau_cells", "finalize_static", "parity_scan", "sig_match",
         "pair_counts", "pairwise_batch", "parity_scan_pair",
         "parity_scan_preempt", "parity_scan_pair_preempt")
+# K6 takes its radix path for the fast rounds' K = 8 without the seeded
+# pick (kassign.RADIX_MIN_K): a seeded request launches the K-pass kernel
+# and may leave the radix select idle (SEEDED_IDLE); one without it
+# launches the radix select and the K-pass kernel only for its K < 8
+# calls (UNSEEDED_IDLE).
 FAST_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
-                "row_topk", "desirability", "prefix_commit", "deal",
-                "top_by_rank")
+                "row_topk", "row_topk_radix", "desirability", "prefix_commit",
+                "deal", "top_by_rank")
+SEEDED_IDLE = ("row_topk_radix",)
+UNSEEDED_IDLE = ("row_topk",)
 FAST_PAIR_KERNELS = FAST_KERNELS + (
     "sig_match", "pair_counts", "pairwise_batch", "waterfill", "excess_min",
     "excess_survive", "ia_ok_at_choice", "pair_commit", "node_add",
@@ -440,7 +454,7 @@ FAST_PAIR_ONCE = ("tableau_cells", "finalize_static", "sig_match",
 # launch on the main path as a whole, and (t)'s fast batch requires it.
 OPTIONAL = ("top_by_rank",)
 SCORE_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
-                 "row_topk")
+                 "row_topk", "row_topk_radix")
 # The gang gate reverts through K8's node_add.
 GANG_PARITY_KERNELS = PARITY_KERNELS + ("node_add",)
 GANG_FAST_KERNELS = FAST_KERNELS + ("node_add",)
@@ -452,7 +466,7 @@ PAIR_PREEMPT_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
 # Fast mode with preemption: the main rounds, then the auction rounds
 # (K16-K18, K6 at K = 256, the plain commits' node_add).
 AUCTION_KERNELS = ("node_add", "auction_tables", "auction_ok",
-                   "auction_rank", "row_topk_k256", "auction_claim")
+                   "auction_rank", "row_topk_radix", "auction_claim")
 FAST_PREEMPT_KERNELS = FAST_KERNELS + AUCTION_KERNELS
 FAST_PREEMPT_PAIR_KERNELS = FAST_PAIR_KERNELS + AUCTION_KERNELS[1:]
 # The warm lineage (w): the fast solves and the tableau's K1-K3 (K1 idle
@@ -1122,6 +1136,23 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order) -> dict:
         library="torch.topk",
         library_ms=cuda_ms(lambda: torch.topk(masked, K, dim=1), 10),
         bound=bound(b6, P * N), shape=f"P={P} N={N} K={K} seeded")
+    # K6's two paths without the seeded pick on the same rows, each exact:
+    # the K-pass kernel and the radix select, at the fast rounds' K and
+    # the auction's (their times set kassign.RADIX_MIN_K).
+    paths = {}
+    for kk in (4, 8, 16, 256):
+        for radix in (False, True):
+            require_equal(f"row_topk (K={kk}, radix={radix})",
+                          kassign.row_topk_path(masked, kk, radix=radix),
+                          kassign.row_topk_plain(masked, kk))
+        paths[kk] = tuple(
+            cuda_ms(lambda: kassign.row_topk_path(masked, kk, radix=radix),
+                    10) for radix in (False, True))
+    out["row_topk"]["paths"] = paths
+    log("K6 paths on (b)'s first fast round (K-pass ms / radix ms): "
+        + ", ".join(f"K={kk} {a:.4f} / {b:.4f}"
+                    for kk, (a, b) in paths.items())
+        + f"; radix from K={kassign.RADIX_MIN_K}")
     # K7 on K5's output.
     allowed = top_k[0][:, 0] > float("-inf")
     args7 = (feasible, masked, allowed)
@@ -1455,8 +1486,11 @@ def solve_phase(label: str, requests, want: tuple[str, ...],
         results.append((name, cfg, snap, res, wall_ms, moved))
     phase_counts = counts()
     for name, cfg, snap, res, wall_ms, moved in results:
+        idle = (SEEDED_IDLE if cfg.tie_break == "seeded"
+                else UNSEEDED_IDLE)
         check_launches(f"{label} {name}", moved, want,
-                       snap.atoms.key.shape[0] > 0, once=once)
+                       snap.atoms.key.shape[0] > 0, once=once,
+                       optional=OPTIONAL + idle)
     return results, phase_counts
 
 
@@ -1593,8 +1627,9 @@ def preempt_kernel_phase(cfg: EngineConfig, dsnap, plain_scan,
     once), without and with its explain outputs (evictor, evict_pos),
     and K15 against its plain version on the scan's state at (h)'s first
     preemptors (the plain scan's first preempt_step_plain calls),
-    exactly, with the violation counts K15 leaves in its scratch equal to
-    the plain tableau's; times and bounds."""
+    exactly, with the chosen prefix's freed row and victims equal to the
+    plain tableau's (at least one PDB violation among the tableaus);
+    times and bounds."""
     out = {}
     nodes, pods = dsnap.nodes, dsnap.pods
     args4, want6, plain_ms = plain_scan
@@ -1608,8 +1643,10 @@ def preempt_kernel_phase(cfg: EngineConfig, dsnap, plain_scan,
     _, _, static, order, pctx = args4
     P, N = static.mask.shape
     M, R = pctx.req_s.shape
-    vic_bytes = nbytes(pctx.perm, pctx.node_s, pctx.seg_start, pctx.cost_s,
-                       pctx.vprio_s, pctx.req_s, pctx.pdb_s)
+    # The victim table once (K15 reads each victim from the planes or the
+    # sorted order, not both) and the node offsets.
+    vic_bytes = nbytes(pctx.perm, pctx.cost_s, pctx.vprio_s, pctx.req_s,
+                       pctx.pdb_s, pctx.off)
     placed = got4[0] >= 0
     searches = int((placed & torch.isinf(got4[1])).sum()
                    + (pods.valid & (pods.group < 0) & ~placed).sum())
@@ -1636,37 +1673,94 @@ def preempt_kernel_phase(cfg: EngineConfig, dsnap, plain_scan,
                    3),
         bound=bound(b4 + nbytes(*got6[4:]), ops4),
         shape=f"{shape}; without the explain outputs {scan_ms:.3f} ms")
-    errs, viols = 0.0, 0
+    errs, viols, need_b, need_ops, visit = 0.0, 0, 0, 0, 0
     for a, _ in steps:
-        scratch = kpre.victim_scratch(M, R, nodes.valid.device)
-        got = kpre.preempt_step(*a, scratch=scratch)
+        got = kpre.preempt_step(*a)
         errs = max(errs, require_equal("preempt_step", got,
                                        kpre.preempt_step_plain(*a)))
-        c, snap_a, ctx, prio, req, allowed, used, evicted = a
-        elig, _, wviol, _, viol = kpre.tableau_plain(
-            c, snap_a, ctx, prio, req, used, evicted,
-            kpre.pdb_remaining(snap_a, evicted))
-        require_equal("preempt_step tableau",
-                      [kpre.deinterleave(scratch[0], M),
-                       kpre.deinterleave(scratch[2], M)],
-                      [elig.to(torch.uint8), wviol])
-        viols += int(viol.sum())
+        want, v, need = k15_from_tableau(*a)
+        require_equal("preempt_step against the plain tableau", got, want)
+        viols += v
+        need_b += need[0]
+        need_ops += need[1]
+        visit += need[2]
     if viols < 1:
         raise AssertionError("K15: no victim is a PDB violation at (h)'s "
                              "first preemptors")
-    b15 = vic_bytes + M + nbytes(nodes.valid, nodes.used, nodes.allocatable) \
-        + N + M
+    # The bytes and operations each search needs (k15_from_tableau), a
+    # mean over the k searches.
     k = len(steps)
+    b15 = need_b / k
     out["preempt_step"] = dict(
         err=errs,
         ms=cuda_ms(lambda: [kpre.preempt_step(*a) for a, _ in steps], 5) / k,
         plain_ms=cuda_ms(lambda: [kpre.preempt_step_plain(*a)
                                   for a, _ in steps], 2) / k,
-        bound=bound(b15, M * (3 * R + 12)),
-        shape=f"M={M} N={N} R={R} GP={dsnap.pdb_allowed.shape[0]}, {k} "
-              f"preemptor states, {viols} PDB-violating victims in their "
-              f"tableaus, {sum(int(o[1]) for _, o in steps)} found a prefix")
+        bound=bound(b15, need_ops / k),
+        shape=f"M={M} N={N} R={R} V={pctx.pl_vic.shape[0]} "
+              f"GP={dsnap.pdb_allowed.shape[0]}, {k} preemptor states, "
+              f"{viols} PDB-violating victims in their tableaus, "
+              f"{visit / k:.0f} victims and {b15:.0f} bytes a search "
+              "to read, "
+              f"{sum(int(o[1]) for _, o in steps)} found a prefix")
     return out
+
+
+def k15_from_tableau(cfg, snap, ctx, prio, req, allowed, used, evicted):
+    """K15's outputs (best node, can, evict_m, freed) read off the plain
+    tableau (`tableau_plain`): the lexicographic minimum of (violations,
+    cost, position) over the fitting prefixes on allowed, valid nodes,
+    its eligible victims and its segment sum of their requests; with the
+    tableau's PDB-violating victims and what a search must read: (bytes,
+    operations, victims). A node-major walk that knew the pick would
+    still read each allowed, valid node's victims up to its first prefix
+    that fits or ranks at or after the pick (its whole segment where
+    none does): the evicted flag and priority of each (5 bytes), the
+    cost, budget and R requests of the eligible ones; each allowed,
+    valid node's usage and allocatable rows and offsets; every node's
+    allowed and valid flags. Operations: 3 a victim, 3R + 12 more an
+    eligible one."""
+    N, R = used.shape
+    M = ctx.perm.shape[0]
+    elig, within, wviol, fits, viol = kpre.tableau_plain(
+        cfg, snap, ctx, prio, req, used, evicted,
+        kpre.pdb_remaining(snap, evicted))
+    node = ctx.node_s.clamp(max=N - 1).long()
+    ok = (ctx.node_s < N) & allowed[node] & snap.nodes.valid[node]
+    ok_nodes = int((allowed & snap.nodes.valid).sum())
+    cand = fits & ok
+    idx = torch.arange(M, device=used.device)
+    seg = ctx.seg_start.long()
+    big = torch.iinfo(torch.int32).max
+    found = bool(cand.any())
+    stop = cand
+    if found:
+        minv = torch.where(cand, wviol, big).amin()
+        cost = torch.where(cand & (wviol == minv), within[:, R],
+                           float("inf"))
+        pos = int(torch.nonzero(cost == cost.amin())[0, 0])
+        bc = within[pos, R]
+        stop = stop | (elig & ok & ((wviol > minv)
+                                    | ((wviol == minv) & (within[:, R]
+                                                          >= bc))))
+    first = torch.full((N,), M, dtype=torch.int64, device=used.device)
+    first.scatter_reduce_(0, node[stop], idx[stop], "amin")
+    read = ok & (idx <= first[node])
+    n_read, n_elig = int(read.sum()), int((read & elig).sum())
+    need = (5 * n_read + 4 * (R + 2) * n_elig
+            + ok_nodes * (8 * R + 8) + 2 * N,
+            3 * n_read + (3 * R + 12) * n_elig, n_read)
+    evict_m = torch.zeros(M, dtype=torch.bool, device=used.device)
+    if not found:
+        return ((torch.zeros((), dtype=torch.int32, device=used.device),
+                 torch.zeros((), dtype=torch.bool, device=used.device),
+                 evict_m, torch.zeros(R, device=used.device)),
+                int(viol.sum()), need)
+    sel = elig & (idx >= seg[pos]) & (idx <= pos)
+    evict_m[ctx.perm[sel].long()] = True
+    return ((ctx.node_s[pos], torch.ones((), dtype=torch.bool,
+                                         device=used.device),
+             evict_m, within[pos, :R]), int(viol.sum()), need)
 
 
 def pair_preempt_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
@@ -1700,8 +1794,8 @@ def pair_preempt_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
     b = nbytes(static.mask, static.score, static.aff_ok, nodes.allocatable,
                nodes.used, pods.requests, static.w_lr, static.w_ba,
                static.w_ts, static.w_ia, static.rw, dom_s, static.sig_match,
-               st.counts, st.anti, st.match_tot, pctx.perm, pctx.node_s,
-               pctx.seg_start, pctx.cost_s, pctx.vprio_s, pctx.req_s,
+               st.counts, st.anti, st.match_tot, pctx.perm, pctx.off,
+               pctx.cost_s, pctx.vprio_s, pctx.req_s,
                pctx.pdb_s, *flat(got)) + 4 * P
     return {"parity_scan_pair_preempt": dict(
         err=err, ms=cuda_ms(lambda: kassign.parity_scan_pair_preempt(*args),
@@ -1795,7 +1889,7 @@ def first_auction_calls(cfg: EngineConfig, dsnap) -> dict:
         k, auction_ok=rec("auction_ok", k.auction_ok),
         auction_tables=rec("auction_tables", k.auction_tables),
         auction_rank=rec("auction_rank", k.auction_rank),
-        row_topk=rec("row_topk_k256", k.row_topk, lambda a: a[1] > 16),
+        row_topk=rec("row_topk_radix", k.row_topk, lambda a: a[1] > 16),
         auction_claim=rec("auction_claim", k.auction_claim))
     solve_core(cfg, dsnap, ops=ops)
     return calls
@@ -1805,7 +1899,7 @@ AUCTION_PLAIN = {
     "auction_tables": kpre.auction_tables_plain,
     "auction_ok": kpre.auction_ok_plain,
     "auction_rank": kpre.auction_rank_plain,
-    "row_topk_k256": kassign.row_topk_plain,
+    "row_topk_radix": kassign.row_topk_plain,
     "auction_claim": kpre.auction_claim_plain,
 }
 # The CUDA kernel of each auction row, for the profiler's kernel times.
@@ -1813,9 +1907,58 @@ AUCTION_CUDA_NAME = {
     "auction_tables": "auction_tables_kernel",
     "auction_ok": "auction_ok_kernel",
     "auction_rank": "auction_rank_kernel",
-    "row_topk_k256": "row_topk_kernel",
+    "row_topk_radix": "row_topk_radix_kernel",
     "auction_claim": "auction_claim_kernel",
 }
+
+
+def topk_tie_rows(dev, N: int, K: int) -> str:
+    """K6's radix path against row_topk_plain, exactly, on rows that
+    stress its ties at width N and at N - 37 (not a multiple of 256),
+    for K and the whole row: all -inf, all equal, -0.0 and +0.0 mixed
+    (with -inf), a few values so that the K-th lies in a wide tie, and
+    bid-like rows (negated integer costs, -inf half the time); solo
+    [rows, N] and as a [B, C, N] batch."""
+    g = torch.Generator(device="cpu").manual_seed(N)
+    checked = 0
+    for n in (N, N - 37):
+        rows = [torch.full((n,), float("-inf")), torch.full((n,), -7.0),
+                torch.where(torch.rand(n, generator=g) < 0.5,
+                            torch.tensor(-0.0), torch.tensor(0.0)),
+                torch.where(torch.rand(n, generator=g) < 0.2,
+                            torch.tensor(float("-inf")),
+                            torch.where(torch.rand(n, generator=g) < 0.5,
+                                        torch.tensor(-0.0),
+                                        torch.tensor(0.0))),
+                -torch.randint(1, 4, (n,), generator=g).to(torch.float32)]
+        bids = -torch.randint(1, 50, (11, n), generator=g).to(torch.float32)
+        bids[torch.rand(11, n, generator=g) < 0.5] = float("-inf")
+        block = torch.cat([torch.stack(rows), bids]).to(dev)
+        for k in (min(K, n), n):
+            for m in (block, block.reshape(2, 8, n)):
+                require_equal(f"row_topk radix path, tie rows N={n} K={k}",
+                              _flat(kassign.row_topk_path(m, k, radix=True)),
+                              _flat(kassign.row_topk_plain(m, k)))
+                checked += 1
+    return f"{checked} tie blocks exact (N={N}, {N - 37}; K={K} and N)"
+
+
+def tableau_nv_bound(calls: dict) -> tuple[float, str]:
+    """The bound of JAX's `_tableau_nv` (preempt.py:169; the port keeps
+    it as plain torch, no product path runs it) at the shapes of this
+    auction round's bidders: the [N, V] victim table, the bidders'
+    priorities and requests, used and allocatable read once, its [C, N,
+    V] outputs (elig, wcost, wviol, fits: 10 bytes a cell) and [C, N]
+    minima written once; per cell the eligibility, R + 1 prefix adds,
+    3R fit operations, the V-long same-budget count and the two minima."""
+    ctx, ev = calls["auction_tables"][1][:2]
+    C = calls["auction_rank"][1][3].shape[-1]
+    N, V, R = ctx.vreq.shape[-3:]
+    B = ev.numel() // ev.shape[-1]
+    b = nbytes(ctx.vreq, ctx.vcost, ctx.vprio, ctx.vpdb, ctx.vvalid,
+               ctx.vidx, ev) + B * (C * (R + 1) * 4 + 2 * N * R * 4
+                                    + C * N * V * 10 + C * N * 8)
+    return bound(b, B * C * N * V * (4 * R + V + 7))
 
 
 def auction_kernel_phase(dsnap, calls: dict) -> dict:
@@ -1861,15 +2004,23 @@ def auction_kernel_phase(dsnap, calls: dict) -> dict:
             r.update(bound=bound(b, B * C * N * (2 * R * (steps + 3) + 8)),
                      shape=f"B={B} C={C} N={N} L={L} V={V} R={R}, "
                            f"{int(torch.isfinite(got[0]).sum())} bids")
-        elif name == "row_topk_k256":
+        elif name == "row_topk_radix":
             masked, K = a[0], a[1]
             N = masked.shape[-1]
             rows = masked.numel() // N
+            # The K-pass kernel on the same rows (K6's path before the
+            # radix select), and the tie rows.
+            kpass = lambda: kassign.row_topk_path(masked, K, radix=False)
+            require_equal("row_topk_radix (K-pass kernel)", _flat(kpass()),
+                          got)
+            ties = topk_tie_rows(masked.device, N, K)
             r.update(bound=bound(nbytes(masked, *got[:2]), rows * N),
                      library="torch.topk",
                      library_ms=cuda_ms(lambda: torch.topk(masked, K, dim=-1),
                                         20),
-                     shape=f"{rows} rows, N={N} K={K}")
+                     kpass_ms=cuda_ms(kpass, 5),
+                     kpass_prof_ms=profiler_ms(kpass, "row_topk_kernel"),
+                     shape=f"{rows} rows, N={N} K={K}; {ties}")
         elif name == "auction_claim":
             topv, topi, can_plain, n_plain, rank, ctx = a[:6]
             p_prio, p_req, could = a[7], a[8], a[11]
@@ -1963,17 +2114,13 @@ def fast_preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
         log(f"steady fast preemption solve {name}: stages (ms): " + ", ".join(
             f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in bd.items()) + f"; {smi}")
-        kp = auction_kernel_phase(dsnap, first_auction_calls(cfg, dsnap))
-        for kname, r in kp.items():
-            lib = (f", {r['library']} {r['library_ms']:.4f} ms"
-                   if r.get("library_ms") is not None else "")
-            prof = ("not measured" if r["prof_ms"] is None
-                    else f"{r['prof_ms']:.4f} ms")
-            log(f"kernel {kname} on {name.split(':')[0]}'s first auction "
-                f"round [{r['shape']}]: exact match, kernel {r['ms']:.4f} ms "
-                f"(CUDA events; profiler kernel time {prof}), plain "
-                f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound'][0]:.4f} ms "
-                f"({r['bound'][1]}); {smi}")
+        calls = first_auction_calls(cfg, dsnap)
+        kp = auction_kernel_phase(dsnap, calls)
+        where = f"{name.split(':')[0]}'s first auction round"
+        log_rows(kp, where, smi)
+        nv = tableau_nv_bound(calls)
+        log(f"bound of _tableau_nv (plain torch, no kernel) on {where}: "
+            f"{nv[0]:.5f} ms ({nv[1]}); {smi}")
         if not rows:
             rows = kp
         else:
@@ -2164,7 +2311,8 @@ def warm_phase(smi: str) -> tuple[dict, dict]:
     for kname, n in phase_counts.items():
         need = kname in WARM_KERNELS and (
             kname != "atom_sat" or ds.snap.atoms.key.shape[0] > 0)
-        if (need and n < 1) or (not need and n):
+        if ((need and n < 1 and kname not in UNSEEDED_IDLE)
+                or (not need and n)):
             raise AssertionError(f"w: kernel {kname} launched {n} times "
                                  f"(launches {phase_counts})")
     log(f"warm (w) launches {phase_counts}; the phase so far "
@@ -2718,6 +2866,11 @@ def log_rows(rows: dict, where: str, smi: str) -> None:
                 else f"{r['prof_ms']:.4f} ms")
         lib = (f"{r['library']} {r['library_ms']:.4f} ms, "
                if r.get("library_ms") is not None else "")
+        if "kpass_ms" in r:
+            kp = r["kpass_prof_ms"]
+            lib += (f"the K-pass kernel {r['kpass_ms']:.4f} ms (profiler "
+                    + ("not measured" if kp is None else f"{kp:.4f} ms")
+                    + "), ")
         log(f"kernel {kname} on {where} [{r['shape']}]: exact match, kernel "
             f"{r['ms']:.4f} ms (CUDA events; profiler kernel time {prof}), "
             f"plain {r['plain_ms']:.4f} ms, {lib}bound "
@@ -2745,7 +2898,7 @@ def tenant_phase(smi: str) -> tuple[dict, dict]:
         f"{sum(m.n_nodes for _, m in built)} nodes")
     cfg_p, cfg_f = EngineConfig(mode="parity"), EngineConfig(mode="fast")
     cells = (("t parity", cfg_p, PARITY_KERNELS, ONCE, (), True),
-             ("t fast", cfg_f, FAST_KERNELS, ONCE, (), True),
+             ("t fast", cfg_f, FAST_KERNELS, ONCE, UNSEEDED_IDLE, True),
              ("t parity seeded", EngineConfig(
                  mode="parity", tie_break="seeded", tie_seed=SEED),
               PARITY_KERNELS, ONCE, (), False))
@@ -2956,7 +3109,7 @@ def pair_tenant_phase(smi: str) -> tuple[dict, dict]:
                  mode="parity", tie_break="seeded", tie_seed=SEED),
               PAIR_PARITY_KERNELS, ONCE, (), False),
              ("tp fast", EngineConfig(mode="fast"), FAST_PAIR_KERNELS,
-              FAST_PAIR_ONCE, (), True))
+              FAST_PAIR_ONCE, UNSEEDED_IDLE, True))
     launches = batch_cells(cells, snaps, dstack, smi, reduced=reduced)
     rows = tenant_pair_kernel_rows(dstack, reduced, smi)
     log_rows(rows, "(tp)'s batches", smi)
@@ -2999,7 +3152,7 @@ def gang_tenant_phase(smi: str) -> dict:
     cells = (("tg parity", EngineConfig(mode="parity"), GANG_PARITY_KERNELS,
               ONCE, (), True),
              ("tg fast", EngineConfig(mode="fast"), GANG_FAST_KERNELS, ONCE,
-              OPTIONAL, True))
+              OPTIONAL + UNSEEDED_IDLE, True))
     return batch_cells(cells, snaps, dstack, smi, reduced=reduced,
                        hook=gang_hook)
 
@@ -3094,7 +3247,8 @@ def pre_tenant_phase(smi: str, pair: bool) -> tuple[dict, dict]:
               (), False),
              (f"{label} fast", cfg_f,
               FAST_PREEMPT_PAIR_KERNELS if pair else FAST_PREEMPT_KERNELS,
-              FAST_PAIR_ONCE if pair else ONCE, OPTIONAL, True))
+              FAST_PAIR_ONCE if pair else ONCE, OPTIONAL + UNSEEDED_IDLE,
+              True))
     launches = batch_cells(cells, snaps, dstack, smi, reduced=reduced,
                            hook=preempt_hook)
     static = kassign.precompute_static(cfg_p, dstack, *_sat_tables(dstack))
@@ -3118,9 +3272,12 @@ def pre_tenant_phase(smi: str, pair: bool) -> tuple[dict, dict]:
         f"{k4_solo:.3f} ms (x{B} = {B * k4_solo:.3f} ms); {smi}")
     rows = {}
     if not pair:
-        rows = auction_kernel_phase(dstack, first_auction_calls(cfg_f,
-                                                                dstack))
+        calls = first_auction_calls(cfg_f, dstack)
+        rows = auction_kernel_phase(dstack, calls)
         log_rows(rows, "(th)'s first auction round", smi)
+        nv = tableau_nv_bound(calls)
+        log(f"bound of _tableau_nv (plain torch, no kernel) on (th)'s first "
+            f"auction round: {nv[0]:.5f} ms ({nv[1]}); {smi}")
     return launches, rows
 
 

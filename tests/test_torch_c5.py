@@ -16,9 +16,10 @@ root):
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_c5.py picks 2000 1000 400
         along the port's plain parity solve of config5_preemption(rng(45),
         2000, 1000), its first 400 searches: how often the port's pick,
-        JAX's `preempt_step` and the JAX association in K15's chunked
-        order (a prefix over all M minus the segment offset) on the same
-        states equal the exact pick, and the searches where JAX's does not;
+        JAX's `preempt_step` and the JAX association in the port's order
+        (a left-to-right prefix over all M minus the segment offset) on
+        the same states equal the exact pick, and the searches where
+        JAX's does not;
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_c5.py used
         final_used of the port, the JAX engine and the oracle on the JAX
         tests' preemption clusters: the entries where they differ.
@@ -125,21 +126,13 @@ def _jax_pick(jsnap, jctx, state) -> int:
     return int(best) if bool(can) else -1
 
 
-def _chunked_global(x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
-    """The JAX association in K15's chunked order: 1024 chunks summed in
-    order, a Hillis-Steele scan of their totals, the chunk offsets, then
-    minus the prefix at the segment's start."""
-    M, K = x.shape
-    T = tpre.THREADS
-    c = max(1, -(-M // T))
-    xs = torch.cat([x, torch.zeros(T * c - M, K)]).reshape(T, c, K)
-    run = [xs[:, 0]]
-    for k in range(1, c):
-        run.append(run[-1] + xs[:, k])
-    loc = torch.stack(run, dim=1)
-    inc = tassign._scan_plain(loc[:, -1])
-    excl = torch.cat([torch.zeros_like(inc[:1]), inc[:-1]])
-    cum = (excl[:, None, :] + loc).reshape(T * c, K)[:M]
+def _global(x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """The JAX association in the port's order: one prefix over all M
+    rows, left to right from 0.0, minus its value at the segment's
+    start."""
+    M = x.shape[0]
+    # numpy's cumsum accumulates in order, in the array's f32.
+    cum = torch.from_numpy(np.cumsum(x.numpy(), axis=0, dtype=np.float32))
     idx = torch.arange(M)
     seg = torch.cummax(torch.where(start, idx, 0), dim=0).values
     off = torch.where((seg > 0)[:, None], cum[(seg - 1).clamp(min=0)], 0.0)
@@ -159,23 +152,23 @@ def test_port_picks_the_exact_prefix(seed):
 def _report_picks(P: int, N: int, limit: int) -> None:
     jsnap, snap, ctx, states = searches(P, N, limit)
     jctx = jpre.precompute(JConfig(preemption=True), jsnap)
-    counts = dict(port=0, jax=0, chunked_global=0)
+    counts = dict(port=0, jax=0, jax_association=0)
     orig = tpre.segment_prefix
     for k, st in enumerate(states):
         want = exact_pick(snap, ctx, st)
         port = _port_pick(st)
         jax_n = _jax_pick(jsnap, jctx, st)
-        tpre.segment_prefix = _chunked_global
+        tpre.segment_prefix = _global
         try:
             glob = _port_pick(st)
         finally:
             tpre.segment_prefix = orig
         counts["port"] += port == want
         counts["jax"] += jax_n == want
-        counts["chunked_global"] += glob == want
+        counts["jax_association"] += glob == want
         if jax_n != want:
             print(f"search {k}: exact {want}, port {port}, JAX {jax_n}, "
-                  f"chunked global {glob}")
+                  f"JAX association in the port's order {glob}")
     print(f"{len(states)} searches on config5_preemption(rng(45), {P}, {N});"
           f" the exact pick: " + ", ".join(f"{k} {v}"
                                            for k, v in counts.items()))

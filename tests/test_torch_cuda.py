@@ -3,8 +3,8 @@ card, at small shapes. Exact: every kernel is built with --fmad=false and
 follows its plain version's order of f32 operations (K7's column sum in
 ascending rows, K8's Hillis-Steele prefix and rank-ordered adds; K10's
 atomic adds of +-1.0 stay exact integers in any order; K12-K14 count,
-compare and take minima; K15's victim prefix sums follow its plain
-version's chunked Hillis-Steele order; K21's priority rounds its f64
+compare and take minima; K15's victim prefix sums run in 16-row blocks
+of each node's segment, as its plain version's do; K21's priority rounds its f64
 multiply-add once, as the plain version and the numpy oracle do; K22
 sums the six terms left to right, as its plain version does; K23's
 prefixes take _scan_plain's Hillis-Steele order and its searches
@@ -363,12 +363,31 @@ def test_fast_pairwise_solve_equal_plain(cuda, mix, tie_break):
 def _victim_case(case):
     """Victim tables for K15: ties (identical victims on identical
     nodes), all-inf (no victim is eligible), exhausted budgets (every
-    victim under a budget with nothing left) and one huge segment (one
-    node holding more victims than the CTA has threads, so that its
-    segment spans many threads' chunks). (snapshot, preemptor priority,
-    requests [cpu, memory, pods])."""
+    victim under a budget with nothing left), one huge segment (one node
+    holding more victims than the CTA has threads), spilled segments
+    (nodes with more victims than K15's planes hold, their tails read in
+    the sorted order) and many budgets (20 budgets, more than K15 counts
+    in registers on a node, so that some victims count their segment
+    again). (snapshot, preemptor priority, requests [cpu, memory,
+    pods])."""
     b = SnapshotBuilder(EngineConfig(preemption=True))
     mem = 64 << 30
+    if case == "six_resources":
+        return _six_resource_cluster(6), 500.0, [2500.0, float(1 << 30),
+                                                 1.0, 1.0, 2.0, 1.0]
+    if case in ("spilled", "many_budgets"):
+        per = kpre.PLANE_CAP + 9 if case == "spilled" else 24
+        for n in range(5):
+            b.add_node(f"n{n}", {"cpu": 100 * per, "memory": mem,
+                                 "pods": 200})
+            for j in range(per):
+                g = (n + j) % (20 if case == "many_budgets" else 3)
+                b.add_running_pod(
+                    f"n{n}", {"cpu": 100, "memory": 1 << 20},
+                    priority=(j * 7) % 11, slack=(j % 5) / 20.0,
+                    pdb_group=f"g{g}" if j % 4 != 1 else None,
+                    pdb_disruptions_allowed=(n + j) % 3)
+        return b.build()[0], 500.0, [100.0 * (per - 3), 1 << 22, 1.0]
     if case == "huge_segment":
         b.add_node("big", {"cpu": 3000 * 10, "memory": mem, "pods": 5000})
         for i in range(3000):
@@ -392,8 +411,36 @@ def _victim_case(case):
     return b.build()[0], p_prio, [2500.0, float(1 << 30), 1.0]
 
 
+# Three extended resources beside cpu, memory and pods: R = 6, past the
+# four requests K15 sums in registers.
+SIX = EngineConfig().resources + ("gpu", "fpga", "nic")
+
+
+def _six_resource_cluster(n_nodes, pending=0):
+    """Nodes full of running pods that hold every one of six resources,
+    a third under budgets, and `pending` pods that fit only by
+    preemption."""
+    b = SnapshotBuilder(EngineConfig(preemption=True, resources=SIX))
+    full = {"cpu": 4000, "memory": 64 << 30, "pods": 110, "gpu": 8,
+            "fpga": 8, "nic": 4}
+    for n in range(n_nodes):
+        b.add_node(f"n{n}", full)
+        for j in range(4):
+            b.add_running_pod(
+                f"n{n}", {"cpu": 1000, "memory": 16 << 30, "gpu": 2,
+                          "fpga": 2, "nic": 1},
+                priority=10.0 + (n + j) % 5, slack=0.05 * j,
+                pdb_group=f"g{(n + j) % 3}" if j % 3 == 0 else None,
+                pdb_disruptions_allowed=n % 2)
+    for p in range(pending):
+        b.add_pod(f"p{p}", {"cpu": 1500, "memory": 8 << 30, "gpu": 3,
+                            "fpga": 1, "nic": 1}, priority=400.0 + p)
+    return b.build()[0]
+
+
 @pytest.mark.parametrize("case", ["ties", "all_inf", "exhausted_budgets",
-                                  "huge_segment"])
+                                  "huge_segment", "spilled",
+                                  "many_budgets", "six_resources"])
 def test_k15_equal_plain(cuda, case):
     snap, p_prio, req = _victim_case(case)
     snap = snap.to(cuda)
@@ -457,6 +504,20 @@ def test_k4_preempt_equal_plain(cuda, pair, tie_break):
                          assigned=got[0])
     left = kp.pair_state_evict(snap, rec, static.sig_match, dom, got[4])
     _equal(_state(got[3]), _state(left))
+
+
+def test_k4_preempt_six_resources_equal_plain(cuda):
+    """K4's preemption variant with six resources (K15's sums in local
+    memory) against its plain version: assignment, chosen, used and
+    evictions."""
+    snap = _six_resource_cluster(8, pending=12).to(cuda)
+    cfg = EngineConfig(preemption=True, resources=SIX)
+    ctx = kpre.precompute(cfg, snap)
+    order = ka.pop_order(cfg, snap)
+    static = _static(cfg, snap)
+    got = ka.parity_scan_preempt(cfg, snap, static, order, ctx)
+    _equal(got, ka.parity_scan_preempt_plain(cfg, snap, static, order, ctx))
+    assert got[3].any()
 
 
 @pytest.mark.parametrize("mode", ["parity", "fast"])
@@ -566,6 +627,35 @@ def test_k16_to_k18_equal_plain(cuda, size):
     got = kpre.auction_claim(*cargs)
     _equal(got, kpre.auction_claim_plain(*cargs))
     assert got[2].any()
+
+
+def _tie_rows(n, seed):
+    """Rows that stress K6's ties: all -inf, all equal, -0.0 and +0.0
+    mixed (with -inf), three values (a wide tie at the K-th), and
+    bid-like rows (negated integer costs, -inf half the time)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pm0 = torch.where(torch.rand(n, generator=g) < 0.5, torch.tensor(-0.0),
+                      torch.tensor(0.0))
+    rows = [torch.full((n,), float("-inf")), torch.full((n,), -7.0), pm0,
+            torch.where(torch.rand(n, generator=g) < 0.2,
+                        torch.tensor(float("-inf")), pm0),
+            -torch.randint(1, 4, (n,), generator=g).to(torch.float32)]
+    bids = -torch.randint(1, 50, (11, n), generator=g).to(torch.float32)
+    bids[torch.rand(11, n, generator=g) < 0.5] = float("-inf")
+    return torch.cat([torch.stack(rows), bids])
+
+
+@pytest.mark.parametrize("N", [300, 1000, 2048])
+@pytest.mark.parametrize("K", [17, 64, 256, "N"])
+def test_k6_radix_equal_plain(cuda, N, K):
+    """K6's radix path (csrc/topk.cu row_topk_radix_kernel) against its
+    plain version, exactly, on tie rows, solo [rows, N] and as a
+    [B, C, N] batch; N = 300 and 1000 are not multiples of 256."""
+    K = N if K == "N" else min(K, N)
+    m = _tie_rows(N, N + K).to(cuda)
+    for x in (m, m.reshape(2, 8, N)):
+        _equal(ka.row_topk_path(x, K, radix=True), ka.row_topk_plain(x, K))
+        _equal(ka.row_topk_path(x, K), ka.row_topk_plain(x, K))
 
 
 @pytest.mark.parametrize("N", [300, 5120])

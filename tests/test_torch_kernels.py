@@ -456,56 +456,37 @@ def test_balanced_allocation_root_correctly_rounded():
 
 
 def test_segment_prefix_fixed_order():
-    """K15's segment sums, pinned: 1024 chunks summed in row order from
-    0.0 (again from 0.0 at a segment start), the chunk tails through a
-    segmented Hillis-Steele scan, then the carry added to the rows before
-    each chunk's first segment start; written out here row by row, on
-    values whose f32 sums depend on the order and segments that span
-    chunks. It is not the JAX association (a prefix over all rows minus
-    its value at the segment's start), whose cancellation the segments
-    avoid: here its largest error against the f64 sums is over ten times
-    the segment sums'."""
+    """K15's segment sums, pinned: each segment in blocks of 16 rows, a
+    block summed left to right from 0.0, the block totals added left to
+    right, a row's sum the totals before its block plus its block's sum
+    up to the row; written out here row by row, on values whose f32 sums
+    depend on the order, short segments and one of 500 rows. It is not
+    the JAX association (a prefix over all rows minus its value at the
+    segment's start), whose cancellation the segments avoid: its largest
+    error against the f64 sums is over ten times the segment sums', on
+    the segments of up to eight rows (config 5's eight running pods a
+    node) and on the 500-row one alike."""
     r = np.random.default_rng(0)
-    M = 2 * kpre.THREADS + 5
+    M = 2053
     x = (r.uniform(0, 1, (M, 2)) * 10.0 ** r.integers(6, 10, (M, 1)))
     x = torch.from_numpy(x.astype(np.float32))
     lengths = r.integers(1, 9, M)
-    lengths[100] = 500                      # a segment over many chunks
+    lengths[100] = 500                      # a segment of many blocks
     start = np.zeros(M, bool)
     start[np.cumsum(np.concatenate([[0], lengths]))[:-1]
           [np.cumsum(np.concatenate([[0], lengths]))[:-1] < M]] = True
     got = kpre.segment_prefix(x, torch.from_numpy(start))
-    T, c = kpre.THREADS, 3                  # c = ceil(M / 1024)
-    rows = torch.cat([x, torch.zeros(T * c - M, 2)])
-    flags = np.concatenate([start, np.ones(T * c - M, bool)])
-    loc = torch.empty_like(rows)
-    tail = torch.empty(T, 2)
-    has = np.zeros(T, bool)
-    for t in range(T):
-        acc = torch.zeros(2)
-        for k in range(c):
-            i = t * c + k
-            if flags[i]:
-                acc = torch.zeros(2)
-                has[t] = True
-            acc = acc + rows[i]
-            loc[i] = acc
-        tail[t] = acc
-    d = 1
-    while d < T:
-        new, hnew = tail.clone(), has.copy()
-        for t in range(d, T):
-            if not has[t]:
-                new[t] = tail[t - d] + tail[t]
-            hnew[t] = has[t - d] or has[t]
-        tail, has, d = new, hnew, d * 2
-    want = loc.clone()
-    for t in range(1, T):
-        for k in range(c):
-            if flags[t * c:t * c + k + 1].any():
-                break
-            want[t * c + k] = tail[t - 1] + loc[t * c + k]
-    assert torch.equal(got, want[:M])
+    want = torch.empty_like(x)
+    j = 0
+    for i in range(M):
+        j = 0 if start[i] or i == 0 else j + 1
+        if j == 0:
+            tot = torch.zeros(2)
+        elif j % 16 == 0:
+            tot = tot + blk
+        blk = (torch.zeros(2) if j % 16 == 0 else blk) + x[i]
+        want[i] = tot + blk
+    assert torch.equal(got, want)
     seg = np.maximum.accumulate(np.where(start, np.arange(M), 0))
     exact = np.zeros((M, 2))
     for i in range(M):
@@ -513,9 +494,14 @@ def test_segment_prefix_fixed_order():
     cum = np.cumsum(x.numpy(), axis=0, dtype=np.float32)
     jax_like = cum - np.where((seg > 0)[:, None], cum[np.maximum(seg - 1, 0)],
                               0)
-    err_seg = np.abs(got.numpy() - exact).max()
-    err_jax = np.abs(jax_like - exact).max()
-    assert err_seg * 10 < err_jax
+    err_seg = np.abs(got.numpy() - exact).max(axis=1)
+    err_jax = np.abs(jax_like - exact).max(axis=1)
+    seg_id = np.cumsum(start) - 1
+    short = np.bincount(seg_id)[seg_id] <= 8
+    assert not short.all()
+    assert err_seg.max() * 10 < err_jax.max()
+    assert err_seg[short].max() * 10 < err_jax[short].max()
+    assert err_seg[~short].max() * 10 < err_jax[~short].max()
 
 
 # -- the fast preemption auction (K16, K17, K6 at K = 256) -------------------
@@ -638,6 +624,24 @@ def test_auction_tables_and_rank_plain_match_jax(seed):
     np.testing.assert_array_equal(could.numpy(),
                                   np.asarray(jnp.any(okj & feas_o, axis=1)))
     assert np.isfinite(bid.numpy()).any()
+
+
+def test_row_topk_plain_signed_zero_ties():
+    """K6's plain version ranks -0.0 with +0.0, ties to the lower index
+    (as csrc/cell.cuh `beats` compares them), and returns +0.0 for
+    either: the same on the CPU as on CUDA, whose float sort would put
+    -0.0 after +0.0. Held against a stable numpy ranking by value."""
+    r = np.random.default_rng(1)
+    m = np.where(r.random((6, 300)) < 0.5, np.float32(-0.0),
+                 np.float32(0.0)).astype(np.float32)
+    m[r.random(m.shape) < 0.2] = -1.0
+    m[r.random(m.shape) < 0.1] = -np.inf
+    for K in (17, 256):
+        tv, ti, _ = tassign.row_topk_plain(torch.from_numpy(m), K)
+        want = np.argsort(-(m + np.float32(0.0)), axis=1, kind="stable")
+        np.testing.assert_array_equal(ti.numpy(), want[:, :K])
+        v = tv.numpy()
+        assert not np.signbit(v[v == 0]).any()
 
 
 def test_row_topk_plain_k256_matches_lax_top_k():

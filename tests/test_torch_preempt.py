@@ -350,6 +350,74 @@ def test_preempt_step_plain_equals_jax(seed):
     assert cans > 0
 
 
+def _edge_victims(case):
+    """A JAX snapshot for the search's edge cases: `spilled`, nodes with
+    more victims than K15's [V, N] planes hold (their tails read in the
+    sorted order); `many_budgets`, 20 budgets over nodes of 24 victims
+    (more than K15 counts in registers on a node); `no_allowed_node`,
+    the spilled cluster with no node allowed to the pod."""
+    b = JBuilder(JConfig(preemption=True))
+    per = tpre.PLANE_CAP + 9 if case != "many_budgets" else 24
+    for n in range(5):
+        b.add_node(f"n{n}", {"cpu": 100 * per, "memory": 64 << 30,
+                             "pods": 200})
+        for j in range(per):
+            g = (n + j) % (20 if case == "many_budgets" else 3)
+            b.add_running_pod(
+                f"n{n}", {"cpu": 100, "memory": 1 << 20},
+                priority=(j * 7) % 11, slack=(j % 5) / 20.0,
+                pdb_group=f"g{g}" if j % 4 != 1 else None,
+                pdb_disruptions_allowed=(n + j) % 3)
+    b.add_pod("p", {"cpu": 100.0 * (per - 3), "memory": 1 << 22},
+              priority=500)
+    return b.build()[0]
+
+
+@pytest.mark.parametrize("case", ["spilled", "many_budgets",
+                                  "no_allowed_node"])
+def test_preempt_step_plain_edge_cases(case):
+    """The plain search against JAX preempt_step and against the exact
+    pick (test_torch_c5.exact_pick: the sums and the fit in f64) on
+    segments past K15's planes, more budgets than it counts in
+    registers, and a pod allowed on no node: best_n, can and the
+    eviction mask exact, the freed row within 1 ulp of JAX's."""
+    from test_torch_c5 import exact_pick
+
+    jsnap = _edge_victims(case)
+    tsnap = snapshot_from_numpy(jax.device_get(jsnap))
+    jcfg, tcfg = JConfig(preemption=True), EngineConfig(preemption=True)
+    jctx = jpre.precompute(jcfg, jsnap)
+    tctx = tpre.precompute(tcfg, tsnap)
+    assert int((tctx.off[1:] - tctx.off[:-1]).max()) > tctx.pl_vic.shape[0]
+    if case == "many_budgets":
+        assert tsnap.pdb_allowed.shape[0] > 16
+    M = tctx.perm.shape[0]
+    N = tsnap.nodes.valid.shape[0]
+    r = np.random.default_rng(len(case))
+    req = np.asarray(jsnap.pods.requests)[0]
+    cans = 0
+    for trial in range(8):
+        ev, used, allowed = _random_state(r, jsnap, M, N)
+        ev &= r.random(M) < 0.3 * (trial % 3)
+        if case == "no_allowed_node":
+            allowed[:] = False
+        prio = np.float32(500.0)
+        jb, jc, jm, jf = (np.asarray(x) for x in jpre.preempt_step(
+            jcfg, jsnap, jctx, jnp.float32(prio), jnp.asarray(req),
+            jnp.asarray(allowed), jnp.asarray(used), jnp.asarray(ev)))
+        state = (tcfg, tsnap, tctx, torch.tensor(prio),
+                 torch.from_numpy(req), torch.from_numpy(allowed),
+                 torch.from_numpy(used), torch.from_numpy(ev))
+        tb, tc, tm, tf = tpre.preempt_step(*state)
+        assert int(tb) == int(jb) and bool(tc) == bool(jc)
+        np.testing.assert_array_equal(tm.numpy(), jm)
+        np.testing.assert_array_max_ulp(tf.numpy(), jf[int(jb)], maxulp=1)
+        assert (int(tb) if bool(tc) else -1) == exact_pick(tsnap, tctx,
+                                                           state)
+        cans += bool(tc)
+    assert cans == 0 if case == "no_allowed_node" else cans > 0
+
+
 def test_pair_state_evict_equals_jax():
     """pair_state_evict on a snapshot with signatures and running
     required-anti holders against JAX's, bitwise."""

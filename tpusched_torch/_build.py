@@ -36,10 +36,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
-# K4's preemption block: M, GP, J, the victim table, the margin, the per-pod,
-# per-node and running-pod arrays, the budget and eviction state, K15's
-# scratch.
-_PREEMPT = [_I, _I, _I] + [_P] * 7 + [_F] + [_P] * 11
+# K4's preemption block: M, GP, V, J, the victim table, the margin, the
+# per-pod, per-node and running-pod arrays, the budget and eviction state
+# (by pod and in the victims' sorted order).
+_PREEMPT = [_I] * 4 + [_P] * 8 + [_F] + [_P] * 9
 
 # C signature of every entry point (kernels.h). All pointers and the
 # stream are c_void_p: an untyped Python int would be passed as a
@@ -55,6 +55,7 @@ SIGNATURES = {
                              _P, _P, _I, _U, _P, _P, _P, _P],
     "tpusched_cycle": [_I] * 5 + [_P] * 15 + [_I] + [_P] * 5,
     "tpusched_row_topk": [_I, _I, _I, _P, _I, _U, _P, _P, _P, _P, _P],
+    "tpusched_row_topk_radix": [_I, _I, _I, _P, _P, _P, _P],
     "tpusched_desirability": [_I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "tpusched_prefix_commit": [_I] * 5 + [_P] * 11,
     "tpusched_parity_scan_pair": [_I, _I, _I, _I] + [_P] * 10 + [_I, _U]
@@ -70,7 +71,7 @@ SIGNATURES = {
     "tpusched_waterfill": [_I] * 5 + [_P] * 13,
     "tpusched_excess_min": [_I] * 4 + [_P] * 7,
     "tpusched_excess_survive": [_I, _I] + [_P] * 7,
-    "tpusched_preempt_step": [_I] * 4 + [_P] * 7 + [_F] + [_P] * 15,
+    "tpusched_preempt_step": [_I] * 5 + [_P] * 8 + [_F] + [_P] * 12,
     "tpusched_parity_scan_preempt": [_I] * 4 + [_P] * 10 + [_I, _U]
                                     + _PREEMPT + [_P] * 6,
     "tpusched_parity_scan_pair_preempt": [_I] * 4 + [_P] * 10

@@ -96,6 +96,12 @@ int tpusched_row_topk(int rows, int N, int K, const float* masked,
                       int seeded, unsigned int seed, const int* row_ids,
                       float* topv, int* topi, int* pick, void* stream);
 
+// K6's radix path, the same top-K (not seeded) by a radix select and a
+// bitonic sort of the K selected; K <= 16 384 (its pairs fit in shared
+// memory).
+int tpusched_row_topk_radix(int rows, int N, int K, const float* masked,
+                            float* topv, int* topi, void* stream);
+
 // K7. desir[n] = sum over rows (ascending) of masked where feasible and
 // allowed, over max(#allowed, 1); -inf where no allowed row is feasible.
 // fixed = 1: the sum is of int32 round(masked * 16) clipped to +-32767,
@@ -248,48 +254,50 @@ int tpusched_excess_survive(int B, int P, const int* gid_s, const int* perm,
                             const float* b_fixed, bool* bad, void* stream);
 
 // K15 (tpusched/kernels/preempt.py preempt_step): one preemptor's victim
-// search over the (node, cost)-sorted victim table (perm .. pdb_s, in
-// preempt.cuh's thread-interleaved layout padded to Mp = 1024 *
-// ceil(M / 1024): [Mp] each, req_s [R, Mp]); p_prio and p_req point to
-// the pod's priority and [R] requests, allowed and node_valid are [N],
-// used and alloc [N, R], evicted [M], remaining [GP] each budget's
-// disruptions left. Scratch (the same layout): elig [Mp] bytes, cum
-// [(R + 1) * Mp] floats, cum_viol [Mp] ints. Writes
-// best[0] (node, 0 if none) and best[1] (can); evict_m [M] and freed [R]
-// must hold zeros on entry.
+// search over the (node, cost)-sorted victim table (preempt.cuh): off
+// [N + 1] each node's first sorted position, the planes holding each
+// node's first V victims, pl_vic [V, N, 4] (vprio, cost as f32 bits,
+// pdb, perm) and pl_req [R, V, N], and the sorted order perm .. pdb_s
+// [M] (req_s [M, R]) for the rest; p_prio and p_req point to the pod's
+// priority and [R] requests, allowed and node_valid are [N], used and
+// alloc [N, R], ev_s [M] the evictions so far in the sorted order (the
+// kernel marks the chosen victims there), remaining [GP] each budget's
+// disruptions left. Writes best[0] (node, 0 if none) and best[1] (can);
+// evict_m [M] and freed [R] must hold zeros on entry.
 int tpusched_preempt_step(
-    int N, int R, int M, int GP, const int* perm, const int* node_s,
-    const int* seg_start, const float* cost_s, const float* vprio_s,
-    const float* req_s, const int* pdb_s, float margin, const float* p_prio,
-    const float* p_req, const bool* allowed, const bool* node_valid,
-    const float* used, const float* alloc, const bool* evicted,
-    const float* remaining, unsigned char* elig, float* cum, int* cum_viol,
-    int* best, bool* evict_m, float* freed, void* stream);
+    int N, int R, int M, int GP, int V, const int* off, const int* pl_vic,
+    const float* pl_req, const int* perm, const float* cost_s,
+    const float* vprio_s, const float* req_s, const int* pdb_s, float margin,
+    const float* p_prio, const float* p_req, const bool* allowed,
+    const bool* node_valid, const float* used, const float* alloc,
+    unsigned char* ev_s, const float* remaining, int* best, bool* evict_m,
+    float* freed, void* stream);
 
 // K4's preemption variants (solve_sequential with cfg.preemption): the
 // parity scan (and its pairwise variant) with K15's search for each valid
-// pod outside a gang (group < 0) that fits nowhere. The block M .. cum_viol
-// is K15's table and scratch, each pod's effective priority, validity and
-// gang, node validity, the running pods' nodes and [M, J] required anti
+// pod outside a gang (group < 0) that fits nowhere. The block M .. pdb_s
+// is K15's table; then each pod's effective priority, validity and gang,
+// node validity, the running pods' nodes and [M, J] required anti
 // signatures; remaining [GP] holds the budgets' disruptions allowed on
 // entry and what is left on return; evicted [M] (zeros on entry) the
-// evictions. evictor and evict_pos [M] (may be NULL; else -1 on entry)
+// evictions, ev_s [M] (zeros on entry) the same in the victims' sorted
+// order. evictor and evict_pos [M] (may be NULL; else -1 on entry)
 // receive, for each evicted victim, the evicting pod and its pop-order
-// step. With the tenant axis the victim table and K15's scratch are
-// [B, Mp] ([B, R, Mp], [B, (R + 1) * Mp]: each tenant its own layout),
-// and evictor / evict_pos must be NULL when B > 1.
+// step. With the tenant axis every part of the table gains a leading [B]
+// axis (each tenant its own order, offsets and planes, V shared), and
+// evictor / evict_pos must be NULL when B > 1.
 int tpusched_parity_scan_preempt(
     int B, int P, int N, int R, const int* order, const bool* mask,
     const float* static_score, const float* alloc, const float* requests,
     const float* w_lr, const float* w_ba, const float* w_ts,
     const float* w_ia, const float* rw, int seeded, unsigned int seed, int M,
-    int GP, int J, const int* perm, const int* node_s, const int* seg_start,
-    const float* cost_s, const float* vprio_s, const float* req_s,
-    const int* pdb_s, float margin, const float* prio, const bool* pod_valid,
-    const int* group, const bool* node_valid, const int* run_node,
-    const int* run_anti_sig, float* remaining, unsigned char* evicted,
-    unsigned char* elig, float* cum, int* cum_viol, float* used,
-    int* assigned, float* chosen, int* evictor, int* evict_pos,
+    int GP, int V, int J, const int* off, const int* pl_vic,
+    const float* pl_req, const int* perm, const float* cost_s,
+    const float* vprio_s, const float* req_s, const int* pdb_s, float margin,
+    const float* prio, const bool* pod_valid, const int* group,
+    const bool* node_valid, const int* run_node, const int* run_anti_sig,
+    float* remaining, unsigned char* evicted, unsigned char* ev_s,
+    float* used, int* assigned, float* chosen, int* evictor, int* evict_pos,
     void* stream);
 
 int tpusched_parity_scan_pair_preempt(
@@ -303,13 +311,13 @@ int tpusched_parity_scan_pair_preempt(
     const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
     const bool* ia_anti, const bool* ia_required, const float* ia_weight,
     float* counts, float* anti, float* match_tot, float* pen, float* raw,
-    unsigned char* allowed, int M2, int GP, int J, const int* perm,
-    const int* node_s, const int* seg_start, const float* cost_s,
-    const float* vprio_s, const float* req_s, const int* pdb_s,
-    float margin, const float* prio, const bool* pod_valid, const int* group,
-    const bool* node_valid2, const int* run_node, const int* run_anti_sig,
-    float* remaining, unsigned char* evicted, unsigned char* elig,
-    float* cum, int* cum_viol, float* used, int* assigned, float* chosen,
+    unsigned char* allowed, int M2, int GP, int V, int J, const int* off,
+    const int* pl_vic, const float* pl_req, const int* perm,
+    const float* cost_s, const float* vprio_s, const float* req_s,
+    const int* pdb_s, float margin, const float* prio, const bool* pod_valid,
+    const int* group, const bool* node_valid2, const int* run_node,
+    const int* run_anti_sig, float* remaining, unsigned char* evicted,
+    unsigned char* ev_s, float* used, int* assigned, float* chosen,
     int* evictor, int* evict_pos, void* stream);
 
 // K16. The fast preemption auction's lane tables (tpusched/kernels/

@@ -5,12 +5,13 @@
 // one pod.
 //
 // The victims (running pods) come sorted by (node, eviction cost), so a
-// node's victims form one segment [seg_start, ...] of the order. For the
-// preemptor's priority, requests, allowed nodes and the current usage:
-//   elig[i]   = node_s[i] < N && !evicted[perm[i]]
-//               && vprio_s[i] + margin < p_prio      (f32 add, then compare)
+// node's victims form one segment of the order, positions off[n] ..
+// off[n + 1] - 1. For the preemptor's priority, requests, allowed nodes
+// and the current usage, victim j of node n (position i = off[n] + j):
+//   elig[i]   = !evicted[perm[i]] && vprio_s[i] + margin < p_prio
+//               (f32 add, then compare)
 //   viol[i]   = elig && pdb >= 0 && (# eligible victims of the same budget
-//               in [seg_start[i], i]) > remaining[pdb]
+//               in the segment up to i) > remaining[pdb]
 //   within    = the eligible victims' requests (R columns), cost and
 //               violations summed from the segment's start to i
 //   fits[i]   = elig && forall r: (used[n] - within_req) + p_req <= alloc[n]
@@ -19,39 +20,55 @@
 // JAX's two-stage selection (per node the fewest violations then the
 // least cost; across nodes the fewest violations, then the least cost,
 // ties to the lowest node; in the node the first position with both
-// minima), since the order is sorted by node: no [N] scratch is needed.
-// No fitting prefix: best position -1 (JAX: node 0, can = false).
+// minima), since position order is node order. No fitting prefix: best
+// position -1 (JAX: node 0, can = false).
 //
-// The f32 sums restart at each segment, in a fixed order that the plain
-// version (kernels/preempt.segment_prefix) repeats:
-//  * thread t owns the contiguous chunk [t*c, (t+1)*c) of the victims,
-//    c = ceil(M / PRE_THREADS), and sums it in order from 0.0f, again
-//    from 0.0f at each segment start;
-//  * the chunk tails go through a segmented Hillis-Steele scan in shared
-//    memory (step d: a chunk without a segment start adds the tail d
-//    back, d = 1, 2, ..., 512);
-//  * the elements before a chunk's first segment start add the carry of
-//    the chunks before (0 for chunk 0).
-// A victim's sum then holds its own segment's rounding only. JAX's and
-// the oracle's association (a prefix over all M victims, minus its value
-// at seg_start - 1) cancels a sum that reaches ~1e14 bytes at config 5's
-// full size, an error of ~1e7 bytes a term: a pod could then land on a
-// node its victims do not free enough for, and near-equal costs rank by
-// the order of adds (ROADMAP C5). The capacity freed on the chosen node
-// is the chosen victim's within_req itself, the value the fit was tested
-// with, so `(used - freed) + p_req <= alloc` holds after the update.
-//  * The PDB counts are exact integers: a thread counts each budget's
-//    eligible victims of a segment that starts in its chunk as it goes,
-//    and walks the segment (O(segment), a handful at config 5's eight
-//    running pods a node) for a victim whose segment began before.
-//  * The violation counts take the same segmented scan, in integers.
+// The f32 sums restart at each segment, in blocks of PRE_BLOCK rows: a
+// block is summed left to right from 0.0, the block totals are added
+// left to right, and a prefix is the totals before its block plus its
+// block's own sum (kernels/preempt.segment_prefix). The first block is a
+// plain left-to-right sum from 0.0, the order of the auction's 16-long
+// prefixes (vprefix); the blocks keep a long segment's error to a few
+// dozen roundings where a left-to-right sum's grows with its length. A
+// victim's sum holds its own segment's rounding only.
+// JAX's and the oracle's association (a prefix over all M victims, minus
+// its value at the segment's start) cancels a sum that reaches ~1e14
+// bytes at config 5's full size, an error of ~1e7 bytes a term: a pod
+// could then land on a node its victims do not free enough for, and
+// near-equal costs rank by the order of adds (ROADMAP C5). The capacity
+// freed on the chosen node is the chosen prefix's within_req itself, the
+// value the fit was tested with, so `(used - freed) + p_req <= alloc`
+// holds after the update.
 //
-// Bound: latency. Per preemptor: two passes over the [M] victims (40 a
-// thread at M = 40960), ~33 bytes a victim (1.4 MB, 0.0004 ms at 3.35
-// TB/s), and about 25 block-wide barriers (20 in the scan). One SM moves
-// all of it, so the passes must be coalesced: the victim table and the
-// scratch are stored thread-interleaved (Victims below); reading each
-// thread's contiguous chunk in place would cost 32 sectors a warp load.
+// Design: node-major. Thread t takes nodes n = t, t + 1024, ...; a node
+// that is not allowed or not valid is skipped before any victim is read.
+// The thread walks the node's segment left to right and carries, in
+// registers, the sums, the violation count and the PDB counts (up to
+// PRE_SLOTS budgets a node; a victim of a further budget counts its
+// segment again, exactly). Along a segment the fit, the violations and
+// the cost only grow (the costs are shifted positive; f32 adds of
+// non-negative terms never decrease a sum), so the first fitting prefix
+// is the node's lexicographic minimum and ends the walk; so does a prefix
+// that already ranks at or after the thread's best. One block reduction
+// of (violations, cost, position, node) gives the pick: two barriers a
+// search, no per-search scratch, no scan.
+//
+// Layout: the first V victims of every node lie in [V, N] planes (victim
+// j of node n at j * N + n), so that a warp taking 32 consecutive nodes
+// reads its j-th victims coalesced: one 16-byte load of (priority, cost,
+// budget, running pod) and R request loads, issued together; victims
+// past V (a node with a longer segment) are read in the sorted order
+// itself (kernels/preempt.precompute builds both). The table is exact
+// for any segment length. Eviction state is read in the sorted order
+// (ev_s, which the take keeps beside the [M] evicted flags), so no load
+// waits on another's result. The sums live in registers for R <= 4
+// (PRE_R); more resources take a second instantiation that keeps them in
+// local memory.
+//
+// Bound: latency. Per preemptor the bytes are the victims of the allowed
+// nodes up to their first fit, ~(R + 4) * 4 bytes a victim (<= 1.1 MB at
+// M = 40 960, 0.0003 ms at 3.35 TB/s); the walk is a chain of L2 loads,
+// one round trip a victim, over ~5 nodes a thread at N = 5 120.
 #pragma once
 
 #include <limits.h>
@@ -63,42 +80,43 @@ namespace tpusched {
 
 constexpr int PRE_THREADS = 1024;
 constexpr int PRE_WARPS = PRE_THREADS / 32;
-constexpr int PRE_K = MAX_R + 1;  // prefix columns: R requests, then cost
-constexpr int PRE_MAX_GP = 16;    // budgets counted per segment in a thread
+constexpr int PRE_SLOTS = 4;   // budgets a node counted in registers
+constexpr int PRE_R = 4;       // resources summed in registers (else MAX_R)
+constexpr int PRE_BLOCK = 16;  // rows a block of the segment sums
 
-// The sorted victim table (kernels/preempt.PreemptCtx) and K15's device
-// scratch, in the thread-interleaved layout: victim i (in sorted order)
-// sits at vat(i) = (i % chunk) * PRE_THREADS + i / chunk of arrays padded
-// to Mp = chunk * PRE_THREADS, so that when every thread takes the j-th
-// victim of its contiguous chunk the warp's loads are consecutive
-// (coalesced). [.., R] columns are stored column by column, [R][Mp].
+// The victim table (kernels/preempt.PreemptCtx): the node offsets, the
+// [V, N] planes and the sorted order.
 struct Victims {
-  int M, N, R, GP, chunk;  // chunk = ceil(M / PRE_THREADS)
-  const int* perm;       // [Mp] sorted position -> running pod
-  const int* node_s;     // [Mp] node of the sorted victim (N: none)
-  const int* seg_start;  // [Mp]
-  const float* cost_s;   // [Mp]
-  const float* vprio_s;  // [Mp]
-  const float* req_s;    // [R][Mp]
-  const int* pdb_s;      // [Mp] budget (-1: none)
+  int M, N, R, GP, V;
   float margin;
-  unsigned char* elig;   // [Mp] scratch
-  float* cum;            // [R + 1][Mp] scratch: segment sums (requests, cost)
-  int* cum_viol;         // [Mp] scratch: segment sums of violations
+  const int* off;         // [N + 1] first position of each node's segment
+  const int4* pl_vic;     // [V, N] (vprio, cost as f32 bits, pdb, perm)
+  const float* pl_req;    // [R, V, N]
+  const int* perm;        // [M] sorted position -> running pod
+  const float* cost_s;    // [M]
+  const float* vprio_s;   // [M]
+  const float* req_s;     // [M, R]
+  const int* pdb_s;       // [M] budget (-1: none)
 };
 
-__device__ __forceinline__ long long vat(const Victims& v, int i) {
-  return (long long)(i % v.chunk) * PRE_THREADS + i / v.chunk;
+// The eligible victims of budget g among the first j + 1 of the segment
+// that starts at s (ev_s: evicted, in the sorted order).
+static __device__ __noinline__ int same_budget(const Victims& v, int s,
+                                               int j, int g, float p_prio,
+                                               const unsigned char* ev_s) {
+  int c = 0;
+  for (int i = s; i <= s + j; ++i)
+    c += __ldg(v.pdb_s + i) == g && !ev_s[i] &&
+         __ldg(v.vprio_s + i) + v.margin < p_prio;
+  return c;
 }
 
 struct PreemptSmem {
-  float tot[PRE_K][PRE_THREADS];
-  int vtot[PRE_THREADS];
-  unsigned char starts[PRE_THREADS];  // a segment starts in the chunk
   int w_viol[PRE_WARPS];
   float w_cost[PRE_WARPS];
   int w_pos[PRE_WARPS];
-  int best_pos;
+  int w_node[PRE_WARPS];
+  int best_pos, best_node;
 };
 
 __device__ __forceinline__ bool lex_less(int v1, float c1, int p1, int v2,
@@ -108,182 +126,211 @@ __device__ __forceinline__ bool lex_less(int v1, float c1, int p1, int v2,
   return p1 < p2;
 }
 
-__device__ __forceinline__ void lex_shfl(int& v, float& c, int& p) {
+__device__ __forceinline__ void lex_shfl(int& v, float& c, int& p, int& n) {
   for (int off = 16; off > 0; off >>= 1) {
     const int ov = __shfl_down_sync(0xffffffffu, v, off);
     const float oc = __shfl_down_sync(0xffffffffu, c, off);
     const int op = __shfl_down_sync(0xffffffffu, p, off);
+    const int on = __shfl_down_sync(0xffffffffu, n, off);
     if (lex_less(ov, oc, op, v, c, p)) {
       v = ov;
       c = oc;
       p = op;
+      n = on;
     }
   }
 }
 
-// Eligibility of the victim at a (K15's layout): on a node, not evicted,
-// of lower effective priority than the preemptor by the margin. The
-// victim table is read-only (__ldg); `evicted` changes during a scan.
-__device__ __forceinline__ bool elig_at(const Victims& v, long long a,
-                                        const unsigned char* evicted,
-                                        float p_prio) {
-  return __ldg(v.node_s + a) < v.N && !evicted[__ldg(v.perm + a)] &&
-         __ldg(v.vprio_s + a) + v.margin < p_prio;
+// The eligible same-budget count of a victim of budget g >= 0, from the
+// node's slots: (g << 16) | count, -1 when free. 0 when g has no slot
+// and none is free (or a count would pass 16 bits): the caller counts
+// the segment again.
+__device__ __forceinline__ int slot_count(int (&slot)[PRE_SLOTS], int g) {
+  if (g >= 0x7fff) return 0;
+#pragma unroll
+  for (int q = 0; q < PRE_SLOTS; ++q) {
+    if (slot[q] >= 0 && (slot[q] >> 16) == g) {
+      if ((slot[q] & 0xffff) == 0xffff) return 0;
+      return (++slot[q]) & 0xffff;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < PRE_SLOTS; ++q) {
+    if (slot[q] < 0) {
+      slot[q] = (g << 16) | 1;
+      return 1;
+    }
+  }
+  return 0;
 }
 
-// The search; every thread of the CTA calls it and gets the chosen
-// prefix's last position (-1: none). allowed [N]: the pod's static (and
-// pairwise) feasibility before any eviction. used/alloc: [N, R], shared
-// or device memory. remaining [GP]: each budget's disruptions left.
-// Thread t's victims are i = t * chunk + j for j < chunk (and i < M), at
-// j * PRE_THREADS + t.
+// Each thread's walk over its nodes: the lexicographic minimum (bv, bc,
+// bp) of its fitting prefixes and bp's node bn. RR >= R: with RR = PRE_R
+// the loops over the requests unroll and the sums stay in registers;
+// with RR = MAX_R they run to R, the sums in local memory. One walk
+// unrolled to MAX_R for every R (r < R guarding it) spilled more and ran
+// parity (h) 31 % slower on an H100 (PERF.md).
+template <int RR>
+__device__ __forceinline__ void preempt_walk(
+    const Victims& v, float p_prio, const float* rq,
+    const unsigned char* allowed, const bool* node_valid, const float* used,
+    const float* alloc, const unsigned char* ev_s, const float* remaining,
+    int& bv, float& bc, int& bp, int& bn) {
+  const int R = v.R, N = v.N, V = v.V;
+  const int RB = RR == PRE_R ? RR : R;
+  for (int n = threadIdx.x; n < N; n += PRE_THREADS) {
+    const bool ok = allowed[n] && node_valid[n];
+    const int s = __ldg(v.off + n);
+    const int len = __ldg(v.off + n + 1) - s;
+    if (!ok) continue;
+    const float* u = used + (long long)n * R;
+    const float* a = alloc + (long long)n * R;
+    // A prefix is blk + run: blk the block totals, run the sum inside
+    // the current PRE_BLOCK-row block.
+    float blk[RR], run[RR];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) blk[r] = run[r] = 0.0f;
+    float blk_c = 0.0f, run_c = 0.0f;
+    int viol = 0;
+    int slot[PRE_SLOTS];
+#pragma unroll
+    for (int q = 0; q < PRE_SLOTS; ++q) slot[q] = -1;
+    for (int j = 0; j < len; ++j) {
+      const int i = s + j;
+      float vp, vc;
+      int g;
+      float x[RR];
+      if (j < V) {
+        const long long c = (long long)j * N + n;
+        const int4 q = __ldg(v.pl_vic + c);
+        vp = __int_as_float(q.x);
+        vc = __int_as_float(q.y);
+        g = q.z;
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+          x[r] = r < R ? __ldg(v.pl_req + (long long)r * V * N + c) : 0.0f;
+      } else {
+        vp = __ldg(v.vprio_s + i);
+        vc = __ldg(v.cost_s + i);
+        g = __ldg(v.pdb_s + i);
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+          x[r] = r < R ? __ldg(v.req_s + (long long)i * R + r) : 0.0f;
+      }
+      if (!ev_s[i] && vp + v.margin < p_prio) {
+        if (g >= 0) {
+          int same = slot_count(slot, g);
+          if (same == 0) same = same_budget(v, s, j, g, p_prio, ev_s);
+          viol += (float)same > remaining[g];
+        }
+        bool fit = true;
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          if (r < R) {
+            run[r] = run[r] + x[r];
+            fit = fit && (u[r] - (blk[r] + run[r])) + rq[r] <= a[r];
+          }
+        }
+        run_c = run_c + vc;
+        const float cost = blk_c + run_c;
+        if (fit) {
+          if (lex_less(viol, cost, i, bv, bc, bp)) {
+            bv = viol;
+            bc = cost;
+            bp = i;
+            bn = n;
+          }
+          break;
+        }
+        // Every later prefix of the node has as many violations and as
+        // large a cost, at a later position.
+        if (viol > bv || (viol == bv && cost >= bc)) break;
+      }
+      if ((j + 1) % PRE_BLOCK == 0) {
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          blk[r] = blk[r] + run[r];
+          run[r] = 0.0f;
+        }
+        blk_c = blk_c + run_c;
+        run_c = 0.0f;
+      }
+    }
+  }
+}
+
+// The search; every thread of the CTA calls it. Returns the chosen
+// prefix's last position (-1: none) and sets *node to its node. allowed
+// [N]: the pod's static (and pairwise) feasibility before any eviction.
+// used/alloc: [N, R], shared or device memory. ev_s [M]: the victims
+// evicted so far, in the sorted order. remaining [GP]: each budget's
+// disruptions left.
 __device__ __forceinline__ int preempt_search(
     const Victims& v, PreemptSmem& sh, float p_prio, const float* rq,
     const unsigned char* allowed, const bool* node_valid, const float* used,
-    const float* alloc, const unsigned char* evicted,
-    const float* remaining) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int M = v.M, R = v.R, K = R + 1;
-  const long long Mp = (long long)v.chunk * PRE_THREADS;
-  const int lo = min(tid * v.chunk, M);
-  const int cnt = min(lo + v.chunk, M) - lo;
-  // Same-budget counts of the segment that started in this chunk; a
-  // victim before the chunk's first segment start (its segment began in
-  // an earlier chunk), or any victim when budgets exceed PRE_MAX_GP,
-  // walks its segment instead.
-  const bool counted = v.GP <= PRE_MAX_GP;
-  int per_gp[PRE_MAX_GP];
-
-  // Eligibility, violations and the chunk's running sums, restarting at
-  // segment starts (carries from earlier chunks later).
-  float acc[PRE_K];
-  for (int k = 0; k < K; ++k) acc[k] = 0.0f;
-  int vacc = 0;
-  int first = cnt;  // the chunk's first segment start (j)
-#pragma unroll 4
-  for (int j = 0; j < cnt; ++j) {
-    const int i = lo + j;
-    const long long a = (long long)j * PRE_THREADS + tid;
-    const bool e = elig_at(v, a, evicted, p_prio);
-    v.elig[a] = e;
-    const int g = __ldg(v.pdb_s + a);
-    const int s0 = __ldg(v.seg_start + a);
-    if (s0 == i) {
-      if (first == cnt) first = j;
-      for (int k = 0; k < K; ++k) acc[k] = 0.0f;
-      vacc = 0;
-      if (counted)
-        for (int q = 0; q < v.GP; ++q) per_gp[q] = 0;
-    }
-    if (e && g >= 0) {
-      int same = 0;
-      if (counted && j >= first) {
-        same = ++per_gp[g];
-      } else {
-        for (int q = s0; q <= i; ++q) {
-          const long long b = vat(v, q);
-          same += __ldg(v.pdb_s + b) == g && elig_at(v, b, evicted, p_prio);
-        }
-      }
-      vacc += (float)same > remaining[g];
-    }
-    for (int r = 0; r < R; ++r) {
-      acc[r] = acc[r] + (e ? __ldg(v.req_s + r * Mp + a) : 0.0f);
-      v.cum[r * Mp + a] = acc[r];
-    }
-    acc[R] = acc[R] + (e ? __ldg(v.cost_s + a) : 0.0f);
-    v.cum[R * Mp + a] = acc[R];
-    v.cum_viol[a] = vacc;
-  }
-  for (int k = 0; k < K; ++k) sh.tot[k][tid] = acc[k];
-  sh.vtot[tid] = vacc;
-  sh.starts[tid] = first < cnt;
-  __syncthreads();
-  for (int d = 1; d < PRE_THREADS; d <<= 1) {
-    const bool add = tid >= d;
-    const bool own = sh.starts[tid];
-    const bool join = add && !own;
-    float t[PRE_K];
-    for (int k = 0; k < K; ++k)
-      t[k] = join ? sh.tot[k][tid - d] + sh.tot[k][tid] : sh.tot[k][tid];
-    const int tv = join ? sh.vtot[tid - d] + sh.vtot[tid] : sh.vtot[tid];
-    const bool ts = add ? sh.starts[tid - d] || own : own;
-    __syncthreads();
-    for (int k = 0; k < K; ++k) sh.tot[k][tid] = t[k];
-    sh.vtot[tid] = tv;
-    sh.starts[tid] = ts;
-    __syncthreads();
-  }
-  // The victims before the chunk's first segment start continue a
-  // segment from earlier chunks: add its carry.
-  if (first > 0 && tid > 0) {
-    for (int j = 0; j < first; ++j) {
-      const long long a = (long long)j * PRE_THREADS + tid;
-      for (int k = 0; k < K; ++k)
-        v.cum[k * Mp + a] = sh.tot[k][tid - 1] + v.cum[k * Mp + a];
-      v.cum_viol[a] += sh.vtot[tid - 1];
-    }
-  }
-  __syncthreads();
-
-  // The fitting prefixes on allowed nodes; lexicographic minimum.
-  int bv = INT_MAX, bp = INT_MAX;
+    const float* alloc, const unsigned char* ev_s, const float* remaining,
+    int* node) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int bv = INT_MAX, bp = INT_MAX, bn = -1;
   float bc = INFINITY;
-#pragma unroll 4
-  for (int j = 0; j < cnt; ++j) {
-    const long long a = (long long)j * PRE_THREADS + tid;
-    if (!v.elig[a]) continue;
-    const int n = __ldg(v.node_s + a);
-    if (!(allowed[n] && node_valid[n])) continue;
-    bool fit = true;
-    for (int r = 0; r < R; ++r) {
-      const long long nr = (long long)n * R + r;
-      fit = fit && (used[nr] - v.cum[r * Mp + a]) + rq[r] <= alloc[nr];
-    }
-    if (!fit) continue;
-    const float wc = v.cum[R * Mp + a];
-    const int wv = v.cum_viol[a];
-    if (lex_less(wv, wc, lo + j, bv, bc, bp)) {
-      bv = wv;
-      bc = wc;
-      bp = lo + j;
-    }
-  }
-  lex_shfl(bv, bc, bp);
+  if (v.R <= PRE_R)
+    preempt_walk<PRE_R>(v, p_prio, rq, allowed, node_valid, used, alloc,
+                        ev_s, remaining, bv, bc, bp, bn);
+  else
+    preempt_walk<MAX_R>(v, p_prio, rq, allowed, node_valid, used, alloc,
+                        ev_s, remaining, bv, bc, bp, bn);
+  lex_shfl(bv, bc, bp, bn);
   if (lane == 0) {
     sh.w_viol[warp] = bv;
     sh.w_cost[warp] = bc;
     sh.w_pos[warp] = bp;
+    sh.w_node[warp] = bn;
   }
   __syncthreads();
   if (warp == 0) {
     bv = sh.w_viol[lane];
     bc = sh.w_cost[lane];
     bp = sh.w_pos[lane];
-    lex_shfl(bv, bc, bp);
-    if (lane == 0) sh.best_pos = bp == INT_MAX ? -1 : bp;
+    bn = sh.w_node[lane];
+    lex_shfl(bv, bc, bp, bn);
+    if (lane == 0) {
+      sh.best_pos = bp == INT_MAX ? -1 : bp;
+      sh.best_node = bn;
+    }
   }
   __syncthreads();
+  *node = sh.best_node;
   return sh.best_pos;
 }
 
-// One thread, after a search that found best position bp >= 0: the
-// eligible victims of its segment up to bp, in sorted order;
-// on_victim(m, budget) is called for each (running pod m). freed gets
-// bp's segment sums of their requests (the caller subtracts the row from
-// the node's usage in one step, as JAX subtracts its `freed` row).
-// Returns bp's node.
+// One thread, after a search that found position bp >= 0 on node n: the
+// eligible victims of n's segment up to bp, in sorted order, are marked
+// in ev_s, and on_victim(m, budget) is called for each (running pod m).
+// freed gets their requests summed in the search's order, the search's
+// sum at bp (the caller subtracts the row from the node's usage in one
+// step, as JAX subtracts its `freed` row).
 template <typename F>
-__device__ int preempt_take(const Victims& v, int bp, float* freed,
-                            F&& on_victim) {
-  const long long Mp = (long long)v.chunk * PRE_THREADS;
-  const long long b = vat(v, bp);
-  for (int r = 0; r < v.R; ++r) freed[r] = v.cum[r * Mp + b];
-  for (int i = v.seg_start[b]; i <= bp; ++i) {
-    const long long a = vat(v, i);
-    if (v.elig[a]) on_victim(v.perm[a], v.pdb_s[a]);
+__device__ void preempt_take(const Victims& v, int n, int bp, float p_prio,
+                             unsigned char* ev_s, float* freed,
+                             F&& on_victim) {
+  float blk[MAX_R], run[MAX_R];
+  for (int r = 0; r < v.R; ++r) blk[r] = run[r] = 0.0f;
+  const int s = v.off[n];
+  for (int i = s; i <= bp; ++i) {
+    if (!ev_s[i] && v.vprio_s[i] + v.margin < p_prio) {
+      for (int r = 0; r < v.R; ++r)
+        run[r] = run[r] + v.req_s[(long long)i * v.R + r];
+      ev_s[i] = 1;
+      on_victim(v.perm[i], v.pdb_s[i]);
+    }
+    if ((i - s + 1) % PRE_BLOCK == 0) {
+      for (int r = 0; r < v.R; ++r) {
+        blk[r] = blk[r] + run[r];
+        run[r] = 0.0f;
+      }
+    }
   }
-  return v.node_s[b];
+  for (int r = 0; r < v.R; ++r) freed[r] = blk[r] + run[r];
 }
 
 }  // namespace tpusched

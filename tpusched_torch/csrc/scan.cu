@@ -51,10 +51,12 @@
 // the fit was tested with) from used[n] in one step and adds the pod's
 // (JAX's `used - freed`, then `.at[n].add`), adds
 // the pod to the pair state, and places it with chosen = -inf (no
-// rescore). The victim table, its scratch and the budget counts live in
-// device memory; K15's scan buffers take 41 KB of static shared memory
-// beside `used`/`alloc`. Without preemption the instantiations are
-// unchanged. With the optional outputs evictor / evict_pos (the explained
+// rescore). The victim table, the budget counts and the evictions in
+// the victims' sorted order (ev_s, which K15 reads and thread 0 marks)
+// live in device memory; K15 keeps its per-node state in registers and
+// needs 0.5 KB of static shared memory for its block reduction. Without
+// preemption the instantiations are unchanged. With the optional
+// outputs evictor / evict_pos (the explained
 // solve's provenance, tpusched/kernels/assign.py:484-487), thread 0 also
 // writes, for each victim it evicts, the pod's index and its step in pop
 // order; the CTA is the only writer, so no atomics. NULL leaves the
@@ -74,12 +76,13 @@
 // (entry points tpusched_parity_scan_preempt and
 // tpusched_parity_scan_pair_preempt) take the axis the same way:
 // with PREEMPT the TENANTS instantiation also offsets the preemption
-// block to tenant b (tenant_pre): its victim table and K15's scratch at
-// a stride of Mp = 1024 * ceil(M / 1024) ([B, Mp] each, [B, R, Mp] and
-// [B, (R + 1) * Mp]), its pods' priority, validity and gang, its nodes'
-// validity, its running pods' nodes and anti terms, its budgets and its
-// evictions, so that K15's search and every segment sum stay inside the
-// tenant's own victims. The explain outputs stay solo (NULL for B > 1).
+// block to tenant b (tenant_pre): its victim table (node offsets [B, N +
+// 1], planes [B, V, N] and [B, R, V, N], sorted order [B, M] and [B, M,
+// R]), its pods' priority, validity and gang, its nodes' validity, its
+// running pods' nodes and anti terms, its budgets and its evictions (by
+// pod and in the sorted order), so that K15's search and every segment
+// sum stay inside the tenant's own victims. The explain outputs stay
+// solo (NULL for B > 1).
 // B = 1 launches the instantiations without TENANTS.
 #include <math.h>
 #include <limits.h>
@@ -127,6 +130,7 @@ struct PreemptScan {
   int J;
   float* remaining;          // [GP] in/out: budgets' disruptions left
   unsigned char* evicted;    // [M] out (zeros on entry)
+  unsigned char* ev_s;       // [M] scratch (zeros): evicted, sorted order
   int* evictor;              // [M] out or NULL: the evicting pod
   int* evict_pos;            // [M] out or NULL: its pop-order step
 };
@@ -138,18 +142,16 @@ __device__ __forceinline__ PreemptScan tenant_pre(PreemptScan pre,
                                                   long long b, int P,
                                                   int N) {
   tpusched::Victims& v = pre.v;
-  const long long Mp = (long long)v.chunk * tpusched::PRE_THREADS;
   const long long M = v.M;
-  v.perm += b * Mp;
-  v.node_s += b * Mp;
-  v.seg_start += b * Mp;
-  v.cost_s += b * Mp;
-  v.vprio_s += b * Mp;
-  v.req_s += b * v.R * Mp;
-  v.pdb_s += b * Mp;
-  v.elig += b * Mp;
-  v.cum += b * (v.R + 1) * Mp;
-  v.cum_viol += b * Mp;
+  const long long VN = (long long)v.V * N;
+  v.off += b * (N + 1);
+  v.pl_vic += b * VN;
+  v.pl_req += b * v.R * VN;
+  v.perm += b * M;
+  v.cost_s += b * M;
+  v.vprio_s += b * M;
+  v.req_s += b * M * v.R;
+  v.pdb_s += b * M;
   pre.prio += b * P;
   pre.pod_valid += b * P;
   pre.group += b * P;
@@ -158,6 +160,7 @@ __device__ __forceinline__ PreemptScan tenant_pre(PreemptScan pre,
   pre.run_anti_sig += b * M * pre.J;
   pre.remaining += b * v.GP;
   pre.evicted += b * M;
+  pre.ev_s += b * M;
   return pre;
 }
 
@@ -471,14 +474,16 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
       if (preempt) {
         const unsigned char* allowed_row =
             PAIR ? ps.allowed : (const unsigned char*)c.mask;
+        const float prio = pre.prio[p];
+        int n;
         const int bp = tpusched::preempt_search(
-            pre.v, s_pre, pre.prio[p], c.rq, allowed_row, pre.node_valid,
-            used, alloc, pre.evicted, pre.remaining);
+            pre.v, s_pre, prio, c.rq, allowed_row, pre.node_valid, used,
+            alloc, pre.ev_s, pre.remaining, &n);
         if (tid == 0) {
           if (bp >= 0) {
             float freed[MAX_R];
-            const int n = tpusched::preempt_take(
-                pre.v, bp, freed, [&](int m, int g) {
+            tpusched::preempt_take(
+                pre.v, n, bp, prio, pre.ev_s, freed, [&](int m, int g) {
                   pre.evicted[m] = 1;
                   if (pre.evictor) {
                     pre.evictor[m] = p;
@@ -522,7 +527,7 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
 
 // Shared memory, then the launch of one instantiation. `used`/`alloc` go
 // to dynamic shared memory when they fit beside the kernel's static
-// shared memory (K15's buffers with PREEMPT).
+// shared memory.
 template <typename Kernel>
 int launch_kernel(Kernel kernel, int B, int P, int N, int R,
                   const int* order, const bool* mask,
@@ -539,7 +544,7 @@ int launch_kernel(Kernel kernel, int B, int P, int N, int R,
   int use_smem = bytes + (long long)fa.sharedSizeBytes <= SMEM_LIMIT ? 1 : 0;
   size_t dyn = use_smem ? (size_t)bytes : 0;
   // Static and dynamic shared memory together above 48 KB need the
-  // opt-in (K15's 41 KB of static buffers leave ~7 KB by default).
+  // opt-in.
   if (dyn > 0 && dyn + fa.sharedSizeBytes > 48 * 1024) {
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
@@ -578,22 +583,20 @@ int launch_scan(int B, int P, int N, int R, const int* order,
 }
 
 // The preemption block of both preemption entry points.
-PreemptScan make_preempt(int N, int R, int M, int GP, int J,
-                         const int* perm,
-                         const int* node_s, const int* seg_start,
+PreemptScan make_preempt(int N, int R, int M, int GP, int V, int J,
+                         const int* off, const int* pl_vic,
+                         const float* pl_req, const int* perm,
                          const float* cost_s, const float* vprio_s,
                          const float* req_s, const int* pdb_s, float margin,
                          const float* prio, const bool* pod_valid,
                          const int* group, const bool* node_valid,
                          const int* run_node, const int* run_anti_sig,
                          float* remaining, unsigned char* evicted,
-                         unsigned char* elig, float* cum, int* cum_viol,
-                         int* evictor, int* evict_pos) {
-  const int chunk = (M + tpusched::PRE_THREADS - 1) / tpusched::PRE_THREADS;
-  return PreemptScan{{M, N, R, GP, chunk, perm, node_s, seg_start, cost_s,
-                      vprio_s, req_s, pdb_s, margin, elig, cum, cum_viol},
+                         unsigned char* ev_s, int* evictor, int* evict_pos) {
+  return PreemptScan{{M, N, R, GP, V, margin, off, (const int4*)pl_vic,
+                      pl_req, perm, cost_s, vprio_s, req_s, pdb_s},
                      prio, pod_valid, group, node_valid, run_node,
-                     run_anti_sig, J, remaining, evicted, evictor,
+                     run_anti_sig, J, remaining, evicted, ev_s, evictor,
                      evict_pos};
 }
 
@@ -649,20 +652,20 @@ extern "C" int tpusched_parity_scan_preempt(
     const float* static_score, const float* alloc, const float* requests,
     const float* w_lr, const float* w_ba, const float* w_ts,
     const float* w_ia, const float* rw, int seeded, unsigned int seed, int M,
-    int GP, int J, const int* perm, const int* node_s, const int* seg_start,
-    const float* cost_s, const float* vprio_s, const float* req_s,
-    const int* pdb_s, float margin, const float* prio, const bool* pod_valid,
-    const int* group, const bool* node_valid, const int* run_node,
-    const int* run_anti_sig, float* remaining, unsigned char* evicted,
-    unsigned char* elig, float* cum, int* cum_viol, float* used,
-    int* assigned, float* chosen, int* evictor, int* evict_pos,
+    int GP, int V, int J, const int* off, const int* pl_vic,
+    const float* pl_req, const int* perm, const float* cost_s,
+    const float* vprio_s, const float* req_s, const int* pdb_s, float margin,
+    const float* prio, const bool* pod_valid, const int* group,
+    const bool* node_valid, const int* run_node, const int* run_anti_sig,
+    float* remaining, unsigned char* evicted, unsigned char* ev_s,
+    float* used, int* assigned, float* chosen, int* evictor, int* evict_pos,
     void* stream) {
   if (B > 1 && evictor) return (int)cudaErrorInvalidValue;
   PairScan none{};
   PreemptScan pre = make_preempt(
-      N, R, M, GP, J, perm, node_s, seg_start, cost_s, vprio_s, req_s, pdb_s,
-      margin, prio, pod_valid, group, node_valid, run_node, run_anti_sig,
-      remaining, evicted, elig, cum, cum_viol, evictor, evict_pos);
+      N, R, M, GP, V, J, off, pl_vic, pl_req, perm, cost_s, vprio_s, req_s,
+      pdb_s, margin, prio, pod_valid, group, node_valid, run_node,
+      run_anti_sig, remaining, evicted, ev_s, evictor, evict_pos);
   return launch_scan<false, true>(B, P, N, R, order, mask, static_score,
                                   alloc, requests, w_lr, w_ba, w_ts, w_ia, rw,
                                   seeded, seed, used, assigned, chosen, none,
@@ -680,13 +683,13 @@ extern "C" int tpusched_parity_scan_pair_preempt(
     const float* ts_max_skew, const int* ia_sig, const bool* ia_valid,
     const bool* ia_anti, const bool* ia_required, const float* ia_weight,
     float* counts, float* anti, float* match_tot, float* pen, float* raw,
-    unsigned char* allowed, int M2, int GP, int J, const int* perm,
-    const int* node_s, const int* seg_start, const float* cost_s,
-    const float* vprio_s, const float* req_s, const int* pdb_s,
-    float margin, const float* prio, const bool* pod_valid, const int* group,
-    const bool* node_valid2, const int* run_node, const int* run_anti_sig,
-    float* remaining, unsigned char* evicted, unsigned char* elig,
-    float* cum, int* cum_viol, float* used, int* assigned, float* chosen,
+    unsigned char* allowed, int M2, int GP, int V, int J, const int* off,
+    const int* pl_vic, const float* pl_req, const int* perm,
+    const float* cost_s, const float* vprio_s, const float* req_s,
+    const int* pdb_s, float margin, const float* prio, const bool* pod_valid,
+    const int* group, const bool* node_valid2, const int* run_node,
+    const int* run_anti_sig, float* remaining, unsigned char* evicted,
+    unsigned char* ev_s, float* used, int* assigned, float* chosen,
     int* evictor, int* evict_pos, void* stream) {
   if (C > tpusched::MAX_C || M2 != M || (B > 1 && evictor))
     return (int)cudaErrorInvalidValue;
@@ -695,9 +698,9 @@ extern "C" int tpusched_parity_scan_pair_preempt(
                ia_required, ia_weight},
               counts, anti, match_tot, pen, raw, allowed};
   PreemptScan pre = make_preempt(
-      N, R, M, GP, J, perm, node_s, seg_start, cost_s, vprio_s, req_s, pdb_s,
-      margin, prio, pod_valid, group, node_valid2, run_node, run_anti_sig,
-      remaining, evicted, elig, cum, cum_viol, evictor, evict_pos);
+      N, R, M, GP, V, J, off, pl_vic, pl_req, perm, cost_s, vprio_s, req_s,
+      pdb_s, margin, prio, pod_valid, group, node_valid2, run_node,
+      run_anti_sig, remaining, evicted, ev_s, evictor, evict_pos);
   return launch_scan<true, true>(B, P, N, R, order, mask, static_score,
                                  alloc, requests, w_lr, w_ba, w_ts, w_ia, rw,
                                  seeded, seed, used, assigned, chosen, ps, pre,

@@ -19,6 +19,22 @@
 // meant for the small K of the callers (8, 16, a serving k). The seeded
 // pick counts the maxima, then walks the row in tiles of THREADS with a
 // ballot per warp until the h-th one.
+//
+// The radix path (entry point tpusched_row_topk_radix) takes the calls
+// without the seeded pick from K = 8 up (kernels/assign.RADIX_MIN_K, a
+// measured cut): the preemption auction's K = 256 (tpusched/kernels/
+// preempt.py:563), where K passes would cost 2K barriers and K reads of
+// the row, and the fast rounds' K = 8. One CTA a row loads the row into
+// shared memory as order-preserving uint32 keys (-0.0 folded into +0.0,
+// so that it ties with +0.0 by index, as beats does); four 8-bit digit
+// passes, each a 256-bin shared histogram (warp-aggregated adds) and a
+// block scan from the top digit down, find the K-th largest key T and
+// how many of the K lie at T; each thread then counts its contiguous
+// chunk's keys above T and at T, a block scan places them, and the keys
+// above T and the first ties at T (in index order) are written as packed
+// (key, ~index) pairs, which a bitonic sort in shared memory orders
+// (larger key first, then lower index). It is exact, in O(N + K log^2 K)
+// shared-memory work and ~log^2 K / 2 + 26 barriers a row.
 #include <limits.h>
 #include <math.h>
 
@@ -92,7 +108,7 @@ row_topk_kernel(int N, int K, const float* __restrict__ masked, int seeded,
     }
     block_best(bv, bi, s_v, s_i);
     if (tid == 0) {
-      topv[b * K + j] = bv;
+      topv[b * K + j] = bv + 0.0f;  // -0.0 as +0.0, as row_topk_plain
       topi[b * K + j] = bi;
     }
     pv = bv;
@@ -134,7 +150,168 @@ row_topk_kernel(int N, int K, const float* __restrict__ masked, int seeded,
   }
 }
 
+constexpr int RTHREADS = 256;  // radix path: one bin a thread
+constexpr int RWARPS = RTHREADS / 32;
+
+// Order-preserving key of a finite or infinite float: larger value,
+// larger key; -0.0 and +0.0 the same key.
+__device__ __forceinline__ unsigned fkey(float v) {
+  const unsigned u = __float_as_uint(v + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float unkey(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// Inclusive sum of x over threads 0 .. tid (RTHREADS threads); *total
+// gets the block's sum. Two barriers; s_w holds RWARPS ints.
+__device__ __forceinline__ int block_incl(int x, int* s_w, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += o;
+  }
+  if (lane == 31) s_w[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int w = 0; w < RWARPS; ++w) {
+    before += w < warp ? s_w[w] : 0;
+    all += s_w[w];
+  }
+  __syncthreads();
+  *total = all;
+  return x + before;
+}
+
+__global__ void __launch_bounds__(RTHREADS)
+row_topk_radix_kernel(int N, int K, int Kp, const float* __restrict__ masked,
+                      int use_smem, float* __restrict__ topv,
+                      int* __restrict__ topi) {
+  extern __shared__ unsigned long long rsm[];
+  unsigned long long* sel = rsm;             // [Kp] packed (key, ~index)
+  unsigned* keys = (unsigned*)(rsm + Kp);    // [N] when use_smem
+  __shared__ int hist[256];
+  __shared__ int s_w[RWARPS];
+  __shared__ int s_digit, s_above;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long b = blockIdx.x;
+  const float* row = masked + b * N;
+  if (use_smem) {
+    for (int n = tid; n < N; n += RTHREADS) keys[n] = fkey(row[n]);
+    __syncthreads();
+  }
+  auto key_at = [&](int n) { return use_smem ? keys[n] : fkey(row[n]); };
+
+  // The K-th largest key T, digit by digit from the top; k = how many of
+  // the K lie at T once all four digits are fixed.
+  unsigned prefix = 0, pmask = 0;
+  int k = K;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    hist[tid] = 0;
+    __syncthreads();
+    for (int base = 0; base < N; base += RTHREADS) {
+      const int n = base + tid;
+      const unsigned key = n < N ? key_at(n) : 0u;
+      const bool in = n < N && (key & pmask) == prefix;
+      const unsigned digit = (key >> shift) & 255u;
+      const unsigned act = __ballot_sync(0xffffffffu, in);
+      if (in) {
+        const unsigned peers = __match_any_sync(act, digit);
+        if (lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
+      }
+    }
+    __syncthreads();
+    // Thread t holds digit 255 - t: the inclusive sum counts the keys at
+    // or above that digit.
+    const int h = hist[255 - tid];
+    int total;
+    const int incl = block_incl(h, s_w, &total);
+    if (incl >= k && incl - h < k) {
+      s_digit = 255 - tid;
+      s_above = incl - h;
+    }
+    __syncthreads();
+    prefix |= (unsigned)s_digit << shift;
+    pmask |= 255u << shift;
+    k -= s_above;
+  }
+  const unsigned T = prefix;
+  const int above = K - k;
+
+  // Thread t's chunk [lo, hi): its keys above T and at T, placed by a
+  // block scan, in index order.
+  const int chunk = (N + RTHREADS - 1) / RTHREADS;
+  const int lo = min(tid * chunk, N), hi = min(lo + chunk, N);
+  int gt = 0, eq = 0;
+  for (int n = lo; n < hi; ++n) {
+    const unsigned key = key_at(n);
+    gt += key > T;
+    eq += key == T;
+  }
+  int tot;
+  int at_gt = block_incl(gt, s_w, &tot) - gt;
+  int at_eq = block_incl(eq, s_w, &tot) - eq;
+  for (int i = K + tid; i < Kp; i += RTHREADS) sel[i] = 0ull;
+  for (int n = lo; n < hi && (at_eq < k || at_gt < above); ++n) {
+    const unsigned key = key_at(n);
+    const unsigned long long packed =
+        ((unsigned long long)key << 32) | (unsigned)(~n);
+    if (key > T) {
+      sel[at_gt++] = packed;
+    } else if (key == T) {
+      if (at_eq < k) sel[above + at_eq] = packed;
+      ++at_eq;
+    }
+  }
+  __syncthreads();
+
+  // Bitonic sort of the Kp pairs, larger packed value first (pads are 0).
+  for (int size = 2; size <= Kp; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < Kp / 2; i += RTHREADS) {
+        const int p = 2 * i - (i & (stride - 1));
+        const int q = p + stride;
+        const unsigned long long x = sel[p], y = sel[q];
+        const bool desc = (p & size) == 0;
+        if (desc ? x < y : x > y) {
+          sel[p] = y;
+          sel[q] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int j = tid; j < K; j += RTHREADS) {
+    const unsigned long long x = sel[j];
+    topv[b * K + j] = unkey((unsigned)(x >> 32));
+    topi[b * K + j] = (int)~(unsigned)x;
+  }
+}
+
 }  // namespace
+
+extern "C" int tpusched_row_topk_radix(int rows, int N, int K,
+                                       const float* masked, float* topv,
+                                       int* topi, void* stream) {
+  if (K < 1 || K > N) return (int)cudaErrorInvalidValue;
+  int Kp = 1;
+  while (Kp < K) Kp <<= 1;
+  long long sel_bytes = (long long)Kp * 8;
+  long long row_bytes = (long long)N * 4;
+  if (sel_bytes > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  int use_smem = sel_bytes + row_bytes <= SMEM_LIMIT ? 1 : 0;
+  size_t dyn = (size_t)(sel_bytes + (use_smem ? row_bytes : 0));
+  if (dyn > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        row_topk_radix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)dyn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  row_topk_radix_kernel<<<rows, RTHREADS, dyn, (cudaStream_t)stream>>>(
+      N, K, Kp, masked, use_smem, topv, topi);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int tpusched_row_topk(int rows, int N, int K, const float* masked,
                                  int seeded, unsigned int seed,

@@ -702,13 +702,14 @@ def _preempt_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
     """K4's preemption block: the victim table (K15's), each pod's
     effective priority, validity and gang, node validity, the running
     pods' nodes and required anti terms, then the device state the scan
-    updates (the budgets' remaining disruptions, evicted [M] bytes) and
-    K15's scratch; with a tenant axis every part per tenant."""
+    updates (the budgets' remaining disruptions, evicted [M] bytes, and
+    the same in the victims' sorted order, K15's); with a tenant axis
+    every part per tenant."""
     dev = static.mask.device
     pods, run = snap.pods, snap.running
     lead = static.mask.shape[:-2]          # () or (B,): the tenant axis
     vic = kpre._victim_args(k, cfg, snap, pctx)
-    M, R = pctx.req_s.shape[-2:]
+    M = pctx.req_s.shape[-2]
     P, N = static.mask.shape[-2:]
     J = run.anti_sig.shape[-1]
     GP = snap.pdb_allowed.shape[-1]
@@ -723,10 +724,9 @@ def _preempt_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
     check(k, dev, snap.pdb_allowed, torch.float32, (*lead, GP))
     remaining = snap.pdb_allowed.clone()
     evicted = torch.zeros((*lead, M), dtype=torch.uint8, device=dev)
-    return (*vic[:2], J, *vic[2:], prio, pods.valid, pods.group,
-            snap.nodes.valid,
-            run.node_idx, run.anti_sig, remaining, evicted,
-            *kpre.victim_scratch(M, R, dev, lead[0] if lead else 1))
+    return (*vic[:3], J, *vic[3:], prio, pods.valid, pods.group,
+            snap.nodes.valid, run.node_idx, run.anti_sig, remaining, evicted,
+            torch.zeros_like(evicted))
 
 
 def _explain_out(explain: bool, lead: tuple, M: int, dev) -> tuple:
@@ -758,7 +758,7 @@ def parity_scan_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
     used = snap.nodes.used.clone()
     assigned = torch.empty(order.shape, dtype=torch.int32, device=dev)
     chosen = torch.empty(order.shape, dtype=torch.float32, device=dev)
-    evicted = pre[-4]
+    evicted = pre[-2]
     ex = _explain_out(explain, lead, evicted.shape[-1], dev)
     if assigned.numel():
         _build.launch("tpusched_parity_scan_preempt", lead[0] if lead else 1,
@@ -796,7 +796,7 @@ def parity_scan_pair_preempt(cfg: EngineConfig, snap: ClusterSnapshot,
     assigned = torch.empty(order.shape, dtype=torch.int32, device=dev)
     chosen = torch.empty(order.shape, dtype=torch.float32, device=dev)
     out = kpair.copy_state(st)
-    evicted = pre[-4]
+    evicted = pre[-2]
     ex = _explain_out(explain, lead, evicted.shape[-1], dev)
     if assigned.numel():
         pen = torch.empty((*lead, N), dtype=torch.float32, device=dev)
@@ -1014,7 +1014,9 @@ def row_topk_plain(masked: torch.Tensor, K: int, seeded: bool = False,
     batch [B, V, N] is ranked as its B * V rows."""
     if masked.dim() == 3:
         return _tenant_rows(row_topk_plain, masked, K, seeded, seed, row_ids)
-    vals, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+    # + 0.0 makes -0.0 rank with +0.0, by index (a CUDA radix sort orders
+    # them), as `beats` does.
+    vals, idx = torch.sort(masked + 0.0, dim=1, descending=True, stable=True)
     topv = vals[:, :K].contiguous()
     topi = idx[:, :K].to(torch.int32).contiguous()
     if not seeded:
@@ -1029,19 +1031,44 @@ def row_topk_plain(masked: torch.Tensor, K: int, seeded: bool = False,
     return topv, topi, pick.to(torch.int32)
 
 
+# K6's radix path (csrc/topk.cu row_topk_radix_kernel) takes the calls
+# without the seeded pick from RADIX_MIN_K up; the K-pass kernel the rest
+# and every seeded pick. The cut is measured: chip_smoke's K6 phase times
+# both paths on (b)'s first fast round (H100: K = 4 0.228 against 0.326
+# ms, K = 8 0.384 against 0.331, K = 16 0.732 against 0.327, K = 256
+# 10.93 against 0.433). The radix path's pairs fit in shared memory up
+# to RADIX_MAX_K.
+RADIX_MIN_K = 8
+RADIX_MAX_K = 16384
+
+
 def row_topk(masked: torch.Tensor, K: int, seeded: bool = False,
              seed: int = 0, row_ids: torch.Tensor | None = None):
     """Kernel K6 on CUDA tensors, the plain version on CPU tensors."""
+    radix = not seeded and RADIX_MIN_K <= K <= RADIX_MAX_K
+    return row_topk_path(masked, K, seeded, seed, row_ids, radix)
+
+
+def row_topk_path(masked: torch.Tensor, K: int, seeded: bool = False,
+                  seed: int = 0, row_ids: torch.Tensor | None = None,
+                  radix: bool = False):
+    """`row_topk` on the path given: the K-pass kernel, or with radix
+    (not seeded, K <= RADIX_MAX_K) the radix select; the plain version on
+    CPU tensors."""
     dev = masked.device
     if dev.type == "cpu":
         return row_topk_plain(masked, K, seeded, seed, row_ids)
     if masked.dim() == 3:
-        return _tenant_rows(row_topk, masked, K, seeded, seed, row_ids)
+        return _tenant_rows(lambda m, *a: row_topk_path(m, *a, radix=radix),
+                            masked, K, seeded, seed, row_ids)
     rows, N = masked.shape
     k = "row_topk"
     check(k, dev, masked, torch.float32, (rows, N))
     if not 1 <= K <= N:
         raise ValueError(f"{k}: K={K} outside 1..{N}")
+    if radix and (seeded or K > RADIX_MAX_K):
+        raise ValueError(f"{k}: the radix path takes K <= {RADIX_MAX_K} "
+                         "without the seeded pick")
     if row_ids is not None:
         check(k, dev, row_ids, torch.int32, (rows,))
     topv = torch.empty((rows, K), dtype=torch.float32, device=dev)
@@ -1050,20 +1077,23 @@ def row_topk(masked: torch.Tensor, K: int, seeded: bool = False,
             else None)
     if rows == 0:
         return topv, topi, pick
-    _build.launch(
-        "tpusched_row_topk", rows, N, K, masked.data_ptr(), int(seeded),
-        seed & 0xFFFFFFFF,
-        row_ids.data_ptr() if row_ids is not None else None,
-        topv.data_ptr(), topi.data_ptr(),
-        pick.data_ptr() if pick is not None else None, stream_of(dev))
-    row_topk.launches += 1
-    if K > 16:
-        row_topk.wide_launches += 1
+    if radix:
+        _build.launch("tpusched_row_topk_radix", rows, N, K,
+                      *ptrs((masked, topv, topi)), stream_of(dev))
+        row_topk.radix_launches += 1
+    else:
+        _build.launch(
+            "tpusched_row_topk", rows, N, K, masked.data_ptr(), int(seeded),
+            seed & 0xFFFFFFFF,
+            row_ids.data_ptr() if row_ids is not None else None,
+            topv.data_ptr(), topi.data_ptr(),
+            pick.data_ptr() if pick is not None else None, stream_of(dev))
+        row_topk.launches += 1
     return topv, topi, pick
 
 
-row_topk.launches = 0
-row_topk.wide_launches = 0   # of them, with K > 16 (the auction's 256)
+row_topk.launches = 0         # the K-pass kernel's
+row_topk.radix_launches = 0   # the radix select's
 
 
 def _tenant_rows(fn, masked: torch.Tensor, K: int, seeded: bool, seed: int,

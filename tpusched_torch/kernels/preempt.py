@@ -12,24 +12,26 @@ prefixes after which the pod fits, on nodes its static and pairwise
 predicates allow, the search takes the lexicographic minimum of
 (violations, cost), ties to the lowest node, then the shortest prefix.
 
-Kernel K15 (`csrc/preempt.cuh`, one 1024-thread CTA) runs one search;
-its standalone entry point `tpusched_preempt_step` is `preempt_step` on
-CUDA tensors, and the parity scan's preemption variant (K4,
-`kernels/assign.parity_scan_preempt`) runs the same device function for
-each pod that fails Filter.
+Kernel K15 (`csrc/preempt.cuh`, one 1024-thread CTA, a thread a node)
+runs one search; its standalone entry point `tpusched_preempt_step` is
+`preempt_step` on CUDA tensors, and the parity scan's preemption variant
+(K4, `kernels/assign.parity_scan_preempt`) runs the same device function
+for each pod that fails Filter. `precompute` lays the victims out for
+it node-major: the node offsets [N + 1] and each node's first V victims
+in [V, N] planes (a warp taking 32 consecutive nodes reads its j-th
+victims coalesced); a longer segment's tail is read in the sorted order.
 
 The f32 sums of requests and cost restart at each node's segment and
-have one fixed order on every device, K15's (`segment_prefix`): each of
-the 1024 threads sums its contiguous chunk of ceil(M / 1024) victims in
-order, a segmented Hillis-Steele scan carries a segment across chunks.
-JAX and the oracle take a prefix over all M victims and subtract its
-value at the segment's start instead: at config 5's full size that sum
-reaches ~1e14 bytes, and the cancellation costs ~1e7 bytes a term, so
-their fits and near-equal costs depend on the order of adds (ROADMAP C5).
-The capacity freed on the chosen node is the chosen victim's segment
-sum, the value its fit was tested with, subtracted in one step as JAX
-subtracts its `freed` row. Violation and budget counts are integers,
-exact in any order.
+run left to right from 0.0 in blocks of 16 rows, the block totals added
+left to right (`segment_prefix`): up to 16 victims a node that is
+`vprefix`'s order, and a long segment's error stays a few dozen
+roundings. JAX and the oracle take a prefix over all M victims and
+subtract its value at the segment's start instead: at config 5's full size that sum reaches ~1e14 bytes, and the cancellation
+costs ~1e7 bytes a term, so their fits and near-equal costs depend on
+the order of adds (ROADMAP C5). The capacity freed on the chosen node is
+the chosen victim's segment sum, the value its fit was tested with,
+subtracted in one step as JAX subtracts its `freed` row. Violation and
+budget counts are integers, exact in any order.
 
 The fast mode's half is the batched preemption auction
 (`preempt_auction`, JAX's of the same name) over the node-major victim
@@ -54,8 +56,8 @@ is that prefix's own sum, the value its fit was tested with.
 Tenant axis (tenants.solve_many, JAX's vmap of the same functions):
 every function here but K15's standalone `preempt_step` also takes a
 leading [B] axis on the snapshot and the state. Each tenant sorts its
-own victims and gets its own thread-interleaved [Mp] layout, budgets
-and K15 scratch; the auction's thresholds are each tenant's own
+own victims and gets its own offsets, planes (V shared) and budgets;
+the auction's thresholds are each tenant's own
 quantiles; K16 and K17 launch once over the B tenants' lanes and rows,
 K18 with one CTA a tenant. The plain versions go tenant by tenant.
 """
@@ -72,14 +74,20 @@ from tpusched_torch.kernels import check, per_tenant, ptrs, stream_of
 from tpusched_torch.qos import evict_cost_raw, victim_effective_priority
 from tpusched_torch.snapshot import ClusterSnapshot, _Tree
 
-THREADS = 1024  # K15's CTA: the prefix sums chunk the victims over it
+PLANE_CAP = 16  # K15's planes hold each node's first min(16, M) victims
+SEG_BLOCK = 16  # rows a block of K15's segment sums (PRE_BLOCK)
 
 
 @dataclasses.dataclass
 class PreemptCtx(_Tree):
     """Snapshot-static victim order and costs (the running pods sorted
-    by (node, cost), invalid ones last in a sentinel segment N); a tenant
-    batch gives every field a leading [B] axis."""
+    by (node, cost), invalid ones last in a sentinel segment N), and the
+    same victims node-major for K15: the offsets of the nodes' segments
+    and the planes, victim j < V of node n at [j, n] (V = min(PLANE_CAP,
+    M)): its (priority, cost) as f32 bits, budget and running pod in one
+    16-byte record (one load), its requests in [R, V, N]; pads hold
+    vprio +inf, cost 0, pdb -1, perm 0, requests 0. A tenant batch gives
+    every field a leading [B] axis."""
 
     perm: torch.Tensor       # [M] int32 sorted position -> running pod
     node_s: torch.Tensor     # [M] int32 node of the sorted victim (N: none)
@@ -88,6 +96,9 @@ class PreemptCtx(_Tree):
     vprio_s: torch.Tensor    # [M] f32 victim effective priority
     req_s: torch.Tensor      # [M, R] f32 victim requests
     pdb_s: torch.Tensor      # [M] int32 budget of the victim (-1: none)
+    off: torch.Tensor        # [N + 1] int32 first position of node n's segment
+    pl_vic: torch.Tensor     # [V, N, 4] int32 (vprio, cost bits, pdb, perm)
+    pl_req: torch.Tensor     # [R, V, N] f32
 
 
 def _victim_order(cfg: EngineConfig, snap: ClusterSnapshot):
@@ -125,17 +136,47 @@ def _victim_order(cfg: EngineConfig, snap: ClusterSnapshot):
 
 def precompute(cfg: EngineConfig, snap: ClusterSnapshot) -> PreemptCtx:
     """JAX `precompute`, on the snapshot's device (per tenant for a
-    batch)."""
+    batch), with K15's node offsets and planes beside it."""
     run = snap.running
+    M = run.valid.shape[-1]
+    N = snap.nodes.valid.shape[-1]
+    dev = run.valid.device
     cost, vprio, perm, node_s, seg_start = _victim_order(cfg, snap)
     R = run.requests.shape[-1]
+    cost_s, vprio_s = cost.gather(-1, perm), vprio.gather(-1, perm)
+    req_s = run.requests.gather(
+        -2, perm[..., None].expand(*perm.shape, R)).contiguous()
+    pdb_s = run.pdb_group.gather(-1, perm).contiguous()
+    perm32 = perm.to(torch.int32)
+    nodes = torch.arange(N + 1, dtype=torch.int32, device=dev)
+    off = torch.searchsorted(node_s.contiguous(),
+                             nodes.expand(*node_s.shape[:-1], N + 1)
+                             .contiguous()).to(torch.int32)
+    # Victim j of node n at plane cell j * N + n; the rest (past V, on no
+    # node) at the dropped cell V * N.
+    V = max(1, min(PLANE_CAP, M))
+    pos = torch.arange(M, device=dev) - seg_start
+    cell = torch.where((node_s < N) & (pos < V), pos * N + node_s, V * N)
+    lead = cell.shape[:-1]
+
+    def plane(x: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
+        """x [.., M, k] in the sorted order -> [.., V, N, k], pad [k]
+        where no victim lies."""
+        k = x.shape[-1]
+        out = pad.to(dev).expand(*lead, V * N + 1, k).clone()
+        out.scatter_(len(lead), cell[..., None].expand(x.shape), x)
+        return out.narrow(len(lead), 0, V * N).reshape(*lead, V, N, k)
+
+    bits = lambda t: t.view(torch.int32)
+    rec = torch.stack([bits(vprio_s), bits(cost_s), pdb_s, perm32], dim=-1)
+    pad_rec = torch.tensor([float("inf"), 0.0]).view(torch.int32)
+    pad_rec = torch.cat([pad_rec, torch.tensor([-1, 0], dtype=torch.int32)])
     return PreemptCtx(
-        perm=perm.to(torch.int32), node_s=node_s.contiguous(),
-        seg_start=seg_start.to(torch.int32), cost_s=cost.gather(-1, perm),
-        vprio_s=vprio.gather(-1, perm),
-        req_s=run.requests.gather(
-            -2, perm[..., None].expand(*perm.shape, R)).contiguous(),
-        pdb_s=run.pdb_group.gather(-1, perm).contiguous())
+        perm=perm32, node_s=node_s.contiguous(),
+        seg_start=seg_start.to(torch.int32), cost_s=cost_s,
+        vprio_s=vprio_s, req_s=req_s, pdb_s=pdb_s, off=off,
+        pl_vic=plane(rec, pad_rec).contiguous(),
+        pl_req=plane(req_s, torch.zeros(R)).movedim(-1, -3).contiguous())
 
 
 def pdb_remaining(snap: ClusterSnapshot, evicted: torch.Tensor) -> torch.Tensor:
@@ -155,38 +196,34 @@ def pdb_remaining(snap: ClusterSnapshot, evicted: torch.Tensor) -> torch.Tensor:
 
 def segment_prefix(x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of [M, K] f32 along dim 0 that restarts at
-    every row where `start` is set (each node's segment), in K15's
-    order: 1024 chunks of ceil(M / 1024) rows, each summed in row order
-    from 0.0 (again from 0.0 at a segment start); the chunk tails through
-    a segmented Hillis-Steele scan (at step d a chunk adds the tail d
-    back unless a segment starts in it); the rows before a chunk's first
-    segment start then add the carry from the chunks before. Never an
-    f32 `torch.cumsum`, whose order depends on the device."""
-    M, K = x.shape
+    every row where `start` is set (each node's segment), in K15's order:
+    each SEG_BLOCK-row block of a segment summed left to right from 0.0,
+    the block totals added left to right, and a row's prefix the totals
+    before its block plus its block's sum up to the row. A segment of up
+    to SEG_BLOCK rows is summed left to right from 0.0, `vprefix`'s
+    order. Never an f32 `torch.cumsum`, whose order depends on the
+    device. One step a row of the longest segment: step j adds row j of
+    every segment to the row before it."""
+    M = x.shape[0]
     dev = x.device
-    c = max(1, -(-M // THREADS))
-    pad = THREADS * c - M
-    xs = torch.cat([x, torch.zeros((pad, K), dtype=x.dtype, device=dev)])
-    xs = xs.reshape(THREADS, c, K)
-    fs = torch.cat([start, torch.ones(pad, dtype=torch.bool, device=dev)])
-    fs = fs.reshape(THREADS, c)
+    idx = torch.arange(M, device=dev)
+    rank = idx - torch.cummax(torch.where(start, idx, 0), dim=0).values
+    by_rank = torch.sort(rank, stable=True).indices
+    counts = torch.bincount(rank, minlength=1).tolist() if M else []
+    tot = torch.empty_like(x)    # the block totals before the row's block
+    run = torch.empty_like(x)    # the row's block summed up to the row
     zero = torch.zeros((), dtype=x.dtype, device=dev)
-    acc = torch.zeros((THREADS, K), dtype=x.dtype, device=dev)
-    run = []
-    for k in range(c):
-        acc = torch.where(fs[:, k, None], zero, acc) + xs[:, k]
-        run.append(acc)
-    loc = torch.stack(run, dim=1)                            # [T, c, K]
-    v, f = loc[:, -1], fs.any(dim=1)
-    d = 1
-    while d < THREADS:
-        v = torch.cat([v[:d], torch.where(f[d:, None], v[d:], v[:-d] + v[d:])])
-        f = torch.cat([f[:d], f[:-d] | f[d:]])
-        d <<= 1
-    carry = torch.cat([torch.zeros_like(v[:1]), v[:-1]])
-    before = torch.cummax(fs.to(torch.int32), dim=1).values == 0
-    out = torch.where(before[..., None], carry[:, None, :] + loc, loc)
-    return out.reshape(THREADS * c, K)[:M]
+    lo = 0
+    for j, n in enumerate(counts):
+        rows = by_rank[lo:lo + n]
+        if j % SEG_BLOCK:
+            tot[rows] = tot[rows - 1]
+            run[rows] = run[rows - 1] + x[rows]
+        else:
+            tot[rows] = tot[rows - 1] + run[rows - 1] if j else zero
+            run[rows] = zero + x[rows]
+        lo += n
+    return tot + run
 
 
 def tableau_plain(cfg: EngineConfig, snap: ClusterSnapshot, ctx: PreemptCtx,
@@ -219,7 +256,10 @@ def tableau_plain(cfg: EngineConfig, snap: ClusterSnapshot, ctx: PreemptCtx,
         viol = has & ((mine - off).to(torch.float32) > remaining[pdb])
     vals = torch.cat([torch.where(elig[:, None], ctx.req_s, zero),
                       torch.where(elig, ctx.cost_s, zero)[:, None]], dim=1)
-    within = segment_prefix(vals, seg == idx)                # [M, R + 1]
+    # The victims on no node are never eligible: each its own segment
+    # (their sums stay 0.0 either way) keeps the steps to the longest
+    # node's segment.
+    within = segment_prefix(vals, (seg == idx) | (ctx.node_s >= N))
     cv = torch.cumsum(viol.to(torch.int32), dim=0)
     within_viol = cv - torch.where(seg > 0, cv[(seg - 1).clamp(min=0)], 0)
     node = ctx.node_s.clamp(max=N - 1).long()
@@ -269,77 +309,36 @@ def preempt_step_plain(cfg: EngineConfig, snap: ClusterSnapshot,
             within[best_pos, :R])
 
 
-def _padded(M: int) -> tuple[int, int]:
-    """(chunk, Mp): K15's victims a thread and the padded length."""
-    c = max(1, -(-M // THREADS))
-    return c, c * THREADS
-
-
-def interleave(x: torch.Tensor, fill, lead: int = 0) -> torch.Tensor:
-    """K15's thread-interleaved layout of a sorted victim array: [M] ->
-    [Mp], [M, R] -> [R, Mp], victim i at (i % chunk) * 1024 + i // chunk,
-    so that the j-th victims of the threads' contiguous chunks sit side by
-    side (coalesced loads); padding holds `fill`. lead = 1: a tenant
-    batch, each tenant's row laid out on its own ([B, M] -> [B, Mp],
-    [B, M, R] -> [B, R, Mp])."""
-    M = x.shape[lead]
-    c, Mp = _padded(M)
-    pre, post = x.shape[:lead], x.shape[lead + 1:]
-    pad = torch.full((*pre, Mp - M, *post), fill, dtype=x.dtype,
-                     device=x.device)
-    xs = torch.cat([x, pad], dim=lead).reshape(*pre, THREADS, c, *post)
-    xs = xs.transpose(lead, lead + 1)                        # [.., c, T, ...]
-    if post:
-        return xs.movedim(-1, lead).reshape(*pre, post[0], Mp).contiguous()
-    return xs.reshape(*pre, Mp).contiguous()
-
-
-def deinterleave(x: torch.Tensor, M: int) -> torch.Tensor:
-    """The sorted order of an [Mp] array in K15's layout."""
-    c, Mp = _padded(M)
-    return x.reshape(c, THREADS).T.reshape(Mp)[:M]
-
-
 def _victim_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
                  ctx: PreemptCtx) -> tuple:
-    """Check the victim table and put it in K15's layout, each tenant's
-    rows on their own for a batch: (M, GP, its tensors, the margin)."""
+    """Check K15's victim table (each tenant's on its own for a batch):
+    (M, GP, V, the offsets, the planes, the sorted order, the margin)."""
     dev = ctx.perm.device
     lead = ctx.perm.shape[:-1]             # () or (B,): the tenant axis
     M, R = ctx.req_s.shape[-2:]
-    N = snap.nodes.valid.shape[-1]
-    for t in (ctx.perm, ctx.node_s, ctx.seg_start, ctx.pdb_s):
+    V, N = ctx.pl_vic.shape[-3:-1]
+    if N != snap.nodes.valid.shape[-1]:
+        raise ValueError(f"{k}: planes of {N} nodes, the snapshot has "
+                         f"{snap.nodes.valid.shape[-1]}")
+    check(k, dev, ctx.off, torch.int32, (*lead, N + 1))
+    check(k, dev, ctx.pl_vic, torch.int32, (*lead, V, N, 4))
+    check(k, dev, ctx.pl_req, torch.float32, (*lead, R, V, N))
+    for t in (ctx.perm, ctx.pdb_s):
         check(k, dev, t, torch.int32, (*lead, M))
     for t in (ctx.cost_s, ctx.vprio_s):
         check(k, dev, t, torch.float32, (*lead, M))
     check(k, dev, ctx.req_s, torch.float32, (*lead, M, R))
-    n = len(lead)
-    return (M, snap.pdb_allowed.shape[-1], interleave(ctx.perm, 0, n),
-            interleave(ctx.node_s, N, n),
-            interleave(ctx.seg_start, 0, n), interleave(ctx.cost_s, 0.0, n),
-            interleave(ctx.vprio_s, 0.0, n), interleave(ctx.req_s, 0.0, n),
-            interleave(ctx.pdb_s, -1, n), float(cfg.qos.preemption_margin))
-
-
-def victim_scratch(M: int, R: int, dev: torch.device, B: int = 1) -> tuple:
-    """K15's device scratch, in its layout (`deinterleave` reads it in
-    sorted order): eligibility [Mp] bytes, the [R + 1, Mp] f32 segment
-    sums (requests, then cost) and the [Mp] int32 segment sums of the
-    violation flags; B tenants' blocks one after the other."""
-    Mp = _padded(M)[1]
-    return (torch.empty(B * Mp, dtype=torch.uint8, device=dev),
-            torch.empty(B * (R + 1) * Mp, dtype=torch.float32, device=dev),
-            torch.empty(B * Mp, dtype=torch.int32, device=dev))
+    return (M, snap.pdb_allowed.shape[-1], V, ctx.off, ctx.pl_vic,
+            ctx.pl_req, ctx.perm, ctx.cost_s, ctx.vprio_s, ctx.req_s,
+            ctx.pdb_s, float(cfg.qos.preemption_margin))
 
 
 def preempt_step(cfg: EngineConfig, snap: ClusterSnapshot, ctx: PreemptCtx,
                  p_prio: torch.Tensor, p_req: torch.Tensor,
                  allowed: torch.Tensor, used: torch.Tensor,
-                 evicted: torch.Tensor, scratch: tuple | None = None):
+                 evicted: torch.Tensor):
     """Kernel K15 on CUDA tensors (one CTA, one preemptor), the plain
-    version on CPU tensors. scratch: `victim_scratch`'s buffers, for a
-    caller that reads the tableau K15 leaves there (the eligibility
-    flags, and third each victim's violation count in its segment)."""
+    version on CPU tensors."""
     dev = ctx.perm.device
     if dev.type == "cpu":
         return preempt_step_plain(cfg, snap, ctx, p_prio, p_req, allowed,
@@ -363,10 +362,11 @@ def preempt_step(cfg: EngineConfig, snap: ClusterSnapshot, ctx: PreemptCtx,
     freed = torch.zeros(R, dtype=torch.float32, device=dev)
     if M == 0:
         return best[0], best[1] > 0, evict_m, freed
-    scratch = scratch or victim_scratch(M, R, dev)
+    # The evictions in the victims' sorted order (K15 marks its own).
+    ev_s = evicted[ctx.perm.long()].to(torch.uint8)
     _build.launch("tpusched_preempt_step", N, R, *ptrs(
-        (*vic, prio, req, allowed, snap.nodes.valid, used, alloc, evicted,
-         remaining, *scratch, best, evict_m, freed)), stream_of(dev))
+        (*vic, prio, req, allowed, snap.nodes.valid, used, alloc, ev_s,
+         remaining, best, evict_m, freed)), stream_of(dev))
     preempt_step.launches += 1
     return best[0], best[1] > 0, evict_m, freed
 
