@@ -16,13 +16,12 @@ package, and
      (bool, int and f32: the kernels are built with --fmad=false and
      keep their plain versions' order of f32 operations), and times
      both with CUDA events (median of several runs): K1 atom_sat,
-     K2 tableau_cells, K3 finalize_static, K4 parity_scan; K5 cycle at
+     K2 tableau_cells, K3 finalize_static; K5 cycle at
      full width and on a 1024-row index view (equal to the same view
      gathered), K6 row_topk (K = 8 seeded, kb = 8, beside torch.topk;
      then its two paths, the K-pass kernel and the radix select, at
      K = 4, 8, 16 and 256 without the seeded pick, each exact and timed),
-     K7 desirability on K5's output, K8 prefix_commit on the first
-     sub-step of the first fast round;
+     K8 prefix_commit on the first sub-step of the first fast round;
      Then, on the pairwise cluster (d) (BASELINE config 3 at 10 000 x
      5 000: topology spread and inter-pod affinity), K9 sig_match, K10
      pair_counts, K11 pairwise_batch and K4's pairwise variant against
@@ -37,16 +36,22 @@ package, and
      launch:
      - parity: `Engine.solve` at 10 000 pods x 5 000 nodes on (a) the
        headline config-2 cluster, (b) the same size with constraints,
-       (c) the headline with the seeded tie-break (K1-K4);
-     - fast: the same three requests with mode="fast" (K5-K8), and
-       (b) once more with the plain versions on the host's CPU, which
-       must place as many pods as the card;
+       (c) the headline with the seeded tie-break (K1-K4); on (a) and
+       (c), K4 at the policy's cluster size (16 CTAs) and at one CTA,
+       each exact against the audit's plain scan, with us a pod;
+     - fast: the same three requests with mode="fast" (K5-K8); K7 on
+       fast (a)'s round 0 (10 240 rows) and a 1 024-row view of it,
+       exact, beside torch.where + sum; (b) once more with the plain
+       versions on the host's CPU, which must place as many pods as
+       the card;
      - ScoreBatch: `Engine.score`, `score_top1` and `score_topk(k=8)`
        on (b) (K5, K6);
      - pairwise parity: `Engine.solve` on (d), on (d) with the seeded
        tie-break, and on (e) = (d) plus running anti-affinity holders,
        three namespaces (`*` and explicit scopes) and key-less nodes
-       (K1-K3, K9, K10, K4's pairwise variant);
+       (K1-K3, K9, K10, K4's pairwise variant; on (d) and (e) at the
+       policy's cluster size and at one CTA, exact against the audit's
+       plain scan);
      - pairwise ScoreBatch: `score_top1` and `score_topk(k=8)` on (d),
        `score_top1` on (e) (K1-K3, K9-K11, K5, K6);
      - fast pairwise: `Engine.solve` in fast mode on (d), (d) with the
@@ -154,16 +159,19 @@ package, and
        host reads against their sum, each tenant equal to its solo
        solve in all six outputs and valid, the batch equal to its
        plain-version twin (parity and fast, host reads too); K4 over
-       the tenant axis against one tenant's K4; K23 and K24 on their
-       first call's arguments against their plain versions, beside
-       torch.cumsum with searchsorted and with a scatter;
+       the tenant axis (eight clusters) against one tenant's K4, each
+       tenant's outputs equal to its solo launch at one CTA; K7, K23
+       and K24 on their first call's arguments against their plain
+       versions, beside torch.where + sum, torch.cumsum with
+       searchsorted and with a scatter;
      - the tenant batch with signatures (tp) (eight config-3 clusters of
        3 000 - 50 b pods on 1 500 nodes under one floor with their
        signatures): parity (first and seeded) and fast with the default
        compact_cap, each tenant equal to its solo solve on the card in
        all six outputs and valid, a reduced batch (four tenants of 600 x
        300) equal to its plain-version twin, host reads too; K4's
-       pairwise variant with 8 CTAs against one tenant's; the entry
+       pairwise variant with 8 clusters against one tenant's (each
+       tenant equal to its solo launch at one CTA); the entry
        points that gained the tenant axis (K9, K10, K4's pairwise
        variant, K11 with ia_ok, K12, K13's two, K14, K10's pair_commit,
        K8's node_add) on their first call's arguments against their
@@ -597,7 +605,14 @@ def audit(name: str, cfg: EngineConfig, dsnap, res, hook=None) -> dict:
                                        ops=plain)
     info = validity(name, cfg, dsnap, res, static.mask.cpu().numpy())
     pstats = kassign.RoundStats()
-    scans, states, pre_scans = [], [], []
+    scans, states, pre_scans, s0_scans = [], [], [], []
+
+    def record_s0(*args):
+        t0 = time.perf_counter()
+        out = kassign.parity_scan_plain(*args)
+        torch.cuda.synchronize()
+        s0_scans.append((args, out, (time.perf_counter() - t0) * 1e3))
+        return out
 
     def record(*args):
         t0 = time.perf_counter()
@@ -622,8 +637,8 @@ def audit(name: str, cfg: EngineConfig, dsnap, res, hook=None) -> dict:
         return out if explain else out[:4]
 
     ops = dataclasses.replace(
-        plain, parity_scan_pair=record, pair_commit=last_state,
-        parity_scan_preempt=record_pre)
+        plain, parity_scan=record_s0, parity_scan_pair=record,
+        pair_commit=last_state, parity_scan_preempt=record_pre)
     t0 = time.perf_counter()
     want = plain_result(cfg, dsnap, hook(ops) if hook else ops, pstats)
     info["plain_solve_ms"] = (time.perf_counter() - t0) * 1e3
@@ -651,6 +666,8 @@ def audit(name: str, cfg: EngineConfig, dsnap, res, hook=None) -> dict:
                                      res.evicted if fast_pre else None))
     if pre_scans:
         info["plain_preempt_scan"] = pre_scans[0]
+    if s0_scans:
+        info["plain_scan"] = s0_scans[0]
     return info
 
 
@@ -898,8 +915,8 @@ def zero_counts() -> None:
 
 def pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
     """K9-K11 against their plain versions on the full-size pairwise
-    cell, with times and bounds (K4's pairwise variant: pair_scan_row,
-    after the (d) solve's audit)."""
+    cell, with times and bounds (K4's pairwise variant: k4_rows, after
+    the (d) and (e) solves' audits)."""
     nodes, pods = dsnap.nodes, dsnap.pods
     out = {}
     node_sat_t, member_sat_t = _sat_tables(dsnap)
@@ -959,31 +976,61 @@ def pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
     return out
 
 
-def pair_scan_row(plain_scan) -> dict:
-    """K4's pairwise variant against the (d) audit's plain scan (run
-    once, tens of seconds), on the same arguments, exact in all four
-    outputs (the final pair state included); time and bound."""
-    args4, want, plain_ms = plain_scan
-    cfg, dsnap, static, order, st, dom_s = args4
+def k4_rows(name: str, plain_scan, smi: str) -> dict:
+    """K4 (its pairwise variant where the audit's plain scan carried a
+    pair state) at the policy's cluster size Q and at Q = 1, each against
+    the audit's plain scan of the same call (run once, tens of seconds),
+    exact in every output (with signatures the final pair state too);
+    CUDA-event and profiler times, us a pod. Returns the row of the
+    policy's Q, with Q = 1's numbers beside it."""
+    args, want, plain_ms = plain_scan
+    pair = len(args) == 6
+    cfg, dsnap, static = args[:3]
     nodes, pods = dsnap.nodes, dsnap.pods
-    scan = kassign.parity_scan_pair(*args4)
-    flat = lambda r: [r[0], r[1], r[2], r[3].counts, r[3].anti,
-                      r[3].match_tot]
-    err = require_equal("parity_scan_pair", flat(scan), flat(want))
+    fn = kassign.parity_scan_pair if pair else kassign.parity_scan
+    kname = "parity_scan_pair" if pair else "parity_scan"
+    flat = ((lambda r: [r[0], r[1], r[2], r[3].counts, r[3].anti,
+                        r[3].match_tot]) if pair else list)
     P, N = static.mask.shape
     R = nodes.allocatable.shape[1]
-    S, C, IT = dom_s.shape[0], pods.ts_sig.shape[1], pods.ia_sig.shape[1]
-    b4 = nbytes(static.mask, static.score, static.aff_ok, nodes.allocatable,
-                nodes.used, pods.requests, static.w_lr, static.w_ba,
-                static.w_ts, static.w_ia, static.rw, dom_s, static.sig_match,
-                st.counts, st.anti, st.match_tot, *flat(scan)) + 4 * P
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    q_pol = kassign.scan_cluster_size(1, N, sms)[0]
+    runs = {}
+    for q in (q_pol, 1):
+        got = fn(*args, cluster=q)
+        err = require_equal(f"{kname} on {name} at Q={q}", flat(got),
+                            flat(want))
+        ms = cuda_ms(lambda: fn(*args, cluster=q), 3)
+        prof = profiler_ms(lambda: fn(*args, cluster=q),
+                           "parity_scan_kernel", reps=2)
+        runs[q] = (err, ms, prof)
+        log(f"K4{' pairwise variant' if pair else ''} on {name}: Q={q}, "
+            f"{kassign.scan_threads(N, q)} threads a CTA, {ms:.3f} ms "
+            f"(CUDA events; profiler kernel time "
+            + ("not measured" if prof is None else f"{prof:.3f} ms")
+            + f"), {ms * 1e3 / P:.3f} us a pod; exact against the plain "
+            f"scan ({plain_ms:.1f} ms); {smi}")
+    b4 = nbytes(static.mask, static.score, nodes.allocatable, nodes.used,
+                pods.requests, static.w_lr, static.w_ba, static.w_ts,
+                static.w_ia, static.rw, *flat(want)) + 4 * P
+    ops4 = P * N * (R * 14 + 12)
+    if pair:
+        dom_s, st = args[5], args[4]
+        S, C, IT = dom_s.shape[0], pods.ts_sig.shape[1], pods.ia_sig.shape[1]
+        b4 += nbytes(static.aff_ok, dom_s, static.sig_match, st.counts,
+                     st.anti, st.match_tot)
+        ops4 += P * N * (C * 6 + IT * 10 + S * 3 + 14)
+    err, ms, prof = runs[q_pol]
+    t4 = bound(b4, ops4)
+    log(f"K4{' pairwise variant' if pair else ''} on {name}: bound "
+        f"{t4[0]:.4f} ms ({t4[1]}); {smi}")
     return dict(
-        err=err, ms=cuda_ms(lambda: kassign.parity_scan_pair(*args4), 3),
-        plain_ms=plain_ms,
-        bound=bound(b4, P * N * (R * 14 + 12 + C * 6 + IT * 10 + S * 3
-                                 + 14)),
-        shape=f"P={P} N={N} R={R} S={S} C={C} IT={IT}",
-        placed=int((scan[0] >= 0).sum().item()))
+        err=max(r[0] for r in runs.values()), ms=ms, prof_ms=prof,
+        plain_ms=plain_ms, bound=t4,
+        shape=f"P={P} N={N} R={R}, Q={q_pol} "
+              f"({kassign.scan_threads(N, q_pol)} threads a CTA; Q=1 "
+              f"{runs[1][1]:.3f} ms)",
+        placed=int((want[0] >= 0).sum().item()))
 
 
 def kernel_phase(cfg: EngineConfig, dsnap) -> dict:
@@ -1038,30 +1085,68 @@ def kernel_phase(cfg: EngineConfig, dsnap) -> dict:
         err=err, ms=cuda_ms(lambda: kassign.finalize_score(*args3), 10),
         plain_ms=cuda_ms(lambda: kassign.finalize_score_plain(*args3), 5),
         bound=bound(b3, P * N * 12), shape=f"P={P} N={N}")
-    # K4
+    # K4 is held in the parity audits (k4_rows); K5-K8 take its inputs.
     static = kassign.finalize_static(
         cfg, dsnap, kassign.WarmTableau(node_sat_t, None, None, *cells_k))
     order = kassign.pop_order(cfg, dsnap)
-    scan_k = kassign.parity_scan(cfg, dsnap, static, order)
-    # The plain scan is timed once, on the call compared (~17 s).
-    t0 = time.perf_counter()
-    scan_p = kassign.parity_scan_plain(cfg, dsnap, static, order)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = require_equal("parity_scan", scan_k, scan_p)
-    R = nodes.allocatable.shape[1]
-    b4 = nbytes(static.mask, static.score, nodes.allocatable, nodes.used,
-                pods.requests, static.w_lr, static.w_ba, static.w_ts,
-                static.w_ia, static.rw, *scan_k) + 4 * P
-    ops4 = P * N * (R * 14 + 12)
-    out["parity_scan"] = dict(
-        err=err, ms=cuda_ms(
-            lambda: kassign.parity_scan(cfg, dsnap, static, order), 5),
-        plain_ms=plain_ms,
-        bound=bound(b4, ops4), shape=f"P={P} N={N} R={R}",
-        placed=int((scan_k[0] >= 0).sum().item()))
     out.update(fast_kernel_phase(cfg, dsnap, static, order))
     return out
+
+
+def k7_library(feasible, masked, allowed):
+    """One PyTorch expression of K7's column sum, a yardstick of speed
+    only: torch.sum adds in another f32 order."""
+    return torch.where(feasible & allowed[..., None], masked, 0.0).sum(-2)
+
+
+def k7_row(name: str, args, smi: str, view: int = 0) -> dict:
+    """K7's f32 path on `args` (feasible, masked, allowed of one call)
+    against its plain version, exact, and with `view` rows also on a
+    compacted view (the first `view` rows, gathered, as a tranche's);
+    CUDA-event and profiler times beside the library yardstick, and the
+    bound from the bytes of the allowed rows."""
+    f, m, al = args
+    got = kassign.desirability(f, m, al)
+    err = require_equal(f"desirability on {name}", [got],
+                        [kassign.desirability_plain(f, m, al)])
+    more = ""
+    if view:
+        va = tuple(t[..., :view, :].contiguous() if t.dim() == f.dim()
+                   else t[..., :view].contiguous() for t in args)
+        err = max(err, require_equal(
+            f"desirability on {name}, {view}-row view",
+            [kassign.desirability(*va)], [kassign.desirability_plain(*va)]))
+        more = (f"; {view}-row view "
+                f"{cuda_ms(lambda: kassign.desirability(*va), 20):.4f} ms")
+    *lead, rows, N = m.shape
+    B = lead[0] if lead else 1
+    n_al = int(al.sum().item())
+    r = dict(
+        err=err, ms=cuda_ms(lambda: kassign.desirability(f, m, al), 20),
+        prof_ms=profiler_ms(lambda: kassign.desirability(f, m, al),
+                            "desirability_kernel"),
+        plain_ms=cuda_ms(lambda: kassign.desirability_plain(f, m, al), 2),
+        library="torch.where + sum (another f32 order)",
+        library_ms=cuda_ms(lambda: k7_library(f, m, al), 20),
+        bound=bound(n_al * N * 5 + nbytes(al) + B * N * 4, n_al * N * 2),
+        shape=f"B={B} rows={rows} N={N}, {n_al} allowed rows{more}")
+    log_rows({"desirability": r}, name, smi)
+    return r
+
+
+def first_k7_args(cfg: EngineConfig, dsnap):
+    """The arguments of the first K7 call (f32) of a fast solve: round
+    0's, every pod's row."""
+    calls = []
+
+    def record(*args, **kw):
+        if not calls:
+            calls.append(args)
+        return kassign.desirability(*args, **kw)
+
+    ops = dataclasses.replace(kassign.KERNELS, desirability=record)
+    kassign.solve_rounds(cfg, dsnap, _sat_tables(dsnap)[0], ops=ops)
+    return calls[0]
 
 
 def first_substep_args(cfg: EngineConfig, dsnap):
@@ -1153,16 +1238,6 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order) -> dict:
         + ", ".join(f"K={kk} {a:.4f} / {b:.4f}"
                     for kk, (a, b) in paths.items())
         + f"; radix from K={kassign.RADIX_MIN_K}")
-    # K7 on K5's output.
-    allowed = top_k[0][:, 0] > float("-inf")
-    args7 = (feasible, masked, allowed)
-    desir = kassign.desirability(*args7)
-    err = require_equal("desirability", [desir],
-                        [kassign.desirability_plain(*args7)])
-    out["desirability"] = dict(
-        err=err, ms=cuda_ms(lambda: kassign.desirability(*args7), 10),
-        plain_ms=cuda_ms(lambda: kassign.desirability_plain(*args7), 2),
-        bound=bound(nbytes(*args7, desir), P * N), shape=f"P={P} N={N}")
     # K8 on the first sub-step of the first fast round.
     args8 = first_substep_args(cfg, dsnap)
     got8 = kassign.prefix_commit(*args8)
@@ -2670,16 +2745,17 @@ def top_by_rank_library(pend, order, C):
     return buf[..., :C], n_pend[..., 0]
 
 
-def floored(draw, n: int, **fixed) -> list:
+def floored(draw, n: int, buckets=Buckets, **fixed) -> list:
     """n tenants (snapshot, meta), drawn twice: on their own buckets,
     then under the elementwise max of those (with the `fixed` fields), so
-    that they stack. draw(b, **kw) draws tenant b."""
+    that they stack. draw(b, **kw) draws tenant b; `buckets` is the
+    Buckets class of the package that draws."""
     floor = {}
     for b in range(n):
         for f, v in dataclasses.asdict(draw(b)[1].buckets).items():
             floor[f] = max(floor.get(f, 0), v)
     floor.update(fixed)
-    return [draw(b, buckets=Buckets(**floor)) for b in range(n)]
+    return [draw(b, buckets=buckets(**floor)) for b in range(n)]
 
 
 def tenant_cells() -> list:
@@ -2807,11 +2883,11 @@ def batch_cells(cells, snaps, dstack, smi: str, reduced=None,
     return launches
 
 
-def tenant_kernel_rows(cfg, dstack) -> dict:
-    """K23 and K24 against their plain versions and their library
+def tenant_kernel_rows(cfg, dstack, smi: str) -> dict:
+    """K7, K23 and K24 against their plain versions and their library
     yardsticks, on the arguments of their first call in the fast batch
-    (round 1's dealing over the tenant rows at their ranks, the first
-    tranche's pick)."""
+    (round 1's desirability and dealing over the tenant rows at their
+    ranks, the first tranche's pick)."""
     calls = {}
 
     def recorder(name, fn):
@@ -2822,9 +2898,11 @@ def tenant_kernel_rows(cfg, dstack) -> dict:
 
     ops = dataclasses.replace(
         kassign.KERNELS, deal=recorder("deal", kassign.deal),
-        top_by_rank=recorder("top_by_rank", kassign.top_by_rank))
+        top_by_rank=recorder("top_by_rank", kassign.top_by_rank),
+        desirability=recorder("desirability", kassign.desirability))
     solve_many(cfg, dstack, ops=ops)
-    rows = {}
+    rows = {"desirability": k7_row("(t)'s round 1", calls["desirability"],
+                                   smi)}
     dem, rem, gather = calls["deal"]
     got = kassign.deal(dem, rem, gather)
     err = require_equal("deal", [got], [kassign.deal_plain(dem, rem, gather)])
@@ -2860,6 +2938,33 @@ def tenant_kernel_rows(cfg, dstack) -> dict:
     return rows
 
 
+def k4_tenants_equal_solo(name: str, cfg, dstack, static, order, st=None,
+                          dom_s=None) -> tuple[int, int]:
+    """K4 (with st, its pairwise variant) over the batch at the policy's
+    cluster size equals each tenant's solo launch at Q = 1, in every
+    output; returns the batch's (Q, threads)."""
+    B, N = order.shape[0], dstack.nodes.valid.shape[1]
+    if st is None:
+        batch = kassign.parity_scan(cfg, dstack, static, order)
+        solo = lambda b: kassign.parity_scan(  # noqa: E731
+            cfg, dstack.tenant(b), static.tenant(b), order[b], cluster=1)
+        flat = list
+    else:
+        batch = kassign.parity_scan_pair(cfg, dstack, static, order, st,
+                                         dom_s)
+        solo = lambda b: kassign.parity_scan_pair(  # noqa: E731
+            cfg, dstack.tenant(b), static.tenant(b), order[b],
+            st.tenant(b), dom_s[b], cluster=1)
+        flat = lambda r: [r[0], r[1], r[2], r[3].counts, r[3].anti,  # noqa
+                          r[3].match_tot]
+    for b in range(B):
+        require_equal(f"K4 on {name}, tenant {b}: the batch against its "
+                      "solo launch at Q=1", [t[b] for t in flat(batch)],
+                      flat(solo(b)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return kassign.scan_cluster_size(B, N, sms)
+
+
 def log_rows(rows: dict, where: str, smi: str) -> None:
     for kname, r in rows.items():
         prof = ("not measured" if r["prof_ms"] is None
@@ -2882,8 +2987,9 @@ def tenant_phase(smi: str) -> tuple[dict, dict]:
     and once seeded in parity mode (`batch_cells`: the static kernels and
     K4 once for all tenants; the plain batches run on the full stack,
     not for the seeded run); K4 over the tenant axis against one
-    tenant's K4; then K23 and K24 against their plain versions. Returns (the
-    phase's launch counts, the K23 and K24 rows)."""
+    tenant's K4 (and each tenant equal to its solo launch at one CTA);
+    then K7, K23 and K24 against their plain versions. Returns (the
+    phase's launch counts, the K7, K23 and K24 rows)."""
     t0 = time.perf_counter()
     built = tenant_cells()
     snaps = [s for s, _ in built]
@@ -2910,10 +3016,14 @@ def tenant_phase(smi: str) -> tuple[dict, dict]:
     snap0, static0 = dstack.tenant(0), static.tenant(0)
     k4_solo = cuda_ms(lambda: kassign.parity_scan(cfg_p, snap0, static0,
                                                   order[0]), 3)
-    log(f"K4 over the tenant axis: {B} CTAs {k4_batch:.3f} ms, one tenant "
-        f"{k4_solo:.3f} ms (x{B} = {B * k4_solo:.3f} ms); {smi}")
-    rows = tenant_kernel_rows(cfg_f, dstack)
-    log_rows(rows, "(t)'s fast batch", smi)
+    q = k4_tenants_equal_solo("(t)", cfg_p, dstack, static, order)
+    log(f"K4 over the tenant axis: {B} clusters of {q[0]} CTAs of {q[1]} "
+        f"threads {k4_batch:.3f} ms, one tenant {k4_solo:.3f} ms (x{B} = "
+        f"{B * k4_solo:.3f} ms); each tenant equal to its solo launch at "
+        f"Q=1; {smi}")
+    rows = tenant_kernel_rows(cfg_f, dstack, smi)
+    log_rows({k: r for k, r in rows.items() if k != "desirability"},
+             "(t)'s fast batch", smi)
     return launches, rows
 
 
@@ -3074,9 +3184,12 @@ def tenant_pair_kernel_rows(dstack, reduced, smi: str) -> dict:
     cfg, snap, static, order, st, dom_s = a
     k4_solo = cuda_ms(lambda: fn(cfg, snap.tenant(0), static.tenant(0),
                                  order[0], st.tenant(0), dom_s[0]), 3)
-    log(f"K4's pairwise variant over the tenant axis: {B} CTAs "
+    q = k4_tenants_equal_solo("(tp)", cfg, snap, static, order, st, dom_s)
+    log(f"K4's pairwise variant over the tenant axis: {B} clusters of "
+        f"{q[0]} CTAs of {q[1]} threads "
         f"{out['parity_scan_pair']['ms']:.3f} ms, one tenant {k4_solo:.3f} "
-        f"ms (x{B} = {B * k4_solo:.3f} ms); {smi}")
+        f"ms (x{B} = {B * k4_solo:.3f} ms); each tenant equal to its solo "
+        f"launch at Q=1; {smi}")
     return out
 
 
@@ -3361,6 +3474,10 @@ def main() -> int:
     for name, cfg, snap, res, wall_ms, moved in parity:
         info = audit(name, cfg, engine.put(snap), res)
         parity_placed[name] = info["placed"]
+        if name.startswith(("a:", "c:")):
+            r = k4_rows(name[0], info["plain_scan"], smi)
+            if name.startswith("a:"):
+                kp["parity_scan"] = r
         log(f"parity solve {name}: {wall_ms:.3f} ms wall, placed "
             f"{info['placed']}/{info['valid_pods']}, launches {moved}, "
             f"audit clean, equal to the plain solve; {smi}")
@@ -3377,6 +3494,10 @@ def main() -> int:
             f"{parity_placed[name]}), rounds {res.rounds}, host reads "
             f"{res.host_reads}, launches {moved}, audit clean, equal to "
             f"the plain fast solve; {smi}")
+    cfg_fa = dataclasses.replace(cfg_first, mode="fast")
+    kp["desirability"] = k7_row(
+        "fast (a)'s round 0", first_k7_args(cfg_fa, engine.put(snap_a)), smi,
+        view=1024)
     # The plain fast solve on the host's CPU places on (b) what the card
     # placed (its f32 prefix sums have one order on every device).
     _, cfg_b, _, res_b, _, _ = fast[1]
@@ -3408,13 +3529,10 @@ def main() -> int:
         launches[k] += v
     for name, cfg, snap, res, wall_ms, moved in pair_parity:
         info = audit(name, cfg, engine.put(snap), res)
-        if name.startswith("d:"):
-            r = kp["parity_scan_pair"] = pair_scan_row(
-                info["plain_pair_scan"])
-            log(f"kernel parity_scan_pair [{r['shape']}]: exact match "
-                f"against the (d) audit's plain scan, kernel {r['ms']:.4f} "
-                f"ms, plain {r['plain_ms']:.4f} ms, bound "
-                f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); {smi}")
+        if name.startswith(("d:", "e:")):
+            r = k4_rows(name[0], info["plain_pair_scan"], smi)
+            if name.startswith("d:"):
+                kp["parity_scan_pair"] = r
         log(f"pairwise parity solve {name}: {wall_ms:.3f} ms wall, placed "
             f"{info['placed']}/{info['valid_pods']}, launches {moved}, "
             f"audit clean, equal to the plain solve (plain scan "

@@ -1,32 +1,42 @@
 #!/usr/bin/env python3
-"""Steady solve walls of chip_smoke.py's preemption cells, from one or
-more source trees in one process.
+"""Steady solve walls of chip_smoke.py's cells, from one or more source
+trees in one process.
 
-    python3 solve_walls.py --trees DIR [DIR ...] [--cell h|hp]
+    python3 solve_walls.py --trees DIR [DIR ...] [--cells a c d h th ...]
         [--mode fast|parity] [--pairs 12] [--split] [--profile]
 
 Each DIR is a checkout (or an unpacked `git archive` of a commit) whose
 `tpusched_torch` is imported on its own: the package's modules are
 swapped in `sys.modules` before each solve, so every lazy import
-resolves inside the tree that runs. The cell is chip_smoke's (h), or
-(h) with spread and inter-pod terms (`hp`), built from chip_smoke's own
-constants by each tree's generator and put on the card once per tree;
-one solve builds the kernels and warms up. Then `--pairs` rounds each
-solve once per tree, in turns (the order reversed every other round, so
-a drift of the host weighs on every tree alike), through `Engine.solve`
-on the snapshot already on the card.
+resolves inside the tree that runs. A cell is one of chip_smoke's: (a)
+config 2 at its PODS x NODES with QoS, (b) (a) with its constraints, (c)
+(a) with the seeded tie-break, (d) config 3 (spread and inter-pod
+terms), (h) config 5 with preemption, `hp` (h) with spread and inter-pod
+terms, the tenant batches with preemption (th) and (thp) (eight
+config-5 tenants under one floor, solved by `solve_many`), `ths` and
+`thps` the same with the seeded tie-break, `t9` nine tenants of (a)'s
+size, and `k4q1`, `k4q2`, `k4q4`, `k4q8` K4 alone on (a)'s parity scan
+at cluster size 1, 2, 4, 8 (parity mode; a tree whose scan takes
+`cluster`). Each tree's
+generator builds the cell from chip_smoke's own constants and puts it on
+the card once; one solve builds the kernels and warms up. Then `--pairs`
+rounds each solve once per tree, in turns (the order reversed every
+other round, so a drift of the host weighs on every tree alike), through
+`Engine.solve` on the snapshot already on the card (`solve_many` and a
+read of its outputs for a batch). The cells run one after another.
 
-Prints one JSON line per tree: the card's name and power limit, the
-host-clock walls in ms with their median and quartiles, host reads,
-placed and evicted pods, and whether its outputs equal the first
+Prints one JSON line per tree and cell: the card's name and power
+limit, the host-clock walls in ms with their median and quartiles, host
+reads, placed and evicted pods, and whether its outputs equal the first
 tree's. With `--split` (fast mode), the walls' solves also time the
 preemption rounds (`kernels.assign._preempt_rounds`, a device sync on
 each side) by the host clock, and the line adds their ms and each wall
-less them. With `--profile`, one more line per tree: the device ms of each
-`RoundStats` span of one solve (CUDA events), the device's busy ms per
-solve (the sum of its kernels' times in a torch.profiler trace of 3
-solves, or null where the trace holds none), and the 25 functions with
-the most host time of their own per solve (cProfile over 3 solves).
+less them. With `--profile` (one-snapshot cells), one more line per
+tree: the device ms of each `RoundStats` span of one solve (CUDA
+events), the device's busy ms per solve (the sum of its kernels' times
+in a torch.profiler trace of 3 solves, or null where the trace holds
+none), and the 25 functions with the most host time of their own per
+solve (cProfile over 3 solves).
 Needs one CUDA device.
 """
 
@@ -34,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import dataclasses
 import importlib
 import json
 import pstats
@@ -49,11 +60,47 @@ from torch.profiler import ProfilerActivity
 
 import chip_smoke
 
-# The cells, as chip_smoke.py builds them: config 5 at its PODS x NODES
-# from PRE_SEED, and the same with its spread and inter-pod terms.
-CELLS = {"h": {}, "hp": chip_smoke.PRE_PAIR}
+# The cells, as chip_smoke.py builds them: (generator, seed, its keyword
+# arguments, EngineConfig fields); th and thp are eight tenants.
+CS = chip_smoke
+CELLS = {
+    "a": ("config2_scale", CS.SEED, dict(with_qos=True), {}),
+    "b": ("config2_scale", CS.SEED, dict(with_qos=True, **CS.CONSTRAINED),
+          {}),
+    "c": ("config2_scale", CS.SEED, dict(with_qos=True),
+          dict(tie_break="seeded", tie_seed=CS.SEED)),
+    "d": ("config3_pairwise", CS.PAIR_SEED, {}, {}),
+    "h": ("config5_preemption", CS.PRE_SEED, {}, dict(preemption=True)),
+    "hp": ("config5_preemption", CS.PRE_SEED, CS.PRE_PAIR,
+           dict(preemption=True)),
+    "th": ("config5_preemption", CS.PRE_TENANT_SEED, {},
+           dict(preemption=True)),
+    "thp": ("config5_preemption", CS.PRE_PAIR_TENANT_SEED, CS.PRE_PAIR,
+            dict(preemption=True)),
+    "ths": ("config5_preemption", CS.PRE_TENANT_SEED, {},
+            dict(preemption=True, tie_break="seeded", tie_seed=CS.SEED)),
+    "thps": ("config5_preemption", CS.PRE_PAIR_TENANT_SEED, CS.PRE_PAIR,
+             dict(preemption=True, tie_break="seeded", tie_seed=CS.SEED)),
+    "t9": ("config2_scale", CS.SEED, dict(with_qos=True), {}),
+    "k4q1": ("config2_scale", CS.SEED, dict(with_qos=True), {}),
+    "k4q8": ("config2_scale", CS.SEED, dict(with_qos=True), {}),
+}
+CELLS["k4q2"] = CELLS["k4q4"] = CELLS["k4q1"]
+# The tenant batches: (tenants, tenant 0's pods, pods fewer a tenant,
+# nodes, fixed fields of the floor). t9 is nine tenants of (a)'s size
+# (the policy's Q = 8 at N = 5 120).
+TENANT_SHAPE = {
+    c: (CS.TENANTS, CS.TENANT_PODS, CS.TENANT_STEP, CS.TENANT_NODES, {})
+    for c in ("th", "thp", "ths", "thps")}
+TENANT_SHAPE["t9"] = (9, CS.PODS, 0, CS.NODES, dict(signatures=0))
+TENANT_CELLS = tuple(TENANT_SHAPE)
+# K4 alone at a given cluster size Q, on the arguments of (a)'s solve
+# (its one parity scan), then a device sync.
+K4_CELLS = {"k4q1": 1, "k4q2": 2, "k4q4": 4, "k4q8": 8}
 PACKAGE = "tpusched_torch"
 PROFILE_REPS = 3
+RESULT_FIELDS = ("assignment", "chosen_score", "final_used", "order",
+                 "evicted")
 
 
 def _drop() -> None:
@@ -62,10 +109,12 @@ def _drop() -> None:
 
 
 class Tree:
-    """One tree's package, engine and the cell's snapshot on the card."""
+    """One tree's package, engine and the cell's snapshot (or tenant
+    stack) on the card."""
 
     def __init__(self, path: str, cell: str, mode: str, split: bool):
         self.path = path
+        self.cell = cell
         self.pre_ms = []
         root = Path(path).resolve()
         _drop()
@@ -73,22 +122,60 @@ class Tree:
         try:
             pkg = importlib.import_module(PACKAGE)
             synth = importlib.import_module(PACKAGE + ".synth")
+            config = importlib.import_module(PACKAGE + ".config")
             self.engine_mod = importlib.import_module(PACKAGE + ".engine")
             self.assign = importlib.import_module(PACKAGE + ".kernels.assign")
             if split:
                 self._time_preemption()
-            snap, _ = synth.config5_preemption(
-                np.random.default_rng(chip_smoke.PRE_SEED), chip_smoke.PODS,
-                chip_smoke.NODES, **CELLS[cell])
-            self.cfg = pkg.EngineConfig(mode=mode, preemption=True)
-            self.eng = pkg.Engine(self.cfg)
-            self.dsnap = self.eng.put(snap)
-            self.res = self.eng.solve(self.dsnap)   # build, warm up
+            gen, seed, kw, cfg_kw = CELLS[cell]
+            draw = getattr(synth, gen)
+            self.cfg = pkg.EngineConfig(mode=mode, **cfg_kw)
+            if cell in TENANT_CELLS:
+                n, pods, step, nodes, fixed = TENANT_SHAPE[cell]
+                built = CS.floored(lambda b, **x: draw(
+                    np.random.default_rng(seed + b), pods - step * b, nodes,
+                    **kw, **x), n, buckets=config.Buckets, **fixed)
+                self.dsnap = pkg.stack_snapshots(
+                    [s for s, _ in built]).to("cuda")
+                self.run = lambda: [t.cpu() for t in pkg.solve_many(
+                    self.cfg, self.dsnap)]
+            elif cell in K4_CELLS:
+                snap, _ = draw(np.random.default_rng(seed), CS.PODS,
+                               CS.NODES, **kw)
+                self.run = self._k4(pkg.Engine(self.cfg).put(snap),
+                                    K4_CELLS[cell])
+            else:
+                snap, _ = draw(np.random.default_rng(seed), CS.PODS,
+                               CS.NODES, **kw)
+                self.eng = pkg.Engine(self.cfg)
+                self.dsnap = self.eng.put(snap)
+                self.run = lambda: self.eng.solve(self.dsnap)
+            self.res = self.run()   # build, warm up
         finally:
             sys.path.remove(str(root))
         self.mods = {k: v for k, v in sys.modules.items()
                      if k.split(".")[0] == PACKAGE}
         self._check(root)
+
+    def _k4(self, dsnap, q: int):
+        """A call of K4 at cluster size q on the arguments of dsnap's
+        parity scan (recorded from one solve), synced."""
+        seen = []
+
+        def rec(*a):
+            seen.append(a)
+            return self.assign.parity_scan(*a)
+
+        ops = dataclasses.replace(self.assign.KERNELS, parity_scan=rec)
+        self.engine_mod.solve_core(self.cfg, dsnap, ops=ops)
+        args = seen[0]
+
+        def run():
+            out = self.assign.parity_scan(*args, cluster=q)
+            torch.cuda.synchronize()
+            return out
+
+        return run
 
     def _time_preemption(self) -> None:
         rounds = self.assign._preempt_rounds
@@ -118,8 +205,24 @@ class Tree:
         self.pre_ms.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        self.res = self.eng.solve(self.dsnap)
+        self.res = self.run()
         return (time.perf_counter() - t0) * 1e3, sum(self.pre_ms)
+
+    def summary(self, ref: "Tree") -> dict:
+        """Host reads, placed and evicted pods, and whether the outputs
+        equal `ref`'s."""
+        if self.cell in TENANT_CELLS or self.cell in K4_CELLS:
+            return {"placed": int((self.res[0] >= 0).sum()),
+                    "equal_to_first_tree": all(
+                        torch.equal(a, b) for a, b in zip(self.res,
+                                                          ref.res))}
+        return {"host_reads": self.res.host_reads,
+                "placed": int((self.res.assignment >= 0).sum()),
+                "evicted": int(self.res.evicted.sum()),
+                "equal_to_first_tree": self.res.rounds == ref.res.rounds
+                and all(np.array_equal(getattr(self.res, f),
+                                       getattr(ref.res, f))
+                        for f in RESULT_FIELDS)}
 
     def profile(self) -> dict:
         self.activate()
@@ -155,7 +258,8 @@ class Tree:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs="+", default=["."])
-    ap.add_argument("--cell", choices=sorted(CELLS), default="h")
+    ap.add_argument("--cells", nargs="+", choices=sorted(CELLS),
+                    default=["h"])
     ap.add_argument("--mode", choices=("parity", "fast"), default="fast")
     ap.add_argument("--pairs", type=int, default=12)
     ap.add_argument("--split", action="store_true")
@@ -169,38 +273,35 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     split = args.split and args.mode == "fast"
-    trees = [Tree(p, args.cell, args.mode, split) for p in args.trees]
-    walls = {t.path: [] for t in trees}
-    pre = {t.path: [] for t in trees}
-    for i in range(args.pairs):
-        for t in (trees if i % 2 == 0 else trees[::-1]):
-            w, p = t.wall()
-            walls[t.path].append(w)
-            pre[t.path].append(p)
-    ref = trees[0].res
-    for t in trees:
-        w = walls[t.path]
-        q = statistics.quantiles(w, n=4) if len(w) > 1 else [w[0]] * 3
-        more = {}
-        if split:
-            p = pre[t.path]
-            more = {"preempt_ms": p, "preempt_median_ms": statistics.median(
-                p), "rest_median_ms": statistics.median(
-                    a - b for a, b in zip(w, p))}
-        same = t.res.rounds == ref.rounds and all(
-            np.array_equal(getattr(t.res, f), getattr(ref, f))
-            for f in ("assignment", "chosen_score", "final_used", "order",
-                      "evicted"))
-        print(json.dumps({
-            "tree": t.path, "cell": args.cell, "mode": args.mode,
-            "card": smi, "walls_ms": w, "median_ms": q[1], "q1_ms": q[0],
-            "q3_ms": q[2], "host_reads": t.res.host_reads,
-            "placed": int((t.res.assignment >= 0).sum()),
-            "evicted": int(t.res.evicted.sum()),
-            "equal_to_first_tree": bool(same), **more}))
-    if args.profile:
+    for cell in args.cells:
+        trees = [Tree(p, cell, args.mode, split) for p in args.trees]
+        walls = {t.path: [] for t in trees}
+        pre = {t.path: [] for t in trees}
+        for i in range(args.pairs):
+            for t in (trees if i % 2 == 0 else trees[::-1]):
+                w, p = t.wall()
+                walls[t.path].append(w)
+                pre[t.path].append(p)
         for t in trees:
-            print(json.dumps(t.profile()))
+            w = walls[t.path]
+            q = statistics.quantiles(w, n=4) if len(w) > 1 else [w[0]] * 3
+            more = {}
+            if split:
+                p = pre[t.path]
+                more = {"preempt_ms": p,
+                        "preempt_median_ms": statistics.median(p),
+                        "rest_median_ms": statistics.median(
+                            a - b for a, b in zip(w, p))}
+            print(json.dumps({
+                "tree": t.path, "cell": cell, "mode": args.mode,
+                "card": smi, "walls_ms": w, "median_ms": q[1],
+                "q1_ms": q[0], "q3_ms": q[2], **t.summary(trees[0]),
+                **more}), flush=True)
+        if args.profile and cell not in TENANT_CELLS + tuple(K4_CELLS):
+            for t in trees:
+                print(json.dumps(t.profile()), flush=True)
+        del trees
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -109,6 +109,93 @@ def test_k4_equal_plain(cuda, tie_break):
            ka.parity_scan_plain(cfg, snap, static, order))
 
 
+# K4's clusters: B tenants of N nodes (a bucket of exactly N: odd, so a
+# multiple of no cluster size and of no CTA's threads; 3 padded nodes).
+# At N = 2 101 Q = 1 and 2 run CTAs of 1 024 threads, 3 and 2 nodes a
+# thread (nodes past the two a thread reads ahead at Q = 1), Q = 4 and 8
+# 512 threads, 2 and 1 nodes a thread (the seeded pick walks 3, 2, 2
+# and 1 tiles), and Q = 16 256; at 1 501 Q = 4 runs 512; at 37 every Q
+# leaves most threads idle (N < Q x threads) and Q = 16 leaves CTAs with
+# no node.
+K4_CLUSTER_NODES = {1: 2101, 3: 1501, 8: 37}
+
+
+def _k4_tenants(cuda, B, pair):
+    """B tenants of 60 + 4 b pods on K4_CLUSTER_NODES[B] - 3 nodes under
+    one floor of exactly K4_CLUSTER_NODES[B] nodes; B = 1 unstacked."""
+    N = K4_CLUSTER_NODES[B]
+    kw = (PAIR_MIXES["anti_ns_keyless"] if pair else
+          dict(taint_frac=0.3, toleration_frac=0.3, selector_frac=0.3,
+               affinity_frac=0.3, cordon_frac=0.1))
+
+    def draw(b, **x):
+        return tsynth.make_cluster(np.random.default_rng(90 + b), 60 + 4 * b,
+                                   N - 3, initial_utilization=0.5, **kw, **x)
+
+    floor = {}
+    for b in range(B):
+        for f, v in dataclasses.asdict(draw(b)[1].buckets).items():
+            floor[f] = max(floor.get(f, 0), v)
+    floor["nodes"] = N
+    snaps = [draw(b, buckets=Buckets(**floor))[0] for b in range(B)]
+    return (snaps[0] if B == 1 else stack_snapshots(snaps)).to(cuda)
+
+
+@pytest.mark.parametrize("B", sorted(K4_CLUSTER_NODES))
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+def test_k4_every_cluster_equal_plain(cuda, tie_break, B):
+    """K4 at every cluster size equals its plain version."""
+    snap = _k4_tenants(cuda, B, pair=False)
+    assert snap.nodes.valid.shape[-1] == K4_CLUSTER_NODES[B]
+    cfg = EngineConfig(tie_break=tie_break, tie_seed=5)
+    static = _static(cfg, snap)
+    order = ka.pop_order(cfg, snap)
+    want = ka.parity_scan_plain(cfg, snap, static, order)
+    for Q in ka.SCAN_CLUSTERS:
+        _equal(ka.parity_scan(cfg, snap, static, order, cluster=Q), want)
+
+
+@pytest.mark.parametrize("B", sorted(K4_CLUSTER_NODES))
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+def test_k4_pair_every_cluster_equal_plain(cuda, tie_break, B):
+    """K4's pairwise variant at every cluster size equals its plain
+    version, the final pair state included."""
+    snap = _k4_tenants(cuda, B, pair=True)
+    cfg = EngineConfig(tie_break=tie_break, tie_seed=5)
+    static, dom, st = _pair_setup(cfg, snap)
+    order = ka.pop_order(cfg, snap)
+    want = ka.parity_scan_pair_plain(cfg, snap, static, order, st, dom)
+    for Q in ka.SCAN_CLUSTERS:
+        got = ka.parity_scan_pair(cfg, snap, static, order, st, dom,
+                                  cluster=Q)
+        _equal(got[:3], want[:3])
+        _equal(_state(got[3]), _state(want[3]))
+
+
+def test_k4_seeded_walk_past_32_tiles(cuda):
+    """K4's seeded pick over 34 816 nodes (a bucket of 34 000): at Q = 1 a
+    CTA of 1 024 threads walks 34 tiles in groups of 32, and some pods
+    take a tie past the first group's 32 768 nodes; at Q = 2, 17 tiles."""
+    snap = _snap(cuda, seed=3, pods=200, nodes=34000,
+                 initial_utilization=0.0)
+    cfg = EngineConfig(tie_break="seeded", tie_seed=5)
+    static = _static(cfg, snap)
+    order = ka.pop_order(cfg, snap)
+    want = ka.parity_scan_plain(cfg, snap, static, order)
+    assert ka.scan_threads(static.mask.shape[-1], 1) == 1024
+    assert (want[0] >= 32 * 1024).any()
+    for Q in (1, 2):
+        _equal(ka.parity_scan(cfg, snap, static, order, cluster=Q), want)
+
+
+def test_k4_refuses_a_cluster_size(cuda):
+    snap = _snap(cuda)
+    cfg = EngineConfig()
+    static = _static(cfg, snap)
+    with pytest.raises(ValueError, match="cluster size 3"):
+        ka.parity_scan(cfg, snap, static, ka.pop_order(cfg, snap), cluster=3)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_k5_equal_plain_and_view(cuda, masked):
     snap = _snap(cuda)
@@ -156,6 +243,29 @@ def test_k7_equal_plain(cuda):
     allowed = f.any(dim=1)
     _equal([ka.desirability(f, m, allowed)],
            [ka.desirability_plain(f, m, allowed)])
+
+
+# K7's f32 path stages 256 rows (csrc/deal.cu STAGE): row counts below a
+# warp, around one, around a stage, and the full fast round's 10 240.
+@pytest.mark.parametrize("rows", [1, 31, 33, 255, 257, 10240])
+def test_k7_stages_equal_plain(cuda, rows):
+    """K7's f32 path over three tenants and solo against its plain
+    version: a column no row is feasible at, -0.0 contributions, a tenant
+    with no allowed row, 77 columns (a part tile)."""
+    rng = np.random.default_rng(rows)
+    B, N = 3, 77
+    m = (rng.normal(0.0, 50.0, (B, rows, N))
+         * (rng.random((B, rows, N)) < 0.5)).astype(np.float32)
+    m[rng.random(m.shape) < 0.2] = -0.0
+    f = rng.random((B, rows, N)) < 0.7
+    m[~f] = -np.inf
+    f[:, :, 5] = False
+    al = rng.random((B, rows)) < 0.8
+    al[1] = False
+    m, f, al = (torch.from_numpy(x).to(cuda) for x in (m, f, al))
+    _equal([ka.desirability(f, m, al)], [ka.desirability_plain(f, m, al)])
+    _equal([ka.desirability(f[0], m[0], al[0])],
+           [ka.desirability_plain(f[0], m[0], al[0])])
 
 
 def test_k8_equal_plain(cuda):

@@ -51,14 +51,13 @@ SIGNATURES = {
                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P, _P, _P],
     "tpusched_finalize_static": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "tpusched_parity_scan": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _I, _U, _P, _P, _P, _P],
+    "tpusched_parity_scan": [_I] * 6 + [_P] * 10 + [_I, _U, _P, _P, _P, _P],
     "tpusched_cycle": [_I] * 5 + [_P] * 15 + [_I] + [_P] * 5,
     "tpusched_row_topk": [_I, _I, _I, _P, _I, _U, _P, _P, _P, _P, _P],
     "tpusched_row_topk_radix": [_I, _I, _I, _P, _P, _P, _P],
     "tpusched_desirability": [_I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "tpusched_prefix_commit": [_I] * 5 + [_P] * 11,
-    "tpusched_parity_scan_pair": [_I, _I, _I, _I] + [_P] * 10 + [_I, _U]
+    "tpusched_parity_scan_pair": [_I] * 6 + [_P] * 10 + [_I, _U]
                                  + [_I] * 4 + [_P] * 23,
     "tpusched_sig_match": [_I] * 6 + [_P] * 8,
     "tpusched_pair_counts": [_I] * 7 + [_P] * 14,

@@ -3,7 +3,12 @@
 // filter.resource_fit, score.least_requested and
 // score.balanced_allocation in the JAX op order (sums over R left to
 // right from 0, `x*100/y` as a product then an IEEE divide; the build
-// uses --fmad=false, so nothing is contracted into an FMA).
+// uses --fmad=false, so nothing is contracted into an FMA). Each loop
+// over the resources runs to R (RES_LOOP). With RB = MAX_R (K4) it is
+// unrolled to MAX_R and guarded by r < R, so the per-resource values stay
+// in registers and the R divides of a cell overlap; with RB = 0 (K5,
+// K22, whose passes measured faster so) it stays rolled. The operations
+// and their order are those of a loop to R either way.
 #pragma once
 
 #include <math.h>
@@ -11,6 +16,13 @@
 namespace tpusched {
 
 constexpr int MAX_R = 8;
+
+// for (int r = 0; r < R; ++r): unrolled to RB (R <= RB) when RB > 0,
+// not unrolled when RB = 0.
+#define RES_LOOP(r, R)                                                     \
+  _Pragma("unroll (RB > 0 ? RB : 1)") for (int r = 0;                      \
+                                           r < (RB > 0 ? RB : (R)); ++r)   \
+    if (RB == 0 || r < (R))
 
 // Resource-weight constants of one solve: rw, the BalancedAllocation
 // selector sel (rw > 0), wsum = max(sum rw, 1e-9) and k = max(sum sel, 1).
@@ -21,10 +33,11 @@ struct ResW {
   float k;
 };
 
+template <int RB = 0>
 __device__ __forceinline__ void load_resw(ResW& w, const float* rw, int R) {
   w.wsum = 0.0f;
   w.k = 0.0f;
-  for (int r = 0; r < R; ++r) {
+  RES_LOOP(r, R) {
     w.rw[r] = rw[r];
     w.sel[r] = w.rw[r] > 0.0f ? 1.0f : 0.0f;
     w.wsum = w.wsum + w.rw[r];
@@ -35,20 +48,22 @@ __device__ __forceinline__ void load_resw(ResW& w, const float* rw, int R) {
 }
 
 // NodeResourcesFit: forall r: used + req <= alloc.
+template <int RB = 0>
 __device__ __forceinline__ bool cell_fits(const float* u, const float* a,
                                           const float* rq, int R) {
-  for (int r = 0; r < R; ++r)
+  RES_LOOP(r, R)
     if (!(u[r] + rq[r] <= a[r])) return false;
   return true;
 }
 
 // score.least_requested of one cell:
 // sum_r w_r * max((alloc-used-req)*100/alloc, 0) / wsum.
+template <int RB = 0>
 __device__ __forceinline__ float cell_lr(const float* u, const float* a,
                                          const float* rq, int R,
                                          const ResW& w) {
   float lr = 0.0f;
-  for (int r = 0; r < R; ++r) {
+  RES_LOOP(r, R) {
     float free_r = (a[r] - u[r]) - rq[r];
     float pr = a[r] > 0.0f ? free_r * 100.0f / a[r] : 0.0f;
     pr = pr < 0.0f ? 0.0f : pr;
@@ -59,12 +74,13 @@ __device__ __forceinline__ float cell_lr(const float* u, const float* a,
 
 // score.balanced_allocation of one cell: (1 - stddev of the selected
 // fractions) * 100.
+template <int RB = 0>
 __device__ __forceinline__ float cell_ba(const float* u, const float* a,
                                          const float* rq, int R,
                                          const ResW& w) {
   float frac[MAX_R];
   float mean = 0.0f;
-  for (int r = 0; r < R; ++r) {
+  RES_LOOP(r, R) {
     float f = a[r] > 0.0f ? (u[r] + rq[r]) / a[r] : 1.0f;
     f = fminf(fmaxf(f, 0.0f), 1.0f);
     frac[r] = f;
@@ -72,7 +88,7 @@ __device__ __forceinline__ float cell_ba(const float* u, const float* a,
   }
   mean = mean / w.k;
   float var = 0.0f;
-  for (int r = 0; r < R; ++r) {
+  RES_LOOP(r, R) {
     float d = frac[r] - mean;
     var = var + (d * d) * w.sel[r];
   }
@@ -82,21 +98,24 @@ __device__ __forceinline__ float cell_ba(const float* u, const float* a,
 
 // w_lr * LeastRequested + w_ba * BalancedAllocation, defined for every
 // cell, feasible or not.
+template <int RB = 0>
 __device__ __forceinline__ float cell_dynamic(const float* u, const float* a,
                                               const float* rq, int R,
                                               const ResW& w, float w_lr,
                                               float w_ba) {
-  return w_lr * cell_lr(u, a, rq, R, w) + w_ba * cell_ba(u, a, rq, R, w);
+  return w_lr * cell_lr<RB>(u, a, rq, R, w) +
+         w_ba * cell_ba<RB>(u, a, rq, R, w);
 }
 
 // The no-signature cell score in batched_cycle's association:
 // ((w_lr*LR + w_ba*BA) + static) + w_ts*100.
+template <int RB = 0>
 __device__ __forceinline__ float cell_score(const float* u, const float* a,
                                             const float* rq, int R,
                                             const ResW& w, float w_lr,
                                             float w_ba, float st,
                                             float w_ts) {
-  float s = cell_dynamic(u, a, rq, R, w, w_lr, w_ba);
+  float s = cell_dynamic<RB>(u, a, rq, R, w, w_lr, w_ba);
   s = s + st;
   s = s + w_ts * 100.0f;
   return s;

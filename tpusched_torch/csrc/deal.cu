@@ -21,12 +21,32 @@
 // each (column tile, row chunk) block adds its chunk and atomically adds
 // the partial sum into an int32 workspace, and a second launch divides.
 //
-// Bound: bytes, one read of feasible (1 byte) and masked (4) per cell:
-// 0.26 GB at 10240 x 5120, 0.078 ms at 3.35 TB/s. A warp's 32 adjacent
-// columns read 128 consecutive bytes of each row. The price of the f32
-// sum's fixed order is parallelism: only N threads, each walking all rows,
-// so the loop is unrolled to keep several rows' loads in flight. The
-// fixed-point sum has CHUNKS times the threads.
+// Bound: bytes, one read of feasible (1 byte) and masked (4) per cell of
+// an allowed row: 0.26 GB at 10240 x 5120, 0.078 ms at 3.35 TB/s. The
+// card needs megabytes in flight to reach that rate, and the f32 sum's
+// fixed order allows one adder a column. So the f32 path runs a CTA per
+// tile of 32 columns (one 128-byte line of masked a row) and tenant, of
+// LOADERS loader warps and one adding warp, over stages of STAGE rows:
+//  * the loader warps read a stage's rows of the tile, a lane a column
+//    (each row a coalesced 128-byte line of masked and 32 bytes of
+//    feasible; the rows' allowed flags one coalesced byte a lane, then a
+//    ballot), all of a warp's 32 rows issued before any is used (~40 KB
+//    in flight a CTA), fold `allowed` and `feasible` into the value
+//    (contrib = feasible & allowed ? masked : 0) and store it into one
+//    half of a double-buffered shared tile;
+//  * meanwhile the adding warp, a lane a column, adds the other half's
+//    rows in ascending order into its sum, started from 0.0: the same
+//    association as the plain version's, so the output is bit for bit
+//    the same at every row count, view and tenant count;
+//  * one __syncthreads a stage hands the halves over. The `any` flags
+//    and the allowed-row count are merged across the loader warps at the
+//    end (OR and an integer sum, exact in any order), and the adding warp
+//    makes the same final division.
+// The loaders use plain loads, not cp.async: a feasible row starts at an
+// arbitrary byte (N need not be a multiple of 4), and folding the mask in
+// registers leaves the adding warp one shared load and one add a row.
+// The fixed-point sum has CHUNKS times the threads of a thread per
+// column.
 //
 // Tenant axis (tpusched/tenants.py:75 solve_many): the last grid
 // dimension is the tenant; tenant b's columns sum its own rows of
@@ -38,35 +58,86 @@
 
 namespace {
 
-constexpr int THREADS = 64;
+constexpr int THREADS = 64;         // the fixed-point kernels
+constexpr int TILE = 32;            // f32 path: columns a CTA
+constexpr int LOADERS = 8;          // loader warps a CTA
+constexpr int ROWS_PER = 32;        // rows a loader warp a stage
+constexpr int STAGE = LOADERS * ROWS_PER;
+constexpr int F32_THREADS = 32 * (1 + LOADERS);
+constexpr size_t F32_SMEM = 2 * STAGE * TILE * sizeof(float);
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(F32_THREADS)
 desirability_kernel(int rows, int N, const bool* __restrict__ feasible,
                     const float* __restrict__ masked,
                     const bool* __restrict__ allowed,
                     float* __restrict__ desir) {
-  const int n = blockIdx.x * THREADS + threadIdx.x;
-  if (n >= N) return;
+  extern __shared__ float s_c[];   // [2][STAGE][TILE] contributions
+  __shared__ unsigned s_any[LOADERS];
+  __shared__ int s_nal[LOADERS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long b = blockIdx.y;
   feasible += b * rows * N;
   masked += b * rows * N;
   allowed += b * rows;
   desir += b * N;
-  float acc = 0.0f;
-  bool any = false;
-  int n_allowed = 0;
+  const int col = blockIdx.x * TILE + lane;
+  const bool in = col < N;
+  const int stages = (rows + STAGE - 1) / STAGE;
+  float acc = 0.0f;       // the adding warp's column sum
+  bool any = false;       // a loader lane's column: some allowed row feasible
+  int n_allowed = 0;      // a loader warp's allowed rows
+  for (int j = 0; j <= stages; ++j) {
+    if (warp > 0 && j < stages) {
+      const int r0 = j * STAGE + (warp - 1) * ROWS_PER;
+      const bool al_l = r0 + lane < rows && allowed[r0 + lane];
+      const unsigned alb = __ballot_sync(FULL, al_l);
+      n_allowed += __popc(alb);
+      float v[ROWS_PER];
+      bool f[ROWS_PER];
+#pragma unroll
+      for (int t = 0; t < ROWS_PER; ++t) {
+        v[t] = 0.0f;
+        f[t] = false;
+        if (in && ((alb >> t) & 1u)) {
+          const long long o = (long long)(r0 + t) * N + col;
+          f[t] = feasible[o];
+          v[t] = masked[o];
+        }
+      }
+      float* dst = s_c + ((j & 1) * STAGE + (warp - 1) * ROWS_PER) * TILE;
+#pragma unroll
+      for (int t = 0; t < ROWS_PER; ++t) {
+        dst[t * TILE + lane] = f[t] ? v[t] : 0.0f;
+        any = any || f[t];
+      }
+    }
+    if (warp == 0 && j > 0) {
+      const int len = min(STAGE, rows - (j - 1) * STAGE);
+      const float* src = s_c + ((j - 1) & 1) * STAGE * TILE + lane;
 #pragma unroll 8
-  for (int p = 0; p < rows; ++p) {
-    const long long o = (long long)p * N + n;
-    const bool al = allowed[p];
-    const bool f = feasible[o] && al;
-    const float c = f ? masked[o] : 0.0f;
-    acc = acc + c;
-    any = any || f;
-    n_allowed += al ? 1 : 0;
+      for (int r = 0; r < len; ++r) acc = acc + src[r * TILE];
+    }
+    __syncthreads();
   }
-  const float den = (float)max(n_allowed, 1);
-  desir[n] = any ? acc / den : -INFINITY;
+  if (warp > 0) {
+    const unsigned a = __ballot_sync(FULL, any);
+    if (lane == 0) {
+      s_any[warp - 1] = a;
+      s_nal[warp - 1] = n_allowed;
+    }
+  }
+  __syncthreads();
+  if (warp == 0 && in) {
+    unsigned a = 0;
+    int nal = 0;
+    for (int w = 0; w < LOADERS; ++w) {
+      a |= s_any[w];
+      nal += s_nal[w];
+    }
+    const float den = (float)max(nal, 1);
+    desir[col] = ((a >> lane) & 1u) ? acc / den : -INFINITY;
+  }
 }
 
 // Row chunks of the fixed-point sum: enough blocks to fill the card at
@@ -130,8 +201,14 @@ extern "C" int tpusched_desirability(int B, int rows, int N,
   const int blocks = (N + THREADS - 1) / THREADS;
   cudaStream_t st = (cudaStream_t)stream;
   if (!fixed) {
-    desirability_kernel<<<dim3(blocks, B), THREADS, 0, st>>>(
-        rows, N, feasible, masked, allowed, desir);
+    // The stage buffers (64 KB) pass the 48 KB default: opt in once.
+    static const cudaError_t opt = cudaFuncSetAttribute(
+        desirability_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)F32_SMEM);
+    if (opt != cudaSuccess) return (int)opt;
+    desirability_kernel<<<dim3((N + TILE - 1) / TILE, B), F32_THREADS,
+                          F32_SMEM, st>>>(rows, N, feasible, masked,
+                                          allowed, desir);
     return (int)cudaGetLastError();
   }
   if (rows > 0) {

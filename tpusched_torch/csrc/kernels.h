@@ -57,9 +57,11 @@ int tpusched_finalize_static(int B, int P, int N, const float* na_raw,
                              float* score, void* stream);
 
 // K4. The parity scan (tpusched/kernels/assign.py solve_sequential with
-// no signatures, gangs or preemption). used holds the initial [N, R]
-// usage on entry and the final one on return.
-int tpusched_parity_scan(int B, int P, int N, int R, const int* order,
+// no signatures, gangs or preemption), B tenants as B clusters of Q CTAs
+// (Q in {1, 2, 4, 8, 16}) of `threads` (256, 512 or 1024) threads. used holds
+// the initial [N, R] usage on entry and the final one on return.
+int tpusched_parity_scan(int B, int Q, int threads, int P, int N, int R,
+                         const int* order,
                          const bool* mask, const float* static_score,
                          const float* alloc, const float* requests,
                          const float* w_lr, const float* w_ba,
@@ -153,9 +155,9 @@ int tpusched_node_add(int B, int P, int N, int R, const int* perm,
 // The pairwise block (S .. ia_weight, then counts, anti, match_tot) is
 // K11's; counts/anti/match_tot hold the initial pair state on entry and
 // the final one on return; pen, raw ([N] floats) and allowed ([N] bytes)
-// are scratch.
+// are scratch. B, Q and threads as for K4.
 int tpusched_parity_scan_pair(
-    int B, int P, int N, int R, const int* order, const bool* mask,
+    int B, int Q, int threads, int P, int N, int R, const int* order, const bool* mask,
     const float* static_score, const float* alloc, const float* requests,
     const float* w_lr, const float* w_ba, const float* w_ts,
     const float* w_ia, const float* rw, int seeded, unsigned int seed,

@@ -638,9 +638,66 @@ def _scan_args(k: str, cfg: EngineConfig, snap: ClusterSnapshot,
             cfg.tie_seed & 0xFFFFFFFF)
 
 
+# K4 (without preemption) spreads each tenant's nodes over a cluster of
+# Q CTAs (16 is the card's non-portable cluster size) of 256, 512 or
+# 1 024 threads.
+SCAN_CLUSTERS = (1, 2, 4, 8, 16)
+SCAN_THREADS = (256, 512, 1024)
+SCAN_READ_AHEAD = 2        # nodes a thread whose rows are read a pod ahead
+SCAN_MIN_NODES = 32        # nodes a CTA at least (one warp's worth)
+
+
+def scan_threads(N: int, Q: int) -> int:
+    """K4's threads per CTA when a tenant's N nodes are split over Q CTAs
+    (a CTA's range: ceil(N / Q) nodes): 256 for one node a thread, 512
+    while every node of a thread has its rows read a pod ahead (at most
+    SCAN_READ_AHEAD), else 1 024. On an H100, 512 threads beat 1 024 by
+    14-17 % at 640 nodes a CTA (two nodes a thread against one, with
+    spills), and lost by 27 % at 5 120 (ten nodes a thread against five;
+    PERF.md, solve_walls.py's k4 cells)."""
+    if Q not in SCAN_CLUSTERS:
+        raise ValueError(f"K4: cluster size {Q}, want one of "
+                         f"{SCAN_CLUSTERS}")
+    if N < 1:
+        raise ValueError(f"K4: {N} nodes")
+    span = -(-N // Q)
+    if span <= SCAN_THREADS[0]:
+        return SCAN_THREADS[0]
+    return 512 if span <= 512 * SCAN_READ_AHEAD else 1024
+
+
+def scan_cluster_size(B: int, N: int, sms: int) -> tuple[int, int]:
+    """(Q, threads per CTA) for K4 over B tenants of N nodes on a card of
+    `sms` SMs: the largest Q in SCAN_CLUSTERS with B * Q <= sms (every
+    CTA on an SM of its own) and at least SCAN_MIN_NODES nodes a CTA; Q =
+    1 when even B alone passes sms (the clusters then queue)."""
+    if B < 1 or N < 1 or sms < 1:
+        raise ValueError(f"K4: B={B}, N={N}, sms={sms}: each must be >= 1")
+    Q = SCAN_CLUSTERS[-1]
+    while Q > 1 and (B * Q > sms or Q * SCAN_MIN_NODES > N):
+        Q //= 2
+    return Q, scan_threads(N, Q)
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _scan_shape(dev: torch.device, B: int, N: int,
+                cluster: int | None) -> tuple[int, int]:
+    """(Q, threads) of one K4 launch: the policy's, or Q forced by the
+    caller (the card tests and chip_smoke hold every Q against the plain
+    version). No fallback: a Q the card cannot place raises at launch."""
+    if cluster is None:
+        return scan_cluster_size(B, N, _sm_count(dev))
+    return cluster, scan_threads(N, cluster)
+
+
 def parity_scan(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
-                order: torch.Tensor):
-    """Kernel K4 on CUDA tensors, the plain version on CPU tensors."""
+                order: torch.Tensor, cluster: int | None = None):
+    """Kernel K4 on CUDA tensors (B tenants as B clusters of Q CTAs; Q
+    from `scan_cluster_size`, or `cluster`), the plain version on CPU
+    tensors."""
     dev = static.mask.device
     if dev.type == "cpu":
         return parity_scan_plain(cfg, snap, static, order)
@@ -651,8 +708,10 @@ def parity_scan(cfg: EngineConfig, snap: ClusterSnapshot, static: StaticCtx,
     if assigned.numel() == 0:
         return assigned, chosen, used
     B = order.shape[0] if order.dim() == 2 else 1
-    _build.launch("tpusched_parity_scan", B, *ptrs(args), used.data_ptr(),
-                  assigned.data_ptr(), chosen.data_ptr(), stream_of(dev))
+    Q, threads = _scan_shape(dev, B, args[1], cluster)
+    _build.launch("tpusched_parity_scan", B, Q, threads, *ptrs(args),
+                  used.data_ptr(), assigned.data_ptr(), chosen.data_ptr(),
+                  stream_of(dev))
     parity_scan.launches += 1
     return assigned, chosen, used
 
@@ -662,10 +721,11 @@ parity_scan.launches = 0
 
 def parity_scan_pair(cfg: EngineConfig, snap: ClusterSnapshot,
                      static: StaticCtx, order: torch.Tensor,
-                     st: "kpair.PairState", dom_s: torch.Tensor):
-    """Kernel K4's pairwise variant on CUDA tensors, the plain version
-    on CPU tensors: (assigned, chosen, used, final PairState). `st` (the
-    initial state) is left as it was."""
+                     st: "kpair.PairState", dom_s: torch.Tensor,
+                     cluster: int | None = None):
+    """Kernel K4's pairwise variant on CUDA tensors (clusters as K4's),
+    the plain version on CPU tensors: (assigned, chosen, used, final
+    PairState). `st` (the initial state) is left as it was."""
     dev = static.mask.device
     if dev.type == "cpu":
         return parity_scan_pair_plain(cfg, snap, static, order, st, dom_s)
@@ -686,7 +746,9 @@ def parity_scan_pair(cfg: EngineConfig, snap: ClusterSnapshot,
     allowed = torch.empty((*lead, N), dtype=torch.uint8, device=dev)
     # The pairwise block without the state pointers, then the state the
     # kernel updates in place (the copies in `out`).
-    _build.launch("tpusched_parity_scan_pair", lead[0] if lead else 1,
+    B = lead[0] if lead else 1
+    Q, threads = _scan_shape(dev, B, N, cluster)
+    _build.launch("tpusched_parity_scan_pair", B, Q, threads,
                   *ptrs((*args, *terms[:-3], out.counts, out.anti,
                          out.match_tot, pen, raw, allowed, used, assigned,
                          chosen)), stream_of(dev))
@@ -1162,12 +1224,14 @@ def desirability(feasible: torch.Tensor, masked: torch.Tensor,
     desir = torch.empty((*lead, N), dtype=torch.float32, device=dev)
     if desir.numel() == 0:
         return desir
-    # The fixed-point path's int32 partial sums (zeroed; unused in f32).
-    work = torch.zeros((*lead, 2 * N + 1) if fixed else (1,),
-                       dtype=torch.int32, device=dev)
-    _build.launch("tpusched_desirability", lead[0] if lead else 1, rows, N, feasible.data_ptr(),
-                  masked.data_ptr(), allowed.data_ptr(), int(fixed),
-                  work.data_ptr(), desir.data_ptr(), stream_of(dev))
+    # The fixed-point path's int32 partial sums (zeroed); the f32 path
+    # takes none.
+    work = (torch.zeros((*lead, 2 * N + 1), dtype=torch.int32, device=dev)
+            if fixed else None)
+    _build.launch("tpusched_desirability", lead[0] if lead else 1, rows, N,
+                  feasible.data_ptr(), masked.data_ptr(), allowed.data_ptr(),
+                  int(fixed), work.data_ptr() if fixed else None,
+                  desir.data_ptr(), stream_of(dev))
     desirability.launches += 1
     if fixed:
         desirability.fixed_launches += 1
