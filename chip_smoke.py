@@ -18,7 +18,8 @@ package, and
      both with CUDA events (median of several runs): K1 atom_sat,
      K2 tableau_cells, K3 finalize_static; K5 cycle at
      full width and on a 1024-row index view (equal to the same view
-     gathered), K6 row_topk (K = 8 seeded, kb = 8, beside torch.topk;
+     gathered), both also at other tiles than cycle_tile's (each exact,
+     timed), K6 row_topk (K = 8 seeded, kb = 8, beside torch.topk;
      then its two paths, the K-pass kernel and the radix select, at
      K = 4, 8, 16 and 256 without the seeded pick, each exact and timed),
      K8 prefix_commit on the first sub-step of the first fast round;
@@ -29,8 +30,9 @@ package, and
      and the final pair state); and, on the arguments of their first
      call in a fast solve of (d), K12 waterfill, K13 (excess_min,
      excess_survive), K14 ia_ok_at_choice, K10's pair_commit, K8's
-     node_add, K7 in fixed point, K11 with ia_ok and K5 with the
-     relaxed output;
+     node_add (beside one index_add_, and a profiler trace showing one
+     kernel and nothing else on the card a call), K7 in fixed point,
+     K11 with ia_ok and K5 with the relaxed output;
   4. main-path phases, each with every launch counter zeroed just
      before and read just after, requiring each of its kernels to
      launch:
@@ -114,6 +116,8 @@ package, and
        K = 256 (the radix path) beside torch.topk and the K-pass kernel,
        and on tie rows (all -inf, all equal, -0.0 with +0.0, wide ties at
        the K-th, N not a multiple of 256) at K = 256 and K = N;
+     - K5's calls by size class in one more fast solve of (a), (b) and
+       (h) (calls, and the CUDA-event ms of every call summed per class);
      - async forms: `solve_async`, `score_async` and
        `score_topk_async(k=8)` once each on (b), each equal to its
        synchronous form;
@@ -174,8 +178,9 @@ package, and
        tenant equal to its solo launch at one CTA); the entry
        points that gained the tenant axis (K9, K10, K4's pairwise
        variant, K11 with ia_ok, K12, K13's two, K14, K10's pair_commit,
-       K8's node_add) on their first call's arguments against their
-       plain versions, with CUDA-event and profiler times;
+       K8's node_add, beside index_add_ and with the one-kernel trace)
+       on their first call's arguments against their plain versions,
+       with CUDA-event and profiler times;
      - the tenant batch with gangs (tg) (eight config-4 clusters of
        750 - 12 b groups of 4 on 1 500 - 180 b nodes): both modes, the
        same checks, each tenant's gang audit and rolled-back groups (the
@@ -334,6 +339,9 @@ REDUCED_TENANTS, REDUCED_PODS, REDUCED_NODES = 4, 600, 300
 PR8_FAST = {"a": (10000, 26), "b": (9942, 64), "c": (10000, 26),
             "fast d": (9231, 46), "fast d seeded": (9231, 46),
             "h fast": (9995, 514)}
+
+# K5's tiles measured beside cycle_tile's choice (rows, threads a CTA).
+CYCLE_TILES = ((4, 128), (8, 128), (32, 128), (16, 64), (16, 256))
 
 # (name, wrapper, its launch counter, source, the JAX function it
 # replaces). A variant of a kernel (K5's relaxed output, K7's fixed point,
@@ -1195,13 +1203,40 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order) -> dict:
                   kassign.cycle(*gathered, pending=pend, masked=True))
     b5 = nbytes(*args5, *got)
     ops5 = P * N * (R * 14 + 12)
-    view_ms = cuda_ms(lambda: kassign.cycle(*args5, rows=rows, pending=pend,
-                                            masked=True), 10)
+    view = dict(rows=rows, pending=pend, masked=True)
+    view_ms = cuda_ms(lambda: kassign.cycle(*args5, **view), 10)
+    # Other tiles (rows, threads a CTA) than cycle_tile's, each exact, at
+    # full width and on the view.
+    tiles = {}
+    choose = kassign.cycle_tile
+    try:
+        for tile in CYCLE_TILES:
+            kassign.cycle_tile = lambda n: tile  # noqa: E731
+            require_equal(f"cycle, tile {tile}", kassign.cycle(*args5), got)
+            require_equal(f"cycle (1024-row view), tile {tile}",
+                          kassign.cycle(*args5, **view), view_k)
+            tiles[tile] = tuple(
+                cuda_ms(lambda: kassign.cycle(*args5, **kw), 10)
+                for kw in ({}, view))
+    finally:
+        kassign.cycle_tile = choose
+    log(f"K5 tiles on (b) (rows x threads a CTA: full width ms / "
+        f"{rows.shape[0]}-row view ms): cycle_tile "
+        f"{kassign.cycle_tile(N)}"
+        "; " + ", ".join(f"{t[0]}x{t[1]} {a:.4f} / {b:.4f}"
+                         for t, (a, b) in tiles.items()))
+    view_prof = profiler_ms(lambda: kassign.cycle(*args5, **view),
+                            "cycle_kernel")
     out["cycle"] = dict(
         err=err, ms=cuda_ms(lambda: kassign.cycle(*args5), 10),
+        prof_ms=profiler_ms(lambda: kassign.cycle(*args5), "cycle_kernel"),
         plain_ms=cuda_ms(lambda: kassign.cycle_plain(*args5), 3),
-        bound=bound(b5, ops5), shape=f"P={P} N={N} R={R}; "
-        f"{rows.shape[0]}-row view {view_ms:.4f} ms")
+        bound=bound(b5, ops5),
+        extra={"view_ms": view_ms, "view_prof_ms": view_prof},
+        shape=f"P={P} N={N} R={R}; {rows.shape[0]}-row view "
+              f"{view_ms:.4f} ms (profiler " + (
+                  "not measured" if view_prof is None
+                  else f"{view_prof:.4f} ms") + ")")
     # K6 on the first fast round's masked block (all valid pods pending).
     feasible, masked = kassign.cycle(*args5, pending=pods.valid, masked=True)
     K = kassign._fallback_depth(N)
@@ -1254,6 +1289,59 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order) -> dict:
         bound=bound(b8, ops8),
         shape=f"P={perm.shape[-1]} R={R} active={active} "
               f"committed={committed}")
+    return out
+
+
+def k5_sizes(cells, smi: str) -> list:
+    """K5's calls in one fast solve of each cell (the wrapper recorded
+    through an Ops table), by size class (the power of two at or above
+    B x rows): calls per cell, and the CUDA-event ms of every call in the
+    solve summed over the class (an event pair around each wrapper call;
+    a window holds the wrapper's host work where the card waits on it),
+    with the class's share of K5's time in these solves."""
+    classes = {}
+    for name, cfg, snap in cells:
+        eng = Engine(cfg)
+        dsnap = eng.put(snap)
+
+        def rec(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = kassign.cycle(*a, **kw)
+            end.record()
+            rows = kw.get("rows")
+            n = (a[3].shape[-2] if rows is None else rows.shape[-1]) * (
+                a[3].shape[0] if a[3].dim() == 3 else 1)
+            c = classes.setdefault(1 << max(0, n - 1).bit_length(), {
+                "calls": {}, "rows": set(), "events": []})
+            c["calls"][name] = c["calls"].get(name, 0) + 1
+            c["rows"].add(n)
+            c["events"].append((start, end))
+            return out
+
+        solve_core(cfg, dsnap, ops=dataclasses.replace(kassign.KERNELS,
+                                                       cycle=rec))
+        eng.close()
+    torch.cuda.synchronize()
+    out = []
+    for size in sorted(classes):
+        c = classes[size]
+        ms = sum(s.elapsed_time(e) for s, e in c["events"])
+        out.append({"rows_upto": size, "rows_min": min(c["rows"]),
+                    "rows_max": max(c["rows"]), "calls": c["calls"],
+                    "ms": ms, "ms_per_call": ms / len(c["events"])})
+    total = sum(c["ms"] for c in out)
+    for c in out:
+        c["share"] = c["ms"] / total
+    log("K5 calls by size class in one fast solve of " + ", ".join(
+        name.split(":")[0] for name, _, _ in cells) + " (CUDA events around "
+        "every call): " + "; ".join(
+            f"<= {c['rows_upto']} rows ({c['rows_min']}-{c['rows_max']}): "
+            f"{c['calls']} calls, {c['ms']:.3f} ms in all, "
+            f"{c['ms_per_call']:.4f} ms a call ({100 * c['share']:.1f} %)"
+            for c in out)
+        + f"; {total:.3f} ms in all; {smi}")
     return out
 
 
@@ -1374,7 +1462,11 @@ def fast_pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
             r.update(bound=bound(b, P * R), library="index_add_",
                      library_ms=cuda_ms(lambda: index_add_library(
                          used, node, mask, req, sign), 10),
-                     shape=f"P={P} N={N} R={R}, {int(mask.sum())} reverted")
+                     prof_ms=profiler_ms(lambda: fn(*a, **kw),
+                                         "node_add_kernel"),
+                     shape=f"P={P} N={N} R={R}, {int(mask.sum())} reverted; "
+                           + one_launch("node_add", lambda: fn(*a, **kw),
+                                        "node_add_kernel"))
         elif name == "desirability_fixed":
             r.update(bound=bound(nbytes(*a, *got), 4 * P * N),
                      shape=f"P={P} N={N}")
@@ -1943,6 +2035,35 @@ def profiler_ms(fn, kernel: str, reps: int = 5) -> float | None:
         if total > 0:
             return total / 1e3 / n
     return None
+
+
+def one_launch(name: str, fn, kernel: str, reps: int = 5) -> str:
+    """Require that fn() runs one CUDA kernel, `kernel`, and nothing else
+    on the card (no sort, no copy): the device events of a profiler trace
+    of `reps` calls (a trace that comes back without device events is
+    taken once more with host activity and 4 x the calls, as in
+    profiler_ms). Returns what the trace showed, for the log; "not
+    measured" where it holds no device event at all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for acts, n in (([ProfilerActivity.CUDA], reps),
+                    ([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     4 * reps)):
+        with profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        other = sorted({x for x in names if kernel not in x})
+        if other:
+            raise AssertionError(f"{name}: {n} calls ran {other} beside "
+                                 f"{kernel}")
+        if names:
+            return f"{len(names)} device events over {n} calls, all {kernel}"
+    return "launches a call not measured (no device event traced)"
 
 
 def first_auction_calls(cfg: EngineConfig, dsnap) -> dict:
@@ -3176,9 +3297,15 @@ def tenant_pair_kernel_rows(dstack, reduced, smi: str) -> dict:
             used, node, mask, req, rank, sign = a
             Pv = node.shape[1]
             b = nbytes(node, mask, req, rank, used) + nbytes(*res)
-            r.update(bound=bound(b, B * Pv * R),
+            lib = cuda_ms(lambda: index_add_library(used, node, mask, req,
+                                                    sign), 10)
+            r.update(bound=bound(b, B * Pv * R), library="index_add_",
+                     library_ms=lib,
+                     extra={"ms_b8": r["ms"], "library_ms_b8": lib},
                      shape=f"B={B} P={Pv} N={N} R={R}, {int(mask.sum())} "
-                           "reverted")
+                           "reverted; " + one_launch(
+                               "node_add", lambda: fn(*a, **kw),
+                               "node_add_kernel"))
         out[name] = r
     fn, a, kw = calls["parity_scan_pair"]
     cfg, snap, static, order, st, dom_s = a
@@ -3456,6 +3583,10 @@ def main() -> int:
     for name, r in kp.items():
         lib = (f", {r['library']} {r['library_ms']:.4f} ms"
                if r.get("library_ms") is not None else "")
+        if "prof_ms" in r:
+            lib += (", profiler kernel time " + (
+                "not measured" if r["prof_ms"] is None
+                else f"{r['prof_ms']:.4f} ms"))
         log(f"kernel {name} [{r['shape']}]: exact match, kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, bound "
             f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); {smi}")
@@ -3634,6 +3765,10 @@ def main() -> int:
     for k, v in phase_counts.items():
         launches[k] += v
     kp.update(kp_auction)
+    kp["cycle"]["extra"]["sizes"] = k5_sizes(
+        fast_cells[:2] + (("h fast: config5 10000x5000, preemption on",
+                           EngineConfig(mode="fast", preemption=True),
+                           snap_h),), smi)
 
     # -- the warm lineage (w) and the async forms ------------------------------
     async_phase(snap_b, smi)
@@ -3659,6 +3794,7 @@ def main() -> int:
         for k, r in rows.items():
             if k in kp:
                 kp[k]["err"] = max(kp[k]["err"], r["err"])
+                kp[k].setdefault("extra", {}).update(r.get("extra", {}))
             else:
                 kp[k] = r
 
@@ -3701,7 +3837,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r.get("library_ms"),
+            "library_ms": r.get("library_ms"), **r.get("extra", {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 trees in one process.
 
     python3 solve_walls.py --trees DIR [DIR ...] [--cells a c d h th ...]
-        [--mode fast|parity] [--pairs 12] [--split] [--profile]
+        [--mode fast|parity|score] [--pairs 12] [--split] [--profile]
 
 Each DIR is a checkout (or an unpacked `git archive` of a commit) whose
 `tpusched_torch` is imported on its own: the package's modules are
@@ -23,7 +23,10 @@ the card once; one solve builds the kernels and warms up. Then `--pairs`
 rounds each solve once per tree, in turns (the order reversed every
 other round, so a drift of the host weighs on every tree alike), through
 `Engine.solve` on the snapshot already on the card (`solve_many` and a
-read of its outputs for a batch). The cells run one after another.
+read of its outputs for a batch). `--mode score` times ScoreBatch
+instead: `Engine.score_topk(k=8)` on a one-snapshot cell (K1-K3, K5 over
+every [P, N] cell, K6; the matrix stays on the card). The cells run one
+after another.
 
 Prints one JSON line per tree and cell: the card's name and power
 limit, the host-clock walls in ms with their median and quartiles, host
@@ -129,7 +132,9 @@ class Tree:
                 self._time_preemption()
             gen, seed, kw, cfg_kw = CELLS[cell]
             draw = getattr(synth, gen)
-            self.cfg = pkg.EngineConfig(mode=mode, **cfg_kw)
+            self.score = mode == "score"
+            self.cfg = pkg.EngineConfig(
+                mode="parity" if self.score else mode, **cfg_kw)
             if cell in TENANT_CELLS:
                 n, pods, step, nodes, fixed = TENANT_SHAPE[cell]
                 built = CS.floored(lambda b, **x: draw(
@@ -149,7 +154,9 @@ class Tree:
                                CS.NODES, **kw)
                 self.eng = pkg.Engine(self.cfg)
                 self.dsnap = self.eng.put(snap)
-                self.run = lambda: self.eng.solve(self.dsnap)
+                self.run = ((lambda: self.eng.score_topk(self.dsnap, 8))
+                            if self.score else
+                            (lambda: self.eng.solve(self.dsnap)))
             self.res = self.run()   # build, warm up
         finally:
             sys.path.remove(str(root))
@@ -211,6 +218,10 @@ class Tree:
     def summary(self, ref: "Tree") -> dict:
         """Host reads, placed and evicted pods, and whether the outputs
         equal `ref`'s."""
+        if self.score:
+            return {"equal_to_first_tree": all(
+                np.array_equal(a, b) for a, b in zip(self.res[:2],
+                                                     ref.res[:2]))}
         if self.cell in TENANT_CELLS or self.cell in K4_CELLS:
             return {"placed": int((self.res[0] >= 0).sum()),
                     "equal_to_first_tree": all(
@@ -260,11 +271,16 @@ def main() -> int:
     ap.add_argument("--trees", nargs="+", default=["."])
     ap.add_argument("--cells", nargs="+", choices=sorted(CELLS),
                     default=["h"])
-    ap.add_argument("--mode", choices=("parity", "fast"), default="fast")
+    ap.add_argument("--mode", choices=("parity", "fast", "score"),
+                    default="fast")
     ap.add_argument("--pairs", type=int, default=12)
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
+    batch = [c for c in args.cells if c in TENANT_CELLS or c in K4_CELLS]
+    if args.mode == "score" and batch:
+        ap.error("--mode score times Engine.score_topk on a one-snapshot "
+                 f"cell, not on {', '.join(batch)}")
     if not torch.cuda.is_available():
         print("solve_walls: no CUDA device", file=sys.stderr)
         return 2
@@ -297,7 +313,8 @@ def main() -> int:
                 "card": smi, "walls_ms": w, "median_ms": q[1],
                 "q1_ms": q[0], "q3_ms": q[2], **t.summary(trees[0]),
                 **more}), flush=True)
-        if args.profile and cell not in TENANT_CELLS + tuple(K4_CELLS):
+        if (args.profile and not args.mode == "score"
+                and cell not in TENANT_CELLS + tuple(K4_CELLS)):
             for t in trees:
                 print(json.dumps(t.profile()), flush=True)
         del trees

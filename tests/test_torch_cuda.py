@@ -220,6 +220,83 @@ def test_k5_equal_plain_and_view(cuda, masked):
     _equal(view, ka.cycle(*gathered, pending=pend, masked=masked))
 
 
+def _k5_inputs(cuda, R, N, P=48, B=None, seed=0):
+    """Random K5 inputs at R resources: zero capacity on some nodes, usage
+    near capacity (so the fit cuts), one resource weight zero (BA selects
+    a subset), -0.0 in the static score; K11's pairwise rows and ia_ok.
+    A leading tenant axis with B. Returns (args, pair, w_ia, ia_ok)."""
+    rng = np.random.default_rng(100 * seed + R)
+    lead = () if B is None else (B,)
+    alloc = rng.uniform(10, 100, (*lead, N, R)).astype(np.float32)
+    alloc[rng.random(alloc.shape) < 0.1] = 0.0
+    used = (alloc * rng.uniform(0, 1.1, alloc.shape)).astype(np.float32)
+    req = rng.uniform(0, 20, (*lead, P, R)).astype(np.float32)
+    mask = rng.random((*lead, P, N)) < 0.8
+    sscore = rng.normal(0, 50, (*lead, P, N)).astype(np.float32)
+    sscore[rng.random(sscore.shape) < 0.05] = -0.0
+    w_lr, w_ba, w_ts, w_ia = (rng.uniform(0, 2, (*lead, P)).astype(np.float32)
+                              for _ in range(4))
+    rw = rng.uniform(0.5, 2, R).astype(np.float32)
+    rw[R // 2] = 0.0
+    pair_ok = rng.random((*lead, P, N)) < 0.9
+    ts, ia = (rng.uniform(0, 100, (*lead, P, N)).astype(np.float32)
+              for _ in range(2))
+    ia_ok = rng.random((*lead, P, N)) < 0.85
+    t = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    args = tuple(t(x) for x in (alloc, used, req, mask, sscore, w_lr, w_ba,
+                                w_ts, rw))
+    return args, (t(pair_ok), t(ts), t(ia)), t(w_ia), t(ia_ok)
+
+
+# K5 at every R its template takes past the default 3, at N = 1 003 (a
+# multiple of neither 4 nor a tile: rows whose base is not 4-cell aligned
+# and a ragged last tile), 1 024 (every row aligned) and 37 (one warp).
+@pytest.mark.parametrize("R,N", [(1, 1003), (2, 1003), (3, 1003), (5, 1003),
+                                 (8, 1003), (3, 1024), (3, 37)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_k5_exact_r_equal_plain(cuda, monkeypatch, R, N, masked):
+    """Full width, a rows view with pending, the pairwise branch and the
+    relaxed output, and other tiles than cycle_tile's, each equal to the
+    plain version."""
+    args, pair, w_ia, ia_ok = _k5_inputs(cuda, R, N)
+    P = args[3].shape[0]
+    _equal(ka.cycle(*args, masked=masked),
+           ka.cycle_plain(*args, masked=masked))
+    rows = torch.arange(P - 1, 0, -3, dtype=torch.int32, device=cuda)
+    pend = torch.arange(rows.shape[0], device=cuda) % 3 != 1
+    view = dict(rows=rows, pending=pend, masked=masked)
+    _equal(ka.cycle(*args, **view), ka.cycle_plain(*args, **view))
+    both = dict(view, pair=pair, w_ia=w_ia, ia_ok=ia_ok)
+    want = ka.cycle_plain(*args, **both)
+    assert len(want) == 3
+    _equal(ka.cycle(*args, **both), want)
+    _equal(ka.cycle(*args, pair=pair, w_ia=w_ia, masked=masked),
+           ka.cycle_plain(*args, pair=pair, w_ia=w_ia, masked=masked))
+    for tile in ((1, 32), (5, 64), (32, 256)):
+        monkeypatch.setattr(ka, "cycle_tile", lambda n: tile)
+        _equal(ka.cycle(*args, **both), want)
+
+
+def test_k5_tenants_unequal_rows_equal_plain(cuda):
+    """Three tenants in one launch, each with its own pending rows (a
+    different count each), without and with the pairwise rows and the
+    relaxed output, in both score forms."""
+    B, P, N, R = 3, 40, 1003, 3
+    args, pair, w_ia, ia_ok = _k5_inputs(cuda, R, N, P=P, B=B, seed=1)
+    rows = torch.stack([torch.randperm(P, device=cuda)[:24]
+                        for _ in range(B)]).to(torch.int32)
+    pend = torch.zeros((B, 24), dtype=torch.bool, device=cuda)
+    for b, n in enumerate((24, 11, 0)):
+        pend[b, :n] = True
+    for masked in (False, True):
+        view = dict(rows=rows, pending=pend, masked=masked)
+        _equal(ka.cycle(*args, **view), ka.cycle_plain(*args, **view))
+        both = dict(view, pair=pair, w_ia=w_ia, ia_ok=ia_ok)
+        _equal(ka.cycle(*args, **both), ka.cycle_plain(*args, **both))
+        _equal(ka.cycle(*args, masked=masked),
+               ka.cycle_plain(*args, masked=masked))
+
+
 @pytest.mark.parametrize("K", [1, 3, 8, 16])
 def test_k6_equal_plain(cuda, K):
     rng = np.random.default_rng(K)
@@ -288,6 +365,69 @@ def test_k8_equal_plain(cuda):
     want = ka.prefix_commit_plain(*t, 9)
     _equal(got, want)
     assert (got[1] >= 0).any() and (got[2] == 0).any()
+
+
+def _node_add_case(case, cuda):
+    """node_add's inputs (used, node, mask, requests, rank) of one case:
+    usage large against the requests, so that the order of a node's adds
+    shows in its bits."""
+    rng = np.random.default_rng(len(case))
+    B, P, N, R = {"one_hot": (None, 4096, 64, 3),
+                  "two_hot": (None, 4096, 64, 5),
+                  "equal_ranks": (None, 600, 20, 1),
+                  "empty": (None, 300, 20, 3),
+                  "view_ranks": (None, 1024, 200, 3),
+                  "scratch": (None, 30000, 500, 2),
+                  "tenants": (8, 512, 40, 8)}[case]
+    lead = () if B is None else (B,)
+    node = rng.integers(-2, N + 2, (*lead, P)).astype(np.int32)
+    mask = rng.random((*lead, P)) < 0.9
+    rank = np.stack([rng.permutation(P) for _ in range(B or 1)]).astype(
+        np.int32).reshape(*lead, P)
+    if case == "one_hot":           # every row on one node: the CTA's sort
+        node[:] = 17
+        mask[:] = True
+    elif case == "two_hot":         # two CTA buckets and a warp's
+        u = rng.random(P)
+        node[u < 0.45] = 5
+        node[(u >= 0.45) & (u < 0.8)] = 40
+        node[(u >= 0.8) & (u < 0.85)] = 9
+    elif case == "equal_ranks":     # ties broken by the row index
+        rank = ((P - np.arange(P)) // 7).astype(np.int32)
+        node = rng.integers(0, 4, P).astype(np.int32)
+    elif case == "empty":
+        mask[:] = False
+    elif case == "view_ranks":      # a compacted view's global ranks
+        rank = rng.choice(10240, P, replace=False).astype(np.int32)
+        rank[:5] = -rank[:5]
+    elif case == "scratch":         # buckets past a CTA's shared memory
+        assert ka.node_add_smem_bytes(P, N) > ka.NODE_ADD_SMEM_MAX
+    used = rng.uniform(0, 1e6, (*lead, N, R)).astype(np.float32)
+    req = (rng.uniform(0, 1000, (*lead, P, R))
+           * rng.random((*lead, P, R))).astype(np.float32)
+    t = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    out = [t(used), t(node), t(mask), t(req), t(rank)]
+    if case == "tenants":           # one rank row shared by every tenant
+        out[4] = torch.arange(P, dtype=torch.int32, device=cuda).expand(B, P)
+        out[1][3] = 7
+        out[2][5] = False
+    return out
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("case", ["one_hot", "two_hot", "equal_ranks",
+                                  "empty", "view_ranks", "scratch",
+                                  "tenants"])
+def test_node_add_equal_plain(cuda, case, sign):
+    """K8's node_add in one launch on unsorted rows against its plain
+    version (a stable sort, then the adds in order), bit for bit."""
+    args = _node_add_case(case, cuda)
+    got = ka.node_add(*args, sign)
+    _equal([got], [ka.node_add_plain(*args, sign)])
+    if case == "empty":
+        _equal([got], [args[0]])
+    else:
+        assert not torch.equal(got, args[0])
 
 
 @pytest.mark.parametrize("tie_break", ["first", "seeded"])

@@ -264,6 +264,34 @@ def test_node_add_matches_jax(name, sign):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
 
 
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("skew", ["one_hot", "two_hot"])
+def test_node_add_skewed_matches_jax(skew, sign):
+    """K8's node_add on skewed segments (a gang rolled back on one node,
+    two hot nodes beside a spread tail), with runs of equal ranks (ties by
+    row index), against JAX's _node_add: rtol 1e-6, JAX adds each node's
+    segment total at once."""
+    rng = np.random.default_rng(17)
+    P, N, R = 400, 12, 3
+    node = rng.integers(0, N, P).astype(np.int32)
+    if skew == "one_hot":
+        node[:] = 4
+    else:
+        u = rng.random(P)
+        node[u < 0.5] = 2
+        node[(u >= 0.5) & (u < 0.85)] = 9
+    mask = rng.random(P) < 0.9
+    rank = (rng.permutation(P) // 3).astype(np.int32)
+    used = rng.uniform(1e3, 1e5, (N, R)).astype(np.float32)
+    req = rng.uniform(0, 100, (P, R)).astype(np.float32)
+    want = _np(jassign._node_add(jnp.asarray(used), jnp.asarray(node),
+                                 jnp.asarray(mask), jnp.asarray(req),
+                                 jnp.asarray(rank), P, sign=sign))
+    for fn in (tassign.node_add_plain, tassign.node_add):
+        got = fn(_t(used), _t(node), _t(mask), _t(req), _t(rank), sign)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+
+
 def test_desirability_fixed_point_is_width_invariant():
     """K7's fixed-point form: the same column means over any row order
     and with extra rows that no pod allows (a view against the full

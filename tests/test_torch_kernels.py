@@ -183,12 +183,55 @@ def test_pod_cycle_plain_matches_jax(name):
 # -- the fast-mode and ScoreBatch kernels' plain versions (K5-K8) ------------
 
 
+# Extended resources through EngineConfig(resources=...) on both sides:
+# R = 1 (cpu alone) and R = 5 (gpus and NICs beside the three defaults,
+# on a part of the nodes and pods; a node without one has no capacity of
+# it, so LR and BA take their `alloc > 0` branches).
+EXT_RESOURCES = {
+    "ext_r1": (("cpu",), {"cpu": 1.0}),
+    "ext_r5": (("cpu", "memory", "pods", "gpu", "nic"),
+               {"cpu": 1.0, "memory": 1.0, "gpu": 2.0, "nic": 0.5}),
+}
+
+
+def _ext_pair(name):
+    res, w = EXT_RESOURCES[name]
+    rng = np.random.default_rng(len(res))
+    b = JBuilder(JConfig(resources=res, score_resource_weights=w))
+    for i in range(14):
+        alloc = {"cpu": float(rng.integers(2, 17) * 1000),
+                 "memory": float(rng.integers(4, 65) << 30)}
+        if rng.random() < 0.6:
+            alloc["gpu"] = float(rng.integers(1, 9))
+        if rng.random() < 0.5:
+            alloc["nic"] = float(rng.integers(1, 5))
+        b.add_node(f"n{i}", alloc, used={
+            k: float(v * rng.uniform(0, 0.6)) for k, v in alloc.items()})
+    for p in range(40):
+        req = {"cpu": float(rng.integers(1, 40) * 100),
+               "memory": float(rng.integers(1, 16) << 28)}
+        if rng.random() < 0.4:
+            req["gpu"] = float(rng.integers(1, 4))
+        if rng.random() < 0.3:
+            req["nic"] = 1.0
+        b.add_pod(f"p{p}", req, priority=float(rng.integers(0, 5)))
+    jsnap = jax.device_put(b.build()[0])
+    return jsnap, snapshot_from_numpy(jax.device_get(jsnap))
+
+
 def _round_inputs(name, used_frac=0.3):
     """One fast round's inputs on both sides: the snapshot, the static
     context, and a `used` raised by used_frac of allocatable (so the
     resource filter cuts)."""
-    jsnap, tsnap = _pair(name)
-    jcfg, tcfg = JConfig(mode="fast"), EngineConfig(mode="fast")
+    if name in EXT_RESOURCES:
+        res, w = EXT_RESOURCES[name]
+        jsnap, tsnap = _ext_pair(name)
+        jcfg = JConfig(mode="fast", resources=res, score_resource_weights=w)
+        tcfg = EngineConfig(mode="fast", resources=res,
+                            score_resource_weights=w)
+    else:
+        jsnap, tsnap = _pair(name)
+        jcfg, tcfg = JConfig(mode="fast"), EngineConfig(mode="fast")
     jsat, jmem = jax_sat_tables(jsnap)
     jstatic = jassign.precompute_static(jcfg, jsnap, jsat, jmem)
     tstatic = tassign.precompute_static(tcfg, tsnap, _sat_tables(tsnap)[0])
@@ -205,7 +248,7 @@ def _t_cycle(tsnap, tstatic, used, **kw):
         tstatic.w_ts, tstatic.rw, **kw)
 
 
-@pytest.mark.parametrize("name", sorted(SNAPSHOTS))
+@pytest.mark.parametrize("name", sorted(SNAPSHOTS) + sorted(EXT_RESOURCES))
 def test_cycle_plain_matches_batched_cycle(name):
     """K5's plain version against batched_cycle (full width) and
     _cycle_nosig on a gathered view: feasibility exact, score to f32
@@ -233,6 +276,53 @@ def test_cycle_plain_matches_batched_cycle(name):
     want = np.where(vf, np.asarray(vs), -np.inf)
     np.testing.assert_allclose(gm.numpy(), want, rtol=1e-6)
     np.testing.assert_array_equal(np.isneginf(gm.numpy()), ~vf)
+
+
+# K5's tile at the widths the paths give it: (b)'s 5 120 nodes, a tenant
+# batch's 2 048, a 1 500-node and a 1 003-node cluster, a narrow one of
+# 300, one warp's 37 nodes, a single node.
+@pytest.mark.parametrize("N,want", [
+    (5120, (16, 128)), (2048, (16, 128)), (1500, (16, 128)),
+    (1003, (16, 128)), (300, (16, 96)), (37, (16, 32)), (1, (16, 32))])
+def test_cycle_tile_choice(N, want):
+    tr, threads = tassign.cycle_tile(N)
+    assert (tr, threads) == want
+    assert 1 <= tr <= 32 and 32 <= threads <= 256 and threads % 32 == 0
+    # A tile covers N where one CTA's threads can: 4 nodes a thread.
+    assert threads * 4 >= min(N, tassign.CYCLE_THREADS * 4)
+
+
+# node_add's buckets: in shared memory up to a CTA's 227 KB (P = 10 240
+# at N = 5 120, the headline; a tenant's 3 072 rows), in global scratch
+# past it.
+@pytest.mark.parametrize("P,N,shared", [(10240, 5120, True),
+                                        (3072, 2048, True),
+                                        (30000, 500, False)])
+def test_node_add_bucket_memory(P, N, shared):
+    b = tassign.node_add_smem_bytes(P, N)
+    assert b == 8 * P + 4 * (N + P // 32 + 2)
+    assert (b <= tassign.NODE_ADD_SMEM_MAX) == shared
+
+
+def test_node_add_row_arguments():
+    """node_add's row arguments as its kernel reads them: int32 or bool
+    with unit stride along the pods, the tenant stride returned (0 for
+    one rank row every tenant shares); anything else refused."""
+    cpu = torch.device("cpu")
+    rank = torch.arange(6, dtype=torch.int32).expand(3, 6)
+    assert tassign._rows_stride("node_add", cpu, rank, torch.int32,
+                                (3,), 6) == 0
+    node = torch.arange(18, dtype=torch.int32).reshape(3, 6)
+    assert tassign._rows_stride("node_add", cpu, node, torch.int32,
+                                (3,), 6) == 6
+    assert tassign._rows_stride("node_add", cpu, node[0], torch.int32,
+                                (), 6) == 0
+    with pytest.raises(TypeError):
+        tassign._rows_stride("node_add", cpu, node.long(), torch.int32,
+                             (3,), 6)
+    for bad, lead in ((node.T.contiguous().T, (3,)), (node, (2,))):
+        with pytest.raises(ValueError):
+            tassign._rows_stride("node_add", cpu, bad, torch.int32, lead, 6)
 
 
 def _tie_heavy(seed=0, rows=24, N=16):

@@ -52,7 +52,7 @@ SIGNATURES = {
                                _P, _P, _P, _P, _P, _P, _P],
     "tpusched_finalize_static": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "tpusched_parity_scan": [_I] * 6 + [_P] * 10 + [_I, _U, _P, _P, _P, _P],
-    "tpusched_cycle": [_I] * 5 + [_P] * 15 + [_I] + [_P] * 5,
+    "tpusched_cycle": [_I] * 5 + [_P] * 15 + [_I] + [_P] * 4 + [_I, _I, _P],
     "tpusched_row_topk": [_I, _I, _I, _P, _I, _U, _P, _P, _P, _P, _P],
     "tpusched_row_topk_radix": [_I, _I, _I, _P, _P, _P, _P],
     "tpusched_desirability": [_I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
@@ -64,7 +64,8 @@ SIGNATURES = {
     "tpusched_pairwise_batch": [_I] * 7 + [_P] * 21,
     "tpusched_deal": [_I] * 5 + [_P] * 7,
     "tpusched_top_by_rank": [_I] * 3 + [_P] * 5,
-    "tpusched_node_add": [_I] * 4 + [_P, _P, _P, _I, _P, _P],
+    "tpusched_node_add": [_I] * 4 + [_P, _I] * 3 + [_P, _I, _P, _P, _I]
+                         + [_P] * 3,
     "tpusched_pair_commit": [_I] * 6 + [_P] * 8 + [_I] + [_P] * 4,
     "tpusched_ia_at_choice": [_I] * 6 + [_P] * 13,
     "tpusched_waterfill": [_I] * 5 + [_P] * 13,

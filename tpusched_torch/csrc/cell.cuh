@@ -6,9 +6,10 @@
 // uses --fmad=false, so nothing is contracted into an FMA). Each loop
 // over the resources runs to R (RES_LOOP). With RB = MAX_R (K4) it is
 // unrolled to MAX_R and guarded by r < R, so the per-resource values stay
-// in registers and the R divides of a cell overlap; with RB = 0 (K5,
-// K22, whose passes measured faster so) it stays rolled. The operations
-// and their order are those of a loop to R either way.
+// in registers and the R divides of a cell overlap; with RB = R, the
+// exact count as a template parameter (K5), it is unrolled to R and the
+// guard folds away; with RB = 0 (K22) it stays rolled. The operations and
+// their order are those of a loop to R each way.
 #pragma once
 
 #include <math.h>

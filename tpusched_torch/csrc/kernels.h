@@ -80,6 +80,8 @@ int tpusched_parity_scan(int B, int Q, int threads, int P, int N, int R,
 // score. ia_ok ([P, N], K11's) and relaxed ([rows_n, N]) are NULL unless
 // the spread-relaxed feasibility mask & fit & ia_ok (& pending) is wanted.
 // P is the source pod rows per tenant; rows holds [B, rows_n] pod indices.
+// A CTA covers tr (1..32) rows x threads * 4 nodes (threads: 32..256, a
+// multiple of 32); R is 1..8.
 int tpusched_cycle(int B, int rows_n, int P, int N, int R, const int* rows,
                    const bool* pending, const bool* mask,
                    const float* sscore, const float* alloc,
@@ -88,7 +90,7 @@ int tpusched_cycle(int B, int rows_n, int P, int N, int R, const int* rows,
                    const bool* pair_ok, const float* ts, const float* ia,
                    const float* w_ia, int masked_out, bool* feasible,
                    float* score, const bool* ia_ok, bool* relaxed,
-                   void* stream);
+                   int tr, int threads, void* stream);
 
 // K6. Per row of masked [rows, N]: the K best (value, index), larger value
 // first and ties to the lower index (topv/topi [rows, K]); with seeded,
@@ -142,13 +144,22 @@ int tpusched_top_by_rank(int B, int P, int C, const bool* pend,
                          const long long* order, long long* buf,
                          long long* n_pend, void* stream);
 
-// K8's node_add (tpusched/kernels/assign.py _node_add): rows sorted by
-// (node, rank), perm [P] (sorted row -> pod row), node_s [P] (sorted
-// nodes, N = masked out); used[n] += sign * req[perm[j]] for each row of
-// node n, one at a time in sorted order. sign is +1 or -1.
-int tpusched_node_add(int B, int P, int N, int R, const int* perm,
-                      const int* node_s, const float* req, int sign,
-                      float* used, void* stream);
+// K8's node_add (tpusched/kernels/assign.py _node_add): for the rows with
+// mask set, used_out[node[i]] = used_in[node[i]] + sign * req[i] (node
+// clamped to [0, N - 1]), each node's rows one at a time in ascending
+// (rank, row index) order; nodes no row touches are copied through. B
+// tenants, one CTA each; node, mask and rank [B, P] with batch strides
+// node_bs, mask_bs, rank_bs (0: one row shared by every tenant), req
+// [B, P, R] and used [B, N, R] contiguous. sign is +1 or -1. With smem = 1
+// the CTA keeps its buckets in dynamic shared memory (P * 8 + (N + P / 32
+// + 2) * 4 bytes); with smem = 0 in key_scratch [B, P] and int_scratch
+// [B, N + P / 32 + 2]. R is 1..8.
+int tpusched_node_add(int B, int P, int N, int R, const int* node,
+                      int node_bs, const bool* mask, int mask_bs,
+                      const int* rank, int rank_bs, const float* req,
+                      int sign, const float* used_in, float* used_out,
+                      int smem, unsigned long long* key_scratch,
+                      int* int_scratch, void* stream);
 
 // K4, pairwise variant (tpusched/kernels/assign.py solve_sequential with
 // signatures): the parity scan with pairwise_row and pair_state_add_pod.

@@ -997,6 +997,17 @@ def cycle_plain(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
                                                       relaxed)
 
 
+# K5's tiles: a CTA covers CYCLE_TR rows x CYCLE_THREADS * 4 nodes.
+CYCLE_TR, CYCLE_THREADS = 16, 128
+
+
+def cycle_tile(N: int) -> tuple[int, int]:
+    """K5's tile (rows a CTA, threads a CTA; 4 nodes a thread) for rows
+    of N nodes: CYCLE_TR rows, CYCLE_THREADS threads, fewer (a multiple
+    of 32) where N is narrower than the tile."""
+    return CYCLE_TR, min(CYCLE_THREADS, max(32, -(-N // 128) * 32))
+
+
 def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
           mask: torch.Tensor, sscore: torch.Tensor, w_lr: torch.Tensor,
           w_ba: torch.Tensor, w_ts: torch.Tensor, rw: torch.Tensor,
@@ -1004,7 +1015,8 @@ def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
           pending: torch.Tensor | None = None, masked: bool = False,
           pair: tuple | None = None, w_ia: torch.Tensor | None = None,
           ia_ok: torch.Tensor | None = None):
-    """Kernel K5 on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel K5 on CUDA tensors (its tile from cycle_tile), the plain
+    version on CPU tensors."""
     dev = mask.device
     if dev.type == "cpu":
         return cycle_plain(alloc, used, req, mask, sscore, w_lr, w_ba, w_ts,
@@ -1020,8 +1032,8 @@ def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
     for w in (w_lr, w_ba, w_ts):
         check(k, dev, w, torch.float32, (*lead, P))
     check(k, dev, rw, torch.float32, (R,))
-    if R > 8:
-        raise ValueError(f"{k}: {R} resource axes, the kernel takes <= 8")
+    if not 1 <= R <= 8:
+        raise ValueError(f"{k}: {R} resource axes, the kernel takes 1..8")
     n_rows = P if rows is None else rows.shape[-1]
     if rows is not None:
         check(k, dev, rows, torch.int32, (*lead, n_rows))
@@ -1052,7 +1064,9 @@ def cycle(alloc: torch.Tensor, used: torch.Tensor, req: torch.Tensor,
         *(t.data_ptr() for t in (mask, sscore, alloc, used, req, w_lr, w_ba,
                                  w_ts, rw)),
         *pair_ptrs, int(masked), feasible.data_ptr(), score.data_ptr(),
-        *ptrs((ia_ok, relaxed)), stream_of(dev))
+        *ptrs((ia_ok, relaxed)),
+        *cycle_tile(N),
+        stream_of(dev))
     cycle.launches += 1
     if relaxed is not None:
         cycle.relaxed_launches += 1
@@ -1381,8 +1395,9 @@ def node_add_plain(used: torch.Tensor, node: torch.Tensor,
                    mask: torch.Tensor, requests: torch.Tensor,
                    rank: torch.Tensor, sign: float = 1.0) -> torch.Tensor:
     """JAX `_node_add`: used[node[p]] += sign * requests[p] for the masked
-    rows, per node one row at a time in ascending rank (the sub-steps'
-    order; JAX adds each node's segment total, a different association).
+    rows, per node one row at a time in ascending rank, ties by row index
+    (the sub-steps' order; JAX adds each node's segment total, a
+    different association).
     The order depends on ranks alone, so a compacted view adds what the
     full width adds. A tenant batch goes tenant by tenant."""
     if used.dim() == 3:
@@ -1406,31 +1421,71 @@ def node_add_plain(used: torch.Tensor, node: torch.Tensor,
     return used
 
 
+# A CTA's shared memory on the H100 (227 KB), less its static part.
+NODE_ADD_SMEM_MAX = 232448 - 1024
+
+
+def node_add_smem_bytes(P: int, N: int) -> int:
+    """Bytes of node_add's buckets for one tenant: a 64-bit (rank, row) key
+    per row, each node's bucket end and the list of long buckets
+    (csrc/commit.cu). They live in shared memory up to NODE_ADD_SMEM_MAX,
+    else in global scratch."""
+    return P * 8 + (N + P // 32 + 2) * 4
+
+
+def _rows_stride(k: str, dev: torch.device, t: torch.Tensor,
+                 dtype: torch.dtype, lead: tuple, P: int) -> int:
+    """Check a [.., P] row argument of node_add (on `dev`, of `dtype`,
+    unit stride along P) and return its tenant stride: 0 for one row
+    that every tenant shares, as the gang gate's expanded rank is."""
+    if t.device != dev:
+        raise ValueError(f"{k}: tensor on {t.device}, want {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{k}: dtype {t.dtype}, want {dtype}")
+    if tuple(t.shape) != (*lead, P) or t.stride(-1) != 1:
+        raise ValueError(f"{k}: shape {tuple(t.shape)} stride {t.stride()}"
+                         f", want {(*lead, P)} with unit stride along P")
+    return t.stride(0) if lead else 0
+
+
 def node_add(used: torch.Tensor, node: torch.Tensor, mask: torch.Tensor,
              requests: torch.Tensor, rank: torch.Tensor,
              sign: float = 1.0) -> torch.Tensor:
-    """K8's node_add entry point on CUDA tensors (the adds, after the
-    library sort), the plain version on CPU tensors."""
+    """K8's node_add entry point on CUDA tensors (one launch on the
+    unsorted rows: the kernel orders each node's rows by (rank, row) and
+    writes a new usage table), the plain version on CPU tensors."""
     dev = used.device
     if dev.type == "cpu":
         return node_add_plain(used, node, mask, requests, rank, sign)
-    lead = used.shape[:-2]                 # () or (B,): the tenant axis
+    lead = tuple(used.shape[:-2])          # () or (B,): the tenant axis
     P = node.shape[-1]
     N, R = used.shape[-2:]
     k = "node_add"
     if sign not in (1.0, -1.0):
         raise ValueError(f"{k}: sign {sign}, want +1 or -1")
+    if not 1 <= R <= 8:
+        raise ValueError(f"{k}: {R} resource axes, the kernel takes 1..8")
     check(k, dev, requests, torch.float32, (*lead, P, R))
     check(k, dev, used, torch.float32, (*lead, N, R))
-    used = used.clone()
-    if node.numel() == 0:
-        return used
-    perm, node_s = _by_node_rank(node, mask, rank, N)
-    _build.launch("tpusched_node_add", lead[0] if lead else 1, P, N, R,
-                  *ptrs((perm, node_s, requests)), int(sign),
-                  used.data_ptr(), stream_of(dev))
+    node_bs = _rows_stride(k, dev, node, torch.int32, lead, P)
+    mask_bs = _rows_stride(k, dev, mask, torch.bool, lead, P)
+    rank_bs = _rows_stride(k, dev, rank, torch.int32, lead, P)
+    out = torch.empty_like(used)
+    B = lead[0] if lead else 1
+    if out.numel() == 0:
+        return out
+    smem = node_add_smem_bytes(P, N) <= NODE_ADD_SMEM_MAX
+    keys = ints = None
+    if not smem:
+        keys = torch.empty((B, P), dtype=torch.int64, device=dev)
+        ints = torch.empty((B, N + P // 32 + 2), dtype=torch.int32,
+                           device=dev)
+    _build.launch("tpusched_node_add", B, P, N, R,
+                  *ptrs((node, node_bs, mask, mask_bs, rank, rank_bs,
+                         requests, int(sign), used, out, int(smem), keys,
+                         ints)), stream_of(dev))
     node_add.launches += 1
-    return used
+    return out
 
 
 node_add.launches = 0
