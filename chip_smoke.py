@@ -22,7 +22,10 @@ package, and
      timed), K6 row_topk (K = 8 seeded, kb = 8, beside torch.topk;
      then its two paths, the K-pass kernel and the radix select, at
      K = 4, 8, 16 and 256 without the seeded pick, each exact and timed),
-     K8 prefix_commit on the first sub-step of the first fast round;
+     K8 prefix_commit_loop (every commit sub-step of a round in one
+     launch) on the first fast round, exactly, timed by CUDA events and
+     the profiler (and later on (d)'s first compacted round, fast (h)'s
+     first preemption drain step and (t)'s round 1, B = 8);
      Then, on the pairwise cluster (d) (BASELINE config 3 at 10 000 x
      5 000: topology spread and inter-pod affinity), K9 sig_match, K10
      pair_counts, K11 pairwise_batch and K4's pairwise variant against
@@ -112,7 +115,8 @@ package, and
        a reverted preemptor stranded counted) and at least one
        eviction; then the auction kernels against their plain versions
        on the arguments of each cell's first auction round, exactly,
-       timed with CUDA events and the profiler's kernel time, K6 at
+       timed with CUDA events and the profiler's kernel time (K18 also
+       at cluster sizes 1, 4, 8 and 16, each exact), K6 at
        K = 256 (the radix path) beside torch.topk and the K-pass kernel,
        and on tie rows (all -inf, all equal, -0.0 with +0.0, wide ties at
        the K-th, N not a multiple of 256) at K = 256 and K = N;
@@ -202,8 +206,10 @@ package, and
        and K18 over the tenant axis on (th)'s first auction round
        against their plain versions, with CUDA-event and profiler
        times;
-     - every fast cell of PR8_FAST keeps PR 8's placed count and host
-       reads;
+     - every fast cell of FAST_COUNTS keeps its recorded placed count,
+       and its recorded host reads less the reads of the commit loop
+       that K8 runs on the card (one a sub-step and one to end each
+       round's loop, counted through a recording K8 in a second solve);
   5. prints per-stage time breakdowns of one steady parity and one
      steady fast solve (with the host-clock cost of the dealing in
      three forms: K23, its plain version, torch.cumsum + searchsorted),
@@ -333,10 +339,12 @@ PAIR_TENANT_SEED, GANG_TENANT_SEED = 70, 80
 PRE_TENANT_SEED, PRE_PAIR_TENANT_SEED = 90, 100
 GANG_GROUPS, GANG_GROUP_STEP, GANG_NODE_STEP = 750, 12, 180
 REDUCED_TENANTS, REDUCED_PODS, REDUCED_NODES = 4, 600, 300
-# PR 8's fast placed counts and host reads, which the dealing and the
-# tranche pick as kernels (K23, K24, same bits as the torch code they
-# replace) must keep.
-PR8_FAST = {"a": (10000, 26), "b": (9942, 64), "c": (10000, 26),
+# Fast placed counts and host reads recorded when the host loop ran the
+# commit sub-steps, before the dealing and the tranche pick became
+# kernels (K23, K24: the same bits as the torch code they replaced). A
+# solve must keep the placed count, and the reads less those of the
+# commit loop that K8 runs on the card (keep_fast_counts).
+FAST_COUNTS = {"a": (10000, 26), "b": (9942, 64), "c": (10000, 26),
             "fast d": (9231, 46), "fast d seeded": (9231, 46),
             "h fast": (9995, 514)}
 
@@ -364,8 +372,8 @@ KERNELS = (
      "tpusched/kernels/assign.py:854"),
     ("desirability", kassign.desirability, "launches",
      "tpusched_torch/csrc/deal.cu", "tpusched/kernels/assign.py:793"),
-    ("prefix_commit", kassign.prefix_commit, "launches",
-     "tpusched_torch/csrc/commit.cu", "tpusched/kernels/assign.py:894"),
+    ("prefix_commit_loop", kassign.prefix_commit_loop, "launches",
+     "tpusched_torch/csrc/commit.cu", "tpusched/kernels/assign.py:888"),
     ("sig_match", kpair.sig_match, "launches",
      "tpusched_torch/csrc/pairwise.cu", "tpusched/kernels/pairwise.py:85"),
     ("pair_counts", kpair.pair_counts, "launches",
@@ -454,8 +462,8 @@ ONCE = ("tableau_cells", "finalize_static", "parity_scan", "sig_match",
 # launches the radix select and the K-pass kernel only for its K < 8
 # calls (UNSEEDED_IDLE).
 FAST_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
-                "row_topk", "row_topk_radix", "desirability", "prefix_commit",
-                "deal", "top_by_rank")
+                "row_topk", "row_topk_radix", "desirability",
+                "prefix_commit_loop", "deal", "top_by_rank")
 SEEDED_IDLE = ("row_topk_radix",)
 UNSEEDED_IDLE = ("row_topk",)
 FAST_PAIR_KERNELS = FAST_KERNELS + (
@@ -1041,7 +1049,7 @@ def k4_rows(name: str, plain_scan, smi: str) -> dict:
         placed=int((want[0] >= 0).sum().item()))
 
 
-def kernel_phase(cfg: EngineConfig, dsnap) -> dict:
+def kernel_phase(cfg: EngineConfig, dsnap, smi: str) -> dict:
     """Each kernel against its plain version on the same CUDA tensors,
     with times and bounds."""
     nodes, pods = dsnap.nodes, dsnap.pods
@@ -1097,7 +1105,7 @@ def kernel_phase(cfg: EngineConfig, dsnap) -> dict:
     static = kassign.finalize_static(
         cfg, dsnap, kassign.WarmTableau(node_sat_t, None, None, *cells_k))
     order = kassign.pop_order(cfg, dsnap)
-    out.update(fast_kernel_phase(cfg, dsnap, static, order))
+    out.update(fast_kernel_phase(cfg, dsnap, static, order, smi))
     return out
 
 
@@ -1157,23 +1165,75 @@ def first_k7_args(cfg: EngineConfig, dsnap):
     return calls[0]
 
 
-def first_substep_args(cfg: EngineConfig, dsnap):
-    """The arguments of the first prefix_commit (K8) call of a fast
-    solve: the first sub-step of its first round."""
+def loop_calls(cfg: EngineConfig, dsnap, want=lambda site, a: True,
+               solve=None, first: bool = True):
+    """The arguments (cloned) of K8's loop calls in one fast solve of
+    `dsnap` whose _deal_commit caller (by function name) and arguments
+    pass `want`: the first such call, or all of them."""
     calls = []
 
     def record(*args):
-        if not calls:
-            calls.append(args)
-        return kassign.prefix_commit(*args)
+        if (not (first and calls)
+                and want(sys._getframe(2).f_code.co_name, args)):
+            calls.append(tuple(x.clone() if isinstance(x, torch.Tensor)
+                               else x for x in args))
+        return kassign.prefix_commit_loop(*args)
 
-    ops = dataclasses.replace(kassign.KERNELS, prefix_commit=record)
-    kassign.solve_rounds(dataclasses.replace(cfg, mode="fast"), dsnap,
-                         _sat_tables(dsnap)[0], ops=ops)
-    return calls[0]
+    ops = dataclasses.replace(kassign.KERNELS, prefix_commit_loop=record)
+    (solve or solve_core)(dataclasses.replace(cfg, mode="fast"), dsnap,
+                          ops=ops)
+    return calls[0] if first else calls
 
 
-def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order) -> dict:
+def k8_set(label: str, args, smi: str) -> dict:
+    """K8's loop kernel (every sub-step of a round in one launch) against
+    the plain loop on one argument set, exactly, timed by CUDA events and
+    the profiler's kernel time; the bound counts each argument read and
+    each output written once, and the scan's adds and fit tests over the
+    active rows of each sub-step (from the plain loop's sub-steps)."""
+    args = args[:7]       # the recorded call's sub-step hook is not timed
+    got = kassign.prefix_commit_loop(*args)
+    err = require_equal(f"prefix_commit_loop ({label})", got,
+                        kassign.prefix_commit_loop_plain(*args))
+    active = []
+
+    def step(perm, cand_s, requests, alloc, *rest):
+        active.append(int((cand_s < alloc.shape[-2]).sum()))
+        return kassign.prefix_commit_plain(perm, cand_s, requests, alloc,
+                                           *rest)
+
+    kassign.prefix_commit_loop_plain(*args, step=step)
+    R = args[4].shape[-1]
+    ops = sum(A * R * (max(1, (A - 1).bit_length()) + 3) for A in active)
+    fn = lambda: kassign.prefix_commit_loop(*args)  # noqa: E731
+    lead = tuple(args[3].shape[:-1])
+    row = dict(
+        err=err, ms=cuda_ms(fn, 10),
+        prof_ms=profiler_ms(fn, "prefix_commit_loop_kernel"),
+        plain_ms=cuda_ms(lambda: kassign.prefix_commit_loop_plain(*args), 3),
+        bound=bound(nbytes(*args, *got), ops),
+        substeps=int(got[2].sum()), committed=int((got[1] >= 0).sum()),
+        shape=f"{label}: B={lead[0] if lead else 1} P={args[3].shape[-1]} "
+              f"KC={args[0].shape[-1]} N={args[5].shape[-2]} R={R}, "
+              f"{int(got[2].sum())} sub-steps over "
+              f"{sum(active)} active rows, {int((got[1] >= 0).sum())} "
+              f"committed")
+    log_rows({"prefix_commit_loop": row}, label, smi)
+    return row
+
+
+def k8_merge(kp: dict, label: str, row: dict) -> None:
+    """One more argument set of K8's row: its error joins the row's, its
+    numbers go under extra["sets"]."""
+    r = kp["prefix_commit_loop"]
+    r["err"] = max(r["err"], row["err"])
+    r.setdefault("extra", {}).setdefault("sets", {})[label] = {
+        k: row[k] for k in ("ms", "prof_ms", "plain_ms", "substeps",
+                            "committed")} | {"bound_ms": row["bound"][0]}
+
+
+def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order,
+                      smi: str) -> dict:
     """K5-K8 against their plain versions at the shapes of ScoreBatch and
     of the first fast round."""
     nodes, pods = dsnap.nodes, dsnap.pods
@@ -1273,22 +1333,10 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order) -> dict:
         + ", ".join(f"K={kk} {a:.4f} / {b:.4f}"
                     for kk, (a, b) in paths.items())
         + f"; radix from K={kassign.RADIX_MIN_K}")
-    # K8 on the first sub-step of the first fast round.
-    args8 = first_substep_args(cfg, dsnap)
-    got8 = kassign.prefix_commit(*args8)
-    err = require_equal("prefix_commit", got8,
-                        kassign.prefix_commit_plain(*args8))
-    perm, cand_s = args8[0], args8[1]
-    active = int((cand_s < N).sum().item())
-    committed = int((got8[1] >= 0).sum().item())
-    b8 = nbytes(*args8[:7], *got8)
-    ops8 = P * R * max(1, (P - 1).bit_length())
-    out["prefix_commit"] = dict(
-        err=err, ms=cuda_ms(lambda: kassign.prefix_commit(*args8), 10),
-        plain_ms=cuda_ms(lambda: kassign.prefix_commit_plain(*args8), 3),
-        bound=bound(b8, ops8),
-        shape=f"P={perm.shape[-1]} R={R} active={active} "
-              f"committed={committed}")
+    # K8's loop on the first fast round, at full width.
+    label = "(b)'s round 1, full width"
+    out["prefix_commit_loop"] = k8_set(label, loop_calls(cfg, dsnap), smi)
+    k8_merge(out, label, out["prefix_commit_loop"])
     return out
 
 
@@ -1598,6 +1646,7 @@ def fast_breakdown(engine: Engine, snap) -> dict:
             "pack": ev[1].elapsed_time(ev[2]),
             "solve_core + pack + D2H (host clock)": host_ms,
             "host_reads": stats.host_reads, "rounds": int(out[5].item()),
+            "K8 sub-steps (on the card)": stats.substeps(),
             **({"preemption rounds": stats.preempt_rounds,
                 "preemption host reads": stats.preempt_reads}
                if cfg.preemption else {}),
@@ -1623,15 +1672,37 @@ def check_launches(name: str, moved: dict, want: tuple[str, ...],
                                  f"(launches {moved})")
 
 
-def keep_pr8(name: str, res) -> None:
-    """A fast cell of PR8_FAST places as many pods with as many host
-    reads as in PR 8: the dealing and the tranche pick moved into
-    kernels without changing a bit."""
-    if name in PR8_FAST:
-        got = (int((res.assignment >= 0).sum()), res.host_reads)
-        if got != PR8_FAST[name]:
-            raise AssertionError(f"fast {name}: placed and host reads {got}, "
-                                 f"PR 8 {PR8_FAST[name]}")
+def keep_fast_counts(name: str, cfg: EngineConfig, dsnap, res) -> str:
+    """A fast cell of FAST_COUNTS places its recorded count of pods (the
+    dealing and the tranche pick moved into kernels without changing a
+    bit), and reads the host as often as recorded less the commit loop's
+    reads, which K8 runs on the card: one a sub-step and one to end each
+    round's loop, counted by a second solve through a recording K8 (which
+    must read as often as the first)."""
+    if name not in FAST_COUNTS:
+        return ""
+    steps = []
+
+    def record(*a):
+        out = kassign.prefix_commit_loop(*a)
+        steps.append(out[2])
+        return out
+
+    stats = kassign.RoundStats()
+    solve_core(cfg, dsnap, stats=stats, ops=dataclasses.replace(
+        kassign.KERNELS, prefix_commit_loop=record))
+    loop_reads = sum(int(t.max()) + 1 for t in steps)
+    placed = int((res.assignment >= 0).sum())
+    want_placed, want_reads = FAST_COUNTS[name]
+    if (placed != want_placed or stats.host_reads != res.host_reads
+            or res.host_reads + loop_reads != want_reads):
+        raise AssertionError(
+            f"fast {name}: placed {placed}, host reads {res.host_reads} "
+            f"(again {stats.host_reads}) + {loop_reads} commit-loop reads; "
+            f"recorded {FAST_COUNTS[name]}")
+    return (f"; host reads {res.host_reads} = the recorded {want_reads} "
+            f"less {loop_reads} commit-loop reads ({len(steps)} K8 launches, "
+            f"{sum(int(t.sum()) for t in steps)} sub-steps)")
 
 
 def solve_phase(label: str, requests, want: tuple[str, ...],
@@ -2098,6 +2169,8 @@ AUCTION_PLAIN = {
     "row_topk_radix": kassign.row_topk_plain,
     "auction_claim": kpre.auction_claim_plain,
 }
+# K18's cluster sizes held against its plain version and timed.
+CLAIM_SWEEP = (1, 4, 8, 16)
 # The CUDA kernel of each auction row, for the profiler's kernel times.
 AUCTION_CUDA_NAME = {
     "auction_tables": "auction_tables_kernel",
@@ -2224,6 +2297,26 @@ def auction_kernel_phase(dsnap, calls: dict) -> dict:
             C, K = topi.shape[-2:]
             N, V, R = ctx.vreq.shape[-3:]
             B = can_plain.numel() // C
+            # K18 at every cluster size of CLAIM_SWEEP, each exact.
+            want = _flat(plain(*a))
+            sweep = {}
+            for Q in CLAIM_SWEEP:
+                fq = lambda: fn(*a, cluster=Q)  # noqa: E731
+                require_equal(f"auction_claim (Q={Q})", _flat(fq()), want)
+                sweep[f"B={B} Q={Q}"] = {
+                    "ms": cuda_ms(fq, 20),
+                    "prof_ms": profiler_ms(fq, AUCTION_CUDA_NAME[name])}
+            policy = kpre.claim_cluster_size(
+                B, C, torch.cuda.get_device_properties(0)
+                .multi_processor_count)
+            r["extra"] = {"clusters": sweep}
+            log(f"K18 by cluster size (B={B} C={C} K={K} N={N}; the "
+                f"policy's Q={policy[0]} of {policy[1]} threads), each "
+                "exact: " + ", ".join(
+                    f"Q={k.split('Q=')[1]} {v['ms']:.4f} ms (profiler "
+                    + ("not measured" if v["prof_ms"] is None
+                       else f"{v['prof_ms']:.4f} ms") + ")"
+                    for k, v in sweep.items()))
             row = ctx.vreq[..., 0, :, :].numel() // B * 4 + V * (
                 4 + 4 + 1 + 4 + 1)
             b = nbytes(topv, topi, can_plain, n_plain, rank, p_prio, p_req,
@@ -2260,7 +2353,6 @@ def fast_preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
         for k, v in phase_counts.items():
             launches[k] = launches.get(k, 0) + v
         _, _, _, res, wall_ms, moved = results[0]
-        keep_pr8(name.split(":")[0], res)
         eng = Engine(cfg)
         walls = []
         for _ in range(5):
@@ -2271,6 +2363,7 @@ def fast_preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
         bd = fast_breakdown(eng, snap)
         dsnap = eng.put(snap)
         eng.close()
+        counts = keep_fast_counts(name.split(":")[0], cfg, dsnap, res)
         claims = []
 
         def hook(ops):
@@ -2302,7 +2395,8 @@ def fast_preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
             f"{info['preempted']} by preemption, {info['evicted']} victims "
             f"evicted; rounds {res.rounds} of which preemption "
             f"{bd['preemption rounds']}, host reads {res.host_reads} of "
-            f"which preemption {bd['preemption host reads']}; launches "
+            f"which preemption {bd['preemption host reads']}{counts}; "
+            f"launches "
             f"{moved}; audit clean, equal to the plain solve in assignment, "
             f"order, chosen, commit key, used, evicted, rounds and host "
             f"reads (plain solve {info['plain_solve_ms']:.1f} ms); "
@@ -3020,10 +3114,16 @@ def tenant_kernel_rows(cfg, dstack, smi: str) -> dict:
     ops = dataclasses.replace(
         kassign.KERNELS, deal=recorder("deal", kassign.deal),
         top_by_rank=recorder("top_by_rank", kassign.top_by_rank),
-        desirability=recorder("desirability", kassign.desirability))
+        desirability=recorder("desirability", kassign.desirability),
+        prefix_commit_loop=recorder("prefix_commit_loop",
+                                    kassign.prefix_commit_loop))
     solve_many(cfg, dstack, ops=ops)
     rows = {"desirability": k7_row("(t)'s round 1", calls["desirability"],
                                    smi)}
+    label = "(t)'s round 1, B = 8"
+    k8 = k8_set(label, calls["prefix_commit_loop"], smi)
+    rows["prefix_commit_loop"] = {"err": k8["err"]}
+    k8_merge(rows, label, k8)
     dem, rem, gather = calls["deal"]
     got = kassign.deal(dem, rem, gather)
     err = require_equal("deal", [got], [kassign.deal_plain(dem, rem, gather)])
@@ -3143,7 +3243,8 @@ def tenant_phase(smi: str) -> tuple[dict, dict]:
         f"{B * k4_solo:.3f} ms); each tenant equal to its solo launch at "
         f"Q=1; {smi}")
     rows = tenant_kernel_rows(cfg_f, dstack, smi)
-    log_rows({k: r for k, r in rows.items() if k != "desirability"},
+    log_rows({k: r for k, r in rows.items()
+              if k not in ("desirability", "prefix_commit_loop")},
              "(t)'s fast batch", smi)
     return launches, rows
 
@@ -3577,7 +3678,7 @@ def main() -> int:
     engine = Engine(cfg_first)
 
     # -- kernel phase --------------------------------------------------------
-    kp = kernel_phase(cfg_first, engine.put(snap_b))
+    kp = kernel_phase(cfg_first, engine.put(snap_b), smi)
     kp.update(pair_kernel_phase(cfg_first, engine.put(snap_d)))
     kp.update(fast_pair_kernel_phase(cfg_first, engine.put(snap_d)))
     for name, r in kp.items():
@@ -3619,12 +3720,12 @@ def main() -> int:
         launches[k] += v
     for name, cfg, snap, res, wall_ms, moved in fast:
         info = audit(f"fast {name}", cfg, engine.put(snap), res)
-        keep_pr8(name.split(":")[0], res)
+        counts = keep_fast_counts(name.split(":")[0], cfg, engine.put(snap), res)
         log(f"fast solve {name}: {wall_ms:.3f} ms wall, placed "
             f"{info['placed']}/{info['valid_pods']} (parity placed "
             f"{parity_placed[name]}), rounds {res.rounds}, host reads "
-            f"{res.host_reads}, launches {moved}, audit clean, equal to "
-            f"the plain fast solve; {smi}")
+            f"{res.host_reads}{counts}, launches {moved}, audit clean, equal "
+            f"to the plain fast solve; {smi}")
     cfg_fa = dataclasses.replace(cfg_first, mode="fast")
     kp["desirability"] = k7_row(
         "fast (a)'s round 0", first_k7_args(cfg_fa, engine.put(snap_a)), smi,
@@ -3683,10 +3784,10 @@ def main() -> int:
         launches[k] += v
     for name, cfg, snap, res, wall_ms, moved in fast_pair:
         info = audit(name, cfg, engine.put(snap), res)
-        keep_pr8(name.split(":")[0], res)
+        counts = keep_fast_counts(name.split(":")[0], cfg, engine.put(snap), res)
         log(f"fast pairwise solve {name}: {wall_ms:.3f} ms wall, placed "
             f"{info['placed']}/{info['valid_pods']}, rounds {res.rounds}, "
-            f"host reads {res.host_reads}, launches {moved}, audit clean, "
+            f"host reads {res.host_reads}{counts}, launches {moved}, audit clean, "
             f"equal to the plain fast solve ({info['plain_solve_ms']:.1f} "
             f"ms), pairwise audit clean (S={info['signatures']}, "
             f"{info['anti_holders']} placed required-anti holders), "
@@ -3711,6 +3812,13 @@ def main() -> int:
         f"({res_d.rounds}); host reads {res_d.host_reads} vs "
         f"{res_full.host_reads}, full-width solve {full_ms:.3f} ms wall; "
         f"{smi}")
+    # K8's loop on (d)'s first compacted round: a [1 024, N] view whose
+    # ranks are global.
+    P_d = snap_fd.pods.valid.shape[0]
+    label = "(d)'s first compacted round"
+    k8_merge(kp, label, k8_set(label, loop_calls(
+        cfg_d, engine.put(snap_fd),
+        want=lambda site, a: a[3].shape[-1] < P_d), smi))
     # The plain fast solve of (d) on the host's CPU places what the card
     # placed.
     t0 = time.perf_counter()
@@ -3765,6 +3873,17 @@ def main() -> int:
     for k, v in phase_counts.items():
         launches[k] += v
     kp.update(kp_auction)
+    # K8's loop on a preemption drain step of fast (h) (a view of the
+    # best-ranked pending pods at their global ranks): each preemption
+    # round (S = 0) commits twice, the drain first, then the plain
+    # claims; the first drain with an allowed row.
+    pre = loop_calls(EngineConfig(mode="fast", preemption=True),
+                     engine.put(snap_h), first=False,
+                     want=lambda site, a: site == "_preempt_rounds_many")
+    step, drain = next((i, a) for i, a in enumerate(pre[0::2])
+                       if bool(a[2].any()))
+    label = f"(h)'s drain in preemption round {step + 1}"
+    k8_merge(kp, label, k8_set(label, drain, smi))
     kp["cycle"]["extra"]["sizes"] = k5_sizes(
         fast_cells[:2] + (("h fast: config5 10000x5000, preemption on",
                            EngineConfig(mode="fast", preemption=True),
@@ -3792,11 +3911,16 @@ def main() -> int:
         for k, v in phase_counts.items():
             launches[k] += v
         for k, r in rows.items():
-            if k in kp:
-                kp[k]["err"] = max(kp[k]["err"], r["err"])
-                kp[k].setdefault("extra", {}).update(r.get("extra", {}))
-            else:
+            if k not in kp:
                 kp[k] = r
+                continue
+            kp[k]["err"] = max(kp[k]["err"], r["err"])
+            extra = kp[k].setdefault("extra", {})
+            for key, v in r.get("extra", {}).items():
+                if isinstance(v, dict) and isinstance(extra.get(key), dict):
+                    extra[key].update(v)    # K8's and K18's argument sets
+                else:
+                    extra[key] = v
 
     for name, n in launches.items():
         if name in OFF_PATH:

@@ -12,7 +12,8 @@ resolves inside the tree that runs. A cell is one of chip_smoke's: (a)
 config 2 at its PODS x NODES with QoS, (b) (a) with its constraints, (c)
 (a) with the seeded tie-break, (d) config 3 (spread and inter-pod
 terms), (h) config 5 with preemption, `hp` (h) with spread and inter-pod
-terms, the tenant batches with preemption (th) and (thp) (eight
+terms, the tenant batch (t) (eight config-2 tenants with (b)'s
+constraints), the tenant batches with preemption (th) and (thp) (eight
 config-5 tenants under one floor, solved by `solve_many`), `ths` and
 `thps` the same with the seeded tie-break, `t9` nine tenants of (a)'s
 size, and `k4q1`, `k4q2`, `k4q4`, `k4q8` K4 alone on (a)'s parity scan
@@ -31,7 +32,7 @@ after another.
 Prints one JSON line per tree and cell: the card's name and power
 limit, the host-clock walls in ms with their median and quartiles, host
 reads, placed and evicted pods, and whether its outputs equal the first
-tree's. With `--split` (fast mode), the walls' solves also time the
+tree's; exits 1 after the last cell if any tree's outputs did not. With `--split` (fast mode), the walls' solves also time the
 preemption rounds (`kernels.assign._preempt_rounds`, a device sync on
 each side) by the host clock, and the line adds their ms and each wall
 less them. With `--profile` (one-snapshot cells), one more line per
@@ -76,6 +77,8 @@ CELLS = {
     "h": ("config5_preemption", CS.PRE_SEED, {}, dict(preemption=True)),
     "hp": ("config5_preemption", CS.PRE_SEED, CS.PRE_PAIR,
            dict(preemption=True)),
+    "t": ("config2_scale", CS.TENANT_SEED,
+          dict(with_qos=True, **CS.CONSTRAINED), {}),
     "th": ("config5_preemption", CS.PRE_TENANT_SEED, {},
            dict(preemption=True)),
     "thp": ("config5_preemption", CS.PRE_PAIR_TENANT_SEED, CS.PRE_PAIR,
@@ -95,6 +98,8 @@ CELLS["k4q2"] = CELLS["k4q4"] = CELLS["k4q1"]
 TENANT_SHAPE = {
     c: (CS.TENANTS, CS.TENANT_PODS, CS.TENANT_STEP, CS.TENANT_NODES, {})
     for c in ("th", "thp", "ths", "thps")}
+TENANT_SHAPE["t"] = (CS.TENANTS, CS.TENANT_PODS, CS.TENANT_STEP,
+                     CS.TENANT_NODES, dict(signatures=0))
 TENANT_SHAPE["t9"] = (9, CS.PODS, 0, CS.NODES, dict(signatures=0))
 TENANT_CELLS = tuple(TENANT_SHAPE)
 # K4 alone at a given cluster size Q, on the arguments of (a)'s solve
@@ -142,8 +147,7 @@ class Tree:
                     **kw, **x), n, buckets=config.Buckets, **fixed)
                 self.dsnap = pkg.stack_snapshots(
                     [s for s, _ in built]).to("cuda")
-                self.run = lambda: [t.cpu() for t in pkg.solve_many(
-                    self.cfg, self.dsnap)]
+                self.run = self._batch(pkg)
             elif cell in K4_CELLS:
                 snap, _ = draw(np.random.default_rng(seed), CS.PODS,
                                CS.NODES, **kw)
@@ -163,6 +167,18 @@ class Tree:
         self.mods = {k: v for k, v in sys.modules.items()
                      if k.split(".")[0] == PACKAGE}
         self._check(root)
+
+    def _batch(self, pkg):
+        """solve_many on the stack, its outputs read back; the host reads
+        of the last run kept."""
+        def run():
+            stats = self.assign.RoundStats()
+            out = [t.cpu() for t in pkg.solve_many(self.cfg, self.dsnap,
+                                                   stats=stats)]
+            self.reads = stats.host_reads
+            return out
+
+        return run
 
     def _k4(self, dsnap, q: int):
         """A call of K4 at cluster size q on the arguments of dsnap's
@@ -223,7 +239,11 @@ class Tree:
                 np.array_equal(a, b) for a, b in zip(self.res[:2],
                                                      ref.res[:2]))}
         if self.cell in TENANT_CELLS or self.cell in K4_CELLS:
-            return {"placed": int((self.res[0] >= 0).sum()),
+            reads = ({"host_reads": self.reads}
+                     if self.cell in TENANT_CELLS else {})
+            return {**reads, "placed": int((self.res[0] >= 0).sum()),
+                    "evicted": (int(self.res[5].sum())
+                                if self.cell in TENANT_CELLS else 0),
                     "equal_to_first_tree": all(
                         torch.equal(a, b) for a, b in zip(self.res,
                                                           ref.res))}
@@ -289,6 +309,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     split = args.split and args.mode == "fast"
+    unequal = []
     for cell in args.cells:
         trees = [Tree(p, cell, args.mode, split) for p in args.trees]
         walls = {t.path: [] for t in trees}
@@ -301,6 +322,9 @@ def main() -> int:
         for t in trees:
             w = walls[t.path]
             q = statistics.quantiles(w, n=4) if len(w) > 1 else [w[0]] * 3
+            summary = t.summary(trees[0])
+            if not summary["equal_to_first_tree"]:
+                unequal.append(f"{cell}: {t.path}")
             more = {}
             if split:
                 p = pre[t.path]
@@ -311,7 +335,7 @@ def main() -> int:
             print(json.dumps({
                 "tree": t.path, "cell": cell, "mode": args.mode,
                 "card": smi, "walls_ms": w, "median_ms": q[1],
-                "q1_ms": q[0], "q3_ms": q[2], **t.summary(trees[0]),
+                "q1_ms": q[0], "q3_ms": q[2], **summary,
                 **more}), flush=True)
         if (args.profile and not args.mode == "score"
                 and cell not in TENANT_CELLS + tuple(K4_CELLS)):
@@ -319,6 +343,10 @@ def main() -> int:
                 print(json.dumps(t.profile()), flush=True)
         del trees
         torch.cuda.empty_cache()
+    if unequal:
+        print("solve_walls: outputs differ from the first tree's: "
+              + ", ".join(unequal), file=sys.stderr)
+        return 1
     return 0
 
 

@@ -25,6 +25,7 @@ tests.) `chip_smoke.py` makes the same comparisons at full size.
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -41,6 +42,7 @@ from tpusched_torch.engine import (
     solve_core,
 )
 from tpusched_torch.kernels import assign as ka
+from tpusched_torch.kernels import stack_tenants
 from tpusched_torch.kernels import explain as kex
 from tpusched_torch.kernels import pairwise as kp
 from tpusched_torch.kernels import preempt as kpre
@@ -345,26 +347,134 @@ def test_k7_stages_equal_plain(cuda, rows):
            [ka.desirability_plain(f[0], m[0], al[0])])
 
 
-def test_k8_equal_plain(cuda):
-    """Random (node, rank)-sorted candidates over a tight cluster, so
-    some rows fit, some do not and some are prefix-blocked."""
-    rng = np.random.default_rng(3)
-    P, N, R = 500, 37, 3
-    cand = rng.integers(0, N + 1, size=P)            # N = inactive
-    rank = rng.permutation(P)
-    perm = np.lexsort((rank, cand)).astype(np.int32)
-    cand_s = cand[perm].astype(np.int32)
-    req = rng.integers(1, 9, size=(P, R)).astype(np.float32) * 0.37
-    alloc = np.full((N, R), 12.0, np.float32)
-    used = rng.uniform(0, 6, size=(N, R)).astype(np.float32)
-    choice = np.full(P, -1, np.int32)
-    ptr = rng.integers(0, 3, size=P).astype(np.int32)
-    t = [torch.from_numpy(a).to(cuda)
-         for a in (perm, cand_s, req, alloc, used, choice, ptr)]
-    got = ka.prefix_commit(*t, 9)
-    want = ka.prefix_commit_plain(*t, 9)
+def _loop_case(cuda, case):
+    """K8 loop arguments (topi, topv, allowed, rank, requests, alloc,
+    used) of one case: random candidate lists (a tenth -inf) over a tight
+    cluster, so that rows fit, fail and are prefix-blocked, through
+    several sub-steps."""
+    rng = np.random.default_rng(8)
+    B, P, N, R, KC = None, 500, 37, 3, 9
+    ranks = None
+    if case == "one_node":          # every row on one node, past 1 024
+        P, N = 3000, 40
+    elif case == "ragged":          # P not a multiple of 1 024
+        P = 1500
+    elif case in ("r1", "r8"):
+        R = int(case[1])
+    elif case == "tenants":
+        B = 3
+    elif case == "global_ranks":    # a compacted view's ranks, past P
+        ranks = rng.choice(20 * P, size=P, replace=False)
+    elif case == "global_scratch":  # past a CTA's shared memory
+        P, N = 14000, 3000
+    lead = (B,) if B else ()
+    topi = rng.integers(0, N, size=(*lead, P, KC))
+    if case == "one_node":
+        topi[:] = 7
+    topv = rng.normal(size=(*lead, P, KC)).astype(np.float32)
+    topv[rng.random(topv.shape) < 0.1] = -np.inf
+    allowed = rng.random((*lead, P)) < 0.9
+    if case == "none_active":
+        allowed[:] = False
+    if case == "tenants":
+        allowed[1] = False          # no allowed row beside busy tenants
+    rank = (np.stack([rng.permutation(P) for _ in range(B)]) if B
+            else rng.permutation(P) if ranks is None else ranks)
+    req = rng.integers(1, 9, size=(*lead, P, R)).astype(np.float32) * 0.37
+    alloc = np.full((*lead, N, R), 12.0 if case != "one_node" else 3000.0,
+                    np.float32)
+    used = rng.uniform(0, 6, size=(*lead, N, R)).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        topi.astype(np.int32), topv, allowed, rank.astype(np.int32), req,
+        alloc, used))
+
+
+@pytest.mark.parametrize("case", ["random", "one_node", "none_active",
+                                  "tenants", "ragged", "r1", "r8",
+                                  "global_ranks", "global_scratch"])
+def test_k8_equal_plain(cuda, case):
+    """K8's loop kernel (every sub-step of a round in one launch) against
+    the plain loop, exactly: used, choice and each tenant's sub-steps."""
+    args = _loop_case(cuda, case)
+    got = ka.prefix_commit_loop(*args)
+    want = ka.prefix_commit_loop_plain(*args)
     _equal(got, want)
-    assert (got[1] >= 0).any() and (got[2] == 0).any()
+    if case == "none_active":
+        assert (got[1] == -1).all() and (got[2] == 0).all()
+        return
+    assert (got[1] >= 0).any() and (got[2] >= 1).any()
+    if case == "tenants":
+        assert int(got[2][1]) == 0 and torch.equal(got[0][1], args[6][1])
+    if case == "one_node":
+        assert int((got[1] == 7).sum()) > 1024
+    if case == "global_scratch":
+        assert (ka.prefix_commit_loop_smem_bytes(*args[0].shape[:1],
+                                                 args[5].shape[0])
+                > ka.NODE_ADD_SMEM_MAX)
+
+
+def _loop_calls(cfg, snap, solve=None, want=lambda site: True):
+    """The arguments of the K8 loop calls of a solve whose _deal_commit
+    caller's name passes `want` (cloned), in call order."""
+    calls = []
+
+    def rec(*a):
+        if want(sys._getframe(2).f_code.co_name):
+            calls.append(tuple(x.clone() if isinstance(x, torch.Tensor)
+                               else x for x in a))
+        return ka.prefix_commit_loop(*a)
+
+    ops = dataclasses.replace(ka.KERNELS, prefix_commit_loop=rec)
+    (solve or solve_core)(cfg, snap, ops=ops)
+    return calls
+
+
+@pytest.mark.parametrize("cell", ["b_full", "sig_compacted", "drain",
+                                  "tenants8"])
+def test_k8_loop_on_the_main_path_equal_plain(cuda, cell):
+    """K8's loop kernel against the plain loop on the rounds the main
+    path gives it: the first fast round of (b) at full width (10 000 x
+    5 000), a compacted signature round (global ranks in a view), a
+    preemption drain step, and a batch of 8 tenants."""
+    if cell == "b_full":
+        snap, _ = tsynth.config2_scale(np.random.default_rng(42), 10000,
+                                       5000, with_qos=True, taint_frac=0.3,
+                                       toleration_frac=0.3,
+                                       selector_frac=0.3, affinity_frac=0.3,
+                                       cordon_frac=0.05)
+        calls = _loop_calls(EngineConfig(mode="fast"), snap.to(cuda))[:1]
+    elif cell == "sig_compacted":
+        # tests/test_frontier.py:63's cluster, which hands off to [16, N]
+        # views at compact_cap = 16 and places in them.
+        snap, _ = tsynth.make_cluster(
+            np.random.default_rng(22), 48, 12, spread_frac=0.4,
+            interpod_frac=0.4, run_anti_frac=0.2, namespace_count=2,
+            cordon_frac=0.1, selector_frac=0.2, taint_frac=0.15,
+            toleration_frac=0.2)
+        snap = snap.to(cuda)
+        P = snap.pods.valid.shape[0]
+        calls = [a for a in _loop_calls(EngineConfig(mode="fast",
+                                                     compact_cap=16), snap)
+                 if a[3].shape[-1] < P]
+    elif cell == "drain":
+        snap = _preempt_snap(cuda, False)
+        calls = _loop_calls(EngineConfig(mode="fast", preemption=True), snap,
+                            want=lambda s: s == "_preempt_rounds_many")
+    else:
+        _, stacked = _tenant_batch(cuda, B=8)
+        calls = _loop_calls(EngineConfig(mode="fast"), stacked,
+                            solve=lambda c, s, ops: solve_many(
+                                c, s, device=cuda, ops=ops))[:2]
+        assert calls[0][0].shape[0] == 8
+    assert calls
+    placed = 0
+    for a in calls:
+        got = ka.prefix_commit_loop(*a)
+        _equal(got, ka.prefix_commit_loop_plain(*a))
+        placed += int((got[1] >= 0).sum())
+    assert placed > 0
+    if cell == "sig_compacted":
+        assert max(int(a[3].max()) for a in calls) >= calls[0][3].shape[-1]
 
 
 def _node_add_case(case, cuda):
@@ -879,6 +989,80 @@ def test_k16_to_k18_equal_plain(cuda, size):
     assert got[2].any()
 
 
+def _claim_args(cuda, case, draw=0):
+    """K18's arguments of one case over a config-5 state of 600 pods on
+    60 nodes: each bidder's K = min(256, N) candidates distinct nodes with
+    descending finite bids, a random tail of each row -inf, a tenth of
+    the bidders plain claimants; `draw` seeds the candidates, ranks and
+    flags."""
+    seed = 45
+    C = {"c1": 1, "c45": 45}.get(case, 200)
+    (cfg, snap, ctx, ev, used, rows, prio, req, can_plain, n_plain,
+     rank) = _auction_args(cuda, 600, 60, seed=seed, C=C)
+    N = snap.nodes.valid.shape[0]
+    alloc = snap.nodes.allocatable
+    if case == "n_ragged":          # N not a multiple of the cluster
+        N -= 5
+        ctx = type(ctx)(*(getattr(ctx, f.name)[:N]
+                          for f in dataclasses.fields(ctx)))
+        used, alloc = used[:N].contiguous(), alloc[:N].contiguous()
+        n_plain = n_plain.clamp(max=N - 1)
+    K = min(256, N)
+    g = torch.Generator(device="cpu").manual_seed(seed + draw)
+    if draw:
+        rank = rank[torch.randperm(C, generator=g).to(rank.device)]
+    topi = torch.stack([torch.randperm(N, generator=g)[:K]
+                        for _ in range(C)]).to(torch.int32)
+    topv = -torch.sort(torch.rand(C, K, generator=g), dim=1).values
+    topv[torch.arange(K)[None, :] > (0.8 * K * torch.rand(C, 1,
+                                                          generator=g))] = \
+        float("-inf")
+    if case == "nonfinite":
+        topv[:] = float("-inf")
+    if case == "one_node":
+        topi[:] = 3
+    if case == "all_plain":
+        can_plain = torch.ones_like(can_plain)
+    could = torch.rand(C, generator=g) < 0.7
+    return (topv.to(cuda), topi.to(cuda), can_plain, n_plain, rank, ctx,
+            ev, prio, req, used, alloc, could.to(cuda), 0.0,
+            snap.pdb_allowed.shape[0])
+
+
+@pytest.mark.parametrize("Q", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("case", ["random", "c1", "c45", "nonfinite",
+                                  "all_plain", "one_node", "n_ragged",
+                                  "tenants8"])
+def test_k18_cases_equal_plain(cuda, case, Q):
+    """K18 over a cluster of Q CTAs, a warp a bidder, against its plain
+    version, exactly, at every Q: one bidder, 45 (not a multiple of 32),
+    no finite candidate, only plain claimants, every bidder naming one
+    node, N not a multiple of Q, and a batch of 8 tenants (each tenant
+    also equal to its own launch)."""
+    if case == "tenants8":
+        per = [_claim_args(cuda, "random", draw=b) for b in range(8)]
+        a = tuple(stack_tenants([p[i] for p in per])
+                  if isinstance(per[0][i], torch.Tensor)
+                  or dataclasses.is_dataclass(per[0][i]) else per[0][i]
+                  for i in range(len(per[0])))
+    else:
+        a = _claim_args(cuda, case)
+    got = kpre.auction_claim(*a, cluster=Q)
+    _equal(got, kpre.auction_claim_plain(*a))
+    if case == "tenants8":
+        for t in range(8):
+            _equal([g[t] for g in got],
+                   kpre.auction_claim(*(_tenant_of(x, t) for x in a),
+                                      cluster=Q))
+    claimed = got[1]
+    if case == "nonfinite":
+        assert not (claimed & ~a[2]).any()
+    elif case == "one_node":
+        assert int((claimed & ~a[2]).sum()) <= 1
+    elif case != "c1":
+        assert claimed.any()
+
+
 def _tie_rows(n, seed):
     """Rows that stress K6's ties: all -inf, all equal, -0.0 and +0.0
     mixed (with -inf), three values (a wide tie at the K-th), and
@@ -1297,13 +1481,13 @@ def test_k1_to_k8_tenant_axis_equal_plain(cuda):
 
     def record(*a):
         calls.append(a)
-        return ka.prefix_commit(*a)
+        return ka.prefix_commit_loop(*a)
 
     solve_many(cfg, snap, ops=dataclasses.replace(ka.KERNELS,
-                                                  prefix_commit=record))
+                                                  prefix_commit_loop=record))
     assert calls and calls[0][0].shape[0] == B
     for a in calls[:3]:
-        _equal(ka.prefix_commit(*a), ka.prefix_commit_plain(*a))
+        _equal(ka.prefix_commit_loop(*a), ka.prefix_commit_loop_plain(*a))
 
 
 @pytest.mark.parametrize("tie_break", ["first", "seeded"])

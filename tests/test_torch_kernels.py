@@ -510,6 +510,91 @@ def test_deal_commit_plain_matches_jax(name, tie_break):
     np.testing.assert_allclose(used2.numpy(), np.asarray(jused2), rtol=1e-6)
 
 
+def _loop_round(name, tie_break, used_frac):
+    """One full-width round of the port's _deal_commit (plain kernels)
+    with K8's loop recorded (prefix_commit_loop on CPU tensors: the plain
+    loop), beside JAX's _deal_commit on the same feasible/masked inputs:
+    (the loop's arguments, its (used, choice, steps), JAX's (used2,
+    choice))."""
+    jsnap, tsnap, _, tstatic, used = _round_inputs(name, used_frac)
+    f, m = _t_cycle(tsnap, tstatic, used, masked=True)
+    allowed = f.any(dim=1)
+    tcfg = EngineConfig(mode="fast", tie_break=tie_break, tie_seed=3)
+    jcfg = JConfig(mode="fast", tie_break=tie_break, tie_seed=3)
+    order = tassign.pop_order(tcfg, tsnap)
+    P, N = m.shape
+    rank = torch.zeros(P, dtype=torch.int32)
+    rank[order] = torch.arange(P, dtype=torch.int32)
+    K = tassign._fallback_depth(N)
+    ids = torch.arange(P, dtype=torch.int32)
+    topv, topi, pick = tassign.row_topk_plain(m, K, tie_break == "seeded",
+                                              3, ids)
+    seen = []
+
+    def loop(*args):
+        out = tassign.prefix_commit_loop(*args)
+        seen.append((args, out))
+        return out
+
+    ops = dataclasses.replace(tassign.PLAIN, prefix_commit_loop=loop)
+    tassign._deal_commit(
+        tsnap.nodes.allocatable, tsnap.pods.requests, torch.from_numpy(used),
+        f, m, allowed, rank, topv, topi, tie_pick=pick, ops=ops)
+    jm = jnp.asarray(m.numpy())
+    jused2, jchoice, _ = jassign._deal_commit(
+        jsnap.nodes.allocatable, jsnap.pods.requests, jnp.asarray(used),
+        jnp.asarray(f.numpy()), jm, jnp.asarray(allowed.numpy()),
+        jnp.asarray(rank.numpy()), K,
+        tie_pick=jassign.pick_node_batch(jcfg, jm, jnp.asarray(ids.numpy())))
+    assert len(seen) == 1
+    return seen[0][0], seen[0][1], (np.asarray(jused2), np.asarray(jchoice))
+
+
+@pytest.mark.parametrize("used_frac", [0.0, 0.3])
+@pytest.mark.parametrize("tie_break", ["first", "seeded"])
+@pytest.mark.parametrize("name", sorted(SNAPSHOTS))
+def test_prefix_commit_loop_plain_matches_jax(name, tie_break, used_frac):
+    """K8's plain loop (prefix_commit_loop on CPU tensors) on the
+    candidate lists the port's _deal_commit hands it, against JAX's
+    _deal_commit on the same round (its sub-step while_loop; the rescue
+    after it stays idle where the loop commits): the same commits, choice
+    for choice, and usage to rtol 1e-6 (JAX's duplicate-index
+    scatter-add adds in an order of its own; the loop adds each node's
+    commits in rank order)."""
+    args, (used2, choice, steps), (jused2, jchoice) = _loop_round(
+        name, tie_break, used_frac)
+    topi, topv = args[:2]
+    assert topi.dtype == torch.int32 and topv.dtype == torch.float32
+    assert topi.shape == topv.shape and topi.shape[-1] == (
+        tassign._fallback_depth(args[5].shape[0]) + 1)
+    assert (choice >= 0).any(), "the loop committed nothing"
+    assert int(steps) >= 1
+    np.testing.assert_array_equal(choice.numpy(), jchoice)
+    np.testing.assert_allclose(used2.numpy(), jused2, rtol=1e-6)
+
+
+def test_prefix_commit_loop_plain_over_tenants():
+    """The plain loop over a tenant batch equals each tenant's loop alone
+    (used, choice, sub-steps): a tenant with no allowed row goes through
+    the batch's sub-steps unchanged, with 0 sub-steps of its own."""
+    args, solo, _ = _loop_round("mixed_qos", "first", 0.3)
+    topi, topv, allowed, rank, req, alloc, used = args[:7]
+    al = torch.stack([allowed, torch.zeros_like(allowed),
+                      allowed & (torch.arange(allowed.shape[0]) % 2 == 0)])
+    batch = [torch.stack([t] * 3) for t in (topi, topv)]
+    got = tassign.prefix_commit_loop(
+        *batch, al, *(torch.stack([t] * 3) for t in (rank, req, alloc,
+                                                      used)))
+    for b in range(3):
+        want = tassign.prefix_commit_loop(topi, topv, al[b], rank, req,
+                                          alloc, used)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[b].numpy(), w.numpy())
+    assert int(got[2][1]) == 0 and (got[1][1] == -1).all()
+    assert torch.equal(got[0][1], used)
+    np.testing.assert_array_equal(got[1][0].numpy(), solo[1].numpy())
+
+
 def test_balanced_allocation_root_correctly_rounded():
     """The plain balanced-allocation score takes the correctly rounded
     f32 square root (numpy's, CUDA sqrtf's), bitwise equal to the

@@ -56,7 +56,7 @@ SIGNATURES = {
     "tpusched_row_topk": [_I, _I, _I, _P, _I, _U, _P, _P, _P, _P, _P],
     "tpusched_row_topk_radix": [_I, _I, _I, _P, _P, _P, _P],
     "tpusched_desirability": [_I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
-    "tpusched_prefix_commit": [_I] * 5 + [_P] * 11,
+    "tpusched_prefix_commit_loop": [_I] * 5 + [_P] * 10 + [_I] + [_P] * 5,
     "tpusched_parity_scan_pair": [_I] * 6 + [_P] * 10 + [_I, _U]
                                  + [_I] * 4 + [_P] * 23,
     "tpusched_sig_match": [_I] * 6 + [_P] * 8,
@@ -80,7 +80,7 @@ SIGNATURES = {
     "tpusched_auction_tables": [_I] * 7 + [_P] * 9 + [_F] + [_P] * 4,
     "tpusched_auction_ok": [_I] * 4 + [_P] * 8,
     "tpusched_auction_rank": [_I] * 6 + [_P] * 11,
-    "tpusched_auction_claim": [_I] * 9 + [_P] * 16 + [_F] + [_P] * 8,
+    "tpusched_auction_claim": [_I] * 11 + [_P] * 16 + [_F] + [_P] * 8,
     "tpusched_capacity_prefix_keep": [_I] * 3 + [_P] * 7,
     "tpusched_frontier_closure": [_I] * 3 + [_P] * 11,
     "tpusched_explain_cells": [_I] * 6 + [_P] * 16 + [_I] * 3 + [_P] * 25,

@@ -1,26 +1,43 @@
-// K8: one capacity-prefix commit sub-step of a fast round.
+// K8: the capacity-prefix commits of a fast round, and node_add.
 //
-// Replaces the body of tpusched/kernels/assign.py:894-957 (_deal_commit's
-// `sub`, cum_width=None). The caller sorts the active candidates by
-// (node, rank) with a library sort and passes the permutation `perm` and
-// the sorted nodes `cand_s` (N marks an inactive row; those sort last).
-// Then, per sorted row i with segment start s (the first row of its
-// node):
-//   cum     = inclusive prefix of the active rows' requests, over all rows
-//   within  = cum[i] - (s > 0 ? cum[s - 1] : 0)       (JAX's association)
-//   fits    = active & forall r: used[n] + within <= alloc[n]
-//   commit  = fits & no non-fitting row in [s, i]
-// and scatters back through perm: choice = node and ptr = KC on a
-// commit, ptr + 1 on a row that did not fit.
-//
-// Fixed orders, so the plain version agrees bit for bit:
-//  * the prefix is a Hillis-Steele scan (step d adds the row d back, for
-//    d = 1, 2, 4, ...), which the plain version runs as whole-tensor
-//    adds;
+// prefix_commit_loop replaces tpusched/kernels/assign.py:888-957, the
+// while_loop of _deal_commit's commit sub-steps (cum_width=None), with one
+// launch a round: one CTA of 1 024 threads a tenant runs its tenant's
+// sub-steps until no row is active. Each row keeps its pointer into its
+// candidate list (topi / topv [P, KC]: the dealt node, then the top-K) on
+// chip; a row is active while it is allowed, uncommitted (ptr < KC) and
+// its candidate topv[ptr] is finite. Per sub-step:
+//  * the active rows are counted by node (shared-memory atomics); a
+//    CTA-wide OR of `any active` ends the loop (JAX's sub_cond);
+//  * the active rows are ordered by (node, rank), node_add's bucketing
+//    below: a 64-bit (rank, row) key per row scattered into its node's
+//    bucket, each bucket put in key order. The buckets packed in node
+//    order are exactly the layout the stable sort of (node, rank) keys
+//    gave (active rows first, each node in rank order), and a segment's
+//    start is its bucket's offset;
+//  * the request prefix is a Hillis-Steele scan over the A active rows
+//    only (step d adds row i - d to row i for d = 1, 2, 4, ...). Row i's
+//    sum reads rows <= i alone, and the full-width scan's rows >= A held
+//    zeros, so rows < A get the same bits as before;
+//  * per row: within = cum[i] - (s > 0 ? cum[s - 1] : 0) (JAX's
+//    association; s the segment start), fits = forall r: used[n] + within
+//    <= alloc[n]; the first row of each node that does not fit stops its
+//    commits (an atomicMin a node); a row before it commits (choice = n,
+//    ptr = KC), a row that does not fit advances (ptr + 1);
 //  * `used` gains each node's commits one at a time in ascending rank,
-//    by the thread of the node's segment. JAX adds them with a
-//    duplicate-index f32 scatter-add whose order is unspecified (an
-//    atomic add on CUDA, whose rounding changes run to run).
+//    by the node's thread, or by a warp for a bucket past 32 rows (as
+//    node_add walks). JAX adds them with a duplicate-index f32
+//    scatter-add of unspecified order (an atomic add on CUDA, whose
+//    rounding changes run to run).
+// steps[b] gets the number of sub-steps tenant b ran. Bound: latency. The
+// bytes (candidate lists, requests, usage once) take well under a
+// microsecond at P = 10 240; what costs is the chain of CTA barriers, about
+// R * log2(A) + 12 a sub-step, and the sub-steps of a round run back to
+// back with no host read or launch between them. The buckets, pointers,
+// fit flags, each node's first non-fitting row and the scan's two
+// buffers (18 P + 8 N + 4 (P / 32 + 2) bytes) live in shared memory where
+// they fit in a CTA's 227 KB (P = 10 240 with N = 5 120 does), else in
+// global scratch.
 //
 // The node_add entry point replaces assign.py:701 _node_add (the
 // validator's reverts, sign = -1, in the rounds with signatures; the gang
@@ -32,137 +49,40 @@
 // not bitwise); the order here depends only on the rows' ranks, so a
 // compacted view adds exactly what the full width adds.
 //
-// node_add takes the rows unsorted, in one launch: one CTA of 1 024
-// threads a tenant counts each node's masked rows (shared-memory
-// atomics), scans the counts, and scatters a 64-bit (rank, row) key per
-// row into its node's bucket, in whatever order the atomics land. Each
-// bucket is then put in key order, which is the stable sort's order
-// whatever the scatter's was: a bucket of up to 32 rows by its node's
-// thread (insertion sort), up to 1 024 by a warp and past that by the
-// whole CTA (a bitonic sort in its one-direction form, padded with +inf
-// keys), so a skewed bucket (a gang rolled back on one node, a small
-// cluster) never goes quadratic in one thread. A node's adds then run in
-// that order: the thread's own, or, for a long bucket, a warp reading 32
-// rows' requests at once and adding them in order through shuffles. The
-// buckets (P * 8 + (N + P / 32 + 2) * 4 bytes) live in shared memory where
-// they fit in a CTA's 227 KB, else in global scratch. Ranks are compared
-// as they are (a compacted view's ranks are global and may pass its P).
-// Bound: bytes ([P] node, mask, rank, [P, R] requests read once, [N, R]
-// used read and written once), 0.1 us of them at P = 10 240, N = 5 120;
-// what costs is latency: one launch and a handful of CTA barriers.
-//
-// prefix_commit's bound: latency. The work is O(P log P) adds over [P] x R
-// (P = 10240 at the headline), far below a microsecond of bandwidth; what costs is the
-// dependent chain of log2(P) scan steps per resource, each a block
-// barrier. One CTA does it all, with its scratch in global memory (L1
-// serves it), so P is not bounded by shared memory.
+// Both take the rows unsorted. One CTA of 1 024 threads a tenant counts
+// each node's rows (shared-memory atomics), scans the counts, and
+// scatters a 64-bit (rank, row) key per row into its node's bucket, in
+// whatever order the atomics land. Each bucket is then put in key order,
+// which is the stable sort's order whatever the scatter's was: a bucket
+// of up to 32 rows by its node's thread (insertion sort), up to 1 024 by a
+// warp and past that by the whole CTA (a bitonic sort in its
+// one-direction form, padded with +inf keys), so a skewed bucket (a gang
+// rolled back on one node, a small cluster, a round whose candidates all
+// name one node) never goes quadratic in one thread. A node's adds then
+// run in that order: the thread's own, or, for a long bucket, a warp
+// reading 32 rows' requests at once and adding them in order through
+// shuffles. node_add's buckets (P * 8 + (N + P / 32 + 2) * 4 bytes) live in
+// shared memory where they fit, else in global scratch. Ranks are
+// compared as they are (a compacted view's ranks are global and may pass
+// its P). node_add's bound: bytes ([P] node, mask, rank, [P, R] requests
+// read once, [N, R] used read and written once), 0.1 us of them at P =
+// 10 240, N = 5 120; what costs is latency: one launch and a handful of
+// CTA barriers.
 //
 // Tenant axis (tpusched/tenants.py:75 solve_many): gridDim.x = B, and CTA
-// b runs tenant b's sub-step on its own rows ([B, P] perm with the
-// tenant's own pod indices, sorted nodes, choice and ptr, [B, P, R]
-// requests, [B, N, R] allocatable and usage, its own scratch), or tenant
-// b's node_add (its own rows, buckets and usage).
+// b runs tenant b's sub-steps or node_add on its own rows, buckets and
+// usage.
 #include <limits.h>
+#include <math.h>
 
 #include "kernels.h"
 
 namespace {
 
 constexpr int THREADS = 1024;
-
-__global__ void __launch_bounds__(THREADS)
-prefix_commit_kernel(int P, int N, int R, int KC, const int* __restrict__ perm,
-                     const int* __restrict__ cand_s,
-                     const float* __restrict__ req,
-                     const float* __restrict__ alloc, float* used,
-                     int* choice, int* ptr, float* buf_a, float* buf_b,
-                     int* seg, int* first_bad, unsigned char* fit) {
-  const int tid = threadIdx.x;
-  {  // CTA b runs tenant b's sub-step.
-    const long long b = blockIdx.x;
-    perm += b * P;
-    cand_s += b * P;
-    req += b * P * R;
-    alloc += b * N * R;
-    used += b * N * R;
-    choice += b * P;
-    ptr += b * P;
-    buf_a += b * 2 * P;
-    buf_b += b * 2 * P;
-    seg += b * 2 * P;
-    first_bad += b * 2 * P;
-    fit += b * P;
-  }
-  for (int i = tid; i < P; i += THREADS) {
-    const int c = cand_s[i];
-    int lo = 0, hi = i;  // first row of node c (cand_s is sorted)
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (cand_s[mid] < c) lo = mid + 1; else hi = mid;
-    }
-    seg[i] = lo;
-    first_bad[i] = INT_MAX;
-    fit[i] = c < N ? 1 : 0;
-  }
-  __syncthreads();
-  for (int r = 0; r < R; ++r) {
-    for (int i = tid; i < P; i += THREADS)
-      buf_a[i] = cand_s[i] < N ? req[(long long)perm[i] * R + r] : 0.0f;
-    __syncthreads();
-    float* src = buf_a;
-    float* dst = buf_b;
-    for (int d = 1; d < P; d <<= 1) {
-      for (int i = tid; i < P; i += THREADS)
-        dst[i] = i >= d ? src[i] + src[i - d] : src[i];
-      __syncthreads();
-      float* t = src;
-      src = dst;
-      dst = t;
-    }
-    for (int i = tid; i < P; i += THREADS) {
-      const int n = cand_s[i];
-      if (n >= N) continue;
-      const int s = seg[i];
-      const float within = src[i] - (s > 0 ? src[s - 1] : 0.0f);
-      const long long o = (long long)n * R + r;
-      if (!(used[o] + within <= alloc[o])) fit[i] = 0;
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < P; i += THREADS)
-    if (cand_s[i] < N && !fit[i]) atomicMin(&first_bad[seg[i]], i);
-  __syncthreads();
-  for (int i = tid; i < P; i += THREADS) {
-    const int n = cand_s[i];
-    if (n >= N) continue;
-    const int s = seg[i];
-    const int stop = first_bad[s];
-    const int q = perm[i];
-    if (fit[i] && i < stop) {
-      choice[q] = n;
-      ptr[q] = KC;
-    } else if (!fit[i]) {
-      ptr[q] = ptr[q] + 1;
-    }
-    if (s == i && fit[i] && i < stop) {
-      // The node's committed rows are the prefix [i, stop) of its segment.
-      for (int r = 0; r < R; ++r) {
-        const long long o = (long long)n * R + r;
-        float u = used[o];
-        for (int j = i; j < P && j < stop && cand_s[j] == n; ++j)
-          u = u + req[(long long)perm[j] * R + r];
-        used[o] = u;
-      }
-    }
-  }
-}
-
-// -- node_add ---------------------------------------------------------------
-
-constexpr int NA_THREADS = 1024;
-constexpr int NA_SMALL = 32;    // longest bucket one thread orders and walks
-constexpr int NA_WARP = 1024;   // longest bucket one warp orders; past it the CTA
-constexpr int NA_DEVICES = 64;  // devices whose attribute launch_node_add tracks
+constexpr int SMALL = 32;      // longest bucket one thread orders and walks
+constexpr int WARP_MAX = 1024; // longest bucket one warp orders; past it the CTA
+constexpr int DEVICES = 64;    // devices whose shared-memory opt-in is tracked
 constexpr unsigned FULL = 0xffffffffu;
 
 // A row's place in its node's order: the rank (signed, so flipped to sort
@@ -216,32 +136,6 @@ __device__ void sort_keys(unsigned long long* key, int L, int lane, int lanes,
   }
 }
 
-// Node n's walk by one warp over its ordered bucket key[s, e): every lane
-// keeps the R running sums, 32 rows' requests are read at once (a row a
-// lane) and added in order through shuffles; lane 0 writes the node.
-template <int R>
-__device__ void warp_walk(const unsigned long long* key, int s, int e,
-                          const float* req, float sign, const float* in,
-                          float* out, int n, int lane) {
-  float u[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) u[r] = in[(long long)n * R + r];
-  for (int c = s; c < e; c += 32) {
-    float v[R];
-    const int j = c + lane;
-    const long long row = j < e ? (long long)(unsigned)key[j] : 0;
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = j < e ? sign * req[row * R + r] : 0.0f;
-    const int m = min(32, e - c);
-    for (int t = 0; t < m; ++t)
-#pragma unroll
-      for (int r = 0; r < R; ++r) u[r] = u[r] + __shfl_sync(FULL, v[r], t);
-  }
-  if (lane == 0)
-#pragma unroll
-    for (int r = 0; r < R; ++r) out[(long long)n * R + r] = u[r];
-}
-
 // Exclusive prefix sum of a[0, n) in place, by the whole CTA: each thread
 // sums a contiguous chunk, the chunk sums are scanned across warps.
 __device__ void cta_exclusive_scan(int* a, int n, int* warp_tot) {
@@ -275,8 +169,320 @@ __device__ void cta_exclusive_scan(int* a, int n, int* warp_tot) {
   __syncthreads();
 }
 
+// -- the buckets (node_add and prefix_commit_loop) ---------------------------
+// key[P]: the rows' keys, bucketed by node; end[N]: each bucket's count
+// before bucket_scatter, its end after it (bucket n is key[start, end[n])
+// with start = end[n - 1], 0 for n = 0); big[P / SMALL + 2]: the nodes
+// whose bucket passes SMALL.
+struct Buckets {
+  unsigned long long* key;
+  int* end;
+  int* big;
+};
+
+__device__ __forceinline__ int bucket_start(const Buckets& bk, int n) {
+  return n ? bk.end[n - 1] : 0;
+}
+
+// After the counts are in end[] (and a barrier): scan them and scatter
+// key_of(i) of every row with node_of(i) >= 0 into its node's bucket.
+template <class NodeOf, class KeyOf>
+__device__ void bucket_scatter(const Buckets& bk, int P, int N,
+                               NodeOf node_of, KeyOf key_of, int* warp_tot) {
+  cta_exclusive_scan(bk.end, N, warp_tot);
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    const int n = node_of(i);
+    if (n >= 0) bk.key[atomicAdd(&bk.end[n], 1)] = key_of(i);
+  }
+  __syncthreads();
+}
+
+// Every bucket in key order: up to SMALL rows by its node's thread, up to
+// WARP_MAX by a warp (in turns over the warps), past that by the CTA one
+// bucket at a time. Lists the buckets past SMALL in big[] and returns
+// their count; *n_big must be 0 on entry.
+__device__ int order_buckets(const Buckets& bk, int N, int* n_big) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = blockDim.x;
+  for (int n = tid; n < N; n += T) {
+    const int s = bucket_start(bk, n), e = bk.end[n];
+    if (e - s > SMALL) {
+      bk.big[atomicAdd(n_big, 1)] = n;
+      continue;
+    }
+    for (int x = s + 1; x < e; ++x) {
+      const unsigned long long kx = bk.key[x];
+      int y = x - 1;
+      while (y >= s && bk.key[y] > kx) {
+        bk.key[y + 1] = bk.key[y];
+        --y;
+      }
+      bk.key[y + 1] = kx;
+    }
+  }
+  __syncthreads();
+  const int nb = *n_big;
+  for (int x = warp; x < nb; x += T >> 5) {
+    const int n = bk.big[x];
+    const int s = bucket_start(bk, n), e = bk.end[n];
+    if (e - s <= WARP_MAX) sort_keys(bk.key + s, e - s, lane, 32, WarpSync());
+  }
+  for (int x = 0; x < nb; ++x) {
+    const int n = bk.big[x];
+    const int s = bucket_start(bk, n), e = bk.end[n];
+    if (e - s > WARP_MAX) sort_keys(bk.key + s, e - s, tid, T, CtaSync());
+  }
+  __syncthreads();
+  return nb;
+}
+
+// Node n's walk by one warp over its ordered rows key[s, e): every lane
+// keeps the R running sums, 32 rows' requests are read at once (a row a
+// lane) and added in order through shuffles; lane 0 writes the node.
 template <int R>
-__global__ void __launch_bounds__(NA_THREADS, 1)
+__device__ void warp_walk(const unsigned long long* key, int s, int e,
+                          const float* req, float sign, const float* in,
+                          float* out, int n, int lane) {
+  float u[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) u[r] = in[(long long)n * R + r];
+  for (int c = s; c < e; c += 32) {
+    float v[R];
+    const int j = c + lane;
+    const long long row = j < e ? (long long)(unsigned)key[j] : 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = j < e ? sign * req[row * R + r] : 0.0f;
+    const int m = min(32, e - c);
+    for (int t = 0; t < m; ++t)
+#pragma unroll
+      for (int r = 0; r < R; ++r) u[r] = u[r] + __shfl_sync(FULL, v[r], t);
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[(long long)n * R + r] = u[r];
+}
+
+// Each node's adds over the ordered rows key[s, stop(n, s, e)) of its
+// bucket, out[n] = in[n] + sign * req row by row: a short bucket by its
+// node's thread, a listed long one by a warp. A node with nothing to add
+// is copied through unless out is in (in place: nothing to write).
+template <int R, class Stop>
+__device__ void walk_buckets(const Buckets& bk, int N, int nb,
+                             const float* req, float sign, const float* in,
+                             float* out, Stop stop) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = blockDim.x;
+  for (int n = tid; n < N; n += T) {
+    const int s = bucket_start(bk, n), e = bk.end[n];
+    if (e - s > SMALL) continue;
+    const int x_end = stop(n, s, e);
+    if (x_end <= s && in == out) continue;
+    float u[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) u[r] = in[(long long)n * R + r];
+    for (int x = s; x < x_end; ++x) {
+      const long long row = (unsigned)bk.key[x];
+#pragma unroll
+      for (int r = 0; r < R; ++r) u[r] = u[r] + sign * req[row * R + r];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[(long long)n * R + r] = u[r];
+  }
+  for (int x = warp; x < nb; x += T >> 5) {
+    const int n = bk.big[x];
+    const int s = bucket_start(bk, n);
+    warp_walk<R>(bk.key, s, stop(n, s, bk.end[n]), req, sign, in, out, n,
+                 lane);
+  }
+}
+
+// The dynamic shared memory `bytes` a launch of `kernel` takes, opted in
+// past 48 KB on the current device only where a launch needs more than
+// it was last given there (*granted per device; a race sets it twice, to
+// the same effect).
+template <class Kernel>
+cudaError_t grant_smem(Kernel kernel, size_t bytes, int* granted) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < DEVICES && (int)bytes <= granted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < DEVICES) granted[dev] = (int)bytes;
+  return err;
+}
+
+// -- prefix_commit_loop ------------------------------------------------------
+
+template <int R>
+__global__ void __launch_bounds__(THREADS, 1)
+prefix_commit_loop_kernel(int P, int N, int KC, const int* __restrict__ topi,
+                          const float* __restrict__ topv,
+                          const bool* __restrict__ allowed,
+                          const int* __restrict__ rank,
+                          const float* __restrict__ req,
+                          const float* __restrict__ alloc,
+                          const float* __restrict__ used_in, float* used,
+                          int* __restrict__ choice, int* __restrict__ steps,
+                          int smem, unsigned long long* key_scratch,
+                          int* int_scratch, float* float_scratch,
+                          unsigned char* byte_scratch) {
+  extern __shared__ unsigned long long pc_smem[];
+  __shared__ int warp_tot[32];
+  __shared__ int n_big;
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const long long b = blockIdx.x;  // the tenant
+  topi += b * P * KC;
+  topv += b * P * KC;
+  allowed += b * P;
+  rank += b * P;
+  req += b * P * R;
+  alloc += b * N * R;
+  used_in += b * N * R;
+  used += b * N * R;
+  choice += b * P;
+  // key[P], the scan's buffers cum_a[P] and cum_b[P], end[N], each node's
+  // first non-fitting row bad[N], big[P / SMALL + 2], ptr[P], fit[P].
+  const int n_ints = 2 * N + P / SMALL + 2;
+  unsigned long long* key;
+  float* cum_a;
+  int* ints;
+  unsigned char* bytes;
+  if (smem) {
+    key = pc_smem;
+    cum_a = reinterpret_cast<float*>(pc_smem + P);
+    ints = reinterpret_cast<int*>(cum_a + 2 * P);
+    bytes = reinterpret_cast<unsigned char*>(ints + n_ints);
+  } else {
+    key = key_scratch + b * P;
+    cum_a = float_scratch + b * 2 * P;
+    ints = int_scratch + b * n_ints;
+    bytes = byte_scratch + b * 2 * P;
+  }
+  float* cum_b = cum_a + P;
+  int* bad = ints + N;
+  unsigned char* ptr = bytes;
+  unsigned char* fit = bytes + P;
+  const Buckets bk{key, ints, ints + 2 * N};
+
+  for (int i = tid; i < P; i += T) {
+    choice[i] = -1;
+    ptr[i] = allowed[i] ? 0 : (unsigned char)KC;
+  }
+  for (int o = tid; o < N * R; o += T) used[o] = used_in[o];
+  // Row i's candidate node while it is active, else -1.
+  auto cand_of = [&](int i) {
+    const int p = ptr[i];
+    if (p >= KC) return -1;
+    const long long o = (long long)i * KC + p;
+    const int n = topi[o];
+    return topv[o] > -INFINITY && n >= 0 && n < N ? n : -1;
+  };
+  int step = 0;
+  for (;;) {
+    for (int n = tid; n < N; n += T) {
+      bk.end[n] = 0;
+      bad[n] = INT_MAX;
+    }
+    if (tid == 0) n_big = 0;
+    __syncthreads();
+    bool any = false;
+    for (int i = tid; i < P; i += T) {
+      const int n = cand_of(i);
+      if (n >= 0) {
+        atomicAdd(&bk.end[n], 1);
+        any = true;
+      }
+    }
+    if (!__syncthreads_or(any)) break;
+    ++step;
+    bucket_scatter(bk, P, N, cand_of,
+                   [&](int i) { return row_key(rank[i], i); }, warp_tot);
+    const int nb = order_buckets(bk, N, &n_big);
+    const int A = bk.end[N - 1];  // the active rows, packed in node order
+    for (int r = 0; r < R; ++r) {
+      for (int j = tid; j < A; j += T) {
+        const int row = (int)(unsigned)key[j];
+        if (r == 0) {
+          // The rank has done its work: the key now holds (node, row).
+          const int n = topi[(long long)row * KC + ptr[row]];
+          key[j] = ((unsigned long long)(unsigned)n << 32) | (unsigned)row;
+          fit[j] = 1;
+        }
+        cum_a[j] = req[(long long)row * R + r];
+      }
+      __syncthreads();
+      float* src = cum_a;
+      float* dst = cum_b;
+      for (int d = 1; d < A; d <<= 1) {
+        for (int j = tid; j < A; j += T)
+          dst[j] = j >= d ? src[j] + src[j - d] : src[j];
+        __syncthreads();
+        float* t = src;
+        src = dst;
+        dst = t;
+      }
+      for (int j = tid; j < A; j += T) {
+        const int n = (int)(key[j] >> 32);
+        const int s = bucket_start(bk, n);
+        const float within = src[j] - (s > 0 ? src[s - 1] : 0.0f);
+        const long long o = (long long)n * R + r;
+        if (!(used[o] + within <= alloc[o])) {
+          fit[j] = 0;
+          atomicMin(&bad[n], j);
+        }
+      }
+      __syncthreads();
+    }
+    // Rows before their node's first non-fitting row commit; a row that
+    // does not fit moves to its next candidate; the others (blocked by an
+    // earlier row of their node) try the same node again.
+    for (int j = tid; j < A; j += T) {
+      const int n = (int)(key[j] >> 32);
+      const int row = (int)(unsigned)key[j];
+      if (j < bad[n]) {
+        choice[row] = n;
+        ptr[row] = (unsigned char)KC;
+      } else if (!fit[j]) {
+        ptr[row] = ptr[row] + 1;
+      }
+    }
+    walk_buckets<R>(bk, N, nb, req, 1.0f, used, used,
+                    [&](int n, int s, int e) { return min(bad[n], e); });
+    __syncthreads();
+  }
+  if (tid == 0) steps[b] = step;
+}
+
+int pc_granted[DEVICES];
+
+template <int R>
+int launch_prefix_commit_loop(int B, int P, int N, int KC, const int* topi,
+                              const float* topv, const bool* allowed,
+                              const int* rank, const float* req,
+                              const float* alloc, const float* used_in,
+                              float* used, int* choice, int* steps, int smem,
+                              unsigned long long* key_scratch,
+                              int* int_scratch, float* float_scratch,
+                              unsigned char* byte_scratch,
+                              cudaStream_t stream) {
+  const size_t bytes =
+      smem ? (size_t)P * 18 + (size_t)(2 * N + P / SMALL + 2) * 4 : 0;
+  const cudaError_t err =
+      grant_smem(prefix_commit_loop_kernel<R>, bytes, pc_granted);
+  if (err != cudaSuccess) return (int)err;
+  prefix_commit_loop_kernel<R><<<B, THREADS, bytes, stream>>>(
+      P, N, KC, topi, topv, allowed, rank, req, alloc, used_in, used, choice,
+      steps, smem, key_scratch, int_scratch, float_scratch, byte_scratch);
+  return (int)cudaGetLastError();
+}
+
+// -- node_add ---------------------------------------------------------------
+
+template <int R>
+__global__ void __launch_bounds__(THREADS, 1)
 node_add_kernel(int P, int N, const int* __restrict__ node, int node_bs,
                 const bool* __restrict__ mask, int mask_bs,
                 const int* __restrict__ rank, int rank_bs,
@@ -287,7 +493,7 @@ node_add_kernel(int P, int N, const int* __restrict__ node, int node_bs,
   extern __shared__ unsigned long long na_smem[];
   __shared__ int warp_tot[32];
   __shared__ int n_big;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int T = blockDim.x;
   const long long b = blockIdx.x;  // the tenant
   node += b * node_bs;
@@ -296,82 +502,34 @@ node_add_kernel(int P, int N, const int* __restrict__ node, int node_bs,
   req += b * P * R;
   used_in += b * N * R;
   used_out += b * N * R;
-  // key[P]: the masked rows' keys, bucketed by node; end[N]: the buckets'
-  // ends; big[P / 32 + 2]: the nodes whose bucket passes NA_SMALL.
-  unsigned long long* key;
-  int* end;
+  Buckets bk;
   if (smem) {
-    key = na_smem;
-    end = reinterpret_cast<int*>(na_smem + P);
+    bk.key = na_smem;
+    bk.end = reinterpret_cast<int*>(na_smem + P);
   } else {
-    key = key_scratch + b * P;
-    end = int_scratch + b * (N + P / NA_SMALL + 2);
+    bk.key = key_scratch + b * P;
+    bk.end = int_scratch + b * (N + P / SMALL + 2);
   }
-  int* big = end + N;
-  for (int n = tid; n < N; n += T) end[n] = 0;
+  bk.big = bk.end + N;
+  for (int n = tid; n < N; n += T) bk.end[n] = 0;
   if (tid == 0) n_big = 0;
   __syncthreads();
-  for (int i = tid; i < P; i += T)
-    if (mask[i]) atomicAdd(&end[min(max(node[i], 0), N - 1)], 1);
-  __syncthreads();
-  cta_exclusive_scan(end, N, warp_tot);
-  // Scatter: a bucket's keys land in any order; its start moves to its end.
-  for (int i = tid; i < P; i += T)
-    if (mask[i])
-      key[atomicAdd(&end[min(max(node[i], 0), N - 1)], 1)] =
-          row_key(rank[i], i);
-  __syncthreads();
-  // Bucket n is key[start, end[n]) with start = end[n - 1] (0 for n = 0).
-  // A short bucket: its node's thread orders it (insertion sort) and adds
-  // its rows in order; an empty one copies the node through.
-  for (int n = tid; n < N; n += T) {
-    const int s = n ? end[n - 1] : 0, e = end[n];
-    if (e - s > NA_SMALL) {
-      big[atomicAdd(&n_big, 1)] = n;
-      continue;
-    }
-    for (int x = s + 1; x < e; ++x) {
-      const unsigned long long kx = key[x];
-      int y = x - 1;
-      while (y >= s && key[y] > kx) {
-        key[y + 1] = key[y];
-        --y;
-      }
-      key[y + 1] = kx;
-    }
-    float u[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) u[r] = used_in[(long long)n * R + r];
-    for (int x = s; x < e; ++x) {
-      const long long row = (unsigned)key[x];
-#pragma unroll
-      for (int r = 0; r < R; ++r) u[r] = u[r] + sign * req[row * R + r];
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) used_out[(long long)n * R + r] = u[r];
+  auto node_of = [&](int i) {
+    return mask[i] ? min(max(node[i], 0), N - 1) : -1;
+  };
+  for (int i = tid; i < P; i += T) {
+    const int n = node_of(i);
+    if (n >= 0) atomicAdd(&bk.end[n], 1);
   }
   __syncthreads();
-  const int nb = n_big;
-  // Longer buckets up to NA_WARP: a warp each, in turns over the warps.
-  for (int x = warp; x < nb; x += T >> 5) {
-    const int n = big[x];
-    const int s = n ? end[n - 1] : 0, e = end[n];
-    if (e - s > NA_WARP) continue;
-    sort_keys(key + s, e - s, lane, 32, WarpSync());
-    warp_walk<R>(key, s, e, req, sign, used_in, used_out, n, lane);
-  }
-  // The longest: the whole CTA orders one bucket at a time, warp 0 walks
-  // it.
-  for (int x = 0; x < nb; ++x) {
-    const int n = big[x];
-    const int s = n ? end[n - 1] : 0, e = end[n];
-    if (e - s <= NA_WARP) continue;
-    sort_keys(key + s, e - s, tid, T, CtaSync());
-    if (warp == 0) warp_walk<R>(key, s, e, req, sign, used_in, used_out, n,
-                                lane);
-    __syncthreads();
-  }
+  bucket_scatter(bk, P, N, node_of,
+                 [&](int i) { return row_key(rank[i], i); }, warp_tot);
+  const int nb = order_buckets(bk, N, &n_big);
+  walk_buckets<R>(bk, N, nb, req, sign, used_in, used_out,
+                  [](int n, int s, int e) { return e; });
 }
+
+int na_granted[DEVICES];
 
 template <int R>
 int launch_node_add(int B, int P, int N, const int* node, int node_bs,
@@ -381,24 +539,10 @@ int launch_node_add(int B, int P, int N, const int* node, int node_bs,
                     unsigned long long* key_scratch, int* int_scratch,
                     cudaStream_t stream) {
   const size_t bytes =
-      smem ? (size_t)P * 8 + (size_t)(N + P / NA_SMALL + 2) * 4 : 0;
-  // The dynamic shared memory this instantiation may take past 48 KB, set
-  // on a device only where a launch needs more than it was last given
-  // there (a race sets it twice, to the same effect).
-  static int granted[NA_DEVICES];
-  if (bytes > 48 * 1024) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev >= NA_DEVICES || (int)bytes > granted[dev]) {
-      err = cudaFuncSetAttribute(node_add_kernel<R>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-      if (dev < NA_DEVICES) granted[dev] = (int)bytes;
-    }
-  }
-  node_add_kernel<R><<<B, NA_THREADS, bytes, stream>>>(
+      smem ? (size_t)P * 8 + (size_t)(N + P / SMALL + 2) * 4 : 0;
+  const cudaError_t err = grant_smem(node_add_kernel<R>, bytes, na_granted);
+  if (err != cudaSuccess) return (int)err;
+  node_add_kernel<R><<<B, THREADS, bytes, stream>>>(
       P, N, node, node_bs, mask, mask_bs, rank, rank_bs, req, sign, used_in,
       used_out, smem, key_scratch, int_scratch);
   return (int)cudaGetLastError();
@@ -435,14 +579,30 @@ extern "C" int tpusched_node_add(int B, int P, int N, int R,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int tpusched_prefix_commit(int B, int P, int N, int R, int KC,
-                                      const int* perm, const int* cand_s,
-                                      const float* req, const float* alloc,
-                                      float* used, int* choice, int* ptr,
-                                      float* buf_f, int* buf_i,
-                                      unsigned char* fit, void* stream) {
-  prefix_commit_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      P, N, R, KC, perm, cand_s, req, alloc, used, choice, ptr, buf_f,
-      buf_f + P, buf_i, buf_i + P, fit);
-  return (int)cudaGetLastError();
+extern "C" int tpusched_prefix_commit_loop(
+    int B, int P, int N, int R, int KC, const int* topi, const float* topv,
+    const bool* allowed, const int* rank, const float* req,
+    const float* alloc, const float* used_in, float* used, int* choice,
+    int* steps, int smem, unsigned long long* key_scratch, int* int_scratch,
+    float* float_scratch, unsigned char* byte_scratch, void* stream) {
+  if (KC < 1 || KC > 255) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define LOOP_CASE(RR)                                                       \
+  case RR:                                                                  \
+    return launch_prefix_commit_loop<RR>(                                   \
+        B, P, N, KC, topi, topv, allowed, rank, req, alloc, used_in, used,  \
+        choice, steps, smem, key_scratch, int_scratch, float_scratch,       \
+        byte_scratch, st);
+  switch (R) {
+    LOOP_CASE(1)
+    LOOP_CASE(2)
+    LOOP_CASE(3)
+    LOOP_CASE(4)
+    LOOP_CASE(5)
+    LOOP_CASE(6)
+    LOOP_CASE(7)
+    LOOP_CASE(8)
+  }
+#undef LOOP_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -115,16 +115,28 @@ int tpusched_desirability(int B, int rows, int N, const bool* feasible,
                           const float* masked, const bool* allowed,
                           int fixed, int* work, float* desir, void* stream);
 
-// K8. One capacity-prefix commit sub-step over the (node, rank)-sorted
-// candidates: perm [P] (sorted row -> pod row), cand_s [P] (sorted nodes,
-// N = inactive). Updates used [N, R], choice [P] and ptr [P] in place.
-// Scratch: buf_f [2P] floats, buf_i [2P] ints, fit [P] bytes.
-int tpusched_prefix_commit(int B, int P, int N, int R, int KC,
-                           const int* perm,
-                           const int* cand_s, const float* req,
-                           const float* alloc, float* used, int* choice,
-                           int* ptr, float* buf_f, int* buf_i,
-                           unsigned char* fit, void* stream);
+// K8. A fast round's capacity-prefix commit sub-steps, all of them in one
+// launch (tpusched/kernels/assign.py:888-957): each row walks its
+// candidate list topi / topv [P, KC] from the start while it is allowed
+// and its candidate is finite; per sub-step the active rows are ordered
+// by (node, rank), each node commits the longest rank-ordered prefix of
+// its rows that fits alloc - used (rows that do not fit move to their
+// next candidate), until no row is active. used_out [N, R] gets used_in
+// plus the commits, added per node in ascending rank; choice [P] the
+// committed node or -1; steps [1] the sub-steps run. B tenants, one CTA
+// each. With smem = 1 the CTA keeps its state in dynamic shared memory
+// (P * 18 + (2N + P / 32 + 2) * 4 bytes); with smem = 0 in key_scratch
+// [B, P], int_scratch [B, 2N + P / 32 + 2], float_scratch [B, 2P] and
+// byte_scratch [B, 2P]. R is 1..8, KC 1..255.
+int tpusched_prefix_commit_loop(int B, int P, int N, int R, int KC,
+                                const int* topi, const float* topv,
+                                const bool* allowed, const int* rank,
+                                const float* req, const float* alloc,
+                                const float* used_in, float* used_out,
+                                int* choice, int* steps, int smem,
+                                unsigned long long* key_scratch,
+                                int* int_scratch, float* float_scratch,
+                                unsigned char* byte_scratch, void* stream);
 
 // K23 (tpusched/kernels/assign.py _deal_commit's dealing). Inclusive
 // prefixes of the demand dem [L, R] and the capacity rem [N, R] (nodes
@@ -369,11 +381,13 @@ int tpusched_auction_rank(int B, int L, int N, int V, int R, int C,
                           bool* could, void* stream);
 
 // K18. The auction's claim iterations and exact [C, V] validation
-// (preempt.py:564-679), one CTA a tenant; C <= 1024, 5 * N bytes of
-// shared memory. topv_t, topi_t: the candidate lists transposed, [K, C].
-// usage must arrive zeroed.
-int tpusched_auction_claim(int B, int C, int K, int N, int V, int R, int M, int GP,
-                           int iters, const float* topv_t, const int* topi_t,
+// (preempt.py:564-679): B clusters of Q CTAs (1, 2, 4, 8 or 16) of
+// `threads` threads, cluster b tenant b, a warp a bidder; topv, topi
+// [C, K] (K <= 256) as K6 gives them. usage must arrive zeroed; ranks
+// below INT_MAX.
+int tpusched_auction_claim(int B, int Q, int threads, int C, int K, int N,
+                           int V, int R, int M, int GP, int iters,
+                           const float* topv, const int* topi,
                            const bool* can_plain, const int* n_plain,
                            const int* rank, const float* vreq,
                            const float* vprio, const int* vpdb,

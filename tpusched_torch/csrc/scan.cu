@@ -123,6 +123,7 @@
 #include <type_traits>
 
 #include "cell.cuh"
+#include "cluster.cuh"
 #include "kernels.h"
 #include "pairwise.cuh"
 #include "preempt.cuh"
@@ -132,9 +133,20 @@ namespace {
 using tpusched::MAX_R;
 using tpusched::ResW;
 using tpusched::beats;
+using tpusched::cluster_arrive;
+using tpusched::cluster_ctas;
+using tpusched::cluster_index;
+using tpusched::cluster_rank;
+using tpusched::cluster_wait;
+using tpusched::launch_clusters;
+using tpusched::mbar_expect;
+using tpusched::mbar_init;
+using tpusched::mbar_init_fence;
+using tpusched::mbar_wait;
+using tpusched::st_async;
 using tpusched::tie_hash;
 
-constexpr int MAX_Q = 16;        // CTAs a tenant's cluster
+constexpr int MAX_Q = tpusched::MAX_CLUSTER;  // CTAs a tenant's cluster
 constexpr int KR = 2;            // nodes a thread keeps in registers
 constexpr int POD_F = MAX_R + 4; // a pod's requests, then its 4 weights
 constexpr int SMEM_LIMIT = 220 * 1024;
@@ -244,36 +256,6 @@ __device__ __forceinline__ bool cell(const PodCtx& c, int n, bool mk, float st,
 
 // -- the cluster ------------------------------------------------------------
 
-__device__ __forceinline__ int cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return (int)r;
-}
-
-__device__ __forceinline__ int cluster_ctas() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return (int)r;
-}
-
-__device__ __forceinline__ int cluster_index() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
-  return (int)r;
-}
-
-// barrier.cluster: arrive has release and wait acquire semantics at
-// cluster scope, so what a thread wrote before arriving (shared memory of
-// any CTA of the cluster, device memory) is visible to every thread of
-// the cluster after its wait. Every thread of every CTA takes part.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 // A barrier of the whole cluster (CL), or of the CTA: the scan's start
 // and end.
 template <bool CL>
@@ -362,59 +344,6 @@ __device__ __forceinline__ void pair_evict(const PairScan& ps,
       ps.anti[i] = ps.anti[i] - 1.0f;
     }
   }
-}
-
-// -- exchanges without a cluster barrier ------------------------------------
-// A record (8 bytes) of each CTA into slot [rank] of every CTA: st.async
-// writes it into the receiver's shared memory and completes the
-// transaction count of the receiver's mbarrier for that exchange, and a
-// CTA waits on its own mbarrier's phase for all Q records, not for the
-// whole cluster (no barrier.cluster, whose release would also wait for
-// the loads each thread has in flight).
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// The local arrival of an exchange, expecting `bytes` from the cluster.
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned phase) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(phase) : "memory");
-  } while (!done);
-}
-
-// rec into *slot of CTA `rank`, completing 8 bytes of its *bar.
-__device__ __forceinline__ void st_async(uint2* slot, int rank, uint2 rec,
-                                         unsigned long long* bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
-      "{%1, %2}, [%3];"
-      :: "r"(cluster_addr(slot, rank)), "r"(rec.x), "r"(rec.y),
-         "r"(cluster_addr(bar, rank)) : "memory");
 }
 
 // The next pod's mask and static-score entries at the thread's first KR
@@ -559,7 +488,7 @@ parity_scan_kernel(int P, int N, int R, const int* __restrict__ order,
         mbar_init(&x_bar[j]);
         if constexpr (PAIR) mbar_init(&x_ebar[j]);
       }
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      mbar_init_fence();
     }
   }
   // Every CTA of the cluster runs (and has its shared memory and
@@ -985,41 +914,11 @@ int launch_kernel(Kernel kernel, int Q, int threads, int B, int P, int N,
   long long bytes = 2LL * span * R * (long long)sizeof(float);
   int use_smem = bytes + (long long)fa.sharedSizeBytes <= SMEM_LIMIT ? 1 : 0;
   size_t dyn = use_smem ? (size_t)bytes : 0;
-  // Static and dynamic shared memory together above 48 KB need the
-  // opt-in.
-  if (dyn > 0 && dyn + fa.sharedSizeBytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (Q > 8) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(B * Q));
-  cfg.blockDim = dim3((unsigned)threads);
-  cfg.dynamicSmemBytes = dyn;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)Q;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (Q > 1) {
-    int fit = 0;
-    e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
-    if (e != cudaSuccess) return (int)e;
-    if (fit < 1) return (int)cudaErrorLaunchOutOfResources;
-  }
-  e = cudaLaunchKernelEx(&cfg, kernel, P, N, R, order, mask, static_score,
-                         alloc, requests, w_lr, w_ba, w_ts, w_ia, rw, seeded,
-                         seed, used, assigned, chosen, use_smem, ps, pre);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return (int)launch_clusters(kernel, B, Q, threads, dyn,
+                              (cudaStream_t)stream, P, N, R, order, mask,
+                              static_score, alloc, requests, w_lr, w_ba, w_ts,
+                              w_ia, rw, seeded, seed, used, assigned, chosen,
+                              use_smem, ps, pre);
 }
 
 // The instantiation for (Q, threads). Without preemption: 256, 512 or

@@ -19,7 +19,7 @@ The scheduling cycle splits, as in the JAX package, into
     pairwise rows); a fast round then ranks each row (K6, `row_topk`),
     deals pods onto nodes by a node desirability (K7, `desirability`)
     and commits capacity prefixes per node in sub-steps (K8,
-    `prefix_commit`). With signatures a round also water-fills spread
+    `prefix_commit_loop`: all of a round's sub-steps in one launch). With signatures a round also water-fills spread
     members across their domains (K12, `waterfill`), adds its commits
     to the pair state (K10's `pair_commit`) and validates them against
     the end-of-round state until nothing more reverts: the inter-pod
@@ -53,9 +53,9 @@ solve on CUDA tensors without a kernel, to compare.
 
 The JAX fast rounds are `lax.while_loop`s on the device. Here they are
 Python loops that read one device flag per round (preemption rounds
-included), per commit sub-step, per tranche, per validation pass and
-per hand-off from full-width to compacted rounds; `RoundStats` counts
-those reads.
+included), per tranche, per validation pass and per hand-off from
+full-width to compacted rounds; `RoundStats` counts those reads. A
+round's commit sub-steps loop on the card, inside K8.
 """
 
 from __future__ import annotations
@@ -1256,7 +1256,7 @@ desirability.launches = 0
 desirability.fixed_launches = 0   # of them, in fixed point
 
 
-# -- K8: one capacity-prefix commit sub-step --------------------------------
+# -- K8: the capacity-prefix commit sub-steps -------------------------------
 
 
 def _scan_plain(x: torch.Tensor) -> torch.Tensor:
@@ -1338,42 +1338,111 @@ def prefix_commit_plain(perm: torch.Tensor, cand_s: torch.Tensor,
     return used, choice, ptr
 
 
-def prefix_commit(perm: torch.Tensor, cand_s: torch.Tensor,
-                  requests: torch.Tensor, alloc: torch.Tensor,
-                  used: torch.Tensor, choice: torch.Tensor,
-                  ptr: torch.Tensor, KC: int):
-    """Kernel K8 on CUDA tensors, the plain version on CPU tensors."""
-    dev = perm.device
+def prefix_commit_loop_plain(topi: torch.Tensor, topv: torch.Tensor,
+                             allowed: torch.Tensor, rank: torch.Tensor,
+                             requests: torch.Tensor, alloc: torch.Tensor,
+                             used: torch.Tensor, step=prefix_commit_plain):
+    """JAX `_deal_commit`'s commit while_loop (tpusched/kernels/assign.py
+    :888-957): each row walks its candidate list topi / topv [.., P, KC]
+    (the dealt node, then its top-K) while it is allowed, uncommitted and
+    its candidate is finite; a sub-step sorts the active rows by (node,
+    rank) (a stable sort of one int64 key, inactive rows last with node
+    N) and commits through `step` (prefix_commit_plain, or a recording
+    stand-in through the Ops table). Returns (used, choice, steps):
+    choice [.., P] the committed node or -1, steps [..] the sub-steps each
+    tenant ran. A tenant batch runs while any tenant has an active row; a
+    tenant without one goes through the shared sub-steps unchanged. The
+    loop reads its flag on the host but counts no host read: the kernel
+    runs it on the card."""
+    lead = rank.shape[:-1]                 # () or (B,): the tenant axis
+    P = rank.shape[-1]
+    KC = topi.shape[-1]
+    N = alloc.shape[-2]
+    dev = rank.device
+    choice = torch.full((*lead, P), -1, dtype=torch.int32, device=dev)
+    ptr = torch.zeros((*lead, P), dtype=torch.int32, device=dev)
+    steps = torch.zeros(lead, dtype=torch.int32, device=dev)
+    rank64 = rank.long()
+    while True:
+        ptr_c = ptr.clamp(0, KC - 1).long()[..., None]
+        cand = topi.gather(-1, ptr_c)[..., 0]
+        cand_ok = topv.gather(-1, ptr_c)[..., 0] > NEG_INF
+        active = allowed & (choice < 0) & (ptr < KC) & cand_ok
+        going = active.any(dim=-1)
+        if not bool(going.any()):
+            return used, choice, steps
+        steps = steps + going.to(torch.int32)
+        cand_m = torch.where(active, cand, N)
+        perm = torch.sort((cand_m.long() << 32) + rank64, dim=-1,
+                          stable=True).indices
+        used, choice, ptr = step(perm.to(torch.int32),
+                                 cand_m.gather(-1, perm).contiguous(),
+                                 requests, alloc, used, choice, ptr, KC)
+
+
+def prefix_commit_loop_smem_bytes(P: int, N: int) -> int:
+    """Bytes of the loop kernel's state for one tenant: the (rank, row)
+    keys, the scan's two f32 buffers, each node's bucket end and first
+    non-fitting row, the list of long buckets, each row's pointer and fit
+    flag (csrc/commit.cu). They live in shared memory up to
+    NODE_ADD_SMEM_MAX, else in global scratch."""
+    return P * 18 + (2 * N + P // 32 + 2) * 4
+
+
+def prefix_commit_loop(topi: torch.Tensor, topv: torch.Tensor,
+                       allowed: torch.Tensor, rank: torch.Tensor,
+                       requests: torch.Tensor, alloc: torch.Tensor,
+                       used: torch.Tensor, step=prefix_commit_plain):
+    """Kernel K8 on CUDA tensors (one launch runs every sub-step of the
+    round, one CTA a tenant; `step` is not used), the plain loop on CPU
+    tensors (through `step`)."""
+    dev = rank.device
     if dev.type == "cpu":
-        return prefix_commit_plain(perm, cand_s, requests, alloc, used,
-                                   choice, ptr, KC)
-    lead = perm.shape[:-1]                 # () or (B,): the tenant axis
-    P = perm.shape[-1]
+        return prefix_commit_loop_plain(topi, topv, allowed, rank, requests,
+                                        alloc, used, step)
+    lead = tuple(rank.shape[:-1])          # () or (B,): the tenant axis
+    P = rank.shape[-1]
+    KC = topi.shape[-1]
     N, R = alloc.shape[-2:]
-    k = "prefix_commit"
-    check(k, dev, perm, torch.int32, (*lead, P))
-    check(k, dev, cand_s, torch.int32, (*lead, P))
+    k = "prefix_commit_loop"
+    if not 1 <= R <= 8:
+        raise ValueError(f"{k}: {R} resource axes, the kernel takes 1..8")
+    if not 1 <= KC <= 255:
+        raise ValueError(f"{k}: {KC} candidates a row, the kernel takes "
+                         "1..255")
+    check(k, dev, topi, torch.int32, (*lead, P, KC))
+    check(k, dev, topv, torch.float32, (*lead, P, KC))
+    check(k, dev, allowed, torch.bool, (*lead, P))
+    check(k, dev, rank, torch.int32, (*lead, P))
     check(k, dev, requests, torch.float32, (*lead, P, R))
     check(k, dev, alloc, torch.float32, (*lead, N, R))
     check(k, dev, used, torch.float32, (*lead, N, R))
-    check(k, dev, choice, torch.int32, (*lead, P))
-    check(k, dev, ptr, torch.int32, (*lead, P))
-    used, choice, ptr = used.clone(), choice.clone(), ptr.clone()
-    if perm.numel() == 0:
-        return used, choice, ptr
-    buf_f = torch.empty((*lead, 2 * P), dtype=torch.float32, device=dev)
-    buf_i = torch.empty((*lead, 2 * P), dtype=torch.int32, device=dev)
-    fit = torch.empty((*lead, P), dtype=torch.uint8, device=dev)
-    _build.launch(
-        "tpusched_prefix_commit", lead[0] if lead else 1, P, N, R, KC,
-        *(t.data_ptr() for t in (perm, cand_s, requests, alloc, used, choice,
-                                 ptr, buf_f, buf_i, fit)),
-        stream_of(dev))
-    prefix_commit.launches += 1
-    return used, choice, ptr
+    out = torch.empty_like(used)
+    choice = torch.empty((*lead, P), dtype=torch.int32, device=dev)
+    steps = torch.empty(lead, dtype=torch.int32, device=dev)
+    if P == 0 or N == 0:
+        out.copy_(used)
+        choice.fill_(-1)
+        steps.zero_()
+        return out, choice, steps
+    B = lead[0] if lead else 1
+    smem = prefix_commit_loop_smem_bytes(P, N) <= NODE_ADD_SMEM_MAX
+    scratch = (None,) * 4
+    if not smem:
+        scratch = (torch.empty((B, P), dtype=torch.int64, device=dev),
+                   torch.empty((B, 2 * N + P // 32 + 2), dtype=torch.int32,
+                               device=dev),
+                   torch.empty((B, 2 * P), dtype=torch.float32, device=dev),
+                   torch.empty((B, 2 * P), dtype=torch.uint8, device=dev))
+    _build.launch("tpusched_prefix_commit_loop", B, P, N, R, KC,
+                  *ptrs((topi, topv, allowed, rank, requests, alloc, used,
+                         out, choice, steps, int(smem), *scratch)),
+                  stream_of(dev))
+    prefix_commit_loop.launches += 1
+    return out, choice, steps
 
 
-prefix_commit.launches = 0
+prefix_commit_loop.launches = 0
 
 
 def _by_node_rank(node: torch.Tensor, mask: torch.Tensor, rank: torch.Tensor,
@@ -1562,10 +1631,11 @@ def pick_node_batch(cfg: EngineConfig, masked: torch.Tensor,
 
 class RoundStats:
     """What the host did during one fast solve: the device flags the
-    round loops read (`host_reads`: one per round, per commit sub-step,
-    per tranche, per validation pass and per full-width/compacted
-    hand-off), and, with `timing` (CUDA only), CUDA-event spans by stage
-    name, read back by `ms()`."""
+    round loops read (`host_reads`: one per round, per tranche, per
+    validation pass and per full-width/compacted hand-off; a round's
+    commit sub-steps run inside one K8 launch and read nothing), and,
+    with `timing` (CUDA only), CUDA-event spans by stage name, read back
+    by `ms()`, and K8's sub-step counts, summed by `substeps()`."""
 
     def __init__(self, timing: bool = False):
         self.host_reads = 0
@@ -1574,6 +1644,7 @@ class RoundStats:
         self.preempt_reads = 0
         self.preempt_rounds = 0
         self._spans: dict[str, list] | None = {} if timing else None
+        self._steps: list[torch.Tensor] | None = [] if timing else None
 
     def read(self, flag: torch.Tensor) -> bool:
         self.host_reads += 1
@@ -1606,6 +1677,19 @@ class RoundStats:
 
     def counts(self) -> dict[str, int]:
         return {k: len(v) for k, v in (self._spans or {}).items()}
+
+    def count_substeps(self, steps: torch.Tensor) -> None:
+        """Keep a K8 call's [B] sub-step counts (device tensors; timing
+        only)."""
+        if self._steps is not None:
+            self._steps.append(steps)
+
+    def substeps(self) -> int:
+        """K8's sub-steps over the solve, summed over tenants (one read
+        after the solve, none during it)."""
+        if not self._steps:
+            return 0
+        return int(torch.stack([t.sum() for t in self._steps]).sum())
 
 
 def _fallback_depth(N: int) -> int:
@@ -1768,11 +1852,12 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
     the cumulative remaining capacity (nodes by descending desirability,
     K7) first covers the cumulative demand of pods 0..q, for every
     resource. The dealt node (when feasible) leads each pod's candidate
-    list, then its own top-K; K + 1 capacity sub-steps (K8) commit, per
-    node, the longest rank-ordered prefix that fits. If nothing committed
-    while an allowed pod is still feasible somewhere, the best-ranked
-    such pod is committed at its own top choice (the rescue), so every
-    round places a pod until nothing pending is placeable.
+    list, then its own top-K; capacity sub-steps (K8, all of a round's in
+    one launch) commit, per node, the longest rank-ordered prefix that
+    fits. If nothing committed while an allowed pod is still feasible
+    somewhere, the best-ranked such pod is committed at its own top
+    choice (the rescue), so every round places a pod until nothing
+    pending is placeable.
 
     The signature path passes override = K12's (cand, val, ok): a spread
     member's whole candidate list becomes its in-domain rotation; its
@@ -1790,10 +1875,10 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
     go in rank order.
 
     A tenant batch (tenants.solve_many) carries a leading [B] axis on
-    every tensor: each kernel launches once for all tenants, the
-    sub-steps run while any tenant has an active candidate (one host
-    read a sub-step), and the rescue is per tenant; a tenant with no
-    allowed pod keeps its `used` bit for bit."""
+    every tensor: each kernel launches once for all tenants, each
+    tenant's sub-steps run until it has no active candidate (no host
+    read), and the rescue is per tenant; a tenant with no allowed pod
+    keeps its `used` bit for bit."""
     ops = ops or KERNELS
     stats = stats or RoundStats()
     lead = rank.shape[:-1]                 # () or (B,): the tenant axis
@@ -1846,29 +1931,12 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
         cand, val, ok = override
         topi = torch.where(ok[..., None], cand, topi)
         topv = torch.where(ok[..., None], val, topv)
-    KC = topi.shape[-1]  # dealt candidate + K fallbacks
 
-    used_j = used
-    choice = torch.full((*lead, P), -1, dtype=torch.int32, device=dev)
-    ptr = torch.zeros((*lead, P), dtype=torch.int32, device=dev)
-    rank64 = rank.long()
-    while True:
-        with stats.span("sub-steps"):
-            ptr_c = ptr.clamp(0, KC - 1).long()[..., None]
-            cand = topi.gather(-1, ptr_c)[..., 0]
-            cand_ok = topv.gather(-1, ptr_c)[..., 0] > NEG_INF
-            active = allowed & (choice < 0) & (ptr < KC) & cand_ok
-            if not stats.read(active.any()):
-                break
-            # Sort each tenant's rows by (candidate node, rank); inactive
-            # rows go last.
-            cand_m = torch.where(active, cand, N)
-            perm = torch.sort((cand_m.long() << 32) + rank64, dim=-1,
-                              stable=True).indices
-            with stats.span("K8 prefix_commit"):
-                used_j, choice, ptr = ops.prefix_commit(
-                    perm.to(torch.int32), cand_m.gather(-1, perm).contiguous(),
-                    requests, alloc, used_j, choice, ptr, KC)
+    with stats.span("K8 prefix_commit_loop"):
+        used_j, choice, steps = ops.prefix_commit_loop(
+            topi, topv, allowed, rank, requests, alloc, used,
+            ops.prefix_commit)
+    stats.count_substeps(steps)
 
     # Rescue: the best-ranked allowed pod that is still feasible
     # somewhere. Without signatures `allowed` is any(feasible, 1), the
@@ -3571,7 +3639,8 @@ class Ops:
     cycle: Callable
     row_topk: Callable
     desirability: Callable
-    prefix_commit: Callable
+    prefix_commit: Callable          # the plain loop's sub-step (a hook)
+    prefix_commit_loop: Callable
     sig_match: Callable
     pair_counts: Callable
     pairwise_batch: Callable
@@ -3597,7 +3666,8 @@ class Ops:
 
 
 KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
-              row_topk, desirability, prefix_commit, kpair.sig_match,
+              row_topk, desirability, prefix_commit_plain,
+              prefix_commit_loop, kpair.sig_match,
               kpair.pair_counts, kpair.pairwise_batch, parity_scan_pair,
               node_add, kpair.pair_commit, kpair.ia_ok_at_choice, waterfill,
               excess_min, excess_survive, parity_scan_preempt,
@@ -3607,7 +3677,8 @@ KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
               kexplain.explain_terms, deal, top_by_rank)
 PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_plain, cycle_plain, row_topk_plain,
-            desirability_plain, prefix_commit_plain, kpair.sig_match_plain,
+            desirability_plain, prefix_commit_plain,
+            prefix_commit_loop_plain, kpair.sig_match_plain,
             kpair.pair_counts_plain, kpair.pairwise_batch_plain,
             parity_scan_pair_plain, node_add_plain, kpair.pair_commit_plain,
             kpair.ia_ok_at_choice_plain, waterfill_plain, excess_min_plain,

@@ -47,8 +47,8 @@ Three kernels carry it, each with a plain twin:
     and the lexicographic (violations, cost) row ranking as bids; K6
     (`assign.row_topk`) then keeps each bidder's 256 best nodes;
   * K18 `auction_claim`: the claim iterations that deal bidders distinct
-    nodes (integer work in one CTA), then the exact [C, V] validation of
-    each claim on its node.
+    nodes (integer work over a thread-block cluster a tenant, a warp a
+    bidder), then the exact [C, V] validation of each claim on its node.
 Every V-long f32 prefix is summed from 0.0 left to right (JAX leaves
 the order of its cumsums to XLA), and the capacity a kept prefix frees
 is that prefix's own sum, the value its fit was tested with.
@@ -59,7 +59,7 @@ leading [B] axis on the snapshot and the state. Each tenant sorts its
 own victims and gets its own offsets, planes (V shared) and budgets;
 the auction's thresholds are each tenant's own
 quantiles; K16 and K17 launch once over the B tenants' lanes and rows,
-K18 with one CTA a tenant. The plain versions go tenant by tenant.
+K18 with one cluster a tenant. The plain versions go tenant by tenant.
 """
 
 from __future__ import annotations
@@ -860,17 +860,52 @@ def auction_claim_plain(topv: torch.Tensor, topi: torch.Tensor,
     return target, claimed, takes, vidx_t, freed, usage, could_bid
 
 
+# K18 spreads each tenant's bidders over a cluster of Q CTAs (16 is the
+# card's non-portable cluster size) of at most CLAIM_WARPS warps, a warp a
+# bidder; a warp keeps its first CLAIM_REG bidders' candidates in
+# registers (csrc/auction.cu).
+CLAIM_CLUSTERS = (1, 2, 4, 8, 16)
+CLAIM_REG = 2
+CLAIM_WARPS = 32
+CLAIM_MIN_BIDDERS = 32     # bidders a CTA at least (one warp's worth)
+CLAIM_MAX_K = 256          # candidates a bidder: 8 a lane
+
+
+def claim_threads(C: int, Q: int) -> int:
+    """K18's threads a CTA for C bidders over Q CTAs: a warp for every
+    CLAIM_REG bidders of a CTA's ceil(C / Q), at most CLAIM_WARPS warps."""
+    if Q not in CLAIM_CLUSTERS:
+        raise ValueError(f"auction_claim: cluster size {Q}, want one of "
+                         f"{CLAIM_CLUSTERS}")
+    cpc = -(-max(C, 1) // Q)
+    return 32 * min(CLAIM_WARPS, -(-cpc // CLAIM_REG))
+
+
+def claim_cluster_size(B: int, C: int, sms: int) -> tuple[int, int]:
+    """(Q, threads a CTA) for K18 over B tenants of C bidders on a card of
+    `sms` SMs: the largest Q in CLAIM_CLUSTERS with B * Q <= sms (every
+    CTA on an SM of its own) and at least CLAIM_MIN_BIDDERS bidders a
+    CTA; Q = 1 when even B alone passes sms (the clusters then queue)."""
+    if B < 1 or C < 1 or sms < 1:
+        raise ValueError(f"auction_claim: B={B}, C={C}, sms={sms}: each "
+                         "must be >= 1")
+    Q = CLAIM_CLUSTERS[-1]
+    while Q > 1 and (B * Q > sms or Q * CLAIM_MIN_BIDDERS > C):
+        Q //= 2
+    return Q, claim_threads(C, Q)
+
+
 def auction_claim(topv: torch.Tensor, topi: torch.Tensor,
                   can_plain: torch.Tensor, n_plain: torch.Tensor,
                   rank: torch.Tensor, ctx: PreemptCtxNV,
                   evicted: torch.Tensor, p_prio: torch.Tensor,
                   p_req: torch.Tensor, used: torch.Tensor,
                   alloc: torch.Tensor, could: torch.Tensor, margin: float,
-                  GP: int):
-    """Kernel K18 on CUDA tensors (one CTA of 1024 threads a tenant; the
-    claim state [N] in shared memory; the candidate lists transposed to
-    [K, C]; the entry point refuses more than 1024 bidders a tenant or
-    more nodes than its shared memory holds), the plain version on CPU
+                  GP: int, cluster: int | None = None):
+    """Kernel K18 on CUDA tensors (one cluster of Q CTAs a tenant, Q from
+    `claim_cluster_size` or `cluster`, a warp a bidder, K6's [C, K] lists
+    as they are; the entry point refuses K > 256 or more nodes and bidders
+    than a CTA's shared memory holds), the plain version on CPU
     tensors."""
     dev = topi.device
     if dev.type == "cpu":
@@ -894,6 +929,9 @@ def auction_claim(topv: torch.Tensor, topi: torch.Tensor,
     check(k, dev, p_req, torch.float32, (*lead, C, R))
     check(k, dev, used, torch.float32, (*lead, N, R))
     check(k, dev, alloc, torch.float32, (*lead, N, R))
+    if K > CLAIM_MAX_K:
+        raise ValueError(f"{k}: {K} candidates a bidder, the kernel takes "
+                         f"at most {CLAIM_MAX_K}")
     target = torch.empty((*lead, C), dtype=torch.int32, device=dev)
     claimed = torch.empty((*lead, C), dtype=torch.bool, device=dev)
     takes = torch.empty((*lead, C), dtype=torch.bool, device=dev)
@@ -904,13 +942,15 @@ def auction_claim(topv: torch.Tensor, topi: torch.Tensor,
     out = (target, claimed, takes, vidx_t, freed, usage, could_bid)
     if target.numel() == 0:
         return out
-    # The kernel walks each bidder's list with a thread a bidder: [K, C]
-    # puts a warp's candidates side by side.
-    topv_t = topv.transpose(-2, -1).contiguous()
-    topi_t = topi.transpose(-2, -1).contiguous()
-    _build.launch("tpusched_auction_claim", lead[0] if lead else 1, C, K, N,
-                  V, R, M, GP, CLAIM_ITERS, *ptrs((
-                      topv_t, topi_t, can_plain, n_plain, rank, ctx.vreq,
+    B = lead[0] if lead else 1
+    if cluster is None:
+        Q, threads = claim_cluster_size(
+            B, C, torch.cuda.get_device_properties(dev).multi_processor_count)
+    else:
+        Q, threads = cluster, claim_threads(C, cluster)
+    _build.launch("tpusched_auction_claim", B, Q, threads, C, K, N, V, R, M,
+                  GP, CLAIM_ITERS, *ptrs((
+                      topv, topi, can_plain, n_plain, rank, ctx.vreq,
                       ctx.vprio, ctx.vpdb, ctx.vvalid, ctx.vidx, evicted,
                       p_prio, p_req, used, alloc, could)), float(margin),
                   *ptrs(out), stream_of(dev))
