@@ -206,6 +206,25 @@ package, and
        and K18 over the tenant axis on (th)'s first auction round
        against their plain versions, with CUDA-event and profiler
        times;
+     - (tn) K26, the exact auction tableau (`_tableau_nv`, which no
+       solve path runs), on the state of fast (h)'s and (th)'s first
+       auction round (its launch counter zeroed just before and read
+       just after): every claim K18 kept with evictions is the
+       tableau's (violations, cost) minimum on its node, its victims
+       the eligible ones up to its last; then K26 against its plain
+       version, exactly, with CUDA-event and profiler times;
+     - the ring (r): `init_distributed` over NCCL with world 1 (a
+       FileStore under the build directory) and `make_mesh()`, then
+       `Engine(mesh=...)` with ring_counts=True on (e) in parity and
+       fast mode, `score_topk(k=8)` and `solve_explained(k=3)` on (d)
+       and fast preemption on (h) with spread and inter-pod terms, each
+       launching what the dense engine launches for it plus K25 and
+       equal to the dense engine bit for bit; the ring's initial counts
+       equal to K10's; then K25 at the hop shapes of 1-, 2-, 4- and
+       8-rank rings on (e) and (h) + pairwise, the blocks rotated in
+       this one process (one card holds one NCCL rank), every hop
+       exact against its plain version, the rotated counts equal to
+       K10's, one hop timed beside K9 + K10 for the same counts;
      - every fast cell of FAST_COUNTS keeps its recorded placed count,
        and its recorded host reads less the reads of the commit loop
        that K8 runs on the card (one a sub-step and one to end each
@@ -242,6 +261,7 @@ from tpusched_torch.engine import (
     _pack_solve,
     _sat_tables,
     probe_core,
+    ring_counts,
     score_core,
     score_top1_core,
     score_topk_core,
@@ -253,7 +273,9 @@ from tpusched_torch.kernels import pairwise as kpair
 from tpusched_torch.kernels import preempt as kpre
 from tpusched_torch.kernels import queue as kq
 from tpusched_torch.kernels.atoms import atom_sat, atom_sat_plain
+from tpusched_torch.mesh import init_distributed, make_mesh
 from tpusched_torch.qos import effective_priority, effective_weights, pressure_of
+from tpusched_torch.ring import ring_inputs, ring_sig_counts_rotated
 from tpusched_torch.tenants import solve_many, stack_snapshots
 from tpusched_torch.synth import (
     config2_scale,
@@ -436,6 +458,10 @@ KERNELS = (
      "tpusched/kernels/assign.py:815"),
     ("top_by_rank", kassign.top_by_rank, "launches",
      "tpusched_torch/csrc/tranche.cu", "tpusched/kernels/assign.py:996"),
+    ("ring_hop", kpair.ring_hop, "launches", "tpusched_torch/csrc/ring.cu",
+     "tpusched/ring.py:76"),
+    ("tableau_nv", kpre._tableau_nv, "launches",
+     "tpusched_torch/csrc/tableau_nv.cu", "tpusched/kernels/preempt.py:169"),
 )
 # Kernels whose counters the main path leaves at 0, and why; each is
 # held against its plain version at full size in the kernel phase.
@@ -443,6 +469,9 @@ OFF_PATH = {
     "preempt_step": "K15's standalone entry point, solo; the main path runs "
                     "K15 as a device function inside K4's preemption "
                     "variants",
+    "tableau_nv": "no solve path runs the exact auction tableau, as in the "
+                  "JAX package; (tn) holds it against the auction's kept "
+                  "claims",
 }
 PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                   "parity_scan")
@@ -2084,9 +2113,12 @@ def preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
 def profiler_ms(fn, kernel: str, reps: int = 5) -> float | None:
     """The device time of the CUDA kernels whose name holds `kernel`,
     per fn() call, from a torch.profiler trace of `reps` calls (after a
-    warm-up); None when the trace holds no such kernel. A trace of a
-    few microsecond-long kernels can come back without their events, so
-    a miss is traced once more, with host activity and 4 x the calls."""
+    warm-up): the sum of the trace's device events of that name over
+    the calls. A trace can come back without some of its device events
+    (a few microsecond-long kernels, or part of a slow kernel's
+    launches), so one that holds none, or a count of them that is not a
+    multiple of the calls, is traced once more, with host activity and
+    4 x the calls; None when that one falls short too."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2098,13 +2130,13 @@ def profiler_ms(fn, kernel: str, reps: int = 5) -> float | None:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total = 0.0
-        for e in prof.key_averages():
-            if kernel in e.key:
-                total += getattr(e, "device_time_total",
-                                 getattr(e, "cuda_time_total", 0.0))
-        if total > 0:
-            return total / 1e3 / n
+        hits = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.name]
+        if hits and len(hits) % n == 0:
+            return sum(hits) / 1e3 / n
+        log(f"profiler: {kernel}: {len(hits)} device events over {n} "
+            "calls, not a multiple of the calls; not used")
     return None
 
 
@@ -2213,13 +2245,13 @@ def topk_tie_rows(dev, N: int, K: int) -> str:
 
 
 def tableau_nv_bound(calls: dict) -> tuple[float, str]:
-    """The bound of JAX's `_tableau_nv` (preempt.py:169; the port keeps
-    it as plain torch, no product path runs it) at the shapes of this
-    auction round's bidders: the [N, V] victim table, the bidders'
-    priorities and requests, used and allocatable read once, its [C, N,
-    V] outputs (elig, wcost, wviol, fits: 10 bytes a cell) and [C, N]
-    minima written once; per cell the eligibility, R + 1 prefix adds,
-    3R fit operations, the V-long same-budget count and the two minima."""
+    """The bound of K26 (JAX's `_tableau_nv`, preempt.py:169; no solve
+    path runs it) at the shapes of this auction round's bidders: the
+    [N, V] victim table, the bidders' priorities and requests, used and
+    allocatable read once, its [C, N, V] outputs (elig, wcost, wviol,
+    fits: 10 bytes a cell) and [C, N] minima written once; per cell the
+    eligibility, R + 1 prefix adds, 3R fit operations, the V-long
+    same-budget count and the two minima."""
     ctx, ev = calls["auction_tables"][1][:2]
     C = calls["auction_rank"][1][3].shape[-1]
     N, V, R = ctx.vreq.shape[-3:]
@@ -2228,6 +2260,64 @@ def tableau_nv_bound(calls: dict) -> tuple[float, str]:
                ctx.vidx, ev) + B * (C * (R + 1) * 4 + 2 * N * R * 4
                                     + C * N * V * 10 + C * N * 8)
     return bound(b, B * C * N * V * (4 * R + V + 7))
+
+
+def tableau_nv_phase(cfg: EngineConfig, dsnap, calls: dict,
+                     where: str) -> dict:
+    """(tn): K26 on the state of an auction round's claims (the bidders'
+    priorities and requests, usage and earlier evictions K18 took): the
+    launch counter zeroed just before one tableau and read just after;
+    at every bidder whose claim K18 kept with evictions, the kept
+    prefix (its victims, its last victim's violations and cost) is the
+    tableau's (violations, cost) minimum on the claimed node, as
+    tests/test_torch_fastpreempt.py's test_kept_prefix_is_tableau_minimum
+    checks on the CPU; then all six outputs against the plain version,
+    exactly, with CUDA-event and profiler times and the bound. A tenant
+    batch's calls carry a leading [B] axis. Returns the kernel row; its
+    shape notes K26's launches in the check, which are not main-path
+    launches (no solve path runs K26)."""
+    fn, a = calls["auction_claim"]
+    ctx, ev, prio, req, used = a[5:10]
+    # The solo rounds run as a batch of one: their state is [1, ...].
+    snap = dsnap if dsnap.pods.valid.dim() == ev.dim() else dsnap.as_batch()
+    args = (cfg, snap, ctx, prio, req, used, ev)
+    before = kpre._tableau_nv.launches
+    tab = kpre._tableau_nv(*args)
+    n = kpre._tableau_nv.launches - before
+    elig, wcost, wviol, fits, node_viol, node_cost = tab
+    target, _, takes, vidx_t = fn(*a)[:4]
+    C, N, V = elig.shape[-3:]
+    M = ev.shape[-1]
+    b, c = torch.nonzero(takes.reshape(-1, C), as_tuple=True)
+    if b.numel() == 0:
+        raise AssertionError(f"{where}: no claim kept with evictions")
+    t = target.reshape(-1, C)[b, c].long()
+    kept = vidx_t.reshape(-1, C, V)[b, c] < M                # [K, V]
+    last = (kept * torch.arange(V, device=kept.device)).amax(dim=1)
+    cell = (b * C + c) * N + t
+    if not (kept.any(dim=1).all() and torch.equal(
+            kept, elig.reshape(-1, V)[cell]
+            & (torch.arange(V, device=kept.device) <= last[:, None]))):
+        raise AssertionError(f"{where}: a kept prefix is not the eligible "
+                             "victims up to its last one")
+    at = cell * V + last
+    if not (fits.reshape(-1)[at].all() and torch.equal(
+            wviol.reshape(-1)[at].to(torch.float32),
+            node_viol.reshape(-1)[cell]) and torch.equal(
+            wcost.reshape(-1)[at], node_cost.reshape(-1)[cell])):
+        raise AssertionError(f"{where}: a kept prefix is not the "
+                             "tableau's (violations, cost) minimum")
+    plain = lambda: kpre._tableau_nv_plain(*args)  # noqa: E731
+    err = require_equal("tableau_nv", list(tab), list(plain()))
+    B = ev.numel() // M
+    prof = profiler_ms(lambda: kpre._tableau_nv(*args), "tableau_nv_kernel")
+    row = dict(err=err, ms=cuda_ms(lambda: kpre._tableau_nv(*args), 20),
+               prof_ms=prof, plain_ms=cuda_ms(plain, 3),
+               bound=tableau_nv_bound(calls), extra={"prof_ms": prof},
+               shape=f"B={B} C={C} N={N} V={V} R={req.shape[-1]}, "
+                     f"{b.numel()} kept eviction claims equal to the "
+                     f"tableau's minimum, {n} launch in the check")
+    return row
 
 
 def auction_kernel_phase(dsnap, calls: dict) -> dict:
@@ -2407,10 +2497,10 @@ def fast_preempt_phase(snap_h, snap_hp, smi: str) -> tuple[dict, dict]:
         calls = first_auction_calls(cfg, dsnap)
         kp = auction_kernel_phase(dsnap, calls)
         where = f"{name.split(':')[0]}'s first auction round"
+        if not pair:
+            kp["tableau_nv"] = tableau_nv_phase(cfg, dsnap, calls,
+                                                "(tn) " + where)
         log_rows(kp, where, smi)
-        nv = tableau_nv_bound(calls)
-        log(f"bound of _tableau_nv (plain torch, no kernel) on {where}: "
-            f"{nv[0]:.5f} ms ({nv[1]}); {smi}")
         if not rows:
             rows = kp
         else:
@@ -3615,11 +3705,193 @@ def pre_tenant_phase(smi: str, pair: bool) -> tuple[dict, dict]:
     if not pair:
         calls = first_auction_calls(cfg_f, dstack)
         rows = auction_kernel_phase(dstack, calls)
+        row = tableau_nv_phase(cfg_f, dstack, calls,
+                               "(tn) (th)'s first auction round")
+        rows["tableau_nv"] = dict(row, extra={"tenants": {
+            k: row[k] for k in ("ms", "prof_ms", "plain_ms", "bound",
+                                "shape")}})
         log_rows(rows, "(th)'s first auction round", smi)
-        nv = tableau_nv_bound(calls)
-        log(f"bound of _tableau_nv (plain torch, no kernel) on (th)'s first "
-            f"auction round: {nv[0]:.5f} ms ({nv[1]}); {smi}")
     return launches, rows
+
+
+def ring_compare(name: str, got, want) -> None:
+    """A ring run's outputs equal the dense run's, bit for bit."""
+    for g, w in zip(got, want):
+        if not np.array_equal(np.asarray(g), np.asarray(w)):
+            raise AssertionError(f"ring (r) {name}: differs from the dense "
+                                 "engine's on the same card")
+
+
+def solve_fields(res) -> tuple:
+    return tuple(getattr(res, f) for f in (
+        "assignment", "order", "commit_key", "chosen_score", "final_used",
+        "evicted", "rounds", "host_reads"))
+
+
+def ring_runs(snap_d, snap_e, snap_hp):
+    """The (r) requests: (label, what each calls on an engine, its
+    config). Each runs on an Engine(mesh=...) with ring_counts and on a
+    dense Engine of the same config."""
+    fast = EngineConfig(mode="fast")
+
+    def explained(eng):
+        res, exd, probe = eng.solve_explained(snap_d, k=EXPLAIN_K)
+        return solve_fields(res) + tuple(vars(exd).values()) + tuple(
+            v for v in vars(probe).values() if isinstance(v, np.ndarray))
+
+    return (
+        ("e parity", lambda eng: solve_fields(eng.solve(snap_e)),
+         EngineConfig()),
+        ("e fast", lambda eng: solve_fields(eng.solve(snap_e)), fast),
+        ("d score_topk(k=8)", lambda eng: eng.score_topk(snap_d, 8)[:2],
+         EngineConfig()),
+        ("d fast solve_explained(k=3)", explained, fast),
+        ("h fast + spread/inter-pod terms, preemption on",
+         lambda eng: solve_fields(eng.solve(snap_hp)),
+         EngineConfig(mode="fast", preemption=True)))
+
+
+def ring_phase(snap_d, snap_e, snap_hp, smi: str) -> tuple[dict, dict]:
+    """Cell (r): the ring path on a one-rank mesh. init_distributed over
+    NCCL with world 1 (a FileStore under the build directory), then
+    make_mesh() -> (1, 1); the (r) requests through Engine(mesh=...) with
+    ring_counts=True (counters zeroed just before, read just after), each
+    launching what the dense engine launches for it plus K25 once a ring
+    (the explained solve twice: the solve and its probe), each output
+    equal to the dense engine's bit for bit; the ring's initial counts
+    equal to K10's on (e) and (h) with pairwise terms; then K25 at the
+    hop shapes of 1-, 2-, 4- and 8-rank rings (ring_hop_rows). Returns
+    (the phase's launch counts, the kernel row)."""
+    store = _build.BUILD_DIR / "ring_store"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    init_distributed(num_processes=1, process_id=0, store_path=str(store))
+    mesh = make_mesh()
+    init_s = time.perf_counter() - t0
+    if mesh.shape != {"p": 1, "n": 1}:
+        raise AssertionError(f"ring (r): mesh {mesh.shape}")
+    runs = ring_runs(snap_d, snap_e, snap_hp)
+    zero_counts()
+    done = []
+    for name, call, cfg in runs:
+        eng = Engine(dataclasses.replace(cfg, ring_counts=True), mesh=mesh)
+        before = counts()
+        got, ms = timed(lambda: call(eng))
+        eng.close()
+        done.append((name, call, cfg, got, ms,
+                     {k: counts()[k] - v for k, v in before.items()}))
+    phase_counts = counts()
+    for name, call, cfg, got, ms, moved in done:
+        eng = Engine(cfg)
+        before = counts()
+        want, dense_ms = timed(lambda: call(eng))
+        eng.close()
+        dense = {k: counts()[k] - v for k, v in before.items()}
+        rings = 2 if "explained" in name else 1
+        if moved["ring_hop"] != rings or dense["ring_hop"] or any(
+                moved[k] != dense[k] for k in moved if k != "ring_hop"):
+            raise AssertionError(f"ring (r) {name}: launches {moved}, the "
+                                 f"dense engine's {dense}")
+        ring_compare(name, got, want)
+        log(f"ring (r) {name}: {ms:.3f} ms wall on the (1, 1) mesh "
+            f"(the dense engine {dense_ms:.3f} ms), equal to the dense "
+            f"engine bit for bit; K25 launched {rings}x, every other "
+            f"kernel as often as the dense run; {smi}")
+    for label, snap in (("e", snap_e), ("h + pairwise", snap_hp)):
+        dsnap = snap.to(mesh.device)
+        _, msat = _sat_tables(dsnap)
+        ring = ring_counts(EngineConfig(ring_counts=True), dsnap, msat, mesh)
+        dense = kpair.pair_counts(kpair.sig_match(
+            msat, dsnap.sigs, kpair.member_ns(dsnap)),
+            kpair.sig_domains(dsnap), dsnap.running, dsnap.pods).counts
+        require_equal(f"ring (r) {label} initial counts", [ring], [dense])
+        log(f"ring (r) {label}: the ring's initial counts [{tuple(ring.shape)}"
+            f", {int(ring.sum())} member matches] equal K10's bit for bit")
+    log(f"ring (r): init_distributed (NCCL, world 1, FileStore) and "
+        f"make_mesh {init_s:.3f} s; launches {phase_counts}")
+    row = ring_hop_rows(snap_e, snap_hp, mesh.device, smi)
+    torch.distributed.destroy_process_group()
+    return phase_counts, {"ring_hop": row}
+
+
+RING_SIZES = (1, 2, 4, 8)
+
+
+def ring_hop_rows(snap_e, snap_hp, dev, smi: str) -> dict:
+    """K25 at the hop shapes of 1-, 2-, 4- and 8-rank rings on (e) and
+    on (h) with spread and inter-pod terms: the blocks rotated through
+    every hop of every rank in this one process (one card: NCCL refuses
+    two ranks on one device), each hop exact against its plain version
+    on a copy of the same counts, the rotated counts equal to K10's;
+    CUDA-event and profiler ms of one hop, the plain hop's ms, the bound
+    (bytes: the member block and the signature block read once, the
+    counts read and written once); K9 + K10's ms for the same counts as
+    a yardstick. The kernel row is (e)'s one-rank hop, the main path's."""
+    sizes, row = {}, None
+    for label, snap in (("e", snap_e), ("hp", snap_hp)):
+        dsnap = snap.to(dev)
+        _, msat = _sat_tables(dsnap)
+        P = dsnap.pods.valid.shape[0]
+        unplaced = torch.full((P,), -1, dtype=torch.int32, device=dev)
+        args9 = (msat, dsnap.sigs, kpair.member_ns(dsnap))
+        dom_s = kpair.sig_domains(dsnap)
+        sm = kpair.sig_match(*args9)
+        dense = kpair.pair_counts(sm, dom_s, dsnap.running, dsnap.pods).counts
+        k9_k10 = (cuda_ms(lambda: kpair.sig_match(*args9), 10)
+                  + cuda_ms(lambda: kpair.pair_counts(
+                      sm, dom_s, dsnap.running, dsnap.pods), 10))
+        hops = 0
+
+        def checked(counts, *a):
+            nonlocal hops
+            want = kpair.ring_hop_plain(counts.clone(), *a)
+            kpair.ring_hop(counts, *a)
+            require_equal(f"ring_hop {label}", [counts], [want])
+            hops += 1
+            return counts
+
+        N = dsnap.nodes.valid.shape[0]
+        for ndev in RING_SIZES:
+            got = ring_sig_counts_rotated(dsnap, msat, unplaced, ndev,
+                                          hop=checked)
+            require_equal(f"ring {label} over {ndev} blocks", [got], [dense])
+            inp = ring_inputs(dsnap, msat, unplaced, ndev)
+            members, block = inp.members(0), inp.sigs(0)
+            sblk = block[0].shape[0]
+            # Timed hops add into one buffer each (the counts stay far
+            # below 2**24 over the timing's calls).
+            acc = torch.zeros((sblk, N), dtype=torch.float32, device=dev)
+            acc_p = acc.clone()
+            hop = (lambda: kpair.ring_hop(acc, *members, *block, inp.ndom))
+            plain = (lambda: kpair.ring_hop_plain(acc_p, *members, *block,
+                                                  inp.ndom))
+            AT, NS = block[1].shape[1], block[2].shape[1]
+            mblk = members[1].shape[0]
+            nb = nbytes(*members, *block, inp.ndom) + 2 * nbytes(acc)
+            r = dict(err=0.0, ms=cuda_ms(hop, 20),
+                     prof_ms=profiler_ms(hop, "ring_hop_kernel"),
+                     plain_ms=cuda_ms(plain, 3),
+                     bound=bound(nb, sblk * mblk * (AT + NS + 4)),
+                     shape=f"{label} ring of {ndev}: sblk={sblk} "
+                           f"mblk={mblk} A={msat.shape[0]} AT={AT} NS={NS} "
+                           f"N={N}", k9_k10_ms=k9_k10)
+            sizes[f"{label} ndev={ndev}"] = r
+            if row is None:
+                row = dict(r, library_ms=None)
+            prof = ("not measured" if r["prof_ms"] is None
+                    else f"{r['prof_ms']:.4f} ms")
+            log(f"kernel ring_hop [{r['shape']}]: {ndev * ndev} hops exact, "
+                f"the rotated counts equal K10's; one hop {r['ms']:.4f} ms "
+                f"(CUDA events; profiler kernel time {prof}), a rank's "
+                f"{ndev} hops {ndev * r['ms']:.4f} ms, plain hop "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+                f"({r['bound'][1]}); K9 + K10 for the same counts "
+                f"{k9_k10:.4f} ms; {smi}")
+        if hops != sum(n * n for n in RING_SIZES):
+            raise AssertionError(f"ring_hop {label}: {hops} hops checked")
+    row["extra"] = {"hop_shapes": sizes}
+    return row
 
 
 def main() -> int:
@@ -3906,7 +4178,8 @@ def main() -> int:
                   lambda: pair_tenant_phase(smi),
                   lambda: (gang_tenant_phase(smi), {}),
                   lambda: pre_tenant_phase(smi, False),
-                  lambda: pre_tenant_phase(smi, True)):
+                  lambda: pre_tenant_phase(smi, True),
+                  lambda: ring_phase(snap_d, snap_e, snap_hp, smi)):
         phase_counts, rows = phase()
         for k, v in phase_counts.items():
             launches[k] += v

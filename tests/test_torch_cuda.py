@@ -1765,3 +1765,222 @@ def test_solve_many_preemption_on_the_card(cuda, mode, kind):
         np.testing.assert_array_equal(ev, res.evicted)
         assert int(rounds) == res.rounds
     eng.close()
+
+
+# -- K25: the ring hop -----------------------------------------------------------
+
+
+def _hop_args(cuda, case, seed=0):
+    """Random arguments of one hop (counts holding earlier adds): a
+    signature block against a member block, with padding ids, invalid
+    rows, key-less nodes and unsatisfied atoms; `case` picks the edge."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    A, mblk, sblk, AT, NS, N, TK = {
+        "base": (6, 1000, 7, 3, 2, 50, 3), "invalid": (6, 1000, 7, 3, 2, 50, 3),
+        "hot": (6, 4000, 5, 2, 1, 50, 2), "a0": (0, 700, 5, 2, 2, 40, 2),
+        "a0_at0": (0, 700, 5, 0, 0, 40, 2), "n1": (4, 500, 3, 2, 1, 1, 1),
+        "wide": (8, 51200, 5, 3, 2, 5120, 4)}[case]
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=torch.int32).to(cuda)
+
+    def bools(p, *shape):
+        return (torch.rand(*shape, generator=g) < p).to(cuda)
+
+    counts = torch.randint(0, 5, (sblk, N), generator=g).to(
+        torch.float32).to(cuda)
+    msat = bools(0.6, A, mblk)
+    mnode, mvalid, mns = ints(-1, N, mblk), bools(0.9, mblk), ints(-1, 3, mblk)
+    skey = ints(-1, TK, sblk)
+    satoms = ints(-1, A, sblk, AT) if A else torch.full(
+        (sblk, AT), -1, dtype=torch.int32, device=cuda)
+    sns, snsall, svalid = ints(-1, 3, sblk, NS), bools(0.5, sblk), bools(
+        0.9, sblk)
+    ndom = ints(-1, N, N, TK)
+    if case == "invalid":
+        mvalid = torch.zeros_like(mvalid)
+    if case == "n1":  # the one node has the key: its domain is 0
+        ndom, skey = torch.zeros_like(ndom), skey.clamp(min=0)
+    if case == "hot":
+        ndom = torch.zeros_like(ndom)
+        mnode, mvalid = mnode.clamp(min=0), torch.ones_like(mvalid)
+        snsall, svalid = torch.ones_like(snsall), torch.ones_like(svalid)
+        skey = skey.clamp(min=0)
+    return (counts, msat, mnode, mvalid, mns, skey, satoms, sns, snsall,
+            svalid, ndom)
+
+
+@pytest.mark.parametrize("case", ["base", "invalid", "hot", "a0", "a0_at0",
+                                  "n1", "wide"])
+def test_k25_hop_equal_plain(cuda, case):
+    """K25 adds into its counts exactly what its plain version adds, on
+    random blocks and at the edges: an all-invalid member block (nothing
+    added), one hot domain (every match on one count cell), no atoms
+    (with and without term atom slots), one node, and a wide (h)-sized
+    member block."""
+    args = _hop_args(cuda, case)
+    before = args[0].clone()
+    want = kp.ring_hop_plain(args[0].clone(), *args[1:])
+    n = kp.ring_hop.launches
+    got = kp.ring_hop(*args)
+    assert got is args[0] and kp.ring_hop.launches == n + 1
+    _equal([got], [want])
+    added = float((got - before).sum())
+    if case == "invalid":
+        assert added == 0
+    else:
+        assert added > 0
+    if case == "hot":
+        assert float((got - before)[:, 0].sum()) == added
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("mix", sorted(PAIR_MIXES))
+def test_k25_rotated_ring_equal_dense(cuda, mix, ndev):
+    """The blocks of an ndev-rank ring rotated through K25 on one card
+    (S not a multiple of ndev at 3 and 8: the padded signatures add
+    nothing) equal the plain hop's rotation and K10's dense counts."""
+    snap = _snap(cuda, seed=5, **PAIR_MIXES[mix])
+    from tpusched_torch.ring import ring_sig_counts_rotated
+
+    _, msat = _sat_tables(snap)
+    P = snap.pods.valid.shape[0]
+    a = torch.full((P,), -1, dtype=torch.int32, device=cuda)
+    got = ring_sig_counts_rotated(snap, msat, a, ndev)
+    plain = ring_sig_counts_rotated(snap, msat, a, ndev,
+                                    hop=kp.ring_hop_plain)
+    dense = kp.pair_counts(kp.sig_match(msat, snap.sigs, kp.member_ns(snap)),
+                           kp.sig_domains(snap), snap.running,
+                           snap.pods).counts
+    _equal([got, plain], [dense, dense])
+    assert dense.sum() > 0
+
+
+@pytest.mark.parametrize("mix", sorted(PAIR_MIXES))
+def test_k25_k10_takes_the_rings_counts(cuda, mix):
+    """K10 given the ring's counts skips its count scatter: the state
+    carries the given tensor, and its anti and match_tot equal the plain
+    version's and K10's whole state's."""
+    snap = _pair_snap(cuda, mix)
+    static, dom, whole = _pair_setup(EngineConfig(), snap)
+    args = (static.sig_match, dom, snap.running, snap.pods)
+    marked = torch.full_like(whole.counts, 7.0)
+    st = kp.pair_counts(*args, counts=marked)
+    assert st.counts is marked
+    assert torch.equal(marked, torch.full_like(marked, 7.0))
+    plain = kp.pair_counts_plain(*args, counts=marked)
+    _equal([st.anti, st.match_tot], [plain.anti, plain.match_tot])
+    _equal([st.anti, st.match_tot], [whole.anti, whole.match_tot])
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_k25_ring_engine_equal_dense(cuda, mode):
+    """Engine(ring_counts=True) on a one-rank mesh (no process group: the
+    default card) equals the dense engine on the card, bit for bit, and
+    launches K25 once a solve."""
+    from tpusched_torch.mesh import make_mesh
+
+    snap = _snap(cuda, seed=7, **PAIR_MIXES["anti_ns_keyless"])
+    mesh = make_mesh()
+    ring = Engine(EngineConfig(mode=mode, ring_counts=True), mesh=mesh)
+    dense = Engine(EngineConfig(mode=mode))
+    n = kp.ring_hop.launches
+    got, want = ring.solve(snap), dense.solve(snap)
+    assert kp.ring_hop.launches == n + 1
+    for f in ("assignment", "order", "commit_key", "chosen_score",
+              "final_used", "rounds", "host_reads"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    ring.close()
+    dense.close()
+
+
+# -- K26: the exact auction tableau ----------------------------------------------
+
+
+def _nv_args(cuda, C, N, V, R, M, GP, seed=0, nothing=False):
+    """A random node-major victim table and auction state of C bidders
+    (fractional requests, usage near capacity, budgets when GP > 0):
+    (cfg, snap-like, ctx, prio, req, used, evicted)."""
+    from types import SimpleNamespace
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g).to(cuda)
+
+    used = rand(N, R) * 10.0
+    alloc = used + rand(N, R) * 4.0
+    ctx = kpre.PreemptCtxNV(
+        vreq=rand(N, V, R) * 3.7, vcost=rand(N, V) * 5.0 + 1.0,
+        vprio=rand(N, V) * 100.0,
+        vpdb=torch.randint(-1, max(GP, 0), (N, V), generator=g,
+                           dtype=torch.int32).to(cuda),
+        vvalid=rand(N, V) < 0.85,
+        vidx=torch.randint(0, M + 1, (N, V), generator=g,
+                           dtype=torch.int32).to(cuda))
+    snap = SimpleNamespace(
+        nodes=SimpleNamespace(allocatable=alloc),
+        running=SimpleNamespace(
+            pdb_group=torch.randint(-1, max(GP, 0), (M,), generator=g,
+                                    dtype=torch.int32).to(cuda),
+            valid=torch.ones(M, dtype=torch.bool, device=cuda)),
+        pdb_allowed=torch.randint(0, 3, (GP,), generator=g).to(
+            torch.float32).to(cuda))
+    prio = (torch.full((C,), -1e9, device=cuda) if nothing
+            else rand(C) * 120.0)
+    req = rand(C, R) * 3.0
+    ev = rand(M) < 0.2
+    return EngineConfig(), snap, ctx, prio, req, used, ev
+
+
+@pytest.mark.parametrize("case", ["v1", "gp0", "nothing", "r1", "r2", "r3",
+                                  "r4", "r5", "r6", "r7", "r8", "v32"])
+def test_k26_equal_plain(cuda, case):
+    """K26's six outputs against the plain version, exactly: one victim a
+    node, no budgets, no eligible victim (every minimum +inf), R = 1 to 8
+    resources, V = 32."""
+    V = {"v1": 1, "v32": 32}.get(case, 16)
+    R = int(case[1]) if case.startswith("r") else 3
+    GP = 0 if case == "gp0" else 4
+    args = _nv_args(cuda, 37, 70, V, R, 300, GP,
+                    nothing=case == "nothing")
+    n = kpre._tableau_nv.launches
+    got = kpre._tableau_nv(*args)
+    assert kpre._tableau_nv.launches == n + 1
+    want = kpre._tableau_nv_plain(*args)
+    _equal(got, want)
+    if case == "nothing":
+        assert not got[0].any() and torch.isinf(got[4]).all()
+    else:
+        assert got[3].any() and torch.isfinite(got[4]).any()
+    if GP and case != "nothing":
+        assert (got[2] > 0).any()
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_k26_auction_state_equal_plain(cuda, B):
+    """K26 on the fast auction's own state of config-5 snapshots (the
+    node-major victim table, C = 1 024 bidders at 10 000 x 5 000 for
+    B = 1; eight tenants of 600 x 300 in one launch for B = 8) against
+    the plain version, exactly."""
+    if B == 1:
+        cfg, snap, ctx, ev, used, rows, prio, req = _auction_args(
+            cuda, 10000, 5000)[:8]
+    else:
+        snaps, snap = _floored(lambda b, **x: tsynth.config5_preemption(
+            np.random.default_rng(45 + b), 600, 300, **x), B)
+        snap = snap.to(cuda)
+        cfg = EngineConfig(mode="fast", preemption=True)
+        ctx = kpre.precompute_nv(cfg, snap, ka._PREEMPT_VICTIM_CAP)
+        g = torch.Generator(device="cpu").manual_seed(B)
+        M = snap.running.valid.shape[1]
+        ev = (torch.rand(B, M, generator=g) < 0.1).to(cuda) \
+            & snap.running.valid
+        used = snap.nodes.used.clone()
+        prio = (torch.rand(B, 256, generator=g) * 600).to(cuda)
+        req = snap.pods.requests[:, :256].contiguous()
+    args = (cfg, snap, ctx, prio, req, used, ev)
+    got = kpre._tableau_nv(*args)
+    _equal(got, kpre._tableau_nv_plain(*args))
+    assert got[3].any()

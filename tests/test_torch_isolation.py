@@ -33,7 +33,7 @@ def test_port_imports_with_jax_blocked():
         "tpusched_torch.engine, tpusched_torch.kernels.queue, "
         "tpusched_torch.kernels.explain, "
         "tpusched_torch.synth, tpusched_torch.device_state, "
-        "tpusched_torch.tenants\n"
+        "tpusched_torch.tenants, tpusched_torch.mesh, tpusched_torch.ring\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None "
         "and m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tpusched'))\n"

@@ -8,7 +8,9 @@ pairwise constraints, gangs and preemption; ScoreBatch (`Engine.score`,
 (`device_state.DeviceSnapshot` with `Engine.solve_warm`, bitwise or
 incremental); the device pending queue (`DeviceQueue`); and decision
 provenance (`Engine.solve_explained`: `ExplainData`, `ScoreExplain`);
-and the multi-tenant batch (`stack_snapshots`, `solve_many`).
+and the multi-tenant batch (`stack_snapshots`, `solve_many`); and the
+device mesh with the pairwise count ring (`mesh.make_mesh`,
+`Engine(mesh=...)` with `ring_counts`).
 Every device program runs on a CUDA kernel written for
 Hopper (tpusched_torch/csrc), built with nvcc at first use, or on plain
 torch where the JAX program is a row gather, scatter or sort.

@@ -88,6 +88,8 @@ SIGNATURES = {
                               + [_I] + [_P] * 4,
     "tpusched_queue_rank": [_I] * 3 + [_P] * 7 + [_F, ctypes.c_double]
                            + [_P] * 7,
+    "tpusched_ring_hop": [_I] * 7 + [_P] * 12,
+    "tpusched_tableau_nv": [_I] * 7 + [_P] * 12 + [_F] + [_P] * 7,
 }
 
 _lib: "ctypes.CDLL | None" = None

@@ -237,8 +237,9 @@ class EngineConfig:
     # bit-identical to the JAX engine and its oracle.
     tie_break: str = "first"
     tie_seed: int = 0
-    # Multi-device knobs of the JAX engine (ROADMAP A14), kept so one
-    # config dict drives both engines.
+    # Multi-device knobs. ring_counts takes the initial pair counts from
+    # the ring over the mesh of Engine(mesh=...) (ring.py); mesh_shape is
+    # the JAX engine's, kept so one config dict drives both engines.
     mesh_shape: tuple[int, int] = (1, 1)
     ring_counts: bool = False
     compact_cap: int = -1

@@ -204,7 +204,8 @@ int tpusched_sig_match(int B, int A, int S, int X, int AT, int NS,
 
 // K10. The pair state from scratch (pairwise.py pair_state_init, and
 // pair_state_seed when assigned is not NULL): adds into counts [S, N],
-// anti [S, N] and match_tot [S], which must hold zeros on entry.
+// anti [S, N] and match_tot [S], which must hold zeros on entry; counts
+// NULL skips the count scatter (the ring's counts stand in for it).
 int tpusched_pair_counts(int B, int S, int N, int M, int P, int J, int IT,
                          const bool* match, const int* dom,
                          const int* run_node, const bool* run_valid,
@@ -476,6 +477,34 @@ int tpusched_queue_rank(int Q, int Qp, int n_out, const bool* valid,
                         const float* parked, const int* seq, float now,
                         double gain, float* prio, void* keys_a, void* keys_b,
                         int* counts, int* idx, float* prio_out, void* stream);
+
+// K25 (ring.py ring_sig_counts, one hop). Adds into counts [sblk, N] the
+// members of the resident block [mblk] (msat [A, mblk], mnode, mvalid,
+// mns) matching each signature of the block (skey, satoms [sblk, AT], sns
+// [sblk, NS], snsall, svalid), at their node's domain under the
+// signature's key (ndom [N, TK]).
+int tpusched_ring_hop(int A, int mblk, int sblk, int AT, int NS, int N,
+                      int TK, const bool* msat, const int* mnode,
+                      const bool* mvalid, const int* mns, const int* skey,
+                      const int* satoms, const int* sns, const bool* snsall,
+                      const bool* svalid, const int* ndom, float* counts,
+                      void* stream);
+
+// K26 (preempt.py _tableau_nv). The [C, N, V] victim-prefix tableaus of C
+// bidders on the node-major victim table (vreq [N, V, R], vcost, vprio,
+// vpdb, vvalid, vidx [N, V]): elig, wcost, wviol, fits [C, N, V] and the
+// (violations, cost) minimum over each node's fitting prefixes,
+// node_viol and node_cost [C, N]. Tenant axis on every array.
+int tpusched_tableau_nv(int B, int C, int N, int V, int R, int M, int GP,
+                        const float* vreq, const float* vcost,
+                        const float* vprio, const int* vpdb,
+                        const bool* vvalid, const int* vidx,
+                        const bool* evicted, const float* p_prio,
+                        const float* p_req, const float* used,
+                        const float* alloc, const float* remaining,
+                        float margin, bool* elig, float* wcost, int* wviol,
+                        bool* fits, float* node_viol, float* node_cost,
+                        void* stream);
 
 #ifdef __cplusplus
 }

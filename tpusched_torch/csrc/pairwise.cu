@@ -127,7 +127,7 @@ __global__ void pair_counts_kernel(int S, int N, int M, int P, int J, int IT,
     ia_anti += b * P * IT;
     ia_required += b * P * IT;
     if (assigned) assigned += b * P;
-    counts += b * S * N;
+    if (counts) counts += b * S * N;
     anti += b * S * N;
     match_tot += b * S;
   }
@@ -139,6 +139,7 @@ __global__ void pair_counts_kernel(int S, int N, int M, int P, int J, int IT,
   for (int s = 0; s < S; ++s) {
     if (!match[(long long)s * X + x]) continue;
     atomicAdd(&match_tot[s], 1.0f);
+    if (!counts) continue;  // the ring's counts stand in for these
     const int d = dom[(long long)s * N + nc];
     if (d >= 0) atomicAdd(&counts[(long long)s * N + d], 1.0f);
   }
@@ -230,7 +231,7 @@ __global__ void pair_commit_kernel(int S, int N, int M, int P, int IT,
     ia_required += b * P * IT;
     choice += b * P;
     commit += b * P;
-    counts += b * S * N;
+    if (counts) counts += b * S * N;
     anti += b * S * N;
     match_tot += b * S;
   }
@@ -275,7 +276,7 @@ __global__ void ia_at_choice_kernel(int P, int N, int S, int IT, int M,
     ia_valid += b * P * IT;
     ia_anti += b * P * IT;
     ia_required += b * P * IT;
-    counts += b * S * N;
+    if (counts) counts += b * S * N;
     anti += b * S * N;
     match_tot += b * S;
     choice += b * P;

@@ -38,8 +38,12 @@ which `Engine.solve_warm_async` reads and commits.
 `DeviceQueue` is the persistent pending table the JAX host builds with
 `device_queue=True`: a numpy mirror on the host, its twin on the device,
 dirty rows shipped in one scatter a cycle and the solve window ranked by
-kernel K21 (`kernels/queue.py`). The JAX package's mesh layout is not
-ported here (ROADMAP A14).
+kernel K21 (`kernels/queue.py`).
+
+On a mesh (`DeviceSnapshot(..., mesh=...)`) the lineage lives whole on
+the rank's device, as every rank's engine solves the whole snapshot;
+JAX's sharded layout of the lineage (pods over p, nodes over n) waits for
+the sharded solve (ROADMAP A14b).
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ import torch
 from tpusched_torch.config import Buckets, EngineConfig
 from tpusched_torch.kernels import queue as kqueue
 from tpusched_torch.kernels.assign import permute_rows, scatter_rows
+from tpusched_torch.mesh import mesh_device
 from tpusched_torch.qos import pressure_of
 from tpusched_torch.snapshot import (
     ClusterSnapshot,
@@ -142,14 +147,17 @@ class DeviceSnapshot:
     `apply()` upserts and removes records and updates the device arrays
     in O(churn); `snap` / `meta` always reflect the latest applied
     state. device: "cuda" by default (raises without CUDA), or "cpu"
-    when asked. Not thread-safe: one caller applies and solves."""
+    when asked. mesh: a `mesh.Mesh`; the lineage then lives on the mesh
+    rank's device (a `device` that differs raises). Not thread-safe: one
+    caller applies and solves."""
 
     def __init__(self, config: EngineConfig | None = None,
                  buckets: Buckets | None = None,
-                 device: "str | torch.device | None" = None):
+                 device: "str | torch.device | None" = None, mesh=None):
         self.config = config or EngineConfig()
         self._floor_buckets = buckets
-        self.device = _require_device(device, "lineage")
+        self.mesh = mesh
+        self.device = _require_device(mesh_device(mesh, device), "lineage")
         # Raw record kwargs by name (the rebuild's source of truth) and
         # the normalized forms the row fills read.
         self._nodes: dict[str, dict] = {}

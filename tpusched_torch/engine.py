@@ -62,6 +62,12 @@ on views) and solves bitwise as a cold solve would, and the incremental
 rung seeds the fast rounds with the previous cycle's placements
 (`solve_incremental`: K20's frontier closure, K19's capacity prefix,
 then the rounds over the frontier).
+
+With `ring_counts=True` (on `Engine(mesh=...)`, a `mesh.Mesh`) every
+entry point but the incremental rung takes the initial pair counts from
+the ring over the mesh's p axis (`ring.ring_sig_counts`, K25 a hop) in
+place of K10's counts, the same bits; anti and match_tot still come from
+K10. Each rank runs the rest of the solve whole on its device.
 """
 
 from __future__ import annotations
@@ -97,6 +103,8 @@ from tpusched_torch.kernels.assign import (
     solve_sequential,
 )
 from tpusched_torch.kernels.queue import k_bucket
+from tpusched_torch.mesh import mesh_device
+from tpusched_torch.ring import ring_sig_counts
 from tpusched_torch.snapshot import ClusterSnapshot, snapshot_from_numpy
 
 
@@ -162,27 +170,55 @@ def _sat_tables(snap: ClusterSnapshot, ops: Ops = KERNELS):
     return node_sat_t, member_sat_t
 
 
+def ring_counts(cfg: EngineConfig, snap: ClusterSnapshot,
+                member_sat_t: torch.Tensor | None, mesh,
+                ops: Ops = KERNELS) -> torch.Tensor | None:
+    """The initial [S, N] domain counts from the ring (ring.py, K25 a
+    hop) when cfg.ring_counts is set and the snapshot has signatures,
+    else None (JAX solve_core's branch): no pending pod placed yet."""
+    if not cfg.ring_counts or snap.sigs.key.shape[-1] == 0:
+        return None
+    if mesh is None:
+        raise ValueError("ring_counts=True needs a mesh: the ring rotates "
+                         "signature blocks over the mesh's 'p' axis")
+    P = snap.pods.valid.shape[-1]
+    unplaced = torch.full((P,), -1, dtype=torch.int32,
+                          device=snap.pods.valid.device)
+    return ring_sig_counts(snap, member_sat_t, unplaced, mesh, ops.ring_hop)
+
+
 def solve_core(cfg: EngineConfig, snap: ClusterSnapshot, ops: Ops = KERNELS,
                stats: RoundStats | None = None,
-               static: StaticCtx | None = None, explain: bool = False):
+               static: StaticCtx | None = None, explain: bool = False,
+               mesh=None, member_sat_t: torch.Tensor | None = None):
     """(assigned, chosen, used, order, commit_key, rounds, evicted) in
     either mode. Parity: commit_key is the rank in pop order, rounds = P.
     Fast: commit_key is each pod's commit round. stats collects the fast
     loops' host reads (and spans, when it times). static: a StaticCtx
     already made from a tableau (the warm path); the label tables and
-    the tableau are then not computed. explain=True appends the
-    provenance tuple (rolled, evictor, evict_round, auction_stats) of
-    solve_sequential / solve_rounds; the rest is the same. A tenant batch
+    the tableau are then not computed, and member_sat_t (the tableau's)
+    rides along for the ring. With cfg.ring_counts the initial pair
+    counts come from the ring over `mesh` (`ring_counts`), bit for bit
+    the dense counts. explain=True appends the provenance tuple
+    (rolled, evictor, evict_round, auction_stats) of solve_sequential /
+    solve_rounds; the rest is the same. A tenant batch
     (tenants.solve_many: a leading [B] axis on every leaf; signatures,
     gangs and preemption included) gives every output that axis, rounds
     [B]."""
-    tables = (None, None) if static is not None else _sat_tables(snap, ops)
+    if static is None:
+        tables = _sat_tables(snap, ops)
+        member_sat_t = tables[1]
+    else:
+        tables = (None, None)
+    init_counts = ring_counts(cfg, snap, member_sat_t, mesh, ops)
     if cfg.mode == "fast":
         return solve_rounds(cfg, snap, *tables, static=static, ops=ops,
-                            stats=stats, explain=explain)
+                            stats=stats, explain=explain,
+                            init_counts=init_counts)
     a, c, u, o, ev, *extras = solve_sequential(cfg, snap, *tables, ops=ops,
                                                static=static,
-                                               explain=explain)
+                                               explain=explain,
+                                               init_counts=init_counts)
     rank = _rank_of(o)
     rounds = torch.full(o.shape[:-1], o.shape[-1], dtype=torch.int32,
                         device=o.device)
@@ -207,29 +243,35 @@ def _pack_solve(out) -> torch.Tensor:
 
 
 def probe_core(cfg: EngineConfig, snap: ClusterSnapshot, kb: int,
-               ops: Ops = KERNELS) -> torch.Tensor:
+               ops: Ops = KERNELS, mesh=None) -> torch.Tensor:
     """The provenance probe's flat buffer (kernels/explain.explain_probe)
     at top-kb: K1's label tables, K2's tableau (K9 with signatures),
-    then the probe."""
+    the ring's counts with cfg.ring_counts, then the probe."""
     node_sat_t, member_sat_t = _sat_tables(snap, ops)
     tab = build_tableau(cfg, snap, node_sat_t, member_sat_t, ops)
-    return kexplain.explain_probe(cfg, snap, tab, kb, ops)
+    return kexplain.explain_probe(
+        cfg, snap, tab, kb, ops,
+        init_counts=ring_counts(cfg, snap, member_sat_t, mesh, ops))
 
 
 def score_core(cfg: EngineConfig, snap: ClusterSnapshot, masked: bool = False,
-               ops: Ops = KERNELS):
+               ops: Ops = KERNELS, mesh=None):
     """ScoreBatch on the device: (feasible [P, N], score [P, N]); with
-    masked, the score is -inf at infeasible cells."""
-    return score_batch(cfg, snap, *_sat_tables(snap, ops), masked=masked,
-                       ops=ops)
+    masked, the score is -inf at infeasible cells. With cfg.ring_counts
+    the running members' counts come from the ring over `mesh`."""
+    node_sat_t, member_sat_t = _sat_tables(snap, ops)
+    return score_batch(cfg, snap, node_sat_t, member_sat_t, masked=masked,
+                       ops=ops, init_counts=ring_counts(cfg, snap,
+                                                        member_sat_t, mesh,
+                                                        ops))
 
 
 def score_top1_core(cfg: EngineConfig, snap: ClusterSnapshot,
-                    ops: Ops = KERNELS):
+                    ops: Ops = KERNELS, mesh=None):
     """Each pod's best feasible node (lowest index among the maxima, -1
     if none), its score and whether any node is feasible, on the
     device."""
-    _, masked = score_core(cfg, snap, masked=True, ops=ops)
+    _, masked = score_core(cfg, snap, masked=True, ops=ops, mesh=mesh)
     topv, topi, _ = ops.row_topk(masked, 1)
     any_feasible = topv[:, 0] > float("-inf")
     best = torch.where(any_feasible, topi[:, 0], -1)
@@ -237,11 +279,11 @@ def score_top1_core(cfg: EngineConfig, snap: ClusterSnapshot,
 
 
 def score_topk_core(cfg: EngineConfig, snap: ClusterSnapshot, kb: int,
-                    ops: Ops = KERNELS):
+                    ops: Ops = KERNELS, mesh=None):
     """Each pod's kb best feasible nodes, descending, ties to the lower
     index: (idx [P, kb] int32, -1 past the feasible ones; val [P, kb]
     f32, 0 there), on the device."""
-    _, masked = score_core(cfg, snap, masked=True, ops=ops)
+    _, masked = score_core(cfg, snap, masked=True, ops=ops, mesh=mesh)
     topv, topi, _ = ops.row_topk(masked, kb)
     ok = torch.isfinite(topv)
     zero = torch.zeros((), dtype=topv.dtype, device=topv.device)
@@ -312,23 +354,30 @@ class Engine:
 
     device: "cuda" (the default) or a CUDA device; "cpu" runs every
     kernel's plain version instead, for tests. Without CUDA the default
-    raises: the engine never falls back to the CPU by itself."""
+    raises: the engine never falls back to the CPU by itself.
 
-    mesh = None  # single device; the JAX engine's mesh is ROADMAP A14
+    mesh: a `mesh.Mesh` this rank belongs to; the engine then runs on
+    the mesh's device (a `device` that differs raises). It is required
+    by cfg.ring_counts, whose initial pair counts come from the ring over
+    the mesh's p axis (ring.py); every rank of the mesh makes the same
+    calls, and each runs the rest of the solve whole on its own device
+    (the passes JAX shards over p and n are ROADMAP A14b)."""
 
     def __init__(self, config: EngineConfig | None = None,
-                 device: "str | torch.device | None" = None):
+                 device: "str | torch.device | None" = None, mesh=None):
         self.config = config or EngineConfig()
+        self.mesh = mesh
         cfg = self.config
         if cfg.mode not in ("parity", "fast"):
             raise ValueError(f"mode={cfg.mode!r}: want 'parity' or 'fast'")
-        if cfg.ring_counts:
+        if cfg.ring_counts and mesh is None:
             raise ValueError(
-                "ring_counts=True needs a device mesh, which the port "
-                "does not have yet (ROADMAP A14)")
+                "ring_counts=True needs Engine(mesh=...): the ring rotates "
+                "signature blocks over the mesh's 'p' axis")
         if cfg.tie_break not in ("first", "seeded"):
             raise NotImplementedError(
                 f"tie_break={cfg.tie_break!r}: want 'first' or 'seeded'")
+        device = mesh_device(mesh, device)
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -393,7 +442,8 @@ class Engine:
         t0 = time.perf_counter()
         dsnap, moved = self._put(snap)
         stats = RoundStats()
-        buf = _pack_solve(solve_core(self.config, dsnap, stats=stats))
+        buf = _pack_solve(solve_core(self.config, dsnap, stats=stats,
+                                     mesh=self.mesh))
 
         def unpack(raw, seconds):
             out = self.unpack(dsnap, raw[0])
@@ -442,11 +492,12 @@ class Engine:
         t0 = time.perf_counter()
         dsnap, moved = self._put(snap)
         stats = RoundStats()
-        buf = _pack_solve(solve_core(cfg, dsnap, stats=stats, explain=True))
+        buf = _pack_solve(solve_core(cfg, dsnap, stats=stats, explain=True,
+                                     mesh=self.mesh))
         N = max(int(dsnap.nodes.valid.shape[0]), 1)
         kk = min(max(int(k), 1), N)
         kb = self._k_bucket(kk, N)
-        probe = probe_core(cfg, dsnap, kb)
+        probe = probe_core(cfg, dsnap, kb, mesh=self.mesh)
 
         def unpack_solve(raw, seconds):
             res, exd = self.unpack_explained(dsnap, raw[0])
@@ -481,7 +532,8 @@ class Engine:
     def score_async(self, snap) -> PendingFetch:
         """Async form of score(): `.result()` is a ScoreBatchResult."""
         t0 = time.perf_counter()
-        feasible, scores = score_core(self.config, self.put(snap))
+        feasible, scores = score_core(self.config, self.put(snap),
+                                      mesh=self.mesh)
 
         def unpack(raw, seconds):
             return ScoreBatchResult(feasible=raw[0], scores=raw[1],
@@ -494,7 +546,8 @@ class Engine:
         feasibility: (best [P] int32, score [P] f32, feasible [P] bool,
         seconds). The [P, N] matrix stays on the device."""
         t0 = time.perf_counter()
-        best, mx, anyf = score_top1_core(self.config, self.put(snap))
+        best, mx, anyf = score_top1_core(self.config, self.put(snap),
+                                         mesh=self.mesh)
         return (best.cpu().numpy(), mx.cpu().numpy(), anyf.cpu().numpy(),
                 time.perf_counter() - t0)
 
@@ -520,7 +573,7 @@ class Engine:
             raise ValueError(f"top_k={k} out of range for {N} node slots")
         t0 = time.perf_counter()
         idx, val = score_topk_core(self.config, self.put(snap),
-                                   self._k_bucket(k, N))
+                                   self._k_bucket(k, N), mesh=self.mesh)
 
         def unpack(raw, seconds):
             return raw[0][:, :k], raw[1][:, :k], seconds
@@ -594,8 +647,14 @@ class Engine:
         (`commit_warm`); the result becomes the lineage's carry at join
         (`commit_carry`). A lineage whose leaves are not tensors on this
         engine's device is read through numpy and sent whole, every
-        cycle; SolveResult.h2d_bytes counts it."""
+        cycle; SolveResult.h2d_bytes counts it. With cfg.ring_counts the
+        cold and warm rungs take the ring's counts (the member table from
+        the tableau); the incremental rung raises NotImplementedError, as
+        JAX's does."""
         cfg = self.config
+        if incremental and cfg.ring_counts:
+            raise NotImplementedError(
+                "incremental warm solve does not support ring_counts")
         t0 = time.perf_counter()
         dsnap, moved = self._put(device.snap)
         delta = device.warm_delta()
@@ -628,7 +687,8 @@ class Engine:
         if reason is not None:
             tab = self._tableau_cold(dsnap)
             out = solve_core(cfg, dsnap, stats=stats,
-                             static=finalize_static(cfg, dsnap, tab))
+                             static=finalize_static(cfg, dsnap, tab),
+                             mesh=self.mesh, member_sat_t=tab.member_sat_t)
             buf = _pack_solve(out)
             path, rows = "cold", (0, 0, 0)
         else:
@@ -671,7 +731,9 @@ class Engine:
                 path, inc_run = "incremental", True
             else:
                 out = solve_core(cfg, dsnap, stats=stats,
-                                 static=finalize_static(cfg, dsnap, tab))
+                                 static=finalize_static(cfg, dsnap, tab),
+                                 mesh=self.mesh,
+                                 member_sat_t=tab.member_sat_t)
                 buf = _pack_solve(out)
                 path = "warm"
         device.commit_warm(

@@ -884,13 +884,16 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
                      member_sat_t: torch.Tensor | None = None,
                      ops: "Ops | None" = None,
                      static: StaticCtx | None = None,
-                     explain: bool = False):
+                     explain: bool = False,
+                     init_counts: torch.Tensor | None = None):
     """Exact sequential commit (stock scheduleOne semantics). With
     signatures the scan carries the pair state (K10 counts the running
     members, K4's pairwise variant adds each commit). With preemption
     and running pods, the scan runs the PostFilter victim search (K15)
     for each pod that fits nowhere; then the gang gate. static: a
-    StaticCtx already made (the warm path's, from its tableau). Returns
+    StaticCtx already made (the warm path's, from its tableau).
+    init_counts: the ring's [S, N] counts, in place of K10's (JAX
+    init_counts; the same bits). Returns
     (assigned, chosen, used, order, evicted); explain=True appends
     (rolled [P], evictor [M], evict_round [M], auction table), JAX's
     provenance: the gang gate's rollbacks, each victim's evicting pod
@@ -916,7 +919,7 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
     if snap.sigs.key.shape[-1] > 0:
         dom_s = kpair.sig_domains(snap)
         st0 = ops.pair_counts(static.sig_match, dom_s, snap.running,
-                              snap.pods)
+                              snap.pods, counts=init_counts)
         if pctx is None:
             assigned, chosen, used, st = ops.parity_scan_pair(
                 cfg, snap, static, order, st0, dom_s)
@@ -1600,16 +1603,18 @@ def batched_cycle(cfg: EngineConfig, snap: ClusterSnapshot,
 def score_batch(cfg: EngineConfig, snap: ClusterSnapshot,
                 node_sat_t: torch.Tensor,
                 member_sat_t: torch.Tensor | None = None,
-                masked: bool = False, ops: "Ops | None" = None):
+                masked: bool = False, ops: "Ops | None" = None,
+                init_counts: torch.Tensor | None = None):
     """One-shot [P, N] feasibility + scores against the snapshot's usage
     (no commits): the ScoreBatch surface, against the pair state of the
-    running members (K10; none at S = 0)."""
+    running members (K10; none at S = 0; init_counts, the ring's, in
+    place of its counts)."""
     ops = ops or KERNELS
     static = precompute_static(cfg, snap, node_sat_t, member_sat_t, ops)
     st0 = None
     if snap.sigs.key.shape[-1] > 0:
         st0 = ops.pair_counts(static.sig_match, kpair.sig_domains(snap),
-                              snap.running, snap.pods)
+                              snap.running, snap.pods, counts=init_counts)
     return batched_cycle(cfg, snap, static, snap.nodes.used, masked, ops,
                          st0)
 
@@ -3274,13 +3279,15 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
                  node_sat_t: torch.Tensor | None,
                  member_sat_t: torch.Tensor | None = None,
                  static: StaticCtx | None = None, ops: "Ops | None" = None,
-                 stats: RoundStats | None = None, explain: bool = False):
+                 stats: RoundStats | None = None, explain: bool = False,
+                 init_counts: torch.Tensor | None = None):
     """Fast mode: batched commit rounds. Returns (assigned, chosen, used,
     order, round_of, rounds, evicted); round_of is the commit key (pods
     of an earlier round committed strictly earlier; with signatures a
     round's kept commits were validated against its end-of-round
     state). member_sat_t: the [A, M+P] member label table, needed with
-    signatures. explain=True appends JAX's provenance tuple (rolled [P],
+    signatures. init_counts: the ring's [S, N] counts, in place of
+    K10's. explain=True appends JAX's provenance tuple (rolled [P],
     evictor [M], evict_round [M], the auction table; see
     _preempt_rounds), with the same placements and host reads.
 
@@ -3310,7 +3317,8 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
             stats=stats)
     else:
         dom_s = kpair.sig_domains(snap)
-        st0 = ops.pair_counts(static.sig_match, dom_s, snap.running, pods)
+        st0 = ops.pair_counts(static.sig_match, dom_s, snap.running, pods,
+                              counts=init_counts)
         invol, has_pair = _sig_involvement(snap, static, st0)
         used, assigned, st, chosen, round_of, rounds = _solve_rounds_sig(
             cfg, snap, static, rank, order, st0, invol, has_pair,
@@ -3663,6 +3671,7 @@ class Ops:
     explain_terms: Callable
     deal: Callable
     top_by_rank: Callable
+    ring_hop: Callable
 
 
 KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
@@ -3674,7 +3683,7 @@ KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
               parity_scan_pair_preempt, kpre.auction_ok, kpre.auction_tables,
               kpre.auction_rank, kpre.auction_claim, capacity_prefix_keep,
               frontier_closure, kexplain.explain_cells,
-              kexplain.explain_terms, deal, top_by_rank)
+              kexplain.explain_terms, deal, top_by_rank, kpair.ring_hop)
 PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_plain, cycle_plain, row_topk_plain,
             desirability_plain, prefix_commit_plain,
@@ -3687,4 +3696,5 @@ PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             kpre.auction_tables_plain, kpre.auction_rank_plain,
             kpre.auction_claim_plain, capacity_prefix_keep_plain,
             frontier_closure_plain, kexplain.explain_cells_plain,
-            kexplain.explain_terms_plain, deal_plain, top_by_rank_plain)
+            kexplain.explain_terms_plain, deal_plain, top_by_rank_plain,
+            kpair.ring_hop_plain)

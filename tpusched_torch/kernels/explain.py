@@ -101,16 +101,18 @@ class ProbeInputs:
 
 
 def probe_inputs(cfg: EngineConfig, snap: ClusterSnapshot, tab,
-                 pair_counts) -> ProbeInputs:
+                 pair_counts, init_counts=None) -> ProbeInputs:
     """ProbeInputs from a tableau (assign.WarmTableau); pair_counts is
-    K10 (or its plain version), run only with signatures."""
+    K10 (or its plain version), run only with signatures; init_counts,
+    the ring's, replace its counts."""
     pods = snap.pods
     w = effective_weights(cfg, pressure_of(pods.slo_target,
                                            pods.observed_avail))
     st = dom_s = None
     if snap.sigs.key.shape[0] > 0:
         dom_s = kpair.sig_domains(snap)
-        st = pair_counts(tab.sig_match, dom_s, snap.running, pods)
+        st = pair_counts(tab.sig_match, dom_s, snap.running, pods,
+                         counts=init_counts)
     return ProbeInputs(
         snap=snap, aff_ok=tab.aff_ok, na_raw=tab.na_raw,
         tt_count=tab.tt_count, sig_match=tab.sig_match,
@@ -311,14 +313,15 @@ explain_terms.launches = 0
 
 
 def explain_probe(cfg: EngineConfig, snap: ClusterSnapshot, tab, k: int,
-                  ops) -> torch.Tensor:
+                  ops, init_counts=None) -> torch.Tensor:
     """One flat f32 buffer of the provenance arrays (module docstring),
     from the snapshot's tableau `tab` (K1, K2; K9 with signatures):
     K10's pair state with signatures, K22's tallies and masked totals,
     K6's top k (1 <= k <= N, ties to the lower index), K22's terms at
     the chosen cells, then the QoS columns. ops: the kernel table
-    (assign.KERNELS, or assign.PLAIN for the plain versions)."""
-    q = probe_inputs(cfg, snap, tab, ops.pair_counts)
+    (assign.KERNELS, or assign.PLAIN for the plain versions).
+    init_counts: the ring's [S, N] counts, in place of K10's."""
+    q = probe_inputs(cfg, snap, tab, ops.pair_counts, init_counts)
     tallies, feasible, masked, norms = ops.explain_cells(q)
     topv, topi, _ = ops.row_topk(masked, k)
     terms = ops.explain_terms(q, norms, topv, topi)

@@ -31,6 +31,10 @@ Kernels (CUDA on CUDA tensors, the `*_plain` version on CPU tensors):
   K14 `ia_ok_at_choice` each pod's required inter-pod and symmetric
                         anti-affinity verdict at its chosen node, its own
                         contribution excluded (the fast validator)
+  K25 `ring_hop`        one hop of the count ring (ring.py): a signature
+                        block's matches in a member block, counted by
+                        domain into the block's [sblk, N] counts
+                        (csrc/ring.cu)
 The parity scan's per-pod `pairwise_row` and `pair_state_add_pod` run
 inside K4's pairwise variant (`kernels/assign.parity_scan_pair`); their
 plain versions here drive the plain scan.
@@ -161,23 +165,49 @@ def sig_match(member_sat_t: torch.Tensor, sigs: SigTable,
 sig_match.launches = 0
 
 
+def key_domains(dom: torch.Tensor, key: torch.Tensor,
+                live: torch.Tensor) -> torch.Tensor:
+    """[S, N] int32: node n's domain id (dom [N, TK]) under key[s]; -1
+    where the node lacks the key or live[s] is False. A tenant batch
+    gives [B, S, N]."""
+    lead = key.shape[:-1]
+    S, N = key.shape[-1], dom.shape[-2]
+    if dom.shape[-1]:
+        k = key.clamp(min=0).long()[..., None, :].expand(*lead, N, S)
+        dom_s = dom.gather(-1, k).transpose(-2, -1)
+    else:
+        dom_s = torch.full((*lead, S, N), -1, dtype=torch.int32,
+                           device=dom.device)
+    return torch.where(live[..., None], dom_s,
+                       torch.full((), -1, dtype=torch.int32,
+                                  device=dom.device)).contiguous()
+
+
 def sig_domains(snap: ClusterSnapshot) -> torch.Tensor:
     """[S, N] int32: node n's domain id under signature s's topology key;
     -1 where the node lacks the key or the signature slot is padding. A
     tenant batch gives [B, S, N]."""
-    dom = snap.nodes.domain                                  # [.., N, TK]
-    sigs = snap.sigs
-    lead = sigs.key.shape[:-1]
-    S, N = sigs.key.shape[-1], dom.shape[-2]
-    if dom.shape[-1]:
-        key = sigs.key.clamp(min=0).long()[..., None, :].expand(*lead, N, S)
-        dom_s = dom.gather(-1, key).transpose(-2, -1)
-    else:
-        dom_s = torch.full((*lead, S, N), -1, dtype=torch.int32,
-                           device=dom.device)
-    return torch.where(sigs.valid[..., None], dom_s,
+    return key_domains(snap.nodes.domain, snap.sigs.key, snap.sigs.valid)
+
+
+def member_domains(dom_s: torch.Tensor, node: torch.Tensor,
+                   live: torch.Tensor) -> torch.Tensor:
+    """[S, X] int32: member x's domain under signature s's key (that of
+    its node), -1 where live[x] is False."""
+    return torch.where(live[None, :], dom_s[:, node.clamp(min=0).long()],
                        torch.full((), -1, dtype=torch.int32,
-                                  device=dom.device)).contiguous()
+                                  device=dom_s.device))
+
+
+def add_counts(counts: torch.Tensor, on: torch.Tensor,
+               mdom: torch.Tensor) -> torch.Tensor:
+    """counts[s, mdom[s, x]] += 1 where on[s, x] and mdom[s, x] >= 0 (in
+    place; returned). The adds are 0/1 in f32, exact in any order below
+    2**24."""
+    rows = torch.arange(mdom.shape[0], device=mdom.device)[:, None]
+    return counts.index_put_(
+        (rows.expand_as(mdom), mdom.clamp(min=0).long()),
+        (on & (mdom >= 0)).to(torch.float32), accumulate=True)
 
 
 def pod_anti_holds(pods: PodArrays) -> torch.Tensor:
@@ -190,29 +220,29 @@ def pod_anti_holds(pods: PodArrays) -> torch.Tensor:
 
 def pair_counts_plain(sig_match: torch.Tensor, dom_s: torch.Tensor,
                       running: RunningPodArrays, pods: PodArrays,
-                      assigned: torch.Tensor | None = None) -> PairState:
+                      assigned: torch.Tensor | None = None,
+                      counts: torch.Tensor | None = None) -> PairState:
     """The PairState of the running members plus, when `assigned` is
     given, every pending pod p with assigned[p] >= 0 placed there (JAX
-    pair_state_init, and pair_state_seed at that assignment). The
-    scatter-adds add 0/1 in f32, exact in any order. A tenant batch goes
-    tenant by tenant."""
+    pair_state_init, and pair_state_seed at that assignment). `counts`
+    given (the ring's, JAX pair_state_init(counts=)): the state carries
+    them and they are not counted here. The scatter-adds add 0/1 in f32,
+    exact in any order. A tenant batch goes tenant by tenant."""
     if dom_s.dim() == 3:
         return per_tenant(pair_counts_plain, dom_s.shape[0], sig_match,
-                          dom_s, running, pods, assigned)
+                          dom_s, running, pods, assigned, counts)
     S, N = dom_s.shape
     M, P = running.valid.shape[0], pods.valid.shape[0]
     dev = dom_s.device
     if assigned is None:
         assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    node = merge_members(running.node_idx, assigned).long()
     valid = merge_members(running.valid, assigned >= 0)
-    neg = torch.full((), -1, dtype=torch.int32, device=dev)
-    mdom = torch.where(valid[None, :], dom_s[:, node.clamp(min=0)], neg)
-    contrib = (sig_match & valid[None, :] & (mdom >= 0)).to(torch.float32)
-    rows = torch.arange(S, device=dev)[:, None].expand_as(mdom)
-    counts = torch.zeros((S, N), dtype=torch.float32, device=dev)
-    counts.index_put_((rows, mdom.clamp(min=0).long()), contrib,
-                      accumulate=True)
+    if counts is None:
+        mdom = member_domains(
+            dom_s, merge_members(running.node_idx, assigned), valid)
+        counts = add_counts(
+            torch.zeros((S, N), dtype=torch.float32, device=dev),
+            sig_match & valid[None, :], mdom)
     match_tot = (sig_match & valid[None, :]).to(torch.float32).sum(dim=1)
     anti = torch.zeros((S, N), dtype=torch.float32, device=dev)
     asig = running.anti_sig                                  # [M, J]
@@ -237,11 +267,15 @@ def pair_counts_plain(sig_match: torch.Tensor, dom_s: torch.Tensor,
 
 def pair_counts(sig_match: torch.Tensor, dom_s: torch.Tensor,
                 running: RunningPodArrays, pods: PodArrays,
-                assigned: torch.Tensor | None = None) -> PairState:
-    """Kernel K10 on CUDA tensors, the plain version on CPU tensors."""
+                assigned: torch.Tensor | None = None,
+                counts: torch.Tensor | None = None) -> PairState:
+    """Kernel K10 on CUDA tensors, the plain version on CPU tensors.
+    `counts` given (the ring's): the kernel skips its count scatter and
+    the state carries these."""
     dev = dom_s.device
     if dev.type == "cpu":
-        return pair_counts_plain(sig_match, dom_s, running, pods, assigned)
+        return pair_counts_plain(sig_match, dom_s, running, pods, assigned,
+                                 counts)
     lead = dom_s.shape[:-2]                # () or (B,): the tenant axis
     S, N = dom_s.shape[-2:]
     M, P = running.valid.shape[-1], pods.valid.shape[-1]
@@ -256,6 +290,9 @@ def pair_counts(sig_match: torch.Tensor, dom_s: torch.Tensor,
     if assigned is not None:
         check(k, dev, assigned, torch.int32, (*lead, P))
     st = _zero_state(lead, S, N, dev)
+    if counts is not None:
+        check(k, dev, counts, torch.float32, (*lead, S, N))
+        st.counts = counts
     if S * (M + P) == 0 or dom_s.numel() == 0:
         return st
     _build.launch(
@@ -265,13 +302,76 @@ def pair_counts(sig_match: torch.Tensor, dom_s: torch.Tensor,
                                  pods.ia_sig, pods.ia_valid, pods.ia_anti,
                                  pods.ia_required)),
         assigned.data_ptr() if assigned is not None else None,
-        st.counts.data_ptr(), st.anti.data_ptr(), st.match_tot.data_ptr(),
-        stream_of(dev))
+        None if counts is not None else st.counts.data_ptr(),
+        st.anti.data_ptr(), st.match_tot.data_ptr(), stream_of(dev))
     pair_counts.launches += 1
     return st
 
 
 pair_counts.launches = 0
+
+
+# -- K25: one hop of the ring's counts ----------------------------------------
+
+
+def ring_hop_plain(counts: torch.Tensor, msat: torch.Tensor,
+                   mnode: torch.Tensor, mvalid: torch.Tensor,
+                   mns: torch.Tensor, skey: torch.Tensor, satoms: torch.Tensor,
+                   sns: torch.Tensor, snsall: torch.Tensor,
+                   svalid: torch.Tensor, ndom: torch.Tensor) -> torch.Tensor:
+    """Add into counts [sblk, N] (in place; returned) the members of a
+    resident block (msat [A, mblk], mnode, mvalid, mns [mblk]) matching
+    each signature of a block (skey, satoms [sblk, AT], sns [sblk, NS],
+    snsall, svalid [sblk]) at their node's domain under the signature's
+    key (ndom [N, TK]): JAX ring_sig_counts' match_block and body. The
+    adds are 0/1 in f32, exact in any order below 2**24."""
+    sigs = SigTable(key=skey, atoms=satoms, ns=sns, ns_all=snsall,
+                    valid=svalid)
+    match = sig_match_plain(msat, sigs, mns) & mvalid[None, :]
+    mdom = member_domains(key_domains(ndom, skey, skey >= 0), mnode,
+                          mnode >= 0)
+    return add_counts(counts, match, mdom)
+
+
+def ring_hop(counts: torch.Tensor, msat: torch.Tensor, mnode: torch.Tensor,
+             mvalid: torch.Tensor, mns: torch.Tensor, skey: torch.Tensor,
+             satoms: torch.Tensor, sns: torch.Tensor, snsall: torch.Tensor,
+             svalid: torch.Tensor, ndom: torch.Tensor) -> torch.Tensor:
+    """Kernel K25 on CUDA tensors (adds into counts in place, one launch),
+    the plain version on CPU tensors. Exact while every count stays below
+    2**24: the kernel's atomics add whole numbers of members in f32, so
+    their order does not change the sum."""
+    dev = counts.device
+    if dev.type == "cpu":
+        return ring_hop_plain(counts, msat, mnode, mvalid, mns, skey, satoms,
+                              sns, snsall, svalid, ndom)
+    sblk, N = counts.shape
+    A, mblk = msat.shape
+    AT, NS = satoms.shape[1], sns.shape[1]
+    TK = ndom.shape[1]
+    k = "ring_hop"
+    check(k, dev, counts, torch.float32, (sblk, N))
+    check(k, dev, msat, torch.bool, (A, mblk))
+    check(k, dev, mnode, torch.int32, (mblk,))
+    check(k, dev, mvalid, torch.bool, (mblk,))
+    check(k, dev, mns, torch.int32, (mblk,))
+    check(k, dev, skey, torch.int32, (sblk,))
+    check(k, dev, satoms, torch.int32, (sblk, AT))
+    check(k, dev, sns, torch.int32, (sblk, NS))
+    check(k, dev, snsall, torch.bool, (sblk,))
+    check(k, dev, svalid, torch.bool, (sblk,))
+    check(k, dev, ndom, torch.int32, (N, TK))
+    if sblk * mblk == 0:
+        return counts
+    _build.launch("tpusched_ring_hop",
+                  *ptrs((A, mblk, sblk, AT, NS, N, TK, msat, mnode, mvalid,
+                         mns, skey, satoms, sns, snsall, svalid, ndom,
+                         counts)), stream_of(dev))
+    ring_hop.launches += 1
+    return counts
+
+
+ring_hop.launches = 0
 
 
 def pair_state_add_pod(snap: ClusterSnapshot, st: PairState,

@@ -53,6 +53,11 @@ Every V-long f32 prefix is summed from 0.0 left to right (JAX leaves
 the order of its cumsums to XLA), and the capacity a kept prefix frees
 is that prefix's own sum, the value its fit was tested with.
 
+K26 `_tableau_nv` (csrc/tableau_nv.cu) is JAX's exact [C, N, V] tableau
+of every bidder on the same table, which no solve path runs (in JAX only
+its profiling tools do): the reference the auction's kept prefixes are
+held to, a thread per (bidder, node) with the prefix sums in registers.
+
 Tenant axis (tenants.solve_many, JAX's vmap of the same functions):
 every function here but K15's standalone `preempt_step` also takes a
 leading [B] axis on the snapshot and the state. Each tenant sorts its
@@ -466,15 +471,20 @@ def _base_elig(ctx: PreemptCtxNV, evicted: torch.Tensor) -> torch.Tensor:
     return ctx.vvalid & ~ev
 
 
-def _tableau_nv(cfg: EngineConfig, snap: ClusterSnapshot, ctx: PreemptCtxNV,
-                p_prio: torch.Tensor, p_req: torch.Tensor,
-                used: torch.Tensor, evicted: torch.Tensor):
+def _tableau_nv_plain(cfg: EngineConfig, snap: ClusterSnapshot,
+                      ctx: PreemptCtxNV, p_prio: torch.Tensor,
+                      p_req: torch.Tensor, used: torch.Tensor,
+                      evicted: torch.Tensor):
     """All C bidders' exact victim-prefix tableaus on the node-major
     table, [C, N, V] (JAX `_tableau_nv`, which no product path calls):
     (elig, wcost, wviol, fits, node_viol [C, N], node_cost [C, N]), the
     lexicographic (violations, cost) minimum over each node's fitting
-    prefixes. Plain torch, the tests' reference for the auction's exact
-    validation."""
+    prefixes; every V-long f32 prefix from 0.0 left to right (`vprefix`),
+    wviol an int32 count. The tests' reference for the auction's exact
+    validation. A tenant batch goes tenant by tenant."""
+    if evicted.dim() == 2:
+        return per_tenant(_tableau_nv_plain, evicted.shape[0], cfg, snap,
+                          ctx, p_prio, p_req, used, evicted)
     nodes = snap.nodes
     base = _base_elig(ctx, evicted)
     elig = base[None] & (ctx.vprio[None] + cfg.qos.preemption_margin
@@ -485,7 +495,7 @@ def _tableau_nv(cfg: EngineConfig, snap: ClusterSnapshot, ctx: PreemptCtxNV,
                    <= nodes.allocatable[None, :, None, :]).all(dim=-1)
     wcost = vprefix(torch.where(elig, ctx.vcost[None], zero), 2)
     viol = _violations(elig, ctx.vpdb, pdb_remaining(snap, evicted))
-    wviol = torch.cumsum(viol.to(torch.int32), dim=2)
+    wviol = torch.cumsum(viol.to(torch.int32), dim=2).to(torch.int32)
     inf = torch.full((), float("inf"), dtype=torch.float32,
                      device=base.device)
     wv = wviol.to(torch.float32)
@@ -493,6 +503,51 @@ def _tableau_nv(cfg: EngineConfig, snap: ClusterSnapshot, ctx: PreemptCtxNV,
     fits_v = fits & (wv == node_viol[..., None])
     node_cost = torch.where(fits_v, wcost, inf).amin(dim=2)
     return elig, wcost, wviol, fits, node_viol, node_cost
+
+
+def _tableau_nv(cfg: EngineConfig, snap: ClusterSnapshot, ctx: PreemptCtxNV,
+                p_prio: torch.Tensor, p_req: torch.Tensor,
+                used: torch.Tensor, evicted: torch.Tensor):
+    """Kernel K26 on CUDA tensors (one launch for a tenant batch: p_prio
+    [B, C], p_req [B, C, R], used [B, N, R], evicted [B, M] and the
+    batch's victim tables), the plain version on CPU tensors."""
+    dev = evicted.device
+    if dev.type == "cpu":
+        return _tableau_nv_plain(cfg, snap, ctx, p_prio, p_req, used,
+                                 evicted)
+    k = "tableau_nv"
+    lead = evicted.shape[:-1]              # () or (B,): the tenant axis
+    N, V, R = ctx.vreq.shape[-3:]
+    _check_ctx(k, dev, ctx, N, R)
+    C, M = p_prio.shape[-1], evicted.shape[-1]
+    remaining = pdb_remaining(snap, evicted)
+    GP = remaining.shape[-1]
+    check(k, dev, evicted, torch.bool, (*lead, M))
+    check(k, dev, p_prio, torch.float32, (*lead, C))
+    check(k, dev, p_req, torch.float32, (*lead, C, R))
+    check(k, dev, used, torch.float32, (*lead, N, R))
+    check(k, dev, snap.nodes.allocatable, torch.float32, (*lead, N, R))
+    check(k, dev, remaining, torch.float32, (*lead, GP))
+    out = (torch.empty((*lead, C, N, V), dtype=torch.bool, device=dev),
+           torch.empty((*lead, C, N, V), dtype=torch.float32, device=dev),
+           torch.empty((*lead, C, N, V), dtype=torch.int32, device=dev),
+           torch.empty((*lead, C, N, V), dtype=torch.bool, device=dev),
+           torch.empty((*lead, C, N), dtype=torch.float32, device=dev),
+           torch.empty((*lead, C, N), dtype=torch.float32, device=dev))
+    if out[0].numel() == 0:
+        return out
+    _build.launch("tpusched_tableau_nv", lead[0] if lead else 1, C, N, V, R,
+                  M, GP, *ptrs((
+                      ctx.vreq, ctx.vcost, ctx.vprio, ctx.vpdb, ctx.vvalid,
+                      ctx.vidx, evicted, p_prio, p_req, used,
+                      snap.nodes.allocatable, remaining)),
+                  float(cfg.qos.preemption_margin), *ptrs(out),
+                  stream_of(dev))
+    _tableau_nv.launches += 1
+    return out
+
+
+_tableau_nv.launches = 0
 
 
 def _violations(elig: torch.Tensor, vpdb: torch.Tensor,

@@ -21,7 +21,15 @@ own frontier), gangs (each tenant's own quorums) and preemption with
 PodDisruptionBudgets (K4's preemption variants with K15 inside, one CTA
 a tenant over its own victim table; the fast auction rounds with K16-K18
 over the tenant axis, each tenant's own thresholds, budgets, round
-counter and commit keys). ring_counts needs the mesh (ROADMAP A14).
+counter and commit keys). ring_counts is refused: JAX's solve_many
+solves with no mesh, so it has no ring to run.
+
+On a mesh (`solve_many(..., mesh=...)`, JAX's `tenant_sharding`) the
+tenants split over the mesh's p axis in contiguous blocks, as PS('p')
+splits them (B must be a multiple of p, or ValueError, as JAX's
+device_put refuses); each rank solves its block on its device and an
+all-gather over the p ring returns every output as [B, ...] on every
+rank.
 
 Alignment requirement: all tenants share identical bucket shapes; build
 them with one explicit `Buckets` floor (S is the bucket, not the count
@@ -40,6 +48,7 @@ from tpusched_torch.config import EngineConfig
 from tpusched_torch.engine import solve_core
 from tpusched_torch.kernels import stack_tenants
 from tpusched_torch.kernels.assign import KERNELS, Ops, RoundStats
+from tpusched_torch.mesh import POD_AXIS, mesh_device
 from tpusched_torch.snapshot import ClusterSnapshot, snapshot_from_numpy
 
 
@@ -82,10 +91,11 @@ def _refuse(cfg: EngineConfig, stacked: ClusterSnapshot) -> None:
             f"tie_break={cfg.tie_break!r}: want 'first' or 'seeded'")
     if cfg.ring_counts:
         raise NotImplementedError(
-            "solve_many: ring_counts=True needs a device mesh (ROADMAP A14)")
+            "solve_many: ring_counts=True has no ring to run: the tenant "
+            "batch solves with no mesh, as JAX's solve_many does")
 
 
-def solve_many(cfg: EngineConfig, stacked, device=None,
+def solve_many(cfg: EngineConfig, stacked, device=None, mesh=None,
                ops: Ops = KERNELS, stats: RoundStats | None = None):
     """Solve B independent tenants at once: per tenant (assignment [B, P]
     int32, chosen [B, P] f32, used [B, N, R] f32, order [B, P] int64,
@@ -93,12 +103,16 @@ def solve_many(cfg: EngineConfig, stacked, device=None,
 
     stacked: stack_snapshots' result (or any tree of that shape). device:
     "cuda" (the default; raises without CUDA) or "cpu", which runs every
-    kernel's plain version (the tests). ops: the kernel table (PLAIN runs
-    the whole batch without a kernel, to compare). stats: collects the
-    fast loops' host reads, one a loop step for all tenants (with
+    kernel's plain version (the tests). mesh: a `mesh.Mesh`; this rank
+    then solves its contiguous block of B / p tenants on the mesh's
+    device (a `device` that differs raises) and the outputs are gathered
+    over its p ring. ops: the kernel table (PLAIN runs the whole batch
+    without a kernel, to compare). stats: collects the fast loops' host
+    reads (this rank's block's), one a loop step for all tenants (with
     preemption, stats.preempt_rounds lists each tenant's auction
     rounds)."""
     _refuse(cfg, stacked)
+    device = mesh_device(mesh, device)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -107,9 +121,18 @@ def solve_many(cfg: EngineConfig, stacked, device=None,
         device = "cuda"
     if not isinstance(stacked, ClusterSnapshot):
         stacked = snapshot_from_numpy(stacked)
+    if mesh is not None:
+        B, p = stacked.pods.valid.shape[0], mesh.shape[POD_AXIS]
+        if B % p:
+            raise ValueError(f"solve_many: {B} tenants do not split over "
+                             f"the mesh's {p} p ranks (B must be a multiple "
+                             "of p)")
+        i = mesh.coords[0]
+        stacked = stacked.tenant(slice(i * B // p, (i + 1) * B // p))
     snap = stacked.to(device)
     a, c, u, o, _, rounds, ev = solve_core(cfg, snap, ops=ops, stats=stats)
-    return a, c, u, o, rounds, ev
+    out = (a, c, u, o, rounds, ev)
+    return out if mesh is None else tuple(mesh.p_gather(t) for t in out)
 
 
 def solve_many_jit(cfg: EngineConfig):
