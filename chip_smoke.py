@@ -28,7 +28,8 @@ package, and
      first preemption drain step and (t)'s round 1, B = 8);
      Then, on the pairwise cluster (d) (BASELINE config 3 at 10 000 x
      5 000: topology spread and inter-pod affinity), K9 sig_match, K10
-     pair_counts, K11 pairwise_batch and K4's pairwise variant against
+     pair_counts, K11 pairwise_batch (also on a 1 024-row view, every
+     10th pod, with its profiler time) and K4's pairwise variant against
      their plain versions, exactly (the scan: assignment, chosen, used
      and the final pair state); and, on the arguments of their first
      call in a fast solve of (d), K12 waterfill, K13 (excess_min,
@@ -115,8 +116,9 @@ package, and
        a reverted preemptor stranded counted) and at least one
        eviction; then the auction kernels against their plain versions
        on the arguments of each cell's first auction round, exactly,
-       timed with CUDA events and the profiler's kernel time (K18 also
-       at cluster sizes 1, 4, 8 and 16, each exact), K6 at
+       timed with CUDA events and the profiler's kernel time (K17 also
+       at cluster sizes 1, 2, 4, 8 and 16, K18 at 1, 4, 8 and 16, each
+       exact), K6 at
        K = 256 (the radix path) beside torch.topk and the K-pass kernel,
        and on tie rows (all -inf, all equal, -0.0 with +0.0, wide ties at
        the K-th, N not a multiple of 256) at K = 256 and K = N;
@@ -244,6 +246,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1012,11 +1015,35 @@ def pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
                  pods.ia_sig, pods.ia_valid, pods.ia_anti, pods.ia_required,
                  pods.ia_weight, st.counts, st.anti, st.match_tot, *got)
     cell_ops = C * 6 + IT * 10 + S * 3 + 14
+    # K11 on a 1 024-row view (the fast rounds' compacted rows and the
+    # preemption rounds' bidder rows: every 10th pod), exact too.
+    sel = torch.arange(0, P, 10, device=pods.valid.device)[:1024]
+    snap_v, static_v = kassign._pods_view(dsnap, static, sel)
+    args_v = (snap_v, st, static_v.aff_ok, static_v.sig_match, dom_s)
+    got_v = kpair.pairwise_batch(*args_v)
+    require_equal("pairwise_batch (1 024-row view)", got_v,
+                  kpair.pairwise_batch_plain(*args_v))
+    view_ms = cuda_ms(lambda: kpair.pairwise_batch(*args_v), 20)
+    view_prof = profiler_ms(lambda: kpair.pairwise_batch(*args_v),
+                            "pairwise_batch_kernel")
+    view_bound = bound(nbytes(static_v.aff_ok, *got_v) + b11 - nbytes(
+        static.aff_ok, *got), sel.numel() * N * cell_ops)
+    log(f"K11 on a {sel.numel()}-row view (N={N}), exact: {view_ms:.4f} ms "
+        "(profiler " + ("not measured" if view_prof is None
+                        else f"{view_prof:.4f} ms")
+        + f"), bound {view_bound[0]:.4f} ms ({view_bound[1]})")
+    prof = profiler_ms(lambda: kpair.pairwise_batch(*args11),
+                       "pairwise_batch_kernel")
     out["pairwise_batch"] = dict(
         err=err, ms=cuda_ms(lambda: kpair.pairwise_batch(*args11), 10),
+        prof_ms=prof,
         plain_ms=cuda_ms(lambda: kpair.pairwise_batch_plain(*args11), 3),
         bound=bound(b11, P * N * cell_ops),
-        shape=f"P={P} N={N} S={S} C={C} IT={IT}",
+        extra={"prof_ms": prof, "view_rows": sel.numel(),
+               "view_ms": view_ms, "view_prof_ms": view_prof,
+               "view_bound_ms": view_bound[0]},
+        shape=f"P={P} N={N} S={S} C={C} IT={IT}; a {sel.numel()}-row view "
+              f"{view_ms:.4f} ms, exact",
         pair_ok=int(got[0].sum().item()))
     return out
 
@@ -1556,7 +1583,9 @@ def fast_pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
                        pods.ts_max_skew, pods.ia_sig, pods.ia_valid,
                        pods.ia_anti, pods.ia_required, pods.ia_weight,
                        st.counts, st.anti, st.match_tot, *got)
+            prof = profiler_ms(lambda: fn(*a, **kw), "pairwise_batch_kernel")
             r.update(bound=bound(b, P * N * (C * 6 + IT * 10 + S * 3 + 14)),
+                     prof_ms=prof, extra={"prof_ms": prof},
                      shape=f"P={P} N={N} S={S} C={C} IT={IT}")
         elif name == "cycle_relaxed":
             b = nbytes(*a[:9], *kw["pair"], kw["w_ia"], kw["ia_ok"],
@@ -2359,9 +2388,34 @@ def auction_kernel_phase(dsnap, calls: dict) -> dict:
             C = lane.shape[-1]
             B = lane.numel() // C
             b = nbytes(*a, *got)
-            steps = max(1, V.bit_length())
-            r.update(bound=bound(b, B * C * N * (2 * R * (steps + 3) + 8)),
+            # The compares the function needs on this round's data: for
+            # each allowed cell, two lane evaluations (the bucket lane and
+            # the optimistic lane, the chosen one kept), each a binary
+            # search of V values for each of R resources.
+            allowed = int(ok.sum())
+            compares = allowed * 2 * R * math.ceil(math.log2(V + 1))
+            # K17 at every cluster size, each exact.
+            want = _flat(plain(*a))
+            sweep = {}
+            for Q in kpre.RANK_CLUSTERS:
+                fq = lambda: fn(*a, cluster=Q)  # noqa: E731
+                require_equal(f"auction_rank (Q={Q})", _flat(fq()), want)
+                sweep[f"B={B} Q={Q}"] = {
+                    "ms": cuda_ms(fq, 20),
+                    "prof_ms": profiler_ms(fq, AUCTION_CUDA_NAME[name])}
+            policy = kpre.rank_cluster_size(
+                B, C, N, torch.cuda.get_device_properties(0)
+                .multi_processor_count)
+            r["extra"] = {"clusters": sweep, "policy_Q": policy}
+            log(f"K17 by cluster size (B={B} C={C} N={N} V={V} R={R}; the "
+                f"policy's Q={policy}), each exact: " + ", ".join(
+                    f"Q={k.split('Q=')[1]} {v['ms']:.4f} ms (profiler "
+                    + ("not measured" if v["prof_ms"] is None
+                       else f"{v['prof_ms']:.4f} ms") + ")"
+                    for k, v in sweep.items()))
+            r.update(bound=bound(b, compares),
                      shape=f"B={B} C={C} N={N} L={L} V={V} R={R}, "
+                           f"{allowed} allowed cells, "
                            f"{int(torch.isfinite(got[0]).sum())} bids")
         elif name == "row_topk_radix":
             masked, K = a[0], a[1]

@@ -1063,6 +1063,170 @@ def test_k18_cases_equal_plain(cuda, case, Q):
         assert claimed.any()
 
 
+def _rank_args(cuda, C, N, V, R, lead=(), seed=0, ties=False, L=3):
+    """K17's arguments on seeded numpy draws: lane tables as prefixes of
+    small non-negative steps (the optimistic lane L - 1 frees 8 more a
+    victim), half the bidders in each bucket lane, 70 % of the cells
+    allowed; row 0 allows no node, and row 1 asks for more than any
+    bucket lane frees but less than the optimistic lane does, so that
+    only its fallback is feasible. ties: no violation and every victim
+    costing the same, so the minimum ties on every feasible node."""
+    g = np.random.default_rng(seed)
+    f32 = np.float32
+    inc = g.choice([0.0, 0.5, 1.0, 2.0], size=(*lead, L, N, V, R))
+    inc[..., L - 1, :, :, :] += 8.0
+    cum_req = np.cumsum(inc.astype(f32), axis=-2, dtype=f32)
+    cost = g.choice([0.0, 1.0, 2.0, 3.0], size=(*lead, L, N, V))
+    viol = g.random((*lead, L, N, V)) < 0.2
+    if ties:
+        cost[:] = 1.0
+        viol[:] = False
+    cum_cost = np.cumsum(cost.astype(f32), axis=-1, dtype=f32)
+    cum_viol = np.cumsum(viol, axis=-1).astype(np.int32)
+    lane = g.integers(0, L - 1, size=(*lead, C)).astype(np.int32)
+    ok = g.random((*lead, C, N)) < 0.7
+    alloc = g.uniform(2.0, 8.0, size=(*lead, N, R)).astype(f32)
+    used = (alloc * g.uniform(0.5, 1.1, size=(*lead, N, R))).astype(f32)
+    p_req = g.choice([0.0, 0.5, 1.0, 3.0, 8.0],
+                     size=(*lead, C, R)).astype(f32)
+    ok[..., 0, :] = False
+    if C > 1:
+        ok[..., 1, :] = True
+        p_req[..., 1, :] = 2.0 * V + 5.0
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in (
+        cum_req, cum_cost, cum_viol, lane, ok, used, alloc, p_req))
+
+
+def _rank_check(a, C):
+    """K17 at the policy's cluster size and at every cluster size equal
+    to its plain version; the two edge rows as _rank_args made them."""
+    want = kpre.auction_rank_plain(*a)
+    for Q in (None, *kpre.RANK_CLUSTERS):
+        _equal(kpre.auction_rank(*a, cluster=Q), want)
+    bid, could = want
+    assert not torch.isfinite(bid[..., 0, :]).any() and not could[..., 0].any()
+    if C > 1:
+        assert could[..., 1].all()
+        assert torch.isfinite(bid[..., 1, :]).any(dim=-1).all()
+    return bid
+
+
+@pytest.mark.parametrize("R", [1, 3, 8])
+@pytest.mark.parametrize("V", [1, 7, 16, 32])
+def test_k17_shapes_equal_plain(cuda, V, R):
+    """K17 (a tile of 32 bidders a cluster, chunks of 64 nodes) against
+    its plain version, exactly, at V victims and R resources, with C = 45
+    bidders and N = 300 nodes (neither a multiple of its tile): a bidder
+    with no allowed node and one that only its optimistic lane serves."""
+    bid = _rank_check(_rank_args(cuda, 45, 300, V, R, seed=V * 10 + R), 45)
+    assert torch.isfinite(bid).any()
+
+
+@pytest.mark.parametrize("case", ["ties", "one", "tiles", "lanes6",
+                                  "tenants1", "tenants8"])
+def test_k17_cases_equal_plain(cuda, case):
+    """K17 against its plain version, exactly: the violation minimum and
+    the costs tied on every node, one bidder on one node, C and N whole
+    tiles and chunks, six lanes (more than the kernel orders bidders by:
+    tiles in index order), and the tenant axis at B = 1 and B = 8 (each
+    tenant also equal to its own launch)."""
+    C, N, lead = {"ties": (70, 200, ()), "one": (1, 1, ()),
+                  "tiles": (64, 128, ()), "lanes6": (45, 300, ()),
+                  "tenants1": (45, 300, (1,)),
+                  "tenants8": (45, 300, (8,))}[case]
+    a = _rank_args(cuda, C, N, 16, 3, lead=lead, seed=3,
+                   ties=case == "ties", L=6 if case == "lanes6" else 3)
+    bid = _rank_check(a, C)
+    if case == "ties":
+        row = bid[2:]
+        fin = torch.isfinite(row)
+        assert (fin.sum(dim=-1) > 1).any()
+    if lead:
+        got = kpre.auction_rank(*a)
+        for t in range(lead[0]):
+            _equal([x[t] for x in got],
+                   kpre.auction_rank(*(x[t] for x in a)))
+
+
+def _k11_args(cuda, C, N, case="random", seed=0):
+    """K11's arguments: a config-3 snapshot's pods with C spread slots
+    and their terms redrawn (seeded numpy), on N nodes with random
+    domains (10 % key-less) and integer counts; all nodes invalid
+    ("invalid"), or one count everywhere with every node keyed, so that
+    every penalty and every raw score of a row is equal ("equal")."""
+    snap, _ = tsynth.make_cluster(np.random.default_rng(43 + seed), 40, 8,
+                                  spread_frac=0.5, interpod_frac=0.5)
+    P, M = snap.pods.valid.shape[0], snap.running.valid.shape[0]
+    IT = snap.pods.ia_sig.shape[1]
+    S = 6
+    g = np.random.default_rng(seed)
+    D = max(1, N // 3)
+    dom = g.integers(0, D, size=(S, N))
+    dom[g.random((S, N)) < 0.1] = -1
+    counts = g.integers(0, 6, size=(S, N)).astype(np.float32)
+    nvalid = g.random(N) < 0.9
+    if case == "invalid":
+        nvalid[:] = False
+    elif case == "equal":
+        dom = np.abs(dom)
+        counts[:] = 2.0
+    anti = (g.random((S, N)) < 0.05).astype(np.float32)
+    match_tot = counts.sum(axis=1)
+    match_tot[0] = 0.0
+    t = lambda x, dt=None: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x if dt is None else x.astype(dt))).to(cuda)
+    pods = dataclasses.replace(
+        snap.pods.to(cuda), ts_key=t(np.zeros((P, C), np.int32)),
+        ts_sig=t(g.integers(0, S, size=(P, C)), np.int32),
+        ts_valid=t(g.random((P, C)) < 0.7),
+        ts_when=t(g.integers(0, 2, size=(P, C)), np.int8),
+        ts_max_skew=t(g.integers(1, 4, size=(P, C)), np.float32),
+        ia_sig=t(g.integers(0, S, size=(P, IT)), np.int32),
+        ia_valid=t(g.random((P, IT)) < 0.8),
+        ia_anti=t(g.random((P, IT)) < 0.4),
+        ia_required=t(g.random((P, IT)) < 0.5),
+        ia_weight=t(g.integers(1, 100, size=(P, IT)), np.float32))
+    snap = dataclasses.replace(snap.to(cuda), pods=pods, nodes=dataclasses.replace(
+        snap.nodes.to(cuda), valid=t(nvalid)))
+    st = kp.PairState(counts=t(counts), anti=t(anti), match_tot=t(match_tot))
+    return (snap, st, t(g.random((P, N)) < 0.8),
+            t(g.random((S, M + P)) < 0.3), t(dom, np.int32))
+
+
+@pytest.mark.parametrize("case", ["c0", "c1", "c16", "invalid", "equal",
+                                  "n1", "n8300", "n24576", "n24577",
+                                  "tenants8"])
+def test_k11_cases_equal_plain(cuda, case):
+    """K11 (a row's raw cells held on chip, each output written once, the
+    spread slots reduced together) against its plain version, exactly,
+    with and without ia_ok: 0, 1 and 16 spread slots on N = 300 nodes
+    (not a multiple of the CTA), all nodes invalid, a row of equal
+    penalties and raw scores (the 100 and 0 branches), one node, rows
+    whose raw cells are staged in shared memory (8 300 nodes, and 24 576,
+    the widest at 8 bytes a node within 192 KB) or held in the output
+    rows (24 577), and eight tenants in one launch (each also equal to
+    its own launch)."""
+    C = {"c0": 0, "c1": 1, "c16": 16}.get(case, 2)
+    N = {"n1": 1, "n8300": 8300, "n24576": 24576,
+         "n24577": 24577}.get(case, 300)
+    if case == "tenants8":
+        per = [_k11_args(cuda, C, N, seed=b) for b in range(8)]
+        a = tuple(stack_tenants([p[i] for p in per]) for i in range(5))
+    else:
+        a = _k11_args(cuda, C, N, case)
+    for with_ia_ok in (False, True):
+        got = kp.pairwise_batch(*a, with_ia_ok=with_ia_ok)
+        _equal(got, kp.pairwise_batch_plain(*a, with_ia_ok=with_ia_ok))
+        if case == "tenants8":
+            for b in range(8):
+                _equal([x[b] for x in got],
+                       kp.pairwise_batch(*per[b], with_ia_ok=with_ia_ok))
+    if case == "equal":
+        assert (got[1] == 100.0).all() and (got[2] == 0.0).all()
+    elif case == "invalid":
+        assert (got[1] == 100.0).all()
+
+
 def _tie_rows(n, seed):
     """Rows that stress K6's ties: all -inf, all equal, -0.0 and +0.0
     mixed (with -inf), three values (a wide tie at the K-th), and

@@ -5,22 +5,25 @@ wrapper runs its plain version, against the JAX package.
 
   * The hop (K25's plain version), rotated over 1, 2, 4 and 8 blocks in
     one process as an ndev-rank ring rotates them, gives counts EQUAL to
-    JAX's `ring_sig_counts` on a (ndev, 1) mesh of the 8 virtual CPU
-    devices and to JAX's dense `sig_counts` (integers in f32: exact in
-    any order), with no pod placed and with half of them placed, with
-    three namespaces against JAX's (4, 2) mesh, and on an atom-less
-    snapshot.
+    JAX's `ring_sig_counts` on a (ndev, 1) mesh of 8 virtual CPU devices
+    and to JAX's dense `sig_counts` (integers in f32: exact in any
+    order), with no pod placed and with half of them placed, with three
+    namespaces against JAX's (4, 2) mesh, and on an atom-less snapshot.
+    Every JAX computation on a mesh of more than one device (its
+    collectives) runs in a process of its own,
+    tests/jax_ring_reference.py, never in the test's.
   * Real exchange: gloo rings of 2 and 4 processes and a (2, 2) mesh
-    (tests/torch_ring_worker.py, a FileStore under tmp_path, a timeout a
-    process). Each rank's counts are EQUAL to JAX's ring on the same mesh
-    shape; each rank's ring engine, parity and fast, gives assignment,
-    order and commit_key EQUAL to JAX's ring engine on that mesh shape,
-    chosen_score at rtol 1e-4 / atol 1e-3 and final_used at rtol 1e-5,
-    the JAX package's own parity tolerances (XLA contracts multiply-adds
-    on the CPU, ROADMAP C1). `solve_many` over a 2-rank mesh equals the
-    unsplit batch bit for bit and JAX's tenant-sharded `solve_many` in
-    assignment, order and rounds (used at rtol 1e-6, chosen at 1e-5: the
-    commit adds' order, ROADMAP C6, and C1).
+    (tests/torch_ring_worker.py, a FileStore under tmp_path, a time
+    limit a process). Each rank's counts are EQUAL to JAX's ring on the
+    same mesh shape; each rank's ring engine, parity and fast, gives
+    assignment, order and commit_key EQUAL to JAX's ring engine on that
+    mesh shape (run beside the ranks), chosen_score at rtol 1e-4 / atol
+    1e-3 and final_used at rtol 1e-5, the JAX package's own parity
+    tolerances (XLA contracts multiply-adds on the CPU, ROADMAP C1).
+    `solve_many` over a 2-rank mesh equals the unsplit batch bit for bit
+    and JAX's tenant-sharded `solve_many` in assignment, order and
+    rounds (used at rtol 1e-6, chosen at 1e-5: the commit adds' order,
+    ROADMAP C6, and C1).
   * The one-rank mesh engine: parity, fast, `score_topk`,
     `solve_explained` and the warm rungs bit for bit equal to the port's
     dense engine, and to JAX's `Engine(..., mesh=make_mesh((1, 1)))` as
@@ -34,6 +37,7 @@ wrapper runs its plain version, against the JAX package.
 from __future__ import annotations
 
 import functools
+import json
 import os
 import subprocess
 import sys
@@ -55,7 +59,6 @@ from tpusched.engine import _sat_tables as jax_sat_tables
 from tpusched.kernels import pairwise as jpair
 from tpusched.kernels import preempt as jpre
 from tpusched.mesh import make_mesh as jmake_mesh
-from tpusched.ring import ring_sig_counts as jring_sig_counts
 from tpusched_torch import Engine, EngineConfig, solve_many, stack_snapshots
 from tpusched_torch import snapshot as tsnapshot
 from tpusched_torch.device_state import DeviceSnapshot
@@ -72,8 +75,6 @@ WORKER = REPO / "tests" / "torch_ring_worker.py"
 sys.path.insert(0, str(WORKER.parent))
 import torch_ring_worker as worker  # noqa: E402
 
-ZONE = "topology.kubernetes.io/zone"
-
 
 def _jsnap(seed: int, **kw):
     """tests/test_ring.py's snapshot, built by the JAX package."""
@@ -81,19 +82,26 @@ def _jsnap(seed: int, **kw):
                                **dict(worker.RING_MIX, **kw))[0]
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_ring(shape: tuple[int, int]):
-    mesh = jmake_mesh(shape, devices=jax.devices()[:shape[0] * shape[1]])
-    return jax.jit(lambda s, m, a: jring_sig_counts(s, m, a, mesh))
+MESHES = [(2, 1), (4, 1), (2, 2)]
+# JAX's ring counts that the tests below hold the port to, each computed
+# on its mesh in one process of its own (tests/jax_ring_reference.py
+# `counts`): name -> [seed (None: torch_ring_worker.atomless),
+# namespace_count, half placed, mesh shape].
+RING_REFS = {
+    **{f"rotated {ndev} {half}": [100 + ndev, 0, half, (ndev, 1)]
+       for ndev in (1, 2, 4, 8) for half in (False, True)},
+    "namespaces (4, 2)": [321, 3, False, (4, 2)],
+    **{f"atomless {ndev}": [None, 0, False, (ndev, 1)] for ndev in (1, 2)},
+    **{f"gloo {name} {shape}": [seed, ns, half, shape]
+       for shape in MESHES for name, seed, ns, half in worker.COUNT_CASES},
+}
 
 
-def _jax_counts(jsnap, assigned, shape):
-    """(JAX's ring counts on `shape`, JAX's dense sig_counts)."""
+def _jax_dense(jsnap, assigned):
+    """JAX's dense sig_counts (one device: computed here)."""
     _, msat = jax_sat_tables(jsnap)
     sm = jax.jit(jpair.sig_member_match)(jsnap, msat)
-    dense = np.asarray(jax.jit(jpair.sig_counts)(jsnap, sm, assigned))
-    ring = np.asarray(_jax_ring(shape)(jsnap, msat, assigned))
-    return ring, dense
+    return np.asarray(jax.jit(jpair.sig_counts)(jsnap, sm, assigned))
 
 
 def _unplaced(snap) -> np.ndarray:
@@ -113,14 +121,15 @@ def _rotated(jsnap, assigned, ndev):
 
 @pytest.mark.parametrize("ndev", [1, 2, 4, 8])
 @pytest.mark.parametrize("assign_some", [False, True])
-def test_rotated_hop_equals_jax_ring(ndev, assign_some):
+def test_rotated_hop_equals_jax_ring(jax_refs, ndev, assign_some):
     """The hop over ndev rotating blocks (sblk = S / ndev signatures
     against mblk = (M + P) / ndev members, both padded as JAX pads them)
     equals JAX's ring on a (ndev, 1) mesh and JAX's dense counts, and
     the port's dense counts (K10's plain version)."""
     jsnap = _jsnap(100 + ndev)
     a = worker.assigned_half(jsnap) if assign_some else _unplaced(jsnap)
-    ring, dense = _jax_counts(jsnap, a, (ndev, 1))
+    ring = jax_refs[f"rotated {ndev} {assign_some}"]
+    dense = _jax_dense(jsnap, a)
     tsnap, msat, got = _rotated(jsnap, a, ndev)
     np.testing.assert_array_equal(ring, dense)
     np.testing.assert_array_equal(got.numpy(), ring)
@@ -162,48 +171,32 @@ def test_pair_counts_takes_the_rings_counts(assign_some):
                                       st.match_tot.numpy())
 
 
-def test_rotated_hop_namespaces_on_a_2d_mesh():
+def test_rotated_hop_namespaces_on_a_2d_mesh(jax_refs):
     """Namespace-scoped signatures: the hop rotated over the p axis of a
     (4, 2) mesh equals JAX's ring there (each n column runs the same
     ring, tests/test_ring.py:59) and the dense counts."""
     jsnap = _jsnap(321, namespace_count=3)
     a = _unplaced(jsnap)
-    ring, dense = _jax_counts(jsnap, a, (4, 2))
-    np.testing.assert_array_equal(ring, dense)
+    ring = jax_refs["namespaces (4, 2)"]
+    np.testing.assert_array_equal(ring, _jax_dense(jsnap, a))
     np.testing.assert_array_equal(_rotated(jsnap, a, 4)[2].numpy(), ring)
 
 
-def _atomless(m):
-    """A spread constraint with an empty selector and nothing else that
-    interns an atom: A = 0 (and no term atoms)."""
-    b = m.SnapshotBuilder(m is jsnapshot and JConfig() or EngineConfig())
-    for i in range(4):
-        b.add_node(f"n{i}", {"cpu": 4000, "memory": 16 << 30},
-                   labels={ZONE: "ab"[i % 2]})
-    for i in range(3):
-        b.add_running_pod(f"n{i}", {"cpu": 100, "memory": 1 << 28})
-    b.add_pod("p", {"cpu": 100, "memory": 1 << 28}, topology_spread=[
-        m.TopologySpreadConstraint(ZONE, max_skew=1,
-                                   when_unsatisfiable="DoNotSchedule",
-                                   selector=())])
-    return b.build()[0]
-
-
 @pytest.mark.parametrize("ndev", [1, 2])
-def test_rotated_hop_atomless(ndev):
+def test_rotated_hop_atomless(jax_refs, ndev):
     """A = 0: the hop gives what JAX's ring gives (every member matches
     an atom-less selector), which is the dense count."""
-    jsnap = _atomless(jsnapshot)
+    jsnap = worker.atomless(jsnapshot, JConfig())
     assert np.asarray(jsnap.atoms.key).shape[0] == 0
     a = _unplaced(jsnap)
-    ring, dense = _jax_counts(jsnap, a, (ndev, 1))
+    ring, dense = jax_refs[f"atomless {ndev}"], _jax_dense(jsnap, a)
     tsnap, msat, got = _rotated(jsnap, a, ndev)
     assert msat.shape[0] == 0
     np.testing.assert_array_equal(ring, dense)
     np.testing.assert_array_equal(got.numpy(), ring)
     assert got.sum() == 3
     # The port's SnapshotBuilder gives the same snapshot and counts.
-    tsnap2 = _atomless(tsnapshot)
+    tsnap2 = worker.atomless(tsnapshot, EngineConfig())
     mesh = make_mesh(devices="cpu")
     assert torch.equal(ring_sig_counts(tsnap2, _sat_tables(tsnap2)[1],
                                        torch.from_numpy(a), mesh), got)
@@ -212,47 +205,77 @@ def test_rotated_hop_atomless(ndev):
 # -- real exchange: gloo rings of processes -----------------------------------
 
 
-def _run_ranks(tmp_path, shape, what) -> list:
-    """Run every rank of a (p, n) gloo mesh as a subprocess of this test
-    (none may take over 60 s) and load each rank's outputs."""
-    world = shape[0] * shape[1]
+# A rank (and the JAX reference) may take this long under a loaded host;
+# the ranks' gloo timeout (tests/torch_ring_worker.py) stays below it, so a
+# hung rank fails its own test.
+RANK_LIMIT_S = 240
+REFERENCE = REPO / "tests" / "jax_ring_reference.py"
+
+
+def _run(cmds, names, outs) -> list:
+    """Run each command (a script and its arguments) as a subprocess of
+    this test, all started together; none may take over RANK_LIMIT_S.
+    Load each one's outputs (`outs`, .npz files)."""
     env = dict(os.environ, PYTHONPATH=str(REPO), GLOO_SOCKET_IFNAME="lo",
                OMP_NUM_THREADS="1")
-    store = tmp_path / "store"
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(store), str(world), str(r),
-         str(shape[0]), str(shape[1]), what, str(tmp_path / f"r{r}.npz")],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, *cmd], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for cmd in cmds]
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=60)[0].decode(errors="replace"))
+            logs.append(p.communicate(timeout=RANK_LIMIT_S)[0].decode(
+                errors="replace"))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r}: exit {p.returncode}\n{logs[r]}"
-    return [dict(np.load(tmp_path / f"r{r}.npz")) for r in range(world)]
+    for name, p, log in zip(names, procs, logs):
+        assert p.returncode == 0, f"{name}: exit {p.returncode}\n{log}"
+    return [dict(np.load(o)) for o in outs]
 
 
-MESHES = [(2, 1), (4, 1), (2, 2)]
+def _run_ranks(tmp_path, shape, what, reference=False) -> list:
+    """Run every rank of a (p, n) gloo mesh (and, with `reference`, JAX's
+    ring engine on a (p, n) mesh, tests/jax_ring_reference.py `engine`)
+    through _run; each rank's outputs (the reference's last)."""
+    world = shape[0] * shape[1]
+    store = tmp_path / "store"
+    cmds = [[str(WORKER), str(store), str(world), str(r), str(shape[0]),
+             str(shape[1]), what, str(tmp_path / f"r{r}.npz")]
+            for r in range(world)]
+    outs = [tmp_path / f"r{r}.npz" for r in range(world)]
+    if reference:
+        cmds.append([str(REFERENCE), "engine", str(shape[0]), str(shape[1]),
+                     str(tmp_path / "jax.npz")])
+        outs.append(tmp_path / "jax.npz")
+    names = [f"rank {r}" for r in range(world)] + ["JAX reference"] * reference
+    return _run(cmds, names, outs)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(tmp_path_factory):
+    """RING_REFS's counts, by name, and JAX's sharded solve_many on the
+    eight tenants (keys `tenants_<field>`): tests/jax_ring_reference.py
+    `counts`, one process for the whole file."""
+    out = tmp_path_factory.mktemp("jax_refs") / "refs.npz"
+    return _run([[str(REFERENCE), "counts", json.dumps(RING_REFS),
+                  str(out)]], ["JAX reference"], [out])[0]
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=str)
-def test_gloo_ring_counts_equal_jax(tmp_path, shape):
+def test_gloo_ring_counts_equal_jax(tmp_path, jax_refs, shape):
     """Every rank's ring counts (signature blocks and their counts sent
     around the p ring, then gathered) equal JAX's ring on the same mesh
     shape and the dense counts: no pod placed, half placed, three
     namespaces."""
     outs = _run_ranks(tmp_path, shape, "counts")
-    cases = (("none", _jsnap(102), False), ("half", _jsnap(104), True),
-             ("ns", _jsnap(321, namespace_count=3), False))
-    for name, jsnap, half in cases:
+    for name, seed, ns, half in worker.COUNT_CASES:
+        jsnap = _jsnap(seed, **(dict(namespace_count=ns) if ns else {}))
         a = worker.assigned_half(jsnap) if half else _unplaced(jsnap)
-        ring, dense = _jax_counts(jsnap, a, shape)
+        ring = jax_refs[f"gloo {name} {shape}"]
+        dense = _jax_dense(jsnap, a)
         np.testing.assert_array_equal(ring, dense)
         for r, out in enumerate(outs):
             np.testing.assert_array_equal(out[name], ring,
@@ -261,41 +284,51 @@ def test_gloo_ring_counts_equal_jax(tmp_path, shape):
         (p, n) for p in range(shape[0]) for n in range(shape[1]))
 
 
+FIELDS = ("assignment", "order", "commit_key", "chosen_score", "final_used")
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_ring_engine(shape, mode):
+def _jax_ring_engine(shape, mode) -> dict:
+    """JAX's ring engine on `shape` in this process (the one-device
+    mesh: no cross-device collective)."""
     mesh = jmake_mesh(shape, devices=jax.devices()[:shape[0] * shape[1]])
     eng = JEngine(JConfig(mode=mode, ring_counts=True), mesh=mesh)
     try:
-        return eng.solve(_jsnap(77))
+        res = eng.solve(_jsnap(77))
     finally:
         eng.close()
+    return {f: np.asarray(getattr(res, f)) for f in FIELDS}
 
 
-def _assert_like_jax(got: dict, want, what: str) -> None:
+def _assert_like_jax(got: dict, want: dict, what: str) -> None:
     for f in ("assignment", "order", "commit_key"):
-        np.testing.assert_array_equal(got[f], getattr(want, f),
+        np.testing.assert_array_equal(got[f], want[f],
                                       err_msg=f"{what} {f}")
     np.testing.assert_allclose(
         np.nan_to_num(got["chosen_score"], neginf=-1.0),
-        np.nan_to_num(want.chosen_score, neginf=-1.0), rtol=1e-4,
+        np.nan_to_num(want["chosen_score"], neginf=-1.0), rtol=1e-4,
         atol=1e-3, err_msg=f"{what} chosen_score")
-    np.testing.assert_allclose(got["final_used"], want.final_used, rtol=1e-5,
-                               err_msg=f"{what} final_used")
+    np.testing.assert_allclose(got["final_used"], want["final_used"],
+                               rtol=1e-5, err_msg=f"{what} final_used")
+
+
+def _by_mode(out: dict, mode: str) -> dict:
+    return {k[len(mode) + 1:]: v for k, v in out.items()
+            if k.startswith(mode + "_")}
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=str)
 def test_gloo_ring_engine_equals_jax(tmp_path, shape):
     """Engine(ring_counts=True, mesh=...) on every rank of the mesh, in
     parity and fast mode, against JAX's ring engine on the same mesh
-    shape (C1 tolerances for chosen and used)."""
-    outs = _run_ranks(tmp_path, shape, "engine")
+    shape (C1 tolerances for chosen and used). JAX's engine runs in a
+    process of its own beside the ranks (tests/jax_ring_reference.py)."""
+    *outs, jax_out = _run_ranks(tmp_path, shape, "engine", reference=True)
     for mode in ("parity", "fast"):
-        want = _jax_ring_engine(shape, mode)
-        assert (want.assignment >= 0).sum() > 20
+        want = _by_mode(jax_out, mode)
+        assert (want["assignment"] >= 0).sum() > 20
         for r, out in enumerate(outs):
-            got = {k[len(mode) + 1:]: v for k, v in out.items()
-                   if k.startswith(mode + "_")}
-            _assert_like_jax(got, want, f"{mode} rank {r}")
+            _assert_like_jax(_by_mode(out, mode), want, f"{mode} rank {r}")
 
 
 def _jax_tenants():
@@ -306,19 +339,17 @@ def _jax_tenants():
             for b in range(worker.TENANTS)]
 
 
-def test_gloo_solve_many_over_two_ranks(tmp_path):
+def test_gloo_solve_many_over_two_ranks(tmp_path, jax_refs):
     """solve_many split over a 2-rank mesh (four tenants a rank, then an
     all-gather): every rank's [B, ...] outputs equal the unsplit batch
     bit for bit, and JAX's solve_many with the tenant axis sharded over
-    a (2, 1) mesh in assignment, order and rounds."""
+    a (2, 1) mesh (tests/jax_ring_reference.py) in assignment, order and
+    rounds."""
     outs = _run_ranks(tmp_path, (2, 1), "tenants")
     cfg = EngineConfig(mode="fast")
     whole = solve_many(cfg, worker.tenant_stack(), device="cpu")
-    jst = jtenants.stack_snapshots(_jax_tenants())
-    mesh = jmake_mesh((2, 1), devices=jax.devices()[:2])
-    sharded = jax.device_put(jst, jtenants.tenant_sharding(mesh, jst))
-    ja, jc, ju, jo, jr, jev = (np.asarray(x) for x in jtenants.solve_many_jit(
-        JConfig(mode="fast"))(sharded))
+    ja, jc, ju, jo, jr, jev = (jax_refs[f"tenants_{k}"] for k in (
+        "a", "c", "u", "o", "rounds", "ev"))
     for r, out in enumerate(outs):
         for key, want in zip(("a", "c", "u", "o", "rounds", "ev"), whole):
             np.testing.assert_array_equal(out[key], want.numpy(),

@@ -44,6 +44,12 @@ def ring_snap(seed: int, **kw):
                                **dict(RING_MIX, **kw))[0]
 
 
+# The `counts` cases: name, seed, namespace_count (0: make_cluster's
+# default), half the pods placed (assigned_half) or none.
+COUNT_CASES = (("none", 102, 0, False), ("half", 104, 0, True),
+               ("ns", 321, 3, False))
+
+
 def assigned_half(snap) -> np.ndarray:
     """tests/test_ring.py's assignment: half the pods on random nodes."""
     P = snap.pods.valid.shape[0]
@@ -51,6 +57,25 @@ def assigned_half(snap) -> np.ndarray:
     rng = np.random.default_rng(7)
     return np.where(rng.random(P) < 0.5, rng.integers(0, N, P),
                     -1).astype(np.int32)
+
+
+def atomless(m, config):
+    """A snapshot from `m`'s SnapshotBuilder (m: the port's snapshot
+    module or the JAX package's) with one spread constraint with an empty
+    selector and nothing else that interns an atom: A = 0 (and no term
+    atoms)."""
+    zone = "topology.kubernetes.io/zone"
+    b = m.SnapshotBuilder(config)
+    for i in range(4):
+        b.add_node(f"n{i}", {"cpu": 4000, "memory": 16 << 30},
+                   labels={zone: "ab"[i % 2]})
+    for i in range(3):
+        b.add_running_pod(f"n{i}", {"cpu": 100, "memory": 1 << 28})
+    b.add_pod("p", {"cpu": 100, "memory": 1 << 28}, topology_spread=[
+        m.TopologySpreadConstraint(zone, max_skew=1,
+                                   when_unsatisfiable="DoNotSchedule",
+                                   selector=())])
+    return b.build()[0]
 
 
 # tests/test_tenants.py's tenants: TENANTS clusters of 20 + 5 b pods on 10
@@ -84,11 +109,8 @@ def ring_records():
 def run(what: str, mesh) -> dict:
     out = {}
     if what == "counts":
-        for name, seed, kw, half in (("none", 102, {}, False),
-                                     ("half", 104, {}, True),
-                                     ("ns", 321, dict(namespace_count=3),
-                                      False)):
-            snap = ring_snap(seed, **kw)
+        for name, seed, ns, half in COUNT_CASES:
+            snap = ring_snap(seed, **(dict(namespace_count=ns) if ns else {}))
             _, msat = _sat_tables(snap)
             P = snap.pods.valid.shape[0]
             a = (assigned_half(snap) if half
@@ -119,7 +141,7 @@ def main() -> int:
     store, world, rank, p, n, what, dest = sys.argv[1:8]
     torch.set_num_threads(1)
     init_distributed(num_processes=int(world), process_id=int(rank),
-                     store_path=store, device="cpu", timeout_s=50.0)
+                     store_path=store, device="cpu", timeout_s=180.0)
     mesh = make_mesh((int(p), int(n)), devices="cpu")
     out = run(what, mesh)
     out["coords"] = np.asarray(mesh.coords)

@@ -79,7 +79,7 @@ SIGNATURES = {
                                          + _PREEMPT + [_P] * 6,
     "tpusched_auction_tables": [_I] * 7 + [_P] * 9 + [_F] + [_P] * 4,
     "tpusched_auction_ok": [_I] * 4 + [_P] * 8,
-    "tpusched_auction_rank": [_I] * 6 + [_P] * 11,
+    "tpusched_auction_rank": [_I] * 7 + [_P] * 11,
     "tpusched_auction_claim": [_I] * 11 + [_P] * 16 + [_F] + [_P] * 8,
     "tpusched_capacity_prefix_keep": [_I] * 3 + [_P] * 7,
     "tpusched_frontier_closure": [_I] * 3 + [_P] * 11,

@@ -16,21 +16,41 @@
 // triangular contraction as an integer count). Bound: bytes, the victim
 // table read once per lane and the [L, N, V, R + 2] tables written.
 //
-// K17 (:486-562), two entry points, one CTA per bidder row:
-//  * auction_ok: ok[c, n] = the bidder's static mask row & its pairwise
-//    verdict & valid node & active bidder, and whether any is set (the
-//    auction's thresholds need the active bidders first);
+// K17 (:486-562), two entry points:
+//  * auction_ok, one CTA per bidder row: ok[c, n] = the bidder's static
+//    mask row & its pairwise verdict & valid node & active bidder, and
+//    whether any is set (the auction's thresholds need the active bidders
+//    first);
 //  * auction_rank: need = (used[n] + p_req[c]) - alloc[n]; in a lane, pos
-//    = max over r of #{v : cum_req[l, n, v, r] < need[r]} (cum_req is a
-//    prefix of non-negative values, so non-decreasing in v, and a binary
-//    search gives that count), feas = need <= cum_req[l, n, V - 1], and
-//    the cost and violations at min(pos, V - 1). The bidder's bucket lane
-//    ranks unless no allowed node is feasible there and one is in the
-//    optimistic lane; over the allowed feasible nodes with the fewest
-//    violations bid = -cost (else -inf), the row K6 ranks. could[c] = any
-//    allowed node is feasible in the optimistic lane. Three passes over
-//    the row (the two any-flags, the violation minimum, the bids); the
-//    lane tables stay in L2. Bound: bytes, ok [C, N] and bid [C, N].
+//    = max over r of #{v : cum_req[l, n, v, r] < need[r]}, feas = need <=
+//    cum_req[l, n, V - 1], and the cost and violations at min(pos, V - 1).
+//    The bidder's bucket lane ranks unless no allowed node is feasible
+//    there and one is in the optimistic lane; over the allowed feasible
+//    nodes with the fewest violations bid = -cost (else -inf), the row K6
+//    ranks. could[c] = any allowed node is feasible in the optimistic
+//    lane. A cluster of Q CTAs (1-16) takes a tile of 32 bidders of one
+//    tenant, taken in (bucket lane, index) order (a counting sort of the
+//    tenant's lanes in each CTA), so that a tile's bidders mostly share
+//    one bucket lane; CTA q takes every Q-th chunk of 64 nodes. For each
+//    chunk the CTA copies in the lanes its bidders want, once for the
+//    whole tile: K16's [L, N, V, R] layout keeps a chunk of one lane
+//    contiguous, read in 32-word runs by cp.async into node rows padded to
+//    an odd length (a warp's 32 nodes read one entry from 32 banks), the
+//    next stage landing while this one is evaluated. A thread then serves
+//    one node for 8 bidders: pos is a count of V compares a resource
+//    (FSET.BF and FADD, no search), each table value read once for the 8.
+//    Two passes: pass 1 evaluates the bucket lane and the optimistic lane
+//    of each allowed cell, for the row's two any-flags and the fewest
+//    violations in each lane, reduced over the warp, the CTA and the
+//    cluster (DSMEM reads after a cluster barrier); the row's lane and
+//    minimum follow without another read. Pass 2 evaluates the chosen
+//    lane and writes each bid once, a warp's 32 nodes of a row
+//    coalesced. Every step is a compare, a pick or an integer minimum:
+//    the same bits in any order. Bound: bytes (ok read and bid written
+//    once, the tables read once a tile and pass) or the compares that the
+//    function needs (for each allowed cell two lane evaluations of R
+//    binary searches over V values: 2 * R * ceil(log2(V + 1))), the
+//    larger; at fast (h)'s first round that is bytes.
 //
 // K18 auction_claim (:564-679), one thread-block cluster of Q CTAs a
 // tenant (Q from the wrapper's policy, kernels/preempt.claim_cluster_size),
@@ -70,8 +90,9 @@
 // _preempt_rounds): each entry point takes B first and every array gains
 // a leading [B] axis. K16 runs B * L * N threads, tenant b's cells
 // reading its own victim table, evictions, lanes and budgets; K17 runs
-// B * C rows, row b * C + c reading tenant b's mask rows (rows index its
-// own [Pm, N]), lane tables, usage and capacity; K18 runs one cluster a
+// B * C rows (auction_ok) or B * ceil(C / 32) clusters (auction_rank),
+// row b * C + c reading tenant b's mask rows (rows index its own [Pm,
+// N]), lane tables, usage and capacity; K18 runs one cluster a
 // tenant (grid B * Q, cluster b tenant b), offsetting every array to its
 // tenant (b = 0 for one cluster).
 #include <limits.h>
@@ -92,7 +113,6 @@ using tpusched::mbar_wait;
 using tpusched::st_async;
 
 constexpr int ROW_THREADS = 256;
-constexpr int ROW_WARPS = ROW_THREADS / 32;
 constexpr int CLAIM_SMEM_LIMIT = 200 * 1024;
 constexpr int MAXR = 8;
 
@@ -177,39 +197,161 @@ auction_ok_kernel(int C, int N, int Pm, const bool* __restrict__ mask,
   if (threadIdx.x == 0) any_ok[blockIdx.x] = any;
 }
 
-struct Lane {
-  bool feas;
-  float cost;
-  int viol;
-};
+// K17's ranking: a cluster of Q CTAs takes a tile of RANK_TILE bidders of
+// one tenant (the tenant's bidders ordered by bucket lane, so that a
+// tile's bidders mostly share one), CTA q the node chunks q, q + Q, ...
+// (RANK_NODES nodes a chunk). Thread t serves node t % RANK_NODES of a
+// chunk for the RANK_BPT bidders of its group t / RANK_NODES, so a warp
+// holds 32 nodes of one group's bidders: ok and bid stay coalesced, and
+// the group's bidders share every table value a thread reads.
+constexpr int RANK_THREADS = 256;
+constexpr int RANK_NODES = 64;                    // nodes a chunk
+constexpr int RANK_STRIDE = RANK_NODES + 1;       // used and alloc rows
+constexpr int RANK_GROUPS = RANK_THREADS / RANK_NODES;
+constexpr int RANK_BPT = 8;                       // bidders a thread
+constexpr int RANK_TILE = RANK_GROUPS * RANK_BPT; // bidders a cluster
+constexpr int RANK_WARPS = RANK_THREADS / 32;
+constexpr int RANK_SORT_LANES = 4;  // lanes the bidder order packs
+constexpr unsigned RANK_FULL = 0xffffffffu;
 
-// One lane's first-feasible prefix of node n for the demand `need`.
-__device__ __forceinline__ Lane lane_eval(int l, int n, int N, int V, int R,
-                                          const float* need,
-                                          const float* __restrict__ cum_req,
-                                          const float* __restrict__ cum_cost,
-                                          const int* __restrict__ cum_viol) {
-  const long long base = ((long long)l * N + n) * V;
-  const float* cr = cum_req + base * R;
-  int pos = 0;
-  bool feas = true;
-  for (int r = 0; r < R; ++r) {
-    int lo = 0, hi = V;  // #{v : cr[v, r] < need[r]}, cr non-decreasing
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (cr[mid * R + r] < need[r])
-        lo = mid + 1;
-      else
-        hi = mid;
-    }
-    pos = max(pos, lo);
-    feas = feas && need[r] <= cr[(V - 1) * R + r];
-  }
-  const int p = min(pos, V - 1);
-  return Lane{feas, cum_cost[base + p], cum_viol[base + p]};
+// One stage of the pipeline: one lane's tables for one chunk in shared
+// memory, node by node as K16 writes them ([V, R] requests, then [V]
+// costs and [V] violations a node), each node's rows an odd number of
+// words apart so that a warp's 32 nodes read the same entry from 32
+// banks; then the chunk's used and alloc as [R] rows of RANK_STRIDE. Two
+// stages take turns.
+__host__ __device__ constexpr int rank_req_stride(int V, int R) {
+  return V * R + 1 - (V * R) % 2;
 }
 
-__global__ void __launch_bounds__(ROW_THREADS)
+__host__ __device__ constexpr int rank_v_stride(int V) {
+  return V + 1 - V % 2;
+}
+
+__host__ __device__ constexpr long long rank_stage_words(int V, int R) {
+  return (long long)RANK_NODES * (rank_req_stride(V, R) + 2 * rank_v_stride(V))
+         + 2LL * R * RANK_STRIDE;
+}
+
+__host__ __device__ constexpr long long rank_smem_bytes(int V, int R) {
+  return 2 * rank_stage_words(V, R) * 4;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// w / d for 0 <= w < 2^22 and 1 <= d <= 256, by the reciprocal `inv` =
+// 1.0f / d: (w + 0.5) / d stays at least 1 / 512 from an integer, far
+// beyond the product's rounding.
+__device__ __forceinline__ int rank_div(int w, float inv) {
+  return __float2int_rz(((float)w + 0.5f) * inv);
+}
+
+// Start copying lane l's tables of nodes [n0, n0 + nn), and their used
+// and alloc, into stage buffer `buf` (cp.async, landing while the other
+// stage is evaluated). Each table's chunk is contiguous in global memory
+// and is read in 32-word runs, one run a warp instruction; a word lands
+// in its node's padded row.
+__device__ __forceinline__ void rank_stage(
+    int l, int n0, int nn, int N, int V, int R, float inv_vr, float inv_v,
+    float inv_r, const float* __restrict__ cum_req,
+    const float* __restrict__ cum_cost, const int* __restrict__ cum_viol,
+    const float* __restrict__ used, const float* __restrict__ alloc,
+    float* buf) {
+  const int VR = V * R, sr = rank_req_stride(V, R), sv = rank_v_stride(V);
+  const long long base = (long long)l * N + n0;
+  const float* gr = cum_req + base * VR;
+  const float* gc = cum_cost + base * V;
+  const int* gv = cum_viol + base * V;
+  float* s_cost = buf + RANK_NODES * sr;
+  float* s_viol = s_cost + RANK_NODES * sv;
+  float* s_used = s_viol + RANK_NODES * sv;
+  float* s_alloc = s_used + R * RANK_STRIDE;
+  for (int w = threadIdx.x; w < nn * VR; w += RANK_THREADS) {
+    const int n = rank_div(w, inv_vr);
+    cp_async4(buf + n * sr + (w - n * VR), gr + w);
+  }
+  for (int w = threadIdx.x; w < nn * V; w += RANK_THREADS) {
+    const int n = rank_div(w, inv_v), v = w - n * V;
+    cp_async4(s_cost + n * sv + v, gc + w);
+    cp_async4(s_viol + n * sv + v, gv + w);
+  }
+  for (int w = threadIdx.x; w < nn * R; w += RANK_THREADS) {
+    const int n = rank_div(w, inv_r), r = w - n * R;
+    cp_async4(s_used + r * RANK_STRIDE + n, used + (long long)n0 * R + w);
+    cp_async4(s_alloc + r * RANK_STRIDE + n, alloc + (long long)n0 * R + w);
+  }
+}
+
+// 1.0f where a < b, else 0.0f (false for NaN, as `<` is): one FSET.BF,
+// so that a count of compares is an FSET and an FADD a value, both on the
+// FP32 pipe (the count, at most 32, is exact in f32).
+__device__ __forceinline__ float lt_one(float a, float b) {
+  float d;
+  asm("set.lt.f32.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// One staged lane at a thread's node for its RANK_BPT bidders.
+struct RankEval {
+  int pos[RANK_BPT];  // max over r of #{v : cum_req[v, r] < need[r]}
+  unsigned feas;      // bit i: need_i <= cum_req[V - 1] in every resource
+};
+
+// The staged lane `buf` at this thread's node j for its RANK_BPT bidders
+// (the plain version's count, a compare a table value, no search). Each
+// table value is read once from shared memory for all the thread's
+// bidders.
+__device__ __forceinline__ RankEval rank_eval(int j, int V, int R,
+                                              const float* buf,
+                                              const float* preq) {
+  const int sr = rank_req_stride(V, R), sv = rank_v_stride(V);
+  const float* s_used = buf + RANK_NODES * (sr + 2 * sv);
+  const float* s_alloc = s_used + R * RANK_STRIDE;
+  const float* row = buf + j * sr;
+  RankEval e;
+  e.feas = (1u << RANK_BPT) - 1u;
+#pragma unroll
+  for (int i = 0; i < RANK_BPT; ++i) e.pos[i] = 0;
+  for (int r = 0; r < R; ++r) {
+    const float u = s_used[r * RANK_STRIDE + j];
+    const float a = s_alloc[r * RANK_STRIDE + j];
+    float need[RANK_BPT], cnt[RANK_BPT];
+#pragma unroll
+    for (int i = 0; i < RANK_BPT; ++i) {
+      need[i] = (u + preq[i * MAXR + r]) - a;
+      cnt[i] = 0.0f;
+    }
+    const float* col = row + r;
+#pragma unroll 4
+    for (int v = 0; v < V; ++v) {
+      const float x = col[v * R];
+#pragma unroll
+      for (int i = 0; i < RANK_BPT; ++i) cnt[i] += lt_one(x, need[i]);
+    }
+    const float last = col[(V - 1) * R];
+#pragma unroll
+    for (int i = 0; i < RANK_BPT; ++i) {
+      e.pos[i] = max(e.pos[i], (int)cnt[i]);
+      if (!(need[i] <= last)) e.feas &= ~(1u << i);
+    }
+  }
+  return e;
+}
+
+__global__ void __launch_bounds__(RANK_THREADS)
 auction_rank_kernel(int C, int L, int N, int V, int R,
                     const float* __restrict__ cum_req,
                     const float* __restrict__ cum_cost,
@@ -219,65 +361,256 @@ auction_rank_kernel(int C, int L, int N, int V, int R,
                     const float* __restrict__ alloc,
                     const float* __restrict__ p_req, float* __restrict__ bid,
                     bool* __restrict__ could) {
-  __shared__ int s_min[ROW_WARPS];
-  // Row c (blockIdx.x = b * C + c) of tenant b: its lane tables, usage
-  // and capacity.
-  const int c = blockIdx.x;
-  const long long b = c / C;
+  extern __shared__ float rank_smem[];
+  const long long sw = rank_stage_words(V, R);
+  // Per slot: its bidder row c (-1 past C), requests, lanes and minimum.
+  __shared__ int s_row[RANK_TILE];
+  __shared__ float s_preq[RANK_TILE * MAXR];
+  __shared__ int s_lane[RANK_TILE];   // the bucket lane; -1 past C
+  __shared__ int s_pick[RANK_TILE];   // the lane that ranks; -1 past C
+  __shared__ int s_mv[RANK_TILE];     // the fewest violations there
+  __shared__ int s_wl[RANK_TILE + 1];  // a pass's wanted lanes, ascending
+  __shared__ int s_nw;
+  __shared__ unsigned long long s_scan[RANK_WARPS + 1];
+  __shared__ int4 s_wpart[RANK_WARPS][RANK_BPT];
+  __shared__ int4 s_part[RANK_TILE];  // this CTA's share, read by the cluster
+
+  const int Q = cluster_ctas(), q = cluster_rank();
+  const int tiles = (C + RANK_TILE - 1) / RANK_TILE;
+  const int cl = blockIdx.x / Q;
+  // Tile (cl % tiles) of tenant b: its lane tables, usage and capacity.
+  const long long b = cl / tiles;
+  const int c0 = (cl % tiles) * RANK_TILE;  // the tile's first place
   const long long lnv = (long long)L * N * V;
   cum_req += b * lnv * R;
   cum_cost += b * lnv;
   cum_viol += b * lnv;
   used += b * N * R;
   alloc += b * N * R;
-  const long long row = (long long)c * N;
-  const int lb = lane[c], lo_lane = L - 1;
-  float req[MAXR];
-  for (int r = 0; r < R; ++r) req[r] = p_req[(long long)c * R + r];
-  float need[MAXR];
-  auto demand = [&](int n) {
-    for (int r = 0; r < R; ++r)
-      need[r] = (used[(long long)n * R + r] + req[r]) - alloc[(long long)n * R + r];
-  };
-  // Pass 1: any allowed node feasible in the bucket lane, in the
-  // optimistic lane.
-  bool any_b = false, any_o = false;
-  for (int n = threadIdx.x; n < N; n += ROW_THREADS) {
-    if (!ok[row + n]) continue;
-    demand(n);
-    any_b |= lane_eval(lb, n, N, V, R, need, cum_req, cum_cost, cum_viol).feas;
-    any_o |= lane_eval(lo_lane, n, N, V, R, need, cum_req, cum_cost, cum_viol)
-                 .feas;
-  }
-  any_b = __syncthreads_or(any_b);
-  any_o = __syncthreads_or(any_o);
-  const int l = (!any_b && any_o) ? lo_lane : lb;
-  // Pass 2: the fewest violations over the allowed feasible nodes.
-  int mv = INT_MAX;
-  for (int n = threadIdx.x; n < N; n += ROW_THREADS) {
-    if (!ok[row + n]) continue;
-    demand(n);
-    const Lane e = lane_eval(l, n, N, V, R, need, cum_req, cum_cost, cum_viol);
-    if (e.feas) mv = min(mv, e.viol);
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    mv = min(mv, __shfl_xor_sync(0xffffffffu, mv, off));
-  if ((threadIdx.x & 31) == 0) s_min[threadIdx.x >> 5] = mv;
-  __syncthreads();
-  mv = s_min[0];
-  for (int w = 1; w < ROW_WARPS; ++w) mv = min(mv, s_min[w]);
-  // Pass 3: the bids.
-  for (int n = threadIdx.x; n < N; n += ROW_THREADS) {
-    float b = -INFINITY;
-    if (ok[row + n]) {
-      demand(n);
-      const Lane e =
-          lane_eval(l, n, N, V, R, need, cum_req, cum_cost, cum_viol);
-      if (e.feas && e.viol == mv) b = -e.cost;
+  const long long row0 = b * C;  // row b * C + c of lane, ok, p_req, bid
+  const int tid = threadIdx.x, lid = tid & 31, warp = tid >> 5;
+  const int j = tid % RANK_NODES, g = tid / RANK_NODES;
+  // The tile's bidders: places [c0, c0 + RANK_TILE) of the tenant's
+  // bidders in (bucket lane, index) order, so that a tile's bidders
+  // mostly share one bucket lane and its chunks stage that lane alone
+  // (a counting sort: each thread counts a run of bidders' lanes in
+  // 16-bit fields of one word, then a block scan); in index order where
+  // the lanes do not fit the word.
+  if (tid < RANK_TILE) s_row[tid] = -1;
+  if (L <= RANK_SORT_LANES && C < 65536) {
+    const int per = (C + RANK_THREADS - 1) / RANK_THREADS;
+    const int lo = min(C, tid * per), hi = min(C, lo + per);
+    auto field = [&](int c) {
+      return 16 * min(max(lane[row0 + c], 0), L - 1);
+    };
+    unsigned long long cnt = 0;
+    for (int c = lo; c < hi; ++c) cnt += 1ull << field(c);
+    unsigned long long inc = cnt;
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned long long o = __shfl_up_sync(RANK_FULL, inc, off);
+      if (lid >= off) inc += o;
     }
-    bid[row + n] = b;
+    if (lid == 31) s_scan[warp] = inc;
+    __syncthreads();
+    if (tid == 0) {
+      unsigned long long acc = 0;
+      for (int w = 0; w < RANK_WARPS; ++w) {
+        const unsigned long long x = s_scan[w];
+        s_scan[w] = acc;
+        acc += x;
+      }
+      s_scan[RANK_WARPS] = acc;
+    }
+    __syncthreads();
+    unsigned long long run = s_scan[warp] + inc - cnt;
+    const unsigned long long total = s_scan[RANK_WARPS];
+    for (int c = lo; c < hi; ++c) {
+      const int f = field(c);
+      int place = (int)((run >> f) & 0xffffull);
+      for (int k = 0; k < f; k += 16) place += (int)((total >> k) & 0xffffull);
+      run += 1ull << f;
+      if (place >= c0 && place < c0 + RANK_TILE) s_row[place - c0] = c;
+    }
+  } else if (tid < RANK_TILE && c0 + tid < C) {
+    s_row[tid] = c0 + tid;
   }
-  if (threadIdx.x == 0) could[c] = any_o;
+  __syncthreads();
+  if (tid < RANK_TILE)
+    s_lane[tid] = s_row[tid] < 0 ? -1 : lane[row0 + s_row[tid]];
+  for (int e = tid; e < RANK_TILE * MAXR; e += RANK_THREADS) {
+    const int sl = e / MAXR, r = e % MAXR, c = s_row[sl];
+    s_preq[e] = (c >= 0 && r < R) ? p_req[(row0 + c) * R + r] : 0.0f;
+  }
+  const float inv_vr = 1.0f / (float)(V * R), inv_v = 1.0f / (float)V;
+  const float inv_r = 1.0f / (float)R;
+  const int sr = rank_req_stride(V, R), sv = rank_v_stride(V);
+  __syncthreads();
+  const float* preq = s_preq + g * RANK_BPT * MAXR;
+  const int* grow = s_row + g * RANK_BPT;
+  const int* glane = s_lane + g * RANK_BPT;
+  const int chunks = (N + RANK_NODES - 1) / RANK_NODES;
+  const int mine = q < chunks ? (chunks - q + Q - 1) / Q : 0;
+  // Bit i: bidder i of this thread's group may take node n0 + j.
+  auto ok_bits = [&](int n0) {
+    unsigned m = 0u;
+#pragma unroll
+    for (int i = 0; i < RANK_BPT; ++i) {
+      const int c = grow[i];
+      if (n0 + j < N && c >= 0 && ok[(row0 + c) * N + n0 + j]) m |= 1u << i;
+    }
+    return m;
+  };
+  // One pass over this CTA's chunks and the pass's wanted lanes, in
+  // stages (a chunk's wanted lanes in ascending order, then the next
+  // chunk's): stage i + 1 is copied in while stage i is evaluated, one
+  // barrier a stage. eval(l, n0, buf, okm) evaluates one stage.
+  auto run_pass = [&](auto want, auto eval) {
+    __syncthreads();
+    if (tid == 0) {
+      int nw = 0;
+      for (int l = 0; l < L && nw <= RANK_TILE; ++l) {
+        bool w = false;
+        for (int sl = 0; sl < RANK_TILE; ++sl) w = w || want(sl, l);
+        if (w) s_wl[nw++] = l;
+      }
+      s_nw = nw;
+    }
+    __syncthreads();
+    const int nw = s_nw, stages = mine * nw;
+    if (stages == 0) return;
+    auto start = [&](int i) {
+      const int n0 = (q + (i / nw) * Q) * RANK_NODES;
+      rank_stage(s_wl[i % nw], n0, min(RANK_NODES, N - n0), N, V, R, inv_vr,
+                 inv_v, inv_r, cum_req, cum_cost, cum_viol, used, alloc,
+                 rank_smem + (i & 1) * sw);
+      cp_async_commit();
+    };
+    start(0);
+    unsigned okm = ok_bits(q * RANK_NODES);
+    for (int i = 0; i < stages; ++i) {
+      cp_async_wait_all();
+      __syncthreads();  // stage i landed; stage i - 1's buffer is free
+      if (i + 1 < stages) start(i + 1);
+      const int n0 = (q + (i / nw) * Q) * RANK_NODES;
+      // The next chunk's ok bits load while this stage is evaluated.
+      const bool last = i % nw == nw - 1;
+      const unsigned okn = last && i + 1 < stages
+                               ? ok_bits(n0 + Q * RANK_NODES) : okm;
+      eval(s_wl[i % nw], n0, rank_smem + (i & 1) * sw, okm);
+      okm = okn;
+    }
+  };
+
+  // Pass 1: each allowed cell in its bidder's bucket lane and in the
+  // optimistic lane L - 1, each lane staged once a chunk for the tile:
+  // whether any is feasible in each, and the fewest violations of each.
+  unsigned any_b = 0u, any_o = 0u;
+  int mv_b[RANK_BPT], mv_o[RANK_BPT];
+#pragma unroll
+  for (int i = 0; i < RANK_BPT; ++i) mv_b[i] = mv_o[i] = INT_MAX;
+  run_pass(
+      [&](int sl, int l) {
+        return s_lane[sl] >= 0 && (s_lane[sl] == l || l == L - 1);
+      },
+      [&](int l, int n0, const float* buf, unsigned okm) {
+        unsigned evm = 0u;
+#pragma unroll
+        for (int i = 0; i < RANK_BPT; ++i)
+          if (glane[i] == l || l == L - 1) evm |= 1u << i;
+        evm &= okm;
+        if (!__any_sync(RANK_FULL, evm != 0u)) return;
+        const int* s_viol =
+            reinterpret_cast<const int*>(buf + RANK_NODES * (sr + sv)) +
+            j * sv;
+        const RankEval e = rank_eval(j, V, R, buf, preq);
+        const unsigned fm = evm & e.feas;
+#pragma unroll
+        for (int i = 0; i < RANK_BPT; ++i) {
+          if (!((fm >> i) & 1u)) continue;
+          const int vi = s_viol[min(e.pos[i], V - 1)];
+          if (glane[i] == l) {
+            any_b |= 1u << i;
+            mv_b[i] = min(mv_b[i], vi);
+          }
+          if (l == L - 1) {
+            any_o |= 1u << i;
+            mv_o[i] = min(mv_o[i], vi);
+          }
+        }
+      });
+  // The row flags and minima: over the warp's nodes, the group's warps,
+  // then the cluster's CTAs (integer work, exact in any order).
+#pragma unroll
+  for (int i = 0; i < RANK_BPT; ++i) {
+    const unsigned fb = __ballot_sync(RANK_FULL, (any_b >> i) & 1u);
+    const unsigned fo = __ballot_sync(RANK_FULL, (any_o >> i) & 1u);
+    const int mb = __reduce_min_sync(RANK_FULL, mv_b[i]);
+    const int mo = __reduce_min_sync(RANK_FULL, mv_o[i]);
+    if (lid == 0)
+      s_wpart[warp][i] = make_int4((fb != 0u) | ((fo != 0u) << 1), mb, mo, 0);
+  }
+  __syncthreads();
+  if (tid < RANK_TILE) {
+    const int gw = (tid / RANK_BPT) * (RANK_NODES / 32), i = tid % RANK_BPT;
+    int4 p = s_wpart[gw][i];
+    for (int w = 1; w < RANK_NODES / 32; ++w) {
+      const int4 o = s_wpart[gw + w][i];
+      p = make_int4(p.x | o.x, min(p.y, o.y), min(p.z, o.z), 0);
+    }
+    s_part[tid] = p;
+  }
+  tpusched::cluster_sync();  // every CTA's share is in its shared memory
+  if (tid < RANK_TILE) {
+    int4 p = s_part[tid];
+    for (int qq = 0; qq < Q; ++qq) {
+      if (qq == q) continue;
+      const int4 o = *tpusched::cluster_ptr(&s_part[tid], qq);
+      p = make_int4(p.x | o.x, min(p.y, o.y), min(p.z, o.z), 0);
+    }
+    const int lb = s_lane[tid], c = s_row[tid];
+    const bool ab = p.x & 1, ao = p.x & 2;
+    // The bucket lane ranks unless only the optimistic lane is feasible.
+    const int pick = (!ab && ao) ? L - 1 : lb;
+    s_pick[tid] = lb < 0 ? -1 : pick;
+    s_mv[tid] = pick == lb ? p.y : p.z;
+    if (q == 0 && c >= 0) could[row0 + c] = ao;
+  }
+  tpusched::cluster_arrive();  // done with the other CTAs' shares
+
+  // Pass 2: each cell in its row's lane; bid = -cost on the allowed
+  // feasible nodes with the row's fewest violations, else -inf, written
+  // once (a warp's 32 nodes of a row coalesced).
+  const int* gpick = s_pick + g * RANK_BPT;
+  const int* gmv = s_mv + g * RANK_BPT;
+  run_pass(
+      [&](int sl, int l) { return s_pick[sl] == l; },
+      [&](int l, int n0, const float* buf, unsigned okm) {
+        unsigned wm = 0u;
+#pragma unroll
+        for (int i = 0; i < RANK_BPT; ++i)
+          if (gpick[i] == l && n0 + j < N) wm |= 1u << i;
+        if (!__any_sync(RANK_FULL, wm != 0u)) return;
+        const float* s_cost = buf + RANK_NODES * sr + j * sv;
+        const int* s_viol =
+            reinterpret_cast<const int*>(buf + RANK_NODES * (sr + sv)) +
+            j * sv;
+        const unsigned evm = wm & okm;
+        RankEval e;
+        e.feas = 0u;
+        if (__any_sync(RANK_FULL, evm != 0u)) e = rank_eval(j, V, R, buf, preq);
+        const unsigned fm = evm & e.feas;
+#pragma unroll
+        for (int i = 0; i < RANK_BPT; ++i) {
+          if (!((wm >> i) & 1u)) continue;
+          float bv = -INFINITY;
+          if ((fm >> i) & 1u) {
+            const int at = min(e.pos[i], V - 1);
+            if (s_viol[at] == gmv[i]) bv = -s_cost[at];
+          }
+          bid[(row0 + grow[i]) * N + n0 + j] = bv;
+        }
+      });
+  tpusched::cluster_wait();  // no CTA leaves while its share may be read
 }
 
 // K18's claim state and layout. A tenant's cluster of Q CTAs splits its C
@@ -643,18 +976,20 @@ extern "C" int tpusched_auction_ok(int B, int C, int N, int Pm,
   return (int)cudaGetLastError();
 }
 
-extern "C" int tpusched_auction_rank(int B, int L, int N, int V, int R,
-                                     int C, const float* cum_req,
+extern "C" int tpusched_auction_rank(int B, int Q, int L, int N, int V,
+                                     int R, int C, const float* cum_req,
                                      const float* cum_cost,
                                      const int* cum_viol, const int* lane,
                                      const bool* ok, const float* used,
                                      const float* alloc, const float* p_req,
                                      float* bid, bool* could, void* stream) {
-  if (V > 32 || R > MAXR) return (int)cudaErrorInvalidValue;
-  auction_rank_kernel<<<B * C, ROW_THREADS, 0, (cudaStream_t)stream>>>(
-      C, L, N, V, R, cum_req, cum_cost, cum_viol, lane, ok, used, alloc,
-      p_req, bid, could);
-  return (int)cudaGetLastError();
+  if (V < 1 || V > 32 || R < 1 || R > MAXR)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (C + RANK_TILE - 1) / RANK_TILE;
+  return (int)tpusched::launch_clusters(
+      auction_rank_kernel, B * tiles, Q, RANK_THREADS,
+      (size_t)rank_smem_bytes(V, R), (cudaStream_t)stream, C, L, N, V, R,
+      cum_req, cum_cost, cum_viol, lane, ok, used, alloc, p_req, bid, could);
 }
 
 extern "C" int tpusched_auction_claim(

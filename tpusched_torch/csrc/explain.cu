@@ -15,8 +15,9 @@
 //      default_normalize and taint_toleration_score), and with signatures
 //      each spread slot's (min, max) count and the (min, max) over valid
 //      nodes of the spread penalty and the inter-pod raw score
-//      (inverse_normalize, minmax_normalize); pairwise.cuh's pair_node,
-//      K11's cell arithmetic, against the running members' pair state.
+//      (inverse_normalize, minmax_normalize); pairwise.cuh's
+//      row_spread_extents and pair_node, K11's arithmetic, against the
+//      running members' pair state.
 //      They are saved to norms [P, 6 + 2C] for the second entry point.
 //   2. Every cell: the first failing predicate (counts in registers, then
 //      a warp-shuffle and shared-memory integer sum: exact in any order),
@@ -146,7 +147,10 @@ explain_cells_kernel(Probe q, PairTerms t, const float* __restrict__ counts,
                      int* __restrict__ tallies, int* __restrict__ feasible,
                      float* __restrict__ masked, float* __restrict__ norms) {
   __shared__ float s_lo[WARPS], s_hi[WARPS];
-  __shared__ float s_cmin[tpusched::MAX_C], s_cmax[tpusched::MAX_C];
+  __shared__ float s_part[WARPS * 2 * tpusched::MAX_C];
+  __shared__ float s_ext[2 * tpusched::MAX_C];  // [lo, hi] a spread slot
+  const float* s_cmin = s_ext;
+  const float* s_cmax = s_ext + tpusched::MAX_C;
   __shared__ int s_red[WARPS];
   const int p = blockIdx.x;
   const int tid = threadIdx.x;
@@ -154,10 +158,7 @@ explain_cells_kernel(Probe q, PairTerms t, const float* __restrict__ counts,
   const bool pair = t.S > 0;
   const long long row = (long long)p * N;
   const int NW = 6 + 2 * t.C;
-  if (pair) {
-    tpusched::spread_extents<WARPS>(t, counts, p, tid, N, THREADS, s_lo,
-                                    s_hi, s_cmin, s_cmax);
-  }
+  if (pair) tpusched::row_spread_extents<THREADS>(t, counts, p, s_part, s_ext);
   // Pass 1: the row normalisers.
   float na_mx = -INFINITY, tt_mx = -INFINITY;
   float plo = INFINITY, phi = -INFINITY, rlo = INFINITY, rhi = -INFINITY;

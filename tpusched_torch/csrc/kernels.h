@@ -373,8 +373,9 @@ int tpusched_auction_ok(int B, int C, int N, int Pm, const bool* mask,
 // the first prefix freeing each bidder's demand on each allowed node, over
 // the nodes with the fewest violations, in the bidder's lane (or the
 // optimistic lane L - 1 as its fallback); -inf elsewhere. could[c]: some
-// allowed node is feasible in the optimistic lane.
-int tpusched_auction_rank(int B, int L, int N, int V, int R, int C,
+// allowed node is feasible in the optimistic lane. B * ceil(C / 32)
+// clusters of Q CTAs (1, 2, 4, 8 or 16), a cluster a tile of 32 bidders.
+int tpusched_auction_rank(int B, int Q, int L, int N, int V, int R, int C,
                           const float* cum_req, const float* cum_cost,
                           const int* cum_viol, const int* lane,
                           const bool* ok, const float* used,

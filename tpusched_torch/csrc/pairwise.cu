@@ -22,8 +22,13 @@
 // ScoreBatch call at tpusched/kernels/assign.py:265 batched_cycle) with
 // :303 symmetric_anti_block and the two normalisers of
 // tpusched/kernels/score.py:118,131: one CTA per pod row. The row's
-// spread minima and maxima and the normalisers' row extents are block
-// reductions in shared memory; the cells are pairwise.cuh's. Outputs:
+// spread minima and maxima come from pairwise.cuh's row_spread_extents
+// (one walk over the row for every four of the pod's C <= 16 slots, one
+// barrier for all the slots). The cells are pairwise.cuh's pair_cells,
+// four a thread at a time (the pod's terms read once for the four, their
+// domain and count loads in flight together); their raw spread penalty and
+// inter-pod score are held in shared memory until the row's extents are
+// known, so each output cell is written once, coalesced. Outputs:
 // pair_ok [P, N] bool, the normalised spread and inter-pod scores [P, N]
 // f32, which K5 (cycle.cu) then takes in place of its constants 100 and
 // 0. Bound: bytes, 9 written per cell plus aff_ok read (0.52 GB at
@@ -163,17 +168,61 @@ __global__ void pair_counts_kernel(int S, int N, int M, int P, int J, int IT,
   }
 }
 
-constexpr int BATCH_THREADS = 256;
+constexpr int BATCH_THREADS = 256;  // a row a CTA
 constexpr int BATCH_WARPS = BATCH_THREADS / 32;
+constexpr unsigned BATCH_FULL = 0xffffffffu;
+// The row's raw spread penalties and inter-pod scores stay in shared
+// memory (8 bytes a node) up to this many bytes; a wider row keeps them in
+// its output rows, which it then rereads.
+constexpr int BATCH_SMEM_LIMIT = 192 * 1024;
 
+// The four extents of the normalisers (min and max of the raw penalties
+// and scores over valid nodes) over the CTA: a shuffle pass, each warp's
+// into s_part, a barrier, warp 0's reduction of the partials into s_norm,
+// and a barrier.
+__device__ __forceinline__ void row_norm_extents(float4& e, float* s_part,
+                                                 float4* s_norm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto fold = [&](int off) {
+    e.x = fminf(e.x, __shfl_xor_sync(BATCH_FULL, e.x, off));
+    e.y = fmaxf(e.y, __shfl_xor_sync(BATCH_FULL, e.y, off));
+    e.z = fminf(e.z, __shfl_xor_sync(BATCH_FULL, e.z, off));
+    e.w = fmaxf(e.w, __shfl_xor_sync(BATCH_FULL, e.w, off));
+  };
+  for (int off = 16; off > 0; off >>= 1) fold(off);
+  if (lane == 0) reinterpret_cast<float4*>(s_part)[warp] = e;
+  __syncthreads();
+  if (warp == 0) {
+    e = lane < BATCH_WARPS ? reinterpret_cast<const float4*>(s_part)[lane]
+                      : make_float4(INFINITY, -INFINITY, INFINITY, -INFINITY);
+    for (int off = 16; off > 0; off >>= 1) fold(off);
+    if (lane == 0) *s_norm = e;
+  }
+  __syncthreads();
+  e = *s_norm;
+}
+
+constexpr int BATCH_KB = 4;  // cells a thread evaluates together
+
+// One row: the spread extents, then the cells, BATCH_KB a thread at a
+// time (pair_cells), each cell's flags written and its raw spread penalty
+// and inter-pod score held until the row's normaliser extents are known,
+// then the normalised scores written: the raw cells are held in shared
+// memory (`staged`, [2, N]) or, for a row wider than that, in the output
+// rows themselves, which are then reread. (Held in registers, the row
+// cost more than it saved: 110 registers a thread at N = 5 120.)
 __global__ void __launch_bounds__(BATCH_THREADS)
-pairwise_batch_kernel(PairTerms t, int P, const float* __restrict__ counts,
+pairwise_batch_kernel(PairTerms t, int P, bool staged,
+                      const float* __restrict__ counts,
                       const float* __restrict__ anti,
                       const float* __restrict__ match_tot,
                       bool* __restrict__ pair_ok, float* __restrict__ ts_out,
                       float* __restrict__ ia_out, bool* __restrict__ ia_ok) {
-  __shared__ float s_lo[BATCH_WARPS], s_hi[BATCH_WARPS];
-  __shared__ float s_cmin[tpusched::MAX_C], s_cmax[tpusched::MAX_C];
+  constexpr int T = BATCH_THREADS;
+  extern __shared__ float batch_row[];  // [2, N] when staged
+  __shared__ __align__(16) float s_part[BATCH_WARPS * 2 * tpusched::MAX_C];
+  __shared__ float s_ext[2 * tpusched::MAX_C];
+  __shared__ float4 s_norm;
   const int p = blockIdx.x;
   const int tid = threadIdx.x;
   const long long b = blockIdx.y;  // the tenant
@@ -182,29 +231,46 @@ pairwise_batch_kernel(PairTerms t, int P, const float* __restrict__ counts,
   anti += b * t.S * t.N;
   match_tot += b * t.S;
   const long long row = (b * P + p) * t.N;
-  tpusched::spread_extents<BATCH_WARPS>(t, counts, p, tid, t.N, BATCH_THREADS,
-                                        s_lo, s_hi, s_cmin, s_cmax);
-  float plo = INFINITY, phi = -INFINITY, rlo = INFINITY, rhi = -INFINITY;
-  for (int n = tid; n < t.N; n += BATCH_THREADS) {
-    float pen, raw;
-    pair_ok[row + n] = tpusched::pair_node(t, counts, anti, match_tot, p, n,
-                                           s_cmin, s_cmax, &pen, &raw,
-                                           ia_ok ? ia_ok + row + n : nullptr);
-    ts_out[row + n] = pen;
-    ia_out[row + n] = raw;
-    if (t.node_valid[n]) {
-      plo = fminf(plo, pen);
-      phi = fmaxf(phi, pen);
-      rlo = fminf(rlo, raw);
-      rhi = fmaxf(rhi, raw);
+  tpusched::row_spread_extents<T>(t, counts, p, s_part, s_ext);
+  float* pen_buf = staged ? batch_row : ts_out + row;
+  float* raw_buf = staged ? batch_row + t.N : ia_out + row;
+  float4 e = make_float4(INFINITY, -INFINITY, INFINITY, -INFINITY);
+  // This thread's cells n = tid + k * T, BATCH_KB at a time: flags
+  // written, (pen, raw) held, the extents grown.
+  const int mine = (t.N - tid + T - 1) / T;
+  for (int k0 = 0; k0 < mine; k0 += BATCH_KB) {
+    int n[BATCH_KB];
+    unsigned live = 0u;
+#pragma unroll
+    for (int k = 0; k < BATCH_KB; ++k) {
+      n[k] = tid + (k0 + k) * T;
+      if (n[k] < t.N) live |= 1u << k;
+    }
+    float pen[BATCH_KB], raw[BATCH_KB];
+    unsigned spm, iam;
+    tpusched::pair_cells<BATCH_KB>(t, counts, anti, match_tot, p, n, live,
+                                   s_ext, s_ext + tpusched::MAX_C, pen, raw,
+                                   spm, iam);
+#pragma unroll
+    for (int k = 0; k < BATCH_KB; ++k) {
+      if (!((live >> k) & 1u)) continue;
+      pair_ok[row + n[k]] = (spm & iam) >> k & 1u;
+      if (ia_ok) ia_ok[row + n[k]] = (iam >> k) & 1u;
+      pen_buf[n[k]] = pen[k];
+      raw_buf[n[k]] = raw[k];
+      if (t.node_valid[n[k]]) {
+        e.x = fminf(e.x, pen[k]);
+        e.y = fmaxf(e.y, pen[k]);
+        e.z = fminf(e.z, raw[k]);
+        e.w = fmaxf(e.w, raw[k]);
+      }
     }
   }
-  tpusched::block_min_max<BATCH_WARPS>(plo, phi, s_lo, s_hi);
-  tpusched::block_min_max<BATCH_WARPS>(rlo, rhi, s_lo, s_hi);
-  // Each thread rereads only the cells it wrote above.
-  for (int n = tid; n < t.N; n += BATCH_THREADS) {
-    ts_out[row + n] = tpusched::inverse_norm(ts_out[row + n], plo, phi);
-    ia_out[row + n] = tpusched::minmax_norm(ia_out[row + n], rlo, rhi);
+  row_norm_extents(e, s_part, &s_norm);
+  // Each thread rereads only the cells it held above.
+  for (int n = tid; n < t.N; n += T) {
+    ts_out[row + n] = tpusched::inverse_norm(pen_buf[n], e.x, e.y);
+    ia_out[row + n] = tpusched::minmax_norm(raw_buf[n], e.z, e.w);
   }
 }
 
@@ -366,9 +432,19 @@ extern "C" int tpusched_pairwise_batch(
               dom,    match,      node_valid, aff_ok,    ts_sig,  ts_valid,
               ts_when, ts_max_skew, ia_sig, ia_valid,    ia_anti, ia_required,
               ia_weight};
-  pairwise_batch_kernel<<<dim3(P, B), BATCH_THREADS, 0,
+  const long long row_bytes = 8LL * N;
+  const bool staged = row_bytes <= BATCH_SMEM_LIMIT;
+  const size_t dyn = staged ? (size_t)row_bytes : 0;
+  if (dyn > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pairwise_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)dyn);
+    if (err != cudaSuccess) return (int)err;
+  }
+  pairwise_batch_kernel<<<dim3(P, B), BATCH_THREADS, dyn,
                           (cudaStream_t)stream>>>(
-      t, P, counts, anti, match_tot, pair_ok, ts_score, ia_score, ia_ok);
+      t, P, staged, counts, anti, match_tot, pair_ok, ts_score, ia_score,
+      ia_ok);
   return (int)cudaGetLastError();
 }
 

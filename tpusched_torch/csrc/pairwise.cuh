@@ -1,6 +1,7 @@
 // The pairwise (topology spread + inter-pod affinity) arithmetic of one
 // (pod, node) cell against a pair state, shared by K4's pairwise variant
-// (scan.cu) and K11 (pairwise.cu) so both evaluate exactly alike:
+// (scan.cu), K11 (pairwise.cu) and K22 (explain.cu) so all evaluate
+// exactly alike:
 // tpusched/kernels/pairwise.py:504 pairwise_row, which is :342
 // pairwise_from_counts restricted to one pod, with the symmetric
 // anti-affinity column of :303 symmetric_anti_block, and the two
@@ -91,12 +92,103 @@ __device__ __forceinline__ float min_or_0(float lo) {
   return isinf(lo) ? 0.0f : lo;
 }
 
-// pairwise_row at node n for pod p against (counts, anti, match_tot):
-// returns spread_ok & ia_ok (ia_ok includes !symmetric_block), and writes
-// the spread penalty and the inter-pod raw score, ia_ok alone where
-// ia_ok_out is not NULL and spread_ok alone where spread_ok_out is not
-// NULL. cmin/cmax: each spread slot's reduced (lo, hi); only valid
-// slots' entries are read.
+// pairwise_row at KB nodes n[k] of pod p against (counts, anti,
+// match_tot), the cells with live bit k set (a dead cell is skipped):
+// bit k of spread_ok / ia_ok is that cell's spread verdict / inter-pod
+// verdict (ia_ok includes !symmetric_block), and pen_out[k] / raw_out[k]
+// its spread penalty and inter-pod raw score. cmin/cmax: each spread
+// slot's reduced (lo, hi); only valid slots' entries are read. Each cell
+// takes the same operations in the same order (spread slots in slot
+// order, inter-pod terms in term order, the symmetric column over
+// signatures) whatever KB is, so its bits do not depend on KB. The pod's
+// terms are read once for the KB cells, and each term's KB domain and
+// count loads are independent, so they are in flight together (K11 takes
+// four cells a thread; pair_node is one).
+template <int KB>
+__device__ __forceinline__ void pair_cells(
+    const PairTerms& t, const float* counts, const float* anti,
+    const float* match_tot, int p, const int* n, unsigned live,
+    const float* cmin, const float* cmax, float* pen_out, float* raw_out,
+    unsigned& spread_ok, unsigned& ia_ok) {
+  const long long N = t.N;
+  unsigned ok = (1u << KB) - 1u, ia = ok;
+  float pen[KB], raw[KB];
+  int blocked[KB], d[KB];
+#pragma unroll
+  for (int k = 0; k < KB; ++k) {
+    pen[k] = 0.0f;
+    raw[k] = 0.0f;
+    blocked[k] = 0;
+  }
+  for (int c = 0; c < t.C; ++c) {
+    const long long pc = (long long)p * t.C + c;
+    if (!t.ts_valid[pc]) continue;
+    const long long s = max(t.ts_sig[pc], 0);
+    const bool dns = t.ts_when[pc] == DO_NOT_SCHEDULE;
+    const float skew = t.ts_max_skew[pc], lo = min_or_0(cmin[c]);
+    const float hi = cmax[c];
+#pragma unroll
+    for (int k = 0; k < KB; ++k)
+      d[k] = (live >> k) & 1u ? t.dom[s * N + n[k]] : -1;
+#pragma unroll
+    for (int k = 0; k < KB; ++k) {
+      const bool hk = d[k] >= 0;
+      const float nc = hk ? counts[s * N + d[k]] : 0.0f;
+      if (dns) {
+        if (!(hk && (nc + 1.0f - lo <= skew))) ok &= ~(1u << k);
+      } else {
+        pen[k] = pen[k] + (hk ? nc : hi);
+      }
+    }
+  }
+  for (int it = 0; it < t.IT; ++it) {
+    const long long pt = (long long)p * t.IT + it;
+    const long long s = max(t.ia_sig[pt], 0);
+    const bool valid = t.ia_valid[pt];
+    const bool anti_t = t.ia_anti[pt];
+    const bool req = t.ia_required[pt];
+    const float w = anti_t ? -t.ia_weight[pt] : t.ia_weight[pt];
+#pragma unroll
+    for (int k = 0; k < KB; ++k)
+      d[k] = (live >> k) & 1u ? t.dom[s * N + n[k]] : -1;
+#pragma unroll
+    for (int k = 0; k < KB; ++k) {
+      const bool hk = d[k] >= 0;
+      const bool node_has = hk && counts[s * N + d[k]] > 0.0f;
+      if (valid && req) {
+        // Read after the cell's count load: read ahead of the domain
+        // loads, these two held K4's one-cell chain and K22 back
+        // (2-13 % on the card).
+        const bool all_zero = match_tot[s] <= 0.0f;
+        const bool self = t.match[s * t.X + t.M + p];
+        const bool pos_ok = node_has || (all_zero && self && hk);
+        if (!(anti_t ? !node_has : pos_ok)) ia &= ~(1u << k);
+      }
+      raw[k] = raw[k] + ((valid && !req && node_has) ? w : 0.0f);
+    }
+  }
+  for (int s = 0; s < t.S; ++s) {
+    if (!t.match[(long long)s * t.X + t.M + p]) continue;
+#pragma unroll
+    for (int k = 0; k < KB; ++k)
+      d[k] = (live >> k) & 1u ? t.dom[s * N + n[k]] : -1;
+#pragma unroll
+    for (int k = 0; k < KB; ++k)
+      if (d[k] >= 0) blocked[k] += (int)anti[s * N + d[k]];
+  }
+#pragma unroll
+  for (int k = 0; k < KB; ++k) {
+    pen_out[k] = pen[k];
+    raw_out[k] = raw[k];
+    if (blocked[k] > 0) ia &= ~(1u << k);
+  }
+  spread_ok = ok;
+  ia_ok = ia;
+}
+
+// pair_cells at the one node n: returns spread_ok & ia_ok, and writes
+// ia_ok alone where ia_ok_out is not NULL and spread_ok alone where
+// spread_ok_out is not NULL.
 __device__ __forceinline__ bool pair_node(const PairTerms& t,
                                           const float* counts,
                                           const float* anti,
@@ -106,54 +198,12 @@ __device__ __forceinline__ bool pair_node(const PairTerms& t,
                                           float* raw_out,
                                           bool* ia_ok_out = nullptr,
                                           bool* spread_ok_out = nullptr) {
-  const long long N = t.N;
-  bool ok = true;   // spread_ok
-  bool ia = true;   // ia_ok
-  float pen = 0.0f;
-  for (int c = 0; c < t.C; ++c) {
-    const long long pc = (long long)p * t.C + c;
-    if (!t.ts_valid[pc]) continue;
-    const int s = max(t.ts_sig[pc], 0);
-    const int d = t.dom[s * N + n];
-    const bool hk = d >= 0;
-    const float nc = hk ? counts[s * N + d] : 0.0f;
-    if (t.ts_when[pc] == DO_NOT_SCHEDULE) {
-      ok = ok && hk && (nc + 1.0f - min_or_0(cmin[c]) <= t.ts_max_skew[pc]);
-    } else {
-      pen = pen + (hk ? nc : cmax[c]);
-    }
-  }
-  float raw = 0.0f;
-  for (int it = 0; it < t.IT; ++it) {
-    const long long pt = (long long)p * t.IT + it;
-    const int s = max(t.ia_sig[pt], 0);
-    const int d = t.dom[s * N + n];
-    const bool hk = d >= 0;
-    const bool node_has = hk && counts[s * N + d] > 0.0f;
-    const bool valid = t.ia_valid[pt];
-    const bool anti_t = t.ia_anti[pt];
-    const bool req = t.ia_required[pt];
-    if (valid && req) {
-      const bool all_zero = match_tot[s] <= 0.0f;
-      const bool self = t.match[(long long)s * t.X + t.M + p];
-      const bool pos_ok = node_has || (all_zero && self && hk);
-      ia = ia && (anti_t ? !node_has : pos_ok);
-    }
-    const float w = anti_t ? -t.ia_weight[pt] : t.ia_weight[pt];
-    raw = raw + ((valid && !req && node_has) ? w : 0.0f);
-  }
-  int blocked = 0;
-  for (int s = 0; s < t.S; ++s) {
-    if (!t.match[(long long)s * t.X + t.M + p]) continue;
-    const int d = t.dom[s * N + n];
-    if (d >= 0) blocked += (int)anti[s * N + d];
-  }
-  *pen_out = pen;
-  *raw_out = raw;
-  ia = ia && blocked <= 0;
+  unsigned ok, ia;
+  pair_cells<1>(t, counts, anti, match_tot, p, &n, 1u, cmin, cmax, pen_out,
+                raw_out, ok, ia);
   if (ia_ok_out) *ia_ok_out = ia;
   if (spread_ok_out) *spread_ok_out = ok;
-  return ok && ia;
+  return ok & ia;
 }
 
 // score.inverse_normalize: lower penalty -> higher score, all equal -> 100.
@@ -191,25 +241,69 @@ __device__ __forceinline__ void block_min_max(float& lo, float& hi,
   __syncthreads();
 }
 
-// The spread slots' (min, max) of pod p, into s_cmin / s_cmax (shared,
-// MAX_C each), nodes [lo_n, hi_n) of this thread, stride `step`.
-template <int WARPS>
-__device__ __forceinline__ void spread_extents(const PairTerms& t,
-                                               const float* counts, int p,
-                                               int n0, int n1, int step,
-                                               float* s_lo, float* s_hi,
-                                               float* s_cmin, float* s_cmax) {
-  for (int c = 0; c < t.C; ++c) {
-    const long long pc = (long long)p * t.C + c;
-    if (!t.ts_valid[pc]) continue;  // uniform across the block
-    const int s = max(t.ts_sig[pc], 0);
-    float lo = INFINITY, hi = 0.0f;
-    for (int n = n0; n < n1; n += step) spread_extent(t, counts, p, s, n, lo, hi);
-    block_min_max<WARPS>(lo, hi, s_lo, s_hi);
-    if (threadIdx.x == 0) {
-      s_cmin[c] = lo;
-      s_cmax[c] = hi;
+constexpr int EXT_GROUP = 4;  // spread slots a walk
+
+// Pod p's spread slots' extents (spread_extent's lo and hi) over a CTA of
+// THREADS threads, EXT_GROUP slots a walk over this thread's nodes, each
+// slot's two values reduced over its warp by shuffles into s_part
+// ([THREADS / 32, 2, MAX_C], shared); after one barrier for all of the
+// pod's slots, warp 0 reduces the warps' partials into `ext` (ext[c] =
+// lo, ext[MAX_C + c] = hi, shared; only valid slots are written), which
+// the CTA reads after a second. min and max are exact: any order gives
+// the same bits.
+template <int THREADS>
+__device__ __forceinline__ void row_spread_extents(const PairTerms& t,
+                                                   const float* counts, int p,
+                                                   float* s_part,
+                                                   float* ext) {
+  constexpr int WARPS = THREADS / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int c0 = 0; c0 < t.C; c0 += EXT_GROUP) {
+    unsigned live = 0u;  // uniform: the pod's slots
+    int sig[EXT_GROUP];
+    float lo[EXT_GROUP], hi[EXT_GROUP];
+#pragma unroll
+    for (int k = 0; k < EXT_GROUP; ++k) {
+      const int c = c0 + k;
+      const long long pc = (long long)p * t.C + c;
+      const bool v = c < t.C && t.ts_valid[pc];
+      live |= (unsigned)v << k;
+      sig[k] = v ? max(t.ts_sig[pc], 0) : 0;
+      lo[k] = INFINITY;
+      hi[k] = 0.0f;
     }
+    if (!live) continue;
+    for (int n = tid; n < t.N; n += THREADS) {
+#pragma unroll
+      for (int k = 0; k < EXT_GROUP; ++k)
+        if ((live >> k) & 1u)
+          spread_extent(t, counts, p, sig[k], n, lo[k], hi[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < EXT_GROUP; ++k) {
+      if (!((live >> k) & 1u)) continue;
+      for (int off = 16; off > 0; off >>= 1) {
+        lo[k] = fminf(lo[k], __shfl_xor_sync(0xffffffffu, lo[k], off));
+        hi[k] = fmaxf(hi[k], __shfl_xor_sync(0xffffffffu, hi[k], off));
+      }
+      if (lane == 0) {
+        s_part[warp * 2 * MAX_C + c0 + k] = lo[k];
+        s_part[warp * 2 * MAX_C + MAX_C + c0 + k] = hi[k];
+      }
+    }
+  }
+  if (t.C == 0) return;  // no slot: nothing to reduce or read
+  __syncthreads();
+  const int c = lane % MAX_C;
+  if (warp == 0 && lane < 2 * MAX_C && c < t.C &&
+      t.ts_valid[(long long)p * t.C + c]) {
+    const bool is_lo = lane < MAX_C;
+    float x = s_part[lane];
+    for (int w = 1; w < WARPS; ++w) {
+      const float y = s_part[w * 2 * MAX_C + lane];
+      x = is_lo ? fminf(x, y) : fmaxf(x, y);
+    }
+    ext[lane] = x;
   }
   __syncthreads();
 }

@@ -784,12 +784,31 @@ def auction_rank_plain(cum_req: torch.Tensor, cum_cost: torch.Tensor,
     return bid, could
 
 
+RANK_TILE = 32             # bidders a cluster: 4 groups of 8 a thread
+RANK_NODES = 64            # nodes a chunk
+RANK_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def rank_cluster_size(B: int, C: int, N: int, sms: int) -> int:
+    """K17's CTAs a cluster for B tenants of C bidders on N nodes on a
+    card of `sms` SMs: the smallest Q in RANK_CLUSTERS that gives 4 CTAs
+    an SM, or the largest, but at least two node chunks a CTA."""
+    tiles = B * -(-max(C, 1) // RANK_TILE)
+    chunks = -(-max(N, 1) // RANK_NODES)
+    Q = 1
+    while (Q < RANK_CLUSTERS[-1] and tiles * Q < 4 * sms
+           and 2 * Q <= chunks):
+        Q *= 2
+    return Q
+
+
 def auction_rank(cum_req: torch.Tensor, cum_cost: torch.Tensor,
                  cum_viol: torch.Tensor, lane: torch.Tensor,
                  ok: torch.Tensor, used: torch.Tensor, alloc: torch.Tensor,
-                 p_req: torch.Tensor):
-    """Kernel K17 on CUDA tensors (one launch for a tenant batch), the
-    plain version on CPU tensors."""
+                 p_req: torch.Tensor, cluster: int | None = None):
+    """Kernel K17 on CUDA tensors (one launch for a tenant batch: a
+    cluster of Q CTAs, Q from `rank_cluster_size` or `cluster`, a tile of
+    RANK_TILE bidders), the plain version on CPU tensors."""
     dev = ok.device
     if dev.type == "cpu":
         return auction_rank_plain(cum_req, cum_cost, cum_viol, lane, ok,
@@ -809,13 +828,19 @@ def auction_rank(cum_req: torch.Tensor, cum_cost: torch.Tensor,
     if V > 32 or R > 8:
         raise ValueError(f"{k}: V={V}, R={R}; the kernel takes V <= 32, "
                          "R <= 8")
+    if cluster is not None and cluster not in RANK_CLUSTERS:
+        raise ValueError(f"{k}: cluster size {cluster}, want one of "
+                         f"{RANK_CLUSTERS}")
     bid = torch.empty((*lead, C, N), dtype=torch.float32, device=dev)
     could = torch.empty((*lead, C), dtype=torch.bool, device=dev)
     if bid.numel() == 0:
         return bid, could.fill_(False)
-    _build.launch("tpusched_auction_rank", lead[0] if lead else 1, L, N, V,
-                  R, C, *ptrs((cum_req, cum_cost, cum_viol, lane, ok, used,
-                               alloc, p_req, bid, could)), stream_of(dev))
+    B = lead[0] if lead else 1
+    Q = cluster or rank_cluster_size(
+        B, C, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    _build.launch("tpusched_auction_rank", B, Q, L, N, V, R, C,
+                  *ptrs((cum_req, cum_cost, cum_viol, lane, ok, used,
+                         alloc, p_req, bid, could)), stream_of(dev))
     auction_rank.launches += 1
     return bid, could
 
