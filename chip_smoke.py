@@ -20,8 +20,10 @@ package, and
      full width and on a 1024-row index view (equal to the same view
      gathered), both also at other tiles than cycle_tile's (each exact,
      timed), K6 row_topk (K = 8 seeded, kb = 8, beside torch.topk;
-     then its two paths, the K-pass kernel and the radix select, at
-     K = 4, 8, 16 and 256 without the seeded pick, each exact and timed),
+     seeded at K = 1, 8 and 16; its two kernels without the seeded pick,
+     the warp kernel at K = 1, 4, 8, 16, 32 and the radix select at 8,
+     32, 256; the warp kernel on the 1 024-row view at every split; each
+     exact and timed by CUDA events and the profiler),
      K8 prefix_commit_loop (every commit sub-step of a round in one
      launch) on the first fast round, exactly, timed by CUDA events and
      the profiler (and later on (d)'s first compacted round, fast (h)'s
@@ -118,12 +120,12 @@ package, and
        on the arguments of each cell's first auction round, exactly,
        timed with CUDA events and the profiler's kernel time (K17 also
        at cluster sizes 1, 2, 4, 8 and 16, K18 at 1, 4, 8 and 16, each
-       exact), K6 at
-       K = 256 (the radix path) beside torch.topk and the K-pass kernel,
-       and on tie rows (all -inf, all equal, -0.0 with +0.0, wide ties at
+       exact), K6 at K = 256 (the radix select) beside torch.topk, and
+       on tie rows (all -inf, all equal, -0.0 with +0.0, wide ties at
        the K-th, N not a multiple of 256) at K = 256 and K = N;
      - K5's calls by size class in one more fast solve of (a), (b) and
-       (h) (calls, and the CUDA-event ms of every call summed per class);
+       (h) (calls, and the CUDA-event ms of every call summed per class),
+       and K6's by K, seeding and rows in the same solves;
      - async forms: `solve_async`, `score_async` and
        `score_topk_async(k=8)` once each on (b), each equal to its
        synchronous form;
@@ -134,7 +136,10 @@ package, and
        each of 0.1 %, 1 % and 10 % of the pods, each a warm solve and a
        cold solve of the same lineage state in turns (each warm result
        equal to the cold one in assignment, chosen_score and evicted,
-       the first also to the plain-version solve), ten warm_churn_stream cycles (row reorders, completions,
+       the first also to the plain-version solve; K2 on the first 1 %
+       cycle's refresh view, its dirty pod rows against every node,
+       against its plain version), ten warm_churn_stream cycles (row
+       reorders, completions,
        cordon toggles), each warm == cold, five incremental cycles at
        1 % (audit tail zero, the validity audit, carried and frontier
        counts, placed beside the cold solve's), one parity warm cycle
@@ -168,7 +173,9 @@ package, and
        and the median of 5 against the eight solo solves on the card,
        host reads against their sum, each tenant equal to its solo
        solve in all six outputs and valid, the batch equal to its
-       plain-version twin (parity and fast, host reads too); K4 over
+       plain-version twin (parity and fast, host reads too); K2 on the
+       stack and K6 on the fast batch's first call (seeded and not)
+       against their plain versions, timed; K4 over
        the tenant axis (eight clusters) against one tenant's K4, each
        tenant's outputs equal to its solo launch at one CTA; K7, K23
        and K24 on their first call's arguments against their plain
@@ -251,6 +258,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -373,6 +381,8 @@ FAST_COUNTS = {"a": (10000, 26), "b": (9942, 64), "c": (10000, 26),
             "fast d": (9231, 46), "fast d seeded": (9231, 46),
             "h fast": (9995, 514)}
 
+# K6's radix select timed beside the warp kernel at these K.
+RADIX_TIMED = (8, 32, 256)
 # K5's tiles measured beside cycle_tile's choice (rows, threads a CTA).
 CYCLE_TILES = ((4, 128), (8, 128), (32, 128), (16, 64), (16, 256))
 
@@ -380,7 +390,7 @@ CYCLE_TILES = ((4, 128), (8, 128), (32, 128), (16, 64), (16, 256))
 # replaces). A variant of a kernel (K5's relaxed output, K7's fixed point,
 # K11's ia_ok) has a row of its own, counted by its own counter on the
 # wrapper; the wrapper's `launches` counts every launch. K6's two kernels
-# have a counter each: `launches` the K-pass kernel's, `radix_launches`
+# have a counter each: `launches` the warp kernel's, `radix_launches`
 # the radix select's.
 KERNELS = (
     ("atom_sat", atom_sat, "launches", "tpusched_torch/csrc/atoms.cu",
@@ -482,22 +492,18 @@ PAIR_PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                        "sig_match", "pair_counts", "parity_scan_pair")
 PAIR_SCORE_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                       "sig_match", "pair_counts", "pairwise_batch", "cycle",
-                      "row_topk", "row_topk_radix")
+                      "row_topk")
 # Kernels an entry-point call launches at most once (K1 twice with
 # signatures: node labels, then member labels).
 ONCE = ("tableau_cells", "finalize_static", "parity_scan", "sig_match",
         "pair_counts", "pairwise_batch", "parity_scan_pair",
         "parity_scan_preempt", "parity_scan_pair_preempt")
-# K6 takes its radix path for the fast rounds' K = 8 without the seeded
-# pick (kassign.RADIX_MIN_K): a seeded request launches the K-pass kernel
-# and may leave the radix select idle (SEEDED_IDLE); one without it
-# launches the radix select and the K-pass kernel only for its K < 8
-# calls (UNSEEDED_IDLE).
+# K6's warp kernel takes every K6 call of the fast rounds, ScoreBatch and
+# the explained solve, seeded or not (kassign.topk_route: K <= 32); the
+# radix select only the auction's K = 256.
 FAST_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
-                "row_topk", "row_topk_radix", "desirability",
-                "prefix_commit_loop", "deal", "top_by_rank")
-SEEDED_IDLE = ("row_topk_radix",)
-UNSEEDED_IDLE = ("row_topk",)
+                "row_topk", "desirability", "prefix_commit_loop", "deal",
+                "top_by_rank")
 FAST_PAIR_KERNELS = FAST_KERNELS + (
     "sig_match", "pair_counts", "pairwise_batch", "waterfill", "excess_min",
     "excess_survive", "ia_ok_at_choice", "pair_commit", "node_add",
@@ -510,7 +516,7 @@ FAST_PAIR_ONCE = ("tableau_cells", "finalize_static", "sig_match",
 # launch on the main path as a whole, and (t)'s fast batch requires it.
 OPTIONAL = ("top_by_rank",)
 SCORE_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
-                 "row_topk", "row_topk_radix")
+                 "row_topk")
 # The gang gate reverts through K8's node_add.
 GANG_PARITY_KERNELS = PARITY_KERNELS + ("node_add",)
 GANG_FAST_KERNELS = FAST_KERNELS + ("node_add",)
@@ -1141,6 +1147,8 @@ def kernel_phase(cfg: EngineConfig, dsnap, smi: str) -> dict:
     ops2 = P * N * ((T + PT) * (AT + 1) + 3 * TN + 6)
     out["tableau_cells"] = dict(
         err=err, ms=cuda_ms(lambda: kassign._tableau_cells(*args2), 10),
+        prof_ms=profiler_ms(lambda: kassign._tableau_cells(*args2),
+                            "tableau_kernel"),
         plain_ms=cuda_ms(lambda: kassign._tableau_cells_plain(*args2), 5),
         bound=bound(b2, ops2), shape=f"P={P} N={N} T={T} AT={AT} PT={PT} "
                                      f"TN={TN}")
@@ -1355,6 +1363,30 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order,
                   else f"{view_prof:.4f} ms") + ")")
     # K6 on the first fast round's masked block (all valid pods pending).
     feasible, masked = kassign.cycle(*args5, pending=pods.valid, masked=True)
+    out.update(k6_rows(cfg, masked, view_k[1], smi))
+    # K8's loop on the first fast round, at full width.
+    label = "(b)'s round 1, full width"
+    out["prefix_commit_loop"] = k8_set(label, loop_calls(cfg, dsnap), smi)
+    k8_merge(out, label, out["prefix_commit_loop"])
+    return out
+
+
+def kernel_times(fn, kernel: str) -> dict:
+    """CUDA-event and profiler ms of one kernel wrapper's call."""
+    return {"ms": cuda_ms(fn, 10), "prof_ms": profiler_ms(fn, kernel)}
+
+
+def fmt_prof(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def k6_rows(cfg: EngineConfig, masked, view, smi: str) -> dict:
+    """K6 against its plain version at the fast round's shapes, exactly:
+    the full-width block (every valid pod pending) seeded at K = 1, 8
+    and 16 and not; its two kernels without the seeded pick, each timed
+    (the times set kassign.RADIX_MIN_K); the 1 024-row view at K = 8 at
+    every split of the warp kernel, seeded and not."""
+    P, N = masked.shape
     K = kassign._fallback_depth(N)
     ids = torch.arange(P, dtype=torch.int32, device=masked.device)
     seed = cfg.tie_seed if cfg.tie_break == "seeded" else SEED
@@ -1365,45 +1397,85 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order,
     err = max(err, require_equal("row_topk (kb=8)",
                                  kassign.row_topk(masked, 8),
                                  kassign.row_topk_plain(masked, 8)))
+    seeded = {}
+    for kk in (1, 8, 16):
+        a = (masked, kk, True, seed, ids)
+        require_equal(f"row_topk (K={kk}, seeded)", kassign.row_topk(*a),
+                      kassign.row_topk_plain(*a))
+        seeded[kk] = kernel_times(lambda: kassign.row_topk(*a),
+                                  "row_topk_warp")
     b6 = nbytes(masked, ids, *top_k)
-    out["row_topk"] = dict(
-        err=err, ms=cuda_ms(lambda: kassign.row_topk(*args6), 10),
+    row = dict(
+        err=err, ms=seeded[K]["ms"], prof_ms=seeded[K]["prof_ms"],
         plain_ms=cuda_ms(lambda: kassign.row_topk_plain(*args6), 3),
         library="torch.topk",
         library_ms=cuda_ms(lambda: torch.topk(masked, K, dim=1), 10),
         bound=bound(b6, P * N), shape=f"P={P} N={N} K={K} seeded")
-    # K6's two paths without the seeded pick on the same rows, each exact:
-    # the K-pass kernel and the radix select, at the fast rounds' K and
-    # the auction's (their times set kassign.RADIX_MIN_K).
+    # The radix select's time barely moves with K; the warp kernel's
+    # grows, so K = 32 decides the cut.
     paths = {}
-    for kk in (4, 8, 16, 256):
+    for kk in (1, 4, 8, 16, 32, 256):
+        paths[kk] = {}
         for radix in (False, True):
-            require_equal(f"row_topk (K={kk}, radix={radix})",
+            if (radix and kk not in RADIX_TIMED) or (
+                    not radix and kk > kassign.WARP_MAX_K):
+                continue
+            name = "radix" if radix else "warp"
+            require_equal(f"row_topk (K={kk}, {name})",
                           kassign.row_topk_path(masked, kk, radix=radix),
                           kassign.row_topk_plain(masked, kk))
-        paths[kk] = tuple(
-            cuda_ms(lambda: kassign.row_topk_path(masked, kk, radix=radix),
-                    10) for radix in (False, True))
-    out["row_topk"]["paths"] = paths
-    log("K6 paths on (b)'s first fast round (K-pass ms / radix ms): "
-        + ", ".join(f"K={kk} {a:.4f} / {b:.4f}"
-                    for kk, (a, b) in paths.items())
-        + f"; radix from K={kassign.RADIX_MIN_K}")
-    # K8's loop on the first fast round, at full width.
-    label = "(b)'s round 1, full width"
-    out["prefix_commit_loop"] = k8_set(label, loop_calls(cfg, dsnap), smi)
-    k8_merge(out, label, out["prefix_commit_loop"])
-    return out
+            paths[kk][name] = kernel_times(
+                lambda: kassign.row_topk_path(masked, kk, radix=radix),
+                "row_topk_" + name)
+    log("K6's two kernels on (b)'s first fast round, unseeded (ms by CUDA "
+        "events, profiler in brackets): " + "; ".join(
+            f"K={kk} " + ", ".join(
+                f"{nm} {t['ms']:.4f} ({fmt_prof(t['prof_ms'])})"
+                for nm, t in ts.items()) for kk, ts in paths.items())
+        + f"; the warp kernel up to K={kassign.RADIX_MIN_K - 1}; seeded "
+        + ", ".join(f"K={kk} {t['ms']:.4f} ({fmt_prof(t['prof_ms'])})"
+                    for kk, t in seeded.items()) + f"; {smi}")
+    # The 1 024-row view (a compacted round's block) at every split.
+    V = view.shape[0]
+    vids = ids[:V]
+    # (unseeded, as the main path's views are; seeded at topk_split's).
+    splits = {}
+    policy = kassign.topk_split(V)
+    for split in (1, 2, 4, 8):
+        for sd in (False, True):
+            a = (view, K, sd, seed, vids if sd else None)
+            require_equal(f"row_topk ({V}-row view, split {split}, "
+                          f"seeded={sd})",
+                          kassign.row_topk_path(*a, split=split),
+                          kassign.row_topk_plain(*a))
+        splits[split] = {
+            name: kernel_times(lambda: kassign.row_topk_path(
+                view, K, sd, seed, vids if sd else None, split=split),
+                "row_topk_warp")
+            for name, sd in (("unseeded", False), ("seeded", True))
+            if not sd or split == policy}
+    log(f"K6's warp kernel on the {V}-row view at K={K} by split (warps a "
+        "row; unseeded, seeded at topk_split's; ms, profiler in "
+        "brackets): " + "; ".join(
+            f"{sp}: " + " / ".join(
+                f"{t['ms']:.4f} ({fmt_prof(t['prof_ms'])})"
+                for t in d.values()) for sp, d in splits.items())
+        + f"; topk_split's {policy}; view bound "
+        f"{bound(nbytes(view, vids), V * N)[0]:.5f} ms; {smi}")
+    row["extra"] = {"paths": paths, "seeded": seeded, "view": splits}
+    return {"row_topk": row}
 
 
-def k5_sizes(cells, smi: str) -> list:
+def k5_sizes(cells, smi: str) -> tuple[list, dict]:
     """K5's calls in one fast solve of each cell (the wrapper recorded
     through an Ops table), by size class (the power of two at or above
     B x rows): calls per cell, and the CUDA-event ms of every call in the
     solve summed over the class (an event pair around each wrapper call;
     a window holds the wrapper's host work where the card waits on it),
-    with the class's share of K5's time in these solves."""
-    classes = {}
+    with the class's share of K5's time in these solves. Also K6's calls
+    in the same solves by (K, seeded, rows): calls per cell and their
+    CUDA-event ms."""
+    classes, k6 = {}, {}
     for name, cfg, snap in cells:
         eng = Engine(cfg)
         dsnap = eng.put(snap)
@@ -1424,8 +1496,22 @@ def k5_sizes(cells, smi: str) -> list:
             c["events"].append((start, end))
             return out
 
-        solve_core(cfg, dsnap, ops=dataclasses.replace(kassign.KERNELS,
-                                                       cycle=rec))
+        def rec6(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = kassign.row_topk(*a)
+            end.record()
+            seeded = len(a) > 2 and bool(a[2])
+            key = (f"K={a[1]} {'seeded' if seeded else 'unseeded'} "
+                   f"rows={a[0].numel() // a[0].shape[-1]}")
+            c = k6.setdefault(key, {"calls": {}, "events": []})
+            c["calls"][name] = c["calls"].get(name, 0) + 1
+            c["events"].append((start, end))
+            return out
+
+        solve_core(cfg, dsnap, ops=dataclasses.replace(
+            kassign.KERNELS, cycle=rec, row_topk=rec6))
         eng.close()
     torch.cuda.synchronize()
     out = []
@@ -1446,7 +1532,13 @@ def k5_sizes(cells, smi: str) -> list:
             f"{c['ms_per_call']:.4f} ms a call ({100 * c['share']:.1f} %)"
             for c in out)
         + f"; {total:.3f} ms in all; {smi}")
-    return out
+    for c in k6.values():
+        c["ms"] = sum(a.elapsed_time(b) for a, b in c.pop("events"))
+    log("K6 calls by K, seeding and rows in the same solves (CUDA events "
+        "around every call): " + "; ".join(
+            f"{key}: {c['calls']} calls, {c['ms']:.3f} ms in all"
+            for key, c in sorted(k6.items())) + f"; {smi}")
+    return out, k6
 
 
 def first_pair_round_calls(cfg: EngineConfig, dsnap) -> dict:
@@ -1782,11 +1874,8 @@ def solve_phase(label: str, requests, want: tuple[str, ...],
         results.append((name, cfg, snap, res, wall_ms, moved))
     phase_counts = counts()
     for name, cfg, snap, res, wall_ms, moved in results:
-        idle = (SEEDED_IDLE if cfg.tie_break == "seeded"
-                else UNSEEDED_IDLE)
         check_launches(f"{label} {name}", moved, want,
-                       snap.atoms.key.shape[0] > 0, once=once,
-                       optional=OPTIONAL + idle)
+                       snap.atoms.key.shape[0] > 0, once=once)
     return results, phase_counts
 
 
@@ -2421,18 +2510,11 @@ def auction_kernel_phase(dsnap, calls: dict) -> dict:
             masked, K = a[0], a[1]
             N = masked.shape[-1]
             rows = masked.numel() // N
-            # The K-pass kernel on the same rows (K6's path before the
-            # radix select), and the tie rows.
-            kpass = lambda: kassign.row_topk_path(masked, K, radix=False)
-            require_equal("row_topk_radix (K-pass kernel)", _flat(kpass()),
-                          got)
             ties = topk_tie_rows(masked.device, N, K)
             r.update(bound=bound(nbytes(masked, *got[:2]), rows * N),
                      library="torch.topk",
                      library_ms=cuda_ms(lambda: torch.topk(masked, K, dim=-1),
                                         20),
-                     kpass_ms=cuda_ms(kpass, 5),
-                     kpass_prof_ms=profiler_ms(kpass, "row_topk_kernel"),
                      shape=f"{rows} rows, N={N} K={K}; {ties}")
         elif name == "auction_claim":
             topv, topi, can_plain, n_plain, rank, ctx = a[:6]
@@ -2591,6 +2673,36 @@ def value_churn(ds, pods_r: list, rng, k: int):
     return ds.apply(upsert_pods=ups)
 
 
+def refresh_args(ds, delta) -> tuple:
+    """The arguments of refresh_tableau's K2 call on the dirty pod rows of
+    `delta` (padded as the engine pads them) against every node: copies
+    of the lineage's state as it stands."""
+    idx = torch.as_tensor(Engine._pad_idx(delta.dirty_pods),
+                          device="cuda").long()
+    snap = ds.snap
+    N = snap.nodes.valid.shape[0]
+    return (types.SimpleNamespace(taint_effect=snap.taint_effect.clone()),
+            kassign.permute_rows(snap.pods, idx),
+            kassign.permute_rows(snap.nodes, torch.arange(N, device="cuda")),
+            ds.warm_state.tableau.node_sat_t.clone())
+
+
+def k2_refresh_row(args, smi: str) -> dict:
+    """K2 on a refresh view against its plain version, exactly, timed."""
+    got = kassign._tableau_cells(*args)
+    err = require_equal("tableau_cells (w refresh)", got,
+                        kassign._tableau_cells_plain(*args))
+    P, N = got[0].shape
+    t = kernel_times(lambda: kassign._tableau_cells(*args), "tableau_kernel")
+    t.update(err=err, bound_ms=10 * P * N / HBM_BYTES_PER_S * 1e3,
+             shape=f"{P} dirty pod rows x N={N}")
+    log(f"kernel tableau_cells on (w)'s first 1 % churn refresh "
+        f"[{t['shape']}]: exact match, {t['ms']:.4f} ms (profiler "
+        f"{fmt_prof(t['prof_ms'])}), bound {t['bound_ms']:.5f} ms (bytes); "
+        f"{smi}")
+    return t
+
+
 def warm_phase(smi: str) -> tuple[dict, dict]:
     """The warm lineage (w) through the engine's warm entry points, every
     counter zeroed just before and read just after: a cold solve, the
@@ -2635,7 +2747,9 @@ def warm_phase(smi: str) -> tuple[dict, dict]:
             stats = value_churn(ds, pods_r, rng, k)
             # The lineage's host bookkeeping alone (warm_delta is pure):
             # name maps over every row, the pressure compare.
-            _, book_ms = timed(ds.warm_delta)
+            delta, book_ms = timed(ds.warm_delta)
+            if frac == 0.01 and cyc == 0:
+                k2_refresh = refresh_args(ds, delta)
             # Each pair runs in turns: warm first on even cycles, cold
             # first on odd ones.
             if cyc % 2:
@@ -2745,13 +2859,13 @@ def warm_phase(smi: str) -> tuple[dict, dict]:
     for kname, n in phase_counts.items():
         need = kname in WARM_KERNELS and (
             kname != "atom_sat" or ds.snap.atoms.key.shape[0] > 0)
-        if ((need and n < 1 and kname not in UNSEEDED_IDLE)
-                or (not need and n)):
+        if (need and n < 1) or (not need and n):
             raise AssertionError(f"w: kernel {kname} launched {n} times "
                                  f"(launches {phase_counts})")
     log(f"warm (w) launches {phase_counts}; the phase so far "
         f"{time.perf_counter() - t_phase:.1f} s host clock")
 
+    refresh = k2_refresh_row(k2_refresh, smi)
     out = {}
     args = recorded["capacity_prefix_keep"]
     got = kassign.capacity_prefix_keep(*args)
@@ -2797,6 +2911,7 @@ def warm_phase(smi: str) -> tuple[dict, dict]:
             f"({r['bound'][1]}); {smi}")
     eng.close()
     eng_p.close()
+    out["tableau_cells_refresh"] = refresh
     return phase_counts, out
 
 
@@ -3259,11 +3374,13 @@ def tenant_kernel_rows(cfg, dstack, smi: str) -> dict:
         kassign.KERNELS, deal=recorder("deal", kassign.deal),
         top_by_rank=recorder("top_by_rank", kassign.top_by_rank),
         desirability=recorder("desirability", kassign.desirability),
+        row_topk=recorder("row_topk", kassign.row_topk),
         prefix_commit_loop=recorder("prefix_commit_loop",
                                     kassign.prefix_commit_loop))
     solve_many(cfg, dstack, ops=ops)
     rows = {"desirability": k7_row("(t)'s round 1", calls["desirability"],
                                    smi)}
+    rows.update(tenant_k2_k6(dstack, calls["row_topk"], smi))
     label = "(t)'s round 1, B = 8"
     k8 = k8_set(label, calls["prefix_commit_loop"], smi)
     rows["prefix_commit_loop"] = {"err": k8["err"]}
@@ -3303,6 +3420,42 @@ def tenant_kernel_rows(cfg, dstack, smi: str) -> dict:
     return rows
 
 
+def tenant_k2_k6(dstack, k6_args, smi: str) -> dict:
+    """K2 on the tenant stack (t) and K6 on the fast batch's first call
+    (round 1 over the tenant rows), seeded and not, against their plain
+    versions, exactly, with CUDA-event and profiler times."""
+    sat = _sat_tables(dstack)[0]
+    args2 = (dstack, dstack.pods, dstack.nodes, sat)
+    got = kassign._tableau_cells(*args2)
+    err2 = require_equal("tableau_cells (t)", got,
+                         kassign._tableau_cells_plain(*args2))
+    B, P, N = got[0].shape
+    k2 = kernel_times(lambda: kassign._tableau_cells(*args2), "tableau_kernel")
+    k2["bound_ms"] = 10 * B * P * N / HBM_BYTES_PER_S * 1e3
+    masked, K = k6_args[0], k6_args[1]
+    ids = torch.arange(masked.shape[-2], dtype=torch.int32,
+                       device=masked.device).expand(
+                           masked.shape[:-1]).contiguous()
+    k6 = {}
+    for name, a in (("unseeded", (masked, K)),
+                    ("seeded", (masked, K, True, SEED, ids))):
+        require_equal(f"row_topk (t) {name}", kassign.row_topk(*a),
+                      kassign.row_topk_plain(*a))
+        k6[name] = kernel_times(lambda: kassign.row_topk(*a), "row_topk_warp")
+    k6["bound_ms"] = nbytes(masked) / HBM_BYTES_PER_S * 1e3
+    log(f"kernel tableau_cells on (t) [B={B} P={P} N={N}]: exact match, "
+        f"{k2['ms']:.4f} ms (profiler {fmt_prof(k2['prof_ms'])}), bound "
+        f"{k2['bound_ms']:.4f} ms (bytes); kernel row_topk on (t)'s round 1 "
+        f"[{list(masked.shape)} K={K}]: exact match, unseeded "
+        f"{k6['unseeded']['ms']:.4f} ms "
+        f"({fmt_prof(k6['unseeded']['prof_ms'])}), seeded "
+        f"{k6['seeded']['ms']:.4f} ms ({fmt_prof(k6['seeded']['prof_ms'])}), "
+        "bound "
+        f"{k6['bound_ms']:.4f} ms (bytes); {smi}")
+    return {"tableau_cells": {"err": err2, "extra": {"t_b8": k2}},
+            "row_topk": {"err": 0.0, "extra": {"t_b8": k6}}}
+
+
 def k4_tenants_equal_solo(name: str, cfg, dstack, static, order, st=None,
                           dom_s=None) -> tuple[int, int]:
     """K4 (with st, its pairwise variant) over the batch at the policy's
@@ -3336,11 +3489,6 @@ def log_rows(rows: dict, where: str, smi: str) -> None:
                 else f"{r['prof_ms']:.4f} ms")
         lib = (f"{r['library']} {r['library_ms']:.4f} ms, "
                if r.get("library_ms") is not None else "")
-        if "kpass_ms" in r:
-            kp = r["kpass_prof_ms"]
-            lib += (f"the K-pass kernel {r['kpass_ms']:.4f} ms (profiler "
-                    + ("not measured" if kp is None else f"{kp:.4f} ms")
-                    + "), ")
         log(f"kernel {kname} on {where} [{r['shape']}]: exact match, kernel "
             f"{r['ms']:.4f} ms (CUDA events; profiler kernel time {prof}), "
             f"plain {r['plain_ms']:.4f} ms, {lib}bound "
@@ -3369,7 +3517,7 @@ def tenant_phase(smi: str) -> tuple[dict, dict]:
         f"{sum(m.n_nodes for _, m in built)} nodes")
     cfg_p, cfg_f = EngineConfig(mode="parity"), EngineConfig(mode="fast")
     cells = (("t parity", cfg_p, PARITY_KERNELS, ONCE, (), True),
-             ("t fast", cfg_f, FAST_KERNELS, ONCE, UNSEEDED_IDLE, True),
+             ("t fast", cfg_f, FAST_KERNELS, ONCE, (), True),
              ("t parity seeded", EngineConfig(
                  mode="parity", tie_break="seeded", tie_seed=SEED),
               PARITY_KERNELS, ONCE, (), False))
@@ -3388,7 +3536,8 @@ def tenant_phase(smi: str) -> tuple[dict, dict]:
         f"Q=1; {smi}")
     rows = tenant_kernel_rows(cfg_f, dstack, smi)
     log_rows({k: r for k, r in rows.items()
-              if k not in ("desirability", "prefix_commit_loop")},
+              if k not in ("desirability", "prefix_commit_loop",
+                           "tableau_cells", "row_topk")},
              "(t)'s fast batch", smi)
     return launches, rows
 
@@ -3594,7 +3743,7 @@ def pair_tenant_phase(smi: str) -> tuple[dict, dict]:
                  mode="parity", tie_break="seeded", tie_seed=SEED),
               PAIR_PARITY_KERNELS, ONCE, (), False),
              ("tp fast", EngineConfig(mode="fast"), FAST_PAIR_KERNELS,
-              FAST_PAIR_ONCE, UNSEEDED_IDLE, True))
+              FAST_PAIR_ONCE, (), True))
     launches = batch_cells(cells, snaps, dstack, smi, reduced=reduced)
     rows = tenant_pair_kernel_rows(dstack, reduced, smi)
     log_rows(rows, "(tp)'s batches", smi)
@@ -3637,7 +3786,7 @@ def gang_tenant_phase(smi: str) -> dict:
     cells = (("tg parity", EngineConfig(mode="parity"), GANG_PARITY_KERNELS,
               ONCE, (), True),
              ("tg fast", EngineConfig(mode="fast"), GANG_FAST_KERNELS, ONCE,
-              OPTIONAL + UNSEEDED_IDLE, True))
+              OPTIONAL, True))
     return batch_cells(cells, snaps, dstack, smi, reduced=reduced,
                        hook=gang_hook)
 
@@ -3732,7 +3881,7 @@ def pre_tenant_phase(smi: str, pair: bool) -> tuple[dict, dict]:
               (), False),
              (f"{label} fast", cfg_f,
               FAST_PREEMPT_PAIR_KERNELS if pair else FAST_PREEMPT_KERNELS,
-              FAST_PAIR_ONCE if pair else ONCE, OPTIONAL + UNSEEDED_IDLE,
+              FAST_PAIR_ONCE if pair else ONCE, OPTIONAL,
               True))
     launches = batch_cells(cells, snaps, dstack, smi, reduced=reduced,
                            hook=preempt_hook)
@@ -4210,16 +4359,21 @@ def main() -> int:
                        if bool(a[2].any()))
     label = f"(h)'s drain in preemption round {step + 1}"
     k8_merge(kp, label, k8_set(label, drain, smi))
-    kp["cycle"]["extra"]["sizes"] = k5_sizes(
+    sizes = k5_sizes(
         fast_cells[:2] + (("h fast: config5 10000x5000, preemption on",
                            EngineConfig(mode="fast", preemption=True),
                            snap_h),), smi)
+    kp["cycle"]["extra"]["sizes"], kp["row_topk"]["extra"]["sizes"] = sizes
 
     # -- the warm lineage (w) and the async forms ------------------------------
     async_phase(snap_b, smi)
     phase_counts, kp_warm = warm_phase(smi)
     for k, v in phase_counts.items():
         launches[k] += v
+    refresh = kp_warm.pop("tableau_cells_refresh")
+    kp["tableau_cells"]["err"] = max(kp["tableau_cells"]["err"],
+                                     refresh.pop("err"))
+    kp["tableau_cells"].setdefault("extra", {})["w_refresh"] = refresh
     kp.update(kp_warm)
 
     # -- the device queue (q), decision provenance (x), the tenant batches

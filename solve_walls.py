@@ -18,7 +18,15 @@ config-5 tenants under one floor, solved by `solve_many`), `ths` and
 `thps` the same with the seeded tie-break, `t9` nine tenants of (a)'s
 size, and `k4q1`, `k4q2`, `k4q4`, `k4q8` K4 alone on (a)'s parity scan
 at cluster size 1, 2, 4, 8 (parity mode; a tree whose scan takes
-`cluster`). Each tree's
+`cluster`). The kernel cells time one kernel wrapper alone, by CUDA
+events (the median of KERNEL_REPS calls a turn) and, once a tree, by
+the profiler: `k6s8`, `k6s16` K6 seeded at K = 8, 16 on (b)'s first fast
+round (every valid pod pending), `k6u1`, `k6u4`, `k6u8`, `k6u16` the
+same unseeded at K = 1, 4, 8, 16, `k6v8`, `k6v8u` a 1 024-row view of it
+(the first 1 024 pods in pop order) at K = 8, seeded and not; `k2b` K2
+on (b), `k2t` K2 on the tenant stack (t), `k2w` K2 on 128 gathered pod
+rows of the warm lineage (w)'s snapshot against every node (a 1 %
+value churn, padded, as `refresh_tableau` passes them). Each tree's
 generator builds the cell from chip_smoke's own constants and puts it on
 the card once; one solve builds the kernels and warms up. Then `--pairs`
 rounds each solve once per tree, in turns (the order reversed every
@@ -92,6 +100,22 @@ CELLS = {
     "k4q8": ("config2_scale", CS.SEED, dict(with_qos=True), {}),
 }
 CELLS["k4q2"] = CELLS["k4q4"] = CELLS["k4q1"]
+# The kernel cells: (the cell whose snapshot feeds it, what it times).
+KERNEL_CELLS = {
+    **{f"k6s{k}": ("b", ("topk", k, True, False)) for k in (8, 16)},
+    **{f"k6u{k}": ("b", ("topk", k, False, False)) for k in (1, 4, 8, 16)},
+    "k6v8": ("b", ("topk", 8, True, True)),
+    "k6v8u": ("b", ("topk", 8, False, True)),
+    "k2b": ("b", ("tableau",)), "k2t": ("t", ("tableau",)),
+    "k2w": ("w", ("tableau_rows",)),
+}
+CELLS.update({c: CELLS[src] for c, (src, _) in KERNEL_CELLS.items()
+              if src in CELLS})
+CELLS["k2w"] = ("make_cluster", CS.WARM_SEED,
+                dict(n_running_per_node=1, with_qos=True), {})
+KERNEL_REPS = 10
+VIEW_ROWS = 1024
+WARM_ROWS = 128
 # The tenant batches: (tenants, tenant 0's pods, pods fewer a tenant,
 # nodes, fixed fields of the floor). t9 is nine tenants of (a)'s size
 # (the policy's Q = 8 at N = 5 120).
@@ -101,6 +125,7 @@ TENANT_SHAPE = {
 TENANT_SHAPE["t"] = (CS.TENANTS, CS.TENANT_PODS, CS.TENANT_STEP,
                      CS.TENANT_NODES, dict(signatures=0))
 TENANT_SHAPE["t9"] = (9, CS.PODS, 0, CS.NODES, dict(signatures=0))
+TENANT_SHAPE["k2t"] = TENANT_SHAPE["t"]
 TENANT_CELLS = tuple(TENANT_SHAPE)
 # K4 alone at a given cluster size Q, on the arguments of (a)'s solve
 # (its one parity scan), then a device sync.
@@ -147,12 +172,17 @@ class Tree:
                     **kw, **x), n, buckets=config.Buckets, **fixed)
                 self.dsnap = pkg.stack_snapshots(
                     [s for s, _ in built]).to("cuda")
-                self.run = self._batch(pkg)
+                self.run = (self._kernel(pkg, self.dsnap)
+                            if cell in KERNEL_CELLS else self._batch(pkg))
             elif cell in K4_CELLS:
                 snap, _ = draw(np.random.default_rng(seed), CS.PODS,
                                CS.NODES, **kw)
                 self.run = self._k4(pkg.Engine(self.cfg).put(snap),
                                     K4_CELLS[cell])
+            elif cell in KERNEL_CELLS:
+                snap = draw(np.random.default_rng(seed), CS.PODS, CS.NODES,
+                            **kw)[0]
+                self.run = self._kernel(pkg, pkg.Engine(self.cfg).put(snap))
             else:
                 snap, _ = draw(np.random.default_rng(seed), CS.PODS,
                                CS.NODES, **kw)
@@ -200,6 +230,44 @@ class Tree:
 
         return run
 
+    def _kernel(self, pkg, dsnap):
+        """One call of the kernel cell's wrapper on its arguments (built
+        once, as chip_smoke's kernel phase builds them), synced."""
+        what = KERNEL_CELLS[self.cell][1]
+        a = self.assign
+        sat = self.engine_mod._sat_tables(dsnap)[0]
+        if what[0] == "tableau_rows":
+            P = dsnap.pods.valid.shape[-1]
+            rows = torch.from_numpy(np.random.default_rng(CS.WARM_SEED)
+                                    .choice(P, WARM_ROWS, replace=False))
+            pods = a.permute_rows(dsnap.pods, rows.sort()[0].to("cuda"))
+            fn = lambda: a._tableau_cells(dsnap, pods, dsnap.nodes, sat)
+        elif what[0] == "tableau":
+            fn = lambda: a._tableau_cells(dsnap, dsnap.pods, dsnap.nodes, sat)
+        else:
+            _, K, seeded, view = what
+            static = a.precompute_static(self.cfg, dsnap, sat)
+            nodes, pods = dsnap.nodes, dsnap.pods
+            masked = a.cycle(nodes.allocatable, nodes.used, pods.requests,
+                             static.mask, static.score, static.w_lr,
+                             static.w_ba, static.w_ts, static.rw,
+                             pending=pods.valid, masked=True)[1]
+            if view:
+                order = a.pop_order(self.cfg, dsnap)[:VIEW_ROWS]
+                masked = masked[order.long()].contiguous()
+            ids = torch.arange(masked.shape[0], dtype=torch.int32,
+                               device=masked.device)
+            fn = ((lambda: a.row_topk(masked, K, True, CS.SEED, ids))
+                  if seeded else (lambda: a.row_topk(masked, K)))
+        self.kernel_fn = fn
+
+        def run():
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+
+        return run
+
     def _time_preemption(self) -> None:
         rounds = self.assign._preempt_rounds
 
@@ -226,6 +294,9 @@ class Tree:
     def wall(self) -> float:
         self.activate()
         self.pre_ms.clear()
+        if self.cell in KERNEL_CELLS:
+            self.res = self.run()
+            return CS.cuda_ms(self.kernel_fn, KERNEL_REPS), 0.0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         self.res = self.run()
@@ -234,6 +305,14 @@ class Tree:
     def summary(self, ref: "Tree") -> dict:
         """Host reads, placed and evicted pods, and whether the outputs
         equal `ref`'s."""
+        if self.cell in KERNEL_CELLS:
+            self.activate()
+            kernel = ("tableau_kernel" if self.cell.startswith("k2")
+                      else "row_topk")
+            return {"profiler_ms": CS.profiler_ms(self.kernel_fn, kernel),
+                    "equal_to_first_tree": all(
+                        (a is None and b is None) or torch.equal(a, b)
+                        for a, b in zip(self.res, ref.res))}
         if self.score:
             return {"equal_to_first_tree": all(
                 np.array_equal(a, b) for a, b in zip(self.res[:2],
@@ -297,7 +376,8 @@ def main() -> int:
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
-    batch = [c for c in args.cells if c in TENANT_CELLS or c in K4_CELLS]
+    batch = [c for c in args.cells
+             if c in TENANT_CELLS or c in K4_CELLS or c in KERNEL_CELLS]
     if args.mode == "score" and batch:
         ap.error("--mode score times Engine.score_topk on a one-snapshot "
                  f"cell, not on {', '.join(batch)}")
@@ -338,7 +418,7 @@ def main() -> int:
                 "q1_ms": q[0], "q3_ms": q[2], **summary,
                 **more}), flush=True)
         if (args.profile and not args.mode == "score"
-                and cell not in TENANT_CELLS + tuple(K4_CELLS)):
+                and cell not in (*TENANT_CELLS, *K4_CELLS, *KERNEL_CELLS)):
             for t in trees:
                 print(json.dumps(t.profile()), flush=True)
         del trees

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -310,6 +311,206 @@ def test_k6_equal_plain(cuda, K):
     _equal(ka.row_topk(m, K), ka.row_topk_plain(m, K))
     _equal(ka.row_topk(m, K, True, 99, ids),
            ka.row_topk_plain(m, K, True, 99, ids))
+
+
+# K6's warp kernel: every split of a row over the warps of a CTA.
+K6_SPLITS = (1, 2, 4, 8)
+
+
+def _k6_rows(N: int, rows: int = 40, seed: int = 0) -> torch.Tensor:
+    """Tie-heavy score rows (multiples of 25, -inf 30 % of the time) and,
+    first, the rows that stress the kernel: all -inf, all equal, -0.0
+    and +0.0 mixed (with -inf), and a maximum tied ~N / 8 times (hundreds
+    at N = 5 120, so that the pick walks past the first chunks)."""
+    rng = np.random.default_rng(seed)
+    m = rng.integers(0, 4, size=(rows, N)).astype(np.float32) * 25.0
+    m[rng.random(m.shape) < 0.3] = -np.inf
+    m[0] = -np.inf
+    m[1] = -7.0
+    m[2] = np.where(rng.random(N) < 0.5, -0.0, 0.0)
+    m[3] = np.where(rng.random(N) < 0.2, -np.inf, m[2])
+    m[4] = np.where(rng.random(N) < 0.125, 100.0, m[4])
+    return torch.from_numpy(m)
+
+
+def _k6_all(m, K, ids, **kw):
+    """K6 against its plain version, exactly, seeded and not."""
+    _equal(ka.row_topk_path(m, K, **kw), ka.row_topk_plain(m, K))
+    _equal(ka.row_topk_path(m, K, True, 99, ids, **kw),
+           ka.row_topk_plain(m, K, True, 99, ids))
+
+
+@pytest.mark.parametrize("N", [1, 3, 127, 128, 129, 5120])
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 8, 16, 32])
+def test_k6_warp_equal_plain(cuda, K, N):
+    """K6's warp kernel at every split, seeded and not, exactly; N = 1, 3,
+    127 and 129 take the scalar loads, N = 128 and 5 120 the float4 ones
+    (K = min(K, N))."""
+    K = min(K, N)
+    m = _k6_rows(N, seed=K).to(cuda)
+    ids = torch.arange(m.shape[0], dtype=torch.int32, device=cuda).flip(0)
+    for split in K6_SPLITS:
+        _k6_all(m, K, ids, split=split)
+
+
+@pytest.mark.parametrize("rows", [1, 1024, 10240])
+def test_k6_rows_equal_plain(cuda, rows):
+    """K6 through row_topk (the split of topk_split) at K = 1, 4, 8 and 16
+    on 1, 1 024 and 10 240 rows of 5 120 nodes, seeded and not, and on
+    rows that start 4 bytes past an aligned address (the scalar loads),
+    exactly."""
+    m = _k6_rows(5120, rows=max(rows, 5)).to(cuda)[:rows].contiguous()
+    flat = torch.empty(rows * 5120 + 1, device=cuda)
+    shifted = flat[1:].view(rows, 5120)
+    shifted.copy_(m)
+    ids = torch.arange(rows, dtype=torch.int32, device=cuda)
+    for K in (1, 4, 8, 16):
+        for x in (m, shifted):
+            _equal(ka.row_topk(x, K), ka.row_topk_plain(x, K))
+            _equal(ka.row_topk(x, K, True, 5, ids),
+                   ka.row_topk_plain(x, K, True, 5, ids))
+
+
+def test_k6_tenants_equal_plain(cuda):
+    """K6 over a tenant batch [8, 128, 300], each tenant's rows keyed by
+    its own pod ids, seeded and not, exactly."""
+    m = _k6_rows(300, rows=8 * 128, seed=8).to(cuda).reshape(8, 128, 300)
+    ids = torch.randperm(128, generator=torch.Generator().manual_seed(8))
+    ids = ids.to(torch.int32).to(cuda).expand(8, 128).contiguous()
+    for K in (1, 8, 16):
+        _equal(ka.row_topk(m, K), ka.row_topk_plain(m, K))
+        _equal(ka.row_topk(m, K, True, 3, ids),
+               ka.row_topk_plain(m, K, True, 3, ids))
+
+
+@pytest.mark.parametrize("K", [33, 64, 300])
+def test_k6_seeded_above_the_cap_equal_plain(cuda, K):
+    """A seeded K above the warp kernel's 32: the radix select's top-K and
+    the warp kernel's pick at K = 1, one launch of each, exactly."""
+    m = _k6_rows(300, seed=K).to(cuda)
+    ids = torch.arange(m.shape[0], dtype=torch.int32, device=cuda)
+    assert ka.topk_route(K, True) == ("row_topk_radix", "row_topk")
+    before = (ka.row_topk.launches, ka.row_topk.radix_launches)
+    got = ka.row_topk(m, K, True, 11, ids)
+    assert (ka.row_topk.launches - before[0],
+            ka.row_topk.radix_launches - before[1]) == (1, 1)
+    _equal(got, ka.row_topk_plain(m, K, True, 11, ids))
+    with pytest.raises(ValueError):
+        ka.row_topk_path(m, K, True, 11, ids)
+
+
+def test_k6_radix_above_shared_memory_equal_plain(cuda):
+    """The radix select above 16 384 (its pairs sorted in a scratch
+    buffer in device memory), exactly."""
+    m = _k6_rows(20000, rows=6, seed=3).to(cuda)
+    for K in (16385, 20000):
+        _equal(ka.row_topk(m, K), ka.row_topk_plain(m, K))
+
+
+class K2Tree(types.SimpleNamespace):
+    """A namespace of arrays or tensors that the plain versions' tenant
+    loop can slice (`tenant(b)`, as a snapshot's)."""
+
+    def tenant(self, b: int) -> "K2Tree":
+        return K2Tree(**{k: v[b] for k, v in vars(self).items()})
+
+
+def k2_inputs(rng, N: int, P: int = 37, T: int = 3, AT: int = 3,
+              PT: int = 2, TN: int = 3, VT: int = 6, A: int = 20,
+              B: int | None = None):
+    """Raw K2 inputs from numpy, (snap, pods, nodes, node_sat_t) as
+    namespaces of numpy arrays: atom ids -1 (unlisted) .. A - 1, taint ids
+    -1 .. VT - 1 with repeats within a node, every effect (0-2 and an
+    unknown 3), weights of both signs, about half of each flag set; with
+    B a leading [B] axis on each."""
+    lead = () if B is None else (B,)
+
+    def flags(*shape):
+        return rng.random(lead + shape) < 0.5
+
+    def ids(lo, hi, *shape):
+        return rng.integers(lo, hi, size=lead + shape).astype(np.int32)
+
+    ns = K2Tree
+    pods = ns(req_term_atoms=ids(-1, A, P, T, AT), req_term_valid=flags(P, T),
+              pref_term_atoms=ids(-1, A, P, PT, AT),
+              pref_term_valid=flags(P, PT),
+              pref_weight=rng.uniform(-10, 100, lead + (P, PT)).astype(
+                  np.float32),
+              tolerated=flags(P, VT), tolerates_unsched=flags(P),
+              valid=rng.random(lead + (P,)) < 0.9)
+    nodes = ns(taint_ids=ids(-1, VT, N, TN), schedulable=flags(N),
+               valid=rng.random(lead + (N,)) < 0.9)
+    snap = ns(taint_effect=rng.integers(0, 4, lead + (VT,)).astype(np.int8))
+    sat = rng.random(lead + (A, N)) < 0.7
+    return snap, pods, nodes, sat
+
+
+def k2_torch(inputs, dev):
+    """k2_inputs' namespaces as tensors on dev."""
+    def conv(x):
+        if isinstance(x, np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return K2Tree(**{k: conv(v) for k, v in vars(x).items()})
+    return tuple(conv(x) for x in inputs)
+
+
+def _k2_equal(args):
+    _equal(ka._tableau_cells(*args), ka._tableau_cells_plain(*args))
+
+
+@pytest.mark.parametrize("P", [1, 37])
+@pytest.mark.parametrize("N", [1, 3, 5, 255, 257, 5121, 5120])
+def test_k2_shapes_equal_plain(cuda, N, P):
+    """K2 at node counts that are no multiple of 4 (the byte-wise path:
+    1, 3, 5, 255, 257, 5 121) and are (5 120), one pod and a pod block
+    past the tile's 8, exactly."""
+    _k2_equal(k2_torch(k2_inputs(np.random.default_rng(N + P), N, P), cuda))
+
+
+@pytest.mark.parametrize("case", ["T0", "PT0", "TN0", "all0", "wide_taints",
+                                  "wide_vocab", "one_atom"])
+def test_k2_tables_equal_plain(cuda, case):
+    """K2 with no required terms, no preferred terms, no taint slots, none
+    of the three; taint ids too many to stage (TN = 40) and verdicts too
+    many to stage (VT = 3 000), both read in place; a single atom; each
+    at 260 and 256 nodes, exactly."""
+    kw = dict(T0=dict(T=0), PT0=dict(PT=0), TN0=dict(TN=0),
+              all0=dict(T=0, PT=0, TN=0), wide_taints=dict(TN=40),
+              wide_vocab=dict(VT=3000), one_atom=dict(A=1, AT=1))[case]
+    for N in (260, 256):
+        _k2_equal(k2_torch(k2_inputs(np.random.default_rng(N), N, 41, **kw),
+                           cuda))
+
+
+def test_k2_gathered_views_equal_plain(cuda):
+    """K2 on refresh_tableau's gathered views: dirty pod rows (not from 0,
+    with a repeat) against every node, and every pod against dirty node
+    columns (3 and 8 of them), and on a node table that starts one byte
+    past an aligned address (the byte-wise path), exactly."""
+    snap, pods, nodes, sat = k2_torch(
+        k2_inputs(np.random.default_rng(7), 300, 90), cuda)
+    def rows_of(tree, idx):  # permute_rows of a namespace
+        return K2Tree(**{k: v.index_select(0, idx)
+                         for k, v in vars(tree).items()})
+
+    rows = torch.tensor([5, 17, 17, 40, 89], device=cuda)
+    _k2_equal((snap, rows_of(pods, rows), nodes, sat))
+    for cols in ([3, 9, 130], [1, 2, 3, 5, 8, 13, 21, 299]):
+        c = torch.tensor(cols, device=cuda)
+        _k2_equal((snap, pods, rows_of(nodes, c),
+                   sat.index_select(1, c).contiguous()))
+    buf = torch.zeros(sat.numel() + 1, dtype=torch.bool, device=cuda)
+    shifted = buf[1:].view(sat.shape)
+    shifted.copy_(sat)
+    _k2_equal((snap, pods, nodes, shifted))
+
+
+@pytest.mark.parametrize("N", [256, 257])
+def test_k2_tenants_equal_plain(cuda, N):
+    """K2 over a tenant batch of 8, exactly."""
+    _k2_equal(k2_torch(k2_inputs(np.random.default_rng(N), N, 50, B=8),
+                       cuda))
 
 
 def test_k7_equal_plain(cuda):
@@ -1248,12 +1449,18 @@ def _tie_rows(n, seed):
 def test_k6_radix_equal_plain(cuda, N, K):
     """K6's radix path (csrc/topk.cu row_topk_radix_kernel) against its
     plain version, exactly, on tie rows, solo [rows, N] and as a
-    [B, C, N] batch; N = 300 and 1000 are not multiples of 256."""
+    [B, C, N] batch; N = 300 and 1000 are not multiples of 256. Then
+    row_topk's route for K, seeded and not (above 32 seeded: the radix
+    select's top-K and the warp kernel's pick)."""
     K = N if K == "N" else min(K, N)
     m = _tie_rows(N, N + K).to(cuda)
     for x in (m, m.reshape(2, 8, N)):
         _equal(ka.row_topk_path(x, K, radix=True), ka.row_topk_plain(x, K))
-        _equal(ka.row_topk_path(x, K), ka.row_topk_plain(x, K))
+        _equal(ka.row_topk(x, K), ka.row_topk_plain(x, K))
+        ids = torch.arange(x.shape[-2], dtype=torch.int32,
+                           device=cuda).expand(x.shape[:-1]).contiguous()
+        _equal(ka.row_topk(x, K, True, 5, ids),
+               ka.row_topk_plain(x, K, True, 5, ids))
 
 
 @pytest.mark.parametrize("N", [300, 5120])

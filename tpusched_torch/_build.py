@@ -53,8 +53,8 @@ SIGNATURES = {
     "tpusched_finalize_static": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "tpusched_parity_scan": [_I] * 6 + [_P] * 10 + [_I, _U, _P, _P, _P, _P],
     "tpusched_cycle": [_I] * 5 + [_P] * 15 + [_I] + [_P] * 4 + [_I, _I, _P],
-    "tpusched_row_topk": [_I, _I, _I, _P, _I, _U, _P, _P, _P, _P, _P],
-    "tpusched_row_topk_radix": [_I, _I, _I, _P, _P, _P, _P],
+    "tpusched_row_topk": [_I, _I, _I, _I, _P, _I, _U, _P, _P, _P, _P, _P],
+    "tpusched_row_topk_radix": [_I, _I, _I, _P, _P, _P, _P, _P],
     "tpusched_desirability": [_I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "tpusched_prefix_commit_loop": [_I] * 5 + [_P] * 10 + [_I] + [_P] * 5,
     "tpusched_parity_scan_pair": [_I] * 6 + [_P] * 10 + [_I, _U]

@@ -95,16 +95,19 @@ int tpusched_cycle(int B, int rows_n, int P, int N, int R, const int* rows,
 // K6. Per row of masked [rows, N]: the K best (value, index), larger value
 // first and ties to the lower index (topv/topi [rows, K]); with seeded,
 // pick[row] = the (tie_hash(seed, id) % #maxima)-th maximum in node
-// order, id = row_ids[row] (row_ids may be NULL: id = row).
-int tpusched_row_topk(int rows, int N, int K, const float* masked,
+// order, id = row_ids[row] (row_ids may be NULL: id = row). One warp a
+// row, or `split` (1, 2, 4 or 8) warps of a CTA a row; K <= 32.
+int tpusched_row_topk(int rows, int N, int K, int split, const float* masked,
                       int seeded, unsigned int seed, const int* row_ids,
                       float* topv, int* topi, int* pick, void* stream);
 
 // K6's radix path, the same top-K (not seeded) by a radix select and a
-// bitonic sort of the K selected; K <= 16 384 (its pairs fit in shared
-// memory).
+// bitonic sort of the K selected. Above K = 16 384 the pairs do not fit
+// in shared memory: scratch then holds rows x (K rounded up to a power
+// of two) uint64 (NULL otherwise).
 int tpusched_row_topk_radix(int rows, int N, int K, const float* masked,
-                            float* topv, int* topi, void* stream);
+                            float* topv, int* topi, void* scratch,
+                            void* stream);
 
 // K7. desir[n] = sum over rows (ascending) of masked where feasible and
 // allowed, over max(#allowed, 1); -inf where no allowed row is feasible.

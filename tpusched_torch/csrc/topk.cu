@@ -8,25 +8,44 @@
 // by the row's ORIGINAL pod index).
 //
 // Order: larger value first, ties to the lower node index (lax.top_k's
-// and a stable descending sort's). -inf entries rank last, by index.
+// and a stable descending sort's). -inf entries rank last, by index;
+// -0.0 ranks as +0.0 and is written as +0.0.
 //
 // Bound: bytes, one read of the block (4 bytes a cell, 0.21 GB at
-// 10240 x 5120: 0.063 ms at 3.35 TB/s); the K outputs are tiny. One CTA
-// per row copies the row into shared memory once (coalesced), then makes
-// K passes over it: pass j keeps each thread's best entry that ranks
-// after pass j-1's winner and reduces those to the block's best. That is
-// exact for any K, costs O(K * N) shared-memory reads per row, and is
-// meant for the small K of the callers (8, 16, a serving k). The seeded
-// pick counts the maxima, then walks the row in tiles of THREADS with a
-// ballot per warp until the h-th one.
+// 10240 x 5120: 0.063 ms at 3.35 TB/s); the K outputs are tiny.
+//
+// The warp kernel (entry point tpusched_row_topk; K <= 32, seeded or
+// not) reads each row once, with no barrier on the common path. A warp
+// takes a row (or a 1/S share of it: `split`, below) in chunks of 32 x V
+// consecutive entries, lane l holding entries l*V .. l*V + V-1 of a chunk
+// (V = 4: one float4 a lane, a 512-byte warp load; four chunks in flight
+// a lane). The warp keeps the K best entries seen so far as a sorted list
+// spread over its lanes (lane j < K holds the j-th), and every lane a
+// copy of the K-th. An entry that does not beat the K-th is dropped with
+// one compare; a ballot collects the lanes whose entry beats it, and each
+// such entry is inserted in turn (its position a ballot of the lanes
+// that beat it, the tail shifted by one shuffle). The list is the K best
+// of everything offered, whatever the order of the offers, so every
+// order of evaluation gives the same bits. With the seeded pick each
+// lane also keeps its own maximum, how many of its entries equal it and
+// the chunk where it first saw it: the row's #maxima is the sum of the
+// counts of the lanes whose maximum is the row's, and the walk for the
+// h-th maximum starts at the first chunk holding one (a second read,
+// from L1 or L2, a ballot a component and a popc, stopping at the chunk
+// that holds it; one chunk when the maximum is unique).
+//
+// Few rows (the fast rounds' 1 024-row views): S warps of a CTA share a
+// row, warp s taking chunks s, s + S, ...; each writes its list and its
+// seeded counts to shared memory, one barrier, and the row's first warp
+// offers the others' lists to its own (assign.topk_split chooses S).
 //
 // The radix path (entry point tpusched_row_topk_radix) takes the calls
-// without the seeded pick from K = 8 up (kernels/assign.RADIX_MIN_K, a
-// measured cut): the preemption auction's K = 256 (tpusched/kernels/
-// preempt.py:563), where K passes would cost 2K barriers and K reads of
-// the row, and the fast rounds' K = 8. One CTA a row loads the row into
-// shared memory as order-preserving uint32 keys (-0.0 folded into +0.0,
-// so that it ties with +0.0 by index, as beats does); four 8-bit digit
+// without the seeded pick from assign.RADIX_MIN_K up, and the top-K of a
+// seeded call above 32 (the warp kernel at K = 1 then makes the pick):
+// the preemption auction's K = 256 (tpusched/kernels/preempt.py:563). One
+// CTA a row loads the row into shared memory as order-preserving uint32
+// keys (-0.0 folded into +0.0, so that it ties with +0.0 by index, as
+// beats does); four 8-bit digit
 // passes, each a 256-bin shared histogram (warp-aggregated adds) and a
 // block scan from the top digit down, find the K-th largest key T and
 // how many of the K lie at T; each thread then counts its contiguous
@@ -34,9 +53,12 @@
 // above T and the first ties at T (in index order) are written as packed
 // (key, ~index) pairs, which a bitonic sort in shared memory orders
 // (larger key first, then lower index). It is exact, in O(N + K log^2 K)
-// shared-memory work and ~log^2 K / 2 + 26 barriers a row.
+// shared-memory work and ~log^2 K / 2 + 26 barriers a row. Above 16 384
+// the pairs do not fit in shared memory: they are sorted in a scratch
+// buffer in device memory that the wrapper allocates.
 #include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "cell.cuh"
 #include "kernels.h"
@@ -45,108 +67,204 @@ namespace {
 
 using tpusched::beats;
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int SMEM_LIMIT = 200 * 1024;
+constexpr int WTHREADS = 256;  // warp kernel: 8 warps a CTA
+constexpr int WWARPS = WTHREADS / 32;
+constexpr int WARP_MAX_K = 32;  // one list entry a lane
+constexpr int UNROLL = 4;       // chunks in flight a lane
 
-__device__ __forceinline__ void block_best(float& v, int& i, float* s_v,
-                                           int* s_i) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_down_sync(0xffffffffu, v, off);
-    int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (beats(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
+// One lane's share of chunk c (V consecutive entries); NaN past N, which
+// beats nothing, equals nothing and is never offered.
+template <int V>
+__device__ __forceinline__ void load_chunk(const float* row, int N, int c,
+                                           int lane, float (&x)[V]) {
+  const int n0 = (c * 32 + lane) * V;
+  const float pad = __int_as_float(0x7fffffff);
+  if constexpr (V == 4) {
+    if (n0 < N) {  // N % 4 == 0: the float4 is whole
+      const float4 f = __ldg(reinterpret_cast<const float4*>(row + n0));
+      x[0] = f.x;
+      x[1] = f.y;
+      x[2] = f.z;
+      x[3] = f.w;
+    } else {
+      x[0] = x[1] = x[2] = x[3] = pad;
     }
+  } else {
+    x[0] = n0 < N ? __ldg(row + n0) : pad;
   }
-  if (lane == 0) {
-    s_v[warp] = v;
-    s_i[warp] = i;
-  }
-  __syncthreads();
-  v = s_v[0];
-  i = s_i[0];
-  for (int w = 1; w < WARPS; ++w) {
-    if (beats(s_v[w], s_i[w], v, i)) {
-      v = s_v[w];
-      i = s_i[w];
-    }
-  }
-  __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS)
-row_topk_kernel(int N, int K, const float* __restrict__ masked, int seeded,
-                unsigned seed, const int* __restrict__ row_ids,
-                int use_smem, float* __restrict__ topv,
-                int* __restrict__ topi, int* __restrict__ pick) {
-  extern __shared__ float srow[];
-  __shared__ float s_v[WARPS];
-  __shared__ int s_i[WARPS];
-  __shared__ int s_c[WARPS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long b = blockIdx.x;
-  const float* row = masked + b * N;
-  if (use_smem) {
-    for (int n = tid; n < N; n += THREADS) srow[n] = row[n];
-    __syncthreads();
-    row = srow;
+// The warp's K best so far: lane j < K holds the j-th (ev, ei), every
+// lane the K-th (tv, ti). Inserts each lane's (x, n) that beats the K-th,
+// lowest lane first (a later one is compared again with the K-th it
+// moved to).
+__device__ __forceinline__ void offer(float x, int n, float& ev, int& ei,
+                                      float& tv, int& ti, int K, int lane) {
+  unsigned bal = __ballot_sync(FULL, beats(x, n, tv, ti));
+  while (bal) {
+    const int src = __ffs(bal) - 1;
+    bal &= bal - 1;
+    const float cv = __shfl_sync(FULL, x, src);
+    const int ci = __shfl_sync(FULL, n, src);
+    if (!beats(cv, ci, tv, ti)) continue;
+    // The entries that beat it are a prefix of the list: it goes at pos.
+    const int pos =
+        __popc(__ballot_sync(FULL, lane < K && beats(ev, ei, cv, ci)));
+    const float uv = __shfl_up_sync(FULL, ev, 1);
+    const int ui = __shfl_up_sync(FULL, ei, 1);
+    if (lane == pos) {
+      ev = cv;
+      ei = ci;
+    } else if (lane > pos) {
+      ev = uv;
+      ei = ui;
+    }
+    tv = __shfl_sync(FULL, ev, K - 1);
+    ti = __shfl_sync(FULL, ei, K - 1);
   }
-  // Pass j: the best entry ranked after (pv, pi), the previous winner.
-  float pv = INFINITY;
-  int pi = -1;
-  for (int j = 0; j < K; ++j) {
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int n = tid; n < N; n += THREADS) {
-      float v = row[n];
-      if (beats(pv, pi, v, n) && beats(v, n, bv, bi)) {
-        bv = v;
-        bi = n;
-      }
+}
+
+// One entry (x, n) of chunk c: offered to the warp's list and, SEEDED,
+// counted against this lane's maximum.
+template <bool SEEDED>
+__device__ __forceinline__ void take(float x, int n, int c, float& ev,
+                                     int& ei, float& tv, int& ti, float& mv,
+                                     int& cnt, int& ft, int K, int lane) {
+  offer(x, n, ev, ei, tv, ti, K, lane);
+  if (SEEDED) {
+    const bool gt = x > mv;
+    cnt = gt ? 1 : cnt + (x == mv);
+    ft = gt ? c : ft;
+    mv = gt ? x : mv;
+  }
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
+  return x;
+}
+
+__device__ __forceinline__ int warp_min(int x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x = min(x, __shfl_xor_sync(FULL, x, off));
+  return x;
+}
+
+template <int V, bool SEEDED>
+__global__ void __launch_bounds__(WTHREADS)
+row_topk_warp_kernel(int rows, int N, int K, int S,
+                     const float* __restrict__ masked, unsigned seed,
+                     const int* __restrict__ row_ids,
+                     float* __restrict__ topv, int* __restrict__ topi,
+                     int* __restrict__ pick) {
+  __shared__ float s_v[WWARPS][WARP_MAX_K];
+  __shared__ int s_i[WWARPS][WARP_MAX_K];
+  __shared__ float s_m[WWARPS];
+  __shared__ int s_cnt[WWARPS], s_ft[WWARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s = warp % S;
+  const long long r = (long long)blockIdx.x * (WWARPS / S) + warp / S;
+  const bool live = r < rows;
+  if (S == 1 && !live) return;
+  const float* row = masked + r * N;
+  const int nch = live ? (N + 32 * V - 1) / (32 * V) : 0;
+
+  float ev = -INFINITY, tv = -INFINITY;
+  int ei = INT_MAX, ti = INT_MAX;
+  float mv = -INFINITY;  // SEEDED: this lane's maximum,
+  int cnt = 0, ft = 0;   // its count, and a chunk at or before its first
+  int c = s;
+  for (; c + (UNROLL - 1) * S < nch; c += UNROLL * S) {
+    float x[UNROLL][V];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      load_chunk<V>(row, N, c + u * S, lane, x[u]);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        take<SEEDED>(x[u][j], ((c + u * S) * 32 + lane) * V + j, c + u * S,
+                     ev, ei, tv, ti, mv, cnt, ft, K, lane);
+  }
+  for (; c < nch; c += S) {
+    float x[V];
+    load_chunk<V>(row, N, c, lane, x);
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      take<SEEDED>(x[j], (c * 32 + lane) * V + j, c, ev, ei, tv, ti, mv, cnt,
+                   ft, K, lane);
+  }
+
+  // This warp's maximum, its count and first chunk.
+  float M = __shfl_sync(FULL, ev, 0);
+  int total = 0, start = 0;
+  if (SEEDED) {
+    total = warp_sum(mv == M ? cnt : 0);
+    start = warp_min(mv == M ? ft : INT_MAX);
+  }
+  if (S > 1) {
+    if (lane < K) {
+      s_v[warp][lane] = ev;
+      s_i[warp][lane] = ei;
     }
-    block_best(bv, bi, s_v, s_i);
-    if (tid == 0) {
-      topv[b * K + j] = bv + 0.0f;  // -0.0 as +0.0, as row_topk_plain
-      topi[b * K + j] = bi;
+    if (lane == 0) {
+      s_m[warp] = M;
+      s_cnt[warp] = total;
+      s_ft[warp] = start;
     }
-    pv = bv;
-    pi = bi;
-    if (j == 0 && seeded) {
-      // Seeded pick among the maxima (the pass-0 value).
-      const float mx = bv;
-      int cnt = 0;
-      for (int n = tid; n < N; n += THREADS) cnt += row[n] == mx;
-      for (int off = 16; off > 0; off >>= 1)
-        cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-      if (lane == 0) s_c[warp] = cnt;
-      __syncthreads();
-      int total = 0;
-      for (int w = 0; w < WARPS; ++w) total += s_c[w];
-      __syncthreads();
-      const unsigned pid = row_ids ? (unsigned)row_ids[b] : (unsigned)b;
-      const int h =
-          (int)(tpusched::tie_hash(seed, pid) % (unsigned)max(total, 1));
-      int running = 0;
-      for (int base = 0; base < N; base += THREADS) {
-        const int n = base + tid;
-        const bool f = n < N && row[n] == mx;
-        const unsigned bal = __ballot_sync(0xffffffffu, f);
-        if (lane == 0) s_c[warp] = __popc(bal);
-        __syncthreads();
-        int before = running, tile = 0;
-        for (int w = 0; w < WARPS; ++w) {
-          before += w < warp ? s_c[w] : 0;
-          tile += s_c[w];
+    __syncthreads();
+    if (s != 0 || !live) return;
+    for (int w = 1; w < S; ++w)
+      offer(lane < K ? s_v[warp + w][lane] : __int_as_float(0x7fffffff),
+            lane < K ? s_i[warp + w][lane] : INT_MAX, ev, ei, tv, ti, K,
+            lane);
+    M = __shfl_sync(FULL, ev, 0);
+    if (SEEDED) {
+      total = 0;
+      start = INT_MAX;
+      for (int w = 0; w < S; ++w)
+        if (s_m[warp + w] == M) {
+          total += s_cnt[warp + w];
+          start = min(start, s_ft[warp + w]);
         }
-        if (f && before + __popc(bal & ((1u << lane) - 1u)) == h)
-          pick[b] = n;
-        __syncthreads();
-        running += tile;
-        if (running > h) break;
-      }
     }
+  }
+  if (lane < K) {
+    topv[r * K + lane] = ev + 0.0f;  // -0.0 as +0.0, as row_topk_plain
+    topi[r * K + lane] = ei;
+  }
+  if (!SEEDED) return;
+
+  // The h-th maximum in node order, from the first chunk that holds one.
+  const unsigned pid = row_ids ? (unsigned)row_ids[r] : (unsigned)r;
+  const int h = (int)(tpusched::tie_hash(seed, pid) % (unsigned)max(total, 1));
+  const unsigned below = (1u << lane) - 1u;
+  const int nall = (N + 32 * V - 1) / (32 * V);
+  int running = 0;
+  for (int cc = start; cc < nall; ++cc) {
+    float x[V];
+    load_chunk<V>(row, N, cc, lane, x);
+    unsigned bal[V];
+    int before = running, tile = 0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      bal[j] = __ballot_sync(FULL, x[j] == M);
+      before += __popc(bal[j] & below);
+      tile += __popc(bal[j]);
+    }
+    if (running + tile > h) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if ((bal[j] >> lane) & 1u) {
+          if (before == h) pick[r] = (cc * 32 + lane) * V + j;
+          ++before;
+        }
+      }
+      break;
+    }
+    running += tile;
   }
 }
 
@@ -186,16 +304,18 @@ __device__ __forceinline__ int block_incl(int x, int* s_w, int* total) {
 
 __global__ void __launch_bounds__(RTHREADS)
 row_topk_radix_kernel(int N, int K, int Kp, const float* __restrict__ masked,
-                      int use_smem, float* __restrict__ topv,
-                      int* __restrict__ topi) {
+                      int use_smem, unsigned long long* __restrict__ scratch,
+                      float* __restrict__ topv, int* __restrict__ topi) {
   extern __shared__ unsigned long long rsm[];
-  unsigned long long* sel = rsm;             // [Kp] packed (key, ~index)
-  unsigned* keys = (unsigned*)(rsm + Kp);    // [N] when use_smem
+  const long long b = blockIdx.x;
+  // [Kp] packed (key, ~index): in shared memory, or this row's slice of
+  // the scratch buffer when they do not fit.
+  unsigned long long* sel = scratch ? scratch + b * Kp : rsm;
+  unsigned* keys = (unsigned*)(scratch ? rsm : rsm + Kp);  // [N] if use_smem
   __shared__ int hist[256];
   __shared__ int s_w[RWARPS];
   __shared__ int s_digit, s_above;
   const int tid = threadIdx.x, lane = tid & 31;
-  const long long b = blockIdx.x;
   const float* row = masked + b * N;
   if (use_smem) {
     for (int n = tid; n < N; n += RTHREADS) keys[n] = fkey(row[n]);
@@ -293,15 +413,18 @@ row_topk_radix_kernel(int N, int K, int Kp, const float* __restrict__ masked,
 
 extern "C" int tpusched_row_topk_radix(int rows, int N, int K,
                                        const float* masked, float* topv,
-                                       int* topi, void* stream) {
+                                       int* topi, void* scratch,
+                                       void* stream) {
   if (K < 1 || K > N) return (int)cudaErrorInvalidValue;
   int Kp = 1;
   while (Kp < K) Kp <<= 1;
-  long long sel_bytes = (long long)Kp * 8;
-  long long row_bytes = (long long)N * 4;
-  if (sel_bytes > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  int use_smem = sel_bytes + row_bytes <= SMEM_LIMIT ? 1 : 0;
-  size_t dyn = (size_t)(sel_bytes + (use_smem ? row_bytes : 0));
+  const long long sel_bytes = (long long)Kp * 8;
+  const long long row_bytes = (long long)N * 4;
+  const bool global_sel = sel_bytes > SMEM_LIMIT;
+  if (global_sel && !scratch) return (int)cudaErrorInvalidValue;
+  const long long sel_smem = global_sel ? 0 : sel_bytes;
+  const int use_smem = sel_smem + row_bytes <= SMEM_LIMIT ? 1 : 0;
+  const size_t dyn = (size_t)(sel_smem + (use_smem ? row_bytes : 0));
   if (dyn > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         row_topk_radix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -309,25 +432,31 @@ extern "C" int tpusched_row_topk_radix(int rows, int N, int K,
     if (e != cudaSuccess) return (int)e;
   }
   row_topk_radix_kernel<<<rows, RTHREADS, dyn, (cudaStream_t)stream>>>(
-      N, K, Kp, masked, use_smem, topv, topi);
+      N, K, Kp, masked, use_smem,
+      global_sel ? (unsigned long long*)scratch : nullptr, topv, topi);
   return (int)cudaGetLastError();
 }
 
-extern "C" int tpusched_row_topk(int rows, int N, int K, const float* masked,
-                                 int seeded, unsigned int seed,
-                                 const int* row_ids, float* topv, int* topi,
-                                 int* pick, void* stream) {
-  if (K < 1 || K > N) return (int)cudaErrorInvalidValue;
-  long long bytes = (long long)N * (long long)sizeof(float);
-  int use_smem = bytes <= SMEM_LIMIT ? 1 : 0;
-  size_t dyn = use_smem ? (size_t)bytes : 0;
-  if (dyn > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        row_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dyn);
-    if (e != cudaSuccess) return (int)e;
+extern "C" int tpusched_row_topk(int rows, int N, int K, int split,
+                                 const float* masked, int seeded,
+                                 unsigned int seed, const int* row_ids,
+                                 float* topv, int* topi, int* pick,
+                                 void* stream) {
+  if (K < 1 || K > N || K > WARP_MAX_K || split < 1 || split > WWARPS ||
+      (split & (split - 1)))
+    return (int)cudaErrorInvalidValue;
+  const int per = WWARPS / split;  // rows a CTA
+  const dim3 grid((unsigned)((rows + per - 1) / per));
+  const bool vec = N % 4 == 0 && ((uintptr_t)masked & 15) == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+#define TOPK_LAUNCH(V, SEEDED)                                           \
+  row_topk_warp_kernel<V, SEEDED><<<grid, WTHREADS, 0, st>>>(            \
+      rows, N, K, split, masked, seed, row_ids, topv, topi, pick)
+  if (vec) {
+    if (seeded) TOPK_LAUNCH(4, true); else TOPK_LAUNCH(4, false);
+  } else {
+    if (seeded) TOPK_LAUNCH(1, true); else TOPK_LAUNCH(1, false);
   }
-  row_topk_kernel<<<rows, THREADS, dyn, (cudaStream_t)stream>>>(
-      N, K, masked, seeded, seed, row_ids, use_smem, topv, topi, pick);
+#undef TOPK_LAUNCH
   return (int)cudaGetLastError();
 }

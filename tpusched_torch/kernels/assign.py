@@ -1110,44 +1110,74 @@ def row_topk_plain(masked: torch.Tensor, K: int, seeded: bool = False,
     return topv, topi, pick.to(torch.int32)
 
 
-# K6's radix path (csrc/topk.cu row_topk_radix_kernel) takes the calls
-# without the seeded pick from RADIX_MIN_K up; the K-pass kernel the rest
-# and every seeded pick. The cut is measured: chip_smoke's K6 phase times
-# both paths on (b)'s first fast round (H100: K = 4 0.228 against 0.326
-# ms, K = 8 0.384 against 0.331, K = 16 0.732 against 0.327, K = 256
-# 10.93 against 0.433). The radix path's pairs fit in shared memory up
-# to RADIX_MAX_K.
-RADIX_MIN_K = 8
-RADIX_MAX_K = 16384
+# K6 has two kernels (csrc/topk.cu). The warp kernel (`row_topk_warp_kernel`,
+# a warp a row, one read of it, K <= WARP_MAX_K) takes every seeded pick
+# and the calls below RADIX_MIN_K; the radix select
+# (`row_topk_radix_kernel`) the rest, and the top-K of a seeded call
+# above WARP_MAX_K, whose pick the warp kernel then makes at K = 1. The
+# cut is measured: chip_smoke's K6 phase times both kernels on (b)'s
+# first fast round (H100, profiler: the warp kernel 0.0716, 0.0764,
+# 0.0832, 0.0995, 0.1388 ms at K = 1, 4, 8, 16, 32 against the radix
+# select's 0.2782, 0.2830, 0.2898, 0.2968, 0.3072).
+WARP_MAX_K = 32
+RADIX_MIN_K = 33
+# The radix select sorts its (key, index) pairs in shared memory up to
+# this K, above it in a scratch buffer the wrapper allocates.
+RADIX_SMEM_K = 16384
+
+
+def topk_route(K: int, seeded: bool) -> tuple[str, ...]:
+    """The K6 kernels `row_topk` launches on CUDA tensors for (K,
+    seeded), by kernels-line name: "row_topk" the warp kernel,
+    "row_topk_radix" the radix select (with the seeded pick above
+    WARP_MAX_K, both: the radix select's top-K, the warp kernel's pick
+    at K = 1)."""
+    if K <= WARP_MAX_K and (seeded or K < RADIX_MIN_K):
+        return ("row_topk",)
+    return ("row_topk_radix", "row_topk") if seeded else ("row_topk_radix",)
+
+
+def topk_split(rows: int) -> int:
+    """Warps of a CTA sharing a row in the warp kernel: enough that a
+    call has some 2 048 warps in flight (1 at 2 048 rows and up, 2 at a
+    1 024-row view), at most 8. Measured on the H100 at (b)'s 1 024-row
+    view, K = 8, by the profiler: 1, 2, 4, 8 warps a row 0.0191, 0.0165,
+    0.0176, 0.0291 ms unseeded, 0.0206, 0.0227, 0.0234, 0.0316 seeded."""
+    split = 1
+    while split < 8 and rows * split < 2048:
+        split *= 2
+    return split
 
 
 def row_topk(masked: torch.Tensor, K: int, seeded: bool = False,
              seed: int = 0, row_ids: torch.Tensor | None = None):
-    """Kernel K6 on CUDA tensors, the plain version on CPU tensors."""
-    radix = not seeded and RADIX_MIN_K <= K <= RADIX_MAX_K
+    """Kernel K6 on CUDA tensors (the kernels of `topk_route`), the plain
+    version on CPU tensors."""
+    radix = topk_route(K, seeded)[0] == "row_topk_radix"
     return row_topk_path(masked, K, seeded, seed, row_ids, radix)
 
 
 def row_topk_path(masked: torch.Tensor, K: int, seeded: bool = False,
                   seed: int = 0, row_ids: torch.Tensor | None = None,
-                  radix: bool = False):
-    """`row_topk` on the path given: the K-pass kernel, or with radix
-    (not seeded, K <= RADIX_MAX_K) the radix select; the plain version on
-    CPU tensors."""
+                  radix: bool = False, split: int | None = None):
+    """`row_topk` on the kernel given: the warp kernel (K <=
+    WARP_MAX_K; `split` warps a row, topk_split's by default), or with
+    radix the radix select (and with seeded the warp kernel's pick at
+    K = 1); the plain version on CPU tensors."""
     dev = masked.device
     if dev.type == "cpu":
         return row_topk_plain(masked, K, seeded, seed, row_ids)
     if masked.dim() == 3:
-        return _tenant_rows(lambda m, *a: row_topk_path(m, *a, radix=radix),
-                            masked, K, seeded, seed, row_ids)
+        return _tenant_rows(
+            lambda m, *a: row_topk_path(m, *a, radix=radix, split=split),
+            masked, K, seeded, seed, row_ids)
     rows, N = masked.shape
     k = "row_topk"
     check(k, dev, masked, torch.float32, (rows, N))
     if not 1 <= K <= N:
         raise ValueError(f"{k}: K={K} outside 1..{N}")
-    if radix and (seeded or K > RADIX_MAX_K):
-        raise ValueError(f"{k}: the radix path takes K <= {RADIX_MAX_K} "
-                         "without the seeded pick")
+    if not radix and K > WARP_MAX_K:
+        raise ValueError(f"{k}: the warp kernel takes K <= {WARP_MAX_K}")
     if row_ids is not None:
         check(k, dev, row_ids, torch.int32, (rows,))
     topv = torch.empty((rows, K), dtype=torch.float32, device=dev)
@@ -1157,21 +1187,33 @@ def row_topk_path(masked: torch.Tensor, K: int, seeded: bool = False,
     if rows == 0:
         return topv, topi, pick
     if radix:
+        Kp = 1 << (K - 1).bit_length()
+        scratch = (torch.empty((rows, Kp), dtype=torch.int64, device=dev)
+                   if K > RADIX_SMEM_K else None)
         _build.launch("tpusched_row_topk_radix", rows, N, K,
-                      *ptrs((masked, topv, topi)), stream_of(dev))
+                      *ptrs((masked, topv, topi)),
+                      None if scratch is None else scratch.data_ptr(),
+                      stream_of(dev))
         row_topk.radix_launches += 1
-    else:
+    if not radix or seeded:
+        # After the radix select the warp kernel makes the pick alone, at
+        # K = 1, into outputs of its own.
+        kw = 1 if radix else K
+        out = ((torch.empty((rows, 1), dtype=torch.float32, device=dev),
+                torch.empty((rows, 1), dtype=torch.int32, device=dev))
+               if radix else (topv, topi))
         _build.launch(
-            "tpusched_row_topk", rows, N, K, masked.data_ptr(), int(seeded),
-            seed & 0xFFFFFFFF,
+            "tpusched_row_topk", rows, N, kw,
+            topk_split(rows) if split is None else split,
+            masked.data_ptr(), int(seeded), seed & 0xFFFFFFFF,
             row_ids.data_ptr() if row_ids is not None else None,
-            topv.data_ptr(), topi.data_ptr(),
-            pick.data_ptr() if pick is not None else None, stream_of(dev))
+            *ptrs(out), pick.data_ptr() if pick is not None else None,
+            stream_of(dev))
         row_topk.launches += 1
     return topv, topi, pick
 
 
-row_topk.launches = 0         # the K-pass kernel's
+row_topk.launches = 0         # the warp kernel's
 row_topk.radix_launches = 0   # the radix select's
 
 
