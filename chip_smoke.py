@@ -34,8 +34,11 @@ package, and
      10th pod, with its profiler time) and K4's pairwise variant against
      their plain versions, exactly (the scan: assignment, chosen, used
      and the final pair state); and, on the arguments of their first
-     call in a fast solve of (d), K12 waterfill, K13 (excess_min,
-     excess_survive), K14 ia_ok_at_choice, K10's pair_commit, K8's
+     call in a fast solve of (d), K12 waterfill and its table kernels
+     (members, positions, domain counts, fill levels; the node lists'
+     sort timed apart), K13 (excess_keys, excess_min, excess_walk, and
+     the walk's one-slot form excess_survive), each also by the
+     profiler, K14 ia_ok_at_choice, K10's pair_commit, K8's
      node_add (beside one index_add_, and a profiler trace showing one
      kernel and nothing else on the card a call), K7 in fixed point,
      K11 with ia_ok and K5 with the relaxed output;
@@ -419,8 +422,20 @@ KERNELS = (
      "tpusched_torch/csrc/scan.cu", "tpusched/kernels/pairwise.py:504"),
     ("waterfill", kassign.waterfill, "launches",
      "tpusched_torch/csrc/waterfill.cu", "tpusched/kernels/assign.py:563"),
+    ("waterfill_members", kassign.waterfill_members, "launches",
+     "tpusched_torch/csrc/waterfill.cu", "tpusched/kernels/assign.py:606"),
+    ("waterfill_q", kassign.waterfill_q, "launches",
+     "tpusched_torch/csrc/waterfill.cu", "tpusched/kernels/assign.py:616"),
+    ("waterfill_cnt", kassign.waterfill_cnt, "launches",
+     "tpusched_torch/csrc/waterfill.cu", "tpusched/kernels/assign.py:630"),
+    ("waterfill_fill", kassign.waterfill_fill, "launches",
+     "tpusched_torch/csrc/waterfill.cu", "tpusched/kernels/assign.py:634"),
+    ("excess_keys", kassign.excess_keys, "launches",
+     "tpusched_torch/csrc/excess.cu", "tpusched/kernels/assign.py:1113"),
     ("excess_min", kassign.excess_min, "launches",
      "tpusched_torch/csrc/excess.cu", "tpusched/kernels/assign.py:1093"),
+    ("excess_walk", kassign.excess_walk, "launches",
+     "tpusched_torch/csrc/excess.cu", "tpusched/kernels/assign.py:1147"),
     ("excess_survive", kassign.excess_survive, "launches",
      "tpusched_torch/csrc/excess.cu", "tpusched/kernels/assign.py:1147"),
     ("ia_ok_at_choice", kpair.ia_ok_at_choice, "launches",
@@ -485,6 +500,8 @@ OFF_PATH = {
     "tableau_nv": "no solve path runs the exact auction tableau, as in the "
                   "JAX package; (tn) holds it against the auction's kept "
                   "claims",
+    "excess_survive": "K13's walk in its one-slot form; the solves run "
+                      "excess_walk, the same kernel over every slot",
 }
 PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                   "parity_scan")
@@ -505,8 +522,10 @@ FAST_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
                 "row_topk", "desirability", "prefix_commit_loop", "deal",
                 "top_by_rank")
 FAST_PAIR_KERNELS = FAST_KERNELS + (
-    "sig_match", "pair_counts", "pairwise_batch", "waterfill", "excess_min",
-    "excess_survive", "ia_ok_at_choice", "pair_commit", "node_add",
+    "sig_match", "pair_counts", "pairwise_batch", "waterfill_members",
+    "waterfill_q", "waterfill_cnt", "waterfill_fill", "waterfill",
+    "excess_keys", "excess_min", "excess_walk", "ia_ok_at_choice",
+    "pair_commit", "node_add",
     "desirability_fixed", "pairwise_batch_ia_ok", "cycle_relaxed")
 FAST_PAIR_ONCE = ("tableau_cells", "finalize_static", "sig_match",
                   "pair_counts")
@@ -1557,8 +1576,13 @@ def first_pair_round_calls(cfg: EngineConfig, dsnap) -> dict:
     k = kassign.KERNELS
     ops = dataclasses.replace(
         k, waterfill=rec("waterfill", k.waterfill),
+        waterfill_members=rec("waterfill_members", k.waterfill_members),
+        waterfill_q=rec("waterfill_q", k.waterfill_q),
+        waterfill_cnt=rec("waterfill_cnt", k.waterfill_cnt),
+        waterfill_fill=rec("waterfill_fill", k.waterfill_fill),
+        excess_keys=rec("excess_keys", k.excess_keys),
         excess_min=rec("excess_min", k.excess_min),
-        excess_survive=rec("excess_survive", k.excess_survive),
+        excess_walk=rec("excess_walk", k.excess_walk),
         ia_ok_at_choice=rec("ia_ok_at_choice", k.ia_ok_at_choice),
         pair_commit=rec("pair_commit", k.pair_commit),
         node_add=rec("node_add", k.node_add,
@@ -1571,13 +1595,28 @@ def first_pair_round_calls(cfg: EngineConfig, dsnap) -> dict:
                   lambda a, kw: kw.get("ia_ok") is not None))
     kassign.solve_rounds(dataclasses.replace(cfg, mode="fast"), dsnap,
                          *_sat_tables(dsnap), ops=ops)
+    return with_survive(calls)
+
+
+def with_survive(calls: dict) -> dict:
+    """calls with K13's walk in its one-slot form (excess_survive, which
+    no solve calls) on slot 0 of the first excess_walk call's inputs."""
+    _, a, _ = calls["excess_walk"]
+    calls["excess_survive"] = (kassign.excess_survive,
+                               kassign.excess_survive_args(*a, 0), {})
     return calls
 
 
 # Each fast pairwise entry point's plain version, by kernels-line name.
 PLAIN_OF = {
     "waterfill": kassign.waterfill_plain,
+    "waterfill_members": kassign.waterfill_members_plain,
+    "waterfill_q": kassign.waterfill_q_plain,
+    "waterfill_cnt": kassign.waterfill_cnt_plain,
+    "waterfill_fill": kassign.waterfill_fill_plain,
+    "excess_keys": kassign.excess_keys_plain,
     "excess_min": kassign.excess_min_plain,
+    "excess_walk": kassign.excess_walk_plain,
     "excess_survive": kassign.excess_survive_plain,
     "ia_ok_at_choice": kpair.ia_ok_at_choice_plain,
     "pair_commit": kpair.pair_commit_plain,
@@ -1606,6 +1645,76 @@ def index_add_library(used, node, mask, req, sign):
     return used.reshape(-1, R).clone().index_add_(0, flat.long(), add)
 
 
+# K12's and K13's entry points: their CUDA kernels (the profiler's name).
+SPREAD_ROWS = {"waterfill": "waterfill_kernel",
+               "waterfill_members": "waterfill_members_kernel",
+               "waterfill_q": "waterfill_q_kernel",
+               "waterfill_cnt": "waterfill_cnt_kernel",
+               "waterfill_fill": "waterfill_fill_kernel",
+               "excess_keys": "excess_keys_kernel",
+               "excess_min": "excess_min_kernel",
+               "excess_walk": "excess_walk_kernel",
+               "excess_survive": "excess_walk_kernel"}
+
+
+def spread_row(name: str, fn, a: tuple, got: list, lead: str) -> dict:
+    """Bound, profiler time and shape of a K12 or K13 row on the
+    arguments `a` of its call (a tenant batch: `lead` "B=8 "): bytes each
+    input read once and each output written once (the tables of the
+    kernels' gathers once), f32 compares and adds."""
+    prof = profiler_ms(lambda: fn(*a), SPREAD_ROWS[name])
+    r = dict(prof_ms=prof, extra={"prof_ms": prof})
+    if name == "waterfill":
+        fill, ord_dom, dom_s, s_p, q, relaxed, cap, score, member, K1 = a[:10]
+        P, N = relaxed.shape[-2:]
+        lists = kassign.waterfill_lists(dom_s, cap)
+        # Read: the tables (fill, ord_dom, the node lists), the per-pod
+        # values, relaxed once, the K1 scores dealt; written: the outputs.
+        b = nbytes(fill, ord_dom, *lists, s_p, q, relaxed, cap, member,
+                   *got) + got[1].numel() * 4
+        lists_ms = cuda_ms(lambda: kassign.waterfill_lists(dom_s, cap), 10)
+        r.update(bound=bound(b, 3 * relaxed.numel()),
+                 lists_ms=lists_ms, shape=(
+                     f"{lead}P={P} N={N} S={fill.shape[-2]} K+1={K1}, "
+                     f"{int(got[2].sum())} members dealt; node lists (one "
+                     f"stable torch.sort, outside the wrapper) "
+                     f"{lists_ms:.4f} ms"))
+    elif name.startswith("waterfill_"):
+        ts = [t for t in (*a, *got) if isinstance(t, torch.Tensor)]
+        n = ts[0].numel()
+        # Operations: a pod's C slots; a row's binary search; a domain's
+        # binary search in its signature's list; a level's multiply-add.
+        ops = {"waterfill_members": n,
+               "waterfill_q": n * max(1, ts[0].shape[-1]).bit_length(),
+               "waterfill_cnt": n * max(1, ts[0].shape[-1]).bit_length(),
+               "waterfill_fill": 3 * n}[name]
+        r.update(bound=bound(nbytes(*ts), ops),
+                 shape=f"{lead}{name[10:]} over {tuple(ts[0].shape)}")
+    elif name == "excess_keys":
+        r.update(bound=bound(nbytes(*a, *got), got[0].numel()),
+                 shape=f"{lead}S={a[0].shape[-2]} N={a[0].shape[-1]}")
+    elif name == "excess_min":
+        key, aff_ok, ts_sig = a[:3]
+        C = ts_sig.shape[-1]
+        # dom and counts: the C entries a pod gathers.
+        b = nbytes(*a[:9], *got) + 2 * 4 * ts_sig.numel()
+        r.update(bound=bound(b, C * aff_ok.numel()),
+                 shape=f"{lead}P={aff_ok.shape[-2]} N={aff_ok.shape[-1]} "
+                       f"S={key.shape[-2]} C={C}, "
+                       f"{int(got[3][..., :-1].sum())} members")
+    elif name == "excess_walk":
+        key_s, perm, T, cnt_total, g_cnt = a
+        b = nbytes(key_s, perm, T, cnt_total, *got) + 4 * key_s.numel()
+        r.update(bound=bound(b, 4 * key_s.numel()),
+                 shape=f"{lead}C={key_s.shape[-2]} P={key_s.shape[-1]}, "
+                       f"{int(got[0].sum())} bad")
+    else:
+        r.update(bound=bound(nbytes(*a, *got), 4 * a[1].numel()),
+                 shape=f"{lead}P={a[1].shape[-1]} (slot 0), "
+                       f"{int(a[2].sum())} members, {int(got[0].sum())} bad")
+    return r
+
+
 def fast_pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
     """K12-K14 and the fast pairwise entry points of K5, K7, K8, K10 and
     K11 against their plain versions, on the arguments of their first
@@ -1625,21 +1734,8 @@ def fast_pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
         err = require_equal(name, got, want)
         r = dict(err=err, ms=cuda_ms(lambda: fn(*a, **kw), 10),
                  plain_ms=cuda_ms(lambda: plain(*a, **kw), 3))
-        if name == "waterfill":
-            fill, ord_dom, dom_s, s_p, q, relaxed, cap, score, member, K1 = a
-            b = nbytes(fill, ord_dom, dom_s, s_p, q, relaxed, cap, member,
-                       *got) + 4 * P * K1
-            r.update(bound=bound(b, 3 * P * N), shape=(
-                f"P={P} N={N} S={S} K+1={K1}, {int(got[2].sum())} members "
-                "dealt"))
-        elif name == "excess_min":
-            dom_s, counts, nvalid, aff_ok, s_c = a
-            r.update(bound=bound(nbytes(*a, *got), 3 * P * N),
-                     shape=f"P={P} N={N} S={S}")
-        elif name == "excess_survive":
-            r.update(bound=bound(nbytes(*a, *got), 4 * P),
-                     shape=f"P={P}, {int(a[2].sum())} members, "
-                           f"{int(got[0].sum())} bad")
+        if name in SPREAD_ROWS:
+            r.update(spread_row(name, fn, a, got, ""))
         elif name == "ia_ok_at_choice":
             # Gathers: the member table's pod columns, the ia terms, and
             # counts/anti/dom at each pod's chosen node per signature.
@@ -2236,7 +2332,8 @@ def profiler_ms(fn, kernel: str, reps: int = 5) -> float | None:
     (a few microsecond-long kernels, or part of a slow kernel's
     launches), so one that holds none, or a count of them that is not a
     multiple of the calls, is traced once more, with host activity and
-    4 x the calls; None when that one falls short too."""
+    4 x the calls, then as `reps` traces of one call each; None when
+    those fall short too."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2255,6 +2352,23 @@ def profiler_ms(fn, kernel: str, reps: int = 5) -> float | None:
             return sum(hits) / 1e3 / n
         log(f"profiler: {kernel}: {len(hits)} device events over {n} "
             "calls, not a multiple of the calls; not used")
+    # Last, one call a trace, synchronised inside it: each trace must
+    # hold the same nonzero count of the kernel's events.
+    per, total = set(), 0.0
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        hits = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.name]
+        per.add(len(hits))
+        total += sum(hits)
+    if len(per) == 1 and 0 not in per:
+        return total / 1e3 / reps
+    log(f"profiler: {kernel}: {sorted(per)} device events a one-call "
+        "trace; not measured")
     return None
 
 
@@ -3543,13 +3657,12 @@ def tenant_phase(smi: str) -> tuple[dict, dict]:
 
 
 # The CUDA kernel of each entry point that gained the tenant axis with
-# signatures and gangs, for the profiler's kernel times.
+# signatures and gangs, for the profiler's kernel times (K12's and K13's:
+# SPREAD_ROWS).
 TENANT_CUDA_NAME = {
     "sig_match": "sig_match_kernel", "pair_counts": "pair_counts_kernel",
     "parity_scan_pair": "parity_scan_kernel",
     "pairwise_batch_ia_ok": "pairwise_batch_kernel",
-    "waterfill": "waterfill_kernel", "excess_min": "excess_min_kernel",
-    "excess_survive": "excess_survive_kernel",
     "ia_ok_at_choice": "ia_at_choice_kernel",
     "pair_commit": "pair_commit_kernel", "node_add": "node_add_kernel",
 }
@@ -3593,8 +3706,13 @@ def tenant_pair_kernel_rows(dstack, reduced, smi: str) -> dict:
     fast = {"pairwise_batch_ia_ok": (
                 "pairwise_batch", lambda a, kw: kw.get("with_ia_ok", False)),
             "waterfill": ("waterfill", every),
+            "waterfill_members": ("waterfill_members", every),
+            "waterfill_q": ("waterfill_q", every),
+            "waterfill_cnt": ("waterfill_cnt", every),
+            "waterfill_fill": ("waterfill_fill", every),
+            "excess_keys": ("excess_keys", every),
             "excess_min": ("excess_min", every),
-            "excess_survive": ("excess_survive", every),
+            "excess_walk": ("excess_walk", every),
             "ia_ok_at_choice": ("ia_ok_at_choice", every),
             "pair_commit": ("pair_commit", every),
             "node_add": ("node_add", lambda a, kw: bool(a[2].any()))}
@@ -3603,7 +3721,7 @@ def tenant_pair_kernel_rows(dstack, reduced, smi: str) -> dict:
                     parity_scan_pair=kassign.parity_scan_pair_plain)
     cfg_p, cfg_f = EngineConfig(mode="parity"), EngineConfig(mode="fast")
     calls = first_batch_calls(cfg_p, dstack, parity)
-    calls.update(first_batch_calls(cfg_f, dstack, fast))
+    calls.update(with_survive(first_batch_calls(cfg_f, dstack, fast)))
     small = first_batch_calls(cfg_p, reduced, {
         "parity_scan_pair": parity["parity_scan_pair"]})
     B, P = dstack.pods.valid.shape
@@ -3614,7 +3732,7 @@ def tenant_pair_kernel_rows(dstack, reduced, smi: str) -> dict:
     C = dstack.pods.ts_sig.shape[2]
     M = dstack.running.valid.shape[1]
     out = {}
-    for name in (*parity, *fast):
+    for name in (*parity, *fast, "excess_survive"):
         fn, a, kw = calls[name]
         plain = plain_of[name]
         scan = name == "parity_scan_pair"
@@ -3630,11 +3748,16 @@ def tenant_pair_kernel_rows(dstack, reduced, smi: str) -> dict:
         err = require_equal(f"{name} over the tenant axis", got, want)
         # The plain scan runs once (seconds); the others their median.
         r = dict(err=err, ms=cuda_ms(lambda: fn(*a, **kw), 3 if scan else 10),
-                 prof_ms=profiler_ms(lambda: fn(*a, **kw),
-                                     TENANT_CUDA_NAME[name], 2 if scan else 5),
                  plain_ms=(start.elapsed_time(end) if scan else cuda_ms(
                      lambda: plain(*cmp[1], **cmp[2]), 3)))
         res = [t for o in _flat(fn(*a, **kw)) for t in _flat(o)]
+        if name in SPREAD_ROWS:
+            r.update(spread_row(name, fn, a, res, f"B={B} "))
+            r["extra"] = {"ms_b8": r["ms"], "prof_ms_b8": r["prof_ms"]}
+            out[name] = r
+            continue
+        r["prof_ms"] = profiler_ms(lambda: fn(*a, **kw),
+                                   TENANT_CUDA_NAME[name], 2 if scan else 5)
         if name == "sig_match":
             r.update(bound=bound(nbytes(*a[:1], a[2], *res),
                                  B * S * (M + P) * 8),
@@ -3656,23 +3779,6 @@ def tenant_pair_kernel_rows(dstack, reduced, smi: str) -> dict:
             r.update(bound=bound(b, B * Pv * N * (C * 6 + IT * 10 + S * 3
                                                   + 14)),
                      shape=f"B={B} P={Pv} N={N} S={S} C={C} IT={IT}")
-        elif name == "waterfill":
-            fill, ord_dom, dom_s, s_p, q, relaxed, cap, score, member, K1 = a
-            Pv = relaxed.shape[1]
-            b = nbytes(fill, ord_dom, dom_s, s_p, q, relaxed, cap, member,
-                       *res) + 4 * B * Pv * K1
-            r.update(bound=bound(b, 3 * B * Pv * N), shape=(
-                f"B={B} P={Pv} N={N} S={S} K+1={K1}, "
-                f"{int(res[2].sum())} members dealt"))
-        elif name == "excess_min":
-            Pv = a[3].shape[1]
-            r.update(bound=bound(nbytes(*a, *res), 3 * B * Pv * N),
-                     shape=f"B={B} P={Pv} N={N} S={S}")
-        elif name == "excess_survive":
-            Pv = a[1].shape[1]
-            r.update(bound=bound(nbytes(*a, *res), 4 * B * Pv),
-                     shape=f"B={B} P={Pv}, {int(a[2].sum())} members, "
-                           f"{int(res[0].sum())} bad")
         elif name == "ia_ok_at_choice":
             Pv = a[4].shape[1]
             b = (B * S * Pv + nbytes(*(getattr(a[0].pods, f) for f in (

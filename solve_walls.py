@@ -13,7 +13,7 @@ config 2 at its PODS x NODES with QoS, (b) (a) with its constraints, (c)
 (a) with the seeded tie-break, (d) config 3 (spread and inter-pod
 terms), (h) config 5 with preemption, `hp` (h) with spread and inter-pod
 terms, the tenant batch (t) (eight config-2 tenants with (b)'s
-constraints), the tenant batches with preemption (th) and (thp) (eight
+constraints), (tp) eight config-3 tenants under one floor, the tenant batches with preemption (th) and (thp) (eight
 config-5 tenants under one floor, solved by `solve_many`), `ths` and
 `thps` the same with the seeded tie-break, `t9` nine tenants of (a)'s
 size, and `k4q1`, `k4q2`, `k4q4`, `k4q8` K4 alone on (a)'s parity scan
@@ -26,7 +26,11 @@ same unseeded at K = 1, 4, 8, 16, `k6v8`, `k6v8u` a 1 024-row view of it
 (the first 1 024 pods in pop order) at K = 8, seeded and not; `k2b` K2
 on (b), `k2t` K2 on the tenant stack (t), `k2w` K2 on 128 gathered pod
 rows of the warm lineage (w)'s snapshot against every node (a 1 %
-value churn, padded, as `refresh_tableau` passes them). Each tree's
+value churn, padded, as `refresh_tableau` passes them); `k13d`, `k12d`
+`_spread_excess_mask` and `_spread_waterfill_deal` (K13 and K12 with
+the torch steps around them) on the arguments of their first call in a
+fast solve of (d), `k13tp`, `k12tp` the same in (tp)'s fast batch (the
+profiler line: the device time of every K13 kernel, of K12's kernel). Each tree's
 generator builds the cell from chip_smoke's own constants and puts it on
 the card once; one solve builds the kernels and warms up. Then `--pairs`
 rounds each solve once per tree, in turns (the order reversed every
@@ -87,6 +91,7 @@ CELLS = {
            dict(preemption=True)),
     "t": ("config2_scale", CS.TENANT_SEED,
           dict(with_qos=True, **CS.CONSTRAINED), {}),
+    "tp": ("config3_pairwise", CS.PAIR_TENANT_SEED, {}, {}),
     "th": ("config5_preemption", CS.PRE_TENANT_SEED, {},
            dict(preemption=True)),
     "thp": ("config5_preemption", CS.PRE_PAIR_TENANT_SEED, CS.PRE_PAIR,
@@ -108,6 +113,8 @@ KERNEL_CELLS = {
     "k6v8u": ("b", ("topk", 8, False, True)),
     "k2b": ("b", ("tableau",)), "k2t": ("t", ("tableau",)),
     "k2w": ("w", ("tableau_rows",)),
+    "k13d": ("d", ("excess",)), "k12d": ("d", ("waterfill",)),
+    "k13tp": ("tp", ("excess",)), "k12tp": ("tp", ("waterfill",)),
 }
 CELLS.update({c: CELLS[src] for c, (src, _) in KERNEL_CELLS.items()
               if src in CELLS})
@@ -125,7 +132,10 @@ TENANT_SHAPE = {
 TENANT_SHAPE["t"] = (CS.TENANTS, CS.TENANT_PODS, CS.TENANT_STEP,
                      CS.TENANT_NODES, dict(signatures=0))
 TENANT_SHAPE["t9"] = (9, CS.PODS, 0, CS.NODES, dict(signatures=0))
+TENANT_SHAPE["tp"] = (CS.TENANTS, CS.TENANT_PODS, CS.TENANT_STEP,
+                      CS.TENANT_NODES, {})
 TENANT_SHAPE["k2t"] = TENANT_SHAPE["t"]
+TENANT_SHAPE["k13tp"] = TENANT_SHAPE["k12tp"] = TENANT_SHAPE["tp"]
 TENANT_CELLS = tuple(TENANT_SHAPE)
 # K4 alone at a given cluster size Q, on the arguments of (a)'s solve
 # (its one parity scan), then a device sync.
@@ -244,6 +254,11 @@ class Tree:
             fn = lambda: a._tableau_cells(dsnap, pods, dsnap.nodes, sat)
         elif what[0] == "tableau":
             fn = lambda: a._tableau_cells(dsnap, dsnap.pods, dsnap.nodes, sat)
+        elif what[0] in ("excess", "waterfill"):
+            name = ("_spread_excess_mask" if what[0] == "excess"
+                    else "_spread_waterfill_deal")
+            args = self._first_call(pkg, dsnap, name)
+            fn = lambda: getattr(a, name)(*args)
         else:
             _, K, seeded, view = what
             static = a.precompute_static(self.cfg, dsnap, sat)
@@ -264,9 +279,34 @@ class Tree:
         def run():
             out = fn()
             torch.cuda.synchronize()
-            return out
+            return out if isinstance(out, tuple) else (out,)
 
         return run
+
+    def _first_call(self, pkg, dsnap, name: str) -> tuple:
+        """The arguments (tensors cloned) of the first call of the
+        assign module's `name` in a fast solve of dsnap (solve_many for a
+        stack): the first round's K12 or K13 call, through KERNELS."""
+        a = self.assign
+        real, seen = getattr(a, name), []
+        n = 7 if name == "_spread_excess_mask" else 9   # before `ops`
+
+        def rec(*args):
+            if not seen:
+                seen.append(tuple(x.clone() if isinstance(x, torch.Tensor)
+                                  else x for x in args[:n]))
+            return real(*args)
+
+        cfg = dataclasses.replace(self.cfg, mode="fast")
+        setattr(a, name, rec)
+        try:
+            if self.cell in TENANT_CELLS:
+                pkg.solve_many(cfg, dsnap)
+            else:
+                pkg.Engine(cfg).solve(dsnap)
+        finally:
+            setattr(a, name, real)
+        return (*seen[0], a.KERNELS)
 
     def _time_preemption(self) -> None:
         rounds = self.assign._preempt_rounds
@@ -308,6 +348,8 @@ class Tree:
         if self.cell in KERNEL_CELLS:
             self.activate()
             kernel = ("tableau_kernel" if self.cell.startswith("k2")
+                      else "excess" if self.cell.startswith("k13")
+                      else "waterfill_kernel" if self.cell.startswith("k12")
                       else "row_topk")
             return {"profiler_ms": CS.profiler_ms(self.kernel_fn, kernel),
                     "equal_to_first_tree": all(

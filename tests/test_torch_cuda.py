@@ -2355,3 +2355,180 @@ def test_k26_auction_state_equal_plain(cuda, B):
     got = kpre._tableau_nv(*args)
     _equal(got, kpre._tableau_nv_plain(*args))
     assert got[3].any()
+
+
+# -- K12 and K13 as redesigned for Hopper (a warp a row) ----------------------
+
+
+def k13_inputs(rng, P: int, N: int, S: int, C: int, B: int = 0,
+               one_domain: bool = False, dense: bool = False) -> dict:
+    """K13's inputs (numpy; [B, ...] where B > 0): signature domains with
+    key-less nodes (-1), or one domain holding every node; counts; a tenth
+    of the nodes invalid; aff_ok with every seventh row all False (min 0);
+    C spread slots (padded, ScheduleAnyway and DoNotSchedule); choices
+    (over three nodes when dense, so that groups run past 32 rows and
+    across warps); kept rows and a rank permutation."""
+    lead = (B,) if B else ()
+    D = 1 if one_domain else max(1, N // 4)
+    dom = rng.integers(0, D, (*lead, S, N)).astype(np.int32)
+    if not one_domain:
+        dom[rng.random(dom.shape) < 0.1] = -1
+    aff_ok = rng.random((*lead, P, N)) < 0.8
+    aff_ok[..., ::7, :] = False
+    rank = np.stack([rng.permutation(P) for _ in range(max(B, 1))])
+    return dict(
+        dom=dom,
+        counts=rng.integers(0, 40, (*lead, S, N)).astype(np.float32),
+        node_valid=rng.random((*lead, N)) < 0.9,
+        aff_ok=aff_ok,
+        ts_sig=rng.integers(-1, S, (*lead, P, C)).astype(np.int32),
+        ts_valid=rng.random((*lead, P, C)) < 0.85,
+        ts_when=rng.integers(0, 2, (*lead, P, C)).astype(np.int8),
+        ts_skew=rng.integers(1, 4, (*lead, P, C)).astype(np.float32),
+        choice=rng.integers(-1, min(N, 3) if dense else N,
+                            (*lead, P)).astype(np.int32),
+        kept=rng.random((*lead, P)) < 0.8,
+        rank=(rank if B else rank[0]).astype(np.int32))
+
+
+def k13_pipeline(x: dict, keys=ka.excess_keys, pass_=ka.excess_min,
+                 walk=ka.excess_walk):
+    """_spread_excess_mask's steps on k13_inputs' tensors: (key table,
+    the pass's four outputs, the sorted keys and rows, bad)."""
+    key = keys(x["dom"], x["counts"], x["node_valid"])
+    out = pass_(key, x["aff_ok"], x["ts_sig"], x["ts_valid"], x["ts_when"],
+                x["ts_skew"], x["choice"], x["kept"], x["rank"], x["dom"],
+                x["counts"])
+    key_s, perm = torch.sort(out[2], dim=-1)
+    return key, out, (key_s, perm), walk(key_s, perm, out[0], out[1],
+                                         out[3])
+
+
+def k12_inputs(rng, P: int, N: int, S: int, B: int = 0,
+               one_domain: bool = False) -> dict:
+    """K12's inputs (numpy): signature domains as k13_inputs', the first
+    signature with no keyed node (every level a sentinel) where S > 1;
+    each pod's signature, member rows and their 0-based positions q in a
+    random rank order (-1 for the rest, some past the last level);
+    relaxed rows with every fifth all False (n_feas = 0); a cap order;
+    scores."""
+    lead = (B,) if B else ()
+    D = 1 if one_domain else max(1, N // 4)
+    dom = rng.integers(0, D, (*lead, S, N)).astype(np.int32)
+    if not one_domain:
+        dom[rng.random(dom.shape) < 0.1] = -1
+        if S > 1:
+            dom[..., 0, :] = -1
+    s_p = rng.integers(0, S, (*lead, P)).astype(np.int32)
+    member = rng.random((*lead, P)) < 0.7
+    q = np.full((*lead, P), -1.0, dtype=np.float32)
+    for b in np.ndindex(*lead):
+        seen = np.zeros(S, dtype=np.float32)
+        for p in rng.permutation(P):
+            if member[b + (p,)]:
+                q[b + (p,)] = seen[s_p[b + (p,)]]
+                seen[s_p[b + (p,)]] += 1
+    relaxed = rng.random((*lead, P, N)) < 0.6
+    relaxed[..., ::5, :] = False
+    cap = np.stack([rng.permutation(N) for _ in range(max(B, 1))])
+    return dict(
+        dom=dom, counts=rng.integers(0, 6, (*lead, S, N)).astype(np.float32),
+        s_p=s_p, q=q, member=member, relaxed=relaxed,
+        cap_order=(cap if B else cap[0]).astype(np.int32),
+        score=rng.normal(0.0, 10.0, (*lead, P, N)).astype(np.float32))
+
+
+def fill_levels(counts, dom):
+    """K12's fill levels and domain order from domain counts and the
+    signatures' domains, by the plain versions."""
+    return ka.waterfill_fill_plain(*torch.sort(
+        ka.waterfill_cnt_plain(dom, counts), dim=-1, stable=True))
+
+
+def k12_args(x: dict, K1: int) -> tuple:
+    """waterfill's arguments from k12_inputs' tensors."""
+    fill, ord_dom = fill_levels(x["counts"], x["dom"])
+    return (fill, ord_dom, x["dom"], x["s_p"], x["q"], x["relaxed"],
+            x["cap_order"], x["score"], x["member"], K1)
+
+
+def _on(x: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+
+
+# (B, P, N, S, C, one domain, dense choices): N of 1, 31, 33 and 5 121 (the
+# byte path) and 2 048 / 5 120 (16-byte rows); P of 1, 1 024 and past a
+# CTA's rows (8 a CTA in the pass, 256 sorted rows in the walk); S of 1, 4
+# and 32; C of 1-3; a domain holding every node; B = 8.
+K13_CASES = [(0, 1, 1, 1, 1, False, False), (0, 1024, 31, 4, 1, False, True),
+             (0, 1025, 33, 32, 2, False, False),
+             (0, 37, 5121, 4, 1, False, True),
+             (0, 1024, 5120, 4, 2, False, True),
+             (0, 300, 64, 1, 1, True, True), (8, 257, 2048, 4, 1, False, True),
+             (8, 64, 33, 32, 3, False, False)]
+
+
+@pytest.mark.parametrize("case", K13_CASES)
+def test_k13_warp_kernels_equal_plain(cuda, case):
+    """K13's key table, its pass over every slot, its walk (and the walk's
+    one-slot form on slot 0) against their plain versions, bit for bit."""
+    B, P, N, S, C, one, dense = case
+    x = _on(k13_inputs(np.random.default_rng(P + N + S), P, N, S, C, B, one,
+                       dense), cuda)
+    got = k13_pipeline(x)
+    want = k13_pipeline(x, ka.excess_keys_plain, ka.excess_min_plain,
+                        ka.excess_walk_plain)
+    _equal([got[0], *got[1], *got[2], got[3]],
+           [want[0], *want[1], *want[2], want[3]])
+    if dense and P > 256 and not one:
+        assert got[3].any()
+    walk = (*got[2], got[1][0], got[1][1], got[1][3])
+    one_slot = ka.excess_survive_args(*walk, 0)
+    _equal([ka.excess_survive(*one_slot)],
+           [ka.excess_survive_plain(*one_slot)])
+    if C == 1:
+        _equal([ka.excess_survive(*one_slot)], [got[3]])
+
+
+# (B, P, N, S, K1, one domain)
+K12_CASES = [(0, 1, 1, 1, 1, False), (0, 1024, 31, 4, 9, False),
+             (0, 1025, 33, 32, 32, False), (0, 40, 5121, 4, 9, False),
+             (0, 300, 64, 1, 9, True), (8, 257, 2048, 4, 9, False),
+             (8, 64, 33, 32, 5, True)]
+
+
+@pytest.mark.parametrize("case", K12_CASES)
+def test_k12_tables_equal_plain(cuda, case):
+    """K12's four table kernels (members, rank positions, domain counts,
+    fill levels) against their plain versions, bit for bit, on C = 3
+    spread slots a pod and k12_inputs' domains."""
+    B, P, N, S, K1, one = case
+    rng = np.random.default_rng(P + N + S + 1)
+    x = _on(k12_inputs(rng, P, N, S, B, one), cuda)
+    sl = _on(k13_inputs(rng, P, N, S, 3, B), cuda)
+    allowed = x["member"]
+    rank = sl["rank"]
+    m = (sl["ts_sig"], sl["ts_valid"], sl["ts_when"], allowed, rank, S)
+    got = ka.waterfill_members(*m)
+    _equal(got, ka.waterfill_members_plain(*m))
+    key_s, perm = torch.sort(got[2], dim=-1)
+    _equal([ka.waterfill_q(key_s, perm, S)],
+           [ka.waterfill_q_plain(key_s, perm, S)])
+    dsort, _ = ka.waterfill_lists(x["dom"], x["cap_order"])
+    cnt = ka.waterfill_cnt(dsort, x["counts"])
+    _equal([cnt], [ka.waterfill_cnt_plain(dsort, x["counts"])])
+    srt = torch.sort(cnt, dim=-1, stable=True)
+    _equal(ka.waterfill_fill(*srt), ka.waterfill_fill_plain(*srt))
+
+
+@pytest.mark.parametrize("case", K12_CASES)
+def test_k12_warp_kernel_equal_plain(cuda, case):
+    """K12 (its node lists, the fill-level search, the two walks of the
+    chosen domain) against its plain version, bit for bit."""
+    B, P, N, S, K1, one = case
+    x = _on(k12_inputs(np.random.default_rng(P + N + S), P, N, S, B, one),
+            cuda)
+    args = k12_args(x, K1)
+    got = ka.waterfill(*args)
+    _equal(got, ka.waterfill_plain(*args))
+    assert got[2].any() or P == 1

@@ -68,8 +68,14 @@ SIGNATURES = {
                          + [_P] * 3,
     "tpusched_pair_commit": [_I] * 6 + [_P] * 8 + [_I] + [_P] * 4,
     "tpusched_ia_at_choice": [_I] * 6 + [_P] * 13,
-    "tpusched_waterfill": [_I] * 5 + [_P] * 13,
-    "tpusched_excess_min": [_I] * 4 + [_P] * 7,
+    "tpusched_waterfill": [_I] * 5 + [_P] * 14,
+    "tpusched_waterfill_members": [_I] * 4 + [_P] * 9,
+    "tpusched_waterfill_q": [_I] * 3 + [_P] * 4,
+    "tpusched_waterfill_cnt": [_I] * 3 + [_P] * 4,
+    "tpusched_waterfill_fill": [_I] * 3 + [_P] * 5,
+    "tpusched_excess_keys": [_I] * 3 + [_P] * 5,
+    "tpusched_excess_min": [_I] * 5 + [_P] * 16,
+    "tpusched_excess_walk": [_I] * 5 + [_P] * 7,
     "tpusched_excess_survive": [_I, _I] + [_P] * 7,
     "tpusched_preempt_step": [_I] * 5 + [_P] * 8 + [_F] + [_P] * 12,
     "tpusched_parity_scan_preempt": [_I] * 4 + [_P] * 10 + [_I, _U]

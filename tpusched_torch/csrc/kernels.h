@@ -256,28 +256,70 @@ int tpusched_ia_at_choice(int B, int P, int N, int S, int IT, int M,
 
 // K12. The water-fill dealer's per-pod part (assign.py
 // _spread_waterfill_deal from its fill table on): fill [S, N] f32,
-// ord_dom and dom [S, N], s_p [P], q [P] f32, relaxed [P, N], cap_order
-// [N], score [P, N], member [P]; writes cand and val [P, K1] (K1 <= 32)
-// and ok [P].
+// ord_dom [S, N], the per-domain node lists dsort and dnode [S, N] (the
+// nodes' domains ascending, the nodes in that order, each domain's in
+// cap_order order), s_p [P], q [P] f32, relaxed [P, N], cap_order [N],
+// score [P, N], member [P]; writes cand and val [P, K1] (K1 <= 32) and
+// ok [P].
 int tpusched_waterfill(int B, int P, int S, int N, int K1, const float* fill,
-                       const int* ord_dom, const int* dom, const int* s_p,
-                       const float* q, const bool* relaxed,
+                       const int* ord_dom, const int* dsort, const int* dnode,
+                       const int* s_p, const float* q, const bool* relaxed,
                        const int* cap_order, const float* score,
                        const bool* member, int* cand, float* val, bool* ok,
                        void* stream);
 
-// K13 (assign.py _spread_excess_mask), first entry point: min_end[p] =
-// min of counts[s_c[p], dom[s_c[p], n]] over valid nodes n with
-// aff_ok[p, n] and the key, 0 if none.
-int tpusched_excess_min(int B, int P, int S, int N, const int* dom,
-                        const float* counts,
-                        const bool* node_valid, const bool* aff_ok,
-                        const int* s_c, float* min_end, void* stream);
+// K12's tables (assign.py:606-641): s_p, member and the sort key
+// (gid << 32) + rank of each pod [P] from its C spread slots, allowed and
+// rank; q [P] from those keys sorted (key_s, perm); cnt [S, N] from the
+// node lists dsort and the domain counts; fill [S, N] and ord_dom from
+// cnt sorted (csort, ord int64).
+int tpusched_waterfill_members(int B, int P, int C, int S, const int* ts_sig,
+                               const bool* ts_valid,
+                               const signed char* ts_when,
+                               const bool* allowed, const int* rank,
+                               int* s_p, bool* member, long long* key,
+                               void* stream);
+int tpusched_waterfill_q(int B, int P, int S, const long long* key_s,
+                         const long long* perm, float* q, void* stream);
+int tpusched_waterfill_cnt(int B, int S, int N, const int* dsort,
+                           const float* counts, float* cnt, void* stream);
+int tpusched_waterfill_fill(int B, int S, int N, const float* csort,
+                            const long long* ord, float* fill, int* ord_dom,
+                            void* stream);
 
-// K13, second entry point: rows sorted by (group gid_s, rank), perm [P]
-// sorted row -> pod row; per group of members the running count q and
-// running min of T; bad[p] = member & !(b_fixed + q <= min), false for
-// non-members (whose group is the last).
+// K13 (assign.py _spread_excess_mask), the key table: key[s, n] =
+// counts[s, dom[s, n]] where node n is valid and has the key, +inf
+// elsewhere.
+int tpusched_excess_keys(int B, int S, int N, const int* dom,
+                         const float* counts, const bool* node_valid,
+                         float* key, void* stream);
+
+// K13, the [P, N] pass over every spread slot c < C (C <= 16): the min of
+// key[s_c(p), n] over n with aff_ok[p, n] (0 if none) and slot c's per-pod
+// steps, written [C, P]: T (that min + maxSkew), cnt_total, the sort key
+// (gid << 32) + rank; g_cnt [C, S * N + 1] (zeroed by the caller) gains
+// each group's members.
+int tpusched_excess_min(int B, int P, int S, int N, int C, const float* key,
+                        const bool* aff_ok, const int* ts_sig,
+                        const bool* ts_valid, const signed char* ts_when,
+                        const float* ts_skew, const int* choice,
+                        const bool* kept, const int* rank, const int* dom,
+                        const float* counts, float* T, float* cnt_total,
+                        long long* gkey, int* g_cnt, void* stream);
+
+// K13, the group walk over every slot: key_s and perm [C, P] each slot's
+// keys sorted and their pod rows; bad [P] (zeroed by the caller) set
+// where a member of any slot's group fails b_fixed + q <= the running
+// min of T, b_fixed = cnt_total - the group's count.
+int tpusched_excess_walk(int B, int C, int P, int S, int N,
+                         const long long* key_s, const long long* perm,
+                         const float* T, const float* cnt_total,
+                         const int* g_cnt, bool* bad, void* stream);
+
+// K13, the walk's older form, one slot: rows sorted by (group gid_s,
+// rank), perm [P] sorted row -> pod row; per group of members the running
+// count q and running min of T; bad[p] (zeroed by the caller) set where
+// member & !(b_fixed + q <= min).
 int tpusched_excess_survive(int B, int P, const int* gid_s, const int* perm,
                             const bool* member, const float* T,
                             const float* b_fixed, bool* bad, void* stream);

@@ -2198,52 +2198,172 @@ def _rounds_nosig(cfg, snap, static, rank, order, max_rounds, K, cap, ops,
 # -- fast mode with signatures: water-fill, validation, frontier ----------
 
 
-def _waterfill_tables(snap: ClusterSnapshot, pair_st: "kpair.PairState",
-                      dom_s: torch.Tensor, allowed: torch.Tensor,
-                      rank: torch.Tensor):
-    """The water-fill dealer's tables over [P] and [S, N] (JAX
-    `_spread_waterfill_deal` up to its fill table), plain torch:
-    (s_p [P] int32 each pod's first DoNotSchedule slot's signature, q
-    [P] f32 its 0-based rank position among this round's members of
-    s_p, member [P] bool, fill [S, N] f32, ord_dom [S, N] int32). A
-    tenant batch gives each its leading [B] axis; every sort, count and
-    prefix runs along the last axis, within a tenant."""
-    pods = snap.pods
-    lead = rank.shape[:-1]
-    S, N = dom_s.shape[-2:]
-    dev = dom_s.device
-    dns = pods.ts_valid & (pods.ts_when == DO_NOT_SCHEDULE)
+def waterfill_members_plain(ts_sig: torch.Tensor, ts_valid: torch.Tensor,
+                           ts_when: torch.Tensor, allowed: torch.Tensor,
+                           rank: torch.Tensor, S: int):
+    """K12's [P] table (JAX `_spread_waterfill_deal` :606-615): s_p [P]
+    int32 each pod's first DoNotSchedule slot's signature (clamped at 0;
+    slot 0 where there is none, as argmax), member [P] bool (allowed and
+    a DoNotSchedule slot), and the sort key (gid << 32) + rank [P] int64,
+    gid = s_p for a member, S otherwise ([B, P] per tenant)."""
+    dns = ts_valid & (ts_when == DO_NOT_SCHEDULE)
     first_c = torch.argmax(dns.to(torch.int32), dim=-1)     # first DNS slot
-    s_p = pods.ts_sig.gather(-1, first_c[..., None])[..., 0].clamp(min=0)
+    s_p = ts_sig.gather(-1, first_c[..., None])[..., 0].clamp(min=0)
     member = allowed & dns.any(dim=-1)
     gid = torch.where(member, s_p, S)
-    perm = torch.sort((gid.long() << 32) + rank.long(), dim=-1).indices
-    q = torch.zeros(rank.shape, dtype=torch.float32, device=dev)
-    q.scatter_(-1, perm, (_segment_count(
-        member.gather(-1, perm), _segment_start(gid.gather(-1, perm)))
-        - 1).to(torch.float32))
-    # Per-signature fill levels over the domain counts, domains by
-    # ascending count; 1e9 stands in for a domain no node has.
-    keyed = torch.zeros((*lead, S, N), dtype=torch.int32, device=dev)
-    keyed.scatter_add_(-1, dom_s.clamp(min=0).long(),
-                       (dom_s >= 0).to(torch.int32))
-    cnt = torch.where(keyed > 0, pair_st.counts,
-                      torch.full((), 1e9, dtype=torch.float32, device=dev))
-    ord_dom = torch.sort(cnt, dim=-1, stable=True).indices
-    csort = torch.gather(cnt, -1, ord_dom)
-    # The exclusive prefix of csort, summed exactly in f64 (integers
-    # below 2**53) and rounded once: its entries over real domains are
-    # the exact small integers JAX's f32 cumsum gives too, and the ones
-    # past a sentinel stay near 1e9, far above any q, so the count of
-    # fill <= q does not depend on how a device would round an f32 sum.
+    return s_p.to(torch.int32), member, (gid.long() << 32) + rank.long()
+
+
+def waterfill_members(ts_sig: torch.Tensor, ts_valid: torch.Tensor,
+                      ts_when: torch.Tensor, allowed: torch.Tensor,
+                      rank: torch.Tensor, S: int):
+    """K12's [P] table on CUDA tensors, the plain version on CPU
+    tensors."""
+    dev = rank.device
+    if dev.type == "cpu":
+        return waterfill_members_plain(ts_sig, ts_valid, ts_when, allowed,
+                                       rank, S)
+    lead = rank.shape[:-1]
+    P = rank.shape[-1]
+    C = ts_sig.shape[-1]
+    k = "waterfill_members"
+    check(k, dev, ts_sig, torch.int32, (*lead, P, C))
+    check(k, dev, ts_valid, torch.bool, (*lead, P, C))
+    check(k, dev, ts_when, torch.int8, (*lead, P, C))
+    check(k, dev, allowed, torch.bool, (*lead, P))
+    check(k, dev, rank, torch.int32, (*lead, P))
+    if C == 0:
+        raise ValueError(f"{k}: no spread slot")
+    s_p = torch.empty((*lead, P), dtype=torch.int32, device=dev)
+    member = torch.empty((*lead, P), dtype=torch.bool, device=dev)
+    key = torch.empty((*lead, P), dtype=torch.int64, device=dev)
+    if P == 0:
+        return s_p, member, key
+    _build.launch("tpusched_waterfill_members", lead[0] if lead else 1, P, C,
+                  S, *ptrs((ts_sig, ts_valid, ts_when, allowed, rank, s_p,
+                            member, key)), stream_of(dev))
+    waterfill_members.launches += 1
+    return s_p, member, key
+
+
+waterfill_members.launches = 0
+
+
+def waterfill_q_plain(key_s: torch.Tensor, perm: torch.Tensor,
+                      S: int) -> torch.Tensor:
+    """q [P] f32: each pod's 0-based rank position among this round's
+    members of its signature, -1 for the rest, from the member keys
+    sorted (key_s, perm: `torch.sort` of waterfill_members' keys; JAX
+    :616-628; [B, P] per tenant)."""
+    gid_s = _gid_of(key_s)
+    q_s = _segment_count(gid_s < S, _segment_start(gid_s)) - 1
+    return torch.zeros(key_s.shape, dtype=torch.float32,
+                       device=key_s.device).scatter_(
+        -1, perm, q_s.to(torch.float32))
+
+
+def waterfill_q(key_s: torch.Tensor, perm: torch.Tensor,
+                S: int) -> torch.Tensor:
+    """K12's rank positions on CUDA tensors, the plain version on CPU
+    tensors."""
+    dev = key_s.device
+    if dev.type == "cpu":
+        return waterfill_q_plain(key_s, perm, S)
+    k = "waterfill_q"
+    check(k, dev, key_s, torch.int64, key_s.shape)
+    check(k, dev, perm, torch.int64, key_s.shape)
+    q = torch.empty(key_s.shape, dtype=torch.float32, device=dev)
+    if q.numel() == 0:
+        return q
+    _build.launch("tpusched_waterfill_q",
+                  key_s.shape[0] if key_s.dim() == 2 else 1,
+                  key_s.shape[-1], S, *ptrs((key_s, perm, q)),
+                  stream_of(dev))
+    waterfill_q.launches += 1
+    return q
+
+
+waterfill_q.launches = 0
+
+
+def waterfill_cnt_plain(dsort: torch.Tensor,
+                        counts: torch.Tensor) -> torch.Tensor:
+    """cnt [S, N] f32: each domain's count where a node of the signature
+    has the domain (dsort: the nodes' domains, any order a row), 1e9
+    where none does (JAX :630-633; [B, S, N] per tenant)."""
+    keyed = torch.zeros(dsort.shape, dtype=torch.int32, device=dsort.device)
+    keyed.scatter_add_(-1, dsort.clamp(min=0).long(),
+                       (dsort >= 0).to(torch.int32))
+    return torch.where(keyed > 0, counts,
+                       torch.full((), 1e9, dtype=torch.float32,
+                                  device=dsort.device))
+
+
+def waterfill_cnt(dsort: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """K12's domain counts on CUDA tensors (dsort ascending a row:
+    `waterfill_lists`), the plain version on CPU tensors."""
+    dev = counts.device
+    if dev.type == "cpu":
+        return waterfill_cnt_plain(dsort, counts)
+    lead = counts.shape[:-2]
+    S, N = counts.shape[-2:]
+    k = "waterfill_cnt"
+    check(k, dev, dsort, torch.int32, (*lead, S, N))
+    check(k, dev, counts, torch.float32, (*lead, S, N))
+    cnt = torch.empty((*lead, S, N), dtype=torch.float32, device=dev)
+    if cnt.numel() == 0:
+        return cnt
+    _build.launch("tpusched_waterfill_cnt", lead[0] if lead else 1, S, N,
+                  *ptrs((dsort, counts, cnt)), stream_of(dev))
+    waterfill_cnt.launches += 1
+    return cnt
+
+
+waterfill_cnt.launches = 0
+
+
+def waterfill_fill_plain(csort: torch.Tensor, ord_: torch.Tensor):
+    """The per-signature fill levels (JAX :634-641) from the domain counts
+    sorted ascending, stable (csort, ord_ int64): (fill [S, N] f32 = j *
+    csort - presum, ord_dom [S, N] int32). presum, the exclusive prefix
+    of csort, is summed exactly in f64 (integers below 2**53) and rounded
+    once: its entries over real domains are the exact small integers
+    JAX's f32 cumsum gives too, and the ones past a sentinel stay near
+    1e9, far above any q, so the count of fill <= q does not depend on
+    how a device would round an f32 sum ([B, S, N] per tenant)."""
+    N = csort.shape[-1]
+    dev = csort.device
     pre = torch.cumsum(csort.to(torch.float64), dim=-1)
-    presum = torch.cat([torch.zeros((*lead, S, 1), dtype=torch.float64,
-                                    device=dev), pre[..., :-1]],
-                       dim=-1).to(torch.float32)
+    presum = torch.cat([torch.zeros((*csort.shape[:-1], 1),
+                                    dtype=torch.float64, device=dev),
+                        pre[..., :-1]], dim=-1).to(torch.float32)
     js = torch.arange(N, dtype=torch.float32, device=dev)
-    fill = js * csort - presum
-    return (s_p.to(torch.int32), q, member, fill.contiguous(),
-            ord_dom.to(torch.int32).contiguous())
+    return ((js * csort - presum).contiguous(),
+            ord_.to(torch.int32).contiguous())
+
+
+def waterfill_fill(csort: torch.Tensor, ord_: torch.Tensor):
+    """K12's fill levels on CUDA tensors, the plain version on CPU
+    tensors."""
+    dev = csort.device
+    if dev.type == "cpu":
+        return waterfill_fill_plain(csort, ord_)
+    lead = csort.shape[:-2]
+    S, N = csort.shape[-2:]
+    k = "waterfill_fill"
+    check(k, dev, csort, torch.float32, (*lead, S, N))
+    check(k, dev, ord_, torch.int64, (*lead, S, N))
+    fill = torch.empty((*lead, S, N), dtype=torch.float32, device=dev)
+    ord_dom = torch.empty((*lead, S, N), dtype=torch.int32, device=dev)
+    if fill.numel() == 0:
+        return fill, ord_dom
+    _build.launch("tpusched_waterfill_fill", lead[0] if lead else 1, S, N,
+                  *ptrs((csort, ord_, fill, ord_dom)), stream_of(dev))
+    waterfill_fill.launches += 1
+    return fill, ord_dom
+
+
+waterfill_fill.launches = 0
 
 
 def _cap_order(alloc: torch.Tensor, used: torch.Tensor) -> torch.Tensor:
@@ -2263,16 +2383,29 @@ def _cap_order(alloc: torch.Tensor, used: torch.Tensor) -> torch.Tensor:
     return _desc_order(free).to(torch.int32)
 
 
+def waterfill_lists(dom_s: torch.Tensor, cap_order: torch.Tensor):
+    """K12's per-domain node lists: (dsort [S, N] int32 each signature's
+    node domains ascending, dnode [S, N] int32 the nodes in that order),
+    keyless nodes (-1) first and each domain's nodes in cap_order order:
+    one stable library sort of the domains taken in cap order ([B, S, N]
+    per tenant)."""
+    idx = cap_order.long().unsqueeze(-2).expand(dom_s.shape)
+    dsort, pos = torch.sort(dom_s.gather(-1, idx), dim=-1, stable=True)
+    return dsort, idx.gather(-1, pos).to(torch.int32)
+
+
 def waterfill_plain(fill: torch.Tensor, ord_dom: torch.Tensor,
                     dom_s: torch.Tensor, s_p: torch.Tensor, q: torch.Tensor,
                     relaxed: torch.Tensor, cap_order: torch.Tensor,
-                    score: torch.Tensor, member: torch.Tensor, K1: int):
+                    score: torch.Tensor, member: torch.Tensor, K1: int,
+                    dsort=None, dnode=None):
     """The water-fill dealer's per-pod [P, N] part (JAX
     `_spread_waterfill_deal` from its fill table on): each member's
     domain by the fill level its q reaches, then its K1 rotation
     candidates among the domain's relaxed-feasible nodes in cap_order.
-    Returns (cand [P, K1] int32, val [P, K1] f32, ok [P] bool). A tenant
-    batch goes tenant by tenant."""
+    Returns (cand [P, K1] int32, val [P, K1] f32, ok [P] bool). The node
+    lists (the kernel's) are not read. A tenant batch goes tenant by
+    tenant."""
     if relaxed.dim() == 3:
         return per_tenant(waterfill_plain, relaxed.shape[0], fill, ord_dom,
                           dom_s, s_p, q, relaxed, cap_order, score, member,
@@ -2310,8 +2443,10 @@ def waterfill_plain(fill: torch.Tensor, ord_dom: torch.Tensor,
 def waterfill(fill: torch.Tensor, ord_dom: torch.Tensor, dom_s: torch.Tensor,
               s_p: torch.Tensor, q: torch.Tensor, relaxed: torch.Tensor,
               cap_order: torch.Tensor, score: torch.Tensor,
-              member: torch.Tensor, K1: int):
-    """Kernel K12 on CUDA tensors, the plain version on CPU tensors."""
+              member: torch.Tensor, K1: int, dsort=None, dnode=None):
+    """Kernel K12 on CUDA tensors, the plain version on CPU tensors. The
+    node lists (dsort, dnode) are `waterfill_lists(dom_s, cap_order)`,
+    built here where the caller has not."""
     dev = relaxed.device
     if dev.type == "cpu":
         return waterfill_plain(fill, ord_dom, dom_s, s_p, q, relaxed,
@@ -2328,6 +2463,7 @@ def waterfill(fill: torch.Tensor, ord_dom: torch.Tensor, dom_s: torch.Tensor,
     check(k, dev, dom_s, torch.int32, (*lead, S, N))
     check(k, dev, s_p, torch.int32, (*lead, P))
     check(k, dev, q, torch.float32, (*lead, P))
+    check(k, dev, relaxed, torch.bool, (*lead, P, N))
     check(k, dev, cap_order, torch.int32, (*lead, N))
     check(k, dev, score, torch.float32, (*lead, P, N))
     check(k, dev, member, torch.bool, (*lead, P))
@@ -2336,9 +2472,14 @@ def waterfill(fill: torch.Tensor, ord_dom: torch.Tensor, dom_s: torch.Tensor,
     ok = torch.empty((*lead, P), dtype=torch.bool, device=dev)
     if relaxed.numel() == 0:
         return cand, val, ok
+    if dsort is None:
+        dsort, dnode = waterfill_lists(dom_s, cap_order)
+    check(k, dev, dsort, torch.int32, (*lead, S, N))
+    check(k, dev, dnode, torch.int32, (*lead, S, N))
     _build.launch("tpusched_waterfill", lead[0] if lead else 1, P, S, N, K1,
-                  *ptrs((fill, ord_dom, dom_s, s_p, q, relaxed, cap_order,
-                         score, member, cand, val, ok)), stream_of(dev))
+                  *ptrs((fill, ord_dom, dsort, dnode, s_p, q, relaxed,
+                         cap_order, score, member, cand, val, ok)),
+                  stream_of(dev))
     waterfill.launches += 1
     return cand, val, ok
 
@@ -2348,7 +2489,8 @@ waterfill.launches = 0
 
 def _spread_waterfill_deal(snap: ClusterSnapshot, pair_st, used, relaxed,
                            score, allowed, rank, K: int,
-                           dom_s: torch.Tensor, ops: "Ops"):
+                           dom_s: torch.Tensor, ops: "Ops",
+                           stats: RoundStats | None = None):
     """Domain-balanced dealing for DoNotSchedule spread members (JAX
     `_spread_waterfill_deal`): each signature's members, in rank order,
     are water-filled across its domains so the per-domain levels stay
@@ -2360,7 +2502,9 @@ def _spread_waterfill_deal(snap: ClusterSnapshot, pair_st, used, relaxed,
     against round-start counts but legal against end-of-round counts,
     which the validator checks. Returns K12's (cand [P, K+1], val, ok);
     ok False leaves the pod to the capacity dealer. A tenant batch deals
-    every tenant in one K12 launch."""
+    every tenant in one launch of each K12 kernel. `stats` times the cap
+    order with the node lists, the tables (K12's four table kernels and
+    two sorts) and the kernel as spans of their own."""
     pods = snap.pods
     S = dom_s.shape[-2]
     if pods.ts_valid.shape[-1] == 0 or S == 0:
@@ -2370,56 +2514,138 @@ def _spread_waterfill_deal(snap: ClusterSnapshot, pair_st, used, relaxed,
                 torch.full((*rank.shape, K + 1), NEG_INF,
                            dtype=torch.float32, device=dev),
                 torch.zeros(rank.shape, dtype=torch.bool, device=dev))
-    s_p, q, member, fill, ord_dom = _waterfill_tables(snap, pair_st, dom_s,
-                                                      allowed, rank)
-    cap_order = _cap_order(snap.nodes.allocatable, used)
-    return ops.waterfill(fill, ord_dom, dom_s, s_p, q, relaxed, cap_order,
-                         score, member, K + 1)
+    stats = stats or RoundStats()
+    with stats.span("K12 cap order"):
+        cap_order = _cap_order(snap.nodes.allocatable, used)
+        dsort, dnode = waterfill_lists(dom_s, cap_order)
+    with stats.span("K12 tables"):
+        s_p, member, key = ops.waterfill_members(
+            pods.ts_sig, pods.ts_valid, pods.ts_when, allowed, rank, S)
+        q = ops.waterfill_q(*torch.sort(key, dim=-1), S)
+        fill, ord_dom = ops.waterfill_fill(*torch.sort(
+            ops.waterfill_cnt(dsort, pair_st.counts), dim=-1, stable=True))
+    with stats.span("K12 kernel"):
+        return ops.waterfill(fill, ord_dom, dom_s, s_p, q, relaxed,
+                             cap_order, score, member, K + 1, dsort, dnode)
 
 
-def excess_min_plain(dom_s: torch.Tensor, counts: torch.Tensor,
-                     node_valid: torch.Tensor, aff_ok: torch.Tensor,
-                     s_c: torch.Tensor) -> torch.Tensor:
-    """[P] f32: min over valid nodes with aff_ok and the key of the
-    end-state count at the node's domain under signature s_c[p]; 0
-    where there is none. A tenant batch goes tenant by tenant."""
-    if counts.dim() == 3:
-        return per_tenant(excess_min_plain, counts.shape[0], dom_s, counts,
-                          node_valid, aff_ok, s_c)
-    s = s_c.long()
-    node_cnt = torch.gather(counts, 1, dom_s.clamp(min=0).long())[s]
-    eligible = node_valid[None, :] & aff_ok & (dom_s[s] >= 0)
-    lo = torch.where(eligible, node_cnt,
-                     torch.full((), torch.inf, dtype=torch.float32,
-                                device=counts.device)).amin(dim=1)
-    return torch.where(torch.isfinite(lo), lo, torch.zeros_like(lo))
+def excess_keys_plain(dom_s: torch.Tensor, counts: torch.Tensor,
+                      node_valid: torch.Tensor) -> torch.Tensor:
+    """[S, N] f32 K13's key table: the end-state count of node n's domain
+    under signature s where n is valid and has the key, +inf elsewhere
+    ([B, S, N] per tenant)."""
+    node_cnt = torch.gather(counts, -1, dom_s.clamp(min=0).long())
+    return torch.where((dom_s >= 0) & node_valid.unsqueeze(-2), node_cnt,
+                       torch.full((), torch.inf, dtype=torch.float32,
+                                  device=counts.device))
 
 
-def excess_min(dom_s: torch.Tensor, counts: torch.Tensor,
-               node_valid: torch.Tensor, aff_ok: torch.Tensor,
-               s_c: torch.Tensor) -> torch.Tensor:
-    """Kernel K13's [P, N] pass on CUDA tensors, the plain version on CPU
+def excess_keys(dom_s: torch.Tensor, counts: torch.Tensor,
+                node_valid: torch.Tensor) -> torch.Tensor:
+    """Kernel K13's key table on CUDA tensors, the plain version on CPU
     tensors."""
     dev = counts.device
     if dev.type == "cpu":
-        return excess_min_plain(dom_s, counts, node_valid, aff_ok, s_c)
-    lead = aff_ok.shape[:-2]               # () or (B,): the tenant axis
-    P, N = aff_ok.shape[-2:]
-    S = dom_s.shape[-2]
-    k = "excess_min"
+        return excess_keys_plain(dom_s, counts, node_valid)
+    lead = counts.shape[:-2]
+    S, N = counts.shape[-2:]
+    k = "excess_keys"
     check(k, dev, dom_s, torch.int32, (*lead, S, N))
     check(k, dev, counts, torch.float32, (*lead, S, N))
     check(k, dev, node_valid, torch.bool, (*lead, N))
+    key = torch.empty((*lead, S, N), dtype=torch.float32, device=dev)
+    if key.numel() == 0:
+        return key
+    _build.launch("tpusched_excess_keys", lead[0] if lead else 1, S, N,
+                  *ptrs((dom_s, counts, node_valid, key)), stream_of(dev))
+    excess_keys.launches += 1
+    return key
+
+
+excess_keys.launches = 0
+
+
+def excess_min_plain(key: torch.Tensor, aff_ok: torch.Tensor,
+                     ts_sig: torch.Tensor, ts_valid: torch.Tensor,
+                     ts_when: torch.Tensor, ts_skew: torch.Tensor,
+                     choice: torch.Tensor, kept: torch.Tensor,
+                     rank: torch.Tensor, dom_s: torch.Tensor,
+                     counts: torch.Tensor):
+    """K13's [P, N] pass and each spread slot's per-pod steps: for slot c
+    of pod p with signature s = ts_sig[p, c] (clamped at 0), min_end =
+    the min of key[s, n] over n with aff_ok[p, n] (0 where there is
+    none), T = min_end + maxSkew, the pod's (s, domain at its choice)
+    cell and count cnt_total, member (kept, a DoNotSchedule slot, placed
+    on a node with the key), the sort key (gid << 32) + rank (gid the
+    cell of a member, S * N otherwise) and each group's member count
+    g_cnt. Returns (T, cnt_total [C, P] f32, gkey [C, P] int64, g_cnt
+    [C, S * N + 1] int32). A tenant batch goes tenant by tenant."""
+    if aff_ok.dim() == 3:
+        return per_tenant(excess_min_plain, aff_ok.shape[0], key, aff_ok,
+                          ts_sig, ts_valid, ts_when, ts_skew, choice, kept,
+                          rank, dom_s, counts)
+    P, N = aff_ok.shape
+    S = dom_s.shape[0]
+    dev = aff_ok.device
+    s = ts_sig.clamp(min=0).long().T                          # [C, P]
+    inf = torch.full((), torch.inf, dtype=torch.float32, device=dev)
+    lo = torch.stack([torch.where(aff_ok, key[s_c], inf).amin(dim=1)
+                      for s_c in s]).reshape(s.shape)
+    T = torch.where(torch.isfinite(lo), lo, torch.zeros_like(lo)) + ts_skew.T
+    d = dom_s[s, choice.clamp(0, N - 1).long()[None, :]]      # [C, P]
+    member = (kept & (choice >= 0))[None, :] & (d >= 0) & (
+        ts_valid & (ts_when == DO_NOT_SCHEDULE)).T
+    cell = s * N + d.clamp(min=0)
+    cnt_total = counts.flatten()[cell]
+    gid = torch.where(member, cell, S * N)
+    g_cnt = torch.zeros((s.shape[0], S * N + 1), dtype=torch.int32,
+                        device=dev)
+    g_cnt.scatter_add_(1, gid, member.to(torch.int32))
+    return T, cnt_total, (gid << 32) + rank.long(), g_cnt
+
+
+def excess_min(key: torch.Tensor, aff_ok: torch.Tensor, ts_sig: torch.Tensor,
+               ts_valid: torch.Tensor, ts_when: torch.Tensor,
+               ts_skew: torch.Tensor, choice: torch.Tensor,
+               kept: torch.Tensor, rank: torch.Tensor, dom_s: torch.Tensor,
+               counts: torch.Tensor):
+    """Kernel K13's [P, N] pass on CUDA tensors, the plain version on CPU
+    tensors."""
+    dev = aff_ok.device
+    if dev.type == "cpu":
+        return excess_min_plain(key, aff_ok, ts_sig, ts_valid, ts_when,
+                                ts_skew, choice, kept, rank, dom_s, counts)
+    lead = aff_ok.shape[:-2]               # () or (B,): the tenant axis
+    P, N = aff_ok.shape[-2:]
+    S = dom_s.shape[-2]
+    C = ts_sig.shape[-1]
+    k = "excess_min"
+    if not 1 <= C <= 16:
+        raise ValueError(f"{k}: {C} spread slots, the kernel takes 1..16")
+    check(k, dev, key, torch.float32, (*lead, S, N))
     check(k, dev, aff_ok, torch.bool, (*lead, P, N))
-    check(k, dev, s_c, torch.int32, (*lead, P))
-    out = torch.empty((*lead, P), dtype=torch.float32, device=dev)
-    if aff_ok.numel() == 0:
-        return out.fill_(0.0)
-    _build.launch("tpusched_excess_min", lead[0] if lead else 1, P, S, N,
-                  *ptrs((dom_s, counts, node_valid, aff_ok, s_c, out)),
-                  stream_of(dev))
+    check(k, dev, ts_sig, torch.int32, (*lead, P, C))
+    check(k, dev, ts_valid, torch.bool, (*lead, P, C))
+    check(k, dev, ts_when, torch.int8, (*lead, P, C))
+    check(k, dev, ts_skew, torch.float32, (*lead, P, C))
+    check(k, dev, choice, torch.int32, (*lead, P))
+    check(k, dev, kept, torch.bool, (*lead, P))
+    check(k, dev, rank, torch.int32, (*lead, P))
+    check(k, dev, dom_s, torch.int32, (*lead, S, N))
+    check(k, dev, counts, torch.float32, (*lead, S, N))
+    T = torch.empty((*lead, C, P), dtype=torch.float32, device=dev)
+    cnt_total = torch.empty((*lead, C, P), dtype=torch.float32, device=dev)
+    gkey = torch.empty((*lead, C, P), dtype=torch.int64, device=dev)
+    g_cnt = torch.zeros((*lead, C, S * N + 1), dtype=torch.int32,
+                        device=dev)
+    if T.numel() == 0 or N == 0:
+        return T, cnt_total, gkey, g_cnt
+    _build.launch("tpusched_excess_min", lead[0] if lead else 1, P, S, N, C,
+                  *ptrs((key, aff_ok, ts_sig, ts_valid, ts_when, ts_skew,
+                         choice, kept, rank, dom_s, counts, T, cnt_total,
+                         gkey, g_cnt)), stream_of(dev))
     excess_min.launches += 1
-    return out
+    return T, cnt_total, gkey, g_cnt
 
 
 excess_min.launches = 0
@@ -2458,8 +2684,8 @@ def excess_survive_plain(gid_s: torch.Tensor, perm: torch.Tensor,
 def excess_survive(gid_s: torch.Tensor, perm: torch.Tensor,
                    member: torch.Tensor, T: torch.Tensor,
                    b_fixed: torch.Tensor) -> torch.Tensor:
-    """Kernel K13's group walk on CUDA tensors, the plain version on CPU
-    tensors."""
+    """Kernel K13's group walk in its one-slot form (the solves call
+    `excess_walk`) on CUDA tensors, the plain version on CPU tensors."""
     dev = perm.device
     if dev.type == "cpu":
         return excess_survive_plain(gid_s, perm, member, T, b_fixed)
@@ -2470,7 +2696,7 @@ def excess_survive(gid_s: torch.Tensor, perm: torch.Tensor,
     check(k, dev, member, torch.bool, rows)
     check(k, dev, T, torch.float32, rows)
     check(k, dev, b_fixed, torch.float32, rows)
-    bad = torch.empty(rows, dtype=torch.bool, device=dev)
+    bad = torch.zeros(rows, dtype=torch.bool, device=dev)
     if bad.numel() == 0:
         return bad
     _build.launch("tpusched_excess_survive",
@@ -2484,6 +2710,74 @@ def excess_survive(gid_s: torch.Tensor, perm: torch.Tensor,
 excess_survive.launches = 0
 
 
+def _gid_of(key: torch.Tensor) -> torch.Tensor:
+    """The group of a sort key (gid << 32) + rank, for any int32 rank."""
+    return (key + (1 << 31)) >> 32
+
+
+def excess_survive_args(key_s: torch.Tensor, perm: torch.Tensor,
+                        T: torch.Tensor, cnt_total: torch.Tensor,
+                        g_cnt: torch.Tensor, c: int) -> tuple:
+    """Slot c of K13's walk inputs (key_s, perm [C, P]: each slot's sort
+    keys ascending and their pod rows) in `excess_survive`'s one-slot
+    form: (gid_s int32, perm int32, member, T, b_fixed), member the rows
+    of a real group (gid < S * N) and b_fixed = cnt_total - the group's
+    count g_cnt, by pod ([B, P] per tenant)."""
+    SN = g_cnt.shape[-1] - 1
+    gid_s = _gid_of(key_s[..., c, :])
+    p = perm[..., c, :]
+    member = torch.zeros(gid_s.shape, dtype=torch.bool,
+                         device=gid_s.device).scatter(-1, p, gid_s < SN)
+    b_s = (cnt_total[..., c, :].gather(-1, p)
+           - g_cnt[..., c, :].gather(-1, gid_s).to(torch.float32))
+    return (gid_s.to(torch.int32), p.to(torch.int32), member,
+            T[..., c, :].contiguous(),
+            torch.empty_like(b_s).scatter(-1, p, b_s))
+
+
+def excess_walk_plain(key_s: torch.Tensor, perm: torch.Tensor,
+                      T: torch.Tensor, cnt_total: torch.Tensor,
+                      g_cnt: torch.Tensor) -> torch.Tensor:
+    """[P] bool: K13's group walk over every spread slot, ORed over the
+    slots, each through `excess_survive_plain` (a tenant batch: [B, P])."""
+    bad = torch.zeros(key_s.shape[:-2] + key_s.shape[-1:], dtype=torch.bool,
+                      device=key_s.device)
+    for c in range(key_s.shape[-2]):
+        bad = bad | excess_survive_plain(*excess_survive_args(
+            key_s, perm, T, cnt_total, g_cnt, c))
+    return bad
+
+
+def excess_walk(key_s: torch.Tensor, perm: torch.Tensor, T: torch.Tensor,
+                cnt_total: torch.Tensor, g_cnt: torch.Tensor) -> torch.Tensor:
+    """Kernel K13's group walk over every spread slot on CUDA tensors, the
+    plain version on CPU tensors."""
+    dev = key_s.device
+    if dev.type == "cpu":
+        return excess_walk_plain(key_s, perm, T, cnt_total, g_cnt)
+    lead = key_s.shape[:-2]
+    C, P = key_s.shape[-2:]
+    SN1 = g_cnt.shape[-1]
+    k = "excess_walk"
+    check(k, dev, key_s, torch.int64, (*lead, C, P))
+    check(k, dev, perm, torch.int64, (*lead, C, P))
+    check(k, dev, T, torch.float32, (*lead, C, P))
+    check(k, dev, cnt_total, torch.float32, (*lead, C, P))
+    check(k, dev, g_cnt, torch.int32, (*lead, C, SN1))
+    bad = torch.zeros((*lead, P), dtype=torch.bool, device=dev)
+    if key_s.numel() == 0:
+        return bad
+    # S * N travels as (SN1 - 1, 1): the kernel needs only the product.
+    _build.launch("tpusched_excess_walk", lead[0] if lead else 1, C, P,
+                  SN1 - 1, 1, *ptrs((key_s, perm, T, cnt_total, g_cnt, bad)),
+                  stream_of(dev))
+    excess_walk.launches += 1
+    return bad
+
+
+excess_walk.launches = 0
+
+
 def _spread_excess_mask(snap: ClusterSnapshot, aff_ok: torch.Tensor,
                         rank: torch.Tensor, choice: torch.Tensor,
                         kept: torch.Tensor, st: "kpair.PairState",
@@ -2495,37 +2789,20 @@ def _spread_excess_mask(snap: ClusterSnapshot, aff_ok: torch.Tensor,
     prefix member's allowance T = (min end-state count over its
     eligible domains) + maxSkew survives. Every cross-pod reduction is
     an integer count or a min, so a view's verdict is row for row the
-    full width's. A tenant batch ([B, P] rows) groups, sorts and counts
-    within each tenant; K13 launches once for all of them."""
-    pods, nodes = snap.pods, snap.nodes
-    lead = rank.shape[:-1]
-    S, N = dom_s.shape[-2:]
-    dev = dom_s.device
-    dns = pods.ts_valid & (pods.ts_when == DO_NOT_SCHEDULE)
-    ch = choice.clamp(0, N - 1).long()
-    dom_f = dom_s.flatten(-2)                                # [.., S * N]
-    cnt_f = st.counts.flatten(-2)
-    bad = torch.zeros(rank.shape, dtype=torch.bool, device=dev)
-    for c in range(pods.ts_key.shape[-1]):
-        s_c = pods.ts_sig[..., c].clamp(min=0)
-        d_c = dom_f.gather(-1, s_c.long() * N + ch)
-        member = kept & dns[..., c] & (choice >= 0) & (d_c >= 0)
-        min_end = ops.excess_min(dom_s, st.counts, nodes.valid, aff_ok,
-                                 s_c.contiguous())
-        T = min_end + pods.ts_max_skew[..., c]
-        cell = s_c * N + d_c.clamp(min=0)
-        cnt_total = cnt_f.gather(-1, cell.long())
-        gid = torch.where(member, cell, S * N)
-        g_tab = torch.zeros((*lead, S * N + 1), dtype=torch.float32,
-                            device=dev)
-        g_tab.scatter_add_(-1, gid.long(), member.to(torch.float32))
-        # The members' non-revertable rest.
-        b_fixed = cnt_total - g_tab.gather(-1, gid.long())
-        perm = torch.sort((gid.long() << 32) + rank.long(), dim=-1).indices
-        bad = bad | ops.excess_survive(
-            gid.gather(-1, perm).to(torch.int32).contiguous(),
-            perm.to(torch.int32), member, T.contiguous(), b_fixed)
-    return bad
+    full width's. Every spread slot at once: K13's key table, its pass
+    (all slots from one read of aff_ok), one torch.sort of each slot's
+    keys and K13's walk. A tenant batch ([B, P] rows) groups, sorts and
+    counts within each tenant; each kernel launches once for all."""
+    pods = snap.pods
+    S = dom_s.shape[-2]
+    if pods.ts_key.shape[-1] == 0 or S == 0:
+        return torch.zeros(rank.shape, dtype=torch.bool, device=dom_s.device)
+    key = ops.excess_keys(dom_s, st.counts, snap.nodes.valid)
+    T, cnt_total, gkey, g_cnt = ops.excess_min(
+        key, aff_ok, pods.ts_sig, pods.ts_valid, pods.ts_when,
+        pods.ts_max_skew, choice, kept, rank, dom_s, st.counts)
+    key_s, perm = torch.sort(gkey, dim=-1)
+    return ops.excess_walk(key_s, perm, T, cnt_total, g_cnt)
 
 
 def _sig_involvement(snap: ClusterSnapshot, static: StaticCtx,
@@ -2643,10 +2920,9 @@ def _round_sig(cfg: EngineConfig, snap_v: ClusterSnapshot,
     # every signature they touch.
     gate = ~cons_v | _min_rank_first(want & cons_v, rank_v, invol_v)
     allowed = want & gate
-    with stats.span("K12 waterfill"):
-        sp = _spread_waterfill_deal(snap_v, pair_st, used, relaxed, score,
-                                    relaxed.any(dim=-1) & gate, rank_v, K,
-                                    dom_s, ops)
+    sp = _spread_waterfill_deal(snap_v, pair_st, used, relaxed, score,
+                                relaxed.any(dim=-1) & gate, rank_v, K, dom_s,
+                                ops, stats)
     with stats.span("K6 row_topk"):
         topv, topi, pick = ops.row_topk(masked, K, cfg.tie_break == "seeded",
                                         cfg.tie_seed, pod_ids)
@@ -3227,9 +3503,10 @@ def _preempt_rounds_many(cfg, snap, static, rank, order, base_rounds, used,
                         snap_pv, st, sig_pv, dom_s, choice_pv,
                         torch.where(kept, choice_pv, -1))
                     bad = kept & hp_pv & ~ia_ok
-                    bad = bad | (kept & _spread_excess_mask(
-                        snap_pv, static_pv.aff_ok, rank_pv, choice_pv, kept,
-                        st, dom_s, ops))
+                    with stats.span("K13 spread_excess, fixpoint"):
+                        bad = bad | (kept & _spread_excess_mask(
+                            snap_pv, static_pv.aff_ok, rank_pv, choice_pv,
+                            kept, st, dom_s, ops))
                     bad = bad & flag[:, None]
                     st = ops.pair_commit(snap_pv, st, sig_pv, dom_s,
                                          choice_pv, bad, -1.0)
@@ -3698,9 +3975,14 @@ class Ops:
     node_add: Callable
     pair_commit: Callable
     ia_ok_at_choice: Callable
+    waterfill_members: Callable
+    waterfill_q: Callable
+    waterfill_cnt: Callable
+    waterfill_fill: Callable
     waterfill: Callable
+    excess_keys: Callable
     excess_min: Callable
-    excess_survive: Callable
+    excess_walk: Callable
     parity_scan_preempt: Callable
     parity_scan_pair_preempt: Callable
     auction_ok: Callable
@@ -3720,9 +4002,11 @@ KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
               row_topk, desirability, prefix_commit_plain,
               prefix_commit_loop, kpair.sig_match,
               kpair.pair_counts, kpair.pairwise_batch, parity_scan_pair,
-              node_add, kpair.pair_commit, kpair.ia_ok_at_choice, waterfill,
-              excess_min, excess_survive, parity_scan_preempt,
-              parity_scan_pair_preempt, kpre.auction_ok, kpre.auction_tables,
+              node_add, kpair.pair_commit, kpair.ia_ok_at_choice,
+              waterfill_members, waterfill_q, waterfill_cnt, waterfill_fill,
+              waterfill, excess_keys, excess_min, excess_walk,
+              parity_scan_preempt, parity_scan_pair_preempt, kpre.auction_ok,
+              kpre.auction_tables,
               kpre.auction_rank, kpre.auction_claim, capacity_prefix_keep,
               frontier_closure, kexplain.explain_cells,
               kexplain.explain_terms, deal, top_by_rank, kpair.ring_hop)
@@ -3732,8 +4016,10 @@ PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             prefix_commit_loop_plain, kpair.sig_match_plain,
             kpair.pair_counts_plain, kpair.pairwise_batch_plain,
             parity_scan_pair_plain, node_add_plain, kpair.pair_commit_plain,
-            kpair.ia_ok_at_choice_plain, waterfill_plain, excess_min_plain,
-            excess_survive_plain, parity_scan_preempt_plain,
+            kpair.ia_ok_at_choice_plain, waterfill_members_plain,
+            waterfill_q_plain, waterfill_cnt_plain, waterfill_fill_plain,
+            waterfill_plain, excess_keys_plain,
+            excess_min_plain, excess_walk_plain, parity_scan_preempt_plain,
             parity_scan_pair_preempt_plain, kpre.auction_ok_plain,
             kpre.auction_tables_plain, kpre.auction_rank_plain,
             kpre.auction_claim_plain, capacity_prefix_keep_plain,
