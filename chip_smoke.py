@@ -27,7 +27,12 @@ package, and
      K8 prefix_commit_loop (every commit sub-step of a round in one
      launch) on the first fast round, exactly, timed by CUDA events and
      the profiler (and later on (d)'s first compacted round, fast (h)'s
-     first preemption drain step and (t)'s round 1, B = 8);
+     first preemption drain step and (t)'s round 1, B = 8); K23's
+     hand-off deal_lists (K7's desirability in, K8's lists out: the
+     node sort, both prefixes, the search and the lists in two
+     launches) on (b)'s first fast round, exactly, by CUDA events and
+     the profiler (and later on (d)'s first round, fast (h)'s first
+     plain commit of a preemption round and (t)'s round 1, B = 8);
      Then, on the pairwise cluster (d) (BASELINE config 3 at 10 000 x
      5 000: topology spread and inter-pod affinity), K9 sig_match, K10
      pair_counts, K11 pairwise_batch (also on a 1 024-row view, every
@@ -38,7 +43,10 @@ package, and
      (members, positions, domain counts, fill levels; the node lists'
      sort timed apart), K13 (excess_keys, excess_min, excess_walk, and
      the walk's one-slot form excess_survive), each also by the
-     profiler, K14 ia_ok_at_choice, K10's pair_commit, K8's
+     profiler, K14 ia_ok_at_choice, K10's pair_commit (adding into the
+     state it is handed, so each comparison hands it a copy; the
+     round's commit and a validation revert, each by the profiler
+     too), K8's
      node_add (beside one index_add_, and a profiler trace showing one
      kernel and nothing else on the card a call), K7 in fixed point,
      K11 with ia_ok and K5 with the relaxed output;
@@ -484,6 +492,8 @@ KERNELS = (
      "tpusched/kernels/assign.py:485"),
     ("deal", kassign.deal, "launches", "tpusched_torch/csrc/dealing.cu",
      "tpusched/kernels/assign.py:815"),
+    ("deal_lists", kassign.deal_lists, "launches",
+     "tpusched_torch/csrc/dealing.cu", "tpusched/kernels/assign.py:815"),
     ("top_by_rank", kassign.top_by_rank, "launches",
      "tpusched_torch/csrc/tranche.cu", "tpusched/kernels/assign.py:996"),
     ("ring_hop", kpair.ring_hop, "launches", "tpusched_torch/csrc/ring.cu",
@@ -502,6 +512,9 @@ OFF_PATH = {
                   "claims",
     "excess_survive": "K13's walk in its one-slot form; the solves run "
                       "excess_walk, the same kernel over every slot",
+    "deal": "K23's dealing alone (the prefixes and the search), the tests' "
+            "reference; the fast rounds run deal_lists, the whole hand-off "
+            "from K7 to K8",
 }
 PARITY_KERNELS = ("atom_sat", "tableau_cells", "finalize_static",
                   "parity_scan")
@@ -519,8 +532,8 @@ ONCE = ("tableau_cells", "finalize_static", "parity_scan", "sig_match",
 # the explained solve, seeded or not (kassign.topk_route: K <= 32); the
 # radix select only the auction's K = 256.
 FAST_KERNELS = ("atom_sat", "tableau_cells", "finalize_static", "cycle",
-                "row_topk", "desirability", "prefix_commit_loop", "deal",
-                "top_by_rank")
+                "row_topk", "desirability", "prefix_commit_loop",
+                "deal_lists", "top_by_rank")
 FAST_PAIR_KERNELS = FAST_KERNELS + (
     "sig_match", "pair_counts", "pairwise_batch", "waterfill_members",
     "waterfill_q", "waterfill_cnt", "waterfill_fill", "waterfill",
@@ -1248,24 +1261,59 @@ def first_k7_args(cfg: EngineConfig, dsnap):
     return calls[0]
 
 
-def loop_calls(cfg: EngineConfig, dsnap, want=lambda site, a: True,
-               solve=None, first: bool = True):
-    """The arguments (cloned) of K8's loop calls in one fast solve of
+def deal_commit_calls(field: str, cfg: EngineConfig, dsnap,
+                      want=lambda site, a: True, solve=None,
+                      first: bool = True):
+    """The arguments (cloned) of the calls that `_deal_commit` makes of
+    the Ops entry `field` (K8's loop, K23's hand-off) in one fast solve of
     `dsnap` whose _deal_commit caller (by function name) and arguments
     pass `want`: the first such call, or all of them."""
     calls = []
+    fn = getattr(kassign.KERNELS, field)
+    clone = lambda x: (x.clone() if isinstance(x, torch.Tensor)  # noqa
+                       else tuple(map(clone, x)) if isinstance(x, tuple)
+                       else x)
 
     def record(*args):
         if (not (first and calls)
                 and want(sys._getframe(2).f_code.co_name, args)):
-            calls.append(tuple(x.clone() if isinstance(x, torch.Tensor)
-                               else x for x in args))
-        return kassign.prefix_commit_loop(*args)
+            calls.append(clone(args))
+        return fn(*args)
 
-    ops = dataclasses.replace(kassign.KERNELS, prefix_commit_loop=record)
+    ops = dataclasses.replace(kassign.KERNELS, **{field: record})
     (solve or solve_core)(dataclasses.replace(cfg, mode="fast"), dsnap,
                           ops=ops)
     return calls[0] if first else calls
+
+
+def loop_calls(*args, **kw):
+    """K8's loop calls (`deal_commit_calls`)."""
+    return deal_commit_calls("prefix_commit_loop", *args, **kw)
+
+
+# Wall seconds the hand-off's and K10's comparison rows take in this run
+# (their recording solves, checks and timings), logged at the end.
+ROW_S = {"deal_lists": 0.0, "pair_commit": 0.0}
+
+
+def row_seconds(key: str):
+    """Add each call's wall seconds to ROW_S[key]."""
+    def wrap(fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ROW_S[key] += time.perf_counter() - t0
+        return timed
+    return wrap
+
+
+@row_seconds("deal_lists")
+def handoff_calls(*args, **kw):
+    """The hand-off's calls (K23's deal_lists: K7's desirability in, K8's
+    lists out; `deal_commit_calls`)."""
+    return deal_commit_calls("deal_lists", *args, **kw)
 
 
 def k8_set(label: str, args, smi: str) -> dict:
@@ -1313,6 +1361,68 @@ def k8_merge(kp: dict, label: str, row: dict) -> None:
     r.setdefault("extra", {}).setdefault("sets", {})[label] = {
         k: row[k] for k in ("ms", "prof_ms", "plain_ms", "substeps",
                             "committed")} | {"bound_ms": row["bound"][0]}
+
+
+@row_seconds("deal_lists")
+def handoff_row(label: str, a, smi: str, prof: bool = False,
+                plain: bool = False) -> dict:
+    """The hand-off (two launches for every tenant) against its plain
+    version (the torch steps it replaced) on one argument set, exactly,
+    by CUDA events, and where asked by the profiler (both kernels) and
+    the plain version's events (else None); the bound counts the
+    arguments it reads whole and the entries it gathers once, its
+    outputs once, and the sort's comparators, the scans' adds and the
+    searches' steps as operations."""
+    got = kassign.deal_lists(*a)
+    err = require_equal(f"deal_lists ({label})", got,
+                        kassign.deal_lists_plain(*a))
+    desir, alloc, used, req, allowed, rank, feas, masked, topv, topi = a[:10]
+    tie, override, _, width = a[10:]
+    lead = tuple(rank.shape[:-1])
+    B = lead[0] if lead else 1
+    V, K = topi.shape[-2:]
+    N, R = alloc.shape[-2:]
+    L = V if width is None else width
+    steps = lambda n: max(1, (n - 1).bit_length())  # noqa: E731
+    b = (nbytes(desir, alloc, used, req, allowed, rank, topv, topi, *got)
+         + B * V * 9 + (0 if tie is None else nbytes(tie) + 4 * B * V)
+         + (0 if override is None else nbytes(*override)))
+    ops = B * (R * (L * steps(L) + N * steps(N) + V * steps(N))
+               + N * steps(N) * (steps(N) + 1) // 4)
+    fn = lambda: kassign.deal_lists(*a)  # noqa: E731
+    row = dict(
+        err=err, ms=cuda_ms(fn, 20),
+        prof_ms=profiler_ms(fn, "deal_lists") if prof else None,
+        plain_ms=(cuda_ms(lambda: kassign.deal_lists_plain(*a), 5) if plain
+                  else None),
+        bound=bound(b, ops), library_ms=None,
+        shape=f"{label}: B={B} V={V} L={L} N={N} R={R} K+1={K + 1}"
+              f"{', seeded' if tie is not None else ''}"
+              f"{', override' if override is not None else ''}, "
+              f"{int(allowed.sum())} allowed, "
+              f"{int((got[0][..., 0] != got[0][..., 1]).sum())} lists led "
+              "by the dealt node")
+    row["extra"] = {"prof_ms": row["prof_ms"]}
+    log_rows({"deal_lists": row}, label, smi)
+    return row
+
+
+def handoff_merge(kp: dict, label: str, row: dict) -> None:
+    """One more argument set of the hand-off's row: its error joins the
+    row's, its numbers go under extra["sets"] (the row's own set too)."""
+    r = kp.setdefault("deal_lists", row)
+    r["err"] = max(r["err"], row["err"])
+    r.setdefault("extra", {}).setdefault("sets", {})[label] = {
+        k: row[k] for k in ("ms", "prof_ms", "plain_ms")} | {
+        "bound_ms": row["bound"][0]}
+
+
+def fresh(name: str, a: tuple) -> tuple:
+    """a with a copy of its pair state where `name` is K10's commit, which
+    adds into the state it is handed."""
+    if name.startswith("pair_commit"):
+        return (a[0], kpair.copy_state(a[1]), *a[2:])
+    return a
 
 
 def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order,
@@ -1387,6 +1497,9 @@ def fast_kernel_phase(cfg: EngineConfig, dsnap, static, order,
     label = "(b)'s round 1, full width"
     out["prefix_commit_loop"] = k8_set(label, loop_calls(cfg, dsnap), smi)
     k8_merge(out, label, out["prefix_commit_loop"])
+    out["deal_lists"] = handoff_row(label, handoff_calls(cfg, dsnap), smi,
+                                    prof=True, plain=True)
+    handoff_merge(out, label, out["deal_lists"])
     return out
 
 
@@ -1569,7 +1682,7 @@ def first_pair_round_calls(cfg: EngineConfig, dsnap) -> dict:
     def rec(name, fn, want=lambda a, kw: True):
         def wrapped(*a, **kw):
             if name not in calls and want(a, kw):
-                calls[name] = (fn, a, kw)
+                calls[name] = (fn, fresh(name, a), kw)
             return fn(*a, **kw)
         return wrapped
 
@@ -1584,7 +1697,9 @@ def first_pair_round_calls(cfg: EngineConfig, dsnap) -> dict:
         excess_min=rec("excess_min", k.excess_min),
         excess_walk=rec("excess_walk", k.excess_walk),
         ia_ok_at_choice=rec("ia_ok_at_choice", k.ia_ok_at_choice),
-        pair_commit=rec("pair_commit", k.pair_commit),
+        pair_commit=rec("pair_commit_revert", rec(
+            "pair_commit", k.pair_commit, lambda a, kw: a[6:] != (-1.0,)),
+            lambda a, kw: a[6:] == (-1.0,) and bool(a[5].any())),
         node_add=rec("node_add", k.node_add,
                      lambda a, kw: bool(a[2].any())),
         desirability=rec("desirability_fixed", k.desirability,
@@ -1715,6 +1830,28 @@ def spread_row(name: str, fn, a: tuple, got: list, lead: str) -> dict:
     return r
 
 
+@row_seconds("pair_commit")
+def commit_revert(calls: dict, a: tuple, kw: dict) -> dict:
+    """K10's commit with sign -1 against its plain version, exactly: on
+    the first revert of the solve's validation passes, or, where none
+    reverted anything, taking back the recorded commit from the state it
+    made. Its events time and the reverted count."""
+    if "pair_commit_revert" in calls:
+        _, ra, _ = calls["pair_commit_revert"]
+        where = "the first validation revert"
+    else:
+        st = kpair.pair_commit(*fresh("pair_commit", a), **kw)
+        ra = (a[0], st, *a[2:6], -1.0)
+        where = "the round's commit taken back"
+    fn = kpair.pair_commit
+    require_equal(f"pair_commit ({where})", _flat(fn(*fresh("pair_commit",
+                                                             ra))),
+                  _flat(kpair.pair_commit_plain(*fresh("pair_commit", ra))))
+    work = fresh("pair_commit", ra)
+    return {"where": where, "reverted": int(ra[5].sum()),
+            "ms": cuda_ms(lambda: fn(*work), 10)}
+
+
 def fast_pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
     """K12-K14 and the fast pairwise entry points of K5, K7, K8, K10 and
     K11 against their plain versions, on the arguments of their first
@@ -1729,11 +1866,13 @@ def fast_pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
     IT = dsnap.pods.ia_sig.shape[1]
     for name, plain in PLAIN_OF.items():
         fn, a, kw = calls[name]
-        got = _flat(fn(*a, **kw))
-        want = _flat(plain(*a, **kw))
+        got = _flat(fn(*fresh(name, a), **kw))
+        want = _flat(plain(*fresh(name, a), **kw))
         err = require_equal(name, got, want)
-        r = dict(err=err, ms=cuda_ms(lambda: fn(*a, **kw), 10),
-                 plain_ms=cuda_ms(lambda: plain(*a, **kw), 3))
+        # K10's commit adds into one working state each timed call.
+        a_k, a_p = fresh(name, a), fresh(name, a)
+        r = dict(err=err, ms=cuda_ms(lambda: fn(*a_k, **kw), 10),
+                 plain_ms=cuda_ms(lambda: plain(*a_p, **kw), 3))
         if name in SPREAD_ROWS:
             r.update(spread_row(name, fn, a, got, ""))
         elif name == "ia_ok_at_choice":
@@ -1746,7 +1885,10 @@ def fast_pair_kernel_phase(cfg: EngineConfig, dsnap) -> dict:
                      shape=f"P={P} S={S} IT={IT}")
         elif name == "pair_commit":
             b = S * P + nbytes(a[4], a[5]) + 7 * P * IT + 2 * 4 * S * P
-            r.update(bound=bound(b, (S + IT) * P),
+            prof = profiler_ms(lambda: fn(*a_k, **kw), "pair_commit_kernel")
+            r.update(bound=bound(b, (S + IT) * P), prof_ms=prof,
+                     extra={"prof_ms": prof,
+                            "revert": commit_revert(calls, a, kw)},
                      shape=f"P={P} S={S}, {int(a[5].sum())} committed")
         elif name == "node_add":
             used, node, mask, req, rank, sign = a
@@ -1869,9 +2011,10 @@ def fast_breakdown(engine: Engine, snap) -> dict:
     spans = stats.ms()
     n = stats.counts()
     # The dealing, once per K7 call, in three forms on the snapshot's
-    # [P, R] requests and [N, R] capacity: K23, which the solve runs, its
-    # plain version (the torch code it replaced) and torch.cumsum with
-    # torch.searchsorted (f32 bits that depend on the device; timing
+    # [P, R] requests and [N, R] capacity: K23's dealing alone (the
+    # solve's hand-off, deal_lists, computes the same prefixes and
+    # search inside its two launches), its plain version and torch.cumsum
+    # with torch.searchsorted (f32 bits that depend on the device; timing
     # only).
     dem, rem = dsnap.pods.requests, dsnap.nodes.allocatable
     forms = {
@@ -3485,7 +3628,8 @@ def tenant_kernel_rows(cfg, dstack, smi: str) -> dict:
         return rec
 
     ops = dataclasses.replace(
-        kassign.KERNELS, deal=recorder("deal", kassign.deal),
+        kassign.KERNELS,
+        deal_lists=recorder("deal_lists", kassign.deal_lists),
         top_by_rank=recorder("top_by_rank", kassign.top_by_rank),
         desirability=recorder("desirability", kassign.desirability),
         row_topk=recorder("row_topk", kassign.row_topk),
@@ -3499,7 +3643,11 @@ def tenant_kernel_rows(cfg, dstack, smi: str) -> dict:
     k8 = k8_set(label, calls["prefix_commit_loop"], smi)
     rows["prefix_commit_loop"] = {"err": k8["err"]}
     k8_merge(rows, label, k8)
-    dem, rem, gather = calls["deal"]
+    hand = handoff_row(label, calls["deal_lists"], smi, prof=True)
+    rows["deal_lists"] = {"err": hand["err"]}
+    handoff_merge(rows, label, hand)
+    a = calls["deal_lists"]
+    dem, rem, gather = kassign._deal_inputs(*a[:6], *a[12:14])[1:]
     got = kassign.deal(dem, rem, gather)
     err = require_equal("deal", [got], [kassign.deal_plain(dem, rem, gather)])
     B, L, R = dem.shape
@@ -3601,11 +3749,13 @@ def log_rows(rows: dict, where: str, smi: str) -> None:
     for kname, r in rows.items():
         prof = ("not measured" if r["prof_ms"] is None
                 else f"{r['prof_ms']:.4f} ms")
+        plain = ("not measured" if r["plain_ms"] is None
+                 else f"{r['plain_ms']:.4f} ms")
         lib = (f"{r['library']} {r['library_ms']:.4f} ms, "
                if r.get("library_ms") is not None else "")
         log(f"kernel {kname} on {where} [{r['shape']}]: exact match, kernel "
             f"{r['ms']:.4f} ms (CUDA events; profiler kernel time {prof}), "
-            f"plain {r['plain_ms']:.4f} ms, {lib}bound "
+            f"plain {plain}, {lib}bound "
             f"{r['bound'][0]:.5f} ms ({r['bound'][1]}); {smi}")
 
 
@@ -3651,7 +3801,7 @@ def tenant_phase(smi: str) -> tuple[dict, dict]:
     rows = tenant_kernel_rows(cfg_f, dstack, smi)
     log_rows({k: r for k, r in rows.items()
               if k not in ("desirability", "prefix_commit_loop",
-                           "tableau_cells", "row_topk")},
+                           "deal_lists", "tableau_cells", "row_topk")},
              "(t)'s fast batch", smi)
     return launches, rows
 
@@ -3679,7 +3829,7 @@ def first_batch_calls(cfg, dstack, names: dict) -> dict:
 
         def wrapped(*a, **kw):
             if name not in calls and want(a, kw):
-                calls[name] = (fn, a, kw)
+                calls[name] = (fn, fresh(name, a), kw)
             return fn(*a, **kw)
         return wrapped
 
@@ -3737,20 +3887,23 @@ def tenant_pair_kernel_rows(dstack, reduced, smi: str) -> dict:
         plain = plain_of[name]
         scan = name == "parity_scan_pair"
         cmp = small[name] if scan else calls[name]
-        got = [t for o in _flat(cmp[0](*cmp[1], **cmp[2])) for t in _flat(o)]
+        got = [t for o in _flat(cmp[0](*fresh(name, cmp[1]), **cmp[2]))
+               for t in _flat(o)]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        want = plain(*cmp[1], **cmp[2])
+        want = plain(*fresh(name, cmp[1]), **cmp[2])
         end.record()
         end.synchronize()
         want = [t for o in _flat(want) for t in _flat(o)]
         err = require_equal(f"{name} over the tenant axis", got, want)
+        res = [t for o in _flat(fn(*fresh(name, a), **kw)) for t in _flat(o)]
+        # K10's commit adds into one working state each timed call.
+        a, a_p = fresh(name, a), fresh(name, cmp[1])
         # The plain scan runs once (seconds); the others their median.
         r = dict(err=err, ms=cuda_ms(lambda: fn(*a, **kw), 3 if scan else 10),
                  plain_ms=(start.elapsed_time(end) if scan else cuda_ms(
-                     lambda: plain(*cmp[1], **cmp[2]), 3)))
-        res = [t for o in _flat(fn(*a, **kw)) for t in _flat(o)]
+                     lambda: plain(*a_p, **cmp[2]), 3)))
         if name in SPREAD_ROWS:
             r.update(spread_row(name, fn, a, res, f"B={B} "))
             r["extra"] = {"ms_b8": r["ms"], "prof_ms_b8": r["prof_ms"]}
@@ -4262,6 +4415,9 @@ def main() -> int:
     kp = kernel_phase(cfg_first, engine.put(snap_b), smi)
     kp.update(pair_kernel_phase(cfg_first, engine.put(snap_d)))
     kp.update(fast_pair_kernel_phase(cfg_first, engine.put(snap_d)))
+    label = "(d)'s first round"
+    handoff_merge(kp, label, handoff_row(label, handoff_calls(
+        cfg_first, engine.put(snap_d)), smi))
     for name, r in kp.items():
         lib = (f", {r['library']} {r['library_ms']:.4f} ms"
                if r.get("library_ms") is not None else "")
@@ -4465,6 +4621,15 @@ def main() -> int:
                        if bool(a[2].any()))
     label = f"(h)'s drain in preemption round {step + 1}"
     k8_merge(kp, label, k8_set(label, drain, smi))
+    # The hand-off of the first plain commit of a preemption round (after
+    # each round's drain) that has an allowed row.
+    pre = handoff_calls(EngineConfig(mode="fast", preemption=True),
+                        engine.put(snap_h), first=False,
+                        want=lambda site, a: site == "_preempt_rounds_many")
+    step, plain = next((i, a) for i, a in enumerate(pre[1::2])
+                       if bool(a[4].any()))
+    label = f"(h)'s plain commit in preemption round {step + 1}"
+    handoff_merge(kp, label, handoff_row(label, plain, smi))
     sizes = k5_sizes(
         fast_cells[:2] + (("h fast: config5 10000x5000, preemption on",
                            EngineConfig(mode="fast", preemption=True),
@@ -4540,6 +4705,8 @@ def main() -> int:
                     f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
                     for k, v in bd.items()) + f"; {smi}")
 
+    log("wall seconds of the hand-off's and K10's comparison rows: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ROW_S.items()))
     kernels = []
     for name, _, _, source, replaces in KERNELS:
         r = kp[name]

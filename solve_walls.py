@@ -30,7 +30,15 @@ value churn, padded, as `refresh_tableau` passes them); `k13d`, `k12d`
 `_spread_excess_mask` and `_spread_waterfill_deal` (K13 and K12 with
 the torch steps around them) on the arguments of their first call in a
 fast solve of (d), `k13tp`, `k12tp` the same in (tp)'s fast batch (the
-profiler line: the device time of every K13 kernel, of K12's kernel). Each tree's
+profiler line: the device time of every K13 kernel, of K12's kernel);
+`k10d`, `k10tp` K10's commit on its first call's arguments in a fast
+solve of (d), (tp) (the timed calls alternate the sign on one working
+state; a tree whose commit copies its state copies it); `k23b`, `k23d`,
+`k23t` the round's hand-off from K7's desirability to K8's lists
+(`_deal_commit` on its first call's arguments, K7 answered by the
+recorded desirability, the events from the call to K8's, which is cut
+off; the profiler line: every kernel the hand-off runs) in (b), (d) and
+(t). Each tree's
 generator builds the cell from chip_smoke's own constants and puts it on
 the card once; one solve builds the kernels and warms up. Then `--pairs`
 rounds each solve once per tree, in turns (the order reversed every
@@ -115,6 +123,9 @@ KERNEL_CELLS = {
     "k2w": ("w", ("tableau_rows",)),
     "k13d": ("d", ("excess",)), "k12d": ("d", ("waterfill",)),
     "k13tp": ("tp", ("excess",)), "k12tp": ("tp", ("waterfill",)),
+    "k10d": ("d", ("commit",)), "k10tp": ("tp", ("commit",)),
+    "k23b": ("b", ("handoff",)), "k23d": ("d", ("handoff",)),
+    "k23t": ("t", ("handoff",)),
 }
 CELLS.update({c: CELLS[src] for c, (src, _) in KERNEL_CELLS.items()
               if src in CELLS})
@@ -136,6 +147,8 @@ TENANT_SHAPE["tp"] = (CS.TENANTS, CS.TENANT_PODS, CS.TENANT_STEP,
                       CS.TENANT_NODES, {})
 TENANT_SHAPE["k2t"] = TENANT_SHAPE["t"]
 TENANT_SHAPE["k13tp"] = TENANT_SHAPE["k12tp"] = TENANT_SHAPE["tp"]
+TENANT_SHAPE["k10tp"] = TENANT_SHAPE["tp"]
+TENANT_SHAPE["k23t"] = TENANT_SHAPE["t"]
 TENANT_CELLS = tuple(TENANT_SHAPE)
 # K4 alone at a given cluster size Q, on the arguments of (a)'s solve
 # (its one parity scan), then a device sync.
@@ -159,6 +172,7 @@ class Tree:
         self.path = path
         self.cell = cell
         self.pre_ms = []
+        self.kernel_ms = None
         root = Path(path).resolve()
         _drop()
         sys.path.insert(0, str(root))
@@ -259,6 +273,10 @@ class Tree:
                     else "_spread_waterfill_deal")
             args = self._first_call(pkg, dsnap, name)
             fn = lambda: getattr(a, name)(*args)
+        elif what[0] == "commit":
+            return self._commit(pkg, dsnap)
+        elif what[0] == "handoff":
+            return self._handoff(pkg, dsnap)
         else:
             _, K, seeded, view = what
             static = a.precompute_static(self.cfg, dsnap, sat)
@@ -280,6 +298,122 @@ class Tree:
             out = fn()
             torch.cuda.synchronize()
             return out if isinstance(out, tuple) else (out,)
+
+        return run
+
+    def _solve_fast(self, pkg, dsnap, ops=None) -> None:
+        cfg = dataclasses.replace(self.cfg, mode="fast")
+        ops = ops or self.assign.KERNELS
+        if self.cell in TENANT_CELLS:
+            pkg.solve_many(cfg, dsnap, ops=ops)
+        else:
+            self.engine_mod.solve_core(cfg, dsnap, ops=ops)
+
+    def _commit(self, pkg, dsnap):
+        """K10's commit on the arguments (state and all cloned) of its
+        first call in a fast solve: the timed calls alternate the sign on
+        one working state (a tree whose commit adds in place then makes
+        no copy; one that copies, copies); the compared output is one +1
+        commit into a fresh copy."""
+        a, kp = self.assign, importlib.import_module(
+            PACKAGE + ".kernels.pairwise")
+        real, seen = kp.pair_commit, []
+
+        def rec(*args):
+            if not seen:
+                seen.append(tuple(
+                    kp.copy_state(x) if isinstance(x, kp.PairState)
+                    else x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in args[:6]))
+            return real(*args)
+
+        self._solve_fast(pkg, dsnap, dataclasses.replace(
+            a.KERNELS, pair_commit=rec))
+        snap, st0, *rest = seen[0]
+        work, sign = kp.copy_state(st0), [1.0]
+
+        def fn():
+            out = kp.pair_commit(snap, work, *rest, sign[0])
+            sign[0] = -sign[0]
+            return out
+
+        self.kernel_fn = fn
+
+        def run():
+            out = kp.pair_commit(snap, kp.copy_state(st0), *rest, 1.0)
+            torch.cuda.synchronize()
+            return (out.counts, out.anti, out.match_tot)
+
+        return run
+
+    def _handoff(self, pkg, dsnap):
+        """The fast round's hand-off from K7's desirability to K8's lists
+        (`_deal_commit` with its K7 call answered by the recorded
+        desirability and its K8 call cut off), on the arguments of the
+        first `_deal_commit` call in a fast solve: timed by CUDA events
+        from the call to K8's, and the lists compared."""
+        a = self.assign
+        real, seen = a._deal_commit, []
+
+        def rec(*args, **kw):
+            if not seen:
+                clone = lambda x: (x.clone() if isinstance(x, torch.Tensor)
+                                   else tuple(map(clone, x))
+                                   if isinstance(x, tuple) else x)
+                seen.append((clone(args), {k: clone(v)
+                                           for k, v in kw.items()}))
+            return real(*args, **kw)
+
+        a._deal_commit = rec
+        try:
+            self._solve_fast(pkg, dsnap)
+        finally:
+            a._deal_commit = real
+        args, kw = seen[0]
+        alloc, requests, used, feasible, masked, allowed = args[:6]
+        fixed = kw.get("cum_width") is not None
+        desir = a.KERNELS.desirability(feasible, masked, allowed,
+                                       **({"fixed": True} if fixed else {}))
+
+        class Cut(Exception):
+            pass
+
+        ev = {}
+
+        def k8(topi, topv, *rest):
+            ev["end"].record()
+            ev["out"] = (topi, topv)
+            raise Cut
+
+        ops = dataclasses.replace(
+            a.KERNELS, desirability=lambda *x, **k: desir,
+            prefix_commit_loop=k8)
+
+        def once():
+            ev["start"] = torch.cuda.Event(enable_timing=True)
+            ev["end"] = torch.cuda.Event(enable_timing=True)
+            ev["start"].record()
+            try:
+                a._deal_commit(*args, **dict(kw, ops=ops))
+            except Cut:
+                pass
+            return ev["out"]
+
+        def ms():
+            once()
+            times = []
+            for _ in range(KERNEL_REPS):
+                once()
+                ev["end"].synchronize()
+                times.append(ev["start"].elapsed_time(ev["end"]))
+            return statistics.median(times)
+
+        self.kernel_fn, self.kernel_ms = once, ms
+
+        def run():
+            out = once()
+            torch.cuda.synchronize()
+            return out
 
         return run
 
@@ -336,6 +470,8 @@ class Tree:
         self.pre_ms.clear()
         if self.cell in KERNEL_CELLS:
             self.res = self.run()
+            if self.kernel_ms is not None:
+                return self.kernel_ms(), 0.0
             return CS.cuda_ms(self.kernel_fn, KERNEL_REPS), 0.0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -347,9 +483,13 @@ class Tree:
         equal `ref`'s."""
         if self.cell in KERNEL_CELLS:
             self.activate()
-            kernel = ("tableau_kernel" if self.cell.startswith("k2")
+            # k23: every kernel the hand-off runs (the name "" holds in
+            # each).
+            kernel = ("" if self.cell.startswith("k23")
+                      else "tableau_kernel" if self.cell.startswith("k2")
                       else "excess" if self.cell.startswith("k13")
                       else "waterfill_kernel" if self.cell.startswith("k12")
+                      else "pair_commit_kernel" if self.cell.startswith("k10")
                       else "row_topk")
             return {"profiler_ms": CS.profiler_ms(self.kernel_fn, kernel),
                     "equal_to_first_tree": all(

@@ -886,8 +886,9 @@ def test_k12_to_k14_and_entry_points_equal_plain(cuda, mix):
     _equal(deal, ka._spread_waterfill_deal(*wf, ka.PLAIN))
     assert deal[2].any()
     for sign in (1.0, -1.0):
-        a = (snap, st, static.sig_match, dom, choice, kept, sign)
-        _equal(_state(kp.pair_commit(*a)), _state(kp.pair_commit_plain(*a)))
+        a = (static.sig_match, dom, choice, kept, sign)
+        _equal(_state(kp.pair_commit(snap, kp.copy_state(st), *a)),
+               _state(kp.pair_commit_plain(snap, kp.copy_state(st), *a)))
         n = (used, choice, kept, snap.pods.requests, rank, sign)
         _equal([ka.node_add(*n)], [ka.node_add_plain(*n)])
     esn = torch.where(kept, choice, -1)
@@ -1781,6 +1782,130 @@ def _tenant_batch(cuda, B=3):
     return snaps, stack_snapshots(snaps).to(cuda)
 
 
+class _Fields(types.SimpleNamespace):
+    """The snapshot fields K10's commit reads, sliced by tenant as a
+    snapshot is."""
+
+    def tenant(self, b):
+        return _Fields(**{k: v.tenant(b) if isinstance(v, _Fields) else v[b]
+                          for k, v in vars(self).items()})
+
+
+def _commit_inputs(cuda, B, P, S, N, M, IT, hot, seed):
+    """K10's commit arguments: B tenants of P pods, S signatures over N
+    nodes; hot: every pod at node 0 in one domain (every add of a
+    signature on one address)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
+    dom = rng.integers(-1, min(3 if hot else 40, N), (B, S, N)).astype(
+        np.int32)
+    if hot:
+        dom[..., 0] = 0
+    ia_sig = t(rng.integers(-1, S, (B, P, IT)).astype(np.int32))
+    snap = _Fields(
+        pods=_Fields(ia_sig=ia_sig, ia_key=ia_sig,
+                     ia_valid=t(rng.random((B, P, IT)) < 0.8),
+                     ia_anti=t(rng.random((B, P, IT)) < 0.6),
+                     ia_required=t(rng.random((B, P, IT)) < 0.7)),
+        running=_Fields(valid=t(np.ones((B, M), bool))))
+    st = kp.PairState(
+        counts=t(rng.integers(0, 50, (B, S, N)).astype(np.float32)),
+        anti=t(rng.integers(0, 50, (B, S, N)).astype(np.float32)),
+        match_tot=t(rng.integers(0, 99, (B, S)).astype(np.float32)))
+    match = t(rng.random((B, S, M + P)) < (0.9 if hot else 0.5))
+    choice = (np.zeros((B, P)) if hot else rng.integers(-1, N, (B, P)))
+    kept = t(rng.random((B, P)) < 0.85)
+    return snap, st, match, t(dom), t(choice.astype(np.int32)), kept
+
+
+@pytest.mark.parametrize("B,P,S,N,hot", [
+    (1, 1, 1, 1, False), (1, 33, 4, 7, True), (1, 1025, 32, 300, False),
+    (1, 10_240, 4, 5_120, True), (1, 10_240, 4, 5_120, False),
+    (8, 3_072, 4, 2_048, True), (8, 3_072, 16, 2_048, False)])
+def test_k10_commit_grouped_adds_equal_plain(cuda, B, P, S, N, hot):
+    """K10's commit (a warp's adds grouped by address) into the state it
+    is handed, against its plain version, adding and taking back: one
+    pod, ragged warps, 32 signatures, every pod on one address (hot),
+    eight tenants; each tenant of a batch equals its solo call."""
+    snap, st, match, dom, choice, kept = _commit_inputs(
+        cuda, B, P, S, N, M=17, IT=3, hot=hot, seed=P + S)
+    for sign in (1.0, -1.0):
+        given = kp.copy_state(st)
+        got = kp.pair_commit(snap, given, match, dom, choice, kept, sign)
+        assert got.counts is given.counts and got.anti is given.anti
+        want = kp.pair_commit_plain(snap, kp.copy_state(st), match, dom,
+                                    choice, kept, sign)
+        _equal(_state(got), _state(want))
+        if B > 1:
+            solo = kp.pair_commit(snap.tenant(1), kp.copy_state(st.tenant(1)),
+                                  match[1], dom[1], choice[1], kept[1], sign)
+            _equal(_state(solo), _state(want.tenant(1)))
+
+
+def _handoff_inputs(cuda, B, V, N, R, K, mode, seeded, seed):
+    """deal_lists' arguments for B tenants: ties, -0.0 and -inf
+    desirabilities, all-infeasible rows; mode "scatter" (rank a
+    permutation), "sorted" (rank-sorted rows) or "width" (global ranks in
+    a 2V-row demand, with K12's override)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
+    desir = rng.choice(np.float32([-3.5, -0.0, 0.0, 1.25, 2.5, 7.0,
+                                   -np.inf]), (B, N))
+    alloc = rng.integers(0, 64, (B, N, R)).astype(np.float32) * 0.37 + 3
+    used = rng.integers(0, 64, (B, N, R)).astype(np.float32) * 0.37
+    req = rng.integers(0, 12, (B, V, R)).astype(np.float32) * 0.11
+    feasible = rng.random((B, V, N)) < 0.6
+    feasible[:, :3] = False
+    score = rng.choice(np.float32([10.0, 20.0, 20.5, 33.0]), (B, V, N))
+    masked = t(np.where(feasible, score, -np.inf).astype(np.float32))
+    allowed = feasible.any(axis=-1) & (rng.random((B, V)) < 0.9)
+    if mode == "sorted":
+        rank = np.stack([np.sort(rng.choice(3 * V, V, replace=False))
+                         for _ in range(B)])
+    elif mode == "width":
+        rank = np.stack([rng.choice(2 * V, V, replace=False)
+                         for _ in range(B)])
+    else:
+        rank = np.stack([rng.permutation(V) for _ in range(B)])
+    topv, topi, _ = ka.row_topk_plain(masked, K)
+    pick = None
+    if seeded:
+        pick = ka.pick_node_batch(
+            EngineConfig(tie_break="seeded", tie_seed=seed), masked,
+            torch.arange(V, dtype=torch.int32, device=cuda)
+            .expand(B, V).contiguous())
+    override = None
+    if mode == "width":
+        override = (t(rng.integers(0, N, (B, V, K + 1)).astype(np.int32)),
+                    t(rng.choice(np.float32([5.0, -np.inf]), (B, V, K + 1))),
+                    t(rng.random((B, V)) < 0.3))
+    return (t(desir), t(alloc), t(used), t(req), t(allowed),
+            t(rank.astype(np.int32)), t(feasible), masked, topv, topi,
+            pick, override, mode == "sorted",
+            2 * V if mode == "width" else None)
+
+
+@pytest.mark.parametrize("B,V,N", [
+    (1, 1, 1), (1, 40, 23), (3, 300, 77), (8, 3_072, 2_048),
+    (1, 6_000, 300), (1, 10_240, 5_120), (1, 14_000, 64),
+    (1, 100, 17_000)])
+@pytest.mark.parametrize("mode", ["scatter", "sorted", "width"])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_k23_deal_lists_equals_plain(cuda, B, V, N, mode, seeded):
+    """K23's hand-off (the node sort, both prefixes in _scan_plain's
+    order, the search and the lists) against its plain version bit for
+    bit, at every scan path (rows up to 4 096, 8 192, 16 384 and past
+    it: the compacted rows' demand spans 2V), node counts from 1 to past
+    16 384, no tenant axis and B = 1, 3, 8."""
+    a = _handoff_inputs(cuda, B, V, N, 3, min(4, N), mode, seeded, V + N)
+    got = ka.deal_lists(*a)
+    _equal(got, ka.deal_lists_plain(*a))
+    solo = tuple(None if x is None else
+                 tuple(y[0] for y in x) if isinstance(x, tuple)
+                 else x[0] if isinstance(x, torch.Tensor) else x for x in a)
+    _equal(ka.deal_lists(*solo), [g[0] for g in got])
+
+
 @pytest.mark.parametrize("B", [1, 3])
 def test_k23_k24_equal_plain(cuda, B):
     """K23 (with and without the rank gather) and K24 against their
@@ -1975,8 +2100,9 @@ def test_pairwise_tenant_axis_equal_plain(cuda, B):
     _equal(deal, ka._spread_waterfill_deal(*wf, ka.PLAIN))
     assert deal[2].any()
     for sign in (1.0, -1.0):
-        a = (snap, st, static.sig_match, dom, choice, kept, sign)
-        _equal(_state(kp.pair_commit(*a)), _state(kp.pair_commit_plain(*a)))
+        a = (static.sig_match, dom, choice, kept, sign)
+        _equal(_state(kp.pair_commit(snap, kp.copy_state(st), *a)),
+               _state(kp.pair_commit_plain(snap, kp.copy_state(st), *a)))
         n = (snap.nodes.used, choice, kept, snap.pods.requests, rank, sign)
         _equal([ka.node_add(*n)], [ka.node_add_plain(*n)])
     esn = torch.where(kept, choice, -1)
@@ -2532,3 +2658,24 @@ def test_k12_warp_kernel_equal_plain(cuda, case):
     got = ka.waterfill(*args)
     _equal(got, ka.waterfill_plain(*args))
     assert got[2].any() or P == 1
+
+
+@pytest.mark.parametrize("N,C,Q,K", [(1, 1, 1, 1), (5_120, 1_024, 16, 32),
+                                     (20_000, 1_024, 1, 32),
+                                     (20_000, 1_024, 4, 256),
+                                     (33, 7, 2, 9)])
+def test_card_limits_equal_compiled(cuda, N, C, Q, K):
+    """limits.py's copies of the kernels' limits (MAX_R, MAX_C, K18's
+    shared-memory cap and its bytes a CTA) equal the compiled ones."""
+    import ctypes
+
+    from tpusched_torch import _build, limits
+
+    claim = (ctypes.c_longlong * 3)()
+    shape = (ctypes.c_int * 2)()
+    _build.launch("tpusched_claim_limits", N, C, Q, K, claim)
+    _build.launch("tpusched_shape_limits", shape)
+    assert list(claim) == [limits.MAX_R, limits.CLAIM_SMEM,
+                           limits.claim_smem_bytes(N, C, Q, K)]
+    assert list(shape) == [limits.MAX_R, limits.MAX_C]
+    assert limits.MAX_C == kp.MAX_C

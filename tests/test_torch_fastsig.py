@@ -101,19 +101,25 @@ def test_sig_involvement_matches_jax(name):
 @pytest.mark.parametrize("name", CASES)
 def test_pair_state_commit_matches_jax(name, sign):
     """K10's commit entry point (plain, and the wrapper on the CPU) is
-    JAX pair_state_commit, adding and taking back."""
+    JAX pair_state_commit, adding and taking back. Both consume the state
+    they are handed (each call gets its own copy) and return its tensors,
+    updated in place."""
     jsnap, tsnap, jstatic, tstatic, jst, tst, _, dom = _setup(name, 5)
     choice, kept = _choice_kept(tsnap, 6)
     want = jpair.pair_state_commit(jsnap, jst, jstatic.sig_match,
                                    jnp.asarray(choice), jnp.asarray(kept),
                                    sign=sign)
     for fn in (kpair.pair_commit_plain, kpair.pair_commit):
-        got = fn(tsnap, tst, tstatic.sig_match, dom, _t(choice), _t(kept),
+        given = kpair.copy_state(tst)
+        got = fn(tsnap, given, tstatic.sig_match, dom, _t(choice), _t(kept),
                  sign)
         _state_eq(want, got)
+        for f in ("counts", "anti", "match_tot"):
+            assert getattr(got, f) is getattr(given, f)
     # Taking back what was added gives the state back.
-    there = kpair.pair_commit(tsnap, tst, tstatic.sig_match, dom,
-                              _t(choice), _t(kept), 1.0)
+    there = kpair.pair_commit(tsnap, kpair.copy_state(tst),
+                              tstatic.sig_match, dom, _t(choice), _t(kept),
+                              1.0)
     back = kpair.pair_commit(tsnap, there, tstatic.sig_match, dom,
                              _t(choice), _t(kept), -1.0)
     for f in ("counts", "anti", "match_tot"):

@@ -63,6 +63,7 @@ SIGNATURES = {
     "tpusched_pair_counts": [_I] * 7 + [_P] * 14,
     "tpusched_pairwise_batch": [_I] * 7 + [_P] * 21,
     "tpusched_deal": [_I] * 5 + [_P] * 7,
+    "tpusched_deal_lists": [_I] * 7 + [_P] * 19,
     "tpusched_top_by_rank": [_I] * 3 + [_P] * 5,
     "tpusched_node_add": [_I] * 4 + [_P, _I] * 3 + [_P, _I, _P, _P, _I]
                          + [_P] * 3,
@@ -96,6 +97,8 @@ SIGNATURES = {
                            + [_P] * 7,
     "tpusched_ring_hop": [_I] * 7 + [_P] * 12,
     "tpusched_tableau_nv": [_I] * 7 + [_P] * 12 + [_F] + [_P] * 7,
+    "tpusched_claim_limits": [_I] * 4 + [_P],
+    "tpusched_shape_limits": [_P],
 }
 
 _lib: "ctypes.CDLL | None" = None

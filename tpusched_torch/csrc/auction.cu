@@ -1014,3 +1014,11 @@ extern "C" int tpusched_auction_claim(
       p_prio, p_req, used, alloc, could, margin, target, claimed, takes,
       vidx_t, freed, usage, could_bid);
 }
+
+extern "C" int tpusched_claim_limits(int N, int C, int Q, int K,
+                                     long long* out) {
+  out[0] = MAXR;
+  out[1] = CLAIM_SMEM_LIMIT;
+  out[2] = claim_smem_bytes(N, C, Q, K);
+  return 0;
+}

@@ -357,3 +357,9 @@ extern "C" int tpusched_explain_terms(
       q, t, counts, anti, match_tot, norms, kb, topi, topv, terms);
   return (int)cudaGetLastError();
 }
+
+extern "C" int tpusched_shape_limits(int* out) {
+  out[0] = MAX_R;
+  out[1] = tpusched::MAX_C;
+  return 0;
+}

@@ -151,6 +151,26 @@ int tpusched_deal(int B, int P, int L, int N, int R, const float* dem,
                   const float* rem, const long long* gather, float* cum_dem,
                   float* cum_rem, long long* pos, void* stream);
 
+// K23's hand-off (tpusched/kernels/assign.py _deal_commit from K7's
+// desirability to K8's lists; kernels/assign.py deal_lists_plain): desir
+// [N], alloc and used [N, R], req [V, R], allowed and rank [V], feasible
+// and masked [V, N] (only gathered), topv and topi [V, K], tie_pick [V]
+// (NULL: unseeded), K12's override cand and val [V, K + 1] and ok [V]
+// (all three NULL: none). scatter = 1: pod p's demand sits at row
+// rank[p] of the L-row demand column; 0: at row p (L = V). scratch:
+// [B, R, L] + [B, R, N] floats and [B, R, N] ints. Out: topi_o and topv_o
+// [V, K + 1], first [V] (topi's first column). Rows L and N <= 29 056.
+int tpusched_deal_lists(int B, int V, int L, int N, int R, int K,
+                        int scatter, const float* desir, const float* alloc,
+                        const float* used, const float* req,
+                        const bool* allowed, const int* rank,
+                        const bool* feasible, const float* masked,
+                        const float* topv, const int* topi,
+                        const int* tie_pick, const int* cand,
+                        const float* val, const bool* ok, float* scratch,
+                        int* topi_o, float* topv_o, int* first,
+                        void* stream);
+
 // K24 (tpusched/kernels/assign.py _top_by_rank). Over the pods in pop
 // order (order [P] int64), buf [C] gets the C lowest-rank pods with
 // pend set, by rank, then the others by rank; n_pend [1] the count of
@@ -446,6 +466,10 @@ int tpusched_auction_claim(int B, int Q, int threads, int C, int K, int N,
                            bool* takes, int* vidx_t, float* freed,
                            int* usage, bool* could_bid, void* stream);
 
+// K18's limits (tpusched_torch/limits.py holds copies): out [3] gets
+// MAXR, CLAIM_SMEM_LIMIT and claim_smem_bytes(N, C, Q, K). Host only.
+int tpusched_claim_limits(int N, int C, int Q, int K, long long* out);
+
 // K19 (assign.py _capacity_prefix_keep). After the caller's sort of the
 // rows by (node, rank) (perm: sorted row -> pod row, node_s: sorted nodes,
 // N for inactive rows): keep[p] = p lies in its node's longest rank-ordered
@@ -510,6 +534,10 @@ int tpusched_explain_terms(
     const float* w_na, const float* w_tt, const float* w_ts,
     const float* w_ia, const float* norms, int kb, const int* topi,
     const float* topv, float* terms, void* stream);
+
+// The per-pod tables' limits (tpusched_torch/limits.py holds copies):
+// out [2] gets cell.cuh's MAX_R and pairwise.cuh's MAX_C. Host only.
+int tpusched_shape_limits(int* out);
 
 // K21 (kernels/queue.py _rank, rank_full, window_select). Ranks the [Q]
 // pending table under (eligible first, priority desc, seq asc): prio [Q]

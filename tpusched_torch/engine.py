@@ -103,6 +103,7 @@ from tpusched_torch.kernels.assign import (
     solve_sequential,
 )
 from tpusched_torch.kernels.queue import k_bucket
+from tpusched_torch.limits import check_card_limits, check_config
 from tpusched_torch.mesh import mesh_device
 from tpusched_torch.ring import ring_sig_counts
 from tpusched_torch.snapshot import ClusterSnapshot, snapshot_from_numpy
@@ -389,6 +390,11 @@ class Engine:
             raise ValueError(f"device={device!r}: want 'cuda' or 'cpu'")
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self._sms = None
+        if self.device.type == "cuda":
+            check_config(cfg)
+            self._sms = torch.cuda.get_device_properties(
+                self.device).multi_processor_count
 
     @staticmethod
     def unpack(snap: ClusterSnapshot, buf) -> SolveResult:
@@ -422,7 +428,10 @@ class Engine:
 
     def _put(self, snap) -> tuple[ClusterSnapshot, int]:
         """put(snap) and the bytes it moved host -> device (0 for a
-        snapshot already on this device)."""
+        snapshot already on this device). On the card, a snapshot past
+        one of its limits is refused by name first (limits.py)."""
+        if self._sms is not None:
+            check_card_limits(self.config, snap, self._sms)
         if self._resident(snap):
             return snap, 0
         if not isinstance(snap, ClusterSnapshot):

@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Callable
 
 import numpy as np
@@ -920,6 +921,7 @@ def solve_sequential(cfg: EngineConfig, snap: ClusterSnapshot,
         dom_s = kpair.sig_domains(snap)
         st0 = ops.pair_counts(static.sig_match, dom_s, snap.running,
                               snap.pods, counts=init_counts)
+        kpair.check_commit_tables(snap, st0, static.sig_match, dom_s)
         if pctx is None:
             assigned, chosen, used, st = ops.parity_scan_pair(
                 cfg, snap, static, order, st0, dom_s)
@@ -1885,6 +1887,138 @@ def _desc_order(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(-x + 0.0, dim=-1, stable=True).indices
 
 
+def _deal_inputs(desir, alloc, used, requests, allowed, rank,
+                 rank_is_sorted: bool, cum_width: int | None):
+    """K23's inputs from the hand-off's: the node order (`_desc_order`),
+    the allowed pods' demand at its rows (at the pods' ranks, over
+    cum_width rows when given; in row order for a rank-sorted view), the
+    remaining capacity in node order (0 where the desirability is not
+    finite) and the rank gather (None: row order)."""
+    lead = rank.shape[:-1]                 # () or (B,): the tenant axis
+    P = rank.shape[-1]
+    N, R = alloc.shape[-2:]
+    zero = torch.zeros((), dtype=torch.float32, device=rank.device)
+    node_order = _desc_order(desir)
+    remaining = (alloc - used).clamp_min(0.0)
+    remaining = torch.where(torch.isfinite(desir)[..., None], remaining, zero)
+    rem_s = remaining.gather(-2, node_order[..., None].expand(*lead, N, R))
+    # Inclusive cumulative demand of allowed pods in rank order.
+    dem = torch.where(allowed[..., None], requests, zero)
+    if rank_is_sorted and cum_width is None:
+        return node_order, dem, rem_s, None
+    rank64 = rank.long()
+    rm = dem.new_zeros((*lead, P if cum_width is None else cum_width, R))
+    rm.scatter_(-2, rank64[..., None].expand(*lead, P, R), dem)
+    return node_order, rm, rem_s, rank64
+
+
+def deal_lists_plain(desir, alloc, used, requests, allowed, rank, feasible,
+                     masked, topv, topi, tie_pick=None, override=None,
+                     rank_is_sorted: bool = False,
+                     cum_width: int | None = None):
+    """The round's hand-off from K7 to K8, plain (JAX `_deal_commit`'s
+    dealing and candidate lists, tpusched/kernels/assign.py:815-853 and
+    the lists after it): the nodes by descending desirability
+    (`_desc_order`: -0.0 as +0.0, ties to the lower index; a non-finite
+    desirability zeroes the node's remaining capacity), K23's dealt
+    position of each allowed pod (`deal_plain`: the demand at the pods'
+    ranks, over cum_width rows when given, in row order for a
+    rank-sorted view), the dealt node at the head of each list where it
+    is feasible (seeded: where it scores below the pod's own pick, which
+    leads its own top-K), then K12's override (cand, val, ok). Returns
+    (topi [.., V, K+1] int32, topv [.., V, K+1] f32, first_best [.., V]
+    int32: the lowest-index maximum, topi's first column)."""
+    N = alloc.shape[-2]
+    node_order, dem, rem_s, gather = _deal_inputs(
+        desir, alloc, used, requests, allowed, rank, rank_is_sorted,
+        cum_width)
+    pos = deal_plain(dem, rem_s, gather)
+    dealt = node_order.gather(-1, pos.clamp(0, N - 1))
+    dealt_ok = feasible.gather(-1, dealt[..., None])[..., 0]
+    first_best = topi[..., 0]    # lowest-index maximum (jnp.argmax)
+    if tie_pick is not None:
+        # The seeded pick leads the pod's own list (same max score).
+        tp_val = masked.gather(-1, tie_pick.long()[..., None])[..., 0]
+        topi = torch.cat([tie_pick[..., None], topi[..., 1:]], dim=-1)
+        topv = torch.cat([tp_val[..., None], topv[..., 1:]], dim=-1)
+    dealt_score = masked.gather(-1, dealt[..., None])[..., 0]
+    use_dealt = dealt_ok
+    if tie_pick is not None:
+        # A dealt node that merely ties the pod's max yields to the hash
+        # pick; a strictly lower-scored one keeps its slot.
+        use_dealt = dealt_ok & (dealt_score < topv[..., 0])
+    topi = torch.cat([torch.where(use_dealt, dealt.to(torch.int32),
+                                  topi[..., 0])[..., None], topi], dim=-1)
+    topv = torch.cat([torch.where(use_dealt, dealt_score,
+                                  topv[..., 0])[..., None], topv], dim=-1)
+    if override is not None:
+        cand, val, ok = override
+        topi = torch.where(ok[..., None], cand, topi)
+        topv = torch.where(ok[..., None], val, topv)
+    return topi, topv, first_best
+
+
+def deal_lists(desir, alloc, used, requests, allowed, rank, feasible,
+               masked, topv, topi, tie_pick=None, override=None,
+               rank_is_sorted: bool = False, cum_width: int | None = None):
+    """K23's hand-off on CUDA tensors (csrc/dealing.cu: two launches for
+    every tenant), the plain version on CPU tensors. feasible and masked
+    are only gathered at the dealt node and the seeded pick."""
+    dev = rank.device
+    if dev.type == "cpu":
+        return deal_lists_plain(desir, alloc, used, requests, allowed, rank,
+                                feasible, masked, topv, topi, tie_pick,
+                                override, rank_is_sorted, cum_width)
+    k = "deal_lists"
+    lead = rank.shape[:-1]                 # () or (B,): the tenant axis
+    V = rank.shape[-1]
+    N, R = alloc.shape[-2:]
+    K = topi.shape[-1]
+    L = V if cum_width is None else cum_width
+    scatter = not (rank_is_sorted and cum_width is None)
+    if max(L, N) > _DEAL_SMEM // 8:
+        raise ValueError(f"{k}: {max(L, N)} rows, the scan takes at most "
+                         f"{_DEAL_SMEM // 8}")
+    check(k, dev, desir, torch.float32, (*lead, N))
+    check(k, dev, alloc, torch.float32, (*lead, N, R))
+    check(k, dev, used, torch.float32, (*lead, N, R))
+    check(k, dev, requests, torch.float32, (*lead, V, R))
+    check(k, dev, allowed, torch.bool, (*lead, V))
+    check(k, dev, rank, torch.int32, (*lead, V))
+    check(k, dev, feasible, torch.bool, (*lead, V, N))
+    check(k, dev, masked, torch.float32, (*lead, V, N))
+    check(k, dev, topv, torch.float32, (*lead, V, K))
+    check(k, dev, topi, torch.int32, (*lead, V, K))
+    if tie_pick is not None:
+        check(k, dev, tie_pick, torch.int32, (*lead, V))
+    cand = val = ok = None
+    if override is not None:
+        cand, val, ok = override
+        check(k, dev, cand, torch.int32, (*lead, V, K + 1))
+        check(k, dev, val, torch.float32, (*lead, V, K + 1))
+        check(k, dev, ok, torch.bool, (*lead, V))
+    B = lead[0] if lead else 1
+    topi_o = torch.empty((*lead, V, K + 1), dtype=torch.int32, device=dev)
+    topv_o = torch.empty((*lead, V, K + 1), dtype=torch.float32, device=dev)
+    first = torch.empty((*lead, V), dtype=torch.int32, device=dev)
+    if V == 0 or N == 0:
+        return topi_o, topv_o, first
+    # Scratch: the demand and capacity prefixes [B, R, L] and [B, R, N],
+    # then each capacity CTA's node order [B, R, N] (int32 bits).
+    scratch = torch.empty(B * R * (L + 2 * N), dtype=torch.float32,
+                          device=dev)
+    _build.launch("tpusched_deal_lists", B, V, L, N, R, K, int(scatter),
+                  *ptrs((desir, alloc, used, requests, allowed, rank,
+                         feasible, masked, topv, topi, tie_pick, cand, val,
+                         ok, scratch, topi_o, topv_o, first)),
+                  stream_of(dev))
+    deal_lists.launches += 1
+    return topi_o, topv_o, first
+
+
+deal_lists.launches = 0
+
+
 def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
                  topv, topi, tie_pick=None, rank_is_sorted: bool = False,
                  ops: "Ops | None" = None,
@@ -1895,7 +2029,8 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
     each row's top-K of `masked` (K6, ties to the lower index). Returns
     (used2, choice, chosen_val); choice[p] = committed node or -1.
 
-    Dealing (K23): the q-th allowed pod by rank targets the node where
+    Dealing (K23's hand-off, `deal_lists`: K7's desirability in, K8's
+    lists out): the q-th allowed pod by rank targets the node where
     the cumulative remaining capacity (nodes by descending desirability,
     K7) first covers the cumulative demand of pods 0..q, for every
     resource. The dealt node (when feasible) leads each pod's candidate
@@ -1929,55 +2064,20 @@ def _deal_commit(alloc, requests, used, feasible, masked, allowed, rank,
     ops = ops or KERNELS
     stats = stats or RoundStats()
     lead = rank.shape[:-1]                 # () or (B,): the tenant axis
-    P = rank.shape[-1]
-    N, R = alloc.shape[-2:]
+    N = alloc.shape[-2]
     dev = requests.device
     # Index of each tenant's row x[b, i[b]] (x[i] without a tenant axis).
     at = ((lambda i: (torch.arange(lead[0], device=dev), i)) if lead
           else (lambda i: (i,)))
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
     with stats.span("K7 desirability"):
         if cum_width is None:
             desir = ops.desirability(feasible, masked, allowed)
         else:
             desir = ops.desirability(feasible, masked, allowed, fixed=True)
-    node_order = _desc_order(desir)
-    remaining = (alloc - used).clamp_min(0.0)
-    remaining = torch.where(torch.isfinite(desir)[..., None], remaining, zero)
-    rem_s = remaining.gather(-2, node_order[..., None].expand(*lead, N, R))
-    # Inclusive cumulative demand of allowed pods in rank order.
-    dem = torch.where(allowed[..., None], requests, zero)
-    with stats.span("K23 deal"):
-        if rank_is_sorted and cum_width is None:
-            pos = ops.deal(dem, rem_s)
-        else:
-            rank64 = rank.long()
-            rm = dem.new_zeros((*lead, P if cum_width is None else cum_width,
-                                R))
-            rm.scatter_(-2, rank64[..., None].expand(*lead, P, R), dem)
-            pos = ops.deal(rm, rem_s, rank64)
-    dealt = node_order.gather(-1, pos.clamp(0, N - 1))
-    dealt_ok = feasible.gather(-1, dealt[..., None])[..., 0]
-    first_best = topi[..., 0]    # lowest-index maximum (jnp.argmax)
-    if tie_pick is not None:
-        # The seeded pick leads the pod's own list (same max score).
-        tp_val = masked.gather(-1, tie_pick.long()[..., None])[..., 0]
-        topi = torch.cat([tie_pick[..., None], topi[..., 1:]], dim=-1)
-        topv = torch.cat([tp_val[..., None], topv[..., 1:]], dim=-1)
-    dealt_score = masked.gather(-1, dealt[..., None])[..., 0]
-    use_dealt = dealt_ok
-    if tie_pick is not None:
-        # A dealt node that merely ties the pod's max yields to the hash
-        # pick; a strictly lower-scored one keeps its slot.
-        use_dealt = dealt_ok & (dealt_score < topv[..., 0])
-    topi = torch.cat([torch.where(use_dealt, dealt.to(torch.int32),
-                                  topi[..., 0])[..., None], topi], dim=-1)
-    topv = torch.cat([torch.where(use_dealt, dealt_score,
-                                  topv[..., 0])[..., None], topv], dim=-1)
-    if override is not None:
-        cand, val, ok = override
-        topi = torch.where(ok[..., None], cand, topi)
-        topv = torch.where(ok[..., None], val, topv)
+    with stats.span("K23 dealing"):
+        topi, topv, first_best = ops.deal_lists(
+            desir, alloc, used, requests, allowed, rank, feasible, masked,
+            topv, topi, tie_pick, override, rank_is_sorted, cum_width)
 
     with stats.span("K8 prefix_commit_loop"):
         used_j, choice, steps = ops.prefix_commit_loop(
@@ -3166,9 +3266,12 @@ def gang_rollback(snap: ClusterSnapshot, used: torch.Tensor,
 # plain dealing round over the _PREEMPT_DRAIN best-ranked pending pods;
 # at most _PREEMPT_MAX_ROUNDS rounds; a fast-mode preemptor evicts at most
 # _PREEMPT_VICTIM_CAP victims on one node (the node-major table's V).
+# The round cap reads the JAX package's override, TPUSCHED_PREEMPT_MAX_ROUNDS
+# (a profiling aid and an emergency latency cap), once, at import, as JAX
+# does; the explain outputs' per-round table is sized by it.
 _PREEMPT_BATCH = 1024
 _PREEMPT_DRAIN = 1024
-_PREEMPT_MAX_ROUNDS = 128
+_PREEMPT_MAX_ROUNDS = int(os.environ.get("TPUSCHED_PREEMPT_MAX_ROUNDS", 128))
 _PREEMPT_VICTIM_CAP = 16
 
 # The explained fast solve's per-round auction provenance: one row per
@@ -3638,6 +3741,7 @@ def solve_rounds(cfg: EngineConfig, snap: ClusterSnapshot,
         dom_s = kpair.sig_domains(snap)
         st0 = ops.pair_counts(static.sig_match, dom_s, snap.running, pods,
                               counts=init_counts)
+        kpair.check_commit_tables(snap, st0, static.sig_match, dom_s)
         invol, has_pair = _sig_involvement(snap, static, st0)
         used, assigned, st, chosen, round_of, rounds = _solve_rounds_sig(
             cfg, snap, static, rank, order, st0, invol, has_pair,
@@ -3862,6 +3966,7 @@ def solve_incremental(cfg: EngineConfig, snap: ClusterSnapshot,
     if S:
         dom_s = kpair.sig_domains(snap)
         st0 = ops.pair_counts(static.sig_match, dom_s, snap.running, pods)
+        kpair.check_commit_tables(snap, st0, static.sig_match, dom_s)
         invol, has_pair = _sig_involvement(snap, static, st0)
     carry = torch.where(pods.valid, carry, -1).contiguous()
     with stats.span("K20 frontier_closure"):
@@ -3873,6 +3978,8 @@ def solve_incremental(cfg: EngineConfig, snap: ClusterSnapshot,
                                            carried)
     used = ops.node_add(nodes.used, carry, carried, pods.requests, rank)
     if S:
+        # st0 is consumed here: the seeded rounds below start from `init`
+        # and read only its shapes (invol and has_pair came first).
         st = ops.pair_commit(snap, st0, static.sig_match, dom_s, carry,
                              carried, 1.0)
         # A spill can take away the match another carried pod's
@@ -3994,6 +4101,7 @@ class Ops:
     explain_cells: Callable
     explain_terms: Callable
     deal: Callable
+    deal_lists: Callable
     top_by_rank: Callable
     ring_hop: Callable
 
@@ -4009,7 +4117,8 @@ KERNELS = Ops(atom_sat, _tableau_cells, finalize_score, parity_scan, cycle,
               kpre.auction_tables,
               kpre.auction_rank, kpre.auction_claim, capacity_prefix_keep,
               frontier_closure, kexplain.explain_cells,
-              kexplain.explain_terms, deal, top_by_rank, kpair.ring_hop)
+              kexplain.explain_terms, deal, deal_lists, top_by_rank,
+              kpair.ring_hop)
 PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             parity_scan_plain, cycle_plain, row_topk_plain,
             desirability_plain, prefix_commit_plain,
@@ -4024,5 +4133,5 @@ PLAIN = Ops(atom_sat_plain, _tableau_cells_plain, finalize_score_plain,
             kpre.auction_tables_plain, kpre.auction_rank_plain,
             kpre.auction_claim_plain, capacity_prefix_keep_plain,
             frontier_closure_plain, kexplain.explain_cells_plain,
-            kexplain.explain_terms_plain, deal_plain, top_by_rank_plain,
-            kpair.ring_hop_plain)
+            kexplain.explain_terms_plain, deal_plain, deal_lists_plain,
+            top_by_rank_plain, kpair.ring_hop_plain)

@@ -760,16 +760,21 @@ def pair_commit_plain(snap: ClusterSnapshot, st: PairState,
                       sig_match: torch.Tensor, dom_s: torch.Tensor,
                       choice: torch.Tensor, commit_mask: torch.Tensor,
                       sign: float = 1.0) -> PairState:
-    """JAX pair_state_commit: add (sign +1) or take back (sign -1) the
-    contributions of the pending pods committed to choice[p] where
-    commit_mask[p]; the pods are the rows of `snap.pods` (a compacted
-    view's too) and sig_match's member columns past the running ones.
-    Returns a new state. Every added value is 0 or +-1 and every count
-    an integer below 2**24, so the sums are exact in any order. A tenant
-    batch goes tenant by tenant."""
+    """JAX pair_state_commit, in place: add (sign +1) or take back (sign
+    -1) the contributions of the pending pods committed to choice[p]
+    where commit_mask[p]; the pods are the rows of `snap.pods` (a
+    compacted view's too) and sig_match's member columns past the
+    running ones. The state passed in is consumed, as `pair_commit`'s
+    is: its tensors take the adds and are returned, so a caller that
+    still read the old state would read the new one. Every added value
+    is 0 or +-1 and every count an integer below 2**24, so the sums are
+    exact in any order. A tenant batch goes tenant by tenant, each into
+    its own slices of the same tensors."""
     if dom_s.dim() == 3:
-        return per_tenant(pair_commit_plain, dom_s.shape[0], snap, st,
-                          sig_match, dom_s, choice, commit_mask, sign)
+        for b in range(dom_s.shape[0]):
+            pair_commit_plain(snap.tenant(b), st.tenant(b), sig_match[b],
+                              dom_s[b], choice[b], commit_mask[b], sign)
+        return st
     M = snap.running.valid.shape[0]
     S = dom_s.shape[0]
     dev = dom_s.device
@@ -777,58 +782,73 @@ def pair_commit_plain(snap: ClusterSnapshot, st: PairState,
     pod_dom = dom_s[:, ch]                                   # [S, P]
     on = sig_match[:, M:] & commit_mask[None, :]
     rows = torch.arange(S, device=dev)[:, None].expand_as(pod_dom)
-    counts = st.counts.clone()
-    counts.index_put_((rows, pod_dom.clamp(min=0).long()),
-                      (on & (pod_dom >= 0)).to(torch.float32) * sign,
-                      accumulate=True)
-    match_tot = st.match_tot + on.to(torch.float32).sum(dim=1) * sign
-    anti = st.anti.clone()
+    st.counts.index_put_((rows, pod_dom.clamp(min=0).long()),
+                         (on & (pod_dom >= 0)).to(torch.float32) * sign,
+                         accumulate=True)
+    st.match_tot.add_(on.to(torch.float32).sum(dim=1) * sign)
     holds = pod_anti_holds(snap.pods)
     for t in range(snap.pods.ia_key.shape[1]):
         s = snap.pods.ia_sig[:, t].clamp(min=0).long()
         dom_p = dom_s[s, ch]
         hold = holds[:, t] & commit_mask & (dom_p >= 0)
-        anti.index_put_((s, dom_p.clamp(min=0).long()),
-                        hold.to(torch.float32) * sign, accumulate=True)
-    return PairState(counts=counts, anti=anti, match_tot=match_tot)
+        st.anti.index_put_((s, dom_p.clamp(min=0).long()),
+                           hold.to(torch.float32) * sign, accumulate=True)
+    return st
+
+
+def check_commit_tables(snap: ClusterSnapshot, st: PairState,
+                        sig_match: torch.Tensor, dom_s: torch.Tensor) -> None:
+    """Check the tables `pair_commit` reads that do not change inside a
+    solve: the domains, the member table, the pods' inter-pod terms and
+    the state's shapes. A solve checks them once, where its pair state is
+    made; `pair_commit` itself checks only what varies a call."""
+    dev = dom_s.device
+    k = "pair_commit"
+    lead = dom_s.shape[:-2]                # () or (B,): the tenant axis
+    S, N = dom_s.shape[-2:]
+    P = snap.pods.valid.shape[-1]
+    M = snap.running.valid.shape[-1]
+    check(k, dev, dom_s, torch.int32, (*lead, S, N))
+    check(k, dev, sig_match, torch.bool, (*lead, S, M + P))
+    _check_ia_terms(k, dev, snap.pods, (*lead, P), snap.pods.ia_sig.shape[-1])
+    _check_state(k, dev, st, (*lead, S), N)
 
 
 def pair_commit(snap: ClusterSnapshot, st: PairState,
                 sig_match: torch.Tensor, dom_s: torch.Tensor,
                 choice: torch.Tensor, commit_mask: torch.Tensor,
                 sign: float = 1.0) -> PairState:
-    """K10's commit entry point on CUDA tensors (into a copy of the
-    state), the plain version on CPU tensors."""
+    """K10's commit entry point on CUDA tensors, the plain version on CPU
+    tensors. The state passed in is consumed: the commit adds into its
+    tensors and returns them (no copy); a caller that needs the state as
+    it was keeps its own copy. The tables that do not change inside a
+    solve are checked once by `check_commit_tables`; a call checks
+    choice, commit_mask and sign."""
     dev = dom_s.device
     if dev.type == "cpu":
         return pair_commit_plain(snap, st, sig_match, dom_s, choice,
                                  commit_mask, sign)
-    pods = snap.pods
-    lead = dom_s.shape[:-2]                # () or (B,): the tenant axis
-    S, N = dom_s.shape[-2:]
-    P = pods.valid.shape[-1]
-    M = snap.running.valid.shape[-1]
-    IT = pods.ia_sig.shape[-1]
     k = "pair_commit"
     if sign not in (1.0, -1.0):
         raise ValueError(f"{k}: sign {sign}, want +1 or -1")
-    check(k, dev, dom_s, torch.int32, (*lead, S, N))
-    check(k, dev, sig_match, torch.bool, (*lead, S, M + P))
-    _check_ia_terms(k, dev, pods, (*lead, P), IT)
+    lead = dom_s.shape[:-2]                # () or (B,): the tenant axis
+    S, N = dom_s.shape[-2:]
+    P = choice.shape[-1]
     check(k, dev, choice, torch.int32, (*lead, P))
     check(k, dev, commit_mask, torch.bool, (*lead, P))
-    _check_state(k, dev, st, (*lead, S), N)
-    out = copy_state(st)
     if S * P == 0 or dom_s.numel() == 0:
-        return out
+        return st
     _build.launch("tpusched_pair_commit",
-                  *ptrs((lead[0] if lead else 1, S, N, M, P, IT, sig_match,
-                         dom_s, pods.ia_sig, pods.ia_valid, pods.ia_anti,
-                         pods.ia_required, choice, commit_mask, int(sign),
-                         out.counts, out.anti, out.match_tot)),
+                  *ptrs((lead[0] if lead else 1, S, N,
+                         sig_match.shape[-1] - P, P,
+                         snap.pods.ia_sig.shape[-1], sig_match, dom_s,
+                         snap.pods.ia_sig, snap.pods.ia_valid,
+                         snap.pods.ia_anti, snap.pods.ia_required, choice,
+                         commit_mask, int(sign), st.counts, st.anti,
+                         st.match_tot)),
                   stream_of(dev))
     pair_commit.launches += 1
-    return out
+    return st
 
 
 pair_commit.launches = 0

@@ -48,6 +48,7 @@ from tpusched_torch.config import EngineConfig
 from tpusched_torch.engine import solve_core
 from tpusched_torch.kernels import stack_tenants
 from tpusched_torch.kernels.assign import KERNELS, Ops, RoundStats
+from tpusched_torch.limits import check_card_limits
 from tpusched_torch.mesh import POD_AXIS, mesh_device
 from tpusched_torch.snapshot import ClusterSnapshot, snapshot_from_numpy
 
@@ -129,6 +130,9 @@ def solve_many(cfg: EngineConfig, stacked, device=None, mesh=None,
                              "of p)")
         i = mesh.coords[0]
         stacked = stacked.tenant(slice(i * B // p, (i + 1) * B // p))
+    if torch.device(device).type == "cuda":
+        check_card_limits(cfg, stacked, torch.cuda.get_device_properties(
+            device).multi_processor_count)
     snap = stacked.to(device)
     a, c, u, o, _, rounds, ev = solve_core(cfg, snap, ops=ops, stats=stats)
     out = (a, c, u, o, rounds, ev)
